@@ -1,0 +1,184 @@
+"""PyTorch port: package isolation, device selection and unported options.
+
+The port stands beside the JAX package and must not lean on it: no port
+module and not ``chip_smoke.py`` may load ``jax`` or any module of
+``parameter_server_tpu`` (whose name is a prefix of the port's own, so
+the check compares the exact name and the ``parameter_server_tpu.``
+prefix). Entry points run on the CUDA device unless the caller names
+another, and without a card they raise instead of running on the CPU.
+Config values of features the port does not have raise
+``NotImplementedError``.
+"""
+
+import dataclasses
+import os
+import pathlib
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import parameter_server_tpu_torch as port
+from parameter_server_tpu_torch import convert
+from parameter_server_tpu_torch.apps.linear import async_sgd as tsgd
+from parameter_server_tpu_torch.apps.linear import config as tcfg
+from parameter_server_tpu_torch.ops import ftrl as tftrl
+from parameter_server_tpu_torch.ops import ftrl_sparse as tsparse
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(port.__file__).resolve().parent
+
+
+def port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix=f"{port.__name__}.")
+    )
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_port_imports_nothing_of_jax():
+    mods = port_modules()
+    assert "parameter_server_tpu_torch.apps.linear.async_sgd" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'parameter_server_tpu'\n"
+        "             or m.startswith('parameter_server_tpu.'))\n"
+        "print('LOADED', len(sys.modules), 'BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+parameter_server_tpu(\.|\s|$)"
+    r"|from\s+parameter_server_tpu(\.|\s))",
+    re.M,
+)
+
+
+@pytest.mark.parametrize("where", ["package", "chip_smoke"])
+def test_port_sources_name_no_jax_import(where):
+    files = sorted(PKG.rglob("*.py")) if where == "package" else [ROOT / "chip_smoke.py"]
+    assert files
+    hits = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files
+        for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not hits, hits
+
+
+def _conf(**sgd):
+    c = tcfg.Config()
+    c.async_sgd = tcfg.SGDConfig(num_slots=1 << 12, minibatch=64, **sgd)
+    return c
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsgd.AsyncSGDWorker(_conf())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.state_from_jax({"z": torch.zeros(4).numpy()})
+    # the CPU runs only when asked for
+    w = tsgd.AsyncSGDWorker(_conf(), device="cpu")
+    assert w.device.type == "cpu" and w.update_path == "torch_ref"
+
+
+def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
+    """A tensor that is not on the CPU goes to the kernel route, which
+    launches or raises: there is no fallback to the plain version."""
+    kw = dict(alpha=0.1, beta=1.0, l1=1.0)
+    z = torch.zeros(8, device="meta")
+    n = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tftrl.ftrl_update(z, n, torch.zeros(8, device="meta"), **kw)
+    rel = torch.zeros(8, dtype=torch.int32, device="meta")
+    ok = torch.zeros(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tsparse.ftrl_sparse_update(z, n, rel, ok, torch.zeros(8, device="meta"), **kw)
+    assert tftrl.ftrl_update.launches == 0
+    assert tsparse.ftrl_sparse_update.launches == 0
+
+
+UNPORTED = [
+    ("max_delay", 4),
+    ("wire_encode", "delta"),
+    ("ell_lanes", 39),
+    ("wire", "bits"),
+    ("wire_compress", "zstd"),
+    ("wire_cache_mb", 64),
+    ("push_filter", [{"type": "fixing_float", "num_bytes": 1}]),
+    ("pull_filter", [{"type": "add_noise"}]),
+    ("kkt_filter", True),
+    ("tau_adaptive", True),
+    ("num_replicas", 1),
+]
+
+
+@pytest.mark.parametrize("field,value", UNPORTED, ids=[f for f, _ in UNPORTED])
+def test_unported_config_values_raise(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        _conf(**{field: value})
+    # set after construction: the worker validates again
+    c = _conf()
+    setattr(c.async_sgd, field, value)
+    with pytest.raises(NotImplementedError, match=field):
+        tsgd.AsyncSGDWorker(c, device="cpu")
+
+
+def test_every_unported_field_is_covered():
+    assert {f for f, _ in UNPORTED} == set(tcfg._UNPORTED)
+    names = {f.name for f in dataclasses.fields(tcfg.SGDConfig)}
+    assert set(tcfg._UNPORTED) <= names
+
+
+@pytest.mark.parametrize("field,value", [
+    ("update", "rows"), ("ftrl_state_dtype", "float16"), ("algo", "darlin"),
+])
+def test_unknown_config_values_raise(field, value):
+    with pytest.raises(ValueError):
+        _conf(**{field: value})
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No card: a non-zero exit and no result line."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=_clean_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
