@@ -9,35 +9,51 @@ the CUDA toolkit:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: both CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
+2. build: the three CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
    into ``build/torch_kernels/``;
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
-   main path's shapes, with CUDA-event times and the HBM-byte bound;
-4. main path: the port's ``AsyncSGDWorker`` trains the headline
+   main paths' shapes, with CUDA-event times and the HBM-byte bound; the
+   quantize kernel also against its statistical contract (round trip
+   within one step, unbiased mean);
+4. headline path: the port's ``AsyncSGDWorker`` trains the headline
    configuration (2^22-slot FTRL sparse logistic regression, 16384-row
    minibatches of 39 binary features, keys from 2^24, T=8 minibatches per
    launch) through the sparse kernel, then 8 dense ministeps through the
-   dense kernel and 8 sparse ministeps with bf16 sqrt_n. Launch counters
-   are zeroed before each path and read after it. The first 2 ministeps
-   of each configuration are held against the same worker on the CPU
-   (and run twice on the card, to report run-to-run determinism), and
-   ``evaluate`` answers a held-out batch;
-5. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   dense kernel and 8 sparse ministeps with bf16 sqrt_n. The first 2
+   ministeps of each configuration are held against the same worker on
+   the CPU (and run twice on the card, to report run-to-run determinism),
+   and ``evaluate`` answers a held-out batch;
+5. CTR path: ``configs/ctr/online_l1lr.conf`` through the port's CLI
+   (``parameter_server_tpu_torch.apps.linear.main``) on generated
+   SPARSE_BINARY shards, with only its data files and model output
+   pointed at a temporary directory: 2^22 slots, 10000-row minibatches,
+   the 1-byte FIXING_FLOAT push filter (the quantize kernel and the
+   masked dense kernel once per ministep), bounded delay 4, the count-min
+   tail filter, the conf's 10 passes. Its first ministeps are held
+   against the same CLI run on the CPU (objectives, pushed codes and
+   weights); then a few ministeps with a FIXING_FLOAT pull filter added
+   (two quantize launches per ministep);
+6. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
-Every time printed is measured on the card in this run. Full records go
-to ``chiprun_out/chip_smoke.json``.
+Launch counters are zeroed before each path and read after it. Every
+time printed is measured on the card in this run. Full records go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -46,11 +62,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from parameter_server_tpu_torch import kernels  # noqa: E402
+from parameter_server_tpu_torch.apps.linear import async_sgd  # noqa: E402
+from parameter_server_tpu_torch.apps.linear import main as linear_main  # noqa: E402
 from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
     prep_batch_shared,
     stack_prepped_batches,
 )
+from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     ALPHA,
     BETA,
@@ -61,7 +80,9 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     conf,
     make_batch,
 )
-from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse  # noqa: E402
+from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
+from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
+from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
 
@@ -142,21 +163,25 @@ def compare(kernel_out, plain_out, what: str) -> float:
 # -- phase 3: kernel parity at main-path shapes --
 
 
-def dense_case(p: int, n_dtype, masked: bool, seed, gen) -> dict:
+def dense_case(p: int, n_dtype, masked: bool, seed, gen, frac: float = 0.19,
+               extra: float = 0.05) -> dict:
+    """``frac``: the share of slots a batch touches (a headline batch
+    ~19% of a 2^22 table; the CTR path's is measured from its data);
+    ``extra``: the share the mask adds where the gradient is zero (the
+    CTR step's mask is exactly ``g != 0``)."""
     dev = "cuda"
     z0 = torch.randn(p, device=dev, generator=gen)
     n0 = (torch.rand(p, device=dev, generator=gen) * 2).to(n_dtype)
     g = torch.randn(p, device=dev, generator=gen)
-    # the dense step's gradient: a batch touches ~19% of a 2^22 table
-    g[torch.rand(p, device=dev, generator=gen) > 0.19] = 0.0
+    g[torch.rand(p, device=dev, generator=gen) > frac] = 0.0
     touched = None
     if masked:
-        touched = (g != 0) | (torch.rand(p, device=dev, generator=gen) < 0.05)
+        touched = (g != 0) | (torch.rand(p, device=dev, generator=gen) < extra)
     zk, nk, zr, nr = z0.clone(), n0.clone(), z0.clone(), n0.clone()
     ftrl.ftrl_update(zk, nk, g, touched, **FTRL_KW, seed=seed)
     ftrl.ftrl_update_ref(zr, nr, g, touched, **FTRL_KW, seed=seed)
     name = f"dense P=2^{p.bit_length() - 1} {'bf16' if n_dtype == torch.bfloat16 else 'f32'}" \
-        f"{' mask' if masked else ''}{' seed' if seed is not None else ''}"
+        f"{' mask' if masked else ''}{' seed' if seed is not None else ''} touched {frac:.3f}"
     err = compare((zk, nk), (zr, nr), name)
     keep = touched if masked else g != 0
     check(bool((zk != z0)[g != 0].float().mean() > 0.9), f"{name}: kernel left touched slots unchanged")
@@ -214,10 +239,13 @@ def sparse_case(n_dtype, seed, rel, ok, g_u, gen) -> dict:
 def reset_counts() -> None:
     ftrl.ftrl_update.launches = 0
     ftrl_sparse.ftrl_sparse_update.launches = 0
+    quantize.quantize.launches = 0
 
 
 def counts():
-    return ftrl_sparse.ftrl_sparse_update.launches, ftrl.ftrl_update.launches
+    """(sparse FTRL, dense FTRL, quantize) kernel launches since the reset."""
+    return (ftrl_sparse.ftrl_sparse_update.launches, ftrl.ftrl_update.launches,
+            quantize.quantize.launches)
 
 
 def run_launch(worker, group):
@@ -293,9 +321,10 @@ def headline(batches, timed: int) -> dict:
         obj = float(m["objective"])
         check(np.isfinite(obj) and float(m["num_ex"]) == T * MB, f"launch {k}: objective {obj}")
         objectives.append(obj / float(m["num_ex"]))
-    sparse_n, dense_n = counts()
-    check(sparse_n == T * (timed + 1) and dense_n == 0,
-          f"headline launch counts sparse={sparse_n} dense={dense_n}, want {T * (timed + 1)}/0")
+    sparse_n, dense_n, quant_n = counts()
+    check((sparse_n, dense_n, quant_n) == (T * (timed + 1), 0, 0),
+          f"headline launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n}, "
+          f"want {T * (timed + 1)}/0/0")
     ministeps = timed * T
     held_out = make_batch(10_000_000)
     ev = worker.evaluate(held_out)
@@ -327,12 +356,308 @@ def side_path(update: str, dtype: str, batches) -> dict:
     objs = [float(run_launch(worker, g)["objective"]) for g in groups]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sparse_n, dense_n = counts()
-    want = (T, 0) if update == "sparse" else (0, T)
-    check((sparse_n, dense_n) == want, f"{update} {dtype} launch counts {(sparse_n, dense_n)}, want {want}")
+    sparse_n, dense_n, quant_n = counts()
+    want = (T, 0, 0) if update == "sparse" else (0, T, 0)
+    check((sparse_n, dense_n, quant_n) == want,
+          f"{update} {dtype} launch counts {(sparse_n, dense_n, quant_n)}, want {want}")
     check(all(np.isfinite(o) for o in objs), f"{update} {dtype}: objective {objs}")
     return dict(sparse_launches=sparse_n, dense_launches=dense_n,
                 ms_per_ministep_with_prep=wall / T * 1e3, objective=objs)
+
+
+# -- phase 3b: the quantize kernel --
+
+QUANT_P = 1 << 22  # the CTR conf's table: the push quantizes the whole shard
+# arithmetic of one element: 9 f32 operations (sub, div, mul, convert,
+# scale, add, floor, two clamps) and 12 integer ones (the hash)
+QUANT_OPS = 21
+
+
+def quantize_case(p: int, nb: int, seed: int, gen, frac: float = 0.05, zero: bool = False) -> dict:
+    """Kernel against plain codes, bit for bit, on a pushed-gradient-like
+    input (``frac`` of the entries nonzero) or on zeros; then the
+    statistical contract of the codes."""
+    x = torch.zeros(p, device="cuda")
+    if not zero:
+        x = torch.randn(p, device="cuda", generator=gen)
+        x[torch.rand(p, device="cuda", generator=gen) > frac] = 0.0
+    lo, hi = fixing_float.quantize_range(x)
+    qk = quantize.launch_kernel(x, lo, hi, seed, nb)
+    qp = fixing_float.quantize_codes(x, lo, hi, seed, nb)
+    name = f"quantize P={p} b={nb} seed={seed}{' zeros' if zero else ''}"
+    torch.cuda.synchronize()
+    err = float((qk.to(torch.int32) - qp.to(torch.int32)).abs().max())
+    check(torch.equal(qk.view(torch.uint8), qp.view(torch.uint8)), f"{name}: kernel codes differ from plain (max {err})")
+    qw, low, hiw = quantize.quantize(x, seed, nb)
+    check(torch.equal(qw.view(torch.uint8), qk.view(torch.uint8)) and float(low) == float(lo)
+          and float(hiw) == float(hi), f"{name}: the wrapper differs from its parts")
+    back = quantize.dequantize(qk, lo, hi, nb)
+    lo_f, hi_f = float(lo), float(hi)
+    step = (hi_f - lo_f) / fixing_float.levels_of(nb)
+    trip = float((back - x).abs().max())
+    # one step, plus the f32 rounding of the three dequantize operations
+    slack = 1e-6 * max(1.0, abs(lo_f), abs(hi_f), hi_f - lo_f)
+    check(trip <= step + slack, f"{name}: round trip {trip} beyond one step {step}")
+    # unbiased: the mean rounding error over P elements, decoded in f64
+    # (the f32 decode's own rounding is systematic for the many equal
+    # zeros), within 4 standard errors of the stochastic rounding (each
+    # sd <= step / 2) plus the f32 resolution of the scaled value: its
+    # division, multiply and noise add each round by up to half an ulp
+    # of `levels`, the same for every equal input (0.6% of a step at b=2)
+    levels = fixing_float.levels_of(nb)
+    exact = qk.to(torch.int32).double() / levels * (hi_f - lo_f) + lo_f
+    bias = float((exact - x.double()).mean()) / step
+    se = 1 / (2 * p ** 0.5)
+    resolution = 1.5 * 2.0 ** (math.floor(math.log2(levels)) - 23)
+    check(abs(bias) <= 4 * se + resolution,
+          f"{name}: mean rounding error {bias:.3g} steps > 4 se {4 * se:.3g} + f32 {resolution:.3g}")
+    if zero:
+        check(torch.equal(back, x), f"{name}: zeros do not decode to zeros")
+    return dict(case=name, p=p, nb=nb, seed=seed, max_abs_err=err, round_trip=trip, step=step,
+                bias_steps=bias)
+
+
+def quantize_times(p: int, nb: int, gen, frac: float) -> dict:
+    x = torch.randn(p, device="cuda", generator=gen)
+    x[torch.rand(p, device="cuda", generator=gen) > frac] = 0.0
+    lo, hi = fixing_float.quantize_range(x)
+    b_ms, b_by = bound(p * (4 + nb), p * QUANT_OPS)
+    return dict(
+        case=f"quantize P={p} b={nb}",
+        ms=median_ms(lambda: quantize.launch_kernel(x, lo, hi, 5, nb)),
+        plain_ms=median_ms(lambda: fixing_float.quantize_codes(x, lo, hi, 5, nb)),
+        aminmax_ms=median_ms(lambda: fixing_float.quantize_range(x)),
+        bound_ms=b_ms, bound_by=b_by, bytes=p * (4 + nb),
+    )
+
+
+# -- phase 5: the CTR conf through the CLI --
+
+CTR_SHARDS, CTR_ROWS = 3, 30_000  # 9 minibatches of 10000 rows a pass
+AGREE_ROWS = 70_000  # 7 ministeps: the last 3 pull a learned snapshot (τ = 4)
+PULL_FILTER = "  pull_filter {\n    type: FIXING_FLOAT\n    num_bytes: 1\n  }\n"
+
+
+@contextlib.contextmanager
+def timed_cli():
+    """Times the phases of a CLI run by wrapping the reader and worker
+    methods it calls (host clock; upload and step end in a synchronize,
+    so each holds its device work). Yields the record it fills."""
+    rec = dict(parse_s=0.0, prep_s=0.0, upload_s=0.0, step_s=0.0, ministeps=0,
+               examples=[], worker=None, slots=[])
+    orig = dict(read=MinibatchReader.read, init=AsyncSGDWorker.__init__,
+                prep=AsyncSGDWorker.prep, upload=AsyncSGDWorker.upload,
+                submit=AsyncSGDWorker.submit)
+    sync = torch.cuda.synchronize
+
+    def read(self):
+        t0 = time.perf_counter()
+        out = orig["read"](self)
+        rec["parse_s"] += time.perf_counter() - t0
+        return out
+
+    def init(self, *a, **k):
+        orig["init"](self, *a, **k)
+        rec["worker"] = self
+
+    def prep(self, batch, device_put=True):
+        t0 = time.perf_counter()
+        out = orig["prep"](self, batch, device_put)
+        rec["prep_s"] += time.perf_counter() - t0
+        return out
+
+    def upload(self, prepped):
+        t0 = time.perf_counter()
+        out = orig["upload"](self, prepped)
+        sync()
+        rec["upload_s"] += time.perf_counter() - t0
+        return out
+
+    def submit(self, prepped, with_aux=True):
+        rec["examples"].append(prepped.num_examples)
+        rec["slots"].append(prepped.slots)
+        up0, t0 = rec["upload_s"], time.perf_counter()
+        out = orig["submit"](self, prepped, with_aux)
+        sync()
+        rec["step_s"] += time.perf_counter() - t0 - (rec["upload_s"] - up0)
+        rec["ministeps"] += 1
+        return out
+
+    patches = [(MinibatchReader, "read", read), (AsyncSGDWorker, "__init__", init),
+               (AsyncSGDWorker, "prep", prep), (AsyncSGDWorker, "upload", upload),
+               (AsyncSGDWorker, "submit", submit)]
+    for cls, name, fn in patches:
+        setattr(cls, name, fn)
+    try:
+        yield rec
+    finally:
+        MinibatchReader.read = orig["read"]
+        for name in ("init", "prep", "upload", "submit"):
+            setattr(AsyncSGDWorker, "__init__" if name == "init" else name, orig[name])
+
+
+@contextlib.contextmanager
+def recorded_wire():
+    """Records, on the host, the codes, range and nonzero mask of every
+    quantization the step's wire makes (its module's ``qops.quantize``;
+    the kernel and its launch count are untouched). Yields the list it
+    fills."""
+    seen, qops = [], async_sgd.qops
+
+    def quantize_rec(x, seed, num_bytes=1):
+        q, lo, hi = qops.quantize(x, seed, num_bytes)
+        seen.append((q.cpu(), float(lo), float(hi), (x != 0).cpu()))
+        return q, lo, hi
+
+    async_sgd.qops = types.SimpleNamespace(quantize=quantize_rec, dequantize=qops.dequantize)
+    try:
+        yield seen
+    finally:
+        async_sgd.qops = qops
+
+
+def run_cli(conf_text: str, path: str, device: str) -> dict:
+    """The port's CLI on a conf, as a user runs it; returns the timed record."""
+    with open(path, "w") as f:
+        f.write(conf_text)
+    with timed_cli() as rec:
+        t0 = time.perf_counter()
+        rc = linear_main.main([path], device=device)
+        rec["wall_s"] = time.perf_counter() - t0
+    check(rc == 0, f"CLI on {path} ({device}) exited {rc}")
+    w = rec["worker"]
+    rec["objective"] = [o / e for o, e in zip(w.progress.objective, rec["examples"])]
+    check(len(rec["objective"]) == rec["ministeps"] > 0 and all(np.isfinite(rec["objective"])),
+          f"CLI on {path} ({device}): objective {rec['objective']}")
+    return rec
+
+
+def model_nonzeros(path: str) -> int:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0].startswith("#hashed\t"), f"{path}: no #hashed header")
+    vals = [float(line.split("\t")[1]) for line in lines[1:]]
+    check(all(np.isfinite(v) and v != 0 for v in vals), f"{path}: a zero or non-finite weight")
+    return len(vals)
+
+
+def touched_share(rec: dict, num_slots: int) -> float:
+    """The mean share of the table a ministep's batch touches (distinct
+    owned slots over the table), over every batch the run submitted."""
+    shares = []
+    for slots in rec.pop("slots"):
+        s = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots)
+        shares.append(np.unique(s[s < num_slots]).size / num_slots)
+    return float(np.mean(shares))
+
+
+def ctr_path(tmp: str, seed: int) -> dict:
+    """The CTR conf through the CLI on the card, every ministep counted."""
+    write_ctr_shards(os.path.join(tmp, "train"), CTR_SHARDS, CTR_ROWS, seed)
+    model = os.path.join(tmp, "model", "ctr_online")
+    text = ctr_conf(os.path.join(tmp, "train", "part.*"), model)
+    reset_counts()
+    rec = run_cli(text, os.path.join(tmp, "ctr.conf"), "cuda")
+    sparse_n, dense_n, quant_n = counts()
+    n = rec["ministeps"]
+    check((sparse_n, dense_n, quant_n) == (0, n, n),
+          f"CTR launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n}, want 0/{n}/{n}")
+    worker = rec.pop("worker")
+    check(worker.update_path == "cuda_dense" and worker.sgd.max_delay == 4,
+          f"CTR worker: {worker.update_path}, max_delay {worker.sgd.max_delay}")
+    touched = touched_share(rec, worker.num_slots)
+    examples = sum(rec.pop("examples"))
+    return dict(
+        passes=worker.sgd.num_data_pass, ministeps=n, examples=examples, sparse_launches=sparse_n,
+        dense_launches=dense_n, quantize_launches=quant_n, touched_frac=touched,
+        parse_ms_per_ministep=rec["parse_s"] / n * 1e3, prep_ms_per_ministep=rec["prep_s"] / n * 1e3,
+        upload_ms_per_ministep=rec["upload_s"] / n * 1e3, step_ms_per_ministep=rec["step_s"] / n * 1e3,
+        wall_s=rec["wall_s"], examples_per_s_e2e=examples / rec["wall_s"],
+        objective_first=rec["objective"][0], objective_last=rec["objective"][-1],
+        model_nonzeros=model_nonzeros(model + "_S0"), num_slots=worker.num_slots,
+    )
+
+
+def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
+    """The CTR conf's first 7 ministeps (one pass over a 70000-row shard)
+    on the card and on the CPU; both draw the same quantization noise.
+    Then the same with a FIXING_FLOAT pull filter on the card: two
+    quantize launches per ministep.
+
+    What must agree, and how closely:
+    - the first τ ministeps pull the zero table, so every row gradient
+      is ±1/2 and each pushed shard gradient an exact sum: their codes
+      and ranges are bit-equal;
+    - later pushes are sums in another order (the card's atomics), so a
+      code may differ by one, and the range by its last bits (a code
+      counts where the pushed entry is nonzero: the wire zeroes the
+      rest);
+    - objectives within 1e-5 relative (the unfiltered agreement's bar):
+      with τ = 4 all 7 forward passes read the zero table or the
+      snapshot after the 4 exact ministeps, so only their sums' order
+      differs;
+    - weights within what the pushes' differences explain. A code one
+      apart, or a shifted range, moves a decoded gradient by at most
+      ``e = step * [codes differ] + 2 |Δlo| + |Δhi|``; from one such
+      gradient, ``z`` moves by at most ``e (1 + |w|/α)`` and ``√n`` by
+      ``e`` (tests/test_torch_filtered_wire.py); the weight
+      ``-(z - λ1 sgn z) / ((β + √n)/α + λ2)`` moves by at most ``α/β``
+      times the first and ``|w|/β`` times the second. So each weight
+      within ``S (α + 2|w|) / β`` with ``S`` the sum of ``e`` over the
+      ministeps, ``|w|`` the larger of the two runs', plus the last-bit
+      tolerance (rtol 1e-5, atol 1e-6). With no code apart and equal
+      ranges that is the last-bit tolerance alone."""
+    write_ctr_shards(os.path.join(tmp, "agree"), 1, AGREE_ROWS, seed)
+    data = os.path.join(tmp, "agree", "part.*")
+    runs, pushes = {}, {}
+    for dev in ("cuda", "cpu"):
+        text = ctr_conf(data, os.path.join(tmp, f"agree_{dev}"), num_data_pass=1)
+        with recorded_wire() as pushes[dev]:
+            runs[dev] = run_cli(text, os.path.join(tmp, f"agree_{dev}.conf"), dev)
+    oc, oh = runs["cuda"]["objective"], runs["cpu"]["objective"]
+    n = AGREE_ROWS // 10_000
+    check(len(oc) == len(oh) == len(pushes["cuda"]) == len(pushes["cpu"]) == n,
+          f"CTR agree: ministeps {len(oc)}/{len(oh)}, pushes {len(pushes['cuda'])}/{len(pushes['cpu'])}")
+    rel_gap = max(abs(a - b) / abs(b) for a, b in zip(oc, oh))
+    check(rel_gap <= 1e-5, f"CTR first ministeps card {oc} vs CPU {oh}")
+    check(oc[-1] < oc[0], f"CTR agree: the card's run did not learn {oc}")
+    worker = runs["cpu"]["worker"]
+    tau, levels = worker.sgd.max_delay, fixing_float.levels_of(1)
+    codes_apart, e_sum = [], 0.0
+    for t, ((qc, loc, hic, nzc), (qh, loh, hih, nzh)) in enumerate(zip(pushes["cuda"], pushes["cpu"])):
+        check(torch.equal(nzc, nzh), f"CTR push {t}: the pushed support differs")
+        d = (qc.int() - qh.int()).abs()
+        apart = int(((d != 0) & nzh).sum())
+        codes_apart.append(apart)
+        if t < tau:
+            check(torch.equal(qc, qh) and (loc, hic) == (loh, hih),
+                  f"CTR push {t} on the zero table: {apart} codes apart, range {(loc, hic)} vs {(loh, hih)}")
+        check(int(d.max()) <= 1, f"CTR push {t}: a code {int(d.max())} apart")
+        step = max(hic - loc, hih - loh) / levels
+        e_sum += step * (apart > 0) + 2 * abs(loc - loh) + abs(hic - hih)
+    alpha, beta = worker.conf.learning_rate.alpha, worker.conf.learning_rate.beta
+    wc = runs["cuda"]["worker"].weights_dense()
+    wh = worker.weights_dense()
+    w_abs = np.maximum(np.abs(wc), np.abs(wh))
+    allowed = e_sum * (alpha + 2 * w_abs) / beta * (1 + 1e-4) + TRAJ_TOL["rtol"] * w_abs + TRAJ_TOL["atol"]
+    w_diff = np.abs(wc - wh)
+    check(bool(np.all(w_diff <= allowed)),
+          f"CTR weights card vs CPU: max |diff| {float(w_diff.max())}, worst over its bound "
+          f"{float((w_diff / allowed).max())} (codes apart per ministep {codes_apart})")
+    text = ctr_conf(data, os.path.join(tmp, "pull"), num_data_pass=1).replace(
+        "async_sgd {\n", "async_sgd {\n" + PULL_FILTER)
+    reset_counts()
+    pull = run_cli(text, os.path.join(tmp, "pull.conf"), "cuda")
+    sparse_n, dense_n, quant_n = counts()
+    n = pull["ministeps"]
+    check((sparse_n, dense_n, quant_n) == (0, n, 2 * n),
+          f"pull-filter launch counts {(sparse_n, dense_n, quant_n)}, want 0/{n}/{2 * n}")
+    return dict(objective_card=oc, objective_cpu=oh, objective_rel_gap=rel_gap,
+                codes_apart=codes_apart, decode_bound_sum=e_sum,
+                max_abs_weight_diff=float(w_diff.max()),
+                weight_diff_over_bound=float((w_diff / allowed).max()),
+                pull_ministeps=n, pull_quantize_launches=quant_n, pull_dense_launches=dense_n,
+                pull_objective=pull["objective"], pull_step_ms_per_ministep=pull["step_s"] / n * 1e3)
 
 
 def main() -> int:
@@ -375,6 +700,18 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} B, live {r['live']}) "
               f"[{smi}]", flush=True)
 
+    quant_rows = [quantize_case(QUANT_P, nb, seed, gen) for nb in (1, 2) for seed in (1, 77, 123457)]
+    quant_rows += [quantize_case(QUANT_P - 3, nb, 9, gen) for nb in (1, 2)]
+    quant_rows += [quantize_case(QUANT_P, nb, 9, gen, zero=True) for nb in (1, 2)]
+    for r in quant_rows:
+        print(f"# parity {r['case']}: bit-equal; round trip {r['round_trip']:.3g} <= step "
+              f"{r['step']:.3g}; mean error {r['bias_steps']:+.3g} steps", flush=True)
+    quant_times = [quantize_times(QUANT_P, nb, gen, 0.05) for nb in (1, 2)]
+    for r in quant_times:
+        print(f"# time {r['case']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"aminmax (lo/hi) {r['aminmax_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes']} B) [{smi}]", flush=True)
+
     batches = [make_batch(args.seed + i) for i in range(T * (args.timed_launches + 1))]
     deterministic = {
         f"{update} {dtype}": agree_with_cpu(update, dtype, batches)
@@ -395,8 +732,37 @@ def main() -> int:
     print(f"# bf16 sparse path: {bf16['sparse_launches']} sparse launches, "
           f"{bf16['ms_per_ministep_with_prep']:.3f} ms/ministep with prep", flush=True)
 
-    main_dense = dense_rows[1]  # f32, membership g != 0: what the dense step runs
+    with tempfile.TemporaryDirectory(prefix="ctr_smoke_") as tmp:
+        ctr = ctr_path(tmp, args.seed)
+        print(f"# CTR conf via CLI (card's own numbers, {smi}): {ctr['ministeps']} ministeps "
+              f"({ctr['passes']} passes), launches quantize {ctr['quantize_launches']}, masked dense "
+              f"FTRL {ctr['dense_launches']}, sparse {ctr['sparse_launches']}; per ministep: host "
+              f"parse+tail filter {ctr['parse_ms_per_ministep']:.3f} ms, prep "
+              f"{ctr['prep_ms_per_ministep']:.3f} ms, upload {ctr['upload_ms_per_ministep']:.3f} ms, "
+              f"step {ctr['step_ms_per_ministep']:.3f} ms; {ctr['examples_per_s_e2e']:.0f} ex/s end to "
+              f"end ({ctr['wall_s']:.1f} s); objective {ctr['objective_first']:.5f} -> "
+              f"{ctr['objective_last']:.5f}; model nonzeros {ctr['model_nonzeros']}; a batch touches "
+              f"{ctr['touched_frac']:.6f} of the table on average", flush=True)
+        agree = ctr_agree_and_pull(tmp, args.seed + 1)
+    print(f"# CTR first {len(agree['objective_card'])} ministeps, card vs CPU: "
+          f"{['%.5f' % x for x in agree['objective_card']]} vs "
+          f"{['%.5f' % x for x in agree['objective_cpu']]} (largest relative gap "
+          f"{agree['objective_rel_gap']:.3g}, bar 1e-5; pushed codes apart per ministep "
+          f"{agree['codes_apart']}; weights max |diff| {agree['max_abs_weight_diff']:.3g}, "
+          f"{agree['weight_diff_over_bound']:.3g} of its bound)", flush=True)
+    print(f"# CTR + pull filter: {agree['pull_ministeps']} ministeps, quantize "
+          f"{agree['pull_quantize_launches']}, masked dense FTRL {agree['pull_dense_launches']}; "
+          f"step {agree['pull_step_ms_per_ministep']:.3f} ms/ministep", flush=True)
+    ctr_dense = dense_case(ctr["num_slots"], torch.float32, True, None, gen,
+                           frac=ctr["touched_frac"], extra=0.0)
+    dense_rows.append(ctr_dense)
+    print(f"# parity {ctr_dense['case']} (the CTR step's update): bit-equal; kernel "
+          f"{ctr_dense['ms']:.4f} ms, plain {ctr_dense['plain_ms']:.4f} ms, bound "
+          f"{ctr_dense['bound_ms']:.4f} ms ({ctr_dense['bound_by']}) [{smi}]", flush=True)
+
+    main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
+    main_quant = quant_times[0]  # the conf's 1-byte push
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -409,15 +775,24 @@ def main() -> int:
         dict(name="ftrl_dense_kernel", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_dense.cu",
              replaces="parameter_server_tpu/ops/ftrl.py:265",
-             launches=dense["dense_launches"],
+             launches=ctr["dense_launches"],
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
              library_ms=None),
+        dict(name="quantize_kernel", route="cuda",
+             source="parameter_server_tpu_torch/kernels/csrc/quantize.cu",
+             replaces="parameter_server_tpu/ops/quantize.py:68",
+             launches=ctr["quantize_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in quant_rows),
+             ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
+             bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
+             library_ms=None),
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_seconds=build_s, parity=dense_rows + sparse_rows,
-                  headline=head, dense_path=dense, bf16_path=bf16, kernels=kernel_line["kernels"],
+                  build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
+                  quantize_times=quant_times, headline=head, dense_path=dense, bf16_path=bf16,
+                  ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -1,0 +1,254 @@
+"""Text format parsers: lines -> ``SparseBatch``.
+
+Counterpart of the pure-Python line path of
+``parameter_server_tpu/data/text_parser.py`` (the reference's
+``ExampleParser``) for the three formats the port's confs use: libsvm
+("label idx:val ..."), criteo (label, 13 integer counts, 26 categorical
+tokens, tab-separated) and the parameter server's SPARSE_BINARY
+("label; group key key ...;"). The JAX package's native C++ parser is
+its own library and is not loaded: the JAX package holds it bit-identical
+to this line path. Other formats raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import List, Optional
+
+import numpy as np
+
+from ..utils.murmur import murmur3_x64_128
+from ..utils.sparse import SparseBatch
+
+# per-slot key striping for multi-slot formats
+SLOT_SPACE = 1 << 52
+
+
+def _batch_from_rows(
+    labels: List[float],
+    row_keys: List[np.ndarray],
+    row_vals: Optional[List[np.ndarray]],
+    row_slots: Optional[List[np.ndarray]] = None,
+) -> SparseBatch:
+    n = len(labels)
+    counts = np.array([len(k) for k in row_keys], dtype=np.int64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    has_entries = bool(n and indptr[-1])
+    indices = np.concatenate(row_keys).astype(np.int64) if has_entries else np.zeros(0, np.int64)
+    values = None
+    if row_vals is not None:
+        values = (
+            np.concatenate(row_vals).astype(np.float32) if has_entries
+            else np.zeros(0, np.float32)
+        )
+    slot_ids = None
+    if row_slots is not None:
+        slot_ids = (
+            np.concatenate(row_slots).astype(np.int32) if has_entries
+            else np.zeros(0, np.int32)
+        )
+    return SparseBatch(
+        y=np.asarray(labels, dtype=np.float32),
+        indptr=indptr,
+        indices=indices,
+        values=values,
+        slot_ids=slot_ids,
+    )
+
+
+_DECFLOAT_RE = re.compile(r"[+-]?(?:\d+(?:\.\d*)?|\.\d+)(?:[eE][+-]?\d+)?\Z")
+# the reference parses numeric tokens through a 64-byte scratch buffer:
+# longer tokens are malformed
+_MAX_NUM_TOK = 63
+# tokens split on space, tab and \r only (not \x0b/\x0c like str.split)
+_WS_SPLIT = re.compile(r"[ \t\r]+")
+_DECINT_RE = re.compile(r"([+-]?)(\d+)\Z")
+_U64_MASK = (1 << 64) - 1
+
+
+def _decfloat_ok(tok: str) -> bool:
+    return len(tok) <= _MAX_NUM_TOK and _DECFLOAT_RE.match(tok) is not None
+
+
+def _parse_u64(tok: str):
+    """strtou64 semantics: optional sign (negation wraps modulo 2^64),
+    clamped to ULLONG_MAX before negating, the whole token consumed.
+    Returns the uint64 value or None; an empty token is 0."""
+    if tok == "":
+        return 0
+    m = _DECINT_RE.match(tok)
+    if not m:
+        return None
+    # leading zeros carry no magnitude: strip them before the digit-count
+    # overflow guard (CPython also caps int() at 4300 digits)
+    digits = m.group(2).lstrip("0") or "0"
+    mag = _U64_MASK if len(digits) > 20 else min(int(digits), _U64_MASK)
+    return (_U64_MASK + 1 - mag) & _U64_MASK if m.group(1) == "-" else mag
+
+
+def _wrap_i64(x: int) -> int:
+    """Fold a Python int into int64 two's-complement range."""
+    x &= _U64_MASK
+    return x - (1 << 64) if x > (1 << 63) - 1 else x
+
+
+def _wrap_i32(x: int) -> int:
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x > (1 << 31) - 1 else x
+
+
+def parse_libsvm(lines: List[str]) -> SparseBatch:
+    """libsvm: every feature in feature-group slot 1. Reference-strict:
+    the label and each value must be a full decimal-float token, each
+    feature token must hold ':', indices parse as strtou64 and must be
+    non-decreasing, and any malformed token drops the whole line. Empty
+    sub-tokens are 0 (":val" is feature 0, "idx:" is value 0.0)."""
+    labels, keys, vals, slots = [], [], [], []
+    for line in lines:
+        parts = [t for t in _WS_SPLIT.split(line.rstrip("\n")) if t]
+        if not parts or not _decfloat_ok(parts[0]):
+            continue
+        label = float(parts[0])
+        k, v = [], []
+        last_idx = 0
+        ok = True
+        for tok in parts[1:]:
+            i, colon, x = tok.partition(":")
+            if not colon:
+                ok = False
+                break
+            idx = _parse_u64(i)
+            if idx is None or last_idx > idx:
+                ok = False
+                break
+            last_idx = idx
+            if x == "":
+                val = 0.0
+            elif _decfloat_ok(x):
+                val = float(x)
+            else:
+                ok = False
+                break
+            k.append(_wrap_i64(idx))
+            v.append(val)
+        if not ok:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        keys.append(np.asarray(k, dtype=np.int64))
+        vals.append(np.asarray(v, dtype=np.float32))
+        slots.append(np.ones(len(k), dtype=np.int32))
+    return _batch_from_rows(labels, keys, vals, slots)
+
+
+_CRITEO_STRIPE = ((1 << 64) - 1) // 13  # the reference's kMaxKey / 13
+_CRITEO_SEED = 512927377
+_CRITEO_INT_RE = re.compile(r" *([+-]?)(\d+)\Z")
+
+
+def parse_criteo(lines: List[str]) -> SparseBatch:
+    """criteo: label, 13 integer counts, 26 categorical tokens, all
+    binary keys. Integer field i with count c is key ``kMaxKey/13*i + c``
+    (an empty field is count 0; a malformed one is skipped); a
+    categorical token longer than 4 characters is ``h0 ^ h1`` of its
+    MurmurHash3_x64_128 with seed 512927377. Lines with fewer than 40
+    fields are dropped. Slots: integer i -> i+1, categorical i -> i+14."""
+    labels, keys, slots = [], [], []
+    for line in lines:
+        f = line.rstrip("\n").split("\t")
+        if len(f) < 40:
+            continue
+        lbl_tok = f[0].lstrip(" ")
+        if f[0] == "":
+            label = 0.0
+        elif _decfloat_ok(lbl_tok):
+            label = float(lbl_tok)
+        else:
+            continue
+        k, s = [], []
+        for i, tok in enumerate(f[1:14]):
+            if tok == "":
+                k.append((_CRITEO_STRIPE * i) & _U64_MASK)
+                s.append(i + 1)
+                continue
+            m = _CRITEO_INT_RE.match(tok)
+            if not m:
+                continue
+            # strtol: leading zeros carry no magnitude; clamp on overflow,
+            # then truncate to int32
+            digits = m.group(2).lstrip("0") or "0"
+            raw = (1 << 63) if len(digits) > 19 else int(digits)
+            if raw > (1 << 63) - 1:
+                cnt64 = -(1 << 63) if m.group(1) == "-" else (1 << 63) - 1
+            else:
+                cnt64 = -raw if m.group(1) == "-" else raw
+            k.append((_CRITEO_STRIPE * i + _wrap_i32(cnt64)) & _U64_MASK)
+            s.append(i + 1)
+        for i, tok in enumerate(f[14:40]):
+            if len(tok) > 4:
+                h0, h1 = murmur3_x64_128(tok.encode(), _CRITEO_SEED)
+                k.append(h0 ^ h1)
+                s.append(i + 14)
+        labels.append(1.0 if label > 0 else -1.0)
+        keys.append(np.asarray(k, dtype=np.uint64).view(np.int64))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, None, slots)
+
+
+def parse_ps_sparse_binary(lines: List[str]) -> SparseBatch:
+    """SPARSE_BINARY: "label;grp_id key key ...;" -- every token after
+    the group id is a bare uint64 key, values implicitly 1; keys are
+    striped by group (``grp_id * 2^52 + key``), the group id is the slot."""
+    labels, keys, slots = [], [], []
+    for line in lines:
+        groups = [g for g in line.strip().split(";") if g]
+        if not groups:
+            continue
+        try:
+            label = float(groups[0])
+        except ValueError:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        k, s = [], []
+        for grp in groups[1:]:
+            toks = grp.split()
+            if not toks:
+                continue
+            try:
+                gid = int(toks[0])
+            except ValueError:
+                continue
+            for tok in toks[1:]:
+                try:
+                    k.append(_wrap_i64(gid * SLOT_SPACE + int(tok)))
+                    s.append(_wrap_i32(gid))
+                except ValueError:
+                    continue
+        keys.append(np.asarray(k, dtype=np.int64))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, None, slots)
+
+
+_PARSERS = {
+    "libsvm": parse_libsvm,
+    "criteo": parse_criteo,
+    "ps_sparse_binary": parse_ps_sparse_binary,
+}
+_NOT_PORTED = ("adfea", "terafea", "ps", "ps_sparse", "ps_dense")
+
+
+class ExampleParser:
+    """Format-dispatching line parser."""
+
+    def __init__(self, format_: str = "libsvm"):
+        f = format_.lower()
+        if f in _NOT_PORTED:
+            raise NotImplementedError(
+                f"text format {format_!r} is not ported to the PyTorch package yet"
+            )
+        if f not in _PARSERS:
+            raise ValueError(f"unknown text format: {format_}")
+        self.format = f
+
+    def parse_lines(self, lines: List[str]) -> SparseBatch:
+        return _PARSERS[self.format](lines)

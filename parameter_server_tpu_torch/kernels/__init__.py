@@ -49,6 +49,7 @@ _SIGNATURES = {
         "ftrl_sparse_launch",
         [_P, _P, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
     ),
+    "quantize": ("quantize_launch", [_P, _P, _P, _P, _I, _LL, _U, _P]),
 }
 
 _lock = threading.Lock()

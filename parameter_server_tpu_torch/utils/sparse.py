@@ -24,6 +24,9 @@ class SparseBatch:
     indices: np.ndarray  # [nnz] int64 feature keys
     values: Optional[np.ndarray] = None  # [nnz] float32, None if binary
     num_cols: Optional[int] = None
+    # per-entry feature-group ids (the reference Example proto's Slot.id),
+    # as the text parsers emit them; None when the source has none
+    slot_ids: Optional[np.ndarray] = None  # [nnz] int32
 
     @property
     def n(self) -> int:
@@ -56,6 +59,7 @@ class SparseBatch:
             indices=self.indices[lo:hi],
             values=None if self.binary else self.values[lo:hi],
             num_cols=self.num_cols,
+            slot_ids=None if self.slot_ids is None else self.slot_ids[lo:hi],
         )
 
 

@@ -49,7 +49,9 @@ def _clean_env():
 
 def test_port_imports_nothing_of_jax():
     mods = port_modules()
-    assert "parameter_server_tpu_torch.apps.linear.async_sgd" in mods
+    for m in ("apps.linear.async_sgd", "apps.linear.main", "ops.quantize",
+              "filter.fixing_float", "data.text_parser", "learner.workload_pool"):
+        assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -58,6 +60,9 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'parameter_server_tpu'\n"
         "             or m.startswith('parameter_server_tpu.'))\n"
+        "import os\n"
+        "if os.path.exists('/proc/self/maps') and 'psnative' in open('/proc/self/maps').read():\n"
+        "    bad.append('libpsnative, the native library of the JAX package')\n"
         "print('LOADED', len(sys.modules), 'BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -67,6 +72,40 @@ def test_port_imports_nothing_of_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+def _write_cli_conf(tmp_path) -> pathlib.Path:
+    from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards
+
+    write_ctr_shards(str(tmp_path / "train"), 1, 200, seed=0, key_bits=12)
+    conf = tmp_path / "ctr.conf"
+    conf.write_text(ctr_conf(str(tmp_path / "train" / "part.*"), str(tmp_path / "model"),
+                             num_slots=1024, countmin_n=4096, num_data_pass=1))
+    return conf
+
+
+def test_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
+    """``python -m ...apps.linear.main`` end to end, every import traced:
+    neither jax nor the JAX package (nor its native library, a module of
+    it) is loaded."""
+    conf = _write_cli_conf(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "parameter_server_tpu_torch.apps.linear.main",
+         str(conf), "--device", "cpu"],
+        cwd=tmp_path, env=_clean_env(), capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert (tmp_path / "model_S0").exists()
+    loaded = {
+        line.rsplit("|", 1)[1].strip()
+        for line in out.stderr.splitlines()
+        if line.startswith("import time:") and line.count("|") == 2
+    }
+    assert "parameter_server_tpu_torch.apps.linear.async_sgd" in loaded  # main runs as __main__
+    assert "parameter_server_tpu_torch.data.text_parser" in loaded
+    bad = sorted(m for m in loaded if m == "jax" or m.startswith("jax.")
+                 or m == "parameter_server_tpu" or m.startswith("parameter_server_tpu."))
+    assert not bad, bad
 
 
 _FORBIDDEN = re.compile(
@@ -122,17 +161,16 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
 
 
 UNPORTED = [
-    ("max_delay", 4),
     ("wire_encode", "delta"),
     ("ell_lanes", 39),
+    ("wire_u24", True),
     ("wire", "bits"),
     ("wire_compress", "zstd"),
     ("wire_cache_mb", 64),
-    ("push_filter", [{"type": "fixing_float", "num_bytes": 1}]),
-    ("pull_filter", [{"type": "add_noise"}]),
     ("kkt_filter", True),
     ("tau_adaptive", True),
     ("num_replicas", 1),
+    ("replica_every", 2),
 ]
 
 
@@ -145,6 +183,23 @@ def test_unported_config_values_raise(field, value):
     setattr(c.async_sgd, field, value)
     with pytest.raises(NotImplementedError, match=field):
         tsgd.AsyncSGDWorker(c, device="cpu")
+
+
+PORTED = [
+    ("max_delay", 4),
+    ("push_filter", [{"type": "fixing_float", "num_bytes": 1}]),
+    ("pull_filter", [{"type": "add_noise", "std": 0.1}]),
+    ("pull_gather", "narrow"),
+]
+
+
+@pytest.mark.parametrize("field,value", PORTED, ids=[f for f, _ in PORTED])
+def test_ported_config_values_are_accepted(field, value):
+    """Bounded delay and the filtered wire are ported: their settings
+    build a worker instead of raising."""
+    w = tsgd.AsyncSGDWorker(_conf(**{field: value}), device="cpu")
+    assert getattr(w.sgd, field) == value
+    assert field not in tcfg._UNPORTED
 
 
 def test_every_unported_field_is_covered():

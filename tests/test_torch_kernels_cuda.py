@@ -8,7 +8,7 @@ machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 Tolerance: bit equality. The kernels are built with ``--fmad=false``, so
 every operation rounds once, as each eager PyTorch op does; the bf16
 dither is indexed by flat position (dense) or u-position (sparse) in
-both versions.
+both versions, and the quantization noise by flat position.
 """
 
 import numpy as np
@@ -17,6 +17,8 @@ import torch
 
 from parameter_server_tpu_torch.ops import ftrl as tftrl
 from parameter_server_tpu_torch.ops import ftrl_sparse as tsparse
+from parameter_server_tpu_torch.filter import fixing_float as tff
+from parameter_server_tpu_torch.ops import quantize as tq
 from parameter_server_tpu_torch.ops.kv_ops import localize
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +98,40 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="int32"):
         tsparse.ftrl_sparse_update(z, torch.zeros(64, device=dev), rel, ok,
                                    torch.zeros(8, device=dev), **KW)
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("p", [(1 << 16), (1 << 16) - 3, 1])
+def test_quantize_kernel_bit_equal(dev, nb, p):
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=p) * (rng.random(p) < 0.3), dtype=torch.float32, device=dev)
+    before = tq.quantize.launches
+    q, lo, hi = tq.quantize(x, 1234567, nb)
+    assert tq.quantize.launches == before + 1
+    assert q.dtype == (torch.uint8 if nb == 1 else torch.uint16) and q.device == x.device
+    lor, hir = tff.quantize_range(x)
+    qr = tff.quantize_codes(x, lor, hir, 1234567, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+    assert float(lo) == float(lor) and float(hi) == float(hir)
+
+
+@pytest.mark.parametrize("value", [0.0, 5.0])
+def test_quantize_kernel_constant_input(dev, value):
+    x = torch.full((4099,), value, device=dev)
+    q, lo, hi = tq.quantize(x, 3, 1)
+    assert int(q.max()) == 0
+    assert torch.equal(tq.dequantize(q, lo, hi, 1), x)
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+def test_dequantize_on_the_card_equals_the_cpu(dev, nb):
+    """The CPU dequantize is bit-equal to the JAX package's
+    (tests/test_torch_quantize.py); on the card a division by a Python
+    number would become a reciprocal multiply and part from it."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=1 << 16), dtype=torch.float32)
+    q, lo, hi = tq.quantize(x, 11, nb)
+    cpu = tq.dequantize(q, lo, hi, nb)
+    card = tq.dequantize(q.to(dev), lo.to(dev), hi.to(dev), nb).cpu()
+    assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
