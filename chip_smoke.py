@@ -9,9 +9,9 @@ the CUDA toolkit:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: the three CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
+2. build: the four CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
    into ``build/torch_kernels/``;
-3. kernel parity: each kernel against its plain PyTorch version on the
+3. kernel parity: each FTRL and quantize kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
    main paths' shapes, with CUDA-event times and the HBM-byte bound; the
    quantize kernel also against its statistical contract (round trip
@@ -34,8 +34,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same CLI run on the CPU (objectives, pushed codes and
    weights); then a few ministeps with a FIXING_FLOAT pull filter added
    (two quantize launches per ministep);
-6. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. LM serving (``benchmarks/lm_serve.py``: the ``doc/SERVING.md`` config,
+   d_model 512, 8 heads of dim 64, 2 KV heads, 8 layers, d_ff 2048, bf16,
+   int8 KV cache, random weights from the seed): the ``flash_fwd``
+   kernel against its plain version at the prefill shape (B*H 64, S 2048,
+   D 64, bf16, causal, K/V grouped by 4) and at D 128, float32, window
+   1024, offsets with Sq != Sk and a ragged Sk tail, within the stated
+   tolerance, with CUDA-event times beside the plain version, SDPA and
+   the FLOP bound; ``lm_generate`` greedy at batch 8, 2048-token prompts,
+   256 steps (time to first token, decode tokens/s, 8 flash launches a
+   prefill), then with the documented sampling options; agreement with
+   the plain attention on the card (teacher-forced logits at full size,
+   greedy tokens) and with the port on the CPU (one row, 256-token
+   prompt, 32 steps), to a tolerance set from the config's own bf16
+   noise as the JAX reference shows it (``tests/torch_lm_bf16_noise.py``); ``speculative_generate`` greedy with the draft of
+   ``script/onchip.py`` (gamma 4), its tokens against the greedy run's;
+7. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed before each path and read after it. Every
 time printed is measured on the card in this run. Full records go to
@@ -80,8 +95,11 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     conf,
     make_batch,
 )
+from parameter_server_tpu_torch.benchmarks import lm_serve  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
+from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
+from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
@@ -89,9 +107,10 @@ from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa:
 BIG_SLOTS = 1 << 26  # the real-data table of bench.py --real
 FTRL_KW = dict(alpha=ALPHA, beta=BETA, l1=L1, l2=0.0)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 FTRL_FLOPS = 22  # arithmetic operations of one FTRL-proximal step
 TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)  # CUDA atomics reorder the sums
 REPS, WARMUP = 20, 3
@@ -140,9 +159,9 @@ def median_ms(fn) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -240,6 +259,7 @@ def reset_counts() -> None:
     ftrl.ftrl_update.launches = 0
     ftrl_sparse.ftrl_sparse_update.launches = 0
     quantize.quantize.launches = 0
+    fa.flash_attention.launches = 0
 
 
 def counts():
@@ -660,6 +680,228 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
                 pull_objective=pull["objective"], pull_step_ms_per_ministep=pull["step_s"] / n * 1e3)
 
 
+# -- phase 6: LM serving --
+
+# flash_fwd against its plain version, (out rtol, out atol, lse atol); the
+# reasons are in tests/test_torch_kernels_cuda.py: float32 sums in another
+# order; in bf16 one ulp of the output, plus an absolute term for P rounded
+# against the running row max (set from the readings this script prints)
+FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -9, 1e-4)}
+SMALL_OUT = 2.0 ** -3  # readings: outputs under this are "small"
+# LM agreement: logits within 3x the config's own bf16 noise, measured on
+# the JAX reference alone (never on the code under test) by
+# tests/torch_lm_bf16_noise.py at seed 0: the largest |logit| gap between
+# the reference's bf16 and float32 lm_generate runs of serve_params(0),
+# teacher-forced on one 256-byte prompt row and its 32 greedy tokens
+REF_BF16_NOISE = 0.02057701349258423
+NOISE_MULTIPLE = 3.0
+CPU_PROMPT, CPU_STEPS = 256, 32
+
+
+def close(kernel_out, plain_out, rtol: float, atol: float, what: str) -> dict:
+    """|kernel - plain| <= atol + rtol |plain| everywhere. Returns the
+    per-element readings: max |diff|; the largest share of the tolerance
+    used; the atol that rtol alone would need; the largest |diff| / |plain|
+    over outputs of at least SMALL_OUT and the largest |diff| under it."""
+    torch.cuda.synchronize()
+    k, p = kernel_out.float(), plain_out.float()
+    diff, mag = (k - p).abs(), p.abs()
+    large = mag >= SMALL_OUT
+    r = dict(max_abs=float(diff.max()), tolerance_used=float((diff / (atol + rtol * mag)).max()),
+             atol_needed=max(0.0, float((diff - rtol * mag).max())),
+             max_rel_large=float((diff[large] / mag[large]).max()) if bool(large.any()) else 0.0,
+             max_abs_small=float(diff[~large].max()) if bool((~large).any()) else 0.0)
+    print(f"# readings {what}: {r}", flush=True)
+    check(r["tolerance_used"] <= 1.0, f"{what}: kernel beyond tolerance ({r}, rtol {rtol}, "
+          f"atol {atol})")
+    return r
+
+
+def flash_work(bh, sq, sk, d, group, elt, causal, q_off, k_off, window):
+    """(bytes, FLOP) of one call: q, k, v read once, out and lse written
+    once; 4 D FLOP (two products) per (query, key) pair attention needs:
+    for each query, the keys of [0, Sk) the causal and window masks keep
+    (not the masked pairs the kernel's 64 x 64 tiles also compute)."""
+    q_pos = np.arange(sq, dtype=np.int64) + q_off
+    if causal:
+        hi = np.minimum(sk - 1, q_pos - k_off)
+        lo = np.maximum(0, q_pos - k_off - window + 1) if window else np.zeros_like(q_pos)
+        pairs = int(np.maximum(0, hi - lo + 1).sum())
+    else:
+        pairs = sq * sk
+    nbytes = (2 * bh * sq * d + 2 * (bh // group) * sk * d) * elt + bh * sq * 4
+    return nbytes, 4 * d * pairs * bh
+
+
+def flash_case(name: str, gen, bh=64, sq=2048, sk=2048, d=64, dtype=torch.bfloat16,
+               q_off=0, k_off=0, window=None, group=1) -> dict:
+    """flash_fwd against its plain version on one causal input; CUDA-event
+    times of the kernel, the plain version and SDPA (same shapes,
+    ``is_causal=True``: a yardstick, no window or offsets)."""
+    q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(bh // group, sk, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(bh // group, sk, d, device="cuda", generator=gen).to(dtype)
+    args = (q, k, v, q_off, k_off)
+    out, lse = fa.launch_kernel(*args, causal=True, window=window, group=group)
+    plain_out, plain_lse = fa._flash_plain(*args, True, window, group)
+    rtol, atol, lse_tol = FLASH_TOL[dtype]
+    readings = close(out, plain_out, rtol, atol, f"flash {name} out")
+    err = readings["max_abs"]
+    lse_err = close(lse, plain_lse, 0.0, lse_tol, f"flash {name} lse")["max_abs"]
+    check(bool(torch.isfinite(out.float()).all()), f"flash {name}: non-finite output")
+    again, _ = fa.launch_kernel(*args, causal=True, window=window, group=group)
+    torch.cuda.synchronize()
+    deterministic = torch.equal(bits(again), bits(out))
+    del plain_out, plain_lse, again
+    gqa = {"enable_gqa": True} if group > 1 else {}
+    nbytes, flops = flash_work(bh, sq, sk, d, group, q.element_size(), True, q_off, k_off, window)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    ms = median_ms(lambda: fa.launch_kernel(*args, causal=True, window=window, group=group))
+    return dict(
+        case=name, bh=bh, sq=sq, sk=sk, d=d, dtype=str(dtype).split(".")[-1], q_off=q_off,
+        k_off=k_off, window=window, group=group, max_abs_err=err, lse_err=lse_err, readings=readings,
+        tolerance=dict(rtol=rtol, atol=atol, lse_atol=lse_tol), deterministic=deterministic,
+        ms=ms, plain_ms=median_ms(lambda: fa._flash_plain(*args, True, window, group)),
+        library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, **gqa)),
+        bound_ms=b_ms, bound_by=b_by, flop=flops, bytes=nbytes, tflop_per_s=flops / ms / 1e9,
+    )
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The prefill's attention through the kernel's plain version on the
+    card: the reference of the agreement check, never the main path."""
+    orig = fa._flash
+    fa._flash = fa._flash_plain
+    try:
+        yield
+    finally:
+        fa._flash = orig
+
+
+def timed_generate(*args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = transformer.lm_generate(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_tokens(toks, prompt, steps: int, what: str) -> None:
+    b, p = prompt.shape
+    check(toks.shape == (b, p + steps) and toks.dtype == torch.int64, f"{what}: tokens {toks.shape}")
+    check(torch.equal(toks[:, :p], prompt), f"{what}: the prompt is not kept")
+    check(int(toks.min()) >= 0 and int(toks.max()) < lm_serve.SERVE_CFG.vocab, f"{what}: a token "
+          "outside the vocabulary")
+
+
+def token_agreement(ref_toks, ref_logits, toks, logits, start: int, tol: float, what: str) -> dict:
+    """Tokens equal up to each row's first difference, which must fall at
+    a near-tie (the reference's logits rate the two tokens within
+    ``tol``); where ``logits`` are given, every logit row computed on
+    equal tokens within ``tol`` of the reference's."""
+    ref_toks, toks = ref_toks.cpu(), toks.cpu()
+    first, gap = [], 0.0
+    for r in range(ref_toks.shape[0]):
+        diff = (ref_toks[r, start:] != toks[r, start:]).nonzero()
+        t = start + int(diff[0]) if len(diff) else ref_toks.shape[1]
+        first.append(t)
+        if t < ref_toks.shape[1]:
+            row = ref_logits[r, t - 1].float().cpu()
+            tie = abs(float(row[ref_toks[r, t]] - row[toks[r, t]]))
+            check(tie <= tol, f"{what}: row {r} parts at {t} where the logits differ by {tie} > {tol}")
+        if logits is not None:
+            gap = max(gap, float((ref_logits[r, :t].float().cpu() - logits[r, :t].float().cpu())
+                                 .abs().max()))
+    check(gap <= tol, f"{what}: logits {gap} apart, tolerance {tol}")
+    n = ref_toks.shape[1]
+    return dict(first_diff=first, rows_equal=sum(t == n for t in first), max_logit_gap=gap)
+
+
+def lm_serving(seed: int) -> dict:
+    """The serving path at the documented config: greedy and sampled
+    ``lm_generate``, the agreement checks, speculative decoding."""
+    cfg, dcfg = lm_serve.SERVE_CFG, lm_serve.DRAFT_CFG
+    b, p, steps = lm_serve.B, lm_serve.P, lm_serve.STEPS
+    params = lm_serve.serve_params(seed, "cuda")
+    prompt = lm_serve.make_prompt(seed + 1, device="cuda")
+    transformer.lm_generate(params, prompt, cfg, 4)  # warm-up at the timed shapes (cuBLAS, allocator)
+    reset_counts()
+    first, ttft_s = timed_generate(params, prompt, cfg, 1)
+    check(fa.flash_attention.launches == cfg.n_layers, f"prefill: {fa.flash_attention.launches} "
+          f"flash launches, want {cfg.n_layers}")
+    reset_counts()
+    toks, wall_s = timed_generate(params, prompt, cfg, steps)
+    flash_n = fa.flash_attention.launches
+    check(flash_n == cfg.n_layers and counts() == (0, 0, 0),
+          f"greedy: flash launches {flash_n}, others {counts()}; want {cfg.n_layers}, none")
+    check_tokens(toks, prompt, steps, "greedy")
+    check(torch.equal(toks[:, p], first[:, p]), "greedy: the first token differs from the steps=1 run")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_counts()
+    sampled, sampled_s = timed_generate(params, prompt, cfg, steps, generator=gen, **lm_serve.SAMPLING)
+    check(fa.flash_attention.launches == cfg.n_layers, "sampled: flash launches")
+    check_tokens(sampled, prompt, steps, "sampled")
+
+    # the card against the port on the CPU: one row, full width
+    tol = NOISE_MULTIPLE * REF_BF16_NOISE
+    cpu_params = lm_serve.serve_params(seed, "cpu")
+    row = prompt[:1, :CPU_PROMPT].cpu()
+    cpu_toks, cpu_logits = transformer.lm_generate(cpu_params, row, cfg, CPU_STEPS, return_logits=True)
+    del cpu_params
+    card_toks, card_logits = transformer.lm_generate(params, row.cuda(), cfg, CPU_STEPS,
+                                                     return_logits=True)
+    vs_cpu = token_agreement(cpu_toks, cpu_logits, card_toks, card_logits, CPU_PROMPT, tol,
+                             "card vs CPU")
+    # the card's kernel against the plain attention on the card, full size
+    kern_toks, kern_logits = transformer.lm_generate(params, prompt, cfg, steps, return_logits=True)
+    _, tf_kernel = transformer.lm_generate(params, kern_toks, cfg, 0, return_logits=True)
+    with plain_attention():
+        reset_counts()
+        _, tf_plain = transformer.lm_generate(params, kern_toks, cfg, 0, return_logits=True)
+        plain_toks, plain_logits = transformer.lm_generate(params, prompt, cfg, steps,
+                                                           return_logits=True)
+        check(fa.flash_attention.launches == 0, "the plain reference launched the kernel")
+    teacher_forced_gap = float((tf_kernel - tf_plain).abs().max())
+    check(teacher_forced_gap <= tol, f"teacher-forced logits, kernel vs plain on the card: "
+          f"{teacher_forced_gap} apart, tolerance {tol}")
+    del tf_kernel, tf_plain
+    vs_plain = token_agreement(plain_toks, plain_logits, kern_toks, kern_logits, p, tol,
+                               "greedy, kernel vs plain on the card")
+    del plain_logits
+
+    dparams = lm_serve.draft_params(seed + 2, "cuda")
+    speculative.speculative_generate(params, cfg, dparams, dcfg, prompt, 8,
+                                     gamma=lm_serve.GAMMA)  # warm-up at the timed prompt shape
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec_toks, stats = speculative.speculative_generate(params, cfg, dparams, dcfg, prompt, steps,
+                                                        gamma=lm_serve.GAMMA, return_stats=True)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    spec_flash = fa.flash_attention.launches
+    check(spec_flash == cfg.n_layers + dcfg.n_layers,
+          f"speculative: {spec_flash} flash launches, want {cfg.n_layers + dcfg.n_layers}")
+    check_tokens(spec_toks, prompt, steps, "speculative")
+    vs_greedy = token_agreement(kern_toks, kern_logits, spec_toks, None, p, tol,
+                                "speculative vs greedy")
+    return dict(
+        batch=b, prompt=p, steps=steps, flash_launches=flash_n,
+        ttft_ms=ttft_s * 1e3, generate_s=wall_s,
+        decode_tokens_per_s=b * (steps - 1) / (wall_s - ttft_s),
+        decode_ms_per_step=(wall_s - ttft_s) / (steps - 1) * 1e3,
+        sampled_s=sampled_s, sampled_decode_tokens_per_s=b * (steps - 1) / (sampled_s - ttft_s),
+        greedy_repeats_timed_run=torch.equal(kern_toks, toks),
+        bf16_noise=REF_BF16_NOISE, tolerance=tol, vs_cpu=vs_cpu, teacher_forced_gap=teacher_forced_gap,
+        vs_plain=vs_plain, speculative=dict(stats, wall_s=spec_s, flash_launches=spec_flash,
+                                            tokens_per_s=b * steps / spec_s, vs_greedy=vs_greedy),
+        distinct_tokens_greedy=int(toks[:, p:].unique().numel()),
+        distinct_tokens_sampled=int(sampled[:, p:].unique().numel()),
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -760,6 +1002,40 @@ def main() -> int:
           f"{ctr_dense['ms']:.4f} ms, plain {ctr_dense['plain_ms']:.4f} ms, bound "
           f"{ctr_dense['bound_ms']:.4f} ms ({ctr_dense['bound_by']}) [{smi}]", flush=True)
 
+    flash_rows = [
+        flash_case("prefill", gen, group=4),  # the serving prefill: 64 query rows, 16 K/V rows
+        flash_case("D=128", gen, d=128),
+        flash_case("float32", gen, dtype=torch.float32),
+        flash_case("window 1024", gen, window=1024, group=4),
+        flash_case("offsets, Sq != Sk", gen, sq=1024, q_off=1024, group=4),
+        flash_case("ragged Sk tail", gen, sq=1000, sk=2037, q_off=1037, group=4),
+    ]
+    for r in flash_rows:
+        print(f"# parity flash {r['case']} (BH {r['bh']}, Sq {r['sq']}, Sk {r['sk']}, D {r['d']}, "
+              f"{r['dtype']}, window {r['window']}, offsets {r['q_off']}/{r['k_off']}, group "
+              f"{r['group']}): out max |diff| {r['max_abs_err']:.3g}, lse {r['lse_err']:.3g} within "
+              f"{r['tolerance']}; run-to-run bit-identical {r['deterministic']}; kernel "
+              f"{r['ms']:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['flop']:.4g} FLOP, {r['bytes']} B) [{smi}]", flush=True)
+    lm = lm_serving(args.seed)
+    spec = lm["speculative"]
+    print(f"# LM serving (card's own numbers, {smi}): B {lm['batch']}, prompt {lm['prompt']}, "
+          f"{lm['steps']} steps, bf16, GQA 2, int8 cache: time to first token {lm['ttft_ms']:.1f} ms, "
+          f"decode {lm['decode_tokens_per_s']:.0f} tokens/s ({lm['decode_ms_per_step']:.3f} ms/step), "
+          f"whole call {lm['generate_s']:.2f} s; sampled (T 0.8, top-k 40, top-p 0.95) "
+          f"{lm['sampled_s']:.2f} s; flash launches {lm['flash_launches']} per prefill; distinct "
+          f"generated tokens {lm['distinct_tokens_greedy']} greedy, {lm['distinct_tokens_sampled']} "
+          f"sampled", flush=True)
+    print(f"# LM agreement: tolerance {lm['tolerance']:.4g} = {NOISE_MULTIPLE} x the JAX reference's "
+          f"bf16-vs-f32 logit gap {lm['bf16_noise']:.4g} (1 row); card vs CPU {lm['vs_cpu']}; teacher-forced "
+          f"logits kernel vs plain on the card {lm['teacher_forced_gap']:.4g}; greedy kernel vs plain "
+          f"{lm['vs_plain']}", flush=True)
+    print(f"# speculative (gamma {lm_serve.GAMMA}, draft d256 1 layer): {spec['rounds']} rounds, "
+          f"accepted {spec['accepted_frac']:.3f}, {spec['wall_s']:.2f} s, {spec['tokens_per_s']:.0f} "
+          f"tokens/s, flash launches {spec['flash_launches']} (target + draft prefills); vs greedy "
+          f"{spec['vs_greedy']}", flush=True)
+
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
     main_quant = quant_times[0]  # the conf's 1-byte push
@@ -788,12 +1064,21 @@ def main() -> int:
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
              library_ms=None),
+        dict(name="flash_fwd", route="cuda",
+             source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
+             replaces="parameter_server_tpu/ops/flash_attention.py:383",
+             launches=lm["flash_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in flash_rows),
+             tolerance={r["dtype"]: r["tolerance"] for r in flash_rows},
+             ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
+             bound_ms=flash_rows[0]["bound_ms"], bound_by=flash_rows[0]["bound_by"],
+             library_ms=flash_rows[0]["library_ms"]),
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
                   quantize_times=quant_times, headline=head, dense_path=dense, bf16_path=bf16,
                   ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
-                  run_to_run_deterministic=deterministic,
+                  run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -8,11 +8,19 @@ trains the CTR conf (``configs/ctr/online_l1lr.conf`` on generated data,
 ``benchmarks/ctr.py``: 2^22 slots, 10000-row minibatches through the
 tail filter, the 1-byte push filter, τ = 4) and traces eight ministeps
 after four warm-up ones. Each traced launch is upload plus step, as the
-worker's ``submit`` runs it. Prints device time by kernel and the
-device's busy share of the traced window, and writes the same to
+worker's ``submit`` runs it. ``--cell lm_serve`` traces one greedy
+``lm_generate`` call at the serving configuration (``benchmarks/lm_serve.py``:
+batch 8, 2048-token prompts) of one prefill and 16 decode steps, after
+a warm-up call of the same shape. It also splits the device time by
+kernel kind (``flash_fwd``, the decode attention's batched GEMVs, the
+other matmuls, softmax, the rest) and, through profiler labels put
+around the port's functions, by part (the prefill, the decode steps,
+and within them the cache writes and the token pick), each with the
+host time spent in it. Prints device time by kernel and the device's
+busy share of the traced window, and writes the same to
 ``chiprun_out/profile_step_<cell>.json``.
 
-    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr]
+    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -28,12 +36,25 @@ import tempfile
 import time
 
 import torch
+from torch.autograd import DeviceType
 
 from ..apps.linear.async_sgd import AsyncSGDWorker, stack_prepped_batches
 from ..apps.linear.config import parse_conf
 from ..learner.sgd import MinibatchReader
+from ..models import transformer
 from .ctr import ctr_conf, write_ctr_shards
 from .headline import T, conf, make_batch
+from .lm_serve import SERVE_CFG, make_prompt, serve_params
+
+LM_DECODE_STEPS = 16
+# device time of the LM cell by kernel kind: name patterns, first match
+# wins (the decode attention's f32 einsums run as cuBLAS batched GEMVs)
+_LM_KERNELS = {"flash_fwd": ("flash_fwd",), "decode attention GEMV": ("gemv", "gemmsn"),
+               "matmuls": ("gemm", "cutlass", "xmma", "nvjet", "splitk"), "softmax": ("softmax",)}
+# the port's functions that lm_serve_run labels, by part
+_LM_RANGES = {"prefill": ("_prefill",), "decode steps": ("_decode_step",),
+              "cache writes": ("_cache_write", "_cache_write_rows"), "sampling": ("_pick_token",)}
+_LM_LABELS = {f"lm.{n}" for names in _LM_RANGES.values() for n in names}
 
 
 def headline_launches():
@@ -63,50 +84,111 @@ def ctr_launches():
     return worker, prepped[:4], prepped[4:], True
 
 
+def _labelled(fn, label):
+    from torch.profiler import record_function
+
+    def wrapped(*a, **k):
+        with record_function(label):
+            return fn(*a, **k)
+    return wrapped
+
+
+def lm_serve_run():
+    """One prefill of the serving config's 8 x 2048 prompts and 16 greedy
+    decode steps; a warm-up call of the same shape first. The functions
+    of ``_LM_RANGES`` run under profiler labels (rebound in the module
+    for the rest of this process)."""
+    params = serve_params(0, "cuda")
+    prompt = make_prompt(1, device="cuda")
+    for names in _LM_RANGES.values():
+        for name in names:
+            setattr(transformer, name, _labelled(getattr(transformer, name), f"lm.{name}"))
+
+    def run():
+        transformer.lm_generate(params, prompt, SERVE_CFG, LM_DECODE_STEPS + 1)
+    run()
+    return run
+
+
+def lm_split(prof, rows) -> dict:
+    """Device µs of the LM cell by kernel kind, and by labelled part: the
+    device time of the kernels each part launched and the host time
+    spent in it (µs, whole traced call)."""
+    kinds = {kind: 0.0 for kind in (*_LM_KERNELS, "other")}
+    for r in rows:
+        name = r["name"].lower()
+        kind = next((k for k, keys in _LM_KERNELS.items() if any(p in name for p in keys)), "other")
+        kinds[kind] += r["device_us"]
+    parts = {}
+    for part, names in _LM_RANGES.items():
+        # the host-side range events: their device time is the sum of the
+        # kernels launched inside them (the device-side range would be
+        # its span, idle gaps included)
+        evs = [e for e in prof.events() if e.name in {f"lm.{n}" for n in names}
+               and e.device_type == DeviceType.CPU]
+        parts[part] = dict(calls=len(evs), device_us=sum(e.device_time_total for e in evs),
+                           host_us=sum(e.cpu_time_total for e in evs))
+    return dict(kinds=kinds, parts=parts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=("headline", "ctr"), default="headline")
+    ap.add_argument("--cell", choices=("headline", "ctr", "lm_serve"), default="headline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
-    worker, warm, traced, with_aux = (ctr_launches if args.cell == "ctr" else headline_launches)()
-    for p in warm:
-        worker.submit(p, with_aux=with_aux)
+    if args.cell == "lm_serve":
+        run, unit, units = lm_serve_run(), "decode step", LM_DECODE_STEPS
+    else:
+        worker, warm, traced, with_aux = (ctr_launches if args.cell == "ctr" else headline_launches)()
+        for p in warm:
+            worker.submit(p, with_aux=with_aux)
+
+        def run():
+            for p in traced:
+                worker.submit(worker.upload(p), with_aux=with_aux)
+        unit, units = "ministep", sum(getattr(p, "steps", 1) for p in traced)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in traced:
-            worker.submit(worker.upload(p), with_aux=with_aux)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): an aten op's own row
-        # repeats the device time of the kernels it launched
-        if e.device_type != DeviceType.CUDA:
+        # repeats the device time of the kernels it launched, and a label's
+        # device-side row is its span
+        if e.device_type != DeviceType.CUDA or e.key in _LM_LABELS:
             continue
         dev_us = float(getattr(e, "self_device_time_total", 0.0))
         if dev_us > 0:
             rows.append(dict(name=e.key, device_us=dev_us, count=int(e.count)))
     rows.sort(key=lambda r: -r["device_us"])
-    ministeps = sum(getattr(p, "steps", 1) for p in traced)
     busy_us = sum(r["device_us"] for r in rows)
-    out = dict(nvidia_smi=smi, cell=args.cell, ministeps=ministeps, wall_ms_per_ministep=wall_us / ministeps / 1e3,
-               device_ms_per_ministep=busy_us / ministeps / 1e3,
+    out = dict(nvidia_smi=smi, cell=args.cell, unit=unit, units=units,
+               wall_ms_per_unit=wall_us / units / 1e3, device_ms_per_unit=busy_us / units / 1e3,
+               wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                device_busy_share=busy_us / wall_us if wall_us else None, kernels=rows)
     print(smi)
     if not rows:
         print("# profiler recorded no device time")
-    print(f"# traced {ministeps} ministeps (profiler on): wall {out['wall_ms_per_ministep']:.3f} ms/ministep, "
-          f"device busy {out['device_ms_per_ministep']:.3f} ms/ministep, busy share {out['device_busy_share']:.3f}")
+    print(f"# traced {units} {unit}s (profiler on): wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({out['device_ms_per_unit']:.3f} ms/{unit}), busy share "
+          f"{out['device_busy_share']:.3f}")
+    if args.cell == "lm_serve":
+        out["split_us"] = split = lm_split(prof, rows)
+        print(f"# whole traced call (prefill + {units} decode steps), device time by kernel kind: "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in split["kinds"].items()))
+        print("# by part (calls, device us, host us): " + ", ".join(
+            f"{k} ({v['calls']}, {v['device_us']:.1f}, {v['host_us']:.1f})" for k, v in split["parts"].items()))
     for r in rows[:20]:
-        print(f"#   {r['device_us'] / ministeps:9.1f} us/ministep  x{r['count'] / ministeps:5.1f}  {r['name'][:90]}")
+        print(f"#   {r['device_us'] / units:9.1f} us/{unit}  x{r['count'] / units:5.1f}  {r['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"profile_step_{args.cell}.json"), "w") as f:
         json.dump(out, f, indent=1)

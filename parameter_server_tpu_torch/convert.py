@@ -1,9 +1,12 @@
-"""Carry optimizer state between the JAX package and the port.
+"""Carry optimizer state and LM parameters between the JAX package and the port.
 
 The JAX worker's ``state_host()["state"]`` is a dict of numpy arrays
 (``{"z", "sqrt_n"}`` for FTRL; a bf16 ``sqrt_n`` arrives as an
 ``ml_dtypes.bfloat16`` array). :func:`state_from_jax` turns it into the
 port's dict of tensors, :func:`state_to_numpy` goes back.
+:func:`lm_params_from_jax` and :func:`lm_params_to_numpy` do the same for
+the JAX ``init_lm`` parameter dict, checking names and shapes against
+the config.
 """
 
 from __future__ import annotations
@@ -47,3 +50,39 @@ def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         else:
             out[k] = t.numpy().copy()
     return out
+
+
+def _lm_shapes(cfg) -> Dict[str, tuple]:
+    d, kv_w = cfg.d_model, cfg.kv_heads * cfg.head_dim
+    shapes = {"emb": (cfg.vocab, d), "ln_f": (d,)}
+    for i in range(cfg.n_layers):
+        shapes.update({f"l{i}/ln1": (d,), f"l{i}/ln2": (d,), f"l{i}/wq": (d, d),
+                       f"l{i}/wk": (d, kv_w), f"l{i}/wv": (d, kv_w), f"l{i}/wo": (d, d),
+                       f"l{i}/w1": (d, cfg.d_ff), f"l{i}/w2": (cfg.d_ff, d)})
+    return shapes
+
+
+def lm_params_from_jax(np_params: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_lm`` dict (``emb``, ``ln_f``, ``l{i}/ln1|ln2|wq|wk|
+    wv|wo|w1|w2``, numpy arrays) -> the port's float32 parameters on
+    ``device`` (CUDA by default; raises without a card). Raises on a
+    missing, extra or misshapen entry for ``cfg`` (a
+    :class:`..models.transformer.LMConfig`)."""
+    dev = resolve(device)
+    shapes = _lm_shapes(cfg)
+    if set(np_params) != set(shapes):
+        raise ValueError(f"LM parameters do not match the config: missing "
+                         f"{sorted(set(shapes) - set(np_params))}, extra "
+                         f"{sorted(set(np_params) - set(shapes))}")
+    out = {}
+    for k, shape in shapes.items():
+        arr = np.asarray(np_params[k], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"LM parameter {k}: shape {arr.shape}, config wants {shape}")
+        out[k] = _to_tensor(arr).to(dev)
+    return out
+
+
+def lm_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's LM parameters -> the JAX package's numpy dict."""
+    return state_to_numpy(params)

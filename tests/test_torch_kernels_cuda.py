@@ -5,16 +5,41 @@ These tests need an NVIDIA GPU and the CUDA toolkit (the kernels have
 no CPU mode): they carry the ``cuda`` marker and skip elsewhere. On a
 machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 
-Tolerance: bit equality. The kernels are built with ``--fmad=false``, so
-every operation rounds once, as each eager PyTorch op does; the bf16
-dither is indexed by flat position (dense) or u-position (sparse) in
-both versions, and the quantization noise by flat position.
+Tolerance of the FTRL and quantize kernels: bit equality. They are built
+with ``--fmad=false``, so every operation rounds once, as each eager
+PyTorch op does; the bf16 dither is indexed by flat position (dense) or
+u-position (sparse) in both versions, and the quantization noise by flat
+position.
+
+Tolerance of ``flash_fwd``: it sums in another order than its plain
+version. float32: out and lse within 2e-5 (exact products, float32 sums
+in another order). bfloat16: out within 2^-7 of |plain| plus 2^-9
+absolute. 2^-7 relative is one bf16 ulp of the output (each side rounds
+it once); the absolute term bounds what the two versions differ by
+before that rounding: P is rounded to bf16 against the running row max
+(then rescaled in f32) where the plain version rounds it against the
+final max, which moves every output by a few 1e-4 whatever its size, and
+an output that cancels to near zero relatively much. On an H100 the
+absolute part needed was 1.09e-3 at the serving prefill and 1.34e-3 at
+D 128 here; ``chip_smoke.py`` prints what each case uses. lse (float32)
+within 1e-4.
+
+Race probe: ``flash_fwd`` built with ``FLASH_FWD_RACE_PROBE`` poisons its
+shared tiles with NaN before staging them and skews every thread by a
+seeded pseudo-random sleep where threads hand data over; it must give the
+normal build's bits at every seed, on inputs inside NaN guard zones and
+into NaN-filled outputs (no missing barrier, no stale shared memory, no
+read out of range, every output written).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
+from parameter_server_tpu_torch import kernels
+from parameter_server_tpu_torch.ops import flash_attention as tfa
 from parameter_server_tpu_torch.ops import ftrl as tftrl
 from parameter_server_tpu_torch.ops import ftrl_sparse as tsparse
 from parameter_server_tpu_torch.filter import fixing_float as tff
@@ -135,3 +160,99 @@ def test_dequantize_on_the_card_equals_the_cpu(dev, nb):
     cpu = tq.dequantize(q, lo, hi, nb)
     card = tq.dequantize(q.to(dev), lo.to(dev), hi.to(dev), nb).cpu()
     assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
+
+
+FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -9, 1e-4)}
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,qo,ko,window,group", [
+    (4, 256, 256, 64, torch.bfloat16, True, 0, 0, None, 1),
+    (4, 256, 256, 128, torch.bfloat16, True, 0, 0, None, 1),
+    (4, 200, 333, 64, torch.bfloat16, True, 133, 0, None, 1),   # ragged, offsets, Sq != Sk
+    (4, 130, 190, 128, torch.float32, False, 0, 0, None, 1),
+    (4, 256, 256, 64, torch.float32, True, 0, 0, 100, 1),
+    (8, 300, 300, 64, torch.bfloat16, True, 0, 0, 70, 1),
+    (8, 192, 192, 64, torch.bfloat16, True, 0, 0, None, 4),     # GQA: K/V rows bh / 4
+    (2, 64, 64, 64, torch.bfloat16, True, 0, 500, None, 1),     # every key in the future
+])
+def test_flash_kernel_matches_plain(dev, bh, sq, sk, d, dtype, causal, qo, ko, window, group):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(bh, sq, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(bh // group, sk, d, device=dev, generator=g).to(dtype)
+    v = torch.randn(bh // group, sk, d, device=dev, generator=g).to(dtype)
+    before = tfa.flash_attention.launches
+    out, lse = tfa.launch_kernel(q, k, v, qo, ko, causal=causal, window=window, group=group)
+    assert tfa.flash_attention.launches == before + 1
+    want_out, want_lse = tfa._flash_plain(q, k, v, qo, ko, causal, window, group)
+    torch.cuda.synchronize()
+    rtol, atol, lse_tol = FLASH_TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=lse_tol)
+    again, _ = tfa.launch_kernel(q, k, v, qo, ko, causal=causal, window=window, group=group)
+    assert torch.equal(again, out)  # no atomics: run-to-run bit-identical
+
+
+def test_flash_mha_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(4)
+    xq = torch.tensor(rng.normal(size=(2, 96, 8 * 64)), dtype=torch.float32)
+    xk, xv = (torch.tensor(rng.normal(size=(2, 96, 2 * 64)), dtype=torch.float32) for _ in range(2))
+    want = tfa.flash_mha(xq, xk, xv, 8, causal=True, n_kv_heads=2, window=40)
+    got = tfa.flash_mha(xq.to(dev), xk.to(dev), xv.to(dev), 8, causal=True, n_kv_heads=2, window=40)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-5)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(2, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q, q, q, causal=True)
+    h = torch.zeros(2, 8, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.flash_attention(h, h, h)
+
+
+def _guarded(t, pad=4096):
+    """``t`` copied into the middle of a NaN-filled buffer (16-byte
+    aligned): a read past either end gives NaN."""
+    buf = torch.full((2 * pad + t.numel(),), float("nan"), dtype=t.dtype, device=t.device)
+    buf[pad:pad + t.numel()] = t.flatten()
+    return buf[pad:pad + t.numel()].view(t.shape)
+
+
+def _launch(lib, q, k, v, qo, ko, window, group):
+    """One causal launch of ``lib``'s kernel into NaN-filled outputs."""
+    bh, sq, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    lse = torch.full((bh, sq), float("nan"), device=q.device)
+    err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), bh, sq, k.shape[1], d, group, qo, ko, 1,
+                               window or 0, 1.0 / d ** 0.5, tfa._DTYPE_CODE[q.dtype],
+                               torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "flash_fwd")
+    torch.cuda.synchronize()
+    return out, lse
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,qo,ko,window,group", [
+    (16, 96, 96, 64, torch.float32, 0, 0, 40, 4),     # test_flash_mha_on_the_card_matches_the_cpu
+    (16, 96, 96, 64, torch.bfloat16, 0, 0, 40, 4),
+    (8, 300, 300, 128, torch.float32, 0, 0, None, 2),
+    (8, 300, 300, 128, torch.bfloat16, 0, 0, 70, 2),
+    (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1),
+    (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),  # chip_smoke.py's ragged Sk tail
+])
+def test_flash_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (_guarded(torch.randn(n, s, d, device=dev, generator=g).to(dtype))
+               for n, s in ((bh, sq), (bh // group, sk), (bh // group, sk)))
+    want_out, want_lse = _launch(kernels.library("flash_fwd"), q, k, v, qo, ko, window, group)
+    assert bool(torch.isfinite(want_out.float()).all() and torch.isfinite(want_lse).all())
+    plain_out, _ = tfa._flash_plain(q, k, v, qo, ko, True, window, group)
+    rtol, atol, _ = FLASH_TOL[dtype]
+    torch.testing.assert_close(want_out.float(), plain_out.float(), rtol=rtol, atol=atol)
+    probe = kernels.variant("flash_fwd", "FLASH_FWD_RACE_PROBE")
+    for seed in range(6):
+        assert probe.flash_fwd_probe_seed(ctypes.c_uint(seed)) == 0
+        out, lse = _launch(probe, q, k, v, qo, ko, window, group)
+        assert torch.equal(_bits(out), _bits(want_out)), seed
+        assert torch.equal(_bits(lse), _bits(want_lse)), seed
