@@ -9,8 +9,8 @@ the CUDA toolkit:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: the four CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
-   into ``build/torch_kernels/``;
+2. build: the CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
+   (one library a source, all compiled at once) into ``build/torch_kernels/``;
 3. kernel parity: each FTRL and quantize kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
    main paths' shapes, with CUDA-event times and the HBM-byte bound; the
@@ -49,8 +49,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt, 32 steps), to a tolerance set from the config's own bf16
    noise as the JAX reference shows it (``tests/torch_lm_bf16_noise.py``); ``speculative_generate`` greedy with the draft of
    ``script/onchip.py`` (gamma 4), its tokens against the greedy run's;
-7. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. LM training (``benchmarks/lm_train.py``: the JAX package's byte-LM
+   training shape, d_model 512, 8 heads of dim 64, 8 layers, d_ff 2048,
+   bf16, remat, ``ring_flash``, SGD at lr 0.3, batch 4 x 8192 tokens, 8
+   steps a launch, random weights and tokens from the seed): the
+   backward kernels ``flash_bwd_dq`` and ``flash_bwd_dkv`` through the
+   autograd Function against their plain version at the training shape
+   cut to B*H 8 (S 8192, D 64, bf16, causal) and at D 128, float32,
+   window 1024, GQA 4, offsets with Sq != Sk, a ragged Sk tail and a
+   nonzero lse gradient, within the stated tolerances and bit-identical
+   run to run; their CUDA-event times at B*H 32 beside the plain
+   backward, SDPA's backward and the FLOP bound; ``make_lm_train_step`` at
+   the full config (a warm-up launch and 3 timed launches of 8 steps:
+   tokens/s, step ms, MFU; flash launches asserted: 16 forward, 8 of each
+   backward kernel a step); one step's loss and gradients against the same
+   step with the plain attention on the card (batch 1, 2048 tokens),
+   within 3x the JAX reference's own bf16-vs-f32 gaps
+   (``tests/torch_lm_train_bf16_noise.py``); the LM CLI
+   (``parameter_server_tpu_torch.apps.lm.main``) at 2 layers, d_model 64,
+   on the card against ``--device cpu``, then at the full config for 30
+   Adam steps to a falling loss and a 64-token generation;
+8. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed before each path and read after it. Every
 time printed is measured on the card in this run. Full records go to
@@ -61,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -95,7 +116,8 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     conf,
     make_batch,
 )
-from parameter_server_tpu_torch.benchmarks import lm_serve  # noqa: E402
+from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
@@ -260,6 +282,8 @@ def reset_counts() -> None:
     ftrl_sparse.ftrl_sparse_update.launches = 0
     quantize.quantize.launches = 0
     fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
 
 
 def counts():
@@ -717,20 +741,23 @@ def close(kernel_out, plain_out, rtol: float, atol: float, what: str) -> dict:
     return r
 
 
-def flash_work(bh, sq, sk, d, group, elt, causal, q_off, k_off, window):
-    """(bytes, FLOP) of one call: q, k, v read once, out and lse written
-    once; 4 D FLOP (two products) per (query, key) pair attention needs:
-    for each query, the keys of [0, Sk) the causal and window masks keep
-    (not the masked pairs the kernel's 64 x 64 tiles also compute)."""
+def kept_pairs(sq, sk, causal, q_off, k_off, window) -> int:
+    """The (query, key) pairs of one head that attention needs: for each
+    query, the keys of [0, Sk) the causal and window masks keep (not the
+    masked pairs the kernels' 64 x 64 tiles also compute)."""
+    if not causal:
+        return sq * sk
     q_pos = np.arange(sq, dtype=np.int64) + q_off
-    if causal:
-        hi = np.minimum(sk - 1, q_pos - k_off)
-        lo = np.maximum(0, q_pos - k_off - window + 1) if window else np.zeros_like(q_pos)
-        pairs = int(np.maximum(0, hi - lo + 1).sum())
-    else:
-        pairs = sq * sk
+    hi = np.minimum(sk - 1, q_pos - k_off)
+    lo = np.maximum(0, q_pos - k_off - window + 1) if window else np.zeros_like(q_pos)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_work(bh, sq, sk, d, group, elt, causal, q_off, k_off, window):
+    """(bytes, FLOP) of one forward call: q, k, v read once, out and lse
+    written once; 4 D FLOP (two products) per kept pair."""
     nbytes = (2 * bh * sq * d + 2 * (bh // group) * sk * d) * elt + bh * sq * 4
-    return nbytes, 4 * d * pairs * bh
+    return nbytes, 4 * d * kept_pairs(sq, sk, causal, q_off, k_off, window) * bh
 
 
 def flash_case(name: str, gen, bh=64, sq=2048, sk=2048, d=64, dtype=torch.bfloat16,
@@ -770,14 +797,15 @@ def flash_case(name: str, gen, bh=64, sq=2048, sk=2048, d=64, dtype=torch.bfloat
 
 @contextlib.contextmanager
 def plain_attention():
-    """The prefill's attention through the kernel's plain version on the
-    card: the reference of the agreement check, never the main path."""
-    orig = fa._flash
-    fa._flash = fa._flash_plain
+    """Attention through the kernels' plain versions on the card, forward
+    and backward: the reference of the agreement checks, never the main
+    path."""
+    orig = fa._forward, fa._backward
+    fa._forward, fa._backward = fa._flash_plain, fa._backward_plain
     try:
         yield
     finally:
-        fa._flash = orig
+        fa._forward, fa._backward = orig
 
 
 def timed_generate(*args, **kw):
@@ -902,6 +930,226 @@ def lm_serving(seed: int) -> dict:
     )
 
 
+# -- phase 7: LM training --
+
+# flash_bwd_dq / flash_bwd_dkv against their plain version: (rtol, atol as
+# a share of the largest |plain| of the gradient). float32: exact products,
+# float32 sums in another order, 1e-5 of the gradient's scale (the CUDA
+# tests needed 4.2e-7 of it at S <= 333). bf16: one bf16 ulp of each
+# output (2^-7 relative, both sides round once) plus 2^-9 of the scale for
+# what the two differ by before that rounding: P and dS are rounded to bf16
+# from scores summed in another order, so a few of the thousands of bf16
+# terms of a gradient sum sit one bf16 ulp apart, and a gradient that
+# cancels to near zero keeps that absolute difference (the CUDA tests
+# needed up to 2.2e-4 of the scale; this script prints what each case needs)
+FLASH_BWD_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -9)}
+# LM training agreement: loss and gradients within 3x the config's own
+# bf16 noise, measured on the JAX reference alone by
+# tests/torch_lm_train_bf16_noise.py at seed 0: the largest |gap| between
+# the reference's bf16 and float32 value_and_grad(lm_loss) on the port's
+# init_lm(0) weights and one 2048-token row of lm_train.make_tokens(0), by
+# parameter kind (the largest over the layers)
+REF_TRAIN_BF16_NOISE = {
+    "loss": 0.0012006759643554688, "emb": 0.00015932787209749222,
+    "ln_f": 2.5488901883363724e-05, "ln1": 1.4778575859963894e-05,
+    "ln2": 2.3631611838936806e-05, "wq": 1.2289046935620718e-06,
+    "wk": 1.2525051715783775e-06, "wv": 5.2175018936395645e-05,
+    "wo": 3.327909507788718e-05, "w1": 3.8081780076026917e-05,
+    "w2": 3.597023896872997e-05,
+}
+TRAIN_AGREE_SEQ = 2048
+# the LM CLI on the card against --device cpu: float32, 5 Adam steps of a
+# 2-layer model; losses within 1e-4 (sums in another order move a float32
+# gradient by ~1e-7 of its scale; Adam's first steps divide by |g| and can
+# amplify that for the few gradients near 0, and the loss averages it out)
+CLI_SMALL = ["--d-model", "64", "--n-heads", "1", "--n-layers", "2", "--d-ff", "128",
+             "--steps", "5", "--report-every", "1", "--seed", "3"]
+CLI_LOSS_TOL = 1e-4
+CLI_FULL = ["--d-model", "512", "--n-heads", "8", "--n-layers", "8", "--d-ff", "2048", "--bf16",
+            "--remat", "--seq-len", "8192", "--batch", "4", "--steps", "30", "--report-every", "5",
+            "--prompt", "The parameter server ", "--gen-tokens", "64"]
+
+
+def flash_bwd_case(name: str, gen, bh=8, sq=8192, sk=8192, d=64, dtype=torch.bfloat16, q_off=0,
+                   k_off=0, window=None, group=1, dlse=False) -> dict:
+    """The backward kernels through the autograd Function (one flash_fwd,
+    one flash_bwd_dq, one flash_bwd_dkv launch) against the plain backward
+    on the same out, lse and c; a second backward must give the same
+    bits."""
+    q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype).requires_grad_()
+    k = torch.randn(bh // group, sk, d, device="cuda", generator=gen).to(dtype).requires_grad_()
+    v = torch.randn(bh // group, sk, d, device="cuda", generator=gen).to(dtype).requires_grad_()
+    do = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype)
+    dl = torch.randn(bh, sq, device="cuda", generator=gen) if dlse else None
+    out, lse = fa._flash(q, k, v, q_off, k_off, True, window, group)
+    outs, cots = ((out, lse), (do, dl)) if dlse else ((out,), (do,))
+    before = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    got = torch.autograd.grad(outs, (q, k, v), cots, retain_graph=True)
+    again = torch.autograd.grad(outs, (q, k, v), cots)
+    check((fa.flash_bwd_dq.launches - before[0], fa.flash_bwd_dkv.launches - before[1]) == (2, 2),
+          f"flash bwd {name}: the autograd Function did not launch both kernels")
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again))
+    check(deterministic, f"flash bwd {name}: two backward passes differ")
+    del again
+    c = (do.float() * out.float()).sum(-1)
+    if dlse:
+        c = c - dl
+    with torch.no_grad():
+        want = fa.flash_attention_bwd_ref(q, k, v, do, lse, c, q_off, k_off, causal=True,
+                                          window=window, group=group)
+    rtol, share = FLASH_BWD_TOL[dtype]
+    readings = {}
+    for g, x, y in zip(("dq", "dk", "dv"), got, want):
+        scale = max(float(y.float().abs().max()), 1e-30)  # the gradient's largest |plain|
+        readings[g] = dict(close(x, y, rtol, share * scale, f"flash bwd {name} {g}"), scale=scale)
+    for x in got:
+        check(bool(torch.isfinite(x.float()).all()), f"flash bwd {name}: non-finite gradient")
+    return dict(case=name, bh=bh, sq=sq, sk=sk, d=d, dtype=str(dtype).split(".")[-1], q_off=q_off,
+                k_off=k_off, window=window, group=group, dlse=dlse, readings=readings,
+                max_abs_err={g: r["max_abs"] for g, r in readings.items()},
+                tolerance=dict(rtol=rtol, atol_share_of_scale=share), deterministic=deterministic)
+
+
+def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
+    """CUDA-event times of flash_bwd_dq and flash_bwd_dkv at the training
+    shape (B*H 32, S 8192, D 64, bf16, causal), beside the plain backward
+    (dq, dk and dv together, run as B*H / plain_chunk calls: its float32
+    score tensors would not fit at once), SDPA's backward (``out.backward``
+    after an SDPA forward, ``is_causal``) and each kernel's bound."""
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.launch_kernel(q, k, v, causal=True)
+    c = (do.float() * out.float()).sum(-1)
+    kw = dict(causal=True)
+    dq_ms = median_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, c, **kw))
+    dkv_ms = median_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, c, **kw))
+
+    def plain():
+        with torch.no_grad():
+            for i in range(0, bh, plain_chunk):
+                sl = slice(i, i + plain_chunk)
+                fa.flash_attention_bwd_ref(q[sl], k[sl], v[sl], do[sl], lse[sl], c[sl], causal=True)
+    plain_ms = median_ms(plain)
+    qs, ks, vs = (t[None].detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do[None],
+                                                    retain_graph=True))
+    del sdpa_out
+    fwd_ms = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True))
+    pairs = kept_pairs(s, s, True, 0, 0, None) * bh
+    elt = 2
+    inputs = 4 * bh * s * d * elt + 2 * bh * s * 4  # q, k, v, do; lse, c
+    dq_bound = bound(inputs + bh * s * d * elt, 6 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dQ
+    dkv_bound = bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dV, dK
+    least = bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, BF16_FLOP_PER_S)  # five products
+    return dict(bh=bh, s=s, d=d, pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+                sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, dq_bound_ms=dq_bound[0],
+                dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                both_bound_ms=least[0], dq_tflop_per_s=6 * d * pairs / dq_ms / 1e9,
+                dkv_tflop_per_s=8 * d * pairs / dkv_ms / 1e9)
+
+
+def train_step_full(seed: int, timed: int = 3) -> dict:
+    """The main path: make_lm_train_step at the full config, a warm-up
+    launch and ``timed`` launches of 8 steps; every flash launch counted."""
+    cfg = lm_train.TRAIN_CFG
+    params = transformer.init_lm(seed, cfg, "cuda")
+    tokens = lm_train.make_tokens(seed, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, losses, secs = lm_train.timed_launches(params, tokens, timed)
+    n_steps = (timed + 1) * lm_train.SPL
+    fwd_n, dq_n, dkv_n = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                          fa.flash_bwd_dkv.launches)
+    want = (2 * cfg.n_layers * n_steps, cfg.n_layers * n_steps, cfg.n_layers * n_steps)
+    check((fwd_n, dq_n, dkv_n) == want and counts() == (0, 0, 0),
+          f"training launches flash_fwd {fwd_n}, flash_bwd_dq {dq_n}, flash_bwd_dkv {dkv_n}, "
+          f"others {counts()}; want {want}, none")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    return dict(lm_train.summarize(secs), steps=n_steps, flash_fwd_launches=fwd_n,
+                flash_bwd_dq_launches=dq_n, flash_bwd_dkv_launches=dkv_n,
+                per_step=(fwd_n // n_steps, dq_n // n_steps, dkv_n // n_steps),
+                last_launch_losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                n_params=lm_train.n_params(), step_flop=lm_train.step_flop())
+
+
+def train_agreement(seed: int) -> dict:
+    """One step's loss and gradients at the full width, batch 1, 2048
+    tokens: the kernels against the plain attention on the card, each
+    within 3x the JAX reference's bf16-vs-f32 gap for its kind."""
+    cfg = lm_train.TRAIN_CFG
+    params = transformer.init_lm(seed, cfg, "cuda")
+    toks = lm_train.make_tokens(seed, device="cuda")[0, :1, :TRAIN_AGREE_SEQ]
+
+    def loss_and_grads():
+        loss, grads = transformer.value_and_grad(lambda p: transformer.lm_loss(p, toks, cfg), params)
+        return float(loss), grads
+
+    reset_counts()
+    loss_k, g_k = loss_and_grads()
+    check(fa.flash_bwd_dq.launches == fa.flash_bwd_dkv.launches == cfg.n_layers,
+          "agreement: the kernel step did not launch the backward kernels")
+    with plain_attention():
+        reset_counts()
+        loss_p, g_p = loss_and_grads()
+        check(fa.flash_attention.launches == fa.flash_bwd_dq.launches == 0,
+              "the plain reference launched a kernel")
+    gaps = {"loss": abs(loss_k - loss_p)}
+    for name in g_k:
+        kind = name.split("/")[-1]
+        gaps[kind] = max(gaps.get(kind, 0.0), float((g_k[name] - g_p[name]).abs().max()))
+    over = {k: gaps[k] / (NOISE_MULTIPLE * REF_TRAIN_BF16_NOISE[k]) for k in gaps}
+    check(max(over.values()) <= 1.0, f"training step, kernels vs plain on the card: gaps {gaps}, "
+          f"share of 3x the JAX bf16 noise {over}")
+    return dict(loss_kernel=loss_k, loss_plain=loss_p, gaps=gaps, share_of_tolerance=over,
+                noise=REF_TRAIN_BF16_NOISE, seq=TRAIN_AGREE_SEQ)
+
+
+def run_lm_cli(argv) -> "tuple[str, list]":
+    """The LM CLI as a user runs it, with ``--log-file``; returns its
+    output and the losses of its log lines (6 decimals)."""
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="lm_cli_") as tmp:
+        log = os.path.join(tmp, "log.jsonl")
+        with contextlib.redirect_stdout(buf):
+            rc = lm_main.main(argv + ["--log-file", log])
+        with open(log) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+    check(rc == 0, f"LM CLI {argv} exited {rc}")
+    check(losses and all(np.isfinite(losses)), f"LM CLI {argv}: losses {losses}")
+    return buf.getvalue(), losses
+
+
+def lm_cli(seed: int) -> dict:
+    """The LM CLI: a small float32 run on the card against the CPU, then
+    the full config to a falling loss and a generation."""
+    _, card = run_lm_cli(CLI_SMALL + ["--device", "cuda"])
+    _, cpu = run_lm_cli(CLI_SMALL + ["--device", "cpu"])
+    gap = max(abs(a - b) for a, b in zip(card, cpu))
+    check(len(card) == len(cpu) == 5 and gap <= CLI_LOSS_TOL,
+          f"LM CLI card {card} vs CPU {cpu}: {gap} apart, tolerance {CLI_LOSS_TOL}")
+    cfg = lm_train.TRAIN_CFG
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text, losses = run_lm_cli(CLI_FULL + ["--seed", str(seed)])
+    wall = time.perf_counter() - t0
+    steps = 30
+    want = (2 * cfg.n_layers * steps + cfg.n_layers, cfg.n_layers * steps, cfg.n_layers * steps)
+    got = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    check(got == want, f"LM CLI launches (flash_fwd, dq, dkv) {got}, want {want} (30 steps of 8 "
+          "layers under remat, and the generation's prefill)")
+    check(losses[-1] < losses[0], f"LM CLI at the full config: loss did not fall {losses}")
+    gen = text.split("--- generation", 1)
+    check(len(gen) == 2 and len(gen[1].splitlines()) >= 2, "LM CLI: no generation")
+    for line in text.splitlines():
+        print(f"# cli | {line}", flush=True)
+    return dict(small_card=card, small_cpu=cpu, small_gap=gap, losses=losses, wall_s=wall,
+                launches=got, generation=gen[1].split("\n", 1)[1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -920,7 +1168,7 @@ def main() -> int:
     t_build = time.perf_counter()
     built = kernels.build_all()
     build_s = time.perf_counter() - t_build
-    print(f"# build: {len(built)} CUDA kernels in {build_s:.1f} s "
+    print(f"# build: {len(built)} CUDA kernel libraries in {build_s:.1f} s "
           f"-> {kernels.BUILD_DIR}", flush=True)
 
     gen = torch.Generator(device="cuda")
@@ -1036,6 +1284,49 @@ def main() -> int:
           f"tokens/s, flash launches {spec['flash_launches']} (target + draft prefills); vs greedy "
           f"{spec['vs_greedy']}", flush=True)
 
+    bwd_rows = [
+        flash_bwd_case("training shape cut to B*H 8", gen),
+        flash_bwd_case("D=128", gen, sq=2048, sk=2048, d=128),
+        flash_bwd_case("float32", gen, sq=2048, sk=2048, dtype=torch.float32),
+        flash_bwd_case("window 1024", gen, window=1024),
+        flash_bwd_case("GQA 4", gen, sq=2048, sk=2048, group=4),
+        flash_bwd_case("offsets, Sq != Sk", gen, sq=1024, sk=2048, q_off=1024),
+        flash_bwd_case("ragged Sk tail", gen, sq=1000, sk=2037, q_off=1037),
+        flash_bwd_case("nonzero dlse", gen, sq=2048, sk=2048, dlse=True),
+    ]
+    for r in bwd_rows:
+        print(f"# parity flash bwd {r['case']} (B*H {r['bh']}, Sq {r['sq']}, Sk {r['sk']}, D {r['d']}, "
+              f"{r['dtype']}, window {r['window']}, offsets {r['q_off']}/{r['k_off']}, group "
+              f"{r['group']}, dlse {r['dlse']}): max |diff| {r['max_abs_err']} within "
+              f"{r['tolerance']}; two backward passes bit-identical {r['deterministic']}", flush=True)
+    bwd_t = flash_bwd_times(gen)
+    print(f"# time flash bwd (B*H {bwd_t['bh']}, S {bwd_t['s']}, D {bwd_t['d']}, bf16, causal): "
+          f"flash_bwd_dq {bwd_t['dq_ms']:.4f} ms ({bwd_t['dq_tflop_per_s']:.1f} TFLOP/s, bound "
+          f"{bwd_t['dq_bound_ms']:.4f} ms {bwd_t['dq_bound_by']}), flash_bwd_dkv {bwd_t['dkv_ms']:.4f} "
+          f"ms ({bwd_t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {bwd_t['dkv_bound_ms']:.4f} ms "
+          f"{bwd_t['dkv_bound_by']}); the gradients' least work {bwd_t['both_bound_ms']:.4f} ms; plain "
+          f"backward {bwd_t['plain_ms']:.4f} ms; SDPA backward {bwd_t['sdpa_bwd_ms']:.4f} ms; flash_fwd "
+          f"{bwd_t['fwd_ms']:.4f} ms [{smi}]", flush=True)
+    train = train_step_full(args.seed)
+    print(f"# LM training (card's own numbers, {smi}): d_model 512, 8 layers, seq {lm_train.SEQ}, "
+          f"batch {lm_train.BATCH}, bf16, remat, ring_flash, SGD lr {lm_train.LR}, "
+          f"{lm_train.SPL} steps a launch: {train['tokens_per_s']:.0f} tokens/s, "
+          f"{train['step_ms']:.2f} ms a step, MFU {train['mfu']:.4f} (task_lm's FLOP "
+          f"{train['step_flop']:.4g} a step over 989 TFLOP/s); launches a step flash_fwd / dq / dkv "
+          f"{train['per_step']}; launch spread {train['launch_spread']:.3f}; peak "
+          f"{train['peak_gib']:.2f} GiB; last launch's losses "
+          f"{['%.4f' % x for x in train['last_launch_losses']]}", flush=True)
+    agree_train = train_agreement(args.seed)
+    print(f"# LM training agreement (B 1, S {TRAIN_AGREE_SEQ}), kernels vs plain on the card: loss "
+          f"{agree_train['loss_kernel']:.6f} vs {agree_train['loss_plain']:.6f}; gaps "
+          f"{agree_train['gaps']}; largest share of 3x the JAX bf16 noise "
+          f"{max(agree_train['share_of_tolerance'].values()):.3g}", flush=True)
+    cli = lm_cli(args.seed)
+    print(f"# LM CLI: 2 layers, d_model 64, float32, 5 Adam steps, card {cli['small_card']} vs CPU "
+          f"{cli['small_cpu']} ({cli['small_gap']:.3g} apart, tolerance {CLI_LOSS_TOL}); full config, "
+          f"30 Adam steps + 64 generated tokens: losses {cli['losses']}, {cli['wall_s']:.1f} s, "
+          f"launches flash_fwd / dq / dkv {cli['launches']} [{smi}]", flush=True)
+
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
     main_quant = quant_times[0]  # the conf's 1-byte push
@@ -1073,12 +1364,30 @@ def main() -> int:
              ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
              bound_ms=flash_rows[0]["bound_ms"], bound_by=flash_rows[0]["bound_by"],
              library_ms=flash_rows[0]["library_ms"]),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
+             replaces="parameter_server_tpu/ops/flash_attention.py:430",
+             launches=train["flash_bwd_dq_launches"],
+             max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
+             tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
+             ms=bwd_t["dq_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dq_bound_ms"],
+             bound_by=bwd_t["dq_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"]),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
+             replaces="parameter_server_tpu/ops/flash_attention.py:430",
+             launches=train["flash_bwd_dkv_launches"],
+             max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
+             tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
+             ms=bwd_t["dkv_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dkv_bound_ms"],
+             bound_by=bwd_t["dkv_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"]),
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
                   quantize_times=quant_times, headline=head, dense_path=dense, bf16_path=bf16,
                   ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
+                  flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,
+                  lm_train_agreement=agree_train, lm_cli=cli,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -16,11 +16,17 @@ kernel kind (``flash_fwd``, the decode attention's batched GEMVs, the
 other matmuls, softmax, the rest) and, through profiler labels put
 around the port's functions, by part (the prefill, the decode steps,
 and within them the cache writes and the token pick), each with the
-host time spent in it. Prints device time by kernel and the device's
-busy share of the traced window, and writes the same to
+host time spent in it. ``--cell lm_train`` traces one SGD step of the
+LM training configuration (``benchmarks/lm_train.py``: d_model 512, 8
+layers, batch 4 x 8192 tokens, bf16, remat, ``ring_flash``) after a
+warm-up step, and splits its device time by kernel kind (``flash_fwd``,
+``flash_bwd_dq``, ``flash_bwd_dkv``, matrix products, copies and casts,
+the other elementwise kernels) with the launches of each. Prints device
+time by kernel and the device's busy share of the traced window, and
+writes the same to
 ``chiprun_out/profile_step_<cell>.json``.
 
-    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve]
+    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve|lm_train]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -45,6 +51,7 @@ from ..models import transformer
 from .ctr import ctr_conf, write_ctr_shards
 from .headline import T, conf, make_batch
 from .lm_serve import SERVE_CFG, make_prompt, serve_params
+from . import lm_train
 
 LM_DECODE_STEPS = 16
 # device time of the LM cell by kernel kind: name patterns, first match
@@ -55,6 +62,11 @@ _LM_KERNELS = {"flash_fwd": ("flash_fwd",), "decode attention GEMV": ("gemv", "g
 _LM_RANGES = {"prefill": ("_prefill",), "decode steps": ("_decode_step",),
               "cache writes": ("_cache_write", "_cache_write_rows"), "sampling": ("_pick_token",)}
 _LM_LABELS = {f"lm.{n}" for names in _LM_RANGES.values() for n in names}
+# device time of the training step by kernel kind, first match wins
+_TRAIN_KERNELS = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
+                  "flash_bwd_dkv": ("flash_bwd_dkv",),
+                  "matmuls": ("gemm", "cutlass", "xmma", "nvjet", "splitk", "gemv"),
+                  "copies and casts": ("copy", "memcpy", "memset", "cast")}
 
 
 def headline_launches():
@@ -110,15 +122,36 @@ def lm_serve_run():
     return run
 
 
+def lm_train_run():
+    """One SGD step of the training configuration (batch 4 x 8192 tokens);
+    a warm-up step first."""
+    params = transformer.init_lm(0, lm_train.TRAIN_CFG, "cuda")
+    tokens = lm_train.make_tokens(device="cuda")[0]
+    step = transformer.make_lm_train_step(lm_train.TRAIN_CFG, lr=lm_train.LR, donate=True)
+    state = {"params": step(params, tokens)[0]}
+
+    def run():
+        state["params"], _ = step(state["params"], tokens)
+    return run
+
+
+def by_kind(rows, kinds) -> dict:
+    """Device µs and launches by kernel kind (name patterns, first match
+    wins; the rest is "elementwise and other")."""
+    out = {kind: dict(device_us=0.0, launches=0) for kind in (*kinds, "elementwise and other")}
+    for r in rows:
+        name = r["name"].lower()
+        kind = next((k for k, keys in kinds.items() if any(p in name for p in keys)),
+                    "elementwise and other")
+        out[kind]["device_us"] += r["device_us"]
+        out[kind]["launches"] += r["count"]
+    return out
+
+
 def lm_split(prof, rows) -> dict:
     """Device µs of the LM cell by kernel kind, and by labelled part: the
     device time of the kernels each part launched and the host time
     spent in it (µs, whole traced call)."""
-    kinds = {kind: 0.0 for kind in (*_LM_KERNELS, "other")}
-    for r in rows:
-        name = r["name"].lower()
-        kind = next((k for k, keys in _LM_KERNELS.items() if any(p in name for p in keys)), "other")
-        kinds[kind] += r["device_us"]
     parts = {}
     for part, names in _LM_RANGES.items():
         # the host-side range events: their device time is the sum of the
@@ -128,12 +161,13 @@ def lm_split(prof, rows) -> dict:
                and e.device_type == DeviceType.CPU]
         parts[part] = dict(calls=len(evs), device_us=sum(e.device_time_total for e in evs),
                            host_us=sum(e.cpu_time_total for e in evs))
-    return dict(kinds=kinds, parts=parts)
+    return dict(kinds=by_kind(rows, _LM_KERNELS), parts=parts)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=("headline", "ctr", "lm_serve"), default="headline")
+    ap.add_argument("--cell", choices=("headline", "ctr", "lm_serve", "lm_train"),
+                    default="headline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -144,6 +178,8 @@ def main(argv=None) -> int:
                          check=True, capture_output=True, text=True).stdout.strip()
     if args.cell == "lm_serve":
         run, unit, units = lm_serve_run(), "decode step", LM_DECODE_STEPS
+    elif args.cell == "lm_train":
+        run, unit, units = lm_train_run(), "SGD step", 1
     else:
         worker, warm, traced, with_aux = (ctr_launches if args.cell == "ctr" else headline_launches)()
         for p in warm:
@@ -184,9 +220,15 @@ def main(argv=None) -> int:
     if args.cell == "lm_serve":
         out["split_us"] = split = lm_split(prof, rows)
         print(f"# whole traced call (prefill + {units} decode steps), device time by kernel kind: "
-              + ", ".join(f"{k} {v:.1f} us" for k, v in split["kinds"].items()))
+              + ", ".join(f"{k} {v['device_us']:.1f} us" for k, v in split["kinds"].items()))
         print("# by part (calls, device us, host us): " + ", ".join(
             f"{k} ({v['calls']}, {v['device_us']:.1f}, {v['host_us']:.1f})" for k, v in split["parts"].items()))
+    if args.cell == "lm_train":
+        out["by_kind"] = kinds = by_kind(rows, _TRAIN_KERNELS)
+        out["launches_per_unit"] = sum(r["count"] for r in rows) / units
+        print(f"# one SGD step, {out['launches_per_unit']:.0f} device launches; device time by "
+              "kernel kind: " + ", ".join(f"{k} {v['device_us'] / 1e3:.3f} ms ({v['launches']} "
+                                         "launches)" for k, v in kinds.items()))
     for r in rows[:20]:
         print(f"#   {r['device_us'] / units:9.1f} us/{unit}  x{r['count'] / units:5.1f}  {r['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)

@@ -10,9 +10,9 @@ an unchanged one is reused.
 
 ``--fmad=false`` keeps multiplies and adds uncontracted, so the FTRL and
 quantize kernels round exactly as their plain PyTorch versions do (see
-``csrc/ftrl_common.cuh``). ``flash_fwd`` sums in another order than its
-plain version in any case and is held to it within a tolerance, so it
-is built with contraction on.
+``csrc/ftrl_common.cuh``). ``flash_fwd`` and ``flash_bwd`` sum in another
+order than their plain versions in any case and are held to them within a
+tolerance, so they are built with contraction on.
 """
 
 from __future__ import annotations
@@ -41,25 +41,23 @@ _P, _I, _LL, _F, _U = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
     ctypes.c_uint,
 )
-# library name -> (C function, argtypes)
+# library name -> {C function: argtypes}
+_FLASH_DIMS = [_I] * 9  # bh, sq, sk, d, group, q_off, k_off, causal, window
 _SIGNATURES = {
-    "ftrl_dense": (
-        "ftrl_dense_launch",
-        [_P, _P, _I, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
-    ),
-    "ftrl_sparse": (
-        "ftrl_sparse_launch",
-        [_P, _P, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
-    ),
-    "quantize": ("quantize_launch", [_P, _P, _P, _P, _I, _LL, _U, _P]),
-    "flash_fwd": (
-        "flash_fwd_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    ),
+    "ftrl_dense": {"ftrl_dense_launch": [_P, _P, _I, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P]},
+    "ftrl_sparse": {
+        "ftrl_sparse_launch": [_P, _P, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
+    },
+    "quantize": {"quantize_launch": [_P, _P, _P, _P, _I, _LL, _U, _P]},
+    "flash_fwd": {"flash_fwd_launch": [_P] * 5 + _FLASH_DIMS + [_F, _I, _P]},
+    "flash_bwd": {
+        "flash_bwd_dq_launch": [_P] * 7 + _FLASH_DIMS + [_F, _I, _P],
+        "flash_bwd_dkv_launch": [_P] * 8 + _FLASH_DIMS + [_F, _I, _P],
+    },
 }
 # library name -> flags beside NVCC_FLAGS
 _FLAGS = {"ftrl_dense": _BIT_EXACT, "ftrl_sparse": _BIT_EXACT, "quantize": _BIT_EXACT,
-          "flash_fwd": []}
+          "flash_fwd": [], "flash_bwd": []}
 
 _lock = threading.Lock()
 _libs: "dict[str, ctypes.CDLL]" = {}
@@ -120,11 +118,11 @@ def build_all() -> "dict[str, pathlib.Path]":
 
 
 def _load(name: str, path: pathlib.Path) -> ctypes.CDLL:
-    fn_name, argtypes = _SIGNATURES[name]
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -141,7 +139,7 @@ def library(name: str) -> ctypes.CDLL:
 def variant(name: str, *defines: str) -> ctypes.CDLL:
     """Library ``name`` built with the extra macros ``defines`` (a
     diagnostic build, such as ``flash_fwd`` with ``FLASH_FWD_RACE_PROBE``),
-    its launch function declared as in the normal build. Nothing on the
+    its launch functions declared as in the normal build. Nothing on the
     port's paths loads one."""
     path = _lib_path(name, defines)
     with _lock:

@@ -45,14 +45,14 @@
 // tile's values; with the barriers right, the output is bit-identical to
 // the normal build's, since each thread sums in a fixed order
 // (tests/test_torch_kernels_cuda.py holds it so).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#ifdef FLASH_FWD_RACE_PROBE
+#define FLASH_RACE_PROBE
+#endif
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kTile = 64;  // query rows per block, keys per k tile
+using namespace flash;
 
 struct Args {
   const void* q;
@@ -64,110 +64,18 @@ struct Args {
   float scale;
 };
 
-// _block_live on a whole 64 x 64 tile: dead when (causal) even its last
-// query row precedes its first key, or (window) even its first query row
-// is past its last key's window
-__device__ __forceinline__ bool tile_live(const Args& a, int q0, int k0) {
-  if (!a.causal) return true;
-  bool live = a.q_off + q0 + kTile - 1 >= a.k_off + k0;
-  if (a.window > 0) live = live && (a.q_off + q0 - (a.k_off + k0 + kTile - 1) < a.window);
-  return live;
-}
-
-// _fwd_kernel's mask: the K tail, causality at global positions, window
-__device__ __forceinline__ bool key_valid(const Args& a, int q_pos, int kp) {
-  bool valid = kp < a.sk;
-  if (a.causal) {
-    const int k_pos = a.k_off + kp;
-    valid = valid && k_pos <= q_pos;
-    if (a.window > 0) valid = valid && (q_pos - k_pos < a.window);
-  }
-  return valid;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ float finish_lse(float m, float l) {
   return l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : kNeg;
 }
-
-#ifdef FLASH_FWD_RACE_PROBE
-__device__ unsigned probe_seed;
-
-__device__ __forceinline__ void probe_skew(int site, int kt) {
-  unsigned h = probe_seed ^ (blockIdx.x * 73856093u) ^ (blockIdx.y * 19349663u) ^
-               (threadIdx.x * 83492791u) ^ (site * 2654435761u) ^ (kt * 40503u);
-  h ^= h >> 13;
-  h *= 0x5bd1e995u;
-  h ^= h >> 15;
-  __nanosleep(h & 1023u);
-}
-
-// fill n elements with NaN, then a barrier: the staging that follows
-// writes every element it owns over the poison
-template <typename T>
-__device__ __forceinline__ void probe_poison(T* p, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if constexpr (sizeof(T) == 2) {
-      reinterpret_cast<uint16_t*>(p)[i] = 0x7fc0u;  // bf16 NaN
-    } else {
-      reinterpret_cast<uint32_t*>(p)[i] = 0x7fc00000u;  // f32 NaN
-    }
-  }
-  __syncthreads();
-}
-#define PROBE_SKEW(site, kt) probe_skew(site, kt)
-#define PROBE_POISON(p, n) probe_poison(p, n)
-#else
-#define PROBE_SKEW(site, kt)
-#define PROBE_POISON(p, n)
-#endif
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// D += A.B, A 16x16 row-major, B 16x8 column-major, bf16 in, f32 sums.
-// Fragments (g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1], a1 =
-// A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
-// b1 = B[2t+8..2t+9][g]; c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..].
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16, the first in the low half (the lower index)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-}
-
 // One block: 64 query rows of one (batch, head), 4 warps of 16 rows each.
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_bf16(Args a) {
   constexpr int kStride = D + 8;  // smem row, in bf16 (a 16-byte pad)
-  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
   __shared__ __align__(16) __nv_bfloat16 ks[kTile * kStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * kStride];
 
@@ -205,17 +113,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Args a) {
     PROBE_POISON(ks, kTile * kStride);
     PROBE_POISON(vs, kTile * kStride);
     PROBE_SKEW(0, kt);
-    for (int i = threadIdx.x; i < kTile * kChunks; i += blockDim.x) {
-      const int row = i / kChunks, ch = i % kChunks;
-      uint4 kc = make_uint4(0u, 0u, 0u, 0u), vc = kc;
-      if (k0 + row < a.sk) {
-        const size_t off = static_cast<size_t>(k0 + row) * D + ch * 8;
-        kc = *reinterpret_cast<const uint4*>(k + off);
-        vc = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kStride + ch * 8) = kc;
-      *reinterpret_cast<uint4*>(vs + row * kStride + ch * 8) = vc;
-    }
+    stage2_bf16<D>(ks, vs, kStride, k, v, k0, a.sk);
     __syncthreads();
     PROBE_SKEW(1, kt);
 
@@ -336,10 +234,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
   const float* k = static_cast<const float*>(a.k) + kv_row;
   const float* v = static_cast<const float*>(a.v) + kv_row;
   PROBE_POISON(qs, kTile * kQs);
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-    const int row = i / D, col = i % D;
-    qs[row * kQs + col] = q0 + row < a.sq ? q[static_cast<size_t>(q0 + row) * D + col] : 0.f;
-  }
+  stage_f32<D>(qs, kQs, q, q0, a.sq);
   PROBE_SKEW(0, -1);
   const int qp = a.q_off + q0 + r;
   float o[kCols];
@@ -356,13 +251,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
     PROBE_POISON(vs, kTile * D);
     PROBE_POISON(ps, kTile * kPs);
     PROBE_SKEW(1, kt);
-    for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-      const int row = i / D, col = i % D;
-      const bool ok = k0 + row < a.sk;
-      const size_t off = static_cast<size_t>(k0 + row) * D + col;
-      ks[row * kKs + col] = ok ? k[off] : 0.f;
-      vs[row * D + col] = ok ? v[off] : 0.f;
-    }
+    stage2_f32<D>(ks, kKs, vs, D, k, v, k0, a.sk);
     __syncthreads();
     PROBE_SKEW(2, kt);
 
@@ -435,7 +324,7 @@ cudaError_t launch(const Args& a, int bh, int dtype, cudaStream_t s) {
 
 #ifdef FLASH_FWD_RACE_PROBE
 extern "C" int flash_fwd_probe_seed(unsigned seed) {
-  return static_cast<int>(cudaMemcpyToSymbol(probe_seed, &seed, sizeof(seed)));
+  return static_cast<int>(cudaMemcpyToSymbol(flash::probe_seed, &seed, sizeof(seed)));
 }
 #endif
 

@@ -1,37 +1,48 @@
-"""KV-cached decoder-only LM serving.
+"""Decoder-only byte LM: training and KV-cached serving.
 
-Counterpart of the serving half of ``parameter_server_tpu/models/transformer.py``:
-:class:`LMConfig`, :func:`init_lm`, the int8 or compute-dtype KV cache,
-the batched causal prefill, the one-token and chunked decode steps, and
-:func:`lm_generate` (dense and ragged batches, greedy or sampled, with
-``eos_id``, ``return_logits`` and ``return_state``). Parameters are a
-plain dict of float32 tensors with the JAX package's names (``emb``,
-``ln_f``, ``l{i}/ln1|ln2|wq|wk|wv|wo|w1|w2``); :mod:`..convert` carries
-them over from the JAX package.
+Counterpart of ``parameter_server_tpu/models/transformer.py``:
+:class:`LMConfig`, :func:`init_lm`; the training forward
+:func:`lm_forward`, :func:`lm_loss`, :func:`lm_loss_with_targets`,
+:func:`value_and_grad` and the SGD steps :func:`make_lm_train_step` /
+:func:`make_lm_train_step_with_targets`; the int8 or compute-dtype KV
+cache, the batched causal prefill, the one-token and chunked decode
+steps, and :func:`lm_generate` (dense and ragged batches, greedy or
+sampled, with ``eos_id``, ``return_logits`` and ``return_state``).
+Parameters are a plain dict of float32 tensors with the JAX package's
+names (``emb``, ``ln_f``, ``l{i}/ln1|ln2|wq|wk|wv|wo|w1|w2``);
+:mod:`..convert` carries them over from the JAX package.
 
-On the card the prefill's attention is the CUDA kernel ``flash_fwd``
-(:func:`..ops.flash_attention.flash_mha`); on the CPU it is that
-kernel's plain version. The decode step's attention is plain tensor
-code over the cache, as it is in the JAX package, and the projections
-and MLP are ``torch.matmul``. Everything follows the device of the
-parameters it is given.
+On the card attention is the hand-written CUDA flash-attention kernels:
+``flash_fwd`` for the prefill and the training forward, ``flash_bwd_dq``
+and ``flash_bwd_dkv`` for the training backward
+(:mod:`..ops.flash_attention`); on the CPU it is their plain versions.
+The decode step's attention is plain tensor code over the cache, as it
+is in the JAX package, and the projections and MLP are
+``torch.matmul``. Everything follows the device of the parameters it is
+given.
 
 Differences from the JAX package, none of which changes a result:
 
 - caches are written IN PLACE (``cache[i, :, :, pos] = ...``), where JAX
   updates them functionally and XLA in place;
-- the weights are cast to the compute dtype once per call, as XLA
-  hoists the cast out of its decode scan;
+- serving casts the weights to the compute dtype once per call, as XLA
+  hoists the cast out of its decode scan (training casts them inside
+  each layer, as JAX does, so the gradient reaches the float32 weights);
 - ``jax.random`` keys become an explicit ``torch.Generator``; the draws
   differ, so sampled runs match JAX in distribution, not draw for draw;
   :func:`init_lm` draws its normal(0, 0.02) weights from a seeded
   ``torch.Generator``, so its values differ from JAX's ``init_lm``;
-- the decode loops are Python loops (``lax.scan`` in JAX).
+- the decode loops and ``steps_per_launch`` are Python loops
+  (``lax.scan`` in JAX), and ``remat`` is
+  ``torch.utils.checkpoint`` (``jax.checkpoint``);
+- grouped-query attention in training broadcasts each K/V head over its
+  query-head group before attention, as JAX does (the grouped kernel
+  call of serving would give the same gradient, summed in another order).
 
-Not here yet: the training forward and loss (``lm_forward``,
-``lm_loss``, the ring / zigzag / Ulysses schedules), beam search,
-``lm_generate_continue`` and MoE layers (``moe_every > 0`` raises
-``NotImplementedError``).
+Not here yet: the attention layouts across cards (``attention=
+"ring_zigzag"`` and ``"a2a"`` raise ``NotImplementedError``, ROADMAP A9),
+so also ``zigzag_lm_arrays``; beam search, ``lm_generate_continue`` and
+MoE layers (``moe_every > 0`` raises ``NotImplementedError``, A11).
 """
 
 from __future__ import annotations
@@ -43,9 +54,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..device import resolve
 from ..ops.flash_attention import flash_mha
+from .attention import ring_attention
 
 Params = Dict[str, torch.Tensor]
 _NEG = -1e30  # finite mask value, as in the JAX package
@@ -55,7 +68,9 @@ _NEG = -1e30  # finite mask value, as in the JAX package
 class LMConfig:
     """The JAX package's ``LMConfig``, field for field and with its
     validation. ``attention`` and ``remat`` shape training only; serving
-    reads them for validation."""
+    reads them for validation. The attention modes that lay the sequence
+    out across cards (``"ring_zigzag"``, ``"a2a"``) are accepted here, as
+    serving does not read them, and raise in :func:`lm_forward`."""
 
     vocab: int = 256
     d_model: int = 64
@@ -200,6 +215,162 @@ def _logits(params, x):
 def _mlp(w, i: int, x):
     h2 = _ln(x, w[f"l{i}/ln2"])
     return x + F.gelu(h2 @ w[f"l{i}/w1"], approximate="tanh") @ w[f"l{i}/w2"]
+
+
+# -- training --
+
+_RING_IMPL = {"ring": "xla", "ring_flash": "flash"}
+
+
+def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
+    """One decoder layer of :func:`lm_forward`: the weights cast to the
+    compute dtype inside the layer (so ``remat`` recomputes the cast, as
+    under ``jax.checkpoint``), attention through the ring schedule."""
+    b, s, d = x.shape
+    nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    w = {f"l{i}/{n}": params[f"l{i}/{n}"].to(cfg.dtype) for n in _LAYER_WEIGHTS}
+    h = _ln(x, w[f"l{i}/ln1"])
+    q, k, v = h @ w[f"l{i}/wq"], h @ w[f"l{i}/wk"], h @ w[f"l{i}/wv"]
+    if cfg.rope:  # rotate BEFORE the GQA broadcast: k is still narrow
+        q = _rotate(q.reshape(b, s, nh, hd), *rope_cs).reshape(b, s, d)
+        k = _rotate(k.reshape(b, s, kvh, hd), *rope_cs).reshape(b, s, kvh * hd)
+    if kvh != nh:  # GQA: each K/V head broadcast over its query-head group
+
+        def expand(t):
+            return t.reshape(b, s, kvh, 1, hd).expand(b, s, kvh, nh // kvh, hd).reshape(b, s, d)
+
+        k, v = expand(k), expand(v)
+
+    def heads(t):  # [B, S, d] -> [B*nh, S, hd]
+        return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
+
+    att = ring_attention(heads(q), heads(k), heads(v), causal=True,
+                         impl=_RING_IMPL[cfg.attention], window=cfg.window)
+    att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
+    x = x + att.to(cfg.dtype) @ w[f"l{i}/wo"]
+    return _mlp(w, i, x)
+
+
+def lm_forward(params: Params, tokens, cfg: LMConfig):
+    """Logits [B, S, vocab] (always float32) of tokens [B, S]; decoder
+    activations run in ``cfg.compute_dtype``, each layer rematerialized in
+    the backward when ``cfg.remat``. The JAX ``mesh``/``axis`` arguments
+    are gone: one card holds the whole sequence (ROADMAP A9)."""
+    if cfg.attention not in _RING_IMPL:
+        raise NotImplementedError(
+            f"LMConfig.attention={cfg.attention!r} lays the sequence out across cards, which the "
+            "PyTorch package does not do yet (ROADMAP A9, multi-GPU); use 'ring' or 'ring_flash'")
+    tokens = torch.as_tensor(tokens, device=params["emb"].device).to(torch.int64)
+    s = tokens.shape[1]
+    # RoPE tables once per call, on positions arange(S), shared by every
+    # layer (under remat they enter each checkpoint as inputs)
+    rope_cs = _rope_tables(torch.arange(s, device=tokens.device)[None, :, None], cfg.head_dim,
+                           cfg.rope_theta) if cfg.rope else None
+    x = _embed(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(_train_layer, params, cfg, i, x, rope_cs,
+                                                  use_reentrant=False)
+        else:
+            x = _train_layer(params, cfg, i, x, rope_cs)
+    return _logits(params, x)
+
+
+def lm_loss(params: Params, tokens, cfg: LMConfig):
+    """Mean next-token cross entropy over positions 0 .. S-2."""
+    if cfg.attention == "ring_zigzag":
+        raise ValueError(
+            "lm_loss's [:, 1:] shift assumes NATURAL token order; the "
+            "zigzag layout breaks that adjacency — use "
+            "zigzag_lm_arrays + lm_loss_with_targets instead"
+        )
+    tokens = torch.as_tensor(tokens, device=params["emb"].device).to(torch.int64)
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    weights[:, -1] = 0.0
+    return lm_loss_with_targets(params, tokens, targets, weights, cfg)
+
+
+def lm_loss_with_targets(params: Params, tokens, targets, weights, cfg: LMConfig):
+    """Weighted next-token cross entropy with explicit per-position
+    targets: ``sum(nll * w) / max(sum(w), 1e-9)``."""
+    dev = params["emb"].device
+    logits = lm_forward(params, tokens, cfg)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    targets = torch.as_tensor(targets, device=dev).to(torch.int64)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    w = torch.as_tensor(weights, device=dev).to(torch.float32)
+    # eps only guards all-zero weights (loss 0); fractional weight sums
+    # must divide through unscaled
+    return (nll * w).sum() / torch.clamp_min(w.sum(), 1e-9)
+
+
+def value_and_grad(loss_fn, params: Params):
+    """``(loss, grads)`` of ``loss_fn(params)``, as ``jax.value_and_grad``
+    gives them: the loss detached, a gradient for every parameter. The
+    caller's tensors are not marked as requiring gradients."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _sgd(params: Params, loss_fn, lr: float, donate: bool):
+    """loss and gradients of ``loss_fn(params)``, then ``p - lr * g``:
+    in place on the caller's tensors with ``donate``, else into new
+    tensors (the caller's are left as they were)."""
+    loss, grads = value_and_grad(loss_fn, params)
+    with torch.no_grad():
+        if donate:
+            new = {k: v.detach().sub_(lr * grads[k]) for k, v in params.items()}
+        else:
+            new = {k: v.detach() - lr * grads[k] for k, v in params.items()}
+    return new, loss
+
+
+def make_lm_train_step(cfg: LMConfig, lr: float = 0.3, donate: bool = False,
+                       steps_per_launch: int = 1):
+    """SGD train step ``step(params, tokens) -> (params, loss)``.
+
+    ``donate=True`` lets the step update the caller's parameter tensors
+    in place (the JAX package donates their buffers); without it they are
+    left unchanged, so two configs can step from the same initial params.
+    ``steps_per_launch > 1`` takes a stacked ``[T, B, S]`` batch, runs T
+    sequential steps (a Python loop where JAX scans) and returns
+    ``(params, losses[T])``, the trajectory of T separate calls."""
+    if cfg.attention == "ring_zigzag":
+        raise ValueError(
+            "the zigzag layout needs explicit targets — use "
+            "make_lm_train_step_with_targets (+ zigzag_lm_arrays)"
+        )
+    if steps_per_launch < 1:
+        raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
+
+    def one(params, tokens, donate_now):
+        return _sgd(params, lambda p: lm_loss(p, tokens, cfg), lr, donate_now)
+
+    if steps_per_launch == 1:
+        return lambda params, tokens: one(params, tokens, donate)
+
+    def step(params, tokens_stack):
+        losses = []
+        for t in range(len(tokens_stack)):
+            # the first step honours `donate`; later ones own their params
+            params, loss = one(params, tokens_stack[t], donate or t > 0)
+            losses.append(loss)
+        return params, torch.stack(losses)
+
+    return step
+
+
+def make_lm_train_step_with_targets(cfg: LMConfig, lr: float = 0.3, donate: bool = False):
+    """SGD train step on ``(params, tokens, targets, weights)``, the
+    layout-agnostic factory; ``donate`` as in :func:`make_lm_train_step`."""
+
+    def step(params, tokens, targets, weights):
+        return _sgd(params, lambda p: lm_loss_with_targets(p, tokens, targets, weights, cfg), lr,
+                    donate)
+
+    return step
 
 
 # -- the KV cache: (data, scale); scale None = the compute dtype, else

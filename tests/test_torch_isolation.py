@@ -1,8 +1,8 @@
 """PyTorch port: package isolation, device selection and unported options.
 
 The port stands beside the JAX package and must not lean on it: no port
-module and not ``chip_smoke.py`` may load ``jax`` or any module of
-``parameter_server_tpu`` (whose name is a prefix of the port's own, so
+module and not ``chip_smoke.py`` may load ``jax``, ``optax`` or any module
+of ``parameter_server_tpu`` (whose name is a prefix of the port's own, so
 the check compares the exact name and the ``parameter_server_tpu.``
 prefix). Entry points run on the CUDA device unless the caller names
 another, and without a card they raise instead of running on the CPU.
@@ -50,7 +50,8 @@ def _clean_env():
 def test_port_imports_nothing_of_jax():
     mods = port_modules()
     for m in ("apps.linear.async_sgd", "apps.linear.main", "ops.quantize",
-              "filter.fixing_float", "data.text_parser", "learner.workload_pool"):
+              "filter.fixing_float", "data.text_parser", "learner.workload_pool",
+              "apps.lm.main", "apps.lm.optim", "models.attention", "benchmarks.lm_train"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -58,6 +59,7 @@ def test_port_imports_nothing_of_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'optax' or m.startswith('optax.')\n"
         "             or m == 'parameter_server_tpu'\n"
         "             or m.startswith('parameter_server_tpu.'))\n"
         "import os\n"
@@ -108,8 +110,30 @@ def test_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
     assert not bad, bad
 
 
+def test_lm_cli_run_as_a_module_imports_nothing_of_jax_or_optax(tmp_path):
+    """``python -m ...apps.lm.main`` end to end (train, evaluate, generate),
+    every import traced: neither jax, optax nor the JAX package is loaded."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "parameter_server_tpu_torch.apps.lm.main",
+         "--device", "cpu", "--steps", "2", "--seq-len", "32", "--batch", "2", "--eval-every", "2",
+         "--prompt", "a", "--gen-tokens", "2"],
+        cwd=tmp_path, env=_clean_env(), capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "--- generation" in out.stdout
+    loaded = {
+        line.rsplit("|", 1)[1].strip()
+        for line in out.stderr.splitlines()
+        if line.startswith("import time:") and line.count("|") == 2
+    }
+    assert "parameter_server_tpu_torch.models.transformer" in loaded
+    assert "parameter_server_tpu_torch.apps.lm.optim" in loaded
+    bad = sorted(m for m in loaded if m.split(".")[0] in ("jax", "optax", "parameter_server_tpu"))
+    assert not bad, bad
+
+
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+parameter_server_tpu(\.|\s|$)"
+    r"^\s*(import\s+(jax|optax)\b|from\s+(jax|optax)\b|import\s+parameter_server_tpu(\.|\s|$)"
     r"|from\s+parameter_server_tpu(\.|\s))",
     re.M,
 )
@@ -134,11 +158,18 @@ def _conf(**sgd):
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from parameter_server_tpu_torch.benchmarks import lm_train
+    from parameter_server_tpu_torch.models import transformer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsgd.AsyncSGDWorker(_conf())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.state_from_jax({"z": torch.zeros(4).numpy()})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_lm(0, transformer.LMConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_train.make_tokens(0, 1, 1, 8)
     # the CPU runs only when asked for
     w = tsgd.AsyncSGDWorker(_conf(), device="cpu")
     assert w.device.type == "cpu" and w.update_path == "torch_ref"

@@ -24,12 +24,18 @@ absolute part needed was 1.09e-3 at the serving prefill and 1.34e-3 at
 D 128 here; ``chip_smoke.py`` prints what each case uses. lse (float32)
 within 1e-4.
 
-Race probe: ``flash_fwd`` built with ``FLASH_FWD_RACE_PROBE`` poisons its
-shared tiles with NaN before staging them and skews every thread by a
-seeded pseudo-random sleep where threads hand data over; it must give the
-normal build's bits at every seed, on inputs inside NaN guard zones and
-into NaN-filled outputs (no missing barrier, no stale shared memory, no
-read out of range, every output written).
+Tolerance of ``flash_bwd_dq`` / ``flash_bwd_dkv`` (through the autograd
+Function, against ``flash_attention_bwd_ref`` on the same out, lse and
+c): see ``FLASH_BWD_TOL`` below; two backward passes must be
+bit-identical (no atomics).
+
+Race probes: ``flash_fwd`` built with ``FLASH_FWD_RACE_PROBE`` (and
+``flash_bwd`` with ``FLASH_BWD_RACE_PROBE``) poisons its shared tiles with
+NaN before staging them and skews every thread by a seeded pseudo-random
+sleep where threads hand data over; it must give the normal build's bits
+at every seed, on inputs inside NaN guard zones and into NaN-filled
+outputs (no missing barrier, no stale shared memory, no read out of
+range, every output written).
 """
 
 import ctypes
@@ -256,3 +262,158 @@ def test_flash_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, wi
         out, lse = _launch(probe, q, k, v, qo, ko, window, group)
         assert torch.equal(_bits(out), _bits(want_out)), seed
         assert torch.equal(_bits(lse), _bits(want_lse)), seed
+
+
+# -- the backward: flash_bwd_dq and flash_bwd_dkv --
+
+# (rtol, atol as a share of the largest |plain| of the tensor). float32:
+# products exact, sums in another order: 1e-5 of the tensor's scale (a
+# gradient sums up to Sq or Sk terms, each of the scale's order; an H100
+# needed at most 4.2e-7 of it here). bf16: one bf16 ulp of each output
+# (2^-7 relative: both sides round once), plus 2^-9 of the scale for what
+# the two differ by before that rounding: P and dS are rounded to bf16 from
+# scores summed in another order, so a few of the thousands of bf16 terms
+# of a sum sit one bf16 ulp apart, and an output that cancels to near zero
+# keeps that absolute difference (an H100 needed at most 2.2e-4 of the
+# scale here, 7.1e-5 at chip_smoke.py's B*H 8 x S 8192).
+FLASH_BWD_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -9)}
+
+
+def _bwd_case(dev, bh, sq, sk, d, dtype, qo, ko, window, group, dlse, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(bh, sq, d, device=dev, generator=g).to(dtype).requires_grad_()
+    k = torch.randn(bh // group, sk, d, device=dev, generator=g).to(dtype).requires_grad_()
+    v = torch.randn(bh // group, sk, d, device=dev, generator=g).to(dtype).requires_grad_()
+    do = torch.randn(bh, sq, d, device=dev, generator=g).to(dtype)
+    dl = torch.randn(bh, sq, device=dev, generator=g) if dlse else None
+    out, lse = tfa._flash(q, k, v, qo, ko, True, window, group)
+    return q, k, v, do, dl, out, lse
+
+
+def _bwd_kernel_and_plain(dev, bh, sq, sk, d, dtype, qo, ko, window, group, dlse):
+    """The kernels' gradients through the autograd Function (one launch
+    of each) and the plain backward's on the same out, lse and c."""
+    q, k, v, do, dl, out, lse = _bwd_case(dev, bh, sq, sk, d, dtype, qo, ko, window, group, dlse)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    outs, grads = ((out, lse), (do, dl)) if dlse else ((out,), (do,))
+    got = torch.autograd.grad(outs, (q, k, v), grads)
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    c = (do.float() * out.float()).sum(-1)
+    if dlse:
+        c = c - dl
+    with torch.no_grad():
+        want = tfa.flash_attention_bwd_ref(q, k, v, do, lse, c, qo, ko, causal=True, window=window,
+                                           group=group)
+    torch.cuda.synchronize()
+    return got, want
+
+
+BWD_CASES = [
+    # (bh, sq, sk, d, dtype, q_off, k_off, window, group, dlse)
+    (4, 256, 256, 64, torch.bfloat16, 0, 0, None, 1, False),
+    (4, 256, 256, 128, torch.bfloat16, 0, 0, None, 1, False),
+    (4, 256, 256, 64, torch.float32, 0, 0, None, 1, False),
+    (4, 192, 192, 128, torch.float32, 0, 0, 70, 2, True),
+    (8, 300, 300, 64, torch.bfloat16, 0, 0, 70, 1, False),          # window, ragged
+    (8, 192, 192, 64, torch.bfloat16, 0, 0, None, 4, False),        # GQA: dK/dV sum 4 heads
+    (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1, True),       # offsets, Sq != Sk, dlse
+    (4, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 1, False),   # ragged Sk tail
+    (2, 64, 64, 64, torch.bfloat16, 0, 500, None, 1, True),         # every key in the future
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, case):
+    dtype = case[4]
+    got, want = _bwd_kernel_and_plain(dev, *case)
+    rtol, share = FLASH_BWD_TOL[dtype]
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        scale = max(float(y.float().abs().max()), 1e-30)
+        diff = (x.float() - y.float()).abs()
+        need = max(0.0, float((diff - rtol * y.float().abs()).max())) / scale
+        print(f"# readings {case} {name}: max |diff| {float(diff.max()):.3g}, scale {scale:.3g}, "
+              f"atol needed {need:.3g} of the scale")
+        torch.testing.assert_close(x.float(), y.float(), rtol=rtol, atol=share * scale)
+    # no atomics: a second backward gives the same bits
+    again, _ = _bwd_kernel_and_plain(dev, *case)
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def test_flash_bwd_kernels_reject_what_they_do_not_take(dev):
+    q = torch.zeros(2, 64, 64, device=dev)
+    lse = torch.zeros(2, 64, device=dev)
+    with pytest.raises(ValueError, match="output gradient"):
+        tfa.flash_bwd_dq(q, q, q, q[:, :32], lse, lse, causal=True)
+    with pytest.raises(ValueError, match="lse and c"):
+        tfa.flash_bwd_dkv(q, q, q, q, lse[:, :8], lse, causal=True)
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.flash_bwd_dq(q, q, q, q.to(torch.bfloat16), lse, lse, causal=True)
+
+
+def _bwd_launch(lib, q, k, v, do, lse, c, qo, ko, window, group):
+    """Both backward kernels of ``lib`` into NaN-filled outputs."""
+    dq, dk, dv = (torch.full_like(t, float("nan")) for t in (q, k, v))
+    dims = tfa._dims(q, k, qo, ko, True, window, group)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.check(lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                          lse.data_ptr(), c.data_ptr(), dq.data_ptr(), *dims, stream),
+                  "flash_bwd_dq")
+    kernels.check(lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                           lse.data_ptr(), c.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                           *dims, stream), "flash_bwd_dkv")
+    torch.cuda.synchronize()
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,qo,ko,window,group", [
+    (16, 96, 96, 64, torch.float32, 0, 0, 40, 4),
+    (16, 96, 96, 64, torch.bfloat16, 0, 0, 40, 4),
+    (8, 300, 300, 128, torch.float32, 0, 0, None, 2),
+    (8, 300, 300, 128, torch.bfloat16, 0, 0, 70, 2),
+    (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1),
+    (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),
+])
+def test_flash_bwd_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (_guarded(torch.randn(n, s, d, device=dev, generator=g).to(dtype))
+                   for n, s in ((bh, sq), (bh // group, sk), (bh // group, sk), (bh, sq)))
+    lse = _guarded(tfa.launch_kernel(q, k, v, qo, ko, causal=True, window=window, group=group)[1])
+    c = _guarded(torch.randn(bh, sq, device=dev, generator=g))
+    want = _bwd_launch(kernels.library("flash_bwd"), q, k, v, do, lse, c, qo, ko, window, group)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in want)
+    probe = kernels.variant("flash_bwd", "FLASH_BWD_RACE_PROBE")
+    for seed in range(6):
+        assert probe.flash_bwd_probe_seed(ctypes.c_uint(seed)) == 0
+        got = _bwd_launch(probe, q, k, v, do, lse, c, qo, ko, window, group)
+        for x, y in zip(got, want):
+            assert torch.equal(_bits(x), _bits(y)), seed
+
+
+def test_flash_f32_card_vs_cpu_repeated(dev):
+    """The float32 shape of test_flash_mha_on_the_card_matches_the_cpu,
+    forward and backward, 20 times: every output and gradient element
+    beyond 2e-5 of the CPU's (plain version) is recorded with its size;
+    the test fails on any."""
+    rng = np.random.default_rng(4)
+    xq = torch.tensor(rng.normal(size=(2, 96, 8 * 64)), dtype=torch.float32)
+    xk, xv = (torch.tensor(rng.normal(size=(2, 96, 2 * 64)), dtype=torch.float32) for _ in range(2))
+    dy = torch.tensor(rng.normal(size=(2, 96, 8 * 64)), dtype=torch.float32)
+
+    def run(device):
+        xs = [t.to(device).requires_grad_() for t in (xq, xk, xv)]
+        out = tfa.flash_mha(*xs, 8, causal=True, n_kv_heads=2, window=40)
+        grads = torch.autograd.grad(out, xs, dy.to(device))
+        return [out.detach().cpu(), *(t.cpu() for t in grads)]
+
+    want = run("cpu")
+    mismatches = []
+    for rep in range(20):
+        for name, x, y in zip(("out", "dq", "dk", "dv"), run(dev), want):
+            diff = (x - y).abs()
+            bad = diff > 2e-5
+            if bool(bad.any()):
+                mismatches.append((rep, name, int(bad.sum()), int(diff.numel()), float(diff.max())))
+    print(f"# f32 card vs CPU, 20 repeats: mismatches {mismatches}")
+    assert not mismatches, mismatches
