@@ -59,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    window 1024, GQA 4, offsets with Sq != Sk, a ragged Sk tail and a
    nonzero lse gradient, within the stated tolerances and bit-identical
    run to run; their CUDA-event times at B*H 32 beside the plain
-   backward, SDPA's backward and the FLOP bound; ``make_lm_train_step`` at
+   backward, SDPA's backward and the FLOP bound, and ``flash_fwd`` beside
+   SDPA's forward at that shape; ``make_lm_train_step`` at
    the full config (a warm-up launch and 3 timed launches of 8 steps:
    tokens/s, step ms, MFU; flash launches asserted: 16 forward, 8 of each
    backward kernel a step); one step's loss and gradients against the same
@@ -1016,7 +1017,8 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
     shape (B*H 32, S 8192, D 64, bf16, causal), beside the plain backward
     (dq, dk and dv together, run as B*H / plain_chunk calls: its float32
     score tensors would not fit at once), SDPA's backward (``out.backward``
-    after an SDPA forward, ``is_causal``) and each kernel's bound."""
+    after an SDPA forward, ``is_causal``) and each kernel's bound; and
+    flash_fwd beside SDPA's forward at the same shape."""
     q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
                    for _ in range(4))
     out, lse = fa.launch_kernel(q, k, v, causal=True)
@@ -1036,6 +1038,9 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
     sdpa_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do[None],
                                                     retain_graph=True))
     del sdpa_out
+    with torch.no_grad():
+        sdpa_fwd_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True))
     fwd_ms = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True))
     pairs = kept_pairs(s, s, True, 0, 0, None) * bh
     elt = 2
@@ -1044,7 +1049,7 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
     dkv_bound = bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dV, dK
     least = bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, BF16_FLOP_PER_S)  # five products
     return dict(bh=bh, s=s, d=d, pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
-                sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, dq_bound_ms=dq_bound[0],
+                sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, dq_bound_ms=dq_bound[0],
                 dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                 both_bound_ms=least[0], dq_tflop_per_s=6 * d * pairs / dq_ms / 1e9,
                 dkv_tflop_per_s=8 * d * pairs / dkv_ms / 1e9)
@@ -1306,7 +1311,7 @@ def main() -> int:
           f"ms ({bwd_t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {bwd_t['dkv_bound_ms']:.4f} ms "
           f"{bwd_t['dkv_bound_by']}); the gradients' least work {bwd_t['both_bound_ms']:.4f} ms; plain "
           f"backward {bwd_t['plain_ms']:.4f} ms; SDPA backward {bwd_t['sdpa_bwd_ms']:.4f} ms; flash_fwd "
-          f"{bwd_t['fwd_ms']:.4f} ms [{smi}]", flush=True)
+          f"{bwd_t['fwd_ms']:.4f} ms, SDPA forward {bwd_t['sdpa_fwd_ms']:.4f} ms [{smi}]", flush=True)
     train = train_step_full(args.seed)
     print(f"# LM training (card's own numbers, {smi}): d_model 512, 8 layers, seq {lm_train.SEQ}, "
           f"batch {lm_train.BATCH}, bf16, remat, ring_flash, SGD lr {lm_train.LR}, "

@@ -17,43 +17,69 @@
 // dS cast to k's (q's) dtype before dS.K (dS^T.Q). Not bit-equal to the
 // plain version (other summation order), so built without --fmad=false.
 //
-// No atomics: flash_bwd_dq owns a 64-row query tile and loops over the
-// live key tiles; flash_bwd_dkv owns a 64-row key tile and loops over the
+// No atomics: flash_bwd_dq owns a tile of query rows and loops over the
+// live key tiles; flash_bwd_dkv owns a tile of keys and loops over the
 // group's query heads and their live query tiles. Each output element is
 // summed by one thread in a fixed order, so the gradients are bit-identical
 // from run to run. Like the JAX split, both kernels recompute S and dP:
 // seven products over the live pairs where the gradients need five.
 // Whole 64 x 64 tiles outside the causal or window band are skipped
-// (_block_live), so sliding-window training stays O(window) a query; the
-// key tail, causality at the global offsets and the window are masked per
-// element, and query rows past Sq contribute nothing (the JAX wrapper gives
-// them lse = +1e30; here a bounds check).
+// (_block_live), so sliding-window training stays O(window) a query.
 //
 // Bound on the card: operations. At the LM training shape (BH 32, S 8192,
 // D 64, bf16, causal) the gradients need 10 D FLOP over each of the 1.074e9
 // (query, key) pairs the mask keeps, 6.87e11 FLOP, 0.695 ms at the 989
 // TFLOP/s bf16 tensor-core rate; their ~270 MB of inputs and outputs take
-// ~0.08 ms at 3.35 TB/s. What the design does about it: the five products
-// run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums); P and dS
-// stay in registers, their C fragments re-packed as A fragments; each block
-// stages its own 64-row tile once and one 64-row tile of the other side per
-// step in shared memory. Not yet: wgmma, TMA, a pipelined ring of tiles
-// (one tile in flight, loads and math do not overlap), nor a fused kernel
-// that shares S and dP between the two gradients.
+// ~0.08 ms at 3.35 TB/s.
+//
+// What the bf16 design does about it (Hopper, sm_90a; helpers in
+// hopper.cuh). A block is three warpgroups. Warpgroup 0 gives up its
+// registers (setmaxnreg) and one of its warps produces: it loads the
+// block's own 128 rows once (dq: Q and dO; dkv: K and V) and streams the
+// other side's 64-row tiles (dq: K and V; dkv: Q, dO and their lse and c)
+// through TMA into a ring of 4 (D 64) or 3 (D 128) stages with full/empty
+// mbarriers, so the next tiles load while this one is computed.
+// Warpgroups 1 and 2 consume, 64 own rows each, with wgmma: S and dP (dkv:
+// S^T = K.Q^T, dP^T = V.dO^T) read both operands from shared memory
+// K-major, as two groups, so that P is computed while dP's products run;
+// P and dS (P^T, dS^T) are rounded to bf16 in registers and are the A
+// operands of dQ += dS.K (dV += P^T.dO, dK += dS^T.Q), whose B tile is read
+// MN-major: no operand is transposed or gathered by hand. Each warp
+// releases a slot with one arrive. The tile loop is lean, because on an
+// H100 (700 W) a few dozen scalar instructions between the products cost
+// hundreds of cycles a tile (benchmarks/flash_bwd_ab.py --variant
+// FLASH_BWD_CLOCKS measures the phases; PERF.md has the numbers): each
+// warpgroup computes once the run of tiles live for it and
+// the run it can take without the per-element mask (tile_live and the
+// mask are monotone along a row of tiles), the wgmma descriptors of slot 0
+// once, and the loop only adds offsets; the mask (key tail, query tail,
+// causal diagonal, window edge) is a branch-free select on the tiles
+// that cross one; P = 2^(S scale log2(e) - lse log2(e)) on the MUFU unit.
+// The grid starts the longest blocks first (dq: the last query tiles; dkv:
+// the first key tiles). What bounds it now: the softmax gradient between
+// a warpgroup's products (MUFU and FP32 work, overlapped only across the
+// two warpgroups). Not yet: overlapping one tile's softmax with the next
+// tile's products inside a warpgroup (two sets of score registers fit only
+// dq at D 64), a persistent grid, or one kernel that shares S and dP
+// between the two gradients (it needs dQ summed across blocks). At D 128,
+// flash_bwd_dkv spills (its dK and dV take 128 registers a thread).
 //
 // f32 inputs take two kernels on the CUDA cores (scalar FMA; the tensor
 // cores would round the operands to TF32): 4 threads a row, each scoring
 // 16 of a tile's 64 columns and owning D/4 gradient columns.
 //
 // Built with -DFLASH_BWD_RACE_PROBE (a diagnostic build, never the one the
-// port runs), shared tiles are NaN before staging and each thread sleeps a
-// seeded pseudo-random while at every hand-over through shared memory
-// (flash_common.cuh); the gradients must stay bit-identical to the normal
-// build's (tests/test_torch_kernels_cuda.py).
+// port runs), shared tiles are NaN before each load (a ring slot after its
+// consumers release it, before the producer refills it) and each thread
+// sleeps a seeded pseudo-random while before every mbarrier arrive and
+// wait and at every hand-over through shared memory (flash_common.cuh);
+// the gradients must stay bit-identical to the normal build's
+// (tests/test_torch_kernels_cuda.py).
 #ifdef FLASH_BWD_RACE_PROBE
 #define FLASH_RACE_PROBE
 #endif
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -74,237 +100,646 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, 4 warps of 16 rows
+// bf16: wgmma, a TMA ring of tiles, a producer warp
 // ---------------------------------------------------------------------------
 
+constexpr int kOwn = 128;      // rows a block owns: two consumer warpgroups of 64
+constexpr int kStream = 64;    // rows of a streamed tile
+constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int kConsumerWarps = 8;  // each releases a ring slot once
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes from a 1024-byte-aligned base: the two own tiles,
+// the ring's tile pairs, the ring's lse and c (dkv), the barriers.
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return 4 * kTile * (D + 8) * 2 + 2 * kTile * 4;
+struct Layout {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kOwnTile = kOwn * D * 2;
+  static constexpr int kStreamTile = kStream * D * 2;
+  static constexpr int kOwnA = 0, kOwnB = kOwnTile;
+  static constexpr int kRing = 2 * kOwnTile;                        // stage s: tile A, tile B
+  static constexpr int kStats = kRing + kStages * 2 * kStreamTile;  // stage s: lse[64], c[64]
+  static constexpr int kStatBytes = 2 * kStream * 4;
+  static constexpr int kBars = kStats + kStages * kStatBytes;       // full[s], empty[s], own
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+};
+
+struct TmaArgs {
+  Args a;
+  CUtensorMap own_a, own_b;  // the block's own tiles (dq: Q, dO; dkv: K, V), 128-row boxes
+  CUtensorMap str_a, str_b;  // the streamed tiles (dq: K, V; dkv: Q, dO), 64-row boxes
+  CUtensorMap lse, c;        // dkv: lse and c as flat float32 vectors, 64-element boxes
+};
+
+#ifdef FLASH_BWD_RACE_PROBE
+// a seeded per-thread sleep, then the warp back in step for the
+// warp-synchronous instructions that follow
+#define BWD_SKEW(site, i) \
+  do {                      \
+    flash::probe_skew(site, i); \
+    __syncwarp();           \
+  } while (0)
+// NaN over `bytes` of shared memory, 16 bytes a thread from `lane` of
+// `lanes`, ordered before the TMA writes that follow
+__device__ __forceinline__ void bwd_poison(unsigned char* p, int bytes, int lane, int lanes,
+                                           uint32_t word) {
+  for (int i = lane * 16; i < bytes; i += lanes * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(word, word, word, word);
+  hopper::fence_proxy_async();
+}
+#define BWD_POISON(p, bytes, lane, lanes, word) bwd_poison(p, bytes, lane, lanes, word)
+#else
+#define BWD_SKEW(site, i)
+#define BWD_POISON(p, bytes, lane, lanes, word)
+#endif
+constexpr uint32_t kNanBf16x2 = 0x7fc07fc0u, kNanF32 = 0x7fc00000u;
+
+// Timing diagnostics (builds whose gradients are wrong, for
+// benchmarks/flash_bwd_ab.py --variant): FLASH_BWD_NO_LOAD arrives on the
+// ring's barriers without loading (the consumers compute on stale tiles),
+// FLASH_BWD_NO_MATH has the consumers wait and release without computing.
+#ifdef FLASH_BWD_NO_LOAD
+constexpr bool kNoLoad = true;
+#else
+constexpr bool kNoLoad = false;
+#endif
+#ifdef FLASH_BWD_NO_MATH
+constexpr bool kMath = false;
+#else
+constexpr bool kMath = true;
+#endif
+// FLASH_BWD_CLOCKS: thread 0 of each consumer warpgroup sums, into
+// bwd_clocks (read and reset by flash_bwd_clocks), the cycles it spends
+// [0] waiting for tiles, [1] in S and dP, [2] in the softmax gradient, [3]
+// in the gradient products, [5] in its whole life (from taking its
+// registers to its last store), [7] releasing slots, [8] waiting for the
+// own tiles, [9] from a release to the next wait and [10] from a wait to
+// the products; [4] counts its computed tiles and [6] the warpgroups.
+#ifdef FLASH_BWD_CLOCKS
+constexpr int kClocks = 11;
+__device__ unsigned long long bwd_clocks[kClocks];
+#define BWD_CLK_DECL                 \
+  long long clk[kClocks] = {};       \
+  long long t_gap = 0;               \
+  const long long t_life = clock64()
+#define BWD_CLK_MARK() t_gap = clock64()
+#define BWD_CLK_GAP(i, v) \
+  if (t_gap != 0) clk[i] += (v) - t_gap
+#define BWD_CLK(v) const long long v = clock64()
+#define BWD_CLK_ADD(i, v) clk[i] += clock64() - (v)
+#define BWD_CLK_TILE() ++clk[4]
+#define BWD_CLK_FLUSH()                                                                 \
+  clk[5] = clock64() - t_life;                                                         \
+  clk[6] = 1;                                                                          \
+  if ((threadIdx.x & 127) == 0)                                                        \
+    for (int i = 0; i < kClocks; ++i) atomicAdd(&bwd_clocks[i], static_cast<unsigned long long>(clk[i]))
+#else
+#define BWD_CLK_DECL
+#define BWD_CLK_MARK()
+#define BWD_CLK_GAP(i, v)
+#define BWD_CLK(v)
+#define BWD_CLK_ADD(i, v)
+#define BWD_CLK_TILE()
+#define BWD_CLK_FLUSH()
+#endif
+
+// The block's head and the rank of its own tile, rank 0 the tile with the
+// most live tiles of the other side (causal: dq's last query tile, dkv's
+// first key tile): ranks in order, heads fastest, so the longest blocks
+// start first.
+__device__ __forceinline__ void block_tile(int n_own, int& head, int& rank) {
+  const int n_heads = gridDim.x / n_own;
+  head = blockIdx.x % n_heads;
+  rank = blockIdx.x / n_heads;
 }
 
-// One block: the 64 query rows q0.. of query row bh. Q and dO are staged
-// once; per live key tile, K and V.
+__device__ __forceinline__ int floor64(int x) { return x >= 0 ? x / 64 : -((63 - x) / 64); }
+
+// Tile ranges [x, y] of a consumer warpgroup, computed once a block: along
+// a row (or a column) of 64 x 64 tiles both tile_live and "no element
+// masked" are monotone, so each holds on one run of tiles. dq: the key
+// tiles live for query rows w..w+63 (none if w >= Sq), and those where no
+// element needs the mask (no query row past Sq, no key past Sk, not
+// crossing the causal diagonal or the window's edge)...
+__device__ __forceinline__ int2 dq_live_tiles(const Args& a, int w, int n_tiles) {
+  if (w >= a.sq) return make_int2(0, -1);
+  if (!a.causal) return make_int2(0, n_tiles - 1);
+  int2 r = make_int2(0, min(n_tiles - 1, floor64(a.q_off + w + kStream - 1 - a.k_off)));
+  if (a.window > 0) r.x = max(0, floor64(a.q_off + w - a.k_off - kStream + 1 - a.window) + 1);
+  return r;
+}
+
+__device__ __forceinline__ int2 dq_full_tiles(const Args& a, int w) {
+  if (w + kStream > a.sq) return make_int2(0, -1);
+  int2 r = make_int2(0, floor64(a.sk - kStream));
+  if (a.causal) {
+    r.y = min(r.y, floor64(a.q_off + w - a.k_off - kStream + 1));
+    if (a.window > 0) r.x = max(r.x, floor64(a.q_off + w + kStream - 1 - a.k_off - a.window) + 1);
+  }
+  return r;
+}
+
+// ...dkv: the query tiles live for keys w..w+63 (none if w >= Sk), and
+// those with no element masked
+__device__ __forceinline__ int2 dkv_live_tiles(const Args& a, int w, int n_tiles) {
+  if (w >= a.sk) return make_int2(0, -1);
+  if (!a.causal) return make_int2(0, n_tiles - 1);
+  int2 r = make_int2(max(0, floor64(a.k_off + w - a.q_off)), n_tiles - 1);
+  if (a.window > 0) r.y = min(r.y, floor64(a.window + a.k_off + w + kStream - 2 - a.q_off));
+  return r;
+}
+
+__device__ __forceinline__ int2 dkv_full_tiles(const Args& a, int w) {
+  if (w + kStream > a.sk) return make_int2(0, -1);
+  int2 r = make_int2(0, floor64(a.sq - kStream));
+  if (a.causal) {
+    r.x = max(r.x, floor64(a.k_off + w + 2 * kStream - 2 - a.q_off));
+    if (a.window > 0) r.y = min(r.y, floor64(a.window + a.k_off + w - kStream - a.q_off));
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool in(int i, int2 r) { return i >= r.x && i <= r.y; }
+
+// the tiles the block streams: those live for either warpgroup (one run)
+__device__ __forceinline__ int2 either(int2 r0, int2 r1) {
+  if (r1.y < r1.x) return r0;
+  if (r0.y < r0.x) return r1;
+  return make_int2(min(r0.x, r1.x), max(r0.y, r1.y));
+}
+
+// The key indices query row q keeps, as [x, y] (key_valid, and no key of
+// a row past Sq)...
+__device__ __forceinline__ int2 keys_kept(const Args& a, int q) {
+  if (q >= a.sq) return make_int2(0, -1);
+  int2 r = make_int2(0, a.sk - 1);
+  if (a.causal) {
+    const int q_pos = a.q_off + q;
+    r.y = min(r.y, q_pos - a.k_off);
+    if (a.window > 0) r.x = max(r.x, q_pos - a.window + 1 - a.k_off);
+  }
+  return r;
+}
+
+// ...and the query indices key kp is kept by
+__device__ __forceinline__ int2 queries_kept(const Args& a, int kp) {
+  if (kp >= a.sk) return make_int2(0, -1);
+  int2 r = make_int2(0, a.sq - 1);
+  if (a.causal) {
+    const int k_pos = a.k_off + kp;
+    r.x = max(r.x, k_pos - a.q_off);
+    if (a.window > 0) r.y = min(r.y, k_pos + a.window - 1 - a.q_off);
+  }
+  return r;
+}
+
+// Whether element 4j + e of a thread's accumulator fragment is kept: its
+// column col0 + 8j + e % 2 lies in the range of its row e / 2 (always,
+// when the tile is not masked). Branch-free: a select, not a jump.
+template <bool kMasked>
+__device__ __forceinline__ bool kept(const int2 (&range)[2], int col0, int j, int e) {
+  if (!kMasked) return true;
+  const int col = col0 + 8 * j + (e & 1);
+  const int2 r = range[e >> 1];
+  return (col >= r.x) & (col <= r.y);
+}
+
+// 2^x on the MUFU unit (about 2 ulp), subnormal results flushed to zero
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P = 2^(S scale log2e - lse log2e) over a thread's fragment of a 64 x 64
+// tile, in place, zero where not kept (columns col0 + 8j + e % 2). lse2:
+// the log2e lse of each element's row (dq: 2 rows a thread) or column
+// (dkv: lse2[j][e % 2]).
+template <bool kMasked, class Lse>
+__device__ __forceinline__ void softmax(float (&s)[32], const int2 (&range)[2], int col0,
+                                        float scale_log2, Lse lse2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = exp2_approx(fmaf(s[4 * j + e], scale_log2, -lse2(j, e)));
+      s[4 * j + e] = kept<kMasked>(range, col0, j, e) ? pv : 0.f;
+    }
+  }
+}
+
+// dS = P (dP - c) scale, as P (dP scale - c scale): in place of dp. cs2:
+// c scale of each element's row or column, as lse2 above. (With D 64 the
+// scale is 1/8, a power of two: the same bits as the left-hand form.)
+template <class C>
+__device__ __forceinline__ void softmax_grad(float (&dp)[32], const float (&p)[32], float scale,
+                                             C cs2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dp[i] = p[i] * fmaf(dp[i], scale, -cs2(j, e));
+    }
+  }
+}
+
+// the A fragments of the four 16-column slices of a 64 x 64 accumulator
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f[kk][r] = pack_f32(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+  }
+}
+
+// acc[64 x D] += A[64 x 64].B, A in registers, B a streamed tile MN-major
+// (db: its descriptor at k-step 0)
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Args a) {
-  constexpr int kStride = D + 8;  // smem row, in bf16 (a 16-byte pad)
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* dos = qs + kTile * kStride;
-  auto* ks = dos + kTile * kStride;
-  auto* vs = ks + kTile * kStride;
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&f)[4][4],
+                                           uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d = hopper::desc_advance(db, kk * 16 * 128);
+    if constexpr (D == 64) {
+      hopper::wgmma_rs_n64(acc, f[kk], d, 1);
+    } else {
+      hopper::wgmma_rs_n128(acc, f[kk], d, 1);
+    }
+  }
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+// s[64 x 64] = A.B^T, A 64 rows of an own tile, B a streamed tile, both
+// K-major over the D columns (da, db: their descriptors at k-step 0)
+template <int D>
+__device__ __forceinline__ void product_ss(float (&s)[32], uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = (kk & 3) * 32;  // bytes into a 128-byte row of a 64-column half
+    hopper::wgmma_ss_n64(s, hopper::desc_advance(da, (kk >> 2) * kOwn * 128 + col),
+                         hopper::desc_advance(db, (kk >> 2) * kStream * 128 + col), kk);
+  }
+}
+
+// Barrier set-up, and (probe) the own tiles poisoned; every thread.
+template <int D>
+__device__ __forceinline__ void block_setup(unsigned char* smem, uint32_t full, uint32_t empty,
+                                            uint32_t own) {
+  using L = Layout<D>;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    hopper::mbar_init(own, 1);
+    hopper::fence_barrier_init();
+  }
+  BWD_POISON(smem + L::kOwnA, 2 * L::kOwnTile, threadIdx.x, kThreads, kNanBf16x2);
+  __syncthreads();
+}
+
+// The producer's load of the block's own tiles (lane 0 of warp 0), rows r0..
+// of matrix n of both maps.
+template <int D>
+__device__ __forceinline__ void load_own(const TmaArgs& p, uint32_t base, uint32_t own, int r0,
+                                         int n) {
+  using L = Layout<D>;
+  if (kNoLoad) return hopper::mbar_arrive(own);
+  hopper::mbar_expect_tx(own, 2 * L::kOwnTile);
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h) {
+    hopper::tma_load_3d(base + L::kOwnA + h * kOwn * 128, &p.own_a, own, 64 * h, r0, n);
+    hopper::tma_load_3d(base + L::kOwnB + h * kOwn * 128, &p.own_b, own, 64 * h, r0, n);
+  }
+}
+
+// The producer's loop (warp 0 of warpgroup 0): for each tile of `tiles`
+// (of each of the `heads` matrices from n0 on), wait for its ring slot to
+// be released, (probe) poison it, and load rows 64 i.. of both streamed
+// maps into it; with `stats` (dkv), also the 64 lse and c from flat index
+// 64 i + n Sq.
+template <int D>
+__device__ __forceinline__ void produce(const TmaArgs& p, unsigned char* smem, uint32_t base,
+                                        uint32_t full, uint32_t empty, int2 tiles, int n0, int heads,
+                                        bool stats) {
+  using L = Layout<D>;
+  const int lane = threadIdx.x;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int n = n0; n < n0 + heads; ++n) {
+    for (int i = tiles.x; i <= tiles.y; ++i) {
+      BWD_SKEW(4, i);
+      hopper::mbar_wait(empty + 8 * stage, phase ^ 1);
+      BWD_POISON(smem + L::kRing + stage * 2 * L::kStreamTile, 2 * L::kStreamTile, lane, 32,
+                 kNanBf16x2);
+      BWD_POISON(smem + L::kStats + stage * L::kStatBytes, L::kStatBytes, lane, 32, kNanF32);
+      __syncwarp();
+      BWD_SKEW(5, i);
+      if (lane == 0) {
+        const uint32_t f = full + 8 * stage;
+        if (kNoLoad) {
+          hopper::mbar_arrive(f);
+        } else {
+          const uint32_t slot = base + L::kRing + stage * 2 * L::kStreamTile;
+          hopper::mbar_expect_tx(f, 2 * L::kStreamTile + (stats ? L::kStatBytes : 0));
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            hopper::tma_load_3d(slot + h * kStream * 128, &p.str_a, f, 64 * h, kStream * i, n);
+            hopper::tma_load_3d(slot + L::kStreamTile + h * kStream * 128, &p.str_b, f, 64 * h,
+                                kStream * i, n);
+          }
+          if (stats) {
+            const uint32_t st = base + L::kStats + stage * L::kStatBytes;
+            hopper::tma_load_1d(st, &p.lse, f, n * p.a.sq + kStream * i);
+            hopper::tma_load_1d(st + kStream * 4, &p.c, f, n * p.a.sq + kStream * i);
+          }
+        }
+      }
+      if (++stage == L::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// One block: query rows q0..q0+127 of query row bh (warpgroup 1 the first
+// 64, warpgroup 2 the next); per live key tile, K and V through the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_bf16(const __grid_constant__ TmaArgs p) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const Args& a = p.a;
+  const uint32_t full = base + L::kBars, empty = full + 8 * L::kStages, own = empty + 8 * L::kStages;
+  const int n_own = (a.sq + kOwn - 1) / kOwn, n_tiles = (a.sk + kStream - 1) / kStream;
+  int bh, rank;
+  block_tile(n_own, bh, rank);
+  const int q0 = (n_own - 1 - rank) * kOwn;
+  const int2 tiles = either(dq_live_tiles(a, q0, n_tiles), dq_live_tiles(a, q0 + 64, n_tiles));
+  const int wg = threadIdx.x >> 7;
+  block_setup<D>(smem, full, empty, own);
+
+  if (wg == 0) {  // producer
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      BWD_SKEW(3, -1);
+      if (threadIdx.x == 0) load_own<D>(p, base, own, q0, bh);
+      produce<D>(p, smem, base, full, empty, tiles, bh / a.group, 1, false);
+    }
+    return;
+  }
+
+  // consumers
+  hopper::regs_inc<kConsumerRegs>();
+  BWD_CLK_DECL;
+  const int cw = wg - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 64 * cw;                     // the warpgroup's first query row
+  const int r0 = w0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
+  const int2 live = dq_live_tiles(a, w0, n_tiles), unmasked = dq_full_tiles(a, w0);
   const size_t q_row = static_cast<size_t>(bh) * a.sq;
-  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k) + kv_row;
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v) + kv_row;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
-  const bool in0 = r0 < a.sq, in1 = r1 < a.sq;
-  const int qp0 = a.q_off + r0, qp1 = a.q_off + r1;
-  const float lse0 = in0 ? a.lse[q_row + r0] : 0.f, lse1 = in1 ? a.lse[q_row + r1] : 0.f;
-  const float c0 = in0 ? a.c[q_row + r0] : 0.f, c1 = in1 ? a.c[q_row + r1] : 0.f;
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  // the log2e lse and the scaled c of the two rows
+  const float lse2[2] = {r0 < a.sq ? a.lse[q_row + r0] * kLog2e : 0.f,
+                         r1 < a.sq ? a.lse[q_row + r1] * kLog2e : 0.f};
+  const float cs2[2] = {r0 < a.sq ? a.c[q_row + r0] * scale : 0.f,
+                        r1 < a.sq ? a.c[q_row + r1] * scale : 0.f};
+  const auto row_lse = [&](int, int e) { return lse2[e >> 1]; };
+  const auto row_c = [&](int, int e) { return cs2[e >> 1]; };
+  const int2 range[2] = {keys_kept(a, r0), keys_kept(a, r1)};
+  // descriptors: the warpgroup's rows of Q and dO; K (and V) of ring slot
+  // 0, K-major and MN-major
+  const uint64_t d_q = hopper::desc_k(base + L::kOwnA, kOwn, 64 * cw, 0);
+  const uint64_t d_do = hopper::desc_k(base + L::kOwnB, kOwn, 64 * cw, 0);
+  const uint64_t d_k = hopper::desc_k(base + L::kRing, kStream, 0, 0);
+  const uint64_t d_k_mn = hopper::desc_mn(base + L::kRing, kStream, 0);
 
-  PROBE_POISON(qs, 2 * kTile * kStride);
-  stage2_bf16<D>(qs, dos, kStride, static_cast<const __nv_bfloat16*>(a.q) + q_row * D,
-                 static_cast<const __nv_bfloat16*>(a.dout) + q_row * D, q0, a.sq);
-  PROBE_SKEW(0, -1);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(own, 0);
+  BWD_CLK_ADD(8, t_life);
+  BWD_SKEW(0, -1);
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int n_tiles = (a.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's reads are done (and Q, dO staged)
-    PROBE_POISON(ks, 2 * kTile * kStride);
-    PROBE_SKEW(1, kt);
-    stage2_bf16<D>(ks, vs, kStride, k, v, k0, a.sk);
-    __syncthreads();
-    PROBE_SKEW(2, kt);
-
-    // S = Q.K^T and dP = dO.V^T: 16 rows x 64 keys, as 8 C fragments of 8 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, qs, kStride, warp * 16, kk * 16);
-      load_a(da, dos, kStride, warp * 16, kk * 16);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int off = (n * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa, *reinterpret_cast<const uint32_t*>(ks + off),
-                 *reinterpret_cast<const uint32_t*>(ks + off + 8));
-        mma_bf16(dp[n], da, *reinterpret_cast<const uint32_t*>(vs + off),
-                 *reinterpret_cast<const uint32_t*>(vs + off + 8));
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = tiles.x; kt <= tiles.y; ++kt) {
+    BWD_SKEW(1, kt);
+    BWD_CLK(t0_clk);
+    BWD_CLK_GAP(9, t0_clk);
+    hopper::mbar_wait(full + 8 * stage, phase);
+    BWD_CLK_ADD(0, t0_clk);
+    BWD_CLK_MARK();
+    if (kMath && in(kt, live)) {
+      BWD_CLK(t1_clk);
+      BWD_CLK_GAP(10, t1_clk);
+      const uint32_t slot = stage * 2 * L::kStreamTile;
+      // S = Q.K^T and dP = dO.V^T, 64 rows x 64 keys each, as two groups
+      // (the first k-step overwrites: no value goes in); P while dP runs
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+      product_ss<D>(s, d_q, hopper::desc_advance(d_k, slot));
+      hopper::wgmma_commit();
+      product_ss<D>(dp, d_do, hopper::desc_advance(d_k, slot + L::kStreamTile));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+      BWD_CLK_ADD(1, t1_clk);
+      BWD_CLK(t2_clk);
+      if (in(kt, unmasked)) {
+        softmax<false>(s, range, kStream * kt + 2 * t, scale_log2, row_lse);
+      } else {
+        softmax<true>(s, range, kStream * kt + 2 * t, scale_log2, row_lse);
       }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      softmax_grad(dp, s, scale, row_c);
+      // dQ += dS.K, dS in bf16 as the A operand, K's tile MN-major
+      uint32_t ds[4][4];
+      pack_a(ds, dp);
+      BWD_CLK_ADD(2, t2_clk);
+      BWD_CLK(t3_clk);
+      hopper::wgmma_fence();
+      product_rs<D>(acc, ds, hopper::desc_advance(d_k_mn, slot));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      BWD_CLK_ADD(3, t3_clk);
+      BWD_CLK_TILE();
     }
-    // P = exp(S scale - lse) where valid, dS = P (dP - c) scale (in s)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + n * 8 + 2 * t + j;
-        const float p0 = in0 && key_valid(a, qp0, kp) ? expf(s[n][j] * a.scale - lse0) : 0.f;
-        const float p1 = in1 && key_valid(a, qp1, kp) ? expf(s[n][2 + j] * a.scale - lse1) : 0.f;
-        s[n][j] = p0 * (dp[n][j] - c0) * a.scale;
-        s[n][2 + j] = p1 * (dp[n][2 + j] - c1) * a.scale;
-      }
-    }
-    // dQ += dS.K: dS's C fragments of keys 16j..16j+15 are the A fragment
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t sa[4] = {pack_f32(s[2 * j][0], s[2 * j][1]), pack_f32(s[2 * j][2], s[2 * j][3]),
-                              pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* kc = ks + (j * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* col = kc + dn * 8;
-        mma_bf16(acc[dn], sa, pack_bf16(col[0], col[kStride]),
-                 pack_bf16(col[8 * kStride], col[9 * kStride]));
-      }
+    BWD_CLK(t4_clk);
+    BWD_SKEW(2, kt);
+    __syncwarp();  // the warp's reads of the slot are done
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * stage);
+    BWD_CLK_ADD(7, t4_clk);
+    BWD_CLK_MARK();
+    if (++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
   auto* dq = static_cast<__nv_bfloat16*>(a.dq) + q_row * D;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (in0) *reinterpret_cast<uint32_t*>(dq + static_cast<size_t>(r0) * D + col) = pack_f32(acc[dn][0], acc[dn][1]);
-    if (in1) *reinterpret_cast<uint32_t*>(dq + static_cast<size_t>(r1) * D + col) = pack_f32(acc[dn][2], acc[dn][3]);
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < a.sq) *reinterpret_cast<uint32_t*>(dq + static_cast<size_t>(r0) * D + col) = pack_f32(acc[4 * j], acc[4 * j + 1]);
+    if (r1 < a.sq) *reinterpret_cast<uint32_t*>(dq + static_cast<size_t>(r1) * D + col) = pack_f32(acc[4 * j + 2], acc[4 * j + 3]);
   }
+  BWD_CLK_FLUSH();
 }
 
-// One block: the 64 keys k0.. of K/V row kvh. K and V are staged once; per
-// query head of the group and live query tile, Q, dO, lse and c. The
-// products run transposed (keys as rows): S^T = K.Q^T, dP^T = V.dO^T.
+// One block: keys k0..k0+127 of K/V row kvh (warpgroup 1 the first 64,
+// warpgroup 2 the next); per query head of the group and live query tile,
+// Q, dO, lse and c through the ring. The products run transposed (keys as
+// rows): S^T = K.Q^T, dP^T = V.dO^T; lse and c are per column.
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Args a) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* vs = ks + kTile * kStride;
-  auto* qs = vs + kTile * kStride;
-  auto* dos = qs + kTile * kStride;
-  auto* lse_s = reinterpret_cast<float*>(dos + kTile * kStride);
-  auto* c_s = lse_s + kTile;
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_bf16(const __grid_constant__ TmaArgs p) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const Args& a = p.a;
+  const uint32_t full = base + L::kBars, empty = full + 8 * L::kStages, own = empty + 8 * L::kStages;
+  const int n_tiles = (a.sq + kStream - 1) / kStream;
+  int kvh, rank;
+  block_tile((a.sk + kOwn - 1) / kOwn, kvh, rank);
+  const int k0 = rank * kOwn;
+  const int2 tiles = either(dkv_live_tiles(a, k0, n_tiles), dkv_live_tiles(a, k0 + 64, n_tiles));
+  const int wg = threadIdx.x >> 7;
+  block_setup<D>(smem, full, empty, own);
 
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t kv_row = static_cast<size_t>(kvh) * a.sk * D;
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's two keys
-
-  PROBE_POISON(ks, 2 * kTile * kStride);
-  stage2_bf16<D>(ks, vs, kStride, static_cast<const __nv_bfloat16*>(a.k) + kv_row,
-                 static_cast<const __nv_bfloat16*>(a.v) + kv_row, k0, a.sk);
-  PROBE_SKEW(0, -1);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
-    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+  if (wg == 0) {  // producer
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      BWD_SKEW(3, -1);
+      if (threadIdx.x == 0) load_own<D>(p, base, own, k0, kvh);
+      produce<D>(p, smem, base, full, empty, tiles, kvh * a.group, a.group, true);
+    }
+    return;
   }
 
-  const int n_tiles = (a.sq + kTile - 1) / kTile;
-  for (int hg = 0; hg < a.group; ++hg) {
-    const size_t q_row = (static_cast<size_t>(kvh) * a.group + hg) * a.sq;
-    const auto* q = static_cast<const __nv_bfloat16*>(a.q) + q_row * D;
-    const auto* dout = static_cast<const __nv_bfloat16*>(a.dout) + q_row * D;
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      if (!tile_live(a, q0, k0)) continue;
-      __syncthreads();  // the previous tile's reads are done (and K, V staged)
-      PROBE_POISON(qs, 2 * kTile * kStride);
-      PROBE_POISON(lse_s, 2 * kTile);
-      PROBE_SKEW(1, qt);
-      stage2_bf16<D>(qs, dos, kStride, q, dout, q0, a.sq);
-      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-        const bool in = q0 + i < a.sq;
-        lse_s[i] = in ? a.lse[q_row + q0 + i] : 0.f;
-        c_s[i] = in ? a.c[q_row + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      PROBE_SKEW(2, qt);
+  // consumers
+  hopper::regs_inc<kConsumerRegs>();
+  BWD_CLK_DECL;
+  const int cw = wg - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = k0 + 64 * cw;                        // the warpgroup's first key
+  const int kr0 = w0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's two keys
+  const int2 live = dkv_live_tiles(a, w0, n_tiles), unmasked = dkv_full_tiles(a, w0);
+  const int2 range[2] = {queries_kept(a, kr0), queries_kept(a, kr1)};
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  // descriptors: the warpgroup's keys of K and V; Q (and dO) of ring slot
+  // 0, K-major and MN-major
+  const uint64_t d_k = hopper::desc_k(base + L::kOwnA, kOwn, 64 * cw, 0);
+  const uint64_t d_v = hopper::desc_k(base + L::kOwnB, kOwn, 64 * cw, 0);
+  const uint64_t d_q = hopper::desc_k(base + L::kRing, kStream, 0, 0);
+  const uint64_t d_q_mn = hopper::desc_mn(base + L::kRing, kStream, 0);
 
-      // S^T and dP^T: 16 keys x 64 queries, as 8 C fragments of 8 queries
-      float s[8][4], dp[8][4];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, ks, kStride, warp * 16, kk * 16);
-        load_a(va, vs, kStride, warp * 16, kk * 16);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int off = (n * 8 + g) * kStride + kk * 16 + 2 * t;
-          mma_bf16(s[n], ka, *reinterpret_cast<const uint32_t*>(qs + off),
-                   *reinterpret_cast<const uint32_t*>(qs + off + 8));
-          mma_bf16(dp[n], va, *reinterpret_cast<const uint32_t*>(dos + off),
-                   *reinterpret_cast<const uint32_t*>(dos + off + 8));
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  hopper::mbar_wait(own, 0);
+  BWD_CLK_ADD(8, t_life);
+  BWD_SKEW(0, -1);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int hg = 0; hg < a.group; ++hg) {
+    for (int qt = tiles.x; qt <= tiles.y; ++qt) {
+      BWD_SKEW(1, qt);
+      BWD_CLK(t0_clk);
+      BWD_CLK_GAP(9, t0_clk);
+      hopper::mbar_wait(full + 8 * stage, phase);
+      BWD_CLK_ADD(0, t0_clk);
+      BWD_CLK_MARK();
+      if (kMath && in(qt, live)) {
+        BWD_CLK(t1_clk);
+        BWD_CLK_GAP(10, t1_clk);
+        const uint32_t slot = stage * 2 * L::kStreamTile;
+        // S^T = K.Q^T and dP^T = V.dO^T, 64 keys x 64 queries each, as two
+        // groups; P^T while dP^T runs; then dV += P^T.dO and dK += dS^T.Q
+        // (P^T and dS^T in bf16 as the A operands, dO's and Q's tiles
+        // MN-major)
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+        product_ss<D>(s, d_k, hopper::desc_advance(d_q, slot));
+        hopper::wgmma_commit();
+        product_ss<D>(dp, d_v, hopper::desc_advance(d_q, slot + L::kStreamTile));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        BWD_CLK_ADD(1, t1_clk);
+        BWD_CLK(t2_clk);
+        // this thread's columns 8j + 2t, 8j + 2t + 1 of the tile's lse and c
+        const auto* stats = reinterpret_cast<const float2*>(smem + L::kStats + stage * L::kStatBytes) + t;
+        const auto col_lse = [&](int j, int e) {
+          const float2 v = stats[4 * j];
+          return ((e & 1) ? v.y : v.x) * kLog2e;
+        };
+        const auto col_c = [&](int j, int e) {
+          const float2 v = stats[kStream / 2 + 4 * j];
+          return ((e & 1) ? v.y : v.x) * scale;
+        };
+        if (in(qt, unmasked)) {
+          softmax<false>(s, range, kStream * qt + 2 * t, scale_log2, col_lse);
+        } else {
+          softmax<true>(s, range, kStream * qt + 2 * t, scale_log2, col_lse);
         }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        softmax_grad(dp, s, scale, col_c);
+        uint32_t pa[4][4], sa[4][4];
+        pack_a(pa, s);
+        pack_a(sa, dp);
+        BWD_CLK_ADD(2, t2_clk);
+        BWD_CLK(t3_clk);
+        hopper::wgmma_fence();
+        product_rs<D>(dv, pa, hopper::desc_advance(d_q_mn, slot + L::kStreamTile));
+        product_rs<D>(dk, sa, hopper::desc_advance(d_q_mn, slot));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        BWD_CLK_ADD(3, t3_clk);
+        BWD_CLK_TILE();
       }
-      // P^T in s, dS^T in dp
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int qi = n * 8 + 2 * t + j;
-          const bool in = q0 + qi < a.sq;
-          const int q_pos = a.q_off + q0 + qi;
-          const float p0 = in && key_valid(a, q_pos, kr0) ? expf(s[n][j] * a.scale - lse_s[qi]) : 0.f;
-          const float p1 = in && key_valid(a, q_pos, kr1) ? expf(s[n][2 + j] * a.scale - lse_s[qi]) : 0.f;
-          s[n][j] = p0;
-          s[n][2 + j] = p1;
-          dp[n][j] = p0 * (dp[n][j] - c_s[qi]) * a.scale;
-          dp[n][2 + j] = p1 * (dp[n][2 + j] - c_s[qi]) * a.scale;
-        }
-      }
-      // dV += P^T.dO and dK += dS^T.Q over queries 16j..16j+15
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t pa[4] = {pack_f32(s[2 * j][0], s[2 * j][1]), pack_f32(s[2 * j][2], s[2 * j][3]),
-                                pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
-        const uint32_t sa[4] = {pack_f32(dp[2 * j][0], dp[2 * j][1]), pack_f32(dp[2 * j][2], dp[2 * j][3]),
-                                pack_f32(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-                                pack_f32(dp[2 * j + 1][2], dp[2 * j + 1][3])};
-        const int base = (j * 16 + 2 * t) * kStride + g;
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const __nv_bfloat16* dc = dos + base + dn * 8;
-          const __nv_bfloat16* qc = qs + base + dn * 8;
-          mma_bf16(dv[dn], pa, pack_bf16(dc[0], dc[kStride]), pack_bf16(dc[8 * kStride], dc[9 * kStride]));
-          mma_bf16(dk[dn], sa, pack_bf16(qc[0], qc[kStride]), pack_bf16(qc[8 * kStride], qc[9 * kStride]));
-        }
+      BWD_CLK(t4_clk);
+      BWD_SKEW(2, qt);
+      __syncwarp();  // the warp's reads of the slot are done
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * stage);
+      BWD_CLK_ADD(7, t4_clk);
+      BWD_CLK_MARK();
+      if (++stage == L::kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
   }
 
+  const size_t kv_row = static_cast<size_t>(kvh) * a.sk * D;
   auto* dkp = static_cast<__nv_bfloat16*>(a.dk) + kv_row;
   auto* dvp = static_cast<__nv_bfloat16*>(a.dv) + kv_row;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (kr0 < a.sk) {
-      *reinterpret_cast<uint32_t*>(dkp + static_cast<size_t>(kr0) * D + col) = pack_f32(dk[dn][0], dk[dn][1]);
-      *reinterpret_cast<uint32_t*>(dvp + static_cast<size_t>(kr0) * D + col) = pack_f32(dv[dn][0], dv[dn][1]);
+      *reinterpret_cast<uint32_t*>(dkp + static_cast<size_t>(kr0) * D + col) = pack_f32(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + static_cast<size_t>(kr0) * D + col) = pack_f32(dv[4 * j], dv[4 * j + 1]);
     }
     if (kr1 < a.sk) {
-      *reinterpret_cast<uint32_t*>(dkp + static_cast<size_t>(kr1) * D + col) = pack_f32(dk[dn][2], dk[dn][3]);
-      *reinterpret_cast<uint32_t*>(dvp + static_cast<size_t>(kr1) * D + col) = pack_f32(dv[dn][2], dv[dn][3]);
+      *reinterpret_cast<uint32_t*>(dkp + static_cast<size_t>(kr1) * D + col) = pack_f32(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dvp + static_cast<size_t>(kr1) * D + col) = pack_f32(dv[4 * j + 2], dv[4 * j + 3]);
     }
   }
+  BWD_CLK_FLUSH();
 }
 
 // ---------------------------------------------------------------------------
@@ -484,6 +919,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32(Args a) {
   }
 }
 
+
+
 template <class K>
 cudaError_t launch_one(K kernel, dim3 grid, int threads, int bytes, const Args& a, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -492,17 +929,50 @@ cudaError_t launch_one(K kernel, dim3 grid, int threads, int bytes, const Args& 
   return cudaGetLastError();
 }
 
+template <class K>
+cudaError_t launch_tma(K kernel, dim3 grid, int bytes, const TmaArgs& p, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const Args& a, int bh, int dtype, cudaStream_t s) {
+  if (dtype == 1) {
+    TmaArgs p{};
+    p.a = a;
+    const int kvn = bh / a.group;
+    if (!hopper::map_bf16_rows(&p.own_a, a.q, D, a.sq, bh, kOwn) ||
+        !hopper::map_bf16_rows(&p.own_b, a.dout, D, a.sq, bh, kOwn) ||
+        !hopper::map_bf16_rows(&p.str_a, a.k, D, a.sk, kvn, kStream) ||
+        !hopper::map_bf16_rows(&p.str_b, a.v, D, a.sk, kvn, kStream))
+      return cudaErrorInvalidValue;
+    const dim3 grid(bh * ((a.sq + kOwn - 1) / kOwn));
+    return launch_tma(flash_bwd_dq_bf16<D>, grid, Layout<D>::kBytes, p, s);
+  }
   const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-  if (dtype == 1) return launch_one(flash_bwd_dq_bf16<D>, grid, 128, bf16_smem_bytes<D>(), a, s);
   return launch_one(flash_bwd_dq_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s);
 }
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, int bh, int dtype, cudaStream_t s) {
+  if (dtype == 1) {
+    TmaArgs p{};
+    p.a = a;
+    const int kvn = bh / a.group;
+    const long long stats = static_cast<long long>(bh) * a.sq;
+    if (!hopper::map_bf16_rows(&p.own_a, a.k, D, a.sk, kvn, kOwn) ||
+        !hopper::map_bf16_rows(&p.own_b, a.v, D, a.sk, kvn, kOwn) ||
+        !hopper::map_bf16_rows(&p.str_a, a.q, D, a.sq, bh, kStream) ||
+        !hopper::map_bf16_rows(&p.str_b, a.dout, D, a.sq, bh, kStream) ||
+        !hopper::map_f32_flat(&p.lse, a.lse, stats, kStream) ||
+        !hopper::map_f32_flat(&p.c, a.c, stats, kStream))
+      return cudaErrorInvalidValue;
+    const dim3 grid(kvn * ((a.sk + kOwn - 1) / kOwn));
+    return launch_tma(flash_bwd_dkv_bf16<D>, grid, Layout<D>::kBytes, p, s);
+  }
   const dim3 grid((a.sk + kTile - 1) / kTile, bh / a.group);
-  if (dtype == 1) return launch_one(flash_bwd_dkv_bf16<D>, grid, 128, bf16_smem_bytes<D>(), a, s);
   return launch_one(flash_bwd_dkv_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s);
 }
 
@@ -511,6 +981,16 @@ bool bad_args(int bh, int d, int dtype, int group) {
 }
 
 }  // namespace
+
+#ifdef FLASH_BWD_CLOCKS
+// the consumer cycle sums of the launches since the last call, then zeros
+extern "C" int flash_bwd_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, bwd_clocks, sizeof(bwd_clocks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zeros[kClocks] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(bwd_clocks, zeros, sizeof(zeros)));
+}
+#endif
 
 #ifdef FLASH_BWD_RACE_PROBE
 extern "C" int flash_bwd_probe_seed(unsigned seed) {

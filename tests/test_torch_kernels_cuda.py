@@ -319,6 +319,9 @@ BWD_CASES = [
     (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1, True),       # offsets, Sq != Sk, dlse
     (4, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 1, False),   # ragged Sk tail
     (2, 64, 64, 64, torch.bfloat16, 0, 500, None, 1, True),         # every key in the future
+    (2, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1, False),      # full length: the ring laps
+    (4, 320, 192, 128, torch.bfloat16, 0, 128, None, 1, False),     # 64-multiples, not 128, D 128
+    (8, 448, 1000, 64, torch.bfloat16, 552, 0, None, 4, True),      # GQA 4, offsets, Sq != Sk
 ]
 
 
@@ -374,6 +377,8 @@ def _bwd_launch(lib, q, k, v, do, lse, c, qo, ko, window, group):
     (8, 300, 300, 128, torch.bfloat16, 0, 0, 70, 2),
     (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1),
     (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),
+    (2, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1),      # the ring laps over 100 times
+    (4, 320, 192, 128, torch.bfloat16, 0, 128, None, 1),     # D 128, 64-multiples, not 128
 ])
 def test_flash_bwd_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(2)
