@@ -15,14 +15,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
    main paths' shapes, with CUDA-event times and the HBM-byte bound; the
    quantize kernel also against its statistical contract (round trip
-   within one step, unbiased mean);
+   within one step, unbiased mean); the segment-sum kernel at the linear
+   step's three sums (Xw by row, the gradient by slot, the shard gradient
+   by slot) on a headline batch's index vectors: the card's whole sum
+   (stable sort, then the kernel) bit-equal to the CPU's and run to run;
 4. headline path: the port's ``AsyncSGDWorker`` trains the headline
    configuration (2^22-slot FTRL sparse logistic regression, 16384-row
    minibatches of 39 binary features, keys from 2^24, T=8 minibatches per
    launch) through the sparse kernel, then 8 dense ministeps through the
    dense kernel and 8 sparse ministeps with bf16 sqrt_n. The first 2
    ministeps of each configuration are held against the same worker on
-   the CPU (and run twice on the card, to report run-to-run determinism),
+   the CPU (and run twice on the card: the two must leave bit-identical
+   state), every segment sum of the path launched as the kernel,
    and ``evaluate`` answers a held-out batch;
 5. CTR path: ``configs/ctr/online_l1lr.conf`` through the port's CLI
    (``parameter_server_tpu_torch.apps.linear.main``) on generated
@@ -40,10 +44,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel against its plain version at the prefill shape (B*H 64, S 2048,
    D 64, bf16, causal, K/V grouped by 4) and at D 128, float32, window
    1024, offsets with Sq != Sk and a ragged Sk tail, within the stated
-   tolerance, with CUDA-event times beside the plain version, SDPA and
-   the FLOP bound; ``lm_generate`` greedy at batch 8, 2048-token prompts,
-   256 steps (time to first token, decode tokens/s, 8 flash launches a
-   prefill), then with the documented sampling options; agreement with
+   tolerance, with CUDA-event times beside the plain version, SDPA, the
+   FLOP bound and the floor of its exponentials on the MUFU unit;
+   ``lm_generate`` greedy at batch 8, 2048-token prompts, 256 steps (time
+   to first token, decode tokens/s, 8 flash launches a prefill), then
+   with the documented sampling options; agreement with
    the plain attention on the card (teacher-forced logits at full size,
    greedy tokens) and with the port on the CPU (one row, 256-token
    prompt, 32 steps), to a tolerance set from the config's own bf16
@@ -103,6 +108,7 @@ from parameter_server_tpu_torch.apps.linear import async_sgd  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import main as linear_main  # noqa: E402
 from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
+    prep_batch_hashed,
     prep_batch_shared,
     stack_prepped_batches,
 )
@@ -124,6 +130,7 @@ from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
 from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
+from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
 from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
 
@@ -135,7 +142,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 FTRL_FLOPS = 22  # arithmetic operations of one FTRL-proximal step
-TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)  # CUDA atomics reorder the sums
+EXP_PER_CLOCK = 16 * 132  # MUFU ex2 a clock: 16 on each SM of an H100 SXM
+# card vs CPU: the segment sums add in the same order on both, but the
+# step's elementwise math (the loss's exp and log) need not round alike
+TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)
 REPS, WARMUP = 20, 3
 
 _flush_buf = None
@@ -146,12 +156,19 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def mufu_floor_ms(pairs: int, clock_hz: float) -> float:
+    """The least time of the forward's exponentials: one ex2 a kept
+    (query, key) pair, EXP_PER_CLOCK a clock (printed beside the tensor
+    bound, which bound_ms stays)."""
+    return pairs / (EXP_PER_CLOCK * clock_hz) * 1e3
 
 
 def flush_l2() -> None:
@@ -285,12 +302,14 @@ def reset_counts() -> None:
     fa.flash_attention.launches = 0
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
+    seg.segment_sum.launches = 0
 
 
 def counts():
-    """(sparse FTRL, dense FTRL, quantize) kernel launches since the reset."""
+    """(sparse FTRL, dense FTRL, quantize, segment sum) kernel launches
+    since the reset."""
     return (ftrl_sparse.ftrl_sparse_update.launches, ftrl.ftrl_update.launches,
-            quantize.quantize.launches)
+            quantize.quantize.launches, seg.segment_sum.launches)
 
 
 def run_launch(worker, group):
@@ -315,8 +334,9 @@ def assert_states_close(a: dict, b: dict, what: str) -> None:
 def agree_with_cpu(update: str, dtype: str, batches) -> bool:
     """The first 2 ministeps on the card against the same port worker on
     the CPU (plain versions): metrics and state within the test
-    tolerances. The card runs them twice; returns whether the two runs
-    left bit-identical state (run-to-run determinism)."""
+    tolerances. The card runs them twice, and the two runs must leave
+    bit-identical state (run-to-run determinism: the segment sums add in a
+    fixed order)."""
     what = f"{update} {dtype} first 2 ministeps vs CPU"
     workers = [AsyncSGDWorker(conf(update, dtype, 2), device=d) for d in ("cuda", "cuda", "cpu")]
     metrics = []
@@ -326,6 +346,7 @@ def agree_with_cpu(update: str, dtype: str, batches) -> bool:
         metrics.append([{k: float(v) for k, v in m.items()} for m in ms])
     deterministic = all(torch.equal(bits(workers[0].state[k]), bits(workers[1].state[k]))
                         for k in workers[0].state)
+    check(deterministic, f"{update} {dtype}: two runs on the card left different state")
     del workers[1], metrics[1]
     for mc, mh in zip(*metrics):
         check(mc["num_ex"] == mh["num_ex"], f"{what}: num_ex")
@@ -366,10 +387,10 @@ def headline(batches, timed: int) -> dict:
         obj = float(m["objective"])
         check(np.isfinite(obj) and float(m["num_ex"]) == T * MB, f"launch {k}: objective {obj}")
         objectives.append(obj / float(m["num_ex"]))
-    sparse_n, dense_n, quant_n = counts()
-    check((sparse_n, dense_n, quant_n) == (T * (timed + 1), 0, 0),
-          f"headline launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n}, "
-          f"want {T * (timed + 1)}/0/0")
+    sparse_n, dense_n, quant_n, seg_n = counts()
+    check((sparse_n, dense_n, quant_n, seg_n) == (T * (timed + 1), 0, 0, 2 * T * (timed + 1)),
+          f"headline launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n} "
+          f"segment_sum={seg_n}, want {T * (timed + 1)}/0/0/{2 * T * (timed + 1)}")
     ministeps = timed * T
     held_out = make_batch(10_000_000)
     ev = worker.evaluate(held_out)
@@ -381,7 +402,8 @@ def headline(batches, timed: int) -> dict:
           abs(ev["logloss"] - ev_cpu["logloss"]) <= 1e-5 * ev_cpu["logloss"],
           f"evaluate on the card {ev} vs CPU {ev_cpu}")
     return dict(
-        sparse_launches=sparse_n, dense_launches=dense_n, ministeps_timed=ministeps,
+        sparse_launches=sparse_n, dense_launches=dense_n, segment_launches=seg_n,
+        ministeps_timed=ministeps,
         step_ms_per_ministep=step_s / ministeps * 1e3,
         upload_ms_per_ministep=upload_s / ministeps * 1e3,
         prep_ms_per_ministep=prep_s / ministeps * 1e3,
@@ -401,10 +423,10 @@ def side_path(update: str, dtype: str, batches) -> dict:
     objs = [float(run_launch(worker, g)["objective"]) for g in groups]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sparse_n, dense_n, quant_n = counts()
-    want = (T, 0, 0) if update == "sparse" else (0, T, 0)
-    check((sparse_n, dense_n, quant_n) == want,
-          f"{update} {dtype} launch counts {(sparse_n, dense_n, quant_n)}, want {want}")
+    got = counts()
+    want = (T, 0, 0, 2 * T) if update == "sparse" else (0, T, 0, 2 * T)
+    check(got == want, f"{update} {dtype} launch counts {got}, want {want}")
+    sparse_n, dense_n = got[:2]
     check(all(np.isfinite(o) for o in objs), f"{update} {dtype}: objective {objs}")
     return dict(sparse_launches=sparse_n, dense_launches=dense_n,
                 ms_per_ministep_with_prep=wall / T * 1e3, objective=objs)
@@ -474,6 +496,61 @@ def quantize_times(p: int, nb: int, gen, frac: float) -> dict:
         aminmax_ms=median_ms(lambda: fixing_float.quantize_range(x)),
         bound_ms=b_ms, bound_by=b_by, bytes=p * (4 + nb),
     )
+
+
+# -- phase 3c: the segment-sum kernel --
+
+
+def segment_inputs(seed: int, gen):
+    """The linear step's segment sums at the headline shapes, on the
+    index vectors of a real headline batch: Xw by row (rows sorted,
+    16,384 segments, the padding at row 0 with value 0), the gradient by
+    deduplicated slot (the sparse step's, 798,720 segments) and the shard
+    gradient by slot (the dense step's, 2^22 segments, the sentinel
+    padding clipped onto the last slot); values drawn on the card, zero
+    where the step's are."""
+    batch = make_batch(seed)
+    nnz_pad = max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
+    uniq = -(-min(nnz_pad, SLOTS) // 1024) * 1024
+    directory = KeyDirectory(SLOTS, hashed=True)
+    pb = prep_batch_shared(batch, directory, 1, MB, nnz_pad, uniq, SLOTS)
+    hb = prep_batch_hashed(batch, directory, 1, MB, nnz_pad, SLOTS)
+    vals = torch.as_tensor(pb.vals[0]).cuda()
+    rel, ok = localize(torch.as_tensor(hb.slots[0]).cuda(), SLOTS)
+
+    def draw():
+        return torch.randn(nnz_pad, device="cuda", generator=gen)
+
+    return [("Xw by row", vals * draw(), torch.as_tensor(pb.rows[0]).cuda(), MB),
+            ("gradient by slot", vals * draw(), torch.as_tensor(pb.ucols[0]).cuda(), uniq),
+            ("shard gradient by slot", torch.where(ok, torch.as_tensor(hb.vals[0]).cuda() * draw(), 0.0),
+             rel, SLOTS)]
+
+
+def segment_case(name: str, data, ids, n: int) -> dict:
+    """The whole segment sum on the card against it on the CPU (there
+    ``index_add_`` on the unsorted entries), bit for bit, and run to run; CUDA-event times of the kernel
+    alone on the sorted input, of the plain version there, of the whole
+    function (sort, gather, kernel) and of one ``index_add_`` on the
+    unsorted input (the same function, atomics in no fixed order)."""
+    got = seg.segment_sum(data, ids, n)
+    want = seg.segment_sum(data.cpu(), ids.cpu(), n)
+    err = compare((got,), (want.cuda(),), f"segment_sum {name}")
+    again = seg.segment_sum(data, ids, n)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(again), bits(got)), f"segment_sum {name}: two runs differ")
+    sdata, sids = seg.sort_by_segment(data, ids, n)
+    live = int((data != 0).sum())
+    m = data.numel()
+    nbytes = 4 * m + 4 * live + 4 * n  # ids and the nonzero values read once, sums written once
+    b_ms, b_by = bound(nbytes, live)
+    out = torch.zeros(n, device="cuda")
+    return dict(case=name, entries=m, live=live, segments=n, bytes=nbytes, max_abs_err=err,
+                ms=median_ms(lambda: seg.launch_kernel(sdata, sids, n)),
+                plain_ms=median_ms(lambda: seg.segment_sum_sorted_ref(sdata, sids, n)),
+                whole_ms=median_ms(lambda: seg.segment_sum(data, ids, n)),
+                library_ms=median_ms(lambda: out.index_add_(0, ids, data)),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 # -- phase 5: the CTR conf through the CLI --
@@ -603,10 +680,11 @@ def ctr_path(tmp: str, seed: int) -> dict:
     text = ctr_conf(os.path.join(tmp, "train", "part.*"), model)
     reset_counts()
     rec = run_cli(text, os.path.join(tmp, "ctr.conf"), "cuda")
-    sparse_n, dense_n, quant_n = counts()
+    sparse_n, dense_n, quant_n, seg_n = counts()
     n = rec["ministeps"]
-    check((sparse_n, dense_n, quant_n) == (0, n, n),
-          f"CTR launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n}, want 0/{n}/{n}")
+    check((sparse_n, dense_n, quant_n, seg_n) == (0, n, n, 2 * n),
+          f"CTR launch counts sparse={sparse_n} dense={dense_n} quantize={quant_n} "
+          f"segment_sum={seg_n}, want 0/{n}/{n}/{2 * n}")
     worker = rec.pop("worker")
     check(worker.update_path == "cuda_dense" and worker.sgd.max_delay == 4,
           f"CTR worker: {worker.update_path}, max_delay {worker.sgd.max_delay}")
@@ -614,7 +692,8 @@ def ctr_path(tmp: str, seed: int) -> dict:
     examples = sum(rec.pop("examples"))
     return dict(
         passes=worker.sgd.num_data_pass, ministeps=n, examples=examples, sparse_launches=sparse_n,
-        dense_launches=dense_n, quantize_launches=quant_n, touched_frac=touched,
+        dense_launches=dense_n, quantize_launches=quant_n, segment_launches=seg_n,
+        touched_frac=touched,
         parse_ms_per_ministep=rec["parse_s"] / n * 1e3, prep_ms_per_ministep=rec["prep_s"] / n * 1e3,
         upload_ms_per_ministep=rec["upload_s"] / n * 1e3, step_ms_per_ministep=rec["step_s"] / n * 1e3,
         wall_s=rec["wall_s"], examples_per_s_e2e=examples / rec["wall_s"],
@@ -633,14 +712,15 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
     - the first τ ministeps pull the zero table, so every row gradient
       is ±1/2 and each pushed shard gradient an exact sum: their codes
       and ranges are bit-equal;
-    - later pushes are sums in another order (the card's atomics), so a
-      code may differ by one, and the range by its last bits (a code
-      counts where the pushed entry is nonzero: the wire zeroes the
-      rest);
+    - later pushes are computed from weights whose last bits may differ
+      (the step's elementwise math need not round alike on the two
+      devices), so a code may differ by one, and the range by its last
+      bits (a code counts where the pushed entry is nonzero: the wire
+      zeroes the rest);
     - objectives within 1e-5 relative (the unfiltered agreement's bar):
       with τ = 4 all 7 forward passes read the zero table or the
-      snapshot after the 4 exact ministeps, so only their sums' order
-      differs;
+      snapshot after the 4 exact ministeps, so only their last bits
+      differ;
     - weights within what the pushes' differences explain. A code one
       apart, or a shifted range, moves a decoded gradient by at most
       ``e = step * [codes differ] + 2 |Δlo| + |Δhi|``; from one such
@@ -693,10 +773,11 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
         "async_sgd {\n", "async_sgd {\n" + PULL_FILTER)
     reset_counts()
     pull = run_cli(text, os.path.join(tmp, "pull.conf"), "cuda")
-    sparse_n, dense_n, quant_n = counts()
+    sparse_n, dense_n, quant_n, seg_n = counts()
     n = pull["ministeps"]
-    check((sparse_n, dense_n, quant_n) == (0, n, 2 * n),
-          f"pull-filter launch counts {(sparse_n, dense_n, quant_n)}, want 0/{n}/{2 * n}")
+    check((sparse_n, dense_n, quant_n, seg_n) == (0, n, 2 * n, 2 * n),
+          f"pull-filter launch counts {(sparse_n, dense_n, quant_n, seg_n)}, want "
+          f"0/{n}/{2 * n}/{2 * n}")
     return dict(objective_card=oc, objective_cpu=oh, objective_rel_gap=rel_gap,
                 codes_apart=codes_apart, decode_bound_sum=e_sum,
                 max_abs_weight_diff=float(w_diff.max()),
@@ -793,6 +874,7 @@ def flash_case(name: str, gen, bh=64, sq=2048, sk=2048, d=64, dtype=torch.bfloat
         library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, **gqa)),
         bound_ms=b_ms, bound_by=b_by, flop=flops, bytes=nbytes, tflop_per_s=flops / ms / 1e9,
+        pairs=flops // (4 * d),
     )
 
 
@@ -863,7 +945,7 @@ def lm_serving(seed: int) -> dict:
     reset_counts()
     toks, wall_s = timed_generate(params, prompt, cfg, steps)
     flash_n = fa.flash_attention.launches
-    check(flash_n == cfg.n_layers and counts() == (0, 0, 0),
+    check(flash_n == cfg.n_layers and counts() == (0, 0, 0, 0),
           f"greedy: flash launches {flash_n}, others {counts()}; want {cfg.n_layers}, none")
     check_tokens(toks, prompt, steps, "greedy")
     check(torch.equal(toks[:, p], first[:, p]), "greedy: the first token differs from the steps=1 run")
@@ -1048,10 +1130,12 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
     dq_bound = bound(inputs + bh * s * d * elt, 6 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dQ
     dkv_bound = bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dV, dK
     least = bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, BF16_FLOP_PER_S)  # five products
+    fwd_bound = bound(*flash_work(bh, s, s, d, 1, elt, True, 0, 0, None), BF16_FLOP_PER_S)
     return dict(bh=bh, s=s, d=d, pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                 sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, dq_bound_ms=dq_bound[0],
                 dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-                both_bound_ms=least[0], dq_tflop_per_s=6 * d * pairs / dq_ms / 1e9,
+                both_bound_ms=least[0], fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                dq_tflop_per_s=6 * d * pairs / dq_ms / 1e9,
                 dkv_tflop_per_s=8 * d * pairs / dkv_ms / 1e9)
 
 
@@ -1068,7 +1152,7 @@ def train_step_full(seed: int, timed: int = 3) -> dict:
     fwd_n, dq_n, dkv_n = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
                           fa.flash_bwd_dkv.launches)
     want = (2 * cfg.n_layers * n_steps, cfg.n_layers * n_steps, cfg.n_layers * n_steps)
-    check((fwd_n, dq_n, dkv_n) == want and counts() == (0, 0, 0),
+    check((fwd_n, dq_n, dkv_n) == want and counts() == (0, 0, 0, 0),
           f"training launches flash_fwd {fwd_n}, flash_bwd_dq {dq_n}, flash_bwd_dkv {dkv_n}, "
           f"others {counts()}; want {want}, none")
     losses = [float(x) for x in losses]
@@ -1165,6 +1249,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
+    clock_hz = float(nvidia_smi_line("clocks.max.sm").split()[0]) * 1e6
     kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)  # nvidia-smi: name, power.limit
     print(f"# device: {kind}", flush=True)
@@ -1206,6 +1291,13 @@ def main() -> int:
         print(f"# time {r['case']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"aminmax (lo/hi) {r['aminmax_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {r['bytes']} B) [{smi}]", flush=True)
+    seg_rows = [segment_case(*case) for case in segment_inputs(args.seed + 2_000_000, gen)]
+    for r in seg_rows:
+        print(f"# parity segment_sum {r['case']} ({r['entries']} entries, {r['live']} nonzero, "
+              f"{r['segments']} segments): card bit-equal to the CPU, run to run; kernel "
+              f"{r['ms']:.4f} ms, plain (index_add_ on the sorted input) {r['plain_ms']:.4f} ms, "
+              f"whole sum with its sort {r['whole_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
 
     batches = [make_batch(args.seed + i) for i in range(T * (args.timed_launches + 1))]
     deterministic = {
@@ -1270,7 +1362,9 @@ def main() -> int:
               f"{r['tolerance']}; run-to-run bit-identical {r['deterministic']}; kernel "
               f"{r['ms']:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
               f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['flop']:.4g} FLOP, {r['bytes']} B) [{smi}]", flush=True)
+              f"{r['flop']:.4g} FLOP, {r['bytes']} B), MUFU floor "
+              f"{mufu_floor_ms(r['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz [{smi}]",
+              flush=True)
     lm = lm_serving(args.seed)
     spec = lm["speculative"]
     print(f"# LM serving (card's own numbers, {smi}): B {lm['batch']}, prompt {lm['prompt']}, "
@@ -1311,7 +1405,9 @@ def main() -> int:
           f"ms ({bwd_t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {bwd_t['dkv_bound_ms']:.4f} ms "
           f"{bwd_t['dkv_bound_by']}); the gradients' least work {bwd_t['both_bound_ms']:.4f} ms; plain "
           f"backward {bwd_t['plain_ms']:.4f} ms; SDPA backward {bwd_t['sdpa_bwd_ms']:.4f} ms; flash_fwd "
-          f"{bwd_t['fwd_ms']:.4f} ms, SDPA forward {bwd_t['sdpa_fwd_ms']:.4f} ms [{smi}]", flush=True)
+          f"{bwd_t['fwd_ms']:.4f} ms (bound {bwd_t['fwd_bound_ms']:.4f} ms {bwd_t['fwd_bound_by']}, "
+          f"MUFU floor {mufu_floor_ms(bwd_t['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz), "
+          f"SDPA forward {bwd_t['sdpa_fwd_ms']:.4f} ms [{smi}]", flush=True)
     train = train_step_full(args.seed)
     print(f"# LM training (card's own numbers, {smi}): d_model 512, 8 layers, seq {lm_train.SEQ}, "
           f"batch {lm_train.BATCH}, bf16, remat, ring_flash, SGD lr {lm_train.LR}, "
@@ -1335,6 +1431,7 @@ def main() -> int:
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
     main_quant = quant_times[0]  # the conf's 1-byte push
+    main_seg = seg_rows[1]  # the headline step's gradient by slot (its Xw by row: seg_rows[0])
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -1360,6 +1457,14 @@ def main() -> int:
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
              library_ms=None),
+        dict(name="segment_sum", route="cuda",
+             source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
+             replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
+             launches=head["segment_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in seg_rows),
+             ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
+             bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
+             library_ms=main_seg["library_ms"]),
         dict(name="flash_fwd", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:383",
@@ -1388,7 +1493,7 @@ def main() -> int:
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
-                  quantize_times=quant_times, headline=head, dense_path=dense, bf16_path=bf16,
+                  quantize_times=quant_times, segment_sum=seg_rows, headline=head, dense_path=dense, bf16_path=bf16,
                   ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,

@@ -3,7 +3,8 @@
 Counterpart of ``parameter_server_tpu/apps/linear/async_sgd.py`` on one
 device. The host preps each minibatch exactly as the JAX worker does
 (same numpy arrays, same padding); a step then pulls the weights of the
-batch's slots, computes Xw and the row gradient with segment sums, and
+batch's slots, computes Xw and the row gradient with segment sums
+(deterministic: ``ops/segment_sum.py``, a CUDA kernel on the card), and
 runs the FTRL update: ``update="sparse"`` through the fused sparse
 kernel over the batch's deduplicated slots, ``update="dense"`` through
 the whole-table kernel. With one data shard and one server shard every
@@ -38,6 +39,7 @@ from ...learner.sgd import SGDProgress
 from ...ops import quantize as qops
 from ...ops.ftrl_sparse import resolve_update_path
 from ...ops.kv_ops import localize, slot_sentinel
+from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots
 from ...utils import evaluation
 from ...utils import file as psfile
@@ -193,12 +195,6 @@ def prep_batch_hashed(batch: SparseBatch, directory, num_shards: int,
         vals[:nnz] = batch.values[lo:hi] if not batch.binary else 1.0
         shards.append((y, mask, rows, slots, vals))
     return HashedBatch(*(np.stack(x) for x in zip(*shards)))
-
-
-def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
-    return torch.zeros(num_segments, dtype=data.dtype, device=data.device).index_add_(
-        0, segment_ids, data
-    )
 
 
 def _gather_state(state, idx):

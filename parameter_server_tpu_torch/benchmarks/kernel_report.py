@@ -5,9 +5,11 @@ loads), SYNCS (mbarrier operations), HMMA (mma.sync), LDL/STL (local
 memory, where spills go).
 
     python3 -m parameter_server_tpu_torch.benchmarks.kernel_report [NAME ...] [--require-regs PART=N ...]
+        [--define MACRO ...]
 
 Builds each named library (default: all) from ``kernels/csrc`` with the
-port's own flags plus ``-Xptxas -v`` into a temporary directory, prints
+port's own flags plus ``-Xptxas -v`` (and ``-DMACRO`` for each
+``--define``: a variant build) into a temporary directory, prints
 one line a kernel and writes ``chiprun_out/kernel_report.json``. Exits
 non-zero if a build fails, or if a kernel whose name contains PART does
 not use exactly N registers a thread (``--require-regs``: a kernel that
@@ -87,9 +89,9 @@ def count_sass(text: str) -> dict:
     return {k: {n: v.get(n, 0) for n in MNEMONICS} for k, v in counts.items()}
 
 
-def report(name: str, tmp: str) -> dict:
+def report(name: str, tmp: str, *defines: str) -> dict:
     lib = os.path.join(tmp, f"{name}.so")
-    cmd = [kernels._nvcc(), *kernels._flags(name), "-Xptxas", "-v", "-o", lib,
+    cmd = [kernels._nvcc(), *kernels._flags(name, defines), "-Xptxas", "-v", "-o", lib,
            str(kernels._CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -105,12 +107,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("names", nargs="*", help="kernel libraries (default: all)")
     ap.add_argument("--require-regs", action="append", default=[], metavar="PART=N")
+    ap.add_argument("--define", action="append", default=[], metavar="MACRO")
     args = ap.parse_args(argv)
     names = args.names or sorted(kernels._SIGNATURES)
     out = {}
     with tempfile.TemporaryDirectory(prefix="kernel_report_") as tmp:
         for name in names:
-            out[name] = report(name, tmp)
+            out[name] = report(name, tmp, *args.define)
     bad = []
     for lib, ks in out.items():
         for kname, r in ks.items():

@@ -8,9 +8,9 @@ Libraries go to ``build/torch_kernels/`` at the repository root, named
 by a hash of the sources and flags, so a changed source is rebuilt and
 an unchanged one is reused.
 
-``--fmad=false`` keeps multiplies and adds uncontracted, so the FTRL and
-quantize kernels round exactly as their plain PyTorch versions do (see
-``csrc/ftrl_common.cuh``). ``flash_fwd`` and ``flash_bwd`` sum in another
+``--fmad=false`` keeps multiplies and adds uncontracted, so the FTRL,
+quantize and segment-sum kernels round exactly as their plain PyTorch
+versions do (see ``csrc/ftrl_common.cuh``). ``flash_fwd`` and ``flash_bwd`` sum in another
 order than their plain versions in any case and are held to them within a
 tolerance, so they are built with contraction on.
 """
@@ -49,6 +49,7 @@ _SIGNATURES = {
         "ftrl_sparse_launch": [_P, _P, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
     },
     "quantize": {"quantize_launch": [_P, _P, _P, _P, _I, _LL, _U, _P]},
+    "segment_sum": {"segment_sum_launch": [_P, _P, _I, _P, _I, _P]},
     "flash_fwd": {"flash_fwd_launch": [_P] * 5 + _FLASH_DIMS + [_F, _I, _P]},
     "flash_bwd": {
         "flash_bwd_dq_launch": [_P] * 7 + _FLASH_DIMS + [_F, _I, _P],
@@ -57,7 +58,7 @@ _SIGNATURES = {
 }
 # library name -> flags beside NVCC_FLAGS
 _FLAGS = {"ftrl_dense": _BIT_EXACT, "ftrl_sparse": _BIT_EXACT, "quantize": _BIT_EXACT,
-          "flash_fwd": [], "flash_bwd": []}
+          "segment_sum": _BIT_EXACT, "flash_fwd": [], "flash_bwd": []}
 
 _lock = threading.Lock()
 _libs: "dict[str, ctypes.CDLL]" = {}
@@ -147,7 +148,18 @@ def variant(name: str, *defines: str) -> ctypes.CDLL:
     return _load(name, path)
 
 
+# A launch function returns REGS_REFUSED + r instead of launching a
+# warp-specialised kernel (setmaxnreg) that the compiler gave r registers a
+# thread: it needs the whole register file of its block
+# (csrc/hopper.cuh::check_regs), or its consumers would wait forever for
+# registers that were never allotted.
+REGS_REFUSED = 1000
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch returned a CUDA error code or refused a kernel."""
+    if REGS_REFUSED <= err < REGS_REFUSED + 256:
+        raise RuntimeError(f"{what}: not launched: compiled to {err - REGS_REFUSED} registers a "
+                           "thread, not the whole register file its setmaxnreg hand-off needs")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -10,24 +10,49 @@
 //
 // Precision, as the TPU kernel's: dot operands in the input dtype, sums
 // in f32, P cast to v's dtype before P.V, softmax statistics in f32. Not
-// bit-equal to the plain version (other summation order), so this
-// library is built without --fmad=false.
+// bit-equal to the plain version (other summation order, P rounded against
+// the running row max, exp on the MUFU unit), so this library is built
+// without --fmad=false.
 //
-// Bound on the card: operations. At the serving prefill (BH = 64, S =
-// 2048, D = 64, bf16, causal, K/V shared by groups of 4) attention needs
-// the 2,098,176 (query, key) pairs of the causal triangle per head, 34.4
-// GFLOP, 34.8 us at the 989 TFLOP/s bf16 tensor-core rate, against 42 MB
-// of q/k/v/out/lse, 13 us at 3.35 TB/s. The 528 live 64x64 tiles a head
-// compute 3% more, the masked pairs of the diagonal tiles (chip_smoke.py
-// measures 0.44 ms on an H100 80GB HBM3 at 700 W, about 13x the bound).
-// What the design does about it: the products run on the tensor cores (mma.sync m16n8k16 bf16 with
-// f32 accumulation); the scores and P never leave registers (the C
-// fragment of Q.K^T is re-packed as the A fragment of P.V); each 64-key
-// K/V tile is staged once in shared memory per 64 query rows; whole tiles
-// outside the causal or window band are skipped (_block_live), so only
-// live tiles are computed. Not yet: wgmma, TMA and a pipelined ring of
-// tiles (one tile in flight; loads and math do not overlap), which the
-// bound needs.
+// Bound on the card: operations, two products (4 D FLOP) over the
+// (query, key) pairs the masks keep. At the LM training shape (BH 32, S
+// 8192, D 64, bf16, causal) that is 1.074e9 pairs, 0.278 ms at the 989
+// TFLOP/s bf16 tensor-core rate, against ~134 MB of q/k/v/out/lse, 0.04 ms
+// at 3.35 TB/s; at the serving prefill (BH 64, S 2048, GQA 4) 0.0348 ms.
+// At D 64 the exponentials bind as tightly: one ex2 a kept pair, and the
+// MUFU unit does 16 a clock on each of the 132 SMs, 0.26-0.29 ms at the
+// training shape at 1.75-1.98 GHz. So the kernel reaches its bound only if
+// the exponentials of one warpgroup run while the products of another do.
+//
+// What the bf16 design does about it (Hopper, sm_90a; the block, its ring
+// and its producer are flash_common.cuh's, shared with flash_bwd). A block
+// owns 64 query rows for each of its consumer warpgroups, three at D 64
+// and two at D 128 (where O and S take 128 registers a thread), plus
+// warpgroup 0, which gives up its registers (setmaxnreg); one of its warps
+// loads Q once and streams 128-key tiles of K and V (GQA: K/V row bh /
+// group of a 3-D tensor map, read in place) through TMA into a ring of
+// stages. For key tile j a consumer warpgroup issues S_j = Q.K_j^T (wgmma,
+// both operands in shared memory, K-major) and, as a second group, O = O
+// corr + P_{j-1}.V_{j-1} (O rescaled while S_j runs; P in registers as
+// bf16 A fragments, V read MN-major); while P.V runs it computes the
+// online softmax of S_j in registers: the row max, P = 2^(S scale log2e -
+// m) on the MUFU unit (ex2.approx), corr = 2^(m_old - m), the row sums;
+// then it packs P for the next tile's P.V. The tensor cores are fed by the
+// warpgroups running side by side, not in turns: on an H100 at 700 W a
+// warpgroup waits ~1,350 cycles for its S even with no softmax at all
+// (its products and its neighbours' queue on the tensor cores), so a third
+// warpgroup gains ~20%, while making the warpgroups take turns at the
+// tensor cores (FlashAttention-3's "ping-pong", tried on two mbarriers)
+// gained nothing at two and cost ~20% at three (benchmarks/flash_ab.py;
+// PERF.md has the runs). The tile loop is lean, as the backward's tuning
+// found it must be: each warpgroup computes its live and unmasked tile
+// runs and its descriptors once a block, the mask (key tail, query tail,
+// causal diagonal, window edge) is a branch-free select on the tiles that
+// cross one, and one arrive a warp releases a slot. Whole tiles outside the causal or window band are
+// skipped (_block_live at 128 keys: skipping one changes no bit, since it
+// would add P = 0 and scale by 1). The grid starts the longest blocks, the
+// last query tiles, first. No atomics: the output is bit-identical from
+// run to run.
 //
 // f32 inputs take a second kernel on the CUDA cores (scalar FMA; the
 // tensor cores would round the operands to TF32): 4 threads per query
@@ -37,16 +62,24 @@
 // were Mosaic's, and its sequential k grid axis is the loop over k tiles
 // here.
 //
-// Built with -DFLASH_FWD_RACE_PROBE (a diagnostic build, never the one the
-// port runs), every shared tile is filled with NaN before it is staged and
-// each thread sleeps a pseudo-random while (up to ~1 us, seeded by
-// `probe_seed`) at every point where threads hand data to one another
-// through shared memory. A missing barrier then reads NaN or another
-// tile's values; with the barriers right, the output is bit-identical to
-// the normal build's, since each thread sums in a fixed order
-// (tests/test_torch_kernels_cuda.py holds it so).
+// Diagnostic builds, never the ones the port runs: -DFLASH_FWD_RACE_PROBE
+// poisons every shared tile with NaN before it is filled (a ring slot
+// between its release and its refill) and has each thread sleep a seeded
+// pseudo-random while (up to ~1 us, `probe_seed`) before every barrier
+// wait and arrive and at every hand-over through shared memory; with the
+// hand-overs right, the output is bit-identical to the normal build's
+// (tests/test_torch_kernels_cuda.py). For benchmarks/flash_ab.py:
+// -DFLASH_FWD_CLOCKS counts the consumers' cycles by phase; and builds
+// with wrong outputs that time one part alone: -DFLASH_FWD_NO_SOFTMAX,
+// -DFLASH_FWD_NO_PV, -DFLASH_FWD_NO_LOAD.
 #ifdef FLASH_FWD_RACE_PROBE
 #define FLASH_RACE_PROBE
+#endif
+#ifdef FLASH_FWD_CLOCKS
+#define FLASH_RING_CLOCKS
+#endif
+#ifdef FLASH_FWD_NO_LOAD
+#define FLASH_RING_NO_LOAD
 #endif
 #include "flash_common.cuh"
 
@@ -69,141 +102,252 @@ __device__ __forceinline__ float finish_lse(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma, a TMA ring of K/V tiles, a producer warp
 // ---------------------------------------------------------------------------
 
-// One block: 64 query rows of one (batch, head), 4 warps of 16 rows each.
+// keys of a streamed tile (64-key tiles measured ~15% slower at the
+// training shape: twice the loop trips and fixed cost a tile)
+constexpr int kKeys = 128;
+constexpr float kLn2 = 0.6931471805599453f;
+// Timing diagnostics (wrong outputs): FLASH_FWD_NO_SOFTMAX skips the
+// online softmax (P is S as it is), FLASH_FWD_NO_PV the P.V products,
+// FLASH_FWD_NO_LOAD the loads (the ring's barriers arrive without them).
+#ifdef FLASH_FWD_NO_SOFTMAX
+constexpr bool kSoftmax = false;
+#else
+constexpr bool kSoftmax = true;
+#endif
+#ifdef FLASH_FWD_NO_PV
+constexpr bool kPv = false;
+#else
+constexpr bool kPv = true;
+#endif
+
+// consumer warpgroups a block: three at D 64 (two took ~1.2x as long at
+// the training shape), two at D 128 (its O and S take 128 registers a thread,
+// which three would not have)
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Args a) {
-  constexpr int kStride = D + 8;  // smem row, in bf16 (a 16-byte pad)
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kStride];
+constexpr int fwd_wg() {
+  return D == 64 ? 3 : 2;
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q) + static_cast<size_t>(bh) * a.sq * D;
-  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k) + kv_row;
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v) + kv_row;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
-  const bool in0 = r0 < a.sq, in1 = r1 < a.sq;
-  const int qp0 = a.q_off + r0, qp1 = a.q_off + r1;
+// as many stages of a K and a V tile as fit beside Q, at most 4
+template <int D>
+constexpr int fwd_stages() {
+  constexpr int stage = 2 * kKeys * D * 2, room = 232448 - 1024 - 128 - 64 * fwd_wg<D>() * D * 2;
+  return room / stage < 4 ? room / stage : 4;
+}
 
-  uint32_t qa[D / 16][4];  // Q as A fragments, loaded once
+// The block and its shared memory: Q's own rows, the ring's K/V tile
+// pairs, the barriers.
+template <int D>
+using FwdLayout = Layout<D, fwd_wg<D>(), 1, kKeys, 2, fwd_stages<D>(), 0>;
+
+struct TmaArgs {
+  Args a;
+  CUtensorMap q;     // 128-row boxes of [BH, Sq, D]
+  CUtensorMap k, v;  // kKeys-row boxes of [BH / group, Sk, D]
+};
+
+// FLASH_FWD_CLOCKS: the consumer cycles (flash_common.cuh) [0] waiting for
+// a tile, [1] from rescaling O and issuing the products to S, [2] in the
+// online softmax, [3] then waiting for P.V, [7] releasing the slot, [11]
+// packing P, [8] waiting for Q, [9] from the end of a tile to the next
+// wait.
+
+// Keeps the compiler from reusing the registers of an A operand while the
+// asynchronous product that reads them runs: read-written after its wait.
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = load_pair(q + static_cast<size_t>(r0) * D + c, in0);
-    qa[kk][1] = load_pair(q + static_cast<size_t>(r1) * D + c, in1);
-    qa[kk][2] = load_pair(q + static_cast<size_t>(r0) * D + c + 8, in0);
-    qa[kk][3] = load_pair(q + static_cast<size_t>(r1) * D + c + 8, in1);
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// One key tile of the online softmax over a thread's fragment of S [64 x
+// kKeys] (rows e / 2 of element 4j + e): the new row maxima m2 (in units
+// of log2, scaled), corr = 2^(old m2 - new m2), which moves what was summed
+// against the old maxima onto the new ones, P = 2^(S scale log2e - m2) in
+// place of S, and the row sums l (this thread's columns). A masked element
+// (kMasked) counts as -inf: it raises no maximum and its P is 0.
+template <bool kMasked>
+__device__ __forceinline__ void online_softmax(float (&s)[kKeys / 2], const int2 (&range)[2],
+                                               int col0, float scale_log2, float (&m2)[2],
+                                               float (&l)[2], float (&corr)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      if (kMasked) s[i] = kept<true>(range, col0, j, e) ? s[i] : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[i]);
+    }
   }
-  float o[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m2[r], quad_max(mx[r]) * scale_log2);
+    corr[r] = exp2_approx(m2[r] - mn);
+    m2[r] = mn;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -m2[r]));
+    sum[r] += s[i];
+  }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+}
 
-  const int n_tiles = (a.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's reads are done
-    PROBE_POISON(ks, kTile * kStride);
-    PROBE_POISON(vs, kTile * kStride);
-    PROBE_SKEW(0, kt);
-    stage2_bf16<D>(ks, vs, kStride, k, v, k0, a.sk);
-    __syncthreads();
-    PROBE_SKEW(1, kt);
+// One block: query rows q0.. of query row bh, 64 a consumer warpgroup;
+// per live key tile, K and V through the ring.
+template <int D>
+__global__ void __launch_bounds__(FwdLayout<D>::kThreads, 1) flash_fwd_bf16(const __grid_constant__ TmaArgs p) {
+  using L = FwdLayout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem;
+  const uint32_t base = smem_base(smem_raw, smem);
+  const Args& a = p.a;
+  const uint32_t full = base + L::kBars, empty = full + 8 * L::kStages, own = empty + 8 * L::kStages;
+  const int n_own = (a.sq + L::kOwnRows - 1) / L::kOwnRows, n_tiles = (a.sk + kKeys - 1) / kKeys;
+  int bh, rank;
+  block_tile(n_own, bh, rank);
+  const int q0 = (n_own - 1 - rank) * L::kOwnRows;
+  int2 tiles = key_tiles_live<kKeys>(a, q0, n_tiles);
+#pragma unroll
+  for (int c = 1; c < L::kWG; ++c) tiles = either(tiles, key_tiles_live<kKeys>(a, q0 + 64 * c, n_tiles));
+  const int wg = threadIdx.x >> 7;
+  block_setup<L>(smem, full, empty, own);
 
-    // S = Q.K^T: 16 rows x 64 keys, as 8 C fragments of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (n * 8 + g) * kStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[n], qa[kk], b0, b1);
-      }
+  if (wg == 0) {  // producer
+    hopper::regs_dec<L::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      RING_SKEW(3, -1);
+      if (threadIdx.x == 0) load_own<L, D>(&p.q, nullptr, base, own, q0, bh);
+      produce<L, D>(&p.k, &p.v, nullptr, nullptr, a.sq, smem, base, full, empty, tiles,
+                    bh / a.group, 1);
     }
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + n * 8 + 2 * t + j;
-        s[n][j] = key_valid(a, qp0, kp) ? s[n][j] * a.scale : kNeg;
-        s[n][2 + j] = key_valid(a, qp1, kp) ? s[n][2 + j] * a.scale : kNeg;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + n * 8 + 2 * t + j;
-        s[n][j] = key_valid(a, qp0, kp) ? expf(s[n][j] - mn0) : 0.f;
-        s[n][2 + j] = key_valid(a, qp1, kp) ? expf(s[n][2 + j] - mn1) : 0.f;
-        ps0 += s[n][j];
-        ps1 += s[n][2 + j];
-      }
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= c0;
-      o[dn][1] *= c0;
-      o[dn][2] *= c1;
-      o[dn][3] *= c1;
-    }
-    // O += P.V: P's C fragments of keys 16j..16j+15 are the A fragment
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack_f32(s[2 * j][0], s[2 * j][1]), pack_f32(s[2 * j][2], s[2 * j][3]),
-                              pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* vc = vs + (j * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* col = vc + dn * 8;
-        const uint32_t b0 = pack_bf16(col[0], col[kStride]);
-        const uint32_t b1 = pack_bf16(col[8 * kStride], col[9 * kStride]);
-        mma_bf16(o[dn], pa, b0, b1);
-      }
-    }
-    m0 = mn0;
-    m1 = mn1;
+    return;
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+  // consumers
+  hopper::regs_inc<L::kConsumerRegs>();
+  CLK_DECL;
+  const int cw = wg - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 64 * cw;                     // the warpgroup's first query row
+  const int r0 = w0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
+  const int2 live = key_tiles_live<kKeys>(a, w0, n_tiles), unmasked = key_tiles_full<kKeys>(a, w0);
+  const int2 range[2] = {keys_kept(a, r0), keys_kept(a, r1)};
+  const float scale_log2 = a.scale * kLog2e;
+  // descriptors: the warpgroup's rows of Q; K of ring slot 0 K-major, V
+  // of ring slot 0 MN-major
+  const uint64_t d_q = hopper::desc_k(base + L::kOwnA, L::kOwnRows, 64 * cw, 0);
+  const uint64_t d_k = hopper::desc_k(base + L::kRing, kKeys, 0, 0);
+  const uint64_t d_v = hopper::desc_mn(base + L::kRing + L::kStreamTile, kKeys, 0);
+  const int last = tiles.y + 1;  // the loop's P.V-only step
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m2[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float corr[2] = {1.f, 1.f};  // the last softmax's factor, due on O before its P.V
+  float s[kKeys / 2];
+  uint32_t pa[kKeys / 16][4];  // the previous tile's P, as A fragments
+  hopper::mbar_wait(own, 0);
+  CLK_ADD(8, t_life);
+  RING_SKEW(0, -1);
+
+  int stage = 0, prev = -1;  // prev: the previous tile's slot (-1: none)
+  uint32_t phase = 0;
+  bool pv_due = false;  // the previous tile was live: its P.V is due
+  for (int kt = tiles.x; kt <= last; ++kt) {
+    const bool streamed = kt < last, s_due = streamed && in(kt, live);
+    CLK(t0_clk);
+    CLK_GAP(9, t0_clk);
+    if (streamed) {
+      RING_SKEW(1, kt);
+      hopper::mbar_wait(full + 8 * stage, phase);
+    }
+    CLK_ADD(0, t0_clk);
+    CLK(t2_clk);
+    // S = Q.K^T of this tile, then, as a second group, O = O corr + P.V of
+    // the previous one (O rescaled while S runs)
+    hopper::wgmma_fence();
+    if (s_due) product_ss<D, kKeys, L::kOwnRows>(s, d_q, hopper::desc_advance(d_k, stage * L::kStageBytes));
+    hopper::wgmma_commit();
+    if (kPv && pv_due) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      hopper::wgmma_fence();
+      product_rs<D, kKeys>(o, pa, hopper::desc_advance(d_v, prev * L::kStageBytes));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    CLK_ADD(1, t2_clk);
+    CLK(t3_clk);
+    if (kSoftmax && s_due) {
+      if (in(kt, unmasked)) {
+        online_softmax<false>(s, range, kKeys * kt + 2 * t, scale_log2, m2, l, corr);
+      } else {
+        online_softmax<true>(s, range, kKeys * kt + 2 * t, scale_log2, m2, l, corr);
+      }
+    }
+    CLK_ADD(2, t3_clk);
+    CLK(t4_clk);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    keep_regs(pa);
+    CLK_ADD(3, t4_clk);
+    CLK(t5_clk);
+    if (prev >= 0) {  // the previous tile's slot is read for good
+      RING_SKEW(2, kt);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * prev);
+    }
+    CLK_ADD(7, t5_clk);
+    CLK(t6_clk);
+    if (s_due) {
+      pack_a<kKeys>(pa, s);
+      CLK_TILE();
+    }
+    CLK_ADD(11, t6_clk);
+    CLK_MARK();
+    pv_due = s_due;
+    prev = streamed ? stage : -1;
+    if (streamed && ++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
   auto* out = static_cast<__nv_bfloat16*>(a.out) + static_cast<size_t>(bh) * a.sq * D;
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r0) * D + c) =
-          pack_f32(o[dn][0] / d0, o[dn][1] / d0);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r1) * D + c) =
-          pack_f32(o[dn][2] / d1, o[dn][3] / d1);
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < a.sq)
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r0) * D + col) =
+          pack_f32(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (r1 < a.sq)
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r1) * D + col) =
+          pack_f32(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
   if (t == 0) {
     float* lse = a.lse + static_cast<size_t>(bh) * a.sq;
-    if (in0) lse[r0] = finish_lse(m0, l0);
-    if (in1) lse[r1] = finish_lse(m1, l1);
+    if (r0 < a.sq) lse[r0] = finish_lse(m2[0] * kLn2, l[0]);
+    if (r1 < a.sq) lse[r1] = finish_lse(m2[1] * kLn2, l[1]);
   }
+  CLK_FLUSH();
 }
+
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -305,22 +449,35 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
   }
 }
 
+
 template <int D>
-cudaError_t launch(const Args& a, int bh, int dtype, cudaStream_t s) {
-  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
+int launch(const Args& a, int bh, int dtype, cudaStream_t s) {
   if (dtype == 1) {
-    flash_fwd_bf16<D><<<grid, 128, 0, s>>>(a);
-    return cudaGetLastError();
+    TmaArgs p{};
+    p.a = a;
+    const int kvn = bh / a.group, sk = a.sk > 0 ? a.sk : 1;
+    using L = FwdLayout<D>;
+    if (!hopper::map_bf16_rows(&p.q, a.q, D, a.sq, bh, L::kOwnRows) ||
+        !hopper::map_bf16_rows(&p.k, a.k, D, sk, kvn, kKeys) ||
+        !hopper::map_bf16_rows(&p.v, a.v, D, sk, kvn, kKeys))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(bh * ((a.sq + L::kOwnRows - 1) / L::kOwnRows));
+    return launch_ring<flash_fwd_bf16<D>, L>(grid, p, s);
   }
+  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
   constexpr int bytes = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return static_cast<int>(err);
   flash_fwd_f32<D><<<grid, 256, bytes, s>>>(a);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// (FLASH_FWD_CLOCKS) the consumer cycle sums of the launches since the
+// last call, then zeros
+CLOCKS_ENTRY(flash_fwd_clocks)
 
 #ifdef FLASH_FWD_RACE_PROBE
 extern "C" int flash_fwd_probe_seed(unsigned seed) {
@@ -331,7 +488,9 @@ extern "C" int flash_fwd_probe_seed(unsigned seed) {
 // C entry point for ctypes. dtype: 0 float32, 1 bfloat16; d: 64 or 128;
 // window 0: none. Returns the CUDA error code of the launch (0 on
 // success, cudaErrorInvalidValue for a head dim or dtype it is not built
-// for); the Python wrapper raises on anything else.
+// for), or hopper::kRegsRefused + r for a bf16 kernel compiled to r
+// registers a thread, which it does not launch; the Python wrapper raises
+// on anything but 0.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                 float* lse, int bh, int sq, int sk, int d, int group,
                                 int q_off, int k_off, int causal, int window, float scale,
@@ -341,6 +500,5 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, lse, sq, sk, group, q_off, k_off, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 64 ? launch<64>(a, bh, dtype, s) : launch<128>(a, bh, dtype, s);
-  return static_cast<int>(err);
+  return d == 64 ? launch<64>(a, bh, dtype, s) : launch<128>(a, bh, dtype, s);
 }

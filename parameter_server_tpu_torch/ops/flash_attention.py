@@ -32,8 +32,9 @@ so they are held to their plain versions within stated tolerances, not
 bit for bit (``chip_smoke.py``).
 
 The JAX ``block_q``/``block_k``/``use_pallas``/``interpret`` knobs have
-no counterpart: the kernels' 64-row tiles are fixed, and the device of
-the tensors picks the route. So the window-scale block clamp of the JAX
+no counterpart: the kernels' tiles are fixed (64 rows a consumer
+warpgroup; 128-key tiles in the forward, 64 in the backward), and the
+device of the tensors picks the route. So the window-scale block clamp of the JAX
 wrapper, which caps blocks at 128 or more, never binds here and is gone.
 Grouped-query attention reads the shared K/V rows in place in both
 directions (:func:`flash_mha`); the JAX wrapper repeats them.
@@ -80,7 +81,7 @@ def block_live(q_off, iq, block_q, k_off, k_base, block_k, causal, window):
     """Whole-block skip predicate (the JAX package's ``_block_live``): a
     block is dead when (causal) even its LAST q row precedes its FIRST k
     row, or (window) even its FIRST q row is past its LAST k row's
-    window. The kernel applies it to whole 64-key tiles."""
+    window. The kernels apply it to whole tiles of keys."""
     if not causal:
         return True
     live = q_off + iq * block_q + block_q - 1 >= k_off + k_base

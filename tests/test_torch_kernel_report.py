@@ -68,3 +68,17 @@ def test_require_regs_fails_a_short_allotment(monkeypatch, tmp_path, registers, 
     written = json.loads((tmp_path / "chiprun_out" / "kernel_report.json").read_text())
     assert written["flash_bwd"][DQ]["registers"] == registers
     assert written["flash_bwd"][DKV]["sass"]["LDL"] == 1
+
+
+def test_a_refused_launch_raises_with_the_register_count():
+    """A launch function returns REGS_REFUSED + r instead of launching a
+    setmaxnreg kernel the compiler gave r registers a thread (not the whole
+    register file the hand-off needs); the wrapper's check raises and
+    names the count."""
+    from parameter_server_tpu_torch import kernels
+
+    with pytest.raises(RuntimeError, match="not launched: compiled to 128 registers a thread"):
+        kernels.check(kernels.REGS_REFUSED + 128, "flash_fwd")
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        kernels.check(1, "flash_fwd")
+    kernels.check(0, "flash_fwd")

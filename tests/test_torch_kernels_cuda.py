@@ -29,6 +29,10 @@ Function, against ``flash_attention_bwd_ref`` on the same out, lse and
 c): see ``FLASH_BWD_TOL`` below; two backward passes must be
 bit-identical (no atomics).
 
+Tolerance of ``segment_sum``: bit equality with the CPU, and run to run.
+Both devices order the entries by a stable sort and add each segment in
+entry order from +0.0 (``ops/segment_sum.py``).
+
 Race probes: ``flash_fwd`` built with ``FLASH_FWD_RACE_PROBE`` (and
 ``flash_bwd`` with ``FLASH_BWD_RACE_PROBE``) poisons its shared tiles with
 NaN before staging them and skews every thread by a seeded pseudo-random
@@ -50,6 +54,7 @@ from parameter_server_tpu_torch.ops import ftrl as tftrl
 from parameter_server_tpu_torch.ops import ftrl_sparse as tsparse
 from parameter_server_tpu_torch.filter import fixing_float as tff
 from parameter_server_tpu_torch.ops import quantize as tq
+from parameter_server_tpu_torch.ops import segment_sum as tseg
 from parameter_server_tpu_torch.ops.kv_ops import localize
 
 pytestmark = pytest.mark.cuda
@@ -180,6 +185,8 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 *
     (8, 300, 300, 64, torch.bfloat16, True, 0, 0, 70, 1),
     (8, 192, 192, 64, torch.bfloat16, True, 0, 0, None, 4),     # GQA: K/V rows bh / 4
     (2, 64, 64, 64, torch.bfloat16, True, 0, 500, None, 1),     # every key in the future
+    (8, 40, 333, 64, torch.bfloat16, True, 293, 0, 100, 2),     # Sq < 64, offsets, window, GQA
+    (4, 384, 640, 128, torch.bfloat16, True, 256, 0, 200, 2),   # D 128, Sk no multiple of 128
 ])
 def test_flash_kernel_matches_plain(dev, bh, sq, sk, d, dtype, causal, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -246,6 +253,8 @@ def _launch(lib, q, k, v, qo, ko, window, group):
     (8, 300, 300, 128, torch.bfloat16, 0, 0, 70, 2),
     (4, 200, 333, 64, torch.bfloat16, 133, 0, None, 1),
     (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),  # chip_smoke.py's ragged Sk tail
+    (4, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1),      # a block laps the ring many times
+    (8, 40, 333, 64, torch.bfloat16, 293, 0, 100, 2),        # Sq < 64, offsets, window, GQA
 ])
 def test_flash_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -422,3 +431,58 @@ def test_flash_f32_card_vs_cpu_repeated(dev):
                 mismatches.append((rep, name, int(bad.sum()), int(diff.numel()), float(diff.max())))
     print(f"# f32 card vs CPU, 20 repeats: mismatches {mismatches}")
     assert not mismatches, mismatches
+
+
+# -- the linear step's segment sums: deterministic, the card's equal to the CPU's --
+
+
+def _segment_case(kind, rng):
+    if kind == "headline_rows":  # Xw by row: sorted rows, padding (row 0, value 0) last
+        rows = np.sort(rng.integers(0, 16384, 638976)).astype(np.int32)
+        ids = np.concatenate([rows, np.zeros(159744, np.int32)])
+        data = np.concatenate([rng.normal(size=rows.size), np.zeros(159744)])
+        return data.astype(np.float32), ids, 16384
+    if kind == "hot_key":  # the CTR data's frequent keys: a few segments of thousands
+        ids = np.where(rng.random(200000) < 0.05, 7, rng.integers(0, 1 << 22, 200000))
+        return rng.normal(size=ids.size).astype(np.float32), ids.astype(np.int32), 1 << 22
+    if kind == "mixed":  # unsorted, mixed sign and magnitude, -0.0, exact cancellations
+        ids = rng.integers(0, 300, 50000).astype(np.int32)
+        data = (rng.normal(size=ids.size) * 10.0 ** rng.integers(-30, 30, ids.size)).astype(np.float32)
+        data[rng.random(ids.size) < 0.1] = -0.0
+        return data, ids, 300
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["headline_rows", "hot_key", "mixed"])
+def test_segment_sum_on_the_card_equals_the_cpu(dev, kind):
+    data, ids, n = _segment_case(kind, np.random.default_rng(5))
+    want = tseg.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), n)
+    before = tseg.segment_sum.launches
+    got = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n)
+    assert tseg.segment_sum.launches == before + 1
+    again = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))
+
+
+@pytest.mark.parametrize("update", ["sparse", "dense"])
+def test_headline_steps_are_bit_identical_run_to_run(dev, update):
+    """Two workers on the card, the same two headline minibatches: the
+    same state bits (the segment sums add in a fixed order)."""
+    from parameter_server_tpu_torch.apps.linear.async_sgd import AsyncSGDWorker
+    from parameter_server_tpu_torch.benchmarks.headline import conf, make_batch
+
+    batches = [make_batch(i) for i in range(2)]
+    states = []
+    for _ in range(2):
+        w = AsyncSGDWorker(conf(update, "float32", 2), device=dev)
+        if update == "sparse":
+            w.submit_superbatch(batches, with_aux=False)
+        else:
+            for b in batches:
+                w.process_minibatch(b, with_aux=False)
+        torch.cuda.synchronize()
+        states.append({k: v.clone() for k, v in w.state.items()})
+    for k in states[0]:
+        assert torch.equal(_bits(states[0][k]), _bits(states[1][k])), k
