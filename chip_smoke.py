@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one library a source, all compiled at once) into ``build/torch_kernels/``;
 3. kernel parity: each FTRL and quantize kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
-   main paths' shapes, with CUDA-event times and the HBM-byte bound; the
+   main paths' shapes, with CUDA-event times and the HBM-byte bound (for
+   the FTRL kernels, counted from the inputs by ``benchmarks/ftrl_bytes.py``,
+   beside the floor of the 32-byte sectors the members touch); the
    quantize kernel also against its statistical contract (round trip
    within one step, unbiased mean); the segment-sum kernel at the linear
    step's three sums (Xw by row, the gradient by slot, the shard gradient
@@ -122,9 +124,10 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     T,
     conf,
     make_batch,
+    sparse_update_inputs,
 )
 from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
-from parameter_server_tpu_torch.benchmarks import lm_serve, lm_train  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
@@ -245,27 +248,15 @@ def dense_case(p: int, n_dtype, masked: bool, seed, gen, frac: float = 0.19,
     keep = touched if masked else g != 0
     check(bool((zk != z0)[g != 0].float().mean() > 0.9), f"{name}: kernel left touched slots unchanged")
     check(torch.equal(zk[~keep], z0[~keep]), f"{name}: kernel wrote untouched slots")
-    live = int(keep.sum())
-    nb = n0.element_size()
-    nbytes = p * 4 + (p if masked else 0) + live * (8 + 2 * nb)
-    b_ms, b_by = bound(nbytes, live * FTRL_FLOPS)
+    need = ftrl_bytes.dense_counts(keep, n0.element_size(), masked)
+    live = need["members"]
+    b_ms, b_by = bound(need["bytes"], live * FTRL_FLOPS)
     ms = median_ms(lambda: ftrl.ftrl_update(zk, nk, g, touched, **FTRL_KW, seed=seed))
     plain_ms = median_ms(lambda: ftrl.ftrl_update_ref(zr, nr, g, touched, **FTRL_KW, seed=seed))
-    return dict(case=name, p=p, live=live, bytes=nbytes, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-
-
-def sparse_inputs(seed: int, gen):
-    """rel/ok of a real headline batch (localize of its deduplicated,
-    padded slot vector, sentinel tail included) and a gradient on it."""
-    batch = make_batch(seed)
-    nnz_pad = max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
-    uniq = -(-min(nnz_pad, SLOTS) // 1024) * 1024
-    pb = prep_batch_shared(batch, KeyDirectory(SLOTS), 1, MB, nnz_pad, uniq, SLOTS)
-    uslots = torch.as_tensor(pb.uslots[0]).cuda()
-    rel, ok = localize(uslots, SLOTS)
-    g_u = torch.randn(uniq, device="cuda", generator=gen) * torch.as_tensor(pb.umask[0]).cuda()
-    return rel, ok, g_u
+    return dict(case=name, p=p, live=live, bytes=need["bytes"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                sector_bytes=need["sector_bytes"],
+                sector_floor_ms=ftrl_bytes.ms(need["sector_bytes"]))
 
 
 def sparse_case(n_dtype, seed, rel, ok, g_u, gen) -> dict:
@@ -278,18 +269,19 @@ def sparse_case(n_dtype, seed, rel, ok, g_u, gen) -> dict:
     name = f"sparse P=2^{SLOTS.bit_length() - 1} U={u} {'bf16 seed' if n_dtype == torch.bfloat16 else 'f32'}"
     err = compare((zk, nk), (zr, nr), name)
     live_mask = ok & (g_u != 0)
-    live = int(live_mask.sum())
     changed = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
     changed[rel[live_mask].long()] = True
     check(torch.equal(zk[~changed], z0[~changed]), f"{name}: kernel wrote a slot it does not own")
     check(int((~ok).sum()) > 0, f"{name}: no sentinel tail in the input")
-    nb = n0.element_size()
-    nbytes = u * (4 + 1 + 4) + live * (8 + 2 * nb)
-    b_ms, b_by = bound(nbytes, live * FTRL_FLOPS)
+    need = ftrl_bytes.sparse_counts(rel, ok, g_u, n0.element_size())
+    live = need["members"]
+    b_ms, b_by = bound(need["bytes"], live * FTRL_FLOPS)
     ms = median_ms(lambda: ftrl_sparse.ftrl_sparse_update(zk, nk, rel, ok, g_u, **FTRL_KW, seed=seed))
     plain_ms = median_ms(lambda: ftrl_sparse.ftrl_sparse_rows_ref(zr, nr, rel, ok, g_u, **FTRL_KW, seed=seed))
-    return dict(case=name, p=SLOTS, u=u, live=live, bytes=nbytes, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(case=name, p=SLOTS, u=u, live=live, bytes=need["bytes"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                sector_bytes=need["sector_bytes"],
+                sector_floor_ms=ftrl_bytes.ms(need["sector_bytes"]))
 
 
 # -- phase 4: the main path --
@@ -1270,15 +1262,15 @@ def main() -> int:
         dense_case(SLOTS, torch.bfloat16, True, 7, gen),
         dense_case(BIG_SLOTS, torch.float32, False, None, gen),
     ]
-    rel, ok, g_u = sparse_inputs(args.seed + 1_000_000, gen)
+    rel, ok, g_u = sparse_update_inputs(args.seed + 1_000_000, gen)
     sparse_rows = [
         sparse_case(torch.float32, None, rel, ok, g_u, gen),
         sparse_case(torch.bfloat16, 7, rel, ok, g_u, gen),
     ]
     for r in dense_rows + sparse_rows:
         print(f"# parity {r['case']}: bit-equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} B, live {r['live']}) "
-              f"[{smi}]", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} B, live {r['live']}), "
+              f"sector floor {r['sector_floor_ms']:.4f} ms ({r['sector_bytes']} B) [{smi}]", flush=True)
 
     quant_rows = [quantize_case(QUANT_P, nb, seed, gen) for nb in (1, 2) for seed in (1, 77, 123457)]
     quant_rows += [quantize_case(QUANT_P - 3, nb, 9, gen) for nb in (1, 2)]
@@ -1345,7 +1337,9 @@ def main() -> int:
     dense_rows.append(ctr_dense)
     print(f"# parity {ctr_dense['case']} (the CTR step's update): bit-equal; kernel "
           f"{ctr_dense['ms']:.4f} ms, plain {ctr_dense['plain_ms']:.4f} ms, bound "
-          f"{ctr_dense['bound_ms']:.4f} ms ({ctr_dense['bound_by']}) [{smi}]", flush=True)
+          f"{ctr_dense['bound_ms']:.4f} ms ({ctr_dense['bound_by']}, {ctr_dense['bytes']} B, live "
+          f"{ctr_dense['live']}), sector floor {ctr_dense['sector_floor_ms']:.4f} ms "
+          f"({ctr_dense['sector_bytes']} B) [{smi}]", flush=True)
 
     flash_rows = [
         flash_case("prefill", gen, group=4),  # the serving prefill: 64 query rows, 16 K/V rows

@@ -11,8 +11,12 @@ minibatches per launch, τ=0.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..apps.linear.async_sgd import prep_batch_shared
 from ..apps.linear.config import Config, LearningRateConfig, PenaltyConfig, SGDConfig
+from ..ops.kv_ops import localize
+from ..parameter.parameter import KeyDirectory
 from ..utils.sparse import SparseBatch, random_sparse
 
 SLOTS = 1 << 22
@@ -44,3 +48,17 @@ def conf(update: str = "sparse", dtype: str = "float32", steps: int = T) -> Conf
         update=update, ftrl_state_dtype=dtype, steps_per_launch=steps,
     )
     return c
+
+
+def sparse_update_inputs(seed: int, gen: torch.Generator, device: str = "cuda"):
+    """The sparse FTRL update's inputs on a real headline batch: ``rel``
+    and ``ok`` of its deduplicated, padded slot vector (``localize``,
+    sentinel tail included; sorted, as ``np.unique`` leaves it) and a
+    gradient ``g_u`` from ``gen`` on its real slots."""
+    batch = make_batch(seed)
+    nnz_pad = max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
+    uniq = -(-min(nnz_pad, SLOTS) // 1024) * 1024
+    pb = prep_batch_shared(batch, KeyDirectory(SLOTS), 1, MB, nnz_pad, uniq, SLOTS)
+    rel, ok = localize(torch.as_tensor(pb.uslots[0]).to(device), SLOTS)
+    g_u = torch.randn(uniq, device=device, generator=gen) * torch.as_tensor(pb.umask[0]).to(device)
+    return rel, ok, g_u

@@ -2,10 +2,11 @@
 registers, spills and stack (``nvcc -Xptxas -v``) and its count of chosen
 SASS instructions (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (TMA
 loads), SYNCS (mbarrier operations), HMMA (mma.sync), LDL/STL (local
-memory, where spills go).
+memory, where spills go), and global loads split by width: LDG.128 (16
+bytes a thread) against LDG<128 (narrower).
 
     python3 -m parameter_server_tpu_torch.benchmarks.kernel_report [NAME ...] [--require-regs PART=N ...]
-        [--define MACRO ...]
+        [--require-wide PART ...] [--define MACRO ...]
 
 Builds each named library (default: all) from ``kernels/csrc`` with the
 port's own flags plus ``-Xptxas -v`` (and ``-DMACRO`` for each
@@ -14,8 +15,10 @@ one line a kernel and writes ``chiprun_out/kernel_report.json``. Exits
 non-zero if a build fails, or if a kernel whose name contains PART does
 not use exactly N registers a thread (``--require-regs``: a kernel that
 hands registers between warpgroups with setmaxnreg needs the whole
-register file allotted to its block at launch). Needs the CUDA toolkit,
-not a card.
+register file allotted to its block at launch), or if a kernel whose
+name contains a ``--require-wide`` PART has no 16-byte global load or
+spills (a streaming kernel whose vector loads did not compile). Needs the
+CUDA toolkit, not a card.
 """
 
 from __future__ import annotations
@@ -33,8 +36,15 @@ import tempfile
 from .. import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-MNEMONICS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDL", "STL")
-_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+MNEMONICS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDL", "STL", "LDG.128", "LDG<128")
+_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)")
+
+
+def mnemonic(base: str, modifiers: str) -> str:
+    """The name counted for an opcode: global loads by width."""
+    if base == "LDG":
+        return base + (".128" if "128" in modifiers.split(".") else "<128")
+    return base
 
 
 def _tool(name: str) -> str:
@@ -84,8 +94,8 @@ def count_sass(text: str) -> dict:
             cur = counts.setdefault(m.group(1), collections.Counter())
             continue
         m = _OPCODE.search(line)
-        if cur is not None and m and m.group(1) in MNEMONICS:
-            cur[m.group(1)] += 1
+        if cur is not None and m and mnemonic(m.group(1), m.group(2)) in MNEMONICS:
+            cur[mnemonic(m.group(1), m.group(2))] += 1
     return {k: {n: v.get(n, 0) for n in MNEMONICS} for k, v in counts.items()}
 
 
@@ -107,6 +117,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("names", nargs="*", help="kernel libraries (default: all)")
     ap.add_argument("--require-regs", action="append", default=[], metavar="PART=N")
+    ap.add_argument("--require-wide", action="append", default=[], metavar="PART")
     ap.add_argument("--define", action="append", default=[], metavar="MACRO")
     args = ap.parse_args(argv)
     names = args.names or sorted(kernels._SIGNATURES)
@@ -125,6 +136,12 @@ def main(argv=None) -> int:
                 part, n = req.split("=")
                 if part in kname and r.get("registers") != int(n):
                     bad.append(f"{kname}: {r.get('registers')} registers, want {n}")
+            for part in args.require_wide:
+                if part in kname and (r["sass"].get("LDG.128", 0) == 0 or r.get("spill_stores")
+                                      or r.get("spill_loads")):
+                    bad.append(f"{kname}: LDG.128 {r['sass'].get('LDG.128', 0)}, spills "
+                               f"{r.get('spill_stores')}/{r.get('spill_loads')} B, want 16-byte "
+                               "loads and no spills")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_report.json"), "w") as f:
         json.dump(out, f, indent=1)

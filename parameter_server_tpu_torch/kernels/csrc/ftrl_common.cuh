@@ -61,11 +61,61 @@ __device__ __forceinline__ uint16_t narrow_bf16(float x, bool dither,
   return static_cast<uint16_t>((bits + 0x7FFFu + lsb) >> 16);
 }
 
-// one launch shape for both kernels: 256 threads, at most one full wave
-// of resident blocks, grid-stride loops for the rest
-inline unsigned int ftrl_grid_blocks(long long n) {
-  long long blocks = (n + 255) / 256;
-  const long long cap = 132LL * 8;  // H100: 132 SMs x (2048 / 256) resident blocks
-  if (blocks > cap) blocks = cap;
+// ---------------------------------------------------------------------------
+// The two FTRL kernels' streaming pass (ftrl_dense.cu, ftrl_sparse.cu)
+// ---------------------------------------------------------------------------
+
+// √n of slot i, widened to f32
+template <bool BF16>
+__device__ __forceinline__ float load_n(const void* n, long long i) {
+  if (BF16) return bf16_bits_to_float(static_cast<const uint16_t*>(n)[i]);
+  return static_cast<const float*>(n)[i];
+}
+
+// z and √n of slot i written back; `pos` indexes the bf16 dither
+template <bool BF16>
+__device__ __forceinline__ void store_slot(float* z, void* n, long long i, float zn, float nn,
+                                           bool dither, uint32_t pos, uint32_t seed) {
+  z[i] = zn;
+  if (BF16) {
+    static_cast<uint16_t*>(n)[i] = narrow_bf16(nn, dither, pos, seed);
+  } else {
+    static_cast<float*>(n)[i] = nn;
+  }
+}
+
+// The first index h in [0, span) at which each stream (address + h *
+// size) is aligned to its width; `span` if there is none (the whole pass
+// then takes the scalar route). Streams: {address, element size, width}.
+struct Stream {
+  const void* ptr;
+  int size, align;
+};
+
+template <int N>
+inline long long aligned_head(const Stream (&s)[N], long long span) {
+  for (long long h = 0; h < span && h < 16; ++h) {  // widths are at most 16 bytes
+    bool ok = true;
+    for (int k = 0; k < N; ++k) {
+      ok = ok && (reinterpret_cast<uintptr_t>(s[k].ptr) + h * s[k].size) % s[k].align == 0;
+    }
+    if (ok) return h;
+  }
+  return span;
+}
+
+// A persistent grid: as many blocks as the current device's SMs hold at
+// once, never more than `blocks_needed`. `per_sm` caches the kernel's
+// resident blocks a SM (0: not asked yet), so that a launch asks the
+// occupancy calculator once: its host time would show in the step.
+template <typename Kernel>
+inline unsigned int persistent_blocks(Kernel kernel, int threads, size_t smem,
+                                      long long blocks_needed, int& per_sm) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (per_sm == 0) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  long long blocks = static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  if (blocks > blocks_needed) blocks = blocks_needed;
   return static_cast<unsigned int>(blocks < 1 ? 1 : blocks);
 }

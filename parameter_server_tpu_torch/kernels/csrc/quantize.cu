@@ -21,6 +21,15 @@
 // grid-stride loop takes any length.
 #include "ftrl_common.cuh"
 
+// 256 threads a block, at most one full wave of resident blocks,
+// grid-stride loops for the rest
+inline unsigned int quantize_grid_blocks(long long n) {
+  long long blocks = (n + 255) / 256;
+  const long long cap = 132LL * 8;  // H100: 132 SMs x (2048 / 256) resident blocks
+  if (blocks > cap) blocks = cap;
+  return static_cast<unsigned int>(blocks < 1 ? 1 : blocks);
+}
+
 template <typename Q>
 __global__ void quantize_kernel(const float* __restrict__ x,
                                 const float* __restrict__ lo_ptr,
@@ -48,7 +57,7 @@ extern "C" int quantize_launch(const float* x, const float* lo, const float* hi,
                                void* q, int num_bytes, long long n,
                                unsigned int seed, void* stream) {
   if (n <= 0) return 0;
-  const unsigned int blocks = ftrl_grid_blocks(n);
+  const unsigned int blocks = quantize_grid_blocks(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_bytes == 1) {
     quantize_kernel<uint8_t><<<blocks, 256, 0, s>>>(x, lo, hi, static_cast<uint8_t*>(q), n,

@@ -3,8 +3,10 @@ read from compiler output, without the CUDA toolkit.
 
 The report parses ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` text; these
 tests feed it text in those tools' formats and check what it takes from
-it, and that ``--require-regs`` fails a run whose warp-specialised
-kernels do not get the register allotment their setmaxnreg needs.
+it, that ``--require-regs`` fails a run whose warp-specialised kernels do
+not get the register allotment their setmaxnreg needs, and that
+``--require-wide`` fails a streaming kernel with no 16-byte global load or
+with spills.
 """
 
 import json
@@ -51,10 +53,46 @@ def test_ptxas_registers_spills_and_warnings_per_kernel():
     assert len(info[DKV]["warnings"]) == 1 and "serialized" in info[DKV]["warnings"][0]
 
 
+NONE = dict.fromkeys(kr.MNEMONICS, 0)
+
+
 def test_sass_counts_per_function_with_predicates():
     counts = kr.count_sass(SASS)
-    assert counts[DQ] == {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 2, "HMMA": 0, "LDL": 0, "STL": 0}
-    assert counts[DKV] == {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0, "HMMA": 1, "LDL": 1, "STL": 1}
+    assert counts[DQ] == NONE | {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 2}
+    assert counts[DKV] == NONE | {"HMMA": 1, "LDL": 1, "STL": 1}
+
+
+FTRL = "_ZN12_GLOBAL__N_117ftrl_dense_kernelILb0ELb0EEEvPfPvPKfPKhxxx10FtrlParamsbj"
+FTRL_SASS = f"""
+		Function : {FTRL}
+        /*0100*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0110*/              @!P0 LDG.E.128 R8, desc[UR4][R6.64] ;
+        /*0120*/               @P1 LDG.E R5, desc[UR4][R2.64] ;
+        /*0130*/                   LDG.E.U8.CONSTANT R6, desc[UR4][R2.64] ;
+        /*0140*/                   LDG.E.64 R10, desc[UR4][R2.64] ;
+        /*0150*/                   STG.E.128 desc[UR4][R6.64], R8 ;
+        /*0160*/                   STG.E.U16 desc[UR4][R6.64], R5 ;
+"""
+
+
+def test_sass_counts_global_loads_by_width():
+    counts = kr.count_sass(FTRL_SASS)
+    assert counts[FTRL] == NONE | {"LDG.128": 2, "LDG<128": 3}
+
+
+@pytest.mark.parametrize("sass,spills,rc", [
+    (FTRL_SASS, 0, 0),
+    (FTRL_SASS.replace(".128", ""), 0, 1),  # no 16-byte load compiled
+    (FTRL_SASS, 8, 1),
+])
+def test_require_wide_fails_without_vector_loads_or_with_spills(monkeypatch, tmp_path, sass,
+                                                                 spills, rc):
+    info = {FTRL: {"warnings": [], "stack": spills, "spill_stores": spills, "spill_loads": spills,
+                   "registers": 48}}
+    monkeypatch.setattr(kr, "ROOT", str(tmp_path))
+    monkeypatch.setattr(kr, "report", lambda name, tmp: {
+        k: dict(info[k], sass=v) for k, v in kr.count_sass(sass).items()})
+    assert kr.main(["ftrl_dense", "--require-wide", "ftrl_dense_kernel"]) == rc
 
 
 @pytest.mark.parametrize("registers,rc", [(168, 0), (128, 1)])

@@ -5,7 +5,10 @@ These tests need an NVIDIA GPU and the CUDA toolkit (the kernels have
 no CPU mode): they carry the ``cuda`` marker and skip elsewhere. On a
 machine with a card: ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 
-Tolerance of the FTRL and quantize kernels: bit equality. They are built
+Tolerance of the FTRL and quantize kernels: bit equality (the FTRL
+kernels also at lengths that leave a ragged tail, with views at odd
+offsets that leave an unaligned head, and with no slot or every slot
+touched). They are built
 with ``--fmad=false``, so every operation rounds once, as each eager
 PyTorch op does; the bf16 dither is indexed by flat position (dense) or
 u-position (sparse) in both versions, and the quantization noise by flat
@@ -123,6 +126,72 @@ def test_sparse_kernel_bit_equal(dev, dtype, seed):
     # unless a genuine entry owns it
     if p - 1 not in live:
         assert zk[p - 1] == z[p - 1]
+
+
+def _at_offset(t, offset):
+    """``t`` copied into a view that starts ``offset`` elements into its
+    buffer (no longer 16-byte aligned for an odd offset)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype,seed", [(torch.float32, None), (torch.bfloat16, None),
+                                        (torch.bfloat16, 9)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("frac", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("p", [(1 << 16) + 3, (1 << 16) + 15])
+def test_dense_kernel_bit_equal_at_ragged_lengths_and_offsets(dev, p, offset, frac, masked, dtype,
+                                                              seed):
+    """The scalar head (a view at an odd offset) and tail (P not a whole
+    number of 16-slot chunks), no slot and every slot touched."""
+    rng = np.random.default_rng(p + offset)
+    g = torch.tensor(rng.normal(size=p) * (rng.random(p) < frac), dtype=torch.float32, device=dev)
+    z = torch.tensor(rng.normal(size=p), dtype=torch.float32, device=dev)
+    n = torch.tensor(rng.random(p) * 2, dtype=torch.float32, device=dev).to(dtype)
+    touched = (g != 0) | torch.tensor(rng.random(p) < frac / 4, device=dev) if masked else None
+    zk, nk, gk = (_at_offset(t, offset) for t in (z, n, g))
+    tk = None if touched is None else _at_offset(touched, offset)
+    zr, nr = z.clone(), n.clone()
+    tftrl.ftrl_update(zk, nk, gk, tk, **KW, seed=seed)
+    tftrl.ftrl_update_ref(zr, nr, g, touched, **KW, seed=seed)
+    _assert_bit_equal((zk, nk), (zr, nr))
+    assert torch.equal(zk, z) == (frac == 0.0)
+
+
+@pytest.mark.parametrize("dtype,seed", [(torch.float32, None), (torch.bfloat16, None),
+                                        (torch.bfloat16, 5)])
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (1, 1, 1, 1), (1, 0, 3, 1)])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("u", [4093, 4096])
+def test_sparse_kernel_bit_equal_at_ragged_lengths_orders_and_offsets(dev, u, order, offsets,
+                                                                      dtype, seed):
+    """U not a multiple of 4, rel in any order, and rel / g / ok / the
+    table as views at offsets (all aligned together, or never: then every
+    position takes the scalar route)."""
+    rng = np.random.default_rng(u)
+    p = 1 << 16
+    live = np.unique(rng.integers(0, p, 3000))
+    uslots = np.full(u, p, np.int32)  # the one-past-the-end sentinel tail
+    uslots[: len(live)] = live
+    rel, ok = localize(torch.tensor(uslots, device=dev), p)
+    g = torch.tensor(rng.normal(size=u), dtype=torch.float32, device=dev)
+    g[::7] = 0.0  # some owned entries with no gradient
+    if order == "shuffled":
+        perm = torch.tensor(rng.permutation(u), device=dev)
+        rel, ok, g = rel[perm], ok[perm], g[perm]
+    z = torch.tensor(rng.normal(size=p), dtype=torch.float32, device=dev)
+    n = torch.tensor(rng.random(p) * 2, dtype=torch.float32, device=dev).to(dtype)
+    rel_o, g_o, ok_o, table_o = offsets
+    relk, gk, okk = _at_offset(rel, rel_o), _at_offset(g, g_o), _at_offset(ok, ok_o)
+    zk, nk = _at_offset(z, table_o), _at_offset(n, table_o)
+    zr, nr = z.clone(), n.clone()
+    tsparse.ftrl_sparse_update(zk, nk, relk, okk, gk, **KW, seed=seed)
+    tsparse.ftrl_sparse_rows_ref(zr, nr, rel, ok, g, **KW, seed=seed)
+    _assert_bit_equal((zk, nk), (zr, nr))
+    assert not torch.equal(zk, z)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
