@@ -13,14 +13,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one library a source, all compiled at once) into ``build/torch_kernels/``;
 3. kernel parity: each FTRL and quantize kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
-   main paths' shapes, with CUDA-event times and the HBM-byte bound (for
+   main paths' shapes, with CUDA-event times (``benchmarks/timing.py``:
+   cold L2, a spin before the start event) and the HBM-byte bound (for
    the FTRL kernels, counted from the inputs by ``benchmarks/ftrl_bytes.py``,
    beside the floor of the 32-byte sectors the members touch); the
-   quantize kernel also against its statistical contract (round trip
-   within one step, unbiased mean); the segment-sum kernel at the linear
-   step's three sums (Xw by row, the gradient by slot, the shard gradient
-   by slot) on a headline batch's index vectors: the card's whole sum
-   (stable sort, then the kernel) bit-equal to the CPU's and run to run;
+   quantize kernel (range and codes in one launch) also on inputs whose
+   min or max is a zero of both signs, with a NaN, constant, and against
+   its statistical contract (round trip within one step, unbiased mean),
+   timed as the whole ``quantize`` call; the segment-sum kernel at the
+   linear step's sums (Xw by row, the gradient by slot, the shard gradient
+   by slot) on a headline batch's index vectors and at the CTR step's
+   shard gradient by slot (hot keys: runs of thousands): the card's whole
+   sum (a stable sort first, or none where the ids come grouped) bit-equal
+   to the CPU's and run to run, bounded by the larger of its bytes and its
+   serial floor (the longest run of nonzero entries times one dependent
+   f32 add, timed on the card; ``benchmarks/segment_bytes.py``);
 4. headline path: the port's ``AsyncSGDWorker`` trains the headline
    configuration (2^22-slot FTRL sparse logistic regression, 16384-row
    minibatches of 39 binary features, keys from 2^24, T=8 minibatches per
@@ -110,8 +117,6 @@ from parameter_server_tpu_torch.apps.linear import async_sgd  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import main as linear_main  # noqa: E402
 from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
-    prep_batch_hashed,
-    prep_batch_shared,
     stack_prepped_batches,
 )
 from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards  # noqa: E402
@@ -128,20 +133,22 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
 )
 from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import ftrl_bytes, lm_serve, lm_train  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
+from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
+from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
 from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
-from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
-from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
 
 BIG_SLOTS = 1 << 26  # the real-data table of bench.py --real
 FTRL_KW = dict(alpha=ALPHA, beta=BETA, l1=L1, l2=0.0)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 << 20
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 FTRL_FLOPS = 22  # arithmetic operations of one FTRL-proximal step
@@ -149,9 +156,6 @@ EXP_PER_CLOCK = 16 * 132  # MUFU ex2 a clock: 16 on each SM of an H100 SXM
 # card vs CPU: the segment sums add in the same order on both, but the
 # step's elementwise math (the loss's exp and log) need not round alike
 TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)
-REPS, WARMUP = 20, 3
-
-_flush_buf = None
 
 
 def check(cond, what: str) -> None:
@@ -172,34 +176,6 @@ def mufu_floor_ms(pairs: int, clock_hz: float) -> float:
     (query, key) pair, EXP_PER_CLOCK a clock (printed beside the tensor
     bound, which bound_ms stays)."""
     return pairs / (EXP_PER_CLOCK * clock_hz) * 1e3
-
-
-def flush_l2() -> None:
-    """Write 256 MB so the 50 MB L2 holds nothing of the timed inputs:
-    the main path runs other kernels between two FTRL updates."""
-    global _flush_buf
-    if _flush_buf is None:
-        _flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    _flush_buf.fill_(1)
-
-
-def median_ms(fn) -> float:
-    """Median device time of ``fn`` over REPS launches (CUDA events),
-    each on a cold L2, after WARMUP untimed launches."""
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        flush_l2()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
@@ -433,23 +409,16 @@ QUANT_OPS = 21
 
 
 def quantize_case(p: int, nb: int, seed: int, gen, frac: float = 0.05, zero: bool = False) -> dict:
-    """Kernel against plain codes, bit for bit, on a pushed-gradient-like
-    input (``frac`` of the entries nonzero) or on zeros; then the
-    statistical contract of the codes."""
+    """The fused kernel (range and codes in one launch) against the plain
+    range and codes, bit for bit, on a pushed-gradient-like input (``frac``
+    of the entries nonzero) or on zeros; then the statistical contract of
+    the codes."""
     x = torch.zeros(p, device="cuda")
     if not zero:
         x = torch.randn(p, device="cuda", generator=gen)
         x[torch.rand(p, device="cuda", generator=gen) > frac] = 0.0
-    lo, hi = fixing_float.quantize_range(x)
-    qk = quantize.launch_kernel(x, lo, hi, seed, nb)
-    qp = fixing_float.quantize_codes(x, lo, hi, seed, nb)
     name = f"quantize P={p} b={nb} seed={seed}{' zeros' if zero else ''}"
-    torch.cuda.synchronize()
-    err = float((qk.to(torch.int32) - qp.to(torch.int32)).abs().max())
-    check(torch.equal(qk.view(torch.uint8), qp.view(torch.uint8)), f"{name}: kernel codes differ from plain (max {err})")
-    qw, low, hiw = quantize.quantize(x, seed, nb)
-    check(torch.equal(qw.view(torch.uint8), qk.view(torch.uint8)) and float(low) == float(lo)
-          and float(hiw) == float(hi), f"{name}: the wrapper differs from its parts")
+    qk, lo, hi, err = quantize_parity(x, seed, nb, name)
     back = quantize.dequantize(qk, lo, hi, nb)
     lo_f, hi_f = float(lo), float(hi)
     step = (hi_f - lo_f) / fixing_float.levels_of(nb)
@@ -476,72 +445,100 @@ def quantize_case(p: int, nb: int, seed: int, gen, frac: float = 0.05, zero: boo
                 bias_steps=bias)
 
 
+def quantize_parity(x, seed: int, nb: int, name: str):
+    """One ``quantize.quantize`` call (one launch) against
+    ``quantize_range`` and ``quantize_codes`` on the card: ``lo``, ``hi``
+    and the codes bit-equal. Returns the kernel's ``(q, lo, hi)`` and the
+    codes' max |diff|."""
+    before = quantize.quantize.launches
+    qk, lo, hi = quantize.quantize(x, seed, nb)
+    check(quantize.quantize.launches == before + 1, f"{name}: not one launch")
+    lo_p, hi_p = fixing_float.quantize_range(x)
+    qp = fixing_float.quantize_codes(x, lo_p, hi_p, seed, nb)
+    torch.cuda.synchronize()
+    err = float((qk.to(torch.int32) - qp.to(torch.int32)).abs().max())
+    check(torch.equal(qk.view(torch.uint8), qp.view(torch.uint8)),
+          f"{name}: kernel codes differ from plain (max {err})")
+    check(torch.equal(bits(torch.stack([lo, hi])), bits(torch.stack([lo_p, hi_p]))),
+          f"{name}: kernel range {float(lo)}, {float(hi)} differs from plain {float(lo_p)}, "
+          f"{float(hi_p)}")
+    return qk, lo, hi, err
+
+
+def quantize_range_cases(p: int, nb: int, gen) -> "list[dict]":
+    """The range's cases that need care, parity only: a min or a max that
+    is a zero of both signs, all zeros of both signs, a NaN, a constant."""
+    x = torch.randn(p, device="cuda", generator=gen)
+    x[torch.rand(p, device="cuda", generator=gen) > 0.3] = 0.0
+    pos = x.abs()
+    pos[(pos == 0) & (torch.rand(p, device="cuda", generator=gen) < 0.5)] = -0.0
+    zeros = torch.where(torch.rand(p, device="cuda", generator=gen) < 0.5, 0.0, -0.0)
+    nan = x.clone()
+    nan[p // 3] = float("nan")
+    rows = []
+    for what, xs in (("min a zero of both signs", pos), ("max a zero of both signs", -pos),
+                     ("all zeros of both signs", zeros), ("a NaN", nan),
+                     ("constant", torch.full((p,), 5.0, device="cuda"))):
+        name = f"quantize P={p} b={nb} {what}"
+        _, lo, hi, err = quantize_parity(xs, 17, nb, name)
+        rows.append(dict(case=name, p=p, nb=nb, max_abs_err=err,
+                         lo_bits=hex(int(lo.view(torch.int32))), hi_bits=hex(int(hi.view(torch.int32)))))
+    return rows
+
+
 def quantize_times(p: int, nb: int, gen, frac: float) -> dict:
+    """CUDA-event times of the whole ``quantize.quantize`` call (the fused
+    kernel, one launch), of its plain version (``quantize_range`` and
+    ``quantize_codes``) and of the plain range alone (``aminmax``, the
+    parent's separate range pass); the bound is the whole function's: one
+    read of x and the codes written. Where x exceeds the 50 MB L2, the
+    kernel's second read of x comes from HBM too: ``two_read_floor_ms``."""
     x = torch.randn(p, device="cuda", generator=gen)
     x[torch.rand(p, device="cuda", generator=gen) > frac] = 0.0
-    lo, hi = fixing_float.quantize_range(x)
     b_ms, b_by = bound(p * (4 + nb), p * QUANT_OPS)
     return dict(
         case=f"quantize P={p} b={nb}",
-        ms=median_ms(lambda: quantize.launch_kernel(x, lo, hi, 5, nb)),
-        plain_ms=median_ms(lambda: fixing_float.quantize_codes(x, lo, hi, 5, nb)),
+        ms=median_ms(lambda: quantize.quantize(x, 5, nb)),
+        plain_ms=median_ms(lambda: fixing_float.quantize_codes(x, *fixing_float.quantize_range(x), 5, nb)),
         aminmax_ms=median_ms(lambda: fixing_float.quantize_range(x)),
         bound_ms=b_ms, bound_by=b_by, bytes=p * (4 + nb),
+        two_read_floor_ms=p * (8 + nb) / HBM_BYTES_PER_S * 1e3 if 4 * p > L2_BYTES else None,
     )
 
 
 # -- phase 3c: the segment-sum kernel --
 
 
-def segment_inputs(seed: int, gen):
-    """The linear step's segment sums at the headline shapes, on the
-    index vectors of a real headline batch: Xw by row (rows sorted,
-    16,384 segments, the padding at row 0 with value 0), the gradient by
-    deduplicated slot (the sparse step's, 798,720 segments) and the shard
-    gradient by slot (the dense step's, 2^22 segments, the sentinel
-    padding clipped onto the last slot); values drawn on the card, zero
-    where the step's are."""
-    batch = make_batch(seed)
-    nnz_pad = max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
-    uniq = -(-min(nnz_pad, SLOTS) // 1024) * 1024
-    directory = KeyDirectory(SLOTS, hashed=True)
-    pb = prep_batch_shared(batch, directory, 1, MB, nnz_pad, uniq, SLOTS)
-    hb = prep_batch_hashed(batch, directory, 1, MB, nnz_pad, SLOTS)
-    vals = torch.as_tensor(pb.vals[0]).cuda()
-    rel, ok = localize(torch.as_tensor(hb.slots[0]).cuda(), SLOTS)
-
-    def draw():
-        return torch.randn(nnz_pad, device="cuda", generator=gen)
-
-    return [("Xw by row", vals * draw(), torch.as_tensor(pb.rows[0]).cuda(), MB),
-            ("gradient by slot", vals * draw(), torch.as_tensor(pb.ucols[0]).cuda(), uniq),
-            ("shard gradient by slot", torch.where(ok, torch.as_tensor(hb.vals[0]).cuda() * draw(), 0.0),
-             rel, SLOTS)]
-
-
-def segment_case(name: str, data, ids, n: int) -> dict:
-    """The whole segment sum on the card against it on the CPU (there
-    ``index_add_`` on the unsorted entries), bit for bit, and run to run; CUDA-event times of the kernel
-    alone on the sorted input, of the plain version there, of the whole
-    function (sort, gather, kernel) and of one ``index_add_`` on the
-    unsorted input (the same function, atomics in no fixed order)."""
-    got = seg.segment_sum(data, ids, n)
+def segment_case(name: str, data, ids, n: int, presorted: bool, ns_per_add: float) -> dict:
+    """The whole segment sum on the card (its route as the step takes it)
+    against it on the CPU (there ``index_add_`` on the entries as they
+    come), bit for bit, and run to run; CUDA-event times of the kernel
+    alone on the input it is handed (sorted, or as it comes where the ids
+    are grouped), of the plain version there, of the whole function (the
+    sort and gather where taken, the kernel) and of one ``index_add_`` on
+    the unsorted input (the same function, atomics in no fixed order).
+    The bound is the larger of the bytes and the serial floor
+    (``benchmarks/segment_bytes.py``)."""
+    got = seg.segment_sum(data, ids, n, presorted=presorted)
     want = seg.segment_sum(data.cpu(), ids.cpu(), n)
     err = compare((got,), (want.cuda(),), f"segment_sum {name}")
-    again = seg.segment_sum(data, ids, n)
+    again = seg.segment_sum(data, ids, n, presorted=presorted)
     torch.cuda.synchronize()
     check(torch.equal(bits(again), bits(got)), f"segment_sum {name}: two runs differ")
-    sdata, sids = seg.sort_by_segment(data, ids, n)
-    live = int((data != 0).sum())
-    m = data.numel()
-    nbytes = 4 * m + 4 * live + 4 * n  # ids and the nonzero values read once, sums written once
-    b_ms, b_by = bound(nbytes, live)
+    if presorted:
+        kdata, kids, plain = data, ids.to(torch.int32), seg.segment_sum_runs_ref
+    else:
+        (kdata, kids), plain = seg.sort_by_segment(data, ids, n), seg.segment_sum_sorted_ref
+    need = segment_bytes.counts(data, ids, n)
+    b_ms, b_by = segment_bytes.bound(need, ns_per_add)
     out = torch.zeros(n, device="cuda")
-    return dict(case=name, entries=m, live=live, segments=n, bytes=nbytes, max_abs_err=err,
-                ms=median_ms(lambda: seg.launch_kernel(sdata, sids, n)),
-                plain_ms=median_ms(lambda: seg.segment_sum_sorted_ref(sdata, sids, n)),
-                whole_ms=median_ms(lambda: seg.segment_sum(data, ids, n)),
+    return dict(case=name, presorted=presorted, **need, max_abs_err=err,
+                ms=median_ms(lambda: seg.launch_kernel(kdata, kids, n)),
+                plain_ms=median_ms(lambda: plain(kdata, kids, n)),
+                whole_ms=median_ms(lambda: seg.segment_sum(data, ids, n, presorted=presorted)),
                 library_ms=median_ms(lambda: out.index_add_(0, ids, data)),
+                bytes_ms=segment_bytes.ms(need["bytes"]),
+                serial_floor_ms=segment_bytes.serial_floor_ms(need["longest"], ns_per_add),
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1276,20 +1273,38 @@ def main() -> int:
     quant_rows += [quantize_case(QUANT_P - 3, nb, 9, gen) for nb in (1, 2)]
     quant_rows += [quantize_case(QUANT_P, nb, 9, gen, zero=True) for nb in (1, 2)]
     for r in quant_rows:
-        print(f"# parity {r['case']}: bit-equal; round trip {r['round_trip']:.3g} <= step "
-              f"{r['step']:.3g}; mean error {r['bias_steps']:+.3g} steps", flush=True)
+        print(f"# parity {r['case']}: lo, hi and codes bit-equal, one launch; round trip "
+              f"{r['round_trip']:.3g} <= step {r['step']:.3g}; mean error {r['bias_steps']:+.3g} steps",
+              flush=True)
+    range_rows = [row for p, nb in ((QUANT_P, 1), (QUANT_P - 3, 2), (100, 1))
+                  for row in quantize_range_cases(p, nb, gen)]
+    for r in range_rows:
+        print(f"# parity {r['case']}: lo {r['lo_bits']}, hi {r['hi_bits']} and codes bit-equal to "
+              "quantize_range + quantize_codes", flush=True)
+    quant_rows += range_rows
     quant_times = [quantize_times(QUANT_P, nb, gen, 0.05) for nb in (1, 2)]
+    quant_times.append(quantize_times(BIG_SLOTS, 1, gen, 0.05))
     for r in quant_times:
-        print(f"# time {r['case']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"aminmax (lo/hi) {r['aminmax_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}, {r['bytes']} B) [{smi}]", flush=True)
-    seg_rows = [segment_case(*case) for case in segment_inputs(args.seed + 2_000_000, gen)]
+        two = r["two_read_floor_ms"]
+        print(f"# time {r['case']}: quantize (range + codes, one launch) {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, its range alone (aminmax) {r['aminmax_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} B)"
+              + (f", floor of two reads of x {two:.4f} ms (x past the L2)" if two else "")
+              + f" [{smi}]", flush=True)
+    lat = segment_bytes.add_latency()
+    print(f"# dependent f32 add (one thread, {lat['adds']} adds): {lat['cycles_per_add']:.3f} cycles, "
+          f"{lat['ns_per_add']:.4f} ns an add, SM clock {lat['sm_clock_mhz']:.0f} MHz [{smi}]",
+          flush=True)
+    seg_rows = [segment_case(*case, lat["ns_per_add"])
+                for case in segment_inputs(args.seed + 2_000_000, gen)]
     for r in seg_rows:
+        route = "no sort (ids grouped)" if r["presorted"] else "stable sort first"
         print(f"# parity segment_sum {r['case']} ({r['entries']} entries, {r['live']} nonzero, "
-              f"{r['segments']} segments): card bit-equal to the CPU, run to run; kernel "
-              f"{r['ms']:.4f} ms, plain (index_add_ on the sorted input) {r['plain_ms']:.4f} ms, "
-              f"whole sum with its sort {r['whole_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
+              f"{r['segments']} segments, longest run {r['longest']}; {route}): card bit-equal to "
+              f"the CPU, run to run; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, whole "
+              f"sum {r['whole_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, bytes "
+              f"{r['bytes_ms']:.4f} ms, serial floor {r['serial_floor_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
 
     batches = [make_batch(args.seed + i) for i in range(T * (args.timed_launches + 1))]
     deterministic = {
@@ -1424,8 +1439,8 @@ def main() -> int:
 
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
-    main_quant = quant_times[0]  # the conf's 1-byte push
-    main_seg = seg_rows[1]  # the headline step's gradient by slot (its Xw by row: seg_rows[0])
+    main_quant = quant_times[0]  # the conf's 1-byte push: the whole quantize call
+    main_seg = seg_rows[3]  # the CTR step's shard gradient by slot: the costliest on the paths
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -1451,10 +1466,10 @@ def main() -> int:
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
              library_ms=None),
-        dict(name="segment_sum", route="cuda",
+        dict(name="segment_sum", route="cuda", case=main_seg["case"],
              source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
-             launches=head["segment_launches"],
+             launches=ctr["segment_launches"],
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -1487,7 +1502,8 @@ def main() -> int:
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
-                  quantize_times=quant_times, segment_sum=seg_rows, headline=head, dense_path=dense, bf16_path=bf16,
+                  quantize_times=quant_times, add_latency=lat, segment_sum=seg_rows, headline=head,
+                  dense_path=dense, bf16_path=bf16,
                   ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,

@@ -425,7 +425,9 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
     def mini_step(live, pulled, seed, y, mask, rows, ucols, vals, uslots, umask):
         rel, ok = localize(uslots, shard)
         w_u = pull_lookup(pull_derive(pulled, seed), rel, ok) * umask
-        xw = _segment_sum(vals * w_u.index_select(0, ucols), rows, y.shape[0])
+        # rows are in CSR order with the padding (row 0, value 0) at the
+        # end: each row's nonzero entries lie in one run, so no sort
+        xw = _segment_sum(vals * w_u.index_select(0, ucols), rows, y.shape[0], presorted=True)
         gr = loss.row_grad(y, xw) * mask
         g_u = _segment_sum(vals * gr.index_select(0, rows), ucols, uslots.shape[0])
         g_u = g_u * umask
@@ -434,7 +436,12 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
             apply_state_rows(updater, live, rel, ok, g_u, seed=seed)
             return _convergence_metrics(metrics, g_u, g_u, w_u)
         g_push = torch.where(ok, g_u, 0.0)
-        g_shard = _segment_sum(g_push, rel, shard)
+        # rel runs over the sorted unique slots, then the padding (clipped
+        # onto the last slot, value 0): one entry a slot, so no sort. The
+        # padding goes to slot 0, where it forms a run of zeros of its own,
+        # which the kernel skips; on the last slot it would lengthen that
+        # slot's run by the whole padding, a serial walk on the card.
+        g_shard = _segment_sum(g_push, torch.where(ok, rel, 0), shard, presorted=True)
         g_shard, touched = push_touched(g_shard, seed)
         updater.apply(live, g_shard, touched, seed=seed)
         return _convergence_metrics(metrics, g_push, g_shard, w_u)
@@ -513,7 +520,8 @@ def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True,
         # sentinel/padding slots are owned by no shard: weight 0, and
         # their vals are 0, so they vanish from Xw and g
         w_e = pull_lookup(pull_derive(pulled, seed), rel, ok)
-        xw = _segment_sum(vals * w_e, rows, y.shape[0])
+        # rows in CSR order, the padding (row 0, value 0) at the end: no sort
+        xw = _segment_sum(vals * w_e, rows, y.shape[0], presorted=True)
         gr = loss.row_grad(y, xw) * mask
         g_e = vals * gr.index_select(0, rows)
         g_push = torch.where(ok, g_e, 0.0)
@@ -774,7 +782,7 @@ class AsyncSGDWorker:
         slots = torch.as_tensor(self.directory.slots(batch.indices)).to(self.device)
         vals = torch.as_tensor(batch.value_array()).to(self.device)
         rows = torch.as_tensor(batch.row_ids()).to(self.device)
-        xw = _segment_sum(vals * self._slot_weights(slots), rows, batch.n)
+        xw = _segment_sum(vals * self._slot_weights(slots), rows, batch.n, presorted=True)  # CSR rows
         return xw.cpu().numpy()
 
     def evaluate(self, batch: SparseBatch) -> Dict[str, float]:

@@ -66,6 +66,23 @@ def write_ctr_shards(directory: str, shards: int, rows: int, seed: int,
     return paths
 
 
+def ctr_minibatches(directory: str, rows: int, seed: int):
+    """``(minibatches, config)``: one shard of ``rows`` generated rows
+    written under ``directory`` and read as the CLI reads the CTR conf
+    (its minibatch size, its count-min tail filter)."""
+    from ..apps.linear.config import parse_conf
+    from ..learner.sgd import MinibatchReader
+
+    write_ctr_shards(directory, 1, rows, seed)
+    c = parse_conf(ctr_conf(os.path.join(directory, "part.*"), os.path.join(directory, "model")))
+    s = c.async_sgd
+    reader = MinibatchReader(files=c.training_data.file, minibatch_size=s.minibatch,
+                             data_format=c.training_data.text)
+    reader.init_filter(s.countmin_n, s.countmin_k, s.tail_feature_freq)
+    with reader:
+        return list(reader), c
+
+
 def ctr_conf(data_glob: str, model_out: str, conf_text: str = None, **sgd) -> str:
     """The CTR conf with its training files and model output pointed
     elsewhere; each ``sgd`` item sets (or adds) an ``async_sgd`` field.

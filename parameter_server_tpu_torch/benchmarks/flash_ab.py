@@ -10,9 +10,10 @@ DIR holds the other ``flash_fwd.cu`` / ``flash_bwd.cu`` and the headers
 they include, for example ``git archive <commit>
 parameter_server_tpu_torch/kernels/csrc`` unpacked; it is built with the
 port's own flags into DIR. Each turn gives each kernel's median time over
-``--reps`` launches on a cold L2 (CUDA events), its TFLOP/s over the
-(query, key) pairs the causal mask keeps and its share of its bound (the
-larger of its operations at 989 TFLOP/s bf16 and its bytes at 3.35 TB/s).
+``--reps`` launches on a cold L2 (CUDA events, ``timing.median_ms``), its
+TFLOP/s over the (query, key) pairs the causal mask keeps and its share of
+its bound (the larger of its operations at 989 TFLOP/s bf16 and its bytes
+at 3.35 TB/s).
 
 ``--kernel bwd``: ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the LM training
 shape (B·H 32, S 8192, D 64, bf16, causal); beside them, once, SDPA's
@@ -41,18 +42,16 @@ import pathlib
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 from .. import kernels
 from ..ops import flash_attention as fa
 from .kernel_report import ROOT
+from .timing import median_ms
 
 BF16_FLOP_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 EXP_PER_CLOCK = 16 * 132  # MUFU ex2 a clock: 16 on each SM of an H100 SXM
-WARMUP = 3
-_flush = None
 # consumer cycle phases of a FLASH_*_CLOCKS build, by slot (csrc/flash_common.cuh)
 _PHASES = {
     "bwd": {0: "wait", 1: "s_dp", 2: "softmax", 3: "grad_products", 7: "release",
@@ -74,37 +73,16 @@ def max_sm_clock_hz() -> float:
     return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` launches, each after
-    256 MB written (the 50 MB L2 holds none of the inputs)."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        _flush.fill_(1)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def build_other(name: str, src_dir: pathlib.Path):
+def build_other(name: str, src_dir: pathlib.Path, signatures=None):
     """The other ``<name>.cu`` built with the port's flags, loaded with
-    the same C signatures."""
+    the same C signatures (or ``signatures``, where they differ)."""
     lib = src_dir / f"{name}_other.so"
     cmd = [kernels._nvcc(), *kernels._flags(name), "-I", str(src_dir), "-o", str(lib),
            str(src_dir / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    return kernels._load(name, lib)
+    return kernels._load(name, lib, signatures)
 
 
 def consumer_clocks(lib, kernel: str):

@@ -20,9 +20,10 @@ port's own flags into DIR. The cases are the main paths' shapes:
   sentinel tail), f32 and bf16 √n with a seed.
 
 Each turn gives each case's median time over ``--reps`` launches on a
-cold L2 (CUDA events), its GB/s over the bound's bytes and its share of
-the bound, beside the sector floor (``ftrl_bytes.py`` counts both from the
-inputs; the same count in 64-byte granules beside it), and the host's
+cold L2 (CUDA events, ``timing.median_ms``), its GB/s over the bound's
+bytes and its share of the bound, beside the sector floor
+(``ftrl_bytes.py`` counts both from the inputs; the same count in 64-byte
+granules beside it), and the host's
 time to launch it (the C entry point through ctypes: the median over 5
 rounds of 100 back-to-back launches, host clock, taken before the card
 is waited for). Every build's output of each case, from the same state, must be
@@ -46,9 +47,10 @@ import torch
 from .. import kernels
 from ..ops import ftrl, ftrl_sparse
 from . import ftrl_bytes
-from .flash_ab import build_other, median_ms, nvidia_smi, turn_order
+from .flash_ab import build_other, nvidia_smi, turn_order
 from .headline import ALPHA, BETA, L1, SLOTS, sparse_update_inputs
 from .kernel_report import ROOT
+from .timing import median_ms
 
 KW = dict(alpha=ALPHA, beta=BETA, l1=L1, l2=0.0)
 SEED = 7  # the bf16 dither's

@@ -2,8 +2,9 @@
 registers, spills and stack (``nvcc -Xptxas -v``) and its count of chosen
 SASS instructions (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (TMA
 loads), SYNCS (mbarrier operations), HMMA (mma.sync), LDL/STL (local
-memory, where spills go), and global loads split by width: LDG.128 (16
-bytes a thread) against LDG<128 (narrower).
+memory, where spills go), LDGSTS (cp.async copies into shared memory),
+and global loads split by width: LDG.128 (16 bytes a thread) against
+LDG<128 (narrower).
 
     python3 -m parameter_server_tpu_torch.benchmarks.kernel_report [NAME ...] [--require-regs PART=N ...]
         [--require-wide PART ...] [--define MACRO ...]
@@ -36,7 +37,7 @@ import tempfile
 from .. import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-MNEMONICS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDL", "STL", "LDG.128", "LDG<128")
+MNEMONICS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDL", "STL", "LDGSTS", "LDG.128", "LDG<128")
 _OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)")
 
 

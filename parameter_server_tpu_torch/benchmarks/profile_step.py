@@ -22,8 +22,9 @@ layers, batch 4 x 8192 tokens, bf16, remat, ``ring_flash``) after a
 warm-up step, and splits its device time by kernel kind (``flash_fwd``,
 ``flash_bwd_dq``, ``flash_bwd_dkv``, matrix products, copies and casts,
 the other elementwise kernels) with the launches of each. Prints device
-time by kernel and the device's busy share of the traced window, and
-writes the same to
+time by kernel, the device's busy share of the traced window and the
+``torch.sort`` calls a unit (the linear step's segment sums sort on the
+card unless their ids come grouped), and writes the same to
 ``chiprun_out/profile_step_<cell>.json``.
 
     python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve|lm_train]
@@ -45,10 +46,8 @@ import torch
 from torch.autograd import DeviceType
 
 from ..apps.linear.async_sgd import AsyncSGDWorker, stack_prepped_batches
-from ..apps.linear.config import parse_conf
-from ..learner.sgd import MinibatchReader
 from ..models import transformer
-from .ctr import ctr_conf, write_ctr_shards
+from .ctr import ctr_minibatches
 from .headline import T, conf, make_batch
 from .lm_serve import SERVE_CFG, make_prompt, serve_params
 from . import lm_train
@@ -83,14 +82,7 @@ def ctr_launches():
     """Four warm-up and eight traced CTR ministeps, read as the CLI reads
     them (count-min tail filter) and prepped on the host beforehand."""
     with tempfile.TemporaryDirectory(prefix="ctr_profile_") as tmp:
-        write_ctr_shards(tmp, 1, 12 * 10_000, seed=0)
-        c = parse_conf(ctr_conf(os.path.join(tmp, "part.*"), os.path.join(tmp, "model")))
-        s = c.async_sgd
-        reader = MinibatchReader(files=c.training_data.file, minibatch_size=s.minibatch,
-                                 data_format=c.training_data.text)
-        reader.init_filter(s.countmin_n, s.countmin_k, s.tail_feature_freq)
-        with reader:
-            batches = list(reader)
+        batches, c = ctr_minibatches(tmp, 12 * 10_000, seed=0)
     worker = AsyncSGDWorker(c, device="cuda")
     prepped = [worker.prep(b, device_put=False) for b in batches]
     return worker, prepped[:4], prepped[4:], True
@@ -207,16 +199,20 @@ def main(argv=None) -> int:
             rows.append(dict(name=e.key, device_us=dev_us, count=int(e.count)))
     rows.sort(key=lambda r: -r["device_us"])
     busy_us = sum(r["device_us"] for r in rows)
+    # the segment sums' stable sorts (torch.sort calls; each launches several kernels)
+    sorts = sum(e.count for e in prof.key_averages()
+                if e.key == "aten::sort" and e.device_type == DeviceType.CPU)
     out = dict(nvidia_smi=smi, cell=args.cell, unit=unit, units=units,
                wall_ms_per_unit=wall_us / units / 1e3, device_ms_per_unit=busy_us / units / 1e3,
                wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-               device_busy_share=busy_us / wall_us if wall_us else None, kernels=rows)
+               device_busy_share=busy_us / wall_us if wall_us else None,
+               sorts_per_unit=sorts / units, kernels=rows)
     print(smi)
     if not rows:
         print("# profiler recorded no device time")
     print(f"# traced {units} {unit}s (profiler on): wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({out['device_ms_per_unit']:.3f} ms/{unit}), busy share "
-          f"{out['device_busy_share']:.3f}")
+          f"{out['device_busy_share']:.3f}, torch.sort calls {sorts / units:g}/{unit}")
     if args.cell == "lm_serve":
         out["split_us"] = split = lm_split(prof, rows)
         print(f"# whole traced call (prefill + {units} decode steps), device time by kernel kind: "

@@ -5,9 +5,9 @@ Counterpart of ``quantize_jax`` and ``dequantize_jax`` in
 normalized by its own ``[lo, hi]``, stochastically rounded to
 ``2^(8b) - 1`` levels and stored in ``b`` bytes (uint8 or uint16).
 :func:`quantize_range` and :func:`quantize_codes` are the plain PyTorch
-version of ``ops/quantize.py``, which reduces the range the same way
-and launches the CUDA kernel ``quantize_kernel``
-(``kernels/csrc/quantize.cu``) for the codes of CUDA tensors.
+version of ``ops/quantize.py``, whose CUDA kernel ``quantize_kernel``
+(``kernels/csrc/quantize.cu``) computes the same range and codes of a
+CUDA tensor in one launch.
 
 The noise is the TPU kernel's form, the top 24 bits of a random word
 times 2^-24, with the word taken from the counter hash
@@ -46,10 +46,18 @@ def code_dtype(num_bytes: int) -> torch.dtype:
 
 
 def quantize_range(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lo = min(x)``, ``hi = max(max(x), lo + 1e-12)`` as 0-dim float32
-    tensors beside ``x``, over the whole (unpadded) input."""
+    """``lo = min(x) + 0.0``, ``hi = max(max(x), lo + 1e-12) + 0.0`` as
+    0-dim float32 tensors beside ``x``, over the whole (unpadded) input.
+
+    The ``+ 0.0`` makes the bits independent of the reduction's order:
+    ``aminmax`` keeps the second operand of a tie, so the sign of a zero
+    min or max of an input holding both +0.0 and -0.0 depends on its
+    reduction tree; after the add a zero ``lo`` or ``hi`` is +0.0. A NaN
+    anywhere makes both NaN (the card's add returns its canonical NaN).
+    Neither changes a code or a decoded value."""
     lo, top = torch.aminmax(x)
-    return lo, torch.maximum(top, lo + 1e-12)
+    lo = lo + 0.0
+    return lo, torch.maximum(top, lo + 1e-12) + 0.0
 
 
 def quantize_noise(n: int, seed: int, device) -> torch.Tensor:

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "ftrl_sparse": {
         "ftrl_sparse_launch": [_P, _P, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _U, _P],
     },
-    "quantize": {"quantize_launch": [_P, _P, _P, _P, _I, _LL, _U, _P]},
-    "segment_sum": {"segment_sum_launch": [_P, _P, _I, _P, _I, _P]},
+    "quantize": {"quantize_launch": [_P, _LL, _I, _U, _P, _P, _P, _P, _I, _P]},
+    "segment_sum": {"segment_sum_launch": [_P, _P, _I, _P, _I, _P],
+                    "segment_sum_add_latency": [_P, _P, _P, _I, _P]},
     "flash_fwd": {"flash_fwd_launch": [_P] * 5 + _FLASH_DIMS + [_F, _I, _P]},
     "flash_bwd": {
         "flash_bwd_dq_launch": [_P] * 7 + _FLASH_DIMS + [_F, _I, _P],
@@ -118,9 +119,11 @@ def build_all() -> "dict[str, pathlib.Path]":
     return paths
 
 
-def _load(name: str, path: pathlib.Path) -> ctypes.CDLL:
+def _load(name: str, path: pathlib.Path, signatures=None) -> ctypes.CDLL:
+    """The library at ``path`` with the C signatures of ``name`` declared
+    (``signatures``: another build's, ``{function: argtypes}``)."""
     lib = ctypes.CDLL(str(path))
-    for fn_name, argtypes in _SIGNATURES[name].items():
+    for fn_name, argtypes in (signatures or _SIGNATURES[name]).items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -120,3 +120,17 @@ def test_a_refused_launch_raises_with_the_register_count():
     with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
         kernels.check(1, "flash_fwd")
     kernels.check(0, "flash_fwd")
+
+
+SEG = "_ZN12_GLOBAL__N_115segment_sum_f32EPKfPKixPfix"
+SEG_SASS = f"""
+		Function : {SEG}
+        /*0100*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ;
+        /*0110*/               @P0 LDGSTS.E.BYPASS.LTC128B.128.ZFILL [R3+0x800], desc[UR4][R6.64] ;
+        /*0120*/                   LDG.E.128.CONSTANT R8, desc[UR4][R4.64] ;
+        /*0130*/                   LDGDEPBAR ;
+"""
+
+
+def test_sass_counts_cp_async_copies_apart_from_loads():
+    assert kr.count_sass(SEG_SASS)[SEG] == NONE | {"LDGSTS": 2, "LDG.128": 1}

@@ -33,8 +33,17 @@ c): see ``FLASH_BWD_TOL`` below; two backward passes must be
 bit-identical (no atomics).
 
 Tolerance of ``segment_sum``: bit equality with the CPU, and run to run.
-Both devices order the entries by a stable sort and add each segment in
-entry order from +0.0 (``ops/segment_sum.py``).
+Both devices add each segment in entry order from +0.0 (``ops/segment_sum.py``:
+the card after a stable sort, or on ids already grouped on the presorted
+route; the CPU with ``index_add_`` on the entries as they come).
+
+Tolerance of the fused ``quantize``: ``lo``, ``hi`` and the codes bit-equal
+to ``quantize_range`` and ``quantize_codes`` on the card, on inputs whose
+min or max is a zero of both signs, with a NaN, all zeros, constant.
+
+The timer (``benchmarks/timing.py``): a host sleep before a short kernel's
+launch must not show in its reading; the timer without the spin, kept
+here, reads it.
 
 Race probes: ``flash_fwd`` built with ``FLASH_FWD_RACE_PROBE`` (and
 ``flash_bwd`` with ``FLASH_BWD_RACE_PROBE``) poisons its shared tiles with
@@ -46,12 +55,14 @@ range, every output written).
 """
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from parameter_server_tpu_torch import kernels
+from parameter_server_tpu_torch.benchmarks import ctr, segment_bytes, timing
 from parameter_server_tpu_torch.ops import flash_attention as tfa
 from parameter_server_tpu_torch.ops import ftrl as tftrl
 from parameter_server_tpu_torch.ops import ftrl_sparse as tsparse
@@ -218,6 +229,52 @@ def test_quantize_kernel_bit_equal(dev, nb, p):
     qr = tff.quantize_codes(x, lor, hir, 1234567, nb)
     torch.cuda.synchronize()
     assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+    assert float(lo) == float(lor) and float(hi) == float(hir)
+
+
+def _range_cases(p, rng):
+    """Inputs whose range needs care: a pushed gradient (zeros of both
+    signs inside it), a min or a max that is a zero of both signs, all
+    zeros of both signs, all +0.0, a NaN, a constant."""
+    x = (rng.normal(size=p) * (rng.random(p) < 0.3)).astype(np.float32)
+    pos = np.abs(x)
+    pos[(pos == 0) & (rng.random(p) < 0.5)] = -0.0
+    zeros = np.zeros(p, np.float32)
+    zeros[rng.random(p) < 0.5] = -0.0
+    nan = x.copy()
+    nan[p // 3] = np.nan
+    return {"pushed gradient": x, "min a zero of both signs": pos,
+            "max a zero of both signs": -pos, "all zeros, both signs": zeros,
+            "all +0.0": np.zeros(p, np.float32), "a NaN": nan,
+            "constant": np.full(p, 5.0, np.float32)}
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("p", [1 << 22, (1 << 22) - 3, 100])
+def test_fused_quantize_range_and_codes_bit_equal(dev, nb, p):
+    """One launch: ``lo``, ``hi`` and codes bit-equal to the plain
+    version's on the card, on every case of ``_range_cases``."""
+    for name, x in _range_cases(p, np.random.default_rng(7)).items():
+        xt = torch.from_numpy(x).to(dev)
+        before = tq.quantize.launches
+        q, lo, hi = tq.quantize(xt, 4321, nb)
+        assert tq.quantize.launches == before + 1
+        lor, hir = tff.quantize_range(xt)
+        qr = tff.quantize_codes(xt, lor, hir, 4321, nb)
+        torch.cuda.synchronize()
+        got = [int(t.view(torch.int32)) for t in (lo, hi)]
+        want = [int(t.view(torch.int32)) for t in (lor, hir)]
+        assert got == want, (name, [hex(v) for v in got], [hex(v) for v in want])
+        assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8)), name
+        if name.startswith("all zeros") or name.startswith("min a zero"):
+            assert got[0] == 0, name  # +0.0, whatever the signs' order
+
+
+def test_fused_quantize_takes_a_view_at_an_odd_offset(dev):
+    x = torch.randn(1 << 16, device=dev)[3:]
+    q, lo, hi = tq.quantize(x, 5, 1)
+    lor, hir = tff.quantize_range(x)
+    assert torch.equal(q, tff.quantize_codes(x, lor, hir, 5, 1))
     assert float(lo) == float(lor) and float(hi) == float(hir)
 
 
@@ -514,6 +571,10 @@ def _segment_case(kind, rng):
     if kind == "hot_key":  # the CTR data's frequent keys: a few segments of thousands
         ids = np.where(rng.random(200000) < 0.05, 7, rng.integers(0, 1 << 22, 200000))
         return rng.normal(size=ids.size).astype(np.float32), ids.astype(np.int32), 1 << 22
+    if kind == "ctr_hot_run":  # a CTR minibatch's shard gradient by slot: a run of > 7,000
+        _, keys, first = ctr.ctr_rows(rng, 10_000)
+        ids = (keys[first] % (1 << 22)).astype(np.int32)
+        return rng.normal(size=ids.size).astype(np.float32), ids, 1 << 22
     if kind == "mixed":  # unsorted, mixed sign and magnitude, -0.0, exact cancellations
         ids = rng.integers(0, 300, 50000).astype(np.int32)
         data = (rng.normal(size=ids.size) * 10.0 ** rng.integers(-30, 30, ids.size)).astype(np.float32)
@@ -522,17 +583,134 @@ def _segment_case(kind, rng):
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind", ["headline_rows", "hot_key", "mixed"])
+@pytest.mark.parametrize("kind", ["headline_rows", "hot_key", "ctr_hot_run", "mixed"])
 def test_segment_sum_on_the_card_equals_the_cpu(dev, kind):
     data, ids, n = _segment_case(kind, np.random.default_rng(5))
+    if kind == "ctr_hot_run":
+        assert segment_bytes.counts(torch.from_numpy(data), torch.from_numpy(ids), n)["longest"] > 7000
     want = tseg.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), n)
-    before = tseg.segment_sum.launches
-    got = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n)
-    assert tseg.segment_sum.launches == before + 1
-    again = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n)
+    routes = [False, True] if kind == "headline_rows" else [False]  # rows: grouped already
+    for presorted in routes:
+        before = tseg.segment_sum.launches
+        got = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n,
+                               presorted=presorted)
+        assert tseg.segment_sum.launches == before + 1
+        again = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n,
+                                 presorted=presorted)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got.cpu()), _bits(want)), presorted
+        assert torch.equal(_bits(again), _bits(got)), presorted
+
+
+def _grouped_case(rng, runs):
+    """Ids that meet the presorted contract, built to reach every path of
+    the kernel: runs of 1 to a few entries, of hundreds (across tiles) and
+    of thousands (streamed), ids rising with gaps; runs of zeros of an
+    earlier id (a batch's padding), all-zero segments, zeros of both
+    signs inside runs and before a run's first nonzero entry, exact
+    cancellations."""
+    ids, vals, seg = [], [], 0
+    for _ in range(runs):
+        r = rng.random()
+        if r < 0.08 and seg:  # zeros of an earlier id, in a run of their own
+            length, s, live = int(rng.integers(1, 400)), int(rng.integers(0, seg)), False
+        else:
+            length = int(rng.geometric(0.3)) if r < 0.9 else int(rng.integers(100, 600)) \
+                if r < 0.99 else int(rng.integers(1000, 9000))
+            s, live = seg, rng.random() > 0.05  # some segments hold zeros only
+            seg += int(rng.integers(1, 4))
+        v = rng.normal(size=length) * 10.0 ** rng.integers(-3, 4, length)
+        v[rng.random(length) < 0.15] = 0.0
+        v[rng.random(length) < 0.05] = -0.0
+        if length > 3 and rng.random() < 0.1:
+            v[-2:] = [v[0], -v[0]]  # a sum that cancels
+        ids += [s] * length
+        vals += list(v if live else np.where(rng.random(length) < 0.5, 0.0, -0.0))
+    return np.asarray(vals, np.float32), np.asarray(ids, np.int32), seg + 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_presorted_route_on_the_card_equals_the_cpu(dev, seed):
+    """The presorted route (no sort) on grouped ids: the kernel's sums
+    equal the CPU's ``index_add_`` bit for bit, run to run, at lengths
+    that leave a ragged tile, and from offsets (views the wrapper copies
+    to 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    data, ids, n = _grouped_case(rng, 20_000)
+    for lo in (0, 1, 3):
+        d, i = torch.from_numpy(data[lo:]), torch.from_numpy(ids[lo:])
+        want = tseg.segment_sum(d, i, n)
+        got = tseg.segment_sum(d.to(dev), i.to(dev), n, presorted=True)
+        again = tseg.segment_sum(d.to(dev), i.to(dev), n, presorted=True)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got.cpu()), _bits(want)), lo
+        assert torch.equal(_bits(again), _bits(got)), lo
+        sorted_route = tseg.segment_sum(d.to(dev), i.to(dev), n)
+        assert torch.equal(_bits(sorted_route.cpu()), _bits(want)), lo
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 127, 128, 129, 255, 256, 257, 1000, 4096, 100_003])
+def test_segment_sum_at_small_and_ragged_lengths(dev, m):
+    """One segment of m entries, and m segments of one: the kernel's ends
+    of tiles, chunks and data."""
+    rng = np.random.default_rng(m)
+    data = rng.normal(size=m).astype(np.float32)
+    for ids, n in ((np.zeros(m, np.int32), 1), (np.arange(m, dtype=np.int32), m)):
+        want = tseg.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), n)
+        for presorted in (False, True):
+            got = tseg.segment_sum(torch.from_numpy(data).to(dev), torch.from_numpy(ids).to(dev), n,
+                                   presorted=presorted)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got.cpu()), _bits(want)), (n, presorted)
+
+
+def test_add_latency_probe(dev):
+    lat = segment_bytes.add_latency(1 << 16)
+    print(f"# dependent f32 add: {lat}")
+    assert 1.0 <= lat["cycles_per_add"] <= 64 and 0.3 <= lat["ns_per_add"] <= 64
+
+
+def _timer_without_spin(fn, reps=timing.REPS):
+    """The timer before the spin: flush, start event, fn, end event."""
+    fn()
     torch.cuda.synchronize()
-    assert torch.equal(_bits(got.cpu()), _bits(want))
-    assert torch.equal(_bits(again), _bits(got))
+    times = []
+    for _ in range(reps):
+        timing.flush_l2()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def test_timer_keeps_a_host_delay_out(dev):
+    """A short kernel (the fused quantize at P 2^22) timed plainly and with
+    a 300 us host sleep before each launch, shorter than the spin (the
+    spin is sized from the host's time of the call, sleep included): the
+    shared timer's two readings agree within the plain readings' spread;
+    the timer without the spin reads the delay."""
+    x = torch.randn(1 << 22, device=dev)
+    delay_s = 300e-6
+
+    def fn():
+        tq.quantize(x, 5, 1)
+
+    def delayed():
+        time.sleep(delay_s)
+        fn()
+
+    plain = timing.times_ms(fn)
+    with_spin = timing.times_ms(delayed)
+    no_spin = _timer_without_spin(delayed)
+    med = [float(np.median(t)) for t in (plain, with_spin, no_spin)]
+    print(f"# timer probe, {delay_s * 1e6:.0f} us host delay: plain median {med[0]:.4f} ms "
+          f"(spread {min(plain):.4f}-{max(plain):.4f}), delayed {med[1]:.4f} ms, delayed without "
+          f"the spin {med[2]:.4f} ms")
+    assert min(plain) <= med[1] <= max(plain)
+    assert med[2] > max(plain) + 0.1
 
 
 @pytest.mark.parametrize("update", ["sparse", "dense"])

@@ -160,3 +160,60 @@ def test_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tq.quantize(torch.zeros(8, device="meta"), 0)
     assert tq.quantize.launches == 0
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cpu_route_is_the_plain_version_as_before(nb, seed):
+    """The wrapper's CPU route: ``quantize_range`` then ``quantize_codes``,
+    with the bits the route had before the range's ``+ 0.0`` (which moves
+    only a zero ``lo`` or ``hi`` of negative sign): the range from
+    ``aminmax`` and ``maximum`` alone, on a pushed gradient that holds
+    zeros of both signs."""
+    x = torch.from_numpy(_x(10 + seed))
+    q, lo, hi = tq.quantize(x, 99, nb)
+    lo0, top = torch.aminmax(x)
+    hi0 = torch.maximum(top, lo0 + 1e-12)
+    assert bool(torch.signbit(x[x == 0]).any()) and not bool(torch.signbit(x[x == 0]).all())
+    assert lo.view(torch.int32) == lo0.view(torch.int32)
+    assert hi.view(torch.int32) == hi0.view(torch.int32)
+    assert torch.equal(q, tff.quantize_codes(x, lo0, hi0, 99, nb))
+
+
+def _zeros_of_both_signs(n, rng):
+    z = np.zeros(n, np.float32)
+    z[rng.random(n) < 0.5] = -0.0
+    return z
+
+
+@pytest.mark.parametrize("perm_seed", [0, 1, 2])
+def test_quantize_range_pins_the_bits_of_signed_zeros_and_nan(perm_seed):
+    """A zero ``lo`` or ``hi`` is +0.0 in every order of the input (aminmax
+    alone keeps whichever zero its reduction tree meets last); a NaN
+    makes both NaN. The codes are the same for either sign of a zero."""
+    rng = np.random.default_rng(perm_seed)
+    n = 5000
+    nonneg = np.abs(_x(20, n=n))
+    nonneg[(nonneg == 0) & (rng.random(n) < 0.5)] = -0.0
+    cases = {"min a zero": nonneg, "max a zero": -nonneg, "all zeros": _zeros_of_both_signs(n, rng),
+             "all -0.0": np.full(n, -0.0, np.float32)}
+    tiny = np.float32(1e-12).view(np.int32)
+    want = {"min a zero": (0, None), "max a zero": (None, 0), "all zeros": (0, tiny),
+            "all -0.0": (0, tiny)}
+    for name, x in cases.items():
+        xt = torch.from_numpy(x[rng.permutation(n)])
+        lo, hi = tff.quantize_range(xt)
+        for got, w in zip((lo, hi), want[name]):
+            if w is not None:
+                assert int(got.view(torch.int32)) == w, name
+        for sign in (0.0, -0.0):
+            zero = torch.tensor(sign)
+            if name == "min a zero":
+                assert torch.equal(tff.quantize_codes(xt, zero, hi, 3, 1),
+                                   tff.quantize_codes(xt, lo, hi, 3, 1))
+    x = _x(21, n=n)
+    x[1234] = np.nan
+    lo, hi = tff.quantize_range(torch.from_numpy(x))
+    assert bool(torch.isnan(lo)) and bool(torch.isnan(hi))
+    q, _, _ = tq.quantize(torch.from_numpy(x), 3, 1)
+    assert int(q.max()) == 0  # the quotient is NaN everywhere: every code is 0

@@ -16,6 +16,12 @@ why:
   in another order: each segment within the bound of two recursive
   float32 sums of its ``m`` entries in any order, ``2 (m - 1) 2^-24
   sum |x|``.
+
+The presorted route (ids already grouped, no sort on the card) has its
+own plain version, ``segment_sum_runs_ref``: bit-equal to ``index_add_``
+on every input that meets its contract (each segment's nonzero entries in
+one run of equal ids), and the contract holds on the ids the linear step
+hands it, from batches of both prep functions.
 """
 
 import jax
@@ -24,7 +30,11 @@ import numpy as np
 import pytest
 import torch
 
+from parameter_server_tpu_torch.apps.linear.async_sgd import prep_batch_hashed, prep_batch_shared
 from parameter_server_tpu_torch.ops import segment_sum as ss
+from parameter_server_tpu_torch.ops.kv_ops import localize
+from parameter_server_tpu_torch.parameter.parameter import KeyDirectory
+from parameter_server_tpu_torch.utils.sparse import random_sparse
 
 U = 2.0 ** -24  # float32 unit roundoff
 
@@ -160,3 +170,119 @@ def test_cuda_kernel_wrapper_refuses_cpu_tensors():
     CUDA tensors or raises (no quiet fallback)."""
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ss.launch_kernel(torch.zeros(4), torch.zeros(4, dtype=torch.int32), 2)
+
+
+# -- the presorted route: ids already grouped --
+
+
+def _grouped(kind: str, seed: int):
+    """``(data float32 [m], ids int32 [m], num_segments)`` that meet the
+    presorted contract."""
+    rng = np.random.default_rng(seed)
+    if kind == "csr_rows_padded":  # Xw by row: CSR rows, the padding (row 0, value 0) last
+        n, live, pad = 64, 900, 300
+        ids = np.concatenate([np.sort(rng.integers(0, n, live)), np.zeros(pad, np.int64)])
+        data = np.concatenate([rng.normal(size=live), np.zeros(pad)])
+        data[rng.random(data.size) < 0.1] = 0.0  # a zero weight inside a row
+        return data.astype(np.float32), ids.astype(np.int32), n
+    if kind == "nonzeros_after_zeros_of_another_id":
+        # segment 2's only nonzero entries follow a run of zeros of segment
+        # 0; segment 1 holds a zero only
+        data = np.array([1.0, 2.0, 0.0, -0.0, 0.0, 4.0, 8.0, 0.0, 16.0], np.float32)
+        ids = np.array([0, 0, 1, 0, 0, 2, 2, 2, 2], np.int32)
+        return data, ids, 3
+    if kind == "all_zero_segment":  # segment 1 holds zeros of both signs only
+        data = np.array([3.0, -1.0, 0.0, -0.0, -0.0, 5.0, 0.0], np.float32)
+        ids = np.array([0, 0, 1, 1, 1, 2, 0], np.int32)
+        return data, ids, 3
+    if kind == "zeros_before_the_first_nonzero":
+        data = np.array([-0.0, 0.0, 7.0, 1.5, 0.0, -2.0, 0.0], np.float32)
+        ids = np.array([4, 4, 4, 4, 4, 5, 5], np.int32)
+        return data, ids, 6
+    if kind == "one_entry_a_slot_padding_at_0":  # the exact dense step's shard gradient
+        n, live, pad = 500, 120, 80
+        ids = np.concatenate([np.sort(rng.choice(n, live, replace=False)), np.zeros(pad, np.int64)])
+        data = np.concatenate([rng.normal(size=live), np.zeros(pad)])
+        return data.astype(np.float32), ids.astype(np.int32), n
+    raise ValueError(kind)
+
+
+GROUPED = ["csr_rows_padded", "nonzeros_after_zeros_of_another_id", "all_zero_segment",
+           "zeros_before_the_first_nonzero", "one_entry_a_slot_padding_at_0"]
+
+
+def _meets_contract(data, ids) -> bool:
+    """Each segment's nonzero entries lie in one run of equal ids."""
+    data, ids = np.asarray(data), np.asarray(ids)
+    run = np.cumsum(np.r_[True, ids[1:] != ids[:-1]])
+    nz = data != 0
+    pairs = np.unique(np.stack([ids[nz], run[nz]]), axis=1)
+    return np.unique(pairs[0]).size == pairs.shape[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", GROUPED)
+def test_runs_plain_version_equals_index_add_bit_for_bit(kind, seed):
+    data, ids, n = _grouped(kind, seed)
+    assert _meets_contract(data, ids)
+    got = ss.segment_sum_runs_ref(torch.from_numpy(data), torch.from_numpy(ids), n)
+    want = torch.zeros(n).index_add_(0, torch.from_numpy(ids).long(), torch.from_numpy(data))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    cpu = ss.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), n, presorted=True)
+    np.testing.assert_array_equal(_bits(cpu.numpy()), _bits(want.numpy()))
+
+
+def test_runs_plain_version_writes_no_run_of_zeros():
+    """Row 0's sum survives the padding's run of zeros at row 0."""
+    data = torch.tensor([2.0, 3.0, 1.0, 0.0, -0.0, 0.0])
+    ids = torch.tensor([0, 0, 1, 0, 0, 0], dtype=torch.int32)
+    assert ss.segment_sum_runs_ref(data, ids, 2).tolist() == [5.0, 1.0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", GROUPED)
+def test_runs_route_within_float32_reordering_of_jax_segment_sum(kind, seed):
+    data, ids, n = _grouped(kind, seed)
+    got = ss.segment_sum_runs_ref(torch.from_numpy(data), torch.from_numpy(ids), n).numpy()
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), num_segments=n))
+    count = np.bincount(ids, minlength=n)
+    abs_sum = np.zeros(n, np.float64)
+    np.add.at(abs_sum, ids, np.abs(data.astype(np.float64)))
+    bound = 2 * np.maximum(count - 1, 0) * U * abs_sum
+    assert np.all(np.abs(got.astype(np.float64) - want.astype(np.float64)) <= bound)
+
+
+def test_contract_check_catches_a_split_segment():
+    assert not _meets_contract([1.0, 2.0, 3.0], [0, 1, 0])
+    assert _meets_contract([1.0, 0.0, 3.0], [0, 1, 1])
+    assert _meets_contract([1.0, 2.0, 0.0], [0, 1, 0])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prepped_batches_meet_the_presorted_contract(seed):
+    """The ids the linear step hands the presorted route, from small
+    batches of both prep functions: Xw by row (exact and hashed steps) and
+    the exact dense step's shard gradient by slot, its padding moved to
+    slot 0. Values are drawn nonzero wherever the step's can be."""
+    rng = np.random.default_rng(seed)
+    rows_pad, slots = 64, 1 << 10
+    batch = random_sparse(50, 4000, 7, seed=seed, binary=bool(seed % 2))
+    nnz_pad = 4 * 1024
+    directory = KeyDirectory(slots, hashed=True)
+    pb = prep_batch_shared(batch, directory, 1, rows_pad, nnz_pad, nnz_pad, slots)
+    hb = prep_batch_hashed(batch, directory, 1, rows_pad, nnz_pad, slots)
+    weights = rng.normal(size=nnz_pad).astype(np.float32)
+    for rows, vals in ((pb.rows[0], pb.vals[0]), (hb.rows[0], hb.vals[0])):
+        data = vals * weights
+        assert _meets_contract(data, rows)
+        got = ss.segment_sum_runs_ref(torch.from_numpy(data), torch.from_numpy(rows), rows_pad)
+        want = torch.zeros(rows_pad).index_add_(0, torch.from_numpy(rows).long(),
+                                                torch.from_numpy(data))
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    rel, ok = localize(torch.from_numpy(pb.uslots[0]), slots)
+    g_push = torch.where(ok, torch.from_numpy(weights[: rel.numel()]), 0.0)
+    ids = torch.where(ok, rel, 0)
+    assert _meets_contract(g_push.numpy(), ids.numpy())
+    got = ss.segment_sum_runs_ref(g_push, ids, slots)
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(torch.zeros(slots).index_add_(0, rel.long(), g_push).numpy()))
