@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``parameter_server_tpu_torch/kernels/csrc``
-   (one library a source, all compiled at once) into ``build/torch_kernels/``;
+   (one library a source, all compiled at once) into ``build/torch_kernels/``,
+   and the native host library (``native/psnative.cc``, g++) into
+   ``build/psnative/``;
 3. kernel parity: each FTRL and quantize kernel against its plain PyTorch version on the
    card, bit for bit (the kernels are built with ``--fmad=false``), at the
    main paths' shapes, with CUDA-event times (``benchmarks/timing.py``:
@@ -36,7 +38,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ministeps of each configuration are held against the same worker on
    the CPU (and run twice on the card: the two must leave bit-identical
    state), every segment sum of the path launched as the kernel,
-   and ``evaluate`` answers a held-out batch;
+   and ``evaluate`` answers a held-out batch. Then the headline worker's
+   ``train`` twice on the same batches, a warm-up launch and 8 timed
+   launches each, serial and pipelined (feeder, ordered prep pool,
+   ``DeviceUploader`` on a side stream): the same state bits and
+   objectives, pinned staging buffers, the copies on a stream other than
+   the steps'; wall-clock ex/s, prep summed over workers, the copies'
+   and the steps' CUDA-event times;
 5. CTR path: ``configs/ctr/online_l1lr.conf`` through the port's CLI
    (``parameter_server_tpu_torch.apps.linear.main``) on generated
    SPARSE_BINARY shards, with only its data files and model output
@@ -46,7 +54,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    tail filter, the conf's 10 passes. Its first ministeps are held
    against the same CLI run on the CPU (objectives, pushed codes and
    weights); then a few ministeps with a FIXING_FLOAT pull filter added
-   (two quantize launches per ministep);
+   (two quantize launches per ministep). Then ``configs/criteo/online_l1lr.conf``
+   through the CLI on 4 generated Criteo shards of 50,000 rows
+   (``benchmarks/criteo.py``), one pass: the native library parses on the
+   reader's byte path, the tail filter runs on its feeder, the masked
+   dense kernel and two segment sums a ministep; its objectives equal,
+   bit for bit, those of the same CLI run with the Python parser. Each CLI
+   run's host stages are timed on the threads they run on (parse, tail
+   filter, prep, the wait on the reader) with CUDA events for the upload
+   and the step;
 6. LM serving (``benchmarks/lm_serve.py``: the ``doc/SERVING.md`` config,
    d_model 512, 8 heads of dim 64, 2 KV heads, 8 layers, d_ff 2048, bf16,
    int8 KV cache, random weights from the seed): the ``flash_fwd``
@@ -100,9 +116,11 @@ import io
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -119,6 +137,8 @@ from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
     stack_prepped_batches,
 )
+from parameter_server_tpu_torch import native  # noqa: E402
+from parameter_server_tpu_torch.benchmarks.criteo import criteo_conf, write_criteo_shards  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     ALPHA,
@@ -137,6 +157,8 @@ from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
+from parameter_server_tpu_torch.data import text_parser  # noqa: E402
+from parameter_server_tpu_torch.learner import sgd as sgd_mod  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
 from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -144,6 +166,7 @@ from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: 
 from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
 
 BIG_SLOTS = 1 << 26  # the real-data table of bench.py --real
+PIPE_LAUNCHES = 8  # timed launches of T minibatches, serial and pipelined
 FTRL_KW = dict(alpha=ALPHA, beta=BETA, l1=L1, l2=0.0)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -381,6 +404,57 @@ def headline(batches, timed: int) -> dict:
     )
 
 
+def pipelined_headline(batches) -> dict:
+    """The headline worker's ``train`` over the same batches, serial then
+    pipelined: a warm-up launch, then PIPE_LAUNCHES timed launches of T
+    minibatches. Both must leave the same state bits; the pipelined
+    upload must stage through pinned memory and copy on a stream other
+    than the step's."""
+    runs, states = {}, {}
+    for pipelined in (False, True):
+        with timed_host() as rec:
+            worker = AsyncSGDWorker(conf("sparse"), device="cuda")
+            worker.train(batches[:T], pipelined=pipelined)
+            warm = host_times(rec)
+            for key in ("prep_s", "step_host_s"):
+                rec[key] = 0.0
+            rec["ministeps"], rec["steps"] = 0, []
+            worker.staging.copy_times = []
+            reset_counts()
+            t0 = time.perf_counter()
+            worker.train(batches[T:T * (PIPE_LAUNCHES + 1)], pipelined=pipelined)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = counts()
+        n = rec["ministeps"]
+        check(n == PIPE_LAUNCHES * T and got == (n, 0, 0, 2 * n),
+              f"pipelined={pipelined}: {n} ministeps, launch counts {got}")
+        times = host_times(rec)
+        states[pipelined] = {k: bits(v).clone() for k, v in worker.state.items()}
+        buffers = [b for b in worker.staging.buffers if b is not None]
+        check(buffers and all(b.is_pinned() for b in buffers),
+              f"pipelined={pipelined}: staging buffers not pinned")
+        if pipelined:
+            check(times["copy_streams"] == {worker.upload_stream.cuda_stream}
+                  and not times["copy_streams"] & times["step_streams"],
+                  f"pipelined uploads on streams {times['copy_streams']}, steps on "
+                  f"{times['step_streams']}")
+        runs["pipelined" if pipelined else "serial"] = dict(
+            workers=worker.ingest_workers() if pipelined else 0, ministeps=n,
+            examples_per_s=n * MB / wall, wall_s=wall,
+            prep_ms_per_ministep=rec["prep_s"] / n * 1e3,
+            upload_ms_per_ministep=times["upload_s"] / n * 1e3,
+            step_ms_per_ministep=times["step_s"] / n * 1e3,
+            warm_step_ms=warm["step_s"] * 1e3 / T,
+            objective=list(worker.progress.objective))
+    for k in states[False]:
+        check(torch.equal(states[False][k], states[True][k]),
+              f"pipelined train: {k} differs from the serial train")
+    check(runs["serial"]["objective"] == runs["pipelined"]["objective"],
+          "pipelined train: objectives differ from the serial train")
+    return dict(cpu_count=os.cpu_count(), bit_identical=True, **runs)
+
+
 def side_path(update: str, dtype: str, batches) -> dict:
     """8 ministeps of a second configuration, counted on their own."""
     worker = AsyncSGDWorker(conf(update, dtype), device="cuda")
@@ -545,66 +619,92 @@ def segment_case(name: str, data, ids, n: int, presorted: bool, ns_per_add: floa
 # -- phase 5: the CTR conf through the CLI --
 
 CTR_SHARDS, CTR_ROWS = 3, 30_000  # 9 minibatches of 10000 rows a pass
+CRITEO_SHARDS, CRITEO_ROWS = 4, 50_000  # 20 minibatches of 10000 rows, one pass
 AGREE_ROWS = 70_000  # 7 ministeps: the last 3 pull a learned snapshot (τ = 4)
 PULL_FILTER = "  pull_filter {\n    type: FIXING_FLOAT\n    num_bytes: 1\n  }\n"
 
 
 @contextlib.contextmanager
-def timed_cli():
-    """Times the phases of a CLI run by wrapping the reader and worker
-    methods it calls (host clock; upload and step end in a synchronize,
-    so each holds its device work). Yields the record it fills."""
-    rec = dict(parse_s=0.0, prep_s=0.0, upload_s=0.0, step_s=0.0, ministeps=0,
-               examples=[], worker=None, slots=[])
-    orig = dict(read=MinibatchReader.read, init=AsyncSGDWorker.__init__,
-                prep=AsyncSGDWorker.prep, upload=AsyncSGDWorker.upload,
-                submit=AsyncSGDWorker.submit)
-    sync = torch.cuda.synchronize
+def timed_host():
+    """Times the host side of every worker made inside, on whichever
+    thread each stage runs, by wrapping the functions the readers and
+    workers call: parse (``ExampleParser``, on the byte path's pool),
+    tail filter (on the reader's feeder), prep (on the caller or the
+    prep pool), each summed over threads on the host clock; the
+    consumer's waits on the reader; and, from CUDA events, each upload's
+    copy (on its stream) and each step (on the dispatch thread's stream).
+    Yields the record it fills; :func:`host_times` reads it after the run."""
+    rec = dict(parse_s=0.0, filter_s=0.0, prep_s=0.0, read_wait_s=0.0, step_host_s=0.0,
+               ministeps=0, examples=[], slots=[], workers=[], steps=[])
+    lock = threading.Lock()
+    orig = dict(parse_text=text_parser.ExampleParser.parse_text,
+                parse_lines=text_parser.ExampleParser.parse_lines,
+                apply_tail_filter=sgd_mod.apply_tail_filter, read=MinibatchReader.read,
+                init=AsyncSGDWorker.__init__, prep=AsyncSGDWorker.prep,
+                submit=AsyncSGDWorker._submit_prepped, get_step=AsyncSGDWorker._get_step)
 
-    def read(self):
-        t0 = time.perf_counter()
-        out = orig["read"](self)
-        rec["parse_s"] += time.perf_counter() - t0
-        return out
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    rec[key] += time.perf_counter() - t0
+        return wrapper
 
     def init(self, *a, **k):
         orig["init"](self, *a, **k)
-        rec["worker"] = self
-
-    def prep(self, batch, device_put=True):
-        t0 = time.perf_counter()
-        out = orig["prep"](self, batch, device_put)
-        rec["prep_s"] += time.perf_counter() - t0
-        return out
-
-    def upload(self, prepped):
-        t0 = time.perf_counter()
-        out = orig["upload"](self, prepped)
-        sync()
-        rec["upload_s"] += time.perf_counter() - t0
-        return out
+        if self.staging is not None:
+            self.staging.copy_times = []
+        rec["workers"].append(self)
 
     def submit(self, prepped, with_aux=True):
         rec["examples"].append(prepped.num_examples)
-        rec["slots"].append(prepped.slots)
-        up0, t0 = rec["upload_s"], time.perf_counter()
-        out = orig["submit"](self, prepped, with_aux)
-        sync()
-        rec["step_s"] += time.perf_counter() - t0 - (rec["upload_s"] - up0)
-        rec["ministeps"] += 1
-        return out
+        if isinstance(prepped, async_sgd.HashedBatch):
+            rec["slots"].append(prepped.slots)
+        rec["ministeps"] += prepped.steps if isinstance(prepped, async_sgd.PreppedSuperBatch) else 1
+        return orig["submit"](self, prepped, with_aux)
 
-    patches = [(MinibatchReader, "read", read), (AsyncSGDWorker, "__init__", init),
-               (AsyncSGDWorker, "prep", prep), (AsyncSGDWorker, "upload", upload),
-               (AsyncSGDWorker, "submit", submit)]
-    for cls, name, fn in patches:
-        setattr(cls, name, fn)
+    def get_step(self, prepped, with_aux):
+        step = orig["get_step"](self, prepped, with_aux)
+        if self.device.type != "cuda":
+            return timed("step_host_s", step)
+
+        def timed_step(*a):
+            stream = torch.cuda.current_stream(self.device)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record(stream)
+            out = step(*a)
+            t1.record(stream)
+            rec["steps"].append((stream, t0, t1))
+            return out
+        return timed_step
+
+    patches = [(text_parser.ExampleParser, "parse_text", timed("parse_s", orig["parse_text"])),
+               (text_parser.ExampleParser, "parse_lines", timed("parse_s", orig["parse_lines"])),
+               (sgd_mod, "apply_tail_filter", timed("filter_s", orig["apply_tail_filter"])),
+               (MinibatchReader, "read", timed("read_wait_s", orig["read"])),
+               (AsyncSGDWorker, "__init__", init), (AsyncSGDWorker, "prep", timed("prep_s", orig["prep"])),
+               (AsyncSGDWorker, "_submit_prepped", submit), (AsyncSGDWorker, "_get_step", get_step)]
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
     try:
         yield rec
     finally:
-        MinibatchReader.read = orig["read"]
-        for name in ("init", "prep", "upload", "submit"):
-            setattr(AsyncSGDWorker, "__init__" if name == "init" else name, orig[name])
+        for (owner, name, _), key in zip(patches, orig):
+            setattr(owner, name, orig[key])
+
+
+def host_times(rec: dict) -> dict:
+    """The record's upload and step seconds from their events (after a
+    synchronize), and the streams they ran on."""
+    torch.cuda.synchronize()
+    copies = [c for w in rec["workers"] if w.staging is not None for c in w.staging.copy_times]
+    return dict(upload_s=sum(a.elapsed_time(b) for _, a, b in copies) / 1e3,
+                step_s=sum(a.elapsed_time(b) for _, a, b in rec["steps"]) / 1e3 + rec["step_host_s"],
+                copy_streams={s.cuda_stream for s, _, _ in copies},
+                step_streams={s.cuda_stream for s, _, _ in rec["steps"]})
 
 
 @contextlib.contextmanager
@@ -627,20 +727,37 @@ def recorded_wire():
         async_sgd.qops = qops
 
 
-def run_cli(conf_text: str, path: str, device: str) -> dict:
-    """The port's CLI on a conf, as a user runs it; returns the timed record."""
+def run_cli(conf_text: str, path: str, device: str, seed: int = 0) -> dict:
+    """The port's CLI on a conf, as a user runs it (Python's ``random``,
+    which orders the workload pool's files, seeded first); returns the
+    timed record."""
     with open(path, "w") as f:
         f.write(conf_text)
-    with timed_cli() as rec:
+    random.seed(seed)
+    with timed_host() as rec:
         t0 = time.perf_counter()
         rc = linear_main.main([path], device=device)
         rec["wall_s"] = time.perf_counter() - t0
     check(rc == 0, f"CLI on {path} ({device}) exited {rc}")
-    w = rec["worker"]
+    if device == "cuda":
+        rec.update(host_times(rec))
+    else:
+        rec.update(upload_s=0.0, step_s=rec["step_host_s"])
+    (w,) = rec.pop("workers")
+    rec["worker"] = w
     rec["objective"] = [o / e for o, e in zip(w.progress.objective, rec["examples"])]
     check(len(rec["objective"]) == rec["ministeps"] > 0 and all(np.isfinite(rec["objective"])),
           f"CLI on {path} ({device}): objective {rec['objective']}")
     return rec
+
+
+def per_ministep(rec: dict) -> dict:
+    """The host-side stages' ms a ministep (parse, filter and prep summed
+    over threads; the consumer's waits on the reader; upload and step
+    from CUDA events)."""
+    n = rec["ministeps"]
+    return {f"{k}_ms_per_ministep": rec[f"{k}_s"] / n * 1e3
+            for k in ("parse", "filter", "prep", "read_wait", "upload", "step")}
 
 
 def model_nonzeros(path: str) -> int:
@@ -682,13 +799,61 @@ def ctr_path(tmp: str, seed: int) -> dict:
     return dict(
         passes=worker.sgd.num_data_pass, ministeps=n, examples=examples, sparse_launches=sparse_n,
         dense_launches=dense_n, quantize_launches=quant_n, segment_launches=seg_n,
-        touched_frac=touched,
-        parse_ms_per_ministep=rec["parse_s"] / n * 1e3, prep_ms_per_ministep=rec["prep_s"] / n * 1e3,
-        upload_ms_per_ministep=rec["upload_s"] / n * 1e3, step_ms_per_ministep=rec["step_s"] / n * 1e3,
+        touched_frac=touched, **per_ministep(rec),
         wall_s=rec["wall_s"], examples_per_s_e2e=examples / rec["wall_s"],
         objective_first=rec["objective"][0], objective_last=rec["objective"][-1],
         model_nonzeros=model_nonzeros(model + "_S0"), num_slots=worker.num_slots,
     )
+
+
+@contextlib.contextmanager
+def python_parsing():
+    """Every ``ExampleParser`` made inside takes the Python parser
+    (``use_native=False``)."""
+    init = text_parser.ExampleParser.__init__
+
+    def python_init(self, format_="libsvm", use_native=True):
+        init(self, format_, use_native=False)
+
+    text_parser.ExampleParser.__init__ = python_init
+    try:
+        yield
+    finally:
+        text_parser.ExampleParser.__init__ = init
+
+
+def criteo_path(tmp: str, seed: int) -> dict:
+    """The Criteo conf through the CLI on the card, on generated Criteo
+    text parsed by the native library on the reader's feeder (one pass,
+    every ministep counted), then the same CLI run with the Python
+    parser: the same batches, so the same objectives, bit for bit."""
+    data = os.path.join(tmp, "criteo")
+    write_criteo_shards(data, CRITEO_SHARDS, CRITEO_ROWS, seed)
+    runs = {}
+    for parser in ("native", "python"):
+        model = os.path.join(tmp, f"criteo_{parser}")
+        text = criteo_conf(os.path.join(data, "part.*"), model)
+        reset_counts()
+        with python_parsing() if parser == "python" else contextlib.nullcontext():
+            runs[parser] = rec = run_cli(text, os.path.join(tmp, f"criteo_{parser}.conf"), "cuda", seed)
+        got, n = counts(), rec["ministeps"]
+        check(got == (0, n, 0, 2 * n), f"Criteo ({parser} parse) launch counts {got}, want 0/{n}/0/{2 * n}")
+    rec, worker = runs["native"], runs["native"]["worker"]
+    check(worker.update_path == "cuda_dense" and worker.sgd.max_delay == 4
+          and worker.num_slots == 1 << 22 and worker.sgd.tail_feature_freq == 4,
+          f"Criteo worker: {worker.update_path}, max_delay {worker.sgd.max_delay}, "
+          f"slots {worker.num_slots}")
+    check(rec["objective"] == runs["python"]["objective"],
+          f"Criteo objectives, native parse {rec['objective']} vs Python parse "
+          f"{runs['python']['objective']}")
+    n = rec["ministeps"]
+    examples = sum(rec["examples"])
+    return dict(shards=CRITEO_SHARDS, rows=CRITEO_ROWS, ministeps=n, examples=examples,
+                dense_launches=n, segment_launches=2 * n, **per_ministep(rec),
+                wall_s=rec["wall_s"], examples_per_s_e2e=examples / rec["wall_s"],
+                python_parse=dict(**per_ministep(runs["python"]), wall_s=runs["python"]["wall_s"]),
+                objective=rec["objective"], model_nonzeros=model_nonzeros(
+                    os.path.join(tmp, "criteo_native_S0")))
 
 
 def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
@@ -1249,6 +1414,11 @@ def main() -> int:
     build_s = time.perf_counter() - t_build
     print(f"# build: {len(built)} CUDA kernel libraries in {build_s:.1f} s "
           f"-> {kernels.BUILD_DIR}", flush=True)
+    t_native = time.perf_counter()
+    native.library()
+    native_s = time.perf_counter() - t_native
+    print(f"# build: the native host library in {native_s:.1f} s -> {native.library_path()}",
+          flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -1319,6 +1489,17 @@ def main() -> int:
           f"{head['examples_per_s_step']:.0f} ex/s step, {head['examples_per_s_e2e']:.0f} ex/s with prep; "
           f"logloss per launch {['%.5f' % x for x in head['logloss_per_launch']]}; "
           f"evaluate {head['evaluate']}", flush=True)
+    batches += [make_batch(args.seed + i) for i in range(len(batches), T * (PIPE_LAUNCHES + 1))]
+    pipe = pipelined_headline(batches)
+    ser, par = pipe["serial"], pipe["pipelined"]
+    print(f"# pipelined headline (card's own numbers, {smi}): host os.cpu_count() {pipe['cpu_count']}, "
+          f"{par['workers']} prep workers; {PIPE_LAUNCHES} launches of T={T} after a warm-up; serial / "
+          f"pipelined: {ser['examples_per_s']:.0f} / {par['examples_per_s']:.0f} ex/s wall-clock; prep "
+          f"{ser['prep_ms_per_ministep']:.3f} / {par['prep_ms_per_ministep']:.3f} ms a ministep "
+          f"(summed over workers); upload {ser['upload_ms_per_ministep']:.3f} / "
+          f"{par['upload_ms_per_ministep']:.3f} ms (events on the copy's stream: the step's / a side "
+          f"stream, pinned); device step {ser['step_ms_per_ministep']:.3f} / "
+          f"{par['step_ms_per_ministep']:.3f} ms; z and sqrt_n bits identical", flush=True)
     dense = side_path("dense", "float32", batches)
     bf16 = side_path("sparse", "bfloat16", batches)
     print(f"# dense path: {dense['dense_launches']} dense launches, "
@@ -1331,13 +1512,27 @@ def main() -> int:
         print(f"# CTR conf via CLI (card's own numbers, {smi}): {ctr['ministeps']} ministeps "
               f"({ctr['passes']} passes), launches quantize {ctr['quantize_launches']}, masked dense "
               f"FTRL {ctr['dense_launches']}, sparse {ctr['sparse_launches']}; per ministep: host "
-              f"parse+tail filter {ctr['parse_ms_per_ministep']:.3f} ms, prep "
+              f"parse {ctr['parse_ms_per_ministep']:.3f} ms, tail filter "
+              f"{ctr['filter_ms_per_ministep']:.3f} ms (both on the reader's threads), the "
+              f"consumer's wait on the reader {ctr['read_wait_ms_per_ministep']:.3f} ms, prep "
               f"{ctr['prep_ms_per_ministep']:.3f} ms, upload {ctr['upload_ms_per_ministep']:.3f} ms, "
               f"step {ctr['step_ms_per_ministep']:.3f} ms; {ctr['examples_per_s_e2e']:.0f} ex/s end to "
               f"end ({ctr['wall_s']:.1f} s); objective {ctr['objective_first']:.5f} -> "
               f"{ctr['objective_last']:.5f}; model nonzeros {ctr['model_nonzeros']}; a batch touches "
               f"{ctr['touched_frac']:.6f} of the table on average", flush=True)
         agree = ctr_agree_and_pull(tmp, args.seed + 1)
+        crit = criteo_path(tmp, args.seed + 2)
+    py = crit["python_parse"]
+    print(f"# Criteo conf via CLI (card's own numbers, {smi}): {crit['shards']} x {crit['rows']} rows, "
+          f"one pass, {crit['ministeps']} ministeps, launches masked dense FTRL {crit['dense_launches']}, "
+          f"segment_sum {crit['segment_launches']}; per ministep: native parse "
+          f"{crit['parse_ms_per_ministep']:.3f} ms (on the byte path's 2 threads), tail filter "
+          f"{crit['filter_ms_per_ministep']:.3f} ms (feeder), the consumer's wait on the reader "
+          f"{crit['read_wait_ms_per_ministep']:.3f} ms, prep {crit['prep_ms_per_ministep']:.3f} ms, "
+          f"upload {crit['upload_ms_per_ministep']:.3f} ms, step {crit['step_ms_per_ministep']:.3f} ms; "
+          f"{crit['examples_per_s_e2e']:.0f} ex/s end to end ({crit['wall_s']:.2f} s); model nonzeros "
+          f"{crit['model_nonzeros']}; the Python parser's run: parse {py['parse_ms_per_ministep']:.3f} "
+          f"ms a ministep, {py['wall_s']:.2f} s, objectives bit-equal to the native run's", flush=True)
     print(f"# CTR first {len(agree['objective_card'])} ministeps, card vs CPU: "
           f"{['%.5f' % x for x in agree['objective_card']]} vs "
           f"{['%.5f' % x for x in agree['objective_cpu']]} (largest relative gap "
@@ -1503,7 +1698,8 @@ def main() -> int:
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
                   quantize_times=quant_times, add_latency=lat, segment_sum=seg_rows, headline=head,
-                  dense_path=dense, bf16_path=bf16,
+                  pipelined_headline=pipe, dense_path=dense, bf16_path=bf16, criteo=crit,
+                  native_build_seconds=native_s,
                   ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,

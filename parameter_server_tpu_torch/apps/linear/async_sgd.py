@@ -17,17 +17,28 @@ explicit ``touched`` mask; a FIXING_FLOAT pull filter quantizes the
 derived weights; ADD_NOISE perturbs either side. Bounded delay τ > 0
 computes gradients on a weight snapshot refreshed every τ ministeps.
 
+The host side runs as the JAX worker's does. Steps run on an
+:class:`~...system.executor.Executor`'s dispatch thread, at most τ + 1
+in flight; seeds and the snapshot schedule are fixed on the submitting
+thread, in submission order, so every path gives the same trajectory.
+``train(pipelined=True)`` (the default for T > 1) reads and filters on a
+feeder thread, preps on an ordered pool of workers and uploads on a
+:class:`DeviceUploader` thread: host arrays are copied into pinned
+staging buffers and sent on a side CUDA stream, which the step's stream
+waits on. The pipelined state is bit-identical to the serial one.
+
 Not ported yet (``SGDConfig.validate`` raises ``NotImplementedError``):
-the threaded executor and the pipelined ingest (on one card the
-snapshot schedule is fixed by submission order, so the port runs it
-synchronously with the same results), the ELL/bits/stream and encoded
-wires, the KKT filter and adaptive τ, replicas and multi-GPU.
+the ELL/bits/stream and encoded wires, the KKT filter and adaptive τ,
+replicas and multi-GPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
+import weakref
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -35,14 +46,17 @@ import torch
 
 from ...device import resolve
 from ...convert import state_from_jax, state_to_numpy
+from ...learner.ingest import IngestPipeline
 from ...learner.sgd import SGDProgress
 from ...ops import quantize as qops
 from ...ops.ftrl_sparse import resolve_update_path
 from ...ops.kv_ops import localize, slot_sentinel
 from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots
+from ...system.executor import Executor
 from ...utils import evaluation
 from ...utils import file as psfile
+from ...utils.concurrent import iter_on_thread
 from ...utils.sparse import SparseBatch
 from .config import Config, SGDConfig
 from .learning_rate import LearningRate
@@ -534,17 +548,105 @@ def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True,
     return step
 
 
+_ALIGN = 64  # bytes: each array of a staged batch starts on this boundary
+
+
+class PinnedStaging:
+    """Host → device copies of prepped batches through pinned memory.
+
+    ``depth`` pinned staging buffers are used in turn. A batch's arrays
+    are copied into the next buffer, which then goes to the device in ONE
+    non-blocking copy on the given stream; each array becomes a view of
+    the device copy, and the batch carries the copy's event as
+    ``ready``. A buffer is written again only after the event of the last
+    copy out of it has completed. The device memory was allocated on the
+    copy's stream: a step on another stream waits on ``ready`` and calls
+    ``record_stream`` (:meth:`AsyncSGDWorker._submit_prepped`).
+
+    One thread copies at a time (the caller's, or the pipelined train's
+    uploader). ``copy_times``, when set to a list, receives ``(stream,
+    start, end)`` timing events of every copy."""
+
+    def __init__(self, device: torch.device, depth: int = 2):
+        self.device = device
+        self.depth = depth
+        self.buffers: List[Optional[torch.Tensor]] = [None] * depth
+        self._copied: List[Optional[torch.cuda.Event]] = [None] * depth
+        self._next = 0
+        self.copy_times: Optional[list] = None
+
+    def copy(self, prepped, stream: "torch.cuda.Stream"):
+        arrays = [(f.name, np.ascontiguousarray(getattr(prepped, f.name)))
+                  for f in dataclasses.fields(prepped)]
+        offsets, total = [], 0
+        for _, a in arrays:
+            offsets.append(total)
+            total += -(-a.nbytes // _ALIGN) * _ALIGN
+        i = self._next
+        self._next = (i + 1) % self.depth
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()  # the last copy out of buffer i is done
+        buf = self.buffers[i]
+        if buf is None or buf.numel() < total:
+            buf = self.buffers[i] = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        host = buf.numpy()
+        for (_, a), off in zip(arrays, offsets):
+            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        timed = self.copy_times is not None
+        with torch.cuda.stream(stream):
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+            dev = buf[:total].to(self.device, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=timed)
+            done.record(stream)
+        self._copied[i] = done
+        if timed:
+            self.copy_times.append((stream, start, done))
+        out = type(prepped)(**{
+            name: dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+            for (name, a), off in zip(arrays, offsets)
+        })
+        out.ready = done  # not a field: the device arrays' copy event
+        return out
+
+
+class DeviceUploader:
+    """The double-buffered host → device stage of the pipelined train:
+    ``upload_fn`` (the worker's upload on its side stream) runs for batch
+    t+1 on this stage's thread while step t runs. ``depth`` bounds the
+    uploaded batches not yet taken by the consumer (2: one being copied,
+    one waiting). An exception of the thread re-raises at the consumer;
+    ``close()`` stops and joins the thread."""
+
+    def __init__(self, source, upload_fn, depth: int = 2):
+        def uploaded():
+            for prepped, n in source:
+                yield upload_fn(prepped), n
+
+        # depth - 1 in the queue and one held by the consumer
+        self._it = iter_on_thread(uploaded(), maxsize=max(1, depth - 1))
+
+    def __iter__(self):
+        return self._it
+
+    def close(self) -> None:
+        self._it.close()
+
+
 class AsyncSGDWorker:
     """The linear worker on one device: preps minibatches on the host,
     runs the fused worker+server step on ``device`` (CUDA by default;
     raises when there is none and no device is given), evaluates and
-    answers pulls from the trained table. Synchronous: every submission
-    has finished updating the state when it returns. With τ =
-    ``max_delay`` > 0, gradients are computed on a weight snapshot
+    answers pulls from the trained table. Steps run on an executor's
+    dispatch thread, at most τ + 1 in flight (``max_delay`` = τ);
+    :meth:`submit` waits for its step, :meth:`train` collects steps by
+    timestamp. With τ > 0, gradients are computed on a weight snapshot
     refreshed every τ ministeps, on the JAX worker's schedule (fixed by
-    submission order), so the trajectory equals the threaded JAX
-    worker's; ``last_staleness`` is the realized staleness of the latest
-    submission, in ministeps."""
+    submission order), so the trajectory equals the JAX worker's;
+    ``last_staleness`` is the realized staleness of the latest
+    submission, in ministeps. Reading the table (weights, pulls,
+    evaluation, snapshots) first waits for the steps in flight."""
 
     def __init__(self, conf: Config, device=None, name: str = "async_sgd_worker"):
         self.name = name
@@ -588,6 +690,13 @@ class AsyncSGDWorker:
         self._steps_since_snapshot = 0
         self.last_staleness = 0
         self.progress = SGDProgress()
+        # at most τ + 1 steps in flight (τ = 0 still lets the next step
+        # be submitted while one runs)
+        self.executor = Executor(name, max_in_flight=max(0, sgd.max_delay) + 1)
+        weakref.finalize(self, self.executor.stop)
+        # the pinned buffers of the uploads to the card
+        self.staging = PinnedStaging(self.device) if self.device.type == "cuda" else None
+        self._side_stream = None
 
     def _snapshot(self):
         """The weight snapshot steps pull from: the live tensors at τ = 0
@@ -627,11 +736,13 @@ class AsyncSGDWorker:
             self._pads = (r, z, z)
         return self._pads
 
-    def prep(self, batch: SparseBatch, device_put: bool = True):
+    def prep(self, batch: SparseBatch, device_put: bool = True, pads=None):
         """Localize + pad a batch: the deduplicated exact wire for the
         sparse update (unique width padded to a multiple of 1024), the
-        hashed per-entry wire for the dense one."""
-        rows_pad, nnz_pad, _ = self._padding(batch)
+        hashed per-entry wire for the dense one. ``pads``: the padding
+        :meth:`_padding` gave this batch in stream order (a prep worker
+        of the pipeline must not decide it); decided here if None."""
+        rows_pad, nnz_pad, _ = pads or self._padding(batch)
         if self._update_mode == "sparse":
             uniq = min(nnz_pad, self.num_slots)
             uniq = -(-uniq // 1024) * 1024
@@ -644,17 +755,28 @@ class AsyncSGDWorker:
             )
         return self.upload(out) if device_put else out
 
-    def upload(self, prepped):
+    def upload(self, prepped, stream=None):
         """Host arrays -> tensors on the worker's device (int32 ids stay
-        int32: every gather and segment sum here takes them as they are)."""
+        int32: every gather and segment sum here takes them as they are).
+        To the card through pinned staging buffers, on ``stream`` (the
+        caller's current stream by default), never from pageable memory;
+        the result carries the copy's event as ``ready``. On the CPU the
+        tensors share the arrays' memory."""
         if isinstance(getattr(prepped, "y", None), torch.Tensor):
             return prepped
-        return type(prepped)(
-            **{
-                f.name: torch.as_tensor(getattr(prepped, f.name)).to(self.device)
-                for f in dataclasses.fields(prepped)
-            }
-        )
+        if self.device.type != "cuda":
+            return type(prepped)(
+                **{f.name: torch.as_tensor(getattr(prepped, f.name)).to(self.device)
+                   for f in dataclasses.fields(prepped)}
+            )
+        return self.staging.copy(prepped, stream or torch.cuda.current_stream(self.device))
+
+    @property
+    def upload_stream(self):
+        """The side CUDA stream of the pipelined train's uploads."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
 
     def _get_step(self, prepped, with_aux: bool):
         if isinstance(prepped, PreppedSuperBatch):
@@ -670,19 +792,22 @@ class AsyncSGDWorker:
             )
         return self._steps[key]
 
-    def submit(self, prepped, with_aux: bool = True) -> Dict[str, torch.Tensor]:
-        """Run one step (or one T-step superbatch) on a prepped batch;
-        returns its metrics as tensors on the device. Seeds follow the
-        JAX worker: the counter advances by the ministep count and the
+    def _submit_prepped(self, prepped, with_aux: bool = True) -> int:
+        """Submit one step (or one T-step superbatch) on a prepped batch
+        to the executor; returns its timestamp. Seeds follow the JAX
+        worker: the counter advances by the ministep count and the
         launch's first ministep gets ``counter - (n_steps - 1)``.
 
-        The bounded-delay schedule is the JAX worker's: a submission
-        takes a fresh weight snapshot when τ = 0 or when τ ministeps
-        have run since the last one, and otherwise computes on the last
-        snapshot. At τ = 0 the snapshot is the live tensors (the step
-        gathers before it updates); at τ > 0 it is a copy, because the
-        step updates the live tensors in place. The first τ ministeps pull
-        the state the worker started from (or loaded)."""
+        The bounded-delay schedule is the JAX worker's and is fixed here,
+        on the submitting thread: a submission takes a fresh weight
+        snapshot when τ = 0 or when τ ministeps have run since the last
+        one, and otherwise computes on the last snapshot. The snapshot
+        itself is taken when the step runs, on the dispatch thread, where
+        the state advances in submission order. At τ = 0 it is the live
+        tensors (the step gathers before it updates); at τ > 0 a copy.
+        The first τ ministeps pull the state the worker started from (or
+        loaded). On the card the step's stream first waits for the
+        batch's upload."""
         prepped = self.upload(prepped)
         n_steps = prepped.steps if isinstance(prepped, PreppedSuperBatch) else 1
         tau = max(0, self.sgd.max_delay)
@@ -690,13 +815,29 @@ class AsyncSGDWorker:
         self.last_staleness = 0 if do_snapshot else self._steps_since_snapshot
         if do_snapshot:
             self._steps_since_snapshot = 0
-            self._pull_state = self._snapshot()
         step_fn = self._get_step(prepped, with_aux)
         self._seed_counter += n_steps
         seed = (self._seed_counter - (n_steps - 1)) & _M32
-        metrics = step_fn(self.state, self._pull_state, prepped, seed)
         self._steps_since_snapshot += n_steps
-        return metrics
+        ready = getattr(prepped, "ready", None)
+
+        def run():
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                for f in dataclasses.fields(prepped):
+                    # allocated on the upload's stream, read on this one
+                    getattr(prepped, f.name).record_stream(stream)
+            if do_snapshot:
+                self._pull_state = self._snapshot()
+            return step_fn(self.state, self._pull_state, prepped, seed)
+
+        return self.executor.submit(run)
+
+    def submit(self, prepped, with_aux: bool = True) -> Dict[str, torch.Tensor]:
+        """Run one step (or one T-step superbatch) on a prepped batch and
+        wait for it; returns its metrics as tensors on the device."""
+        return self.executor.wait(self._submit_prepped(prepped, with_aux=with_aux))
 
     def process_minibatch(self, batch: SparseBatch, with_aux: bool = True):
         """Pull → gradient → push for one minibatch; returns its metrics
@@ -715,8 +856,11 @@ class AsyncSGDWorker:
         prepped = [self.prep(b, device_put=False) for b in batches]
         return self.submit(stack_prepped_batches(prepped), with_aux=with_aux)
 
-    def collect(self, metrics: Dict[str, torch.Tensor]) -> SGDProgress:
-        """Fold a submission's metrics into ``progress`` (host sync)."""
+    def collect(self, metrics) -> SGDProgress:
+        """Fold a submission's metrics (or its executor timestamp, waited
+        for here) into ``progress`` (host sync)."""
+        if isinstance(metrics, int):
+            metrics = self.executor.wait(metrics)
         num_ex = float(metrics["num_ex"])
         prog = SGDProgress(
             objective=[float(metrics["objective"])],
@@ -737,35 +881,111 @@ class AsyncSGDWorker:
         self.progress.merge(prog)
         return prog
 
-    def train(self, batches: Iterable[SparseBatch]) -> SGDProgress:
-        """A pass over minibatches: groups of ``steps_per_launch`` run as
-        one superbatch in sparse mode, one minibatch at a time in dense
-        mode. Same submission order and seeds as the JAX worker."""
+    def _prep_group(self, group) -> List[Tuple[object, int]]:
+        """Host side of one launch group, ``[(batch, pads)]`` (safe on a
+        pipeline thread): one T-step superbatch in sparse mode, else one
+        part a minibatch (dense groups run per minibatch: a superstep
+        would bypass the snapshot schedule and the wire's filters).
+        Returns ``[(host_prepped, n_ministeps)]``."""
+        prepped = [self.prep(b, device_put=False, pads=pads) for b, pads in group]
+        if len(prepped) > 1 and self._update_mode == "sparse":
+            return [(stack_prepped_batches(prepped), len(prepped))]
+        return [(p, 1) for p in prepped]
+
+    def ingest_workers(self) -> int:
+        """Prep-pool width of the pipelined train: ``SGDConfig.ingest_workers``
+        when set, else the host's cores less one, at most 4 (the feeder
+        and the submitting thread keep a core)."""
+        if self.sgd.ingest_workers > 0:
+            return self.sgd.ingest_workers
+        return max(1, min(4, (os.cpu_count() or 2) - 1))
+
+    def train(self, batches: Iterable[SparseBatch], pipelined: Optional[bool] = None) -> SGDProgress:
+        """A pass over minibatches: groups of ``steps_per_launch`` (T) run
+        as one superbatch in sparse mode, one minibatch at a time in dense
+        mode. Same submission order and seeds as the JAX worker.
+
+        ``pipelined`` (default: T > 1) moves grouping and the padding
+        decision onto a feeder thread, prep onto an ordered pool of
+        :meth:`ingest_workers` threads and the upload onto a
+        :class:`DeviceUploader` thread and side stream, so they overlap
+        the steps. Submission stays on this thread, in order: the
+        trajectory is bit-identical to the serial path's."""
         T = max(1, self.sgd.steps_per_launch)
-        group: List[SparseBatch] = []
+        if pipelined is None:
+            pipelined = T > 1
+        try:
+            return self._train_impl(iter(batches), T, pipelined)
+        except BaseException:
+            # leave no step of this pass running on the dispatch thread
+            with contextlib.suppress(Exception):
+                self.executor.wait_all(pop=False)
+            raise
 
-        def flush():
-            if len(group) > 1 and self._update_mode == "sparse":
-                self.collect(self.submit_superbatch(list(group), with_aux=True))
-            else:
-                for b in group:
-                    self.collect(self.process_minibatch(b))
-            group.clear()
+    def _train_impl(self, batches, T: int, pipelined: bool) -> SGDProgress:
+        pending: List[Tuple[int, int]] = []  # (timestamp, ministeps)
+        # collect in MINISTEPS (the metrics' memory grows with them),
+        # always leaving at least one whole launch in flight
+        bound = max(T, self.sgd.max_delay + 1)
 
-        for batch in batches:
-            group.append(batch)
-            if len(group) >= T:
-                flush()
-        flush()
+        def submit_parts(parts):
+            for prepped, n in parts:
+                pending.append((self._submit_prepped(prepped, with_aux=True), n))
+                while sum(n for _, n in pending) > bound:
+                    self.collect(pending.pop(0)[0])
+
+        def groups():
+            group = []
+            for batch in batches:
+                # the padding is decided here, in stream order, before a
+                # prep worker sees the batch
+                group.append((batch, self._padding(batch)))
+                if len(group) >= T:
+                    yield group
+                    group = []
+            if group:
+                yield group
+
+        if pipelined:
+            workers = self.ingest_workers()
+            # each staged group holds T prepped batches: the window also
+            # bounds the host memory
+            pipe = IngestPipeline(groups(), prep_fn=self._prep_group, workers=workers,
+                                  capacity=2 * workers, name="train_ingest").start()
+
+            def parts():
+                for group_parts in pipe:
+                    yield from group_parts
+
+            stream = self.upload_stream if self.device.type == "cuda" else None
+            uploader = DeviceUploader(parts(), lambda p: self.upload(p, stream), depth=2)
+            try:
+                for staged, n in uploader:
+                    submit_parts([(staged, n)])
+            finally:
+                # the uploader first: no thread is left inside a copy
+                uploader.close()
+                pipe.close()
+        else:
+            for group in groups():
+                submit_parts(self._prep_group(group))
+        for ts, _ in pending:
+            self.collect(ts)
         return self.progress
+
+    def _drain(self) -> None:
+        """Wait for every step in flight, leaving its metrics to collect."""
+        self.executor.wait_all(pop=False)
 
     # -- serving the trained table --
 
     def weights_dense(self) -> np.ndarray:
         """The whole weight vector, derived from the optimizer state."""
+        self._drain()
         return self.updater.weights(self.state).cpu().numpy()
 
     def _slot_weights(self, slots: torch.Tensor) -> torch.Tensor:
+        self._drain()
         ok = slots < self.num_slots
         w = self.updater.weights(
             _gather_state(self.state, torch.clamp(slots, 0, self.num_slots - 1))
@@ -811,6 +1031,7 @@ class AsyncSGDWorker:
     # -- state snapshot / restore (the JAX worker's state_host format) --
 
     def state_host(self) -> dict:
+        self._drain()
         return {
             "state": state_to_numpy(self.state),
             "seed_counter": np.int64(self._seed_counter),
@@ -821,6 +1042,7 @@ class AsyncSGDWorker:
         only dead padding is trimmed or zero-extended. Leaves take this
         worker's dtypes (a bf16 leaf widened to f32 by ``state_to_numpy``
         narrows back exactly)."""
+        self._drain()
         state = state_from_jax(snap["state"], self.device)
         for k, leaf in state.items():
             leaf = state[k] = leaf.to(self.state[k].dtype)

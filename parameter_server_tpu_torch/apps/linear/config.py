@@ -82,6 +82,9 @@ class SGDConfig:
     rows_pad: int = 0  # 0 = minibatch size
     nnz_pad: int = 0  # 0 = auto from first batch
     steps_per_launch: int = 1  # T minibatches per submission
+    # prep-pool width of the pipelined train: 0 = the host's cores less
+    # one, at most 4; the trajectory is the same at any width
+    ingest_workers: int = 0
     ftrl_state_dtype: str = "float32"  # float32 | bfloat16 (sqrt_n only)
     update: str = "auto"  # auto | dense | sparse
     ell_lanes: int = 0

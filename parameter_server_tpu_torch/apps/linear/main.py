@@ -5,8 +5,9 @@
 Counterpart of ``parameter_server_tpu/apps/linear/main.py`` for the
 ``async_sgd`` app on one device (the CUDA device unless ``--device``
 names another). Each ``training_data`` file pattern is one workload a
-pass, for ``num_data_pass`` passes; a workload is read through a fresh
-count-min tail filter and trained on. Then the model is written to
+pass, for ``num_data_pass`` passes; a workload is read, parsed and
+passed through a fresh count-min tail filter on the reader's feeder
+thread, and trained on (``AsyncSGDWorker.train``). Then the model is written to
 ``model_output`` and scored on ``validation_data`` when the conf has
 them.
 

@@ -10,6 +10,8 @@ not ported.
 
 from __future__ import annotations
 
+import collections
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -38,6 +40,28 @@ def _concat_batches(parts: List[SparseBatch]) -> SparseBatch:
     )
 
 
+def rebatch(parts_iter: Iterator[SparseBatch], size: int) -> Iterator[SparseBatch]:
+    """Re-slice a stream of batches of any size into ``size``-row
+    minibatches (the last may be smaller)."""
+    pending: List[SparseBatch] = []
+    count = 0
+    for b in parts_iter:
+        pending.append(b)
+        count += b.n
+        if count < size:
+            continue
+        merged = _concat_batches(pending)
+        lo = 0
+        while merged.n - lo >= size:
+            yield merged.slice_rows(lo, lo + size)
+            lo += size
+        rest = merged.slice_rows(lo, merged.n)
+        pending = [rest] if rest.n else []
+        count = rest.n
+    if count:
+        yield _concat_batches(pending)
+
+
 class StreamReader:
     def __init__(self, files: List[str], data_format: str = "libsvm"):
         if data_format in ("record", "ref_record", "bin"):
@@ -62,6 +86,57 @@ class StreamReader:
                 lines = []
         if lines:
             yield self.parser.parse_lines(lines)
+
+    def _byte_chunks(self, chunk_bytes: int) -> Iterator[bytes]:
+        """Line-aligned raw byte chunks across all files."""
+        for path in self.files:
+            tail = b""
+            with psfile.open_read(path, "rb") as f:
+                while True:
+                    buf = f.read(chunk_bytes)
+                    if not buf:
+                        break
+                    buf = tail + buf
+                    cut = buf.rfind(b"\n")
+                    if cut < 0:
+                        tail = buf
+                        continue
+                    tail = buf[cut + 1 :]
+                    yield buf[: cut + 1]
+            # a file without a final newline still ends its own last line:
+            # the tail never joins the next file's first line
+            if tail:
+                yield tail + b"\n"
+
+    def minibatches_bytes(self, size: int, chunk_bytes: int = 16 << 20,
+                          threads: int = 4) -> Iterator[SparseBatch]:
+        """The batches of :meth:`minibatches`, from line-aligned byte
+        chunks parsed on ``threads`` threads (at most ``threads + 2``
+        chunks in memory). Formats without a native parser, or a parser
+        built with ``use_native=False``, take the line path."""
+        if not self.parser.use_native:
+            yield from self.minibatches(size)
+            return
+
+        def parsed_chunks() -> Iterator[SparseBatch]:
+            chunks = self._byte_chunks(chunk_bytes)
+            futs: collections.deque = collections.deque()
+            with ThreadPoolExecutor(threads) as pool:
+
+                def fill() -> None:
+                    while len(futs) < threads + 2:
+                        c = next(chunks, None)
+                        if c is None:
+                            return
+                        futs.append(pool.submit(self.parser.parse_text, c))
+
+                fill()
+                while futs:
+                    b = futs.popleft().result()
+                    fill()
+                    yield b
+
+        yield from rebatch(parsed_chunks(), size)
 
     def read_all(self) -> Optional[SparseBatch]:
         """The whole dataset as one batch, or None when it is empty."""

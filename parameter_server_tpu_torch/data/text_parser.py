@@ -5,18 +5,22 @@ Counterpart of the pure-Python line path of
 ``ExampleParser``) for the three formats the port's confs use: libsvm
 ("label idx:val ..."), criteo (label, 13 integer counts, 26 categorical
 tokens, tab-separated) and the parameter server's SPARSE_BINARY
-("label; group key key ...;"). The JAX package's native C++ parser is
-its own library and is not loaded: the JAX package holds it bit-identical
-to this line path. Other formats raise ``NotImplementedError``.
+("label; group key key ...;"). libsvm and criteo go through the port's
+native library (``native/psnative.cc``, the same source as the JAX
+package's) unless the parser is built with ``use_native=False``; the
+native and Python parsers give bit-identical batches. Other formats
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 from typing import List, Optional
 
 import numpy as np
 
+from .. import native
 from ..utils.murmur import murmur3_x64_128
 from ..utils.sparse import SparseBatch
 
@@ -154,6 +158,7 @@ def parse_criteo(lines: List[str]) -> SparseBatch:
     MurmurHash3_x64_128 with seed 512927377. Lines with fewer than 40
     fields are dropped. Slots: integer i -> i+1, categorical i -> i+14."""
     labels, keys, slots = [], [], []
+    token_keys = {}  # categorical token -> key, for this call's repeats
     for line in lines:
         f = line.rstrip("\n").split("\t")
         if len(f) < 40:
@@ -186,8 +191,11 @@ def parse_criteo(lines: List[str]) -> SparseBatch:
             s.append(i + 1)
         for i, tok in enumerate(f[14:40]):
             if len(tok) > 4:
-                h0, h1 = murmur3_x64_128(tok.encode(), _CRITEO_SEED)
-                k.append(h0 ^ h1)
+                key = token_keys.get(tok)
+                if key is None:
+                    h0, h1 = murmur3_x64_128(tok.encode(), _CRITEO_SEED)
+                    key = token_keys[tok] = h0 ^ h1
+                k.append(key)
                 s.append(i + 14)
         labels.append(1.0 if label > 0 else -1.0)
         keys.append(np.asarray(k, dtype=np.uint64).view(np.int64))
@@ -229,18 +237,59 @@ def parse_ps_sparse_binary(lines: List[str]) -> SparseBatch:
     return _batch_from_rows(labels, keys, None, slots)
 
 
+def _parse_native(text: bytes, fn_name: str, max_rows: int) -> SparseBatch:
+    """Parse ``text`` (whole lines) with the native library's ``fn_name``
+    into a batch of at most ``max_rows`` rows. The library returns
+    ``-(rows + 1)`` when its value buffer filled mid-stream: the parse is
+    retried with twice the buffer."""
+    fn = getattr(native.library(), fn_name)
+    max_nnz = max(1024, len(text) // 2)
+    while True:
+        y = np.zeros(max_rows, np.float32)
+        indptr = np.zeros(max_rows + 1, np.int64)
+        indices = np.zeros(max_nnz, np.uint64)
+        values = np.zeros(max_nnz, np.float32)
+        slots = np.zeros(max_nnz, np.int32)
+        out_nnz = ctypes.c_int64(0)
+        rows = fn(
+            text, len(text),
+            y.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            indices.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            values.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            slots.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            max_rows, max_nnz, ctypes.byref(out_nnz),
+        )
+        if rows < 0:
+            max_nnz *= 2
+            continue
+        nnz = out_nnz.value
+        return SparseBatch(
+            y=y[:rows].copy(),
+            indptr=indptr[: rows + 1].copy(),
+            # the raw 64 bits: criteo's murmur keys reach 2^63 and above
+            indices=indices[:nnz].view(np.int64).copy(),
+            # criteo is binary (keys only); the library still writes 1.0s
+            values=None if fn_name == "ps_parse_criteo" else values[:nnz].copy(),
+            slot_ids=slots[:nnz].copy(),
+        )
+
+
 _PARSERS = {
     "libsvm": parse_libsvm,
     "criteo": parse_criteo,
     "ps_sparse_binary": parse_ps_sparse_binary,
 }
+_NATIVE = {"libsvm": "ps_parse_libsvm", "criteo": "ps_parse_criteo"}
 _NOT_PORTED = ("adfea", "terafea", "ps", "ps_sparse", "ps_dense")
 
 
 class ExampleParser:
-    """Format-dispatching line parser."""
+    """Format-dispatching parser. libsvm and criteo take the native
+    library unless ``use_native=False``; a library that does not build
+    raises."""
 
-    def __init__(self, format_: str = "libsvm"):
+    def __init__(self, format_: str = "libsvm", use_native: bool = True):
         f = format_.lower()
         if f in _NOT_PORTED:
             raise NotImplementedError(
@@ -249,6 +298,17 @@ class ExampleParser:
         if f not in _PARSERS:
             raise ValueError(f"unknown text format: {format_}")
         self.format = f
+        self.use_native = use_native and f in _NATIVE
 
     def parse_lines(self, lines: List[str]) -> SparseBatch:
+        if self.use_native and lines:
+            blob = ("\n".join(lines) + "\n").encode()
+            return _parse_native(blob, _NATIVE[self.format], len(lines) + 1)
         return _PARSERS[self.format](lines)
+
+    def parse_text(self, text: bytes) -> SparseBatch:
+        """Parse a raw byte chunk that ends at a line boundary, with no
+        split into lines (the streaming path)."""
+        if self.use_native and text:
+            return _parse_native(text, _NATIVE[self.format], text.count(b"\n") + 1)
+        return _PARSERS[self.format](text.decode().splitlines())

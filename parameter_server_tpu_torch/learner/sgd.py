@@ -3,10 +3,12 @@ the minibatch reader.
 
 Counterparts of ``SGDProgress``, ``apply_tail_filter`` and
 ``MinibatchReader`` in the JAX package's ``learner/sgd.py``. The reader
-runs on the caller's thread: the JAX reader reads and filters on an
-``IngestPipeline`` feeder thread, which keeps the (stateful) filter
-stage serial, so both yield the same batches in the same order. The
-monitor and scheduler plumbing is not ported.
+reads and filters on an :class:`~.ingest.IngestPipeline` feeder thread,
+as the JAX reader does: the (stateful) filter stays serial, in batch
+order, so both yield the same batches in the same order. Files are read
+on the chunked byte path (``StreamReader.minibatches_bytes``), parsed by
+the native library on a small pool. The monitor and scheduler plumbing
+is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..data.stream_reader import StreamReader
 from ..filter.frequency import FrequencyFilter
 from ..utils.localizer import Localizer
 from ..utils.sparse import SparseBatch
+from .ingest import IngestPipeline
 
 
 @dataclasses.dataclass
@@ -51,59 +54,79 @@ def apply_tail_filter(batch: SparseBatch, filter_: FrequencyFilter, freq: int) -
 
 class MinibatchReader:
     """Minibatches from files (or a given iterator), through the
-    tail-feature filter when one is set.
+    tail-feature filter when one is set, read and filtered on a feeder
+    thread behind a bounded queue (``capacity`` batches).
 
     Lifecycle (enforced): :meth:`init_filter` before :meth:`start`,
     :meth:`start` (idempotent) before reading, no reading after
-    :meth:`close`. Usable as a context manager."""
+    :meth:`close`, which joins the feeder. Usable as a context manager."""
 
     def __init__(
         self,
         files: Optional[List[str]] = None,
         minibatch_size: int = 1000,
         data_format: str = "libsvm",
+        capacity: int = 16,
         batches: Optional[Iterator[SparseBatch]] = None,
     ):
         self._source = batches
         if self._source is None:
-            self._source = StreamReader(files or [], data_format).minibatches(minibatch_size)
+            # line-aligned byte chunks parsed by the GIL-releasing native
+            # parser on two threads (the line path for other formats);
+            # the same batches as minibatches()
+            self._source = StreamReader(files or [], data_format).minibatches_bytes(
+                minibatch_size, threads=2
+            )
         self._filter: Optional[FrequencyFilter] = None
         self._freq = 0
-        self._started = False
+        self._capacity = capacity
+        self._pipe: Optional[IngestPipeline] = None
+        self._it: Optional[Iterator[SparseBatch]] = None
         self._closed = False
 
     def init_filter(self, n: int, k: int, freq: int) -> None:
         """Count-min tail-feature filter with ``n`` buckets per row and
         ``k`` rows, keeping keys seen at least ``freq`` times."""
-        if self._started:
+        if self._pipe is not None:
             raise RuntimeError("init_filter() after start()")
         self._filter = FrequencyFilter(n, k)
         self._freq = freq
 
     def start(self) -> "MinibatchReader":
+        """Start the feeder thread; a second call does nothing."""
         if self._closed:
             raise RuntimeError("MinibatchReader.start() after close()")
-        self._started = True
+        if self._pipe is not None:
+            return self
+        filter_fn = None
+        if self._filter is not None and self._freq > 0:
+            filt, freq = self._filter, self._freq
+
+            def filter_fn(b):
+                return apply_tail_filter(b, filt, freq)
+
+        self._pipe = IngestPipeline(self._source, filter_fn=filter_fn,
+                                    capacity=self._capacity, name="minibatch_reader").start()
+        self._it = iter(self._pipe)
         return self
 
     def read(self) -> Optional[SparseBatch]:
         """The next minibatch with tail features dropped, or None at the
-        end of the stream."""
-        if not self._started:
+        end of the stream; re-raises the feeder's exception."""
+        if self._pipe is None:
             raise RuntimeError(
                 "MinibatchReader.read() before start(): call start() "
                 "first, or use the reader as a context manager"
             )
         if self._closed:
             raise RuntimeError("MinibatchReader.read() after close()")
-        batch = next(self._source, None)
-        if batch is not None and self._filter is not None and self._freq > 0:
-            batch = apply_tail_filter(batch, self._filter, self._freq)
-        return batch
+        return next(self._it, None)
 
     def close(self) -> None:
-        """Stop reading; idempotent."""
+        """Stop the pipeline and join the feeder; idempotent."""
         self._closed = True
+        if self._pipe is not None:
+            self._pipe.close()
 
     def __enter__(self) -> "MinibatchReader":
         return self.start()

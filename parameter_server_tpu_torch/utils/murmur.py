@@ -4,12 +4,18 @@ MurmurHash3 x64-128 of byte strings.
 Counterpart of ``parameter_server_tpu/utils/murmur.py``: the same
 splitmix64-style finalizer, so a key lands in the same slot in both
 packages, and the same MurmurHash3 the criteo parser keys categorical
-tokens with. NumPy and pure Python only; no native library.
+tokens with. ``hash_slots`` takes one pass of the port's native library
+(``ps_hash_slots``) for 4096 keys or more, the NumPy finalizer below
+that: the same slots either way.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from .. import native
 
 _M1 = np.uint64(0xBF58476D1CE4E5B9)
 _M2 = np.uint64(0x94D049BB133111EB)
@@ -32,6 +38,13 @@ def hash_slots(keys: np.ndarray, num_slots: int, seed: int = 0) -> np.ndarray:
         keys = keys.view(np.uint64)  # same bits, no copy
     else:
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    if keys.size >= 4096:
+        out = np.empty(keys.size, np.int32)
+        native.library().ps_hash_slots(
+            keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), keys.size,
+            seed, num_slots, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        return out.reshape(keys.shape)
     h = murmur64_np(keys, np.uint64(seed))
     if num_slots & (num_slots - 1) == 0:
         return (h & np.uint64(num_slots - 1)).astype(np.int32)

@@ -51,7 +51,9 @@ def test_port_imports_nothing_of_jax():
     mods = port_modules()
     for m in ("apps.linear.async_sgd", "apps.linear.main", "ops.quantize",
               "filter.fixing_float", "data.text_parser", "learner.workload_pool",
-              "apps.lm.main", "apps.lm.optim", "models.attention", "benchmarks.lm_train"):
+              "apps.lm.main", "apps.lm.optim", "models.attention", "benchmarks.lm_train",
+              "utils.concurrent", "learner.ingest", "native", "system.executor",
+              "benchmarks.criteo"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -63,8 +65,13 @@ def test_port_imports_nothing_of_jax():
         "             or m == 'parameter_server_tpu'\n"
         "             or m.startswith('parameter_server_tpu.'))\n"
         "import os\n"
-        "if os.path.exists('/proc/self/maps') and 'psnative' in open('/proc/self/maps').read():\n"
+        "from parameter_server_tpu_torch import native\n"
+        "native.library()  # the port's own native library, built from its own source\n"
+        "maps = open('/proc/self/maps').read() if os.path.exists('/proc/self/maps') else ''\n"
+        "if 'parameter_server_tpu/cpp/' in maps:\n"
         "    bad.append('libpsnative, the native library of the JAX package')\n"
+        "if maps and str(native.library_path()) not in maps:\n"
+        "    bad.append('the port native library is not the one loaded')\n"
         "print('LOADED', len(sys.modules), 'BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
