@@ -62,7 +62,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit for bit, those of the same CLI run with the Python parser. Each CLI
    run's host stages are timed on the threads they run on (parse, tail
    filter, prep, the wait on the reader) with CUDA events for the upload
-   and the step;
+   and the step. Then model evaluation on the card: ``configs/ctr/eval_online.conf``
+   and ``configs/criteo/eval_batch.conf`` through the CLI on a held-out
+   shard of each (30,000 and 50,000 rows, other seeds), scoring the
+   models the CTR run and the native-parse Criteo run wrote: one
+   segment-sum launch a 16384-row minibatch (2 and 4) and no other
+   kernel, the metrics and every margin bit-equal to the same CLI run
+   on the CPU, the model's weights the training run's nonzeros; model
+   load, parse and key hash on the host clock, the device's work from
+   CUDA events, examples/s end to end;
 6. LM serving (``benchmarks/lm_serve.py``: the ``doc/SERVING.md`` config,
    d_model 512, 8 heads of dim 64, 2 KV heads, 8 layers, d_ff 2048, bf16,
    int8 KV cache, random weights from the seed): the ``flash_fwd``
@@ -133,13 +141,14 @@ sys.path.insert(0, ROOT)
 from parameter_server_tpu_torch import kernels  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import async_sgd  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import main as linear_main  # noqa: E402
+from parameter_server_tpu_torch.apps.linear import model_evaluation  # noqa: E402
 from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
     stack_prepped_batches,
 )
 from parameter_server_tpu_torch import native  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.criteo import criteo_conf, write_criteo_shards  # noqa: E402
-from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards  # noqa: E402
+from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, eval_conf, write_ctr_shards  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     ALPHA,
     BETA,
@@ -940,6 +949,138 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
                 pull_objective=pull["objective"], pull_step_ms_per_ministep=pull["step_s"] / n * 1e3)
 
 
+# -- phase 5b: model evaluation on the card --
+
+# dataset -> (eval conf, held-out shard writer, rows, the seed offset of its data)
+EVAL_SETS = {
+    "ctr": ("configs/ctr/eval_online.conf", write_ctr_shards, CTR_ROWS, 3),
+    "criteo": ("configs/criteo/eval_batch.conf", write_criteo_shards, CRITEO_ROWS, 4),
+}
+
+
+@contextlib.contextmanager
+def timed_eval():
+    """Times the stages of every ``ModelEvaluation`` made inside: the
+    model load (``load_model``, host clock), its install on the device
+    (host clock, to a synchronize), the parse (``ExampleParser``, summed
+    over the byte path's threads), the key hash (``lookup``, host) and
+    each minibatch's device work (``xw``: the index and value uploads, the
+    lookup, the multiply and the segment sum) from CUDA events on the
+    current stream. Yields the record it fills."""
+    ME = model_evaluation.ModelEvaluation
+    rec = dict(load_s=0.0, install_s=0.0, parse_s=0.0, hash_s=0.0, events=[], minibatches=0,
+               evals=[])
+    lock = threading.Lock()
+    orig = dict(parse_text=text_parser.ExampleParser.parse_text,
+                parse_lines=text_parser.ExampleParser.parse_lines, init=ME.__init__,
+                load_model=ME.load_model, install=ME.install, lookup=ME.lookup, xw=ME.xw)
+
+    def timed(key, fn, sync=False):
+        def wrapper(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = fn(self, *a, **k)
+                if sync and self.device.type == "cuda":
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                with lock:
+                    rec[key] += time.perf_counter() - t0
+        return wrapper
+
+    def init(self, *a, **k):
+        orig["init"](self, *a, **k)
+        rec["evals"].append(self)
+
+    def xw(self, batch, lookup):
+        rec["minibatches"] += 1
+        if self.device.type != "cuda":
+            return orig["xw"](self, batch, lookup)
+        stream = torch.cuda.current_stream(self.device)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record(stream)
+        out = orig["xw"](self, batch, lookup)
+        t1.record(stream)
+        rec["events"].append((t0, t1))
+        return out
+
+    patches = [(text_parser.ExampleParser, "parse_text", timed("parse_s", orig["parse_text"])),
+               (text_parser.ExampleParser, "parse_lines", timed("parse_s", orig["parse_lines"])),
+               (ME, "__init__", init), (ME, "load_model", timed("load_s", orig["load_model"])),
+               (ME, "install", timed("install_s", orig["install"], sync=True)),
+               (ME, "lookup", timed("hash_s", orig["lookup"])), (ME, "xw", xw)]
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
+    try:
+        yield rec
+    finally:
+        for (owner, name, _), key in zip(patches, orig):
+            setattr(owner, name, orig[key])
+
+
+def run_eval(conf_text: str, path: str, device: str) -> dict:
+    """The port's CLI on an eval conf; returns its timed record with the
+    evaluation's metrics, margins and model, and the line it printed."""
+    with open(path, "w") as f:
+        f.write(conf_text)
+    out = io.StringIO()
+    with timed_eval() as rec, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = linear_main.main([path], device=device)
+        rec["wall_s"] = time.perf_counter() - t0
+    check(rc == 0, f"CLI on {path} ({device}) exited {rc}")
+    (ev,) = rec.pop("evals")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rec["device_s"] = sum(a.elapsed_time(b) for a, b in rec.pop("events")) / 1e3
+    table = getattr(ev, "table", None)
+    rec.update(line=out.getvalue().strip().splitlines()[-1], metrics=dict(ev.metrics),
+               margins=ev.margins, num_weights=ev.num_weights, hashed_slots=ev.hashed_slots,
+               table_nonzeros=None if table is None else int(torch.count_nonzero(table)))
+    return rec
+
+
+def eval_path(tmp: str, seed: int, model_globs: dict, nonzeros: dict) -> dict:
+    """Each eval conf through the CLI on the card, on a held-out shard of
+    its dataset (another seed) and the model its training run on the card
+    wrote; then the same CLI run on the CPU. The metrics and every margin
+    bit-equal; one segment-sum launch a minibatch and no other kernel; the
+    model's weights the training run's nonzeros."""
+    out = {}
+    for name, (conf, write, rows, offset) in EVAL_SETS.items():
+        data = os.path.join(tmp, f"{name}_test")
+        write(data, 1, rows, seed + offset)
+        text = eval_conf(os.path.join(ROOT, conf), os.path.join(data, "part.*"), model_globs[name])
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            runs[dev] = run_eval(text, os.path.join(tmp, f"eval_{name}_{dev}.conf"), dev)
+            runs[dev]["launches"] = counts()
+        card, cpu = runs["cuda"], runs["cpu"]
+        mb = -(-rows // model_evaluation.MINIBATCH)
+        check(card["minibatches"] == mb and card["launches"] == (0, 0, 0, mb),
+              f"eval {name}: {card['minibatches']} minibatches, launches (sparse, dense, quantize, "
+              f"segment_sum) {card['launches']}, want {mb} and (0, 0, 0, {mb})")
+        check(card["metrics"] == cpu["metrics"] and card["line"] == cpu["line"],
+              f"eval {name}: card {card['metrics']} vs CPU {cpu['metrics']}")
+        check(np.array_equal(card["margins"].view(np.int32), cpu["margins"].view(np.int32)),
+              f"eval {name}: margins differ from the CPU's")
+        check(card["num_weights"] == card["table_nonzeros"] == nonzeros[name] > 0,
+              f"eval {name}: {card['num_weights']} weights, {card['table_nonzeros']} nonzero in the "
+              f"table, the training run wrote {nonzeros[name]}")
+        m = card["metrics"]
+        check(m["num_examples"] == rows and all(np.isfinite(list(m.values()))) and m["auc"] > 0.5,
+              f"eval {name}: metrics {m}")
+        out[name] = dict(
+            conf=conf, rows=rows, minibatches=mb, segment_launches=card["launches"][3],
+            weights=card["num_weights"], hashed_slots=card["hashed_slots"], metrics=m,
+            line=card["line"], load_ms=card["load_s"] * 1e3, install_ms=card["install_s"] * 1e3,
+            parse_ms=card["parse_s"] * 1e3, hash_ms=card["hash_s"] * 1e3,
+            device_ms=card["device_s"] * 1e3, wall_s=card["wall_s"],
+            examples_per_s_e2e=rows / card["wall_s"], cpu_wall_s=cpu["wall_s"])
+    return out
+
+
 # -- phase 6: LM serving --
 
 # flash_fwd against its plain version, (out rtol, out atol, lse atol); the
@@ -1522,6 +1663,10 @@ def main() -> int:
               f"{ctr['touched_frac']:.6f} of the table on average", flush=True)
         agree = ctr_agree_and_pull(tmp, args.seed + 1)
         crit = criteo_path(tmp, args.seed + 2)
+        evals = eval_path(tmp, args.seed, dict(
+            ctr=os.path.join(tmp, "model", "ctr_online.*"),
+            criteo=os.path.join(tmp, "criteo_native_S*")),
+            dict(ctr=ctr["model_nonzeros"], criteo=crit["model_nonzeros"]))
     py = crit["python_parse"]
     print(f"# Criteo conf via CLI (card's own numbers, {smi}): {crit['shards']} x {crit['rows']} rows, "
           f"one pass, {crit['ministeps']} ministeps, launches masked dense FTRL {crit['dense_launches']}, "
@@ -1533,6 +1678,16 @@ def main() -> int:
           f"{crit['examples_per_s_e2e']:.0f} ex/s end to end ({crit['wall_s']:.2f} s); model nonzeros "
           f"{crit['model_nonzeros']}; the Python parser's run: parse {py['parse_ms_per_ministep']:.3f} "
           f"ms a ministep, {py['wall_s']:.2f} s, objectives bit-equal to the native run's", flush=True)
+    for name, ev in evals.items():
+        print(f"# eval {name} ({ev['conf']} via CLI, card's own numbers, {smi}): {ev['rows']} held-out "
+              f"rows, {ev['minibatches']} minibatches, model {ev['weights']} weights (hashed, "
+              f"{ev['hashed_slots']} slots); model load {ev['load_ms']:.1f} ms (host), install "
+              f"{ev['install_ms']:.1f} ms, parse {ev['parse_ms']:.1f} ms (host, summed over threads), "
+              f"key hash {ev['hash_ms']:.1f} ms (host), device {ev['device_ms']:.3f} ms (CUDA events: "
+              f"uploads, lookup, multiply, segment sum); {ev['examples_per_s_e2e']:.0f} ex/s end to end "
+              f"({ev['wall_s']:.2f} s; the CPU run {ev['cpu_wall_s']:.2f} s); segment_sum launches "
+              f"{ev['segment_launches']}, no FTRL or quantize; metrics and every margin bit-equal to "
+              f"the CPU run: {ev['line']}", flush=True)
     print(f"# CTR first {len(agree['objective_card'])} ministeps, card vs CPU: "
           f"{['%.5f' % x for x in agree['objective_card']]} vs "
           f"{['%.5f' % x for x in agree['objective_cpu']]} (largest relative gap "
@@ -1665,6 +1820,7 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
              launches=ctr["segment_launches"],
+             eval_launches={name: ev["segment_launches"] for name, ev in evals.items()},
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -1700,7 +1856,8 @@ def main() -> int:
                   quantize_times=quant_times, add_latency=lat, segment_sum=seg_rows, headline=head,
                   pipelined_headline=pipe, dense_path=dense, bf16_path=bf16, criteo=crit,
                   native_build_seconds=native_s,
-                  ctr=ctr, ctr_agree_and_pull=agree, kernels=kernel_line["kernels"],
+                  ctr=ctr, ctr_agree_and_pull=agree, model_evaluation=evals,
+                  kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli,

@@ -3,18 +3,21 @@
     python -m parameter_server_tpu_torch.apps.linear.main <config.conf> [--device cpu]
 
 Counterpart of ``parameter_server_tpu/apps/linear/main.py`` for the
-``async_sgd`` app on one device (the CUDA device unless ``--device``
-names another). Each ``training_data`` file pattern is one workload a
-pass, for ``num_data_pass`` passes; a workload is read, parsed and
-passed through a fresh count-min tail filter on the reader's feeder
-thread, and trained on (``AsyncSGDWorker.train``). Then the model is written to
-``model_output`` and scored on ``validation_data`` when the conf has
-them.
+``async_sgd`` app and model evaluation, on one device (the CUDA device
+unless ``--device`` names another).
+
+- ``async_sgd``: each ``training_data`` file pattern is one workload a
+  pass, for ``num_data_pass`` passes; a workload is read, parsed and
+  passed through a fresh count-min tail filter on the reader's feeder
+  thread, and trained on (``AsyncSGDWorker.train``). Then the model is
+  written to ``model_output`` and scored on ``validation_data`` when the
+  conf has them.
+- ``validation_data`` and no ``async_sgd``: the model in ``model_input``
+  is scored on the validation data (``ModelEvaluation``).
 
 The system layer is not ported: the postoffice, heartbeats, dashboard
 and recovery (ROADMAP A9, A12). Flags that need it raise
-``NotImplementedError``, and so do confs for the darlin app and for
-model evaluation alone.
+``NotImplementedError``, and so do confs for the darlin app (A10).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ...learner.sgd import MinibatchReader
 from ...learner.workload_pool import Workload, WorkloadPool
 from .async_sgd import AsyncSGDWorker
 from .config import parse_conf
+from .model_evaluation import ModelEvaluation
 
 
 def _unported(flag: str, item: str) -> NotImplementedError:
@@ -53,7 +57,7 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--heartbeat-timeout", type=float, default=10.0)
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device to train on (default: the CUDA device)")
+                    help="torch device to run on (default: the CUDA device)")
     args = ap.parse_args(argv)
     if args.num_servers != 1 or args.num_workers not in (0, 1):
         raise _unported("--num-servers/--num-workers other than 1", "A9")
@@ -80,10 +84,8 @@ def _print_progress(worker: AsyncSGDWorker, elapsed: float) -> None:
 def _run_app(conf, device, verbose: bool = False) -> int:
     if conf.async_sgd is None:
         if conf.validation_data is not None:
-            raise NotImplementedError(
-                "model evaluation (a conf with validation_data and no "
-                "async_sgd) is not ported to the PyTorch package yet (ROADMAP A4)"
-            )
+            ModelEvaluation(conf, device=device).run()
+            return 0
         print("config selects no app", file=sys.stderr)
         return 2
     t0 = time.perf_counter()

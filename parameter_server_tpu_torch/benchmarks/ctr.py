@@ -96,3 +96,12 @@ def ctr_conf(data_glob: str, model_out: str, conf_text: str = None, **sgd) -> st
         if not n:
             text = text.replace("async_sgd {\n", "async_sgd {\n" + line, 1)
     return text
+
+
+def eval_conf(conf_path: str, data_glob: str, model_glob: str) -> str:
+    """An eval conf (``configs/*/eval_*.conf``) with its validation files
+    and model input pointed elsewhere; everything else is the conf's own."""
+    with open(conf_path) as f:
+        text = f.read()
+    text = re.sub(r'(validation_data \{[^}]*file: )"[^"]*"', rf'\1"{data_glob}"', text)
+    return re.sub(r'(model_input \{[^}]*file: )"[^"]*"', rf'\1"{model_glob}"', text)

@@ -1,11 +1,14 @@
-"""Streaming minibatch reader over text files.
+"""Streaming minibatch reader over text and record files.
 
-Counterpart of the line path of ``parameter_server_tpu/data/stream_reader.py``
-(the reference's ``StreamReader``): ``minibatches(n)`` yields
-``SparseBatch`` chunks of ``n`` examples across a list of (possibly
-gzipped) files, parsed by ``ExampleParser``. The record formats and the
-chunked native byte path (with ``rebatch``, which serves only those) are
-not ported.
+Counterpart of ``parameter_server_tpu/data/stream_reader.py`` (the
+reference's ``StreamReader``): ``minibatches(n)`` yields ``SparseBatch``
+chunks of ``n`` examples across a list of (possibly gzipped) files.
+Text is parsed by ``ExampleParser``; ``record`` files hold this repo's
+CRC-framed batches (``data/example.py``, a conf's ``format: RECORD``)
+and ``ref_record`` files the reference's protobuf ``Example`` records
+(``data/ref_interop.py``, ``format: PROTO``). ``minibatches_bytes``
+parses text in line-aligned byte chunks on threads; the record formats
+and text formats without a native parser take ``minibatches`` there.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from ..utils import file as psfile
+from ..utils import recordio
 from ..utils.sparse import SparseBatch
+from .example import batch_from_bytes
+from .ref_interop import decode_example, example_slots_to_row, iter_ref_records, rows_to_batch
 from .text_parser import ExampleParser
 
 
@@ -63,21 +69,46 @@ def rebatch(parts_iter: Iterator[SparseBatch], size: int) -> Iterator[SparseBatc
 
 
 class StreamReader:
+    """``data_format``: a text format of ``ExampleParser``, ``record`` or
+    ``ref_record``; any other name raises ``ValueError``."""
+
     def __init__(self, files: List[str], data_format: str = "libsvm"):
-        if data_format in ("record", "ref_record", "bin"):
-            raise NotImplementedError(
-                f"data format {data_format!r} is not ported to the PyTorch package yet"
-            )
         self.files = psfile.expand_globs(files)
         self.format = data_format
-        self.parser = ExampleParser(data_format)
+        self.parser = (
+            ExampleParser(data_format) if data_format not in ("record", "ref_record") else None
+        )
 
     def _lines(self) -> Iterator[str]:
         for path in self.files:
             yield from psfile.read_lines(path)
 
+    def _record_batches(self) -> Iterator[SparseBatch]:
+        for path in self.files:
+            with psfile.open_read(path, "rb") as f:
+                for payload in recordio.RecordReader(f):
+                    yield batch_from_bytes(payload)
+
+    def _ref_record_batches(self, size: int) -> Iterator[SparseBatch]:
+        """One decoded ``Example`` a record, ``size`` of them a batch."""
+        rows: List = []
+        for path in self.files:
+            for payload in iter_ref_records(path):
+                rows.append(example_slots_to_row(decode_example(payload)))
+                if len(rows) >= size:
+                    yield rows_to_batch(rows)
+                    rows = []
+        if rows:
+            yield rows_to_batch(rows)
+
     def minibatches(self, size: int) -> Iterator[SparseBatch]:
         """Yield batches of ``size`` examples (the last may be smaller)."""
+        if self.format == "record":
+            yield from rebatch(self._record_batches(), size)
+            return
+        if self.format == "ref_record":
+            yield from self._ref_record_batches(size)
+            return
         lines: List[str] = []
         for line in self._lines():
             lines.append(line)
@@ -112,9 +143,10 @@ class StreamReader:
                           threads: int = 4) -> Iterator[SparseBatch]:
         """The batches of :meth:`minibatches`, from line-aligned byte
         chunks parsed on ``threads`` threads (at most ``threads + 2``
-        chunks in memory). Formats without a native parser, or a parser
-        built with ``use_native=False``, take the line path."""
-        if not self.parser.use_native:
+        chunks in memory). The record formats, text formats without a
+        native parser, and a parser built with ``use_native=False`` take
+        :meth:`minibatches`."""
+        if self.parser is None or not self.parser.use_native:
             yield from self.minibatches(size)
             return
 

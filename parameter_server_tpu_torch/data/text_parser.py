@@ -2,14 +2,17 @@
 
 Counterpart of the pure-Python line path of
 ``parameter_server_tpu/data/text_parser.py`` (the reference's
-``ExampleParser``) for the three formats the port's confs use: libsvm
+``ExampleParser``) for every text format of the reference: libsvm
 ("label idx:val ..."), criteo (label, 13 integer counts, 26 categorical
-tokens, tab-separated) and the parameter server's SPARSE_BINARY
-("label; group key key ...;"). libsvm and criteo go through the port's
-native library (``native/psnative.cc``, the same source as the JAX
-package's) unless the parser is built with ``use_native=False``; the
-native and Python parsers give bit-identical batches. Other formats
-raise ``NotImplementedError``.
+tokens, tab-separated), adfea ("line_id 1 label key:group ..."), terafea
+("label line_id separator key ...") and the parameter server's own
+SPARSE ("label;group idx:val ...;"), SPARSE_BINARY ("label;group key
+...;") and DENSE ("label;group val val ...;"). libsvm and criteo go
+through the port's native library (``native/psnative.cc``, the same
+source as the JAX package's) unless the parser is built with
+``use_native=False``; the native and Python parsers give bit-identical
+batches. The other formats are Python only, as in the JAX package. An
+unknown name, and ``bin``, raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -203,6 +206,103 @@ def parse_criteo(lines: List[str]) -> SparseBatch:
     return _batch_from_rows(labels, keys, None, slots)
 
 
+def parse_adfea(lines: List[str]) -> SparseBatch:
+    """adfea: the tokens, split on spaces and colons, are ``line_id 1
+    label key group key group ...`` (the label is the third token).
+    Binary; a key is striped by its group (``group * 2^52 + key mod
+    (2^52 - 1)``), and the group is its slot."""
+    labels, keys, slots = [], [], []
+    for line in lines:
+        toks = line.replace(":", " ").split()
+        if len(toks) < 3:
+            continue
+        try:
+            label = float(toks[2])
+        except ValueError:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        k, s = [], []
+        pairs = toks[3:]
+        for j in range(0, len(pairs) - 1, 2):
+            try:
+                key = int(pairs[j])
+                g = int(pairs[j + 1])
+            except ValueError:
+                continue
+            k.append(_wrap_i64(g * SLOT_SPACE + key % (SLOT_SPACE - 1)))
+            s.append(_wrap_i32(g))
+        keys.append(np.asarray(k, dtype=np.int64))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, None, slots)
+
+
+def parse_terafea(lines: List[str]) -> SparseBatch:
+    """terafea: space-separated ``label line_id separator key key ...``.
+    Binary; the whole key is the feature (masked to the non-negative
+    int64 range) and its top 10 bits (``key >> 54``) are its slot."""
+    labels, keys, slots = [], [], []
+    for line in lines:
+        toks = line.split()
+        if len(toks) < 3:
+            continue
+        try:
+            label = float(toks[0])
+        except ValueError:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        k, s = [], []
+        for tok in toks[3:]:
+            try:
+                key = int(tok)
+            except ValueError:
+                continue
+            k.append(key & 0x7FFFFFFFFFFFFFFF)
+            s.append((key >> 54) & 0x3FF)
+        keys.append(np.asarray(k, dtype=np.int64))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, None, slots)
+
+
+def parse_ps_sparse(lines: List[str]) -> SparseBatch:
+    """SPARSE: "label;grp_id idx:val ...;grp_id ...;" -- keys striped by
+    group (``grp_id * 2^52 + idx``), a missing value is 1.0, the group
+    id is the slot. A token whose key or value does not parse is
+    dropped whole."""
+    labels, keys, vals, slots = [], [], [], []
+    for line in lines:
+        groups = [g for g in line.strip().split(";") if g]
+        if not groups:
+            continue
+        try:
+            label = float(groups[0])
+        except ValueError:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        k, v, s = [], [], []
+        for grp in groups[1:]:
+            toks = grp.split()
+            if not toks:
+                continue
+            try:
+                gid = int(toks[0])
+            except ValueError:
+                continue
+            for tok in toks[1:]:
+                i, _, x = tok.partition(":")
+                try:
+                    key = _wrap_i64(gid * SLOT_SPACE + int(i))
+                    val = float(x) if x else 1.0
+                except ValueError:
+                    continue
+                k.append(key)
+                v.append(val)
+                s.append(_wrap_i32(gid))
+        keys.append(np.asarray(k, dtype=np.int64))
+        vals.append(np.asarray(v, dtype=np.float32))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, vals, slots)
+
+
 def parse_ps_sparse_binary(lines: List[str]) -> SparseBatch:
     """SPARSE_BINARY: "label;grp_id key key ...;" -- every token after
     the group id is a bare uint64 key, values implicitly 1; keys are
@@ -235,6 +335,43 @@ def parse_ps_sparse_binary(lines: List[str]) -> SparseBatch:
         keys.append(np.asarray(k, dtype=np.int64))
         slots.append(np.asarray(s, dtype=np.int32))
     return _batch_from_rows(labels, keys, None, slots)
+
+
+def parse_ps_dense(lines: List[str]) -> SparseBatch:
+    """DENSE: "label;grp_id val val ...;" -- each value's key is its
+    position in its group, striped by group (``grp_id * 2^52 + pos``,
+    positions counted over the group's tokens, bad ones included)."""
+    labels, keys, vals, slots = [], [], [], []
+    for line in lines:
+        groups = [g for g in line.strip().split(";") if g]
+        if not groups:
+            continue
+        try:
+            label = float(groups[0])
+        except ValueError:
+            continue
+        labels.append(1.0 if label > 0 else -1.0)
+        k, v, s = [], [], []
+        for grp in groups[1:]:
+            toks = grp.split()
+            if not toks:
+                continue
+            try:
+                gid = int(toks[0])
+            except ValueError:
+                continue
+            for pos, tok in enumerate(toks[1:]):
+                try:
+                    x = float(tok)
+                except ValueError:
+                    continue
+                k.append(_wrap_i64(gid * SLOT_SPACE + pos))
+                v.append(x)
+                s.append(_wrap_i32(gid))
+        keys.append(np.asarray(k, dtype=np.int64))
+        vals.append(np.asarray(v, dtype=np.float32))
+        slots.append(np.asarray(s, dtype=np.int32))
+    return _batch_from_rows(labels, keys, vals, slots)
 
 
 def _parse_native(text: bytes, fn_name: str, max_rows: int) -> SparseBatch:
@@ -278,10 +415,14 @@ def _parse_native(text: bytes, fn_name: str, max_rows: int) -> SparseBatch:
 _PARSERS = {
     "libsvm": parse_libsvm,
     "criteo": parse_criteo,
+    "adfea": parse_adfea,
+    "terafea": parse_terafea,
+    "ps": parse_ps_sparse,
+    "ps_sparse": parse_ps_sparse,
     "ps_sparse_binary": parse_ps_sparse_binary,
+    "ps_dense": parse_ps_dense,
 }
 _NATIVE = {"libsvm": "ps_parse_libsvm", "criteo": "ps_parse_criteo"}
-_NOT_PORTED = ("adfea", "terafea", "ps", "ps_sparse", "ps_dense")
 
 
 class ExampleParser:
@@ -291,10 +432,6 @@ class ExampleParser:
 
     def __init__(self, format_: str = "libsvm", use_native: bool = True):
         f = format_.lower()
-        if f in _NOT_PORTED:
-            raise NotImplementedError(
-                f"text format {format_!r} is not ported to the PyTorch package yet"
-            )
         if f not in _PARSERS:
             raise ValueError(f"unknown text format: {format_}")
         self.format = f

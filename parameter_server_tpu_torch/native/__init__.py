@@ -13,8 +13,9 @@ A library that does not build raises with the compiler's output; there
 is no quiet fallback to the NumPy or Python paths. ``ctypes`` releases
 the GIL for each call, so parses run in parallel on threads.
 
-Only the functions the main path calls have their C signature declared
-here: ``ps_hash_slots``, ``ps_parse_libsvm`` and ``ps_parse_criteo``.
+Only the functions the port calls have their C signature declared here:
+``ps_hash_slots``, ``ps_parse_libsvm``, ``ps_parse_criteo`` and
+``ps_crc32c`` (the record files' checksum).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ SIGNATURES = {
     "ps_hash_slots": ([_u64p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, _i32p], None),
     "ps_parse_libsvm": _PARSE,
     "ps_parse_criteo": _PARSE,
+    "ps_crc32c": ([ctypes.c_char_p, ctypes.c_uint64], ctypes.c_uint32),
 }
 
 _lock = threading.Lock()

@@ -40,3 +40,10 @@ def logloss(y: np.ndarray, xw: np.ndarray) -> float:
     y = np.asarray(y, dtype=np.float64)
     xw = np.asarray(xw, dtype=np.float64)
     return float(np.mean(np.logaddexp(0.0, -y * xw))) if len(y) else 0.0
+
+
+def rmse(y: np.ndarray, xw: np.ndarray) -> float:
+    """Root mean squared error of the margins against the labels."""
+    y = np.asarray(y, dtype=np.float64)
+    xw = np.asarray(xw, dtype=np.float64)
+    return float(np.sqrt(np.mean((y - xw) ** 2))) if len(y) else 0.0

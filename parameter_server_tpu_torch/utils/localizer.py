@@ -1,10 +1,11 @@
 """Key localization for the tail filter (host, numpy).
 
-Counterpart of ``Localizer.count_uniq_index`` / ``remap_index`` in
-``parameter_server_tpu/utils/localizer.py`` (with ``match_positions`` of
-``utils/ordered_match.py``): the sorted unique keys of a batch with
-their capped counts, then the batch rewritten to positions in a kept
-subset of those keys, entries of dropped keys removed.
+Counterpart of ``remap`` and ``Localizer.count_uniq_index`` /
+``remap_index`` in ``parameter_server_tpu/utils/localizer.py`` (with
+``match_positions`` of ``utils/ordered_match.py``): the sorted unique
+keys of a batch with their capped counts, then the batch rewritten to
+positions in a kept subset of those keys, entries of dropped keys
+removed.
 """
 
 from __future__ import annotations
@@ -27,6 +28,24 @@ def match_positions(dst_keys: np.ndarray, src_keys: np.ndarray) -> Tuple[np.ndar
         else np.zeros(len(src_keys), dtype=bool)
     )
     return hit, pos[hit]
+
+
+def remap(batch: SparseBatch, keep_keys: np.ndarray) -> SparseBatch:
+    """``batch`` with each key replaced by its position in sorted
+    ``keep_keys``; entries of other keys are dropped."""
+    hit, new_idx = match_positions(keep_keys, batch.indices)
+    new_counts = np.zeros(batch.n, dtype=np.int64)
+    np.add.at(new_counts, batch.row_ids()[hit], 1)
+    indptr = np.zeros(batch.n + 1, dtype=np.int64)
+    np.cumsum(new_counts, out=indptr[1:])
+    return SparseBatch(
+        y=batch.y,
+        indptr=indptr,
+        indices=new_idx.astype(np.int64),
+        values=None if batch.binary else batch.values[hit],
+        num_cols=len(keep_keys),
+        slot_ids=None if batch.slot_ids is None else batch.slot_ids[hit],
+    )
 
 
 class Localizer:

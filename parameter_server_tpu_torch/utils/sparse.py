@@ -40,6 +40,13 @@ class SparseBatch:
     def binary(self) -> bool:
         return self.values is None
 
+    @property
+    def cols(self) -> int:
+        """``num_cols``, else one past the largest key."""
+        if self.num_cols is not None:
+            return self.num_cols
+        return int(self.indices.max()) + 1 if self.nnz else 0
+
     def row_ids(self) -> np.ndarray:
         """Expand indptr to per-nnz row ids (COO rows)."""
         return np.repeat(

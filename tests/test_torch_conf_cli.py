@@ -2,7 +2,9 @@
 
 - ``parse_conf`` gives the JAX parser's field values for every ``.conf``
   under ``configs/`` that selects ``async_sgd`` (exact); confs of apps or
-  features the port does not have raise ``NotImplementedError``.
+  features the port does not have (darlin, the big-table wires) raise
+  ``NotImplementedError``; the model-evaluation confs run
+  (``tests/test_torch_model_evaluation.py``).
 - The text parsers give bit-equal ``SparseBatch``es on the committed
   libsvm fixtures and on generated SPARSE_BINARY and CRITEO lines; the
   minibatch reader with the count-min tail filter yields the same
@@ -55,6 +57,7 @@ def _selects_async_sgd(path):
 
 ASYNC = [c for c in CONFS if _selects_async_sgd(c)]
 OTHER = [c for c in CONFS if not _selects_async_sgd(c)]
+DARLIN = [c for c in OTHER if "darlin" in jcfg.parse_conf_dict(open(c).read())]
 
 
 def _ids(paths):
@@ -64,6 +67,9 @@ def _ids(paths):
 def test_every_conf_is_covered():
     assert len(ASYNC) >= 4 and len(OTHER) >= 6
     assert str(ROOT / "configs" / "ctr" / "online_l1lr.conf") in ASYNC
+    # every other conf is a darlin conf or a model evaluation
+    evals = [c for c in OTHER if os.path.basename(c).startswith("eval_")]
+    assert len(DARLIN) == 3 and sorted(DARLIN + evals) == OTHER
 
 
 @pytest.mark.parametrize("path", ASYNC, ids=_ids(ASYNC))
@@ -108,7 +114,7 @@ def test_ctr_conf_fields():
     assert (c.learning_rate.alpha, c.learning_rate.beta) == (0.01, 10.0)
 
 
-@pytest.mark.parametrize("path", OTHER, ids=_ids(OTHER))
+@pytest.mark.parametrize("path", DARLIN, ids=_ids(DARLIN))
 def test_confs_for_unported_apps_raise(path, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmain.main([path], device="cpu")
@@ -192,13 +198,17 @@ def test_sparse_binary_lines_bit_equal(tmp_path):
 
 
 def test_unported_formats_raise():
-    for fmt in ("adfea", "terafea", "ps_dense"):
-        with pytest.raises(NotImplementedError):
-            ttp.ExampleParser(fmt)
+    """Only unknown names (and ``bin``, which no reader has) raise, with
+    the JAX package's ``ValueError``; adfea, terafea, ps_dense and the
+    record formats parse (``tests/test_torch_data_formats.py``,
+    ``tests/test_torch_records.py``)."""
     with pytest.raises(ValueError):
         ttp.ExampleParser("nope")
-    with pytest.raises(NotImplementedError):
-        tsr.StreamReader(["x"], "record")
+    with pytest.raises(ValueError):
+        tsr.StreamReader(["x"], "bin")
+    for fmt in ("adfea", "terafea", "ps_dense"):
+        assert ttp.ExampleParser(fmt).format == fmt
+    assert tsr.StreamReader(["x"], "record").parser is None
 
 
 # -- reader, tail filter, workload pool --

@@ -53,7 +53,9 @@ def test_port_imports_nothing_of_jax():
               "filter.fixing_float", "data.text_parser", "learner.workload_pool",
               "apps.lm.main", "apps.lm.optim", "models.attention", "benchmarks.lm_train",
               "utils.concurrent", "learner.ingest", "native", "system.executor",
-              "benchmarks.criteo"):
+              "benchmarks.criteo", "apps.linear.model_evaluation", "utils.crc32c",
+              "utils.recordio", "data.example", "data.ref_interop", "data.text2record",
+              "data.show_example", "data.info", "data.slot_reader", "data.binmat"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -177,6 +179,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         transformer.init_lm(0, transformer.LMConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_train.make_tokens(0, 1, 1, 8)
+    from parameter_server_tpu_torch.apps.linear.model_evaluation import ModelEvaluation
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelEvaluation(tcfg.Config())
     # the CPU runs only when asked for
     w = tsgd.AsyncSGDWorker(_conf(), device="cpu")
     assert w.device.type == "cpu" and w.update_path == "torch_ref"
