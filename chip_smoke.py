@@ -19,6 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    cold L2, a spin before the start event) and the HBM-byte bound (for
    the FTRL kernels, counted from the inputs by ``benchmarks/ftrl_bytes.py``,
    beside the floor of the 32-byte sectors the members touch); the
+   sparse kernel also under a KKT keep mask with holes among the real
+   slots, at 2^22 and, bf16 √n, at 2^30 slots; the
    quantize kernel (range and codes in one launch) also on inputs whose
    min or max is a zero of both signs, with a NaN, constant, and against
    its statistical contract (round trip within one step, unbiased mean),
@@ -44,7 +46,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``DeviceUploader`` on a side stream): the same state bits and
    objectives, pinned staging buffers, the copies on a stream other than
    the steps'; wall-clock ex/s, prep summed over workers, the copies'
-   and the steps' CUDA-event times;
+   and the steps' CUDA-event times. Then the rest of the step: the
+   headline under the KKT filter (escape 1/64: the first ministep's counts
+   and state bits equal to the CPU's, then 16 ministeps with the counts
+   and state within the stated card-vs-CPU tolerances; escape 1
+   bit-identical to no filter; the drop set engaging and revisiting, the
+   feedback's copy to the host timed), on the compact exact wire with a
+   64 MB upload cache (pipelined, state bit-identical to the raw wire;
+   bytes copied a example, hit share, host encode ms, ex/s) and on the
+   bits wire (dense 2^22, ELL lanes 39: a decoded batch equal to the raw
+   one, state bit-identical to the hashed path at T 8, τ 0; then timed at
+   τ 4, T 8);
 5. CTR path: ``configs/ctr/online_l1lr.conf`` through the port's CLI
    (``parameter_server_tpu_torch.apps.linear.main``) on generated
    SPARSE_BINARY shards, with only its data files and model output
@@ -70,7 +82,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel, the metrics and every margin bit-equal to the same CLI run
    on the CPU, the model's weights the training run's nonzeros; model
    load, parse and key hash on the host clock, the device's work from
-   CUDA events, examples/s end to end;
+   CUDA events, examples/s end to end. Then the CTR conf with adaptive τ
+   (one pass over 300,000 rows, card and CPU: the same τ trajectory), the
+   Criteo data on the stream wire through the CLI (state bit-identical to
+   the hashed path, a decoded batch equal to the raw one), and
+   ``configs/criteo/online_l1lr_bigtable.conf`` through the CLI at its
+   2^30 slots on the Criteo data (the sparse update, bf16 √n, T 8, τ 4:
+   ex/s, the stages' ms, peak device memory, a falling loss, the model
+   written);
 6. LM serving (``benchmarks/lm_serve.py``: the ``doc/SERVING.md`` config,
    d_model 512, 8 heads of dim 64, 2 KV heads, 8 layers, d_ff 2048, bf16,
    int8 KV cache, random weights from the seed): the ``flash_fwd``
@@ -168,11 +187,13 @@ from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
 from parameter_server_tpu_torch.data import text_parser  # noqa: E402
 from parameter_server_tpu_torch.learner import sgd as sgd_mod  # noqa: E402
+from parameter_server_tpu_torch.learner import consistency, wire  # noqa: E402
 from parameter_server_tpu_torch.learner.sgd import MinibatchReader  # noqa: E402
 from parameter_server_tpu_torch.models import speculative, transformer  # noqa: E402
 from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
+from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
 
 BIG_SLOTS = 1 << 26  # the real-data table of bench.py --real
 PIPE_LAUNCHES = 8  # timed launches of T minibatches, serial and pipelined
@@ -267,26 +288,30 @@ def dense_case(p: int, n_dtype, masked: bool, seed, gen, frac: float = 0.19,
                 sector_floor_ms=ftrl_bytes.ms(need["sector_bytes"]))
 
 
-def sparse_case(n_dtype, seed, rel, ok, g_u, gen) -> dict:
+def sparse_case(n_dtype, seed, rel, ok, g_u, gen, p: int = SLOTS, label: str = "") -> dict:
+    """``label``: " interior keep" where ``ok`` is the KKT step's
+    ``ok & keep``, with holes among the real slots."""
     u = rel.numel()
-    z0 = torch.randn(SLOTS, device="cuda", generator=gen)
-    n0 = (torch.rand(SLOTS, device="cuda", generator=gen) * 2).to(n_dtype)
+    z0 = torch.randn(p, device="cuda", generator=gen)
+    n0 = (torch.rand(p, device="cuda", generator=gen) * 2).to(n_dtype)
     zk, nk, zr, nr = z0.clone(), n0.clone(), z0.clone(), n0.clone()
     ftrl_sparse.ftrl_sparse_update(zk, nk, rel, ok, g_u, **FTRL_KW, seed=seed)
     ftrl_sparse.ftrl_sparse_rows_ref(zr, nr, rel, ok, g_u, **FTRL_KW, seed=seed)
-    name = f"sparse P=2^{SLOTS.bit_length() - 1} U={u} {'bf16 seed' if n_dtype == torch.bfloat16 else 'f32'}"
+    name = f"sparse P=2^{p.bit_length() - 1} U={u} {'bf16 seed' if n_dtype == torch.bfloat16 else 'f32'}{label}"
     err = compare((zk, nk), (zr, nr), name)
     live_mask = ok & (g_u != 0)
-    changed = torch.zeros(SLOTS, dtype=torch.bool, device="cuda")
+    changed = torch.zeros(p, dtype=torch.bool, device="cuda")
     changed[rel[live_mask].long()] = True
-    check(torch.equal(zk[~changed], z0[~changed]), f"{name}: kernel wrote a slot it does not own")
+    check(torch.equal(zk[~changed], z0[~changed]) and torch.equal(bits(nk[~changed]), bits(n0[~changed])),
+          f"{name}: kernel wrote a slot it does not own")
     check(int((~ok).sum()) > 0, f"{name}: no sentinel tail in the input")
     need = ftrl_bytes.sparse_counts(rel, ok, g_u, n0.element_size())
     live = need["members"]
     b_ms, b_by = bound(need["bytes"], live * FTRL_FLOPS)
     ms = median_ms(lambda: ftrl_sparse.ftrl_sparse_update(zk, nk, rel, ok, g_u, **FTRL_KW, seed=seed))
     plain_ms = median_ms(lambda: ftrl_sparse.ftrl_sparse_rows_ref(zr, nr, rel, ok, g_u, **FTRL_KW, seed=seed))
-    return dict(case=name, p=SLOTS, u=u, live=live, bytes=need["bytes"], max_abs_err=err, ms=ms,
+    del z0, n0, zr, nr
+    return dict(case=name, p=p, u=u, live=live, bytes=need["bytes"], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 sector_bytes=need["sector_bytes"],
                 sector_floor_ms=ftrl_bytes.ms(need["sector_bytes"]))
@@ -483,6 +508,389 @@ def side_path(update: str, dtype: str, batches) -> dict:
                 ms_per_ministep_with_prep=wall / T * 1e3, objective=objs)
 
 
+# -- phase 4b: the rest of the async-SGD step (KKT, the encoded wires) --
+
+KKT_LAUNCHES = 2  # launches of T headline minibatches, card and CPU
+KKT_ESCAPE = 1.0 / 64.0
+# card vs CPU: suppressed slots apart, as a share of the candidates
+# (the loss's exp rounds differently on the two devices; the decision
+# |z + g| <= λ1 flips for a slot that close to the threshold)
+KKT_COUNT_TOL = 1e-4
+# ... and the table's slots beyond TRAJ_TOL (those whose decision flipped)
+KKT_STATE_TOL = 1e-3
+
+
+def interior_keep(u: int, ok, gen):
+    """A KKT-shaped keep vector: holes anywhere among the real slots."""
+    return ok & (torch.rand(u, device=ok.device, generator=gen) < 0.6)
+
+
+def bigtable_update_inputs(seed: int, gen):
+    """The sparse update's inputs on a headline batch hashed into the
+    bigtable conf's 2^30 slots (``sparse_update_inputs`` at that size)."""
+    from parameter_server_tpu_torch.parameter.parameter import KeyDirectory
+
+    p = 1 << 30
+    batch = make_batch(seed)
+    nnz_pad = max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
+    uniq = -(-min(nnz_pad, p) // 1024) * 1024
+    pb = async_sgd.prep_batch_shared(batch, KeyDirectory(p), 1, MB, nnz_pad, uniq, p)
+    rel, ok = localize(torch.as_tensor(pb.uslots[0]).cuda(), p)
+    g_u = torch.randn(uniq, device="cuda", generator=gen) * torch.as_tensor(pb.umask[0]).cuda()
+    return rel, ok, g_u
+
+
+def kkt_conf(**sgd):
+    c = conf("sparse")
+    for k, v in sgd.items():
+        setattr(c.async_sgd, k, v)
+    return c
+
+
+def kkt_path(batches) -> dict:
+    """The headline sparse path (2^22 slots, 16384 x 39 keys, T = 8, λ1 = 1)
+    under the KKT filter:
+    - escape 1/64, the first ministep on the card and on the CPU: the
+      counts and the state bits equal (the weights are zero, so every
+      row gradient is exactly ±1/2);
+    - escape 1/64, ``KKT_LAUNCHES`` launches on the card and on the CPU:
+      the candidates equal; the suppressed counts within
+      ``KKT_COUNT_TOL`` of the candidates (the loss's exp need not round
+      alike on the two devices, ``agree_with_cpu``, so a slot whose
+      ``|z + g|`` lies within those last bits of λ1 may fall on either
+      side); the state within the card-vs-CPU tolerance except at most
+      ``KKT_STATE_TOL`` of the table's slots (a flipped slot took or
+      skipped a whole update); the objectives within 1e-5 relative;
+    - escape 1.0: bit-identical to the unfiltered run on the card;
+    - ``kkt_drop_after`` 2, ``ingest_workers=1``, per-minibatch launches
+      (the feedback needs them): the drop set engages and revisits."""
+    group = batches[:KKT_LAUNCHES * T]
+    first = {}
+    for dev in ("cuda", "cpu"):
+        w = AsyncSGDWorker(kkt_conf(kkt_filter=True, kkt_escape=KKT_ESCAPE, steps_per_launch=1),
+                           device=dev)
+        w.collect(w.process_minibatch(group[0]))
+        first[dev] = w
+    fc, fh = (first[d]._consistency.tracker.summary() for d in ("cuda", "cpu"))
+    check(fc == fh and 0 < fc["suppressed"] < fc["candidates"],
+          f"KKT first ministep: card {fc} vs CPU {fh}")
+    for k in first["cuda"].state:
+        check(torch.equal(bits(first["cuda"].state[k].cpu()), bits(first["cpu"].state[k])),
+              f"KKT first ministep: {k} differs from the CPU's")
+    del first
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        w = AsyncSGDWorker(kkt_conf(kkt_filter=True, kkt_escape=KKT_ESCAPE), device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        w.train(iter(group), pipelined=False)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(worker=w, wall=time.perf_counter() - t0, launches=counts(),
+                         summary=w._consistency.tracker.summary())
+    card, cpu = runs["cuda"], runs["cpu"]
+    n = len(group)
+    check(card["launches"] == (n, 0, 0, 2 * n), f"KKT launch counts {card['launches']}, want {n}/0/0/{2 * n}")
+    s, sh = card["summary"], cpu["summary"]
+    gap = abs(s["suppressed"] - sh["suppressed"])
+    check(s["candidates"] == sh["candidates"] and s["reconciled"]
+          and gap <= KKT_COUNT_TOL * s["candidates"],
+          f"KKT counts card {s} vs CPU {sh}")
+    check(0 < s["suppressed"] < s["candidates"], f"KKT: nothing or everything suppressed {s}")
+    # a slot whose decision flipped took (or skipped) a whole update:
+    # beyond TRAJ_TOL there, within it everywhere else
+    apart = torch.zeros(SLOTS, dtype=torch.bool)
+    for k, x in card["worker"].state.items():
+        x, y = x.cpu().float(), cpu["worker"].state[k].float()
+        apart |= ~torch.isclose(x, y, **TRAJ_TOL)
+    n_apart = int(apart.sum())
+    check(n_apart <= KKT_STATE_TOL * SLOTS, f"KKT escape 1/64 vs CPU: {n_apart} slots apart")
+    oc = [float(x) for x in card["worker"].progress.objective]
+    oh = [float(x) for x in cpu["worker"].progress.objective]
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(oc, oh)), f"KKT objectives card {oc} vs CPU {oh}")
+    bits_equal = n_apart == 0 and all(
+        torch.equal(bits(card["worker"].state[k].cpu()), bits(cpu["worker"].state[k]))
+        for k in card["worker"].state)
+    states = {}
+    for name, sgd in (("off", {}), ("escape 1", dict(kkt_filter=True, kkt_escape=1.0))):
+        w = AsyncSGDWorker(kkt_conf(**sgd), device="cuda")
+        w.train(iter(group), pipelined=False)
+        states[name] = {k: bits(v).clone() for k, v in w.state.items()}
+    for k in states["off"]:
+        check(torch.equal(states["off"][k], states["escape 1"][k]), f"KKT escape 1: {k} differs from no filter")
+    drop = AsyncSGDWorker(kkt_conf(kkt_filter=True, kkt_margin=1e9, kkt_escape=0.0, kkt_drop_after=2,
+                                   kkt_revisit_every=5, ingest_workers=1, steps_per_launch=1),
+                          device="cuda")
+    reset_counts()
+    feedback = dict(copy_s=0.0, copies=0, track_s=0.0)
+    host, note = consistency._host, consistency.SignificanceTracker._note_feedback
+
+    def timed_host_copy(x):  # the collect has waited for the step
+        t = time.perf_counter()
+        out = host(x)
+        feedback["copy_s"] += time.perf_counter() - t
+        feedback["copies"] += 1
+        return out
+
+    def timed_note(self, *a):
+        t = time.perf_counter()
+        note(self, *a)
+        feedback["track_s"] += time.perf_counter() - t
+
+    consistency._host, consistency.SignificanceTracker._note_feedback = timed_host_copy, timed_note
+    try:
+        t0 = time.perf_counter()
+        drop.train(iter([group[0]] * 10), pipelined=False)
+        torch.cuda.synchronize()
+        drop_wall = time.perf_counter() - t0
+    finally:
+        consistency._host, consistency.SignificanceTracker._note_feedback = host, note
+    d = drop._consistency.tracker.summary()
+    check(feedback["copies"] == 20, f"KKT feedback: {feedback['copies']} copies to the host, want 20")
+    check(d["dropped_slots"] > 0 and d["filtered_batches"] > 0 and d["revisit_batches"] == 2,
+          f"KKT drop set: {d}")
+    return dict(escape=KKT_ESCAPE, ministeps=n, counts=s, cpu_counts=sh, suppressed_gap=gap,
+                slots_apart=n_apart,
+                first_ministep_counts=fc, state_bits_equal_cpu=bits_equal,
+                card_wall_s=card["wall"], cpu_wall_s=cpu["wall"], sparse_launches=card["launches"][0],
+                escape1_bit_identical=True, drop=d, drop_launches=counts()[0],
+                drop_ms_per_ministep=drop_wall / 10 * 1e3,
+                feedback_copy_ms_per_ministep=feedback["copy_s"] / 10 * 1e3,
+                feedback_track_ms_per_ministep=feedback["track_s"] / 10 * 1e3)
+
+
+@contextlib.contextmanager
+def timed_encode():
+    """Host seconds of ``encode_exact`` summed over the prep threads."""
+    rec = dict(encode_s=0.0)
+    lock = threading.Lock()
+    orig = wire.encode_exact
+
+    def enc(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            with lock:
+                rec["encode_s"] += time.perf_counter() - t0
+
+    wire.encode_exact = enc
+    try:
+        yield rec
+    finally:
+        wire.encode_exact = orig
+
+
+ENC_LAUNCHES = 4  # launches of T a pass; two passes, the second repeating the first
+
+
+def encoded_path(batches) -> dict:
+    """The headline on the compact exact wire with the upload cache, as
+    ``bench.py`` runs it (``wire_encode="exact"``, ``wire_cache_mb`` 64,
+    the pipelined train), against the raw wire on the same batches: two
+    passes over ``ENC_LAUNCHES`` launches of T, the second repeating the
+    first (the cache's hits). The state must be bit-identical; the bytes
+    copied to the card a example, the cache's hit share, the host encode
+    a ministep and the wall-clock ex/s are measured. One decoded batch
+    equals the raw one on the card, dtype for dtype."""
+    seq = batches[:ENC_LAUNCHES * T] * 2
+    out, states = {}, {}
+    for name, sgd in (("raw", {}), ("exact", dict(wire_encode="exact", wire_cache_mb=64))):
+        with timed_encode() as rec:
+            w = AsyncSGDWorker(kkt_conf(**sgd), device="cuda")
+            w.train(iter(batches[:T]), pipelined=True)  # warm-up
+            w.staging.copied_bytes = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            w.train(iter(seq), pipelined=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = len(seq)
+        check(counts() == (n, 0, 0, 2 * n), f"encoded {name}: launch counts {counts()}")
+        states[name] = {k: bits(v).clone() for k, v in w.state.items()}
+        cache = w.upload_cache
+        out[name] = dict(ministeps=n, examples_per_s=n * MB / wall, wall_s=wall,
+                         uploaded_bytes_per_example=w.staging.copied_bytes / (n * MB),
+                         encode_ms_per_ministep=rec["encode_s"] / (n + T) * 1e3,
+                         cache_hit_share=None if cache is None else cache.hit_share,
+                         cache_saved_bytes=None if cache is None else cache.saved_bytes)
+    for k in states["raw"]:
+        check(torch.equal(states["raw"][k], states["exact"][k]), f"encoded wire: {k} differs from the raw wire")
+    check(out["exact"]["cache_hit_share"] > 0, "encoded wire: the cache never hit")
+    w = AsyncSGDWorker(kkt_conf(), device="cuda")
+    raw = w.prep(batches[0], device_put=False)
+    enc = wire.encode_exact(raw, w.num_slots)
+    check(enc is not None, "encode_exact refused a headline batch")
+    dev_enc = w.upload(enc)
+    dec = wire.decode_exact_shard(dev_enc, w.num_slots, 0)
+    for name, got in zip(async_sgd._EXACT, dec):
+        want = torch.as_tensor(getattr(raw, name)[0])
+        check(got.dtype == want.dtype and torch.equal(got.cpu(), want), f"decoded {name} differs from the raw wire")
+    out["raw_batch_bytes_per_example"] = wire.batch_nbytes(raw) / MB
+    out["encoded_batch_bytes_per_example"] = wire.batch_nbytes(enc) / MB
+    return out
+
+
+def bits_paths(batches) -> dict:
+    """The headline on ``wire: bits`` (dense 2^22, ``ell_lanes`` 39): each
+    decoded batch equals the raw one; T = 8, τ = 0 leaves the state
+    bit-identical to the hashed per-entry path (per minibatch); then the
+    timed run at ``bench.py --wire-encode ''``'s settings (τ 4, T 8)."""
+    w = AsyncSGDWorker(kkt_conf(update="dense", ell_lanes=39, wire="bits"), device="cuda")
+    host = w.prep(batches[0], device_put=False)
+    check(isinstance(host, async_sgd.ELLBitsBatch), f"bits wire: prep gave {type(host).__name__}")
+    y, mask, rows, slots, _, _ = async_sgd._bits_decode(w.num_slots, 39)(w.upload(host), 0)
+    b = batches[0]
+    check(torch.equal(slots.cpu(), torch.as_tensor(w.directory.slots(b.indices)))
+          and torch.equal(y.cpu(), torch.as_tensor(b.y)) and float(mask.sum()) == MB
+          and slots.dtype == torch.int32 and y.dtype == mask.dtype == torch.float32,
+          "bits wire: a decoded batch differs from the raw one")
+    group = batches[:2 * T]
+    states = {}
+    for name, sgd in (("hashed", dict(update="dense", steps_per_launch=1)),
+                      ("bits", dict(update="dense", ell_lanes=39, wire="bits"))):
+        w = AsyncSGDWorker(kkt_conf(**sgd), device="cuda")
+        reset_counts()
+        w.train(iter(group), pipelined=False)
+        n = len(group)
+        check(counts() == (0, n, 0, 2 * n), f"{name}: launch counts {counts()}, want 0/{n}/0/{2 * n}")
+        states[name] = {k: bits(v).clone() for k, v in w.state.items()}
+    for k in states["hashed"]:
+        check(torch.equal(states["hashed"][k], states["bits"][k]), f"bits wire: {k} differs from the hashed path")
+    w = AsyncSGDWorker(kkt_conf(update="dense", ell_lanes=39, wire="bits", max_delay=4), device="cuda")
+    w.train(iter(batches[:T]), pipelined=True)
+    w.staging.copied_bytes = 0
+    reset_counts()
+    timed = batches[T:T * (PIPE_LAUNCHES + 1)]
+    t0 = time.perf_counter()
+    w.train(iter(timed), pipelined=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(timed)
+    got = counts()
+    check(got == (0, n, 0, 2 * n), f"bits timed: launch counts {got}")
+    return dict(ministeps=n, dense_launches=got[1], segment_launches=got[3],
+                examples_per_s=n * MB / wall, wall_s=wall,
+                uploaded_bytes_per_example=w.staging.copied_bytes / (n * MB),
+                objective=list(w.progress.objective)[-3:])
+
+
+def stream_path(tmp: str, seed: int) -> dict:
+    """The Criteo conf's generated data (``CRITEO_SHARDS`` x
+    ``CRITEO_ROWS`` rows) through the CLI on ``ell_lanes: 39, wire:
+    "stream"`` (tail filter off, so the rows stay 39 wide; τ 0, T 8) and on
+    the hashed per-entry path: the state bit-identical; the decoded batch
+    equal to the raw one; the launches counted."""
+    data = os.path.join(tmp, "criteo")
+    if not os.path.isdir(data):
+        write_criteo_shards(data, CRITEO_SHARDS, CRITEO_ROWS, seed)
+    runs = {}
+    for name, extra in (("stream", dict(ell_lanes=39, wire='"stream"')), ("hashed", {})):
+        text = criteo_conf(os.path.join(data, "part.*"), os.path.join(tmp, f"stream_{name}"),
+                           tail_feature_freq=0, max_delay=0, steps_per_launch=8, **extra)
+        reset_counts()
+        runs[name] = rec = run_cli(text, os.path.join(tmp, f"stream_{name}.conf"), "cuda", seed)
+        n = rec["ministeps"]
+        check(counts() == (0, n, 0, 2 * n), f"stream {name}: launch counts {counts()}")
+        rec["launches"] = counts()
+    sw, hw = runs["stream"]["worker"], runs["hashed"]["worker"]
+    check(sw._stream_statics is not None, "stream: no lane split won on the Criteo data")
+    for k in sw.state:
+        check(torch.equal(bits(sw.state[k]), bits(hw.state[k])), f"stream wire: {k} differs from the hashed path")
+    reader = MinibatchReader(files=[os.path.join(data, "part-001")], minibatch_size=10_000,
+                             data_format="criteo")
+    with reader:
+        b = next(iter(reader))
+    host = sw.prep(b, device_put=False)
+    check(isinstance(host, wire.EncodedEllStreamBatch), f"stream: prep gave {type(host).__name__}")
+    y, mask, slots = wire.decode_stream_shard(sw.upload(host), 0)
+    check(torch.equal(slots[:b.n].cpu().reshape(-1), torch.as_tensor(sw.directory.slots(b.indices)))
+          and torch.equal(y[:b.n].cpu(), torch.as_tensor(b.y)) and slots.dtype == torch.int32,
+          "stream wire: a decoded batch differs from the raw one")
+    st = sw._stream_statics
+    rec = runs["stream"]
+    n = rec["ministeps"]
+    return dict(ministeps=n, dense_launches=n, segment_launches=2 * n, dict_lanes=len(st.dict_lanes),
+                code_bits=st.code_bits, raw_bits=st.raw_bits,
+                stream_batch_bytes_per_example=wire.batch_nbytes(host) / b.n,
+                **per_ministep(rec), wall_s=rec["wall_s"],
+                hashed_wall_s=runs["hashed"]["wall_s"],
+                examples_per_s_e2e=sum(rec["examples"]) / rec["wall_s"])
+
+
+def tau_path(tmp: str, seed: int) -> dict:
+    """``configs/ctr/online_l1lr.conf`` with adaptive τ (set after the
+    parse: the reference's parser reads no ``tau_adaptive``) through the
+    CLI, one pass over ``TAU_ROWS`` rows, on the card and on the CPU: the
+    same τ trajectory."""
+    write_ctr_shards(os.path.join(tmp, "tau"), 1, TAU_ROWS, seed)
+    parse = linear_main.parse_conf
+
+    def adaptive(text):
+        c = parse(text)
+        c.async_sgd.tau_adaptive = True
+        return c
+
+    linear_main.parse_conf = adaptive
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            text = ctr_conf(os.path.join(tmp, "tau", "part.*"), os.path.join(tmp, f"tau_{dev}"),
+                            num_data_pass=1)
+            reset_counts()
+            runs[dev] = run_cli(text, os.path.join(tmp, f"tau_{dev}.conf"), dev)
+            runs[dev]["launches"] = counts()
+    finally:
+        linear_main.parse_conf = parse
+    traces = {d: r["worker"]._consistency.controller.tau_trace for d, r in runs.items()}
+    check(traces["cuda"] == traces["cpu"], f"adaptive tau: card {traces['cuda']} vs CPU {traces['cpu']}")
+    check(max(traces["cuda"]) > 1, f"adaptive tau never widened: {traces['cuda']}")
+    card = runs["cuda"]
+    n = card["ministeps"]
+    check(card["launches"] == (0, n, n, 2 * n), f"adaptive tau launch counts {card['launches']}")
+    return dict(ministeps=n, tau_trace=traces["cuda"], dense_launches=n, quantize_launches=n,
+                episodes=card["worker"]._consistency.controller.episodes,
+                examples_per_s_e2e=sum(card["examples"]) / card["wall_s"],
+                step_ms_per_ministep=card["step_s"] / n * 1e3,
+                objective_first=card["objective"][0], objective_last=card["objective"][-1])
+
+
+BIGTABLE_CONF = os.path.join(ROOT, "configs", "criteo", "online_l1lr_bigtable.conf")
+
+
+def bigtable_path(tmp: str, seed: int) -> dict:
+    """``configs/criteo/online_l1lr_bigtable.conf`` through the CLI at its
+    2^30 slots, bf16 √n, T 8, τ 4, the tail filter, on generated Criteo
+    text cut as the Criteo cell is (``CRITEO_SHARDS`` x ``CRITEO_ROWS``
+    rows, one pass): ``update: auto`` takes the sparse exact path; the
+    loss finite and falling, the model written, the peak memory."""
+    data = os.path.join(tmp, "criteo")
+    if not os.path.isdir(data):
+        write_criteo_shards(data, CRITEO_SHARDS, CRITEO_ROWS, seed)
+    model = os.path.join(tmp, "bigtable")
+    with open(BIGTABLE_CONF) as f:
+        text = ctr_conf(os.path.join(data, "part.*"), model, conf_text=f.read())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rec = run_cli(text, os.path.join(tmp, "bigtable.conf"), "cuda", seed)
+    got = counts()
+    w = rec.pop("worker")
+    n = rec["ministeps"]
+    check(w.num_slots == 1 << 30 and w._update_mode == "sparse" and w.update_path == "cuda_sparse"
+          and w.state["sqrt_n"].dtype == torch.bfloat16 and w.sgd.steps_per_launch == 8,
+          f"bigtable worker: {w.num_slots} slots, {w._update_mode}, {w.update_path}")
+    check(got == (n, 0, 0, 2 * n), f"bigtable launch counts {got}, want {n}/0/0/{2 * n}")
+    obj = rec["objective"]
+    check(all(np.isfinite(obj)) and obj[-1] < obj[0], f"bigtable objective {obj}")
+    nz = model_nonzeros(model + "_S0")
+    check(nz > 0, "bigtable: an empty model")
+    examples = sum(rec["examples"])
+    return dict(num_slots=w.num_slots, ministeps=n, sparse_launches=got[0], segment_launches=got[3],
+                examples=examples, examples_per_s_e2e=examples / rec["wall_s"], wall_s=rec["wall_s"],
+                **per_ministep(rec), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                objective_first=obj[0], objective_last=obj[-1], model_nonzeros=nz)
+
+
 # -- phase 3b: the quantize kernel --
 
 QUANT_P = 1 << 22  # the CTR conf's table: the push quantizes the whole shard
@@ -628,6 +1036,7 @@ def segment_case(name: str, data, ids, n: int, presorted: bool, ns_per_add: floa
 # -- phase 5: the CTR conf through the CLI --
 
 CTR_SHARDS, CTR_ROWS = 3, 30_000  # 9 minibatches of 10000 rows a pass
+TAU_ROWS = 300_000  # 30 minibatches: adaptive τ widens from 1 to the cap 4
 CRITEO_SHARDS, CRITEO_ROWS = 4, 50_000  # 20 minibatches of 10000 rows, one pass
 AGREE_ROWS = 70_000  # 7 ministeps: the last 3 pull a learned snapshot (τ = 4)
 PULL_FILTER = "  pull_filter {\n    type: FIXING_FLOAT\n    num_bytes: 1\n  }\n"
@@ -672,7 +1081,7 @@ def timed_host():
         rec["examples"].append(prepped.num_examples)
         if isinstance(prepped, async_sgd.HashedBatch):
             rec["slots"].append(prepped.slots)
-        rec["ministeps"] += prepped.steps if isinstance(prepped, async_sgd.PreppedSuperBatch) else 1
+        rec["ministeps"] += prepped.steps if isinstance(prepped, async_sgd._SUPERBATCHES) else 1
         return orig["submit"](self, prepped, with_aux)
 
     def get_step(self, prepped, with_aux):
@@ -754,8 +1163,9 @@ def run_cli(conf_text: str, path: str, device: str, seed: int = 0) -> dict:
         rec.update(upload_s=0.0, step_s=rec["step_host_s"])
     (w,) = rec.pop("workers")
     rec["worker"] = w
+    # one objective a submission (a T-ministep launch, or one ministep)
     rec["objective"] = [o / e for o, e in zip(w.progress.objective, rec["examples"])]
-    check(len(rec["objective"]) == rec["ministeps"] > 0 and all(np.isfinite(rec["objective"])),
+    check(len(rec["objective"]) == len(rec["examples"]) > 0 and all(np.isfinite(rec["objective"])),
           f"CLI on {path} ({device}): objective {rec['objective']}")
     return rec
 
@@ -1571,10 +1981,20 @@ def main() -> int:
         dense_case(BIG_SLOTS, torch.float32, False, None, gen),
     ]
     rel, ok, g_u = sparse_update_inputs(args.seed + 1_000_000, gen)
+    keep_ok = interior_keep(rel.numel(), ok, gen)
+    g_kept = torch.where(keep_ok, g_u, 0.0)  # the KKT step zeroes a suppressed gradient
+    rel_b, ok_b, g_b = bigtable_update_inputs(args.seed + 1_000_000, gen)
+    keep_b = interior_keep(rel_b.numel(), ok_b, gen)
     sparse_rows = [
         sparse_case(torch.float32, None, rel, ok, g_u, gen),
         sparse_case(torch.bfloat16, 7, rel, ok, g_u, gen),
+        sparse_case(torch.float32, None, rel, keep_ok, g_kept, gen, label=" interior keep"),
+        sparse_case(torch.bfloat16, 7, rel, keep_ok, g_kept, gen, label=" interior keep"),
+        sparse_case(torch.bfloat16, 7, rel_b, keep_b, torch.where(keep_b, g_b, 0.0), gen, p=1 << 30,
+                    label=" interior keep"),
     ]
+    del rel_b, ok_b, g_b, keep_b
+    torch.cuda.empty_cache()
     for r in dense_rows + sparse_rows:
         print(f"# parity {r['case']}: bit-equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} B, live {r['live']}), "
@@ -1643,6 +2063,37 @@ def main() -> int:
           f"{par['step_ms_per_ministep']:.3f} ms; z and sqrt_n bits identical", flush=True)
     dense = side_path("dense", "float32", batches)
     bf16 = side_path("sparse", "bfloat16", batches)
+    kkt = kkt_path(batches)
+    kc = kkt["counts"]
+    print(f"# KKT (card's own numbers, {smi}): headline sparse 2^22, T={T}, escape {kkt['escape']:g}; "
+          f"first ministep counts {kkt['first_ministep_counts']['suppressed']} of "
+          f"{kkt['first_ministep_counts']['candidates']} and state bits equal to the CPU's; "
+          f"{kkt['ministeps']} ministeps: candidates {kc['candidates']}, suppressed {kc['suppressed']} "
+          f"({kc['suppressed'] / kc['candidates']:.4f}; the CPU run {kkt['cpu_counts']['suppressed']}, "
+          f"{kkt['suppressed_gap']} apart, tolerance {KKT_COUNT_TOL:g} of the candidates); slots of the "
+          f"state beyond the card-vs-CPU tolerance {kkt['slots_apart']} (bound {KKT_STATE_TOL:g} of "
+          f"{SLOTS}; bits all equal: {kkt['state_bits_equal_cpu']}); escape 1 "
+          f"bit-identical to no filter; drop set (drop after 2, revisit every 5, 10 ministeps): "
+          f"{kkt['drop']}, {kkt['drop_ms_per_ministep']:.3f} ms a ministep, of which the keep "
+          f"vector's and slot ids' copy to the host {kkt['feedback_copy_ms_per_ministep']:.3f} ms and "
+          f"the drop tracker {kkt['feedback_track_ms_per_ministep']:.3f} ms (host clock); sparse "
+          f"launches {kkt['sparse_launches']}", flush=True)
+    enc = encoded_path(batches)
+    er, ee = enc["raw"], enc["exact"]
+    print(f"# encoded exact wire (card's own numbers, {smi}): pipelined headline, 2 x {ENC_LAUNCHES} "
+          f"launches of T={T}, raw / exact + cache 64 MB: {er['examples_per_s']:.0f} / "
+          f"{ee['examples_per_s']:.0f} ex/s wall-clock; bytes copied to the card "
+          f"{er['uploaded_bytes_per_example']:.1f} / {ee['uploaded_bytes_per_example']:.1f} a example "
+          f"(a batch: {enc['raw_batch_bytes_per_example']:.1f} / "
+          f"{enc['encoded_batch_bytes_per_example']:.1f}); cache hit share {ee['cache_hit_share']:.3f}; "
+          f"host encode {ee['encode_ms_per_ministep']:.3f} ms a ministep (summed over workers); state "
+          f"bits identical", flush=True)
+    bw = bits_paths(batches)
+    print(f"# bits wire (card's own numbers, {smi}): dense 2^22, ell_lanes 39, tau 4, T={T}: "
+          f"{bw['examples_per_s']:.0f} ex/s pipelined, {bw['uploaded_bytes_per_example']:.1f} bytes "
+          f"copied a example; launches dense {bw['dense_launches']}, segment_sum "
+          f"{bw['segment_launches']}; decoded batch equal to the raw one; T=8, tau 0 state bits "
+          f"identical to the hashed path", flush=True)
     print(f"# dense path: {dense['dense_launches']} dense launches, "
           f"{dense['ms_per_ministep_with_prep']:.3f} ms/ministep with prep", flush=True)
     print(f"# bf16 sparse path: {bf16['sparse_launches']} sparse launches, "
@@ -1663,10 +2114,32 @@ def main() -> int:
               f"{ctr['touched_frac']:.6f} of the table on average", flush=True)
         agree = ctr_agree_and_pull(tmp, args.seed + 1)
         crit = criteo_path(tmp, args.seed + 2)
+        tau = tau_path(tmp, args.seed + 5)
+        stream = stream_path(tmp, args.seed + 2)
         evals = eval_path(tmp, args.seed, dict(
             ctr=os.path.join(tmp, "model", "ctr_online.*"),
             criteo=os.path.join(tmp, "criteo_native_S*")),
             dict(ctr=ctr["model_nonzeros"], criteo=crit["model_nonzeros"]))
+        big = bigtable_path(tmp, args.seed + 2)
+    torch.cuda.empty_cache()
+    print(f"# adaptive tau (CTR conf via CLI, card's own numbers, {smi}): {tau['ministeps']} ministeps, "
+          f"tau trajectory {tau['tau_trace']} equal to the CPU run's; episodes {tau['episodes']}; "
+          f"{tau['examples_per_s_e2e']:.0f} ex/s end to end, step {tau['step_ms_per_ministep']:.3f} ms; "
+          f"objective {tau['objective_first']:.5f} -> {tau['objective_last']:.5f}", flush=True)
+    print(f"# stream wire (Criteo data via CLI, card's own numbers, {smi}): {stream['ministeps']} "
+          f"ministeps, {stream['dict_lanes']} dictionary lanes of 39 (codes {stream['code_bits']} bits, "
+          f"raw {stream['raw_bits']}), {stream['stream_batch_bytes_per_example']:.1f} bytes a example; "
+          f"prep {stream['prep_ms_per_ministep']:.3f} ms, upload {stream['upload_ms_per_ministep']:.3f} "
+          f"ms, step {stream['step_ms_per_ministep']:.3f} ms a ministep; {stream['examples_per_s_e2e']:.0f} "
+          f"ex/s end to end; state bits identical to the hashed path", flush=True)
+    print(f"# bigtable conf via CLI (card's own numbers, {smi}): 2^{big['num_slots'].bit_length() - 1} "
+          f"slots, bf16 sqrt_n, T=8, tau 4, {big['ministeps']} ministeps of 16384 rows: "
+          f"{big['examples_per_s_e2e']:.0f} ex/s end to end ({big['wall_s']:.1f} s); per ministep: parse "
+          f"{big['parse_ms_per_ministep']:.3f} ms, tail filter {big['filter_ms_per_ministep']:.3f} ms, prep "
+          f"{big['prep_ms_per_ministep']:.3f} ms, upload {big['upload_ms_per_ministep']:.3f} ms, step "
+          f"{big['step_ms_per_ministep']:.3f} ms; peak device memory {big['peak_gib']:.2f} GiB; objective "
+          f"{big['objective_first']:.5f} -> {big['objective_last']:.5f}; model nonzeros "
+          f"{big['model_nonzeros']}; sparse launches {big['sparse_launches']}", flush=True)
     py = crit["python_parse"]
     print(f"# Criteo conf via CLI (card's own numbers, {smi}): {crit['shards']} x {crit['rows']} rows, "
           f"one pass, {crit['ministeps']} ministeps, launches masked dense FTRL {crit['dense_launches']}, "
@@ -1796,6 +2269,8 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
              replaces="parameter_server_tpu/ops/ftrl_sparse.py:407",
              launches=head["sparse_launches"],
+             kkt_launches=kkt["sparse_launches"], bigtable_launches=big["sparse_launches"],
+             interior_keep_cases=[r["case"] for r in sparse_rows if "interior" in r["case"]],
              max_abs_err=max(r["max_abs_err"] for r in sparse_rows),
              ms=main_sparse["ms"], plain_ms=main_sparse["plain_ms"],
              bound_ms=main_sparse["bound_ms"], bound_by=main_sparse["bound_by"],
@@ -1804,6 +2279,8 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_dense.cu",
              replaces="parameter_server_tpu/ops/ftrl.py:265",
              launches=ctr["dense_launches"],
+             bits_launches=bw["dense_launches"], stream_launches=stream["dense_launches"],
+             tau_adaptive_launches=tau["dense_launches"],
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
@@ -1821,6 +2298,7 @@ def main() -> int:
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
              launches=ctr["segment_launches"],
              eval_launches={name: ev["segment_launches"] for name, ev in evals.items()},
+             ell_scatter_launches=dict(bits=bw["segment_launches"], stream=stream["segment_launches"]),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -1857,6 +2335,8 @@ def main() -> int:
                   pipelined_headline=pipe, dense_path=dense, bf16_path=bf16, criteo=crit,
                   native_build_seconds=native_s,
                   ctr=ctr, ctr_agree_and_pull=agree, model_evaluation=evals,
+                  kkt=kkt, encoded_wire=enc, bits_wire=bw, stream_wire=stream, adaptive_tau=tau,
+                  bigtable=big,
                   kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,

@@ -17,6 +17,16 @@ explicit ``touched`` mask; a FIXING_FLOAT pull filter quantizes the
 derived weights; ADD_NOISE perturbs either side. Bounded delay τ > 0
 computes gradients on a weight snapshot refreshed every τ ministeps.
 
+The rest of the JAX step is here too. The KKT filter
+(``ops/significance.py``) sits between push and update in the sparse
+step and leaves suppressed rows bit-untouched; adaptive τ
+(``learner/consistency.py``) moves the live bounded delay under the
+configured cap. The encoded wires ship only encoded bytes and decode on
+the step's device: the compact exact wire (``wire_encode``), and with
+``ell_lanes`` the ELL wires (i32, u24, bits, stream), whose gradient
+scatter is the same stable sort and segment-sum kernel as the hashed
+step's, so their state is bit-identical to it.
+
 The host side runs as the JAX worker's does. Steps run on an
 :class:`~...system.executor.Executor`'s dispatch thread, at most τ + 1
 in flight; seeds and the snapshot schedule are fixed on the submitting
@@ -28,8 +38,7 @@ staging buffers and sent on a side CUDA stream, which the step's stream
 waits on. The pipelined state is bit-identical to the serial one.
 
 Not ported yet (``SGDConfig.validate`` raises ``NotImplementedError``):
-the ELL/bits/stream and encoded wires, the KKT filter and adaptive τ,
-replicas and multi-GPU.
+server replicas; multi-GPU.
 """
 
 from __future__ import annotations
@@ -46,16 +55,27 @@ import torch
 
 from ...device import resolve
 from ...convert import state_from_jax, state_to_numpy
+from ...learner import wire
+from ...learner.consistency import ConsistencyRuntime
 from ...learner.ingest import IngestPipeline
 from ...learner.sgd import SGDProgress
 from ...ops import quantize as qops
+from ...ops import wire_codec as wc
 from ...ops.ftrl_sparse import resolve_update_path
-from ...ops.kv_ops import localize, slot_sentinel
+from ...ops.kv_ops import localize, slot_sentinel, valid_slots
+from ...ops.significance import SignificanceSpec, kkt_mask
 from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots
 from ...system.executor import Executor
 from ...utils import evaluation
 from ...utils import file as psfile
+from ...utils.bitpack import (
+    hash_slots_packed,
+    packed_nwords,
+    slot_bits,
+    unpack_bits,
+    unpack_sign_bits,
+)
 from ...utils.concurrent import iter_on_thread
 from ...utils.sparse import SparseBatch
 from .config import Config, SGDConfig
@@ -211,6 +231,217 @@ def prep_batch_hashed(batch: SparseBatch, directory, num_shards: int,
     return HashedBatch(*(np.stack(x) for x in zip(*shards)))
 
 
+@dataclasses.dataclass
+class ELLBatch:
+    """ELL row blocks: each row owns ``K`` feature lanes, ``slots[r, k]``
+    (sentinel ``num_slots`` where a row has fewer features) and ``vals``
+    (None for binary features)."""
+
+    y: np.ndarray  # [D, R]
+    mask: np.ndarray  # [D, R] float32
+    slots: np.ndarray  # [D, R, K] int32
+    vals: Optional[np.ndarray]  # [D, R, K] float32 or None
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.mask.sum())
+
+
+@dataclasses.dataclass
+class ELLPackedBatch:
+    """ELLBatch with 3-byte little-endian slot ids and a uint8 mask."""
+
+    y: np.ndarray  # [D, R] float32
+    mask: np.ndarray  # [D, R] uint8
+    slots_u24: np.ndarray  # [D, R, K, 3] uint8
+    vals: Optional[np.ndarray]
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.mask.sum())
+
+
+@dataclasses.dataclass
+class ELLBitsBatch:
+    """The minimal ELL wire (hashed keys, binary features, uniform rows,
+    ±1 labels): ceil(log2 S)-bit slot ids, sign-bit labels, a live-row
+    count for the mask. ``rows`` is the row padding R."""
+
+    y_bits: np.ndarray  # [D, ceil(R/8)] uint8
+    counts: np.ndarray  # [D] int32
+    slots_words: np.ndarray  # [D, W] uint32
+    rows: int = wire.static(0)
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.counts.sum())
+
+
+@dataclasses.dataclass
+class ELLBitsSuperBatch(ELLBitsBatch):
+    """T stacked ELLBitsBatches (arrays [T, D, ...])."""
+
+    @property
+    def steps(self) -> int:
+        return int(self.counts.shape[0])
+
+
+def stack_bits_batches(parts: List[ELLBitsBatch]) -> ELLBitsSuperBatch:
+    rows = parts[0].rows
+    if any(p.rows != rows for p in parts):
+        raise ValueError("a bits superbatch needs one row padding")
+    return ELLBitsSuperBatch(
+        y_bits=np.stack([p.y_bits for p in parts]),
+        counts=np.stack([p.counts for p in parts]),
+        slots_words=np.stack([p.slots_words for p in parts]),
+        rows=rows,
+    )
+
+
+def pack_u24(idx: np.ndarray) -> np.ndarray:
+    """int32 [...] -> uint8 [..., 3] little-endian (values < 2^24)."""
+    flat = np.ascontiguousarray(idx, dtype="<u4")
+    return flat.view(np.uint8).reshape(*idx.shape, 4)[..., :3].copy()
+
+
+def _lane_positions(counts: np.ndarray, lanes: int) -> np.ndarray:
+    """Each entry's lane within its row; -1 past the lane budget."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    starts = np.zeros(len(counts), np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    pos = np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+    return np.where(pos < lanes, pos, -1)
+
+
+def prep_batch_ell(batch: SparseBatch, directory, num_shards: int, rows_pad: int,
+                   lanes: int, num_slots: int, pack: bool = False):
+    """A CSR batch in ELL lanes (``pack``: 3-byte slot ids). A row wider
+    than ``lanes`` raises: packing would drop features (the worker's
+    prep checks first and takes the hashed path instead)."""
+    widths = np.diff(batch.indptr)
+    max_row = int(widths.max()) if batch.n else 0
+    if max_row > lanes:
+        dropped = int(np.maximum(widths - lanes, 0).sum())
+        raise ValueError(
+            f"ELL lane budget {lanes} < widest row {max_row}: packing would "
+            f"silently drop {dropped} features; raise ell_lanes or use the "
+            "hashed COO path"
+        )
+    shards = []
+    per = -(-batch.n // num_shards)
+    binary = batch.binary
+    for d in range(num_shards):
+        lo_r, hi_r = min(d * per, batch.n), min((d + 1) * per, batch.n)
+        nsub = hi_r - lo_r
+        y = np.zeros(rows_pad, np.float32)
+        y[:nsub] = batch.y[lo_r:hi_r]
+        mask = np.zeros(rows_pad, np.float32)
+        mask[:nsub] = 1.0
+        counts = np.diff(batch.indptr[lo_r: hi_r + 1]).astype(np.int64)
+        seg = slice(batch.indptr[lo_r], batch.indptr[hi_r])
+        slot_ids = directory.slots(batch.indices[seg])
+        slots = np.full((rows_pad, lanes), slot_sentinel(num_slots), np.int32)
+        vals = None if binary else np.zeros((rows_pad, lanes), np.float32)
+        if nsub and bool((counts == lanes).all()):
+            slots[:nsub] = slot_ids.reshape(nsub, lanes)  # uniform rows: a reshape
+            if not binary:
+                vals[:nsub] = batch.values[seg].reshape(nsub, lanes)
+        else:
+            lane_idx = _lane_positions(counts, lanes)
+            keep = lane_idx >= 0
+            flat_rows = np.repeat(np.arange(nsub), counts)[keep]
+            slots[flat_rows, lane_idx[keep]] = slot_ids[keep]
+            if not binary:
+                vals[flat_rows, lane_idx[keep]] = batch.values[seg][keep]
+        shards.append((y, mask, slots, vals))
+    ys, masks, slotss, valss = (np.stack(x) if x[0] is not None else None for x in zip(*shards))
+    if pack:
+        if num_slots >= (1 << 24):
+            raise ValueError("the u24 wire needs num_slots < 2^24")
+        return ELLPackedBatch(y=ys, mask=masks.astype(np.uint8), slots_u24=pack_u24(slotss),
+                              vals=valss)
+    return ELLBatch(y=ys, mask=masks, slots=slotss, vals=valss)
+
+
+def prep_batch_ell_bits(batch: SparseBatch, directory, num_shards: int, rows_pad: int,
+                        lanes: int, num_slots: int) -> Optional[ELLBitsBatch]:
+    """The bits wire: hash -> slot -> bitstream in one native pass a
+    shard, labels as sign bits, the mask as a row count. None unless the
+    batch is binary, its rows uniform and its labels ±1 (the caller then
+    takes the u24 wire)."""
+    if not (batch.binary and directory.hashed):
+        return None
+    if not (np.diff(batch.indptr) == lanes).all():
+        return None
+    if not (np.abs(batch.y) == 1).all():
+        return None
+    bits = slot_bits(num_slots)
+    per = -(-batch.n // num_shards)
+    nwords = packed_nwords(rows_pad * lanes, bits)
+    y_nbytes = (rows_pad + 7) // 8
+    # every live byte is written by the pack; the bits of padding rows
+    # decode to slots whose gradient the row mask zeroes
+    slots_words = np.zeros((num_shards, nwords), "<u4")
+    y_bits = np.zeros((num_shards, y_nbytes), np.uint8)
+    counts = np.zeros((num_shards,), np.int32)
+    for d in range(num_shards):
+        lo_r, hi_r = min(d * per, batch.n), min((d + 1) * per, batch.n)
+        nsub = hi_r - lo_r
+        if nsub > rows_pad:
+            raise ValueError(f"batch exceeds padding: {nsub}>{rows_pad}")
+        seg = slice(batch.indptr[lo_r], batch.indptr[hi_r])
+        nbytes = (nsub * lanes * bits + 7) // 8
+        # the hash modulus is the directory's configured slot count
+        hash_slots_packed(batch.indices[seg], directory.num_slots, bits,
+                          out=slots_words[d].view(np.uint8)[:nbytes])
+        yb = np.packbits(batch.y[lo_r:hi_r] > 0, bitorder="little")
+        y_bits[d, : yb.size] = yb
+        counts[d] = nsub
+    return ELLBitsBatch(y_bits=y_bits, counts=counts, slots_words=slots_words, rows=rows_pad)
+
+
+def prep_batch_ell_stream(batch: SparseBatch, directory, num_shards: int, rows_pad: int,
+                          lanes: int, num_slots: int, statics):
+    """The lane-dictionary wire (``learner/wire.encode_stream_shard``
+    a shard), on the bits wire's domain and within the pinned
+    ``statics``; None otherwise (the caller takes the bits wire)."""
+    if statics is None or not (batch.binary and directory.hashed) or statics.lanes != lanes:
+        return None
+    if not (np.diff(batch.indptr) == lanes).all() or not (np.abs(batch.y) == 1).all():
+        return None
+    per = -(-batch.n // num_shards)
+    y_bits = np.zeros((num_shards, (rows_pad + 7) // 8), np.uint8)
+    counts = np.zeros((num_shards,), np.int32)
+    lane_starts = np.zeros((num_shards, len(statics.dict_lanes)), np.int32)
+    n_uniq = np.zeros((num_shards,), np.int32)
+    raw_ws, code_ws, table_ws = [], [], []
+    for d in range(num_shards):
+        lo_r, hi_r = min(d * per, batch.n), min((d + 1) * per, batch.n)
+        nsub = hi_r - lo_r
+        if nsub > rows_pad:
+            raise ValueError(f"batch exceeds padding: {nsub}>{rows_pad}")
+        seg = slice(batch.indptr[lo_r], batch.indptr[hi_r])
+        got = wire.encode_stream_shard(batch.indices[seg], nsub, rows_pad,
+                                       directory.num_slots, statics)
+        if got is None:  # the shard outgrew the pinned statics
+            return None
+        raw_w, code_w, table_w, lane_starts[d], n_uniq[d] = got
+        raw_ws.append(raw_w)
+        code_ws.append(code_w)
+        table_ws.append(table_w)
+        yb = np.packbits(batch.y[lo_r:hi_r] > 0, bitorder="little")
+        y_bits[d, : yb.size] = yb
+        counts[d] = nsub
+    return wire.EncodedEllStreamBatch(
+        y_bits=y_bits, counts=counts, raw_words=np.stack(raw_ws), code_words=np.stack(code_ws),
+        table_words=np.stack(table_ws), lane_starts=lane_starts, n_uniq=n_uniq, rows=rows_pad,
+        lanes=lanes, dict_lanes=statics.dict_lanes, code_bits=statics.code_bits,
+        dict_pad=statics.dict_pad, raw_bits=statics.raw_bits,
+    )
+
+
 def _gather_state(state, idx):
     """Rows ``idx`` of every 1-D state leaf; scalars pass through."""
     return {k: (v.index_select(0, idx) if v.dim() >= 1 else v) for k, v in state.items()}
@@ -304,15 +535,7 @@ def make_push_touched(push_quant: int, noise=None):
     return lambda g_shard, seed: (push_reduce(g_shard, seed), g_shard != 0)
 
 
-def _gather_codes(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``q[idx]`` for uint8/uint16 codes (uint16 gathers through its
-    int16 view: PyTorch's CPU gather does not take uint16)."""
-    if q.dtype == torch.uint16:
-        return q.view(torch.int16).index_select(0, idx).view(torch.uint16)
-    return q.index_select(0, idx)
-
-
-def make_pull_lookup(updater, pull_quant: int, noise=None, narrow: bool = False):
+def make_pull_lookup(updater, pull_quant: int, noise=None):
     """The pull wire, as ``(derive, lookup)``: ``derive(pulled, seed)``
     once per step gives the representation the step gathers from,
     ``lookup(rep, rel, ok)`` the flat f32 weights at ``rel``, zero where
@@ -323,10 +546,10 @@ def make_pull_lookup(updater, pull_quant: int, noise=None, narrow: bool = False)
     derived table bit for bit, without a table-sized pass. With a
     FIXING_FLOAT pull filter the whole table's weights are derived and
     stochastically rounded to ``pull_quant`` bytes (exact zeros stay
-    zero); ``narrow`` gathers the codes plus a zero mask and dequantizes
-    after the gather, bit-equal to the wide gather of dequantized
-    weights (``pull_gather="auto"`` is wide, as in the JAX package).
-    ADD_NOISE perturbs the derived weights."""
+    zero), and the step gathers the dequantized weights: every
+    ``pull_gather`` value takes this wide gather (the JAX package's
+    narrow gather of codes is bit-equal to it). ADD_NOISE perturbs the
+    derived weights."""
     perturb = _make_perturb(noise, _PULL_NOISE_SALT)
     if not pull_quant and perturb is None:
         def lookup_rows(pulled, rel, ok):
@@ -346,18 +569,6 @@ def make_pull_lookup(updater, pull_quant: int, noise=None, narrow: bool = False)
             w = perturb(w, seed)
         q, lo, hi = qops.quantize(w, mix_seed(seed, _PULL_SEED_MUL), num_bytes=pull_quant)
         return w, q, lo, hi
-
-    if narrow:
-        def derive_narrow(pulled, seed):
-            w, q, lo, hi = quantized(pulled, seed)
-            return q, w != 0, lo, hi
-
-        def narrow_lookup(rep, rel, ok):
-            q, nz, lo, hi = rep
-            dec = qops.dequantize(_gather_codes(q, rel), lo, hi, pull_quant)
-            return torch.where(ok & nz.index_select(0, rel), dec, 0.0)
-
-        return derive_narrow, narrow_lookup
 
     def derive_wide(pulled, seed):
         w, q, lo, hi = quantized(pulled, seed)
@@ -409,14 +620,28 @@ def sparse_update_min_slots() -> int:
 
 def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str,
                           push_quant: int = 0, pull_quant: int = 0,
-                          push_noise=None, pull_noise=None, pull_narrow=False):
+                          push_noise=None, pull_noise=None, pull_narrow=False,
+                          significance: Optional[SignificanceSpec] = None):
     """One ministep over the exact (host-dedup) wire:
     ``(live, pulled, seed, y, mask, rows, ucols, vals, uslots, umask) ->
     metrics``, updating ``live`` in place. ``update="sparse"`` applies
     the update to the batch's deduplicated slots only and composes with
     the unfiltered wire only; ``update="dense"`` scatters the gradient
     into a shard-sized vector, passes it through the push wire and
-    sweeps the whole shard."""
+    sweeps the whole shard.
+
+    ``significance`` (sparse only): the KKT filter between push and
+    update. Suppressed slots get a zero gradient and ``ok & keep`` keeps
+    the update off their rows, which stay bit-untouched; the metrics
+    gain ``kkt_slots`` and ``kkt_suppressed``, and with feedback the
+    per-slot ``kkt_keep`` and ``kkt_uslots``. None runs the unfiltered
+    step."""
+    if significance is not None and update != "sparse":
+        raise ValueError(
+            "the KKT significance filter composes with update='sparse' "
+            "only (its mask is defined on the globally-deduped unique-"
+            "slot vectors)"
+        )
     if update == "sparse":
         if push_quant or pull_quant or push_noise or pull_noise:
             raise ValueError(
@@ -432,9 +657,7 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
     elif update != "dense":
         raise ValueError(f"unknown update mode {update!r}")
     push_touched = make_push_touched(push_quant, noise=push_noise)
-    pull_derive, pull_lookup = make_pull_lookup(
-        updater, pull_quant, noise=pull_noise, narrow=pull_narrow
-    )
+    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise)
 
     def mini_step(live, pulled, seed, y, mask, rows, ucols, vals, uslots, umask):
         rel, ok = localize(uslots, shard)
@@ -447,8 +670,21 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
         g_u = g_u * umask
         metrics = _progress_metrics(loss, y, xw, mask, with_aux)
         if update == "sparse":
-            apply_state_rows(updater, live, rel, ok, g_u, seed=seed)
-            return _convergence_metrics(metrics, g_u, g_u, w_u)
+            g_pushed, ok_upd = g_u, ok
+            if significance is not None:
+                z_u = torch.where(ok, pulled["z"].index_select(0, rel), 0.0) * umask
+                keep, suppressed = kkt_mask(z_u, g_u, w_u, umask, seed, spec=significance)
+                g_u = torch.where(keep, g_u, 0.0)
+                ok_upd = ok & keep
+            apply_state_rows(updater, live, rel, ok_upd, g_u, seed=seed)
+            _convergence_metrics(metrics, g_pushed, g_u, w_u)
+            if significance is not None:
+                metrics["kkt_slots"] = (umask > 0).to(torch.float32).sum()
+                metrics["kkt_suppressed"] = suppressed
+                if significance.feedback:
+                    metrics["kkt_keep"] = keep
+                    metrics["kkt_uslots"] = uslots
+            return metrics
         g_push = torch.where(ok, g_u, 0.0)
         # rel runs over the sorted unique slots, then the padding (clipped
         # onto the last slot, value 0): one entry a slot, so no sort. The
@@ -473,82 +709,244 @@ def _fold_metrics(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Te
     }
 
 
-def make_train_step(updater, loss, num_slots: int, with_aux: bool = True,
-                    update: str = "dense", **wire):
-    """Exact-wire step over one PreppedBatch:
-    ``step(live, pulled, batch, seed) -> metrics``, ``live`` updated in
-    place. ``wire``: the filter settings of :func:`_make_exact_mini_step`
-    (``push_quant``, ``pull_quant``, ``push_noise``, ``pull_noise``,
-    ``pull_narrow``)."""
-    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update, **wire)
+def _one_step(mini_step, decode):
+    """``step(live, pulled, batch, seed) -> metrics`` over one minibatch:
+    ``decode(batch, index)`` gives the ministep's arrays of data shard
+    ``index``."""
 
     def step(live, pulled, batch, seed=0):
-        return mini_step(
-            live, pulled, seed, batch.y[0], batch.mask[0], batch.rows[0],
-            batch.ucols[0], batch.vals[0], batch.uslots[0], batch.umask[0],
-        )
+        return mini_step(live, pulled, seed, *decode(batch, 0))
 
     return step
+
+
+def _scan_step(mini_step, decode):
+    """T ministeps of a superbatch in one submission, weights advancing
+    every ministep (staleness 0; the pulled snapshot is not read);
+    ministep i uses seed + i."""
+
+    def step(live, pulled, batch, seed=0):
+        del pulled
+        return _fold_metrics([mini_step(live, live, (seed + i) & _M32, *decode(batch, (i, 0)))
+                              for i in range(batch.steps)])
+
+    return step
+
+
+_EXACT = ("y", "mask", "rows", "ucols", "vals", "uslots", "umask")
+
+
+def _raw_exact(batch, index):
+    return tuple(getattr(batch, n)[index] for n in _EXACT)
+
+
+def make_train_step(updater, loss, num_slots: int, with_aux: bool = True,
+                    update: str = "dense", significance=None, **wire_kw):
+    """Exact-wire step over one PreppedBatch:
+    ``step(live, pulled, batch, seed) -> metrics``, ``live`` updated in
+    place. ``wire_kw``: the filter settings of :func:`_make_exact_mini_step`
+    (``push_quant``, ``pull_quant``, ``push_noise``, ``pull_noise``,
+    ``pull_narrow``)."""
+    return _one_step(_make_exact_mini_step(updater, loss, num_slots, with_aux, update,
+                                           significance=significance, **wire_kw), _raw_exact)
 
 
 def make_train_step_scan(updater, loss, num_slots: int, with_aux: bool = True,
-                         update: str = "dense", **wire):
-    """T ministeps over a PreppedSuperBatch in one submission, weights
-    advancing every ministep (staleness 0); ministep i uses seed + i."""
-    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update, **wire)
-
-    def step(live, pulled, batch, seed=0):
-        del pulled  # staleness 0 inside the superstep
-        per_step = [
-            mini_step(
-                live, live, (seed + i) & _M32, batch.y[i, 0], batch.mask[i, 0],
-                batch.rows[i, 0], batch.ucols[i, 0], batch.vals[i, 0],
-                batch.uslots[i, 0], batch.umask[i, 0],
-            )
-            for i in range(batch.steps)
-        ]
-        return _fold_metrics(per_step)
-
-    return step
+                         update: str = "dense", significance=None, **wire_kw):
+    """T ministeps over a PreppedSuperBatch in one submission. The KKT
+    filter keeps its mask and drops the per-slot feedback, which the
+    fold would sum over ministeps."""
+    if significance is not None:
+        significance = significance.without_feedback()
+    return _scan_step(_make_exact_mini_step(updater, loss, num_slots, with_aux, update,
+                                            significance=significance, **wire_kw), _raw_exact)
 
 
-def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True,
-                           push_quant: int = 0, pull_quant: int = 0,
-                           push_noise=None, pull_noise=None, pull_narrow=False):
-    """Per-entry step (hashed prep, dense update): gather the weight at
-    each nnz slot through the pull wire, segment-sum Xw by row,
-    scatter-add the per-entry gradients into a shard-sized vector
-    (duplicates fold there), pass it through the push wire and sweep the
-    whole shard with the dense update."""
-    shard = num_slots
+def make_train_step_encoded(updater, loss, num_slots: int, with_aux: bool = True,
+                            update: str = "dense", significance=None, **wire_kw):
+    """The exact step over an EncodedExactBatch: the encoded arrays are
+    decoded on the step's device (``learner/wire.decode_exact_shard``),
+    then the same ministep as :func:`make_train_step` runs, so the state
+    is bit-identical to the raw wire's."""
+    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update,
+                                      significance=significance, **wire_kw)
+    return _one_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i))
+
+
+def make_train_step_encoded_scan(updater, loss, num_slots: int, with_aux: bool = True,
+                                 update: str = "dense", significance=None, **wire_kw):
+    """T encoded ministeps a submission, each decoded as it runs."""
+    if significance is not None:
+        significance = significance.without_feedback()
+    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update,
+                                      significance=significance, **wire_kw)
+    return _scan_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i))
+
+
+def _make_entry_mini_step(updater, loss, shard: int, num_slots: int, with_aux: bool,
+                          push_quant: int = 0, pull_quant: int = 0, push_noise=None,
+                          pull_noise=None, pull_narrow=False):
+    """One dense-update ministep over per-entry slot ids, the body of
+    the hashed COO step and of every ELL wire:
+    ``(live, pulled, seed, y, mask, rows, slots, vals, valid) -> metrics``.
+    ``rows`` holds each entry's row in CSR order (the ELL lanes row by
+    row), ``vals`` None for binary entries, ``valid`` None or the mask
+    of entries that carry a feature. Gather the weights at each slot
+    through the pull wire, sum Xw by row, add the entries' gradients
+    into a shard-sized vector (a stable sort by slot, then each slot's
+    sum in entry order: the same bits run to run and on the CPU), pass
+    it through the push wire and sweep the whole shard."""
+    del pull_narrow  # every pull gathers wide
     push_touched = make_push_touched(push_quant, noise=push_noise)
-    pull_derive, pull_lookup = make_pull_lookup(
-        updater, pull_quant, noise=pull_noise, narrow=pull_narrow
-    )
+    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise)
 
-    def step(live, pulled, batch, seed=0):
-        y, mask, rows, slots, vals = (
-            batch.y[0], batch.mask[0], batch.rows[0], batch.slots[0], batch.vals[0],
-        )
+    def mini_step(live, pulled, seed, y, mask, rows, slots, vals, valid):
         rel, ok = localize(slots, shard)
-        # sentinel/padding slots are owned by no shard: weight 0, and
-        # their vals are 0, so they vanish from Xw and g
+        # sentinel/padding slots are owned by no shard: weight 0
         w_e = pull_lookup(pull_derive(pulled, seed), rel, ok)
-        # rows in CSR order, the padding (row 0, value 0) at the end: no sort
-        xw = _segment_sum(vals * w_e, rows, y.shape[0], presorted=True)
+        xw = _segment_sum(w_e if vals is None else vals * w_e, rows, y.shape[0], presorted=True)
         gr = loss.row_grad(y, xw) * mask
-        g_e = vals * gr.index_select(0, rows)
+        g_e = gr.index_select(0, rows)
+        if vals is not None:
+            g_e = vals * g_e
+        if valid is not None:
+            g_e = torch.where(valid, g_e, 0.0)
         g_push = torch.where(ok, g_e, 0.0)
         g_shard = _segment_sum(g_push, rel, shard)
         g_shard, touched = push_touched(g_shard, seed)
         updater.apply(live, g_shard, touched, seed=seed)
         metrics = _progress_metrics(loss, y, xw, mask, with_aux)
-        return _convergence_metrics(metrics, g_push, g_shard, w_e)
+        return _convergence_metrics(metrics, g_push, g_shard, w_e * mask.index_select(0, rows))
 
-    return step
+    return mini_step
+
+
+def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True, **wire_kw):
+    """Per-entry step (hashed prep, dense update) over a HashedBatch."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+
+    def decode(b, i):
+        return b.y[i], b.mask[i], b.rows[i], b.slots[i], b.vals[i], None
+
+    return _one_step(mini_step, decode)
+
+
+def _lane_rows(rows: int, lanes: int, device) -> torch.Tensor:
+    """Each ELL entry's row, row by row: ``repeat(arange(rows), lanes)``."""
+    return torch.arange(rows, dtype=torch.int32, device=device).repeat_interleave(lanes)
+
+
+def make_train_step_ell(updater, loss, num_slots: int, binary: bool, with_aux: bool = True,
+                        packed: bool = False, **wire_kw):
+    """The step over an ELLBatch (``packed``: an ELLPackedBatch, its
+    3-byte ids and uint8 mask decoded on the device): Xw by row over the
+    lanes, the entries' gradients into the shard."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+
+    def decode(b, i):
+        slots = wc.decode_u24(b.slots_u24[i]) if packed else b.slots[i]
+        mask = b.mask[i].to(torch.float32)
+        r, k = slots.shape
+        flat = slots.reshape(-1)
+        vals = None if binary else b.vals[i].reshape(-1)
+        valid = valid_slots(flat, num_slots) if binary else vals != 0
+        return b.y[i], mask, _lane_rows(r, k, flat.device), flat, vals, valid
+
+    return _one_step(mini_step, decode)
+
+
+def _uniform_ell(y, mask, slots):
+    """A uniform-row binary ELL ministep's arguments: every lane of a
+    live row is a feature, and the row mask zeroes the padding rows."""
+    r, k = slots.shape
+    flat = slots.reshape(-1)
+    return y, mask, _lane_rows(r, k, flat.device), flat, None, None
+
+
+def _bits_decode(num_slots: int, lanes: int):
+    bits = slot_bits(num_slots)
+
+    def decode(b, i):
+        # the labels of padding rows decode too; the row mask gates them
+        y = unpack_sign_bits(b.y_bits[i], b.rows)
+        mask = wc.decode_mask(b.counts[i], b.rows)
+        slots = unpack_bits(b.slots_words[i], b.rows * lanes, bits).reshape(b.rows, lanes)
+        return _uniform_ell(y, mask, slots)
+
+    return decode
+
+
+def make_train_step_ell_bits(updater, loss, num_slots: int, lanes: int,
+                             with_aux: bool = True, **wire_kw):
+    """The step over an ELLBitsBatch: slot ids, labels and the mask
+    decoded on the device from the packed wire."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+    return _one_step(mini_step, _bits_decode(num_slots, lanes))
+
+
+def make_train_step_ell_bits_scan(updater, loss, num_slots: int, lanes: int,
+                                  with_aux: bool = True, **wire_kw):
+    """T bits-wire ministeps a submission."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+    return _scan_step(mini_step, _bits_decode(num_slots, lanes))
+
+
+def _stream_decoder():
+    """The stream wire's decode; the lane order tensor is made once a
+    lane split and device, not a host copy a step."""
+    orders = {}
+
+    def decode(b, i):
+        key = (b.dict_lanes, b.lanes, b.y_bits.device)
+        if key not in orders:
+            orders[key] = wc.lane_order(b.dict_lanes, b.lanes, b.y_bits.device)
+        return _uniform_ell(*wire.decode_stream_shard(b, i, orders[key]))
+
+    return decode
+
+
+def make_train_step_ell_stream(updater, loss, num_slots: int, with_aux: bool = True, **wire_kw):
+    """The step over an EncodedEllStreamBatch: dictionary lanes decode
+    as table gathers, raw lanes from their bitstream, on the device."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+    return _one_step(mini_step, _stream_decoder())
+
+
+def make_train_step_ell_stream_scan(updater, loss, num_slots: int, with_aux: bool = True,
+                                    **wire_kw):
+    """T stream-wire ministeps a submission."""
+    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+    return _scan_step(mini_step, _stream_decoder())
+
+
+_SUPERBATCHES = (PreppedSuperBatch, ELLBitsSuperBatch, wire.EncodedExactSuperBatch,
+                 wire.EncodedEllStreamSuperBatch)
+
+
+def _stack(prepped: list, update_mode: str):
+    """T prepped minibatches as one superbatch, or None where they do
+    not stack: all on the bits wire, all on the stream wire with one set
+    of statics, or (sparse update only) all on the raw or the encoded
+    exact wire with one encoding."""
+    kinds = {type(p) for p in prepped}
+    if len(kinds) != 1:
+        return None
+    kind = kinds.pop()
+    if kind is ELLBitsBatch:
+        return stack_bits_batches(prepped)
+    if kind is wire.EncodedEllStreamBatch and len({p.static_key() for p in prepped}) == 1:
+        return wire.stack_stream_batches(prepped)
+    if update_mode != "sparse":
+        return None
+    if kind is PreppedBatch:
+        return stack_prepped_batches(prepped)
+    if kind is wire.EncodedExactBatch and len({p.static_key() for p in prepped}) == 1:
+        return wire.stack_encoded_batches(prepped)
+    return None
 
 
 _ALIGN = 64  # bytes: each array of a staged batch starts on this boundary
+_SAVE_CHUNK = 1 << 26  # slots whose weights save_model derives at once
 
 
 class PinnedStaging:
@@ -574,14 +972,15 @@ class PinnedStaging:
         self._copied: List[Optional[torch.cuda.Event]] = [None] * depth
         self._next = 0
         self.copy_times: Optional[list] = None
+        self.copied_bytes = 0  # bytes of arrays sent to the card
 
     def copy(self, prepped, stream: "torch.cuda.Stream"):
-        arrays = [(f.name, np.ascontiguousarray(getattr(prepped, f.name)))
-                  for f in dataclasses.fields(prepped)]
+        arrays = [(name, _wire_view(getattr(prepped, name))) for name in wire.array_fields(prepped)]
         offsets, total = [], 0
         for _, a in arrays:
             offsets.append(total)
             total += -(-a.nbytes // _ALIGN) * _ALIGN
+        total = max(total, _ALIGN)  # an all-cached batch still records its event
         i = self._next
         self._next = (i + 1) % self.depth
         if self._copied[i] is not None:
@@ -592,6 +991,7 @@ class PinnedStaging:
         host = buf.numpy()
         for (_, a), off in zip(arrays, offsets):
             host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        self.copied_bytes += sum(a.nbytes for _, a in arrays)
         timed = self.copy_times is not None
         with torch.cuda.stream(stream):
             if timed:
@@ -603,12 +1003,23 @@ class PinnedStaging:
         self._copied[i] = done
         if timed:
             self.copy_times.append((stream, start, done))
-        out = type(prepped)(**{
+        out = wire.replace_arrays(prepped, {
             name: dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
             for (name, a), off in zip(arrays, offsets)
         })
         out.ready = done  # not a field: the device arrays' copy event
         return out
+
+
+def _wire_view(a) -> np.ndarray:
+    """A host array as the tensor dtype it travels as: uint32 and uint16
+    as their int32 and int16 views (the decoders read either)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    if a.dtype == np.uint16:
+        return a.view(np.int16)
+    return a
 
 
 class DeviceUploader:
@@ -664,6 +1075,26 @@ class AsyncSGDWorker:
             sgd.algo, sgd.ada_grad, self.lr, self.penalty,
             ftrl_state_dtype=sgd.ftrl_state_dtype,
         )
+        if sgd.wire not in ("", "i32", "u24", "bits", "stream"):
+            raise ValueError(
+                f"unknown SGDConfig.wire {sgd.wire!r}; expected "
+                "'i32', 'u24', 'bits', 'stream', or '' (legacy "
+                "wire_u24 flag)"
+            )
+        if sgd.wire_compress not in ("", "lz"):
+            raise ValueError(
+                f"unknown SGDConfig.wire_compress {sgd.wire_compress!r}; "
+                "expected '' or 'lz'"
+            )
+        if sgd.wire_encode not in wire.WIRE_ENCODE_MODES:
+            raise ValueError(
+                f"unknown SGDConfig.wire_encode {sgd.wire_encode!r}; "
+                f"expected one of {wire.WIRE_ENCODE_MODES}"
+            )
+        if sgd.wire_cache_mb < 0:
+            raise ValueError(
+                f"SGDConfig.wire_cache_mb must be >= 0, got {sgd.wire_cache_mb}"
+            )
         # FIXING_FLOAT push/pull filters -> the n-byte quantized wire of
         # the dense step; ADD_NOISE -> the perturbation on either side
         self._wire = dict(
@@ -697,6 +1128,47 @@ class AsyncSGDWorker:
         # the pinned buffers of the uploads to the card
         self.staging = PinnedStaging(self.device) if self.device.type == "cuda" else None
         self._side_stream = None
+        self._stream_statics = None
+        self._stream_statics_set = False
+        self.upload_cache: Optional[wire.UploadCache] = None  # the last pipelined train's
+        # the live bounded delay: max_delay is its cap (adaptive τ moves it)
+        self._effective_tau = max(0, sgd.max_delay)
+        self._significance = None
+        if sgd.kkt_filter:
+            if self._update_mode != "sparse":
+                raise ValueError(
+                    "SGDConfig.kkt_filter requires update='sparse' (the "
+                    "mask is defined on the globally-deduped unique-slot "
+                    f"vectors); resolved update mode is {self._update_mode!r}"
+                )
+            if sgd.algo != "ftrl" or getattr(self.penalty, "lambda1", 0.0) <= 0.0:
+                raise ValueError(
+                    "SGDConfig.kkt_filter derives its threshold from the "
+                    "FTRL proximal dead zone: algo='ftrl' and an L1 "
+                    "penalty (lambda1 > 0) are required"
+                )
+            if sgd.kkt_drop_after > 0 and sgd.ingest_workers != 1:
+                raise ValueError(
+                    "SGDConfig.kkt_drop_after > 0 (host-side key drop) "
+                    "requires the serial prep path: set ingest_workers=1"
+                )
+            self._significance = SignificanceSpec(
+                l1=float(self.penalty.lambda1), margin=float(sgd.kkt_margin),
+                escape=float(sgd.kkt_escape), feedback=sgd.kkt_drop_after > 0,
+            )
+        self._consistency = None
+        if sgd.tau_adaptive or sgd.kkt_filter:
+            self._consistency = ConsistencyRuntime.from_config(self, sgd)
+
+    def set_effective_tau(self, tau: int) -> int:
+        """Move the live bounded delay τ between submissions (adaptive
+        τ's actuator), clamped to ``[0, max_delay]``: the configured
+        value stays the cap, so the executor (at most ``max_delay + 1``
+        steps in flight) is never rebuilt. τ only schedules the snapshot
+        refreshes of the next submissions."""
+        tau = int(min(max(0, self.sgd.max_delay), max(0, int(tau))))
+        self._effective_tau = tau
+        return tau
 
     def _snapshot(self):
         """The weight snapshot steps pull from: the live tensors at τ = 0
@@ -738,37 +1210,86 @@ class AsyncSGDWorker:
 
     def prep(self, batch: SparseBatch, device_put: bool = True, pads=None):
         """Localize + pad a batch: the deduplicated exact wire for the
-        sparse update (unique width padded to a multiple of 1024), the
-        hashed per-entry wire for the dense one. ``pads``: the padding
-        :meth:`_padding` gave this batch in stream order (a prep worker
-        of the pipeline must not decide it); decided here if None."""
+        sparse update (unique width padded to a multiple of 1024; the
+        compact encoding with ``wire_encode``), else an ELL wire with
+        ``ell_lanes``, else the hashed per-entry wire. ``pads``: the
+        padding :meth:`_padding` gave this batch in stream order (a prep
+        worker of the pipeline must not decide it); decided here if
+        None. The KKT drop set filters the batch first."""
+        if self._consistency is not None:
+            batch = self._consistency.filter_batch(batch, self.directory)
         rows_pad, nnz_pad, _ = pads or self._padding(batch)
         if self._update_mode == "sparse":
             uniq = min(nnz_pad, self.num_slots)
             uniq = -(-uniq // 1024) * 1024
-            out = prep_batch_shared(
+            out = self._maybe_encode(prep_batch_shared(
                 batch, self.directory, 1, rows_pad, nnz_pad, uniq, self.num_slots
-            )
+            ))
         else:
-            out = prep_batch_hashed(
-                batch, self.directory, 1, rows_pad, nnz_pad, self.num_slots
-            )
+            out = self._prep_dense(batch, rows_pad, nnz_pad)
         return self.upload(out) if device_put else out
+
+    def _prep_dense(self, batch: SparseBatch, rows_pad: int, nnz_pad: int):
+        """The dense update's wires: with ``ell_lanes``, the stream, bits,
+        u24 or i32 ELL wire (each falling back to the next where the batch
+        lies outside its domain; a row wider than the lanes takes the
+        hashed wire), else the hashed per-entry wire."""
+        lanes = self.sgd.ell_lanes
+        if lanes > 0 and batch.n and int(np.diff(batch.indptr).max()) <= lanes:
+            kind = self.sgd.wire or ("u24" if self.sgd.wire_u24 else "i32")
+            out = None
+            if kind == "stream":
+                out = prep_batch_ell_stream(batch, self.directory, 1, rows_pad, lanes,
+                                            self.num_slots, self._get_stream_statics(batch))
+                kind = "bits" if out is None else kind
+            if out is None and kind == "bits":
+                out = prep_batch_ell_bits(batch, self.directory, 1, rows_pad, lanes,
+                                          self.num_slots)
+                kind = "u24" if out is None else kind
+            if out is None:
+                out = prep_batch_ell(batch, self.directory, 1, rows_pad, lanes, self.num_slots,
+                                     pack=kind == "u24" and self.num_slots < (1 << 24))
+            return out
+        return prep_batch_hashed(batch, self.directory, 1, rows_pad, nnz_pad, self.num_slots)
+
+    def _maybe_encode(self, out):
+        """The compact exact wire with ``wire_encode`` (stateless: runs
+        on the prep pool); the raw wire where the batch lies outside the
+        encoding's domain."""
+        if not self.sgd.wire_encode:
+            return out
+        enc = wire.encode_exact(out, self.num_slots, mode=self.sgd.wire_encode)
+        return out if enc is None else enc
+
+    def _get_stream_statics(self, batch: SparseBatch):
+        """The stream wire's statics, derived from the first batch of
+        uniform binary rows and then pinned (on the feeder, before the
+        prep pool sees a batch). None: no lane split wins on this data,
+        and the run stays on the bits wire."""
+        if not self._stream_statics_set:
+            counts = np.diff(batch.indptr)
+            if batch.binary and batch.n and (counts == self.sgd.ell_lanes).all():
+                self._stream_statics = wire.derive_stream_statics(
+                    batch.indices, self.sgd.ell_lanes, self.directory.num_slots,
+                    self.num_slots)
+                self._stream_statics_set = True
+        return self._stream_statics
 
     def upload(self, prepped, stream=None):
         """Host arrays -> tensors on the worker's device (int32 ids stay
-        int32: every gather and segment sum here takes them as they are).
+        int32: every gather and segment sum here takes them as they are;
+        uint32 words and uint16 codes travel as their int32 and int16
+        views; a CompressedBatch is decoded first).
         To the card through pinned staging buffers, on ``stream`` (the
         caller's current stream by default), never from pageable memory;
         the result carries the copy's event as ``ready``. On the CPU the
         tensors share the arrays' memory."""
-        if isinstance(getattr(prepped, "y", None), torch.Tensor):
+        prepped = wire.maybe_decompress(prepped)  # the staging leg's LZ frames
+        names = wire.array_fields(prepped)
+        if names and isinstance(getattr(prepped, names[0]), torch.Tensor):
             return prepped
         if self.device.type != "cuda":
-            return type(prepped)(
-                **{f.name: torch.as_tensor(getattr(prepped, f.name)).to(self.device)
-                   for f in dataclasses.fields(prepped)}
-            )
+            return wire.as_tensors(prepped, self.device)
         return self.staging.copy(prepped, stream or torch.cuda.current_stream(self.device))
 
     @property
@@ -779,17 +1300,44 @@ class AsyncSGDWorker:
         return self._side_stream
 
     def _get_step(self, prepped, with_aux: bool):
-        if isinstance(prepped, PreppedSuperBatch):
-            key, build = ("exact_scan", self._update_mode, with_aux), make_train_step_scan
+        """The step for a prepped batch's wire, built once a wire and
+        static shape. The KKT filter rides the exact wires' steps."""
+        exact = dict(update=self._update_mode, significance=self._significance, **self._wire)
+        lanes = self.sgd.ell_lanes
+        if isinstance(prepped, wire.EncodedEllStreamSuperBatch):
+            key, build = ("ell_stream_scan", with_aux), lambda: make_train_step_ell_stream_scan(
+                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
+        elif isinstance(prepped, wire.EncodedEllStreamBatch):
+            key, build = ("ell_stream", with_aux), lambda: make_train_step_ell_stream(
+                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
+        elif isinstance(prepped, wire.EncodedExactSuperBatch):
+            key, build = ("exact_enc_scan", with_aux), lambda: make_train_step_encoded_scan(
+                self.updater, self.loss, self.num_slots, with_aux, **exact)
+        elif isinstance(prepped, wire.EncodedExactBatch):
+            key, build = ("exact_enc", with_aux), lambda: make_train_step_encoded(
+                self.updater, self.loss, self.num_slots, with_aux, **exact)
+        elif isinstance(prepped, PreppedSuperBatch):
+            key, build = ("exact_scan", with_aux), lambda: make_train_step_scan(
+                self.updater, self.loss, self.num_slots, with_aux, **exact)
+        elif isinstance(prepped, ELLBitsSuperBatch):
+            key, build = ("ell_bits_scan", with_aux), lambda: make_train_step_ell_bits_scan(
+                self.updater, self.loss, self.num_slots, lanes, with_aux, **self._wire)
+        elif isinstance(prepped, ELLBitsBatch):
+            key, build = ("ell_bits", with_aux), lambda: make_train_step_ell_bits(
+                self.updater, self.loss, self.num_slots, lanes, with_aux, **self._wire)
+        elif isinstance(prepped, (ELLBatch, ELLPackedBatch)):
+            packed, binary = isinstance(prepped, ELLPackedBatch), prepped.vals is None
+            key, build = ("ell", packed, binary, with_aux), lambda: make_train_step_ell(
+                self.updater, self.loss, self.num_slots, binary, with_aux, packed=packed,
+                **self._wire)
         elif isinstance(prepped, HashedBatch):
-            key, build = ("hashed", with_aux), make_train_step_hashed
+            key, build = ("hashed", with_aux), lambda: make_train_step_hashed(
+                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
         else:
-            key, build = ("exact", self._update_mode, with_aux), make_train_step
+            key, build = ("exact", with_aux), lambda: make_train_step(
+                self.updater, self.loss, self.num_slots, with_aux, **exact)
         if key not in self._steps:
-            mode = {} if build is make_train_step_hashed else {"update": self._update_mode}
-            self._steps[key] = build(
-                self.updater, self.loss, self.num_slots, with_aux, **mode, **self._wire
-            )
+            self._steps[key] = build()
         return self._steps[key]
 
     def _submit_prepped(self, prepped, with_aux: bool = True) -> int:
@@ -800,8 +1348,8 @@ class AsyncSGDWorker:
 
         The bounded-delay schedule is the JAX worker's and is fixed here,
         on the submitting thread: a submission takes a fresh weight
-        snapshot when τ = 0 or when τ ministeps have run since the last
-        one, and otherwise computes on the last snapshot. The snapshot
+        snapshot when the live τ is 0 or when τ ministeps have run since
+        the last one, and otherwise computes on the last snapshot. The snapshot
         itself is taken when the step runs, on the dispatch thread, where
         the state advances in submission order. At τ = 0 it is the live
         tensors (the step gathers before it updates); at τ > 0 a copy.
@@ -809,8 +1357,8 @@ class AsyncSGDWorker:
         loaded). On the card the step's stream first waits for the
         batch's upload."""
         prepped = self.upload(prepped)
-        n_steps = prepped.steps if isinstance(prepped, PreppedSuperBatch) else 1
-        tau = max(0, self.sgd.max_delay)
+        n_steps = prepped.steps if isinstance(prepped, _SUPERBATCHES) else 1
+        tau = self._effective_tau
         do_snapshot = tau == 0 or self._steps_since_snapshot >= tau
         self.last_staleness = 0 if do_snapshot else self._steps_since_snapshot
         if do_snapshot:
@@ -825,9 +1373,9 @@ class AsyncSGDWorker:
             if ready is not None:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(ready)
-                for f in dataclasses.fields(prepped):
+                for name in wire.array_fields(prepped):
                     # allocated on the upload's stream, read on this one
-                    getattr(prepped, f.name).record_stream(stream)
+                    getattr(prepped, name).record_stream(stream)
             if do_snapshot:
                 self._pull_state = self._snapshot()
             return step_fn(self.state, self._pull_state, prepped, seed)
@@ -845,22 +1393,31 @@ class AsyncSGDWorker:
         return self.submit(self.prep(batch, device_put=False), with_aux=with_aux)
 
     def submit_superbatch(self, batches: List[SparseBatch], with_aux: bool = False):
-        """Prep + stack T minibatches and run them as one submission.
-        Sparse update only: the superstep runs every ministep on the
-        live state, which is the sparse mode's contract."""
-        if self._update_mode != "sparse":
-            raise ValueError(
-                "superbatch needs update='sparse' (dense-mode groups run "
-                "per minibatch)"
-            )
+        """Prep + stack T minibatches and run them as one submission: the
+        bits or stream wire, or the exact wire (raw or encoded) in sparse
+        mode, where the superstep runs every ministep on the live state.
+        A dense-mode exact group raises: it runs per minibatch."""
         prepped = [self.prep(b, device_put=False) for b in batches]
-        return self.submit(stack_prepped_batches(prepped), with_aux=with_aux)
+        stacked = _stack(prepped, self._update_mode)
+        if stacked is None:
+            raise ValueError(
+                "superbatch needs the bits wire (hashed directory, binary "
+                "uniform-row batches) or the exact wire in sparse-update "
+                "mode (dense-mode exact groups run per-minibatch: the scan "
+                "would bypass snapshot/filter semantics); got a "
+                "mixed/fallback encoding or a dense-mode exact group"
+            )
+        return self.submit(stacked, with_aux=with_aux)
 
     def collect(self, metrics) -> SGDProgress:
         """Fold a submission's metrics (or its executor timestamp, waited
         for here) into ``progress`` (host sync)."""
         if isinstance(metrics, int):
             metrics = self.executor.wait(metrics)
+        if self._consistency is not None:
+            # KKT counts and the drop set, then the τ controller (which
+            # may back off the rate and roll the state back)
+            self._consistency.on_collect(metrics)
         num_ex = float(metrics["num_ex"])
         prog = SGDProgress(
             objective=[float(metrics["objective"])],
@@ -883,14 +1440,17 @@ class AsyncSGDWorker:
 
     def _prep_group(self, group) -> List[Tuple[object, int]]:
         """Host side of one launch group, ``[(batch, pads)]`` (safe on a
-        pipeline thread): one T-step superbatch in sparse mode, else one
-        part a minibatch (dense groups run per minibatch: a superstep
-        would bypass the snapshot schedule and the wire's filters).
-        Returns ``[(host_prepped, n_ministeps)]``."""
+        pipeline thread): one T-step superbatch where the group stacks
+        (:func:`_stack`), else one part a minibatch. With
+        ``wire_compress`` each part's arrays go into LZ frames here, on
+        the pool; the uploader decodes them. Returns ``[(host_prepped,
+        n_ministeps)]``."""
         prepped = [self.prep(b, device_put=False, pads=pads) for b, pads in group]
-        if len(prepped) > 1 and self._update_mode == "sparse":
-            return [(stack_prepped_batches(prepped), len(prepped))]
-        return [(p, 1) for p in prepped]
+        stacked = _stack(prepped, self._update_mode) if len(prepped) > 1 else None
+        parts = [(stacked, len(prepped))] if stacked is not None else [(p, 1) for p in prepped]
+        if self.sgd.wire_compress:
+            parts = [(wire.compress_batch(p), n) for p, n in parts]
+        return parts
 
     def ingest_workers(self) -> int:
         """Prep-pool width of the pipelined train: ``SGDConfig.ingest_workers``
@@ -937,8 +1497,10 @@ class AsyncSGDWorker:
         def groups():
             group = []
             for batch in batches:
-                # the padding is decided here, in stream order, before a
-                # prep worker sees the batch
+                # the padding (and the stream wire's statics) are decided
+                # here, in stream order, before a prep worker sees the batch
+                if self.sgd.wire == "stream" and not self._stream_statics_set:
+                    self._get_stream_statics(batch)
                 group.append((batch, self._padding(batch)))
                 if len(group) >= T:
                     yield group
@@ -958,7 +1520,15 @@ class AsyncSGDWorker:
                     yield from group_parts
 
             stream = self.upload_stream if self.device.type == "cuda" else None
-            uploader = DeviceUploader(parts(), lambda p: self.upload(p, stream), depth=2)
+
+            def upload_fn(p):
+                return self.upload(p, stream)
+
+            if self.sgd.wire_cache_mb > 0:
+                # stateful: lives on the uploader's one thread
+                upload_fn = self.upload_cache = wire.UploadCache(
+                    upload_fn, max_bytes=self.sgd.wire_cache_mb << 20)
+            uploader = DeviceUploader(parts(), upload_fn, depth=2)
             try:
                 for staged, n in uploader:
                     submit_parts([(staged, n)])
@@ -1020,12 +1590,19 @@ class AsyncSGDWorker:
         here there is one shard). The directory is hashed, so the keys
         are table slots, under a ``#hashed <num_slots>`` header that
         tells a reader to route lookups through the same hash."""
-        w = self.weights_dense()
-        nz = np.flatnonzero(w)
+        self._drain()
+        # the nonzeros are found where the table lies, a chunk of slots at
+        # a time (the weights are elementwise): a 2^30-slot table sends
+        # only its nonzero weights to the host, with a chunk's temporaries
         spath = f"{path}_S0"
         with psfile.open_write(spath) as f:
             f.write(f"#hashed\t{self.directory.num_slots}\n")
-            f.writelines(f"{i}\t{v!r}\n" for i, v in zip(nz.tolist(), w[nz].tolist()))
+            for lo in range(0, self.num_slots, _SAVE_CHUNK):
+                w = self.updater.weights({k: (v[lo:lo + _SAVE_CHUNK] if v.dim() >= 1 else v)
+                                          for k, v in self.state.items()})
+                nz = torch.nonzero(w).reshape(-1)
+                weights = w.index_select(0, nz).cpu().tolist()
+                f.writelines(f"{i}\t{v!r}\n" for i, v in zip((nz + lo).cpu().tolist(), weights))
         return [spath]
 
     # -- state snapshot / restore (the JAX worker's state_host format) --

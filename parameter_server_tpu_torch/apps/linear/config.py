@@ -3,7 +3,8 @@
 Dataclass counterparts of ``parameter_server_tpu/apps/linear/config.py``
 with the same field names and defaults, and :func:`parse_conf` for the
 reference's protobuf-text ``.conf`` files. Fields of features the port
-does not have yet are kept so that setting them fails loudly:
+does not have yet (server replicas) are kept so that setting them fails
+loudly:
 :meth:`SGDConfig.validate` raises ``NotImplementedError`` for any value
 other than the default, and so does a conf with a ``darlin`` block.
 Unknown loss, penalty, learning-rate, update or pull-gather names raise
@@ -48,16 +49,8 @@ class LearningRateConfig:
 
 # field -> the only value the port supports, for features not ported yet
 _UNPORTED = {
-    "ell_lanes": 0,  # ELL / bits / stream wires
-    "wire_u24": False,
-    "wire": "",
-    "wire_encode": "",  # compact exact wire
-    "wire_compress": "",
-    "wire_cache_mb": 0,
-    "num_replicas": 0,  # server replicas
+    "num_replicas": 0,  # server replicas (ROADMAP A13)
     "replica_every": 1,
-    "tau_adaptive": False,  # adaptive tau
-    "kkt_filter": False,  # KKT significance filter
 }
 
 
@@ -95,8 +88,17 @@ class SGDConfig:
     wire_cache_mb: int = 0
     num_replicas: int = 0
     replica_every: int = 1
+    # adaptive bounded delay (learner/consistency.py): max_delay is the
+    # cap, the live tau moves in [0, max_delay]
     tau_adaptive: bool = False
+    # KKT significance filter (ops/significance.py), sparse update only
     kkt_filter: bool = False
+    kkt_margin: float = 1.0
+    kkt_escape: float = 1.0 / 64.0
+    # host-side drop of slots suppressed this many collects in a row
+    # (0 = off; needs ingest_workers=1), revisited every n-th batch
+    kkt_drop_after: int = 0
+    kkt_revisit_every: int = 64
 
     def __post_init__(self):
         self.validate()

@@ -316,8 +316,18 @@ def read_ref_batch(
 
 def batch_to_ref_payloads(batch: SparseBatch) -> Iterator[bytes]:
     """SparseBatch -> one ``Example`` payload per row (slot 0 = label,
-    features grouped by slot id; binary batches emit keys only)."""
+    features grouped by slot id; binary batches emit keys only).
+
+    A feature of slot id 0 raises ``ValueError``: slot 0 is the label's
+    in these records, so a reader would drop it. (The JAX package writes
+    such features as a second slot 0 and loses them on the way back.)"""
     slot_ids = batch.slot_ids
+    if slot_ids is not None and batch.nnz and not np.all(slot_ids[: batch.nnz]):
+        raise ValueError(
+            f"{int(np.count_nonzero(slot_ids[: batch.nnz] == 0))} features of slot/group 0: "
+            "the reference's Example records keep the label in slot 0, so these features "
+            "would be lost; move them to another feature group before writing records"
+        )
     idx = batch.indices.view(np.uint64)
     for r in range(batch.n):
         lo, hi = int(batch.indptr[r]), int(batch.indptr[r + 1])

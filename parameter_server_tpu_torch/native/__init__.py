@@ -13,9 +13,10 @@ A library that does not build raises with the compiler's output; there
 is no quiet fallback to the NumPy or Python paths. ``ctypes`` releases
 the GIL for each call, so parses run in parallel on threads.
 
-Only the functions the port calls have their C signature declared here:
-``ps_hash_slots``, ``ps_parse_libsvm``, ``ps_parse_criteo`` and
-``ps_crc32c`` (the record files' checksum).
+Only the functions the port calls have their C signature declared here
+(:data:`SIGNATURES`): the key hash, the two text parsers, ``ps_crc32c``
+(the record files' checksum), the bit packers and the stream-wire encode
+of the encoded wires, and the LZ codec of the staging leg.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 _PARSE = ([ctypes.c_char_p, ctypes.c_int64, _f32p, _i64p, _u64p, _f32p, _i32p,
            ctypes.c_int64, ctypes.c_int64, _i64p], ctypes.c_int64)
 # C function -> (argtypes, restype)
@@ -45,6 +47,17 @@ SIGNATURES = {
     "ps_parse_libsvm": _PARSE,
     "ps_parse_criteo": _PARSE,
     "ps_crc32c": ([ctypes.c_char_p, ctypes.c_uint64], ctypes.c_uint32),
+    # the encoded wires (utils/bitpack.py, learner/wire.py)
+    "ps_pack_bits": ([_i32p, ctypes.c_uint64, ctypes.c_uint32, _u8p], None),
+    "ps_hash_slots_packbits": ([_u64p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+                                ctypes.c_uint32, _u8p], None),
+    "ps_stream_encode": ([_u64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64,
+                          ctypes.c_uint64, _u8p, ctypes.c_uint32, ctypes.c_uint32,
+                          ctypes.c_int32, _i32p, _u8p, _u8p, _u8p], ctypes.c_int64),
+    # the LZ frame of utils/codec.py
+    "ps_lz_max_compressed": ([ctypes.c_uint64], ctypes.c_uint64),
+    "ps_lz_compress": ([_u8p, ctypes.c_uint64, _u8p, ctypes.c_uint64], ctypes.c_int64),
+    "ps_lz_decompress": ([_u8p, ctypes.c_uint64, _u8p, ctypes.c_uint64], ctypes.c_int64),
 }
 
 _lock = threading.Lock()

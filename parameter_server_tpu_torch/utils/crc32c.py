@@ -1,6 +1,6 @@
 """CRC32C (Castagnoli) checksums of the record files.
 
-Counterpart of ``value``, ``masked`` and ``unmask`` in
+Counterpart of ``value``, ``masked``, ``unmask`` and ``array_signature`` in
 ``parameter_server_tpu/utils/crc32c.py`` (the reference's
 ``util/crc32c``): the polynomial 0x82F63B78 and the reference's masking,
 so a record written by either package reads in the other. ``value``
@@ -56,3 +56,14 @@ def masked(crc: int) -> int:
 def unmask(m: int) -> int:
     rot = (m - _MASK_DELTA) & 0xFFFFFFFF
     return ((rot >> 17) | (rot << 15)) & 0xFFFFFFFF
+
+
+def array_signature(arr: np.ndarray, max_len: int = 2048) -> int:
+    """The key-caching signature (the reference's ``crc32c::Value(
+    key.data(), min(size, max_sig_len))``): CRC32C of the array's bytes
+    viewed as uint8 and cut to ``max_len`` along the first axis, as the
+    JAX package cuts it (the whole of a 1-D array's prefix; the first
+    ``max_len`` rows of a stacked one). It routes a lookup; a byte
+    compare decides it."""
+    view = np.ascontiguousarray(arr).view(np.uint8)
+    return value(view[:max_len].tobytes())

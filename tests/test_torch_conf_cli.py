@@ -401,3 +401,63 @@ def test_jax_worker_raises_where_the_port_grows_its_padding(tmp_path):
     prepped = [tw.prep(b, device_put=False) for b in batches]
     assert prepped[0].slots.shape[-1] == first_pad  # the JAX worker's padding while it fits
     assert tw._pads[1] >= max(b.nnz for b in batches)
+
+
+def test_bigtable_conf_cli_line_matches_jax(tmp_path, capsys, monkeypatch):
+    """``configs/criteo/online_l1lr_bigtable.conf`` through both CLIs on
+    generated Criteo text, cut to 2^20 slots (and 1024-row minibatches,
+    a 2^18 count-min, and the nnz padding the JAX worker needs up front,
+    C4). The sparse flip is lowered on both sides, the JAX package's
+    through ``PS_SPARSE_UPDATE_MIN_SLOTS``, the port's by patching
+    ``sparse_update_min_slots``, so both take the path the full conf
+    takes at 2^30: the sparse update over the exact wire, T = 8 scan
+    launches, bf16 √n, the tail filter, τ 4; the ``ell_lanes``/``wire``
+    fields parsed and unused. The progress line (all but the wall
+    seconds) is the same; the weights agree within ``TRAJ_TOL``."""
+    from parameter_server_tpu.apps.linear import main as jmain
+    from parameter_server_tpu_torch.apps.linear import async_sgd as tsgd
+    from parameter_server_tpu_torch.benchmarks.criteo import write_criteo_shards
+
+    write_criteo_shards(str(tmp_path / "train"), 2, 3000, seed=0)
+    text = ctr_conf(str(tmp_path / "train" / "part.*"), str(tmp_path / "model" / "big"),
+                    conf_text=(ROOT / "configs" / "criteo" / "online_l1lr_bigtable.conf").read_text(),
+                    num_slots=1 << 20, countmin_n=1 << 18, minibatch=1024, nnz_pad=65536)
+    conf = tmp_path / "big.conf"
+    conf.write_text(text)
+    monkeypatch.setenv("PS_SPARSE_UPDATE_MIN_SLOTS", str(1 << 20))
+    monkeypatch.setattr(tsgd, "sparse_update_min_slots", lambda: 1 << 20)
+    monkeypatch.setattr(tsgd, "_SAVE_CHUNK", 1 << 12)  # the model written in 256 chunks
+    modes = []
+
+    class Recording(tsgd.AsyncSGDWorker):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            modes.append((self._update_mode, self.sgd.ftrl_state_dtype, self.sgd.ell_lanes,
+                          self.sgd.wire, self.sgd.steps_per_launch))
+
+        def _submit_prepped(self, prepped, with_aux=True):
+            modes.append(type(prepped).__name__)
+            return super()._submit_prepped(prepped, with_aux)
+
+    monkeypatch.setattr(tmain, "AsyncSGDWorker", Recording)
+    random.seed(0)
+    assert tmain.main([str(conf)], device="cpu") == 0
+    port = capsys.readouterr().out.splitlines()
+    os.rename(tmp_path / "model" / "big_S0", tmp_path / "model" / "port_S0")
+    random.seed(0)
+    Postoffice.reset()
+    try:
+        assert jmain.main([str(conf)]) == 0
+    finally:
+        Postoffice.reset()
+    jax_out = capsys.readouterr().out.splitlines()
+    assert modes[0] == ("sparse", "bfloat16", 39, "bits", 8)
+    assert all(m == "PreppedSuperBatch" for m in modes[1:]) and len(modes) > 1
+    line = port.index(" sec  examples    loss      auc   accuracy") + 1
+    jline = jax_out.index(" sec  examples    loss      auc   accuracy") + 1
+    assert port[line].split()[1:] == jax_out[jline].split()[1:]
+    assert port[line].split()[1] == "6.00e+03"
+    w_port, n_port = _read_model(tmp_path / "model" / "port_S0", 1 << 20)
+    w_jax, n_jax = _read_model(tmp_path / "model" / "big_S0", 1 << 20)
+    assert n_port > 1000 and abs(n_port - n_jax) <= n_jax // 1000
+    np.testing.assert_allclose(w_port, w_jax, **TRAJ_TOL)

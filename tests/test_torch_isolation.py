@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -205,14 +206,6 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
 
 
 UNPORTED = [
-    ("wire_encode", "delta"),
-    ("ell_lanes", 39),
-    ("wire_u24", True),
-    ("wire", "bits"),
-    ("wire_compress", "zstd"),
-    ("wire_cache_mb", 64),
-    ("kkt_filter", True),
-    ("tau_adaptive", True),
     ("num_replicas", 1),
     ("replica_every", 2),
 ]
@@ -229,25 +222,41 @@ def test_unported_config_values_raise(field, value):
         tsgd.AsyncSGDWorker(c, device="cpu")
 
 
+# (field, a value the JAX package accepts, the settings it needs there)
 PORTED = [
-    ("max_delay", 4),
-    ("push_filter", [{"type": "fixing_float", "num_bytes": 1}]),
-    ("pull_filter", [{"type": "add_noise", "std": 0.1}]),
-    ("pull_gather", "narrow"),
+    ("max_delay", 4, {}),
+    ("push_filter", [{"type": "fixing_float", "num_bytes": 1}], {}),
+    ("pull_filter", [{"type": "add_noise", "std": 0.1}], {}),
+    ("pull_gather", "narrow", {}),
+    ("wire_encode", "exact", {"update": "sparse"}),
+    ("ell_lanes", 39, {}),
+    ("wire_u24", True, {"ell_lanes": 39}),
+    ("wire", "bits", {"ell_lanes": 39}),
+    ("wire_compress", "lz", {}),
+    ("wire_cache_mb", 64, {}),
+    ("kkt_filter", True, {"update": "sparse"}),
+    ("tau_adaptive", True, {"max_delay": 4}),
 ]
 
 
-@pytest.mark.parametrize("field,value", PORTED, ids=[f for f, _ in PORTED])
-def test_ported_config_values_are_accepted(field, value):
-    """Bounded delay and the filtered wire are ported: their settings
-    build a worker instead of raising."""
-    w = tsgd.AsyncSGDWorker(_conf(**{field: value}), device="cpu")
+@pytest.mark.parametrize("field,value,needs", PORTED, ids=[f for f, _, _ in PORTED])
+def test_ported_config_values_are_accepted(field, value, needs):
+    """Bounded delay, the filtered wire, the encoded and ELL wires, the
+    KKT filter and adaptive τ are ported: their settings build a worker
+    that trains a minibatch instead of raising."""
+    from parameter_server_tpu.apps.linear import config as jcfg
+    from parameter_server_tpu_torch.utils.sparse import random_sparse
+
+    jcfg.SGDConfig(**{field: value}, **needs)  # the JAX package's dataclass takes it
+    w = tsgd.AsyncSGDWorker(_conf(**{field: value}, **needs), device="cpu")
     assert getattr(w.sgd, field) == value
     assert field not in tcfg._UNPORTED
+    m = w.process_minibatch(random_sparse(64, 1 << 14, 39, seed=0, binary=True))
+    assert float(m["num_ex"]) == 64 and np.isfinite(float(m["objective"]))
 
 
 def test_every_unported_field_is_covered():
-    assert {f for f, _ in UNPORTED} == set(tcfg._UNPORTED)
+    assert {f for f, _ in UNPORTED} == set(tcfg._UNPORTED) == {"num_replicas", "replica_every"}
     names = {f.name for f in dataclasses.fields(tcfg.SGDConfig)}
     assert set(tcfg._UNPORTED) <= names
 

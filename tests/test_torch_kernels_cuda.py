@@ -733,3 +733,53 @@ def test_headline_steps_are_bit_identical_run_to_run(dev, update):
         states.append({k: v.clone() for k, v in w.state.items()})
     for k in states[0]:
         assert torch.equal(_bits(states[0][k]), _bits(states[1][k])), k
+
+
+@pytest.mark.parametrize("dtype,seed", [(torch.float32, None), (torch.bfloat16, 7)])
+def test_sparse_kernel_under_an_interior_keep_mask(dev, dtype, seed):
+    """The KKT filter's ``ok & keep``: holes anywhere in the unique
+    vector, not only a sentinel tail. A suppressed slot's z and √n stay
+    bit-untouched, bf16 dither of its neighbours included, and every
+    slot's result equals the plain version's."""
+    rng = np.random.default_rng(11)
+    p, u = 1 << 16, 20_000
+    rel = torch.tensor(np.sort(rng.choice(p, u, replace=False)), dtype=torch.int32, device=dev)
+    ok = torch.ones(u, dtype=torch.bool, device=dev)
+    ok[-500:] = False  # the sentinel tail
+    keep = torch.tensor(rng.random(u) < 0.6, device=dev)
+    g = torch.tensor(rng.normal(size=u), dtype=torch.float32, device=dev)
+    g = torch.where(keep, g, 0.0)
+    z = torch.tensor(rng.normal(size=p), dtype=torch.float32, device=dev)
+    n = torch.tensor(rng.random(p) * 2, dtype=torch.float32, device=dev).to(dtype)
+    zk, nk, zr, nr = z.clone(), n.clone(), z.clone(), n.clone()
+    tsparse.ftrl_sparse_update(zk, nk, rel, ok & keep, g, **KW, seed=seed)
+    tsparse.ftrl_sparse_rows_ref(zr, nr, rel, ok & keep, g, **KW, seed=seed)
+    _assert_bit_equal((zk, nk), (zr, nr))
+    held = rel[~keep].long()
+    assert torch.equal(_bits(zk[held]), _bits(z[held])) and torch.equal(_bits(nk[held]), _bits(n[held]))
+    moved = rel[keep & ok].long()
+    assert float((zk[moved] != z[moved]).float().mean()) > 0.9
+
+
+def test_ell_scatter_card_equals_cpu(dev):
+    """The ELL wires' gradient scatter (a stable sort by slot, then
+    ``segment_sum.cu`` adding each slot's entries in entry order) and
+    their Xw by row: bit-equal to the CPU's ``index_add_`` and run to run,
+    with hot slots and padding rows' zero gradients."""
+    rng = np.random.default_rng(5)
+    rows, lanes, shard = 16384, 39, 1 << 22
+    slots = rng.integers(0, shard, (rows, lanes)).astype(np.int32)
+    slots[:, :13] = rng.integers(0, 90, (rows, 13))  # small-vocabulary lanes
+    gr = rng.normal(size=rows).astype(np.float32)
+    gr[-300:] = 0.0  # padding rows
+    g_e = np.repeat(gr, lanes)
+    w_e = rng.normal(size=rows * lanes).astype(np.float32)
+    row_ids = np.repeat(np.arange(rows, dtype=np.int32), lanes)
+    outs = []
+    for d in ("cuda", "cuda", "cpu"):
+        t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+        outs.append((tseg.segment_sum(t(g_e), t(slots.reshape(-1)), shard).cpu(),
+                     tseg.segment_sum(t(w_e), t(row_ids), rows, presorted=True).cpu()))
+    for a, b in ((outs[0], outs[1]), (outs[0], outs[2])):
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x), _bits(y))

@@ -162,7 +162,8 @@ def test_margins_and_metrics_bit_equal(tmp_path, fmt, kind):
 def test_criteo_keys_past_2_63_exact_model(tmp_path):
     """Criteo keys of 2^63 and more are negative int64s: written so by
     an exact model they hit in both packages; written unsigned, the port
-    takes their int64 view (the JAX package raises on such a file)."""
+    takes their int64 view, where the JAX package raises on such a file
+    (asserted here)."""
     val = _write_validation("criteo", str(tmp_path / "val"), seed=8, rows=400)
     b = StreamReader([val], "criteo").read_all()
     keys = np.unique(b.indices)
@@ -176,6 +177,8 @@ def test_criteo_keys_past_2_63_exact_model(tmp_path):
     unsigned = [f"{int(k) % (1 << 64)}\t{w}" for k, w in
                 (line.split("\t") for line in (tmp_path / "m_S0").read_text().splitlines())]
     (tmp_path / "m_S0").write_text("".join(u + "\n" for u in unsigned))
+    with pytest.raises(OverflowError):
+        jme.ModelEvaluation(jcfg.parse_conf(text)).run()
     ev = tme.ModelEvaluation(tcfg.parse_conf(text), device="cpu")
     assert ev.run() == tm
     np.testing.assert_array_equal(ev.margins.view(np.int32), txw.view(np.int32))

@@ -265,7 +265,10 @@ def _text_files(tmp_path):
 def test_text2record_files_and_readers_match_jax(tmp_path, capsys, ref, fmt):
     """``text2record`` (the CLI, in both packages) writes the same bytes;
     both readers read them into the same minibatches, also through
-    ``minibatches_bytes`` and across a gzipped copy."""
+    ``minibatches_bytes`` and across a gzipped copy. The generated
+    SPARSE_BINARY rows hold their features in group 0, the label's slot
+    in the reference's records: there the port refuses to write them,
+    and the JAX package writes records that read back without them."""
     if fmt == "libsvm":
         inputs = _text_files(tmp_path)
     elif fmt == "criteo":
@@ -273,6 +276,15 @@ def test_text2record_files_and_readers_match_jax(tmp_path, capsys, ref, fmt):
     else:
         inputs = write_ctr_shards(str(tmp_path / "s"), 2, 30, seed=1, key_bits=10)
     flag = ["--ref-format"] if ref else []
+    if ref and fmt == "ps_sparse_binary":
+        args = ["--input", *inputs, "--format", fmt, "--batch", "7", *flag]
+        with pytest.raises(ValueError, match="slot/group 0"):
+            tt2r.main([*args, "--output", str(tmp_path / "t.rec")])
+        assert jt2r.main([*args, "--output", str(tmp_path / "j.rec")]) == 0
+        lost = jsr.StreamReader([str(tmp_path / "j.rec")], "ref_record").read_all()
+        text = jsr.StreamReader(inputs, fmt).read_all()
+        assert lost.n == text.n == 60 and text.nnz > 0 and lost.nnz == 0
+        return
     outs = {}
     for name, mod in (("t", tt2r), ("j", jt2r)):
         out = str(tmp_path / f"{name}.rec")
