@@ -89,7 +89,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``configs/criteo/online_l1lr_bigtable.conf`` through the CLI at its
    2^30 slots on the Criteo data (the sparse update, bf16 √n, T 8, τ 4:
    ex/s, the stages' ms, peak device memory, a falling loss, the model
-   written);
+   written). Then the darlin app (block coordinate descent) through the
+   CLI: ``configs/criteo/batch_l1lr.conf`` unchanged (λ 4, α 0.9, τ 2, up
+   to 50 passes, 39 blocks, one a slot) on 4 generated shards of 250,000
+   rows, and ``eval_batch.conf`` on its model over 100,000 held-out rows;
+   ``configs/ctr/batch_l1lr.conf`` (τ 0, feature block ratio 4: one group
+   of ~31 keys a row in ~123 blocks) on the CTR cell's data and its
+   ``eval_batch.conf``; the Criteo conf cut
+   to 50,000 rows twice on the card (w, the dual and every progress line
+   bit-identical) and once on the CPU (each pass's objective within
+   ``DARLIN_OBJ_RTOL``, the counts within ``DARLIN_COUNT_TOL`` of the
+   columns); three segment-sum launches a block step and no other
+   kernel; the wall split (load + localize, upload, passes), block
+   steps/s, each block step's CUDA-event time, the slowest and the median
+   block's sums as segment-sum parity rows (card bit-equal to the CPU,
+   beside ``index_add_`` and the serial floor), peak device memory;
 6. LM serving (``benchmarks/lm_serve.py``: the ``doc/SERVING.md`` config,
    d_model 512, 8 heads of dim 64, 2 KV heads, 8 layers, d_ff 2048, bf16,
    int8 KV cache, random weights from the seed): the ``flash_fwd``
@@ -158,7 +172,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from parameter_server_tpu_torch import kernels  # noqa: E402
-from parameter_server_tpu_torch.apps.linear import async_sgd  # noqa: E402
+from parameter_server_tpu_torch.apps.linear import async_sgd, darlin  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import main as linear_main  # noqa: E402
 from parameter_server_tpu_torch.apps.linear import model_evaluation  # noqa: E402
 from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
@@ -1000,6 +1014,16 @@ def quantize_times(p: int, nb: int, gen, frac: float) -> dict:
 # -- phase 3c: the segment-sum kernel --
 
 
+def print_segment_row(r: dict, smi: str) -> None:
+    route = "no sort (ids grouped)" if r["presorted"] else "stable sort first"
+    print(f"# parity segment_sum {r['case']} ({r['entries']} entries, {r['live']} nonzero, "
+          f"{r['segments']} segments, longest run {r['longest']}; {route}): card bit-equal to "
+          f"the CPU, run to run; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, whole "
+          f"sum {r['whole_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, bytes "
+          f"{r['bytes_ms']:.4f} ms, serial floor {r['serial_floor_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
+
+
 def segment_case(name: str, data, ids, n: int, presorted: bool, ns_per_add: float) -> dict:
     """The whole segment sum on the card (its route as the step takes it)
     against it on the CPU (there ``index_add_`` on the entries as they
@@ -1488,6 +1512,275 @@ def eval_path(tmp: str, seed: int, model_globs: dict, nonzeros: dict) -> dict:
             parse_ms=card["parse_s"] * 1e3, hash_ms=card["hash_s"] * 1e3,
             device_ms=card["device_s"] * 1e3, wall_s=card["wall_s"],
             examples_per_s_e2e=rows / card["wall_s"], cpu_wall_s=cpu["wall_s"])
+    return out
+
+
+# -- phase 5b: the darlin app (block coordinate descent) --
+
+DARLIN_SHARDS, DARLIN_ROWS = 4, 250_000  # the Criteo batch conf's data: 1M rows, 39M entries
+DARLIN_EVAL_ROWS = 100_000
+DARLIN_AGREE_ROWS = 50_000  # the Criteo batch conf cut for card vs CPU and run to run
+# card vs CPU: the segment sums add in the same order on both, but the
+# card's exp is not the CPU's, so the dual (and every pass's objective)
+# parts in the last bits; a KKT decision that sits on such a bit may
+# flip, so nnz(w), the active set and the model's keys may lie this share
+# of the columns apart (the counts are printed)
+DARLIN_OBJ_RTOL = 1e-5
+DARLIN_COUNT_TOL = 1e-3
+BATCH_CONF = {name: os.path.join(ROOT, "configs", name, "batch_l1lr.conf")
+              for name in ("criteo", "ctr")}
+EVAL_BATCH_CONF = {name: os.path.join(ROOT, "configs", name, "eval_batch.conf")
+                   for name in ("criteo", "ctr")}
+
+
+@contextlib.contextmanager
+def timed_darlin():
+    """Times the stages of every darlin run made inside, on the host
+    clock: load and localize (``load_data``), the upload (``init_data``,
+    to a synchronize) and the passes (``_run_passes``, to a
+    synchronize); keeps each scheduler. Yields the record it fills."""
+    sched_cls, solver_cls = darlin.DarlinScheduler, darlin.DarlinSolver
+    rec = dict(load_s=0.0, init_s=0.0, passes_s=0.0, scheds=[])
+    orig = dict(init=sched_cls.__init__, load_data=sched_cls.load_data,
+                run_passes=sched_cls._run_passes, init_data=solver_cls.init_data)
+
+    def sync(device):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def init(self, *a, **k):
+        orig["init"](self, *a, **k)
+        rec["scheds"].append(self)
+
+    def load_data(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig["load_data"](self, *a, **k)
+        rec["load_s"] += time.perf_counter() - t0
+        return out
+
+    def init_data(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig["init_data"](self, *a, **k)
+        sync(self.device)
+        rec["init_s"] += time.perf_counter() - t0
+        return out
+
+    def run_passes(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig["run_passes"](self, *a, **k)
+        sync(self.solver.device)
+        rec["passes_s"] += time.perf_counter() - t0
+        return out
+
+    patches = [(sched_cls, "__init__", init), (sched_cls, "load_data", load_data),
+               (sched_cls, "_run_passes", run_passes), (solver_cls, "init_data", init_data)]
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
+    try:
+        yield rec
+    finally:
+        for (owner, name, _), key in zip(patches, orig):
+            setattr(owner, name, orig[key])
+
+
+def run_darlin(conf_text: str, path: str, device: str) -> dict:
+    """The port's CLI on a darlin conf, its counts zeroed before and read
+    after; returns the timed record with the scheduler, its progress lines
+    and the launch counts."""
+    with open(path, "w") as f:
+        f.write(conf_text)
+    out = io.StringIO()
+    reset_counts()
+    with timed_darlin() as rec, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = linear_main.main([path], device=device)
+        rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = counts() + (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                                  fa.flash_bwd_dkv.launches)
+    check(rc == 0, f"CLI on {path} ({device}) exited {rc}")
+    (sched,) = rec.pop("scheds")
+    lines = out.getvalue().splitlines()
+    rec.update(sched=sched, progress=[x for x in lines if x.startswith("iter ")],
+               model=sched.conf.model_output.file[0] + "_S0")
+    prog = [sched.g_progress[i] for i in sorted(sched.g_progress)]
+    steps = len(sched.fea_blk) * len(prog)
+    check(len(prog) > 0 and rec["progress"][:len(prog)] == [sched.show_progress(i) for i in
+                                                               sorted(sched.g_progress)],
+          f"darlin {path} ({device}): progress lines {rec['progress'][:3]}")
+    check(all(np.isfinite(p.objective) for p in prog), f"darlin {path}: objectives not finite")
+    want = (0, 0, 0, 3 * steps if device == "cuda" else 0, 0, 0, 0)
+    check(rec["launches"] == want, f"darlin {path} ({device}): launches (sparse, dense, quantize, "
+          f"segment_sum, flash fwd/dq/dkv) {rec['launches']}, want {want} ({steps} block steps)")
+    rec.update(block_steps=steps, objectives=[p.objective for p in prog])
+    return rec
+
+
+def model_keys(path: str) -> dict:
+    """key -> weight of a darlin model file; every weight finite and nonzero."""
+    with open(path) as f:
+        rows = [line.split("\t") for line in f.read().splitlines()]
+    model = {k: float(v) for k, v in rows}
+    check(len(model) == len(rows) and all(np.isfinite(v) and v != 0 for v in model.values()),
+          f"{path}: a repeated key, a zero or a non-finite weight")
+    return model
+
+
+def block_times(solver, ns_per_add: float) -> dict:
+    """Each block's step, timed alone on the solver's final state
+    (``benchmarks/timing.py``: cold L2), one step's aten operations and
+    segment-sum launches, and its sums at the slowest and the median
+    block as ``segment_case`` rows (card bit-equal to the CPU, the
+    kernel's time beside its plain version, ``index_add_`` and the
+    bound)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            CountOps.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    def step(b):
+        return lambda: darlin.block_step(
+            solver.w_blk[b], solver.delta_blk[b], solver.active_blk[b], solver.dual, solver.y,
+            solver.row_mask, solver.blocks[b], 1e-3, solver.lam, solver.eta,
+            solver.bcd.delta_max_value)
+
+    def sums(b, which):
+        """The step's sum by column (G's; U's has the same ids) and its sum
+        by row, on the block's inputs."""
+        blk = solver.blocks[b]
+        tau = 1.0 / (1.0 + solver.dual)
+        by_col = -solver.y[blk.rows] * tau[blk.rows] * blk.vals
+        by_row = blk.vals_by_row * solver.w_blk[b][blk.cols_by_row]
+        return [segment_case(f"darlin {which} block's sum by column", by_col, blk.cols,
+                             blk.num_cols, True, ns_per_add),
+                segment_case(f"darlin {which} block's sum by row", by_row, blk.rows_by_row,
+                             solver.dual.numel(), True, ns_per_add)]
+
+    ms = [median_ms(step(b), reps=5) for b in range(len(solver.blocks))]
+    slowest, median = int(np.argmax(ms)), int(np.argsort(ms)[len(ms) // 2])
+    before = seg.segment_sum.launches
+    with CountOps():
+        step(slowest)()
+    torch.cuda.synchronize()
+    launches = seg.segment_sum.launches - before
+    t0 = time.perf_counter()
+    solver.evaluate()
+    evaluate_ms = (time.perf_counter() - t0) * 1e3
+    return dict(block_ms=ms, pass_device_ms=float(sum(ms)), median_block_ms=float(ms[median]),
+                max_block_ms=float(ms[slowest]), aten_ops_a_step=CountOps.ops,
+                segment_launches_a_step=launches, evaluate_ms=evaluate_ms,
+                segment_rows=sums(slowest, "slowest") + sums(median, "median"))
+
+
+def darlin_summary(rec: dict) -> dict:
+    sched = rec["sched"]
+    last = sched.g_progress[max(sched.g_progress)]
+    passes = len(sched.g_progress)
+    return dict(rows=sched.data.n, entries=sched.data.nnz, columns=sched.data.cols,
+                blocks=len(sched.fea_blk), passes=passes, block_steps=rec["block_steps"],
+                objective_first=rec["objectives"][0], objective_last=rec["objectives"][-1],
+                nnz_w=last.nnz_w, active=last.nnz_active_set, violation=last.violation,
+                max_dispatch_window=sched.max_dispatch_window,
+                max_in_flight_observed=sched.max_in_flight_observed,
+                load_s=rec["load_s"], init_s=rec["init_s"], passes_s=rec["passes_s"],
+                wall_s=rec["wall_s"], block_steps_per_s=rec["block_steps"] / rec["passes_s"],
+                segment_launches=rec["launches"][3])
+
+
+def darlin_eval(tmp: str, name: str, write, rows: int, seed: int, model: str) -> dict:
+    """``eval_batch.conf`` of the set through the CLI on the card, on
+    held-out rows and the darlin model: one segment-sum launch a
+    minibatch, the model's weights all loaded."""
+    data = os.path.join(tmp, f"{name}_batch_test")
+    write(data, 1, rows, seed)
+    text = eval_conf(EVAL_BATCH_CONF[name], os.path.join(data, "part.*"), model.replace("_S0", "_S*"))
+    reset_counts()
+    ev = run_eval(text, os.path.join(tmp, f"eval_batch_{name}.conf"), "cuda")
+    mb = -(-rows // model_evaluation.MINIBATCH)
+    m = ev["metrics"]
+    check(counts() == (0, 0, 0, mb) and m["num_examples"] == rows and m["auc"] > 0.5
+          and all(np.isfinite(list(m.values()))) and ev["num_weights"] == len(model_keys(model)),
+          f"darlin eval {name}: launches {counts()}, metrics {m}, {ev['num_weights']} weights")
+    return dict(rows=rows, auc=m["auc"], logloss=m["logloss"], accuracy=m["accuracy"],
+                line=ev["line"], wall_s=ev["wall_s"], segment_launches=mb)
+
+
+def darlin_path(tmp: str, seed: int, ns_per_add: float) -> dict:
+    """The darlin app through the CLI on the card: the Criteo batch conf
+    on 1M generated rows and its eval, the CTR batch conf and its eval,
+    then the Criteo conf cut to 50,000 rows on the card twice (w and the
+    dual bit-identical) and on the CPU (the stated tolerances)."""
+    out = {}
+    crit_data = os.path.join(tmp, "criteo_batch")
+    t0 = time.perf_counter()
+    write_criteo_shards(crit_data, DARLIN_SHARDS, DARLIN_ROWS, seed)
+    out["criteo_write_s"] = time.perf_counter() - t0
+    text = ctr_conf(os.path.join(crit_data, "part.*"), os.path.join(tmp, "model", "criteo_batch"),
+                    conf_text=open(BATCH_CONF["criteo"]).read())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the earlier phases' tensors still alive
+    rec = run_darlin(text, os.path.join(tmp, "criteo_batch.conf"), "cuda")
+    crit = darlin_summary(rec)
+    crit["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    sched = rec["sched"]
+    check(crit["objective_last"] < crit["objective_first"] and crit["blocks"] == 39
+          and sched.solver.lam == 4.0 and sched.bcd_conf.max_block_delay == 2
+          and crit["max_dispatch_window"] >= 2,
+          f"darlin Criteo: {crit}")
+    crit.update(block_times(sched.solver, ns_per_add), progress=rec["progress"])
+    crit["eval"] = darlin_eval(tmp, "criteo", write_criteo_shards, DARLIN_EVAL_ROWS, seed + 7,
+                               rec["model"])
+    out["criteo"] = crit
+    del rec, sched
+    torch.cuda.empty_cache()
+
+    ctr_data = os.path.join(tmp, "ctr_batch")
+    write_ctr_shards(ctr_data, CTR_SHARDS, CTR_ROWS, seed + 1)
+    text = ctr_conf(os.path.join(ctr_data, "part.*"), os.path.join(tmp, "model", "ctr_batch"),
+                    conf_text=open(BATCH_CONF["ctr"]).read())
+    rec = run_darlin(text, os.path.join(tmp, "ctr_batch.conf"), "cuda")
+    ctr = darlin_summary(rec)
+    check(ctr["objective_last"] < ctr["objective_first"] and rec["sched"].bcd_conf.max_block_delay == 0
+          and ctr["max_dispatch_window"] <= 1, f"darlin CTR: {ctr}")
+    ctr["eval"] = darlin_eval(tmp, "ctr", write_ctr_shards, CTR_ROWS, seed + 8, rec["model"])
+    out["ctr"] = ctr
+    del rec
+
+    agree_data = os.path.join(tmp, "criteo_agree")
+    write_criteo_shards(agree_data, 1, DARLIN_AGREE_ROWS, seed + 9)
+    runs = {}
+    for run in ("cuda", "cuda_again", "cpu"):
+        text = ctr_conf(os.path.join(agree_data, "part.*"), os.path.join(tmp, "model", f"agree_{run}"),
+                        conf_text=open(BATCH_CONF["criteo"]).read())
+        runs[run] = run_darlin(text, os.path.join(tmp, f"agree_{run}.conf"), run.split("_")[0])
+    a, b, c = (runs[k]["sched"] for k in ("cuda", "cuda_again", "cpu"))
+    bits = lambda x: np.ascontiguousarray(x).view(np.int32)  # noqa: E731
+    check(np.array_equal(bits(a.solver.w), bits(b.solver.w))
+          and torch.equal(a.solver.dual.view(torch.int32), b.solver.dual.view(torch.int32))
+          and runs["cuda"]["progress"] == runs["cuda_again"]["progress"],
+          "darlin: two card runs differ")
+    card, cpu = runs["cuda"]["objectives"], runs["cpu"]["objectives"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(card, cpu))
+    pa, pc = a.g_progress[max(a.g_progress)], c.g_progress[max(c.g_progress)]
+    ka, kc = model_keys(runs["cuda"]["model"]), model_keys(runs["cpu"]["model"])
+    bound = DARLIN_COUNT_TOL * a.data.cols
+    apart = dict(nnz_w=abs(pa.nnz_w - pc.nnz_w), active=abs(pa.nnz_active_set - pc.nnz_active_set),
+                 model_keys=len(set(ka) ^ set(kc)))
+    check(len(card) == len(cpu) and rel <= DARLIN_OBJ_RTOL and max(apart.values()) <= bound,
+          f"darlin card vs CPU: {len(card)} vs {len(cpu)} passes, objective {rel:.3g} apart "
+          f"(bar {DARLIN_OBJ_RTOL}), counts apart {apart} (bar {bound:.0f})")
+    common = sorted(set(ka) & set(kc))
+    out["agree"] = dict(
+        rows=a.data.n, passes=len(card), objective_rel_gap=rel, counts_apart=apart,
+        count_bound=bound, columns=a.data.cols, nnz_w=pa.nnz_w, active=pa.nnz_active_set,
+        max_abs_weight_diff=max((abs(ka[k] - kc[k]) for k in common), default=0.0),
+        card_wall_s=runs["cuda"]["wall_s"], card_passes_s=runs["cuda"]["passes_s"],
+        cpu_wall_s=runs["cpu"]["wall_s"], cpu_passes_s=runs["cpu"]["passes_s"],
+        segment_launches=runs["cuda"]["launches"][3])
     return out
 
 
@@ -2029,13 +2322,7 @@ def main() -> int:
     seg_rows = [segment_case(*case, lat["ns_per_add"])
                 for case in segment_inputs(args.seed + 2_000_000, gen)]
     for r in seg_rows:
-        route = "no sort (ids grouped)" if r["presorted"] else "stable sort first"
-        print(f"# parity segment_sum {r['case']} ({r['entries']} entries, {r['live']} nonzero, "
-              f"{r['segments']} segments, longest run {r['longest']}; {route}): card bit-equal to "
-              f"the CPU, run to run; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, whole "
-              f"sum {r['whole_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, bytes "
-              f"{r['bytes_ms']:.4f} ms, serial floor {r['serial_floor_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
+        print_segment_row(r, smi)
 
     batches = [make_batch(args.seed + i) for i in range(T * (args.timed_launches + 1))]
     deterministic = {
@@ -2122,6 +2409,42 @@ def main() -> int:
             dict(ctr=ctr["model_nonzeros"], criteo=crit["model_nonzeros"]))
         big = bigtable_path(tmp, args.seed + 2)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="darlin_smoke_") as tmp:
+        dar = darlin_path(tmp, args.seed + 11, lat["ns_per_add"])
+    torch.cuda.empty_cache()
+    for name, d in (("Criteo", dar["criteo"]), ("CTR", dar["ctr"])):
+        conf = f"configs/{name.lower()}/batch_l1lr.conf"
+        print(f"# darlin {name} ({conf} via CLI, card's own numbers, {smi}): {d['rows']} rows, "
+              f"{d['entries']} entries, {d['columns']} columns, {d['blocks']} blocks, {d['passes']} "
+              f"passes ({d['block_steps']} block steps); objective {d['objective_first']:.6e} -> "
+              f"{d['objective_last']:.6e}; nnz(w) {d['nnz_w']}, active {d['active']}, violation "
+              f"{d['violation']:.3g}; max_dispatch_window {d['max_dispatch_window']} (in flight on "
+              f"the card at a submit, at most {d['max_in_flight_observed']}); wall {d['wall_s']:.2f} s: "
+              f"load + localize {d['load_s']:.2f} s, init_data (upload) {d['init_s']:.2f} s, passes "
+              f"{d['passes_s']:.2f} s; {d['block_steps_per_s']:.1f} block steps/s; segment_sum "
+              f"launches {d['segment_launches']} (3 a block step); eval_batch.conf on "
+              f"{d['eval']['rows']} held-out rows: auc {d['eval']['auc']:.6f}, logloss "
+              f"{d['eval']['logloss']:.6f} ({d['eval']['wall_s']:.2f} s, segment_sum launches "
+              f"{d['eval']['segment_launches']})", flush=True)
+    d = dar["criteo"]
+    print(f"# darlin Criteo block step (CUDA events, cold L2, final state, {smi}): median "
+          f"{d['median_block_ms']:.4f} ms, slowest {d['max_block_ms']:.4f} ms, the {d['blocks']} "
+          f"blocks' sum (a pass's device time) {d['pass_device_ms']:.3f} ms against a pass's wall "
+          f"{d['passes_s'] / d['passes'] * 1e3:.3f} ms; a step: {d['aten_ops_a_step']} aten ops, "
+          f"{d['segment_launches_a_step']} segment_sum launches (two sums by column, one by row; "
+          f"parity rows below); evaluate() {d['evaluate_ms']:.1f} ms a pass (host clock); peak "
+          f"device memory above what earlier phases hold "
+          f"{d['peak_gib']:.3f} GiB; data written in {dar['criteo_write_s']:.1f} s", flush=True)
+    for r in d["segment_rows"]:
+        print_segment_row(r, smi)
+    seg_rows += d["segment_rows"]
+    g = dar["agree"]
+    print(f"# darlin card vs CPU (the Criteo batch conf on {g['rows']} rows, {smi}): {g['passes']} "
+          f"passes on both; objectives {g['objective_rel_gap']:.3g} apart (bar {DARLIN_OBJ_RTOL}); "
+          f"counts apart {g['counts_apart']} (bar {g['count_bound']:.0f} = {DARLIN_COUNT_TOL} of "
+          f"{g['columns']} columns); weights of common keys max |diff| {g['max_abs_weight_diff']:.3g}; "
+          f"two card runs: w, the dual and every progress line bit-identical; passes card "
+          f"{g['card_passes_s']:.2f} s, CPU {g['cpu_passes_s']:.2f} s", flush=True)
     print(f"# adaptive tau (CTR conf via CLI, card's own numbers, {smi}): {tau['ministeps']} ministeps, "
           f"tau trajectory {tau['tau_trace']} equal to the CPU run's; episodes {tau['episodes']}; "
           f"{tau['examples_per_s_e2e']:.0f} ex/s end to end, step {tau['step_ms_per_ministep']:.3f} ms; "
@@ -2263,7 +2586,9 @@ def main() -> int:
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
     main_quant = quant_times[0]  # the conf's 1-byte push: the whole quantize call
-    main_seg = seg_rows[3]  # the CTR step's shard gradient by slot: the costliest on the paths
+    # the CTR step's shard gradient by slot, the case this entry has always
+    # timed (the darlin block sums, slower, print as parity rows of their own)
+    main_seg = seg_rows[3]
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -2299,6 +2624,8 @@ def main() -> int:
              launches=ctr["segment_launches"],
              eval_launches={name: ev["segment_launches"] for name, ev in evals.items()},
              ell_scatter_launches=dict(bits=bw["segment_launches"], stream=stream["segment_launches"]),
+             darlin_launches=dict(criteo_batch=dar["criteo"]["segment_launches"],
+                                  ctr_batch=dar["ctr"]["segment_launches"]),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -2336,7 +2663,7 @@ def main() -> int:
                   native_build_seconds=native_s,
                   ctr=ctr, ctr_agree_and_pull=agree, model_evaluation=evals,
                   kkt=kkt, encoded_wire=enc, bits_wire=bw, stream_wire=stream, adaptive_tau=tau,
-                  bigtable=big,
+                  bigtable=big, darlin=dar,
                   kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,

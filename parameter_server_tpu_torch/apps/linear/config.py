@@ -2,13 +2,15 @@
 
 Dataclass counterparts of ``parameter_server_tpu/apps/linear/config.py``
 with the same field names and defaults, and :func:`parse_conf` for the
-reference's protobuf-text ``.conf`` files. Fields of features the port
-does not have yet (server replicas) are kept so that setting them fails
-loudly:
-:meth:`SGDConfig.validate` raises ``NotImplementedError`` for any value
-other than the default, and so does a conf with a ``darlin`` block.
-Unknown loss, penalty, learning-rate, update or pull-gather names raise
-``ValueError``.
+reference's protobuf-text ``.conf`` files (an ``async_sgd`` block, a
+``darlin`` block, or neither for model evaluation). Fields of features
+the port does not have yet (server replicas) are kept so that setting
+them fails loudly: :meth:`SGDConfig.validate` raises
+``NotImplementedError`` for any value other than the default. Unknown
+loss, penalty, learning-rate, update or pull-gather names raise
+``ValueError``. As in the JAX parser, a ``darlin`` block's
+``tail_feature_freq`` is not read, and ``save_model_every_n_iter`` is
+read and used by nothing.
 """
 
 from __future__ import annotations
@@ -131,6 +133,25 @@ class SGDConfig:
 
 
 @dataclasses.dataclass
+class BCDConfig:
+    """Counterpart of the JAX package's BCDConfig (the ``darlin`` block:
+    the reference's bcd.proto and linear.proto's darlin fields)."""
+
+    num_data_pass: int = 10  # max_pass_of_data
+    feature_block_ratio: float = 4.0
+    random_feature_block_order: bool = True
+    max_block_delay: int = 0
+    epsilon: float = 1e-4
+    save_model_every_n_iter: int = 0
+    load_local_data: bool = False
+    comm_filter: list = dataclasses.field(default_factory=list)
+    # the trust region of the shrink step
+    delta_init_value: float = 1.0
+    delta_max_value: float = 5.0
+    kkt_filter_threshold_ratio: float = 10.0
+
+
+@dataclasses.dataclass
 class Config:
     training_data: DataConfig = dataclasses.field(default_factory=DataConfig)
     validation_data: Optional[DataConfig] = None
@@ -142,6 +163,7 @@ class Config:
         default_factory=LearningRateConfig
     )
     async_sgd: Optional[SGDConfig] = None
+    darlin: Optional[BCDConfig] = None
 
 
 _ENUMS = {
@@ -249,15 +271,8 @@ def _data_config(d: dict) -> DataConfig:
 
 
 def parse_conf(text: str) -> Config:
-    """Parse a reference-style .conf (protobuf text) into Config. A
-    ``darlin`` block raises ``NotImplementedError``: the block
-    coordinate-descent app is not ported (ROADMAP A10)."""
+    """Parse a reference-style .conf (protobuf text) into Config."""
     d = parse_conf_dict(text)
-    if "darlin" in d:
-        raise NotImplementedError(
-            "the darlin (block coordinate descent) app is not ported to "
-            "the PyTorch package yet (ROADMAP A10)"
-        )
     cfg = Config()
     if "training_data" in d:
         cfg.training_data = _data_config(d["training_data"])
@@ -311,5 +326,20 @@ def parse_conf(text: str) -> Config:
             push_filter=_filter_list(s.get("push_filter")),
             pull_filter=_filter_list(s.get("pull_filter")),
             pull_gather=str(s.get("pull_gather", "auto")),
+        )
+    if "darlin" in d:
+        b = d["darlin"]
+        cfg.darlin = BCDConfig(
+            num_data_pass=int(b.get("max_pass_of_data", b.get("num_data_pass", 10))),
+            feature_block_ratio=float(b.get("feature_block_ratio", 4.0)),
+            random_feature_block_order=bool(b.get("random_feature_block_order", True)),
+            max_block_delay=int(b.get("max_block_delay", 0)),
+            epsilon=float(b.get("epsilon", 1e-4)),
+            save_model_every_n_iter=int(b.get("save_model_every_n_iter", 0)),
+            load_local_data=bool(b.get("load_local_data", False)),
+            delta_init_value=float(b.get("delta_init_value", 1.0)),
+            delta_max_value=float(b.get("delta_max_value", 5.0)),
+            kkt_filter_threshold_ratio=float(b.get("kkt_filter_threshold_ratio", 10.0)),
+            comm_filter=_filter_list(b.get("comm_filter")),
         )
     return cfg

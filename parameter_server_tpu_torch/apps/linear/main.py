@@ -3,9 +3,13 @@
     python -m parameter_server_tpu_torch.apps.linear.main <config.conf> [--device cpu]
 
 Counterpart of ``parameter_server_tpu/apps/linear/main.py`` for the
-``async_sgd`` app and model evaluation, on one device (the CUDA device
-unless ``--device`` names another).
+``darlin`` and ``async_sgd`` apps and model evaluation, on one device
+(the CUDA device unless ``--device`` names another).
 
+- ``darlin``: the training files are read and localized in one batch,
+  divided into feature blocks and trained by block coordinate descent
+  (``DarlinScheduler``), printing a progress line a pass; the model goes
+  to ``{model_output}_S0`` and the last progress line is printed again.
 - ``async_sgd``: each ``training_data`` file pattern is one workload a
   pass, for ``num_data_pass`` passes; a workload is read, parsed and
   passed through a fresh count-min tail filter on the reader's feeder
@@ -17,7 +21,7 @@ unless ``--device`` names another).
 
 The system layer is not ported: the postoffice, heartbeats, dashboard
 and recovery (ROADMAP A9, A12). Flags that need it raise
-``NotImplementedError``, and so do confs for the darlin app (A10).
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ...learner.sgd import MinibatchReader
 from ...learner.workload_pool import Workload, WorkloadPool
 from .async_sgd import AsyncSGDWorker
 from .config import parse_conf
+from .darlin import DarlinScheduler
 from .model_evaluation import ModelEvaluation
 
 
@@ -81,7 +86,21 @@ def _print_progress(worker: AsyncSGDWorker, elapsed: float) -> None:
           f"{np.mean(p.auc or [0]):.4f}  {np.mean(p.accuracy or [0]):.4f}", flush=True)
 
 
+def _run_darlin(conf, device) -> int:
+    sched = DarlinScheduler(conf, device=device)
+    td = conf.training_data
+    sched.load_data(td.file, _data_format(td))
+    sched.run_loaded(verbose=True)
+    if conf.model_output is not None and conf.model_output.file:
+        files = sched.save_model(conf.model_output.file[0])
+        print(f"model written to {', '.join(files)}")
+    print(sched.show_progress(max(sched.g_progress) if sched.g_progress else 0), flush=True)
+    return 0
+
+
 def _run_app(conf, device, verbose: bool = False) -> int:
+    if conf.darlin is not None:
+        return _run_darlin(conf, device)
     if conf.async_sgd is None:
         if conf.validation_data is not None:
             ModelEvaluation(conf, device=device).run()

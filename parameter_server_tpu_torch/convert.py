@@ -6,7 +6,8 @@ The JAX worker's ``state_host()["state"]`` is a dict of numpy arrays
 port's dict of tensors, :func:`state_to_numpy` goes back.
 :func:`lm_params_from_jax` and :func:`lm_params_to_numpy` do the same for
 the JAX ``init_lm`` parameter dict, checking names and shapes against
-the config.
+the config, and :func:`darlin_state_from_jax` and
+:func:`darlin_state_to_numpy` for a darlin solver's blocks and dual.
 """
 
 from __future__ import annotations
@@ -86,3 +87,35 @@ def lm_params_from_jax(np_params: Dict[str, np.ndarray], cfg, device=None) -> Di
 def lm_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's LM parameters -> the JAX package's numpy dict."""
     return state_to_numpy(params)
+
+
+def darlin_state_from_jax(np_state: Dict[str, np.ndarray], blocks, device=None) -> Dict[str, object]:
+    """A darlin solver's state as numpy arrays -> the port's form
+    (``DarlinSolver.set_state``): ``{"w", "delta", "active"}``, each a
+    ``[num_cols]`` array over all columns (the JAX solver's ``w``,
+    ``delta`` and ``active`` properties), cut into one tensor a feature
+    block of ``blocks``, and ``"dual"`` (the JAX solver's ``[1, n]`` dual
+    or a flat ``[n]``) as one ``[n]`` tensor, all on ``device`` (CUDA by
+    default)."""
+    dev = resolve(device)
+    out: Dict[str, object] = {}
+    for key in ("w", "delta", "active"):
+        arr = np.asarray(np_state[key])
+        out[key] = [_to_tensor(arr[b.col_range.begin:b.col_range.end]).to(dev) for b in blocks]
+    out["dual"] = _to_tensor(np.asarray(np_state["dual"], np.float32).reshape(-1)).to(dev)
+    return out
+
+
+def darlin_state_to_numpy(state: Dict[str, object], blocks, num_cols: int) -> Dict[str, np.ndarray]:
+    """The port's darlin state (``DarlinSolver.state``) -> numpy arrays:
+    ``w``, ``delta`` and ``active`` over all ``num_cols`` columns (the
+    blocks' ranges filled, ``w`` 0, ``delta`` 0 and ``active`` False
+    elsewhere) and the flat ``[n]`` dual."""
+    out = {}
+    for key, dtype in (("w", np.float32), ("delta", np.float32), ("active", bool)):
+        arr = np.zeros(num_cols, dtype)
+        for b, t in zip(blocks, state[key]):
+            arr[b.col_range.begin:b.col_range.end] = t.detach().cpu().numpy()
+        out[key] = arr
+    out["dual"] = state["dual"].detach().cpu().numpy().copy()
+    return out

@@ -114,6 +114,11 @@ class Executor:
         # the most steps ever started and unfinished at a dispatch
         self.max_dispatched_in_flight = 0
 
+    def time(self) -> int:
+        """The logical clock: the timestamp the next submitted step gets."""
+        with self._cv:
+            return self._time
+
     def pending_count(self) -> int:
         """Submitted steps not yet picked by the dispatch thread."""
         with self._cv:
@@ -349,6 +354,14 @@ class Executor:
             for ts in sorted(todo):
                 left = None if deadline is None else deadline - time.monotonic()
                 self.wait(ts, pop=pop, timeout=left)
+
+    def device_busy(self, ts: int) -> bool:
+        """Step ``ts`` has run and its CUDA work has not finished yet (its
+        event's ``query()`` reads false). False for a step that has not
+        run, was waited on, or launched no CUDA work."""
+        with self._cv:
+            event = self._events.get(ts)
+        return event is not None and not event.query()
 
     def result(self, ts: int) -> Any:
         """The value of step ``ts`` (its device work may still run), or

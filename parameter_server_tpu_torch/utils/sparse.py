@@ -1,7 +1,8 @@
 """Sparse example batches (host side, numpy).
 
 Counterpart of ``parameter_server_tpu/utils/sparse.py``: the CSR
-minibatch the worker preps, plus the synthetic generator the benchmark
+minibatch the worker preps, its dense and column-major (CSC) views for
+block coordinate descent, plus the synthetic generator the benchmark
 and tests draw from. Same arrays, same random stream for a given seed.
 """
 
@@ -58,6 +59,28 @@ class SparseBatch:
             return self.values
         return np.ones(self.nnz, dtype=np.float32)
 
+    def to_dense(self) -> np.ndarray:
+        """The ``n x cols`` float32 matrix; repeated (row, key) entries add."""
+        out = np.zeros((self.n, self.cols), dtype=np.float32)
+        np.add.at(out, (self.row_ids(), self.indices.astype(np.int64)), self.value_array())
+        return out
+
+    def to_csc(self) -> "SparseCols":
+        """Column-major view for block coordinate descent: entries ordered
+        by key with a stable sort (within a column, in row order)."""
+        order = np.argsort(self.indices, kind="stable")
+        cols = self.indices[order]
+        rows = self.row_ids()[order]
+        vals = None if self.binary else self.values[order]
+        p = self.cols
+        colptr = np.zeros(p + 1, dtype=np.int64)
+        # a count a column, then the prefix sum: np.add.at's result, faster
+        colptr[1:] = np.bincount(cols.astype(np.int64), minlength=p)[:p]
+        np.cumsum(colptr, out=colptr)
+        return SparseCols(
+            colptr=colptr, row_ids=rows.astype(np.int32), values=vals, num_rows=self.n
+        )
+
     def slice_rows(self, begin: int, end: int) -> "SparseBatch":
         lo, hi = self.indptr[begin], self.indptr[end]
         return SparseBatch(
@@ -68,6 +91,46 @@ class SparseBatch:
             num_cols=self.num_cols,
             slot_ids=None if self.slot_ids is None else self.slot_ids[lo:hi],
         )
+
+
+@dataclasses.dataclass
+class SparseCols:
+    """CSC view: the row ids and values of each column, column after
+    column (``colptr`` delimits them)."""
+
+    colptr: np.ndarray  # [p+1] int64
+    row_ids: np.ndarray  # [nnz] int32
+    values: Optional[np.ndarray]  # [nnz] float32, None if binary
+    num_rows: int
+
+    @property
+    def cols(self) -> int:
+        return len(self.colptr) - 1
+
+    def col(self, j: int):
+        lo, hi = self.colptr[j], self.colptr[j + 1]
+        v = None if self.values is None else self.values[lo:hi]
+        return self.row_ids[lo:hi], v
+
+
+def from_dense(x: np.ndarray, y: np.ndarray) -> SparseBatch:
+    """The CSR batch of a dense ``n x p`` matrix's nonzero entries."""
+    n, p = x.shape
+    indptr = [0]
+    indices = []
+    values = []
+    for i in range(n):
+        (nz,) = np.nonzero(x[i])
+        indices.append(nz)
+        values.append(x[i, nz])
+        indptr.append(indptr[-1] + len(nz))
+    return SparseBatch(
+        y=y.astype(np.float32),
+        indptr=np.asarray(indptr, dtype=np.int64),
+        indices=np.concatenate(indices).astype(np.int64) if indices else np.zeros(0, np.int64),
+        values=np.concatenate(values).astype(np.float32) if values else np.zeros(0, np.float32),
+        num_cols=p,
+    )
 
 
 def random_sparse(

@@ -1,10 +1,19 @@
 """PyTorch port: the conf-driven CLI and its host side against the JAX package.
 
 - ``parse_conf`` gives the JAX parser's field values for every ``.conf``
-  under ``configs/`` that selects ``async_sgd`` (exact); confs of apps or
-  features the port does not have (darlin, the big-table wires) raise
-  ``NotImplementedError``; the model-evaluation confs run
-  (``tests/test_torch_model_evaluation.py``).
+  under ``configs/`` that selects ``async_sgd`` or ``darlin`` (exact), and
+  the same defaults; a conf of a feature the port does not have (server
+  replicas) raises ``NotImplementedError``; the model-evaluation confs
+  run (``tests/test_torch_model_evaluation.py``).
+- Each ``batch_l1lr.conf`` (darlin) runs through both CLIs on ~2,000
+  generated rows of its format, from a directory laid out as its paths
+  expect: the same progress lines, each printed number within one unit
+  of its last printed digit plus the run's tolerance (objective 1e-6
+  relative, rel 1e-6, violation 1e-5 relative: XLA's CPU ``exp`` is not
+  libm's, ``tests/test_torch_darlin.py``), ``|w|0`` and the active set
+  equal; the ``_S0`` models hold the same keys in the same order, the
+  weights within 1e-4 relative + 1e-5. ``eval_batch.conf`` then scores
+  the port's model through both CLIs to the same line.
 - The text parsers give bit-equal ``SparseBatch``es on the committed
   libsvm fixtures and on generated SPARSE_BINARY and CRITEO lines; the
   minibatch reader with the count-min tail filter yields the same
@@ -19,9 +28,11 @@
 
 import dataclasses
 import glob
+import importlib.util
 import os
 import pathlib
 import random
+import re
 
 import numpy as np
 import pytest
@@ -115,9 +126,131 @@ def test_ctr_conf_fields():
 
 
 @pytest.mark.parametrize("path", DARLIN, ids=_ids(DARLIN))
-def test_confs_for_unported_apps_raise(path, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain.main([path], device="cpu")
+def test_parse_darlin_conf_matches_jax(path):
+    text = open(path).read()
+    j, t = jcfg.parse_conf(text), tcfg.parse_conf(text)
+    assert t.async_sgd is None and j.async_sgd is None
+    for name in ("training_data", "validation_data", "model_output", "model_input",
+                 "loss", "penalty", "learning_rate"):
+        jv, tv = getattr(j, name), getattr(t, name)
+        assert (jv is None) == (tv is None), name
+        if jv is not None:
+            _assert_fields_match(dataclasses.asdict(tv), dataclasses.asdict(jv),
+                                 dataclasses.asdict(type(jv)()))
+    _assert_fields_match(dataclasses.asdict(t.darlin), dataclasses.asdict(j.darlin),
+                         dataclasses.asdict(jcfg.BCDConfig()))
+    assert dataclasses.asdict(t.darlin).keys() == dataclasses.asdict(j.darlin).keys()
+
+
+def test_config_defaults_match_jax():
+    for name in ("BCDConfig", "SGDConfig", "DataConfig", "LossConfig", "PenaltyConfig",
+                 "LearningRateConfig"):
+        _assert_fields_match(dataclasses.asdict(getattr(tcfg, name)()),
+                             dataclasses.asdict(getattr(jcfg, name)()),
+                             dataclasses.asdict(getattr(jcfg, name)()))
+    assert dataclasses.asdict(tcfg.BCDConfig()) == dataclasses.asdict(jcfg.BCDConfig())
+
+
+def test_darlin_conf_fields():
+    c = tcfg.parse_conf(open(ROOT / "configs" / "criteo" / "batch_l1lr.conf").read())
+    b = c.darlin
+    assert (b.num_data_pass, b.epsilon, b.max_block_delay) == (50, 2e-5, 2)
+    assert (b.save_model_every_n_iter, b.comm_filter) == (20, [{"type": "key_caching"}])
+    assert c.penalty.lambda_ == [4.0, 1.0] and c.learning_rate.alpha == 0.9
+    assert not hasattr(b, "tail_feature_freq")  # the JAX parser reads none either
+
+
+_BATCH_DATA = {"ctr": "ps_sparse_binary", "criteo": "criteo", "rcv1": "libsvm"}
+_PRINTED = re.compile(r"iter +(\d+): objv (\S+) rel (\S+) \|w\|0 (\d+) active (\d+) vio (\S+)$")
+
+
+def _write_batch_data(name, directory, rows, seed):
+    os.makedirs(directory, exist_ok=True)
+    if name == "ctr":
+        return write_ctr_shards(directory, 1, rows, seed, key_bits=16)
+    if name == "criteo":
+        from parameter_server_tpu_torch.benchmarks.criteo import write_criteo_shards
+
+        return write_criteo_shards(directory, 1, rows, seed)
+    spec = importlib.util.spec_from_file_location("synth_data", ROOT / "configs" / "synth_data.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=1 << 12) * (rng.random(1 << 12) < 0.1)).astype(np.float32)
+    path = os.path.join(directory, "part-001")
+    synth.write_libsvm(path, rng, rows, 1 << 12, 32, w)
+    return [path]
+
+
+def _printed_close(a: str, b: str, rtol: float = 0.0, atol: float = 0.0) -> bool:
+    """Two numbers printed as ``%.Ne`` agree within one unit of the last
+    printed digit (a rounding that fell the other way) plus the tolerance."""
+    x, y = float(a), float(b)
+    digits = len(a.split("e")[0].split(".")[1])
+    unit = 10.0 ** (int(a.split("e")[1]) - digits)
+    return abs(x - y) <= unit + atol + rtol * abs(y)
+
+
+def _progress(out: str):
+    lines = [_PRINTED.match(line) for line in out.splitlines() if line.startswith("iter ")]
+    assert lines and all(lines), out
+    return [m.groups() for m in lines]
+
+
+@pytest.mark.parametrize("path", DARLIN, ids=_ids(DARLIN))
+def test_batch_conf_cli_matches_jax(path, tmp_path, monkeypatch, capsys):
+    """The conf as it is, from a directory laid out as its relative paths
+    expect, through the port's CLI (``--device cpu``) and the JAX CLI
+    (``--num-workers 1``); then ``eval_batch.conf`` on the port's model."""
+    from parameter_server_tpu.apps.linear import main as jmain
+
+    name = pathlib.Path(path).parent.name
+    conf = tcfg.parse_conf(open(path).read())
+    (train_glob,) = conf.training_data.file
+    _write_batch_data(name, str(tmp_path / os.path.dirname(train_glob)), 2000, seed=1)
+    model = tmp_path / (conf.model_output.file[0] + "_S0")
+    monkeypatch.chdir(tmp_path)
+    Postoffice.reset()
+    try:
+        assert jmain.main([path, "--num-workers", "1"]) == 0
+    finally:
+        Postoffice.reset()
+    want = _progress(capsys.readouterr().out)
+    os.rename(model, tmp_path / "model" / "jax_S0")
+    assert tmain.main([path], device="cpu") == 0
+    out = capsys.readouterr().out
+    got = _progress(out)
+    assert f"model written to {conf.model_output.file[0]}_S0" in out
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[3:5] == w[3:5], (g, w)  # pass, |w|0, active
+        assert _printed_close(g[1], w[1], rtol=1e-6), (g, w)
+        assert _printed_close(g[2], w[2], atol=1e-6), (g, w)
+        assert _printed_close(g[5], w[5], rtol=1e-5), (g, w)
+    assert float(got[-1][1]) < float(got[0][1])
+
+    def read(p):
+        rows = [line.split("\t") for line in p.read_text().splitlines()]
+        return [k for k, _ in rows], np.array([float(v) for _, v in rows])
+
+    keys, w_port = read(model)
+    jkeys, w_jax = read(tmp_path / "model" / "jax_S0")
+    assert keys == jkeys and len(keys) == int(got[-1][3]) > 0
+    np.testing.assert_allclose(w_port, w_jax, rtol=1e-4, atol=1e-5)
+
+    # the eval conf of the set scores the port's model, through both CLIs
+    eval_path = ROOT / "configs" / name / "eval_batch.conf"
+    econf = tcfg.parse_conf(eval_path.read_text())
+    (test_glob,) = econf.validation_data.file
+    _write_batch_data(name, str(tmp_path / os.path.dirname(test_glob)), 600, seed=2)
+    assert tmain.main([str(eval_path)], device="cpu") == 0
+    port_eval = [x for x in capsys.readouterr().out.splitlines() if x.startswith("auc: ")]
+    try:
+        assert jmain.main([str(eval_path)]) == 0
+    finally:
+        Postoffice.reset()
+    jax_eval = [x for x in capsys.readouterr().out.splitlines() if x.startswith("auc: ")]
+    assert port_eval == jax_eval and len(port_eval) == 1 and "(600 examples)" in port_eval[0]
 
 
 @pytest.mark.parametrize("flag", [["--num-servers", "2"], ["--num-workers", "2"],

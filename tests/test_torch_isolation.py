@@ -56,7 +56,8 @@ def test_port_imports_nothing_of_jax():
               "utils.concurrent", "learner.ingest", "native", "system.executor",
               "benchmarks.criteo", "apps.linear.model_evaluation", "utils.crc32c",
               "utils.recordio", "data.example", "data.ref_interop", "data.text2record",
-              "data.show_example", "data.info", "data.slot_reader", "data.binmat"):
+              "data.show_example", "data.info", "data.slot_reader", "data.binmat",
+              "apps.linear.darlin", "learner.bcd", "system.customer", "utils.range"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -783,3 +783,41 @@ def test_ell_scatter_card_equals_cpu(dev):
     for a, b in ((outs[0], outs[1]), (outs[0], outs[2])):
         for x, y in zip(a, b):
             assert torch.equal(_bits(x), _bits(y))
+
+
+def test_darlin_card_vs_cpu_and_run_to_run(dev):
+    """The darlin app on the card: two runs bit-identical (w, the dual),
+    every block step's three segment sums launched as the kernel, and the
+    CPU run's per-pass objective within 1e-5 relative (the card's ``exp``
+    is not the CPU's), nnz(w) and the active set within 1% of the
+    columns, w within 1e-4 relative + 1e-5."""
+    from parameter_server_tpu_torch.apps.linear import config as tcfg
+    from parameter_server_tpu_torch.apps.linear.darlin import DarlinScheduler
+    from parameter_server_tpu_torch.utils.sparse import random_sparse
+
+    rng = np.random.default_rng(0)
+    w_true = (rng.normal(size=3000) * (rng.random(3000) < 0.1) * 2).astype(np.float32)
+    data = random_sparse(30_000, 3000, 20, seed=1, w_true=w_true)
+
+    def run(device):
+        c = tcfg.Config()
+        c.penalty = tcfg.PenaltyConfig(type="l1", lambda_=[2.0])
+        c.learning_rate = tcfg.LearningRateConfig(alpha=1.0)
+        c.darlin = tcfg.BCDConfig(num_data_pass=8, feature_block_ratio=4.0, max_block_delay=2)
+        s = DarlinScheduler(c, device=device)
+        before = tseg.segment_sum.launches
+        s.run_on(data)
+        return s, tseg.segment_sum.launches - before
+
+    (a, la), (b, lb), (cpu, lc) = run(dev), run(dev), run("cpu")
+    steps = len(a.fea_blk) * len(a.g_progress)
+    assert la == lb == 3 * steps and lc == 0
+    assert torch.equal(_bits(a.solver.dual), _bits(b.solver.dual))
+    assert np.array_equal(a.solver.w.view(np.int32), b.solver.w.view(np.int32))
+    assert a.max_dispatch_window >= 2
+    assert sorted(a.g_progress) == sorted(cpu.g_progress)
+    for i in a.g_progress:
+        x, y = a.g_progress[i], cpu.g_progress[i]
+        np.testing.assert_allclose(x.objective, y.objective, rtol=1e-5)
+        assert abs(x.nnz_w - y.nnz_w) <= 30 and abs(x.nnz_active_set - y.nnz_active_set) <= 30
+    np.testing.assert_allclose(a.solver.w, cpu.solver.w, rtol=1e-4, atol=1e-5)
