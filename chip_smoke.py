@@ -141,8 +141,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``parameter_server_tpu_torch.apps.lm.main``) at 2 layers, d_model 64,
    on the card against ``--device cpu``, then at the full config for 30
    Adam steps to a falling loss and a 64-token generation;
-8. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. the serving plane (``parameter_server_tpu_torch.apps.serve.main``):
+   ``flash_fwd`` against its plain version at the serve CLI's decode-lane
+   prefill (float32, heads of 16) and at a batcher join; A. the serve CLI
+   through ``main()`` at 2^22 slots, every other flag at its default, with
+   ``--replica full --train-while-serving --decode --batch-slots 8``, then
+   ``--replica hot`` and ``--replica off``: each record printed, no load
+   point with an error, the 3x point shedding under admission, every
+   admitted request completed, launches counted from zero a run; B. the
+   same seed and key pool on the card and on the CPU: the table after the
+   warm push, and the values and predict scores of the pool's 512
+   requests in each replica mode (and the replica held on the card),
+   bit-equal; C. the device-resident replica at 2^30 slots (4 GiB) under
+   a 2 GiB host budget: host mode refused, device mode serving through a
+   stream of in-place pushes with no degraded answer; refresh and gather
+   times, peak device memory; D. the continuous batcher at
+   ``decode_batching_ab``'s full shapes (target d_model 512, 8 heads, 2
+   layers; draft d_model 128; gamma 2; prompts of 8; 40-48 new tokens),
+   slots 1, 4, 8 and 16, 6 sessions a slot joining as slots free: every
+   session's tokens equal to its solo ``speculative_generate`` run,
+   batched against sequential tokens/s;
+9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed before each path and read after it. Every
 time printed is measured on the card in this run. Full records go to
@@ -153,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -194,6 +215,7 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     sparse_update_inputs,
 )
 from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
+from parameter_server_tpu_torch.apps.serve import main as serve_main  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
@@ -208,6 +230,16 @@ from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
 from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
+from parameter_server_tpu_torch.serving import (  # noqa: E402
+    BatcherConfig,
+    ContinuousBatcher,
+    DecodeRequest,
+    PredictRequest,
+    PullRequest,
+    ReadReplica,
+    ServeConfig,
+    ServeFrontend,
+)
 
 BIG_SLOTS = 1 << 26  # the real-data table of bench.py --real
 PIPE_LAUNCHES = 8  # timed launches of T minibatches, serial and pipelined
@@ -2237,6 +2269,353 @@ def lm_cli(seed: int) -> dict:
                 launches=got, generation=gen[1].split("\n", 1)[1])
 
 
+# -- the serving plane (apps/serve/main.py): phases A-D --------------------
+
+SERVE_SLOTS = 1 << 22  # the table of the Criteo conf and of bench.py
+SERVE_KEY_SPACE = 1 << 24  # the serve CLI's default key space
+SERVE_BIG_SLOTS = 1 << 30  # configs/criteo/online_l1lr_bigtable.conf
+SERVE_HOST_BUDGET = 2 << 30  # half the 2^30 table's 4 GiB
+SERVE_PARITY_REQUESTS = 512  # the CLI's request pool, every row once
+SERVE_DEVICE = "cuda"
+# decode_batching_ab's full shapes (the JAX package's
+# benchmarks/components.py, its non-smoke branch)
+BATCH_TCFG = dict(vocab=256, d_model=512, n_heads=8, n_layers=2, d_ff=1024)
+BATCH_DCFG = dict(vocab=256, d_model=128, n_heads=2, n_layers=1, d_ff=256)
+BATCH_GAMMA, BATCH_PROMPT, BATCH_STEPS = 2, 8, (40, 48)
+BATCH_SLOTS, BATCH_SESSIONS_A_SLOT = (1, 4, 8, 16), 6
+
+
+def run_serve_cli(argv) -> "list[dict]":
+    """``apps.serve.main.main(argv)`` in this process; its JSON records."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main.main(argv)
+    check(rc == 0, f"serve CLI {argv} exited {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def serve_cli_path(seed: int) -> dict:
+    """Phase A: the serve CLI through ``main()`` on the card at 2^22
+    slots, every other flag at its default, three replica modes. Each
+    run's launches are counted from zero."""
+    runs = {}
+    for name, extra in (("full", ["--replica", "full", "--train-while-serving", "--decode",
+                                  "--batch-slots", "8"]),
+                        ("hot", ["--replica", "hot"]),
+                        ("off", ["--replica", "off"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        recs = run_serve_cli(["--num-slots", str(SERVE_SLOTS), "--seed", str(seed),
+                              "--device", SERVE_DEVICE] + extra)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        by = {}
+        for r in recs:
+            by.setdefault(r["metric"], []).append(r)
+        points = by["serve_open_loop_point"]
+        check(len(points) == 2, f"serve {name}: {len(points)} load points")
+        for p in points:
+            check(p["n_errors"] == 0, f"serve {name}: errors at {p['offered_rate']}/s: {p['errors']}")
+            check(p["completed"] == p["accepted"],
+                  f"serve {name}: completed {p['completed']} != admitted {p['accepted']}")
+        check(points[-1]["shed_frac"] > 0, f"serve {name}: the 3x point shed nothing")
+        stats = by["serve_frontend_stats"][0]
+        check(stats["degraded_served"] == 0,
+              f"serve {name}: {stats['degraded_served']} degraded answers")
+        launches = dict(flash_fwd=fa.flash_attention.launches, segment_sum=seg.segment_sum.launches)
+        check(launches["segment_sum"] >= 1, f"serve {name}: the warm push launched no segment_sum")
+        if name == "full":
+            # one segment_sum a push: a stream that ran through both 3 s
+            # load points pushes far more than 10 a second of the window
+            # (the CLI itself fails if a push raised or hung)
+            floor = 1 + 10 * sum(p["duration_s"] for p in points)
+            check(launches["segment_sum"] >= floor,
+                  f"serve full: {launches['segment_sum']} pushes, fewer than {floor:.0f} over "
+                  "the load window: the push stream stalled")
+            dec = by["serve_decode_latency_ms"][0]
+            check(launches["flash_fwd"] > 0, "serve full: the decode lane launched no flash_fwd")
+            check(dec["batcher"]["retired"] == 16, f"serve full: batcher retired {dec['batcher']}")
+        runs[name] = dict(records=recs, capacity=by["serve_closed_loop_capacity"][0]["value"],
+                          points=points, stats=stats, decode=by.get("serve_decode_latency_ms"),
+                          launches=launches, wall_s=wall)
+    return runs
+
+
+def serve_values(kv, pool, hot, mode: str, device_replica: bool = False):
+    """The values of every pool row through a frontend (pull) and the
+    predict scores of 4-row CSR requests over the same rows."""
+    fe = ServeFrontend(kv, ServeConfig(replica=mode, hot_keys=hot if mode == "hot" else None,
+                                       replica_device=device_replica, workers=2)).start()
+    try:
+        pulls = [fe.submit(PullRequest(keys=row)) for row in pool]
+        width = pool.shape[1] // 4
+        preds = [fe.submit(PredictRequest(indices=row, indptr=np.arange(0, 4 * width + 1, width)))
+                 for row in pool]
+        vals = np.stack([t.result(120) for t in pulls])
+        scores = np.stack([t.result(120) for t in preds])
+        degraded = fe.degraded_served
+    finally:
+        fe.close()
+    check(degraded == 0, f"serve {mode}: {degraded} degraded answers")
+    return vals, scores
+
+
+def serve_parity(seed: int) -> dict:
+    """Phase B: the same seed and key pool on the card and on the CPU:
+    the table after the warm push, and the values and predict scores of
+    the pool's 512 requests through the frontend in each replica mode
+    (and the device-resident replica), bit-equal."""
+    out, tables = {}, {}
+    for dev in (SERVE_DEVICE, "cpu"):
+        kv, rng = serve_main.warm_store(SERVE_SLOTS, SERVE_KEY_SPACE, seed, dev)
+        pool = serve_main.request_pool(rng, 32, SERVE_KEY_SPACE)
+        hot = serve_main.hot_set(pool, 0.01, SERVE_KEY_SPACE)
+        tables[dev] = kv.table(0, copy=True).cpu()
+        for mode, on_card in (("full", False), ("hot", False), ("off", False), ("full", True)):
+            if on_card and dev != SERVE_DEVICE:
+                continue
+            out[(dev, mode, on_card)] = serve_values(kv, pool, hot, mode, on_card)
+        kv.executor.stop()
+        kv.remove()  # the postoffice's manager holds every registered store
+    check(torch.equal(bits(tables[SERVE_DEVICE]), bits(tables["cpu"])),
+          "serve: the table after the warm push differs between the card and the CPU")
+    cpu_vals, cpu_scores = out[("cpu", "full", False)]
+    for (dev, mode, on_card), (vals, scores) in out.items():
+        what = f"serve {dev} {mode}{' device replica' if on_card else ''}"
+        check(np.array_equal(vals.view(np.uint32), cpu_vals.view(np.uint32)),
+              f"{what}: pulled values differ from the CPU's")
+        check(np.array_equal(scores.view(np.uint64), cpu_scores.view(np.uint64)),
+              f"{what}: predict scores differ from the CPU's")
+    nz = int((tables["cpu"] != 0).sum())
+    warm = np.unique(np.random.default_rng(seed).integers(0, SERVE_KEY_SPACE, serve_main.WARM_KEYS))
+    return dict(slots=SERVE_SLOTS, nonzero_slots=nz, requests=SERVE_PARITY_REQUESTS,
+                modes=sorted({f"{m}{' device' if c else ''}" for _, m, c in out}),
+                warm_keys=len(warm), keys_sharing_a_slot=len(warm) - nz)
+
+
+def serve_bigtable(seed: int) -> dict:
+    """Phase C: the device-resident replica at 2^30 slots (4 GiB f32)
+    under a 2 GiB host budget: a host-mode refresh fails loudly; device
+    mode serves through a stream of in-place pushes with no degraded
+    answer. Refresh and gather times, peak device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kv, rng = serve_main.warm_store(SERVE_BIG_SLOTS, SERVE_KEY_SPACE, seed, SERVE_DEVICE)
+    pool = serve_main.request_pool(rng, 32, SERVE_KEY_SPACE)
+    try:
+        ReadReplica(kv, host_budget_bytes=SERVE_HOST_BUDGET)
+        host_refused = False
+    except MemoryError as e:
+        host_refused = "device=True" in str(e)
+    check(host_refused, "serve bigtable: the host-mode refresh over budget did not fail loudly")
+    torch.cuda.empty_cache()
+    fe = ServeFrontend(kv, ServeConfig(replica="full", replica_device=True,
+                                       replica_host_budget_bytes=SERVE_HOST_BUDGET,
+                                       replica_refresh_s=0.25, workers=2)).start()
+    stop = threading.Event()
+    pushes = [0]
+    push_err = []
+
+    def pusher():
+        try:
+            i = 0
+            while not stop.is_set():
+                keys = np.unique(pool[i % len(pool)])
+                kv.wait(kv.push(kv.request(channel=0), keys=keys,
+                                values=np.ones((len(keys), 1), np.float32)))
+                pushes[0] += 1
+                i += 1
+        except BaseException as e:
+            push_err.append(e)
+
+    t = threading.Thread(target=pusher, name="serve-big-pusher", daemon=True)
+    t.start()
+    served = 0
+    t_end = time.monotonic() + 4.0
+    try:
+        while time.monotonic() < t_end:
+            tickets = [fe.submit(PullRequest(keys=pool[(served + j) % len(pool)]))
+                       for j in range(16)]
+            for tk in tickets:
+                v = tk.result(60)
+                check(v.shape == (32, 1) and np.isfinite(v).all(), "serve bigtable: a bad answer")
+            served += len(tickets)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    check(not push_err, f"serve bigtable: the push stream failed: {push_err[:1]}")
+    stats = fe.stats()
+    check(fe.degraded_served == 0, f"serve bigtable: {fe.degraded_served} degraded answers")
+    check(stats["replica"]["device"] is True and stats["replica"]["version"] > 1,
+          f"serve bigtable: replica {stats['replica']}")
+    kv.executor.wait_all()
+    refresh_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe.replica.refresh()
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    table = fe.replica._table
+    gather = {}
+    for n in (32, 4096):
+        keys = np.unique(pool.ravel())[:n] if n <= pool.size else pool.ravel()[:n]
+        keys = np.resize(keys, n)
+        slots = torch.from_numpy(kv.channel(0).directory.slots(keys).astype(np.int64)).to(
+            SERVE_DEVICE)
+        gather[n] = median_ms(lambda: table.index_select(0, slots))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fe.replica.pull(keys)
+        gather[f"pull_{n}_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    fe.close()
+    kv.executor.stop()
+    peak = torch.cuda.max_memory_allocated() - base
+    kv.remove()  # the postoffice's manager holds every registered store
+    del fe, kv, table, slots
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    check(left < 2 ** 30, f"serve bigtable: {left / 2 ** 30:.2f} GiB still held on the "
+          "card after the phase (the 4 GiB table was not released)")
+    return dict(slots=SERVE_BIG_SLOTS, table_gib=SERVE_BIG_SLOTS * 4 / 2 ** 30,
+                host_budget_gib=SERVE_HOST_BUDGET / 2 ** 30, served=served, pushes=pushes[0],
+                replica_version=stats["replica"]["version"], degraded_served=0,
+                refresh_ms=refresh_ms, gather_ms_32=gather[32], gather_ms_4096=gather[4096],
+                pull_ms_32=gather["pull_32_host_ms"], pull_ms_4096=gather["pull_4096_host_ms"],
+                peak_gib=peak / 2 ** 30, left_gib=left / 2 ** 30)
+
+
+def serve_batching(seed: int) -> dict:
+    """Phase D: the continuous batcher at decode_batching_ab's full
+    shapes, sessions joining as slots free; each session's tokens equal
+    its solo ``speculative_generate`` run; batched against sequential
+    tokens/s at each slot count."""
+    tcfg = transformer.LMConfig(**BATCH_TCFG)
+    dcfg = transformer.LMConfig(**BATCH_DCFG)
+    tp = transformer.init_lm(seed, tcfg, SERVE_DEVICE)
+    dp = transformer.init_lm(seed + 1, dcfg, SERVE_DEVICE)
+    rows, batched_launches = [], 0
+    for slots in BATCH_SLOTS:
+        rng = np.random.default_rng(seed + slots)
+        reqs = [DecodeRequest(prompt=rng.integers(0, tcfg.vocab, (1, BATCH_PROMPT)),
+                              steps=BATCH_STEPS[i % len(BATCH_STEPS)])
+                for i in range(BATCH_SESSIONS_A_SLOT * slots)]
+        tokens = sum(int(r.steps) for r in reqs)
+        b = ContinuousBatcher(tp, tcfg, dp, dcfg, BatcherConfig(
+            slots=slots, max_prompt=BATCH_PROMPT, max_new=max(BATCH_STEPS), gamma=BATCH_GAMMA))
+        with torch.no_grad():
+            b.warmup()
+            speculative.speculative_generate(tp, tcfg, dp, dcfg, reqs[0].prompt, 4,
+                                             gamma=BATCH_GAMMA)
+            torch.cuda.synchronize()
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            solo = [speculative.speculative_generate(tp, tcfg, dp, dcfg, r.prompt, r.steps,
+                                                     gamma=BATCH_GAMMA).cpu().numpy()
+                    for r in reqs]
+            torch.cuda.synchronize()
+            seq_s = time.perf_counter() - t0
+            seq_launches = fa.flash_attention.launches
+            handles, pending = [], list(reqs)
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            while pending or b.active_sessions():
+                wave = []
+                while pending and len(wave) < b.free_slots():
+                    wave.append((pending.pop(0), None))
+                if wave:
+                    handles += b.admit_many(wave)
+                b.step_block()
+            torch.cuda.synchronize()
+            bat_s = time.perf_counter() - t0
+            bat_launches = fa.flash_attention.launches
+        batched_launches += bat_launches
+        apart = sum(not np.array_equal(h.out, s) for h, s in zip(handles, solo))
+        check(apart == 0, f"serve batcher {slots} slots: {apart} of {len(reqs)} sessions differ "
+              "from their solo runs")
+        st = b.stats()
+        rows.append(dict(slots=slots, sessions=len(reqs), tokens=tokens, seq_s=seq_s,
+                         batched_s=bat_s, seq_tokens_per_s=tokens / seq_s,
+                         batched_tokens_per_s=tokens / bat_s, ratio=seq_s / bat_s,
+                         rounds=st["rounds"], accepted_frac=st["accepted_frac"],
+                         batched_launches=bat_launches, seq_launches=seq_launches))
+        del b
+    return dict(rows=rows, flash_launches=batched_launches,
+                target=BATCH_TCFG, draft=BATCH_DCFG, gamma=BATCH_GAMMA)
+
+
+def serving_plane(seed: int, smi: str, gen) -> dict:
+    """Phases A-D of the serving plane, printed as they finish, and
+    ``flash_fwd`` held to its plain version at the two prefill shapes
+    they launch it at."""
+    flash_rows = [
+        # the CLI's decode lane: 4 prompt rows x 4 heads of 16, width 64
+        flash_case("serve CLI decode-lane prefill", gen, bh=16, sq=64, sk=64, d=16,
+                   dtype=torch.float32),
+        # a batcher join at phase D's widest wave: 16 rows x 8 heads of 64, prompt 8
+        flash_case("serve batcher join", gen, bh=128, sq=8, sk=8, d=64, dtype=torch.float32),
+    ]
+    for r in flash_rows:
+        print(f"# parity flash {r['case']} (BH {r['bh']}, S {r['sq']}, D {r['d']}, {r['dtype']}, "
+              f"causal): out max |diff| {r['max_abs_err']:.3g}, lse {r['lse_err']:.3g} within "
+              f"{r['tolerance']}; run-to-run bit-identical {r['deterministic']}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    cli = serve_cli_path(seed)
+    for name, run in cli.items():
+        pts = run["points"]
+        co, rep = run["stats"]["coalescer"], run["stats"].get("replica")
+        print(f"# serve CLI --replica {name} (2^22 slots via main(), card's own numbers, {smi}): "
+              f"capacity {run['capacity']} req/s; "
+              + "; ".join(f"{p['offered_rate']}/s offered: p50 {p['latency_ms']['p50_ms']} ms, p99 "
+                          f"{p['latency_ms']['p99_ms']} ms, p99.9 {p['latency_ms']['p999_ms']} ms, "
+                          f"shed {p['shed_frac']}, goodput {p['goodput_per_sec']}/s, completed "
+                          f"{p['completed']} of {p['accepted']} admitted" for p in pts)
+              + f"; coalescer submits/request {co['submits_per_request']}, key dedup "
+              f"{co['key_dedup_factor']}; replica "
+              + (f"age {rep['age_s']} s, {rep['nbytes']} B" if rep else "off")
+              + f"; launches {run['launches']}; {run['wall_s']:.1f} s", flush=True)
+        if run["decode"]:
+            d = run["decode"][0]
+            print(f"# serve decode lane (--batch-slots 8, {smi}): latency {d['value']} ms for "
+                  f"{d['tokens_per_request']} tokens, accepted {d['accepted_frac']}, batcher "
+                  f"{d['batcher']}", flush=True)
+        print(f"# serve_frontend_stats {name}: {json.dumps(run['stats'])}", flush=True)
+    t_a = time.perf_counter()
+    par = serve_parity(seed)
+    print(f"# serve card vs CPU (seed {seed}): table after the warm push bit-equal at 2^22 slots "
+          f"({par['warm_keys']} distinct keys in {par['nonzero_slots']} nonzero slots); "
+          f"values and predict scores of {par['requests']} requests bit-equal in modes "
+          f"{par['modes']}", flush=True)
+    t_b = time.perf_counter()
+    big = serve_bigtable(seed)
+    print(f"# serve device replica at 2^30 slots ({big['table_gib']:.0f} GiB f32, host budget "
+          f"{big['host_budget_gib']:.0f} GiB; {smi}): host-mode refresh refused (MemoryError); "
+          f"device mode served {big['served']} requests through {big['pushes']} in-place pushes, "
+          f"replica version {big['replica_version']}, degraded 0; refresh (snapshot) "
+          f"{['%.1f' % x for x in big['refresh_ms']]} ms (host clock); gather "
+          f"{big['gather_ms_32']:.4f} ms at 32 keys, {big['gather_ms_4096']:.4f} ms at 4096 "
+          f"(CUDA events); replica.pull {big['pull_ms_32']:.3f} / {big['pull_ms_4096']:.3f} ms "
+          f"(host); peak device memory {big['peak_gib']:.2f} GiB, {big['left_gib']:.3f} GiB held "
+          "after the phase", flush=True)
+    t_c = time.perf_counter()
+    bat = serve_batching(seed)
+    for r in bat["rows"]:
+        print(f"# serve batcher {r['slots']} slots ({r['sessions']} sessions, {r['tokens']} "
+              f"tokens, {smi}): batched {r['batched_tokens_per_s']:.0f} tokens/s vs sequential "
+              f"{r['seq_tokens_per_s']:.0f} ({r['ratio']:.2f}x); {r['rounds']} rounds, accepted "
+              f"{r['accepted_frac']:.3f}; flash_fwd launches batched {r['batched_launches']}, "
+              f"sequential {r['seq_launches']}; every session equal to its solo run", flush=True)
+    print(f"# serve batcher phase: flash_fwd launches in the batched loops {bat['flash_launches']}",
+          flush=True)
+    t_d = time.perf_counter()
+    return dict(cli=cli, parity=par, bigtable=big, batching=bat, flash_rows=flash_rows,
+                seconds=dict(a=t_a - t0, b=t_b - t_a, c=t_c - t_b, d=t_d - t_c))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2582,6 +2961,8 @@ def main() -> int:
           f"{cli['small_cpu']} ({cli['small_gap']:.3g} apart, tolerance {CLI_LOSS_TOL}); full config, "
           f"30 Adam steps + 64 generated tokens: losses {cli['losses']}, {cli['wall_s']:.1f} s, "
           f"launches flash_fwd / dq / dkv {cli['launches']} [{smi}]", flush=True)
+    serve = serving_plane(args.seed, smi, gen)
+    flash_rows += serve["flash_rows"]
 
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
@@ -2626,6 +3007,8 @@ def main() -> int:
              ell_scatter_launches=dict(bits=bw["segment_launches"], stream=stream["segment_launches"]),
              darlin_launches=dict(criteo_batch=dar["criteo"]["segment_launches"],
                                   ctr_batch=dar["ctr"]["segment_launches"]),
+             serve_push_launches={name: run["launches"]["segment_sum"]
+                                  for name, run in serve["cli"].items()},
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -2634,6 +3017,8 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:383",
              launches=lm["flash_launches"],
+             serve_launches=dict(cli_decode_lane=serve["cli"]["full"]["launches"]["flash_fwd"],
+                                 batcher=serve["batching"]["flash_launches"]),
              max_abs_err=max(r["max_abs_err"] for r in flash_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in flash_rows},
              ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
@@ -2667,7 +3052,7 @@ def main() -> int:
                   kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,
-                  lm_train_agreement=agree_train, lm_cli=cli,
+                  lm_train_agreement=agree_train, lm_cli=cli, serving=serve,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -6,8 +6,10 @@ The JAX worker's ``state_host()["state"]`` is a dict of numpy arrays
 port's dict of tensors, :func:`state_to_numpy` goes back.
 :func:`lm_params_from_jax` and :func:`lm_params_to_numpy` do the same for
 the JAX ``init_lm`` parameter dict, checking names and shapes against
-the config, and :func:`darlin_state_from_jax` and
-:func:`darlin_state_to_numpy` for a darlin solver's blocks and dual.
+the config, :func:`darlin_state_from_jax` and
+:func:`darlin_state_to_numpy` for a darlin solver's blocks and dual, and
+:func:`kv_replica_from_jax` and :func:`kv_replica_to_numpy` for a
+KVVector's tables (``get_replica()``: channel → ``[P, k]`` array).
 """
 
 from __future__ import annotations
@@ -119,3 +121,18 @@ def darlin_state_to_numpy(state: Dict[str, object], blocks, num_cols: int) -> Di
         out[key] = arr
     out["dual"] = state["dual"].detach().cpu().numpy().copy()
     return out
+
+
+def kv_replica_from_jax(snapshot: Dict[int, np.ndarray], device=None) -> Dict[int, torch.Tensor]:
+    """A JAX ``KVVector.get_replica()`` dict (channel → numpy ``[P, k]``)
+    as the port's ``set_replica`` input: tensors on ``device`` (the CUDA
+    device unless named), bits unchanged."""
+    dev = resolve(device)
+    return {int(ch): _to_tensor(np.asarray(arr)).to(dev) for ch, arr in snapshot.items()}
+
+
+def kv_replica_to_numpy(snapshot: Dict[int, torch.Tensor]) -> Dict[int, np.ndarray]:
+    """The inverse: channel → host numpy array (a JAX ``set_replica``
+    input)."""
+    return {int(ch): (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)).copy()
+            for ch, t in snapshot.items()}

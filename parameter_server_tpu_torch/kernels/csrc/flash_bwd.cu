@@ -672,6 +672,18 @@ cudaError_t launch_one(K kernel, dim3 grid, int threads, int bytes, const Args& 
 }
 
 template <int D>
+int launch_dq_f32(const Args& a, int bh, cudaStream_t s) {
+  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
+  return static_cast<int>(launch_one(flash_bwd_dq_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+}
+
+template <int D>
+int launch_dkv_f32(const Args& a, int bh, cudaStream_t s) {
+  const dim3 grid((a.sk + kTile - 1) / kTile, bh / a.group);
+  return static_cast<int>(launch_one(flash_bwd_dkv_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+}
+
+template <int D>
 int launch_dq(const Args& a, int bh, int dtype, cudaStream_t s) {
   if (dtype == 1) {
     TmaArgs p{};
@@ -685,8 +697,7 @@ int launch_dq(const Args& a, int bh, int dtype, cudaStream_t s) {
     const dim3 grid(bh * ((a.sq + kOwn - 1) / kOwn));
     return launch_ring<flash_bwd_dq_bf16<D>, DqLayout<D>>(grid, p, s);
   }
-  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-  return static_cast<int>(launch_one(flash_bwd_dq_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+  return launch_dq_f32<D>(a, bh, s);
 }
 
 template <int D>
@@ -706,12 +717,14 @@ int launch_dkv(const Args& a, int bh, int dtype, cudaStream_t s) {
     const dim3 grid(kvn * ((a.sk + kOwn - 1) / kOwn));
     return launch_ring<flash_bwd_dkv_bf16<D>, DkvLayout<D>>(grid, p, s);
   }
-  const dim3 grid((a.sk + kTile - 1) / kTile, bh / a.group);
-  return static_cast<int>(launch_one(flash_bwd_dkv_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+  return launch_dkv_f32<D>(a, bh, s);
 }
 
+// d 64 or 128 on both routes; float32 also 16 or 32 (the f32 kernels are
+// generic in D; the small LMs of the serve CLI's decode lane have heads of 16)
 bool bad_args(int bh, int d, int dtype, int group) {
-  return (d != 64 && d != 128) || (dtype != 0 && dtype != 1) || group < 1 || bh % group != 0;
+  const bool wide = d == 64 || d == 128, narrow = d == 16 || d == 32;
+  return !(dtype == 1 ? wide : dtype == 0 && (wide || narrow)) || group < 1 || bh % group != 0;
 }
 
 }  // namespace
@@ -726,8 +739,8 @@ extern "C" int flash_bwd_probe_seed(unsigned seed) {
 }
 #endif
 
-// C entry points for ctypes. dtype: 0 float32, 1 bfloat16; d: 64 or 128;
-// window 0: none; bh counts query rows (k and v hold bh / group rows).
+// C entry points for ctypes. dtype: 0 float32, 1 bfloat16; d: 64 or 128
+// (float32 also 16 or 32); window 0: none; bh counts query rows (k and v hold bh / group rows).
 // Each returns the CUDA error code of its launch (0 on success,
 // cudaErrorInvalidValue for a shape or dtype it is not built for), or
 // hopper::kRegsRefused + r for a bf16 kernel compiled to r registers a
@@ -742,7 +755,12 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
   const Args a{q, k, v, dout, lse, c, dq, nullptr, nullptr, sq, sk, group, q_off, k_off, causal,
                window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dq<64>(a, bh, dtype, s) : launch_dq<128>(a, bh, dtype, s);
+  switch (d) {
+    case 16: return launch_dq_f32<16>(a, bh, s);
+    case 32: return launch_dq_f32<32>(a, bh, s);
+    case 64: return launch_dq<64>(a, bh, dtype, s);
+    default: return launch_dq<128>(a, bh, dtype, s);
+  }
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
@@ -754,5 +772,10 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, c, nullptr, dk, dv, sq, sk, group, q_off, k_off, causal,
                window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dkv<64>(a, bh, dtype, s) : launch_dkv<128>(a, bh, dtype, s);
+  switch (d) {
+    case 16: return launch_dkv_f32<16>(a, bh, s);
+    case 32: return launch_dkv_f32<32>(a, bh, s);
+    case 64: return launch_dkv<64>(a, bh, dtype, s);
+    default: return launch_dkv<128>(a, bh, dtype, s);
+  }
 }

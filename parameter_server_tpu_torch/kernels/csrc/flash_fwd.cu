@@ -451,6 +451,17 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
 
 
 template <int D>
+int launch_f32(const Args& a, int bh, cudaStream_t s) {
+  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
+  constexpr int bytes = f32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_f32<D><<<grid, 256, bytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int launch(const Args& a, int bh, int dtype, cudaStream_t s) {
   if (dtype == 1) {
     TmaArgs p{};
@@ -464,13 +475,7 @@ int launch(const Args& a, int bh, int dtype, cudaStream_t s) {
     const dim3 grid(bh * ((a.sq + L::kOwnRows - 1) / L::kOwnRows));
     return launch_ring<flash_fwd_bf16<D>, L>(grid, p, s);
   }
-  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-  constexpr int bytes = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_f32<D><<<grid, 256, bytes, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_f32<D>(a, bh, s);
 }
 
 }  // namespace
@@ -485,8 +490,9 @@ extern "C" int flash_fwd_probe_seed(unsigned seed) {
 }
 #endif
 
-// C entry point for ctypes. dtype: 0 float32, 1 bfloat16; d: 64 or 128;
-// window 0: none. Returns the CUDA error code of the launch (0 on
+// C entry point for ctypes. dtype: 0 float32, 1 bfloat16; d: 64 or 128,
+// and for float32 also 16 or 32 (the f32 kernel is generic in D; the
+// small LMs of the serve CLI's decode lane have heads of 16); window 0: none. Returns the CUDA error code of the launch (0 on
 // success, cudaErrorInvalidValue for a head dim or dtype it is not built
 // for), or hopper::kRegsRefused + r for a bf16 kernel compiled to r
 // registers a thread, which it does not launch; the Python wrapper raises
@@ -496,9 +502,15 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 int q_off, int k_off, int causal, int window, float scale,
                                 int dtype, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if ((d != 64 && d != 128) || (dtype != 0 && dtype != 1) || group < 1)
+  const bool wide = d == 64 || d == 128, narrow = d == 16 || d == 32;
+  if (!(dtype == 1 ? wide : dtype == 0 && (wide || narrow)) || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, lse, sq, sk, group, q_off, k_off, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(a, bh, dtype, s) : launch<128>(a, bh, dtype, s);
+  switch (d) {
+    case 16: return launch_f32<16>(a, bh, s);
+    case 32: return launch_f32<32>(a, bh, s);
+    case 64: return launch<64>(a, bh, dtype, s);
+    default: return launch<128>(a, bh, dtype, s);
+  }
 }

@@ -18,14 +18,23 @@ overwritten before any query's mask admits them. Positions are per row
 
 The JAX ``while_loop`` is a Python loop here, and its condition (some row
 still decoding) is read on the host once per round. The JAX ``key``
-becomes a ``torch.Generator``. Not here yet: the continuous-batching
-state (``SpecBatchState``, ``_spec_join*``, ``_round_core``) that
-``serving/batcher.py`` drives.
+becomes a ``torch.Generator``.
+
+The continuous-batching API that ``serving/batcher.py`` drives is here
+too: :class:`SpecBatchState` (a dataclass of tensors: the batch's tokens,
+per-slot clocks and both models' caches), :func:`spec_batch_alloc`,
+:func:`spec_join_many` (prefill a wave of sessions into free slots, the
+prefill through ``flash_fwd`` on the card), :func:`spec_round` (one
+speculative round over the whole batch; :func:`speculative_generate`
+runs the same rounds to the end) and :func:`spec_round_block`
+(``k`` rounds, a loop of :func:`spec_round`). The JAX package donates
+the state to its jitted calls; here they update it in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,12 +120,12 @@ def speculative_generate(target_params, target_cfg: LMConfig, draft_params, draf
 
 def _speculate(tw, tcfg, dw, dcfg, prompt, lengths, steps, gamma, temperature, eos_id,
                generator):
+    """The prefill and first token, then :func:`spec_round` until every
+    row has spent its budget or hit ``eos_id``."""
     b, p_len = prompt.shape
     dev = prompt.device
-    greedy = temperature is None
     limit = lengths + steps  # [B] per-row budget
     total = p_len + steps + gamma + 1  # a round overshoots by gamma + 1 trash slot
-    trash = total - 1  # masked-commit writes land here and are never read
     tk, tv = _alloc_kv_caches(tcfg, b, total, dev)
     dk, dv = _alloc_kv_caches(dcfg, b, total, dev)
     t_logits = _prefill(tw, tcfg, prompt, tk, tv)
@@ -126,59 +135,190 @@ def _speculate(tw, tcfg, dw, dcfg, prompt, lengths, steps, gamma, temperature, e
     toks = torch.zeros((b, total), dtype=torch.int64, device=dev)
     toks[:, :p_len] = torch.where(col[None, :] < lengths[:, None], prompt, 0)
     last = t_logits[rows, lengths - 1]
-    first = torch.argmax(last, -1) if greedy else _categorical(last / temperature, generator)
+    if temperature is None:
+        first = torch.argmax(last, -1)
+    else:
+        first = _categorical(last / temperature, generator)
     toks[rows, lengths] = first
-    committed = lengths + 1
-    if eos_id is not None:  # a first token that IS the stop token finishes the row
-        committed = torch.where(first == eos_id, limit, committed)
-    j_idx = torch.arange(gamma + 1, device=dev)[None, :]
+    eos = torch.full((b,), -1 if eos_id is None else eos_id, dtype=torch.int64, device=dev)
+    # a first token that IS the stop token finishes the row
+    committed = torch.where(first == eos, limit, lengths + 1)
+    state = SpecBatchState(toks=toks, committed=committed, limit=limit, eos=eos,
+                           tk=tk, tv=tv, dk=dk, dv=dv)
     rounds = 0
     acc = torch.zeros((), dtype=torch.int64, device=dev)
     prop = torch.zeros((), dtype=torch.int64, device=dev)
-    while bool((committed < limit).any()):
-        live = committed < limit
-        x0 = toks[rows, committed - 1]  # the last committed token
-        d_toks, d_probs = [], []
-        cur = x0
-        for j in range(gamma):  # the draft: gamma sequential proposals
-            dl = _chunk_decode(dw, dcfg, cur[:, None], dk, dv, committed - 1 + j)[:, 0]
-            if greedy:
-                cur = torch.argmax(dl, -1)
-            else:
-                z = dl / temperature
-                cur = _categorical(z, generator)
-                d_probs.append(torch.softmax(z, -1))
-            d_toks.append(cur)
-        # one extra draft step writes d_gamma's own slot (its logits unused)
-        _chunk_decode(dw, dcfg, cur[:, None], dk, dv, committed - 1 + gamma)
-        d = torch.stack(d_toks, 1)  # [B, gamma]
-        # the target: ONE (gamma+1)-chunk verify over [x0, d1..dg]
-        tl = _chunk_decode(tw, tcfg, torch.cat([x0[:, None], d], 1), tk, tv, committed - 1)
-        if greedy:
-            tpred = torch.argmax(tl, -1)  # [B, gamma+1]
-            agree = d == tpred[:, :gamma]
-            n = torch.cumprod(agree.to(torch.int64), 1).sum(1)
-            commit_row = torch.where(j_idx < n[:, None], F.pad(d, (0, 1)),
-                                     tpred[rows, n][:, None])
-        else:
-            n, commit_row = _accept_and_correct(generator, d, torch.stack(d_probs, 1),
-                                                torch.softmax(tl / temperature, -1))
-        # capped commit: a finished row re-processes its last slot
-        n_eff = torch.minimum(n + 1, limit - committed)
-        if eos_id is not None:
-            # clamp at the first stop token inside the commit; the row freezes
-            is_eos = (commit_row == eos_id) & (j_idx < n_eff[:, None])
-            first_eos = torch.where(is_eos, j_idx, gamma + 1).amin(1)
-            n_eff = torch.minimum(n_eff, first_eos + 1)
-        dest = torch.where(j_idx < n_eff[:, None], committed[:, None] + j_idx, trash)
-        toks[rows[:, None], dest] = commit_row
-        committed = committed + n_eff
-        if eos_id is not None:
-            committed = torch.where(first_eos <= gamma, limit, committed)
-        # only live rows, and only accepted-AND-committed proposals, count
-        acc += torch.where(live, torch.minimum(n, n_eff), 0).sum()
-        prop += live.sum() * gamma
+    while bool((state.committed < limit).any()):
+        a, p = spec_round(tw, dw, state, tcfg=tcfg, dcfg=dcfg, gamma=gamma,
+                          temperature=temperature, generator=generator)
+        acc += a
+        prop += p
         rounds += 1
     stats: Dict[str, float] = {"rounds": rounds, "target_passes": rounds,
                                "accepted_frac": float(acc) / max(int(prop), 1)}
     return toks[:, :p_len + steps], stats
+
+
+# -- continuous batching: the round-stepped API ---------------------------
+#
+# One speculative-decode state machine for many sessions: _speculate runs
+# spec_round to the end over one batch of prompts; the batcher steps it
+# itself, so the host decides between rounds when to step, who joins a
+# free slot and who retires. The batcher runs greedy only: its contract is
+# token parity with each session's own greedy speculative_generate run,
+# which goes through the same spec_round.
+#
+# A free or retired slot has committed == limit, so its commit is capped
+# at zero tokens (everything lands in the trash slot) and its toks row
+# never changes after retirement. Its cache rows keep receiving garbage
+# writes while idle; they obey the overwrite-before-admissible invariant
+# (a join rewrites the slot's whole cache rows), so a rejoin is exact.
+# Per-slot eos is -1 for "no stop token": one round serves mixed sessions.
+
+
+@dataclasses.dataclass
+class SpecBatchState:
+    """The state of one continuous decode batch, on the models' device:
+    ``toks [S, cap]`` the committed tokens (int64), ``committed``,
+    ``limit`` and ``eos`` [S] the per-slot clocks (a free slot has
+    ``committed == limit``), and both models' KV caches at batch
+    capacity. ``cap`` is ``max_prompt + max_new + gamma + 1``
+    (speculation overshoot + the trash slot)."""
+
+    toks: torch.Tensor
+    committed: torch.Tensor
+    limit: torch.Tensor
+    eos: torch.Tensor
+    tk: Tuple
+    tv: Tuple
+    dk: Tuple
+    dv: Tuple
+
+
+def spec_batch_alloc(tcfg: LMConfig, dcfg: LMConfig, slots: int, capacity: int,
+                     device) -> SpecBatchState:
+    """A fresh all-slots-free batch. ``committed = limit = 1`` (not 0),
+    so an idle slot's round input ``toks[s, committed - 1]`` is a valid
+    position."""
+    if tcfg.vocab != dcfg.vocab:
+        raise ValueError(f"vocab mismatch: target {tcfg.vocab} vs draft {dcfg.vocab} "
+                         "— the models must share a tokenizer")
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    tk, tv = _alloc_kv_caches(tcfg, slots, capacity, device)
+    dk, dv = _alloc_kv_caches(dcfg, slots, capacity, device)
+    ones = torch.ones((slots,), dtype=torch.int64, device=device)
+    return SpecBatchState(toks=torch.zeros((slots, capacity), dtype=torch.int64, device=device),
+                          committed=ones.clone(), limit=ones.clone(),
+                          eos=torch.full((slots,), -1, dtype=torch.int64, device=device),
+                          tk=tk, tv=tv, dk=dk, dv=dv)
+
+
+def _scatter_rows(full, rows, slots) -> None:
+    """Cache rows ``rows`` [L, R, ...] into ``full`` [L, S, ...] at
+    ``slots`` [R], data and (int8) scale alike, in place."""
+    for f, r in zip(full, rows):
+        if f is not None:
+            f[:, slots] = r
+
+
+def spec_join_many(tw, dw, state: SpecBatchState, prompts, lengths, steps, eos_ids, slots, *,
+                   tcfg: LMConfig, dcfg: LMConfig) -> None:
+    """Admit R sessions into ``slots`` [R] at a round boundary: prefill
+    both models on ``prompts [R, P]`` (right-padded), write the rows'
+    whole caches into the batch caches, commit each row's first target
+    token (greedy). ``lengths``, ``steps`` and ``eos_ids`` (-1: none) are
+    [R]. ``tw``/``dw``: the weights as ``_weights`` casts them."""
+    cap = state.toks.shape[1]
+    r, p_len = prompts.shape
+    dev = state.toks.device
+    rtk, rtv = _alloc_kv_caches(tcfg, r, cap, dev)
+    rdk, rdv = _alloc_kv_caches(dcfg, r, cap, dev)
+    t_logits = _prefill(tw, tcfg, prompts, rtk, rtv)
+    _prefill(dw, dcfg, prompts, rdk, rdv)
+    for full, rows in ((state.tk, rtk), (state.tv, rtv), (state.dk, rdk), (state.dv, rdv)):
+        _scatter_rows(full, rows, slots)
+    col = torch.arange(p_len, device=dev)[None, :]
+    row_toks = torch.zeros((r, cap), dtype=torch.int64, device=dev)
+    row_toks[:, :p_len] = torch.where(col < lengths[:, None], prompts, 0)
+    rows = torch.arange(r, device=dev)
+    first = torch.argmax(t_logits[rows, lengths - 1], -1)
+    row_toks[rows, lengths] = first
+    limit_new = lengths + steps
+    # a first token that IS the stop token finishes the session now
+    committed_new = torch.where(first == eos_ids, limit_new, lengths + 1)
+    state.toks[slots] = row_toks
+    state.committed[slots] = committed_new
+    state.limit[slots] = limit_new
+    state.eos[slots] = eos_ids
+
+
+def spec_round(tw, dw, state: SpecBatchState, *, tcfg: LMConfig, dcfg: LMConfig, gamma: int,
+               temperature: "float | None" = None, generator: "torch.Generator | None" = None):
+    """One speculative round over the whole batch, with per-slot eos, in
+    place: greedy, or sampled at ``temperature`` from ``generator``
+    (:func:`_accept_and_correct`). A finished row re-processes its last
+    slot and commits nothing. Returns ``(accepted, proposed)`` as 0-dim
+    tensors, counting live slots and accepted-AND-committed proposals
+    only."""
+    toks, committed, limit, eos = state.toks, state.committed, state.limit, state.eos
+    b, total = toks.shape
+    dev = toks.device
+    trash = total - 1
+    rows = torch.arange(b, device=dev)
+    live = committed < limit
+    x0 = toks[rows, committed - 1]  # the last committed token
+    d_toks, d_probs = [], []
+    cur = x0
+    for j in range(gamma):  # the draft: gamma sequential proposals
+        dl = _chunk_decode(dw, dcfg, cur[:, None], state.dk, state.dv, committed - 1 + j)[:, 0]
+        if temperature is None:
+            cur = torch.argmax(dl, -1)
+        else:
+            z = dl / temperature
+            cur = _categorical(z, generator)
+            d_probs.append(torch.softmax(z, -1))
+        d_toks.append(cur)
+    # one extra draft step writes d_gamma's own slot (its logits unused)
+    _chunk_decode(dw, dcfg, cur[:, None], state.dk, state.dv, committed - 1 + gamma)
+    d = torch.stack(d_toks, 1)  # [B, gamma]
+    # the target: ONE (gamma+1)-chunk verify over [x0, d1..dg]
+    tl = _chunk_decode(tw, tcfg, torch.cat([x0[:, None], d], 1), state.tk, state.tv,
+                       committed - 1)
+    j_idx = torch.arange(gamma + 1, device=dev)[None, :]
+    if temperature is None:
+        tpred = torch.argmax(tl, -1)  # [B, gamma+1]
+        agree = d == tpred[:, :gamma]
+        n = torch.cumprod(agree.to(torch.int64), 1).sum(1)
+        commit_row = torch.where(j_idx < n[:, None], F.pad(d, (0, 1)), tpred[rows, n][:, None])
+    else:
+        n, commit_row = _accept_and_correct(generator, d, torch.stack(d_probs, 1),
+                                            torch.softmax(tl / temperature, -1))
+    # capped commit: a finished row re-processes its last slot
+    n_eff = torch.minimum(n + 1, limit - committed)
+    # clamp at the first stop token inside the commit (eos -1: none); the row freezes
+    is_eos = (commit_row == eos[:, None]) & (j_idx < n_eff[:, None])
+    first_eos = torch.where(is_eos, j_idx, gamma + 1).amin(1)
+    n_eff = torch.minimum(n_eff, first_eos + 1)
+    dest = torch.where(j_idx < n_eff[:, None], committed[:, None] + j_idx, trash)
+    toks[rows[:, None], dest] = commit_row
+    new_committed = torch.where(first_eos <= gamma, limit, committed + n_eff)
+    state.committed.copy_(new_committed)
+    acc = torch.where(live, torch.minimum(n, n_eff), 0).sum()
+    prop = live.sum() * gamma
+    return acc, prop
+
+
+def spec_round_block(tw, dw, state: SpecBatchState, k: int, *, tcfg: LMConfig, dcfg: LMConfig,
+                     gamma: int):
+    """``k`` rounds back to back (the JAX package fuses them into one
+    dispatch; here they are ``k`` calls of :func:`spec_round` with no
+    host read in between). Returns the summed ``(accepted, proposed)``."""
+    dev = state.toks.device
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    prop = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(k):
+        a, p = spec_round(tw, dw, state, tcfg=tcfg, dcfg=dcfg, gamma=gamma)
+        acc += a
+        prop += p
+    return acc, prop

@@ -47,7 +47,9 @@ import math
 import torch
 
 _NEG = -1e30  # finite mask value: keeps exp/max arithmetic NaN-free
-KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is built for
+# head dims the CUDA kernels are built for, by dtype: the float32 route
+# (CUDA cores) is generic in D and also takes the serve CLI's small heads
+KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -212,8 +214,9 @@ def _kernel_inputs(what: str, q, k, v, group: int, *more):
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, *more)):
         raise ValueError(f"{what} kernel takes float32 or bfloat16 q/k/v of one dtype, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what} kernel is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in KERNEL_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{what} kernel is built for {q.dtype} head dims "
+                         f"{KERNEL_HEAD_DIMS[q.dtype]}, got {d}")
     if k.shape != v.shape or k.dim() != 3 or k.shape[0] * group != bh or k.shape[2] != d:
         raise ValueError(f"k/v must be [{bh // group}, Sk, {d}], got {tuple(k.shape)}/{tuple(v.shape)}")
     if any(t.shape != q.shape for t in more):

@@ -1,14 +1,41 @@
-"""Slot-id helpers of the key-value data plane, single server shard.
+"""The key-value data plane of one server shard: pull, push, push_pull.
 
-Counterparts of ``localize``, ``slot_sentinel`` and ``valid_slots`` in
-``parameter_server_tpu/ops/kv_ops.py``. The port runs one server shard
-per process, so the shard's key range starts at 0; the sharded pull and
-push collectives are not ported yet.
+Counterpart of ``parameter_server_tpu/ops/kv_ops.py`` for one server
+shard: the table's key range starts at 0. ``KVVector`` refuses more
+server shards; the sharded collectives across cards are ROADMAP A9, as
+are ``scatter_grad_dense`` and ``index_spec``. Indices are int32 slot ids
+from the host directory; padding or foreign ids (the sentinel
+``num_slots``, or -1 at 2^31 slots) are masked by :func:`localize`.
+
+- **pull** gathers ``table[idx]`` into a fresh tensor (never a view of
+  the table, so a pulled value survives later pushes), zero where the
+  id is not owned.
+- **push** adds ``vals`` at ``idx``. Hashed slots collide, so several
+  entries may add into one slot; the JAX package's scatter on the CPU
+  adds them in entry order, ``(t + a) + b``. The port keeps that order
+  on every device. On the CPU it is ``index_add_``, which adds entry by
+  entry in index order. On the card ``index_add_`` adds with atomics in
+  an order that changes from run to run, so the card takes the
+  deterministic segment sum instead (``ops/segment_sum.py``, the
+  ``segment_sum.cu`` kernel): each touched slot's current value is put
+  first in its run, ahead of the slot's entries in entry order, so the
+  kernel's sum from +0.0 is ``((0 + t) + a) + b``, the same bits. (The
+  one case it does not cover: a table holding -0.0 that is pushed only
+  -0.0 comes back +0.0 on the card, as the sum starts from +0.0.)
+- **push_pull** is a push then a pull of the updated table, in one call.
+
+The JAX package's ``push`` copies the table and ``push_donated`` donates
+it (in place). Here ``push`` copies too, and ``push_donated`` writes the
+caller's table in place: there is no donated buffer to invalidate, so an
+owner that hands out its table must hand out a copy (``KVVector.table(
+copy=True)``, ``KVVector.snapshot``) — a live view reads the next push.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .segment_sum import segment_sum
 
 
 def localize(idx: torch.Tensor, shard: int):
@@ -38,3 +65,74 @@ def valid_slots(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     if num_slots >= (1 << 31):
         return slots >= 0
     return slots < num_slots
+
+
+def pull(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[idx]`` as a fresh ``[n, k]`` tensor; zero where an
+    id is not owned."""
+    rel, ok = localize(idx, table.shape[0])
+    rows = table.index_select(0, rel)
+    return torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
+
+
+def scatter_add_in_order(table: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor) -> None:
+    """``table[rel[i]] += vals[i]`` in place, for i in entry order (the
+    module's docstring): ``index_add_`` on the CPU, the segment sum on
+    the card."""
+    if table.device.type == "cpu":
+        table.index_add_(0, rel, vals)
+    else:
+        scatter_add_by_segments(table, rel, vals, segment_sum)
+
+
+def scatter_add_by_segments(table: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
+                            sum_fn) -> None:
+    """The card's route of :func:`scatter_add_in_order`, on any device:
+    each touched slot's value and then its entries, in entry order, go
+    to ``sum_fn(data, ids, num_segments)`` (``segment_sum``, or a plain
+    version of it in tests), whose sums replace the touched rows."""
+    if rel.numel() == 0:
+        return
+    k = table.shape[1]
+    uniq, inv = torch.unique(rel.long(), sorted=True, return_inverse=True)
+    u = uniq.numel()
+    cols = torch.arange(k, device=table.device)
+    data = torch.cat([table.index_select(0, uniq).reshape(-1).float(), vals.reshape(-1).float()])
+    ids = torch.cat([torch.arange(u * k, device=table.device),
+                     (inv[:, None] * k + cols).reshape(-1)])
+    sums = sum_fn(data, ids, u * k)
+    table.index_copy_(0, uniq, sums.view(u, k).to(table.dtype))
+
+
+def _push_into(table, idx, vals):
+    rel, ok = localize(idx, table.shape[0])
+    vals = torch.where(ok[:, None], vals.to(table.dtype), torch.zeros((), dtype=table.dtype,
+                                                                        device=table.device))
+    scatter_add_in_order(table, rel, vals)
+    return table
+
+
+def push(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """A new table: ``table`` with ``vals [n, k]`` added at ``idx``
+    (the caller's table is left as it was)."""
+    return _push_into(table.clone(), idx, vals)
+
+
+def push_donated(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """:func:`push` in place: adds into the caller's ``table`` and
+    returns it. Same bits as ``push``."""
+    return _push_into(table, idx, vals)
+
+
+def push_pull(table, idx, vals, pull_idx=None):
+    """``(new_table, pulled)`` with ``pulled = pull(push(table, idx,
+    vals), pull_idx)``; ``pull_idx`` defaults to ``idx``. Copies the
+    table; owners use :func:`push_pull_donated`."""
+    new = push(table, idx, vals)
+    return new, pull(new, idx if pull_idx is None else pull_idx)
+
+
+def push_pull_donated(table, idx, vals, pull_idx=None):
+    """:func:`push_pull` in place on the caller's ``table``."""
+    new = push_donated(table, idx, vals)
+    return new, pull(new, idx if pull_idx is None else pull_idx)

@@ -20,7 +20,6 @@ are unfinished: the bounded-delay window.
 
 from __future__ import annotations
 
-import dataclasses
 import heapq
 import threading
 import time
@@ -28,17 +27,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-INVALID_TIME = -1
-
-
-@dataclasses.dataclass
-class Task:
-    """The scheduling part of a step: an explicit timestamp (or
-    ``INVALID_TIME`` for the next one) and the timestamps that must have
-    finished before it runs."""
-
-    time: int = INVALID_TIME
-    wait_time: List[int] = dataclasses.field(default_factory=list)
+# the one Task of the port: the executor reads its scheduling part, an
+# explicit timestamp (or INVALID_TIME for the next one) and the
+# timestamps that must have finished before the step runs
+from .message import INVALID_TIME, Task  # noqa: F401  (re-exported)
 
 
 class TaskTracker:

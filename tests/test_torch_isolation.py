@@ -57,7 +57,12 @@ def test_port_imports_nothing_of_jax():
               "benchmarks.criteo", "apps.linear.model_evaluation", "utils.crc32c",
               "utils.recordio", "data.example", "data.ref_interop", "data.text2record",
               "data.show_example", "data.info", "data.slot_reader", "data.binmat",
-              "apps.linear.darlin", "learner.bcd", "system.customer", "utils.range"):
+              "apps.linear.darlin", "learner.bcd", "system.customer", "utils.range",
+              "utils.retry", "system.faults", "system.message", "system.manager", "system.van",
+              "system.postoffice", "parameter.parameter", "parameter.kv_vector", "ops.kv_ops",
+              "serving", "serving.admission", "serving.coalescer", "serving.replica",
+              "serving.loadgen", "serving.batcher", "serving.frontend", "apps.serve.main",
+              "models.speculative"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -141,6 +146,66 @@ def test_lm_cli_run_as_a_module_imports_nothing_of_jax_or_optax(tmp_path):
     assert "parameter_server_tpu_torch.apps.lm.optim" in loaded
     bad = sorted(m for m in loaded if m.split(".")[0] in ("jax", "optax", "parameter_server_tpu"))
     assert not bad, bad
+
+
+def test_serve_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
+    """``python -m ...apps.serve.main`` end to end (the decode lane through
+    the batcher included), every import traced: neither jax nor the JAX
+    package is loaded."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "parameter_server_tpu_torch.apps.serve.main",
+         "--device", "cpu", "--num-slots", "4096", "--duration", "0.1", "--decode",
+         "--batch-slots", "4", "--gamma", "2"],
+        cwd=tmp_path, env=_clean_env(), capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert '"serve_frontend_stats"' in out.stdout
+    loaded = {
+        line.rsplit("|", 1)[1].strip()
+        for line in out.stderr.splitlines()
+        if line.startswith("import time:") and line.count("|") == 2
+    }
+    assert "parameter_server_tpu_torch.serving.batcher" in loaded
+    assert "parameter_server_tpu_torch.parameter.kv_vector" in loaded
+    bad = sorted(m for m in loaded if m.split(".")[0] in ("jax", "optax", "parameter_server_tpu"))
+    assert not bad, bad
+
+
+def test_serve_cli_resolves_to_the_card(monkeypatch):
+    from parameter_server_tpu_torch.apps.serve import main as serve_main
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.system.postoffice import Postoffice
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    Postoffice.reset()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_main.main(["--num-slots", "4096", "--duration", "0.1"])
+        Postoffice.reset()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            KVVector(k=1, num_slots=64)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.kv_replica_from_jax({0: np.zeros((4, 1), np.float32)})
+    finally:
+        Postoffice.reset()
+
+
+def test_serving_plane_limits_raise_naming_their_items():
+    from parameter_server_tpu_torch.apps.serve import main as serve_main
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.system.postoffice import Postoffice
+
+    Postoffice.reset()
+    try:
+        with pytest.raises(NotImplementedError, match="A9"):
+            Postoffice.instance().start(num_server=2, device="cpu")
+        kv = KVVector(k=1, num_slots=64, device="cpu")
+        with pytest.raises(NotImplementedError, match="A13"):
+            kv.migrate(np.arange(64))
+        with pytest.raises(NotImplementedError, match="A12"):
+            serve_main.main(["--device", "cpu", "--expose-port", "0"])
+    finally:
+        Postoffice.reset()
 
 
 _FORBIDDEN = re.compile(

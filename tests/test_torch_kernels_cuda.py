@@ -313,6 +313,8 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 *
     (2, 64, 64, 64, torch.bfloat16, True, 0, 500, None, 1),     # every key in the future
     (8, 40, 333, 64, torch.bfloat16, True, 293, 0, 100, 2),     # Sq < 64, offsets, window, GQA
     (4, 384, 640, 128, torch.bfloat16, True, 256, 0, 200, 2),   # D 128, Sk no multiple of 128
+    (16, 64, 64, 16, torch.float32, True, 0, 0, None, 1),       # the serve CLI's decode prefill
+    (8, 100, 130, 32, torch.float32, True, 30, 0, 50, 2),       # f32 D 32, ragged, window, GQA
 ])
 def test_flash_kernel_matches_plain(dev, bh, sq, sk, d, dtype, causal, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -342,9 +344,12 @@ def test_flash_mha_on_the_card_matches_the_cpu(dev):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
-    q = torch.zeros(2, 8, 32, device=dev)
+    q = torch.zeros(2, 8, 48, device=dev)  # float32 takes D 16, 32, 64 and 128
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q, q, q, causal=True)
+    b = torch.zeros(2, 8, 32, device=dev, dtype=torch.bfloat16)  # bf16: D 64 and 128
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(b, b, b, causal=True)
     h = torch.zeros(2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(h, h, h)
@@ -457,6 +462,8 @@ BWD_CASES = [
     (2, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1, False),      # full length: the ring laps
     (4, 320, 192, 128, torch.bfloat16, 0, 128, None, 1, False),     # 64-multiples, not 128, D 128
     (8, 448, 1000, 64, torch.bfloat16, 552, 0, None, 4, True),      # GQA 4, offsets, Sq != Sk
+    (16, 64, 64, 16, torch.float32, 0, 0, None, 1, False),          # the serve CLI's small LMs
+    (8, 130, 190, 32, torch.float32, 60, 0, 40, 2, True),           # f32 D 32, window, GQA
 ]
 
 
@@ -821,3 +828,93 @@ def test_darlin_card_vs_cpu_and_run_to_run(dev):
         np.testing.assert_allclose(x.objective, y.objective, rtol=1e-5)
         assert abs(x.nnz_w - y.nnz_w) <= 30 and abs(x.nnz_active_set - y.nnz_active_set) <= 30
     np.testing.assert_allclose(a.solver.w, cpu.solver.w, rtol=1e-4, atol=1e-5)
+
+
+def _kv_run(device, seed=0, num_slots=1 << 10, rounds=4):
+    """A KVVector on ``device`` fed pushes whose keys collide: 4096 keys
+    a push into 1024 slots (about four entries a slot), and a push_pull."""
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+
+    kv = KVVector(k=2, num_slots=num_slots, hashed=True, name=f"kv_{device}", device=device)
+    rng = np.random.default_rng(seed)
+    pulled = None
+    for r in range(rounds):
+        keys = rng.integers(0, 1 << 30, 4096)
+        vals = (rng.normal(size=(4096, 2)) * np.exp(rng.normal(size=(4096, 1)) * 3)).astype(
+            np.float32)
+        if r == rounds - 1:
+            pulled = kv.wait_pull(kv.push_pull(kv.request(channel=0), keys=keys, values=vals))
+        else:
+            kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+    table = kv.table(0, copy=True).cpu()
+    kv.executor.stop()
+    return table, pulled.cpu()
+
+
+def test_kv_push_with_collisions_card_equals_cpu_and_run_to_run(dev):
+    """The push adds colliding entries in entry order on the card
+    (``segment_sum`` with each slot's value first), so the table's bits
+    equal the CPU's ``index_add_``, and two card runs are identical."""
+    before = tseg.segment_sum.launches
+    card, card_pulled = _kv_run(dev)
+    assert tseg.segment_sum.launches - before == 4  # one a push
+    again, again_pulled = _kv_run(dev)
+    cpu, cpu_pulled = _kv_run("cpu")
+    assert torch.equal(_bits(card), _bits(again)) and torch.equal(_bits(card_pulled),
+                                                                   _bits(again_pulled))
+    assert torch.equal(_bits(card), _bits(cpu)) and torch.equal(_bits(card_pulled),
+                                                                 _bits(cpu_pulled))
+
+
+def test_device_replica_gather_equals_host_replica(dev):
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.serving import ReadReplica
+
+    kv = KVVector(k=1, num_slots=1 << 12, hashed=True, name="rep", device=dev)
+    rng = np.random.default_rng(1)
+    keys = np.unique(rng.integers(0, 1 << 20, 2048))
+    kv.wait(kv.push(kv.request(channel=0), keys=keys,
+                    values=rng.normal(size=(len(keys), 1)).astype(np.float32)))
+    host, card = ReadReplica(kv), ReadReplica(kv, device=True)
+    assert isinstance(card._table, torch.Tensor) and card._table.is_cuda
+    for n in (1, 3, 32, 100, 2048):
+        vh, _ = host.pull(keys[:n])
+        vd, hit = card.pull(keys[:n])
+        assert hit.all() and np.array_equal(vh.view(np.uint32), vd.view(np.uint32))
+    hot = keys[:64]
+    hh, hd = ReadReplica(kv, hot_keys=hot), ReadReplica(kv, hot_keys=hot, device=True)
+    mixed = np.concatenate([hot[:5], keys[-7:]])
+    (vh, mh), (vd, md) = hh.pull(mixed), hd.pull(mixed)
+    assert np.array_equal(mh, md) and np.array_equal(vh, vd)
+    kv.executor.stop()
+
+
+def test_batcher_tokens_equal_solo_runs_on_the_card(dev):
+    from parameter_server_tpu_torch.models.speculative import speculative_generate
+    from parameter_server_tpu_torch.models.transformer import LMConfig, init_lm
+    from parameter_server_tpu_torch.serving import (BatcherConfig, ContinuousBatcher,
+                                                    DecodeRequest)
+
+    tcfg = LMConfig(vocab=256, d_model=64, n_heads=4, n_layers=2, d_ff=128)  # heads of 16
+    dcfg = LMConfig(vocab=256, d_model=32, n_heads=2, n_layers=1, d_ff=64)
+    tp, dp = init_lm(0, tcfg, dev), init_lm(1, dcfg, dev)
+    rng = np.random.default_rng(2)
+    reqs = [DecodeRequest(prompt=rng.integers(0, 256, (1, 3 + i % 5)), steps=8 + 5 * (i % 3))
+            for i in range(10)]
+    b = ContinuousBatcher(tp, tcfg, dp, dcfg, BatcherConfig(slots=4, max_prompt=8, max_new=20,
+                                                            gamma=2))
+    before = tfa.flash_attention.launches
+    with torch.no_grad():
+        b.warmup()
+        handles, pending = [], list(reqs)
+        while pending or b.active_sessions():
+            wave = []
+            while pending and len(wave) < b.free_slots():
+                wave.append((pending.pop(0), None))
+            if wave:
+                handles += b.admit_many(wave)
+            b.step_block()
+        assert tfa.flash_attention.launches > before  # the joins prefill through flash_fwd
+        for h in handles:
+            solo = speculative_generate(tp, tcfg, dp, dcfg, h.req.prompt, h.req.steps, gamma=2)
+            assert np.array_equal(h.out, solo.cpu().numpy())
