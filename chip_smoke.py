@@ -109,9 +109,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 KV cache, random weights from the seed): the ``flash_fwd``
    kernel against its plain version at the prefill shape (B*H 64, S 2048,
    D 64, bf16, causal, K/V grouped by 4) and at D 128, float32, window
-   1024, offsets with Sq != Sk and a ragged Sk tail, within the stated
-   tolerance, with CUDA-event times beside the plain version, SDPA, the
-   FLOP bound and the floor of its exponentials on the MUFU unit;
+   1024, offsets with Sq != Sk and a ragged Sk tail; in float32 (3xTF32 on
+   the tensor cores) also with K/V grouped by 4, at D 128 with a window
+   of 1024, with offsets and a ragged Sk tail, at D 32 and at S 8192;
+   each within the stated tolerance and bit-identical run to run, with
+   CUDA-event times beside the plain version, SDPA, the bound and the
+   floor of its exponentials on the MUFU unit;
    ``lm_generate`` greedy at batch 8, 2048-token prompts, 256 steps (time
    to first token, decode tokens/s, 8 flash launches a prefill), then
    with the documented sampling options; agreement with
@@ -131,7 +134,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    nonzero lse gradient, within the stated tolerances and bit-identical
    run to run; their CUDA-event times at B*H 32 beside the plain
    backward, SDPA's backward and the FLOP bound, and ``flash_fwd`` beside
-   SDPA's forward at that shape; ``make_lm_train_step`` at
+   SDPA's forward at that shape, and the same in float32 at B*H 64, S
+   2048 (the LM CLI's default dtype); ``make_lm_train_step`` at
    the full config (a warm-up launch and 3 timed launches of 8 steps:
    tokens/s, step ms, MFU; flash launches asserted: 16 forward, 8 of each
    backward kernel a step); one step's loss and gradients against the same
@@ -250,6 +254,14 @@ HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 << 20
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+# The float32 flash kernels' least time counts their FLOP at a third of
+# the TF32 rate: an f32-accurate product on the tensor cores takes three
+# TF32 passes (3xTF32: hi.hi + hi.lo + lo.hi, within ~2^-22 of the f32
+# product; one pass keeps ~2^-11 and misses FLASH_TOL by ~50x), which is
+# less time than one pass on the CUDA cores at F32_FLOP_PER_S. Each f32 row
+# also prints its time at F32_FLOP_PER_S, for readings taken against that.
+F32_TC_FLOP_PER_S = TF32_FLOP_PER_S / 3
 FTRL_FLOPS = 22  # arithmetic operations of one FTRL-proximal step
 EXP_PER_CLOCK = 16 * 132  # MUFU ex2 a clock: 16 on each SM of an H100 SXM
 # card vs CPU: the segment sums add in the same order on both, but the
@@ -270,6 +282,17 @@ def nvidia_smi_line(query: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_clock_hz = None
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), read once."""
+    global _clock_hz
+    if _clock_hz is None:
+        _clock_hz = float(nvidia_smi_line("clocks.max.sm").split()[0]) * 1e6
+    return _clock_hz
+
+
 def mufu_floor_ms(pairs: int, clock_hz: float) -> float:
     """The least time of the forward's exponentials: one ex2 a kept
     (query, key) pair, EXP_PER_CLOCK a clock (printed beside the tensor
@@ -281,6 +304,18 @@ def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(nbytes: float, flops: float, pairs: int, dtype) -> "tuple[float, str]":
+    """A flash kernel's least time (ms, "bytes" or "operations"): bf16, its
+    FLOP on the tensor cores or its bytes; float32, its FLOP in 3xTF32, its
+    bytes or its exponentials (one a kept pair, mufu_floor_ms), whichever
+    takes longest."""
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, BF16_FLOP_PER_S)
+    b = bound(nbytes, flops, F32_TC_FLOP_PER_S)
+    mufu = mufu_floor_ms(pairs, max_sm_clock_hz())
+    return (mufu, "operations") if mufu > b[0] else b
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -1819,8 +1854,8 @@ def darlin_path(tmp: str, seed: int, ns_per_add: float) -> dict:
 # -- phase 6: LM serving --
 
 # flash_fwd against its plain version, (out rtol, out atol, lse atol); the
-# reasons are in tests/test_torch_kernels_cuda.py: float32 sums in another
-# order; in bf16 one ulp of the output, plus an absolute term for P rounded
+# reasons are in tests/test_torch_kernels_cuda.py: float32, 3xTF32 products
+# and float32 sums in another order; in bf16 one ulp of the output, plus an absolute term for P rounded
 # against the running row max (set from the readings this script prints)
 FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -9, 1e-4)}
 SMALL_OUT = 2.0 ** -3  # readings: outputs under this are "small"
@@ -1886,26 +1921,38 @@ def flash_case(name: str, gen, bh=64, sq=2048, sk=2048, d=64, dtype=torch.bfloat
     rtol, atol, lse_tol = FLASH_TOL[dtype]
     readings = close(out, plain_out, rtol, atol, f"flash {name} out")
     err = readings["max_abs"]
-    lse_err = close(lse, plain_lse, 0.0, lse_tol, f"flash {name} lse")["max_abs"]
+    lse_readings = close(lse, plain_lse, 0.0, lse_tol, f"flash {name} lse")
+    lse_err = lse_readings["max_abs"]
     check(bool(torch.isfinite(out.float()).all()), f"flash {name}: non-finite output")
-    again, _ = fa.launch_kernel(*args, causal=True, window=window, group=group)
+    again, again_lse = fa.launch_kernel(*args, causal=True, window=window, group=group)
     torch.cuda.synchronize()
-    deterministic = torch.equal(bits(again), bits(out))
-    del plain_out, plain_lse, again
+    deterministic = torch.equal(bits(again), bits(out)) and torch.equal(bits(again_lse), bits(lse))
+    check(deterministic, f"flash {name}: two launches differ")
+    del plain_out, plain_lse, again, again_lse
     gqa = {"enable_gqa": True} if group > 1 else {}
     nbytes, flops = flash_work(bh, sq, sk, d, group, q.element_size(), True, q_off, k_off, window)
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    pairs = flops // (4 * d)
+    b_ms, b_by = flash_bound(nbytes, flops, pairs, dtype)
+    extra = {} if dtype == torch.bfloat16 else dict(cuda_core_ms=flops / F32_FLOP_PER_S * 1e3)
     ms = median_ms(lambda: fa.launch_kernel(*args, causal=True, window=window, group=group))
-    return dict(
+    return dict(**extra,
         case=name, bh=bh, sq=sq, sk=sk, d=d, dtype=str(dtype).split(".")[-1], q_off=q_off,
         k_off=k_off, window=window, group=group, max_abs_err=err, lse_err=lse_err, readings=readings,
+        lse_readings=lse_readings,
         tolerance=dict(rtol=rtol, atol=atol, lse_atol=lse_tol), deterministic=deterministic,
         ms=ms, plain_ms=median_ms(lambda: fa._flash_plain(*args, True, window, group)),
         library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, **gqa)),
         bound_ms=b_ms, bound_by=b_by, flop=flops, bytes=nbytes, tflop_per_s=flops / ms / 1e9,
-        pairs=flops // (4 * d),
+        pairs=pairs,
     )
+
+
+def f32_note(r: dict) -> str:
+    """A float32 flash row's FLOP at the CUDA cores' rate (F32_FLOP_PER_S)."""
+    if "cuda_core_ms" not in r:
+        return ""
+    return f"; at 67 TFLOP/s on the CUDA cores {r['cuda_core_ms']:.4f} ms"
 
 
 @contextlib.contextmanager
@@ -2124,15 +2171,16 @@ def flash_bwd_case(name: str, gen, bh=8, sq=8192, sk=8192, d=64, dtype=torch.bfl
                 tolerance=dict(rtol=rtol, atol_share_of_scale=share), deterministic=deterministic)
 
 
-def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
-    """CUDA-event times of flash_bwd_dq and flash_bwd_dkv at the training
-    shape (B*H 32, S 8192, D 64, bf16, causal), beside the plain backward
-    (dq, dk and dv together, run as B*H / plain_chunk calls: its float32
-    score tensors would not fit at once), SDPA's backward (``out.backward``
-    after an SDPA forward, ``is_causal``) and each kernel's bound; and
-    flash_fwd beside SDPA's forward at the same shape."""
-    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
-                   for _ in range(4))
+def flash_bwd_times(gen, bh=32, s=8192, d=64, dtype=torch.bfloat16, plain_chunk=8) -> dict:
+    """CUDA-event times of flash_bwd_dq and flash_bwd_dkv at one causal
+    shape (by default the training shape, B*H 32, S 8192, D 64, bf16),
+    beside the plain backward (dq, dk and dv together, run as B*H /
+    plain_chunk calls: its float32 score tensors would not fit at once),
+    SDPA's backward (``out.backward`` after an SDPA forward, ``is_causal``)
+    and each kernel's bound (``flash_bound``: in float32 also the
+    exponentials, one a kept pair in each kernel); and flash_fwd beside
+    SDPA's forward at the same shape."""
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype) for _ in range(4))
     out, lse = fa.launch_kernel(q, k, v, causal=True)
     c = (do.float() * out.float()).sum(-1)
     kw = dict(causal=True)
@@ -2155,13 +2203,13 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, plain_chunk=8) -> dict:
             qs, ks, vs, is_causal=True))
     fwd_ms = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True))
     pairs = kept_pairs(s, s, True, 0, 0, None) * bh
-    elt = 2
+    elt = q.element_size()
     inputs = 4 * bh * s * d * elt + 2 * bh * s * 4  # q, k, v, do; lse, c
-    dq_bound = bound(inputs + bh * s * d * elt, 6 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dQ
-    dkv_bound = bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, BF16_FLOP_PER_S)  # S, dP, dV, dK
-    least = bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, BF16_FLOP_PER_S)  # five products
-    fwd_bound = bound(*flash_work(bh, s, s, d, 1, elt, True, 0, 0, None), BF16_FLOP_PER_S)
-    return dict(bh=bh, s=s, d=d, pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+    dq_bound = flash_bound(inputs + bh * s * d * elt, 6 * d * pairs, pairs, dtype)  # S, dP, dQ
+    dkv_bound = flash_bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, pairs, dtype)  # S, dP, dV, dK
+    least = flash_bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, pairs, dtype)  # five products
+    fwd_bound = flash_bound(*flash_work(bh, s, s, d, 1, elt, True, 0, 0, None), pairs, dtype)
+    return dict(bh=bh, s=s, d=d, dtype=str(dtype).split(".")[-1], pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                 sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, dq_bound_ms=dq_bound[0],
                 dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                 both_bound_ms=least[0], fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
@@ -2562,7 +2610,7 @@ def serving_plane(seed: int, smi: str, gen) -> dict:
               f"causal): out max |diff| {r['max_abs_err']:.3g}, lse {r['lse_err']:.3g} within "
               f"{r['tolerance']}; run-to-run bit-identical {r['deterministic']}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){f32_note(r)} [{smi}]", flush=True)
     t0 = time.perf_counter()
     cli = serve_cli_path(seed)
     for name, run in cli.items():
@@ -2626,7 +2674,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    clock_hz = float(nvidia_smi_line("clocks.max.sm").split()[0]) * 1e6
+    clock_hz = max_sm_clock_hz()
     kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)  # nvidia-smi: name, power.limit
     print(f"# device: {kind}", flush=True)
@@ -2888,6 +2936,12 @@ def main() -> int:
         flash_case("window 1024", gen, window=1024, group=4),
         flash_case("offsets, Sq != Sk", gen, sq=1024, q_off=1024, group=4),
         flash_case("ragged Sk tail", gen, sq=1000, sk=2037, q_off=1037, group=4),
+        flash_case("float32 GQA 4", gen, dtype=torch.float32, group=4),
+        flash_case("float32 D=128 window 1024", gen, d=128, dtype=torch.float32, window=1024),
+        flash_case("float32 offsets, Sq != Sk, ragged Sk tail", gen, sq=1000, sk=2037, q_off=1037,
+                   dtype=torch.float32),
+        flash_case("float32 D=32", gen, d=32, dtype=torch.float32),
+        flash_case("float32 S 8192", gen, bh=8, sq=8192, sk=8192, dtype=torch.float32),
     ]
     for r in flash_rows:
         print(f"# parity flash {r['case']} (BH {r['bh']}, Sq {r['sq']}, Sk {r['sk']}, D {r['d']}, "
@@ -2897,8 +2951,8 @@ def main() -> int:
               f"{r['ms']:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
               f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{r['flop']:.4g} FLOP, {r['bytes']} B), MUFU floor "
-              f"{mufu_floor_ms(r['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz [{smi}]",
-              flush=True)
+              f"{mufu_floor_ms(r['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz{f32_note(r)} "
+              f"[{smi}]", flush=True)
     lm = lm_serving(args.seed)
     spec = lm["speculative"]
     print(f"# LM serving (card's own numbers, {smi}): B {lm['batch']}, prompt {lm['prompt']}, "
@@ -2933,15 +2987,19 @@ def main() -> int:
               f"{r['group']}, dlse {r['dlse']}): max |diff| {r['max_abs_err']} within "
               f"{r['tolerance']}; two backward passes bit-identical {r['deterministic']}", flush=True)
     bwd_t = flash_bwd_times(gen)
-    print(f"# time flash bwd (B*H {bwd_t['bh']}, S {bwd_t['s']}, D {bwd_t['d']}, bf16, causal): "
-          f"flash_bwd_dq {bwd_t['dq_ms']:.4f} ms ({bwd_t['dq_tflop_per_s']:.1f} TFLOP/s, bound "
-          f"{bwd_t['dq_bound_ms']:.4f} ms {bwd_t['dq_bound_by']}), flash_bwd_dkv {bwd_t['dkv_ms']:.4f} "
-          f"ms ({bwd_t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {bwd_t['dkv_bound_ms']:.4f} ms "
-          f"{bwd_t['dkv_bound_by']}); the gradients' least work {bwd_t['both_bound_ms']:.4f} ms; plain "
-          f"backward {bwd_t['plain_ms']:.4f} ms; SDPA backward {bwd_t['sdpa_bwd_ms']:.4f} ms; flash_fwd "
-          f"{bwd_t['fwd_ms']:.4f} ms (bound {bwd_t['fwd_bound_ms']:.4f} ms {bwd_t['fwd_bound_by']}, "
-          f"MUFU floor {mufu_floor_ms(bwd_t['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz), "
-          f"SDPA forward {bwd_t['sdpa_fwd_ms']:.4f} ms [{smi}]", flush=True)
+    # the LM CLI's default float32 training runs the f32 pair (on the CUDA cores)
+    bwd_f32 = flash_bwd_times(gen, bh=64, s=2048, dtype=torch.float32, plain_chunk=16)
+    for t in (bwd_t, bwd_f32):
+        print(f"# time flash bwd (B*H {t['bh']}, S {t['s']}, D {t['d']}, {t['dtype']}, causal): "
+              f"flash_bwd_dq {t['dq_ms']:.4f} ms ({t['dq_tflop_per_s']:.1f} TFLOP/s, bound "
+              f"{t['dq_bound_ms']:.4f} ms {t['dq_bound_by']}), flash_bwd_dkv {t['dkv_ms']:.4f} "
+              f"ms ({t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {t['dkv_bound_ms']:.4f} ms "
+              f"{t['dkv_bound_by']}); the gradients' least work {t['both_bound_ms']:.4f} ms; plain "
+              f"backward {t['plain_ms']:.4f} ms; SDPA backward {t['sdpa_bwd_ms']:.4f} ms (the pair "
+              f"{(t['dq_ms'] + t['dkv_ms']) / t['sdpa_bwd_ms']:.2f}x it); flash_fwd "
+              f"{t['fwd_ms']:.4f} ms (bound {t['fwd_bound_ms']:.4f} ms {t['fwd_bound_by']}, "
+              f"MUFU floor {mufu_floor_ms(t['pairs'], clock_hz):.4f} ms at {clock_hz / 1e6:.0f} MHz), "
+              f"SDPA forward {t['sdpa_fwd_ms']:.4f} ms [{smi}]", flush=True)
     train = train_step_full(args.seed)
     print(f"# LM training (card's own numbers, {smi}): d_model 512, 8 layers, seq {lm_train.SEQ}, "
           f"batch {lm_train.BATCH}, bf16, remat, ring_flash, SGD lr {lm_train.LR}, "
@@ -2963,6 +3021,23 @@ def main() -> int:
           f"launches flash_fwd / dq / dkv {cli['launches']} [{smi}]", flush=True)
     serve = serving_plane(args.seed, smi, gen)
     flash_rows += serve["flash_rows"]
+    f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
+    print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
+          f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
+          f"{max(r['lse_readings']['tolerance_used'] for r in f32_rows):.4g} (tolerance "
+          f"{FLASH_TOL[torch.float32]}); every case bit-identical run to run "
+          f"{all(r['deterministic'] for r in f32_rows)}", flush=True)
+    f32_by_case = {r["case"]: r for r in f32_rows}
+    f32_record = {
+        name: {key: f32_by_case[case][key] for key in
+               ("bh", "sq", "sk", "d", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for name, case in (("prefill", "float32"), ("batcher_join", "serve batcher join"),
+                           ("decode_lane_prefill", "serve CLI decode-lane prefill"))}
+
+    def bwd_f32_record(kernel: str) -> dict:
+        return dict(bh=bwd_f32["bh"], s=bwd_f32["s"], d=bwd_f32["d"], ms=bwd_f32[f"{kernel}_ms"],
+                    plain_ms=bwd_f32["plain_ms"], library_ms=bwd_f32["sdpa_bwd_ms"],
+                    bound_ms=bwd_f32[f"{kernel}_bound_ms"], bound_by=bwd_f32[f"{kernel}_bound_by"])
 
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
@@ -3023,7 +3098,7 @@ def main() -> int:
              tolerance={r["dtype"]: r["tolerance"] for r in flash_rows},
              ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
              bound_ms=flash_rows[0]["bound_ms"], bound_by=flash_rows[0]["bound_by"],
-             library_ms=flash_rows[0]["library_ms"]),
+             library_ms=flash_rows[0]["library_ms"], f32=f32_record),
         dict(name="flash_bwd_dq", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
@@ -3031,7 +3106,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dq_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dq_bound_ms"],
-             bound_by=bwd_t["dq_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"]),
+             bound_by=bwd_t["dq_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"],
+             f32=bwd_f32_record("dq")),
         dict(name="flash_bwd_dkv", route="cuda",
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
@@ -3039,7 +3115,8 @@ def main() -> int:
              max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dkv_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dkv_bound_ms"],
-             bound_by=bwd_t["dkv_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"]),
+             bound_by=bwd_t["dkv_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"],
+             f32=bwd_f32_record("dkv")),
     ]}
     record = dict(nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=build_s, parity=dense_rows + sparse_rows + quant_rows,
@@ -3051,7 +3128,8 @@ def main() -> int:
                   bigtable=big, darlin=dar,
                   kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
-                  flash_bwd=bwd_rows, flash_bwd_times=bwd_t, lm_train=train,
+                  flash_bwd=bwd_rows, flash_bwd_times=bwd_t, flash_bwd_times_f32=bwd_f32,
+                  lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, serving=serve,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

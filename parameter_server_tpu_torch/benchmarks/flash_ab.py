@@ -4,7 +4,7 @@ card, timed in turns: other, this, this, other (with ``--variant``, those
 builds in between).
 
     python3 -m parameter_server_tpu_torch.benchmarks.flash_ab --kernel fwd|bwd --other DIR
-        [--reps 20] [--variant MACRO ...]
+        [--dtype bfloat16|float32] [--reps 20] [--variant MACRO ...]
 
 DIR holds the other ``flash_fwd.cu`` / ``flash_bwd.cu`` and the headers
 they include, for example ``git archive <commit>
@@ -12,23 +12,34 @@ parameter_server_tpu_torch/kernels/csrc`` unpacked; it is built with the
 port's own flags into DIR. Each turn gives each kernel's median time over
 ``--reps`` launches on a cold L2 (CUDA events, ``timing.median_ms``), its
 TFLOP/s over the (query, key) pairs the causal mask keeps and its share of
-its bound (the larger of its operations at 989 TFLOP/s bf16 and its bytes
-at 3.35 TB/s).
+its bound: bf16, the larger of its operations at 989 TFLOP/s and its bytes
+at 3.35 TB/s; float32, the largest of its operations in 3xTF32 (three TF32
+passes, 495 / 3 TFLOP/s: the least an f32-accurate product takes on the
+tensor cores), its bytes and its MUFU floor. float32 also measures the
+rate of the kernel's own instruction, mma.sync m16n8k8 TF32, alone
+(``flash_fwd_tf32_mma_rate``), and prints each shape's products at a third
+of it.
 
 ``--kernel bwd``: ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the LM training
-shape (B·H 32, S 8192, D 64, bf16, causal); beside them, once, SDPA's
-backward and forward (``torch.nn.functional.scaled_dot_product_attention``,
-``is_causal``) and ``flash_fwd``.
+shape (B·H 32, S 8192, D 64, bf16, causal; float32: B·H 64, S 2048, the
+LM CLI's default dtype); beside them, once, SDPA's backward and forward
+(``torch.nn.functional.scaled_dot_product_attention``, ``is_causal``) and
+``flash_fwd``.
 
 ``--kernel fwd``: ``flash_fwd`` at the training shape, at the serving
 prefill (B·H 64, S 2048, D 64, K/V shared by groups of 4) and at D 128 (B·H
-64, S 2048); beside them, once a shape, SDPA's forward, and the MUFU floor:
-one exponential a kept pair, 16 a clock on each of the 132 SMs, at the
-card's top SM clock (``nvidia-smi clocks.max.sm``).
+64, S 2048); float32: at B·H 64, S 2048, D 64, at a batcher join (B·H 128,
+S 8, D 64), at the serve CLI's decode-lane prefill (B·H 16, S 64, D 16),
+at D 128 (B·H 64, S 2048) and at S 8192 (B·H 8, D 64).
+Beside them, once a shape, SDPA's forward and the MUFU floor: one
+exponential a kept pair, 16 a clock on each of the 132 SMs, at the card's
+top SM clock (``nvidia-smi clocks.max.sm``).
 
-The builds' outputs at each shape are compared (max |diff|, all finite).
+The builds' outputs at each shape are compared with each other (max
+|diff|, bit-identical or not, all finite) and with the plain version.
 A ``FLASH_*_CLOCKS`` variant also prints its consumers' cycles a tile by
-phase. Prints one line a turn and writes ``chiprun_out/flash_ab_<kernel>.json``.
+phase. Prints one line a turn and writes ``chiprun_out/flash_ab_<kernel>.json``
+(``flash_ab_<kernel>_float32.json`` with ``--dtype float32``).
 Needs a CUDA device.
 """
 
@@ -50,6 +61,7 @@ from .kernel_report import ROOT
 from .timing import median_ms
 
 BF16_FLOP_PER_S = 989e12
+F32_TC_FLOP_PER_S = 495e12 / 3  # 3xTF32: three TF32 passes a product
 HBM_BYTES_PER_S = 3.35e12
 EXP_PER_CLOCK = 16 * 132  # MUFU ex2 a clock: 16 on each SM of an H100 SXM
 # consumer cycle phases of a FLASH_*_CLOCKS build, by slot (csrc/flash_common.cuh)
@@ -59,8 +71,17 @@ _PHASES = {
     "fwd": {0: "tile_wait", 1: "s", 2: "softmax", 3: "pv_wait", 7: "release", 11: "pack",
             8: "q_wait", 9: "loop_gap"},
 }
-# fwd shapes: (name, B·H, S, D, group)
-FWD_SHAPES = [("training", 32, 8192, 64, 1), ("prefill", 64, 2048, 64, 4), ("D128", 64, 2048, 128, 1)]
+# fwd shapes by dtype: (name, B·H, S, D, group)
+FWD_SHAPES = {
+    "bfloat16": [("training", 32, 8192, 64, 1), ("prefill", 64, 2048, 64, 4),
+                 ("D128", 64, 2048, 128, 1)],
+    "float32": [("prefill", 64, 2048, 64, 1), ("batcher_join", 128, 8, 64, 1),
+                ("decode_lane_prefill", 16, 64, 16, 1), ("D128", 64, 2048, 128, 1),
+                ("S8192", 8, 8192, 64, 1)],
+}
+# bwd shape by dtype: (B·H, S, D)
+BWD_SHAPE = {"bfloat16": (32, 8192, 64), "float32": (64, 2048, 64)}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -105,12 +126,50 @@ def consumer_clocks(lib, kernel: str):
     return read
 
 
+def tf32_mma_tflop_per_s(lib, reps: int) -> float:
+    """The card's mma.sync m16n8k8 TF32 rate in TFLOP/s: 8 blocks of 4
+    warps an SM, each warp 4,096 rounds of 8 independent products
+    (``flash_fwd_tf32_mma_rate``), timed by ``median_ms``."""
+    fn = lib.flash_fwd_tf32_mma_rate
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    blocks, iters = 8 * 132, 4096
+    sink = torch.empty(blocks, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = median_ms(lambda: kernels.check(fn(sink.data_ptr(), blocks, iters, stream), "tf32_mma_rate"),
+                   reps)
+    return blocks * 4 * iters * 8 * 2048 / ms / 1e9
+
+
+def max_abs_vs_plain(q, k, v, group: int, got: dict, heads: int = 8) -> dict:
+    """Each build's max |diff| from the plain version (causal), out and
+    lse; the plain version runs about ``heads`` query heads at a time
+    (whole groups)."""
+    worst = {build: dict(out=0.0, lse=0.0) for build in got}
+    heads = group * max(1, heads // group)
+    for h in range(0, q.shape[0], heads):
+        kv = slice(h // group, (h + heads) // group)
+        want_out, want_lse = fa._flash_plain(q[h:h + heads], k[kv], v[kv], 0, 0, True, None, group)
+        for build, (out, lse) in got.items():
+            w = worst[build]
+            w["out"] = max(w["out"], float((out[h:h + heads].float() - want_out.float()).abs().max()))
+            w["lse"] = max(w["lse"], float((lse[h:h + heads] - want_lse).abs().max()))
+    return worst
+
+
 def kept_pairs(s: int) -> int:
     return s * (s + 1) // 2  # causal, no offsets: query i keeps keys 0..i
 
 
-def bound_ms(flop: float, nbytes: float) -> float:
-    return max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+def bound_ms(flop: float, nbytes: float, dtype: str = "bfloat16", mufu_ms: float = 0.0) -> float:
+    rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_TC_FLOP_PER_S
+    t = max(flop / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+    return t if dtype == "bfloat16" else max(t, mufu_ms)
+
+
+def bit_identical(xs, ys) -> bool:
+    return all(torch.equal(x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32),
+                           y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32))
+               for x, y in zip(xs, ys))
 
 
 def turn_order(variants):
@@ -128,9 +187,9 @@ def timed(name: str, lib, kernel: str, what: str, run, reps: int, t: dict) -> No
 
 
 def run_bwd(args, libs, smi: str) -> dict:
-    bh, s, d = 32, 8192, 64
+    bh, s, d = BWD_SHAPE[args.dtype]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(DTYPES[args.dtype])
                    for _ in range(4))
     out, lse = fa.launch_kernel(q, k, v, causal=True)
     c = (do.float() * out.float()).sum(-1)
@@ -158,12 +217,15 @@ def run_bwd(args, libs, smi: str) -> dict:
     finite = all(bool(torch.isfinite(t.float()).all()) for g in grads.values() for t in g)
     apart = {n: float((x.float() - y.float()).abs().max())
              for n, x, y in zip(("dq", "dk", "dv"), grads["this"], grads["other"])}
+    identical = bit_identical(grads["this"], grads["other"])
 
     pairs = kept_pairs(s) * bh
-    inputs = 4 * bh * s * d * 2 + 2 * bh * s * 4  # q, k, v, do; lse, c
+    elt = q.element_size()
+    inputs = 4 * bh * s * d * elt + 2 * bh * s * 4  # q, k, v, do; lse, c
     flop = {"dq": 6 * d * pairs, "dkv": 8 * d * pairs}  # S, dP, dQ; S, dP, dV, dK
-    nbytes = {"dq": inputs + bh * s * d * 2, "dkv": inputs + 2 * bh * s * d * 2}
-    bound = {kname: bound_ms(flop[kname], nbytes[kname]) for kname in flop}
+    nbytes = {"dq": inputs + bh * s * d * elt, "dkv": inputs + 2 * bh * s * d * elt}
+    mufu = pairs / (EXP_PER_CLOCK * max_sm_clock_hz()) * 1e3  # P recomputed in each kernel
+    bound = {kname: bound_ms(flop[kname], nbytes[kname], args.dtype, mufu) for kname in flop}
     turns = []
     for name in turn_order(args.variant):
         t = {"build": name}
@@ -188,22 +250,24 @@ def run_bwd(args, libs, smi: str) -> dict:
                                                         retain_graph=True), args.reps)
     del sdpa_out
     fwd_ms = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True), args.reps)
-    print(f"# bounds (operations): dq {bound['dq']:.4f} ms, dkv {bound['dkv']:.4f} ms; SDPA backward "
+    print(f"# bounds: dq {bound['dq']:.4f} ms, dkv {bound['dkv']:.4f} ms; SDPA backward "
           f"{sdpa_bwd_ms:.4f} ms, SDPA forward {sdpa_fwd_ms:.4f} ms, flash_fwd {fwd_ms:.4f} ms; this vs "
-          f"other build max |diff| {apart}, all finite {finite} [{smi}]", flush=True)
+          f"other build max |diff| {apart}, bit-identical {identical}, all finite {finite} [{smi}]",
+          flush=True)
     return dict(bh=bh, s=s, d=d, pairs=pairs, dq_bound_ms=bound["dq"], dkv_bound_ms=bound["dkv"],
                 turns=turns, sdpa_bwd_ms=sdpa_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, flash_fwd_ms=fwd_ms,
-                builds_max_abs_apart=apart, all_finite=finite)
+                builds_max_abs_apart=apart, builds_bit_identical=identical, all_finite=finite)
 
 
 def run_fwd(args, libs, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     stream = torch.cuda.current_stream().cuda_stream
     clock_hz = max_sm_clock_hz()
+    dtype = DTYPES[args.dtype]
     shapes, runs = {}, {}
-    for name, bh, s, d, group in FWD_SHAPES:
-        q = torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
-        k, v = (torch.randn(bh // group, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    for name, bh, s, d, group in FWD_SHAPES[args.dtype]:
+        q = torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(bh // group, s, d, device="cuda", generator=gen).to(dtype)
                 for _ in range(2))
         out, lse = torch.empty_like(q), torch.empty(bh, s, device="cuda")
         dims = fa._dims(q, k, 0, 0, True, None, group)
@@ -214,23 +278,35 @@ def run_fwd(args, libs, smi: str) -> dict:
                           "flash_fwd")
 
         got = {}
-        for build in ("other", "this"):
+        for build in libs:
             run(libs[build])
             torch.cuda.synchronize()
             got[build] = (out.clone(), lse.clone())
+        vs_plain = max_abs_vs_plain(q, k, v, group, got)
         pairs = kept_pairs(s) * bh
-        nbytes = (2 * bh * s * d + 2 * (bh // group) * s * d) * 2 + bh * s * 4
+        nbytes = (2 * bh * s * d + 2 * (bh // group) * s * d) * q.element_size() + bh * s * 4
+        mufu = pairs / (EXP_PER_CLOCK * clock_hz) * 1e3
         gqa = {"enable_gqa": True} if group > 1 else {}
         shapes[name] = dict(
             bh=bh, s=s, d=d, group=group, pairs=pairs, flop=4 * d * pairs, bytes=nbytes,
-            bound_ms=bound_ms(4 * d * pairs, nbytes), mufu_floor_ms=pairs / (EXP_PER_CLOCK * clock_hz) * 1e3,
+            bound_ms=bound_ms(4 * d * pairs, nbytes, args.dtype, mufu), mufu_floor_ms=mufu,
             sdpa_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True, **gqa), args.reps),
             builds_max_abs_apart=dict(
                 out=float((got["this"][0].float() - got["other"][0].float()).abs().max()),
                 lse=float((got["this"][1] - got["other"][1]).abs().max())),
-            all_finite=all(bool(torch.isfinite(x.float()).all()) for g in got.values() for x in g))
+            builds_bit_identical=bit_identical(got["this"], got["other"]),
+            max_abs_vs_plain=vs_plain,
+            all_finite=all(bool(torch.isfinite(x.float()).all()) for b in ("other", "this")
+                           for x in got[b]))
         runs[name] = run
+    mma_rate = None
+    if args.dtype == "float32":  # the products' floor at the rate mma.sync reaches
+        mma_rate = tf32_mma_tflop_per_s(libs["this"], args.reps)
+        for sh in shapes.values():
+            sh["mma_sync_floor_ms"] = 3 * sh["flop"] / (mma_rate * 1e12) * 1e3
+        print(f"# mma.sync m16n8k8 TF32: {mma_rate:.1f} TFLOP/s on this card (3xTF32: "
+              f"{mma_rate / 3:.1f} TFLOP/s of f32 products) [{smi}]", flush=True)
     turns = []
     for build in turn_order(args.variant):
         t = {"build": build}
@@ -244,12 +320,16 @@ def run_fwd(args, libs, smi: str) -> dict:
             f"{name} {t[f'{name}_ms']:.4f} ms ({t[f'{name}_tflop_per_s']:.1f} TFLOP/s, "
             f"{t[f'{name}_share_of_bound']:.3f} of its bound)" for name in runs) + f" [{smi}]", flush=True)
     for name, sh in shapes.items():
-        print(f"# {name} (B*H {sh['bh']}, S {sh['s']}, D {sh['d']}, group {sh['group']}): bound "
-              f"{sh['bound_ms']:.4f} ms (tensor FLOP), MUFU floor {sh['mufu_floor_ms']:.4f} ms at "
-              f"{clock_hz / 1e6:.0f} MHz, SDPA forward {sh['sdpa_ms']:.4f} ms; this vs other build "
-              f"max |diff| {sh['builds_max_abs_apart']}, all finite {sh['all_finite']} [{smi}]",
-              flush=True)
-    return dict(shapes=shapes, turns=turns, max_sm_clock_hz=clock_hz)
+        print(f"# {name} (B*H {sh['bh']}, S {sh['s']}, D {sh['d']}, group {sh['group']}, "
+              f"{args.dtype}): bound {sh['bound_ms']:.4f} ms, MUFU floor {sh['mufu_floor_ms']:.4f} ms "
+              f"at {clock_hz / 1e6:.0f} MHz, "
+              + (f"3xTF32 at mma.sync's rate {sh['mma_sync_floor_ms']:.4f} ms, " if mma_rate else "")
+              + f"SDPA forward {sh['sdpa_ms']:.4f} ms; this vs other build "
+              f"max |diff| {sh['builds_max_abs_apart']}, bit-identical {sh['builds_bit_identical']}, "
+              f"all finite {sh['all_finite']}; max |diff| from the plain version by build "
+              f"{sh['max_abs_vs_plain']} [{smi}]", flush=True)
+    return dict(shapes=shapes, turns=turns, max_sm_clock_hz=clock_hz,
+                tf32_mma_sync_tflop_per_s=mma_rate)
 
 
 def main(argv=None) -> int:
@@ -257,13 +337,15 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", choices=("fwd", "bwd"), default="bwd")
     ap.add_argument("--other", required=True, type=pathlib.Path,
                     help="directory with the other kernel source and its headers")
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="bfloat16")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--variant", action="append", default=[], metavar="MACRO",
                     help="also time this checkout built with -DMACRO (A+B: both; timing "
                          "diagnostics such as FLASH_BWD_NO_LOAD, FLASH_BWD_NO_MATH, "
                          "FLASH_BWD_CLOCKS, FLASH_FWD_CLOCKS, FLASH_FWD_NO_SOFTMAX, "
-                         "FLASH_FWD_NO_PV, FLASH_FWD_NO_LOAD; their results are not checked)")
+                         "FLASH_FWD_NO_PV, FLASH_FWD_NO_LOAD, FLASH_FWD_F32_ONE_PASS; their "
+                         "results are not checked)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -276,9 +358,10 @@ def main(argv=None) -> int:
         libs[macro] = kernels.variant(lib_name, *macro.split("+"))
     record = (run_fwd if args.kernel == "fwd" else run_bwd)(args, libs, smi)
     record = dict(nvidia_smi=smi, device=torch.cuda.get_device_name(0), kernel=args.kernel,
-                  dtype="bfloat16", causal=True, reps=args.reps, **record)
+                  dtype=args.dtype, causal=True, reps=args.reps, **record)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", f"flash_ab_{args.kernel}.json"), "w") as f:
+    tag = "" if args.dtype == "bfloat16" else f"_{args.dtype}"
+    with open(os.path.join(ROOT, "chiprun_out", f"flash_ab_{args.kernel}{tag}.json"), "w") as f:
         json.dump(record, f, indent=1)
     finite = record["all_finite"] if args.kernel == "bwd" else \
         all(sh["all_finite"] for sh in record["shapes"].values())

@@ -1,7 +1,7 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu).
 //
-// For the float32 kernels on the CUDA cores: the 64 x 64 tile, the JAX
+// For the float32 backward kernels on the CUDA cores: the 64 x 64 tile, the JAX
 // package's _block_live tile skip and per-element mask, the staging of
 // float32 tiles, quad reductions.
 //
@@ -83,7 +83,7 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 // Copy rows r0..r0+63 of two float32 [n, D] matrices into two shared
 // tiles of strides sa and sb (rows padded against bank conflicts), one
-// element a thread and step; rows past n are zeros...
+// element a thread and step; rows past n are zeros.
 template <int D>
 __device__ __forceinline__ void stage2_f32(float* ta, int sa, float* tb, int sb, const float* a,
                                            const float* b, int r0, int n) {
@@ -93,15 +93,6 @@ __device__ __forceinline__ void stage2_f32(float* ta, int sa, float* tb, int sb,
     const size_t off = static_cast<size_t>(r0 + row) * D + col;
     ta[row * sa + col] = ok ? a[off] : 0.f;
     tb[row * sb + col] = ok ? b[off] : 0.f;
-  }
-}
-
-// ...and of one.
-template <int D>
-__device__ __forceinline__ void stage_f32(float* tile, int stride, const float* src, int r0, int n) {
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-    const int row = i / D, col = i % D;
-    tile[row * stride + col] = r0 + row < n ? src[static_cast<size_t>(r0 + row) * D + col] : 0.f;
   }
 }
 

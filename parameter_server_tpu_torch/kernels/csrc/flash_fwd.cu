@@ -54,9 +54,39 @@
 // last query tiles, first. No atomics: the output is bit-identical from
 // run to run.
 //
-// f32 inputs take a second kernel on the CUDA cores (scalar FMA; the
-// tensor cores would round the operands to TF32): 4 threads per query
-// row, each scoring 16 of a tile's 64 keys and owning D/4 output columns.
+// f32 inputs take a second kernel, flash_fwd_f32, on the tensor cores in
+// 3xTF32 (mma.sync m16n8k8): each operand x is split as hi = tf32(x), lo =
+// tf32(x - hi), rounded to nearest by integer ops, and each product summed
+// as lo.hi + hi.lo + hi.hi in f32, within ~2^-22 of the f32 product (one
+// TF32 pass keeps ~2^-11 and would miss the 2e-5 tolerance ~50 times over:
+// tests/test_torch_flash_tf32_split.py). The tensor cores' own f32 sums
+// truncate, so O takes each k-step's products by a float add, not as the
+// products' accumulator: summed inside them over a row of 8192 keys, an
+// output drifted 7.6e-6 from the plain version's, 1.7e-6 with the adds
+// (which cost ~12% of the time). Bound on the card: the three passes' 12 D FLOP a kept pair at
+// the 495 TFLOP/s TF32 rate, 0.208 ms at B*H 64 x S 2048 x D 64 causal,
+// against 0.040 ms of bytes and 0.032 ms of exponentials; but mma.sync,
+// measured alone, issues TF32 products at ~310 TFLOP/s (wgmma alone reaches
+// the peak), so the three passes take at least 0.33 ms there. The design
+// keeps the products fed and the work per product small: warps of 16 MT
+// query rows (MT = 2 m-tiles at D <= 64, so that each B fragment, loaded
+// and split once, feeds two m-tiles' products), four warps a block, fewer
+// and one m-tile where Sq is short (a join of 8 prompt rows is one warp a
+// block), the grid still a block an SM; the block's Q rows staged once in
+// shared memory with its first K/V tile, and K/V tiles of 32 keys (64
+// where a warp's O is small) double-buffered by cp.async, rows padded so
+// that the fragment loads have no bank conflicts; the k index of both
+// products permuted so that S's accumulator is P's A fragment as it stands
+// (no shuffle, no pass through shared memory) and K and Q load as 8-byte
+// pairs; a warp's dead 8-key blocks of a tile skipped beside the block's
+// dead tiles; the mask test once a score, only on tiles that cross an
+// edge; exponentials on the MUFU unit (ex2.approx). At that prefill it runs
+// in ~0.75 ms, 3.8x the kernel before it and 1.6x SDPA's f32 forward;
+// one TF32 pass (FLASH_FWD_F32_ONE_PASS) runs in ~0.32, so the rest of the
+// loop, not the products, is half of it. Splitting K and V once a block in
+// shared memory (a pass and a second barrier a tile, then bare 16-byte
+// fragment loads) ran no faster. wgmma (TF32 takes B only K-major: V
+// transposed in shared memory) and warp specialisation are the next steps.
 //
 // The TPU kernel's transposed [D, Sq] layout and its (8, 128) padding
 // were Mosaic's, and its sequential k grid axis is the loop over k tiles
@@ -69,9 +99,11 @@
 // wait and arrive and at every hand-over through shared memory; with the
 // hand-overs right, the output is bit-identical to the normal build's
 // (tests/test_torch_kernels_cuda.py). For benchmarks/flash_ab.py:
-// -DFLASH_FWD_CLOCKS counts the consumers' cycles by phase; and builds
-// with wrong outputs that time one part alone: -DFLASH_FWD_NO_SOFTMAX,
-// -DFLASH_FWD_NO_PV, -DFLASH_FWD_NO_LOAD.
+// -DFLASH_FWD_CLOCKS counts the bf16 consumers' cycles by phase; and
+// builds with wrong outputs that time one part alone: -DFLASH_FWD_NO_SOFTMAX,
+// -DFLASH_FWD_NO_PV, -DFLASH_FWD_NO_LOAD (both routes), and
+// -DFLASH_FWD_F32_ONE_PASS (the f32 route, one TF32 pass). The library
+// also times mma.sync's TF32 rate alone (flash_fwd_tf32_mma_rate).
 #ifdef FLASH_FWD_RACE_PROBE
 #define FLASH_RACE_PROBE
 #endif
@@ -350,115 +382,444 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads, 1) flash_fwd_bf16(cons
 
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: 3xTF32 on the tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
+constexpr int kF32Warps = 4;  // warps of a block at most, 16 query rows an m-tile
+constexpr int kSms = 132;     // H100 SXM: blocks enough to fill the card
+
+// keys of a streamed f32 tile: 32 where a warp's O takes 32 registers a
+// thread or more (S's then halve), else 64
+template <int D, int MT>
+__host__ __device__ constexpr int f32_keys() {
+  return D * MT >= 64 ? 32 : 64;
+}
+// blocks an SM the compiler must leave registers for (O and S take D MT /
+// 2 + KT MT / 2 a thread): four of 128 threads for one m-tile at D <= 64,
+// three for two, two at D 128 (as many as shared memory holds; no spills:
+// 121, 164 and 200 registers at D 64, 64 and 128, kernel_report.py)
+template <int D, int MT>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return D == 128 ? 2 : MT == 2 ? 3 : 4;
+}
+// Padded row strides in floats. A warp reads K as 8-byte pairs, one row
+// for each g of a half-warp (g * stride mod 32 distinct multiples of 8:
+// stride = 8 mod 32), and V as words two rows apart, rows 2t (2t stride
+// mod 32 distinct multiples of 8: stride = 4 mod 16): no bank conflicts.
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (kTile * (D + 1) * 2 + kTile * D + kTile * (kTile + 1)) * 4;
+__host__ __device__ constexpr int f32_k_stride() {
+  return D + 8;
+}
+template <int D>
+__host__ __device__ constexpr int f32_v_stride() {
+  return D + 4;
+}
+template <int D, int MT>
+__host__ __device__ constexpr int f32_stage_floats() {
+  return f32_keys<D, MT>() * (f32_k_stride<D>() + f32_v_stride<D>());
+}
+// Shared memory of a block, in floats: its Q rows (16 MT a warp, of at
+// most kF32Warps warps; stride f32_k_stride, read as K is), then the two
+// K/V stages.
+template <int D, int MT>
+__host__ __device__ constexpr int f32_q_floats() {
+  return 16 * MT * kF32Warps * f32_k_stride<D>();
+}
+template <int D, int MT>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (f32_q_floats<D, MT>() + 2 * f32_stage_floats<D, MT>()) * 4;
 }
 
-// One block: 64 query rows, 4 threads a row. Thread c of row r scores
-// keys c, c+4, ... of each tile and owns output columns c, c+4, ...
-template <int D>
-__global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
-  extern __shared__ float smem[];
-  constexpr int kQs = D + 1, kKs = D + 1, kPs = kTile + 1;  // padded row strides
-  constexpr int kCols = D / 4;
-  float* qs = smem;               // [64][D+1]
-  float* ks = qs + kTile * kQs;   // [64][D+1]
-  float* vs = ks + kTile * kKs;   // [64][D]
-  float* ps = vs + kTile * D;     // [64][65]
+// x to the nearest TF32 (ties away from zero, as cvt.rna.tf32.f32): half a
+// TF32 ulp added to the magnitude bits, the 13 bits below TF32's cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const float* q = static_cast<const float*>(a.q) + static_cast<size_t>(bh) * a.sq * D;
-  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
-  const float* k = static_cast<const float*>(a.k) + kv_row;
-  const float* v = static_cast<const float*>(a.v) + kv_row;
-  PROBE_POISON(qs, kTile * kQs);
-  stage_f32<D>(qs, kQs, q, q0, a.sq);
-  PROBE_SKEW(0, -1);
-  const int qp = a.q_off + q0 + r;
-  float o[kCols];
+// x = hi + lo to ~2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in f32). FLASH_FWD_F32_ONE_PASS (a timing diagnostic with wrong
+// outputs): x as it is, lo 0, and one pass in mma_3xtf32.
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32Pair tf32_split(float x) {
+#ifdef FLASH_FWD_F32_ONE_PASS
+  return {__float_as_uint(x), 0u};
+#else
+  const uint32_t hi = tf32_rna(x);
+  return {hi, tf32_rna(x - __uint_as_float(hi))};
+#endif
+}
+
+// the A fragment x (a0..a3) as its hi and lo parts
+__device__ __forceinline__ void tf32_split4(const float (&x)[4], uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) o[i] = 0.f;
-  float m = kNeg, l = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const Tf32Pair p = tf32_split(x[i]);
+    hi[i] = p.hi;
+    lo[i] = p.lo;
+  }
+}
 
-  const int n_tiles = (a.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;
-    __syncthreads();
-    PROBE_POISON(ks, kTile * kKs);
-    PROBE_POISON(vs, kTile * D);
-    PROBE_POISON(ps, kTile * kPs);
+// d += a.b on the tensor cores: m16n8k8, TF32 operands, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b to f32 accuracy in three TF32 passes: lo.hi, hi.lo, then
+// hi.hi (lo.lo, ~2^-22 of the product, is left out)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], Tf32Pair b0, Tf32Pair b1) {
+#ifndef FLASH_FWD_F32_ONE_PASS
+  mma_tf32(d, al, b0.hi, b1.hi);
+  mma_tf32(d, ah, b0.lo, b1.lo);
+#endif
+  mma_tf32(d, ah, b0.hi, b1.hi);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One tile's online softmax over a thread's fragments of S [16 x KT] (rows
+// g and g + 8 of its warp: elements e / 2 of s[nb][e], keys k0 + 8 nb + 2t
+// + e % 2): with kMasked, each score outside its row's kept range is
+// -inf (raises no maximum, P 0). m: the rows' running maxima of q.k; l:
+// this thread's share of their sums; corr: the factor that moves what was
+// summed onto the new maxima; P = 2^((s - m) scale log2e) in place of S.
+template <int NB, bool kMasked>
+__device__ __forceinline__ void online_softmax_f32(float (&s)[NB][4], const int2 (&range)[2],
+                                                   int col0, float scale_log2, float (&m)[2],
+                                                   float (&l)[2], float (&corr)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMasked) {
+        const int col = col0 + 8 * nb + (e & 1);
+        const int2 r = range[e >> 1];
+        s[nb][e] = (col >= r.x) & (col <= r.y) ? s[nb][e] : -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+    }
+  }
+  float m2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    corr[r] = exp2_approx((m[r] - mn) * scale_log2);
+    m[r] = mn;
+    m2[r] = mn * scale_log2;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nb][e] = exp2_approx(fmaf(s[nb][e], scale_log2, -m2[e >> 1]));
+      sum[e >> 1] += s[nb][e];
+    }
+  }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+}
+
+// One block: blockDim.x / 32 warps of 16 MT query rows (MT m-tiles of 16)
+// of query row bh; its Q rows in shared memory, copied with the first live
+// K/V tile, and the live K/V tiles of KT keys double-buffered in shared
+// memory by cp.async (tile kt + 1 copied while tile kt is computed). Each
+// warp computes S = Q.K^T and O += P.V of its rows with mma.sync m16n8k8
+// in 3xTF32; each B fragment, loaded and split once, feeds the products of
+// all MT m-tiles. The k index of both products is permuted so that no
+// fragment changes hands: k-slot t of a k-step holds column 2t and slot t
+// + 4 column 2t + 1, so the S accumulator's elements (rows g, g + 8;
+// columns 2t, 2t + 1) are the A fragment of P as they stand, Q's and K's
+// fragments load as 8-byte pairs, and V's B fragment reads rows 2t and
+// 2t + 1.
+template <int D, int MT>
+__global__ void __launch_bounds__(128, f32_min_blocks<D, MT>()) flash_fwd_f32(Args a) {
+  constexpr int KT = f32_keys<D, MT>(), KS = f32_k_stride<D>(), VS = f32_v_stride<D>();
+  constexpr int NB = KT / 8;  // 8-key column blocks of S, k-steps of P.V
+  constexpr int DK = D / 8;   // k-steps of S, 8-column blocks of O
+  constexpr int kStage = f32_stage_floats<D, MT>(), kQ = f32_q_floats<D, MT>();
+  extern __shared__ __align__(16) float smem_f32[];
+
+  const int bm = 16 * MT * (blockDim.x >> 5);  // query rows of the block
+  const int n_own = (a.sq + bm - 1) / bm;
+  int bh, rank;
+  block_tile(n_own, bh, rank);
+  const int q0 = (n_own - 1 - rank) * bm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 16 * MT * warp;  // the warp's first row; m-tile m's row g: w0 + 16 m + g
+
+  // the key tiles live for the block's rows, [t_lo, t_hi] (whole tiles out
+  // of the causal or window band skipped: they would add P = 0, scale by 1)
+  const int n_tiles = (a.sk + KT - 1) / KT;
+  int t_lo = 0, t_hi = n_tiles - 1;
+  if (a.causal) {
+    t_hi = min(t_hi, floor_div<KT>(a.q_off + min(q0 + bm, a.sq) - 1 - a.k_off));
+    if (a.window > 0) t_lo = max(0, floor_div<KT>(a.q_off + q0 - a.window + 1 - a.k_off));
+  }
+  // the keys some row of the warp keeps, [kx, ky], and those all rows of
+  // m-tile m keep, [fx[m], fy[m]]
+  const bool w_live = w0 < a.sq;
+  int kx = 0, ky = a.sk - 1, fx[MT], fy[MT];
+  if (a.causal) {
+    ky = min(ky, a.q_off + min(w0 + 16 * MT - 1, a.sq - 1) - a.k_off);
+    if (a.window > 0) kx = a.q_off + w0 - a.window + 1 - a.k_off;
+  }
+  int2 range[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int m0 = w0 + 16 * m, ml = min(m0 + 15, a.sq - 1);
+    fx[m] = 0;
+    fy[m] = a.sk - 1;
+    if (a.causal) {
+      fy[m] = min(fy[m], a.q_off + m0 - a.k_off);
+      if (a.window > 0) fx[m] = a.q_off + ml - a.window + 1 - a.k_off;
+    }
+    range[m][0] = keys_kept(a, m0 + g);
+    range[m][1] = keys_kept(a, m0 + g + 8);
+  }
+  const float scale_log2 = a.scale * kLog2e;
+
+  const float* qg = static_cast<const float*>(a.q) + static_cast<size_t>(bh) * a.sq * D;
+  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
+  const float* kg = static_cast<const float*>(a.k) + kv_row;
+  const float* vg = static_cast<const float*>(a.v) + kv_row;
+  float* qs = smem_f32;  // the block's Q rows
+  float* stages = smem_f32 + kQ;
+  // tile kt into stage `buf`: its rows up to the next multiple of 8 past
+  // Sk (those past Sk zero-filled), 16 bytes a copy; one commit group
+  auto load = [&](int kt, int buf) {
+    float* ks = stages + buf * kStage;
+    float* vs = ks + KT * KS;
+    const int k0 = kt * KT, rows = min(KT, (a.sk - k0 + 7) & ~7);
+    for (int i = threadIdx.x; i < (kNoLoad ? 0 : rows * (D / 4)); i += blockDim.x) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      const bool ok = k0 + row < a.sk;
+      const size_t off = ok ? static_cast<size_t>(k0 + row) * D + col : 0;
+      cp_async16(ks + row * KS + col, kg + off, ok);
+      cp_async16(vs + row * VS + col, vg + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o[MT][DK][4];  // O: rows g (0, 1) and g + 8 (2, 3), columns 8 nb + 2t + e % 2
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[m][nb][e] = 0.f;
+  float mx[MT][2], l[MT][2];  // the rows' running maxima of q.k, this thread's share of their sums
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    mx[m][0] = mx[m][1] = kNeg;
+    l[m][0] = l[m][1] = 0.f;
+  }
+
+  if (t_lo <= t_hi) {  // the block's Q rows (past Sq zero-filled) and tile t_lo
+    PROBE_POISON(smem_f32, kQ + kStage);
+    for (int i = threadIdx.x; i < (kNoLoad ? 0 : bm * (D / 4)); i += blockDim.x) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      const bool ok = q0 + row < a.sq;
+      cp_async16(qs + row * KS + col, qg + (ok ? static_cast<size_t>(q0 + row) * D + col : 0), ok);
+    }
+    load(t_lo, 0);
+  }
+  for (int kt = t_lo; kt <= t_hi; ++kt) {
+    const int buf = (kt - t_lo) & 1;
     PROBE_SKEW(1, kt);
-    stage2_f32<D>(ks, kKs, vs, D, k, v, k0, a.sk);
+    cp_async_wait_all();
+    // tile kt is in place for every warp, and every warp is done with
+    // tile kt - 1, whose stage the next copy overwrites
     __syncthreads();
     PROBE_SKEW(2, kt);
-
-    float s[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r * kQs + d];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] = fmaf(qv, ks[(c + 4 * i) * kKs + d], s[i]);
+    if (kt < t_hi) {
+      PROBE_POISON(stages + (buf ^ 1) * kStage, kStage);
+      load(kt + 1, buf ^ 1);
     }
-    float mx = kNeg;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      s[i] = key_valid(a, qp, k0 + c + 4 * i) ? s[i] * a.scale : kNeg;
-      mx = fmaxf(mx, s[i]);
-    }
-    const float mn = fmaxf(m, quad_max(mx));
-    const float corr = expf(m - mn);
-    float psum = 0.f;
     PROBE_SKEW(3, kt);
+    const int k0 = kt * KT;
+    // the warp's live 8-key blocks of the tile, [lo8, hi8)
+    const int lo8 = max(0, kx - k0) >> 3, hi8 = (max(0, min(KT, ky - k0 + 1)) + 7) >> 3;
+    if (!w_live || lo8 >= hi8) continue;
+    const float* ks = stages + buf * kStage;
+    const float* vs = ks + KT * KS;
+
+    float s[MT][NB][4];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float p = key_valid(a, qp, k0 + c + 4 * i) ? expf(s[i] - mn) : 0.f;
-      psum += p;
-      ps[r * kPs + c + 4 * i] = p;
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      // A = Q: a0 (row g) and a1 (row g + 8) hold column 8 kk + 2t, a2 and
+      // a3 column 2t + 1, read as K is
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* qr = qs + (w0 - q0 + 16 * m + g) * KS + 8 * kk + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(qr);
+        const float2 x1 = *reinterpret_cast<const float2*>(qr + 8 * KS);
+        const float qf[4] = {x0.x, x1.x, x0.y, x1.y};
+        tf32_split4(qf, ah[m], al[m]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < lo8 || nb >= hi8) continue;
+        // B = K^T: k-slots t, t + 4 are key 8 nb + g's columns 8 kk + 2t, + 1
+        const float2 b = *reinterpret_cast<const float2*>(ks + (8 * nb + g) * KS + 8 * kk + 2 * t);
+        const Tf32Pair b0 = tf32_split(b.x), b1 = tf32_split(b.y);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_3xtf32(s[m][nb], ah[m], al[m], b0, b1);
+      }
     }
-    l = l * corr + psum;
-    __syncwarp();  // a row's 4 threads share one warp
-    PROBE_SKEW(4, kt);
-    float pv[kCols];
+
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) pv[i] = 0.f;
-    for (int j = 0; j < kTile; ++j) {
-      const float p = ps[r * kPs + j];
+    for (int m = 0; m < MT; ++m) {
+      float corr[2] = {1.f, 1.f};  // FLASH_FWD_NO_SOFTMAX: P is S as it is
+      if (kSoftmax && fx[m] <= k0 && k0 + KT - 1 <= fy[m]) {
+        online_softmax_f32<NB, false>(s[m], range[m], k0 + 2 * t, scale_log2, mx[m], l[m], corr);
+      } else if (kSoftmax) {
+        online_softmax_f32<NB, true>(s[m], range[m], k0 + 2 * t, scale_log2, mx[m], l[m], corr);
+      }
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) pv[i] = fmaf(p, vs[j * D + c + 4 * i], pv[i]);
+      for (int nb = 0; nb < DK; ++nb) {
+        o[m][nb][0] *= corr[0];
+        o[m][nb][1] *= corr[0];
+        o[m][nb][2] *= corr[1];
+        o[m][nb][3] *= corr[1];
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) o[i] = o[i] * corr + pv[i];
-    m = mn;
+    for (int kk = 0; kk < NB; ++kk) {
+      if (!kPv || kk < lo8 || kk >= hi8) continue;  // P is 0 there
+      // A = P: k-slot t is key 8 kk + 2t (s[kk][0], row g; s[kk][2], row
+      // g + 8), slot t + 4 key 2t + 1 (s[kk][1], s[kk][3])
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float pf[4] = {s[m][kk][0], s[m][kk][2], s[m][kk][1], s[m][kk][3]};
+        tf32_split4(pf, ph[m], pl[m]);
+      }
+      const float* vr = vs + (8 * kk + 2 * t) * VS + g;
+#pragma unroll
+      for (int nb = 0; nb < DK; ++nb) {
+        const Tf32Pair b0 = tf32_split(vr[8 * nb]), b1 = tf32_split(vr[VS + 8 * nb]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          // O takes the k-step's products by a float add (round to nearest),
+          // not as their accumulator (the tensor cores' sums truncate)
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(c, ph[m], pl[m], b0, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[m][nb][e] += c[e];
+        }
+      }
+    }
   }
 
-  l = quad_sum(l);
-  if (q0 + r < a.sq) {
-    float* out = static_cast<float*>(a.out) + (static_cast<size_t>(bh) * a.sq + q0 + r) * D;
-    const float den = fmaxf(l, 1e-30f);
+  if (!w_live) return;
+  float* out = static_cast<float*>(a.out) + static_cast<size_t>(bh) * a.sq * D;
+  float* lse = a.lse + static_cast<size_t>(bh) * a.sq;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) out[c + 4 * i] = o[i] / den;
-    if (c == 0) a.lse[static_cast<size_t>(bh) * a.sq + q0 + r] = finish_lse(m, l);
+  for (int m = 0; m < MT; ++m) {
+    const int r0 = w0 + 16 * m + g, r1 = r0 + 8;
+    l[m][0] = quad_sum(l[m][0]);
+    l[m][1] = quad_sum(l[m][1]);
+    const float d0 = fmaxf(l[m][0], 1e-30f), d1 = fmaxf(l[m][1], 1e-30f);
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (r0 < a.sq)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r0) * D + col) =
+            make_float2(o[m][nb][0] / d0, o[m][nb][1] / d0);
+      if (r1 < a.sq)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r1) * D + col) =
+            make_float2(o[m][nb][2] / d1, o[m][nb][3] / d1);
+    }
+    if (t == 0) {
+      if (r0 < a.sq) lse[r0] = finish_lse(mx[m][0] * a.scale, l[m][0]);
+      if (r1 < a.sq) lse[r1] = finish_lse(mx[m][1] * a.scale, l[m][1]);
+    }
   }
 }
 
+// The block shape of a launch: m-tiles a warp (two at D <= 64 where the
+// query rows allow, so that each B fragment feeds twice the products) and
+// warps a block (at most kF32Warps, none wholly past Sq), as many rows a
+// block as still give each SM a block; else one m-tile and the most
+// blocks (short prefills: a join of 8 prompt rows is one warp a block).
+struct F32Shape {
+  int mt, warps;
+};
+
+inline F32Shape f32_shape(int bh, int sq, int d) {
+  for (int mt = d <= 64 ? 2 : 1; mt >= 1; --mt) {
+    const int most = (sq + 16 * mt - 1) / (16 * mt);
+    for (int nw = most < kF32Warps ? most : kF32Warps; nw >= 1; --nw)
+      if (static_cast<long long>(bh) * ((sq + 16 * mt * nw - 1) / (16 * mt * nw)) >= kSms)
+        return {mt, nw};
+  }
+  return {1, 1};
+}
+
+template <int D, int MT>
+int launch_f32(const Args& a, int bh, int nw, cudaStream_t s) {
+  const dim3 grid(bh * ((a.sq + 16 * MT * nw - 1) / (16 * MT * nw)));
+  constexpr int bytes = f32_smem_bytes<D, MT>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_f32<D, MT><<<grid, 32 * nw, bytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int D>
 int launch_f32(const Args& a, int bh, cudaStream_t s) {
-  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-  constexpr int bytes = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_f32<D><<<grid, 256, bytes, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const F32Shape sh = f32_shape(bh, a.sq, D);
+  if constexpr (D <= 64) {
+    if (sh.mt == 2) return launch_f32<D, 2>(a, bh, sh.warps, s);
+  }
+  return launch_f32<D, 1>(a, bh, sh.warps, s);
+}
+
+// The card's mma.sync m16n8k8 TF32 rate, for benchmarks/flash_ab.py: each
+// warp issues `iters` rounds of eight independent products (no shared
+// memory, no other work); the sums go to sink[block] so that none is dead.
+__global__ void __launch_bounds__(128) tf32_mma_rate(float* sink, int iters) {
+  uint32_t a[4], b0 = __float_as_uint(1e-3f), b1 = __float_as_uint(2e-3f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(1.f + threadIdx.x + i);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(d[j], a, b0, b1);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  if (sum == 12345.f) sink[blockIdx.x] = sum;
 }
 
 template <int D>
@@ -483,6 +844,13 @@ int launch(const Args& a, int bh, int dtype, cudaStream_t s) {
 // (FLASH_FWD_CLOCKS) the consumer cycle sums of the launches since the
 // last call, then zeros
 CLOCKS_ENTRY(flash_fwd_clocks)
+
+// `blocks` blocks of 4 warps, each warp 8 iters mma.sync m16n8k8 TF32
+// products (2,048 FLOP each), for benchmarks/flash_ab.py
+extern "C" int flash_fwd_tf32_mma_rate(float* sink, int blocks, int iters, void* stream) {
+  tf32_mma_rate<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(sink, iters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 #ifdef FLASH_FWD_RACE_PROBE
 extern "C" int flash_fwd_probe_seed(unsigned seed) {

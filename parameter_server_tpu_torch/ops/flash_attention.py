@@ -27,13 +27,15 @@ float32 upcasts of the input values (exact products, float32 sums), exp
 against the row max (forward) or the saved lse (backward), P cast to v's
 dtype before P·V and to do's dtype before Pᵀ·dO, dS cast to k's (q's)
 dtype before dS·K (dSᵀ·Q), statistics in float32. In float32 that is
-also what JAX's XLA branch computes. The kernels sum in another order,
-so they are held to their plain versions within stated tolerances, not
-bit for bit (``chip_smoke.py``).
+also what JAX's XLA branch computes. The kernels sum in another order
+(and the float32 forward multiplies in 3xTF32, within ~2^-22 of each
+product), so they are held to their plain versions within stated
+tolerances, not bit for bit (``chip_smoke.py``).
 
 The JAX ``block_q``/``block_k``/``use_pallas``/``interpret`` knobs have
-no counterpart: the kernels' tiles are fixed (64 rows a consumer
-warpgroup; 128-key tiles in the forward, 64 in the backward), and the
+no counterpart: the kernels' tiles are fixed (bf16: 64 rows a consumer
+warpgroup, 128-key tiles in the forward, 64 in the backward; the float32
+forward, 3xTF32 on the tensor cores: 16 rows a warp, 64-key tiles), and the
 device of the tensors picks the route. So the window-scale block clamp of the JAX
 wrapper, which caps blocks at 128 or more, never binds here and is gone.
 Grouped-query attention reads the shared K/V rows in place in both
@@ -47,8 +49,8 @@ import math
 import torch
 
 _NEG = -1e30  # finite mask value: keeps exp/max arithmetic NaN-free
-# head dims the CUDA kernels are built for, by dtype: the float32 route
-# (CUDA cores) is generic in D and also takes the serve CLI's small heads
+# head dims the CUDA kernels are built for, by dtype: the float32 routes
+# also take the serve CLI's small heads
 KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -15,7 +15,7 @@ u-position (sparse) in both versions, and the quantization noise by flat
 position.
 
 Tolerance of ``flash_fwd``: it sums in another order than its plain
-version. float32: out and lse within 2e-5 (exact products, float32 sums
+version. float32: out and lse within 2e-5 (3xTF32 products, float32 sums
 in another order). bfloat16: out within 2^-7 of |plain| plus 2^-9
 absolute. 2^-7 relative is one bf16 ulp of the output (each side rounds
 it once); the absolute term bounds what the two versions differ by
@@ -315,6 +315,13 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 *
     (4, 384, 640, 128, torch.bfloat16, True, 256, 0, 200, 2),   # D 128, Sk no multiple of 128
     (16, 64, 64, 16, torch.float32, True, 0, 0, None, 1),       # the serve CLI's decode prefill
     (8, 100, 130, 32, torch.float32, True, 30, 0, 50, 2),       # f32 D 32, ragged, window, GQA
+    (128, 8, 8, 64, torch.float32, True, 0, 0, None, 1),        # a batcher join
+    (16, 2048, 2048, 64, torch.float32, True, 0, 0, None, 1),   # f32, causal, S 2048
+    (8, 192, 192, 64, torch.float32, True, 0, 0, None, 4),      # f32 GQA 4
+    (8, 9, 333, 64, torch.float32, True, 293, 0, 100, 2),       # f32 Sq < 16, offsets, window
+    (2, 64, 64, 64, torch.float32, True, 0, 500, None, 1),      # f32, every key in the future
+    (4, 384, 384, 128, torch.float32, True, 0, 0, None, 1),     # f32 D 128
+    (4, 8192, 8192, 64, torch.float32, True, 0, 0, None, 1),    # f32, long rows
 ])
 def test_flash_kernel_matches_plain(dev, bh, sq, sk, d, dtype, causal, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -386,6 +393,8 @@ def _launch(lib, q, k, v, qo, ko, window, group):
     (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),  # chip_smoke.py's ragged Sk tail
     (4, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1),      # a block laps the ring many times
     (8, 40, 333, 64, torch.bfloat16, 293, 0, 100, 2),        # Sq < 64, offsets, window, GQA
+    (8, 9, 333, 64, torch.float32, 293, 0, 100, 2),          # f32 Sq < 16, offsets, window, GQA
+    (4, 4096, 4096, 64, torch.float32, 0, 0, None, 1),       # f32: laps the K/V stages many times
 ])
 def test_flash_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(1)
