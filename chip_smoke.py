@@ -131,11 +131,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd Function against their plain version at the training shape
    cut to B*H 8 (S 8192, D 64, bf16, causal) and at D 128, float32,
    window 1024, GQA 4, offsets with Sq != Sk, a ragged Sk tail and a
-   nonzero lse gradient, within the stated tolerances and bit-identical
-   run to run; their CUDA-event times at B*H 32 beside the plain
-   backward, SDPA's backward and the FLOP bound, and ``flash_fwd`` beside
-   SDPA's forward at that shape, and the same in float32 at B*H 64, S
-   2048 (the LM CLI's default dtype); ``make_lm_train_step`` at
+   nonzero lse gradient, and the float32 route (3xTF32 on the tensor
+   cores) at GQA 4, D 128 with window 1024, offsets with a ragged Sk tail
+   and a lse gradient, D 16 at the LM CLI's default shape, D 32 with a
+   window and GQA 2, and S 8192 (where the sums' drift shows), within the
+   stated tolerances and bit-identical run to run (``# flash_bwd float32``:
+   each gradient's largest share of its tolerance); their CUDA-event times
+   at B*H 32 beside the plain backward, SDPA's backward and the FLOP
+   bound, and ``flash_fwd`` beside SDPA's forward at that shape, and the
+   same in float32 (the LM CLI's default dtype) at B*H 64 x S 2048, at the
+   CLI's default B*H 32 x S 256 x D 16 and at D 128, beside the three TF32
+   passes at mma.sync's rate measured alone; ``make_lm_train_step`` at
    the full config (a warm-up launch and 3 timed launches of 8 steps:
    tokens/s, step ms, MFU; flash launches asserted: 16 forward, 8 of each
    backward kernel a step); one step's loss and gradients against the same
@@ -143,7 +149,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 3x the JAX reference's own bf16-vs-f32 gaps
    (``tests/torch_lm_train_bf16_noise.py``); the LM CLI
    (``parameter_server_tpu_torch.apps.lm.main``) at 2 layers, d_model 64,
-   on the card against ``--device cpu``, then at the full config for 30
+   float32 (its launches of the float32 backward pair counted), on the
+   card against ``--device cpu``, then at the full config for 30
    Adam steps to a falling loss and a 64-token generation;
 8. the serving plane (``parameter_server_tpu_torch.apps.serve.main``):
    ``flash_fwd`` against its plain version at the serve CLI's decode-lane
@@ -220,7 +227,7 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
 )
 from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
 from parameter_server_tpu_torch.apps.serve import main as serve_main  # noqa: E402
-from parameter_server_tpu_torch.benchmarks import ftrl_bytes, lm_serve, lm_train  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import flash_ab, ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
@@ -2171,15 +2178,17 @@ def flash_bwd_case(name: str, gen, bh=8, sq=8192, sk=8192, d=64, dtype=torch.bfl
                 tolerance=dict(rtol=rtol, atol_share_of_scale=share), deterministic=deterministic)
 
 
-def flash_bwd_times(gen, bh=32, s=8192, d=64, dtype=torch.bfloat16, plain_chunk=8) -> dict:
+def flash_bwd_times(gen, bh=32, s=8192, d=64, dtype=torch.bfloat16, plain_chunk=8,
+                    mma_tflop_per_s=None) -> dict:
     """CUDA-event times of flash_bwd_dq and flash_bwd_dkv at one causal
     shape (by default the training shape, B*H 32, S 8192, D 64, bf16),
     beside the plain backward (dq, dk and dv together, run as B*H /
     plain_chunk calls: its float32 score tensors would not fit at once),
     SDPA's backward (``out.backward`` after an SDPA forward, ``is_causal``)
     and each kernel's bound (``flash_bound``: in float32 also the
-    exponentials, one a kept pair in each kernel); and flash_fwd beside
-    SDPA's forward at the same shape."""
+    exponentials, one a kept pair in each kernel; and, given
+    ``mma_tflop_per_s``, the three TF32 passes at mma.sync's measured
+    rate); and flash_fwd beside SDPA's forward at the same shape."""
     q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype) for _ in range(4))
     out, lse = fa.launch_kernel(q, k, v, causal=True)
     c = (do.float() * out.float()).sum(-1)
@@ -2209,7 +2218,11 @@ def flash_bwd_times(gen, bh=32, s=8192, d=64, dtype=torch.bfloat16, plain_chunk=
     dkv_bound = flash_bound(inputs + 2 * bh * s * d * elt, 8 * d * pairs, pairs, dtype)  # S, dP, dV, dK
     least = flash_bound(inputs + 3 * bh * s * d * elt, 10 * d * pairs, pairs, dtype)  # five products
     fwd_bound = flash_bound(*flash_work(bh, s, s, d, 1, elt, True, 0, 0, None), pairs, dtype)
-    return dict(bh=bh, s=s, d=d, dtype=str(dtype).split(".")[-1], pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+    floors = {} if mma_tflop_per_s is None else dict(
+        dq_mma_floor_ms=3 * 6 * d * pairs / (mma_tflop_per_s * 1e12) * 1e3,
+        dkv_mma_floor_ms=3 * 8 * d * pairs / (mma_tflop_per_s * 1e12) * 1e3)
+    return dict(**floors,
+                bh=bh, s=s, d=d, dtype=str(dtype).split(".")[-1], pairs=pairs, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                 sdpa_bwd_ms=sdpa_ms, fwd_ms=fwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, dq_bound_ms=dq_bound[0],
                 dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                 both_bound_ms=least[0], fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
@@ -2292,7 +2305,11 @@ def run_lm_cli(argv) -> "tuple[str, list]":
 def lm_cli(seed: int) -> dict:
     """The LM CLI: a small float32 run on the card against the CPU, then
     the full config to a falling loss and a generation."""
+    reset_counts()
     _, card = run_lm_cli(CLI_SMALL + ["--device", "cuda"])
+    small = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    check(min(small) > 0 and small[1] == small[2],
+          f"LM CLI float32 on the card: launches (flash_fwd, dq, dkv) {small}")
     _, cpu = run_lm_cli(CLI_SMALL + ["--device", "cpu"])
     gap = max(abs(a - b) for a, b in zip(card, cpu))
     check(len(card) == len(cpu) == 5 and gap <= CLI_LOSS_TOL,
@@ -2313,7 +2330,8 @@ def lm_cli(seed: int) -> dict:
     check(len(gen) == 2 and len(gen[1].splitlines()) >= 2, "LM CLI: no generation")
     for line in text.splitlines():
         print(f"# cli | {line}", flush=True)
-    return dict(small_card=card, small_cpu=cpu, small_gap=gap, losses=losses, wall_s=wall,
+    return dict(small_card=card, small_cpu=cpu, small_gap=gap, small_launches=small,
+                losses=losses, wall_s=wall,
                 launches=got, generation=gen[1].split("\n", 1)[1])
 
 
@@ -2980,21 +2998,50 @@ def main() -> int:
         flash_bwd_case("offsets, Sq != Sk", gen, sq=1024, sk=2048, q_off=1024),
         flash_bwd_case("ragged Sk tail", gen, sq=1000, sk=2037, q_off=1037),
         flash_bwd_case("nonzero dlse", gen, sq=2048, sk=2048, dlse=True),
+        flash_bwd_case("float32 GQA 4", gen, sq=2048, sk=2048, dtype=torch.float32, group=4),
+        flash_bwd_case("float32 D=128 window 1024", gen, sq=2048, sk=2048, d=128,
+                       dtype=torch.float32, window=1024),
+        flash_bwd_case("float32 offsets, Sq != Sk, ragged Sk tail, dlse", gen, sq=1000, sk=2037,
+                       q_off=1037, dtype=torch.float32, dlse=True),
+        flash_bwd_case("float32 D=16 LM CLI default", gen, bh=32, sq=256, sk=256, d=16,
+                       dtype=torch.float32),
+        flash_bwd_case("float32 D=32 window 300 GQA 2", gen, sq=1024, sk=1024, d=32,
+                       dtype=torch.float32, window=300, group=2),
+        flash_bwd_case("float32 S 8192", gen, bh=4, dtype=torch.float32),
     ]
     for r in bwd_rows:
         print(f"# parity flash bwd {r['case']} (B*H {r['bh']}, Sq {r['sq']}, Sk {r['sk']}, D {r['d']}, "
               f"{r['dtype']}, window {r['window']}, offsets {r['q_off']}/{r['k_off']}, group "
               f"{r['group']}, dlse {r['dlse']}): max |diff| {r['max_abs_err']} within "
               f"{r['tolerance']}; two backward passes bit-identical {r['deterministic']}", flush=True)
+    bwd_f32_rows = [r for r in bwd_rows if r["dtype"] == "float32"]
+    print(f"# flash_bwd float32, {len(bwd_f32_rows)} cases: largest tolerance_used " + ", ".join(
+        f"{g} {max(r['readings'][g]['tolerance_used'] for r in bwd_f32_rows):.4g}"
+        for g in ("dq", "dk", "dv")) + f" (tolerance {FLASH_BWD_TOL[torch.float32]}: rtol, atol as "
+          f"a share of each gradient's largest |plain|); every case bit-identical run to run "
+          f"{all(r['deterministic'] for r in bwd_f32_rows)}", flush=True)
+    mma_rate = flash_ab.tf32_mma_tflop_per_s(kernels.library("flash_fwd"), 20)
+    print(f"# mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s [{smi}]", flush=True)
     bwd_t = flash_bwd_times(gen)
-    # the LM CLI's default float32 training runs the f32 pair (on the CUDA cores)
-    bwd_f32 = flash_bwd_times(gen, bh=64, s=2048, dtype=torch.float32, plain_chunk=16)
-    for t in (bwd_t, bwd_f32):
+    # the LM CLI's float32 training runs the f32 pair: heads of 64 at S 2048,
+    # its default (B*H 32 x S 256 x D 16), and D 128
+    bwd_f32 = {
+        "S2048": flash_bwd_times(gen, bh=64, s=2048, dtype=torch.float32, plain_chunk=16,
+                                 mma_tflop_per_s=mma_rate),
+        "cli_default": flash_bwd_times(gen, bh=32, s=256, d=16, dtype=torch.float32,
+                                       plain_chunk=32, mma_tflop_per_s=mma_rate),
+        "D128": flash_bwd_times(gen, bh=64, s=2048, d=128, dtype=torch.float32, plain_chunk=16,
+                                mma_tflop_per_s=mma_rate),
+    }
+    for t in (bwd_t, *bwd_f32.values()):
         print(f"# time flash bwd (B*H {t['bh']}, S {t['s']}, D {t['d']}, {t['dtype']}, causal): "
               f"flash_bwd_dq {t['dq_ms']:.4f} ms ({t['dq_tflop_per_s']:.1f} TFLOP/s, bound "
               f"{t['dq_bound_ms']:.4f} ms {t['dq_bound_by']}), flash_bwd_dkv {t['dkv_ms']:.4f} "
               f"ms ({t['dkv_tflop_per_s']:.1f} TFLOP/s, bound {t['dkv_bound_ms']:.4f} ms "
-              f"{t['dkv_bound_by']}); the gradients' least work {t['both_bound_ms']:.4f} ms; plain "
+              f"{t['dkv_bound_by']}); the gradients' least work {t['both_bound_ms']:.4f} ms; "
+              + (f"3xTF32 at mma.sync's rate dq {t['dq_mma_floor_ms']:.4f} ms, dkv "
+                 f"{t['dkv_mma_floor_ms']:.4f} ms; " if "dq_mma_floor_ms" in t else "")
+              + f"plain "
               f"backward {t['plain_ms']:.4f} ms; SDPA backward {t['sdpa_bwd_ms']:.4f} ms (the pair "
               f"{(t['dq_ms'] + t['dkv_ms']) / t['sdpa_bwd_ms']:.2f}x it); flash_fwd "
               f"{t['fwd_ms']:.4f} ms (bound {t['fwd_bound_ms']:.4f} ms {t['fwd_bound_by']}, "
@@ -3035,9 +3082,14 @@ def main() -> int:
                            ("decode_lane_prefill", "serve CLI decode-lane prefill"))}
 
     def bwd_f32_record(kernel: str) -> dict:
-        return dict(bh=bwd_f32["bh"], s=bwd_f32["s"], d=bwd_f32["d"], ms=bwd_f32[f"{kernel}_ms"],
-                    plain_ms=bwd_f32["plain_ms"], library_ms=bwd_f32["sdpa_bwd_ms"],
-                    bound_ms=bwd_f32[f"{kernel}_bound_ms"], bound_by=bwd_f32[f"{kernel}_bound_by"])
+        """The f32 route: its launches in the LM CLI's float32 run and its
+        times at each shape timed."""
+        small = cli["small_launches"][1 if kernel == "dq" else 2]
+        return dict(launches=small, **{name: dict(
+            bh=t["bh"], s=t["s"], d=t["d"], ms=t[f"{kernel}_ms"], plain_ms=t["plain_ms"],
+            library_ms=t["sdpa_bwd_ms"], bound_ms=t[f"{kernel}_bound_ms"],
+            bound_by=t[f"{kernel}_bound_by"], mma_sync_floor_ms=t[f"{kernel}_mma_floor_ms"])
+            for name, t in bwd_f32.items()})
 
     main_dense = ctr_dense  # f32 with an explicit mask: what the CTR step runs
     main_sparse = sparse_rows[0]
@@ -3129,6 +3181,7 @@ def main() -> int:
                   kernels=kernel_line["kernels"],
                   run_to_run_deterministic=deterministic, flash=flash_rows, lm_serving=lm,
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, flash_bwd_times_f32=bwd_f32,
+                  tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, serving=serve,
                   wall_s=time.perf_counter() - t_start)

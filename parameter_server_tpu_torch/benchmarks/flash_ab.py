@@ -4,7 +4,7 @@ card, timed in turns: other, this, this, other (with ``--variant``, those
 builds in between).
 
     python3 -m parameter_server_tpu_torch.benchmarks.flash_ab --kernel fwd|bwd --other DIR
-        [--dtype bfloat16|float32] [--reps 20] [--variant MACRO ...]
+        [--dtype bfloat16|float32] [--reps 20] [--shape NAME ...] [--variant MACRO ...]
 
 DIR holds the other ``flash_fwd.cu`` / ``flash_bwd.cu`` and the headers
 they include, for example ``git archive <commit>
@@ -21,10 +21,13 @@ rate of the kernel's own instruction, mma.sync m16n8k8 TF32, alone
 of it.
 
 ``--kernel bwd``: ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the LM training
-shape (B·H 32, S 8192, D 64, bf16, causal; float32: B·H 64, S 2048, the
-LM CLI's default dtype); beside them, once, SDPA's backward and forward
+shape (B·H 32, S 8192, D 64, bf16, causal); float32 (the LM CLI's default
+dtype): at B·H 64 × S 2048 × D 64, at the LM's full width (B·H 32 × S
+8192 × D 64), at the LM CLI's default (B·H 32 × S 256 × D 16) and at D 128
+(B·H 64 × S 2048). Beside them, once a shape, SDPA's backward and forward
 (``torch.nn.functional.scaled_dot_product_attention``, ``is_causal``) and
-``flash_fwd``.
+``flash_fwd``; in float32 also each kernel's products at a third of
+mma.sync's TF32 rate.
 
 ``--kernel fwd``: ``flash_fwd`` at the training shape, at the serving
 prefill (B·H 64, S 2048, D 64, K/V shared by groups of 4) and at D 128 (B·H
@@ -36,9 +39,12 @@ exponential a kept pair, 16 a clock on each of the 132 SMs, at the card's
 top SM clock (``nvidia-smi clocks.max.sm``).
 
 The builds' outputs at each shape are compared with each other (max
-|diff|, bit-identical or not, all finite) and with the plain version.
+|diff|, bit-identical or not, all finite) and each build's with the plain
+version (the backward's as a share of each gradient's largest |plain|).
 A ``FLASH_*_CLOCKS`` variant also prints its consumers' cycles a tile by
-phase. Prints one line a turn and writes ``chiprun_out/flash_ab_<kernel>.json``
+phase. ``--shape`` times a subset of the shapes; a header line and the
+JSON (``shapes_timed``, ``all_shapes``) name the shapes timed. Prints one
+line a turn and writes ``chiprun_out/flash_ab_<kernel>.json``
 (``flash_ab_<kernel>_float32.json`` with ``--dtype float32``).
 Needs a CUDA device.
 """
@@ -79,8 +85,12 @@ FWD_SHAPES = {
                 ("decode_lane_prefill", 16, 64, 16, 1), ("D128", 64, 2048, 128, 1),
                 ("S8192", 8, 8192, 64, 1)],
 }
-# bwd shape by dtype: (B·H, S, D)
-BWD_SHAPE = {"bfloat16": (32, 8192, 64), "float32": (64, 2048, 64)}
+# bwd shapes by dtype: (name, B·H, S, D)
+BWD_SHAPES = {
+    "bfloat16": [("training", 32, 8192, 64)],
+    "float32": [("S2048", 64, 2048, 64), ("S8192", 32, 8192, 64), ("cli_default", 32, 256, 16),
+                ("D128", 64, 2048, 128)],
+}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -186,77 +196,126 @@ def timed(name: str, lib, kernel: str, what: str, run, reps: int, t: dict) -> No
         print(f"# {name} {what}: consumer cycles a tile {t[f'{what}_cycles_per_tile']}", flush=True)
 
 
+def bwd_vs_plain(q, k, v, do, lse, c, got: dict, heads: int) -> dict:
+    """Each build's largest |diff| from the plain backward (causal), as a
+    share of each gradient's largest |plain|; the plain version runs
+    ``heads`` query heads at a time."""
+    worst = {build: dict(dq=0.0, dk=0.0, dv=0.0) for build in got}
+    scale = dict(dq=0.0, dk=0.0, dv=0.0)
+    diff = {build: dict(dq=0.0, dk=0.0, dv=0.0) for build in got}
+    for h in range(0, q.shape[0], heads):
+        sl = slice(h, h + heads)
+        with torch.no_grad():
+            want = fa.flash_attention_bwd_ref(q[sl], k[sl], v[sl], do[sl], lse[sl], c[sl], causal=True)
+        for name, w in zip(("dq", "dk", "dv"), want):
+            scale[name] = max(scale[name], float(w.float().abs().max()))
+        for build, grads in got.items():
+            for name, x, w in zip(("dq", "dk", "dv"), grads, want):
+                diff[build][name] = max(diff[build][name], float((x[sl].float() - w.float()).abs().max()))
+    for build in got:
+        for name in worst[build]:
+            worst[build][name] = diff[build][name] / max(scale[name], 1e-30)
+    return dict(max_abs=diff, share_of_scale=worst, scale=scale)
+
+
 def run_bwd(args, libs, smi: str) -> dict:
-    bh, s, d = BWD_SHAPE[args.dtype]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(DTYPES[args.dtype])
-                   for _ in range(4))
-    out, lse = fa.launch_kernel(q, k, v, causal=True)
-    c = (do.float() * out.float()).sum(-1)
-    dims = fa._dims(q, k, 0, 0, True, None, 1)
     stream = torch.cuda.current_stream().cuda_stream
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    clock_hz = max_sm_clock_hz()
+    mma_rate = None
+    if args.dtype == "float32":  # the products' floor at the rate mma.sync reaches
+        mma_rate = tf32_mma_tflop_per_s(kernels.library("flash_fwd"), args.reps)
+        print(f"# mma.sync m16n8k8 TF32: {mma_rate:.1f} TFLOP/s on this card (3xTF32: "
+              f"{mma_rate / 3:.1f} TFLOP/s of f32 products) [{smi}]", flush=True)
+    shapes, runs = {}, {}
+    for name, bh, s, d in BWD_SHAPES[args.dtype]:
+        if args.shape and name not in args.shape:
+            continue
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(DTYPES[args.dtype])
+                       for _ in range(4))
+        out, lse = fa.launch_kernel(q, k, v, causal=True)
+        c = (do.float() * out.float()).sum(-1)
+        del out
+        dims = fa._dims(q, k, 0, 0, True, None, 1)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
 
-    def run_dq(lib):
-        kernels.check(lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                              lse.data_ptr(), c.data_ptr(), dq.data_ptr(), *dims,
-                                              stream), "flash_bwd_dq")
+        def run_dq(lib, q=q, k=k, v=v, do=do, lse=lse, c=c, dq=dq, dims=dims):
+            kernels.check(lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                  do.data_ptr(), lse.data_ptr(), c.data_ptr(),
+                                                  dq.data_ptr(), *dims, stream), "flash_bwd_dq")
 
-    def run_dkv(lib):
-        kernels.check(lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                               do.data_ptr(), lse.data_ptr(), c.data_ptr(),
-                                               dk.data_ptr(), dv.data_ptr(), *dims, stream),
-                      "flash_bwd_dkv")
+        def run_dkv(lib, q=q, k=k, v=v, do=do, lse=lse, c=c, dk=dk, dv=dv, dims=dims):
+            kernels.check(lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                   do.data_ptr(), lse.data_ptr(), c.data_ptr(),
+                                                   dk.data_ptr(), dv.data_ptr(), *dims, stream),
+                          "flash_bwd_dkv")
 
-    grads = {}
-    for name in ("other", "this"):
-        run_dq(libs[name])
-        run_dkv(libs[name])
-        torch.cuda.synchronize()
-        grads[name] = [t.clone() for t in (dq, dk, dv)]
-    finite = all(bool(torch.isfinite(t.float()).all()) for g in grads.values() for t in g)
-    apart = {n: float((x.float() - y.float()).abs().max())
-             for n, x, y in zip(("dq", "dk", "dv"), grads["this"], grads["other"])}
-    identical = bit_identical(grads["this"], grads["other"])
-
-    pairs = kept_pairs(s) * bh
-    elt = q.element_size()
-    inputs = 4 * bh * s * d * elt + 2 * bh * s * 4  # q, k, v, do; lse, c
-    flop = {"dq": 6 * d * pairs, "dkv": 8 * d * pairs}  # S, dP, dQ; S, dP, dV, dK
-    nbytes = {"dq": inputs + bh * s * d * elt, "dkv": inputs + 2 * bh * s * d * elt}
-    mufu = pairs / (EXP_PER_CLOCK * max_sm_clock_hz()) * 1e3  # P recomputed in each kernel
-    bound = {kname: bound_ms(flop[kname], nbytes[kname], args.dtype, mufu) for kname in flop}
+        grads = {}
+        for build in libs:
+            run_dq(libs[build])
+            run_dkv(libs[build])
+            torch.cuda.synchronize()
+            grads[build] = [t.clone() for t in (dq, dk, dv)]
+        finite = all(bool(torch.isfinite(t.float()).all()) for b in ("other", "this") for t in grads[b])
+        apart = {n: float((x.float() - y.float()).abs().max())
+                 for n, x, y in zip(("dq", "dk", "dv"), grads["this"], grads["other"])}
+        identical = bit_identical(grads["this"], grads["other"])
+        vs_plain = bwd_vs_plain(q, k, v, do, lse, c, grads, max(1, (1 << 29) // (s * s)))
+        del grads
+        pairs = kept_pairs(s) * bh
+        elt = q.element_size()
+        inputs = 4 * bh * s * d * elt + 2 * bh * s * 4  # q, k, v, do; lse, c
+        flop = {"dq": 6 * d * pairs, "dkv": 8 * d * pairs}  # S, dP, dQ; S, dP, dV, dK
+        nbytes = {"dq": inputs + bh * s * d * elt, "dkv": inputs + 2 * bh * s * d * elt}
+        mufu = pairs / (EXP_PER_CLOCK * clock_hz) * 1e3  # P recomputed in each kernel
+        sh = dict(bh=bh, s=s, d=d, pairs=pairs, flop=flop, bytes=nbytes, mufu_floor_ms=mufu,
+                  bound_ms={kname: bound_ms(flop[kname], nbytes[kname], args.dtype, mufu)
+                            for kname in flop},
+                  builds_max_abs_apart=apart, builds_bit_identical=identical, all_finite=finite,
+                  vs_plain=vs_plain)
+        if mma_rate is not None:
+            sh["mma_sync_floor_ms"] = {kname: 3 * f / (mma_rate * 1e12) * 1e3 for kname, f in flop.items()}
+        qs, ks, vs = (t[None].detach().requires_grad_() for t in (q, k, v))
+        with torch.no_grad():
+            sh["sdpa_fwd_ms"] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), args.reps)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sh["sdpa_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do[None], retain_graph=True), args.reps)
+        del sdpa_out, qs, ks, vs
+        sh["flash_fwd_ms"] = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True), args.reps)
+        shapes[name] = sh
+        runs[name] = (run_dq, run_dkv)
     turns = []
-    for name in turn_order(args.variant):
-        t = {"build": name}
-        for kname, run in (("dq", run_dq), ("dkv", run_dkv)):
-            timed(name, libs[name], "bwd", kname, run, args.reps, t)
-        for kname in ("dq", "dkv"):
-            t[f"{kname}_tflop_per_s"] = flop[kname] / t[f"{kname}_ms"] / 1e9
-            t[f"{kname}_share_of_bound"] = bound[kname] / t[f"{kname}_ms"]
-        t["pair_ms"] = t["dq_ms"] + t["dkv_ms"]
+    for build in turn_order(args.variant):
+        t = {"build": build}
+        for name, (run_dq, run_dkv) in runs.items():
+            sh = shapes[name]
+            for kname, run in (("dq", run_dq), ("dkv", run_dkv)):
+                what = f"{name}_{kname}"
+                timed(build, libs[build], "bwd", what, run, args.reps, t)
+                t[f"{what}_tflop_per_s"] = sh["flop"][kname] / t[f"{what}_ms"] / 1e9
+                t[f"{what}_share_of_bound"] = sh["bound_ms"][kname] / t[f"{what}_ms"]
+            t[f"{name}_pair_ms"] = t[f"{name}_dq_ms"] + t[f"{name}_dkv_ms"]
         turns.append(t)
-        print(f"# turn {len(turns)} ({name}): flash_bwd_dq {t['dq_ms']:.4f} ms "
-              f"({t['dq_tflop_per_s']:.1f} TFLOP/s, {t['dq_share_of_bound']:.3f} of its bound), "
-              f"flash_bwd_dkv {t['dkv_ms']:.4f} ms ({t['dkv_tflop_per_s']:.1f} TFLOP/s, "
-              f"{t['dkv_share_of_bound']:.3f} of its bound), pair {t['pair_ms']:.4f} ms [{smi}]",
-              flush=True)
-
-    qs, ks, vs = (t[None].detach().requires_grad_() for t in (q, k, v))
-    sdpa_fwd_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs.detach(), ks.detach(), vs.detach(), is_causal=True), args.reps)
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do[None],
-                                                        retain_graph=True), args.reps)
-    del sdpa_out
-    fwd_ms = median_ms(lambda: fa.launch_kernel(q, k, v, causal=True), args.reps)
-    print(f"# bounds: dq {bound['dq']:.4f} ms, dkv {bound['dkv']:.4f} ms; SDPA backward "
-          f"{sdpa_bwd_ms:.4f} ms, SDPA forward {sdpa_fwd_ms:.4f} ms, flash_fwd {fwd_ms:.4f} ms; this vs "
-          f"other build max |diff| {apart}, bit-identical {identical}, all finite {finite} [{smi}]",
-          flush=True)
-    return dict(bh=bh, s=s, d=d, pairs=pairs, dq_bound_ms=bound["dq"], dkv_bound_ms=bound["dkv"],
-                turns=turns, sdpa_bwd_ms=sdpa_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, flash_fwd_ms=fwd_ms,
-                builds_max_abs_apart=apart, builds_bit_identical=identical, all_finite=finite)
+        print(f"# turn {len(turns)} ({build}): " + ", ".join(
+            f"{name} dq {t[f'{name}_dq_ms']:.4f} ms ({t[f'{name}_dq_tflop_per_s']:.1f} TFLOP/s, "
+            f"{t[f'{name}_dq_share_of_bound']:.3f} of its bound), dkv {t[f'{name}_dkv_ms']:.4f} ms "
+            f"({t[f'{name}_dkv_tflop_per_s']:.1f} TFLOP/s, {t[f'{name}_dkv_share_of_bound']:.3f}), "
+            f"pair {t[f'{name}_pair_ms']:.4f} ms" for name in runs) + f" [{smi}]", flush=True)
+    for name, sh in shapes.items():
+        floor = sh.get("mma_sync_floor_ms")
+        print(f"# {name} (B*H {sh['bh']}, S {sh['s']}, D {sh['d']}, {args.dtype}, causal): bounds dq "
+              f"{sh['bound_ms']['dq']:.4f} ms, dkv {sh['bound_ms']['dkv']:.4f} ms; "
+              + (f"3xTF32 at mma.sync's rate dq {floor['dq']:.4f} ms, dkv {floor['dkv']:.4f} ms; "
+                 if floor else "")
+              + f"MUFU floor {sh['mufu_floor_ms']:.4f} ms at {clock_hz / 1e6:.0f} MHz; SDPA backward "
+              f"{sh['sdpa_bwd_ms']:.4f} ms, SDPA forward {sh['sdpa_fwd_ms']:.4f} ms, flash_fwd "
+              f"{sh['flash_fwd_ms']:.4f} ms; this vs other build max |diff| {sh['builds_max_abs_apart']}, "
+              f"bit-identical {sh['builds_bit_identical']}, all finite {sh['all_finite']}; largest "
+              f"|diff| from the plain version as a share of the gradient's scale by build "
+              f"{sh['vs_plain']['share_of_scale']} [{smi}]", flush=True)
+    return dict(shapes=shapes, turns=turns, max_sm_clock_hz=clock_hz, tf32_mma_sync_tflop_per_s=mma_rate)
 
 
 def run_fwd(args, libs, smi: str) -> dict:
@@ -266,6 +325,8 @@ def run_fwd(args, libs, smi: str) -> dict:
     dtype = DTYPES[args.dtype]
     shapes, runs = {}, {}
     for name, bh, s, d, group in FWD_SHAPES[args.dtype]:
+        if args.shape and name not in args.shape:
+            continue
         q = torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
         k, v = (torch.randn(bh // group, s, d, device="cuda", generator=gen).to(dtype)
                 for _ in range(2))
@@ -340,32 +401,42 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="bfloat16")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shape", action="append", default=[], metavar="NAME",
+                    help="time only these shapes (FWD_SHAPES / BWD_SHAPES names; default all; the JSON "
+                         "names the shapes timed and whether they were all)")
     ap.add_argument("--variant", action="append", default=[], metavar="MACRO",
                     help="also time this checkout built with -DMACRO (A+B: both; timing "
                          "diagnostics such as FLASH_BWD_NO_LOAD, FLASH_BWD_NO_MATH, "
                          "FLASH_BWD_CLOCKS, FLASH_FWD_CLOCKS, FLASH_FWD_NO_SOFTMAX, "
-                         "FLASH_FWD_NO_PV, FLASH_FWD_NO_LOAD, FLASH_FWD_F32_ONE_PASS; their "
-                         "results are not checked)")
+                         "FLASH_FWD_NO_PV, FLASH_FWD_NO_LOAD, FLASH_FWD_F32_ONE_PASS, "
+                         "FLASH_BWD_F32_ONE_PASS, FLASH_BWD_F32_SUM_IN_MMA; their results "
+                         "are not checked)")
     args = ap.parse_args(argv)
+    names = [sh[0] for sh in (FWD_SHAPES if args.kernel == "fwd" else BWD_SHAPES)[args.dtype]]
+    unknown = sorted(set(args.shape) - set(names))
+    if unknown:
+        ap.error(f"--shape {unknown}: the {args.kernel} {args.dtype} shapes are {names}")
+    shapes_timed = [n for n in names if not args.shape or n in args.shape]
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
         return 1
     smi = nvidia_smi()
     print(smi, flush=True)
+    print(f"# shapes timed: {shapes_timed} of {names}"
+          + (" (a subset: --shape)" if shapes_timed != names else ""), flush=True)
     lib_name = f"flash_{args.kernel}"
     libs = {"other": build_other(lib_name, args.other.resolve()), "this": kernels.library(lib_name)}
     for macro in args.variant:
         libs[macro] = kernels.variant(lib_name, *macro.split("+"))
     record = (run_fwd if args.kernel == "fwd" else run_bwd)(args, libs, smi)
     record = dict(nvidia_smi=smi, device=torch.cuda.get_device_name(0), kernel=args.kernel,
-                  dtype=args.dtype, causal=True, reps=args.reps, **record)
+                  dtype=args.dtype, causal=True, reps=args.reps, shapes_timed=shapes_timed,
+                  all_shapes=shapes_timed == names, **record)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     tag = "" if args.dtype == "bfloat16" else f"_{args.dtype}"
     with open(os.path.join(ROOT, "chiprun_out", f"flash_ab_{args.kernel}{tag}.json"), "w") as f:
         json.dump(record, f, indent=1)
-    finite = record["all_finite"] if args.kernel == "bwd" else \
-        all(sh["all_finite"] for sh in record["shapes"].values())
-    return 0 if finite else 1
+    return 0 if all(sh["all_finite"] for sh in record["shapes"].values()) else 1
 
 
 if __name__ == "__main__":

@@ -13,15 +13,20 @@ tokens for the matrix products, plus 12 x layers x batch x heads x pairs x
 head dim for causal attention (pairs = S^2 / 2); MFU is that over the
 step time and the H100's dense bf16 peak (989 TFLOP/s).
 
-    python3 -m parameter_server_tpu_torch.benchmarks.lm_train
+    python3 -m parameter_server_tpu_torch.benchmarks.lm_train [--dtype bfloat16|float32]
 
 times one warm-up launch and three timed launches on the card (host
 clock to a synchronize, median launch) and prints tokens/s, step ms and
-MFU beside the card's name and power limit. Needs a CUDA device.
+MFU beside the card's name and power limit. ``--dtype float32`` trains
+the same model with float32 activations (the LM CLI's default dtype: the
+flash kernels' float32 route); MFU stays over the bf16 peak. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -90,17 +95,22 @@ def summarize(secs, spl: int = SPL, batch: int = BATCH, seq: int = SEQ,
                 launch_s=list(secs), launch_spread=(max(secs) - min(secs)) / float(np.median(secs)))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="activations' dtype")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("lm_train: no CUDA device", file=sys.stderr)
         return 1
     smi = nvidia_smi_line()
-    params = init_lm(0, TRAIN_CFG, "cuda")
-    _, losses, secs = timed_launches(params, make_tokens(device="cuda"))
-    r = summarize(secs)
-    print(f"# LM training, d_model 512, 8 layers, seq {SEQ}, batch {BATCH}, bf16, remat, "
-          f"ring_flash, SGD: {r['tokens_per_s']:.0f} tokens/s, {r['step_ms']:.1f} ms a step, MFU "
-          f"{r['mfu']:.4f}, last loss {float(losses[-1]):.4f} [{smi}]")
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype=args.dtype)
+    params = init_lm(0, cfg, "cuda")
+    _, losses, secs = timed_launches(params, make_tokens(device="cuda"), cfg=cfg)
+    r = summarize(secs, cfg=cfg)
+    print(f"# LM training, d_model 512, 8 layers, seq {SEQ}, batch {BATCH}, {args.dtype}, remat, "
+          f"ring_flash, SGD, {SPL} steps a launch: {r['tokens_per_s']:.0f} tokens/s, "
+          f"{r['step_ms']:.1f} ms a step (launches {r['launch_s']} s), MFU {r['mfu']:.4f}, last loss {float(losses[-1]):.4f} [{smi}]")
     return 0
 
 

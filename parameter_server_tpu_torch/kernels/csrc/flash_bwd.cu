@@ -65,9 +65,29 @@
 // between the two gradients (it needs dQ summed across blocks). At D 128,
 // flash_bwd_dkv spills (its dK and dV take 128 registers a thread).
 //
-// f32 inputs take two kernels on the CUDA cores (scalar FMA; the tensor
-// cores would round the operands to TF32): 4 threads a row, each scoring
-// 16 of a tile's 64 columns and owning D/4 gradient columns.
+// f32 inputs take two other kernels, flash_bwd_dq_f32 and
+// flash_bwd_dkv_f32, on the tensor cores in 3xTF32 (mma.sync m16n8k8, as
+// flash_fwd_f32): each operand x is split as hi = tf32(x), lo = tf32(x -
+// hi) by integer ops and each product summed as lo.hi + hi.lo + hi.hi in
+// f32, within ~2^-22 of the f32 product (one TF32 pass misses the 1e-5
+// tolerance ~30-100 times over: tests/test_torch_flash_bwd_tf32_split.py).
+// Bound on the card: operations. dq makes three products and dkv four, of
+// 2 D FLOP a kept pair each, three passes each; at B*H 64 x S 2048 x D 64
+// causal that is 0.3125 and 0.4167 ms at the 495 TFLOP/s TF32 rate, but
+// mma.sync alone issues TF32 at ~310 TFLOP/s on an H100 (700 W), so 0.50
+// and 0.67 ms; bytes and exponentials take under 0.05 ms each. The design
+// keeps the products fed: a block is up to four warps of 16 MT own rows
+// (dq: query rows, the last first; dkv: keys, the first first), its own
+// rows in shared memory (dq: Q and dO; dkv: K and V), the other side's
+// tiles (dq: K, V; dkv: Q, dO, lse, c) double-buffered by cp.async; P and
+// dS (P^T, dS^T) stay in registers and are the A operands of the gradient
+// products as their accumulators stand (the k index permuted), so the
+// streamed tiles are read both ways, at a row stride of 4 mod 16 that
+// serves both without bank conflicts; dQ, dK and dV take each k-step's
+// products by a float add (the tensor cores' own f32 sums truncate, and a
+// gradient sums thousands of k-steps). The mask test runs once a score on
+// tiles that cross an edge; whole tiles and a warp's 8-row blocks outside
+// the band are skipped; exponentials on the MUFU unit.
 //
 // Built with -DFLASH_BWD_RACE_PROBE (a diagnostic build, never the one the
 // port runs), shared tiles are NaN before each load (a ring slot after its
@@ -84,6 +104,9 @@
 #endif
 #ifdef FLASH_BWD_CLOCKS
 #define FLASH_RING_CLOCKS
+#endif
+#ifdef FLASH_BWD_F32_ONE_PASS
+#define FLASH_F32_ONE_PASS
 #endif
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -130,7 +153,11 @@ struct TmaArgs {
 // Timing diagnostics (builds whose gradients are wrong, for
 // benchmarks/flash_ab.py --variant): FLASH_BWD_NO_LOAD arrives on the
 // ring's barriers without loading (the consumers compute on stale tiles),
-// FLASH_BWD_NO_MATH has the consumers wait and release without computing.
+// FLASH_BWD_NO_MATH has the consumers wait and release without computing,
+// FLASH_BWD_F32_ONE_PASS runs the f32 products in one TF32 pass.
+// FLASH_BWD_F32_SUM_IN_MMA sums the f32 gradients inside the products
+// (for benchmarks/flash_ab.py to show the drift that the float adds
+// avoid).
 #ifdef FLASH_BWD_NO_MATH
 constexpr bool kMath = false;
 #else
@@ -488,199 +515,584 @@ __global__ void __launch_bounds__(DkvLayout<D>::kThreads, 1) flash_bwd_dkv_bf16(
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores, 4 threads a row
+// f32: 3xTF32 on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
+// Row stride of every f32 tile in shared memory, in floats: 4 mod 16, so
+// that both ways a tile is read are free of bank conflicts: as the B
+// fragment of a product over D (row g, words t and t + 4: g stride + t
+// takes 32 distinct banks) and as the B fragment of a product over the
+// tile's rows with the permuted k index (rows 2t and 2t + 1, word g: 2t
+// stride + g does too).
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile) * 4;
+__host__ __device__ constexpr int f32_stride() {
+  return D + 4;
+}
+// Rows of a streamed tile (dq: keys, dkv: queries): 16 at D 128 (shared
+// memory for two blocks an SM), else as many as keep S and dP (S^T and
+// dP^T) at 32 registers a thread: 32 with two m-tiles a warp or D 64, 64
+// otherwise.
+template <int D, int MT>
+__host__ __device__ constexpr int f32_rows() {
+  return D >= 128 ? 16 : (MT == 2 || D >= 64) ? 32 : 64;
+}
+// m-tiles a warp at most: two at D <= 64 in dq (each K/V fragment, loaded
+// and split once, feeds both), at D <= 32 in dkv (whose dK and dV take 2 D
+// registers a thread an m-tile)
+constexpr int dq_max_mt(int d) { return d <= 64 ? 2 : 1; }
+constexpr int dkv_max_mt(int d) { return d <= 32 ? 2 : 1; }
+// blocks an SM the compiler must leave registers for: two (255 a thread)
+// where the gradients and scores take 128 or more, else three (168)
+template <int D, int MT, bool kDkv>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return (kDkv ? MT * D : MT * D / 2) + MT * f32_rows<D, MT>() >= 128 ? 2 : 3;
+}
+// Shared memory of a block, in floats: its own rows (two matrices of 16
+// MT rows a warp, of at most kF32Warps warps), then two stages of streamed
+// tiles (two matrices of f32_rows rows; dkv also the rows' lse and c).
+template <int D, int MT>
+__host__ __device__ constexpr int f32_own_floats() {
+  return 16 * MT * kF32Warps * f32_stride<D>();
+}
+template <int D, int MT, bool kDkv>
+__host__ __device__ constexpr int f32_stage_floats() {
+  return f32_rows<D, MT>() * (2 * f32_stride<D>() + (kDkv ? 2 : 0));
+}
+template <int D, int MT, bool kDkv>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (2 * f32_own_floats<D, MT>() + 2 * f32_stage_floats<D, MT, kDkv>()) * 4;
 }
 
-// One block: 64 query rows. Thread c of row r scores keys c, c+4, ... of
-// each tile and owns dQ columns c, c+4, ...
-template <int D>
-__global__ void __launch_bounds__(256) flash_bwd_dq_f32(Args a) {
-  extern __shared__ float fsmem[];
-  constexpr int kS = D + 1, kP = kTile + 1;  // padded row strides
-  constexpr int kCols = D / 4;
-  float* qs = fsmem;             // [64][D+1]
-  float* dos = qs + kTile * kS;  // [64][D+1]
-  float* ks = dos + kTile * kS;  // [64][D+1]
-  float* vs = ks + kTile * kS;   // [64][D+1]
-  float* dss = vs + kTile * kS;  // [64][65]
+// The backward's splits leave lo as it is (tf32_split<false>): as right
+// to the tolerance as a rounded lo on the card, and 6% faster (PERF.md).
+__device__ __forceinline__ Tf32Pair split(float x) { return tf32_split<false>(x); }
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const size_t q_row = static_cast<size_t>(bh) * a.sq;
-  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
-  const float* k = static_cast<const float*>(a.k) + kv_row;
-  const float* v = static_cast<const float*>(a.v) + kv_row;
-  const bool in = q0 + r < a.sq;
-  const int qp = a.q_off + q0 + r;
-  const float lse = in ? a.lse[q_row + q0 + r] : 0.f, cr = in ? a.c[q_row + q0 + r] : 0.f;
-
-  PROBE_POISON(qs, 2 * kTile * kS);
-  stage2_f32<D>(qs, kS, dos, kS, static_cast<const float*>(a.q) + q_row * D,
-                static_cast<const float*>(a.dout) + q_row * D, q0, a.sq);
-  PROBE_SKEW(0, -1);
-  float acc[kCols];
+// acc += a.b in 3xTF32, the products summed on their own and added to acc
+// by a float add: the tensor cores' f32 sums truncate, and a gradient sums
+// thousands of k-steps. FLASH_BWD_F32_SUM_IN_MMA (a diagnostic build)
+// sums inside the products instead.
+__device__ __forceinline__ void add_3xtf32(float (&acc)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], Tf32Pair b0, Tf32Pair b1) {
+#ifdef FLASH_BWD_F32_SUM_IN_MMA
+  mma_3xtf32(acc, ah, al, b0, b1);
+#else
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(c, ah, al, b0, b1);
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+#endif
+}
 
-  const int n_tiles = (a.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;
-    __syncthreads();
-    PROBE_POISON(ks, 2 * kTile * kS);
-    PROBE_POISON(dss, kTile * kP);
+// The A fragment of rows r..r+15 of a tile of stride S, k-step kk, with
+// the k index as it stands (a0, a1: column 8 kk + t of rows r, r + 8; a2,
+// a3: column 8 kk + t + 4), split
+template <int S>
+__device__ __forceinline__ void a_rows(const float* tile, int r, int kk, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* p = tile + (r + g) * S + 8 * kk + t;
+  const float x[4] = {p[0], p[8 * S], p[4], p[8 * S + 4]};
+  tf32_split4<false>(x, hi, lo);
+}
+
+// The A fragment of k-step kk of a 16 x 8 NB accumulator (P, dS, P^T,
+// dS^T), split, with the k index permuted: slot t is column 8 kk + 2t
+// (x[kk][0], row g; x[kk][2], row g + 8), slot t + 4 column 2t + 1
+// (x[kk][1], x[kk][3]). Its B operand is read with the same permutation.
+template <int NB>
+__device__ __forceinline__ void a_acc(const float (&x)[NB][4], int kk, uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  const float f[4] = {x[kk][0], x[kk][2], x[kk][1], x[kk][3]};
+  tf32_split4<false>(f, hi, lo);
+}
+
+// P and dS from S and dP in a thread's fragments (rows g, g + 8 of its
+// m-tile; columns col0 + 8 nb + e % 2), in place: P = 2^(S scale log2e -
+// lse log2e), zero where not kept (kMasked), on the MUFU unit; dS = P (dP
+// scale - c scale). lse2(nb, e), cs(nb, e): the element's lse log2e and c
+// scale (dq: its row's; dkv: its column's).
+template <int NB, bool kMasked, class Lse, class C>
+__device__ __forceinline__ void p_and_ds(float (&s)[NB][4], float (&dp)[NB][4],
+                                         const int2 (&range)[2], int col0, float scale_log2,
+                                         float scale, Lse lse2, C cs) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx(fmaf(s[nb][e], scale_log2, -lse2(nb, e)));
+      s[nb][e] = kept<kMasked>(range, col0, nb, e) ? p : 0.f;
+      dp[nb][e] = s[nb][e] * fmaf(dp[nb][e], scale, -cs(nb, e));
+    }
+  }
+}
+
+// One block: blockDim.x / 32 warps of 16 MT query rows of query row bh
+// (the last rows first); its Q and dO rows in shared memory, copied with
+// the first live K/V tile, and the live K/V tiles of KT keys
+// double-buffered by cp.async (tile kt + 1 copied while tile kt is
+// computed). Each warp computes S = Q.K^T and dP = dO.V^T of its rows,
+// then P and dS in registers, then dQ += dS.K, all with mma.sync m16n8k8
+// in 3xTF32; each K/V fragment, loaded and split once, feeds all MT
+// m-tiles. dS.K takes dS's accumulator as its A fragment as it stands
+// (a_acc), so K is read both ways (f32_stride).
+template <int D, int MT>
+__global__ void __launch_bounds__(128, f32_min_blocks<D, MT, false>()) flash_bwd_dq_f32(Args a) {
+  constexpr int KT = f32_rows<D, MT>(), S = f32_stride<D>();
+  constexpr int NB = KT / 8;  // 8-key blocks of S and dP, k-steps of dS.K
+  constexpr int DK = D / 8;   // k-steps of S and dP, 8-column blocks of dQ
+  constexpr int kOwn = f32_own_floats<D, MT>(), kStage = f32_stage_floats<D, MT, false>();
+  extern __shared__ __align__(16) float smem_f32[];
+
+  const int bm = 16 * MT * (blockDim.x >> 5);  // query rows of the block
+  const int n_own = (a.sq + bm - 1) / bm;
+  int bh, rank;
+  block_tile(n_own, bh, rank);
+  const int q0 = (n_own - 1 - rank) * bm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 16 * MT * warp;  // the warp's first row; m-tile m's row g: w0 + 16 m + g
+
+  // the key tiles live for the block's rows, [t_lo, t_hi] (whole tiles out
+  // of the causal or window band skipped: all their P are 0)
+  const int n_tiles = (a.sk + KT - 1) / KT;
+  int t_lo = 0, t_hi = n_tiles - 1;
+  if (a.causal) {
+    t_hi = min(t_hi, floor_div<KT>(a.q_off + min(q0 + bm, a.sq) - 1 - a.k_off));
+    if (a.window > 0) t_lo = max(0, floor_div<KT>(a.q_off + q0 - a.window + 1 - a.k_off));
+  }
+  // the keys some row of the warp keeps, [kx, ky], and those all rows of
+  // m-tile m keep, [fx[m], fy[m]]
+  const bool w_live = w0 < a.sq;
+  int kx = 0, ky = a.sk - 1, fx[MT], fy[MT];
+  if (a.causal) {
+    ky = min(ky, a.q_off + min(w0 + 16 * MT - 1, a.sq - 1) - a.k_off);
+    if (a.window > 0) kx = a.q_off + w0 - a.window + 1 - a.k_off;
+  }
+  const size_t q_row = static_cast<size_t>(bh) * a.sq;
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  int2 range[MT][2];
+  float lse2[MT][2], cs[MT][2];  // lse log2e and c scale of rows g and g + 8
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int m0 = w0 + 16 * m, ml = min(m0 + 15, a.sq - 1);
+    fx[m] = 0;
+    fy[m] = a.sk - 1;
+    if (a.causal) {
+      fy[m] = min(fy[m], a.q_off + m0 - a.k_off);
+      if (a.window > 0) fx[m] = a.q_off + ml - a.window + 1 - a.k_off;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      range[m][h] = keys_kept(a, r);
+      lse2[m][h] = r < a.sq ? a.lse[q_row + r] * kLog2e : 0.f;
+      cs[m][h] = r < a.sq ? a.c[q_row + r] * scale : 0.f;
+    }
+  }
+
+  const float* qg = static_cast<const float*>(a.q) + q_row * D;
+  const float* dog = static_cast<const float*>(a.dout) + q_row * D;
+  const size_t kv_row = static_cast<size_t>(bh / a.group) * a.sk * D;
+  const float* kg = static_cast<const float*>(a.k) + kv_row;
+  const float* vg = static_cast<const float*>(a.v) + kv_row;
+  float* qs = smem_f32;  // the block's Q rows, then its dO rows
+  float* dos = qs + kOwn;
+  float* stages = dos + kOwn;
+  // K/V tile kt into stage `buf` (rows past Sk zero-filled), 16 bytes a
+  // copy; one commit group
+  auto load = [&](int kt, int buf) {
+    float* ks = stages + buf * kStage;
+    float* vs = ks + KT * S;
+    const int k0 = kt * KT;
+    for (int i = threadIdx.x; i < KT * (D / 4); i += blockDim.x) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      const bool ok = k0 + row < a.sk;
+      const size_t off = ok ? static_cast<size_t>(k0 + row) * D + col : 0;
+      cp_async16(ks + row * S + col, kg + off, ok);
+      cp_async16(vs + row * S + col, vg + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][DK][4];  // dQ: rows g (0, 1) and g + 8 (2, 3), columns 8 nb + 2t + e % 2
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nb][e] = 0.f;
+
+  if (t_lo <= t_hi) {  // the block's Q and dO rows (past Sq zero-filled) and tile t_lo
+    PROBE_POISON(smem_f32, 2 * kOwn + kStage);
+    for (int i = threadIdx.x; i < bm * (D / 4); i += blockDim.x) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      const bool ok = q0 + row < a.sq;
+      const size_t off = ok ? static_cast<size_t>(q0 + row) * D + col : 0;
+      cp_async16(qs + row * S + col, qg + off, ok);
+      cp_async16(dos + row * S + col, dog + off, ok);
+    }
+    load(t_lo, 0);
+  }
+  for (int kt = t_lo; kt <= t_hi; ++kt) {
+    const int buf = (kt - t_lo) & 1;
     PROBE_SKEW(1, kt);
-    stage2_f32<D>(ks, kS, vs, kS, k, v, k0, a.sk);
+    cp_async_wait_all();
+    // tile kt is in place for every warp, and every warp is done with
+    // tile kt - 1, whose stage the next copy overwrites
     __syncthreads();
     PROBE_SKEW(2, kt);
-
-    float s[16], dp[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r * kS + d], dv = dos[r * kS + d];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        s[i] = fmaf(qv, ks[(c + 4 * i) * kS + d], s[i]);
-        dp[i] = fmaf(dv, vs[(c + 4 * i) * kS + d], dp[i]);
-      }
+    if (kt < t_hi) {
+      PROBE_POISON(stages + (buf ^ 1) * kStage, kStage);
+      load(kt + 1, buf ^ 1);
     }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float p = in && key_valid(a, qp, k0 + c + 4 * i) ? expf(s[i] * a.scale - lse) : 0.f;
-      dss[r * kP + c + 4 * i] = p * (dp[i] - cr) * a.scale;
-    }
-    __syncwarp();  // a row's 4 threads share one warp
     PROBE_SKEW(3, kt);
-    for (int j = 0; j < kTile; ++j) {
-      const float ds = dss[r * kP + j];
+    const int k0 = kt * KT;
+    // the warp's live 8-key blocks of the tile, [lo8, hi8)
+    const int lo8 = max(0, kx - k0) >> 3, hi8 = (max(0, min(KT, ky - k0 + 1)) + 7) >> 3;
+    if (!w_live || lo8 >= hi8) continue;
+    const float* ks = stages + buf * kStage;
+    const float* vs = ks + KT * S;
+
+    // S = Q.K^T and dP = dO.V^T over the D columns
+    float s[MT][NB][4], dp[MT][NB][4];
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) acc[i] = fmaf(ds, ks[j * kS + c + 4 * i], acc[i]);
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][nb][e] = dp[m][nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t qh[MT][4], ql[MT][4], oh[MT][4], ol[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a_rows<S>(qs, w0 - q0 + 16 * m, kk, g, t, qh[m], ql[m]);
+        a_rows<S>(dos, w0 - q0 + 16 * m, kk, g, t, oh[m], ol[m]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < lo8 || nb >= hi8) continue;
+        // B = K^T (V^T): k-slots t, t + 4 are key 8 nb + g's columns 8 kk + t, + 4
+        const float* kr = ks + (8 * nb + g) * S + 8 * kk + t;
+        const float* vr = vs + (8 * nb + g) * S + 8 * kk + t;
+        const Tf32Pair k0p = split(kr[0]), k1p = split(kr[4]);
+        const Tf32Pair v0p = split(vr[0]), v1p = split(vr[4]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_3xtf32(s[m][nb], qh[m], ql[m], k0p, k1p);
+          mma_3xtf32(dp[m][nb], oh[m], ol[m], v0p, v1p);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const auto row_lse = [&](int, int e) { return lse2[m][e >> 1]; };
+      const auto row_c = [&](int, int e) { return cs[m][e >> 1]; };
+      if (fx[m] <= k0 && k0 + KT - 1 <= fy[m]) {
+        p_and_ds<NB, false>(s[m], dp[m], range[m], k0 + 2 * t, scale_log2, scale, row_lse, row_c);
+      } else {
+        p_and_ds<NB, true>(s[m], dp[m], range[m], k0 + 2 * t, scale_log2, scale, row_lse, row_c);
+      }
+    }
+
+    // dQ += dS.K over the tile's keys (dS 0 outside [lo8, hi8))
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      if (kk < lo8 || kk >= hi8) continue;
+      uint32_t dh[MT][4], dl[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) a_acc<NB>(dp[m], kk, dh[m], dl[m]);
+      // B = K: k-slots t, t + 4 are keys 8 kk + 2t, + 1; column 8 nb + g
+      const float* kr = ks + (8 * kk + 2 * t) * S + g;
+#pragma unroll
+      for (int nb = 0; nb < DK; ++nb) {
+        const Tf32Pair b0 = split(kr[8 * nb]), b1 = split(kr[S + 8 * nb]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) add_3xtf32(acc[m][nb], dh[m], dl[m], b0, b1);
+      }
     }
   }
-  if (in) {
-    float* dq = static_cast<float*>(a.dq) + (q_row + q0 + r) * D;
+
+  if (!w_live) return;
+  float* dq = static_cast<float*>(a.dq) + q_row * D;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) dq[c + 4 * i] = acc[i];
+  for (int m = 0; m < MT; ++m) {
+    const int r0 = w0 + 16 * m + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (r0 < a.sq)
+        *reinterpret_cast<float2*>(dq + static_cast<size_t>(r0) * D + col) =
+            make_float2(acc[m][nb][0], acc[m][nb][1]);
+      if (r1 < a.sq)
+        *reinterpret_cast<float2*>(dq + static_cast<size_t>(r1) * D + col) =
+            make_float2(acc[m][nb][2], acc[m][nb][3]);
+    }
   }
 }
 
-// One block: 64 keys. Thread c of key row r scores queries c, c+4, ... of
-// each query tile and owns dK and dV columns c, c+4, ...
-template <int D>
-__global__ void __launch_bounds__(256) flash_bwd_dkv_f32(Args a) {
-  extern __shared__ float fsmem[];
-  constexpr int kS = D + 1, kP = kTile + 1;
-  constexpr int kCols = D / 4;
-  float* ks = fsmem;             // [64][D+1]
-  float* vs = ks + kTile * kS;   // [64][D+1]
-  float* qs = vs + kTile * kS;   // [64][D+1]
-  float* dos = qs + kTile * kS;  // [64][D+1]
-  float* ps = dos + kTile * kS;  // [64][65]
-  float* dss = ps + kTile * kP;  // [64][65]
-  float* lse_s = dss + kTile * kP;
-  float* c_s = lse_s + kTile;
+// One block: blockDim.x / 32 warps of 16 MT keys of K/V row kvh (the first
+// keys first); its K and V rows in shared memory, copied with the first
+// live query tile, and for each of the group's query heads its live tiles
+// of QT queries of Q and dO, with their lse and c, double-buffered by
+// cp.async (one run over the heads' tiles). Each warp computes S^T = K.Q^T
+// and dP^T = V.dO^T of its keys, then P^T and dS^T in registers (lse and
+// c are per column), then dV += P^T.dO and dK += dS^T.Q, all with mma.sync
+// m16n8k8 in 3xTF32; P^T and dS^T are the A fragments of the last two as
+// their accumulators stand (a_acc), so Q and dO are each read both ways
+// (f32_stride).
+template <int D, int MT>
+__global__ void __launch_bounds__(128, f32_min_blocks<D, MT, true>()) flash_bwd_dkv_f32(Args a) {
+  constexpr int QT = f32_rows<D, MT>(), S = f32_stride<D>();
+  constexpr int NB = QT / 8;  // 8-query blocks of S^T and dP^T, k-steps of dV and dK
+  constexpr int DK = D / 8;   // k-steps of S^T and dP^T, 8-column blocks of dK and dV
+  constexpr int kOwn = f32_own_floats<D, MT>(), kStage = f32_stage_floats<D, MT, true>();
+  extern __shared__ __align__(16) float smem_f32[];
 
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
+  const int bn = 16 * MT * (blockDim.x >> 5);  // keys of the block
+  const int n_own = (a.sk + bn - 1) / bn;
+  int kvh, rank;
+  block_tile(n_own, kvh, rank);
+  const int k0 = rank * bn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = k0 + 16 * MT * warp;  // the warp's first key; m-tile m's key g: w0 + 16 m + g
+
+  // the query tiles live for the block's keys, [t_lo, t_hi], the same for
+  // each query head of the group
+  const int n_tiles = (a.sq + QT - 1) / QT;
+  int t_lo = 0, t_hi = n_tiles - 1;
+  if (a.causal) {
+    t_lo = max(0, floor_div<QT>(a.k_off + k0 - a.q_off));
+    if (a.window > 0)
+      t_hi = min(t_hi, floor_div<QT>(a.k_off + min(k0 + bn, a.sk) - 2 + a.window - a.q_off));
+  }
+  const int n_live = max(0, t_hi - t_lo + 1), n_iter = a.group * n_live;
+  // the queries that keep some key of the warp, [qx, qy], and those that
+  // keep every key of m-tile m, [gx[m], gy[m]] (none where it has a key
+  // past Sk)
+  const bool w_live = w0 < a.sk;
+  int qx = 0, qy = a.sq - 1, gx[MT], gy[MT];
+  if (a.causal) {
+    qx = a.k_off + w0 - a.q_off;
+    if (a.window > 0) qy = min(qy, a.k_off + min(w0 + 16 * MT, a.sk) - 2 + a.window - a.q_off);
+  }
+  int2 range[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int m0 = w0 + 16 * m;
+    gx[m] = 0;
+    gy[m] = m0 + 15 < a.sk ? a.sq - 1 : -1;
+    if (a.causal) {
+      gx[m] = a.k_off + m0 + 15 - a.q_off;
+      if (a.window > 0) gy[m] = min(gy[m], a.k_off + m0 + a.window - 1 - a.q_off);
+    }
+    range[m][0] = queries_kept(a, m0 + g);
+    range[m][1] = queries_kept(a, m0 + g + 8);
+  }
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+
   const size_t kv_row = static_cast<size_t>(kvh) * a.sk * D;
-  const int kr = k0 + r;
+  const float* kg = static_cast<const float*>(a.k) + kv_row;
+  const float* vg = static_cast<const float*>(a.v) + kv_row;
+  const float* qg = static_cast<const float*>(a.q);
+  const float* dog = static_cast<const float*>(a.dout);
+  float* ks = smem_f32;  // the block's K rows, then its V rows
+  float* vs = ks + kOwn;
+  float* stages = vs + kOwn;
+  // step i (query head i / n_live of the group, its tile t_lo + i %
+  // n_live) into stage `buf`: the tile's Q and dO rows and their lse and c
+  // (past Sq zero-filled); one commit group
+  auto load = [&](int i, int buf) {
+    float* qs = stages + buf * kStage;
+    float* dos = qs + QT * S;
+    float* stats = dos + QT * S;
+    const size_t q_row = (static_cast<size_t>(kvh) * a.group + i / n_live) * a.sq;
+    const int q0 = (t_lo + i % n_live) * QT;
+    for (int j = threadIdx.x; j < QT * (D / 4); j += blockDim.x) {
+      const int row = j / (D / 4), col = 4 * (j % (D / 4));
+      const bool ok = q0 + row < a.sq;
+      const size_t off = ok ? (q_row + q0 + row) * D + col : 0;
+      cp_async16(qs + row * S + col, qg + off, ok);
+      cp_async16(dos + row * S + col, dog + off, ok);
+    }
+    for (int j = threadIdx.x; j < QT; j += blockDim.x) {
+      const bool ok = q0 + j < a.sq;
+      const size_t off = ok ? q_row + q0 + j : 0;
+      cp_async4(stats + j, a.lse + off, ok);
+      cp_async4(stats + QT + j, a.c + off, ok);
+    }
+    cp_async_commit();
+  };
 
-  PROBE_POISON(ks, 2 * kTile * kS);
-  stage2_f32<D>(ks, kS, vs, kS, static_cast<const float*>(a.k) + kv_row,
-                static_cast<const float*>(a.v) + kv_row, k0, a.sk);
-  PROBE_SKEW(0, -1);
-  float dk[kCols], dv[kCols];
+  float dk[MT][DK][4], dv[MT][DK][4];  // keys g (0, 1) and g + 8 (2, 3), columns 8 nb + 2t + e % 2
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) dk[i] = dv[i] = 0.f;
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[m][nb][e] = dv[m][nb][e] = 0.f;
 
-  const int n_tiles = (a.sq + kTile - 1) / kTile;
-  for (int hg = 0; hg < a.group; ++hg) {
-    const size_t q_row = (static_cast<size_t>(kvh) * a.group + hg) * a.sq;
-    const float* q = static_cast<const float*>(a.q) + q_row * D;
-    const float* dout = static_cast<const float*>(a.dout) + q_row * D;
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      if (!tile_live(a, q0, k0)) continue;
-      __syncthreads();
-      PROBE_POISON(qs, 2 * kTile * kS);
-      PROBE_POISON(ps, 2 * kTile * kP + 2 * kTile);
-      PROBE_SKEW(1, qt);
-      stage2_f32<D>(qs, kS, dos, kS, q, dout, q0, a.sq);
-      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-        const bool in = q0 + i < a.sq;
-        lse_s[i] = in ? a.lse[q_row + q0 + i] : 0.f;
-        c_s[i] = in ? a.c[q_row + q0 + i] : 0.f;
+  if (n_iter > 0) {  // the block's K and V rows (past Sk zero-filled) and step 0
+    PROBE_POISON(smem_f32, 2 * kOwn + kStage);
+    for (int i = threadIdx.x; i < bn * (D / 4); i += blockDim.x) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      const bool ok = k0 + row < a.sk;
+      const size_t off = ok ? static_cast<size_t>(k0 + row) * D + col : 0;
+      cp_async16(ks + row * S + col, kg + off, ok);
+      cp_async16(vs + row * S + col, vg + off, ok);
+    }
+    load(0, 0);
+  }
+  for (int i = 0; i < n_iter; ++i) {
+    const int buf = i & 1;
+    PROBE_SKEW(1, i);
+    cp_async_wait_all();
+    // step i is in place for every warp, and every warp is done with step
+    // i - 1, whose stage the next copy overwrites
+    __syncthreads();
+    PROBE_SKEW(2, i);
+    if (i + 1 < n_iter) {
+      PROBE_POISON(stages + (buf ^ 1) * kStage, kStage);
+      load(i + 1, buf ^ 1);
+    }
+    PROBE_SKEW(3, i);
+    const int q0 = (t_lo + i % n_live) * QT;
+    // the warp's live 8-query blocks of the tile, [lo8, hi8)
+    const int lo8 = max(0, qx - q0) >> 3, hi8 = (max(0, min(QT, qy - q0 + 1)) + 7) >> 3;
+    if (!w_live || lo8 >= hi8) continue;
+    const float* qs = stages + buf * kStage;
+    const float* dos = qs + QT * S;
+    const float* stats = dos + QT * S;
+
+    // S^T = K.Q^T and dP^T = V.dO^T over the D columns
+    float st[MT][NB][4], dpt[MT][NB][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[m][nb][e] = dpt[m][nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t kh[MT][4], kl[MT][4], vh[MT][4], vl[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a_rows<S>(ks, w0 - k0 + 16 * m, kk, g, t, kh[m], kl[m]);
+        a_rows<S>(vs, w0 - k0 + 16 * m, kk, g, t, vh[m], vl[m]);
       }
-      __syncthreads();
-      PROBE_SKEW(2, qt);
-
-      float s[16], dp[16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kv = ks[r * kS + d], vv = vs[r * kS + d];
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < lo8 || nb >= hi8) continue;
+        // B = Q^T (dO^T): k-slots t, t + 4 are query 8 nb + g's columns 8 kk + t, + 4
+        const float* qr = qs + (8 * nb + g) * S + 8 * kk + t;
+        const float* dr = dos + (8 * nb + g) * S + 8 * kk + t;
+        const Tf32Pair q0p = split(qr[0]), q1p = split(qr[4]);
+        const Tf32Pair d0p = split(dr[0]), d1p = split(dr[4]);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          s[i] = fmaf(kv, qs[(c + 4 * i) * kS + d], s[i]);
-          dp[i] = fmaf(vv, dos[(c + 4 * i) * kS + d], dp[i]);
+        for (int m = 0; m < MT; ++m) {
+          mma_3xtf32(st[m][nb], kh[m], kl[m], q0p, q1p);
+          mma_3xtf32(dpt[m][nb], vh[m], vl[m], d0p, d1p);
         }
       }
+    }
+
+    // this thread's columns 8 nb + 2t, + 1 of the tile's lse and c
+    const float2* lse_c = reinterpret_cast<const float2*>(stats) + t;
+    const auto col_lse = [&](int nb, int e) {
+      const float2 x = lse_c[4 * nb];
+      return ((e & 1) ? x.y : x.x) * kLog2e;
+    };
+    const auto col_c = [&](int nb, int e) {
+      const float2 x = lse_c[QT / 2 + 4 * nb];
+      return ((e & 1) ? x.y : x.x) * scale;
+    };
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int qi = c + 4 * i;
-        const bool valid = q0 + qi < a.sq && key_valid(a, a.q_off + q0 + qi, kr);
-        const float p = valid ? expf(s[i] * a.scale - lse_s[qi]) : 0.f;
-        ps[r * kP + qi] = p;
-        dss[r * kP + qi] = p * (dp[i] - c_s[qi]) * a.scale;
+    for (int m = 0; m < MT; ++m) {
+      if (gx[m] <= q0 && q0 + QT - 1 <= gy[m]) {
+        p_and_ds<NB, false>(st[m], dpt[m], range[m], q0 + 2 * t, scale_log2, scale, col_lse, col_c);
+      } else {
+        p_and_ds<NB, true>(st[m], dpt[m], range[m], q0 + 2 * t, scale_log2, scale, col_lse, col_c);
       }
-      __syncwarp();
-      PROBE_SKEW(3, qt);
-      for (int j = 0; j < kTile; ++j) {
-        const float p = ps[r * kP + j], ds = dss[r * kP + j];
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q over the tile's queries (P^T and dS^T 0
+    // outside [lo8, hi8))
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) {
-          dv[i] = fmaf(p, dos[j * kS + c + 4 * i], dv[i]);
-          dk[i] = fmaf(ds, qs[j * kS + c + 4 * i], dk[i]);
+    for (int kk = 0; kk < NB; ++kk) {
+      if (kk < lo8 || kk >= hi8) continue;
+      uint32_t ph[MT][4], pl[MT][4], sh[MT][4], sl[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a_acc<NB>(st[m], kk, ph[m], pl[m]);
+        a_acc<NB>(dpt[m], kk, sh[m], sl[m]);
+      }
+      // B = dO (Q): k-slots t, t + 4 are queries 8 kk + 2t, + 1; column 8 nb + g
+      const float* dr = dos + (8 * kk + 2 * t) * S + g;
+      const float* qr = qs + (8 * kk + 2 * t) * S + g;
+#pragma unroll
+      for (int nb = 0; nb < DK; ++nb) {
+        const Tf32Pair o0 = split(dr[8 * nb]), o1 = split(dr[S + 8 * nb]);
+        const Tf32Pair x0 = split(qr[8 * nb]), x1 = split(qr[S + 8 * nb]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          add_3xtf32(dv[m][nb], ph[m], pl[m], o0, o1);
+          add_3xtf32(dk[m][nb], sh[m], sl[m], x0, x1);
         }
       }
     }
   }
-  if (kr < a.sk) {
-    float* dkp = static_cast<float*>(a.dk) + kv_row + static_cast<size_t>(kr) * D;
-    float* dvp = static_cast<float*>(a.dv) + kv_row + static_cast<size_t>(kr) * D;
+
+  if (!w_live) return;
+  float* dkp = static_cast<float*>(a.dk) + kv_row;
+  float* dvp = static_cast<float*>(a.dv) + kv_row;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      dkp[c + 4 * i] = dk[i];
-      dvp[c + 4 * i] = dv[i];
+  for (int m = 0; m < MT; ++m) {
+    const int r0 = w0 + 16 * m + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nb = 0; nb < DK; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (r0 < a.sk) {
+        *reinterpret_cast<float2*>(dkp + static_cast<size_t>(r0) * D + col) =
+            make_float2(dk[m][nb][0], dk[m][nb][1]);
+        *reinterpret_cast<float2*>(dvp + static_cast<size_t>(r0) * D + col) =
+            make_float2(dv[m][nb][0], dv[m][nb][1]);
+      }
+      if (r1 < a.sk) {
+        *reinterpret_cast<float2*>(dkp + static_cast<size_t>(r1) * D + col) =
+            make_float2(dk[m][nb][2], dk[m][nb][3]);
+        *reinterpret_cast<float2*>(dvp + static_cast<size_t>(r1) * D + col) =
+            make_float2(dv[m][nb][2], dv[m][nb][3]);
+      }
     }
   }
 }
-template <class K>
-cudaError_t launch_one(K kernel, dim3 grid, int threads, int bytes, const Args& a, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, s>>>(a);
-  return cudaGetLastError();
+
+template <auto kKernel, int D, int MT, bool kDkv>
+int launch_f32(const Args& a, int heads, int rows, int nw, cudaStream_t s) {
+  const dim3 grid(heads * ((rows + 16 * MT * nw - 1) / (16 * MT * nw)));
+  constexpr int bytes = f32_smem_bytes<D, MT, kDkv>();
+  cudaError_t err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kKernel<<<grid, 32 * nw, bytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq_f32(const Args& a, int bh, cudaStream_t s) {
-  const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-  return static_cast<int>(launch_one(flash_bwd_dq_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+  const F32Shape sh = f32_shape(bh, a.sq, dq_max_mt(D));
+  if constexpr (dq_max_mt(D) == 2) {
+    if (sh.mt == 2) return launch_f32<flash_bwd_dq_f32<D, 2>, D, 2, false>(a, bh, a.sq, sh.warps, s);
+  }
+  return launch_f32<flash_bwd_dq_f32<D, 1>, D, 1, false>(a, bh, a.sq, sh.warps, s);
 }
 
 template <int D>
 int launch_dkv_f32(const Args& a, int bh, cudaStream_t s) {
-  const dim3 grid((a.sk + kTile - 1) / kTile, bh / a.group);
-  return static_cast<int>(launch_one(flash_bwd_dkv_f32<D>, grid, 256, f32_smem_bytes<D>(), a, s));
+  const int kvn = bh / a.group;
+  const F32Shape sh = f32_shape(kvn, a.sk, dkv_max_mt(D));
+  if constexpr (dkv_max_mt(D) == 2) {
+    if (sh.mt == 2) return launch_f32<flash_bwd_dkv_f32<D, 2>, D, 2, true>(a, kvn, a.sk, sh.warps, s);
+  }
+  return launch_f32<flash_bwd_dkv_f32<D, 1>, D, 1, true>(a, kvn, a.sk, sh.warps, s);
 }
 
 template <int D>

@@ -1,9 +1,10 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu).
 //
-// For the float32 backward kernels on the CUDA cores: the 64 x 64 tile, the JAX
-// package's _block_live tile skip and per-element mask, the staging of
-// float32 tiles, quad reductions.
+// For the float32 kernels on the tensor cores (flash_fwd_f32,
+// flash_bwd_dq_f32, flash_bwd_dkv_f32): the 3xTF32 products on mma.sync
+// m16n8k8 (each operand split into TF32 hi and lo by integer ops), the
+// cp.async copies that stage their tiles, quad reductions.
 //
 // For the bf16 kernels on Hopper's tensor cores (sm_90a, on hopper.cuh):
 // the warp-specialised block that both share. A block owns 64 rows of one
@@ -14,8 +15,8 @@
 // a ring of stages with full / empty mbarriers (produce). Warpgroups 1..kWG
 // consume, 64 own rows each, and release a slot with one arrive a warp. Each computes once the
 // run of streamed tiles live for its rows and the run it can take without
-// the per-element mask (both are runs: tile_live and "no element masked"
-// are monotone along a row of tiles); the mask on the others is a
+// the per-element mask (both are runs: "live" (the JAX package's
+// _block_live) and "no element masked" are monotone along a row of tiles); the mask on the others is a
 // branch-free select over each row's kept range (keys_kept, kept).
 //
 // Race probe: a source that defines FLASH_RACE_PROBE before including this
@@ -39,31 +40,6 @@ namespace flash {
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTile = 64;  // query rows and keys of a float32 tile
-
-// _block_live on a whole 64 x 64 tile: dead when (causal) even its last
-// query row precedes its first key, or (window) even its first query row
-// is past its last key's window
-template <class A>
-__device__ __forceinline__ bool tile_live(const A& a, int q0, int k0) {
-  if (!a.causal) return true;
-  bool live = a.q_off + q0 + kTile - 1 >= a.k_off + k0;
-  if (a.window > 0) live = live && (a.q_off + q0 - (a.k_off + k0 + kTile - 1) < a.window);
-  return live;
-}
-
-// the TPU kernels' per-element mask: the K tail, causality at global
-// positions, the window (q_pos is global, kp indexes the keys)
-template <class A>
-__device__ __forceinline__ bool key_valid(const A& a, int q_pos, int kp) {
-  bool valid = kp < a.sk;
-  if (a.causal) {
-    const int k_pos = a.k_off + kp;
-    valid = valid && k_pos <= q_pos;
-    if (a.window > 0) valid = valid && (q_pos - k_pos < a.window);
-  }
-  return valid;
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -81,19 +57,110 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows r0..r0+63 of two float32 [n, D] matrices into two shared
-// tiles of strides sa and sb (rows padded against bank conflicts), one
-// element a thread and step; rows past n are zeros.
-template <int D>
-__device__ __forceinline__ void stage2_f32(float* ta, int sa, float* tb, int sb, const float* a,
-                                           const float* b, int r0, int n) {
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-    const int row = i / D, col = i % D;
-    const bool ok = r0 + row < n;
-    const size_t off = static_cast<size_t>(r0 + row) * D + col;
-    ta[row * sa + col] = ok ? a[off] : 0.f;
-    tb[row * sb + col] = ok ? b[off] : 0.f;
+// x to the nearest TF32 (ties away from zero, as cvt.rna.tf32.f32): half a
+// TF32 ulp added to the magnitude bits, the 13 bits below TF32's cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in f32). kRoundLo false (flash_bwd) leaves lo as it is, two
+// integer ops fewer: the tensor cores read its top 19 bits, so it is
+// truncated, within ~2^-21 of x, and as often up as down (hi is rounded
+// to nearest, so lo takes either sign). FLASH_F32_ONE_PASS (a timing
+// diagnostic with wrong outputs; a source defines it before including
+// this header): x as it is, lo 0, and one pass in mma_3xtf32.
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+template <bool kRoundLo = true>
+__device__ __forceinline__ Tf32Pair tf32_split(float x) {
+#ifdef FLASH_F32_ONE_PASS
+  return {__float_as_uint(x), 0u};
+#else
+  const uint32_t hi = tf32_rna(x);
+  const float lo = x - __uint_as_float(hi);
+  return {hi, kRoundLo ? tf32_rna(lo) : __float_as_uint(lo)};
+#endif
+}
+
+// the A fragment x (a0..a3) as its hi and lo parts
+template <bool kRoundLo = true>
+__device__ __forceinline__ void tf32_split4(const float (&x)[4], uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32Pair p = tf32_split<kRoundLo>(x[i]);
+    hi[i] = p.hi;
+    lo[i] = p.lo;
   }
+}
+
+// d += a.b on the tensor cores: m16n8k8, TF32 operands, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b to f32 accuracy in three TF32 passes: lo.hi, hi.lo, then
+// hi.hi (lo.lo, ~2^-22 of the product, is left out)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], Tf32Pair b0, Tf32Pair b1) {
+#ifndef FLASH_F32_ONE_PASS
+  mma_tf32(d, al, b0.hi, b1.hi);
+  mma_tf32(d, ah, b0.lo, b1.lo);
+#endif
+  mma_tf32(d, ah, b0.hi, b1.hi);
+}
+
+constexpr int kF32Warps = 4;  // warps of a float32 block at most, 16 rows an m-tile
+constexpr int kSms = 132;     // H100 SXM: blocks enough to fill the card
+
+// The block shape of a float32 launch over `heads` matrices of `rows` own
+// rows (flash_fwd, flash_bwd_dq: query rows; flash_bwd_dkv: keys):
+// m-tiles a warp (max_mt where the rows allow, so that each B fragment
+// feeds that many m-tiles' products) and warps a block (at most kF32Warps,
+// none wholly past the rows), as many rows a block as still give each SM a
+// block; else one m-tile and the most blocks (short prefills: a join of 8
+// prompt rows is one warp a block).
+struct F32Shape {
+  int mt, warps;
+};
+
+inline F32Shape f32_shape(int heads, int rows, int max_mt) {
+  for (int mt = max_mt; mt >= 1; --mt) {
+    const int most = (rows + 16 * mt - 1) / (16 * mt);
+    for (int nw = most < kF32Warps ? most : kF32Warps; nw >= 1; --nw)
+      if (static_cast<long long>(heads) * ((rows + 16 * mt * nw - 1) / (16 * mt * nw)) >= kSms)
+        return {mt, nw};
+  }
+  return {1, 1};
+}
+
+// 16 bytes from global to shared memory, zeros where !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, a zero where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 #ifdef FLASH_RACE_PROBE

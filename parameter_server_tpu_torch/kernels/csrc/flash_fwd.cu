@@ -113,6 +113,9 @@
 #ifdef FLASH_FWD_NO_LOAD
 #define FLASH_RING_NO_LOAD
 #endif
+#ifdef FLASH_FWD_F32_ONE_PASS
+#define FLASH_F32_ONE_PASS
+#endif
 #include "flash_common.cuh"
 
 namespace {
@@ -385,9 +388,6 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads, 1) flash_fwd_bf16(cons
 // f32: 3xTF32 on the tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Warps = 4;  // warps of a block at most, 16 query rows an m-tile
-constexpr int kSms = 132;     // H100 SXM: blocks enough to fill the card
-
 // keys of a streamed f32 tile: 32 where a warp's O takes 32 registers a
 // thread or more (S's then halve), else 64
 template <int D, int MT>
@@ -428,73 +428,6 @@ __host__ __device__ constexpr int f32_q_floats() {
 template <int D, int MT>
 __host__ __device__ constexpr int f32_smem_bytes() {
   return (f32_q_floats<D, MT>() + 2 * f32_stage_floats<D, MT>()) * 4;
-}
-
-// x to the nearest TF32 (ties away from zero, as cvt.rna.tf32.f32): half a
-// TF32 ulp added to the magnitude bits, the 13 bits below TF32's cleared
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to ~2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is
-// exact in f32). FLASH_FWD_F32_ONE_PASS (a timing diagnostic with wrong
-// outputs): x as it is, lo 0, and one pass in mma_3xtf32.
-struct Tf32Pair {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ Tf32Pair tf32_split(float x) {
-#ifdef FLASH_FWD_F32_ONE_PASS
-  return {__float_as_uint(x), 0u};
-#else
-  const uint32_t hi = tf32_rna(x);
-  return {hi, tf32_rna(x - __uint_as_float(hi))};
-#endif
-}
-
-// the A fragment x (a0..a3) as its hi and lo parts
-__device__ __forceinline__ void tf32_split4(const float (&x)[4], uint32_t (&hi)[4],
-                                            uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Tf32Pair p = tf32_split(x[i]);
-    hi[i] = p.hi;
-    lo[i] = p.lo;
-  }
-}
-
-// d += a.b on the tensor cores: m16n8k8, TF32 operands, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a.b to f32 accuracy in three TF32 passes: lo.hi, hi.lo, then
-// hi.hi (lo.lo, ~2^-22 of the product, is left out)
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], Tf32Pair b0, Tf32Pair b1) {
-#ifndef FLASH_FWD_F32_ONE_PASS
-  mma_tf32(d, al, b0.hi, b1.hi);
-  mma_tf32(d, ah, b0.lo, b1.lo);
-#endif
-  mma_tf32(d, ah, b0.hi, b1.hi);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // One tile's online softmax over a thread's fragments of S [16 x KT] (rows
@@ -766,25 +699,6 @@ __global__ void __launch_bounds__(128, f32_min_blocks<D, MT>()) flash_fwd_f32(Ar
   }
 }
 
-// The block shape of a launch: m-tiles a warp (two at D <= 64 where the
-// query rows allow, so that each B fragment feeds twice the products) and
-// warps a block (at most kF32Warps, none wholly past Sq), as many rows a
-// block as still give each SM a block; else one m-tile and the most
-// blocks (short prefills: a join of 8 prompt rows is one warp a block).
-struct F32Shape {
-  int mt, warps;
-};
-
-inline F32Shape f32_shape(int bh, int sq, int d) {
-  for (int mt = d <= 64 ? 2 : 1; mt >= 1; --mt) {
-    const int most = (sq + 16 * mt - 1) / (16 * mt);
-    for (int nw = most < kF32Warps ? most : kF32Warps; nw >= 1; --nw)
-      if (static_cast<long long>(bh) * ((sq + 16 * mt * nw - 1) / (16 * mt * nw)) >= kSms)
-        return {mt, nw};
-  }
-  return {1, 1};
-}
-
 template <int D, int MT>
 int launch_f32(const Args& a, int bh, int nw, cudaStream_t s) {
   const dim3 grid(bh * ((a.sq + 16 * MT * nw - 1) / (16 * MT * nw)));
@@ -798,7 +712,7 @@ int launch_f32(const Args& a, int bh, int nw, cudaStream_t s) {
 
 template <int D>
 int launch_f32(const Args& a, int bh, cudaStream_t s) {
-  const F32Shape sh = f32_shape(bh, a.sq, D);
+  const F32Shape sh = f32_shape(bh, a.sq, D <= 64 ? 2 : 1);  // two m-tiles a warp at D <= 64
   if constexpr (D <= 64) {
     if (sh.mt == 2) return launch_f32<D, 2>(a, bh, sh.warps, s);
   }

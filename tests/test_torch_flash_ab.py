@@ -46,5 +46,17 @@ def test_float32_shapes_are_the_main_paths():
     assert shapes["prefill"] == (64, 2048, 64, 1)
     assert shapes["batcher_join"] == (128, 8, 64, 1)  # phase D's widest wave
     assert shapes["decode_lane_prefill"] == (16, 64, 16, 1)  # the serve CLI's decode pair
-    assert flash_ab.BWD_SHAPE["float32"] == (64, 2048, 64)
+    bwd = {name: (bh, s, d) for name, bh, s, d in flash_ab.BWD_SHAPES["float32"]}
+    assert bwd["S2048"] == (64, 2048, 64)
+    assert bwd["S8192"] == (32, 8192, 64)  # the LM's full width
+    assert bwd["cli_default"] == (32, 256, 16)  # the LM CLI's default: batch 8 x 4 heads of 16
+    assert bwd["D128"] == (64, 2048, 128)
     assert flash_ab.turn_order([]) == ("other", "this", "this", "other")
+
+
+def test_unknown_shape_is_refused_before_any_build(capsys):
+    with pytest.raises(SystemExit) as exc:
+        flash_ab.main(["--kernel", "bwd", "--dtype", "float32", "--other", "unused",
+                       "--shape", "S2048", "--shape", "S4096"])
+    assert exc.value.code == 2
+    assert "S4096" in capsys.readouterr().err

@@ -416,9 +416,10 @@ def test_flash_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, wi
 # -- the backward: flash_bwd_dq and flash_bwd_dkv --
 
 # (rtol, atol as a share of the largest |plain| of the tensor). float32:
-# products exact, sums in another order: 1e-5 of the tensor's scale (a
-# gradient sums up to Sq or Sk terms, each of the scale's order; an H100
-# needed at most 4.2e-7 of it here). bf16: one bf16 ulp of each output
+# 3xTF32 products (within ~2^-22 of the f32 product), f32 sums in another
+# order: 1e-5 of the tensor's scale (a gradient sums up to Sq or Sk terms,
+# each of the scale's order; one TF32 pass would need ~3e-4 to 1e-3 of
+# it, tests/test_torch_flash_bwd_tf32_split.py). bf16: one bf16 ulp of each output
 # (2^-7 relative: both sides round once), plus 2^-9 of the scale for what
 # the two differ by before that rounding: P and dS are rounded to bf16 from
 # scores summed in another order, so a few of the thousands of bf16 terms
@@ -473,6 +474,11 @@ BWD_CASES = [
     (8, 448, 1000, 64, torch.bfloat16, 552, 0, None, 4, True),      # GQA 4, offsets, Sq != Sk
     (16, 64, 64, 16, torch.float32, 0, 0, None, 1, False),          # the serve CLI's small LMs
     (8, 130, 190, 32, torch.float32, 60, 0, 40, 2, True),           # f32 D 32, window, GQA
+    (2, 8192, 8192, 64, torch.float32, 0, 0, None, 1, False),       # f32: the sums' drift
+    (8, 2048, 2048, 64, torch.float32, 0, 0, None, 4, False),       # f32 GQA 4
+    (2, 64, 64, 64, torch.float32, 0, 500, None, 1, True),          # f32: every key in the future
+    (4, 2048, 2048, 128, torch.float32, 0, 0, 1024, 1, False),      # f32 D 128, window
+    (32, 256, 256, 16, torch.float32, 0, 0, None, 1, False),        # the LM CLI's default
 ]
 
 
@@ -530,6 +536,8 @@ def _bwd_launch(lib, q, k, v, do, lse, c, qo, ko, window, group):
     (16, 1000, 2037, 64, torch.bfloat16, 1037, 0, None, 4),
     (2, 8192, 8192, 64, torch.bfloat16, 0, 0, None, 1),      # the ring laps over 100 times
     (4, 320, 192, 128, torch.bfloat16, 0, 128, None, 1),     # D 128, 64-multiples, not 128
+    (4, 4096, 4096, 64, torch.float32, 0, 0, None, 1),       # f32: laps the stages many times
+    (8, 9, 333, 64, torch.float32, 293, 0, 100, 2),          # f32 Sq < 16, offsets, window, GQA
 ])
 def test_flash_bwd_race_probe_is_bit_identical(dev, bh, sq, sk, d, dtype, qo, ko, window, group):
     g = torch.Generator(device=dev).manual_seed(2)
