@@ -152,6 +152,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 (its launches of the float32 backward pair counted), on the
    card against ``--device cpu``, then at the full config for 30
    Adam steps to a falling loss and a 64-token generation;
+7b. the rest of the LM family: (a) MoE serving, the phase 6 config with
+   every second layer a mixture of 8 experts (capacity factor 8, so
+   training drops no token): greedy ``lm_generate`` at batch 8, 2048-token
+   prompts, 64 steps (time to first token, decode tokens/s, 8 flash
+   launches a prefill), the prefill's logits against the training
+   forward ``lm_forward`` within phase 6's tolerance; (b) ``lm_beam_search``
+   at the phase 6 config, width 4, batch 8, 2048-token prompts, 128 steps
+   (``script/onchip.py``'s shape; sequences x steps/s from the 128-step
+   call less the 1-step call), each prompt's best score against teacher
+   forcing through ``lm_forward``, width 1 against greedy ``lm_generate``;
+   (c) three turns through ``lm_generate_continue`` (a 2048-token prompt
+   and 64 steps, a 64-token turn and 64 steps, an ingest-only 64-token
+   turn then 64 steps), each later turn's tokens against single-shot
+   ``lm_generate`` over the whole history (``token_agreement``); on each
+   of these paths ``flash_fwd`` is held to its plain version on the
+   inputs the path gave its first launch; (d) the LM CLI: the full
+   config with ``--moe-every 2`` for 10 Adam steps and ``--beam 4`` (a
+   falling loss, launches of ``flash_fwd`` and the backward pair counted
+   and the pair held to the plain backward on the path's own first
+   inputs, step ms, peak memory), the small config under ``--optimizer
+   adafactor`` (at d_model 128, where it factors every matrix) and
+   ``lion`` on the card against ``--device cpu``, and a 5-step
+   ``--ckpt-dir`` run resumed to 10 steps (the batch stream starting over,
+   as in the JAX CLI), card against ``--device cpu``;
 8. the serving plane (``parameter_server_tpu_torch.apps.serve.main``):
    ``flash_fwd`` against its plain version at the serve CLI's decode-lane
    prefill (float32, heads of 16) and at a batcher join; A. the serve CLI
@@ -184,6 +208,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -226,6 +251,7 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     sparse_update_inputs,
 )
 from parameter_server_tpu_torch.apps.lm import main as lm_main  # noqa: E402
+from parameter_server_tpu_torch.apps.lm import optim  # noqa: E402
 from parameter_server_tpu_torch.apps.serve import main as serve_main  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import flash_ab, ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
@@ -2132,6 +2158,9 @@ TRAIN_AGREE_SEQ = 2048
 CLI_SMALL = ["--d-model", "64", "--n-heads", "1", "--n-layers", "2", "--d-ff", "128",
              "--steps", "5", "--report-every", "1", "--seed", "3"]
 CLI_LOSS_TOL = 1e-4
+# CLI_SMALL widened so that Adafactor factors every matrix (its second
+# largest axis reaches min_dim_size_to_factor, 128)
+CLI_FACTORED = ["--d-model", "128", "--n-heads", "2", "--d-ff", "256"]
 CLI_FULL = ["--d-model", "512", "--n-heads", "8", "--n-layers", "8", "--d-ff", "2048", "--bf16",
             "--remat", "--seq-len", "8192", "--batch", "4", "--steps", "30", "--report-every", "5",
             "--prompt", "The parameter server ", "--gen-tokens", "64"]
@@ -2287,19 +2316,27 @@ def train_agreement(seed: int) -> dict:
                 noise=REF_TRAIN_BF16_NOISE, seq=TRAIN_AGREE_SEQ)
 
 
-def run_lm_cli(argv) -> "tuple[str, list]":
+def run_lm_cli_records(argv) -> "tuple[str, list]":
     """The LM CLI as a user runs it, with ``--log-file``; returns its
-    output and the losses of its log lines (6 decimals)."""
+    output and its log lines (losses to 6 decimals, wall_s)."""
     buf = io.StringIO()
     with tempfile.TemporaryDirectory(prefix="lm_cli_") as tmp:
         log = os.path.join(tmp, "log.jsonl")
         with contextlib.redirect_stdout(buf):
             rc = lm_main.main(argv + ["--log-file", log])
         with open(log) as f:
-            losses = [json.loads(line)["loss"] for line in f]
+            recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs]
     check(rc == 0, f"LM CLI {argv} exited {rc}")
     check(losses and all(np.isfinite(losses)), f"LM CLI {argv}: losses {losses}")
-    return buf.getvalue(), losses
+    return buf.getvalue(), recs
+
+
+def run_lm_cli(argv) -> "tuple[str, list]":
+    """The LM CLI as a user runs it; returns its output and the losses of
+    its log lines (6 decimals)."""
+    text, recs = run_lm_cli_records(argv)
+    return text, [r["loss"] for r in recs]
 
 
 def lm_cli(seed: int) -> dict:
@@ -2333,6 +2370,361 @@ def lm_cli(seed: int) -> dict:
     return dict(small_card=card, small_cpu=cpu, small_gap=gap, small_launches=small,
                 losses=losses, wall_s=wall,
                 launches=got, generation=gen[1].split("\n", 1)[1])
+
+
+# -- phase 7b: the rest of the LM family --
+
+# the serving config with every second layer a mixture of 8 experts; at
+# capacity factor 8 (= n_experts) training never drops a token, so the
+# dropless serving FFN must give the training forward's logits
+MOE_SERVE_CFG = dataclasses.replace(lm_serve.SERVE_CFG, moe_every=2, n_experts=8,
+                                    capacity_factor=8.0)
+MOE_STEPS = 64
+# script/onchip.py's beam capture: width 4, batch 8, 2048-token prompts, 128 steps
+BEAM_WIDTH, BEAM_STEPS, BEAM_GREEDY_STEPS = 4, 128, 64
+TURN_TOKENS, TURN_STEPS = 64, 64  # the later turns of a conversation, and each turn's steps
+CLI_MOE_STEPS = 10
+
+
+@contextlib.contextmanager
+def first_call(name: str):
+    """Records the arguments of the first call of ``fa.<name>`` inside the
+    block (tensors cloned), so that the kernel can be held against its
+    plain version on a path's own inputs once the path's counts are read.
+    ``name`` is a route that counts no launches on itself
+    (``launch_kernel`` counts on ``flash_attention``; ``_backward`` calls
+    the counted backward pair), so the counts are untouched."""
+    orig = getattr(fa, name)
+    check(not hasattr(orig, "launches"), f"first_call: fa.{name} counts launches on itself")
+    seen = []
+
+    def wrapper(*args, **kw):
+        if not seen:
+            seen.append(([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args],
+                         dict(kw)))
+        return orig(*args, **kw)
+
+    setattr(fa, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(fa, name, orig)
+
+
+def hold_forward(seen, what: str) -> dict:
+    """flash_fwd against its plain version on the first inputs a path gave
+    it (FLASH_TOL)."""
+    check(len(seen) == 1, f"{what}: flash_fwd was not launched")
+    (q, k, v, q_off, k_off), kw = seen[0]
+    out, lse = fa.launch_kernel(q, k, v, q_off, k_off, **kw)
+    plain_out, plain_lse = fa._flash_plain(q, k, v, q_off, k_off, kw["causal"], kw["window"],
+                                           kw["group"])
+    rtol, atol, lse_tol = FLASH_TOL[q.dtype]
+    r = close(out, plain_out, rtol, atol, f"{what} flash_fwd out")
+    r_lse = close(lse, plain_lse, 0.0, lse_tol, f"{what} flash_fwd lse")
+    return dict(bh=q.shape[0], sq=q.shape[1], sk=k.shape[1], d=q.shape[2], group=kw["group"],
+                dtype=str(q.dtype).split(".")[-1], max_abs_err=r["max_abs"],
+                lse_err=r_lse["max_abs"], tolerance_used=max(r["tolerance_used"],
+                                                             r_lse["tolerance_used"]))
+
+
+def hold_backward(seen, what: str, rows: int = 8) -> dict:
+    """flash_bwd_dq and flash_bwd_dkv against the plain backward on the
+    first inputs a path gave the autograd Function's backward
+    (``fa._backward``), cut to ``rows`` query rows (the plain version's
+    float32 score tensors of all of them would not fit; phase 7 holds the
+    pair at the full training shape); tolerance FLASH_BWD_TOL as a share
+    of each gradient's scale."""
+    check(len(seen) == 1, f"{what}: the flash backward was not called")
+    (q, k, v, do, lse, c, q_off, k_off, causal, window, g), _ = seen[0]
+    kw = dict(causal=causal, window=window, group=g)
+    n = min(rows, q.shape[0])
+    q, do, lse, c, k, v = q[:n], do[:n], lse[:n], c[:n], k[:n // g], v[:n // g]
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, c, q_off, k_off, **kw),
+           *fa.flash_bwd_dkv(q, k, v, do, lse, c, q_off, k_off, **kw))
+    with torch.no_grad():
+        want = fa.flash_attention_bwd_ref(q, k, v, do, lse, c, q_off, k_off, **kw)
+    rtol, share = FLASH_BWD_TOL[q.dtype]
+    out = dict(bh=n, sq=q.shape[1], sk=k.shape[1], d=q.shape[2], dtype=str(q.dtype).split(".")[-1])
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        scale = max(float(y.float().abs().max()), 1e-30)
+        out[name] = close(x, y, rtol, share * scale, f"{what} flash bwd {name}")["max_abs"]
+    return out
+
+
+def moe_serving(seed: int) -> dict:
+    """(a) MoE serving at the serving config: greedy ``lm_generate``, the
+    prefill held to the training forward and flash_fwd to its plain
+    version on the prefill's own inputs."""
+    cfg = MOE_SERVE_CFG
+    b, p = lm_serve.B, lm_serve.P
+    params = transformer.init_lm(seed, cfg, "cuda")
+    prompt = lm_serve.make_prompt(seed + 3, device="cuda")
+    transformer.lm_generate(params, prompt, cfg, 2)  # warm-up at the timed shapes
+    reset_counts()
+    with first_call("launch_kernel") as seen:
+        first, ttft_s = timed_generate(params, prompt, cfg, 1)
+    prefill_n = fa.flash_attention.launches
+    check(prefill_n == cfg.n_layers, f"MoE prefill: {prefill_n} flash launches, want "
+          f"{cfg.n_layers}")
+    reset_counts()
+    toks, wall_s = timed_generate(params, prompt, cfg, MOE_STEPS)
+    flash_n = fa.flash_attention.launches
+    check(flash_n == cfg.n_layers and counts() == (0, 0, 0, 0),
+          f"MoE greedy: flash launches {flash_n}, others {counts()}; want {cfg.n_layers}, none")
+    check_tokens(toks, prompt, MOE_STEPS, "MoE greedy")
+    check(torch.equal(toks[:, p], first[:, p]), "MoE greedy: the first token differs from the "
+          "steps=1 run")
+    tol = NOISE_MULTIPLE * REF_BF16_NOISE
+    _, served = transformer.lm_generate(params, prompt, cfg, 0, return_logits=True)
+    with torch.no_grad():
+        trained = transformer.lm_forward(params, prompt, cfg)[:, :-1]
+    gap = float((served - trained).abs().max())
+    check(bool(torch.isfinite(served).all()) and gap <= tol,
+          f"MoE prefill logits vs the training forward: {gap} apart, tolerance {tol}")
+    del served, trained
+    return dict(batch=b, prompt=p, steps=MOE_STEPS, prefill_flash_launches=prefill_n,
+                flash_launches=flash_n, ttft_ms=ttft_s * 1e3, generate_s=wall_s,
+                decode_tokens_per_s=b * (MOE_STEPS - 1) / (wall_s - ttft_s),
+                prefill_vs_forward_gap=gap, tolerance=tol,
+                distinct_tokens=int(toks[:, p:].unique().numel()),
+                flash_held=hold_forward(seen, "MoE prefill"))
+
+
+def beam_path(seed: int) -> dict:
+    """(b) beam search at the serving config: width 4 (onchip's shape),
+    scores against teacher forcing through the training forward, width 1
+    against greedy ``lm_generate``, beam tokens/s as onchip differences
+    it (the 1-step call from the 128-step call)."""
+    cfg = lm_serve.SERVE_CFG
+    params = lm_serve.serve_params(seed, "cuda")
+    prompt = lm_serve.make_prompt(seed + 4, device="cuda")
+    b, p = prompt.shape
+
+    def timed(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transformer.lm_beam_search(params, prompt, cfg, steps, beam_width=BEAM_WIDTH)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    timed(1)  # warm-up
+    reset_counts()
+    with first_call("launch_kernel") as seen:
+        _, short_s = timed(1)
+    prefill_n = fa.flash_attention.launches
+    # each step's kept scores and indices (parent * vocab + token), read
+    # from the search's own top-k, to trace the best beam's terms back
+    tops, top = [], transformer._top
+
+    def recorded_top(x, k):
+        out = top(x, k)
+        tops.append(out)
+        return out
+
+    reset_counts()
+    transformer._top = recorded_top
+    try:
+        (toks, scores), long_s = timed(BEAM_STEPS)
+    finally:
+        transformer._top = top
+    flash_n = fa.flash_attention.launches
+    check(prefill_n == flash_n == cfg.n_layers and counts() == (0, 0, 0, 0),
+          f"beam: flash launches {prefill_n} / {flash_n}, others {counts()}; want {cfg.n_layers}")
+    check(toks.shape == (b, BEAM_WIDTH, p + BEAM_STEPS) and scores.shape == (b, BEAM_WIDTH),
+          f"beam: tokens {tuple(toks.shape)}, scores {tuple(scores.shape)}")
+    check(torch.equal(toks[:, :, :p], prompt[:, None].expand(-1, BEAM_WIDTH, -1)),
+          "beam: the prompt is not kept")
+    check(bool(torch.isfinite(scores).all()) and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+          f"beam: scores not finite and best first {scores}")
+    # each term of a score is a log-probability, a difference of two
+    # values each within the logit tolerance of the reference: the best
+    # beam's term at every step against teacher forcing of its tokens
+    per_token = 2 * NOISE_MULTIPLE * REF_BF16_NOISE
+    check(len(tops) == BEAM_STEPS, f"beam: {len(tops)} top-k calls, want {BEAM_STEPS}")
+    rows = torch.arange(b, device="cuda")
+    j = torch.zeros(b, dtype=torch.int64, device="cuda")  # the best beam, ranked first
+    terms = torch.empty((b, BEAM_STEPS), device="cuda")
+    traced = torch.empty((b, BEAM_STEPS), dtype=torch.int64, device="cuda")
+    for s in range(BEAM_STEPS - 1, -1, -1):
+        vals, idx = tops[s]
+        if s == 0:
+            terms[:, 0], traced[:, 0] = vals[rows, j], idx[rows, j]
+        else:
+            parent = idx[rows, j] // cfg.vocab
+            terms[:, s] = vals[rows, j] - tops[s - 1][0][rows, parent]
+            traced[:, s] = idx[rows, j] % cfg.vocab
+            j = parent
+    best = toks[:, 0]
+    check(torch.equal(traced, best[:, p:]), "beam: the traced best beam is not its tokens")
+    with torch.no_grad():
+        logp = torch.log_softmax(transformer.lm_forward(params, best, cfg).float(), -1)
+    forced_terms = logp[:, p - 1:-1].gather(-1, best[:, p:, None])[..., 0]
+    forced = forced_terms.sum(-1)
+    term_gap = float((terms - forced_terms).abs().max())
+    gap = float((scores[:, 0] - forced).abs().max())
+    check(term_gap <= per_token, f"beam: the best beams' terms vs teacher forcing {term_gap} "
+          f"apart at worst, tolerance {per_token}")
+    # a reading of the check's reach: the best beam's tokens scored in the
+    # runner-up's context, as a cache handed to the wrong beam would score
+    # them (0 where the two histories agree)
+    with torch.no_grad():
+        logp = torch.log_softmax(transformer.lm_forward(params, toks[:, 1], cfg).float(), -1)
+    wrong_gap = float((logp[:, p - 1:-1].gather(-1, best[:, p:, None])[..., 0]
+                       - forced_terms).abs().max())
+    del logp
+    one, _ = transformer.lm_beam_search(params, prompt, cfg, BEAM_GREEDY_STEPS, beam_width=1)
+    greedy = transformer.lm_generate(params, prompt, cfg, BEAM_GREEDY_STEPS)
+    check(torch.equal(one[:, 0], greedy), "beam width 1 differs from greedy lm_generate")
+    beam_s = long_s - short_s
+    noisy = beam_s < 0.2 * long_s
+    return dict(batch=b, prompt=p, steps=BEAM_STEPS, width=BEAM_WIDTH, flash_launches=flash_n,
+                short_s=short_s, long_s=long_s, diff_noisy=noisy,
+                tokens_per_s=b * (BEAM_STEPS - 1) / (long_s if noisy else beam_s),
+                best_scores=scores[:, 0].tolist(), teacher_forced=forced.tolist(),
+                teacher_forced_term_gap=term_gap, tolerance=per_token, teacher_forced_gap=gap,
+                runner_up_context_gap=wrong_gap,
+                width_one_is_greedy_steps=BEAM_GREEDY_STEPS,
+                flash_held=hold_forward(seen, "beam prefill"))
+
+
+def continuation_path(seed: int) -> dict:
+    """(c) three turns at the serving config: a 2048-token prompt and 64
+    steps, a 64-token turn and 64 steps, an ingest-only 64-token turn then
+    64 steps; each later turn's tokens against single-shot
+    ``lm_generate`` over the whole history (``token_agreement``)."""
+    cfg = lm_serve.SERVE_CFG
+    params = lm_serve.serve_params(seed, "cuda")
+    prompt = lm_serve.make_prompt(seed + 5, device="cuda")
+    b, p = prompt.shape
+    rng = np.random.default_rng(seed + 6)
+    turn2, turn3 = (torch.as_tensor(rng.integers(0, cfg.vocab, (b, TURN_TOKENS)), device="cuda")
+                    for _ in range(2))
+    cap = p + TURN_STEPS + 2 * (TURN_TOKENS + TURN_STEPS)
+    reset_counts()
+    with first_call("launch_kernel") as seen:
+        out1, state = transformer.lm_generate(params, prompt, cfg, TURN_STEPS, return_state=True,
+                                              max_len=cap)
+    first_n = fa.flash_attention.launches
+    check(first_n == cfg.n_layers, f"first turn: {first_n} flash launches, want {cfg.n_layers}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen2, state = transformer.lm_generate_continue(params, state, cfg, TURN_STEPS, new_tokens=turn2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    empty, state = transformer.lm_generate_continue(params, state, cfg, 0, new_tokens=turn3)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gen3, state = transformer.lm_generate_continue(params, state, cfg, TURN_STEPS)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    later_n = fa.flash_attention.launches
+    check(later_n == 0 and counts() == (0, 0, 0, 0), f"later turns: flash launches {later_n}, "
+          f"others {counts()}; the caches serve them, want none")
+    check(empty.shape == (b, 0) and state.length == cap, f"continuation: state length "
+          f"{state.length}, want {cap}")
+    tol = NOISE_MULTIPLE * REF_BF16_NOISE
+    hist2 = torch.cat([out1, turn2], 1)
+    hist3 = torch.cat([hist2, gen2, turn3], 1)
+    agree = {}
+    for name, hist, gen in (("turn 2", hist2, gen2), ("turn 3 after ingest-only", hist3, gen3)):
+        ref_toks, ref_logits = transformer.lm_generate(params, hist, cfg, TURN_STEPS,
+                                                       return_logits=True)
+        agree[name] = token_agreement(ref_toks, ref_logits, torch.cat([hist, gen], 1), None,
+                                      hist.shape[1], tol, f"continuation {name} vs single shot")
+        del ref_logits
+    return dict(batch=b, prompt=p, turn_tokens=TURN_TOKENS, steps=TURN_STEPS,
+                first_turn_flash_launches=first_n, later_flash_launches=later_n,
+                turn2_s=t1 - t0, ingest_only_s=t2 - t1, turn3_s=t3 - t2, agreement=agree,
+                tolerance=tol, flash_held=hold_forward(seen, "first turn"))
+
+
+def family_cli(seed: int) -> dict:
+    """(d) the LM CLI: the full config with MoE layers for 10 Adam steps
+    and a beam of 4; Adafactor (at a width where it factors its second
+    moments) and Lion, card against CPU; a checkpointed run resumed, card
+    against CPU."""
+    n_layers = lm_train.TRAIN_CFG.n_layers
+    argv = CLI_FULL + ["--moe-every", "2", "--steps", str(CLI_MOE_STEPS), "--report-every", "1",
+                       "--beam", "4", "--seed", str(seed)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with first_call("_backward") as seen:
+        text, recs = run_lm_cli_records(argv)
+    got = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    want = (2 * n_layers * CLI_MOE_STEPS + n_layers, n_layers * CLI_MOE_STEPS,
+            n_layers * CLI_MOE_STEPS)
+    check(got == want, f"MoE CLI launches (flash_fwd, dq, dkv) {got}, want {want} (10 steps of "
+          "8 layers under remat, and the beam's prefill)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["loss"] for r in recs]
+    check(len(losses) == CLI_MOE_STEPS and losses[-1] < losses[0],
+          f"MoE CLI: loss did not fall {losses}")
+    beam = text.split("--- generation (64 tokens, beam 4, logprob ", 1)
+    check(len(beam) == 2 and len(beam[1].splitlines()) >= 2, "MoE CLI: no beam generation")
+    for line in text.splitlines():
+        print(f"# cli moe | {line}", flush=True)
+    # the first step carries the warm-up: the step time is the later steps'
+    step_ms = (recs[-1]["wall_s"] - recs[0]["wall_s"]) / (len(recs) - 1) * 1e3
+    held = hold_backward(seen, "MoE CLI")
+    optimizers = {}
+    for opt, width in (("adafactor", CLI_FACTORED), ("lion", [])):
+        argv = CLI_SMALL + width + ["--optimizer", opt]
+        reset_counts()
+        _, card = run_lm_cli(argv + ["--device", "cuda"])
+        launches = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                    fa.flash_bwd_dkv.launches)
+        check(min(launches) > 0, f"LM CLI {opt} on the card: launches {launches}")
+        _, cpu = run_lm_cli(argv + ["--device", "cpu"])
+        gap = max(abs(a - b) for a, b in zip(card, cpu))
+        check(len(card) == len(cpu) == 5 and gap <= CLI_LOSS_TOL,
+              f"LM CLI {opt}: card {card} vs CPU {cpu}: {gap} apart, tolerance {CLI_LOSS_TOL}")
+        optimizers[opt] = dict(card=card, cpu=cpu, gap=gap, launches=launches)
+    optimizers["adafactor"]["factored_leaves"] = factored = factored_leaves(CLI_FACTORED)
+    check(factored[0] > 0, f"LM CLI adafactor: no leaf factored {factored}")
+    # the JAX CLI's resume: the counters and optimizer state go on from the
+    # checkpoint and the batch stream starts over from the seed, so steps
+    # 6-10 see the batches of steps 1-5; held card against CPU, and against
+    # the fresh run on the same batches (a run that restored nothing would
+    # repeat its first loss)
+    resumed = {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        with tempfile.TemporaryDirectory(prefix="lm_ckpt_") as ck:
+            _, fresh = run_lm_cli(CLI_SMALL + ["--device", dev, "--ckpt-dir", ck])
+            text_r, resumed[where] = run_lm_cli(CLI_SMALL + ["--device", dev, "--ckpt-dir", ck,
+                                                             "--resume", "--steps", "10"])
+        check("resumed from step 5" in text_r and len(resumed[where]) == 5
+              and fresh[0] - resumed[where][0] > CLI_LOSS_TOL,
+              f"LM CLI resume on the {where}: steps 6-10 {resumed[where]}, the fresh run's {fresh}")
+    resume_gap = max(abs(a - b) for a, b in zip(resumed["card"], resumed["cpu"]))
+    check(resume_gap <= CLI_LOSS_TOL, f"LM CLI resume: card {resumed['card']} vs CPU "
+          f"{resumed['cpu']}: {resume_gap} apart, tolerance {CLI_LOSS_TOL}")
+    return dict(moe=dict(losses=losses, step_ms=step_ms, peak_gib=peak_gib, launches=got,
+                         beam_generation=beam[1].split("\n", 1)[1], flash_bwd_held=held),
+                optimizers=optimizers, resumed=resumed, resume_gap=resume_gap)
+
+
+def factored_leaves(width) -> "tuple[int, int]":
+    """The CLI's parameters at ``CLI_SMALL + width`` whose second moment
+    the CLI's Adafactor factors, and all its parameters: read from the
+    optimizer's own state for them (a factored leaf keeps a one-element
+    full moment)."""
+    flags = dict(zip(CLI_SMALL[0::2], CLI_SMALL[1::2]))
+    flags.update(zip(width[0::2], width[1::2]))
+    cfg = transformer.LMConfig(vocab=256, d_model=int(flags["--d-model"]),
+                               n_heads=int(flags["--n-heads"]), n_layers=int(flags["--n-layers"]),
+                               d_ff=int(flags["--d-ff"]))
+    params = transformer.init_lm(0, cfg, "cpu")
+    v = optim.build(3e-3, 5, optimizer="adafactor").init(params)["v"]
+    return sum(v[k].numel() == 1 < p.numel() for k, p in params.items()), len(params)
+
+
+def lm_family(seed: int) -> dict:
+    """Phase 7b: MoE serving, beam search, multi-turn continuation and the
+    LM CLI's MoE, Adafactor, Lion, checkpoint and beam flags."""
+    return dict(moe_serving=moe_serving(seed), beam=beam_path(seed),
+                continuation=continuation_path(seed), cli=family_cli(seed))
 
 
 # -- the serving plane (apps/serve/main.py): phases A-D --------------------
@@ -3066,6 +3458,40 @@ def main() -> int:
           f"{cli['small_cpu']} ({cli['small_gap']:.3g} apart, tolerance {CLI_LOSS_TOL}); full config, "
           f"30 Adam steps + 64 generated tokens: losses {cli['losses']}, {cli['wall_s']:.1f} s, "
           f"launches flash_fwd / dq / dkv {cli['launches']} [{smi}]", flush=True)
+    fam = lm_family(args.seed)
+    moe, beam, turns, fcli = fam["moe_serving"], fam["beam"], fam["continuation"], fam["cli"]
+    print(f"# LM family, MoE serving (card's own numbers, {smi}): the serving config with every "
+          f"second layer 8 experts (capacity factor 8), B {moe['batch']}, prompt {moe['prompt']}, "
+          f"{moe['steps']} steps: time to first token {moe['ttft_ms']:.1f} ms, decode "
+          f"{moe['decode_tokens_per_s']:.0f} tokens/s, whole call {moe['generate_s']:.2f} s; flash "
+          f"launches {moe['prefill_flash_launches']} a prefill; prefill logits vs the training "
+          f"forward {moe['prefill_vs_forward_gap']:.4g} (tolerance {moe['tolerance']:.4g}); "
+          f"flash_fwd on the prefill's inputs vs plain {moe['flash_held']}", flush=True)
+    print(f"# LM family, beam search (card's own numbers, {smi}): width {beam['width']}, B "
+          f"{beam['batch']}, prompt {beam['prompt']}, {beam['steps']} steps: "
+          f"{beam['tokens_per_s']:.0f} sequences x steps/s ({beam['long_s']:.3f} s less the 1-step "
+          f"call's {beam['short_s']:.3f} s, noisy {beam['diff_noisy']}); best scores vs teacher "
+          f"forcing: each term within {beam['teacher_forced_term_gap']:.4g} (tolerance "
+          f"{beam['tolerance']:.4g}), the sums {beam['teacher_forced_gap']:.4g} apart; the same "
+          f"tokens in the runner-up's context {beam['runner_up_context_gap']:.4g} apart at worst; "
+          f"width 1 equals greedy over {beam['width_one_is_greedy_steps']} steps; flash_fwd on the "
+          f"prefill's inputs vs plain {beam['flash_held']}", flush=True)
+    print(f"# LM family, continuation (card's own numbers, {smi}): turn 2 ({turns['turn_tokens']} "
+          f"tokens + {turns['steps']} steps) {turns['turn2_s'] * 1e3:.1f} ms, ingest-only "
+          f"{turns['ingest_only_s'] * 1e3:.1f} ms, turn 3 {turns['turn3_s'] * 1e3:.1f} ms; flash "
+          f"launches first turn {turns['first_turn_flash_launches']}, later "
+          f"{turns['later_flash_launches']}; vs single shot {turns['agreement']}; flash_fwd on the "
+          f"first turn's inputs vs plain {turns['flash_held']}", flush=True)
+    print(f"# LM family, CLI (card's own numbers, {smi}): full config with --moe-every 2, "
+          f"{CLI_MOE_STEPS} Adam steps + a beam of 4: losses {fcli['moe']['losses']}, "
+          f"{fcli['moe']['step_ms']:.1f} ms a step, peak {fcli['moe']['peak_gib']:.2f} GiB, "
+          f"launches flash_fwd / dq / dkv {fcli['moe']['launches']}, the backward pair on its "
+          f"inputs vs plain {fcli['moe']['flash_bwd_held']}; CLI_SMALL card vs CPU "
+          + ", ".join(f"{k} {v['gap']:.3g}" for k, v in fcli["optimizers"].items())
+          + f" (tolerance {CLI_LOSS_TOL}; Adafactor factored "
+          f"{fcli['optimizers']['adafactor']['factored_leaves']} leaves of the width it ran); resumed "
+          f"steps 6-10 card {fcli['resumed']['card']} vs CPU {fcli['resumed']['cpu']}, "
+          f"{fcli['resume_gap']:.3g} apart", flush=True)
     serve = serving_plane(args.seed, smi, gen)
     flash_rows += serve["flash_rows"]
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
@@ -3146,6 +3572,13 @@ def main() -> int:
              launches=lm["flash_launches"],
              serve_launches=dict(cli_decode_lane=serve["cli"]["full"]["launches"]["flash_fwd"],
                                  batcher=serve["batching"]["flash_launches"]),
+             lm_family_launches=dict(moe_prefill=moe["prefill_flash_launches"],
+                                     moe_generate=moe["flash_launches"],
+                                     beam=beam["flash_launches"],
+                                     first_turn=turns["first_turn_flash_launches"],
+                                     moe_cli=fcli["moe"]["launches"][0],
+                                     adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][0],
+                                     lion_cli=fcli["optimizers"]["lion"]["launches"][0]),
              max_abs_err=max(r["max_abs_err"] for r in flash_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in flash_rows},
              ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
@@ -3155,6 +3588,9 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dq_launches"],
+             lm_family_launches=dict(moe_cli=fcli["moe"]["launches"][1],
+                                     adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][1],
+                                     lion_cli=fcli["optimizers"]["lion"]["launches"][1]),
              max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dq_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dq_bound_ms"],
@@ -3164,6 +3600,9 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dkv_launches"],
+             lm_family_launches=dict(moe_cli=fcli["moe"]["launches"][2],
+                                     adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][2],
+                                     lion_cli=fcli["optimizers"]["lion"]["launches"][2]),
              max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dkv_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dkv_bound_ms"],
@@ -3183,7 +3622,7 @@ def main() -> int:
                   flash_bwd=bwd_rows, flash_bwd_times=bwd_t, flash_bwd_times_f32=bwd_f32,
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
-                  lm_train_agreement=agree_train, lm_cli=cli, serving=serve,
+                  lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

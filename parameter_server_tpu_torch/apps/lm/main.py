@@ -1,11 +1,13 @@
 """Byte-level LM CLI: train the transformer on a text file (or a built-in
-synthetic corpus) with Adam, then generate from it:
+synthetic corpus), then generate from it:
 
     python -m parameter_server_tpu_torch.apps.lm.main \\
         [--data FILE] [--steps N] [--seq-len S] [--batch B] \\
         [--attention ring|ring_flash] [--window W] [--remat] [--bf16] \\
+        [--moe-every K] [--optimizer adam|adafactor|lion] \\
+        [--ckpt-dir DIR] [--save-every N] [--resume] \\
         [--prompt "text"] [--gen-tokens N] [--temperature T] [--top-k K] \\
-        [--top-p P] [--n-kv-heads G] [--device cpu]
+        [--top-p P] [--beam W] [--n-kv-heads G] [--device cpu]
 
 Counterpart of ``parameter_server_tpu/apps/lm/main.py`` on one device
 (the CUDA device unless ``--device`` names another): the same flags,
@@ -13,13 +15,19 @@ defaults, validation and error texts, the same corpus and batches for a
 seed, the same report lines, ``--log-file`` JSON lines and held-out
 ``--eval-every`` losses. Tokens are raw bytes (vocab 256). The optimizer
 chain is :mod:`.optim`'s copy of the JAX CLI's optax chain; generation
-is the port's ``lm_generate``.
+is the port's ``lm_generate``, or ``lm_beam_search`` under ``--beam``.
+
+``--ckpt-dir`` saves ``{"params", "opt"}`` through
+:class:`..parameter.replica.CheckpointManager` at every ``--save-every``
+step and always at the last, each write on a thread while training goes
+on; ``--resume`` restores the latest step, prints ``resumed from step N``
+and trains the remaining steps, the schedule and accumulation counters
+going on from the optimizer state. As in the JAX CLI, a resumed run's
+batch stream starts over from the seed.
 
 Flags the port cannot serve yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``--optimizer adafactor|lion``, ``--ckpt-dir`` /
-``--save-every`` / ``--resume``, ``--beam``, ``--moe-every > 0`` (A11);
-``--zero1``, ``--fsdp``, ``--num-servers > 1``, ``--attention
-ring_zigzag|a2a`` (A9, multi-GPU); ``--profile`` (A12).
+their ROADMAP item: ``--zero1``, ``--fsdp``, ``--num-servers > 1``,
+``--attention ring_zigzag|a2a`` (A9, multi-GPU); ``--profile`` (A12).
 """
 
 from __future__ import annotations
@@ -71,7 +79,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize layers (torch.utils.checkpoint)")
     ap.add_argument("--bf16", action="store_true", help="bfloat16 decoder activations")
-    ap.add_argument("--moe-every", type=int, default=0)
+    ap.add_argument("--moe-every", type=int, default=0,
+                    help="every K-th layer's FFN is a mixture of 8 switch-routed experts")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--kv-cache", choices=("auto", "int8"), default="auto",
@@ -80,7 +89,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="append one JSON line per report interval")
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--num-servers", type=int, default=1)
-    ap.add_argument("--optimizer", choices=("adam", "adafactor", "lion"), default="adam")
+    ap.add_argument("--optimizer", choices=("adam", "adafactor", "lion"), default="adam",
+                    help="adam, adafactor (factored second moment) or lion (sign momentum)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=0,
                     help="linear LR warmup steps, then cosine decay to 10%% of --lr by "
@@ -96,16 +106,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="run N optimizer steps a launch; must divide --steps and --save-every")
     ap.add_argument("--report-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--save-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (enables save/resume)")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="checkpoint every N steps (needs --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--prompt", default=None, help="generate after training from this text")
     ap.add_argument("--gen-tokens", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--top-p", type=float, default=None,
                     help="nucleus sampling (needs --temperature > 0)")
-    ap.add_argument("--beam", type=int, default=0, metavar="W")
+    ap.add_argument("--beam", type=int, default=0, metavar="W",
+                    help="beam search with W beams instead of greedy/sampled decoding")
     ap.add_argument("--eos-byte", type=int, default=None, metavar="B",
                     help="stop-token byte: a generation that emits byte B freezes")
     ap.add_argument("--device", default=None,
@@ -118,18 +131,10 @@ def _unported(flag: str, item: str) -> NotImplementedError:
 
 
 def _check_unported(args) -> None:
-    if args.optimizer != "adam":
-        raise _unported(f"--optimizer {args.optimizer}", "A11")
     if args.zero1 or args.fsdp or args.num_servers > 1:
         raise _unported("--zero1/--fsdp/--num-servers > 1 (sharded training)", "A9")
-    if args.ckpt_dir or args.save_every or args.resume:
-        raise _unported("--ckpt-dir/--save-every/--resume (LM checkpoints)", "A11")
     if args.profile:
         raise _unported("--profile", "A12")
-    if args.beam:
-        raise _unported("--beam (lm_beam_search)", "A11 item 2")
-    if args.moe_every > 0:
-        raise _unported("--moe-every > 0 (MoE layers)", "A11")
     if args.attention in ("ring_zigzag", "a2a"):
         raise _unported(f"--attention {args.attention} (a sequence layout across cards)", "A9")
 
@@ -155,6 +160,9 @@ def _validate(ap, args) -> None:
         ap.error(f"--steps-per-launch must be >= 1, got {spl}")
     if spl > 1 and args.steps % spl:
         ap.error(f"--steps-per-launch {spl} must divide --steps {args.steps}")
+    if spl > 1 and args.save_every and args.save_every % spl:
+        ap.error(f"--steps-per-launch {spl} must divide --save-every {args.save_every} "
+                 "(checkpoints land on launch boundaries)")
 
 
 def main(argv=None) -> int:
@@ -163,7 +171,9 @@ def main(argv=None) -> int:
     _check_unported(args)
 
     from ...device import resolve
-    from ...models.transformer import LMConfig, init_lm, lm_generate, lm_loss, value_and_grad
+    from ...models.transformer import (LMConfig, init_lm, lm_beam_search, lm_generate, lm_loss,
+                                       value_and_grad)
+    from ...parameter.replica import CheckpointManager
 
     try:
         cfg = LMConfig(
@@ -211,18 +221,38 @@ def main(argv=None) -> int:
 
     device = resolve(args.device)
     params = init_lm(args.seed, cfg, device)
-    tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum)
+    tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum,
+                     args.optimizer)
     opt = tx.init(params)
+
+    mgr = None
+    start_step = 0
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if args.resume:
+            latest = mgr.latest_step()
+            if latest is not None:
+                # the schedule and accumulation counters are in opt
+                tree = mgr.restore(latest, like={"params": params, "opt": opt})
+                params, opt = tree["params"], tree["opt"]
+                start_step = latest
+                print(f"resumed from step {latest}", flush=True)
+    elif args.save_every or args.resume:
+        ap.error("--save-every/--resume need --ckpt-dir")
 
     def sample_tokens():
         starts = rng.integers(0, corpus.size - args.seq_len - 1, args.batch)
         return np.stack([corpus[s:s + args.seq_len] for s in starts]).astype(np.int32)
 
+    if spl > 1 and (args.steps - start_step) % spl:
+        ap.error(f"resumed at step {start_step}: the remaining {args.steps - start_step} steps "
+                 f"must divide by --steps-per-launch {spl}")
+
     def one(p, opt_state, tokens):
         """One optimizer step: loss and gradients, then the chain."""
         loss, grads = value_and_grad(lambda leaves: lm_loss(leaves, tokens, cfg), p)
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, opt_state)
+            updates, opt_state = tx.update(grads, opt_state, p)
             return optim.apply_updates(p, updates), opt_state, loss
 
     eval_fn = None
@@ -245,9 +275,10 @@ def main(argv=None) -> int:
     print(f"{'step':>5} {'loss':>9} {'bits/byte':>10}")
     log_f = open(args.log_file, "a") if args.log_file else None
     t_start = time.perf_counter()
-    last_t, last_i = t_start, 0
+    last_t, last_i = t_start, start_step
+    loop_raised = False
     try:
-        for i in range(spl, args.steps + 1, spl):
+        for i in range(start_step + spl, args.steps + 1, spl):
             # a launch: spl sequential steps, each on its own batch
             batches = [torch.as_tensor(sample_tokens(), device=device) for _ in range(spl)]
             for tokens in batches:
@@ -280,18 +311,47 @@ def main(argv=None) -> int:
                     rec["eval_loss"] = round(float(ev), 6)
                 log_f.write(json.dumps(rec) + "\n")
                 log_f.flush()
+            if mgr is not None and (i == args.steps
+                                    or (args.save_every and i % args.save_every == 0)):
+                # the final step is always saved, so a later --resume finds
+                # it; the host snapshot is taken here, the write overlaps
+                # the next steps
+                mgr.save_async(i, {"params": params, "opt": opt})
+    except BaseException:
+        # a flag, not sys.exc_info(): inside the drain's handler below that
+        # reports the exception being handled, and would hide a failed
+        # save on a clean run
+        loop_raised = True
+        raise
     finally:
         if log_f is not None:
             log_f.close()
+        if mgr is not None:
+            # drain even when the loop raised: a completed save beats a
+            # discarded one
+            try:
+                mgr.wait()
+            except RuntimeError as e:
+                # a failed save fails a clean run, and never masks the
+                # loop's own exception (or a Ctrl-C)
+                if not loop_raised:
+                    raise
+                print(f"async checkpoint failure during shutdown: {e}", file=sys.stderr)
 
     if args.prompt is not None:
         prompt = np.frombuffer(args.prompt.encode("utf-8", "replace") or b"\n",
                                np.uint8).astype(np.int64)[None, :]
-        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-        out = lm_generate(params, prompt, cfg, steps=args.gen_tokens,
-                          temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-                          eos_id=args.eos_byte, generator=gen)[0].cpu().numpy()
-        note = "greedy" if not args.temperature else "sampled"
+        if args.beam:
+            beams, scores = lm_beam_search(params, prompt, cfg, steps=args.gen_tokens,
+                                           beam_width=args.beam, eos_id=args.eos_byte)
+            out = beams[0, 0].cpu().numpy()
+            note = f"beam {args.beam}, logprob {float(scores[0, 0]):.2f}"
+        else:
+            gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+            out = lm_generate(params, prompt, cfg, steps=args.gen_tokens,
+                              temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                              eos_id=args.eos_byte, generator=gen)[0].cpu().numpy()
+            note = "greedy" if not args.temperature else "sampled"
         if args.eos_byte is not None:
             # "eos then pads": truncate at the first stop byte inside the
             # GENERATED region so the terminal never sees the pads

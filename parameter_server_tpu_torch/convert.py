@@ -56,21 +56,27 @@ def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def _lm_shapes(cfg) -> Dict[str, tuple]:
-    d, kv_w = cfg.d_model, cfg.kv_heads * cfg.head_dim
+    d, f, e, kv_w = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.kv_heads * cfg.head_dim
     shapes = {"emb": (cfg.vocab, d), "ln_f": (d,)}
     for i in range(cfg.n_layers):
         shapes.update({f"l{i}/ln1": (d,), f"l{i}/ln2": (d,), f"l{i}/wq": (d, d),
-                       f"l{i}/wk": (d, kv_w), f"l{i}/wv": (d, kv_w), f"l{i}/wo": (d, d),
-                       f"l{i}/w1": (d, cfg.d_ff), f"l{i}/w2": (cfg.d_ff, d)})
+                       f"l{i}/wk": (d, kv_w), f"l{i}/wv": (d, kv_w), f"l{i}/wo": (d, d)})
+        if cfg.moe_every > 0 and (i + 1) % cfg.moe_every == 0:  # a MoE layer: no w1/w2
+            shapes.update({f"l{i}/moe_router": (d, e), f"l{i}/moe_w_in": (e, d, f),
+                           f"l{i}/moe_w_out": (e, f, d)})
+        else:
+            shapes.update({f"l{i}/w1": (d, f), f"l{i}/w2": (f, d)})
     return shapes
 
 
 def lm_params_from_jax(np_params: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
     """The JAX ``init_lm`` dict (``emb``, ``ln_f``, ``l{i}/ln1|ln2|wq|wk|
-    wv|wo|w1|w2``, numpy arrays) -> the port's float32 parameters on
-    ``device`` (CUDA by default; raises without a card). Raises on a
+    wv|wo`` and ``l{i}/w1|w2``, or on a MoE layer ``l{i}/moe_router|
+    moe_w_in|moe_w_out``; numpy arrays) -> the port's float32 parameters
+    on ``device`` (CUDA by default; raises without a card). Raises on a
     missing, extra or misshapen entry for ``cfg`` (a
-    :class:`..models.transformer.LMConfig`)."""
+    :class:`..models.transformer.LMConfig`), so a dict whose layers do
+    not follow ``cfg.moe_every`` is refused."""
     dev = resolve(device)
     shapes = _lm_shapes(cfg)
     if set(np_params) != set(shapes):

@@ -6,25 +6,32 @@ Counterpart of ``parameter_server_tpu/models/transformer.py``:
 :func:`value_and_grad` and the SGD steps :func:`make_lm_train_step` /
 :func:`make_lm_train_step_with_targets`; the int8 or compute-dtype KV
 cache, the batched causal prefill, the one-token and chunked decode
-steps, and :func:`lm_generate` (dense and ragged batches, greedy or
-sampled, with ``eos_id``, ``return_logits`` and ``return_state``).
-Parameters are a plain dict of float32 tensors with the JAX package's
-names (``emb``, ``ln_f``, ``l{i}/ln1|ln2|wq|wk|wv|wo|w1|w2``);
-:mod:`..convert` carries them over from the JAX package.
+steps, :func:`lm_generate` (dense and ragged batches, greedy or
+sampled, with ``eos_id``, ``return_logits`` and ``return_state``),
+:func:`lm_generate_continue` (multi-turn serving from a
+:class:`GenState`) and :func:`lm_beam_search`. Every ``moe_every``-th
+layer's FFN can be a mixture of experts: capacity-routed in training
+(:mod:`.moe`), dropless in serving (:func:`_moe_ffn_dropless`), its
+router and experts float32 under any compute dtype. Parameters are a
+plain dict of float32 tensors with the JAX package's names (``emb``,
+``ln_f``, ``l{i}/ln1|ln2|wq|wk|wv|wo``, then ``l{i}/w1|w2`` or, on a MoE
+layer, ``l{i}/moe_router|moe_w_in|moe_w_out``); :mod:`..convert`
+carries them over from the JAX package.
 
 On the card attention is the hand-written CUDA flash-attention kernels:
 ``flash_fwd`` for the prefill and the training forward, ``flash_bwd_dq``
 and ``flash_bwd_dkv`` for the training backward
 (:mod:`..ops.flash_attention`); on the CPU it is their plain versions.
 The decode step's attention is plain tensor code over the cache, as it
-is in the JAX package, and the projections and MLP are
-``torch.matmul``. Everything follows the device of the parameters it is
-given.
+is in the JAX package, and the projections, MLP, MoE routing and
+experts are ``torch.matmul``, ``torch.bmm`` and index ops. Everything
+follows the device of the parameters it is given.
 
 Differences from the JAX package, none of which changes a result:
 
 - caches are written IN PLACE (``cache[i, :, :, pos] = ...``), where JAX
-  updates them functionally and XLA in place;
+  updates them functionally and XLA in place (so a continuation extends
+  its state's caches);
 - serving casts the weights to the compute dtype once per call, as XLA
   hoists the cast out of its decode scan (training casts them inside
   each layer, as JAX does, so the gradient reaches the float32 weights);
@@ -41,8 +48,7 @@ Differences from the JAX package, none of which changes a result:
 
 Not here yet: the attention layouts across cards (``attention=
 "ring_zigzag"`` and ``"a2a"`` raise ``NotImplementedError``, ROADMAP A9),
-so also ``zigzag_lm_arrays``; beam search, ``lm_generate_continue`` and
-MoE layers (``moe_every > 0`` raises ``NotImplementedError``, A11).
+so also ``zigzag_lm_arrays``, and experts sharded across cards (A9).
 """
 
 from __future__ import annotations
@@ -56,9 +62,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..device import resolve
+from ..device import resolve, scalar_like
 from ..ops.flash_attention import flash_mha
 from .attention import ring_attention
+from .moe import init_moe, moe_ffn
 
 Params = Dict[str, torch.Tensor]
 _NEG = -1e30  # finite mask value, as in the JAX package
@@ -115,9 +122,6 @@ class LMConfig:
         if self.rope and (self.d_model // self.n_heads) % 2:
             raise ValueError(f"LMConfig.rope pairs head dimensions: head_dim="
                              f"{self.d_model // self.n_heads} must be even")
-        if self.moe_every > 0:
-            raise NotImplementedError("LMConfig.moe_every > 0: MoE layers (the dropless serving "
-                                      "FFN) are not ported yet (ROADMAP Queue A item 11)")
 
     @property
     def kv_heads(self) -> int:
@@ -155,20 +159,41 @@ def init_lm(seed: int, cfg: LMConfig, device=None) -> Params:
         p[f"l{i}/wk"] = wk[:, :kv_w].contiguous()  # GQA: narrow K/V projections
         p[f"l{i}/wv"] = wv[:, :kv_w].contiguous()
         p[f"l{i}/wo"] = normal(d, d)
-        p[f"l{i}/w1"] = normal(d, cfg.d_ff)
-        p[f"l{i}/w2"] = normal(cfg.d_ff, d)
+        if _is_moe_layer(cfg, i):
+            moe = init_moe(gen, d, cfg.d_ff, cfg.n_experts)
+            p[f"l{i}/moe_router"] = moe["router"]
+            p[f"l{i}/moe_w_in"] = moe["w_in"]
+            p[f"l{i}/moe_w_out"] = moe["w_out"]
+        else:
+            p[f"l{i}/w1"] = normal(d, cfg.d_ff)
+            p[f"l{i}/w2"] = normal(cfg.d_ff, d)
     return {k: v.to(dev) for k, v in p.items()}
 
 
-_LAYER_WEIGHTS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w1", "w2")
+def _is_moe_layer(cfg: LMConfig, i: int) -> bool:
+    return cfg.moe_every > 0 and (i + 1) % cfg.moe_every == 0
+
+
+def _layer_weights(cfg: LMConfig, i: int):
+    """The names of layer ``i``'s weights that run in the compute dtype.
+    A MoE layer's router and experts are not among them: they stay
+    float32, as the JAX package routes and runs the experts in float32."""
+    dense = ("ln1", "ln2", "wq", "wk", "wv", "wo")
+    return dense if _is_moe_layer(cfg, i) else dense + ("w1", "w2")
+
+
+def _moe_layer_params(params, i: int):
+    """The MoE leaves of layer ``i`` for the serving path."""
+    return {name: params[f"l{i}/{name}"] for name in ("moe_router", "moe_w_in", "moe_w_out")}
 
 
 def _weights(params: Params, cfg: LMConfig) -> Params:
     """The layer weights cast to the compute dtype, once per call (a
-    no-op for float32); ``emb`` and ``ln_f`` stay float32."""
+    no-op for float32); ``emb``, ``ln_f`` and the MoE weights stay
+    float32."""
     w = dict(params)
     for i in range(cfg.n_layers):
-        for name in _LAYER_WEIGHTS:
+        for name in _layer_weights(cfg, i):
             w[f"l{i}/{name}"] = params[f"l{i}/{name}"].to(cfg.dtype)
     return w
 
@@ -212,9 +237,40 @@ def _logits(params, x):
     return _ln(x.to(torch.float32), params["ln_f"]) @ params["emb"].T
 
 
-def _mlp(w, i: int, x):
+def _moe_ffn_dropless(lp, h2, n_experts: int):
+    """Serving's MoE FFN: every token routed on its own to the expert of
+    its largest gate, with no capacity. Training's capacity drops depend
+    on the whole batch, which incremental decoding cannot see, so serving
+    is dropless; it equals the training forward wherever the training
+    capacity did not bind (``capacity_factor >= n_experts`` guarantees
+    that). Routing and experts in float32, relu, the output scaled by
+    the gate. As in the JAX package, each expert runs over every token
+    and its output is kept where the token chose it: no per-token weight
+    gather and no host sync, the right trade for the decode step, at
+    ``n_experts`` times the dense FFN's FLOP in a prefill."""
+    shape = h2.shape
+    x = h2.reshape(-1, shape[-1]).to(torch.float32)  # [T, d]
+    gates = torch.softmax(x @ lp["moe_router"], dim=-1)  # [T, E]
+    expert = torch.argmax(gates, dim=-1)
+    gate = gates.gather(1, expert[:, None])[:, 0]
+    out = torch.zeros_like(x)
+    for e in range(n_experts):
+        y = torch.relu(x @ lp["moe_w_in"][e]) @ lp["moe_w_out"][e]
+        out = out + torch.where((expert == e)[:, None], y, 0.0)
+    return (out * gate[:, None]).reshape(shape)
+
+
+def _mlp(w, i: int, h2):
+    return F.gelu(h2 @ w[f"l{i}/w1"], approximate="tanh") @ w[f"l{i}/w2"]
+
+
+def _ffn(w, cfg: LMConfig, i: int, x):
+    """Layer ``i``'s residual FFN block in serving: the GELU MLP, or the
+    dropless MoE FFN on a MoE layer."""
     h2 = _ln(x, w[f"l{i}/ln2"])
-    return x + F.gelu(h2 @ w[f"l{i}/w1"], approximate="tanh") @ w[f"l{i}/w2"]
+    if _is_moe_layer(cfg, i):
+        return x + _moe_ffn_dropless(_moe_layer_params(w, i), h2, cfg.n_experts).to(cfg.dtype)
+    return x + _mlp(w, i, h2)
 
 
 # -- training --
@@ -228,7 +284,7 @@ def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
     under ``jax.checkpoint``), attention through the ring schedule."""
     b, s, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    w = {f"l{i}/{n}": params[f"l{i}/{n}"].to(cfg.dtype) for n in _LAYER_WEIGHTS}
+    w = {f"l{i}/{n}": params[f"l{i}/{n}"].to(cfg.dtype) for n in _layer_weights(cfg, i)}
     h = _ln(x, w[f"l{i}/ln1"])
     q, k, v = h @ w[f"l{i}/wq"], h @ w[f"l{i}/wk"], h @ w[f"l{i}/wv"]
     if cfg.rope:  # rotate BEFORE the GQA broadcast: k is still narrow
@@ -248,7 +304,15 @@ def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
                          impl=_RING_IMPL[cfg.attention], window=cfg.window)
     att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
     x = x + att.to(cfg.dtype) @ w[f"l{i}/wo"]
-    return _mlp(w, i, x)
+    h2 = _ln(x, w[f"l{i}/ln2"])
+    if not _is_moe_layer(cfg, i):
+        return x + _mlp(w, i, h2)
+    # routing and the capacity bookkeeping in float32, for a stable
+    # expert choice
+    moe_p = {"router": params[f"l{i}/moe_router"], "w_in": params[f"l{i}/moe_w_in"],
+             "w_out": params[f"l{i}/moe_w_out"]}
+    return x + moe_ffn(moe_p, h2.to(torch.float32),
+                       capacity_factor=cfg.capacity_factor).to(cfg.dtype)
 
 
 def lm_forward(params: Params, tokens, cfg: LMConfig):
@@ -475,7 +539,7 @@ def _chunk_decode(w, cfg: LMConfig, toks, kcache, vcache, pos):
         _cache_write_rows(vcache, i, qpos, v)
         att = _attend_cache(q.to(torch.float32), kcache, vcache, i, keep, hd, "bckgd")
         x = x + att.reshape(b, c, cfg.d_model).to(cfg.dtype) @ w[f"l{i}/wo"]
-        x = _mlp(w, i, x)
+        x = _ffn(w, cfg, i, x)
     return _logits(w, x)
 
 
@@ -508,7 +572,7 @@ def _decode_step(w, cfg: LMConfig, tok, kcache, vcache, pos: int):
         _cache_write(vcache, idx, v)
         att = _attend_cache(q.to(torch.float32), kcache, vcache, i, keep, hd, "bkgd")
         x = x + att.reshape(b, cfg.d_model).to(cfg.dtype) @ w[f"l{i}/wo"]
-        x = _mlp(w, i, x)
+        x = _ffn(w, cfg, i, x)
     return _logits(w, x)
 
 
@@ -546,7 +610,7 @@ def _prefill(w, cfg: LMConfig, prompt, kcache, vcache):
         _cache_write(vcache, idx, v.transpose(1, 2))
         att = _prefill_attention(q, k, v, cfg.window).to(cfg.dtype)
         x = x + att @ w[f"l{i}/wo"]
-        x = _mlp(w, i, x)
+        x = _ffn(w, cfg, i, x)
     return _logits(w, x)
 
 
@@ -750,3 +814,186 @@ def _generate_ragged(w, cfg, prompt, lengths, steps, capacity, pick, eos_id):
         out[rows, pos + 1] = nxt
         cur = nxt
     return out
+
+
+# -- multi-turn continuation --
+
+
+def lm_generate_continue(params: Params, state: GenState, cfg: LMConfig, steps: int, *,
+                         new_tokens=None, temperature=None, top_k: "int | None" = None,
+                         top_p: "float | None" = None,
+                         generator: "torch.Generator | None" = None):
+    """Extend a :class:`GenState` by ``steps`` tokens without re-reading
+    the history: ``new_tokens`` [B, M] (the next turn) goes through the
+    caches in ONE :func:`_chunk_decode` pass, then ``steps`` tokens are
+    decoded one at a time. Returns ``(generated [B, steps], new state)``.
+    The state's capacity (``lm_generate(..., max_len=)``) must hold
+    ``state.length + M + steps`` slots, else ``ValueError``. Sampling as
+    :func:`lm_generate`.
+
+    ``steps=0`` with ``new_tokens`` ingests the turn only: the new state
+    is ``boundary_cached`` and carries the turn's next-token logits, so
+    the next call starts from them and rewrites no cached slot. ``steps=0``
+    without tokens returns the state as it is.
+
+    The caches are extended IN PLACE (JAX returns new ones). A state
+    handed in earlier stays usable: the slots it has not written are
+    rewritten before they are read."""
+    greedy, temp, top_p_val = _sampling_args(cfg, temperature, top_k, top_p, generator)
+    b = state.last_tok.shape[0]
+    dev = state.last_tok.device
+    m = 0 if new_tokens is None else new_tokens.shape[1]
+    if steps == 0 and m == 0:
+        return torch.zeros((b, 0), dtype=torch.int64, device=dev), state
+    need = state.length + m + steps
+    if need > state.capacity:
+        raise ValueError(f"continuation needs {need} cache slots but the state was allocated "
+                         f"{state.capacity} — create it with lm_generate(..., max_len={need}) "
+                         "or more")
+    new_tokens = (torch.zeros((b, 0), dtype=torch.int64, device=dev) if new_tokens is None
+                  else torch.as_tensor(new_tokens, device=dev).to(torch.int64))
+    w = _weights(params, cfg)
+    kc, vc = state.kcache, state.vcache
+
+    def at(pos):
+        return torch.full((b,), pos, dtype=torch.int64, device=dev)
+
+    if state.boundary_cached:
+        # every slot so far is written: ingest only the new turn, or start
+        # from the carried logits
+        src_logits = (_chunk_decode(w, cfg, new_tokens, kc, vc, at(state.length))[:, -1]
+                      if m > 0 else state.last_logits)
+    else:
+        # the last token's slot is pending: ingest [last token, new turn]
+        chunk = torch.cat([state.last_tok[:, None].to(torch.int64), new_tokens], 1)
+        src_logits = _chunk_decode(w, cfg, chunk, kc, vc, at(state.length - 1))[:, -1]
+    if steps == 0:
+        return (torch.zeros((b, 0), dtype=torch.int64, device=dev),
+                GenState(kc, vc, new_tokens[:, -1], need, True, src_logits))
+
+    def pick(logits):
+        return _pick_token(logits, generator, temp, top_p_val, greedy=greedy, top_k=top_k,
+                           has_top_p=top_p is not None)
+
+    start = state.length + m  # the absolute position of the first generated token
+    gen = torch.zeros((b, steps), dtype=torch.int64, device=dev)
+    gen[:, 0] = pick(src_logits)
+    for i in range(steps - 1):
+        gen[:, i + 1] = pick(_decode_step(w, cfg, gen[:, i], kc, vc, start + i))
+    return gen, GenState(kc, vc, gen[:, -1], need)
+
+
+# -- beam search --
+
+
+def _top(x, k: int):
+    """The ``k`` largest of each row and their indices, equal values in
+    index order, as ``jax.lax.top_k`` (``torch.topk`` promises no order
+    for ties on CUDA)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def lm_beam_search(params: Params, prompt, cfg: LMConfig, steps: int, *, beam_width: int = 4,
+                   eos_id: "int | None" = None, length_penalty: float = 0.0, prompt_lengths=None):
+    """Beam search over the KV-cached decode path: the ``beam_width``
+    highest-log-probability continuations of each prompt, as ``(tokens
+    [B, W, P + steps], scores [B, W])`` best first.
+
+    One prefill fills the caches, which are then tiled W times (rows
+    ``b * W + w``); each step scores all ``W * vocab`` candidates, keeps
+    the top W (ties to the lower index, as ``jax.lax.top_k``) and
+    reorders every cache leaf, the int8 scales too, by each survivor's
+    parent. ``scores`` are sums of next-token log-probabilities.
+
+    ``eos_id``: a beam that emits it is finished: its score freezes and it
+    pads with 0, competing as one candidate. ``length_penalty`` alpha
+    divides by ``((5 + len) / 6) ** alpha`` at the final ranking only
+    (``len`` the generated tokens, eos included), sorted stably as
+    ``jnp.argsort``. ``prompt_lengths`` [B] makes the batch ragged, as in
+    :func:`lm_generate`: row b's beams continue at ``len_b``, zeros past
+    ``len_b + steps``, each prompt's beams those of a single-prompt call.
+    Deterministic."""
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+        raise ValueError(f"eos_id must be in [0, vocab={cfg.vocab}), got {eos_id}")
+    if beam_width > cfg.vocab:
+        raise ValueError(f"beam_width {beam_width} > vocab {cfg.vocab}: the first expansion "
+                         "cannot fill the beams")
+    dev = params["emb"].device
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    ragged = prompt_lengths is not None
+    lengths = (_validate_prompt_lengths(prompt_lengths, prompt) if ragged else
+               torch.full((prompt.shape[0],), prompt.shape[1], dtype=torch.int64, device=dev))
+    toks, scores, gen_len = _beam(_weights(params, cfg), cfg, prompt, lengths, eos_id, steps,
+                                  beam_width, ragged)
+    ranked = scores
+    if length_penalty:
+        six = scalar_like(6.0, scores)
+        ranked = scores / ((5.0 + gen_len.to(torch.float32)) / six) ** float(length_penalty)
+    order = torch.sort(-ranked, dim=1, stable=True).indices
+    return (toks.gather(1, order[:, :, None].expand(-1, -1, toks.shape[2])),
+            scores.gather(1, order))
+
+
+def _beam(w, cfg: LMConfig, prompt, lengths, eos_id, steps: int, width: int, ragged: bool):
+    b, p_len = prompt.shape
+    dev, vocab = prompt.device, cfg.vocab
+    total = p_len + steps
+    kc, vc = _alloc_kv_caches(cfg, b, total, dev)
+    prefill_logits = _prefill(w, cfg, prompt, kc, vc)
+    rows = torch.arange(b, device=dev)
+    # each prompt's first expansion reads ITS last real position
+    last = prefill_logits[rows, lengths - 1] if ragged else prefill_logits[:, -1]
+    del prefill_logits
+    scores, tok = _top(torch.log_softmax(last.to(torch.float32), dim=-1), width)  # [B, W]
+
+    def tile(cache):  # [L, B, ...] -> [L, B*W, ...], beam-major rows b*W + w
+        return tuple(None if x is None else x.repeat_interleave(width, dim=1) for x in cache)
+
+    kc, vc = tile(kc), tile(vc)
+    base = torch.where(torch.arange(p_len, device=dev)[None, :] < lengths[:, None], prompt, 0) \
+        if ragged else prompt
+    toks = torch.zeros((b, width, total), dtype=torch.int64, device=dev)
+    toks[:, :, :p_len] = base[:, None, :]
+    beams = torch.arange(width, device=dev)[None, :]
+    if ragged:
+        toks[rows[:, None], beams, lengths[:, None]] = tok
+    else:
+        toks[:, :, p_len] = tok
+    done = tok == eos_id if eos_id is not None else None
+    gen_len = torch.ones((b, width), dtype=torch.int32, device=dev)  # tokens emitted, eos included
+    batch_base = (rows * width)[:, None]
+    lengths_rows = lengths.repeat_interleave(width)
+    if eos_id is not None:  # a finished beam's only candidate: pad at an unchanged score
+        frozen = torch.full((vocab,), -torch.inf, device=dev)
+        frozen[0] = 0.0
+    for t in range(steps - 1):
+        cur = tok.reshape(b * width)
+        if ragged:  # per-row positions through the chunk path
+            logits = _chunk_decode(w, cfg, cur[:, None], kc, vc, lengths_rows + t)[:, 0]
+        else:
+            logits = _decode_step(w, cfg, cur, kc, vc, p_len + t)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(b, width, vocab)
+        if done is not None:
+            logp = torch.where(done[:, :, None], frozen, logp)
+        scores, idx = _top((scores[:, :, None] + logp).reshape(b, width * vocab), width)
+        parent, tok = idx // vocab, idx % vocab
+        toks = toks.gather(1, parent[:, :, None].expand(-1, -1, total))
+        gen_len = gen_len.gather(1, parent)
+        flat_parent = (batch_base + parent).reshape(-1)
+        kc, vc = (tuple(None if x is None else x[:, flat_parent] for x in c) for c in (kc, vc))
+        if ragged:
+            toks[rows[:, None], beams, (lengths + t + 1)[:, None]] = tok
+        else:
+            toks[:, :, p_len + 1 + t] = tok
+        if done is not None:
+            done = done.gather(1, parent)
+            gen_len += (~done).to(torch.int32)
+            done |= tok == eos_id
+        else:
+            gen_len += 1
+    return toks, scores, gen_len

@@ -1,0 +1,178 @@
+"""Checkpoints: save and restore trees of tensors in a directory.
+
+Counterpart of ``parameter_server_tpu/parameter/replica.py``'s
+``CheckpointManager`` in its NumPy format (the JAX package writes with
+orbax where orbax is installed and falls back to this format): step
+``N`` lives in ``step_{N:010d}/arrays.npz``, the tree's leaves as
+positional arrays ``arr_0``, ``arr_1``, ... beside ``__treedef__`` (the
+tree's structure as text, for a reader; restore takes the structure
+from its template). A tree is a nest of dicts (in sorted-key order, as
+``jax.tree.flatten`` orders a dict), lists and tuples over leaves:
+tensors (saved from the host, restored onto the template's device),
+numpy arrays and Python numbers; ``None`` holds no leaf. So a params-only
+dict saved by either package restores in the other.
+
+A write goes to ``step_N.tmp`` and is renamed into place; the
+``checkpoint.write`` fault point (:mod:`..system.faults`) fires between
+the two, where a crash can leave only a torn ``.tmp`` that
+:meth:`CheckpointManager.latest_step` never lists. ``ReplicaManager``
+(in-memory replicas) is ROADMAP A13.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from ..system import faults
+
+
+def _leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in ``jax.tree.flatten``'s order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def _structure(tree: Any) -> str:
+    """The tree's structure as text, ``*`` for a leaf."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_structure(t) for t in tree) + "]"
+    return "*"
+
+
+def _host(leaf: Any, copy: bool) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:  # numpy has no bfloat16: widened exactly
+            t = t.to(torch.float32)
+        return t.cpu().numpy().copy() if copy else t.cpu().numpy()
+    return np.array(leaf) if copy else np.asarray(leaf)
+
+
+def _rebuild(tmpl: Any, arrays) -> Any:
+    """``tmpl``'s structure with its leaves taken in order from the
+    iterator ``arrays``."""
+    if tmpl is None:
+        return None
+    if isinstance(tmpl, dict):  # leaves in sorted-key order, keys in the template's
+        out = {k: _rebuild(tmpl[k], arrays) for k in sorted(tmpl)}
+        return {k: out[k] for k in tmpl}
+    if isinstance(tmpl, (list, tuple)):
+        return type(tmpl)(_rebuild(t, arrays) for t in tmpl)
+    arr = next(arrays)
+    if isinstance(tmpl, torch.Tensor):
+        return torch.from_numpy(np.array(arr)).to(device=tmpl.device, dtype=tmpl.dtype)
+    if isinstance(tmpl, (bool, int, float)) and not isinstance(tmpl, np.generic):
+        return type(tmpl)(arr)
+    return arr
+
+
+class CheckpointManager:
+    """Save/restore trees of tensors under ``directory``."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self._pending: Optional[threading.Thread] = None
+        self._async_error: Optional[BaseException] = None
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:010d}")
+
+    def _write(self, path: str, flat: List[np.ndarray], structure: str) -> None:
+        # under a .tmp name, then renamed: a crash, or a writer thread
+        # killed at interpreter exit, leaves only a step_*.tmp dir, which
+        # latest_step's int() parse skips
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), *flat,
+                 __treedef__=np.frombuffer(structure.encode(), dtype=np.uint8))
+        # die mid-write: the tmp dir written, the rename not done
+        faults.inject("checkpoint.write", detail=path)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+
+    def save(self, step: int, tree: Any) -> str:
+        """Write ``tree`` as step ``step``, after any save in flight."""
+        self.wait()
+        path = self._step_dir(step)
+        self._write(path, [_host(x, copy=False) for x in _leaves(tree)], _structure(tree))
+        return path
+
+    def save_async(self, step: int, tree: Any) -> str:
+        """Take the host snapshot now (owned copies: the caller may change
+        its tensors in place at the next step), then write it on a thread
+        while training goes on. Saves run one at a time; a failed write
+        re-raises from the next ``save``, ``save_async`` or :meth:`wait`,
+        which the caller runs before it exits."""
+        self.wait()
+        path = self._step_dir(step)
+        flat = [_host(x, copy=True) for x in _leaves(tree)]
+        t = threading.Thread(target=self._write_guarded, args=(path, flat, _structure(tree)),
+                             name=f"ckpt-save-{step}", daemon=True)
+        self._pending = t
+        t.start()
+        return path
+
+    def _write_guarded(self, path: str, flat, structure: str) -> None:
+        try:
+            self._write(path, flat, structure)
+        except BaseException as e:  # surfaced by the next wait()
+            self._async_error = e
+
+    def wait(self) -> None:
+        """Drain the save in flight, re-raising its failure."""
+        t, self._pending = self._pending, None
+        if t is not None:
+            t.join()
+        if self._async_error is not None:
+            e, self._async_error = self._async_error, None
+            raise RuntimeError("async checkpoint save failed (the checkpoint at the failed step "
+                               "is incomplete on disk)") from e
+
+    def restore(self, step: int, like: Any = None) -> Any:
+        """Step ``step`` in the structure of ``like``: tensors onto the
+        template leaf's device and dtype, Python numbers as their type,
+        numpy arrays as saved. Raises ``ValueError`` when the counts of
+        leaves differ."""
+        self.wait()  # a save in flight may be writing this step
+        path = self._step_dir(step)
+        if like is None:
+            raise ValueError("the npz checkpoint format restores into a template: pass like=")
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            arrays = [data[k] for k in data.files if k != "__treedef__"]
+        n_leaves = len(_leaves(like))
+        if n_leaves != len(arrays):
+            raise ValueError(f"checkpoint at {path} holds {len(arrays)} arrays where the "
+                             f"template expects {n_leaves} leaves — saved with a different "
+                             "model/optimizer config?")
+        return _rebuild(like, iter(arrays))
+
+    def latest_step(self) -> Optional[int]:
+        """The largest saved step, or None."""
+        self.wait()  # a step being written must not be listed
+        steps = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_"):
+                try:
+                    steps.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return max(steps) if steps else None

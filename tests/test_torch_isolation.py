@@ -62,7 +62,7 @@ def test_port_imports_nothing_of_jax():
               "system.postoffice", "parameter.parameter", "parameter.kv_vector", "ops.kv_ops",
               "serving", "serving.admission", "serving.coalescer", "serving.replica",
               "serving.loadgen", "serving.batcher", "serving.frontend", "apps.serve.main",
-              "models.speculative"):
+              "models.speculative", "models.moe", "models.pipeline", "parameter.replica"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -173,17 +173,10 @@ def test_cli_tiny_corpus_rejected(tmp_path):
 
 
 UNPORTED = [
-    (["--optimizer", "adafactor"], "A11"),
-    (["--optimizer", "lion"], "A11"),
     (["--zero1"], "A9"),
     (["--fsdp"], "A9"),
     (["--num-servers", "2"], "A9"),
-    (["--ckpt-dir", "/nonexistent/ckpt"], "A11"),
-    (["--save-every", "5"], "A11"),
-    (["--resume"], "A11"),
     (["--profile", "/nonexistent/prof"], "A12"),
-    (["--beam", "2"], "A11 item 2"),
-    (["--moe-every", "1"], "A11"),
     (["--attention", "ring_zigzag"], "A9"),
     (["--attention", "a2a"], "A9"),
 ]

@@ -486,12 +486,6 @@ def test_config_validation_matches_jax(kw):
         ttr.LMConfig(**{**BASE, **kw})
 
 
-def test_moe_layers_are_not_ported():
-    jtr.LMConfig(**BASE, moe_every=2)
-    with pytest.raises(NotImplementedError, match="moe_every"):
-        ttr.LMConfig(**BASE, moe_every=2)
-
-
 def test_serving_config_is_the_documented_one():
     from parameter_server_tpu_torch.benchmarks import lm_serve
 
