@@ -196,6 +196,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    slots 1, 4, 8 and 16, 6 sessions a slot joining as slots free: every
    session's tokens equal to its solo ``speculative_generate`` run,
    batched against sequential tokens/s;
+8b. telemetry on the card (``parameter_server_tpu_torch/telemetry``): (a)
+   phase 5's CTR conf cut to one pass through the linear CLI, with
+   ``--report-interval 1 --profile DIR`` and without: the same model bits,
+   the ``torch.profiler`` capture's ``ftrl_dense`` / ``quantize`` /
+   ``segment_sum`` kernel records equal to the launch counters, the
+   dashboard printed; (b) the serve CLI at phase A's defaults with
+   ``--replica full --decode --batch-slots 8 --expose-port 0``, scraped
+   from a thread (``/metrics``, ``/healthz``, ``/debug/snapshot``; the
+   scrape's host time): ``ps_serve_requests_total`` equal to the CLI's own
+   record, ``ps_device_hbm_bytes_in_use`` equal to
+   ``torch.cuda.memory_stats()`` read beside it; (c) the LM CLI's
+   2-layer float32 default for 5 steps with ``--profile`` and without:
+   bit-equal losses, the capture's ``flash_fwd`` / ``flash_bwd_dq`` /
+   ``flash_bwd_dkv`` records equal to the counters; (d) the device
+   inventory sampling every 8th call over the pipelined headline: the
+   roofline gauges present, every ``ps_device_roofline_frac`` at most
+   1.05, no new signature after warm-up, no dispatch fallback; (e) the
+   pipelined headline with telemetry on and off, three pairs in turns,
+   each beside a run with telemetry on and the key heat never noted, the
+   medians printed;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -3074,6 +3094,307 @@ def serving_plane(seed: int, smi: str, gen) -> dict:
                 seconds=dict(a=t_a - t0, b=t_b - t_a, c=t_c - t_b, d=t_d - t_c))
 
 
+# -- phase 8b: telemetry on the card ------------------------------------------
+
+#: a trace's kernel records, by the substring of the kernel's symbol
+TRACE_KERNELS = dict(ftrl_dense="ftrl_dense_kernel", quantize="quantize_kernel",
+                     segment_sum="segment_sum_f32", flash_fwd="flash_fwd_",
+                     flash_bwd_dq="flash_bwd_dq_", flash_bwd_dkv="flash_bwd_dkv_")
+ROOFLINE_MAX = 1.05  # a share over this is a wrong count, not a fast kernel
+SAMPLE_EVERY = 8
+OVERHEAD_PAIRS = 3
+LM_DEFAULT = ["--steps", "5", "--report-every", "1", "--seed", "3", "--device", "cuda"]
+
+
+def trace_kernels(log_dir: str) -> dict:
+    """The newest capture's kernel records of each kernel of the port."""
+    from parameter_server_tpu_torch.utils import profiling
+
+    by_name = profiling.kernel_counts(log_dir)
+    check(by_name, f"capture in {log_dir}: no CUDA kernel record (a failed capture)")
+    return {k: sum(n for name, n in by_name.items() if sub in name)
+            for k, sub in TRACE_KERNELS.items()}
+
+
+def registry_values(name: str) -> dict:
+    from parameter_server_tpu_torch.telemetry import registry as treg
+
+    return treg.default_registry().snapshot().get(name, {}).get("values", {})
+
+
+def telemetry_ctr(tmp: str, seed: int) -> dict:
+    """(a) the CTR conf cut to one pass through the linear CLI, with
+    ``--report-interval 1 --profile DIR`` and without: the same model
+    bits, the capture's kernel records equal to the launch counters, the
+    dashboard printed."""
+    write_ctr_shards(os.path.join(tmp, "train"), CTR_SHARDS, CTR_ROWS, seed)
+    runs = {}
+    for name, extra in (("profiled", ["--report-interval", "1", "--profile",
+                                      os.path.join(tmp, "prof")]), ("plain", [])):
+        model = os.path.join(tmp, "model", name)
+        path = os.path.join(tmp, f"{name}.conf")
+        with open(path, "w") as f:
+            f.write(ctr_conf(os.path.join(tmp, "train", "part.*"), model, num_data_pass=1))
+        random.seed(seed)
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = linear_main.main([path] + extra, device="cuda")
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"telemetry CTR {name}: the CLI exited {rc}")
+        _, dense_n, quant_n, seg_n = counts()
+        with open(model + "_S0", "rb") as f:
+            runs[name] = dict(model=f.read(), out=buf.getvalue(), wall_s=wall,
+                              launches=dict(ftrl_dense=dense_n, quantize=quant_n, segment_sum=seg_n))
+    prof, plain = runs["profiled"], runs["plain"]
+    check(prof["model"] == plain["model"], "telemetry CTR: --profile changed the model")
+    check("node      total(s)" in prof["out"] and "telemetry:" in prof["out"],
+          "telemetry CTR: no dashboard printed")
+    traced = trace_kernels(os.path.join(tmp, "prof"))
+    for k, n in prof["launches"].items():
+        check(n > 0 and traced[k] == n, f"telemetry CTR: trace has {traced[k]} {k} records, "
+              f"the counter {n}")
+    return dict(launches=prof["launches"], traced={k: traced[k] for k in prof["launches"]},
+                wall_s=dict(profiled=prof["wall_s"], plain=plain["wall_s"]),
+                model_bytes=len(prof["model"]))
+
+
+def telemetry_serve(seed: int) -> dict:
+    """(b) the serve CLI at phase A's defaults with ``--replica full
+    --decode --batch-slots 8 --expose-port 0``, scraped from a thread:
+    every endpoint answers, the request counters equal the CLI's own
+    record, and ``ps_device_hbm_bytes_in_use`` equals
+    ``torch.cuda.memory_stats()`` read beside it."""
+    from parameter_server_tpu_torch.telemetry import exposition
+    from parameter_server_tpu_torch.telemetry import registry as treg
+    import urllib.request
+
+    servers, scrapes, errors = [], [], []
+    real = exposition.expose_cluster
+
+    def capture(*a, **k):
+        srv = real(*a, **k)
+        servers.append(srv)
+        return srv
+
+    def get(url: str) -> bytes:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.read()
+
+    stop = threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            if servers:
+                try:
+                    url = servers[0].url
+                    t0 = time.perf_counter()
+                    text = get(url + "/metrics").decode()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    after = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+                    health = json.loads(get(url + "/healthz"))
+                    snap = json.loads(get(url + "/debug/snapshot"))
+                    scrapes.append(dict(ms=ms, text=text, health=health, snap_keys=sorted(snap),
+                                        after=after))
+                except Exception as e:  # the server closes at the end of the run
+                    errors.append(repr(e))
+            stop.wait(0.25)
+
+    exposition.expose_cluster = capture
+    thread = threading.Thread(target=scrape, name="smoke-scraper", daemon=True)
+    thread.start()
+    reset_counts()
+    try:
+        recs = run_serve_cli(["--num-slots", str(SERVE_SLOTS), "--seed", str(seed), "--device",
+                              "cuda", "--replica", "full", "--decode", "--batch-slots", "8",
+                              "--expose-port", "0"])
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+        exposition.expose_cluster = real
+    check(len(scrapes) >= 3, f"telemetry serve: {len(scrapes)} scrapes ({errors[:3]})")
+    last = scrapes[-1]
+    check('ps_serve_requests_total{' in last["text"] and "ps_device_hbm_bytes_in_use{" in last["text"],
+          "telemetry serve: /metrics lacks ps_serve_requests_total or the device family")
+    check("dead_nodes" in last["health"] and {"metrics", "cluster", "health"} <= set(last["snap_keys"]),
+          "telemetry serve: /healthz or /debug/snapshot incomplete")
+    by = {r["metric"]: r for r in recs}
+    stats = by["serve_frontend_stats"]
+    requests = sum(registry_values("ps_serve_requests_total").values())
+    # the 10 + 200 closed-loop calibration requests, then the measured frontend's
+    check(requests == 210 + stats["completed"],
+          f"telemetry serve: ps_serve_requests_total {requests}, the CLI's record "
+          f"210 + {stats['completed']}")
+    check(by["serve_exposition"]["healthz_ok"] is not None, "telemetry serve: no exposition record")
+    # the memory gauge against the allocator, read beside it with nothing running
+    torch.cuda.synchronize()
+    treg.default_registry().render_text()
+    beside = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    gauge = registry_values("ps_device_hbm_bytes_in_use")
+    check(gauge.get("device=cuda:0") == beside,
+          f"telemetry serve: ps_device_hbm_bytes_in_use {gauge}, memory_stats {beside}")
+    scraped = []
+    for sc in scrapes:
+        for line in sc["text"].splitlines():
+            if line.startswith("ps_device_hbm_bytes_in_use{") and 'device="cuda:0"' in line:
+                scraped.append(abs(float(line.rsplit(" ", 1)[1]) - sc["after"]))
+    ms = sorted(sc["ms"] for sc in scrapes)
+    return dict(scrapes=len(scrapes), scrape_errors=len(errors), requests=requests,
+                completed=stats["completed"], hbm_bytes=beside,
+                scrape_ms_median=ms[len(ms) // 2], scrape_ms_max=ms[-1],
+                scraped_hbm_gap_max=max(scraped) if scraped else None,
+                launches=dict(flash_fwd=fa.flash_attention.launches,
+                              segment_sum=seg.segment_sum.launches))
+
+
+def telemetry_lm() -> dict:
+    """(c) the LM CLI at its defaults (2 layers, float32) for 5 steps with
+    and without ``--profile``: bit-equal losses, the capture's flash
+    records equal to the counters."""
+    from parameter_server_tpu_torch.telemetry import device as device_tel
+
+    real = device_tel.instrument
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="lm_prof_") as tmp:
+        for name, extra in (("profiled", ["--profile", tmp]), ("plain", [])):
+            losses = []
+
+            def recording(fn_name, fn, *a, **k):
+                def step(*args):
+                    p, o, loss = fn(*args)
+                    losses.append(loss.item())  # exact: the step's own float
+                    return p, o, loss
+                return real(fn_name, step, *a, **k)
+
+            device_tel.instrument = recording
+            reset_counts()
+            try:
+                _, recs = run_lm_cli_records(LM_DEFAULT + extra)
+            finally:
+                device_tel.instrument = real
+            out[name] = dict(losses=losses, logged=[r["loss"] for r in recs], launches=dict(
+                flash_fwd=fa.flash_attention.launches, flash_bwd_dq=fa.flash_bwd_dq.launches,
+                flash_bwd_dkv=fa.flash_bwd_dkv.launches))
+        traced = trace_kernels(tmp)
+    prof, plain = out["profiled"], out["plain"]
+    check(len(prof["losses"]) == 5 and prof["losses"] == plain["losses"],
+          f"telemetry LM: losses with --profile {prof['losses']}, without {plain['losses']}")
+    for k, n in prof["launches"].items():
+        check(n > 0 and traced[k] == n, f"telemetry LM: trace has {traced[k]} {k} records, "
+              f"the counter {n}")
+    return dict(losses=prof["losses"], launches=prof["launches"],
+                traced={k: traced[k] for k in prof["launches"]})
+
+
+def telemetry_inventory(batches) -> dict:
+    """(d) the device inventory with every 8th call sampled over the
+    headline step: roofline gauges present, no share over ROOFLINE_MAX,
+    no new signature after warm-up, no dispatch fallback."""
+    from parameter_server_tpu_torch.system.postoffice import Postoffice
+    from parameter_server_tpu_torch.telemetry import device as device_tel
+    from parameter_server_tpu_torch.telemetry import registry as treg
+
+    Postoffice.reset()  # a fresh registry and inventory
+    device_tel.install_hbm_monitor()
+    prev = device_tel.set_sampling(SAMPLE_EVERY)
+    try:
+        worker = AsyncSGDWorker(conf("sparse"), device="cuda")
+        worker.train(batches[:T], pipelined=True)
+        device_tel.mark_warmup()
+        for _ in range(2):
+            worker.train(batches[T:], pipelined=True)
+        torch.cuda.synchronize()
+        treg.default_registry().render_text()  # folds the finished samples
+        snap = device_tel.snapshot()
+    finally:
+        device_tel.set_sampling(prev)
+    fracs = registry_values("ps_device_roofline_frac")
+    gb_s = registry_values("ps_device_kernel_gb_s")
+    recompiles = sum(registry_values("ps_device_recompiles_total").values())
+    fallbacks = sum(registry_values("ps_device_dispatch_fallbacks_total").values())
+    check(fracs and gb_s, f"telemetry inventory: no roofline gauge ({snap['functions']})")
+    check(max(fracs.values(), default=0.0) <= ROOFLINE_MAX,
+          f"telemetry inventory: a roofline share over {ROOFLINE_MAX}: {fracs}")
+    check(recompiles == 0 and snap["recompiles_post_warmup"] == 0,
+          f"telemetry inventory: {recompiles} recompiles after warm-up ({snap['functions']})")
+    check(fallbacks == 0, f"telemetry inventory: {fallbacks} dispatch fallbacks")
+    return dict(functions=snap["functions"], roofline_frac=fracs, kernel_gb_s=gb_s,
+                recompiles=recompiles, dispatch_fallbacks=fallbacks,
+                device_kind=snap.get("device_kind"))
+
+
+def telemetry_overhead(batches) -> dict:
+    """(e) the pipelined headline with telemetry on and off, three pairs
+    in turns (on/off, off/on, on/off), and beside each pair the same with
+    telemetry on but the learning plane's key heat never noted (its share
+    of the cost): a warm-up launch, then the timed launches; each worker
+    built after the switch, as every instrument decides at construction."""
+    from parameter_server_tpu_torch.telemetry import registry as treg
+
+    rates = dict(on=[], off=[], on_no_heat=[])
+    prev = treg.enabled()
+    try:
+        for pair in range(OVERHEAD_PAIRS):
+            order = ("on", "off", "on_no_heat") if pair % 2 == 0 else ("on_no_heat", "off", "on")
+            for state in order:
+                treg.set_enabled(state != "off")
+                worker = AsyncSGDWorker(conf("sparse"), device="cuda")
+                if state == "on_no_heat":
+                    worker._learning.heat_every = 1 << 62
+                worker.train(batches[:T], pipelined=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                worker.train(batches[T:T * (PIPE_LAUNCHES + 1)], pipelined=True)
+                torch.cuda.synchronize()
+                rates[state].append(PIPE_LAUNCHES * T * MB / (time.perf_counter() - t0))
+                worker.executor.stop()
+    finally:
+        treg.set_enabled(prev)
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    return dict(examples_per_s=rates, median=med, overhead=1.0 - med["on"] / med["off"],
+                overhead_no_heat=1.0 - med["on_no_heat"] / med["off"])
+
+
+def telemetry_plane(seed: int, smi: str, batches) -> dict:
+    """Phase 8b, (a)-(e), printed as they finish."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tel_ctr_") as tmp:
+        ctr = telemetry_ctr(tmp, seed + 21)
+    print(f"# telemetry (a) CTR conf, one pass via the CLI ({smi}): --report-interval 1 "
+          f"--profile and plain, model bits equal; launches {ctr['launches']}, capture's kernel "
+          f"records {ctr['traced']}; dashboard printed; wall {ctr['wall_s']}", flush=True)
+    srv = telemetry_serve(seed)
+    print(f"# telemetry (b) serve CLI --expose-port 0 ({smi}): {srv['scrapes']} scrapes of "
+          f"/metrics, /healthz, /debug/snapshot during the run; /metrics scrape median "
+          f"{srv['scrape_ms_median']:.2f} ms, max {srv['scrape_ms_max']:.2f} ms (host clock); "
+          f"ps_serve_requests_total {srv['requests']} = 210 calibration + {srv['completed']} "
+          f"completed; ps_device_hbm_bytes_in_use {srv['hbm_bytes']} = memory_stats (scrapes vs "
+          f"memory_stats read just after: at most {srv['scraped_hbm_gap_max']} B apart); "
+          f"launches {srv['launches']}", flush=True)
+    lmr = telemetry_lm()
+    print(f"# telemetry (c) LM CLI defaults, 5 steps, float32 ({smi}): losses with and without "
+          f"--profile bit-equal {lmr['losses']}; launches {lmr['launches']}, capture's records "
+          f"{lmr['traced']}", flush=True)
+    inv = telemetry_inventory(batches)
+    print(f"# telemetry (d) device inventory, every {SAMPLE_EVERY}th call sampled, headline "
+          f"pipelined ({smi}, {inv['device_kind']}): roofline shares "
+          f"{ {k: round(v, 5) for k, v in inv['roofline_frac'].items()} } (max {ROOFLINE_MAX}), "
+          f"GB/s {({k: round(v, 2) for k, v in inv['kernel_gb_s'].items()})}; recompiles after "
+          f"warm-up {inv['recompiles']}, dispatch fallbacks {inv['dispatch_fallbacks']}",
+          flush=True)
+    ovh = telemetry_overhead(batches)
+    print(f"# telemetry (e) pipelined headline, telemetry on / off, {OVERHEAD_PAIRS} pairs in "
+          f"turns ({smi}): ex/s on {['%.0f' % x for x in ovh['examples_per_s']['on']]}, off "
+          f"{['%.0f' % x for x in ovh['examples_per_s']['off']]}, on without the key heat "
+          f"{['%.0f' % x for x in ovh['examples_per_s']['on_no_heat']]}; medians "
+          f"{ovh['median']['on']:.0f} / {ovh['median']['off']:.0f} / "
+          f"{ovh['median']['on_no_heat']:.0f} (overhead {100 * ovh['overhead']:.2f}%, "
+          f"{100 * ovh['overhead_no_heat']:.2f}% without the key heat)", flush=True)
+    return dict(ctr=ctr, serve=srv, lm=lmr, inventory=inv, overhead=ovh,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3494,6 +3815,7 @@ def main() -> int:
           f"{fcli['resume_gap']:.3g} apart", flush=True)
     serve = serving_plane(args.seed, smi, gen)
     flash_rows += serve["flash_rows"]
+    tel = telemetry_plane(args.seed, smi, batches)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -3623,7 +3945,7 @@ def main() -> int:
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
-                  wall_s=time.perf_counter() - t_start)
+                  telemetry=tel, wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

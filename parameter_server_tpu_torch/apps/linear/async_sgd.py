@@ -37,6 +37,17 @@ feeder thread, preps on an ordered pool of workers and uploads on a
 staging buffers and sent on a side CUDA stream, which the step's stream
 waits on. The pipelined state is bit-identical to the serial one.
 
+Telemetry, as in the JAX worker (all decided at construction while
+``telemetry.registry.enabled()``): each step builder's variants
+(``<name>.snap``, ``.snap_donate``, ``.delay``) are entry points of the
+device inventory (``telemetry/device.py``), the FTRL update path and
+rows a ministep count in ``ps_ftrl_*``, collected examples in
+``app_examples_total``, and the learning plane (``telemetry/learning.py``)
+folds realized staleness, key heat (on :class:`KeyHeatFeed` threads, off
+the feeder's path) and the steps' convergence side outputs; the uploader
+stage counts its batches, examples and bytes and carries each batch's
+flow id to its step.
+
 Not ported yet (``SGDConfig.validate`` raises ``NotImplementedError``):
 server replicas; multi-GPU.
 """
@@ -47,6 +58,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import time
 import weakref
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -67,6 +79,9 @@ from ...ops.significance import SignificanceSpec, kkt_mask
 from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots
 from ...system.executor import Executor
+from ...telemetry import device as device_tel
+from ...telemetry import registry as telemetry_registry
+from ...telemetry import spans as telemetry_spans
 from ...utils import evaluation
 from ...utils import file as psfile
 from ...utils.bitpack import (
@@ -406,11 +421,24 @@ def prep_batch_ell_stream(batch: SparseBatch, directory, num_shards: int, rows_p
                           lanes: int, num_slots: int, statics):
     """The lane-dictionary wire (``learner/wire.encode_stream_shard``
     a shard), on the bits wire's domain and within the pinned
-    ``statics``; None otherwise (the caller takes the bits wire)."""
+    ``statics``; None otherwise (the caller takes the bits wire). Each
+    fallback counts by reason in ``ps_wire_fallbacks_total``; an encode
+    counts its time and bytes, and the bytes it saves against the bits
+    wire at the same shape."""
+    tel = wire.wire_instruments()
+
+    def fallback(reason: str):
+        if tel is not None:
+            tel["fallbacks"].labels(reason=reason).inc()
+        return None
+
     if statics is None or not (batch.binary and directory.hashed) or statics.lanes != lanes:
-        return None
-    if not (np.diff(batch.indptr) == lanes).all() or not (np.abs(batch.y) == 1).all():
-        return None
+        return fallback("domain")
+    if not (np.diff(batch.indptr) == lanes).all():
+        return fallback("ragged")
+    if not (np.abs(batch.y) == 1).all():
+        return fallback("labels")
+    t0 = time.perf_counter()
     per = -(-batch.n // num_shards)
     y_bits = np.zeros((num_shards, (rows_pad + 7) // 8), np.uint8)
     counts = np.zeros((num_shards,), np.int32)
@@ -426,7 +454,7 @@ def prep_batch_ell_stream(batch: SparseBatch, directory, num_shards: int, rows_p
         got = wire.encode_stream_shard(batch.indices[seg], nsub, rows_pad,
                                        directory.num_slots, statics)
         if got is None:  # the shard outgrew the pinned statics
-            return None
+            return fallback("statics_overflow")
         raw_w, code_w, table_w, lane_starts[d], n_uniq[d] = got
         raw_ws.append(raw_w)
         code_ws.append(code_w)
@@ -434,12 +462,22 @@ def prep_batch_ell_stream(batch: SparseBatch, directory, num_shards: int, rows_p
         yb = np.packbits(batch.y[lo_r:hi_r] > 0, bitorder="little")
         y_bits[d, : yb.size] = yb
         counts[d] = nsub
-    return wire.EncodedEllStreamBatch(
+    out = wire.EncodedEllStreamBatch(
         y_bits=y_bits, counts=counts, raw_words=np.stack(raw_ws), code_words=np.stack(code_ws),
         table_words=np.stack(table_ws), lane_starts=lane_starts, n_uniq=n_uniq, rows=rows_pad,
         lanes=lanes, dict_lanes=statics.dict_lanes, code_bits=statics.code_bits,
         dict_pad=statics.dict_pad, raw_bits=statics.raw_bits,
     )
+    if tel is not None:
+        enc_b = wire.batch_nbytes(out)
+        # the raw alternative these bytes displace: the bits wire at the
+        # same shape
+        bits_b = num_shards * (packed_nwords(rows_pad * lanes, statics.raw_bits) * 4
+                               + y_bits.shape[1] + 4)
+        tel["encode_seconds"].observe(time.perf_counter() - t0)
+        tel["bytes"].labels(encoding="stream").inc(enc_b)
+        tel["saved_bytes"].labels(reason="encoding").inc(max(0, bits_b - enc_b))
+    return out
 
 
 def _gather_state(state, idx):
@@ -1022,6 +1060,123 @@ def _wire_view(a) -> np.ndarray:
     return a
 
 
+def _host_bytes(prepped) -> int:
+    """Bytes of a host-prepped batch's arrays (what an upload copies; a
+    batch in LZ frames counts its arrays as decoded)."""
+    if isinstance(prepped, wire.CompressedBatch):
+        return int(prepped.raw_nbytes)
+    return wire.batch_nbytes(prepped) if dataclasses.is_dataclass(prepped) else 0
+
+
+def _step_cost(route: str):
+    """The least bytes of a linear step on ``route`` (``"sparse"`` or
+    ``"dense"``), for the roofline gauges, counted as
+    ``benchmarks/ftrl_bytes.py`` counts an update: every array of the
+    batch read once, and the optimizer state's row of a slot (z and √n
+    for FTRL) read once and written once at every slot the route updates.
+    The sparse route updates each ministep's unique slots: the card counts
+    them from the batch (``umask``, or ``n_uniq`` on the encoded wire),
+    and the count is read once the call is done. The dense route sweeps
+    every slot of the table. No FLOP count is declared."""
+
+    def cost(live_state, pull_state, batch, seed=0):
+        rows = [t for t in live_state.values() if t.dim() == 1]
+        row_bytes = 2.0 * sum(t.element_size() for t in rows)  # read + written
+        nbytes = float(wire.batch_nbytes(batch))
+        if route != "sparse":
+            return {"bytes_accessed": nbytes + row_bytes * rows[0].numel()}
+        n_uniq = getattr(batch, "n_uniq", None)
+        live = n_uniq.sum() if n_uniq is not None else torch.count_nonzero(batch.umask)
+        return {"bytes_accessed": live * row_bytes + nbytes}
+
+    return cost
+
+
+#: inventory names of the step builders (the JAX package's names)
+_STEP_NAMES = {
+    "exact": "step_exact", "exact_scan": "step_exact_scan",
+    "exact_enc": "step_encoded", "exact_enc_scan": "step_encoded_scan",
+    "hashed": "step_hashed", "ell": "step_ell",
+    "ell_bits": "step_ell_bits", "ell_bits_scan": "step_ell_bits_scan",
+    "ell_stream": "step_ell_stream", "ell_stream_scan": "step_ell_stream_scan",
+}
+
+
+def _step_variants(step_impl, name: str, route: str):
+    """Wrap ``step(live, pulled, batch, seed)`` into the device inventory
+    under ``<name>.<variant>``, as the JAX package's donation variants
+    are: ``snap`` (the pulled state is the live one), ``snap_donate``
+    (that, at τ = 0, not adaptive) and ``delay`` (a step on an older
+    snapshot). PyTorch donates nothing, so the variants run the same
+    function; the names keep the inventories of the two packages
+    comparable. Returns ``step(live, pulled, batch, seed=0,
+    variant="delay")``."""
+    cost = _step_cost(route)
+    fns = {v: device_tel.instrument(f"{name}.{v}", step_impl, cost=cost)
+           for v in ("snap", "snap_donate", "delay")}
+
+    def step(live_state, pull_state, batch, seed=0, variant="delay"):
+        return fns[variant](live_state, pull_state, batch, seed)
+
+    return step
+
+
+class KeyHeatFeed:
+    """The learning plane's key heat on threads of its own, two stages in
+    a row: the first hashes each noted batch's keys to table slots and
+    prepares them (``KeyHeat.prepare``: distinct slots, counts, sketch
+    positions; no state read), the second folds them into the plane's
+    sketch (``LearningPlane.fold_heat``). Each stage takes the batches one
+    after another in the order they were noted, so the sketch ends
+    bit-equal to noting them on the noting thread, which only enqueues.
+    ``depth`` bounds the batches waiting at each stage (a full queue
+    blocks the stage before it). ``close()`` waits for every noted batch,
+    joins the threads and re-raises the first error of either."""
+
+    _END = object()
+
+    def __init__(self, plane, directory, depth: int = 8):
+        import queue
+        import threading
+
+        self._keys: "queue.Queue" = queue.Queue(depth)
+        self._prepared: "queue.Queue" = queue.Queue(depth)
+        self._errors: List[BaseException] = []
+        stages = ((self._keys, lambda keys: plane.heat.prepare(directory.slots(keys)),
+                   self._prepared.put),
+                  (self._prepared, plane.fold_heat, None))
+        self._threads = [threading.Thread(target=self._run, args=stage, daemon=True,
+                                          name=f"key_heat_{i}")
+                         for i, stage in enumerate(stages)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, source, fn, sink) -> None:
+        while True:
+            item = source.get()
+            if item is not self._END and not self._errors:
+                try:
+                    out = fn(item)
+                    if sink is not None:
+                        sink(out)
+                except BaseException as e:  # re-raised by close()
+                    self._errors.append(e)
+            if item is self._END:
+                if sink is not None:
+                    sink(self._END)
+                return
+
+    def note(self, keys: np.ndarray) -> None:
+        self._keys.put(keys)
+
+    def close(self) -> None:
+        self._keys.put(self._END)
+        for t in self._threads:
+            t.join()
+        if self._errors:
+            raise self._errors[0]
+
+
 class DeviceUploader:
     """The double-buffered host → device stage of the pipelined train:
     ``upload_fn`` (the worker's upload on its side stream) runs for batch
@@ -1031,12 +1186,51 @@ class DeviceUploader:
     ``close()`` stops and joins the thread."""
 
     def __init__(self, source, upload_fn, depth: int = 2):
+        import collections
+
+        from ...learner.ingest import pipeline_instruments
+
+        tel = pipeline_instruments()
+        # each staged batch's flow id, in FIFO order: the consumer pops
+        # one an item (iter_on_thread keeps the order), so the step's
+        # submission runs under the batch's flow
+        self._flows: "collections.deque" = collections.deque()
+
         def uploaded():
             for prepped, n in source:
-                yield upload_fn(prepped), n
+                t0 = time.perf_counter()
+                fid = telemetry_spans.current_flow()
+                if tel is not None:
+                    tel["batches"].labels(pipeline="device_uploader").inc()
+                    tel["examples"].labels(pipeline="device_uploader").inc(
+                        int(getattr(prepped, "num_examples", 0)))
+                # bytes served from the device-resident cache never
+                # cross the link: uploaded_bytes stays the realized traffic
+                saved0 = int(getattr(upload_fn, "saved_bytes", 0))
+                if telemetry_spans.get_sink() is not None:
+                    with telemetry_spans.flow_scope(fid):
+                        with telemetry_spans.span("ingest.upload", pipeline="device_uploader"):
+                            staged = upload_fn(prepped)
+                else:
+                    staged = upload_fn(prepped)
+                if tel is not None:
+                    hit_bytes = int(getattr(upload_fn, "saved_bytes", 0)) - saved0
+                    tel["uploaded_bytes"].inc(max(0, _host_bytes(prepped) - hit_bytes))
+                    tel["stage_seconds"].labels(stage="upload").observe(
+                        time.perf_counter() - t0)
+                self._flows.append(fid)
+                yield staged, n
 
         # depth - 1 in the queue and one held by the consumer
         self._it = iter_on_thread(uploaded(), maxsize=max(1, depth - 1))
+
+    def next_flow(self):
+        """The flow id of the batch the consumer took last (None when
+        tracing is off)."""
+        try:
+            return self._flows.popleft()
+        except IndexError:
+            return None
 
     def __iter__(self):
         return self._it
@@ -1156,6 +1350,24 @@ class AsyncSGDWorker:
                 l1=float(self.penalty.lambda1), margin=float(sgd.kkt_margin),
                 escape=float(sgd.kkt_escape), feedback=sgd.kkt_drop_after > 0,
             )
+        # learning truth plane (telemetry/learning.py): realized
+        # staleness per submission, key heat by server key range,
+        # convergence metering in collect(); bound to the registry of now
+        self._learning = None
+        self._examples_counter = None
+        if telemetry_registry.enabled():
+            from ...telemetry import learning as learning_mod
+            from ...telemetry.instruments import app_instruments
+
+            self._learning = learning_mod.plane(
+                self.name, num_slots=self.num_slots, num_shards=1,
+                max_delay=max(0, sgd.max_delay),
+            )
+            self._examples_counter = app_instruments(
+                telemetry_registry.default_registry())["examples"]
+        self._heat_counter = 0  # feeder/trainer thread only
+        self._heat_feed: Optional[KeyHeatFeed] = None  # set for a train or a minibatch
+        self._snapshot_ts: Optional[int] = None  # submit thread only
         self._consistency = None
         if sgd.tau_adaptive or sgd.kkt_filter:
             self._consistency = ConsistencyRuntime.from_config(self, sgd)
@@ -1168,7 +1380,68 @@ class AsyncSGDWorker:
         refreshes of the next submissions."""
         tau = int(min(max(0, self.sgd.max_delay), max(0, int(tau))))
         self._effective_tau = tau
+        if self._learning is not None:
+            self._learning.set_tau(tau)
         return tau
+
+    def _note_heat(self, batch: SparseBatch) -> None:
+        """Key-heat feed of the learning plane: this batch's keys hashed
+        to table slots and folded into the worker's windowed count sketch
+        and per-shard shares, every ``plane.heat_every`` batches, on the
+        :class:`KeyHeatFeed` threads of the running train or minibatch.
+        Called only from the feeder or trainer thread, in stream order."""
+        lp = self._learning
+        if lp is None or not batch.n:
+            return
+        self._heat_counter += 1
+        if self._heat_counter % lp.heat_every:
+            return
+        self._heat_feed.note(np.asarray(batch.indices))
+
+    @contextlib.contextmanager
+    def _key_heat(self):
+        """A :class:`KeyHeatFeed` for the body's notes (none while
+        telemetry is off), closed when the body ends: every batch it
+        noted is then in the sketch. An error of the body wins over one
+        of the feed."""
+        if self._learning is None:
+            yield
+            return
+        self._heat_feed = feed = KeyHeatFeed(self._learning, self.directory)
+        try:
+            yield
+        except BaseException:
+            with contextlib.suppress(BaseException):
+                feed.close()
+            raise
+        else:
+            feed.close()
+        finally:
+            self._heat_feed = None
+
+    def _note_ftrl_dispatch(self, prepped, n_steps: int) -> None:
+        """FTRL update-path accounting (``ps_ftrl_rows_total`` /
+        ``ps_ftrl_update_path_total``): the path this worker's steps
+        take (``cuda_sparse``, ``cuda_dense`` or ``torch_ref``) and the
+        state rows a ministep moves. No-op for other updaters and while
+        telemetry is off."""
+        from ...telemetry.instruments import cached_ftrl_instruments
+        from .updaters import FTRLUpdater
+
+        tel = cached_ftrl_instruments()
+        if tel is None:
+            return
+        if not (isinstance(self.updater, FTRLUpdater)
+                and self.updater.lr.type == LearningRate.DECAY):
+            return
+        if self._update_mode == "sparse":
+            uslots = getattr(prepped, "uslots", None)
+            rows = int(getattr(prepped, "uniq_pad", 0)
+                       or (uslots.shape[-1] if uslots is not None else 0))
+        else:
+            rows = self.num_slots
+        tel["path"].labels(path=self.update_path).inc(n_steps)
+        tel["rows"].inc(rows * n_steps)
 
     def _snapshot(self):
         """The weight snapshot steps pull from: the live tensors at τ = 0
@@ -1337,7 +1610,8 @@ class AsyncSGDWorker:
             key, build = ("exact", with_aux), lambda: make_train_step(
                 self.updater, self.loss, self.num_slots, with_aux, **exact)
         if key not in self._steps:
-            self._steps[key] = build()
+            route = self._update_mode if key[0].startswith("exact") else "dense"
+            self._steps[key] = _step_variants(build(), _STEP_NAMES[key[0]], route)
         return self._steps[key]
 
     def _submit_prepped(self, prepped, with_aux: bool = True) -> int:
@@ -1366,6 +1640,13 @@ class AsyncSGDWorker:
         step_fn = self._get_step(prepped, with_aux)
         self._seed_counter += n_steps
         seed = (self._seed_counter - (n_steps - 1)) & _M32
+        # the inventory name of this call, as the JAX worker chooses among
+        # its donation variants: the pulled state is the live one until a
+        # step has run since the last snapshot (or since the start)
+        if self._steps_since_snapshot:
+            variant = "delay"
+        else:
+            variant = "snap_donate" if tau <= 0 and not self.sgd.tau_adaptive else "snap"
         self._steps_since_snapshot += n_steps
         ready = getattr(prepped, "ready", None)
 
@@ -1378,9 +1659,18 @@ class AsyncSGDWorker:
                     getattr(prepped, name).record_stream(stream)
             if do_snapshot:
                 self._pull_state = self._snapshot()
-            return step_fn(self.state, self._pull_state, prepped, seed)
+            return step_fn(self.state, self._pull_state, prepped, seed, variant)
 
-        return self.executor.submit(run)
+        self._note_ftrl_dispatch(prepped, n_steps)
+        ts = self.executor.submit(run)
+        if self._learning is not None:
+            # logical-clock stamp: the executor timestamp of the
+            # snapshot-taking submission vs this one
+            if do_snapshot or self._snapshot_ts is None:
+                self._snapshot_ts = ts
+            self._learning.note_submit(self.last_staleness, n_steps=n_steps,
+                                       clock_lag=ts - self._snapshot_ts, tau=tau)
+        return ts
 
     def submit(self, prepped, with_aux: bool = True) -> Dict[str, torch.Tensor]:
         """Run one step (or one T-step superbatch) on a prepped batch and
@@ -1390,7 +1680,9 @@ class AsyncSGDWorker:
     def process_minibatch(self, batch: SparseBatch, with_aux: bool = True):
         """Pull → gradient → push for one minibatch; returns its metrics
         (fold them into ``progress`` with :meth:`collect`)."""
-        return self.submit(self.prep(batch, device_put=False), with_aux=with_aux)
+        with self._key_heat():
+            self._note_heat(batch)
+            return self.submit(self.prep(batch, device_put=False), with_aux=with_aux)
 
     def submit_superbatch(self, batches: List[SparseBatch], with_aux: bool = False):
         """Prep + stack T minibatches and run them as one submission: the
@@ -1411,9 +1703,27 @@ class AsyncSGDWorker:
 
     def collect(self, metrics) -> SGDProgress:
         """Fold a submission's metrics (or its executor timestamp, waited
-        for here) into ``progress`` (host sync)."""
+        for here) into ``progress`` (host sync). The wait beats the
+        worker's heartbeat and counts as its busy time on the dashboard
+        while the postoffice's aux runtime runs."""
         if isinstance(metrics, int):
+            from ...system.postoffice import Postoffice
+
+            po = Postoffice._instance  # never create the singleton here
+            hb = None
+            if po is not None:
+                po.beat(self.name)  # liveness signal
+                hb = po.aux.info(self.name) if po.aux is not None else None
+            if hb is not None:
+                hb.start_timer()
             metrics = self.executor.wait(metrics)
+            if hb is not None:
+                hb.stop_timer()
+        if self._examples_counter is not None:
+            self._examples_counter.inc(int(metrics["num_ex"]))
+        if self._learning is not None:
+            # the step's own num_ex and convergence side outputs
+            self._learning.note_step(metrics)
         if self._consistency is not None:
             # KKT counts and the drop set, then the τ controller (which
             # may back off the rate and roll the state back)
@@ -1475,7 +1785,8 @@ class AsyncSGDWorker:
         if pipelined is None:
             pipelined = T > 1
         try:
-            return self._train_impl(iter(batches), T, pipelined)
+            with self._key_heat():
+                return self._train_impl(iter(batches), T, pipelined)
         except BaseException:
             # leave no step of this pass running on the dispatch thread
             with contextlib.suppress(Exception):
@@ -1501,6 +1812,9 @@ class AsyncSGDWorker:
                 # here, in stream order, before a prep worker sees the batch
                 if self.sgd.wire == "stream" and not self._stream_statics_set:
                     self._get_stream_statics(batch)
+                # key heat is noted in stream order here (the feeder when
+                # pipelined) and folded on the feed's own thread
+                self._note_heat(batch)
                 group.append((batch, self._padding(batch)))
                 if len(group) >= T:
                     yield group
@@ -1531,7 +1845,11 @@ class AsyncSGDWorker:
             uploader = DeviceUploader(parts(), upload_fn, depth=2)
             try:
                 for staged, n in uploader:
-                    submit_parts([(staged, n)])
+                    # submitted under the batch's flow id, so the
+                    # executor.step span correlates back through upload,
+                    # prep and read in the timeline
+                    with telemetry_spans.flow_scope(uploader.next_flow()):
+                        submit_parts([(staged, n)])
             finally:
                 # the uploader first: no thread is left inside a copy
                 uploader.close()

@@ -336,8 +336,11 @@ class DarlinScheduler(BCDScheduler):
                 pending_ts.append(ts)
                 busy = sum(executor.device_busy(t) for t in pending_ts)
                 self.max_in_flight_observed = max(self.max_in_flight_observed, busy)
-            # the heartbeat (the JAX package's po.beat) belongs to the
-            # system layer's monitoring, not ported yet (ROADMAP A12)
+            from ...system.postoffice import Postoffice
+
+            po = Postoffice._instance  # never create the singleton here
+            if po is not None:
+                po.beat(self.name)  # liveness signal (ref heartbeat thread)
             vios = [executor.wait(t) for t in pending_ts]
             self.max_dispatch_window = max(self.max_dispatch_window,
                                            executor.max_dispatched_in_flight)

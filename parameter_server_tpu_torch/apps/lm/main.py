@@ -27,7 +27,13 @@ batch stream starts over from the seed.
 
 Flags the port cannot serve yet raise ``NotImplementedError`` naming
 their ROADMAP item: ``--zero1``, ``--fsdp``, ``--num-servers > 1``,
-``--attention ring_zigzag|a2a`` (A9, multi-GPU); ``--profile`` (A12).
+``--attention ring_zigzag|a2a`` (A9, multi-GPU).
+
+``--profile DIR`` runs the training loop under a ``torch.profiler``
+capture (``utils/profiling.device_trace``), a Chrome trace written under
+DIR. The training step is an entry point of the device inventory
+(``telemetry/device.py``, ``lm_train_step``), declaring its least FLOP
+and bytes for the roofline gauges.
 """
 
 from __future__ import annotations
@@ -87,7 +93,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="decode KV-cache storage (generation only)")
     ap.add_argument("--log-file", metavar="PATH", default=None,
                     help="append one JSON line per report interval")
-    ap.add_argument("--profile", metavar="DIR", default=None)
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture a torch.profiler trace of the training loop into DIR")
     ap.add_argument("--num-servers", type=int, default=1)
     ap.add_argument("--optimizer", choices=("adam", "adafactor", "lion"), default="adam",
                     help="adam, adafactor (factored second moment) or lion (sign momentum)")
@@ -126,6 +133,25 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def train_step_cost(params, opt_state, tokens) -> dict:
+    """The least work of one training step, for the device inventory's
+    roofline gauges: 6 FLOP a token for every weight of a dense matrix
+    product (forward, then the two products of the backward), counting
+    the layers' 2-D weights and the tied embedding as the output
+    projection (expert stacks and routers left out: a token meets one
+    expert); every parameter and token read once."""
+    n_tok = tokens.numel()
+    n_mat = 0
+    n_bytes = tokens.numel() * tokens.element_size()
+    for key, leaf in params.items():
+        leaves = leaf.items() if isinstance(leaf, dict) else [(key, leaf)]
+        for name, t in leaves:
+            n_bytes += t.numel() * t.element_size()
+            if t.dim() == 2 and "router" not in name:
+                n_mat += t.numel()
+    return {"flops": 6.0 * n_mat * n_tok, "bytes_accessed": float(n_bytes)}
+
+
 def _unported(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (ROADMAP {item})")
 
@@ -133,8 +159,6 @@ def _unported(flag: str, item: str) -> NotImplementedError:
 def _check_unported(args) -> None:
     if args.zero1 or args.fsdp or args.num_servers > 1:
         raise _unported("--zero1/--fsdp/--num-servers > 1 (sharded training)", "A9")
-    if args.profile:
-        raise _unported("--profile", "A12")
     if args.attention in ("ring_zigzag", "a2a"):
         raise _unported(f"--attention {args.attention} (a sequence layout across cards)", "A9")
 
@@ -174,6 +198,8 @@ def main(argv=None) -> int:
     from ...models.transformer import (LMConfig, init_lm, lm_beam_search, lm_generate, lm_loss,
                                        value_and_grad)
     from ...parameter.replica import CheckpointManager
+    from ...telemetry import device as device_tel
+    from ...utils.profiling import device_trace
 
     try:
         cfg = LMConfig(
@@ -255,6 +281,8 @@ def main(argv=None) -> int:
             updates, opt_state = tx.update(grads, opt_state, p)
             return optim.apply_updates(p, updates), opt_state, loss
 
+    one = device_tel.instrument("lm_train_step", one, cost=train_step_cost)
+
     eval_fn = None
     if args.eval_every:
         # fixed held-out batches (never trained on), scored with the same
@@ -277,66 +305,67 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     last_t, last_i = t_start, start_step
     loop_raised = False
-    try:
-        for i in range(start_step + spl, args.steps + 1, spl):
-            # a launch: spl sequential steps, each on its own batch
-            batches = [torch.as_tensor(sample_tokens(), device=device) for _ in range(spl)]
-            for tokens in batches:
-                params, opt, loss = one(params, opt, tokens)
-            report = i % args.report_every < spl or i == args.steps
-            ev = rec = None
-            if report:
-                ll = float(loss)
-                print(f"{i:>5} {ll:>9.4f} {ll / np.log(2):>10.4f}", flush=True)
-                # the throughput window closes BEFORE any eval below, so
-                # held-out evaluation never pollutes tokens_per_sec
-                now = time.perf_counter()
-                rec = {"step": i, "wall_s": round(now - t_start, 2), "loss": round(ll, 6),
-                       "bits_per_byte": round(ll / float(np.log(2)), 6),
-                       "tokens_per_sec": round((i - last_i) * args.batch * args.seq_len
-                                               / max(now - last_t, 1e-9), 1)}
-                last_t, last_i = now, i
-            if eval_fn is not None and (i % args.eval_every < spl or i == args.steps):
-                ev_t0 = time.perf_counter()
-                ev = eval_fn(params)
-                # shift the open window past the eval's wall time
-                last_t += time.perf_counter() - ev_t0
-                print(f" eval@{i:<4} {ev:>8.4f} {ev / np.log(2):>10.4f}", flush=True)
-            # a line per report interval, plus one for any eval measured off
-            # the report grid
-            if log_f is not None and (rec is not None or ev is not None):
-                if rec is None:
-                    rec = {"step": i, "wall_s": round(time.perf_counter() - t_start, 2)}
-                if ev is not None:
-                    rec["eval_loss"] = round(float(ev), 6)
-                log_f.write(json.dumps(rec) + "\n")
-                log_f.flush()
-            if mgr is not None and (i == args.steps
-                                    or (args.save_every and i % args.save_every == 0)):
-                # the final step is always saved, so a later --resume finds
-                # it; the host snapshot is taken here, the write overlaps
-                # the next steps
-                mgr.save_async(i, {"params": params, "opt": opt})
-    except BaseException:
-        # a flag, not sys.exc_info(): inside the drain's handler below that
-        # reports the exception being handled, and would hide a failed
-        # save on a clean run
-        loop_raised = True
-        raise
-    finally:
-        if log_f is not None:
-            log_f.close()
-        if mgr is not None:
-            # drain even when the loop raised: a completed save beats a
-            # discarded one
-            try:
-                mgr.wait()
-            except RuntimeError as e:
-                # a failed save fails a clean run, and never masks the
-                # loop's own exception (or a Ctrl-C)
-                if not loop_raised:
-                    raise
-                print(f"async checkpoint failure during shutdown: {e}", file=sys.stderr)
+    with device_trace(args.profile):
+        try:
+            for i in range(start_step + spl, args.steps + 1, spl):
+                # a launch: spl sequential steps, each on its own batch
+                batches = [torch.as_tensor(sample_tokens(), device=device) for _ in range(spl)]
+                for tokens in batches:
+                    params, opt, loss = one(params, opt, tokens)
+                report = i % args.report_every < spl or i == args.steps
+                ev = rec = None
+                if report:
+                    ll = float(loss)
+                    print(f"{i:>5} {ll:>9.4f} {ll / np.log(2):>10.4f}", flush=True)
+                    # the throughput window closes BEFORE any eval below, so
+                    # held-out evaluation never pollutes tokens_per_sec
+                    now = time.perf_counter()
+                    rec = {"step": i, "wall_s": round(now - t_start, 2), "loss": round(ll, 6),
+                           "bits_per_byte": round(ll / float(np.log(2)), 6),
+                           "tokens_per_sec": round((i - last_i) * args.batch * args.seq_len
+                                                   / max(now - last_t, 1e-9), 1)}
+                    last_t, last_i = now, i
+                if eval_fn is not None and (i % args.eval_every < spl or i == args.steps):
+                    ev_t0 = time.perf_counter()
+                    ev = eval_fn(params)
+                    # shift the open window past the eval's wall time
+                    last_t += time.perf_counter() - ev_t0
+                    print(f" eval@{i:<4} {ev:>8.4f} {ev / np.log(2):>10.4f}", flush=True)
+                # a line per report interval, plus one for any eval measured off
+                # the report grid
+                if log_f is not None and (rec is not None or ev is not None):
+                    if rec is None:
+                        rec = {"step": i, "wall_s": round(time.perf_counter() - t_start, 2)}
+                    if ev is not None:
+                        rec["eval_loss"] = round(float(ev), 6)
+                    log_f.write(json.dumps(rec) + "\n")
+                    log_f.flush()
+                if mgr is not None and (i == args.steps
+                                        or (args.save_every and i % args.save_every == 0)):
+                    # the final step is always saved, so a later --resume finds
+                    # it; the host snapshot is taken here, the write overlaps
+                    # the next steps
+                    mgr.save_async(i, {"params": params, "opt": opt})
+        except BaseException:
+            # a flag, not sys.exc_info(): inside the drain's handler below that
+            # reports the exception being handled, and would hide a failed
+            # save on a clean run
+            loop_raised = True
+            raise
+        finally:
+            if log_f is not None:
+                log_f.close()
+            if mgr is not None:
+                # drain even when the loop raised: a completed save beats a
+                # discarded one
+                try:
+                    mgr.wait()
+                except RuntimeError as e:
+                    # a failed save fails a clean run, and never masks the
+                    # loop's own exception (or a Ctrl-C)
+                    if not loop_raised:
+                        raise
+                    print(f"async checkpoint failure during shutdown: {e}", file=sys.stderr)
 
     if args.prompt is not None:
         prompt = np.frombuffer(args.prompt.encode("utf-8", "replace") or b"\n",

@@ -23,8 +23,11 @@ speculative-decoding LM lane (``--draft trained`` first trains the
 (target, draft) pair on a structured byte corpus with the port's
 ``make_lm_train_step``, so the acceptance rate means something);
 ``--batch-slots N`` serves it through the continuous batcher.
-``--expose-port`` (the metrics plane) raises ``NotImplementedError``:
-the port's telemetry is ROADMAP A12.
+``--expose-port PORT`` serves the cluster metrics plane on
+127.0.0.1:PORT while the CLI runs (``telemetry/exposition.py``; 0 picks
+a free port, printed to stderr): ``/metrics``, ``/healthz`` and
+``/debug/snapshot``, with the default SLO alert rules evaluating; a last
+``serve_exposition`` record reports the endpoint and its health.
 """
 
 from __future__ import annotations
@@ -160,7 +163,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--expose-port", type=int, default=None, metavar="PORT",
-                    help="the metrics plane (not ported: ROADMAP A12)")
+                    help="serve the cluster metrics plane while the CLI runs: /metrics "
+                    "(node-labeled aggregate incl. the live ps_serve_* family), /healthz, "
+                    "/debug/snapshot; the default SLO alert rules evaluate against this "
+                    "process. 0 = ephemeral")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the plain path)")
     return ap
@@ -168,11 +174,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.expose_port is not None:
-        raise NotImplementedError(
-            "--expose-port: the cluster metrics plane (/metrics, /healthz, /debug/snapshot) "
-            "needs the telemetry spine, which is not ported (ROADMAP A12)"
-        )
 
     from ...serving import DecodeRequest, PullRequest, ServeConfig, ServeFrontend, open_loop_bench
     from ...system.postoffice import Postoffice
@@ -180,6 +181,13 @@ def main(argv=None) -> int:
     Postoffice.reset()
     po = Postoffice.instance().start(device=args.device)
     device = po.device
+    exposition = None
+    if args.expose_port is not None:
+        from ...telemetry.exposition import expose_cluster
+
+        exposition = expose_cluster(po, port=args.expose_port, metrics_interval=1.0)
+        print(f"serve: metrics exposed at {exposition.url}/metrics "
+              f"(/healthz, /debug/snapshot)", file=sys.stderr)
     kv, rng = warm_store(args.num_slots, args.key_space, args.seed, device)
     pool = request_pool(rng, args.keys_per_request, args.key_space)
 
@@ -324,6 +332,14 @@ def main(argv=None) -> int:
                                + ("failed" if failed else "did not stop within 60 s")) from failed
     emit({"metric": "serve_frontend_stats", "value": 1, "unit": "ok", **fe.stats()})
     fe.close()
+    if exposition is not None:
+        ok, health = exposition.aux.health()
+        emit({"metric": "serve_exposition", "value": 1, "unit": "ok",
+              "url": exposition.url, "healthz_ok": ok,
+              "alerts_firing": health.get("alerts_firing", [])})
+        from ...telemetry.exposition import close_cluster
+
+        close_cluster(exposition)
     kv.executor.stop()
     kv.remove()  # unregister, so the table is freed with the last reference
     return 0

@@ -23,10 +23,14 @@ Threads: ``on_collect`` runs on the collect thread (the one that calls
 handed across under a lock.
 
 The controller reads the signals the JAX controller reads: each
-collect's objective, example count and ``grad_sq``. Three hooks of the
-JAX module are no-ops here until their items are ported: the
-``consistency.rollback`` fault point (ROADMAP A13), the flight-recorder
-bundle and the telemetry counters (A12).
+collect's objective, example count and ``grad_sq``. Both record into the
+``ps_consistency_*`` family (τ moves, snapshot age, backoffs and
+rollbacks, candidate / suppressed / dropped keys) and the tracker
+credits the shipped keys to ``ps_push_keys_total`` (store = the worker's
+name), so ``pushed + suppressed == candidates`` reconciles in a
+snapshot; a reaction captures a flight-recorder bundle when a recorder
+is installed. The ``consistency.rollback`` fault point of the JAX module
+is not here (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -56,13 +60,15 @@ class AdaptiveTauController:
     def __init__(self, worker, *, stable_steps: int = STABLE_STEPS,
                  spike_factor: float = SOFT_SPIKE_FACTOR,
                  snapshot_every: int = SNAPSHOT_EVERY,
-                 backoff_factor: float = BACKOFF_FACTOR):
+                 backoff_factor: float = BACKOFF_FACTOR,
+                 tel: Optional[Dict[str, object]] = None):
         self.worker = worker
         self.tau_max = max(0, int(worker.sgd.max_delay))
         self.stable_steps = max(1, int(stable_steps))
         self.spike_factor = float(spike_factor)
         self.snapshot_every = max(1, int(snapshot_every))
         self.backoff_factor = float(backoff_factor)
+        self._tel = tel
         # one ministep of slack to start, widened as stability is earned
         self.tau = worker.set_effective_tau(min(1, self.tau_max))
         self._stable = 0
@@ -85,30 +91,35 @@ class AdaptiveTauController:
             self._grad_window.append(grad_norm)
         if spike:
             # a leading indicator: halve τ, keep the rate and the state
-            self._set_tau(self.tau // 2)
+            self._set_tau(self.tau // 2, "clamp")
             self._stable = 0
             return
         self._healthy += 1
         self._stable += 1
         if self._stable >= self.stable_steps and self.tau < self.tau_max:
-            self._set_tau(self.tau + 1)
+            self._set_tau(self.tau + 1, "widen")
             self._stable = 0
         self._snapshot_age += 1
         if self._snapshot is None or self._healthy % self.snapshot_every == 0:
             self._snapshot = self.worker.state_host()  # drains the steps in flight
             self._snapshot_age = 0
+        if self._tel is not None:
+            self._tel["snapshot_age"].labels(worker=self.worker.name).set(self._snapshot_age)
 
-    def _set_tau(self, tau: int) -> None:
+    def _set_tau(self, tau: int, direction: str = "widen") -> None:
         tau = self.worker.set_effective_tau(tau)
         if tau != self.tau:
             self.tau = tau
             self.tau_trace.append(tau)
+            if self._tel is not None:
+                self._tel["tau_changes"].labels(worker=self.worker.name,
+                                                direction=direction).inc()
 
     def react(self, reason: str) -> Dict[str, Any]:
         """τ → 0, learning-rate backoff, rollback to the last healthy
         snapshot. Collect thread only."""
         worker = self.worker
-        self._set_tau(0)
+        self._set_tau(0, "reset")
         self._stable = 0
         self._grad_window.clear()
         # the steps read the rate when they run; the cached step
@@ -129,17 +140,39 @@ class AdaptiveTauController:
         }
         self.episodes.append(episode)
         del self.episodes[:-EPISODE_CAP]
+        if self._tel is not None:
+            self._tel["backoff"].labels(worker=worker.name).inc()
+            if rolled_back:
+                self._tel["rollback"].labels(worker=worker.name, reason=reason).inc()
+        from ..telemetry import blackbox
+
+        if blackbox.installed_recorder() is not None:
+            # an armed flight recorder: the episode, with the evidence
+            # before it still in the rings, lands in one bundle
+            blackbox.trigger_bundle("consistency_rollback", detail=reason)
         return episode
 
 
 class SignificanceTracker:
     """Counts of the in-step KKT mask and the host drop set."""
 
-    def __init__(self, worker, *, drop_after: int, revisit_every: int):
+    def __init__(self, worker, *, drop_after: int, revisit_every: int,
+                 tel: Optional[Dict[str, object]] = None):
         self.worker = worker
         self.num_slots = int(worker.num_slots)
         self.drop_after = int(drop_after)
         self.revisit_every = max(1, int(revisit_every))
+        self._tel = tel
+        self._push_keys = None
+        if tel is not None:
+            from ..telemetry import registry as telemetry_registry
+            from ..telemetry.instruments import parameter_instruments
+
+            # the worker-side analog of the stores' pushed-key count:
+            # what the filtered step shipped, under this worker's name
+            self._push_keys = parameter_instruments(
+                telemetry_registry.default_registry()
+            )["push_keys"].labels(store=worker.name, channel=0)
         self._streaks: Dict[int, int] = {}  # collect thread only
         self._dropped: set = set()  # guarded by _lock
         self._lock = threading.Lock()
@@ -159,6 +192,12 @@ class SignificanceTracker:
         self.candidates += cand
         self.suppressed += sup
         self.pushed += cand - sup
+        if self._tel is not None:
+            w = self.worker.name
+            self._tel["candidates"].labels(worker=w).inc(cand)
+            self._tel["suppressed"].labels(worker=w).inc(sup)
+        if self._push_keys is not None:
+            self._push_keys.inc(cand - sup)
         if self.drop_after > 0 and "kkt_keep" in metrics:
             # the one device-to-host copy of the feedback: two U-vectors
             self._note_feedback(_host(metrics["kkt_uslots"]), _host(metrics["kkt_keep"]))
@@ -215,6 +254,8 @@ class SignificanceTracker:
         )
         self.dropped_entries += n_drop
         self.filtered_batches += 1
+        if self._tel is not None:
+            self._tel["dropped"].labels(worker=self.worker.name).inc(n_drop)
         return out
 
     def dropped_slots(self) -> int:
@@ -250,11 +291,19 @@ class ConsistencyRuntime:
 
     @classmethod
     def from_config(cls, worker, sgd, **kw) -> "ConsistencyRuntime":
-        controller = AdaptiveTauController(worker, **kw) if sgd.tau_adaptive else None
+        from ..telemetry import registry as telemetry_registry
+
+        tel = None
+        if telemetry_registry.enabled():
+            from ..telemetry.instruments import consistency_instruments
+
+            tel = consistency_instruments(telemetry_registry.default_registry())
+        controller = (AdaptiveTauController(worker, tel=tel, **kw)
+                      if sgd.tau_adaptive else None)
         tracker = None
         if sgd.kkt_filter:
             tracker = SignificanceTracker(worker, drop_after=sgd.kkt_drop_after,
-                                          revisit_every=sgd.kkt_revisit_every)
+                                          revisit_every=sgd.kkt_revisit_every, tel=tel)
         return cls(worker, controller, tracker)
 
     def on_collect(self, metrics: Mapping[str, Any]) -> None:

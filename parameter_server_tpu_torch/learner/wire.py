@@ -27,15 +27,19 @@ and only the encoded bytes cross PCIe:
 The encoders are stateless (they run on the prep pool); the cache is
 single-owner (the uploader's thread).
 
+The ``ps_wire_*`` counters (:func:`wire_instruments`) record each
+encode's time and bytes, the bytes the encodings, the upload cache and
+the LZ frames save, and the cache's hits and misses; with a span sink
+installed an exact-wire encode is one ``wire.encode`` span.
 ``MessageWireCodec`` and ``wire_filter_specs`` (message-level filter
-chains) wait for ROADMAP A13; the ``ps_wire_*`` counters and
-``wire_instruments`` for A12.
+chains) wait for ROADMAP A13.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, List, Optional, Tuple
 
@@ -70,6 +74,15 @@ def array_fields(batch) -> List[str]:
 def replace_arrays(batch, arrays: dict):
     """A copy of ``batch`` with the given array fields replaced."""
     return dataclasses.replace(batch, **arrays)
+
+
+def wire_instruments():
+    """ps_wire_* instruments against the process registry, or None while
+    telemetry is disabled (cached per registry: the encode runs once a
+    batch on every prep-pool worker)."""
+    from ..telemetry.instruments import cached_wire_instruments
+
+    return cached_wire_instruments()
 
 
 def batch_nbytes(batch) -> int:
@@ -187,7 +200,18 @@ def _bf16_bits(vals: np.ndarray) -> np.ndarray:
 
 def encode_exact(prepped, num_slots: int, mode: str = "exact") -> Optional[EncodedExactBatch]:
     """A PreppedBatch on the compact wire, or None where the batch lies
-    outside an encoding's domain (the raw wire ships)."""
+    outside an encoding's domain (the raw wire ships). With a span sink
+    installed the encode is one ``wire.encode`` span carrying the active
+    flow id."""
+    from ..telemetry import spans as telemetry_spans
+
+    if telemetry_spans.get_sink() is None:
+        return _encode_exact_impl(prepped, num_slots, mode)
+    with telemetry_spans.span("wire.encode", mode=mode):
+        return _encode_exact_impl(prepped, num_slots, mode)
+
+
+def _encode_exact_impl(prepped, num_slots: int, mode: str) -> Optional[EncodedExactBatch]:
     from ..apps.linear.async_sgd import PreppedBatch
 
     if not isinstance(prepped, PreppedBatch):
@@ -195,6 +219,8 @@ def encode_exact(prepped, num_slots: int, mode: str = "exact") -> Optional[Encod
     if mode not in WIRE_ENCODE_MODES or mode == "":
         raise ValueError(f"unknown wire_encode mode {mode!r}; expected one of "
                          f"{WIRE_ENCODE_MODES[1:]}")
+    tel = wire_instruments()
+    t0 = time.perf_counter()
     y, mask, rows, ucols, vals, uslots, umask = (
         np.asarray(getattr(prepped, n)) for n in
         ("y", "mask", "rows", "ucols", "vals", "uslots", "umask"))
@@ -272,13 +298,19 @@ def encode_exact(prepped, num_slots: int, mode: str = "exact") -> Optional[Encod
     else:
         vals_enc, vals_lo, vals_hi = _quantize_vals(vals, nnz, mode)
         vals_mode = mode
-    return EncodedExactBatch(
+    out = EncodedExactBatch(
         y=y_enc, counts=counts, row_counts=row_counts.astype(rc_dtype), nnz=nnz,
         ucols_words=ucols_words, uslots=uslots_enc, n_uniq=n_uniq, vals=vals_enc,
         vals_lo=vals_lo, vals_hi=vals_hi, rows_pad=rows_pad, nnz_pad=nnz_pad,
         uniq_pad=uniq_pad, ucols_bits=ucols_bits, uslots_bits=uslots_bits, y_sign=y_sign,
         uslots_delta=uslots_delta, vals_mode=vals_mode,
     )
+    if tel is not None:
+        enc_b, raw_b = batch_nbytes(out), batch_nbytes(prepped)
+        tel["encode_seconds"].observe(time.perf_counter() - t0)
+        tel["bytes"].labels(encoding=mode).inc(enc_b)
+        tel["saved_bytes"].labels(reason="encoding").inc(max(0, raw_b - enc_b))
+    return out
 
 
 def _leaf(enc, name: str, index):
@@ -563,6 +595,7 @@ class UploadCache:
         self.hits = 0
         self.misses = 0
         self.saved_bytes = 0
+        self._tel = wire_instruments()
 
     def _assert_owner(self) -> None:
         me = threading.get_ident()
@@ -592,9 +625,14 @@ class UploadCache:
                 self.hits += 1
                 self.saved_bytes += arr.nbytes
                 hits[name] = entry[1]
+                if self._tel is not None:
+                    self._tel["cache_hits"].inc()
+                    self._tel["saved_bytes"].labels(reason="cache_hit").inc(arr.nbytes)
             else:
                 self.misses += 1
                 misses[name] = (arr, sig)
+                if self._tel is not None:
+                    self._tel["cache_misses"].inc()
         blank = {f.name: None for f in dataclasses.fields(batch) if not f.metadata.get("static")}
         staged = self._upload(replace_arrays(batch, {**blank, **{n: a for n, (a, _) in misses.items()}}))
         for name, (arr, sig) in misses.items():
@@ -655,6 +693,9 @@ def compress_batch(prepped) -> CompressedBatch:
         raw += arr.nbytes
         wire += len(frames[name])
     template = replace_arrays(prepped, {n: None for n in frames})
+    tel = wire_instruments()
+    if tel is not None:
+        tel["saved_bytes"].labels(reason="compression").inc(max(0, raw - wire))
     return CompressedBatch(frames, meta, template, getattr(prepped, "num_examples", 0), raw, wire)
 
 

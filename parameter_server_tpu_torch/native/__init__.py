@@ -16,7 +16,8 @@ the GIL for each call, so parses run in parallel on threads.
 Only the functions the port calls have their C signature declared here
 (:data:`SIGNATURES`): the key hash, the two text parsers, ``ps_crc32c``
 (the record files' checksum), the bit packers and the stream-wire encode
-of the encoded wires, and the LZ codec of the staging leg.
+of the encoded wires, the LZ codec of the staging leg, and the count-min
+sketch and key-heat folds.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _PARSE = ([ctypes.c_char_p, ctypes.c_int64, _f32p, _i64p, _u64p, _f32p, _i32p,
            ctypes.c_int64, ctypes.c_int64, _i64p], ctypes.c_int64)
@@ -54,6 +57,14 @@ SIGNATURES = {
     "ps_stream_encode": ([_u64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64,
                           ctypes.c_uint64, _u8p, ctypes.c_uint32, ctypes.c_uint32,
                           ctypes.c_int32, _i32p, _u8p, _u8p, _u8p], ctypes.c_int64),
+    # the count-min sketch and the key heat (utils/sketch.py)
+    "ps_cm_positions": ([_u64p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64, _u32p], None),
+    "ps_cm_insert": ([_u32p, _u32p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64,
+                      ctypes.c_uint32, _u32p], None),
+    "ps_cm_query": ([_u32p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64, _u32p, _u32p],
+                    None),
+    "ps_runs_u32": ([_u32p, ctypes.c_uint64, _u32p, _i64p], ctypes.c_uint64),
+    "ps_add_by_range": ([_u32p, _i64p, ctypes.c_uint64, _i64p, ctypes.c_uint64, _f64p], None),
     # the LZ frame of utils/codec.py
     "ps_lz_max_compressed": ([ctypes.c_uint64], ctypes.c_uint64),
     "ps_lz_compress": ([_u8p, ctypes.c_uint64, _u8p, ctypes.c_uint64], ctypes.c_int64),

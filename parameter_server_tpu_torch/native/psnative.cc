@@ -4,7 +4,8 @@
 // murmurhash3.cc, src/data/text_parser.cc): checksums, hashing and text
 // parsing are host-CPU bound, so they live here, while the step runs on
 // the GPU. The same source as the JAX package's cpp/psnative.cc, so every
-// ps_* function gives the same bits in both packages. Exposed with a plain
+// ps_* function gives the same bits in both packages; the count-min and
+// key-heat functions at the end are the port's own. Exposed with a plain
 // C ABI and bound with ctypes by native/__init__.py, which builds it with
 // g++ -O3 -fPIC -shared -std=c++17 at first use.
 
@@ -848,5 +849,78 @@ int64_t ps_lz_decompress(const uint8_t* src, uint64_t n,
   return (int64_t)(op - dst);
 }
 
+
+// ---------------------------------------------------------------------------
+// Count-min sketch and key heat (utils/sketch.py, telemetry/learning.py):
+// the port's own functions, bit-equal to the NumPy code of the JAX
+// package's utils/sketch.py and telemetry/learning.py.
+// ---------------------------------------------------------------------------
+
+// The double-hashed positions of CountMin (Kirsch-Mitzenmacher): row r of
+// key i at (mix64(key, 0x9E3779B9) + r * (mix64(key, 0xC2B2AE3D27D4EB4F) | 1))
+// mod 2^64 mod width (width <= 2^32), as uint32 [k][n].
+void ps_cm_positions(const uint64_t* keys, uint64_t n, uint32_t k,
+                     uint64_t width, uint32_t* pos) {
+  const bool pow2 = (width & (width - 1)) == 0;  // a mask, not a division
+  for (uint64_t i = 0; i < n; ++i) {
+    const uint64_t h1 = mix64(keys[i], 0x9E3779B9ull);
+    const uint64_t h2 = mix64(keys[i], 0xC2B2AE3D27D4EB4Full) | 1ull;
+    for (uint32_t r = 0; r < k; ++r) {
+      const uint64_t h = h1 + r * h2;
+      pos[(uint64_t)r * n + i] = (uint32_t)(pow2 ? h & (width - 1) : h % width);
+    }
+  }
+}
+
+// CountMin.insert at given positions: row by row, every count added
+// modulo 2^32 (a uint32 scatter-add), then the touched buckets clamped to
+// cap.
+void ps_cm_insert(const uint32_t* pos, const uint32_t* counts, uint64_t n,
+                  uint32_t k, uint64_t width, uint32_t cap, uint32_t* data) {
+  for (uint32_t r = 0; r < k; ++r) {
+    uint32_t* row = data + (uint64_t)r * width;
+    const uint32_t* p = pos + (uint64_t)r * n;
+    for (uint64_t i = 0; i < n; ++i) row[p[i]] += counts[i];
+    for (uint64_t i = 0; i < n; ++i) row[p[i]] = std::min(row[p[i]], cap);
+  }
+}
+
+// CountMin.query at given positions: the least count over the rows.
+void ps_cm_query(const uint32_t* pos, uint64_t n, uint32_t k, uint64_t width,
+                 const uint32_t* data, uint32_t* est) {
+  for (uint64_t i = 0; i < n; ++i) est[i] = data[pos[i]];
+  for (uint32_t r = 1; r < k; ++r) {
+    const uint32_t* row = data + (uint64_t)r * width;
+    const uint32_t* p = pos + (uint64_t)r * n;
+    for (uint64_t i = 0; i < n; ++i) est[i] = std::min(est[i], row[p[i]]);
+  }
+}
+
+// The runs of n ascending values: each distinct value written once into
+// out[0:u] with its run's length in counts (np.unique's values and counts
+// of sorted input). Returns u. out may be x.
+uint64_t ps_runs_u32(const uint32_t* x, uint64_t n, uint32_t* out, int64_t* counts) {
+  uint64_t u = 0;
+  for (uint64_t i = 0; i < n;) {
+    uint64_t j = i + 1;
+    while (j < n && x[j] == x[i]) ++j;
+    out[u] = x[i];
+    counts[u++] = (int64_t)(j - i);
+    i = j;
+  }
+  return u;
+}
+
+// KeyHeat's per-shard load: for ascending vals, out[s] += counts[i] in
+// element order (np.add.at's order, so the same float64 bits), s the
+// shard whose start is the last one <= vals[i] (starts ascending, from 0).
+void ps_add_by_range(const uint32_t* vals, const int64_t* counts, uint64_t n,
+                     const int64_t* starts, uint64_t nstarts, double* out) {
+  uint64_t s = 0;
+  for (uint64_t i = 0; i < n; ++i) {
+    while (s + 1 < nstarts && starts[s + 1] <= (int64_t)vals[i]) ++s;
+    out[s] += (double)counts[i];
+  }
+}
 
 }  // extern "C"

@@ -29,12 +29,23 @@ it (in place). Here ``push`` copies too, and ``push_donated`` writes the
 caller's table in place: there is no donated buffer to invalidate, so an
 owner that hands out its table must hand out a copy (``KVVector.table(
 copy=True)``, ``KVVector.snapshot``) — a live view reads the next push.
+
+Every public entry point is an entry point of the device inventory
+(``telemetry/device.py``) under the JAX package's names (``kv_pull``,
+``kv_push``, ``kv_push_donated``, ``kv_push_pull``,
+``kv_push_pull_donated``), each declaring the least bytes it moves; the
+in-place pushes count in ``ps_kvops_donated_pushes_total`` and the fused
+push_pull's host dispatch time in ``ps_kvops_fused_dispatch_seconds``.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..telemetry import device as _device
+from ..telemetry.instruments import cached_kvops_instruments as _tel
 from .segment_sum import segment_sum
 
 
@@ -67,12 +78,35 @@ def valid_slots(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     return slots < num_slots
 
 
-def pull(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``table[idx]`` as a fresh ``[n, k]`` tensor; zero where an
-    id is not owned."""
+def _pull_impl(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rel, ok = localize(idx, table.shape[0])
     rows = table.index_select(0, rel)
     return torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _pull_cost(table, idx):
+    """Least bytes of a pull: the ids read, a row read and a row written each."""
+    row = _nbytes(table) // max(1, table.shape[0])
+    return {"bytes_accessed": float(_nbytes(idx) + 2 * idx.numel() * row)}
+
+
+def _push_cost(table, idx, vals, pull_idx=None, copy=False):
+    """Least bytes of a push: the ids and values read (and, for a copying
+    push, the table read and written once); a push_pull's pulled rows
+    read and written too."""
+    total = _nbytes(idx) + _nbytes(vals) + (2 * _nbytes(table) if copy else 0)
+    if pull_idx is not None:
+        total += _pull_cost(table, pull_idx)["bytes_accessed"]
+    return {"bytes_accessed": float(total)}
+
+
+pull = _device.instrument("kv_pull", _pull_impl, cost=_pull_cost)
+pull.__doc__ = """Rows ``table[idx]`` as a fresh ``[n, k]`` tensor; zero where an
+id is not owned."""
 
 
 def scatter_add_in_order(table: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor) -> None:
@@ -112,27 +146,69 @@ def _push_into(table, idx, vals):
     return table
 
 
-def push(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """A new table: ``table`` with ``vals [n, k]`` added at ``idx``
-    (the caller's table is left as it was)."""
+def _push_impl(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return _push_into(table.clone(), idx, vals)
+
+
+push = _device.instrument("kv_push", _push_impl,
+                          cost=lambda t, i, v: _push_cost(t, i, v, copy=True))
+push.__doc__ = """A new table: ``table`` with ``vals [n, k]`` added at ``idx``
+(the caller's table is left as it was)."""
+
+_push_donated = _device.instrument("kv_push_donated", _push_into,
+                                   cost=lambda t, i, v: _push_cost(t, i, v))
 
 
 def push_donated(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """:func:`push` in place: adds into the caller's ``table`` and
     returns it. Same bits as ``push``."""
-    return _push_into(table, idx, vals)
+    tel = _tel()
+    if tel is not None:
+        tel["donated_pushes"].inc()
+    return _push_donated(table, idx, vals)
+
+
+def _push_pull_impl(table, idx, vals, pull_idx):
+    new = _push_impl(table, idx, vals)
+    return new, _pull_impl(new, pull_idx)
+
+
+def _push_pull_donated_impl(table, idx, vals, pull_idx):
+    new = _push_into(table, idx, vals)
+    return new, _pull_impl(new, pull_idx)
+
+
+_push_pull = _device.instrument(
+    "kv_push_pull", _push_pull_impl,
+    cost=lambda t, i, v, p: _push_cost(t, i, v, pull_idx=p, copy=True))
+_push_pull_donated = _device.instrument(
+    "kv_push_pull_donated", _push_pull_donated_impl,
+    cost=lambda t, i, v, p: _push_cost(t, i, v, pull_idx=p))
+
+
+def _dispatch_fused(fn, table, idx, vals, pull_idx):
+    if pull_idx is None:
+        pull_idx = idx
+    tel = _tel()
+    if tel is None:
+        return fn(table, idx, vals, pull_idx)
+    t0 = time.perf_counter()
+    out = fn(table, idx, vals, pull_idx)
+    # host dispatch time, not device completion
+    tel["fused_dispatch"].observe(time.perf_counter() - t0)
+    return out
 
 
 def push_pull(table, idx, vals, pull_idx=None):
     """``(new_table, pulled)`` with ``pulled = pull(push(table, idx,
     vals), pull_idx)``; ``pull_idx`` defaults to ``idx``. Copies the
     table; owners use :func:`push_pull_donated`."""
-    new = push(table, idx, vals)
-    return new, pull(new, idx if pull_idx is None else pull_idx)
+    return _dispatch_fused(_push_pull, table, idx, vals, pull_idx)
 
 
 def push_pull_donated(table, idx, vals, pull_idx=None):
     """:func:`push_pull` in place on the caller's ``table``."""
-    new = push_donated(table, idx, vals)
-    return new, pull(new, idx if pull_idx is None else pull_idx)
+    tel = _tel()
+    if tel is not None:
+        tel["donated_pushes"].inc()
+    return _dispatch_fused(_push_pull_donated, table, idx, vals, pull_idx)

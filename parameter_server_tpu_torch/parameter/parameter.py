@@ -14,14 +14,16 @@ Key directories come in two modes, both host-side:
 - **hashed**: slot = mix64(key) % num_slots, the streaming mode where
   the key universe is unbounded (CTR hashing trick).
 
-Left out: the push/pull latency and key-count instruments of the JAX
-package's ``Parameter`` (its telemetry spine is ROADMAP A12), and the
-slot remap that a live migration installs (``set_remap``, A13).
+Push/pull requests record the JAX package's latency histograms and
+key-count counters per (store, channel) (``instrumented_submit``), and
+the slot cache counts its hits and misses. Left out: the slot remap that
+a live migration installs (``set_remap``, ROADMAP A13).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -30,18 +32,45 @@ import torch
 
 from ..system.customer import Customer
 from ..system.message import INVALID_TIME, FilterSpec, Task
+from ..telemetry import registry as telemetry_registry
+from ..telemetry.instruments import cached_kvops_instruments as _dir_tel
 from ..utils import crc32c
 from ..utils.murmur import hash_slots
 from ..utils.range import Range
 
 
 class Parameter(Customer):
+    def __init__(self, id: Optional[int] = None, name: str = ""):
+        super().__init__(id=id, name=name)
+        # push/pull telemetry: latency histograms and key-volume
+        # counters per (store, channel), decided here
+        self._tel = None
+        if telemetry_registry.enabled():
+            from ..telemetry.instruments import parameter_instruments
+
+            self._tel = parameter_instruments(telemetry_registry.default_registry())
+
     def instrumented_submit(self, kind: str, channel, num_keys: int, step,
                             task: Optional[Task] = None, callback=None) -> int:
-        """Submit a push/pull step. The JAX package observes its latency
-        and key count here; the port submits it as is (the instruments
-        are ROADMAP A12). ``kind`` is "push", "pull" or "push_pull"."""
-        return self.submit(step, task, callback)
+        """Submit a push/pull step with latency and key-count telemetry.
+        The latency is submit to finished (queueing, run and the wait for
+        its device work), observed from the executor's completion
+        callback; ``callback`` still fires after it. ``kind`` is "push"
+        or "pull"."""
+        tel = self._tel
+        if tel is None:
+            return self.submit(step, task, callback)
+        ch = str(channel)
+        tel[f"{kind}_keys"].labels(store=self.name, channel=ch).inc(max(0, int(num_keys)))
+        hist = tel[f"{kind}_latency"].labels(store=self.name, channel=ch)
+        t0 = time.perf_counter()
+
+        def record_then(cb=callback):
+            hist.observe(time.perf_counter() - t0)
+            if cb is not None:
+                cb()
+
+        return self.submit(step, task, record_then)
 
     @staticmethod
     def request(channel: int = 0, ts: int = INVALID_TIME, wait: Sequence[int] = (),
@@ -134,11 +163,16 @@ class KeyDirectory:
 
     def _cache_entry(self, keys: np.ndarray) -> list:
         sig = self._signature(keys)
+        tel = _dir_tel()
         with self._slot_cache_lock:
             entry = self._slot_cache.get(sig)
             if entry is not None and np.array_equal(keys, entry[0]):
                 self._slot_cache.move_to_end(sig)
+                if tel is not None:
+                    tel["slot_cache_hits"].inc()
                 return entry
+        if tel is not None:
+            tel["slot_cache_misses"].inc()
         # computed outside the lock: the hash pass must not serialize callers
         entry = [np.array(keys, copy=True), self._compute_slots(keys), {}]
         with self._slot_cache_lock:

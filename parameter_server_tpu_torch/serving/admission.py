@@ -1,8 +1,7 @@
 """Admission control: token bucket + queue-depth shedding.
 
-Counterpart of ``parameter_server_tpu/serving/admission.py``, whole but
-for its shed counters (the JAX package's telemetry spine; the port's is
-ROADMAP A12). The serving plane's overload story (doc/SERVING.md): an open-loop
+Counterpart of ``parameter_server_tpu/serving/admission.py``, its shed
+counters included (``ps_serve_shed_total{reason=...}``). The serving plane's overload story (doc/SERVING.md): an open-loop
 client population does not slow down when the server does, so without
 admission control the request queue — and therefore p99 — grows without
 bound the moment offered load crosses capacity. The controller bounds
@@ -106,7 +105,8 @@ class AdmissionController:
     rate cap (a decode burst behind a device stall).
 
     ``rate <= 0`` disables the bucket (queue gate only); ``max_queue_depth
-    <= 0`` disables the queue gate. Thread-safe.
+    <= 0`` disables the queue gate. Thread-safe; counters live in the
+    telemetry registry (``ps_serve_shed_total{reason=...}``).
     """
 
     def __init__(
@@ -122,6 +122,9 @@ class AdmissionController:
         )
         self.max_queue_depth = int(max_queue_depth)
         self.depth_fn = depth_fn
+        from ..telemetry.instruments import cached_serve_instruments
+
+        self._tel = cached_serve_instruments
 
     def queue_retry_s(self, depth: int) -> float:
         """Retry-after hint for a queue shed: the backlog drains at
@@ -140,8 +143,14 @@ class AdmissionController:
         if self.bucket is not None:
             retry = self.bucket.try_acquire(cost)
             if retry is not None:
+                tel = self._tel()
+                if tel is not None:
+                    tel["shed"].labels(reason="rate").inc()
                 raise RejectedError("rate", retry)
         if self.max_queue_depth > 0 and self.depth_fn is not None:
             depth = self.depth_fn()
             if depth >= self.max_queue_depth:
+                tel = self._tel()
+                if tel is not None:
+                    tel["shed"].labels(reason="queue").inc()
                 raise RejectedError("queue", self.queue_retry_s(depth))

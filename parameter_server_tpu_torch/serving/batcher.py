@@ -25,8 +25,8 @@ Correctness contract: GREEDY token parity — every session's output is
 token-for-token identical to its own ``speculative_generate`` run,
 whoever shared the batch and whenever they joined or left.
 
-Left out: the occupancy, join, round and retirement counters of the
-telemetry registry (ROADMAP A12); :meth:`stats` has the same numbers.
+The occupancy, join, round and retirement counts go to the telemetry
+registry (``ps_serve_batch_*``) as well as to :meth:`stats`.
 """
 
 from __future__ import annotations
@@ -140,6 +140,9 @@ class ContinuousBatcher:
         self._retired = 0  # guarded-by: _lock
         self._accepted = 0  # guarded-by: _lock
         self._proposed = 0  # guarded-by: _lock
+        from ..telemetry.instruments import cached_serve_instruments
+
+        self._tel = cached_serve_instruments
 
     # -- the single-owner rule --
 
@@ -266,6 +269,10 @@ class ContinuousBatcher:
         with self._lock:
             self._joins += total
             self._occupancy = occ
+        tel = self._tel()
+        if tel is not None:
+            tel["batch_joins"].inc(total)
+            tel["batch_occupancy"].set(occ)
         return handles
 
     def step(self) -> List[BatchHandle]:
@@ -334,6 +341,13 @@ class ContinuousBatcher:
             self._occupancy = occ
             self._accepted += acc
             self._proposed += prop
+        tel = self._tel()
+        if tel is not None:
+            tel["batch_rounds"].inc(n_rounds)
+            if n_retired:
+                tel["batch_retired"].inc(n_retired)
+                tel["batch_leaves"].inc(n_retired)
+            tel["batch_occupancy"].set(occ)
         return finished
 
     # -- cross-thread introspection --

@@ -1,9 +1,9 @@
 """Request coalescing: merge in-flight pulls into one executor submit.
 
-Counterpart of ``parameter_server_tpu/serving/coalescer.py``. Left out:
-the flush span and its fan-in flow ids, and the coalesce counters of the
-telemetry registry (the port's spans and registry are ROADMAP A12); the
-``stats()`` counters this class keeps itself are all here.
+Counterpart of ``parameter_server_tpu/serving/coalescer.py``, with its
+``serve.coalesce.flush`` span (whose ``flows`` list names the merged
+requests, so the timeline draws fan-in arrows) and its
+``ps_serve_coalesce_*`` counters.
 
 Serving traffic is read-heavy and hot-keyed: concurrent sessions ask
 for overlapping key ranges within microseconds of each other. Issuing
@@ -43,6 +43,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..telemetry import spans as telemetry_spans
 from ..utils.retry import DeadlineExceeded
 
 
@@ -62,7 +63,7 @@ class _Window:
 
     __slots__ = (
         "keys", "n_requests", "deadline", "done", "union", "values",
-        "error",
+        "error", "flows",
     )
 
     def __init__(self, deadline: float):
@@ -73,6 +74,10 @@ class _Window:
         self.union: Optional[np.ndarray] = None
         self.values: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        # timeline fan-in: the flow ids of the requests this window
+        # merged (appended under the coalescer's _cv, read by the
+        # flusher after the hand-off)
+        self.flows: List[int] = []
 
 
 class PullTicket:
@@ -140,6 +145,9 @@ class PullCoalescer:
         self.submits_total = 0  # guarded-by: _cv
         self.requested_keys_total = 0  # guarded-by: _cv
         self.union_keys_total = 0  # guarded-by: _cv
+        from ..telemetry.instruments import cached_serve_instruments
+
+        self._tel = cached_serve_instruments
         self._thread = threading.Thread(
             target=self._flush_loop, name="serve-coalescer", daemon=True
         )
@@ -162,6 +170,9 @@ class PullCoalescer:
                 self._open_keys = 0
             win.keys.append(keys)
             win.n_requests += 1
+            fid = telemetry_spans.current_flow()
+            if fid is not None:
+                win.flows.append(fid)
             self._open_keys += len(keys)
             self.requests_total += 1
             self.requested_keys_total += len(keys)
@@ -211,14 +222,34 @@ class PullCoalescer:
             self._flush(win)
 
     def _flush(self, win: _Window) -> None:
-        try:
+        # the flush gets its own flow id; the span's ``flows`` list names
+        # the merged requests, and the store's pull step submitted inside
+        # correlates to the flush (the executor captures the active flow)
+        fid = telemetry_spans.maybe_new_flow()
+
+        def pull_union():
             union = np.unique(np.concatenate(win.keys))
             ts = self.store.pull(self.store.request(channel=self.channel), keys=union)
+            return union, _host(self.store.wait_pull(ts))
+
+        try:
+            if fid is not None:
+                with telemetry_spans.flow_scope(fid):
+                    with telemetry_spans.span("serve.coalesce.flush", merged=win.n_requests,
+                                              flows=list(win.flows)):
+                        union, values = pull_union()
+            else:  # tracing off: no span machinery on the flush path
+                union, values = pull_union()
             win.union = union
-            win.values = _host(self.store.wait_pull(ts))
+            win.values = values
             with self._cv:
                 self.submits_total += 1
                 self.union_keys_total += len(union)
+            tel = self._tel()
+            if tel is not None:
+                tel["coalesce_submits"].inc()
+                tel["coalesce_merged_requests"].inc(win.n_requests)
+                tel["coalesce_union_keys"].inc(len(union))
         except BaseException as e:  # publish; every waiter re-raises
             win.error = e
         finally:

@@ -29,12 +29,13 @@ queueing; the admission depth gate sheds past the bound — never an
 error), :meth:`quiesce` waits out in-flight executions, and
 :meth:`rebind` points the frontend at another store.
 
-Counterpart of ``parameter_server_tpu/serving/frontend.py``. Left out,
-as the port has no telemetry spine yet (ROADMAP A12): the request spans
-and flow ids, the ``ps_serve_*`` counters, and the diagnostic bundle a
-degraded failure triggers (``blackbox.trigger_bundle``). ``stats()``
-carries every count the frontend keeps itself. A decode result is
-returned as a host array (int64 tokens).
+Counterpart of ``parameter_server_tpu/serving/frontend.py``, with its
+request spans and flow ids (``serve.submit`` / ``serve.execute`` or
+``serve.decode`` / ``serve.reply`` while a span sink is installed), its
+``ps_serve_*`` counters, and the diagnostic bundle a degraded failure
+triggers (``blackbox.trigger_bundle``). ``stats()`` carries every count
+the frontend keeps itself. A decode result is returned as a host array
+(int64 tokens).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .admission import AdmissionController, RejectedError  # noqa: F401  (re-exp
 from .coalescer import PullCoalescer
 from .replica import ReadReplica
 from ..system import faults
+from ..telemetry import spans as telemetry_spans
 from ..utils.retry import DeadlineExceeded
 
 
@@ -148,17 +150,21 @@ class ServeConfig:
 
 
 class Ticket:
-    """One admitted request's completion handle."""
+    """One admitted request's completion handle. ``flow`` is the
+    request's timeline flow id when a span sink is installed: submit,
+    execution, coalesced pull, executor step and reply all correlate
+    through it."""
 
-    __slots__ = ("_done", "value", "error", "t_submit", "t_done", "kind")
+    __slots__ = ("_done", "value", "error", "t_submit", "t_done", "kind", "flow")
 
-    def __init__(self, kind: str):
+    def __init__(self, kind: str, flow: Optional[int] = None):
         self._done = threading.Event()
         self.value = None
         self.error: Optional[BaseException] = None
         self.t_submit = time.perf_counter()
         self.t_done = 0.0
         self.kind = kind
+        self.flow = flow
 
     def _complete(self, value=None, error=None) -> None:
         self.value = value
@@ -271,6 +277,9 @@ class ServeFrontend:
             max_keys=self.cfg.coalesce_max_keys,
             max_requests=self.cfg.coalesce_max_requests,
         )
+        from ..telemetry.instruments import cached_serve_instruments
+
+        self._tel = cached_serve_instruments
 
     # -- lifecycle --
 
@@ -425,6 +434,9 @@ class ServeFrontend:
             # rejection between here and enqueue.
             lane = self._in_flight_decode if decode else self._in_flight
             if 0 < self.cfg.max_queue_depth <= lane:
+                tel = self._tel()
+                if tel is not None:
+                    tel["shed"].labels(reason="queue").inc()
                 raise RejectedError("queue", self._queue_retry_s(lane))
             if decode:
                 self._in_flight_decode += 1
@@ -444,7 +456,14 @@ class ServeFrontend:
             else "predict" if isinstance(req, PredictRequest)
             else "decode"
         )
-        ticket = Ticket(kind)
+        fid = telemetry_spans.maybe_new_flow()
+        ticket = Ticket(kind, flow=fid)
+        if fid is not None:
+            # zero-duration submit marker: the gap to the execute span is
+            # the request's queue wait in the timeline
+            telemetry_spans.emit({"kind": "span", "name": "serve.submit", "t_wall": time.time(),
+                                  "dur_s": 0.0, "flow": fid, "req": kind})
+        tel = self._tel()
         with self._cv:
             if self._closed:  # closed during admit: nothing enqueued
                 if decode:
@@ -456,7 +475,13 @@ class ServeFrontend:
                 self._decode_queue.append((req, ticket))
             else:
                 self._queue.append((req, ticket))
+            depth = self._in_flight + self._in_flight_decode
             self._cv.notify_all()
+        # counted only once the request is really enqueued, so
+        # requests_total reconciles with tickets issued
+        if tel is not None:
+            tel["requests"].labels(kind=kind).inc()
+            tel["queue_depth"].set(depth)
         return ticket
 
     # -- workers --
@@ -472,10 +497,21 @@ class ServeFrontend:
                 req, ticket = queue.popleft()
                 self._executing += 1
             try:
-                value, err = self._execute(req), None
+                # a span only when the request carries a flow (a sink was
+                # installed at submit): the pull lane pays nothing for
+                # tracing that is off
+                if ticket.flow is not None:
+                    span_name = "serve.decode" if ticket.kind == "decode" else "serve.execute"
+                    with telemetry_spans.flow_scope(ticket.flow):
+                        with telemetry_spans.span(span_name, req=ticket.kind):
+                            value = self._execute(req)
+                else:
+                    value = self._execute(req)
+                err = None
             except BaseException as e:
                 value, err = None, e
             ticket._complete(value, err)
+            self._reply_marker(ticket, err)
             with self._cv:
                 self._executing -= 1
                 if decode_lane:
@@ -484,16 +520,35 @@ class ServeFrontend:
                     self._in_flight -= 1
                 self.completed += 1
                 self._cv.notify_all()
+            tel = self._tel()
+            if tel is not None:
+                tel["latency"].labels(kind=ticket.kind).observe(ticket.latency_s())
+
+    @staticmethod
+    def _reply_marker(ticket: Ticket, err) -> None:
+        """The reply marker: completion handed back to the waiter, which
+        closes the request's flow in the timeline."""
+        if ticket.flow is None:
+            return
+        event = {"kind": "span", "name": "serve.reply", "t_wall": time.time(), "dur_s": 0.0,
+                 "flow": ticket.flow, "latency_s": ticket.latency_s(), "req": ticket.kind}
+        if err:
+            event["error"] = type(err).__name__
+        telemetry_spans.emit(event)
 
     def _finish_decode_ticket(self, ticket: Ticket, value, err) -> None:
         """Completion bookkeeping for one batched decode request —
         the tail of _worker_loop, factored out for _batch_loop (which
         completes tickets at round boundaries, not per pop)."""
         ticket._complete(value, err)
+        self._reply_marker(ticket, err)
         with self._cv:
             self._in_flight_decode -= 1
             self.completed += 1
             self._cv.notify_all()
+        tel = self._tel()
+        if tel is not None:
+            tel["latency"].labels(kind=ticket.kind).observe(ticket.latency_s())
 
     def _batch_loop(self) -> None:
         """The continuous batcher's single-owner scheduler: this thread
@@ -552,7 +607,11 @@ class ServeFrontend:
                     for _req, ticket in admits:
                         self._finish_decode_ticket(ticket, None, e)
             for handle in b.step_block():
-                self._finish_decode_ticket(handle.context, handle.out, None)
+                out = handle.out
+                tel = self._tel()
+                if tel is not None:
+                    tel["decode_tokens"].inc(out.shape[0] * int(handle.req.steps))
+                self._finish_decode_ticket(handle.context, out, None)
             active = b.active_sessions() > 0
 
     def _live_pull(self, keys: np.ndarray) -> np.ndarray:
@@ -574,6 +633,7 @@ class ServeFrontend:
         covers every key; otherwise raise the 503-style DegradedError.
         Never catches RejectedError — overload sheds are the door's
         verdict, not a store failure to degrade around."""
+        tel = self._tel()
         r = self.replica
         reason = None
         if r is None:
@@ -590,13 +650,21 @@ class ServeFrontend:
             if hit.all():
                 with self._cv:
                     self.degraded_served += 1
+                if tel is not None:
+                    tel["degraded"].labels(outcome="served").inc()
                 return vals
             reason, detail = "replica-miss", (
                 f"{int((~hit).sum())}/{len(hit)} keys outside the "
                 "replica's coverage"
             )
-        # the JAX package captures a diagnostic bundle here (its
-        # blackbox); the port's flight recorder is ROADMAP A12
+        if tel is not None:
+            tel["degraded"].labels(outcome="error").inc()
+        # a request the degraded path could not save is a flight-recorder
+        # trigger: the last few seconds of spans and metrics are the
+        # diagnosis. Best-effort, rate-limited, never alters the error.
+        from ..telemetry import blackbox
+
+        blackbox.trigger_bundle("degraded", detail=f"{reason}: {detail}")
         raise DegradedError(reason, detail) from cause
 
     def _pull_values(self, keys: np.ndarray) -> np.ndarray:
@@ -644,7 +712,11 @@ class ServeFrontend:
             return 1.0 / (1.0 + np.exp(-margins))
         if isinstance(req, DecodeRequest):
             out = self.decode_fn(req)
-            return out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+            out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+            tel = self._tel()
+            if tel is not None:
+                tel["decode_tokens"].inc(out.shape[0] * req.steps)
+            return out
         raise TypeError(f"unknown request type {type(req).__name__}")
 
     # -- replica refresher --

@@ -32,8 +32,8 @@ Two homes for the copy:
   host per request. The budget does not apply: capacity scales with the
   card's memory, not the host's.
 
-Left out: the refresh-latency and hit/miss counters of the telemetry
-registry (ROADMAP A12).
+The refresh latency and the per-key hits and misses count in the
+telemetry registry (``ps_serve_replica_*``).
 """
 
 from __future__ import annotations
@@ -84,6 +84,9 @@ class ReadReplica:
         self._table = None  # guarded-by: _lock
         self.version = 0  # guarded-by: _lock
         self._refreshed_at = 0.0  # guarded-by: _lock
+        from ..telemetry.instruments import cached_serve_instruments
+
+        self._tel = cached_serve_instruments
         self.refresh()
 
     def _directory(self):
@@ -97,6 +100,7 @@ class ReadReplica:
         # fault point: a dead shard's refresh fails; the refresher logs
         # and retries, the last good snapshot keeps serving
         faults.inject("serve.refresh", detail=getattr(self.store, "name", ""))
+        t0 = time.perf_counter()
         if self.hot_keys is not None:
             ts = self.store.pull(self.store.request(channel=self.channel), keys=self.hot_keys)
             fresh = self.store.wait_pull(ts)  # a gather: no view of the table
@@ -116,7 +120,11 @@ class ReadReplica:
             self._table = fresh
             self.version += 1
             self._refreshed_at = time.monotonic()
-            return self.version
+            version = self.version
+        tel = self._tel()
+        if tel is not None:
+            tel["replica_refresh"].observe(time.perf_counter() - t0)
+        return version
 
     def age_s(self) -> float:
         with self._lock:
@@ -141,12 +149,15 @@ class ReadReplica:
         keys = np.asarray(keys, dtype=np.int64).ravel()
         with self._lock:
             table = self._table
+        tel = self._tel()
         if self.hot_keys is None:
             slots = self._directory().slots(keys)
             miss = slots >= table.shape[0]
             vals = self._rows(table, np.minimum(slots, table.shape[0] - 1))
             if miss.any():
                 vals = np.where(miss[:, None], 0, vals).astype(vals.dtype)
+            if tel is not None:
+                tel["replica_hits"].inc(len(keys))
             return vals, np.ones(len(keys), dtype=bool)
         pos = np.searchsorted(self.hot_keys, keys)
         posc = np.minimum(pos, len(self.hot_keys) - 1)
@@ -156,4 +167,8 @@ class ReadReplica:
         vals = np.zeros((len(keys), table.shape[1]), dtype)
         if hit.any():
             vals[hit] = self._rows(table, posc[hit])
+        if tel is not None:
+            n_hit = int(hit.sum())
+            tel["replica_hits"].inc(n_hit)
+            tel["replica_misses"].inc(len(keys) - n_hit)
         return vals, hit

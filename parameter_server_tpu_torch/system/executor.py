@@ -3,8 +3,11 @@ device work.
 
 Counterpart of ``Executor`` and ``TaskTracker`` in the JAX package's
 ``system/executor.py`` (the reference's ``src/system/executor.{h,cc}``
-and ``task_tracker.h``), without its telemetry, trace flows and fault
-points. ``submit`` enqueues a step and returns its timestamp at once; a
+and ``task_tracker.h``), with its telemetry (the ``executor_*`` phase
+histograms and depth gauges, one ``executor.step`` span a finished
+step), its trace flows (the submitter's flow id rides into the step
+body) and the live-executor registry the flight recorder reads; without
+its fault points. ``submit`` enqueues a step and returns its timestamp at once; a
 dispatch thread runs the lowest-timestamp step whose ``wait_time``
 dependencies have finished, so a step behind an unmet dependency does not
 hold up a later one that is ready. A step that launched CUDA work is
@@ -23,14 +26,81 @@ from __future__ import annotations
 import heapq
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from ..telemetry import registry as telemetry_registry
+from ..telemetry import spans as telemetry_spans
 
 # the one Task of the port: the executor reads its scheduling part, an
 # explicit timestamp (or INVALID_TIME for the next one) and the
 # timestamps that must have finished before the step runs
 from .message import INVALID_TIME, Task  # noqa: F401  (re-exported)
+
+
+class _ExecutorTelemetry:
+    """Per-executor bridge into the process registry (telemetry spine).
+
+    The per-step path is ONE buffer append under one small lock; the
+    buffered phase records flush into the registry instruments lazily,
+    on the registry's collector hook (every ``snapshot()`` /
+    ``render_text()`` read) or when the buffer fills. Instrument
+    children are bound once here."""
+
+    __slots__ = (
+        "queue_wait", "run", "materialize", "total",
+        "steps", "in_flight", "pending", "name",
+        "_buf", "_buf_lock", "__weakref__",
+    )
+
+    _FLUSH_AT = 4096  # bound buffered memory between registry reads
+
+    def __init__(self, name: str):
+        from ..telemetry.instruments import executor_instruments
+
+        reg = telemetry_registry.default_registry()
+        insts = executor_instruments(reg)
+        self.name = name
+        self.queue_wait = insts["queue_wait"].labels(executor=name)
+        self.run = insts["run"].labels(executor=name)
+        self.materialize = insts["materialize"].labels(executor=name)
+        self.total = insts["total"].labels(executor=name)
+        self.steps = insts["steps"].labels(executor=name)
+        self.in_flight = insts["in_flight"].labels(executor=name)
+        self.pending = insts["pending"].labels(executor=name)
+        self._buf: list = []  # guarded-by: _buf_lock
+        self._buf_lock = threading.Lock()
+        reg.add_collector(self.flush)
+
+    def record(self, queue_wait: float, run_s: float, mat_s: float, total: float,
+               in_flight: int, pending: int) -> None:
+        """Hot path: one lock, one append; the flush is amortized."""
+        with self._buf_lock:
+            self._buf.append((queue_wait, run_s, mat_s, total, in_flight, pending))
+            if len(self._buf) < self._FLUSH_AT:
+                return
+            buf, self._buf = self._buf, []
+        self._flush_records(buf)
+
+    def flush(self) -> None:
+        """Drain buffered step records into the registry (collector hook)."""
+        with self._buf_lock:
+            buf, self._buf = self._buf, []
+        if buf:
+            self._flush_records(buf)
+
+    def _flush_records(self, buf: list) -> None:
+        for qw, run_s, mat_s, total, _, _ in buf:
+            self.queue_wait.observe(qw)
+            self.run.observe(run_s)
+            self.materialize.observe(mat_s)
+            self.total.observe(total)
+        self.steps.inc(len(buf))
+        # gauges are point-in-time: the newest record wins
+        self.in_flight.set(buf[-1][4])
+        self.pending.set(buf[-1][5])
 
 
 class TaskTracker:
@@ -83,10 +153,34 @@ def _cuda_tensor(value) -> Optional[torch.Tensor]:
     return None
 
 
+#: every live executor, weakly held: the diagnostic-bundle capture
+#: (telemetry/blackbox.py) walks it; registration and the capture's copy
+#: both go through _live_lock (a WeakSet is not thread-safe)
+_live_executors: "weakref.WeakSet" = weakref.WeakSet()
+_live_lock = threading.Lock()
+
+
+def live_executors() -> List["Executor"]:
+    """The process's live executors (for diagnostics; order arbitrary)."""
+    with _live_lock:
+        return list(_live_executors)
+
+
 class Executor:
-    def __init__(self, name: str = "", max_in_flight: int = 0):
+    def __init__(self, name: str = "", max_in_flight: int = 0,
+                 telemetry: Optional[bool] = None):
         self.name = name
         self.max_in_flight = max_in_flight  # 0 = unbounded
+        # telemetry: decided here, so the hot path tests one attribute;
+        # None follows the process-wide switch
+        if telemetry is None:
+            telemetry = telemetry_registry.enabled()
+        self._tel: Optional[_ExecutorTelemetry] = _ExecutorTelemetry(name) if telemetry else None
+        # ts -> [t_submit, t_dispatch, run_s, materialize_s, flow]
+        # (perf_counter); handed across threads by dict.pop's atomicity
+        self._step_times: Dict[int, List[Any]] = {}
+        # ts -> (flow id, origin node) of the submitting thread
+        self._flows: Dict[int, Tuple[int, Optional[str]]] = {}  # guarded by _cv
         self._time = 0  # the logical clock; guarded by _cv
         # every field below is guarded by _cv
         self._pending: Dict[int, Tuple[Callable[[], Any], List[int]]] = {}
@@ -105,6 +199,8 @@ class Executor:
         self._cv = threading.Condition()
         # the most steps ever started and unfinished at a dispatch
         self.max_dispatched_in_flight = 0
+        with _live_lock:
+            _live_executors.add(self)
 
     def time(self) -> int:
         """The logical clock: the timestamp the next submitted step gets."""
@@ -115,6 +211,21 @@ class Executor:
         """Submitted steps not yet picked by the dispatch thread."""
         with self._cv:
             return len(self._pending)
+
+    def debug_state(self, max_pending: int = 16) -> Dict[str, Any]:
+        """Point-in-time diagnostic snapshot for incident bundles
+        (telemetry/blackbox.py): logical clock, backlog depth and its
+        oldest timestamps, the step executing now, in-flight count."""
+        with self._cv:
+            pending = sorted(self._pending)
+            return {
+                "name": self.name,
+                "logical_time": self._time,
+                "pending": len(pending),
+                "pending_ts": pending[:max_pending],
+                "running": self._running,
+                "in_flight": self.tracker.in_flight(),
+            }
 
     # -- submission --
 
@@ -146,6 +257,13 @@ class Executor:
                     raise ValueError(f"dependency {dep} is not before step {ts}")
                 deps.append(dep)
             self._pending[ts] = (step, deps)
+            flow = telemetry_spans.current_flow()
+            if flow is not None:
+                self._flows[ts] = (flow, telemetry_spans.current_flow_node())
+            if self._tel is not None:
+                # [t_submit, t_dispatch (0: not picked yet), run_s (-1:
+                # not run yet), materialize_s, the submitter's flow]
+                self._step_times[ts] = [time.perf_counter(), 0.0, -1.0, 0.0, flow]
             # a dependency not yet done registers this step as its
             # dependent; _finish(dep) counts it down and makes the step
             # ready at zero. One done now never changes again.
@@ -205,9 +323,10 @@ class Executor:
                 else:
                     ts, step = pick
                     self._running = ts
+                    step_flow = self._flows.pop(ts, None)
             if pick is None:
                 if event is not None:
-                    event.synchronize()
+                    self._synchronize(dep, event)
                 self._finish(dep)
                 continue
             # the step runs outside the lock: submitters and waiters stay free
@@ -215,14 +334,25 @@ class Executor:
             self.max_dispatched_in_flight = max(self.max_dispatched_in_flight,
                                                 self.tracker.in_flight())
             event = None
+            tel = self._tel
+            times = None
+            if tel is not None:
+                t_run0 = time.perf_counter()
+                times = self._step_times.get(ts)
+                if times is not None:
+                    times[1] = t_run0  # picked: the queue wait ends
             try:
-                result, err = step(), None
+                # the submitter's flow rides into the step body
+                with telemetry_spans.flow_scope(*(step_flow or (None, None))):
+                    result, err = step(), None
                 t = _cuda_tensor(result)
                 if t is not None:
                     event = torch.cuda.Event()
                     event.record(torch.cuda.current_stream(t.device))
             except BaseException as e:  # re-raised at the waiter
                 result, err = None, e
+            if times is not None:
+                times[2] = time.perf_counter() - t_run0
             with self._cv:
                 self._running = None
                 self._ran.add(ts)
@@ -255,6 +385,51 @@ class Executor:
                 return ts, entry[0]
         return None
 
+    def _synchronize(self, ts: int, event) -> None:
+        """Wait for a step's device work, timing the wait onto its record
+        (a step may be waited on from several threads; the phases sum)."""
+        t0 = time.perf_counter()
+        event.synchronize()
+        if self._tel is not None:
+            times = self._step_times.get(ts)
+            if times is not None:
+                times[3] += time.perf_counter() - t0
+
+    def _record_finished(self, ts: int, num_pending: int) -> None:
+        """Record the finished step's phases into the registry and emit
+        its ``executor.step`` span (once a step, popped exactly once)."""
+        tel = self._tel
+        if tel is None:
+            return
+        times = self._step_times.get(ts)
+        if times is None or times[1] == 0.0 or times[2] < 0.0:
+            # not dispatched here, or its body still runs (a finish from
+            # outside): the finish that sees the run completed records it
+            return
+        times = self._step_times.pop(ts, None)
+        if times is None:
+            return  # a concurrent finish won the pop; it emitted
+        now = time.perf_counter()
+        t_submit, t_dispatch, run_s, mat_s, flow = times
+        queue_wait = max(0.0, t_dispatch - t_submit)
+        total = max(0.0, now - t_submit)
+        tel.record(queue_wait, run_s, mat_s, total, self.tracker.in_flight(), num_pending)
+        if telemetry_spans.get_sink() is not None:
+            event = {
+                "kind": "span",
+                "name": "executor.step",
+                "executor": tel.name,
+                "ts": ts,
+                "t_wall": time.time(),
+                "queue_wait_s": queue_wait,
+                "run_s": run_s,
+                "materialize_s": mat_s,
+                "total_s": total,
+            }
+            if flow is not None:
+                event["flow"] = flow
+            telemetry_spans.emit(event)
+
     def _finish(self, ts: int) -> None:
         """Mark ``ts`` finished, make ready the steps whose last unmet
         dependency it was, and fire its callback once."""
@@ -263,6 +438,7 @@ class Executor:
         with self._cv:
             self._ran.discard(ts)
             self._events.pop(ts, None)
+            self._flows.pop(ts, None)  # steps finished from outside
             for t in self._dependents.pop(ts, ()):
                 left = self._unmet.get(t)
                 if left is None:
@@ -274,7 +450,9 @@ class Executor:
                 else:
                     self._unmet[t] = left - 1
             cb = self._callbacks.pop(ts, None)
+            num_pending = len(self._pending)
             self._cv.notify_all()
+        self._record_finished(ts, num_pending)
         if cb is not None:
             cb()
 
@@ -300,17 +478,28 @@ class Executor:
                     continue
                 left = deadline - time.monotonic()
                 if left <= 0:
-                    raise TimeoutError(self._timeout_message_locked(ts, timeout))
+                    timed_out = TimeoutError(self._timeout_message_locked(ts, timeout))
+                    break
                 self._cv.wait(left)
-            err = self._errors.pop(ts, None) if pop else self._errors.get(ts)
-            fut = self._futures.pop(ts, None) if pop else self._futures.get(ts)
-            event = self._events.get(ts)
+            else:
+                timed_out = None
+            if timed_out is None:
+                err = self._errors.pop(ts, None) if pop else self._errors.get(ts)
+                fut = self._futures.pop(ts, None) if pop else self._futures.get(ts)
+                event = self._events.get(ts)
+        if timed_out is not None:
+            # a wedged wait is a flight-recorder trigger, raised outside
+            # the lock (the capture reads executor state through it)
+            from ..telemetry import blackbox
+
+            blackbox.trigger_bundle("executor_wait_timeout", detail=str(timed_out))
+            raise timed_out
         if err is not None:
             self._finish(ts)
             raise err
         if event is not None:
             try:
-                event.synchronize()
+                self._synchronize(ts, event)
             except BaseException:
                 # it ran: finish it anyway, or every later wait would spin
                 self._finish(ts)
@@ -371,6 +560,8 @@ class Executor:
                     self._pending.pop(ts)
                     self._callbacks.pop(ts, None)
                     self._unmet.pop(ts, None)
+                    self._step_times.pop(ts, None)  # never dispatched
+                    self._flows.pop(ts, None)
                 # purge, not skip later: a reused explicit timestamp must
                 # not inherit a stale heap entry or dependent registration
                 self._ready = [t for t in self._ready if t not in cancelled]
@@ -386,3 +577,7 @@ class Executor:
             thread = self._thread
         if thread is not None and thread.is_alive() and thread is not threading.current_thread():
             thread.join(timeout=60)
+        if self._tel is not None:
+            # push buffered step records out before this executor (and its
+            # collector registration) can be collected
+            self._tel.flush()

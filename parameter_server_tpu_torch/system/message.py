@@ -52,6 +52,10 @@ _SAFE_PACKAGE = {
     ("parameter_server_tpu_torch.system.message", "FilterSpec"),
     ("parameter_server_tpu_torch.system.message", "Command"),
     ("parameter_server_tpu_torch.utils.range", "Range"),
+    # heartbeat/metrics reports ride the message plane (the aux
+    # runtime's metric reports, monitor progress): a plain dataclass of
+    # floats and one hostname string, no side effects on construction
+    ("parameter_server_tpu_torch.system.heartbeat", "HeartbeatReport"),
 }
 
 
@@ -114,8 +118,8 @@ class Command(enum.Enum):
     SAVE_MODEL = "save_model"
     RECOVER = "recover"
     HEARTBEAT = "heartbeat"
-    # the JAX package's flight-recorder ring fetch (its blackbox; the
-    # port's telemetry is ROADMAP A12), kept so the enum matches
+    # flight-recorder ring fetch (telemetry/blackbox.py): a node ships
+    # its bounded event ring to the scheduler for a diagnostic bundle
     DUMP_BLACKBOX = "dump_blackbox"
 
 
@@ -131,7 +135,7 @@ def _validate_trace(trace: Any) -> Optional[dict]:
     peer could still smuggle an arbitrarily nested container or a
     numpy payload into the slot the receiver later re-activates as a
     flow scope. This narrows it to the closed shape
-    the JAX package's ``telemetry.spans.trace_context`` emits: a flat dict of at
+    :func:`telemetry.spans.trace_context` emits: a flat dict of at
     most {flow: int, node: short str, t_send: finite float}. Anything
     else raises ``ValueError`` loudly (the from_bytes malformed-frame
     contract); absent/None decodes as None (legacy peers, tracing off).
@@ -191,11 +195,11 @@ class Task:
     push: bool = False  # push vs pull for parameter tasks
     more: bool = False  # scheduler hint: more blocks coming (ref darlin)
     payload: Any = None  # app-specific (workload descriptors, progress, ...)
-    #: wire trace context {flow, node, t_send}: plain scalars only,
-    #: validated on decode (_validate_trace): a hostile blob is rejected
-    #: loudly, and a header without the field decodes as None. The port
-    #: has no span layer to stamp it yet (ROADMAP A12); it is carried
-    #: so frames keep the JAX package's header shape.
+    #: wire trace context {flow, node, t_send} (telemetry/spans
+    #: trace_context), stamped by Van.transfer so one batch/request stays
+    #: ONE flow across the wire. Plain scalars only, validated on decode
+    #: (_validate_trace): a hostile blob is rejected loudly, and a header
+    #: without the field decodes as None.
     trace: Optional[dict] = None
 
     def fresh_copy(self) -> "Task":

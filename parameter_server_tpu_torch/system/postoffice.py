@@ -8,8 +8,10 @@ one card (``device``, resolved as every entry point resolves it) and
 records one scheduler, one server and one worker node.
 
 One process, one card: ``start(num_server > 1)`` (or ``num_data > 1``)
-raises naming ROADMAP A9, the collectives across cards, and
-``start_aux`` (heartbeats, dashboard, recovery) raises naming A13.
+raises naming ROADMAP A9, the collectives across cards. ``start_aux``
+creates the heartbeat / metrics-plane / dashboard / recovery runtime
+(``system/aux_runtime.py``), and ``metrics`` is the process telemetry
+registry every layer records into.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional
 import torch
 
 from ..device import resolve
+from ..telemetry import registry as telemetry_registry
+from ..telemetry import spans as telemetry_spans
 from ..utils.range import Range
 from .manager import Manager
 from .van import Van
@@ -33,7 +37,10 @@ class Postoffice:
         self.manager = Manager()
         self.device: Optional[torch.device] = None
         self.van: Optional[Van] = None
-        self.aux = None
+        self.aux = None  # AuxRuntime once start_aux() is called
+        # the process telemetry spine: every layer's instruments register
+        # here; reset() swaps in a fresh registry
+        self.metrics = telemetry_registry.default_registry()
         self._started = False
 
     @classmethod
@@ -46,11 +53,23 @@ class Postoffice:
     @classmethod
     def reset(cls) -> None:
         """Test helper: tear down the singleton (ref Postoffice::Stop).
-        The JAX package also resets its telemetry spine here; the port
-        has no telemetry spine yet (ROADMAP A12), so there is nothing
-        else to reset."""
+        Also resets the telemetry spine (a fresh default registry, the
+        span sink closed, a fresh history store, the learning planes and
+        the device inventory dropped), so metrics never leak across
+        hermetic tests."""
         with cls._lock:
-            cls._instance = None
+            inst, cls._instance = cls._instance, None
+        if inst is not None and inst.aux is not None:
+            inst.aux.stop()
+        telemetry_registry.reset_default_registry()
+        telemetry_spans.close_sink()
+        from ..telemetry import device as telemetry_device
+        from ..telemetry import history as telemetry_history
+        from ..telemetry import learning as telemetry_learning
+
+        telemetry_history.reset_default_store()
+        telemetry_learning.reset()
+        telemetry_device.reset()
 
     def start(self, num_data: Optional[int] = None, num_server: int = 1,
               key_space: Optional[Range] = None, device=None) -> "Postoffice":
@@ -70,15 +89,24 @@ class Postoffice:
         return self
 
     def start_aux(self, heartbeat_timeout: float = 10.0, print_fn=print):
-        raise NotImplementedError(
-            "start_aux (heartbeats, the dashboard and node recovery) is not ported "
-            "(ROADMAP A13)"
-        )
+        """Create (once) the heartbeat / dashboard / recovery runtime (the
+        reference's postoffice.cc heartbeat thread, manager.cc dead-node
+        flow and dashboard.cc)."""
+        if self.aux is None:
+            from .aux_runtime import AuxRuntime
+
+            self.aux = AuxRuntime(heartbeat_timeout=heartbeat_timeout, print_fn=print_fn)
+        return self.aux
 
     def beat(self, node_id: str) -> None:
-        """Heartbeat passthrough for hot loops; a no-op without start_aux."""
+        """Heartbeat passthrough for hot loops; a no-op before start_aux."""
+        if self.aux is not None:
+            self.aux.beat(node_id)
 
     def stop(self) -> None:
+        if self.aux is not None:
+            self.aux.stop()
+            self.aux = None
         self.manager.stop()
         self._started = False
 

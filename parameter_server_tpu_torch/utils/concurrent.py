@@ -11,7 +11,9 @@ producer thread re-raises at the consumer, at the position it occurred;
 and ``close()`` (or the end of the consumer's iteration) stops and joins
 every thread, so a consumer that leaves early leaves no thread blocked in
 a ``put``. The join is bounded: a thread wedged inside its source (a
-stuck read) cannot be interrupted and is left to daemon teardown.
+stuck read) cannot be interrupted and is left to daemon teardown. A
+stream that dies on the pool leaves an ``abandoned`` tombstone span in
+the timeline where it died.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import queue
 import threading
 import time
 from typing import Callable, Generic, Iterator, Optional, TypeVar
+
+from ..telemetry import spans as telemetry_spans
 
 T = TypeVar("T")
 
@@ -204,6 +208,8 @@ class OrderedStagePool(Generic[T]):
                     return
             _stoppable_put(self._out_q, self._END, self._stop)
         except BaseException as e:  # the source's error, in order
+            # timeline terminator: the stream dies here
+            telemetry_spans.abandoned(f"{self._name}.source", reason=type(e).__name__)
             slot = _Slot()
             slot.error = e
             slot.event.set()
@@ -221,6 +227,8 @@ class OrderedStagePool(Generic[T]):
             try:
                 slot.value = self._fn(item)
             except BaseException as e:  # re-raised at the consumer
+                # the pool abandons the item: a tombstone in the timeline
+                telemetry_spans.abandoned(f"{self._name}.worker", reason=type(e).__name__)
                 slot.error = e
             slot.event.set()
 
@@ -236,6 +244,10 @@ class OrderedStagePool(Generic[T]):
         for t in self._threads:
             t.start()
         return self
+
+    def qsize(self) -> int:
+        """Completed-or-in-progress items staged ahead of the consumer."""
+        return self._out_q.qsize()
 
     def __iter__(self) -> Iterator:
         self.start()

@@ -253,13 +253,11 @@ def test_batch_conf_cli_matches_jax(path, tmp_path, monkeypatch, capsys):
     assert port_eval == jax_eval and len(port_eval) == 1 and "(600 examples)" in port_eval[0]
 
 
-@pytest.mark.parametrize("flag", [["--num-servers", "2"], ["--num-workers", "2"],
-                                  ["--report-interval", "1"], ["--heartbeat-timeout", "3"],
-                                  ["--profile", "trace"]])
+@pytest.mark.parametrize("flag", [["--num-servers", "2"], ["--num-workers", "2"]])
 def test_system_layer_flags_raise(flag, tmp_path):
     conf = tmp_path / "c.conf"
     conf.write_text(open(ROOT / "configs" / "rcv1" / "online_l1lr.conf").read())
-    with pytest.raises(NotImplementedError, match="ROADMAP A(9|12)"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tmain.main([str(conf), *flag], device="cpu")
 
 

@@ -176,7 +176,6 @@ UNPORTED = [
     (["--zero1"], "A9"),
     (["--fsdp"], "A9"),
     (["--num-servers", "2"], "A9"),
-    (["--profile", "/nonexistent/prof"], "A12"),
     (["--attention", "ring_zigzag"], "A9"),
     (["--attention", "a2a"], "A9"),
 ]

@@ -114,11 +114,6 @@ def test_sequential_decode_lane(capsys):
     assert "batcher" not in dec and dec["value"] > 0
 
 
-def test_expose_port_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmain.main(ARGS + ["--device", "cpu", "--expose-port", "0"])
-
-
 def test_failed_push_stream_fails_the_cli(monkeypatch):
     """A push that raises on the trainer thread fails the CLI after the
     load window, instead of leaving the table quietly still."""
