@@ -216,6 +216,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    pipelined headline with telemetry on and off, three pairs in turns,
    each beside a run with telemetry on and the key heat never noted, the
    medians printed;
+8c. the rest of A10 on the card: (a) ``FMWorker`` and ``DeepCTRWorker``
+   (``apps/linear/fm.py``, ``deep_ctr.py``) at the headline shape, 2^22
+   slots, 16384-row minibatches of 39 binary lanes, k 8 and hidden (64,
+   32) (the JAX classes' defaults), AdaGrad at the headline's rate and L1,
+   32 ministeps each on fresh headline batches: the first 2 against the
+   same worker on the CPU started from the card's state (each leaf within
+   1e-5 of its scale), two ``segment_sum`` launches a ministep (g_w and
+   g_v) and no other kernel, the logloss of the last 8 below the first's,
+   ``evaluate`` on a held-out batch, ex/s on the host clock over
+   ``train``, step ms from CUDA events, the whole-table AdaGrad rewrite
+   timed alone beside its byte bound, the peak memory above what earlier
+   phases hold; (b) ``KVMap`` at 2^22
+   slots, k 8, ``AddEntry`` and ``AssignEntry``: pushes of two headline
+   batches' 638,976 keys (duplicates included), tables, pulls and
+   ``values`` bit-equal to the CPU's, one ``segment_sum`` launch a push,
+   push and pull ms; (c) the NN CLI (``apps/nn/main.py``), ``--model mlp``
+   and ``convnet``: 5 steps on the card against ``--device cpu`` (losses
+   within 1e-4 relative, plus the printed rounding), then its 50 default
+   steps to a falling loss, ``train_step`` ms from CUDA events;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -256,6 +275,15 @@ from parameter_server_tpu_torch.apps.linear.async_sgd import (  # noqa: E402
     AsyncSGDWorker,
     stack_prepped_batches,
 )
+from parameter_server_tpu_torch.apps.linear import fm as fm_mod  # noqa: E402
+from parameter_server_tpu_torch.apps.linear.deep_ctr import DeepCTRWorker  # noqa: E402
+from parameter_server_tpu_torch.apps.linear.fm import FMWorker  # noqa: E402
+from parameter_server_tpu_torch.apps.nn import main as nn_main  # noqa: E402
+from parameter_server_tpu_torch.apps.nn.trainer import NNTrainer  # noqa: E402
+from parameter_server_tpu_torch.models.convnet import MLP, ConvNet  # noqa: E402
+from parameter_server_tpu_torch.parameter.kv_map import AddEntry, AssignEntry, KVMap  # noqa: E402
+from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
+from parameter_server_tpu_torch.system.postoffice import Postoffice  # noqa: E402
 from parameter_server_tpu_torch import native  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.criteo import criteo_conf, write_criteo_shards  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, eval_conf, write_ctr_shards  # noqa: E402
@@ -264,9 +292,11 @@ from parameter_server_tpu_torch.benchmarks.headline import (  # noqa: E402
     BETA,
     L1,
     MB,
+    NNZ,
     SLOTS,
     T,
     conf,
+    ell_conf,
     make_batch,
     sparse_update_inputs,
 )
@@ -286,6 +316,7 @@ from parameter_server_tpu_torch.models import speculative, transformer  # noqa: 
 from parameter_server_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from parameter_server_tpu_torch.ops import ftrl, ftrl_sparse, quantize  # noqa: E402
 from parameter_server_tpu_torch.ops import segment_sum as seg  # noqa: E402
+from parameter_server_tpu_torch.ops import kv_ops  # noqa: E402
 from parameter_server_tpu_torch.ops.kv_ops import localize  # noqa: E402
 from parameter_server_tpu_torch.serving import (  # noqa: E402
     BatcherConfig,
@@ -3395,6 +3426,294 @@ def telemetry_plane(seed: int, smi: str, batches) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# -- phase 8c: the rest of A10 (FM, wide&deep, KVMap, the NN CLI) --
+
+A10_K = 8  # the JAX classes' defaults: k 8, and hidden (64, 32) for wide&deep
+A10_HIDDEN = (64, 32)
+A10_STEPS = 32  # ministeps a worker, each on a fresh headline batch
+A10_AGREE = 2  # of them held to the same worker on the CPU
+# card vs CPU: the scatters add in entry order on both (segment_sum on the
+# card), but the forward's row sums and the MLP's products may be reduced
+# in another order: each leaf within 1e-5 of its scale (its largest
+# magnitude, at least 1e-2), as tests/test_torch_fm.py holds the port to JAX
+A10_STATE_RTOL, A10_SCALE_FLOOR = 1e-5, 1e-2
+A10_LAST = 8  # the logloss of the last 8 ministeps against the first's
+KVMAP_K = 8
+NN_AGREE_STEPS = 5
+# the NN CLI's losses, card vs --device cpu: cuDNN and oneDNN sum the
+# convolutions in another order (float32, TF32 off), compounded over 5
+# momentum steps; plus 1e-5 for the CLI's 5 printed decimals
+NN_LOSS_RTOL, NN_PRINT_ATOL = 1e-4, 1e-5
+
+
+def a10_worker(kind: str, device: str, seed: int):
+    """An A10 worker at the headline configuration (``ell_conf``)."""
+    if kind == "fm":
+        return FMWorker(ell_conf(), k=A10_K, device=device, seed=seed)
+    return DeepCTRWorker(ell_conf(), k=A10_K, hidden=A10_HIDDEN, device=device, seed=seed)
+
+
+def tree_leaves(tree, prefix=""):
+    """``{path: array}`` of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return {p: a for k in sorted(tree) for p, a in tree_leaves(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: a for i, t in enumerate(tree) for p, a in tree_leaves(t, f"{prefix}/{i}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def a10_agreement(card_state, cpu_state) -> dict:
+    """Leaves bit-equal, and the largest share of the tolerance used."""
+    a, b = tree_leaves(card_state), tree_leaves(cpu_state)
+    share, equal = 0.0, 0
+    for path, x in a.items():
+        y = b[path]
+        equal += int(np.array_equal(x.view(np.uint32), y.view(np.uint32)))
+        scale = max(float(np.abs(y).max()), A10_SCALE_FLOOR)
+        share = max(share, float(np.abs(x.astype(np.float64) - y).max()) / (A10_STATE_RTOL * scale))
+    return dict(leaves=len(a), bit_equal=equal, share_of_tolerance=share)
+
+
+def timed_steps(worker):
+    """Wrap ``worker._step`` with CUDA events; returns the list of pairs."""
+    pairs, step = [], worker._step
+
+    def timed(*args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(*args)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    worker._step = timed
+    return pairs
+
+
+def table_update_ms(worker, batch) -> dict:
+    """The whole-table AdaGrad rewrite alone (``fm.update_table`` over
+    S x (2 + 2k) floats) on a headline batch's gradients, beside its
+    least time: the four leaves and the two gradients read, four leaves
+    written, at the HBM rate."""
+    y, mask, slots = worker.upload(batch)
+    rel, ok = localize(slots.reshape(-1), worker.num_slots)
+    g = torch.randn(rel.numel(), 1 + A10_K, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(5)) * ok[:, None]
+    g_w = kv_ops.scatter_sum(worker.num_slots, rel, g[:, :1])[:, 0]
+    g_v = kv_ops.scatter_sum(worker.num_slots, rel, g[:, 1:])
+    touched = g_w != 0
+    table = worker.table()
+    ms = median_ms(lambda: fm_mod.update_table(table, g_w, g_v, touched, worker.lr,
+                                               worker.penalty))
+    nbytes = 4 * worker.num_slots * (2 + 2 * A10_K) * 2 + 4 * worker.num_slots * (1 + A10_K)
+    return dict(ms=ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, touched=int(touched.sum()))
+
+
+def ell_worker_path(kind: str, seed: int, batches, held_out) -> dict:
+    """One A10 worker at the headline shape: the first ministeps against
+    the same worker on the CPU started from the card's state, then the
+    rest through ``train``; launches, times, memory, held-out metrics."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    card = a10_worker(kind, "cuda", seed)
+    cpu = a10_worker(kind, "cpu", seed + 1)
+    cpu.load_state_host(card.state_host())
+    pairs = timed_steps(card)
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches[:A10_AGREE]:
+        card.collect(card.process_minibatch(b))
+    agree_launches = counts()[3]
+    for b in batches[:A10_AGREE]:
+        cpu.collect(cpu.process_minibatch(b))
+    agree = a10_agreement(card.state_host()["state"], cpu.state_host()["state"])
+    check(agree["share_of_tolerance"] <= 1.0,
+          f"{kind}: card vs CPU after {A10_AGREE} ministeps {agree}")
+    cpu_obj = list(cpu.progress.objective)
+    cpu.executor.stop()
+    del cpu
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card.train(batches[A10_AGREE:A10_STEPS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = counts()
+    check(launches[:3] == (0, 0, 0) and launches[3] == 2 * A10_STEPS,
+          f"{kind}: launches (sparse, dense, quantize, segment_sum) {launches}, want "
+          f"(0, 0, 0, {2 * A10_STEPS}): g_w and g_v each ministep")
+    check(agree_launches == 2 * A10_AGREE, f"{kind}: {agree_launches} segment_sum launches in "
+          f"the first {A10_AGREE} ministeps")
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in pairs]
+    peak = torch.cuda.max_memory_allocated() - held
+    ll = [o / MB for o in card.progress.objective]  # every batch holds MB rows
+    check(len(ll) == A10_STEPS and all(np.isfinite(ll)), f"{kind}: logloss {ll}")
+    check(np.mean(ll[-A10_LAST:]) < ll[0],
+          f"{kind}: logloss did not fall: first {ll[0]}, last {A10_LAST} {ll[-A10_LAST:]}")
+    t_eval = time.perf_counter()
+    ev = card.evaluate(held_out)
+    eval_s = time.perf_counter() - t_eval
+    check(np.isfinite(ev["logloss"]) and 0.0 <= ev["auc"] <= 1.0, f"{kind}: evaluate {ev}")
+    upd = table_update_ms(card, batches[0])
+    state_bytes = sum(t.numel() * t.element_size() for t in card.table().values())
+    card.executor.stop()
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kind=kind, agreement=agree, agree_objectives=dict(
+        card=ll[:A10_AGREE], cpu=[o / MB for o in cpu_obj]),
+        logloss=ll, first_logloss=ll[0], last_logloss_mean=float(np.mean(ll[-A10_LAST:])),
+        evaluate=ev, evaluate_s=eval_s, train_s=wall,
+        examples_per_s=(A10_STEPS - A10_AGREE) * MB / wall, step_ms=step_ms,
+        step_ms_median=float(np.median(step_ms[A10_AGREE:])), segment_launches=launches[3],
+        peak_gib=peak / 2**30, table_bytes=state_bytes, table_update=upd,
+        wall_s=time.perf_counter() - t0)
+
+
+def kv_map_path(batches) -> dict:
+    """KVMap at 2^22 slots, k 8: pushes of headline batches' 638,976 keys
+    (duplicates included), AddEntry and AssignEntry, the card against the
+    CPU (tables, pulls and ``values`` bit-equal), one segment_sum launch a
+    push; push and pull times."""
+    rng = np.random.default_rng(17)
+    stream = [(b.indices, rng.normal(size=(b.nnz, KVMAP_K)).astype(np.float32))
+              for b in batches[:2]]
+    probe = np.concatenate([batches[0].indices[:50_000], rng.integers(0, 1 << 40, 10_000)])
+    out = {}
+    for entry in (AddEntry, AssignEntry):
+        name = entry.__name__
+        res = {}
+        for device in ("cuda", "cpu"):
+            m = KVMap(entry(), k=KVMAP_K, num_slots=SLOTS, device=device, name=f"kvmap_{device}")
+            reset_counts()
+            for keys, vals in stream:
+                m.wait(m.push(m.request(), keys, vals))
+            launches = counts()[3]
+            pulled = m.wait_pull(m.pull(m.request(), probe)).cpu().numpy()
+            res[device] = dict(table=m.get_replica()["value"], pulled=pulled,
+                               values=m.values(probe), launches=launches)
+            if device == "cuda":
+                slots = m.slots(stream[0][0])
+                vals = torch.from_numpy(stream[0][1]).cuda()
+                res["push_ms"] = median_ms(lambda: m._push_fn(m.state, slots, vals))
+                res["pull_ms"] = median_ms(lambda: kv_ops.pull(m.entry.get(m.state), slots))
+            m.executor.stop()
+            del m
+        c, h = res["cuda"], res["cpu"]
+        for what in ("table", "pulled", "values"):
+            check(np.array_equal(c[what].view(np.uint32), h[what].view(np.uint32)),
+                  f"KVMap {name}: the card's {what} differ from the CPU's")
+        check(c["launches"] == len(stream), f"KVMap {name}: {c['launches']} segment_sum launches "
+              f"for {len(stream)} pushes")
+        out[name] = dict(launches=c["launches"], push_ms=res["push_ms"], pull_ms=res["pull_ms"],
+                         keys=int(stream[0][0].size),
+                         distinct_slots=int(np.unique(KeyDirectory(SLOTS).slots(
+                             stream[0][0])).size))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_nn_cli(argv) -> "list[tuple[int, float, float]]":
+    """The NN CLI as a user runs it; its progress rows (step, loss,
+    accuracy)."""
+    Postoffice.reset()  # the CLI starts the postoffice on its --device
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = nn_main.main(argv)
+    Postoffice.reset()
+    check(rc == 0, f"NN CLI {argv} exited {rc}")
+    lines = buf.getvalue().splitlines()
+    check(lines and lines[0].split() == ["step", "loss", "accuracy"], f"NN CLI {argv}: {lines[:2]}")
+    rows = [(int(s), float(l), float(a)) for s, l, a in (ln.split() for ln in lines[1:])]
+    check(rows and all(np.isfinite(r[1]) for r in rows), f"NN CLI {argv}: rows {rows}")
+    return rows
+
+
+def nn_step_ms(model: str) -> dict:
+    """CUDA-event times of ``NNTrainer.train_step`` at the CLI's defaults
+    (batch 256, 10 classes), the CLI's data."""
+    net, shape = (ConvNet(num_classes=10), (16, 16, 3)) if model == "convnet" else (
+        MLP(num_classes=10), (32,))
+    trainer = NNTrainer(net, input_shape=shape, device="cuda")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(256,) + shape).astype(np.float32)
+    y = rng.integers(0, 10, 256).astype(np.int32)
+    times = []
+    for i in range(23):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.train_step(x, y)
+        e1.record()
+        e1.synchronize()
+        if i >= 3:
+            times.append(e0.elapsed_time(e1))
+    trainer.kv.executor.stop()
+    return dict(median=float(np.median(times)), min=float(min(times)))
+
+
+def nn_cli_path() -> dict:
+    """The NN CLI for both models: 5 steps on the card against --device
+    cpu, then its 50 default steps to a falling loss; step ms."""
+    out = {}
+    for model in ("mlp", "convnet"):
+        short = ["--model", model, "--steps", str(NN_AGREE_STEPS), "--report-every", "1"]
+        reset_counts()
+        card = run_nn_cli(short + ["--device", "cuda"])
+        launches = counts()
+        cpu = run_nn_cli(short + ["--device", "cpu"])
+        gaps = [abs(a[1] - b[1]) / (NN_LOSS_RTOL * abs(b[1]) + NN_PRINT_ATOL)
+                for a, b in zip(card, cpu)]
+        check(len(card) == len(cpu) == NN_AGREE_STEPS and max(gaps) <= 1.0,
+              f"NN CLI {model}: card {card} vs CPU {cpu}, shares of the tolerance {gaps}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = run_nn_cli(["--model", model, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        check(len(full) == 5 and full[-1][1] < full[0][1],
+              f"NN CLI {model} defaults: loss did not fall {full}")
+        out[model] = dict(card=card, cpu=cpu, share_of_tolerance=max(gaps), full=full,
+                          wall_s=wall, step_ms=nn_step_ms(model), launches=launches)
+    return out
+
+
+def a10_plane(seed: int, smi: str) -> dict:
+    """Phase 8c, (a)-(c), printed as they finish."""
+    t0 = time.perf_counter()
+    batches = [make_batch(seed + 7000 + i) for i in range(A10_STEPS)]
+    held_out = make_batch(seed + 7999)
+    workers = {}
+    for kind in ("fm", "deep_ctr"):
+        r = ell_worker_path(kind, seed, batches, held_out)
+        workers[kind] = r
+        print(f"# A10 (a) {kind} at 2^{SLOTS.bit_length() - 1} slots, k {A10_K}"
+              + (f", hidden {A10_HIDDEN}" if kind == "deep_ctr" else "")
+              + f", {A10_STEPS} ministeps of {MB} x {NNZ} ({smi}): first {A10_AGREE} vs the CPU "
+              f"{r['agreement']['bit_equal']}/{r['agreement']['leaves']} leaves bit-equal, "
+              f"{r['agreement']['share_of_tolerance']:.3g} of the tolerance; logloss "
+              f"{r['first_logloss']:.5f} -> last {A10_LAST} mean {r['last_logloss_mean']:.5f}; "
+              f"held-out auc {r['evaluate']['auc']:.5f} logloss {r['evaluate']['logloss']:.5f} "
+              f"({r['evaluate_s']:.2f} s host); {r['examples_per_s']:.0f} ex/s (host clock over "
+              f"train), step {r['step_ms_median']:.3f} ms (CUDA events); whole-table update "
+              f"{r['table_update']['ms']:.4f} ms (bound {r['table_update']['bound_ms']:.4f}); "
+              f"peak {r['peak_gib']:.2f} GiB above the phase's start, table {r['table_bytes'] / 1e6:.1f} MB; segment_sum "
+              f"launches {r['segment_launches']}", flush=True)
+    kvm = kv_map_path(batches)
+    print(f"# A10 (b) KVMap 2^{SLOTS.bit_length() - 1} slots, k {KVMAP_K}, pushes of {kvm['AddEntry']['keys']} keys "
+          f"({kvm['AddEntry']['distinct_slots']} distinct slots) ({smi}): card = CPU bits for "
+          + ", ".join(f"{n} push {r['push_ms']:.4f} ms, pull {r['pull_ms']:.4f} ms, segment_sum "
+                      f"launches {r['launches']}" for n, r in kvm.items()), flush=True)
+    nn = nn_cli_path()
+    for model, r in nn.items():
+        print(f"# A10 (c) NN CLI --model {model} ({smi}): {NN_AGREE_STEPS} steps card "
+              f"{[x[1] for x in r['card']]} vs CPU {[x[1] for x in r['cpu']]} "
+              f"({r['share_of_tolerance']:.3g} of the tolerance); defaults (50 steps) "
+              f"{[(s, l) for s, l, _ in r['full']]}, {r['wall_s']:.2f} s; train_step "
+              f"{r['step_ms']['median']:.3f} ms median (CUDA events)", flush=True)
+    return dict(workers=workers, kv_map=kvm, nn_cli=nn, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3816,6 +4135,7 @@ def main() -> int:
     serve = serving_plane(args.seed, smi, gen)
     flash_rows += serve["flash_rows"]
     tel = telemetry_plane(args.seed, smi, batches)
+    a10 = a10_plane(args.seed, smi)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -3884,6 +4204,11 @@ def main() -> int:
                                   ctr_batch=dar["ctr"]["segment_launches"]),
              serve_push_launches={name: run["launches"]["segment_sum"]
                                   for name, run in serve["cli"].items()},
+             a10_launches=dict(fm=a10["workers"]["fm"]["segment_launches"],
+                               deep_ctr=a10["workers"]["deep_ctr"]["segment_launches"],
+                               **{f"kv_map_{n}": r["launches"]
+                                  for n, r in a10["kv_map"].items()},
+                               nn_cli={m: r["launches"][3] for m, r in a10["nn_cli"].items()}),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -3945,7 +4270,7 @@ def main() -> int:
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
-                  telemetry=tel, wall_s=time.perf_counter() - t_start)
+                  telemetry=tel, a10=a10, wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

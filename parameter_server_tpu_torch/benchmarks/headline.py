@@ -50,6 +50,16 @@ def conf(update: str = "sparse", dtype: str = "float32", steps: int = T) -> Conf
     return c
 
 
+def ell_conf() -> Config:
+    """The headline configuration for the AdaGrad ELL workers (FM and
+    wide&deep): the same penalty, rate, table and minibatches, the 39
+    keys of a row as its ELL lanes."""
+    c = conf()
+    c.async_sgd = SGDConfig(algo="standard", minibatch=MB, num_slots=SLOTS, ell_lanes=NNZ,
+                            rows_pad=MB)
+    return c
+
+
 def sparse_update_inputs(seed: int, gen: torch.Generator, device: str = "cuda"):
     """The sparse FTRL update's inputs on a real headline batch: ``rel``
     and ``ok`` of its deduplicated, padded slot vector (``localize``,

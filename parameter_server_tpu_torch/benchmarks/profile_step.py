@@ -21,13 +21,21 @@ LM training configuration (``benchmarks/lm_train.py``: d_model 512, 8
 layers, batch 4 x 8192 tokens, bf16, remat, ``ring_flash``) after a
 warm-up step, and splits its device time by kernel kind (``flash_fwd``,
 ``flash_bwd_dq``, ``flash_bwd_dkv``, matrix products, copies and casts,
-the other elementwise kernels) with the launches of each. Prints device
+the other elementwise kernels) with the launches of each. ``--cell fm``
+and ``--cell deep_ctr`` train the FM and wide&deep workers at the
+headline shape (``benchmarks/headline.py::ell_conf``: 2^22 slots,
+16384-row minibatches of 39 binary lanes, k 8, hidden (64, 32)) and
+trace four ministeps (prep, upload, step and collect, as ``train`` runs
+them) after two warm-up ones, and split the device time by kernel kind
+(``segment_sum``, sorts, matmuls, gathers and index writes, the rest).
+The steps run on the worker's executor thread, whose host-side ops the
+profiler does not record: the trace holds their kernels. Prints device
 time by kernel, the device's busy share of the traced window and the
 ``torch.sort`` calls a unit (the linear step's segment sums sort on the
 card unless their ids come grouped), and writes the same to
 ``chiprun_out/profile_step_<cell>.json``.
 
-    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve|lm_train]
+    python3 -m parameter_server_tpu_torch.benchmarks.profile_step [--cell ctr|lm_serve|lm_train|fm|deep_ctr]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -48,7 +56,7 @@ from torch.autograd import DeviceType
 from ..apps.linear.async_sgd import AsyncSGDWorker, stack_prepped_batches
 from ..models import transformer
 from .ctr import ctr_minibatches
-from .headline import T, conf, make_batch
+from .headline import T, conf, ell_conf, make_batch
 from .lm_serve import SERVE_CFG, make_prompt, serve_params
 from . import lm_train
 
@@ -60,6 +68,10 @@ _LM_KERNELS = {"flash_fwd": ("flash_fwd",), "decode attention GEMV": ("gemv", "g
 # the port's functions that lm_serve_run labels, by part
 _LM_RANGES = {"prefill": ("_prefill",), "decode steps": ("_decode_step",),
               "cache writes": ("_cache_write", "_cache_write_rows"), "sampling": ("_pick_token",)}
+# device time of the ELL workers' step by kernel kind, first match wins
+_ELL_KERNELS = {"segment_sum": ("segment_sum",), "sorts": ("radixsort", "sort"),
+                "matmuls": ("gemm", "cutlass", "xmma", "nvjet", "splitk", "gemv"),
+                "gathers and index writes": ("index", "gather", "scatter")}
 _LM_LABELS = {f"lm.{n}" for names in _LM_RANGES.values() for n in names}
 # device time of the training step by kernel kind, first match wins
 _TRAIN_KERNELS = {"flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
@@ -114,6 +126,23 @@ def lm_serve_run():
     return run
 
 
+def ell_run(kind: str):
+    """Two warm-up and four traced ministeps of the FM or wide&deep
+    worker at the headline shape."""
+    from ..apps.linear import deep_ctr, fm
+
+    worker = (fm.FMWorker(ell_conf(), k=8, device="cuda") if kind == "fm" else
+              deep_ctr.DeepCTRWorker(ell_conf(), k=8, hidden=(64, 32), device="cuda"))
+    batches = [make_batch(100 + i) for i in range(6)]
+    for b in batches[:2]:
+        worker.collect(worker.process_minibatch(b))
+
+    def run():
+        for b in batches[2:]:
+            worker.collect(worker.process_minibatch(b))
+    return run
+
+
 def lm_train_run():
     """One SGD step of the training configuration (batch 4 x 8192 tokens);
     a warm-up step first."""
@@ -158,7 +187,7 @@ def lm_split(prof, rows) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=("headline", "ctr", "lm_serve", "lm_train"),
+    ap.add_argument("--cell", choices=("headline", "ctr", "lm_serve", "lm_train", "fm", "deep_ctr"),
                     default="headline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -172,6 +201,8 @@ def main(argv=None) -> int:
         run, unit, units = lm_serve_run(), "decode step", LM_DECODE_STEPS
     elif args.cell == "lm_train":
         run, unit, units = lm_train_run(), "SGD step", 1
+    elif args.cell in ("fm", "deep_ctr"):
+        run, unit, units = ell_run(args.cell), "ministep", 4
     else:
         worker, warm, traced, with_aux = (ctr_launches if args.cell == "ctr" else headline_launches)()
         for p in warm:
@@ -219,6 +250,11 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v['device_us']:.1f} us" for k, v in split["kinds"].items()))
         print("# by part (calls, device us, host us): " + ", ".join(
             f"{k} ({v['calls']}, {v['device_us']:.1f}, {v['host_us']:.1f})" for k, v in split["parts"].items()))
+    if args.cell in ("fm", "deep_ctr"):
+        out["by_kind"] = kinds = by_kind(rows, _ELL_KERNELS)
+        print(f"# device time by kernel kind a {unit}: " + ", ".join(
+            f"{k} {v['device_us'] / units / 1e3:.3f} ms ({v['launches'] / units:g} launches)"
+            for k, v in kinds.items()))
     if args.cell == "lm_train":
         out["by_kind"] = kinds = by_kind(rows, _TRAIN_KERNELS)
         out["launches_per_unit"] = sum(r["count"] for r in rows) / units

@@ -10,6 +10,16 @@ the config, :func:`darlin_state_from_jax` and
 :func:`darlin_state_to_numpy` for a darlin solver's blocks and dual, and
 :func:`kv_replica_from_jax` and :func:`kv_replica_to_numpy` for a
 KVVector's tables (``get_replica()``: channel → ``[P, k]`` array).
+
+:func:`tree_from_numpy` and :func:`tree_to_numpy` carry a nest of dicts
+and lists of arrays: the FM and wide&deep workers' ``state_host()
+["state"]`` (FM: ``w``, ``w_ss``, ``v``, ``v_ss``, ``b``, ``b_ss``;
+wide&deep: ``table`` with those four, ``mlp`` and ``mlp_ss`` lists,
+``b``, ``b_ss``) and a KVMap's ``get_replica()``, in either package.
+:func:`nn_params_from_flax` and :func:`nn_params_to_flax` map a flax
+ConvNet / MLP parameter tree to the port's ``nn.Module`` state dict and
+back (conv kernels HWIO <-> OIHW, dense kernels ``[in, out]`` <->
+``[out, in]``).
 """
 
 from __future__ import annotations
@@ -142,3 +152,64 @@ def kv_replica_to_numpy(snapshot: Dict[int, torch.Tensor]) -> Dict[int, np.ndarr
     input)."""
     return {int(ch): (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)).copy()
             for ch, t in snapshot.items()}
+
+
+def tree_from_numpy(tree, device=None):
+    """A nest of dicts and lists of numpy arrays (0-dim included) as
+    tensors on ``device`` (CUDA by default), bits unchanged."""
+    dev = resolve(device)
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [go(v) for v in t]
+        return _to_tensor(np.asarray(t)).to(dev)
+
+    return go(tree)
+
+
+def tree_to_numpy(tree):
+    """The inverse of :func:`tree_from_numpy`: owned host copies."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy().copy()
+
+
+def _nn_leaf_from_flax(name: str, arr: np.ndarray) -> np.ndarray:
+    if name == "kernel":
+        # conv HWIO -> OIHW; dense [in, out] -> [out, in]
+        return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    if name == "bias":
+        return arr
+    raise ValueError(f"unknown flax parameter {name!r}")
+
+
+def nn_params_from_flax(params: dict, device=None) -> Dict[str, torch.Tensor]:
+    """A flax ConvNet / MLP ``params`` tree (``{"Conv_0": {"kernel",
+    "bias"}, ..., "Dense_1": {...}}``) as the port's module state dict
+    (``"Conv_0.weight"``, ``"Conv_0.bias"``, ...) on ``device`` (CUDA by
+    default)."""
+    dev = resolve(device)
+    out = {}
+    for layer, leaves in params.items():
+        for name, arr in leaves.items():
+            torch_name = "weight" if name == "kernel" else name
+            out[f"{layer}.{torch_name}"] = _to_tensor(
+                _nn_leaf_from_flax(name, np.asarray(arr, np.float32))).to(dev)
+    return out
+
+
+def nn_params_to_flax(state: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`nn_params_from_flax`: numpy leaves."""
+    out: dict = {}
+    for key, t in state.items():
+        layer, name = key.split(".")
+        arr = t.detach().cpu().numpy().copy()
+        if name == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            name = "kernel"
+        out.setdefault(layer, {})[name] = np.ascontiguousarray(arr)
+    return out

@@ -1,14 +1,20 @@
-"""SGD learner pieces: the progress record, the tail-feature filter and
-the minibatch reader.
+"""SGD learner pieces: the progress record, the computation-node base,
+the tail-feature filter and the minibatch reader.
 
-Counterparts of ``SGDProgress``, ``apply_tail_filter`` and
-``MinibatchReader`` in the JAX package's ``learner/sgd.py``. The reader
+Counterparts of ``SGDProgress``, ``ISGDCompNode``, ``apply_tail_filter``
+and ``MinibatchReader`` in the JAX package's ``learner/sgd.py``.
+``ISGDCompNode`` is the worker-side plumbing of the embedding-table
+workers (``apps/linear/fm.py``, ``deep_ctr.py``): ``collect`` (the wait
+on a step, the heartbeat and dashboard timers, the examples counter, the
+per-minibatch AUC, the report to a monitor), the default ``train``
+window, checkpoints through :class:`~..parameter.replica.Checkpointable`
+and the shared ELL prep. The reader
 reads and filters on an :class:`~.ingest.IngestPipeline` feeder thread,
 as the JAX reader does: the (stateful) filter stays serial, in batch
 order, so both yield the same batches in the same order. Files are read
 on the chunked byte path (``StreamReader.minibatches_bytes``), parsed by
 the native library on a small pool. The monitor and scheduler plumbing
-is not ported.
+(``ISGDScheduler``) is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from typing import Iterator, List, Optional
 
 from ..data.stream_reader import StreamReader
 from ..filter.frequency import FrequencyFilter
+from ..parameter.replica import Checkpointable
+from ..system.customer import App
+from ..system.monitor import MonitorMaster, MonitorSlaver
 from ..utils.localizer import Localizer
 from ..utils.sparse import SparseBatch
 from .ingest import IngestPipeline
@@ -35,6 +44,94 @@ class SGDProgress:
         self.accuracy.extend(other.accuracy)
         self.auc.extend(other.auc)
         self.num_examples_processed += other.num_examples_processed
+
+
+class ISGDCompNode(App, Checkpointable):
+    """Computation-node base of the SGD-family workers that run on the
+    customer's executor (FM, wide&deep). Subclasses set ``self.progress``
+    (an :class:`SGDProgress`), ``self.sgd``, ``self.directory``,
+    ``self.num_slots`` and ``self._rows_pad`` (None until the first
+    batch), and provide ``process_minibatch`` (returns the step's
+    executor timestamp), ``state_host`` and ``load_state_host``."""
+
+    def __init__(self, name: str = "sgd_comp", monitor: Optional[MonitorMaster] = None):
+        super().__init__(name=name)
+        self.reporter: MonitorSlaver[SGDProgress] = MonitorSlaver(monitor, name)
+        # the training volume the device confirmed, counted in collect()
+        self._examples_counter = None
+        from ..telemetry import registry as telemetry_registry
+
+        if telemetry_registry.enabled():
+            from ..telemetry.instruments import app_instruments
+
+            self._examples_counter = app_instruments(
+                telemetry_registry.default_registry())["examples"]
+
+    def attach_monitor(self, master: MonitorMaster) -> None:
+        """Report each collected step to ``master`` (a scheduler's
+        monitor)."""
+        self.reporter = MonitorSlaver(master, self.name)
+
+    def collect(self, ts: int) -> SGDProgress:
+        """Wait for step ``ts`` and fold its metrics into ``progress``;
+        the wait beats the worker's heartbeat and counts as its busy time
+        on the dashboard while the postoffice's aux runtime runs."""
+        from ..utils import evaluation
+
+        self.po.beat(self.name)
+        hb = self.po.aux.info(self.name) if self.po.aux is not None else None
+        if hb is not None:
+            hb.start_timer()
+        metrics = self.executor.wait(ts)
+        if hb is not None:
+            hb.stop_timer()
+        if metrics is None:
+            return self.progress
+        num_ex = float(metrics["num_ex"])
+        if self._examples_counter is not None:
+            self._examples_counter.inc(int(num_ex))
+        prog = SGDProgress(
+            objective=[float(metrics["objective"])],
+            num_examples_processed=int(num_ex),
+            accuracy=[float(metrics["correct"]) / max(1.0, num_ex)],
+        )
+        if "xw" in metrics:  # per-minibatch AUC over the real rows
+            y = metrics["y"].cpu().numpy().ravel()
+            xw = metrics["xw"].cpu().numpy().ravel()
+            m = metrics["mask"].cpu().numpy().ravel() > 0
+            prog.auc = [evaluation.auc(y[m], xw[m])]
+        self.progress.merge(prog)
+        self.reporter.report(prog)
+        return prog
+
+    def train(self, batches) -> SGDProgress:
+        """A pass over minibatches with at most two more in flight than
+        the one being collected."""
+        pending = []
+        for b in batches:
+            pending.append(self.process_minibatch(b))
+            if len(pending) > 2:
+                self.collect(pending.pop(0))
+        for ts in pending:
+            self.collect(ts)
+        return self.progress
+
+    def _prep_ell(self, batch: SparseBatch):
+        """The ELL prep of the embedding-table workers on one data shard:
+        the row padding is fixed by ``SGDConfig.rows_pad`` or the first
+        batch, and a larger batch raises."""
+        from ..apps.linear.async_sgd import prep_batch_ell  # apps import this module
+
+        if self._rows_pad is None:
+            self._rows_pad = self.sgd.rows_pad or batch.n
+        if batch.n > self._rows_pad:
+            raise ValueError(
+                f"batch of {batch.n} rows exceeds the compiled padding "
+                f"({self._rows_pad} rows/shard x 1 shards); set "
+                "SGDConfig.rows_pad to the largest minibatch up front"
+            )
+        return prep_batch_ell(batch, self.directory, 1, self._rows_pad, self.sgd.ell_lanes,
+                              self.num_slots)
 
 
 def apply_tail_filter(batch: SparseBatch, filter_: FrequencyFilter, freq: int) -> SparseBatch:

@@ -119,6 +119,17 @@ def scatter_add_in_order(table: torch.Tensor, rel: torch.Tensor, vals: torch.Ten
         scatter_add_by_segments(table, rel, vals, segment_sum)
 
 
+def scatter_sum(num_rows: int, rel: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``zeros([num_rows, k]).at[rel].add(vals)``: each row's entries
+    summed in entry order from +0.0. One ``segment_sum`` over the
+    flattened ids ``rel * k + col`` (on the CPU ``index_add_``, on the
+    card the stable sort and the kernel); a fresh zero table needs none
+    of :func:`scatter_add_by_segments`' table rows in front."""
+    k = vals.shape[1]
+    ids = (rel.long()[:, None] * k + torch.arange(k, device=rel.device)).reshape(-1)
+    return segment_sum(vals.reshape(-1), ids, num_rows * k).view(num_rows, k)
+
+
 def scatter_add_by_segments(table: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
                             sum_fn) -> None:
     """The card's route of :func:`scatter_add_in_order`, on any device:

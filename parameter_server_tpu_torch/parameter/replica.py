@@ -17,6 +17,10 @@ A write goes to ``step_N.tmp`` and is renamed into place; the
 the two, where a crash can leave only a torn ``.tmp`` that
 :meth:`CheckpointManager.latest_step` never lists. ``ReplicaManager``
 (in-memory replicas) is ROADMAP A13.
+
+:class:`Checkpointable` is the save / restore mixin over a component's
+``state_host()`` / ``load_state_host(snapshot)`` pair (the SGD-family
+workers through ``ISGDCompNode``, and ``NNTrainer``).
 """
 
 from __future__ import annotations
@@ -79,6 +83,33 @@ def _rebuild(tmpl: Any, arrays) -> Any:
     if isinstance(tmpl, (bool, int, float)) and not isinstance(tmpl, np.generic):
         return type(tmpl)(arr)
     return arr
+
+
+class Checkpointable:
+    """Durable checkpoint/restore over the ``state_host`` /
+    ``load_state_host`` hook pair: anything exposing both gets
+    ``checkpoint``, ``checkpoint_async`` and ``restore``."""
+
+    def checkpoint(self, manager: "CheckpointManager", step: int) -> str:
+        """Save the whole ``state_host`` snapshot as step ``step``."""
+        return manager.save(step, self.state_host())
+
+    def checkpoint_async(self, manager: "CheckpointManager", step: int) -> str:
+        """Save the ``state_host`` snapshot on a thread (the manager takes
+        owned copies before returning); call ``manager.wait()`` before
+        exit."""
+        return manager.save_async(step, self.state_host())
+
+    def restore(self, manager: "CheckpointManager", step: Optional[int] = None) -> int:
+        """Load the latest (or the given) step through ``load_state_host``,
+        with this component's own snapshot as the template; returns the
+        step."""
+        if step is None:
+            step = manager.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {manager.directory}")
+        self.load_state_host(manager.restore(step, like=self.state_host()))
+        return step
 
 
 class CheckpointManager:

@@ -62,7 +62,9 @@ def test_port_imports_nothing_of_jax():
               "system.postoffice", "parameter.parameter", "parameter.kv_vector", "ops.kv_ops",
               "serving", "serving.admission", "serving.coalescer", "serving.replica",
               "serving.loadgen", "serving.batcher", "serving.frontend", "apps.serve.main",
-              "models.speculative", "models.moe", "models.pipeline", "parameter.replica"):
+              "models.speculative", "models.moe", "models.pipeline", "parameter.replica",
+              "apps.linear.fm", "apps.linear.deep_ctr", "parameter.kv_map",
+              "parameter.kv_layer", "models.convnet", "apps.nn.trainer", "apps.nn.main"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -169,6 +171,64 @@ def test_serve_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
     assert "parameter_server_tpu_torch.parameter.kv_vector" in loaded
     bad = sorted(m for m in loaded if m.split(".")[0] in ("jax", "optax", "parameter_server_tpu"))
     assert not bad, bad
+
+
+def test_nn_cli_run_as_a_module_imports_nothing_of_jax_or_optax(tmp_path):
+    """``python -m ...apps.nn.main`` for both models, every import traced:
+    neither jax, flax, optax nor the JAX package is loaded."""
+    for model in ("mlp", "convnet"):
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "parameter_server_tpu_torch.apps.nn.main",
+             "--model", model, "--steps", "2", "--batch", "16", "--device", "cpu"],
+            cwd=tmp_path, env=_clean_env(), capture_output=True, text=True, timeout=300,
+        )
+        assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+        assert out.stdout.splitlines()[0].split() == ["step", "loss", "accuracy"]
+        loaded = {
+            line.rsplit("|", 1)[1].strip()
+            for line in out.stderr.splitlines()
+            if line.startswith("import time:") and line.count("|") == 2
+        }
+        assert "parameter_server_tpu_torch.models.convnet" in loaded
+        assert "parameter_server_tpu_torch.parameter.kv_layer" in loaded
+        bad = sorted(m for m in loaded
+                     if m.split(".")[0] in ("jax", "flax", "optax", "parameter_server_tpu"))
+        assert not bad, bad
+
+
+def test_a10_entry_points_raise_without_a_card(monkeypatch):
+    """FM, wide&deep, KVMap, KVLayer, the NN modules, trainer and CLI and
+    their converters resolve to the card and raise without one; none
+    carries on on the CPU."""
+    from parameter_server_tpu_torch.apps.linear.deep_ctr import DeepCTRWorker
+    from parameter_server_tpu_torch.apps.linear.fm import FMWorker
+    from parameter_server_tpu_torch.apps.nn import main as nn_main
+    from parameter_server_tpu_torch.apps.nn.trainer import NNTrainer
+    from parameter_server_tpu_torch.models.convnet import MLP, ConvNet
+    from parameter_server_tpu_torch.parameter.kv_layer import KVLayer
+    from parameter_server_tpu_torch.parameter.kv_map import AddEntry, KVMap
+    from parameter_server_tpu_torch.system.postoffice import Postoffice
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = _conf(ell_lanes=4)
+    Postoffice.reset()
+    try:
+        calls = [
+            lambda: FMWorker(conf), lambda: DeepCTRWorker(conf), lambda: KVMap(AddEntry()),
+            lambda: KVLayer(), lambda: NNTrainer(MLP(), input_shape=(8,)),
+            lambda: MLP().init(0, (8,)), lambda: ConvNet().init(0, (16, 16, 3)),
+            lambda: nn_main.main(["--steps", "1"]),
+            lambda: convert.tree_from_numpy({"w": np.zeros(4, np.float32)}),
+            lambda: convert.nn_params_from_flax({"Dense_0": {"bias": np.zeros(2, np.float32)}}),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+            Postoffice.reset()
+        w = FMWorker(conf, device="cpu")
+        assert w.device.type == "cpu" and w.state["v"].device.type == "cpu"
+    finally:
+        Postoffice.reset()
 
 
 def test_serve_cli_resolves_to_the_card(monkeypatch):

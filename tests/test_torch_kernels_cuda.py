@@ -935,3 +935,105 @@ def test_batcher_tokens_equal_solo_runs_on_the_card(dev):
         for h in handles:
             solo = speculative_generate(tp, tcfg, dp, dcfg, h.req.prompt, h.req.steps, gamma=2)
             assert np.array_equal(h.out, solo.cpu().numpy())
+
+
+def _ell_worker(kind, device, seed=3):
+    from parameter_server_tpu_torch.apps.linear import config as tcfg
+    from parameter_server_tpu_torch.apps.linear.deep_ctr import DeepCTRWorker
+    from parameter_server_tpu_torch.apps.linear.fm import FMWorker
+
+    conf = tcfg.Config()
+    conf.penalty = tcfg.PenaltyConfig(type="l1", lambda_=[0.01])
+    conf.learning_rate = tcfg.LearningRateConfig(type="decay", alpha=0.1, beta=1.0)
+    conf.async_sgd = tcfg.SGDConfig(algo="standard", num_slots=1 << 12, ell_lanes=8)
+    if kind == "fm":
+        return FMWorker(conf, k=4, device=device, v_init_std=0.1, seed=seed)
+    return DeepCTRWorker(conf, k=4, hidden=(16,), device=device, v_init_std=0.1, seed=seed)
+
+
+def _ell_batches(n=3, rows=512, lanes=8):
+    from parameter_server_tpu_torch.utils.sparse import SparseBatch
+
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(n):
+        counts = rng.integers(1, lanes + 1, rows)
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        out.append(SparseBatch(y=np.where(rng.random(rows) < 0.5, 1.0, -1.0).astype(np.float32),
+                               indptr=indptr, indices=rng.integers(0, 1 << 30, indptr[-1]),
+                               values=None))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fm", "deep_ctr"])
+def test_ell_workers_on_the_card(dev, kind):
+    """FM and wide&deep steps on the card: the g_w and g_v scatters
+    (``segment_sum``, 2 launches a step) bit-equal to the CPU's
+    ``index_add_`` on the same entries, the steps bit-identical run to
+    run, and the state within 1e-5 of its scale of the same worker on the
+    CPU started from the card's state (the forward's reductions and the
+    MLP's products may sum in another order on the card)."""
+    from parameter_server_tpu_torch import convert
+    from parameter_server_tpu_torch.ops import kv_ops
+
+    rng = np.random.default_rng(1)
+    rel = rng.integers(0, 4096, 40000)
+    vals = (rng.normal(size=(40000, 4)) * np.exp(rng.normal(size=(40000, 1)) * 3)).astype(
+        np.float32)
+    card = kv_ops.scatter_sum(4096, torch.from_numpy(rel).to(dev), torch.from_numpy(vals).to(dev))
+    cpu = kv_ops.scatter_sum(4096, torch.from_numpy(rel), torch.from_numpy(vals))
+    assert torch.equal(_bits(card.cpu()), _bits(cpu))
+
+    batches = _ell_batches()
+    runs = []
+    for _ in range(2):
+        w = _ell_worker(kind, dev)
+        before = tseg.segment_sum.launches
+        w.train(batches)
+        assert tseg.segment_sum.launches - before == 2 * len(batches)
+        runs.append(convert.tree_to_numpy(w.state))
+        w.executor.stop()
+    init = _ell_worker(kind, dev)
+    c = _ell_worker(kind, "cpu")
+    c.load_state_host(init.state_host())
+    c.train(batches)
+    cpu_leaves, again = _leaves(c.state_host()["state"]), _leaves(runs[1])
+    for path, a in _leaves(runs[0]).items():
+        assert np.array_equal(a.view(np.uint32), again[path].view(np.uint32)), path
+        # tests/test_torch_fm.py's tolerance: 1e-5 of the leaf's scale, at least 1e-2
+        scale = max(float(np.abs(cpu_leaves[path]).max()), 1e-2)
+        assert float(np.abs(cpu_leaves[path].astype(np.float64) - a).max()) <= 1e-5 * scale, path
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p: a for k in sorted(tree) for p, a in _leaves(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: a for i, t in enumerate(tree) for p, a in _leaves(t, f"{prefix}/{i}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def test_kv_map_push_card_equals_cpu(dev):
+    """KVMap pushes with duplicate keys (``segment_sum``, one launch a
+    push) leave the CPU's bits, AddEntry and AssignEntry."""
+    from parameter_server_tpu_torch.parameter.kv_map import AddEntry, AssignEntry, KVMap
+
+    rng = np.random.default_rng(3)
+    stream = [(rng.integers(0, 1 << 40, 8192),
+               (rng.normal(size=(8192, 8)) * np.exp(rng.normal(size=(8192, 1)) * 3)).astype(
+                   np.float32)) for _ in range(3)]
+    probe = rng.integers(0, 1 << 40, 1000)
+    for entry in (AddEntry, AssignEntry):
+        out = {}
+        for device in (dev, "cpu"):
+            m = KVMap(entry(), k=8, num_slots=1 << 12, device=device)
+            before = tseg.segment_sum.launches
+            for keys, vals in stream:
+                m.wait(m.push(m.request(), keys, vals))
+            if device == dev:
+                assert tseg.segment_sum.launches - before == len(stream)
+            out[str(device)] = (m.get_replica()["value"], m.values(probe))
+            m.executor.stop()
+        (a, pa), (b, pb) = out[str(dev)], out["cpu"]
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        assert np.array_equal(pa.view(np.uint32), pb.view(np.uint32))
