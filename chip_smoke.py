@@ -235,6 +235,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``convnet``: 5 steps on the card against ``--device cpu`` (losses
    within 1e-4 relative, plus the printed rounding), then its 50 default
    steps to a falling loss, ``train_step`` ms from CUDA events;
+8d. server replicas, recovery and live migration (ROADMAP A13, first
+   part): (a) the headline worker (phase 4's config, sparse, T 8) with
+   ``num_replicas 1, replica_every 2``: its first 2 ministeps against the
+   same worker on the CPU, then 16 ministeps (the FTRL and segment-sum
+   launches a ministep the headline's), the replica bit-equal to the state
+   of its last refresh, ``wipe_server_shard(0)`` + ``recover_server_shard(0)``
+   restoring exactly that image, 8 more ministeps bit-equal to a fresh
+   worker given the image by ``load_state_host``; the replica copy's
+   CUDA-event time beside its byte bound; ex/s of the step with replicas
+   on and off, 3 pairs in turns; the dense replicated worker (4
+   ministeps, ``ftrl_dense``) recovered one ministep stale; (b) a
+   ``KVVector`` at 2^22 slots, k 1: 16 headline batches pushed from a
+   thread and the first batch's keys pulled from another while
+   ``migrate`` runs with a seeded permutation, stalled 0.5 s at
+   ``rebalance.migrate``: pushes journaled and replayed, every pull
+   answered, the base-layout table bit-equal to an undisturbed run of the
+   same pushes, one ``segment_sum`` launch a push and a replay; the
+   migration's wall time, and a second move's alone; then, on that store,
+   a consistent backup, 4 more headline pushes, a wipe, ``ReplicaManager.
+   recover`` through the executor and the 4 pushes replayed, the table
+   bit-equal to the undisturbed run's, backup, install and replay wall
+   ms; (c)
+   ``benchmarks/components.py::recovery_drill(smoke=False)`` on the card:
+   no acknowledged update lost (the table bit-identical to the
+   undisturbed run), the trainer parked, serving degraded > 0 and failed
+   0, one ``segment_sum`` launch a push and a replay of the drilled store
+   (counted around it alone); detection, recovery and MTTR wall times;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -3714,6 +3741,341 @@ def a10_plane(seed: int, smi: str) -> dict:
     return dict(workers=workers, kv_map=kvm, nn_cli=nn, seconds=time.perf_counter() - t0)
 
 
+# -- phase 8d: server replicas, recovery and live migration (A13) --
+
+REPLICA_EVERY = 2  # ministeps between replica refreshes (every launch of T refreshes)
+REPLICA_LAUNCHES = 2  # 16 ministeps before the wipe
+REPLICA_PAIRS = 3  # replicas on / off, in turns
+REPLICA_TIMED = 16  # timed launches a run of a pair
+DENSE_REPLICA_STEPS = 4  # ministeps of the dense replicated worker
+MIGRATE_PUSHES = 16  # headline batches pushed into the migrating store
+MIGRATE_AT = 4  # pushes acknowledged before the migration starts
+MIGRATE_STALL_S = 0.5  # rebalance.migrate stall: the journal's window
+RECOVER_PUSHES = 4  # headline batches acknowledged past the backup, then replayed
+
+
+def replica_conf(update: str = "sparse", steps: int = T):
+    c = conf(update, "float32", steps)
+    c.async_sgd.num_replicas = 1
+    c.async_sgd.replica_every = REPLICA_EVERY
+    return c
+
+
+def state_bits(state: dict) -> dict:
+    return {k: bits(v).clone() for k, v in state.items()}
+
+
+def bits_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def replica_worker_path(batches) -> dict:
+    """(a) the replicated headline worker: its first 2 ministeps held to
+    the same worker on the CPU; 16 ministeps, the replica bit-equal to the
+    state of its last refresh; wipe + recover restore exactly that image;
+    8 more ministeps bit-equal to a fresh worker given the image by
+    ``load_state_host``; the FTRL and segment-sum launches a ministep
+    those of the headline; the replica copy's CUDA-event time; then the
+    dense replicated worker's wipe and recovery."""
+    what = "replicated headline, first 2 ministeps vs CPU"
+    pair = [AsyncSGDWorker(replica_conf(steps=2), device=d) for d in ("cuda", "cpu")]
+    ms = [{k: float(v) for k, v in run_launch(w, batches[:2]).items()} for w in pair]
+    check(ms[0]["num_ex"] == ms[1]["num_ex"] and
+          abs(ms[0]["objective"] - ms[1]["objective"]) <= 1e-5 * abs(ms[1]["objective"]),
+          f"{what}: metrics {ms}")
+    assert_states_close(pair[0].state, pair[1].state, what)
+    check(bits_equal(state_bits(pair[0]._replica_state), state_bits(pair[0].state)),
+          f"{what}: the replica is not the state after its first launch")
+    del pair
+
+    w = AsyncSGDWorker(replica_conf(), device="cuda")
+    reset_counts()
+    for k in range(REPLICA_LAUNCHES):
+        run_launch(w, batches[k * T:(k + 1) * T])
+    torch.cuda.synchronize()
+    n = REPLICA_LAUNCHES * T
+    got = counts()
+    check(got == (n, 0, 0, 2 * n), f"replicated headline: launch counts {got}, want "
+          f"{(n, 0, 0, 2 * n)} (the headline's a ministep)")
+    image = state_bits(w.state)
+    check(bits_equal(state_bits(w._replica_state), image),
+          "replicated headline: the replica differs from the state of its last refresh")
+    w.wipe_server_shard(0)
+    check(all(not bool(torch.any(v)) for v in w.state.values()), "wipe left nonzero state")
+    check(w.recover_server_shard(0), "recover_server_shard returned False with a replica")
+    check(bits_equal(state_bits(w.state), image), "recover did not restore the replica's image")
+    snap = w.state_host()
+    fresh = AsyncSGDWorker(replica_conf(), device="cuda")
+    fresh.load_state_host(snap)
+    group = batches[n:n + T]
+    reset_counts()
+    run_launch(w, group)
+    torch.cuda.synchronize()
+    after = counts()
+    run_launch(fresh, group)
+    check(after == (T, 0, 0, 2 * T), f"replicated headline after recovery: counts {after}")
+    check(bits_equal(state_bits(w.state), state_bits(fresh.state)),
+          "8 ministeps after recovery differ from a fresh worker given the image")
+    state_bytes = sum(v.numel() * v.element_size() for v in w.state.values())
+    copy_ms = median_ms(w._refresh_replica)
+    copy_bound, _ = bound(2 * state_bytes, 0)
+    del fresh
+
+    # ex/s with replicas on and off, REPLICA_PAIRS pairs in turns, on one
+    # uploaded superbatch (the step alone: host prep is timed elsewhere)
+    runs = {"on": [], "off": []}
+    workers = {"on": w, "off": AsyncSGDWorker(conf("sparse"), device="cuda")}
+    prepped = {m: wk.upload(stack_prepped_batches([wk.prep(b, device_put=False)
+                                                   for b in batches[:T]]))
+               for m, wk in workers.items()}
+    for m, wk in workers.items():
+        wk.submit(prepped[m], with_aux=False)  # warm
+    for i in range(REPLICA_PAIRS):
+        for m in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            wk = workers[m]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REPLICA_TIMED):
+                wk.submit(prepped[m], with_aux=False)
+            torch.cuda.synchronize()
+            runs[m].append(REPLICA_TIMED * T * MB / (time.perf_counter() - t0))
+    del workers, prepped
+
+    # the dense replicated worker (ftrl_dense): one minibatch a launch
+    d = AsyncSGDWorker(replica_conf("dense", 1), device="cuda")
+    reset_counts()
+    for b in batches[:DENSE_REPLICA_STEPS]:
+        run_launch(d, [b])
+    torch.cuda.synchronize()
+    dense_counts = counts()
+    check(dense_counts == (0, DENSE_REPLICA_STEPS, 0, 2 * DENSE_REPLICA_STEPS),
+          f"dense replicated worker: counts {dense_counts}")
+    # refreshes after ministeps 1 and 3 of 4: the replica is one ministep stale
+    stale = state_bits(d._replica_state)
+    check(not bits_equal(stale, state_bits(d.state)), "dense replica refreshed every ministep")
+    d.wipe_server_shard(0)
+    check(d.recover_server_shard(0) and bits_equal(state_bits(d.state), stale),
+          "dense replicated worker: recover did not restore the replica")
+    return dict(ministeps=n, launches=dict(sparse=got[0], segment_sum=got[3]),
+                after_recovery_launches=dict(sparse=after[0], segment_sum=after[3]),
+                dense_launches=dict(dense=dense_counts[1], segment_sum=dense_counts[3]),
+                replica_copy_ms=copy_ms, replica_copy_bound_ms=copy_bound,
+                state_bytes=state_bytes, examples_per_s=runs,
+                examples_per_s_median={m: float(np.median(v)) for m, v in runs.items()})
+
+
+def migration_path(seed: int, batches) -> dict:
+    """(b) a live migration at the headline table: a ``KVVector`` of 2^22
+    slots, k 1, fed MIGRATE_PUSHES headline batches (638,976 keys each)
+    from a thread while a second thread pulls the first batch's keys;
+    ``migrate`` with a seeded permutation runs after MIGRATE_AT pushes,
+    stalled MIGRATE_STALL_S at ``rebalance.migrate``. Pushes journaled and
+    replayed, every pull answered, the base-layout table bit-equal to an
+    undisturbed run of the same pushes; one ``segment_sum`` launch a push
+    and a replay. Then a recovery at that size, into the migrated layout:
+    a consistent backup, RECOVER_PUSHES more acknowledged pushes, the
+    table wiped, ``ReplicaManager.recover`` through the executor and the
+    pushes past the barrier replayed in order, bit-equal to the
+    undisturbed run; backup, install and replay wall ms."""
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.parameter.replica import ReplicaManager
+    from parameter_server_tpu_torch.system import faults
+
+    rng = np.random.default_rng(seed + 8400)
+    stream = [(b.indices, rng.normal(size=(b.nnz, 1)).astype(np.float32))
+              for b in batches[:MIGRATE_PUSHES + RECOVER_PUSHES]]
+    stream, extra = stream[:MIGRATE_PUSHES], stream[MIGRATE_PUSHES:]
+    perm = np.random.default_rng(seed + 8401).permutation(SLOTS)
+
+    ref = KVVector(k=1, num_slots=SLOTS, hashed=True, name="mig_ref", device="cuda")
+    for keys, vals in stream:
+        ref.wait(ref.push(ref.request(channel=0), keys=keys, values=vals))
+    want = ref.get_replica()[0]
+    for keys, vals in extra:
+        ref.wait(ref.push(ref.request(channel=0), keys=keys, values=vals))
+    want_after = ref.get_replica()[0]
+    ref.executor.stop()
+    del ref
+
+    kv = KVVector(k=1, num_slots=SLOTS, hashed=True, name="mig_live", device="cuda")
+    reset_counts()
+    acked = [0]
+    pulls = {"ok": 0, "failed": 0}
+    started, done = threading.Event(), threading.Event()
+    errors = []
+
+    def pusher():
+        try:
+            for i, (keys, vals) in enumerate(stream):
+                if i == MIGRATE_AT:
+                    started.set()
+                    time.sleep(0.1)  # the migration reaches its stalled window
+                kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+                acked[0] += 1
+        except BaseException as e:
+            errors.append(e)
+
+    def puller():
+        keys = stream[0][0]
+        while not done.is_set():
+            try:
+                got = kv.wait_pull(kv.pull(kv.request(channel=0), keys=keys))
+                ok = got.shape == (len(keys), 1) and bool(torch.isfinite(got).all())
+                pulls["ok" if ok else "failed"] += 1
+            except Exception:
+                pulls["failed"] += 1
+
+    faults.reset()
+    faults.arm("rebalance.migrate", kind="delay", delay_s=MIGRATE_STALL_S, once=True)
+    threads = [threading.Thread(target=pusher), threading.Thread(target=puller)]
+    for t in threads:
+        t.start()
+    try:
+        check(started.wait(120), "migration: the pusher never reached the migration point")
+        t0 = time.perf_counter()
+        mig = kv.migrate(perm)
+        migrate_s = time.perf_counter() - t0
+        threads[0].join(timeout=300)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+        faults.reset()
+    check(not errors, f"migration: the push stream failed: {errors[:1]}")
+    check(acked[0] == MIGRATE_PUSHES, f"migration: {acked[0]} pushes acknowledged")
+    seg_n = counts()[3]
+    check(mig["journaled"] > 0 and mig["replayed"] > 0 and mig["attempts"] == 1,
+          f"migration: {mig}")
+    check(pulls["failed"] == 0 and pulls["ok"] > 0, f"migration: pulls {pulls}")
+    check(seg_n == MIGRATE_PUSHES + mig["replayed"],
+          f"migration: segment_sum launches {seg_n}, want {MIGRATE_PUSHES + mig['replayed']}")
+    got = kv.get_replica()[0]
+    check(got.tobytes() == want.tobytes(), "migration: the base-layout table differs from the "
+          "undisturbed run's")
+    # a second move alone, no traffic and no stall: the migration's own cost
+    t0 = time.perf_counter()
+    kv.migrate(np.random.default_rng(seed + 8402).permutation(SLOTS))
+    alone_s = time.perf_counter() - t0
+    check(kv.get_replica()[0].tobytes() == want.tobytes(), "migration: a second move changed "
+          "the base-layout table")
+
+    # recovery at the headline table, into the twice-migrated layout
+    rm = ReplicaManager()
+    t0 = time.perf_counter()
+    barrier = rm.backup_consistent(kv)["barrier"][0]
+    backup_s = time.perf_counter() - t0
+    acked = []
+    for keys, vals in extra:
+        ts = kv.push(kv.request(channel=0), keys=keys, values=vals)
+        kv.wait(ts)
+        acked.append(ts)
+    zeros = kv._zeros()
+    kv.wait(kv.submit(lambda: kv.set_table(0, zeros), kv.request(channel=0)))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    check(rm.recover(kv, through_executor=True), "recovery at 2^22: no snapshot")
+    install_s = time.perf_counter() - t0
+    replay = [i for i, ts in enumerate(acked) if ts > barrier]
+    for i in replay:  # in the original order, each acknowledged
+        keys, vals = extra[i]
+        kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+    replay_s = time.perf_counter() - t0 - install_s
+    rec_counts = counts()
+    check(len(replay) == RECOVER_PUSHES, f"recovery at 2^22: {len(replay)} pushes past the "
+          f"barrier, want {RECOVER_PUSHES}")
+    check(rec_counts == (0, 0, 0, len(replay)), f"recovery at 2^22: launch counts {rec_counts}")
+    check(kv.get_replica()[0].tobytes() == want_after.tobytes(), "recovery at 2^22: the "
+          "recovered and replayed table differs from the undisturbed run's")
+    kv.executor.stop()
+    return dict(mig=mig, pushes=MIGRATE_PUSHES, keys_per_push=len(stream[0][0]),
+                pulls=pulls, segment_launches=seg_n, migrate_ms=migrate_s * 1e3,
+                stall_ms=MIGRATE_STALL_S * 1e3, migrate_alone_ms=alone_s * 1e3,
+                recovery=dict(replayed=len(replay), segment_launches=rec_counts[3],
+                              backup_ms=backup_s * 1e3, install_ms=install_s * 1e3,
+                              replay_ms=replay_s * 1e3,
+                              recover_ms=(install_s + replay_s) * 1e3))
+
+
+def drill_path() -> dict:
+    """(c) ``recovery_drill(smoke=False)`` on the card: no acknowledged
+    update lost, the drilled table bit-identical to the undisturbed one,
+    the trainer parked, serving degraded and never failed. The counts are
+    read around the drilled store alone (its pushes and replays), not the
+    drill's reference run or its overhead pair."""
+    from parameter_server_tpu_torch.benchmarks.components import recovery_drill
+
+    live = {}
+
+    def on_live(event: str) -> None:
+        if event == "start":
+            reset_counts()
+        else:
+            live["counts"] = counts()
+
+    t0 = time.perf_counter()
+    out = recovery_drill(smoke=False, device="cuda", on_live=on_live)
+    wall = time.perf_counter() - t0
+    Postoffice.reset()
+    check("counts" in live, "drill: the drilled store's phase never ended")
+    seg_n = live["counts"][3]
+    want = out["acked_updates"] + out["replayed_updates"]
+    check(out["trajectory_bit_identical"], "drill: the drilled table differs from the "
+          "undisturbed one")
+    check(out["trainer_parked"], "drill: the trainer was not parked by the recovery")
+    check(out["replayed_updates"] > 0, "drill: nothing replayed")
+    acct = out["update_accounting"]
+    check(acct is None or acct["metered_matches"], f"drill: metered keys {acct}")
+    check(out["serve"]["degraded_served"] > 0 and out["serve"]["failed"] == 0,
+          f"drill: serve {out['serve']}")
+    check(live["counts"] == (0, 0, 0, want), f"drill: the drilled store's launch counts "
+          f"{live['counts']}, want one segment_sum a push and a replay ({want})")
+    return dict(out, wall_s=wall, segment_launches=seg_n)
+
+
+def a13_plane(seed: int, smi: str, batches) -> dict:
+    """Phase 8d, (a)-(c), printed as they finish."""
+    t0 = time.perf_counter()
+    rep = replica_worker_path(batches)
+    ex = rep["examples_per_s_median"]
+    print(f"# A13 (a) replicated headline (sparse 2^{SLOTS.bit_length() - 1}, T={T}, "
+          f"num_replicas 1, replica_every {REPLICA_EVERY}) ({smi}): first 2 ministeps vs the CPU "
+          f"within tolerance; after {rep['ministeps']} ministeps the replica bit-equal to the state "
+          f"of its last refresh, wipe + recover restore it exactly, 8 more ministeps bit-equal to a "
+          f"fresh worker given the image; launches sparse / segment_sum {rep['launches']} "
+          f"(after recovery {rep['after_recovery_launches']}); replica copy "
+          f"{rep['replica_copy_ms']:.4f} ms (CUDA events, bound {rep['replica_copy_bound_ms']:.4f} "
+          f"ms for {rep['state_bytes'] / 1e6:.1f} MB read and written); ex/s (step, {REPLICA_PAIRS} "
+          f"pairs in turns) replicas on {ex['on']:.0f} / off {ex['off']:.0f} (runs {rep['examples_per_s']}); "
+          f"dense replicated worker launches {rep['dense_launches']}, recovered one ministep stale",
+          flush=True)
+    mig = migration_path(seed, batches)
+    m = mig["mig"]
+    print(f"# A13 (b) live migration at 2^{SLOTS.bit_length() - 1} slots, k 1 ({smi}): "
+          f"{mig['pushes']} pushes of {mig['keys_per_push']} keys from a thread, pulls from a "
+          f"second: journaled {m['journaled']}, replayed {m['replayed']}, rows moved "
+          f"{m['rows_moved']}, pulls {mig['pulls']}; base-layout table bit-equal to the undisturbed "
+          f"run; migrate {mig['migrate_ms']:.1f} ms wall (a {mig['stall_ms']:.0f} ms stall "
+          f"included), a second move alone {mig['migrate_alone_ms']:.1f} ms; segment_sum launches "
+          f"{mig['segment_launches']}", flush=True)
+    r = mig["recovery"]
+    print(f"# A13 (b) recovery at 2^{SLOTS.bit_length() - 1} slots, k 1, into the migrated layout "
+          f"({smi}): backup_consistent {r['backup_ms']:.1f} ms, recover through the executor "
+          f"{r['install_ms']:.1f} ms, {r['replayed']} pushes of {mig['keys_per_push']} keys "
+          f"replayed in {r['replay_ms']:.1f} ms (each acknowledged), recover + replay "
+          f"{r['recover_ms']:.1f} ms (wall); the table bit-equal to the undisturbed run's; "
+          f"segment_sum launches {r['segment_launches']}", flush=True)
+    drill = drill_path()
+    print(f"# A13 (c) recovery_drill(smoke=False) ({smi}): {drill['config']['num_slots']} slots, "
+          f"{drill['acked_updates']} acked updates, replayed {drill['replayed_updates']}, table "
+          f"bit-identical {drill['trajectory_bit_identical']}, trainer parked "
+          f"{drill['trainer_parked']}; detection {drill['detection_ms']} ms, recovery "
+          f"{drill['recovery_ms']} ms, MTTR {drill['mttr_ms']} ms (wall); serve {drill['serve']}; "
+          f"disarmed overhead {drill['disarmed_overhead']}; segment_sum launches "
+          f"{drill['segment_launches']}; {drill['wall_s']:.1f} s", flush=True)
+    return dict(replica=rep, migration=mig, drill=drill, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4136,6 +4498,8 @@ def main() -> int:
     flash_rows += serve["flash_rows"]
     tel = telemetry_plane(args.seed, smi, batches)
     a10 = a10_plane(args.seed, smi)
+    a13 = a13_plane(args.seed, smi, batches)
+    rep13, mig13, drill13 = a13["replica"], a13["migration"], a13["drill"]
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -4171,6 +4535,8 @@ def main() -> int:
              replaces="parameter_server_tpu/ops/ftrl_sparse.py:407",
              launches=head["sparse_launches"],
              kkt_launches=kkt["sparse_launches"], bigtable_launches=big["sparse_launches"],
+             a13_launches=dict(replicated_headline=rep13["launches"]["sparse"],
+                               after_recovery=rep13["after_recovery_launches"]["sparse"]),
              interior_keep_cases=[r["case"] for r in sparse_rows if "interior" in r["case"]],
              max_abs_err=max(r["max_abs_err"] for r in sparse_rows),
              ms=main_sparse["ms"], plain_ms=main_sparse["plain_ms"],
@@ -4182,6 +4548,7 @@ def main() -> int:
              launches=ctr["dense_launches"],
              bits_launches=bw["dense_launches"], stream_launches=stream["dense_launches"],
              tau_adaptive_launches=tau["dense_launches"],
+             a13_launches=dict(dense_replicated=rep13["dense_launches"]["dense"]),
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
@@ -4209,6 +4576,11 @@ def main() -> int:
                                **{f"kv_map_{n}": r["launches"]
                                   for n, r in a10["kv_map"].items()},
                                nn_cli={m: r["launches"][3] for m, r in a10["nn_cli"].items()}),
+             a13_launches=dict(replicated_headline=rep13["launches"]["segment_sum"],
+                               dense_replicated=rep13["dense_launches"]["segment_sum"],
+                               migration=mig13["segment_launches"],
+                               headline_recovery=mig13["recovery"]["segment_launches"],
+                               drill=drill13["segment_launches"]),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -4270,7 +4642,7 @@ def main() -> int:
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
-                  telemetry=tel, a10=a10, wall_s=time.perf_counter() - t_start)
+                  telemetry=tel, a10=a10, a13=a13, wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

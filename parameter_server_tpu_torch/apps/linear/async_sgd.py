@@ -48,8 +48,18 @@ the feeder's path) and the steps' convergence side outputs; the uploader
 stage counts its batches, examples and bytes and carries each batch's
 flow id to its step.
 
-Not ported yet (``SGDConfig.validate`` raises ``NotImplementedError``):
-server replicas; multi-GPU.
+The ongoing server replica (``num_replicas > 0``): every
+``replica_every`` ministeps the step copies the state into a replica,
+on the executor after the update, on the step's stream (the FTRL
+kernels update ``z`` and √n in place, so the replica is a copy, never an
+alias). With one server shard the JAX worker's roll of the table by a
+shard's width is the identity, so the mirror is the whole state.
+:meth:`AsyncSGDWorker.wipe_server_shard` zeroes a shard's rows (a
+replacement that starts empty) and
+:meth:`AsyncSGDWorker.recover_server_shard` restores them from the
+replica, at most ``replica_every`` ministeps stale; both run through the
+executor, in order with the steps. More server shards, and more cards,
+are ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ from ...ops.ftrl_sparse import resolve_update_path
 from ...ops.kv_ops import localize, slot_sentinel, valid_slots
 from ...ops.significance import SignificanceSpec, kkt_mask
 from ...ops.segment_sum import segment_sum as _segment_sum
-from ...parameter.parameter import KeyDirectory, pad_slots
+from ...parameter.parameter import KeyDirectory, pad_slots, server_shard_rows
 from ...system.executor import Executor
 from ...telemetry import device as device_tel
 from ...telemetry import registry as telemetry_registry
@@ -1314,6 +1324,10 @@ class AsyncSGDWorker:
         self._pull_state = self._snapshot()
         self._steps_since_snapshot = 0
         self.last_staleness = 0
+        # the ongoing replica: refreshed every replica_every ministeps on
+        # the executor (None until the first step, or after a load)
+        self._replica_state: Optional[Dict[str, torch.Tensor]] = None
+        self._steps_since_replica = 0
         self.progress = SGDProgress()
         # at most τ + 1 steps in flight (τ = 0 still lets the next step
         # be submitted while one runs)
@@ -1659,7 +1673,14 @@ class AsyncSGDWorker:
                     getattr(prepped, name).record_stream(stream)
             if do_snapshot:
                 self._pull_state = self._snapshot()
-            return step_fn(self.state, self._pull_state, prepped, seed, variant)
+            metrics = step_fn(self.state, self._pull_state, prepped, seed, variant)
+            if self.sgd.num_replicas > 0:
+                self._steps_since_replica += n_steps
+                if (self._replica_state is None
+                        or self._steps_since_replica >= self.sgd.replica_every):
+                    self._steps_since_replica = 0
+                    self._refresh_replica()
+            return metrics
 
         self._note_ftrl_dispatch(prepped, n_steps)
         ts = self.executor.submit(run)
@@ -1865,6 +1886,50 @@ class AsyncSGDWorker:
         """Wait for every step in flight, leaving its metrics to collect."""
         self.executor.wait_all(pop=False)
 
+    # -- the ongoing server replica --
+
+    def _refresh_replica(self) -> None:
+        """Copy the state into the replica (dispatch thread, after a
+        step, on its stream). The buffers are reused once they exist."""
+        rep = self._replica_state
+        if rep is None:
+            self._replica_state = {k: v.clone() for k, v in self.state.items()}
+        else:
+            for k, v in self.state.items():
+                rep[k].copy_(v)
+
+    def recover_server_shard(self, shard: int) -> bool:
+        """Rebuild a dead server shard's slot rows from the replica (ref
+        Parameter::Recover), at most ``replica_every`` ministeps stale;
+        False when no replica was taken. Submitted through the executor,
+        in order with the steps in flight; the pull snapshot re-anchors
+        on the restored state."""
+        if self._replica_state is None:
+            return False
+        rows = server_shard_rows(shard, self.num_slots)  # one server shard
+
+        def do_recover():
+            for k, v in self.state.items():
+                if v.dim() >= 1:
+                    v[rows].copy_(self._replica_state[k][rows])
+            self._pull_state = self._snapshot()
+            return True
+
+        return bool(self.executor.wait(self.executor.submit(do_recover)))
+
+    def wipe_server_shard(self, shard: int) -> None:
+        """Zero a server shard's slot rows, as a replacement server that
+        boots empty would hold them, through the executor."""
+        rows = server_shard_rows(shard, self.num_slots)
+
+        def do_wipe():
+            for v in self.state.values():
+                if v.dim() >= 1:
+                    v[rows].zero_()
+            self._pull_state = self._snapshot()
+
+        self.executor.wait(self.executor.submit(do_wipe))
+
     # -- serving the trained table --
 
     def weights_dense(self) -> np.ndarray:
@@ -1949,4 +2014,5 @@ class AsyncSGDWorker:
         self.state = state
         self._pull_state = self._snapshot()
         self._steps_since_snapshot = 0
+        self._replica_state = None  # the replica of the old state goes
         self._seed_counter = int(snap["seed_counter"])

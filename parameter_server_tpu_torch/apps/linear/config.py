@@ -3,10 +3,7 @@
 Dataclass counterparts of ``parameter_server_tpu/apps/linear/config.py``
 with the same field names and defaults, and :func:`parse_conf` for the
 reference's protobuf-text ``.conf`` files (an ``async_sgd`` block, a
-``darlin`` block, or neither for model evaluation). Fields of features
-the port does not have yet (server replicas) are kept so that setting
-them fails loudly: :meth:`SGDConfig.validate` raises
-``NotImplementedError`` for any value other than the default. Unknown
+``darlin`` block, or neither for model evaluation). Unknown
 loss, penalty, learning-rate, update or pull-gather names raise
 ``ValueError``. As in the JAX parser, a ``darlin`` block's
 ``tail_feature_freq`` is not read, and ``save_model_every_n_iter`` is
@@ -49,13 +46,6 @@ class LearningRateConfig:
     beta: float = 1.0
 
 
-# field -> the only value the port supports, for features not ported yet
-_UNPORTED = {
-    "num_replicas": 0,  # server replicas (ROADMAP A13)
-    "replica_every": 1,
-}
-
-
 @dataclasses.dataclass
 class SGDConfig:
     """Counterpart of the JAX package's SGDConfig (async_sgd section)."""
@@ -88,6 +78,9 @@ class SGDConfig:
     wire_encode: str = ""
     wire_compress: str = ""
     wire_cache_mb: int = 0
+    # ongoing server replica (ref FLAGS_num_replicas): with num_replicas
+    # > 0 the worker mirrors its state every replica_every ministeps, so
+    # a wiped shard recovers at most that many ministeps stale
     num_replicas: int = 0
     replica_every: int = 1
     # adaptive bounded delay (learner/consistency.py): max_delay is the
@@ -106,13 +99,6 @@ class SGDConfig:
         self.validate()
 
     def validate(self) -> None:
-        for name, supported in _UNPORTED.items():
-            if getattr(self, name) != supported:
-                raise NotImplementedError(
-                    f"SGDConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported to the PyTorch package yet (only "
-                    f"{supported!r} is supported)"
-                )
         if self.algo not in ("ftrl", "standard"):
             raise ValueError(f"unknown sgd algo: {self.algo}")
         if self.ftrl_state_dtype not in ("float32", "bfloat16"):

@@ -113,6 +113,11 @@ class DeepCTRWorker(ELLWorker):
     def table(self):
         return self.state["table"]
 
+    def wipe_server_shard(self, shard: int) -> None:
+        """Zero a dead server shard's table rows; the MLP, held by every
+        rank, survives a server's death."""
+        self.state = dict(self.state, table=self._wiped_table(shard))
+
     def load_state_host(self, snap: dict) -> None:
         st = dict(snap["state"])
         st["table"] = {name: fit_rows(leaf, self.num_slots) for name, leaf in st["table"].items()}

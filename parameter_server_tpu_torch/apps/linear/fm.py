@@ -35,7 +35,7 @@ from ... import convert
 from ...device import resolve
 from ...learner.sgd import ISGDCompNode, SGDProgress
 from ...ops.kv_ops import localize, scatter_sum, valid_slots
-from ...parameter.parameter import KeyDirectory, pad_slots
+from ...parameter.parameter import KeyDirectory, pad_slots, server_shard_rows
 from ...system.message import Task
 from ...utils import evaluation
 from ...utils.sparse import SparseBatch
@@ -181,6 +181,24 @@ class ELLWorker(ISGDCompNode):
         self.executor.wait_all(pop=False)
         return {"state": convert.tree_to_numpy(self.state)}
 
+    def _wiped_table(self, shard: int) -> Dict[str, torch.Tensor]:
+        """The table's leaves with server shard ``shard``'s rows zeroed
+        (one shard holds every row), once the steps in flight are done."""
+        rows = server_shard_rows(shard, self.num_slots)  # one server shard
+        self.executor.wait_all(pop=False)
+        out = {}
+        for name, leaf in self.table().items():
+            leaf = leaf.clone()
+            leaf[rows] = 0.0
+            out[name] = leaf
+        return out
+
+    def recover_server_shard(self, shard: int) -> bool:
+        """No ongoing replica here (checkpoints give durability): a
+        recovery reports failure, as the JAX workers' does."""
+        del shard
+        return False
+
     def _host_table(self):
         self.executor.wait_all(pop=False)
         t = self.table()
@@ -211,6 +229,11 @@ class FMWorker(ELLWorker):
 
     def table(self) -> Dict[str, torch.Tensor]:
         return {name: self.state[name] for name in ("w", "w_ss", "v", "v_ss")}
+
+    def wipe_server_shard(self, shard: int) -> None:
+        """Zero a dead server shard's rows of w, V and their AdaGrad sums
+        (a replacement that boots empty); the bias stays."""
+        self.state = dict(self.state, **self._wiped_table(shard))
 
     def load_state_host(self, snap: dict) -> None:
         st = {name: fit_rows(leaf, self.num_slots) for name, leaf in snap["state"].items()}

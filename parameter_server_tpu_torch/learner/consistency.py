@@ -29,8 +29,9 @@ rollbacks, candidate / suppressed / dropped keys) and the tracker
 credits the shipped keys to ``ps_push_keys_total`` (store = the worker's
 name), so ``pushed + suppressed == candidates`` reconciles in a
 snapshot; a reaction captures a flight-recorder bundle when a recorder
-is installed. The ``consistency.rollback`` fault point of the JAX module
-is not here (ROADMAP A13).
+is installed. The ``consistency.rollback`` fault point fires first in
+a reaction, before any state is touched: a drill that raises there shows
+the caller survives the reaction itself failing.
 """
 
 from __future__ import annotations
@@ -118,6 +119,11 @@ class AdaptiveTauController:
     def react(self, reason: str) -> Dict[str, Any]:
         """τ → 0, learning-rate backoff, rollback to the last healthy
         snapshot. Collect thread only."""
+        from ..system import faults
+
+        # before any state is touched: a raise here leaves the rate, τ
+        # and the episode log as they were (collect propagates it)
+        faults.inject("consistency.rollback", detail=reason)
         worker = self.worker
         self._set_tau(0, "reset")
         self._stable = 0

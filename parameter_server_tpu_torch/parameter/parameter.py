@@ -16,8 +16,9 @@ Key directories come in two modes, both host-side:
 
 Push/pull requests record the JAX package's latency histograms and
 key-count counters per (store, channel) (``instrumented_submit``), and
-the slot cache counts its hits and misses. Left out: the slot remap that
-a live migration installs (``set_remap``, ROADMAP A13).
+the slot cache counts its hits and misses. A live migration
+(``KVVector.migrate``) composes a slot permutation onto a directory
+(:meth:`KeyDirectory.set_remap`); computed slots route through it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +129,13 @@ class KeyDirectory:
     False): the port's hashed directory came first, and its callers
     name no mode. An exact directory is one given ``keys`` and
     ``hashed=False``.
+
+    **Remap** (:meth:`set_remap`): the composed slot permutation of the
+    live migrations; every computed slot goes through it, the miss
+    sentinel passes untouched. Each cache entry carries the remap
+    generation it was computed under and serves only that generation,
+    so an entry computed before a flip (even one stored after it) never
+    routes a push to the old row.
     """
 
     MAX_SIG_LEN = 2048
@@ -148,15 +156,38 @@ class KeyDirectory:
                     "searchsorted would silently map keys to wrong slots — np.unique the "
                     "key set first"
                 )
-        # sig -> [keys_copy, slots, {device: slots tensor}]; MRU at the end
+        # sig -> [keys_copy, slots, {device: slots tensor}, remap generation]; MRU at the end
         self._slot_cache: "OrderedDict[tuple, list]" = OrderedDict()  # guarded-by: _slot_cache_lock
         self._slot_cache_lock = threading.Lock()
+        # composed slot permutation of the live migrations, and its generation
+        self._remap: Optional[np.ndarray] = None  # guarded-by: _slot_cache_lock
+        self._remap_gen = 0  # guarded-by: _slot_cache_lock
 
     def set_remap(self, perm: np.ndarray) -> None:
-        raise NotImplementedError(
-            "KeyDirectory.set_remap (the slot permutation a live migration installs) is not "
-            "ported (ROADMAP A13)"
-        )
+        """Compose a slot permutation onto the directory (a migration
+        moved row ``j`` to ``perm[j]``), bump the remap generation and
+        drop the slot cache, whose entries hold pre-move slots and their
+        device copies."""
+        perm = np.asarray(perm, dtype=np.int64)
+        with self._slot_cache_lock:
+            remap = perm.copy() if self._remap is None else perm[self._remap]
+            remap.flags.writeable = False  # handed out by remap()
+            self._remap = remap
+            self._remap_gen += 1
+            self._slot_cache.clear()
+
+    def remap(self) -> Optional[np.ndarray]:
+        """The composed base -> current slot permutation (read-only), or
+        None while the layout is the base one."""
+        with self._slot_cache_lock:
+            return self._remap
+
+    @property
+    def generation(self) -> int:
+        """Bumped by every :meth:`set_remap`: slots computed under an
+        older generation route to pre-move rows."""
+        with self._slot_cache_lock:
+            return self._remap_gen
 
     def _signature(self, keys: np.ndarray) -> tuple:
         return (crc32c.array_signature(keys, self.MAX_SIG_LEN), keys.shape[0], keys.dtype.str)
@@ -166,23 +197,26 @@ class KeyDirectory:
         tel = _dir_tel()
         with self._slot_cache_lock:
             entry = self._slot_cache.get(sig)
-            if entry is not None and np.array_equal(keys, entry[0]):
+            if (entry is not None and entry[3] == self._remap_gen
+                    and np.array_equal(keys, entry[0])):
                 self._slot_cache.move_to_end(sig)
                 if tel is not None:
                     tel["slot_cache_hits"].inc()
                 return entry
+            remap, gen = self._remap, self._remap_gen
         if tel is not None:
             tel["slot_cache_misses"].inc()
         # computed outside the lock: the hash pass must not serialize callers
-        entry = [np.array(keys, copy=True), self._compute_slots(keys), {}]
+        entry = [np.array(keys, copy=True), self._compute_slots(keys, remap), {}, gen]
         with self._slot_cache_lock:
-            self._slot_cache[sig] = entry
-            self._slot_cache.move_to_end(sig)
-            while len(self._slot_cache) > self.CACHE_SLOTS:
-                self._slot_cache.popitem(last=False)
+            if gen == self._remap_gen:  # else a flip came first: serve, never store
+                self._slot_cache[sig] = entry
+                self._slot_cache.move_to_end(sig)
+                while len(self._slot_cache) > self.CACHE_SLOTS:
+                    self._slot_cache.popitem(last=False)
         return entry
 
-    def _compute_slots(self, keys: np.ndarray) -> np.ndarray:
+    def _base_slots(self, keys: np.ndarray) -> np.ndarray:
         if self.hashed:
             return hash_slots(keys, self.num_slots)
         if self.keys is None:
@@ -194,14 +228,31 @@ class KeyDirectory:
         hit = (pos < len(self.keys)) & (self.keys[posc] == keys)
         return np.where(hit, pos, self.num_slots).astype(np.int32)
 
+    def _compute_slots(self, keys: np.ndarray, remap: Optional[np.ndarray]) -> np.ndarray:
+        base = self._base_slots(keys)
+        if remap is None:
+            return base
+        # the sentinel and out-of-range slots pass through: only rows the
+        # migration owns are rerouted
+        safe = np.minimum(base, len(remap) - 1)
+        return np.where(base < len(remap), remap[safe], base).astype(np.int32)
+
     def slots(self, keys: np.ndarray) -> np.ndarray:
         """Map global keys to dense int32 slot ids; misses map to the
         sentinel slot ``num_slots`` (dropped by the ownership mask)."""
-        return self._compute_slots(np.asarray(keys))
+        with self._slot_cache_lock:
+            remap = self._remap
+        return self._compute_slots(np.asarray(keys), remap)
 
     def slots_device(self, keys: np.ndarray, device) -> torch.Tensor:
         """:meth:`slots` as an int32 tensor on ``device``, cached: a
         repeated key set skips the host → device index upload too."""
+        return self.slots_device_at(keys, device)[0]
+
+    def slots_device_at(self, keys: np.ndarray, device) -> Tuple[torch.Tensor, int]:
+        """:meth:`slots_device` and the remap :attr:`generation` the
+        slots were computed under: a caller that resolves without holding
+        off migrations re-checks it before it submits."""
         entry = self._cache_entry(np.asarray(keys))
         device = torch.device(device)
         with self._slot_cache_lock:
@@ -210,7 +261,14 @@ class KeyDirectory:
             t = torch.from_numpy(entry[1]).to(device)
             with self._slot_cache_lock:
                 entry[2][device] = t
-        return t
+        return t, entry[3]
+
+
+def server_shard_rows(shard: int, rows_per_shard: int) -> slice:
+    """The slot rows of server shard ``shard`` in a table of equal
+    shards: on one card one shard holds every row, and a shard past it
+    holds none."""
+    return slice(shard * rows_per_shard, (shard + 1) * rows_per_shard)
 
 
 def pad_slots(num_slots: int, num_shards: int) -> int:

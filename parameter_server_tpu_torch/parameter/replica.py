@@ -15,8 +15,13 @@ dict saved by either package restores in the other.
 A write goes to ``step_N.tmp`` and is renamed into place; the
 ``checkpoint.write`` fault point (:mod:`..system.faults`) fires between
 the two, where a crash can leave only a torn ``.tmp`` that
-:meth:`CheckpointManager.latest_step` never lists. ``ReplicaManager``
-(in-memory replicas) is ROADMAP A13.
+:meth:`CheckpointManager.latest_step` never lists.
+
+:class:`ReplicaManager` keeps in-memory replicas of parameters (host
+copies of their ``get_replica`` snapshots, by name), backs them up by
+hand, consistently under a live push stream, or periodically on a
+thread, and installs one back (``recover``), through the store's
+executor when pushes may still be in flight.
 
 :class:`Checkpointable` is the save / restore mixin over a component's
 ``state_host()`` / ``load_state_host(snapshot)`` pair (the SGD-family
@@ -25,16 +30,19 @@ workers through ``ISGDCompNode``, and ``NNTrainer``).
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import threading
-from typing import Any, List, Optional
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..system import faults
 
+_LOG = logging.getLogger(__name__)
 
 def _leaves(tree: Any) -> List[Any]:
     """The leaves of ``tree`` in ``jax.tree.flatten``'s order."""
@@ -207,3 +215,137 @@ class CheckpointManager:
                 except ValueError:
                     pass
         return max(steps) if steps else None
+
+
+class ReplicaManager:
+    """In-memory replicas (ref kReplicaGroup / kOwnerGroup): each
+    parameter's snapshot is kept by name so a replacement can
+    ``recover`` it.
+
+    Two backup paths:
+
+    - :meth:`backup`: ``get_replica``'s drain-then-copy, safe only once
+      the caller has stopped its own submissions;
+    - :meth:`backup_consistent`: a snapshot through the store's executor
+      (``get_replica_consistent``: one submitted copy step a channel), so
+      a live push stream cannot tear it, with the **barrier**
+      timestamps that say which pushes are inside it (every step with a
+      lower timestamp): the replay contract of the recovery drill.
+
+    :meth:`start_periodic` runs ``backup_consistent`` on a thread. Every
+    map below is guarded (the periodic thread races a ``recover`` from
+    the recovery coordinator's poll thread); the snapshot is taken
+    outside the lock, so a slow store never blocks the recovery of
+    another parameter.
+    """
+
+    def __init__(self) -> None:
+        self._replicas: Dict[str, dict] = {}  # guarded-by: _lock
+        #: per name: {"barrier": {ch: ts}, "version", "at" (wall clock),
+        #: "consistent" (which path took it)}
+        self._meta: Dict[str, dict] = {}  # guarded-by: _lock
+        self._periodic: Dict[str, Tuple[threading.Thread, threading.Event]] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def _store(self, name: str, snap: dict, barrier: Dict[int, int], consistent: bool) -> None:
+        with self._lock:
+            self._replicas[name] = snap
+            prev = self._meta.get(name)
+            self._meta[name] = {
+                "barrier": dict(barrier),
+                "version": (prev["version"] + 1) if prev else 1,
+                "at": time.time(),
+                "consistent": consistent,
+            }
+
+    def backup(self, parameter) -> None:
+        """Snapshot by ``get_replica`` (drains the executor, then copies:
+        the caller must not be submitting meanwhile)."""
+        self._store(parameter.name, parameter.get_replica(), {}, False)
+
+    def backup_consistent(self, parameter) -> dict:
+        """Snapshot through the store's executor, safe under a concurrent
+        push stream; returns the stored metadata with the per-channel
+        barrier timestamps."""
+        snap, barrier = parameter.get_replica_consistent()
+        self._store(parameter.name, snap, barrier, True)
+        return self.meta(parameter.name)
+
+    def recover(self, parameter, through_executor: bool = False,
+                timeout: Optional[float] = 60.0) -> bool:
+        """Install the last snapshot; False if there is none.
+        ``through_executor`` submits the install as a store step, in
+        timestamp order with the pushes in flight (the live-crash path),
+        after telling a migration in flight that its snapshot is stale
+        (``note_external_restore``); the wait is bounded by ``timeout``
+        (None: no bound), so a store wedged by the failure being
+        recovered raises on the coordinator's thread instead of hanging
+        it. The default installs directly (a quiesced caller)."""
+        with self._lock:
+            snap = self._replicas.get(parameter.name)
+        if snap is None:
+            return False
+        if through_executor and hasattr(parameter, "submit"):
+            if hasattr(parameter, "note_external_restore"):
+                parameter.note_external_restore()
+            ts = parameter.submit(lambda: parameter.recover(snap), parameter.request())
+            parameter.executor.wait(ts, timeout=timeout)
+        else:
+            parameter.recover(snap)
+        return True
+
+    def barrier(self, name: str) -> Dict[int, int]:
+        """Per-channel executor timestamps of the last snapshot: a push
+        with a lower timestamp is in it, a higher one is not (and is
+        replayed after a recover)."""
+        with self._lock:
+            meta = self._meta.get(name)
+            return dict(meta["barrier"]) if meta else {}
+
+    def meta(self, name: str) -> Optional[dict]:
+        with self._lock:
+            m = self._meta.get(name)
+            return dict(m) if m else None
+
+    def drop(self, name: str) -> None:
+        with self._lock:
+            self._replicas.pop(name, None)
+            self._meta.pop(name, None)
+
+    # -- the periodic backup loop --
+
+    def start_periodic(self, parameter, interval_s: float = 30.0) -> None:
+        """Back ``parameter`` up every ``interval_s`` on a thread (the
+        consistent path); one loop a name, :meth:`stop_periodic` stops
+        and joins it. A failed backup logs and retries at the next tick;
+        the previous snapshot stays (the swap is one guarded store)."""
+        name = parameter.name
+        stop = threading.Event()
+
+        def loop() -> None:
+            while not stop.wait(interval_s):
+                try:
+                    self.backup_consistent(parameter)
+                except Exception:
+                    _LOG.exception("periodic replica backup of %r failed; keeping the previous "
+                                   "snapshot and retrying next tick", name)
+
+        t = threading.Thread(target=loop, name=f"replica-backup:{name}", daemon=True)
+        with self._lock:
+            if name in self._periodic:
+                raise RuntimeError(f"periodic backup of {name!r} already running")
+            self._periodic[name] = (t, stop)
+        t.start()
+
+    def stop_periodic(self, name: Optional[str] = None) -> None:
+        """Stop and join one parameter's backup loop, or all of them."""
+        with self._lock:
+            if name is None:
+                entries = list(self._periodic.items())
+                self._periodic.clear()
+            else:
+                e = self._periodic.pop(name, None)
+                entries = [(name, e)] if e else []
+        for _, (t, stop) in entries:
+            stop.set()
+            t.join(timeout=30)

@@ -88,11 +88,6 @@ def test_parse_conf_matches_jax(path):
     text = open(path).read()
     j = jcfg.parse_conf(text)
     js = dataclasses.asdict(j.async_sgd)
-    unported = {k for k, v in tcfg._UNPORTED.items() if js.get(k, v) != v}
-    if unported:  # a wire the port does not have: the parse fails loudly
-        with pytest.raises(NotImplementedError, match="|".join(sorted(unported))):
-            tcfg.parse_conf(text)
-        return
     t = tcfg.parse_conf(text)
     for name in ("training_data", "validation_data", "model_output", "model_input",
                  "loss", "penalty", "learning_rate"):

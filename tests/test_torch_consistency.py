@@ -278,6 +278,33 @@ class TestAdaptiveTau:
         assert tc.episodes[0]["rolled_back"] and tc.tau_trace == jc.tau_trace
         assert all(np.isfinite(x) for x in tw.progress.objective[-3:])
 
+    def test_rollback_fault_point_fires_before_any_state_change(self, mesh):
+        """``consistency.rollback`` fires first in a reaction, as in the
+        JAX controller: a raise there leaves the rate, τ, the state and
+        the episode log as they were, on both packages."""
+        from parameter_server_tpu.system import faults as jfaults
+        from parameter_server_tpu_torch.system import faults
+
+        jw, tw = _pair(mesh, "fault", 3, tau_adaptive=True)
+        try:
+            for mod, w, fmod in ((jsparse, jw, jfaults), (tsparse, tw, faults)):
+                w.train(iter(_batches(mod, 2)))
+                alpha, tau, state = float(w.lr.alpha), w._consistency.controller.tau, _states(w)
+                fmod.arm("consistency.rollback", kind="raise")
+                try:
+                    with pytest.raises(fmod.FaultError, match="consistency.rollback"):
+                        w._consistency.react("drill")
+                finally:
+                    fmod.disarm("consistency.rollback")
+                assert float(w.lr.alpha) == alpha
+                assert w._consistency.controller.tau == tau
+                assert w._consistency.controller.episodes == []
+                _assert_bits(_states(w), state)
+            episode = tw._consistency.react("drill")  # disarmed: the reaction runs
+            assert episode["reason"] == "drill" and float(tw.lr.alpha) == alpha * 0.5
+        finally:
+            jw.executor.stop()
+
     def test_effective_tau_clamped_to_configured_cap(self):
         w = tsgd.AsyncSGDWorker(_conf(tcfg, 3), device="cpu")
         assert w.set_effective_tau(99) == 3

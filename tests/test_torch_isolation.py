@@ -64,7 +64,8 @@ def test_port_imports_nothing_of_jax():
               "serving.loadgen", "serving.batcher", "serving.frontend", "apps.serve.main",
               "models.speculative", "models.moe", "models.pipeline", "parameter.replica",
               "apps.linear.fm", "apps.linear.deep_ctr", "parameter.kv_map",
-              "parameter.kv_layer", "models.convnet", "apps.nn.trainer", "apps.nn.main"):
+              "parameter.kv_layer", "models.convnet", "apps.nn.trainer", "apps.nn.main",
+              "parameter.kv_store", "benchmarks.components"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -259,8 +260,9 @@ def test_serving_plane_limits_raise_naming_their_items():
         with pytest.raises(NotImplementedError, match="A9"):
             Postoffice.instance().start(num_server=2, device="cpu")
         kv = KVVector(k=1, num_slots=64, device="cpu")
-        with pytest.raises(NotImplementedError, match="A13"):
-            kv.migrate(np.arange(64))
+        # live migration (A13's first part) is ported: a seeded move runs
+        assert kv.migrate(np.random.default_rng(0).permutation(64))["attempts"] == 1
+        kv.executor.stop()
     finally:
         Postoffice.reset()
 
@@ -328,23 +330,6 @@ def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
     assert tsparse.ftrl_sparse_update.launches == 0
 
 
-UNPORTED = [
-    ("num_replicas", 1),
-    ("replica_every", 2),
-]
-
-
-@pytest.mark.parametrize("field,value", UNPORTED, ids=[f for f, _ in UNPORTED])
-def test_unported_config_values_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        _conf(**{field: value})
-    # set after construction: the worker validates again
-    c = _conf()
-    setattr(c.async_sgd, field, value)
-    with pytest.raises(NotImplementedError, match=field):
-        tsgd.AsyncSGDWorker(c, device="cpu")
-
-
 # (field, a value the JAX package accepts, the settings it needs there)
 PORTED = [
     ("max_delay", 4, {}),
@@ -359,29 +344,39 @@ PORTED = [
     ("wire_cache_mb", 64, {}),
     ("kkt_filter", True, {"update": "sparse"}),
     ("tau_adaptive", True, {"max_delay": 4}),
+    ("num_replicas", 1, {}),
+    ("replica_every", 2, {"num_replicas": 1}),
 ]
 
 
 @pytest.mark.parametrize("field,value,needs", PORTED, ids=[f for f, _, _ in PORTED])
 def test_ported_config_values_are_accepted(field, value, needs):
     """Bounded delay, the filtered wire, the encoded and ELL wires, the
-    KKT filter and adaptive τ are ported: their settings build a worker
-    that trains a minibatch instead of raising."""
+    KKT filter, adaptive τ and the server replica are ported: their
+    settings build a worker that trains a minibatch instead of raising."""
     from parameter_server_tpu.apps.linear import config as jcfg
     from parameter_server_tpu_torch.utils.sparse import random_sparse
 
     jcfg.SGDConfig(**{field: value}, **needs)  # the JAX package's dataclass takes it
     w = tsgd.AsyncSGDWorker(_conf(**{field: value}, **needs), device="cpu")
     assert getattr(w.sgd, field) == value
-    assert field not in tcfg._UNPORTED
     m = w.process_minibatch(random_sparse(64, 1 << 14, 39, seed=0, binary=True))
     assert float(m["num_ex"]) == 64 and np.isfinite(float(m["objective"]))
 
 
 def test_every_unported_field_is_covered():
-    assert {f for f, _ in UNPORTED} == set(tcfg._UNPORTED) == {"num_replicas", "replica_every"}
-    names = {f.name for f in dataclasses.fields(tcfg.SGDConfig)}
-    assert set(tcfg._UNPORTED) <= names
+    """No SGDConfig field is refused any more: the refusal table is gone,
+    the port's dataclass carries every field of the JAX one with its
+    default, and the last two refused fields are among the PORTED cases."""
+    from parameter_server_tpu.apps.linear import config as jcfg
+
+    assert not hasattr(tcfg, "_UNPORTED")
+    ours = {f.name: f for f in dataclasses.fields(tcfg.SGDConfig)}
+    for f in dataclasses.fields(jcfg.SGDConfig):
+        assert f.name in ours, f.name
+    assert {"num_replicas", "replica_every"} <= {f for f, _, _ in PORTED}
+    assert (tcfg.SGDConfig().num_replicas, tcfg.SGDConfig().replica_every) == (
+        jcfg.SGDConfig().num_replicas, jcfg.SGDConfig().replica_every)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -1037,3 +1037,87 @@ def test_kv_map_push_card_equals_cpu(dev):
         (a, pa), (b, pb) = out[str(dev)], out["cpu"]
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
         assert np.array_equal(pa.view(np.uint32), pb.view(np.uint32))
+
+
+def _migrate_and_recover(device):
+    """A hashed store through a stalled live migration with pushes
+    landing in its window, then a consistent backup, a wipe, a recovery
+    through the executor and the replay past the barrier; and a
+    replicated linear worker wiped and recovered. Returns the store's
+    base-layout table, the migration's record, the push launches, and
+    the worker's state after its recovery."""
+    import threading
+    import time
+
+    from parameter_server_tpu_torch.apps.linear import async_sgd as tsgd
+    from parameter_server_tpu_torch.apps.linear import config as tcfg
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.parameter.replica import ReplicaManager
+    from parameter_server_tpu_torch.system import faults
+    from parameter_server_tpu_torch.utils.sparse import random_sparse
+
+    rng = np.random.default_rng(4)
+    stream = [(rng.integers(0, 1 << 40, 3000),
+               (rng.normal(size=(3000, 2)) * np.exp(rng.normal(size=(3000, 1)) * 3)).astype(
+                   np.float32)) for _ in range(8)]
+    kv = KVVector(k=2, num_slots=1 << 12, hashed=True, name="mig", device=device)
+    before = tseg.segment_sum.launches
+    for keys, vals in stream[:3]:
+        kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+    faults.reset()
+    faults.arm("rebalance.migrate", kind="delay", delay_s=0.5, once=True)
+    mig = {}
+    t = threading.Thread(target=lambda: mig.update(
+        kv.migrate(np.random.default_rng(9).permutation(kv.num_slots))))
+    t.start()
+    time.sleep(0.1)
+    for keys, vals in stream[3:6]:
+        kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+    t.join(timeout=60)
+    faults.reset()
+    rm = ReplicaManager()
+    barrier = rm.backup_consistent(kv)["barrier"][0]
+    ts = kv.push(kv.request(channel=0), keys=stream[6][0], values=stream[6][1])
+    kv.wait(ts)
+    assert ts > barrier
+    kv.wait(kv.submit(lambda: kv.set_table(0, kv._zeros()), kv.request(channel=0)))
+    assert rm.recover(kv, through_executor=True)
+    for keys, vals in stream[6:]:  # the replay past the barrier, then one more
+        kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+    table = kv.get_replica()[0]
+    launches = tseg.segment_sum.launches - before
+    kv.executor.stop()
+
+    c = tcfg.Config()
+    c.penalty = tcfg.PenaltyConfig(type="l1", lambda_=[1.0])
+    c.learning_rate = tcfg.LearningRateConfig(type="decay", alpha=0.1, beta=1.0)
+    c.async_sgd = tcfg.SGDConfig(algo="ftrl", minibatch=256, num_slots=1 << 12, update="sparse",
+                                 num_replicas=1, replica_every=2)
+    w = tsgd.AsyncSGDWorker(c, device=device)
+    for i in range(3):  # the replica refreshes after ministeps 1 and 3
+        w.process_minibatch(random_sparse(256, 1 << 14, 39, seed=i, binary=True))
+    state = {k: v.cpu() for k, v in w.state.items()}
+    w.wipe_server_shard(0)
+    assert not any(bool(torch.any(v)) for v in w.state.values())
+    assert w.recover_server_shard(0)
+    for k, v in w.state.items():
+        assert torch.equal(_bits(v.cpu()), _bits(state[k])), k
+    w.executor.stop()
+    return table, mig, launches, state
+
+
+def test_migration_and_recovery_on_the_card_equal_the_cpu(dev):
+    """Live migration with pushes replayed from its journal, a recovery
+    through the executor with the replay past the backup's barrier, and
+    the CPU's store (each push and replay a ``segment_sum`` launch); the
+    worker restores its own pre-wipe state bit for bit on each device,
+    and the card's is within the worker-parity tolerance of the CPU's
+    (``rtol=1e-5, atol=1e-6``, as chip_smoke's ``agree_with_cpu``)."""
+    card, mig, launches, card_state = _migrate_and_recover(dev)
+    cpu, cpu_mig, _, cpu_state = _migrate_and_recover("cpu")
+    assert mig["journaled"] >= 1 and mig["replayed"] == mig["journaled"]
+    assert launches == 3 + 3 + mig["replayed"] + 1 + 2
+    assert card.tobytes() == cpu.tobytes()
+    for k in cpu_state:
+        assert torch.allclose(card_state[k].float(), cpu_state[k].float(), rtol=1e-5,
+                              atol=1e-6), k

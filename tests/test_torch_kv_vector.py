@@ -20,6 +20,7 @@ from parameter_server_tpu_torch import convert
 from parameter_server_tpu_torch.ops import kv_ops
 from parameter_server_tpu_torch.ops import segment_sum as tseg
 from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+from parameter_server_tpu_torch.parameter.parameter import KeyDirectory
 from parameter_server_tpu_torch.system.postoffice import Postoffice
 
 torch.set_num_threads(1)
@@ -216,19 +217,69 @@ def test_slot_cache_serves_repeated_key_sets(mesh1):
 
 
 def test_one_card_limits_raise_naming_their_items():
+    """More server shards still raise naming A9; live migration and its
+    hooks (A13's first part) are ported and run."""
     tkv = KVVector(k=1, num_slots=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tkv.migrate(np.arange(64))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tkv.note_external_restore()
-    with pytest.raises(NotImplementedError, match="A13"):
-        tkv.channel(0).directory.set_remap(np.arange(64))
     with pytest.raises(NotImplementedError, match="A9"):
         KVVector(k=1, num_slots=64, device="cpu", num_server=2)
     assert tkv.layout() is None
+    tkv.note_external_restore()
+    assert tkv._generation() == 1
+    identity = tkv.migrate(np.arange(64))
+    assert identity["rows_moved"] == 0 and identity["attempts"] == 1
+    np.testing.assert_array_equal(tkv.layout(), np.arange(64))
+    d = KeyDirectory(64, hashed=True)
+    before = d.slots(np.arange(10))
+    d.set_remap(np.arange(64)[::-1].copy())
+    np.testing.assert_array_equal(d.slots(np.arange(10)), 63 - before)
+    tkv.executor.stop()
 
 
 def test_store_follows_the_started_postoffice():
     po = Postoffice.instance().start(device="cpu")
     tkv = KVVector(k=1, num_slots=64)
     assert tkv.device == po.device and po.manager.get_customer(tkv.id) is tkv
+
+
+def test_concurrent_first_use_makes_one_channel():
+    """A channel is made at its first use: a pusher and a puller that
+    reach a fresh store at once share one channel, so the push lands in
+    the table that later reads see (a made-twice channel lost the first
+    push of a stream that a puller raced)."""
+    import threading
+    import time
+
+    tkv = KVVector(k=1, num_slots=256, device="cpu")
+    zeros = tkv._zeros
+
+    def slow_zeros():
+        # both threads find no channel; the puller's table is made last,
+        # so a second channel would replace the pusher's after its push
+        time.sleep(0.1 if threading.current_thread().name == "puller" else 0.02)
+        return zeros()
+
+    tkv._zeros = slow_zeros
+    keys = np.arange(32)
+    gate = threading.Barrier(2)
+
+    def push():
+        gate.wait()
+        tkv.wait(tkv.push(tkv.request(channel=0), keys=keys, values=np.ones((32, 1), np.float32)))
+
+    def pull():
+        gate.wait()
+        tkv.wait_pull(tkv.pull(tkv.request(channel=0), keys=keys))
+
+    threads = [threading.Thread(target=push, name="pusher"),
+               threading.Thread(target=pull, name="puller")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(tkv._channels) == 1
+    ref = KVVector(k=1, num_slots=256, device="cpu")
+    ref.wait(ref.push(ref.request(channel=0), keys=keys, values=np.ones((32, 1), np.float32)))
+    np.testing.assert_array_equal(tkv.values(0, keys), ref.values(0, keys))
+    assert tkv.values(0, keys).min() >= 1.0
+    tkv.executor.stop()
+    ref.executor.stop()
