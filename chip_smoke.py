@@ -262,6 +262,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    undisturbed run), the trainer parked, serving degraded > 0 and failed
    0, one ``segment_sum`` launch a push and a replay of the drilled store
    (counted around it alone); detection, recovery and MTTR wall times;
+8e. the ps.h system layer and the message filters (ROADMAP A13 slices 1-2):
+   (a) ``App.create`` on every conf of ``configs/`` (darlin, async_sgd,
+   validation-only: the port's ``DarlinScheduler``, ``AsyncSGDScheduler``,
+   ``ModelEvaluation``); then phase 5's CTR conf cut to one pass through
+   the linear CLI, on the card and with ``--device cpu``: the progress
+   table ``AsyncSGDScheduler``'s monitor prints, ``ftrl_dense`` /
+   ``quantize`` / ``segment_sum`` launches a ministep phase 5's, the
+   card's model bit-equal to the same pass on the card through the loop
+   without the scheduler, and held to the CPU's as phase 5 holds it
+   (card and CPU round the step's elementwise math apart); (b) a ps.h
+   program through ``ps.run_system`` on the card (H0, S0, W0): the server
+   app's ``KVVector`` of 2^22 x 1, the worker pushing 16 headline batches
+   and after each submitting a control task carrying
+   ``wire_filter_specs(1)`` and waiting: the table bit-equal to the same
+   pushes made directly, one ``segment_sum`` launch a push, each request
+   at S0 once and each response at W0 once, the van's wire bytes the sum
+   of the apps' ``RemoteNode`` counters, the submit + wait round trip's
+   median ms; (c) ``MessageWireCodec`` on a headline batch's unique keys
+   and f32 values, widths 0 (bit-equal) and 1 (within one step), a
+   second send carrying the signature only, encode / decode ms and wire
+   against raw bytes, the decoded values pushed into a ``KVVector`` from
+   the card and from the host, bit-equal; (d) the pipelined headline
+   with the worker reporting to an ``AsyncSGDScheduler``'s monitor and
+   without, two pairs in turns, the medians, and the reports' own host
+   time;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -276,6 +301,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import glob
 import io
 import json
 import math
@@ -1477,6 +1503,42 @@ def criteo_path(tmp: str, seed: int) -> dict:
                     os.path.join(tmp, "criteo_native_S0")))
 
 
+def weights_within_push_bound(card, cpu, pushes_card, pushes_cpu, what: str) -> dict:
+    """The CTR conf's card run against its CPU run, from the pushes each
+    recorded (``recorded_wire``) and the two workers' weights: the first
+    τ pushes (the zero table) bit-equal, later codes at most one apart,
+    each weight within ``S (α + 2|w|) / β`` plus the last-bit tolerance
+    (:func:`ctr_agree_and_pull` derives it)."""
+    tau, levels = cpu.sgd.max_delay, fixing_float.levels_of(1)
+    check(len(pushes_card) == len(pushes_cpu), f"{what}: pushes {len(pushes_card)} / "
+          f"{len(pushes_cpu)}")
+    codes_apart, e_sum = [], 0.0
+    for t, ((qc, loc, hic, nzc), (qh, loh, hih, nzh)) in enumerate(zip(pushes_card, pushes_cpu)):
+        check(torch.equal(nzc, nzh), f"{what} push {t}: the pushed support differs")
+        d = (qc.int() - qh.int()).abs()
+        apart = int(((d != 0) & nzh).sum())
+        codes_apart.append(apart)
+        if t < tau:
+            check(torch.equal(qc, qh) and (loc, hic) == (loh, hih),
+                  f"{what} push {t} on the zero table: {apart} codes apart, range {(loc, hic)} "
+                  f"vs {(loh, hih)}")
+        check(int(d.max()) <= 1, f"{what} push {t}: a code {int(d.max())} apart")
+        step = max(hic - loc, hih - loh) / levels
+        e_sum += step * (apart > 0) + 2 * abs(loc - loh) + abs(hic - hih)
+    alpha, beta = cpu.conf.learning_rate.alpha, cpu.conf.learning_rate.beta
+    wc, wh = card.weights_dense(), cpu.weights_dense()
+    w_abs = np.maximum(np.abs(wc), np.abs(wh))
+    allowed = e_sum * (alpha + 2 * w_abs) / beta * (1 + 1e-4) + TRAJ_TOL["rtol"] * w_abs + TRAJ_TOL["atol"]
+    w_diff = np.abs(wc - wh)
+    check(bool(np.all(w_diff <= allowed)),
+          f"{what} weights card vs CPU: max |diff| {float(w_diff.max())}, worst over its bound "
+          f"{float((w_diff / allowed).max())} (codes apart per ministep {codes_apart})")
+    return dict(codes_apart=codes_apart, decode_bound_sum=e_sum,
+                max_abs_weight_diff=float(w_diff.max()),
+                weight_diff_over_bound=float((w_diff / allowed).max()),
+                weights_bit_equal=bool(np.array_equal(wc, wh)))
+
+
 def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
     """The CTR conf's first 7 ministeps (one pass over a 70000-row shard)
     on the card and on the CPU; both draw the same quantization noise.
@@ -1521,29 +1583,8 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
     rel_gap = max(abs(a - b) / abs(b) for a, b in zip(oc, oh))
     check(rel_gap <= 1e-5, f"CTR first ministeps card {oc} vs CPU {oh}")
     check(oc[-1] < oc[0], f"CTR agree: the card's run did not learn {oc}")
-    worker = runs["cpu"]["worker"]
-    tau, levels = worker.sgd.max_delay, fixing_float.levels_of(1)
-    codes_apart, e_sum = [], 0.0
-    for t, ((qc, loc, hic, nzc), (qh, loh, hih, nzh)) in enumerate(zip(pushes["cuda"], pushes["cpu"])):
-        check(torch.equal(nzc, nzh), f"CTR push {t}: the pushed support differs")
-        d = (qc.int() - qh.int()).abs()
-        apart = int(((d != 0) & nzh).sum())
-        codes_apart.append(apart)
-        if t < tau:
-            check(torch.equal(qc, qh) and (loc, hic) == (loh, hih),
-                  f"CTR push {t} on the zero table: {apart} codes apart, range {(loc, hic)} vs {(loh, hih)}")
-        check(int(d.max()) <= 1, f"CTR push {t}: a code {int(d.max())} apart")
-        step = max(hic - loc, hih - loh) / levels
-        e_sum += step * (apart > 0) + 2 * abs(loc - loh) + abs(hic - hih)
-    alpha, beta = worker.conf.learning_rate.alpha, worker.conf.learning_rate.beta
-    wc = runs["cuda"]["worker"].weights_dense()
-    wh = worker.weights_dense()
-    w_abs = np.maximum(np.abs(wc), np.abs(wh))
-    allowed = e_sum * (alpha + 2 * w_abs) / beta * (1 + 1e-4) + TRAJ_TOL["rtol"] * w_abs + TRAJ_TOL["atol"]
-    w_diff = np.abs(wc - wh)
-    check(bool(np.all(w_diff <= allowed)),
-          f"CTR weights card vs CPU: max |diff| {float(w_diff.max())}, worst over its bound "
-          f"{float((w_diff / allowed).max())} (codes apart per ministep {codes_apart})")
+    held = weights_within_push_bound(runs["cuda"]["worker"], runs["cpu"]["worker"],
+                                     pushes["cuda"], pushes["cpu"], "CTR")
     text = ctr_conf(data, os.path.join(tmp, "pull"), num_data_pass=1).replace(
         "async_sgd {\n", "async_sgd {\n" + PULL_FILTER)
     reset_counts()
@@ -1553,10 +1594,7 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
     check((sparse_n, dense_n, quant_n, seg_n) == (0, n, 2 * n, 2 * n),
           f"pull-filter launch counts {(sparse_n, dense_n, quant_n, seg_n)}, want "
           f"0/{n}/{2 * n}/{2 * n}")
-    return dict(objective_card=oc, objective_cpu=oh, objective_rel_gap=rel_gap,
-                codes_apart=codes_apart, decode_bound_sum=e_sum,
-                max_abs_weight_diff=float(w_diff.max()),
-                weight_diff_over_bound=float((w_diff / allowed).max()),
+    return dict(objective_card=oc, objective_cpu=oh, objective_rel_gap=rel_gap, **held,
                 pull_ministeps=n, pull_quantize_launches=quant_n, pull_dense_launches=dense_n,
                 pull_objective=pull["objective"], pull_step_ms_per_ministep=pull["step_s"] / n * 1e3)
 
@@ -4076,6 +4114,364 @@ def a13_plane(seed: int, smi: str, batches) -> dict:
     return dict(replica=rep, migration=mig, drill=drill, seconds=time.perf_counter() - t0)
 
 
+# -- phase 8e: the ps.h system layer and the message filters (A13 slices 1-2) --
+
+PS_PUSHES = 16  # headline batches pushed by the ps.h program's worker
+CODEC_REPS = 5  # encode / decode timings a width, each on a fresh codec pair
+REPORT_PAIRS = 2  # the pipelined headline with the monitor attached and not, in turns
+PROGRESS_HEAD = " sec  examples    loss      auc   accuracy"
+
+
+def app_families() -> dict:
+    """``App.create`` on every conf under ``configs/``: darlin, async_sgd
+    and validation-only confs give the port's ``DarlinScheduler``,
+    ``AsyncSGDScheduler`` and ``ModelEvaluation``."""
+    from parameter_server_tpu_torch.apps.linear.config import parse_conf
+    from parameter_server_tpu_torch.system.customer import App
+
+    got = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "*", "*.conf"))):
+        with open(path) as f:
+            c = parse_conf(f.read())
+        want = ("DarlinScheduler" if c.darlin is not None else
+                "AsyncSGDScheduler" if c.async_sgd is not None else "ModelEvaluation")
+        app = App.create(c, device="cuda")
+        name = os.path.relpath(path, os.path.join(ROOT, "configs"))
+        check(type(app).__name__ == want and isinstance(app, App),
+              f"App.create({name}) gave {type(app).__name__}, want {want}")
+        app.remove()
+        got[name] = want
+    check(set(got.values()) == {"DarlinScheduler", "AsyncSGDScheduler", "ModelEvaluation"},
+          f"App.create: families {sorted(set(got.values()))}")
+    return got
+
+
+def progress_rows(out: str) -> list:
+    """The scheduler's progress table in a run's output: its rows."""
+    lines = out.splitlines()
+    check(lines.count(PROGRESS_HEAD) == 1, "no progress table printed by the scheduler's monitor")
+    rows = []
+    for line in lines[lines.index(PROGRESS_HEAD) + 1:]:
+        parts = line.split()
+        if len(parts) == 5 and parts[1][0].isdigit():
+            rows.append(parts)
+    return rows
+
+
+def unscheduled_run(conf_text: str, path: str, device: str, seed: int) -> "tuple[bytes, int]":
+    """The CTR conf's async_sgd loop as the CLI ran it before it went
+    through the scheduler: its own pool, no monitor; returns the model
+    file's bytes and the ministeps."""
+    from parameter_server_tpu_torch.apps.linear.config import parse_conf
+    from parameter_server_tpu_torch.learner.workload_pool import Workload, WorkloadPool
+
+    c = parse_conf(conf_text)
+    sgd, td = c.async_sgd, c.training_data
+    random.seed(seed)
+    Postoffice.instance().start(device=device)
+    try:
+        pool = WorkloadPool(Workload(files=list(td.file), replica=sgd.num_data_pass, shuffle=True))
+        worker = AsyncSGDWorker(c, device=device)
+        while (load := pool.assign(worker.name)) is not None:
+            reader = MinibatchReader(files=load.files, minibatch_size=sgd.minibatch,
+                                     data_format=td.text)
+            reader.init_filter(sgd.countmin_n, sgd.countmin_k, sgd.tail_feature_freq)
+            with reader:
+                worker.train(iter(reader))
+            pool.finish(load.id)
+        model = worker.save_model(c.model_output.file[0])[0]
+    finally:
+        Postoffice.instance().stop()
+    with open(model, "rb") as f:
+        return f.read(), len(worker.progress.objective)
+
+
+def scheduler_cli(tmp: str, seed: int) -> dict:
+    """(a) the CTR conf cut to one pass through the linear CLI, on the
+    card and with ``--device cpu``: the scheduler's progress table, the
+    launches a ministep phase 5's, the card's model bit-equal to the loop
+    without the scheduler on the card, and held to the CPU's as phase 5
+    holds it (``weights_within_push_bound``)."""
+    write_ctr_shards(os.path.join(tmp, "train"), CTR_SHARDS, CTR_ROWS, seed)
+    data = os.path.join(tmp, "train", "part.*")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        text = ctr_conf(data, os.path.join(tmp, f"sched_{dev}"), num_data_pass=1)
+        reset_counts()
+        buf = io.StringIO()
+        with recorded_wire() as pushes, contextlib.redirect_stdout(buf):
+            rec = run_cli(text, os.path.join(tmp, f"sched_{dev}.conf"), dev, seed)
+        runs[dev] = dict(rec=rec, out=buf.getvalue(), pushes=pushes, launches=counts())
+        with open(os.path.join(tmp, f"sched_{dev}_S0"), "rb") as f:
+            runs[dev]["model"] = f.read()
+    card = runs["cuda"]
+    n = card["rec"]["ministeps"]
+    check(card["launches"] == (0, n, n, 2 * n),
+          f"8e(a) launch counts {card['launches']}, want 0/{n}/{n}/{2 * n} (phase 5's a ministep)")
+    examples = sum(card["rec"]["examples"])
+    for dev, run in runs.items():
+        # each row is the window since the last print (the printer's clock
+        # cuts them): their losses weighted by the window's examples are
+        # the run's loss an example, to the printed rounding
+        rows = progress_rows(run["out"])
+        check(rows and rows[-1][1] == f"{examples:.2e}",
+              f"8e(a) {dev}: the progress table's last row {rows[-1:]} for {examples} examples")
+        seen = [0.0] + [float(r[1]) for r in rows]
+        table_loss = sum(float(r[2]) * (b - a) for r, a, b in zip(rows, seen, seen[1:])) / examples
+        p = run["rec"]["worker"].progress
+        run["loss"] = sum(p.objective) / p.num_examples_processed
+        check(abs(table_loss - run["loss"]) <= 5e-6 * (1 + 1e-6),
+              f"8e(a) {dev}: the table's loss {table_loss} vs the worker's {run['loss']} ({rows})")
+        run["rows"] = rows
+    check(abs(runs["cuda"]["loss"] - runs["cpu"]["loss"]) <= 1e-5 * runs["cpu"]["loss"],
+          f"8e(a) loss an example card {card['loss']} vs CPU {runs['cpu']['loss']}")
+    held = weights_within_push_bound(card["rec"]["worker"], runs["cpu"]["rec"]["worker"],
+                                     card["pushes"], runs["cpu"]["pushes"], "8e(a)")
+    loop_model, loop_steps = unscheduled_run(
+        ctr_conf(data, os.path.join(tmp, "loop_cuda"), num_data_pass=1),
+        os.path.join(tmp, "loop.conf"), "cuda", seed)
+    check(loop_model == card["model"] and loop_steps == n,
+          "8e(a): the card's model through the scheduler differs from the loop without it")
+    return dict(ministeps=n, examples=examples, launches=dict(
+        ftrl_dense=card["launches"][1], quantize=card["launches"][2],
+        segment_sum=card["launches"][3]), rows_card=runs["cuda"]["rows"],
+        rows_cpu=runs["cpu"]["rows"], loss=dict(card=card["loss"], cpu=runs["cpu"]["loss"]),
+        model_bytes=len(card["model"]),
+        model_bits_equal_cpu=card["model"] == runs["cpu"]["model"], **held,
+        wall_s=dict(card=card["rec"]["wall_s"], cpu=runs["cpu"]["rec"]["wall_s"]))
+
+
+def ps_program(seed: int, batches) -> dict:
+    """(b) a ps.h program through ``ps.run_system`` on the card (H0, S0,
+    W0): the server app owns a ``KVVector`` of SLOTS x 1; the worker's
+    ``run()`` pushes PS_PUSHES headline batches (their keys, seeded
+    gradients) and after each submits a control task carrying
+    ``wire_filter_specs(1)`` to the server group and waits."""
+    from parameter_server_tpu_torch import ps
+    from parameter_server_tpu_torch.learner.wire import wire_filter_specs
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+    from parameter_server_tpu_torch.system.message import Task
+
+    rng = np.random.default_rng(seed + 8500)
+    stream = [(b.indices, rng.normal(size=(b.nnz, 1)).astype(np.float32))
+              for b in batches[:PS_PUSHES]]
+    ref = KVVector(k=1, num_slots=SLOTS, hashed=True, name="ps_ref", device="cuda")
+    for keys, vals in stream:
+        ref.wait(ref.push(ref.request(channel=0), keys=keys, values=vals))
+    want = ref.get_replica()[0]
+    ref.executor.stop()
+    del ref
+    shared, reqs, ress, rtt = {}, [], [], []
+
+    class Server(ps.App):
+        def __init__(self):
+            super().__init__()
+            shared["kv"] = KVVector(k=1, num_slots=SLOTS, hashed=True, name="ps_server_kv",
+                                    device="cuda")
+
+        def process_request(self, req):
+            reqs.append((ps.my_node_id(), req.sender, req.task.time))
+
+    class Worker(ps.App):
+        def process_response(self, res):
+            ress.append((ps.my_node_id(), res.sender, res.task.time))
+
+        def run(self):
+            kv = shared["kv"]
+            for keys, vals in stream:
+                kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
+                t0 = time.perf_counter()
+                self.wait(ps.submit(self, Task(filters=wire_filter_specs(1)),
+                                    ps.NodeGroups.SERVER_GROUP))
+                rtt.append((time.perf_counter() - t0) * 1e3)
+            shared["table"] = kv.get_replica()[0]
+            kv.executor.stop()
+
+    def create_app():
+        if ps.is_server():
+            return Server()
+        return Worker() if ps.is_worker() else ps.App()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    apps = ps.run_system(create_app, device="cuda")
+    wall = time.perf_counter() - t0
+    seg_n = counts()[3]
+    check([a.node.id for a in apps] == ["H0", "S0", "W0"], f"8e(b) nodes {[a.node.id for a in apps]}")
+    check(shared["table"].tobytes() == want.tobytes(),
+          "8e(b): the table differs from the same pushes made with no run_system")
+    check(seg_n == PS_PUSHES, f"8e(b): segment_sum launches {seg_n}, want {PS_PUSHES}")
+    check(len(reqs) == PS_PUSHES and all(r[:2] == ("S0", "W0") for r in reqs)
+          and len({r[2] for r in reqs}) == PS_PUSHES, f"8e(b): requests at S0 {reqs}")
+    check(len(ress) == PS_PUSHES and all(r[:2] == ("W0", "S0") for r in ress)
+          and sorted(r[2] for r in ress) == sorted(r[2] for r in reqs), f"8e(b): responses {ress}")
+    van = apps[0].po.van
+    rn_sent = sum(rn.wire_sent_bytes for a in apps for rn in a.remote_nodes.nodes())
+    rn_recv = sum(rn.wire_recv_bytes for a in apps for rn in a.remote_nodes.nodes())
+    check(van.wire_sent_bytes == rn_sent > 0 and van.wire_recv_bytes == rn_recv > 0,
+          f"8e(b): van bytes {van.wire_sent_bytes}/{van.wire_recv_bytes}, remote nodes "
+          f"{rn_sent}/{rn_recv}")
+    return dict(pushes=PS_PUSHES, keys_per_push=len(stream[0][0]), segment_launches=seg_n,
+                requests=len(reqs), responses=len(ress), wire_sent_bytes=van.wire_sent_bytes,
+                wire_recv_bytes=van.wire_recv_bytes, rtt_ms=rtt,
+                rtt_ms_median=float(np.median(rtt)), wall_s=wall)
+
+
+def codec_path(seed: int, batches) -> dict:
+    """(c) ``MessageWireCodec`` on one headline batch's unique keys
+    (uint64) and seeded f32 gradients, widths 0 and 1: a sender and a
+    receiver codec, a second send of the same keys (the signature only),
+    encode and decode ms (host clock, median of CODEC_REPS fresh pairs),
+    wire bytes (the encoded message's frame) against the raw arrays'.
+    The 1-byte decode pushed into a ``KVVector`` from the card and from
+    the host: the two tables bit-equal."""
+    from parameter_server_tpu_torch.learner.wire import MessageWireCodec
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+
+    keys = np.unique(batches[0].indices).astype(np.uint64)
+    vals = np.random.default_rng(seed + 8600).normal(size=keys.size).astype(np.float32)
+    raw = keys.nbytes + vals.nbytes
+    out = {}
+    for nb in (0, 1):
+        enc_ms, dec_ms = [], []
+        for _ in range(CODEC_REPS):
+            sender, receiver = MessageWireCodec(nb), MessageWireCodec(nb)
+            t0 = time.perf_counter()
+            msg = sender.encode(keys.copy(), [vals.copy()])
+            t1 = time.perf_counter()
+            wire_bytes = len(msg.to_bytes())
+            t2 = time.perf_counter()
+            k, (got,) = receiver.decode(msg)
+            t3 = time.perf_counter()
+            enc_ms.append((t1 - t0) * 1e3)
+            dec_ms.append((t3 - t2) * 1e3)
+        check(k.dtype == np.uint64 and np.array_equal(k, keys), f"8e(c) width {nb}: keys differ")
+        if nb == 0:
+            check(got.tobytes() == vals.tobytes(), "8e(c) width 0: values not bit-equal")
+            err = 0.0
+        else:
+            step = (float(vals.max()) - float(vals.min())) / 255
+            err = float(np.abs(got.astype(np.float64) - vals).max())
+            check(err <= step + 1e-6, f"8e(c) width 1: error {err} beyond one step {step}")
+        again = sender.encode(keys.copy(), [vals.copy()])
+        repeat_bytes = len(again.to_bytes())
+        check(again.key is None, f"8e(c) width {nb}: the second send carried its keys")
+        k2, _ = receiver.decode(again)
+        check(np.array_equal(k2, keys), f"8e(c) width {nb}: the second send decoded other keys")
+        out[nb] = dict(encode_ms=float(np.median(enc_ms)), decode_ms=float(np.median(dec_ms)),
+                       wire_bytes=wire_bytes, repeat_wire_bytes=repeat_bytes, raw_bytes=raw,
+                       ratio=wire_bytes / raw, max_abs_err=err)
+    tables = []
+    reset_counts()
+    for source in ("card", "host"):
+        kv = KVVector(k=1, num_slots=SLOTS, hashed=True, name=f"codec_{source}", device="cuda")
+        v = torch.from_numpy(got).to("cuda") if source == "card" else got
+        kv.wait(kv.push(kv.request(channel=0), keys=k, values=v))
+        tables.append(kv.get_replica()[0])
+        kv.executor.stop()
+    check(tables[0].tobytes() == tables[1].tobytes(), "8e(c): the decoded push from the card "
+          "differs from the host's")
+    out["segment_launches"] = counts()[3]
+    check(out["segment_launches"] == 2, f"8e(c): segment_sum launches {out['segment_launches']}")
+    out["unique_keys"] = int(keys.size)
+    return out
+
+
+def report_cost(batches) -> dict:
+    """(d) the pipelined headline with the worker reporting each collect
+    to an ``AsyncSGDScheduler``'s monitor and without, REPORT_PAIRS pairs
+    in turns: a warm-up launch, then PIPE_LAUNCHES timed launches; and the
+    reports' own host time (their printing included), summed over the
+    attached runs' timed launches."""
+    rates = dict(attached=[], detached=[])
+    report_s, reports = [0.0], [0]
+    for pair in range(REPORT_PAIRS):
+        for state in (("attached", "detached") if pair % 2 == 0 else ("detached", "attached")):
+            worker = AsyncSGDWorker(conf("sparse"), device="cuda")
+            sched = None
+            if state == "attached":
+                sched = async_sgd.AsyncSGDScheduler(conf("sparse"))
+                sched.run()
+                worker.attach_monitor(sched)
+            with contextlib.redirect_stdout(io.StringIO()):
+                worker.train(batches[:T], pipelined=True)
+                torch.cuda.synchronize()
+                if sched is not None:
+                    report = worker.reporter.report
+
+                    def timed_report(progress, report=report):
+                        t = time.perf_counter()
+                        report(progress)
+                        report_s[0] += time.perf_counter() - t
+                        reports[0] += 1
+
+                    worker.reporter.report = timed_report
+                t0 = time.perf_counter()
+                worker.train(batches[T:T * (PIPE_LAUNCHES + 1)], pipelined=True)
+                torch.cuda.synchronize()
+                rates[state].append(PIPE_LAUNCHES * T * MB / (time.perf_counter() - t0))
+                if sched is not None:
+                    sched.monitor.maybe_print(force=True)
+            if sched is not None:
+                check(sched.num_ex_processed == (PIPE_LAUNCHES + 1) * T * MB,
+                      f"8e(d): the monitor merged {sched.num_ex_processed} examples")
+                sched.remove()
+            worker.executor.stop()
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    check(reports[0] > 0, "8e(d): no report timed")
+    return dict(examples_per_s=rates, median=med, cost=1.0 - med["attached"] / med["detached"],
+                reports=reports[0], report_ms_total=report_s[0] * 1e3,
+                report_ms_each=report_s[0] * 1e3 / reports[0])
+
+
+def system_plane(seed: int, smi: str, batches) -> dict:
+    """Phase 8e, (a)-(d), printed as they finish."""
+    t0 = time.perf_counter()
+    fams = app_families()
+    with tempfile.TemporaryDirectory(prefix="sched_cli_") as tmp:
+        cli = scheduler_cli(tmp, seed + 31)
+    print(f"# A13 (a) App.create on the {len(fams)} confs of configs/: "
+          f"{sorted(set(fams.values()))}; the CTR conf, one pass, via the CLI through "
+          f"AsyncSGDScheduler ({smi}): progress rows card {cli['rows_card']} / CPU "
+          f"{cli['rows_cpu']} (each row a window of the printer's clock; loss an example card "
+          f"{cli['loss']['card']:.6f} / CPU {cli['loss']['cpu']:.6f}); launches "
+          f"{cli['launches']} for {cli['ministeps']} ministeps "
+          f"(phase 5's a ministep); model bit-equal to the loop without the scheduler on the card; "
+          f"card vs CPU weights max |diff| {cli['max_abs_weight_diff']:.3g} "
+          f"({cli['weight_diff_over_bound']:.3g} of its bound; codes apart "
+          f"{cli['codes_apart']}; model bits equal {cli['model_bits_equal_cpu']}); wall "
+          f"{cli['wall_s']}", flush=True)
+    prog = ps_program(seed, batches)
+    print(f"# A13 (b) ps.run_system on the card (H0, S0, W0) ({smi}): {prog['pushes']} pushes of "
+          f"{prog['keys_per_push']} keys into a 2^{SLOTS.bit_length() - 1} x 1 KVVector, each "
+          f"followed by a submit + wait carrying wire_filter_specs(1): the table bit-equal to "
+          f"the direct pushes; segment_sum launches {prog['segment_launches']}; requests at S0 "
+          f"{prog['requests']}, responses at W0 {prog['responses']}; van bytes sent / received "
+          f"{prog['wire_sent_bytes']} / {prog['wire_recv_bytes']} = the remote nodes' sums; "
+          f"submit + wait round trip median {prog['rtt_ms_median']:.3f} ms (host clock; each "
+          f"{['%.3f' % x for x in prog['rtt_ms']]}); {prog['wall_s']:.2f} s", flush=True)
+    cod = codec_path(seed, batches)
+    print(f"# A13 (c) MessageWireCodec on a headline batch's {cod['unique_keys']} unique keys "
+          f"(uint64) and f32 values ({smi}): width 0 encode {cod[0]['encode_ms']:.2f} ms, decode "
+          f"{cod[0]['decode_ms']:.2f} ms, wire {cod[0]['wire_bytes']} B of {cod[0]['raw_bytes']} "
+          f"raw ({cod[0]['ratio']:.3f}), bit-equal; width 1 encode {cod[1]['encode_ms']:.2f} ms, "
+          f"decode {cod[1]['decode_ms']:.2f} ms, wire {cod[1]['wire_bytes']} B "
+          f"({cod[1]['ratio']:.3f}), max |err| {cod[1]['max_abs_err']:.4g} within one step; a "
+          f"second send {cod[0]['repeat_wire_bytes']} / {cod[1]['repeat_wire_bytes']} B "
+          f"(the signature only); the decoded push from the card bit-equal to the host's "
+          f"(host clock, median of {CODEC_REPS})", flush=True)
+    rep = report_cost(batches)
+    print(f"# A13 (d) pipelined headline, the worker reporting to AsyncSGDScheduler's monitor "
+          f"and not, {REPORT_PAIRS} pairs in turns ({smi}): ex/s attached "
+          f"{['%.0f' % x for x in rep['examples_per_s']['attached']]}, detached "
+          f"{['%.0f' % x for x in rep['examples_per_s']['detached']]}; medians "
+          f"{rep['median']['attached']:.0f} / {rep['median']['detached']:.0f} (cost "
+          f"{100 * rep['cost']:.2f}%); the reports themselves {rep['report_ms_total']:.3f} ms over "
+          f"{rep['reports']} collects ({rep['report_ms_each']:.4f} ms each, host clock)", flush=True)
+    return dict(app_create=fams, cli=cli, ps_program=prog, codec=cod, report=rep,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4500,6 +4896,8 @@ def main() -> int:
     a10 = a10_plane(args.seed, smi)
     a13 = a13_plane(args.seed, smi, batches)
     rep13, mig13, drill13 = a13["replica"], a13["migration"], a13["drill"]
+    sysp = system_plane(args.seed, smi, batches)
+    cli8e = sysp["cli"]["launches"]
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -4548,7 +4946,8 @@ def main() -> int:
              launches=ctr["dense_launches"],
              bits_launches=bw["dense_launches"], stream_launches=stream["dense_launches"],
              tau_adaptive_launches=tau["dense_launches"],
-             a13_launches=dict(dense_replicated=rep13["dense_launches"]["dense"]),
+             a13_launches=dict(dense_replicated=rep13["dense_launches"]["dense"],
+                               scheduler_cli=cli8e["ftrl_dense"]),
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
@@ -4557,6 +4956,7 @@ def main() -> int:
              source="parameter_server_tpu_torch/kernels/csrc/quantize.cu",
              replaces="parameter_server_tpu/ops/quantize.py:68",
              launches=ctr["quantize_launches"],
+             a13_launches=dict(scheduler_cli=cli8e["quantize"]),
              max_abs_err=max(r["max_abs_err"] for r in quant_rows),
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
@@ -4580,7 +4980,10 @@ def main() -> int:
                                dense_replicated=rep13["dense_launches"]["segment_sum"],
                                migration=mig13["segment_launches"],
                                headline_recovery=mig13["recovery"]["segment_launches"],
-                               drill=drill13["segment_launches"]),
+                               drill=drill13["segment_launches"],
+                               scheduler_cli=cli8e["segment_sum"],
+                               ps_program=sysp["ps_program"]["segment_launches"],
+                               codec_push=sysp["codec"]["segment_launches"]),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -4642,7 +5045,8 @@ def main() -> int:
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
-                  telemetry=tel, a10=a10, a13=a13, wall_s=time.perf_counter() - t_start)
+                  telemetry=tel, a10=a10, a13=a13, system=sysp,
+                  wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

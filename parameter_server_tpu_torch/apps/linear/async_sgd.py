@@ -60,6 +60,12 @@ replacement that starts empty) and
 replica, at most ``replica_every`` ministeps stale; both run through the
 executor, in order with the steps. More server shards, and more cards,
 are ROADMAP A9.
+
+:class:`AsyncSGDScheduler` is the JAX package's scheduler: the workload
+pool and the monitor that prints the progress table. Attached to it
+(:meth:`AsyncSGDWorker.attach_monitor`), the worker reports each
+collect's progress, on the collecting thread, once the step's metrics
+are on the host; the step itself does not change.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ from ...convert import state_from_jax, state_to_numpy
 from ...learner import wire
 from ...learner.consistency import ConsistencyRuntime
 from ...learner.ingest import IngestPipeline
-from ...learner.sgd import SGDProgress
+from ...learner.sgd import ISGDScheduler, SGDProgress
 from ...ops import quantize as qops
 from ...ops import wire_codec as wc
 from ...ops.ftrl_sparse import resolve_update_path
@@ -89,6 +95,7 @@ from ...ops.significance import SignificanceSpec, kkt_mask
 from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots, server_shard_rows
 from ...system.executor import Executor
+from ...system.monitor import MonitorSlaver
 from ...telemetry import device as device_tel
 from ...telemetry import registry as telemetry_registry
 from ...telemetry import spans as telemetry_spans
@@ -1329,6 +1336,8 @@ class AsyncSGDWorker:
         self._replica_state: Optional[Dict[str, torch.Tensor]] = None
         self._steps_since_replica = 0
         self.progress = SGDProgress()
+        # reports each collect to a scheduler's monitor once attached
+        self.reporter: MonitorSlaver[SGDProgress] = MonitorSlaver(None, name)
         # at most τ + 1 steps in flight (τ = 0 still lets the next step
         # be submitted while one runs)
         self.executor = Executor(name, max_in_flight=max(0, sgd.max_delay) + 1)
@@ -1767,7 +1776,14 @@ class AsyncSGDWorker:
                 for t in range(xw.shape[0])
             ]
         self.progress.merge(prog)
+        self.reporter.report(prog)
         return prog
+
+    def attach_monitor(self, scheduler: ISGDScheduler) -> None:
+        """Report each collect's progress to ``scheduler``'s monitor, as
+        the JAX worker's ``ISGDCompNode.collect`` does: host work on the
+        collecting thread, after the step's metrics are on the host."""
+        self.reporter = MonitorSlaver(scheduler.monitor, self.name)
 
     def _prep_group(self, group) -> List[Tuple[object, int]]:
         """Host side of one launch group, ``[(batch, pads)]`` (safe on a
@@ -2016,3 +2032,19 @@ class AsyncSGDWorker:
         self._steps_since_snapshot = 0
         self._replica_state = None  # the replica of the old state goes
         self._seed_counter = int(snap["seed_counter"])
+
+
+class AsyncSGDScheduler(ISGDScheduler):
+    """Workload dispatch and the progress table (ref AsyncSGDScheduler):
+    each ``training_data`` file pattern is one workload a pass, for
+    ``num_data_pass`` passes, each pass's patterns shuffled by Python's
+    ``random`` (the JAX scheduler's pool)."""
+
+    def __init__(self, conf: Config, name: str = "async_sgd_scheduler"):
+        from ...learner.workload_pool import Workload, WorkloadPool
+
+        sgd = conf.async_sgd or SGDConfig()
+        load = Workload(files=list(conf.training_data.file), replica=sgd.num_data_pass,
+                        shuffle=True)
+        super().__init__(workload_pool=WorkloadPool(load), name=name)
+        self.conf = conf

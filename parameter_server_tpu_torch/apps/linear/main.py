@@ -10,12 +10,15 @@ Counterpart of ``parameter_server_tpu/apps/linear/main.py`` for the
   divided into feature blocks and trained by block coordinate descent
   (``DarlinScheduler``), printing a progress line a pass; the model goes
   to ``{model_output}_S0`` and the last progress line is printed again.
-- ``async_sgd``: each ``training_data`` file pattern is one workload a
-  pass, for ``num_data_pass`` passes; a workload is read, parsed and
-  passed through a fresh count-min tail filter on the reader's feeder
-  thread, and trained on (``AsyncSGDWorker.train``). Then the model is
-  written to ``model_output`` and scored on ``validation_data`` when the
-  conf has them.
+- ``async_sgd``: driven as the JAX CLI drives it, through an
+  ``AsyncSGDScheduler`` (each ``training_data`` file pattern one workload
+  a pass, for ``num_data_pass`` passes) whose monitor the worker reports
+  each collected step to; ``sched.run()`` sets the progress printer (a
+  line a second at most, and one forced at the end). A workload is read,
+  parsed and passed through a fresh count-min tail filter on the
+  reader's feeder thread, and trained on (``AsyncSGDWorker.train``).
+  Then the model is written to ``model_output`` and scored on
+  ``validation_data`` when the conf has them.
 - ``validation_data`` and no ``async_sgd``: the model in ``model_input``
   is scored on the validation data (``ModelEvaluation``).
 
@@ -34,16 +37,12 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
-
-import numpy as np
 
 from ...data.stream_reader import StreamReader
 from ...learner.sgd import MinibatchReader
-from ...learner.workload_pool import Workload, WorkloadPool
 from ...system.postoffice import Postoffice
 from ...utils.profiling import device_trace
-from .async_sgd import AsyncSGDWorker
+from .async_sgd import AsyncSGDScheduler, AsyncSGDWorker
 from .config import parse_conf
 from .darlin import DarlinScheduler
 from .model_evaluation import ModelEvaluation
@@ -97,15 +96,6 @@ def main(argv=None, device=None) -> int:
     return 0
 
 
-def _print_progress(worker: AsyncSGDWorker, elapsed: float) -> None:
-    """One merged progress line (the JAX scheduler's table, at the end)."""
-    p = worker.progress
-    per_ex = sum(p.objective) / max(1, p.num_examples_processed)
-    print(" sec  examples    loss      auc   accuracy")
-    print(f"{elapsed:4.0f}  {p.num_examples_processed:.2e}  {per_ex:.5f}  "
-          f"{np.mean(p.auc or [0]):.4f}  {np.mean(p.accuracy or [0]):.4f}", flush=True)
-
-
 def _run_darlin(conf, device, aux) -> int:
     sched = DarlinScheduler(conf, device=device)
     td = conf.training_data
@@ -130,15 +120,16 @@ def _run_app(conf, device, aux, verbose: bool = False) -> int:
             return 0
         print("config selects no app", file=sys.stderr)
         return 2
-    t0 = time.perf_counter()
-    sgd = conf.async_sgd
-    td = conf.training_data
-    pool = WorkloadPool(Workload(files=list(td.file), replica=sgd.num_data_pass, shuffle=True))
+    sched = AsyncSGDScheduler(conf)
+    sched.run()
     worker = AsyncSGDWorker(conf, device=device)
+    worker.attach_monitor(sched)
     aux.register(worker.name)
     # a dead worker's file workloads go back to the pool
-    aux.coordinator.on_worker_dead(pool.restore)
-    while (load := pool.assign(worker.name)) is not None:
+    aux.coordinator.on_worker_dead(sched.workload_pool.restore)
+    sgd = conf.async_sgd
+    td = conf.training_data
+    while (load := sched.workload_pool.assign(worker.name)) is not None:
         reader = MinibatchReader(
             files=load.files, minibatch_size=sgd.minibatch, data_format=_data_format(td)
         )
@@ -146,10 +137,10 @@ def _run_app(conf, device, aux, verbose: bool = False) -> int:
             reader.init_filter(sgd.countmin_n, sgd.countmin_k, sgd.tail_feature_freq)
         with reader:
             worker.train(iter(reader))
-        pool.finish(load.id)
+        sched.workload_pool.finish(load.id)
         if verbose:
             print(f"workload {load.id} done: {load.files[0]}", flush=True)
-    _print_progress(worker, time.perf_counter() - t0)
+    sched.monitor.maybe_print(force=True)
     if conf.model_output is not None and conf.model_output.file:
         files = worker.save_model(conf.model_output.file[0])
         print(f"model written to {', '.join(files)}")

@@ -1,7 +1,9 @@
 """Score a saved linear model on validation data, on the device.
 
 Counterpart of ``parameter_server_tpu/apps/linear/model_evaluation.py``
-(the reference's ``model_evaluation``): load a text model
+(the reference's ``model_evaluation``), an :class:`~...system.customer.App`
+as there (``App.create`` returns it for a conf with validation data and
+no training section): load a text model
 (``key\\tweight`` lines, possibly several shard files), stream the
 validation data and print its AUC, accuracy and log loss.
 
@@ -39,6 +41,7 @@ import torch
 from ...data.stream_reader import StreamReader
 from ...device import resolve
 from ...ops.segment_sum import segment_sum
+from ...system.customer import App
 from ...utils import evaluation
 from ...utils import file as psfile
 from ...utils.murmur import hash_slots
@@ -49,8 +52,9 @@ MINIBATCH = 1 << 14
 _U64 = 1 << 64
 
 
-class ModelEvaluation:
-    def __init__(self, conf: Config, device=None):
+class ModelEvaluation(App):
+    def __init__(self, conf: Config, device=None, name: str = "model_evaluation"):
+        super().__init__(name=name)
         self.conf = conf
         self.device = resolve(device)
         self.hashed_slots = 0

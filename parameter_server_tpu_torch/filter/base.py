@@ -1,11 +1,11 @@
 """Filter framework: per-message encode/decode plugins.
 
 Copy of ``parameter_server_tpu/filter/base.py`` (the reference's
-``src/filter/filter.{h,cc}``). The port registers no message-level
-filter yet: a chain with filter specs raises ``ValueError`` naming the
-type; an empty chain (the metric reports of the aux runtime) passes a
-message through. The device wire's fixed-point quantization is
-``filter/fixing_float.py``.
+``src/filter/filter.{h,cc}``). Importing this module registers the five
+built-in filters (``key_caching``, ``fixing_float``, ``compressing``,
+``sparse``, ``add_noise``); a spec naming any other type raises
+``ValueError``. An empty chain (the aux runtime's metric reports)
+passes a message through.
 
 The reference applies an ordered filter chain to every message in
 Van::Send (encode) and Van::Recv (decode, reverse order): compression,
@@ -80,3 +80,10 @@ def encode_chain(msg: Message, specs: Optional[Sequence[FilterSpec]] = None) -> 
 
 def decode_chain(msg: Message, specs: Optional[Sequence[FilterSpec]] = None) -> Message:
     return _default_chain.decode(msg, specs)
+
+
+def _register_builtin() -> None:
+    from . import add_noise, compressing, fixing_float, key_caching, sparse  # noqa: F401
+
+
+_register_builtin()

@@ -1,7 +1,15 @@
-"""Randomized fixed-point quantization of the device wire.
+"""Randomized fixed-point quantization (the reference's
+``src/filter/fixing_float.h``), on the host and on the device wire.
 
-Counterpart of ``quantize_jax`` and ``dequantize_jax`` in
-``parameter_server_tpu/filter/fixing_float.py``: a 1-D float32 array is
+On the host, :func:`quantize`, :func:`dequantize` and the message filter
+:class:`FixingFloatFilter` are copies of the JAX package's numpy forms:
+``[lo, hi]`` from the array, ``floor(scaled + U[0, 1))`` in float64 with
+the noise from a numpy ``Generator`` (the filter's own ``default_rng(0)``),
+so the codes and ranges are the JAX package's bit for bit.
+
+On the device, the counterparts of ``quantize_jax`` and
+``dequantize_jax`` in ``parameter_server_tpu/filter/fixing_float.py``
+carry the 1-byte push of the linear step: a 1-D float32 array is
 normalized by its own ``[lo, hi]``, stochastically rounded to
 ``2^(8b) - 1`` levels and stored in ``b`` bytes (uint8 or uint16).
 :func:`quantize_range` and :func:`quantize_codes` are the plain PyTorch
@@ -18,18 +26,20 @@ package is statistical.
 
 Where ``hi == lo`` (a constant nonzero array: ``lo + 1e-12`` rounds back
 to ``lo``), ``(x - lo) / (hi - lo)`` is 0/0; the code is then 0, which
-dequantizes to ``lo`` exactly. The message-level ``FixingFloatFilter``
-(the Van layer) is not ported.
+dequantizes to ``lo`` exactly.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..device import scalar_like
 from ..ops.ftrl import dither_hash_u32
+from ..system.message import FilterSpec, Message
+from .base import Filter, register
 
 _NOISE_SCALE = 1.0 / (1 << 24)
 
@@ -83,3 +93,63 @@ def dequantize_torch(q: torch.Tensor, lo, hi, num_bytes: int) -> torch.Tensor:
     with a Python number PyTorch would multiply by its reciprocal."""
     levels = scalar_like(levels_of(num_bytes), lo)
     return q.to(torch.float32) / levels * (hi - lo) + lo
+
+
+# -- the host form: numpy, the JAX package's bits --
+
+
+def quantize(arr: np.ndarray, num_bytes: int,
+             rng: np.random.Generator) -> Tuple[np.ndarray, float, float]:
+    """Codes (uint8 or uint16), lo and hi of ``arr`` (``hi = lo + 1``
+    where the array is constant), stochastically rounded with ``rng``."""
+    assert num_bytes in (1, 2), "fixed-point width must be 1 or 2 bytes"
+    lo, hi = float(arr.min()), float(arr.max())
+    if hi <= lo:
+        hi = lo + 1.0
+    levels = float((1 << (8 * num_bytes)) - 1)
+    scaled = (arr.astype(np.float64) - lo) / (hi - lo) * levels
+    q = np.floor(scaled + rng.random(arr.shape))  # stochastic rounding (ref boolrand)
+    dt = np.uint8 if num_bytes == 1 else np.uint16
+    return np.clip(q, 0, levels).astype(dt), lo, hi
+
+
+def dequantize(q: np.ndarray, lo: float, hi: float, num_bytes: int) -> np.ndarray:
+    levels = float((1 << (8 * num_bytes)) - 1)
+    return (q.astype(np.float64) / levels * (hi - lo) + lo).astype(np.float32)
+
+
+@register
+class FixingFloatFilter(Filter):
+    """Each nonempty float value array as ``num_bytes`` codes; its range
+    rides in the spec (``extra["ranges"]``). Other arrays pass through."""
+
+    TYPE = "fixing_float"
+
+    def __init__(self) -> None:
+        self._rng = np.random.default_rng(0)
+
+    def encode(self, msg: Message, spec: FilterSpec) -> Message:
+        if spec.num_bytes == 0:
+            return msg
+        ranges = []
+        out = []
+        for v in msg.values:
+            if v.dtype.kind != "f" or v.size == 0:
+                out.append(v)
+                ranges.append(None)
+                continue
+            q, lo, hi = quantize(v, spec.num_bytes, self._rng)
+            out.append(q)
+            ranges.append((lo, hi))
+        msg.values = out
+        spec.extra["ranges"] = ranges
+        return msg
+
+    def decode(self, msg: Message, spec: FilterSpec) -> Message:
+        if spec.num_bytes == 0 or "ranges" not in spec.extra:
+            return msg
+        out = []
+        for v, r in zip(msg.values, spec.extra["ranges"]):
+            out.append(v if r is None else dequantize(v, r[0], r[1], spec.num_bytes))
+        msg.values = out
+        return msg

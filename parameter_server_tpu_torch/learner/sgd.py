@@ -1,10 +1,14 @@
-"""SGD learner pieces: the progress record, the computation-node base,
-the tail-feature filter and the minibatch reader.
+"""SGD learner pieces: the progress record, the scheduler and the
+computation-node base, the tail-feature filter and the minibatch reader.
 
-Counterparts of ``SGDProgress``, ``ISGDCompNode``, ``apply_tail_filter``
-and ``MinibatchReader`` in the JAX package's ``learner/sgd.py``.
-``ISGDCompNode`` is the worker-side plumbing of the embedding-table
-workers (``apps/linear/fm.py``, ``deep_ctr.py``): ``collect`` (the wait
+Counterparts of ``SGDProgress``, ``ISGDScheduler``, ``ISGDCompNode``,
+``apply_tail_filter`` and ``MinibatchReader`` in the JAX package's
+``learner/sgd.py``. ``ISGDScheduler`` holds the workload pool and the
+``MonitorMaster`` the workers report to, and prints the merged progress
+table (``show_progress``, the JAX scheduler's header and line) once its
+``run()`` has set the printer. ``ISGDCompNode`` is the worker-side
+plumbing of the embedding-table workers (``apps/linear/fm.py``,
+``deep_ctr.py``): ``collect`` (the wait
 on a step, the heartbeat and dashboard timers, the examples counter, the
 per-minibatch AUC, the report to a monitor), the default ``train``
 window, checkpoints through :class:`~..parameter.replica.Checkpointable`
@@ -13,14 +17,15 @@ reads and filters on an :class:`~.ingest.IngestPipeline` feeder thread,
 as the JAX reader does: the (stateful) filter stays serial, in batch
 order, so both yield the same batches in the same order. Files are read
 on the chunked byte path (``StreamReader.minibatches_bytes``), parsed by
-the native library on a small pool. The monitor and scheduler plumbing
-(``ISGDScheduler``) is ROADMAP A13.
+the native library on a small pool.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
 
 from ..data.stream_reader import StreamReader
 from ..filter.frequency import FrequencyFilter
@@ -30,6 +35,7 @@ from ..system.monitor import MonitorMaster, MonitorSlaver
 from ..utils.localizer import Localizer
 from ..utils.sparse import SparseBatch
 from .ingest import IngestPipeline
+from .workload_pool import WorkloadPool
 
 
 @dataclasses.dataclass
@@ -44,6 +50,46 @@ class SGDProgress:
         self.accuracy.extend(other.accuracy)
         self.auc.extend(other.auc)
         self.num_examples_processed += other.num_examples_processed
+
+
+class ISGDScheduler(App):
+    """Hands workloads to the computation nodes, merges their progress
+    and prints the table (ref ISGDScheduler::Run + ShowProgress)."""
+
+    def __init__(self, workload_pool: Optional[WorkloadPool] = None,
+                 name: str = "sgd_scheduler"):
+        super().__init__(name=name)
+        self.workload_pool = workload_pool or WorkloadPool()
+        self.monitor: MonitorMaster[SGDProgress] = MonitorMaster()
+        self.monitor.set_data_merger(lambda src, dst: dst.merge(src))
+        self._show_prog_head = True
+        self.num_ex_processed = 0
+
+    def show_progress(self, elapsed: float, progress: Dict[str, SGDProgress]) -> None:
+        """One merged line for the window since the last (ref
+        ISGDScheduler::ShowProgress); the window's lists are cleared."""
+        total = SGDProgress()
+        for p in progress.values():
+            total.merge(p)
+        if not total.objective:
+            return
+        if self._show_prog_head:
+            print(" sec  examples    loss      auc   accuracy")
+            self._show_prog_head = False
+        self.num_ex_processed += total.num_examples_processed
+        # objective entries are a minibatch's sums: print the loss an example
+        per_ex = sum(total.objective) / max(1, total.num_examples_processed)
+        print(f"{elapsed:4.0f}  {self.num_ex_processed:.2e}  "
+              f"{per_ex:.5f}  {np.mean(total.auc or [0]):.4f}  "
+              f"{np.mean(total.accuracy or [0]):.4f}", flush=True)
+        for p in progress.values():  # the next window starts empty
+            p.objective.clear()
+            p.auc.clear()
+            p.accuracy.clear()
+            p.num_examples_processed = 0
+
+    def run(self) -> None:
+        self.monitor.set_printer(self.show_progress, interval=1.0)
 
 
 class ISGDCompNode(App, Checkpointable):
@@ -67,10 +113,9 @@ class ISGDCompNode(App, Checkpointable):
             self._examples_counter = app_instruments(
                 telemetry_registry.default_registry())["examples"]
 
-    def attach_monitor(self, master: MonitorMaster) -> None:
-        """Report each collected step to ``master`` (a scheduler's
-        monitor)."""
-        self.reporter = MonitorSlaver(master, self.name)
+    def attach_monitor(self, scheduler: ISGDScheduler) -> None:
+        """Report each collected step to ``scheduler``'s monitor."""
+        self.reporter = MonitorSlaver(scheduler.monitor, self.name)
 
     def collect(self, ts: int) -> SGDProgress:
         """Wait for step ``ts`` and fold its metrics into ``progress``;

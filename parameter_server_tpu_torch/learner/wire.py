@@ -23,6 +23,10 @@ and only the encoded bytes cross PCIe:
 - :func:`compress_batch` / :func:`decompress_batch`: the LZ frames of
   the staging leg (``wire_compress="lz"``), made on the prep pool and
   decoded on the uploader's thread.
+- :func:`wire_filter_specs` and :class:`MessageWireCodec`: the host
+  message filter chain of the reference's working order (key caching,
+  fixed-point, compression) over a key array and its value arrays, one
+  stateful chain a direction.
 
 The encoders are stateless (they run on the prep pool); the cache is
 single-owner (the uploader's thread).
@@ -31,8 +35,6 @@ The ``ps_wire_*`` counters (:func:`wire_instruments`) record each
 encode's time and bytes, the bytes the encodings, the upload cache and
 the LZ frames save, and the cache's hits and misses; with a span sink
 installed an exact-wire encode is one ``wire.encode`` span.
-``MessageWireCodec`` and ``wire_filter_specs`` (message-level filter
-chains) wait for ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -47,10 +49,12 @@ import numpy as np
 import torch
 
 from .. import native
+from ..filter.fixing_float import quantize
 from ..ops import wire_codec as wc
 from ..ops.kv_ops import slot_sentinel
 from ..utils import codec, crc32c
 from ..utils.bitpack import pack_bits, packed_nwords, slot_bits, stream_to_words
+from ..system.message import FilterSpec, Message, Task
 from ..utils.murmur import hash_slots
 
 MAX_SIG_LEN = 2048  # bytes of a leaf's signature (the key-caching filter's budget)
@@ -162,19 +166,6 @@ def _derived_nnz(p) -> np.ndarray:
     return np.where(rev.any(axis=1), nz - rev.argmax(axis=1), 0).astype(np.int32)
 
 
-def quantize_np(arr: np.ndarray, num_bytes: int, rng: np.random.Generator):
-    """FIXING_FLOAT on the host (``filter/fixing_float.quantize`` of the
-    JAX package): codes, lo, hi, stochastic rounding from ``rng``."""
-    lo, hi = float(arr.min()), float(arr.max())
-    if hi <= lo:
-        hi = lo + 1.0
-    levels = float((1 << (8 * num_bytes)) - 1)
-    scaled = (arr.astype(np.float64) - lo) / (hi - lo) * levels
-    q = np.floor(scaled + rng.random(arr.shape))
-    dt = np.uint8 if num_bytes == 1 else np.uint16
-    return np.clip(q, 0, levels).astype(dt), lo, hi
-
-
 def _quantize_vals(vals: np.ndarray, nnz: np.ndarray, mode: str):
     """Fixed-point codes of each shard's live values, the rounding
     seeded from the shard's own bytes (so any prep worker, in any order,
@@ -188,7 +179,7 @@ def _quantize_vals(vals: np.ndarray, nnz: np.ndarray, mode: str):
         if n == 0:
             continue
         rng = np.random.default_rng(crc32c.value(vals[d, :n].tobytes()))
-        q[d, :n], lo[d], hi[d] = quantize_np(vals[d, :n], num_bytes, rng)
+        q[d, :n], lo[d], hi[d] = quantize(vals[d, :n], num_bytes, rng)
     return q, lo, hi
 
 
@@ -711,3 +702,44 @@ def decompress_batch(cb: CompressedBatch):
 
 def maybe_decompress(item):
     return decompress_batch(item) if isinstance(item, CompressedBatch) else item
+
+
+# -- the host message filter chain --
+
+
+def wire_filter_specs(num_bytes: int = 0) -> List[FilterSpec]:
+    """The chain in the reference's working order (the example and CTR
+    confs; ``Van::Send`` applies it in list order, ``Recv`` in reverse):
+    key caching, then fixed-point (``num_bytes`` 0 turns it off), then
+    compression. Values are quantized before the byte codec sees them
+    (the codec emits uint8 frames, which fixing_float would pass)."""
+    return [
+        FilterSpec(type="key_caching"),
+        FilterSpec(type="fixing_float", num_bytes=num_bytes),
+        FilterSpec(type="compressing"),
+    ]
+
+
+class MessageWireCodec:
+    """The host filter chain over a batch's keys and values, as the JAX
+    package's: one stateful chain a direction (ref RemoteNode), so a key
+    array sent again crosses as its signature only."""
+
+    def __init__(self, num_bytes: int = 0, channel: int = 0):
+        from ..filter.base import FilterChain
+
+        self._encode_chain = FilterChain()
+        self._decode_chain = FilterChain()
+        self._num_bytes = num_bytes
+        self._channel = channel
+
+    def encode(self, key: Optional[np.ndarray], values: List[np.ndarray]) -> Message:
+        msg = Message(task=Task(key_channel=self._channel))
+        msg.task.filters = wire_filter_specs(self._num_bytes)
+        msg.key = key
+        msg.values = list(values)
+        return self._encode_chain.encode(msg)
+
+    def decode(self, msg: Message) -> Tuple[Optional[np.ndarray], List[np.ndarray]]:
+        out = self._decode_chain.decode(msg)
+        return out.key, list(out.values)

@@ -510,6 +510,7 @@ class ServeFrontend:
                 err = None
             except BaseException as e:
                 value, err = None, e
+            self._count_completed()
             ticket._complete(value, err)
             self._reply_marker(ticket, err)
             with self._cv:
@@ -518,11 +519,18 @@ class ServeFrontend:
                     self._in_flight_decode -= 1
                 else:
                     self._in_flight -= 1
-                self.completed += 1
                 self._cv.notify_all()
             tel = self._tel()
             if tel is not None:
                 tel["latency"].labels(kind=ticket.kind).observe(ticket.latency_s())
+
+    def _count_completed(self) -> None:
+        """Count a request completed BEFORE its waiter can see the result:
+        a caller that has every result in hand reads ``stats()`` with all
+        of them counted (counted after, a loaded host could let the read
+        in first and miss the last one)."""
+        with self._cv:
+            self.completed += 1
 
     @staticmethod
     def _reply_marker(ticket: Ticket, err) -> None:
@@ -540,11 +548,11 @@ class ServeFrontend:
         """Completion bookkeeping for one batched decode request —
         the tail of _worker_loop, factored out for _batch_loop (which
         completes tickets at round boundaries, not per pop)."""
+        self._count_completed()
         ticket._complete(value, err)
         self._reply_marker(ticket, err)
         with self._cv:
             self._in_flight_decode -= 1
-            self.completed += 1
             self._cv.notify_all()
         tel = self._tel()
         if tel is not None:

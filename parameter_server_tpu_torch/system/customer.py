@@ -2,16 +2,17 @@
 
 Counterpart of ``parameter_server_tpu/system/customer.py`` (the
 reference's ``src/system/customer.h``). A customer owns an
-:class:`Executor` (timestamps and dependency tracking) and registers
-with the postoffice's manager under a unique id, like the reference's
-``Customer(id)`` + ``Postoffice::instance().manager().AddCustomer(this)``.
-``submit``/``wait``/``reply`` are the reference's communication calls;
-a reply crosses the postoffice's van (framed and decoded) when the
-postoffice is started, and goes straight to the peer otherwise.
-
-Not here: the per-peer filter chains (the JAX package's
-``RemoteNodeTable``) a reply is encoded by on its way (ROADMAP A13), and
-the app registry behind ``App.create`` (A13).
+:class:`Executor` (timestamps and dependency tracking) and a
+:class:`~.remote_node.RemoteNodeTable` (one endpoint a peer: its filter
+chain and wire byte counters), and registers with the postoffice's
+manager under a unique id, like the reference's ``Customer(id)`` +
+``Postoffice::instance().manager().AddCustomer(this)``.
+``submit``/``wait``/``reply`` are the reference's communication calls.
+A reply crosses the postoffice's van between the two customers'
+endpoints for each other (the replier's chain encodes and frames it, the
+requester's decodes it) when the postoffice is started, and goes
+straight to the peer otherwise. ``App.create`` picks the app a conf
+selects (``apps/registry.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ class Customer:
         self.name = name or f"customer_{self.id}"
         self.executor = Executor(name=self.name)
         self._last_response: Optional[Message] = None
+        # per-peer filter chains and wire byte counters (ref executor.h
+        # nodes_: every customer keeps its own RemoteNode a peer)
+        from .remote_node import RemoteNodeTable
+
+        self.remote_nodes = RemoteNodeTable()
         self.po.manager.add_customer(self)
 
     # -- communication (ref customer.h Submit/Wait/Reply) --
@@ -56,10 +62,15 @@ class Customer:
         target = self.po.manager.find_customer_by_name(request.sender)
         if target is not None:
             if self.po.van is not None:
-                # a copy crosses the wire; the caller keeps its response
+                # the response rides the same per-peer chains as the
+                # request (ref remote_node.cc: filters apply on every send
+                # and recv). A copy crosses the wire: the chain rewrites the
+                # message in place, and the caller keeps its response.
                 wire_msg = dataclasses.replace(response, task=response.task.fresh_copy(),
                                                values=list(response.values), callback=None)
-                response = self.po.van.transfer(wire_msg)
+                response = self.po.van.transfer(self.remote_nodes.get(response.recver),
+                                                target.remote_nodes.get(response.sender),
+                                                wire_msg)
             target._last_response = response  # ref customer.h LastResponse()
             target.process_response(response)
         if request.callback is not None:
@@ -90,8 +101,9 @@ class App(Customer):
         pass
 
     @staticmethod
-    def create(conf: Any) -> "App":
-        raise NotImplementedError(
-            "App.create (the app registry) needs the system layer, which is not "
-            "ported to the PyTorch package yet (ROADMAP A13)"
-        )
+    def create(conf: Any, device=None) -> "App":
+        """The app a config selects (ref App::Create in main.cc):
+        ``apps/registry.create_app``."""
+        from ..apps.registry import create_app
+
+        return create_app(conf, device=device)

@@ -18,7 +18,8 @@ step waits on that event (nothing to wait on for CPU tensors).
 ``wait(ts)`` blocks until step ``ts`` has run and its device work is
 done, and returns its value (re-raising its exception). With
 ``max_in_flight`` > 0, ``submit`` blocks while more than that many steps
-are unfinished: the bounded-delay window.
+are unfinished: the bounded-delay window. :class:`NodeGroups` holds
+the symbolic group ids ``ps.submit`` addresses.
 """
 
 from __future__ import annotations
@@ -581,3 +582,16 @@ class Executor:
             # push buffered step records out before this executor (and its
             # collector registration) can be collected
             self._tel.flush()
+
+
+class NodeGroups:
+    """Symbolic node group ids (ref executor.h kServerGroup et al.), the
+    JAX package's values: ``ps.submit`` resolves a group to the apps of
+    its roles."""
+
+    SERVER_GROUP = "all_servers"
+    WORKER_GROUP = "all_workers"
+    COMP_GROUP = "all_comp_nodes"
+    REPLICA_GROUP = "all_replicas"
+    OWNER_GROUP = "all_owners"
+    LIVE_GROUP = "all_lives"

@@ -453,8 +453,9 @@ def test_app_is_the_small_customer():
     ts = app.executor.submit(lambda: 7)
     assert app.executor.wait(ts) == 7
     app.executor.stop()
-    with pytest.raises(NotImplementedError, match="A13"):
-        tcustomer.App.create(None)
+    # App.create picks the app the conf selects (apps/registry.py)
+    sched = tcustomer.App.create(make_conf(tcfg), device="cpu")
+    assert isinstance(sched, tdarlin.DarlinScheduler) and isinstance(sched, tcustomer.App)
 
 
 def test_unknown_comm_filter_warns(caplog):

@@ -316,17 +316,16 @@ def test_fm_padding_is_fixed_by_the_first_batch_as_in_jax(mesh1):
 
 
 def test_fm_reports_to_an_attached_monitor():
-    """``collect`` reports each step's progress to the monitor a
-    scheduler attaches (``MonitorSlaver``), merged there."""
-    from parameter_server_tpu_torch.learner.sgd import SGDProgress
-    from parameter_server_tpu_torch.system.monitor import MonitorMaster
+    """``collect`` reports each step's progress to the monitor of the
+    scheduler it is attached to (``MonitorSlaver``), merged there."""
+    from parameter_server_tpu_torch.learner.sgd import ISGDScheduler, SGDProgress
 
-    master = MonitorMaster(lambda src, dst: dst.merge(src))
+    sched = ISGDScheduler()
     w = FMWorker(make_conf(tcfg), k=4, device="cpu", v_init_std=0.1)
     w.collect(w.process_minibatch(interaction_batches(1)[0]))  # before: not reported
-    w.attach_monitor(master)
+    w.attach_monitor(sched)
     for b in interaction_batches(2, seed0=5):
         w.collect(w.process_minibatch(b))
-    got = master.progress()[w.name]
+    got = sched.monitor.progress()[w.name]
     assert isinstance(got, SGDProgress) and got.num_examples_processed == 512
     assert got.objective == w.progress.objective[1:]

@@ -65,7 +65,9 @@ def test_port_imports_nothing_of_jax():
               "models.speculative", "models.moe", "models.pipeline", "parameter.replica",
               "apps.linear.fm", "apps.linear.deep_ctr", "parameter.kv_map",
               "parameter.kv_layer", "models.convnet", "apps.nn.trainer", "apps.nn.main",
-              "parameter.kv_store", "benchmarks.components"):
+              "parameter.kv_store", "benchmarks.components", "ps", "apps.registry",
+              "system.env", "filter.key_caching", "filter.compressing", "filter.sparse",
+              "filter.add_noise"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

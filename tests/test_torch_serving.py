@@ -43,6 +43,7 @@ from parameter_server_tpu_torch.serving import (
     TokenBucket,
     open_loop_bench,
 )
+from parameter_server_tpu_torch.serving.frontend import Ticket
 from parameter_server_tpu_torch.system import faults
 from parameter_server_tpu_torch.system.executor import Executor
 from parameter_server_tpu_torch.system.postoffice import Postoffice
@@ -407,6 +408,32 @@ class TestFrontend:
             fe.resume()
             fe.close()
         assert fe.stats()["completed"] == ok
+
+    def test_a_request_is_counted_completed_before_its_waiter_sees_it(self):
+        """``stats()["completed"]`` read by a caller holding every result
+        counts them all: the frontend counts a request before it hands the
+        result over (the serve CLI's record and the request counter read
+        it so). Each completion records the count it saw."""
+        kv, keys = _store()
+        fe = ServeFrontend(kv, ServeConfig(replica="full", workers=2)).start()
+        seen = []
+        real = Ticket._complete
+
+        def completing(ticket, value=None, error=None):
+            seen.append(fe.completed)
+            real(ticket, value, error)
+
+        Ticket._complete = completing
+        try:
+            tickets = [fe.submit(PullRequest(keys=keys[i:i + 4])) for i in range(20)]
+            for t in tickets:
+                t.result(30)
+            assert fe.stats()["completed"] == 20
+        finally:
+            Ticket._complete = real
+            fe.close()
+            kv.executor.stop()
+        assert len(seen) == 20 and min(seen) >= 1 and max(seen) == 20
 
     def test_concurrent_submits_never_exceed_depth_bound(self):
         kv, keys = _store()

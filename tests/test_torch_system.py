@@ -19,8 +19,9 @@ import torch
 
 from parameter_server_tpu.system import faults as jfaults
 from parameter_server_tpu.utils import retry as jretry
+from parameter_server_tpu_torch import ps
 from parameter_server_tpu_torch.system import faults, manager
-from parameter_server_tpu_torch.system.customer import App, Customer
+from parameter_server_tpu_torch.system.customer import Customer
 from parameter_server_tpu_torch.system.executor import Executor
 from parameter_server_tpu_torch.system.executor import Task as ExecutorTask
 from parameter_server_tpu_torch.system.message import (
@@ -288,8 +289,11 @@ class TestCustomerPostoffice:
             Postoffice.instance().start(num_data=4, device="cpu")
         with pytest.raises(NotImplementedError, match="A9"):
             init_distributed()
-        with pytest.raises(NotImplementedError, match="A13"):
-            App.create(None)
+        # the ps.h layer's node table is the card's: H0, S0, W0
+        with pytest.raises(NotImplementedError, match="A9"):
+            ps.start_system(num_servers=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="A9"):
+            ps.start_system(num_workers=2, device="cpu")
 
     def test_manager_node_events(self):
         m = manager.Manager()

@@ -20,7 +20,6 @@ No test asserts a time.
 import json
 import pathlib
 import random
-import threading
 import time
 import urllib.request
 
@@ -30,6 +29,7 @@ import torch
 from parameter_server_tpu.apps.linear import main as jmain
 from parameter_server_tpu.apps.serve import main as jserve
 from parameter_server_tpu.system.postoffice import Postoffice as JPostoffice
+from parameter_server_tpu.telemetry import blackbox as jblackbox
 from parameter_server_tpu.telemetry import device as jdevice
 from parameter_server_tpu.telemetry import registry as jreg
 from parameter_server_tpu_torch.apps.linear import main as tmain
@@ -37,6 +37,7 @@ from parameter_server_tpu_torch.apps.lm import main as lm_main
 from parameter_server_tpu_torch.apps.serve import main as tserve
 from parameter_server_tpu_torch.benchmarks.ctr import ctr_conf, write_ctr_shards
 from parameter_server_tpu_torch.system.postoffice import Postoffice
+from parameter_server_tpu_torch.telemetry import blackbox as tblackbox
 from parameter_server_tpu_torch.telemetry import device as tdevice
 from parameter_server_tpu_torch.telemetry import exposition as texpo
 from parameter_server_tpu_torch.telemetry import registry as treg
@@ -159,46 +160,46 @@ def _names(text: str) -> set:
 
 
 def test_serve_cli_exposes_metrics_while_it_runs(capsys, monkeypatch):
-    servers, scraped, errors = [], [], []
+    """The endpoint is scraped by the CLI's own teardown: the server
+    ``expose_cluster`` returns scrapes itself once when the CLI closes it,
+    after the load points and before it shuts, so no scrape can miss the
+    run however loaded the host is."""
+    scraped = []
     real = texpo.expose_cluster
 
     def capture(*a, **k):
         srv = real(*a, **k)
-        servers.append(srv)
+        shut = srv.close
+
+        def scrape_then_close():
+            url = srv.url
+            metrics = _get(url + "/metrics").decode()
+            health = json.loads(_get(url + "/healthz"))
+            snap = json.loads(_get(url + "/debug/snapshot"))
+            scraped.append((metrics, health, snap))
+            shut()
+
+        srv.close = scrape_then_close
         return srv
 
     monkeypatch.setattr(texpo, "expose_cluster", capture)
-    stop = threading.Event()
-
-    def scrape():
-        while not stop.is_set():
-            if servers:
-                try:
-                    url = servers[0].url
-                    metrics = _get(url + "/metrics").decode()
-                    health = json.loads(_get(url + "/healthz"))
-                    snap = json.loads(_get(url + "/debug/snapshot"))
-                    scraped.append((metrics, health, snap))
-                except Exception as e:  # the server closes at the end
-                    errors.append(e)
-            time.sleep(0.05)
-
-    t = threading.Thread(target=scrape, daemon=True)
-    t.start()
-    try:
-        argv = ["--num-slots", "4096", "--duration", "0.3", "--expose-port", "0"]
-        assert tserve.main(argv + ["--device", "cpu"]) == 0
-    finally:
-        stop.set()
-        t.join(timeout=30)
+    argv = ["--num-slots", "4096", "--duration", "0.3", "--expose-port", "0"]
+    assert tserve.main(argv + ["--device", "cpu"]) == 0
     recs = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     expo = recs[-1]
     assert expo["metric"] == "serve_exposition" and expo["url"].startswith("http://127.0.0.1:")
-    assert scraped, errors
+    assert len(scraped) == 1
     metrics, health, snap = scraped[-1]
     assert "ps_serve_requests_total" in metrics and 'node="' in metrics
     assert "ok" in health and "dead_nodes" in health
     assert {"metrics", "cluster", "health", "learning", "history"} <= set(snap)
+    # the SLO alerts fire or not with the host's load (a p99 burn fires
+    # a diagnostic capture, whose families then register): one capture
+    # in each process after its run (the rate limit reset: a capture, not
+    # a suppression), so both record the capture's families whatever the
+    # load did
+    tblackbox.reset()
+    tblackbox.trigger_bundle("test")
     ours = set(treg.default_registry().snapshot())
     # the frontends' request counters against the CLI's own record
     reqs = sum(treg.default_registry().snapshot()["ps_serve_requests_total"]["values"].values())
@@ -208,6 +209,8 @@ def test_serve_cli_exposes_metrics_while_it_runs(capsys, monkeypatch):
         metrics)
     assert jserve.main(argv) == 0
     capsys.readouterr()
+    jblackbox.reset()
+    jblackbox.trigger_bundle("test")
     theirs = set(jreg.default_registry().snapshot())
     assert ours == theirs
 
