@@ -287,6 +287,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the worker reporting to an ``AsyncSGDScheduler``'s monitor and
    without, two pairs in turns, the medians, and the reports' own host
    time;
+8f. the linear worker's checkpoints (ROADMAP A4's rest; the worker is an
+   ``ISGDCompNode`` on the customer's executor): (a) the headline (2^22
+   slots, 16384 x 39 keys, T 8, sparse) trained 8 ministeps,
+   checkpointed (``checkpoint``, and ``checkpoint_async`` with its
+   return and its disk write timed apart), trained 8 more (the unbroken
+   run), and a fresh worker restored from the checkpoint and trained the
+   same 8: z and √n bit-equal, the tail's ``ftrl_sparse`` and
+   ``segment_sum`` launches equal; checkpoint, async return, disk write
+   and restore ms and the state's bytes, for f32 and bf16 √n; (b) the
+   CTR conf's worker (1-byte push filter, τ 4, phase 5's table and
+   minibatches) checkpointed after 8 ministeps and resumed: bit-equal to
+   the unbroken 16, ``ftrl_dense`` / ``quantize`` / ``segment_sum`` tail
+   launches equal; the same resume with the seed counter forced to 0
+   differs; (c) each card checkpoint restored into a ``device="cpu"``
+   worker: its ``state_host`` bit-equal to the card's at the checkpoint;
+   (d) ``submit_group`` on the bits wire (dense, ``ell_lanes`` 39):
+   ``[(ts, 8)]`` a group, the model bit-equal to ``train``'s on the same
+   batches; (e) ``utils/subproc.run_graceful`` on the port's probe child
+   (``torch.cuda.init()`` on a side thread) under ``utils/device_lock``,
+   rc 0, its wall time;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -336,6 +356,7 @@ from parameter_server_tpu_torch.apps.nn.trainer import NNTrainer  # noqa: E402
 from parameter_server_tpu_torch.models.convnet import MLP, ConvNet  # noqa: E402
 from parameter_server_tpu_torch.parameter.kv_map import AddEntry, AssignEntry, KVMap  # noqa: E402
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
+from parameter_server_tpu_torch.parameter.replica import CheckpointManager  # noqa: E402
 from parameter_server_tpu_torch.system.postoffice import Postoffice  # noqa: E402
 from parameter_server_tpu_torch import native  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.criteo import criteo_conf, write_criteo_shards  # noqa: E402
@@ -559,7 +580,7 @@ def run_launch(worker, group):
     """One launch: a T-minibatch superbatch (sparse) or one minibatch."""
     if len(group) > 1:
         return worker.submit_superbatch(group, with_aux=False)
-    return worker.process_minibatch(group[0], with_aux=False)
+    return worker.wait(worker.process_minibatch(group[0], with_aux=False))
 
 
 def assert_states_close(a: dict, b: dict, what: str) -> None:
@@ -621,7 +642,7 @@ def headline(batches, timed: int) -> dict:
         prepped = worker.upload(prepped)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        m = worker.submit(prepped, with_aux=False)
+        m = worker.submit_wait(prepped, with_aux=False)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         prep_s += t1 - t0
@@ -3444,7 +3465,7 @@ def telemetry_overhead(batches) -> dict:
                 worker.train(batches[T:T * (PIPE_LAUNCHES + 1)], pipelined=True)
                 torch.cuda.synchronize()
                 rates[state].append(PIPE_LAUNCHES * T * MB / (time.perf_counter() - t0))
-                worker.executor.stop()
+                worker.remove()
     finally:
         treg.set_enabled(prev)
     med = {k: float(np.median(v)) for k, v in rates.items()}
@@ -3867,14 +3888,14 @@ def replica_worker_path(batches) -> dict:
                                                    for b in batches[:T]]))
                for m, wk in workers.items()}
     for m, wk in workers.items():
-        wk.submit(prepped[m], with_aux=False)  # warm
+        wk.submit_wait(prepped[m], with_aux=False)  # warm
     for i in range(REPLICA_PAIRS):
         for m in (("on", "off") if i % 2 == 0 else ("off", "on")):
             wk = workers[m]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(REPLICA_TIMED):
-                wk.submit(prepped[m], with_aux=False)
+                wk.submit_wait(prepped[m], with_aux=False)
             torch.cuda.synchronize()
             runs[m].append(REPLICA_TIMED * T * MB / (time.perf_counter() - t0))
     del workers, prepped
@@ -4416,7 +4437,7 @@ def report_cost(batches) -> dict:
                 check(sched.num_ex_processed == (PIPE_LAUNCHES + 1) * T * MB,
                       f"8e(d): the monitor merged {sched.num_ex_processed} examples")
                 sched.remove()
-            worker.executor.stop()
+            worker.remove()
     med = {k: float(np.median(v)) for k, v in rates.items()}
     check(reports[0] > 0, "8e(d): no report timed")
     return dict(examples_per_s=rates, median=med, cost=1.0 - med["attached"] / med["detached"],
@@ -4470,6 +4491,172 @@ def system_plane(seed: int, smi: str, batches) -> dict:
           f"{rep['reports']} collects ({rep['report_ms_each']:.4f} ms each, host clock)", flush=True)
     return dict(app_create=fams, cli=cli, ps_program=prog, codec=cod, report=rep,
                 seconds=time.perf_counter() - t0)
+
+
+# -- phase 8f: the linear worker's checkpoints and resume (A4's rest) --
+
+RESUME_AT = 8  # ministeps before the checkpoint: a multiple of T and of the CTR conf's τ 4
+CTR_RESUME_ROWS = 2 * RESUME_AT * 10_000  # the CTR conf's 10000-row minibatches
+
+
+def state_nbytes(worker) -> int:
+    return sum(v.numel() * v.element_size() for v in worker.state.values())
+
+
+def host_bits_equal(a: dict, b: dict) -> bool:
+    """Two ``state_host()["state"]`` dicts hold the same bits."""
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+        and np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
+
+
+def resume_case(make_worker, head, tail, tmp: str, what: str) -> dict:
+    """Train ``head``, take the card's snapshot and checkpoint it (sync,
+    then async: the return and the disk write timed apart), train
+    ``tail`` (the unbroken run); a fresh worker restores the checkpoint
+    and trains ``tail``; a CPU worker restores it. Launch counts are
+    zeroed before each tail and read after it."""
+    w = make_worker("cuda")
+    w.train(iter(head), pipelined=False)
+    torch.cuda.synchronize()
+    at_ckpt = w.state_host()
+    t0 = time.perf_counter()
+    w.checkpoint(CheckpointManager(os.path.join(tmp, "sync")), step=RESUME_AT)
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    amgr = CheckpointManager(os.path.join(tmp, "async"))
+    t0 = time.perf_counter()
+    w.checkpoint_async(amgr, step=RESUME_AT)
+    t1 = time.perf_counter()
+    amgr.wait()
+    t2 = time.perf_counter()
+    reset_counts()
+    w.train(iter(tail), pipelined=False)
+    torch.cuda.synchronize()
+    unbroken = counts()
+    r = make_worker("cuda")
+    t3 = time.perf_counter()
+    step = r.restore(CheckpointManager(os.path.join(tmp, "sync")))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t3) * 1e3
+    check(step == RESUME_AT, f"8f {what}: restored step {step}")
+    reset_counts()
+    r.train(iter(tail), pipelined=False)
+    torch.cuda.synchronize()
+    resumed = counts()
+    equal = all(torch.equal(bits(r.state[k]), bits(w.state[k])) for k in w.state)
+    check(equal, f"8f {what}: the resumed state differs from the unbroken run's")
+    check(resumed == unbroken and any(unbroken),
+          f"8f {what}: tail launches resumed {resumed} vs unbroken {unbroken}")
+    from_async = make_worker("cpu")
+    from_async.restore(amgr)
+    cpu = make_worker("cpu")
+    cpu.restore(CheckpointManager(os.path.join(tmp, "sync")))
+    for name, c in (("sync", cpu), ("async", from_async)):
+        snap = c.state_host()
+        check(host_bits_equal(snap["state"], at_ckpt["state"])
+              and int(snap["seed_counter"]) == int(at_ckpt["seed_counter"]),
+              f"8f {what}: the card's {name} checkpoint restored on the CPU differs from the "
+              "card's state at the checkpoint")
+    return dict(ckpt_ms=ckpt_ms, async_return_ms=(t1 - t0) * 1e3, disk_write_ms=(t2 - t1) * 1e3,
+                restore_ms=restore_ms, state_bytes=state_nbytes(w), tail_launches=unbroken,
+                bits_equal=equal, seed_counter=int(at_ckpt["seed_counter"]),
+                workers=(w, r, cpu, from_async))
+
+
+def checkpoint_plane(seed: int, smi: str, batches) -> dict:
+    """Phase 8f, (a)-(e), printed as they finish."""
+    from parameter_server_tpu_torch.benchmarks.ctr import ctr_minibatches
+    from parameter_server_tpu_torch.utils import device_lock, subproc
+
+    t_phase = time.perf_counter()
+    out = {}
+    head, tail = batches[:RESUME_AT], batches[RESUME_AT:2 * RESUME_AT]
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory(prefix="ckpt_smoke_") as tmp:
+            rec = resume_case(lambda d, dtype=dtype: AsyncSGDWorker(conf("sparse", dtype), device=d),
+                              head, tail, tmp, f"headline {dtype}")
+        for w in rec.pop("workers"):
+            w.remove()
+        out[f"headline_{dtype}"] = rec
+        print(f"# 8f (a) headline resume, sparse 2^22, {dtype} sqrt_n, T {T} ({smi}): "
+              f"{RESUME_AT} + {RESUME_AT} ministeps, resumed z and sqrt_n bit-equal to the "
+              f"unbroken run; tail launches sparse/dense/quantize/segment_sum "
+              f"{rec['tail_launches']} both; state {rec['state_bytes']} B; checkpoint "
+              f"{rec['ckpt_ms']:.1f} ms, checkpoint_async returns in {rec['async_return_ms']:.1f} "
+              f"ms, its disk write {rec['disk_write_ms']:.1f} ms, restore {rec['restore_ms']:.1f} "
+              f"ms (host clock, warm file cache); (c) restored on the CPU: bit-equal to the "
+              f"card's state_host", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ckpt_ctr_") as tmp:
+        ctr_batches, c = ctr_minibatches(os.path.join(tmp, "data"), CTR_RESUME_ROWS, seed + 41)
+        check(len(ctr_batches) == 2 * RESUME_AT, f"8f CTR: {len(ctr_batches)} minibatches")
+
+        def ctr_worker(d):
+            return AsyncSGDWorker(c, device=d)
+
+        rec = resume_case(ctr_worker, ctr_batches[:RESUME_AT], ctr_batches[RESUME_AT:], tmp, "CTR")
+        unbroken, resumed, cpu, from_async = rec.pop("workers")
+        check(unbroken.update_path == "cuda_dense" and unbroken.sgd.max_delay == 4
+              and unbroken._wire["push_quant"] == 1,
+              f"8f CTR worker: {unbroken.update_path}, tau {unbroken.sgd.max_delay}, push "
+              f"{unbroken._wire['push_quant']} B")
+        zeroed = ctr_worker("cuda")
+        zeroed.restore(CheckpointManager(os.path.join(tmp, "sync")))
+        zeroed._seed_counter = 0  # the noise stream restarts: the check must see it
+        zeroed.train(iter(ctr_batches[RESUME_AT:]), pipelined=False)
+        differs = not all(torch.equal(bits(zeroed.state[k]), bits(unbroken.state[k]))
+                          for k in unbroken.state)
+        check(differs, "8f CTR: a resume with the seed counter forced to 0 left the same state")
+        for w in (unbroken, resumed, cpu, from_async, zeroed):
+            w.remove()
+    rec["zeroed_seed_differs"] = differs
+    out["ctr"] = rec
+    print(f"# 8f (b) CTR conf resume (1-byte push, tau 4, {c.async_sgd.minibatch}-row minibatches, "
+          f"{rec['state_bytes']} B of state, {smi}): {RESUME_AT} + {RESUME_AT} ministeps, resumed "
+          f"state bit-equal to the unbroken run; tail launches sparse/dense/quantize/segment_sum "
+          f"{rec['tail_launches']} both; seed counter forced to 0 differs: {differs}; checkpoint "
+          f"{rec['ckpt_ms']:.1f} ms, async return {rec['async_return_ms']:.1f} ms, disk write "
+          f"{rec['disk_write_ms']:.1f} ms, restore {rec['restore_ms']:.1f} ms (host clock, warm "
+          f"file cache); (c) restored on the CPU: bit-equal", flush=True)
+    torch.cuda.empty_cache()
+
+    bits_conf = dict(update="dense", ell_lanes=39, wire="bits")
+    grouped = AsyncSGDWorker(kkt_conf(**bits_conf), device="cuda")
+    reset_counts()
+    pairs = grouped.submit_group(head) + grouped.submit_group(tail)
+    for ts, _ in pairs:
+        grouped.collect(ts)
+    torch.cuda.synchronize()
+    group_launches = counts()
+    check([n for _, n in pairs] == [T, T] and pairs[1][0] > pairs[0][0],
+          f"8f (d) submit_group pairs {pairs}")
+    trained = AsyncSGDWorker(kkt_conf(**bits_conf), device="cuda")
+    trained.train(iter(head + tail), pipelined=False)
+    torch.cuda.synchronize()
+    same = all(torch.equal(bits(grouped.state[k]), bits(trained.state[k])) for k in trained.state)
+    check(same, "8f (d): submit_group's model differs from train's")
+    check(group_launches == (0, 2 * T, 0, 4 * T), f"8f (d) launches {group_launches}")
+    for w in (grouped, trained):
+        w.remove()
+    out["submit_group"] = dict(pairs=pairs, launches=group_launches, bits_equal_train=same)
+    print(f"# 8f (d) submit_group on the bits wire (dense 2^22, ell_lanes 39, {smi}): pairs "
+          f"{pairs}, launches sparse/dense/quantize/segment_sum {group_launches}; the model "
+          f"bit-equal to train's", flush=True)
+
+    t0 = time.perf_counter()
+    with device_lock.device_lock(timeout_s=60) as held:
+        rc, err, _ = subproc.run_graceful([sys.executable, "-c", subproc.PROBE_CHILD_SRC],
+                                          timeout_s=120, term_grace_s=10,
+                                          env=device_lock.held_env())
+    probe_s = time.perf_counter() - t0
+    check(held.reason in ("acquired", "held-by-parent"), f"8f (e) device lock {held!r}")
+    check(rc == 0, f"8f (e) the probe child exited {rc}: {err.decode(errors='replace')[-400:]}")
+    out["probe"] = dict(rc=rc, seconds=probe_s, lock=held.reason)
+    print(f"# 8f (e) the subprocess probe (torch.cuda.init() on a side thread) under device_lock "
+          f"({held.reason}): rc {rc} in {probe_s:.2f} s wall (a new process reaching the card)",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -4898,6 +5085,9 @@ def main() -> int:
     rep13, mig13, drill13 = a13["replica"], a13["migration"], a13["drill"]
     sysp = system_plane(args.seed, smi, batches)
     cli8e = sysp["cli"]["launches"]
+    ckpt = checkpoint_plane(args.seed, smi, batches)
+    resume_launches = {name: ckpt[name]["tail_launches"]
+                       for name in ("headline_float32", "headline_bfloat16", "ctr")}
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -4935,6 +5125,7 @@ def main() -> int:
              kkt_launches=kkt["sparse_launches"], bigtable_launches=big["sparse_launches"],
              a13_launches=dict(replicated_headline=rep13["launches"]["sparse"],
                                after_recovery=rep13["after_recovery_launches"]["sparse"]),
+             resume_launches={k: v[0] for k, v in resume_launches.items() if k != "ctr"},
              interior_keep_cases=[r["case"] for r in sparse_rows if "interior" in r["case"]],
              max_abs_err=max(r["max_abs_err"] for r in sparse_rows),
              ms=main_sparse["ms"], plain_ms=main_sparse["plain_ms"],
@@ -4948,6 +5139,8 @@ def main() -> int:
              tau_adaptive_launches=tau["dense_launches"],
              a13_launches=dict(dense_replicated=rep13["dense_launches"]["dense"],
                                scheduler_cli=cli8e["ftrl_dense"]),
+             resume_launches=dict(ctr=resume_launches["ctr"][1],
+                                  submit_group_bits=ckpt["submit_group"]["launches"][1]),
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
@@ -4957,6 +5150,7 @@ def main() -> int:
              replaces="parameter_server_tpu/ops/quantize.py:68",
              launches=ctr["quantize_launches"],
              a13_launches=dict(scheduler_cli=cli8e["quantize"]),
+             resume_launches=dict(ctr=resume_launches["ctr"][2]),
              max_abs_err=max(r["max_abs_err"] for r in quant_rows),
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
@@ -4984,6 +5178,8 @@ def main() -> int:
                                scheduler_cli=cli8e["segment_sum"],
                                ps_program=sysp["ps_program"]["segment_launches"],
                                codec_push=sysp["codec"]["segment_launches"]),
+             resume_launches=dict(**{k: v[3] for k, v in resume_launches.items()},
+                                  submit_group_bits=ckpt["submit_group"]["launches"][3]),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -5045,7 +5241,7 @@ def main() -> int:
                   tf32_mma_sync_tflop_per_s=mma_rate,
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
-                  telemetry=tel, a10=a10, a13=a13, system=sysp,
+                  telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

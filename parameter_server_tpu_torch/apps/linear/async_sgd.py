@@ -27,10 +27,11 @@ the step's device: the compact exact wire (``wire_encode``), and with
 scatter is the same stable sort and segment-sum kernel as the hashed
 step's, so their state is bit-identical to it.
 
-The host side runs as the JAX worker's does. Steps run on an
-:class:`~...system.executor.Executor`'s dispatch thread, at most τ + 1
-in flight; seeds and the snapshot schedule are fixed on the submitting
-thread, in submission order, so every path gives the same trajectory.
+The host side runs as the JAX worker's does. The worker is an
+``ISGDCompNode`` (``learner/sgd.py``): a ``Customer`` whose executor's
+dispatch thread runs the steps, at most τ + 1 in flight; seeds and the
+snapshot schedule are fixed on the submitting thread, in submission
+order, so every path gives the same trajectory.
 ``train(pipelined=True)`` (the default for T > 1) reads and filters on a
 feeder thread, preps on an ordered pool of workers and uploads on a
 :class:`DeviceUploader` thread: host arrays are copied into pinned
@@ -86,7 +87,7 @@ from ...convert import state_from_jax, state_to_numpy
 from ...learner import wire
 from ...learner.consistency import ConsistencyRuntime
 from ...learner.ingest import IngestPipeline
-from ...learner.sgd import ISGDScheduler, SGDProgress
+from ...learner.sgd import ISGDCompNode, ISGDScheduler, SGDProgress
 from ...ops import quantize as qops
 from ...ops import wire_codec as wc
 from ...ops.ftrl_sparse import resolve_update_path
@@ -94,8 +95,6 @@ from ...ops.kv_ops import localize, slot_sentinel, valid_slots
 from ...ops.significance import SignificanceSpec, kkt_mask
 from ...ops.segment_sum import segment_sum as _segment_sum
 from ...parameter.parameter import KeyDirectory, pad_slots, server_shard_rows
-from ...system.executor import Executor
-from ...system.monitor import MonitorSlaver
 from ...telemetry import device as device_tel
 from ...telemetry import registry as telemetry_registry
 from ...telemetry import spans as telemetry_spans
@@ -334,6 +333,10 @@ def pack_u24(idx: np.ndarray) -> np.ndarray:
     """int32 [...] -> uint8 [..., 3] little-endian (values < 2^24)."""
     flat = np.ascontiguousarray(idx, dtype="<u4")
     return flat.view(np.uint8).reshape(*idx.shape, 4)[..., :3].copy()
+
+
+# the inverse of pack_u24, on the step's device (the JAX package's name)
+unpack_u24 = wc.decode_u24
 
 
 def _lane_positions(counts: np.ndarray, lanes: int) -> np.ndarray:
@@ -1004,6 +1007,18 @@ _ALIGN = 64  # bytes: each array of a staged batch starts on this boundary
 _SAVE_CHUNK = 1 << 26  # slots whose weights save_model derives at once
 
 
+def _wire_encoding_name(prepped) -> str:
+    """The wire a prepped batch rides, as the staging leg's telemetry
+    label names it (``ps_wire_bytes_total{encoding="<name>+lz"}``)."""
+    if isinstance(prepped, (wire.EncodedEllStreamBatch, wire.EncodedEllStreamSuperBatch)):
+        return "stream"
+    if isinstance(prepped, (wire.EncodedExactBatch, wire.EncodedExactSuperBatch)):
+        return "exact"
+    if isinstance(prepped, (ELLBitsBatch, ELLBitsSuperBatch)):
+        return "bits"
+    return "raw"
+
+
 class PinnedStaging:
     """Host → device copies of prepped batches through pinned memory.
 
@@ -1256,22 +1271,32 @@ class DeviceUploader:
         self._it.close()
 
 
-class AsyncSGDWorker:
-    """The linear worker on one device: preps minibatches on the host,
-    runs the fused worker+server step on ``device`` (CUDA by default;
-    raises when there is none and no device is given), evaluates and
-    answers pulls from the trained table. Steps run on an executor's
-    dispatch thread, at most τ + 1 in flight (``max_delay`` = τ);
-    :meth:`submit` waits for its step, :meth:`train` collects steps by
-    timestamp. With τ > 0, gradients are computed on a weight snapshot
-    refreshed every τ ministeps, on the JAX worker's schedule (fixed by
-    submission order), so the trajectory equals the JAX worker's;
+class AsyncSGDWorker(ISGDCompNode):
+    """The linear worker on one device, an :class:`ISGDCompNode` (so an
+    ``App``, a ``Customer`` registered with the postoffice's manager, and
+    ``Checkpointable``): preps minibatches on the host, runs the fused
+    worker+server step on ``device``, evaluates and answers pulls from
+    the trained table. ``device=None`` is the started postoffice's
+    device, else the card (raises when there is none). Steps run on the
+    customer's executor, at most τ + 1 in flight (``max_delay`` = τ):
+    :meth:`process_minibatch` and :meth:`submit_group` return executor
+    timestamps, :meth:`collect` waits for one and folds its metrics,
+    :meth:`submit_wait` runs a prepped batch and returns its metrics.
+    With τ > 0, gradients are computed on a weight snapshot refreshed
+    every τ ministeps, on the JAX worker's schedule (fixed by submission
+    order), so the trajectory equals the JAX worker's;
     ``last_staleness`` is the realized staleness of the latest
     submission, in ministeps. Reading the table (weights, pulls,
-    evaluation, snapshots) first waits for the steps in flight."""
+    evaluation, snapshots) first waits for the steps in flight.
+    :meth:`checkpoint` / :meth:`checkpoint_async` save
+    :meth:`state_host` (the state and the seed counter) and
+    :meth:`restore` brings both back, so resumed training replays bit
+    for bit."""
 
     def __init__(self, conf: Config, device=None, name: str = "async_sgd_worker"):
-        self.name = name
+        super().__init__(name=name)
+        if device is None and self.po.started:
+            device = self.po.device
         self.device = resolve(device)
         self.conf = conf
         sgd = conf.async_sgd or SGDConfig()
@@ -1336,11 +1361,10 @@ class AsyncSGDWorker:
         self._replica_state: Optional[Dict[str, torch.Tensor]] = None
         self._steps_since_replica = 0
         self.progress = SGDProgress()
-        # reports each collect to a scheduler's monitor once attached
-        self.reporter: MonitorSlaver[SGDProgress] = MonitorSlaver(None, name)
-        # at most τ + 1 steps in flight (τ = 0 still lets the next step
-        # be submitted while one runs)
-        self.executor = Executor(name, max_in_flight=max(0, sgd.max_delay) + 1)
+        # at most τ + 1 steps in flight on the customer's executor (τ = 0
+        # still lets the next step be submitted while one runs; 0 would
+        # leave it unbounded)
+        self.executor.max_in_flight = max(0, sgd.max_delay) + 1
         weakref.finalize(self, self.executor.stop)
         # the pinned buffers of the uploads to the card
         self.staging = PinnedStaging(self.device) if self.device.type == "cuda" else None
@@ -1376,22 +1400,16 @@ class AsyncSGDWorker:
         # learning truth plane (telemetry/learning.py): realized
         # staleness per submission, key heat by server key range,
         # convergence metering in collect(); bound to the registry of now
-        self._learning = None
-        self._examples_counter = None
         if telemetry_registry.enabled():
             from ...telemetry import learning as learning_mod
-            from ...telemetry.instruments import app_instruments
 
             self._learning = learning_mod.plane(
                 self.name, num_slots=self.num_slots, num_shards=1,
                 max_delay=max(0, sgd.max_delay),
             )
-            self._examples_counter = app_instruments(
-                telemetry_registry.default_registry())["examples"]
         self._heat_counter = 0  # feeder/trainer thread only
         self._heat_feed: Optional[KeyHeatFeed] = None  # set for a train or a minibatch
         self._snapshot_ts: Optional[int] = None  # submit thread only
-        self._consistency = None
         if sgd.tau_adaptive or sgd.kkt_filter:
             self._consistency = ConsistencyRuntime.from_config(self, sgd)
 
@@ -1702,23 +1720,30 @@ class AsyncSGDWorker:
                                        clock_lag=ts - self._snapshot_ts, tau=tau)
         return ts
 
-    def submit(self, prepped, with_aux: bool = True) -> Dict[str, torch.Tensor]:
+    def submit_wait(self, prepped, with_aux: bool = True) -> Dict[str, torch.Tensor]:
         """Run one step (or one T-step superbatch) on a prepped batch and
-        wait for it; returns its metrics as tensors on the device."""
+        wait for it; returns its metrics as tensors on the device (the
+        port's blocking submit: ``submit`` is ``Customer.submit``)."""
         return self.executor.wait(self._submit_prepped(prepped, with_aux=with_aux))
 
-    def process_minibatch(self, batch: SparseBatch, with_aux: bool = True):
-        """Pull → gradient → push for one minibatch; returns its metrics
-        (fold them into ``progress`` with :meth:`collect`)."""
+    def process_minibatch(self, batch: SparseBatch, report: bool = True,
+                          with_aux: bool = True) -> int:
+        """Pull → gradient → push for one minibatch, submitted without
+        waiting; returns the step's executor timestamp (fold its metrics
+        into ``progress`` with :meth:`collect`, or read them with
+        :meth:`wait`). ``report`` is the JAX worker's signature: every
+        :meth:`collect` reports."""
+        del report
         with self._key_heat():
             self._note_heat(batch)
-            return self.submit(self.prep(batch, device_put=False), with_aux=with_aux)
+            return self._submit_prepped(self.prep(batch, device_put=False), with_aux=with_aux)
 
     def submit_superbatch(self, batches: List[SparseBatch], with_aux: bool = False):
         """Prep + stack T minibatches and run them as one submission: the
         bits or stream wire, or the exact wire (raw or encoded) in sparse
         mode, where the superstep runs every ministep on the live state.
-        A dense-mode exact group raises: it runs per minibatch."""
+        A dense-mode exact group raises: it runs per minibatch. Waits for
+        the launch and returns its metrics."""
         prepped = [self.prep(b, device_put=False) for b in batches]
         stacked = _stack(prepped, self._update_mode)
         if stacked is None:
@@ -1729,61 +1754,16 @@ class AsyncSGDWorker:
                 "would bypass snapshot/filter semantics); got a "
                 "mixed/fallback encoding or a dense-mode exact group"
             )
-        return self.submit(stacked, with_aux=with_aux)
+        return self.submit_wait(stacked, with_aux=with_aux)
 
-    def collect(self, metrics) -> SGDProgress:
-        """Fold a submission's metrics (or its executor timestamp, waited
-        for here) into ``progress`` (host sync). The wait beats the
-        worker's heartbeat and counts as its busy time on the dashboard
-        while the postoffice's aux runtime runs."""
-        if isinstance(metrics, int):
-            from ...system.postoffice import Postoffice
-
-            po = Postoffice._instance  # never create the singleton here
-            hb = None
-            if po is not None:
-                po.beat(self.name)  # liveness signal
-                hb = po.aux.info(self.name) if po.aux is not None else None
-            if hb is not None:
-                hb.start_timer()
-            metrics = self.executor.wait(metrics)
-            if hb is not None:
-                hb.stop_timer()
-        if self._examples_counter is not None:
-            self._examples_counter.inc(int(metrics["num_ex"]))
-        if self._learning is not None:
-            # the step's own num_ex and convergence side outputs
-            self._learning.note_step(metrics)
-        if self._consistency is not None:
-            # KKT counts and the drop set, then the τ controller (which
-            # may back off the rate and roll the state back)
-            self._consistency.on_collect(metrics)
-        num_ex = float(metrics["num_ex"])
-        prog = SGDProgress(
-            objective=[float(metrics["objective"])],
-            num_examples_processed=int(num_ex),
-            accuracy=[float(metrics["correct"]) / max(1.0, num_ex)],
-        )
-        if "xw" in metrics:
-            y = metrics["y"].cpu().numpy()
-            xw = metrics["xw"].cpu().numpy()
-            mask = metrics["mask"].cpu().numpy()
-            if xw.ndim == 2:  # one minibatch: [D, R]
-                y, xw, mask = y[None], xw[None], mask[None]
-            prog.auc = [
-                evaluation.auc(y[t].ravel()[mask[t].ravel() > 0],
-                               xw[t].ravel()[mask[t].ravel() > 0])
-                for t in range(xw.shape[0])
-            ]
-        self.progress.merge(prog)
-        self.reporter.report(prog)
-        return prog
-
-    def attach_monitor(self, scheduler: ISGDScheduler) -> None:
-        """Report each collect's progress to ``scheduler``'s monitor, as
-        the JAX worker's ``ISGDCompNode.collect`` does: host work on the
-        collecting thread, after the step's metrics are on the host."""
-        self.reporter = MonitorSlaver(scheduler.monitor, self.name)
+    def submit_group(self, batches: List[SparseBatch],
+                     with_aux: bool = True) -> List[Tuple[int, int]]:
+        """The training loop's tolerant grouping: one T-step superbatch
+        where the group stacks, else one step a minibatch. Returns
+        ``[(timestamp, n_ministeps), ...]``, so a caller bounds the work
+        in flight in ministeps."""
+        parts = self._prep_group([(b, self._padding(b)) for b in batches])
+        return [(self._submit_prepped(p, with_aux=with_aux), n) for p, n in parts]
 
     def _prep_group(self, group) -> List[Tuple[object, int]]:
         """Host side of one launch group, ``[(batch, pads)]`` (safe on a
@@ -1796,7 +1776,8 @@ class AsyncSGDWorker:
         stacked = _stack(prepped, self._update_mode) if len(prepped) > 1 else None
         parts = [(stacked, len(prepped))] if stacked is not None else [(p, 1) for p in prepped]
         if self.sgd.wire_compress:
-            parts = [(wire.compress_batch(p), n) for p, n in parts]
+            parts = [(wire.compress_batch(p, encoding=_wire_encoding_name(p)), n)
+                     for p, n in parts]
         return parts
 
     def ingest_workers(self) -> int:
@@ -1836,23 +1817,21 @@ class AsyncSGDWorker:
         # always leaving at least one whole launch in flight
         bound = max(T, self.sgd.max_delay + 1)
 
-        def submit_parts(parts):
-            for prepped, n in parts:
-                pending.append((self._submit_prepped(prepped, with_aux=True), n))
-                while sum(n for _, n in pending) > bound:
-                    self.collect(pending.pop(0)[0])
+        def collect_over_bound():
+            while sum(n for _, n in pending) > bound:
+                self.collect(pending.pop(0)[0])
 
         def groups():
             group = []
             for batch in batches:
-                # the padding (and the stream wire's statics) are decided
-                # here, in stream order, before a prep worker sees the batch
+                # the stream wire's statics are decided here, in stream
+                # order, before a prep worker sees the batch
                 if self.sgd.wire == "stream" and not self._stream_statics_set:
                     self._get_stream_statics(batch)
                 # key heat is noted in stream order here (the feeder when
                 # pipelined) and folded on the feed's own thread
                 self._note_heat(batch)
-                group.append((batch, self._padding(batch)))
+                group.append(batch)
                 if len(group) >= T:
                     yield group
                     group = []
@@ -1861,9 +1840,15 @@ class AsyncSGDWorker:
 
         if pipelined:
             workers = self.ingest_workers()
+
+            def padded_groups():
+                # the padding too is decided on the feeder, in stream order
+                for group in groups():
+                    yield [(b, self._padding(b)) for b in group]
+
             # each staged group holds T prepped batches: the window also
             # bounds the host memory
-            pipe = IngestPipeline(groups(), prep_fn=self._prep_group, workers=workers,
+            pipe = IngestPipeline(padded_groups(), prep_fn=self._prep_group, workers=workers,
                                   capacity=2 * workers, name="train_ingest").start()
 
             def parts():
@@ -1886,14 +1871,16 @@ class AsyncSGDWorker:
                     # executor.step span correlates back through upload,
                     # prep and read in the timeline
                     with telemetry_spans.flow_scope(uploader.next_flow()):
-                        submit_parts([(staged, n)])
+                        pending.append((self._submit_prepped(staged, with_aux=True), n))
+                    collect_over_bound()
             finally:
                 # the uploader first: no thread is left inside a copy
                 uploader.close()
                 pipe.close()
         else:
             for group in groups():
-                submit_parts(self._prep_group(group))
+                pending.extend(self.submit_group(group, with_aux=True))
+                collect_over_bound()
         for ts, _ in pending:
             self.collect(ts)
         return self.progress
@@ -2019,7 +2006,32 @@ class AsyncSGDWorker:
         worker's dtypes (a bf16 leaf widened to f32 by ``state_to_numpy``
         narrows back exactly)."""
         self._drain()
-        state = state_from_jax(snap["state"], self.device)
+        self._install(state_from_jax(snap["state"], self.device), snap["seed_counter"])
+
+    # checkpoint / checkpoint_async: inherited from Checkpointable
+    # (state_host drains and carries the seed counter)
+
+    def restore(self, manager, step: Optional[int] = None) -> int:
+        """Restore the state and the seed counter from the latest (or
+        the given) checkpoint of ``manager`` (a
+        :class:`~...parameter.replica.CheckpointManager`, the JAX
+        package's npz format) and return its step. The leaves are fitted
+        to this worker's padding and dtypes; training resumed from here
+        replays bit for bit, its seed stream (the quantization noise)
+        included."""
+        if step is None:
+            step = manager.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {manager.directory}")
+        self._drain()
+        tree = manager.restore(step, like={"state": self.state, "seed_counter": np.int64(0)})
+        self._install(tree["state"], tree["seed_counter"])
+        return step
+
+    def _install(self, state: Dict[str, torch.Tensor], seed_counter) -> None:
+        """Make ``state`` (tensors on this device) the worker's, fitted
+        to its padding and dtypes; the pull snapshot re-anchors and the
+        seed counter comes back. The steps in flight have drained."""
         for k, leaf in state.items():
             leaf = state[k] = leaf.to(self.state[k].dtype)
             if leaf.dim() >= 1 and leaf.shape[0] != self.num_slots:
@@ -2031,7 +2043,13 @@ class AsyncSGDWorker:
         self._pull_state = self._snapshot()
         self._steps_since_snapshot = 0
         self._replica_state = None  # the replica of the old state goes
-        self._seed_counter = int(snap["seed_counter"])
+        self._seed_counter = int(seed_counter)
+
+    def remove(self) -> None:
+        """Stop the executor (the step running completes, the steps not
+        started are dropped) and leave the postoffice's manager."""
+        self.executor.stop()
+        super().remove()
 
 
 class AsyncSGDScheduler(ISGDScheduler):

@@ -26,6 +26,8 @@ class DataConfig:
     text: str = "libsvm"  # libsvm | criteo | ps_sparse_binary | ...
     file: List[str] = dataclasses.field(default_factory=list)
     ignore_feature_group: bool = False
+    range_begin: int = 0  # an example range restriction (the reference's DataConfig.range)
+    range_end: int = 0
 
 
 @dataclasses.dataclass

@@ -206,11 +206,11 @@ def main(argv=None) -> int:
     else:
         worker, warm, traced, with_aux = (ctr_launches if args.cell == "ctr" else headline_launches)()
         for p in warm:
-            worker.submit(p, with_aux=with_aux)
+            worker.submit_wait(p, with_aux=with_aux)
 
         def run():
             for p in traced:
-                worker.submit(worker.upload(p), with_aux=with_aux)
+                worker.submit_wait(worker.upload(p), with_aux=with_aux)
         unit, units = "ministep", sum(getattr(p, "steps", 1) for p in traced)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

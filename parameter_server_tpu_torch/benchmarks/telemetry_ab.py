@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -117,6 +118,12 @@ def turn(root: pathlib.Path, telemetry: str, seed: int) -> dict:
 
     out = dict(package=str(pathlib.Path(pkg.__file__).parent))
     out.update(headline(seed))
+    # the headline's workers may be registered customers of the package's
+    # postoffice: release them, so both packages' later phases start alike
+    from parameter_server_tpu_torch.system.postoffice import Postoffice
+
+    Postoffice.reset()
+    gc.collect()
     out.update(serve_cli(seed))
     out.update(lm_serving(seed))
     return out

@@ -59,7 +59,8 @@ def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             except ImportError:
                 out[k] = t.to(torch.float32).numpy()
             else:
-                out[k] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+                # a copy: a CPU tensor's numpy view would follow later steps
+                out[k] = t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
         else:
             out[k] = t.numpy().copy()
     return out

@@ -7,10 +7,11 @@ Counterparts of ``SGDProgress``, ``ISGDScheduler``, ``ISGDCompNode``,
 ``MonitorMaster`` the workers report to, and prints the merged progress
 table (``show_progress``, the JAX scheduler's header and line) once its
 ``run()`` has set the printer. ``ISGDCompNode`` is the worker-side
-plumbing of the embedding-table workers (``apps/linear/fm.py``,
-``deep_ctr.py``): ``collect`` (the wait
-on a step, the heartbeat and dashboard timers, the examples counter, the
-per-minibatch AUC, the report to a monitor), the default ``train``
+plumbing of every SGD-family worker (the linear worker of
+``apps/linear/async_sgd.py``, and ``fm.py``, ``deep_ctr.py``):
+``collect`` (the wait on a step, the heartbeat and dashboard timers, the
+examples counter, the learning plane and consistency hooks, the
+per-ministep AUC, the report to a monitor), the default ``train``
 window, checkpoints through :class:`~..parameter.replica.Checkpointable`
 and the shared ELL prep. The reader
 reads and filters on an :class:`~.ingest.IngestPipeline` feeder thread,
@@ -44,12 +45,20 @@ class SGDProgress:
     num_examples_processed: int = 0
     accuracy: List[float] = dataclasses.field(default_factory=list)
     auc: List[float] = dataclasses.field(default_factory=list)
+    nnz: int = 0
+    weight_sum: float = 0.0
+    delta_sum: float = 0.0
 
     def merge(self, other: "SGDProgress") -> None:
+        """Lists extend and counts add; ``nnz`` takes the newer record's
+        when it has one (the reference's MergeProgress)."""
         self.objective.extend(other.objective)
         self.accuracy.extend(other.accuracy)
         self.auc.extend(other.auc)
         self.num_examples_processed += other.num_examples_processed
+        self.nnz = other.nnz or self.nnz
+        self.weight_sum += other.weight_sum
+        self.delta_sum += other.delta_sum
 
 
 class ISGDScheduler(App):
@@ -93,18 +102,29 @@ class ISGDScheduler(App):
 
 
 class ISGDCompNode(App, Checkpointable):
-    """Computation-node base of the SGD-family workers that run on the
-    customer's executor (FM, wide&deep). Subclasses set ``self.progress``
-    (an :class:`SGDProgress`), ``self.sgd``, ``self.directory``,
-    ``self.num_slots`` and ``self._rows_pad`` (None until the first
-    batch), and provide ``process_minibatch`` (returns the step's
-    executor timestamp), ``state_host`` and ``load_state_host``."""
+    """Computation-node base of every SGD-family worker (the linear,
+    FM and wide&deep workers): steps run on the customer's executor.
+    Subclasses set ``self.progress`` (an :class:`SGDProgress`),
+    ``self.sgd``, ``self.directory``, ``self.num_slots`` and, for the
+    ELL prep, ``self._rows_pad`` (None until the first batch), and
+    provide ``process_minibatch`` (returns the step's executor
+    timestamp), ``state_host`` and ``load_state_host``. A worker that
+    knows its table installs a learning plane (``self._learning``,
+    ``telemetry/learning.py``) and, with adaptive τ or the KKT filter, a
+    consistency runtime (``self._consistency``,
+    ``learner/consistency.py``); :meth:`collect` feeds both."""
 
     def __init__(self, name: str = "sgd_comp", monitor: Optional[MonitorMaster] = None):
         super().__init__(name=name)
         self.reporter: MonitorSlaver[SGDProgress] = MonitorSlaver(monitor, name)
         # the training volume the device confirmed, counted in collect()
         self._examples_counter = None
+        # the learning plane: collect() folds each step's example count
+        # and convergence side outputs into it
+        self._learning = None
+        # adaptive τ / KKT accounting / divergence reaction: collect()
+        # hands it each step's metrics after the learning plane folds them
+        self._consistency = None
         from ..telemetry import registry as telemetry_registry
 
         if telemetry_registry.enabled():
@@ -114,13 +134,17 @@ class ISGDCompNode(App, Checkpointable):
                 telemetry_registry.default_registry())["examples"]
 
     def attach_monitor(self, scheduler: ISGDScheduler) -> None:
-        """Report each collected step to ``scheduler``'s monitor."""
+        """Report each collected step to ``scheduler``'s monitor, on the
+        collecting thread, once the step's metrics are on the host."""
         self.reporter = MonitorSlaver(scheduler.monitor, self.name)
 
     def collect(self, ts: int) -> SGDProgress:
         """Wait for step ``ts`` and fold its metrics into ``progress``;
         the wait beats the worker's heartbeat and counts as its busy time
-        on the dashboard while the postoffice's aux runtime runs."""
+        on the dashboard while the postoffice's aux runtime runs. A T-step
+        superbatch's metrics carry a leading ministep axis (``xw`` of
+        ``[T, D, R]``): one AUC a ministep, each scored against its own
+        weight version."""
         from ..utils import evaluation
 
         self.po.beat(self.name)
@@ -135,16 +159,25 @@ class ISGDCompNode(App, Checkpointable):
         num_ex = float(metrics["num_ex"])
         if self._examples_counter is not None:
             self._examples_counter.inc(int(num_ex))
+        if self._learning is not None:
+            self._learning.note_step(metrics)
+        if self._consistency is not None:
+            # may back off the rate, clamp τ and roll the state back
+            self._consistency.on_collect(metrics)
         prog = SGDProgress(
             objective=[float(metrics["objective"])],
             num_examples_processed=int(num_ex),
             accuracy=[float(metrics["correct"]) / max(1.0, num_ex)],
         )
         if "xw" in metrics:  # per-minibatch AUC over the real rows
-            y = metrics["y"].cpu().numpy().ravel()
-            xw = metrics["xw"].cpu().numpy().ravel()
-            m = metrics["mask"].cpu().numpy().ravel() > 0
-            prog.auc = [evaluation.auc(y[m], xw[m])]
+            y, xw, mask = (metrics[k].cpu().numpy() for k in ("y", "xw", "mask"))
+            if xw.ndim >= 3:
+                prog.auc = [evaluation.auc(y[t].ravel()[mask[t].ravel() > 0],
+                                           xw[t].ravel()[mask[t].ravel() > 0])
+                            for t in range(xw.shape[0])]
+            else:
+                m = mask.ravel() > 0
+                prog.auc = [evaluation.auc(y.ravel()[m], xw.ravel()[m])]
         self.progress.merge(prog)
         self.reporter.report(prog)
         return prog

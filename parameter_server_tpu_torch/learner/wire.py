@@ -655,26 +655,30 @@ class UploadCache:
 class CompressedBatch:
     """A prepped batch with its arrays in codec frames (the staging leg
     from the prep pool to the uploader); :func:`decompress_batch`
-    restores it bit for bit."""
+    restores it bit for bit. ``encoding`` names the wire it carries
+    (``raw``, ``bits``, ``exact``, ``stream``; empty when not given)."""
 
-    __slots__ = ("frames", "meta", "template", "n", "raw_nbytes", "wire_nbytes")
+    __slots__ = ("frames", "meta", "template", "n", "raw_nbytes", "wire_nbytes", "encoding")
 
-    def __init__(self, frames, meta, template, n, raw_nbytes, wire_nbytes):
+    def __init__(self, frames, meta, template, n, raw_nbytes, wire_nbytes, encoding=""):
         self.frames = frames  # name -> frame
         self.meta = meta  # name -> (dtype str, shape)
         self.template = template  # the batch with its arrays set to None
         self.n = n
         self.raw_nbytes = raw_nbytes
         self.wire_nbytes = wire_nbytes
+        self.encoding = encoding
 
     @property
     def num_examples(self) -> int:
         return int(self.n)
 
 
-def compress_batch(prepped) -> CompressedBatch:
+def compress_batch(prepped, encoding: str = "") -> CompressedBatch:
     """Each array of a prepped batch in one LZ frame (stateless: runs on
-    the prep pool). An incompressible array rides raw in its frame."""
+    the prep pool). An incompressible array rides raw in its frame. With
+    ``encoding`` (the wire's name) the staged bytes count under
+    ``ps_wire_bytes_total{encoding="<name>+lz"}``."""
     frames, meta = {}, {}
     raw = wire = 0
     for name in array_fields(prepped):
@@ -686,8 +690,11 @@ def compress_batch(prepped) -> CompressedBatch:
     template = replace_arrays(prepped, {n: None for n in frames})
     tel = wire_instruments()
     if tel is not None:
+        if encoding:
+            tel["bytes"].labels(encoding=f"{encoding}+lz").inc(wire)
         tel["saved_bytes"].labels(reason="compression").inc(max(0, raw - wire))
-    return CompressedBatch(frames, meta, template, getattr(prepped, "num_examples", 0), raw, wire)
+    return CompressedBatch(frames, meta, template, getattr(prepped, "num_examples", 0), raw, wire,
+                           encoding)
 
 
 def decompress_batch(cb: CompressedBatch):

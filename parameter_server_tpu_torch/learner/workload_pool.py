@@ -20,10 +20,15 @@ from typing import List, Optional
 
 @dataclasses.dataclass
 class Workload:
+    """A piece of work (the reference's workload.proto): its files, id,
+    replica count (passes), shuffle flag, and the ids of its finished
+    pieces."""
+
     files: List[str] = dataclasses.field(default_factory=list)
     id: int = -1
     replica: int = 1
     shuffle: bool = False
+    finished: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

@@ -10,7 +10,10 @@ from its template). A tree is a nest of dicts (in sorted-key order, as
 ``jax.tree.flatten`` orders a dict), lists and tuples over leaves:
 tensors (saved from the host, restored onto the template's device),
 numpy arrays and Python numbers; ``None`` holds no leaf. So a params-only
-dict saved by either package restores in the other.
+dict saved by either package restores in the other. A bfloat16 leaf is
+written widened to float32 (exact); a bfloat16 leaf of the JAX package's
+checkpoints arrives as a 2-byte void array, and both restore into a
+bfloat16 template bit for bit.
 
 A write goes to ``step_N.tmp`` and is renamed into place; the
 ``checkpoint.write`` fault point (:mod:`..system.faults`) fires between
@@ -66,31 +69,69 @@ def _structure(tree: Any) -> str:
     return "*"
 
 
+def _is_bf16(dtype) -> bool:
+    """A torch bfloat16 or an ``ml_dtypes.bfloat16`` numpy dtype."""
+    return dtype == torch.bfloat16 or getattr(dtype, "name", "") == "bfloat16"
+
+
 def _host(leaf: Any, copy: bool) -> np.ndarray:
+    """A leaf as the numpy array that is written. A bfloat16 leaf (a
+    tensor, or an ``ml_dtypes`` array) is widened exactly to float32:
+    numpy has no bfloat16 of its own, ``np.savez`` would write an
+    ``ml_dtypes`` array as a 2-byte void that only its bits describe, and
+    the JAX package's npz restore refuses such a leaf. Restore narrows it
+    back into a bfloat16 template bit for bit."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        if t.dtype == torch.bfloat16:  # numpy has no bfloat16: widened exactly
+        if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.cpu().numpy().copy() if copy else t.cpu().numpy()
-    return np.array(leaf) if copy else np.asarray(leaf)
+    arr = np.asarray(leaf)
+    if _is_bf16(arr.dtype):
+        return arr.astype(np.float32)
+    return np.array(leaf) if copy else arr
 
 
-def _rebuild(tmpl: Any, arrays) -> Any:
-    """``tmpl``'s structure with its leaves taken in order from the
-    iterator ``arrays``."""
-    if tmpl is None:
-        return None
-    if isinstance(tmpl, dict):  # leaves in sorted-key order, keys in the template's
-        out = {k: _rebuild(tmpl[k], arrays) for k in sorted(tmpl)}
-        return {k: out[k] for k in tmpl}
-    if isinstance(tmpl, (list, tuple)):
-        return type(tmpl)(_rebuild(t, arrays) for t in tmpl)
-    arr = next(arrays)
+def _leaf_like(tmpl: Any, arr: np.ndarray, name: str) -> Any:
+    """The saved array ``arr`` in the form of the template leaf ``tmpl``.
+
+    A 2-byte void array is a bfloat16 leaf as ``np.savez`` writes an
+    ``ml_dtypes`` array (the JAX package's checkpoints where its leaves
+    are bf16): its raw bits go into a bfloat16 template unchanged. A void
+    leaf of another width, or under a template that is not bfloat16,
+    raises ``ValueError`` naming the leaf: it is never cast."""
+    if arr.dtype.kind == "V":
+        tdtype = tmpl.dtype if isinstance(tmpl, (torch.Tensor, np.ndarray, np.generic)) else None
+        if arr.dtype.itemsize != 2 or tdtype is None or not _is_bf16(tdtype):
+            raise ValueError(
+                f"checkpoint leaf {name!r} is a {arr.dtype.itemsize}-byte void array (dtype "
+                f"{arr.dtype.str}) under a template of {tdtype or type(tmpl).__name__}; only "
+                "a 2-byte (bfloat16) leaf restores, into a bfloat16 template")
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        if isinstance(tmpl, torch.Tensor):
+            return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(tmpl.device)
+        return bits.view(tdtype)
     if isinstance(tmpl, torch.Tensor):
+        # a float32 leaf widened from bfloat16 narrows back exactly
         return torch.from_numpy(np.array(arr)).to(device=tmpl.device, dtype=tmpl.dtype)
+    if isinstance(tmpl, np.ndarray) and _is_bf16(tmpl.dtype):
+        return arr.astype(tmpl.dtype)
     if isinstance(tmpl, (bool, int, float)) and not isinstance(tmpl, np.generic):
         return type(tmpl)(arr)
     return arr
+
+
+def _rebuild(tmpl: Any, arrays, name: str = "") -> Any:
+    """``tmpl``'s structure with its leaves taken in order from the
+    iterator ``arrays``; ``name`` is the leaf's path, for errors."""
+    if tmpl is None:
+        return None
+    if isinstance(tmpl, dict):  # leaves in sorted-key order, keys in the template's
+        out = {k: _rebuild(tmpl[k], arrays, f"{name}/{k}") for k in sorted(tmpl)}
+        return {k: out[k] for k in tmpl}
+    if isinstance(tmpl, (list, tuple)):
+        return type(tmpl)(_rebuild(t, arrays, f"{name}/{i}") for i, t in enumerate(tmpl))
+    return _leaf_like(tmpl, next(arrays), name or "/")
 
 
 class Checkpointable:
@@ -189,8 +230,10 @@ class CheckpointManager:
     def restore(self, step: int, like: Any = None) -> Any:
         """Step ``step`` in the structure of ``like``: tensors onto the
         template leaf's device and dtype, Python numbers as their type,
-        numpy arrays as saved. Raises ``ValueError`` when the counts of
-        leaves differ."""
+        numpy arrays as saved (a bfloat16 template's leaf back in
+        bfloat16, from a float32 or a 2-byte void leaf, bit for bit).
+        Raises ``ValueError`` when the counts of leaves differ, or for a
+        void leaf that is not a bfloat16 template's."""
         self.wait()  # a save in flight may be writing this step
         path = self._step_dir(step)
         if like is None:

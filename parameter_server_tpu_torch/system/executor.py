@@ -551,6 +551,11 @@ class Executor:
         with self._cv:
             return self._futures.get(ts)
 
+    def pop_result(self, ts: int) -> Any:
+        """Step ``ts``'s value once it is done, taken out of the executor
+        (:meth:`wait` with ``pop=True``)."""
+        return self.wait(ts)
+
     def stop(self, cancel_pending: bool = True) -> None:
         """Stop the dispatch thread and join it. ``cancel_pending`` drops
         the steps not started (the executing one completes). Idempotent."""

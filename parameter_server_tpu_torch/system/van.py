@@ -13,7 +13,9 @@ its server is the card's own memory, so the Van does two things:
   ``from_bytes``, with the bytes counted on both sides. Given a pair of
   per-peer endpoints (``system/remote_node.py``), the sender's encodes
   and frames the message and the receiver's decodes it, as in the JAX
-  package; the aux runtime's metric reports travel so.
+  package; the aux runtime's metric reports travel so;
+- ``send`` / ``recv``: a message through a filter chain's encode and
+  decode sides alone, without a frame.
 
 Each transfer stamps the sending thread's trace context on the task,
 runs inside a ``van.transfer`` span, feeds the nodes' heartbeat traffic
@@ -118,6 +120,21 @@ class Van:
                 self._tel["wire_recv_bytes"].inc(recv)
                 self._tel["transfers"].inc()
         return out
+
+    # -- the filter chain alone (ref van.cc Send / Recv) --
+
+    def send(self, msg: Message, filters=None) -> Message:
+        """``msg`` through the encode side of a filter chain (``filters``,
+        else the task's own), in list order, in place; no frame."""
+        from ..filter.base import encode_chain
+
+        return encode_chain(msg, filters or msg.task.filters)
+
+    def recv(self, msg: Message, filters=None) -> Message:
+        """The decode side of :meth:`send`'s chain, in reverse order."""
+        from ..filter.base import decode_chain
+
+        return decode_chain(msg, filters or msg.task.filters)
 
     def _account(self, ident: str, in_bytes: int = 0, out_bytes: int = 0) -> None:
         """Feed a transfer's bytes into the node's HeartbeatInfo (the

@@ -474,7 +474,7 @@ def _demo_main(argv=None) -> int:
         pass
     finally:
         close_cluster(srv)
-        worker.executor.stop()
+        worker.remove()
         po.stop()
     return 0
 

@@ -1,9 +1,9 @@
 """Host-side concurrency primitives: queues, producers, an ordered pool.
 
 Counterparts of ``ThreadsafeQueue``, ``ProducerConsumer``,
-``OrderedStagePool`` and ``iter_on_thread`` in the JAX package's
-``utils/concurrent.py`` (the reference's ``threadsafe_queue.h`` and
-``producer_consumer.h``). They keep the host busy while the card runs:
+``OrderedStagePool``, ``ThreadPool`` and ``iter_on_thread`` in the JAX
+package's ``utils/concurrent.py`` (the reference's ``threadsafe_queue.h``,
+``producer_consumer.h`` and ``threadpool.h``). They keep the host busy while the card runs:
 reading, parsing, filtering and prepping minibatches on threads.
 
 Two contracts hold for every producer here: an exception raised on a
@@ -292,6 +292,48 @@ class OrderedStagePool(Generic[T]):
                 pass
             for t in self._threads:
                 t.join(timeout=0.05)
+
+
+class ThreadPool:
+    """A fixed pool of threads over queued tasks (the reference's
+    ``add()`` / ``startWorkers()``): :meth:`start_workers` runs every
+    task added, ``num_workers`` at a time, joins, and re-raises the first
+    task's exception (a worker that hits one stops)."""
+
+    def __init__(self, num_workers: int):
+        self._num = max(1, num_workers)
+        self._tasks: list = []
+
+    def add(self, fn: Callable[[], None]) -> None:
+        self._tasks.append(fn)
+
+    def start_workers(self) -> None:
+        it = iter(self._tasks)
+        lock = threading.Lock()
+        errors: list = []
+
+        def worker():
+            while True:
+                with lock:
+                    task = next(it, None)
+                if task is None:
+                    return
+                try:
+                    task()
+                except BaseException as e:  # re-raised on the caller's thread
+                    with lock:
+                        errors.append(e)
+                    return
+
+        threads = [threading.Thread(target=worker, name=f"thread_pool-{i}")
+                   for i in range(self._num)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        self._tasks.clear()
+        if errors:
+            raise errors[0]
 
 
 def iter_on_thread(it, maxsize: int, close_join_s: float = 2.5):

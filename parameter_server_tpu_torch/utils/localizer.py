@@ -10,24 +10,12 @@ removed.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
+from .ordered_match import match_positions
 from .sparse import SparseBatch
-
-
-def match_positions(dst_keys: np.ndarray, src_keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """For each src key present in dst, its position in dst: returns
-    ``(src_hit_mask, dst_pos_of_hits)``. Both arrays sorted and unique."""
-    pos = np.searchsorted(dst_keys, src_keys)
-    posc = np.minimum(pos, max(len(dst_keys) - 1, 0))
-    hit = (
-        (pos < len(dst_keys)) & (dst_keys[posc] == src_keys)
-        if len(dst_keys)
-        else np.zeros(len(src_keys), dtype=bool)
-    )
-    return hit, pos[hit]
 
 
 def remap(batch: SparseBatch, keep_keys: np.ndarray) -> SparseBatch:

@@ -1,8 +1,11 @@
-"""Count-min sketch of feature-key frequencies (host, native).
+"""Probabilistic sketches of feature keys (host, native): a bloom
+filter and a count-min sketch of frequencies.
 
-Counterpart of ``CountMin`` in ``parameter_server_tpu/utils/sketch.py``:
-the same double-hashed positions and saturating counters, so the
-tail-feature filter keeps the same keys in both packages.
+Counterpart of ``BloomFilter`` and ``CountMin`` in
+``parameter_server_tpu/utils/sketch.py``: the same double-hashed
+positions (and, for the count-min, saturating counters), so the
+tail-feature filter keeps the same keys in both packages and a bloom
+filter sets the same bits.
 :class:`DecayCountMin` is the key-heat sketch of the learning plane
 (``telemetry/learning.py``), as in the JAX package. The positions, the
 inserts and the queries run in the port's native library (``ps_cm_*``),
@@ -32,6 +35,29 @@ def _positions(keys: np.ndarray, num_hash: int, mod: int) -> np.ndarray:
     native.library().ps_cm_positions(_p(keys, ctypes.c_uint64), keys.size, num_hash, mod,
                                       _p(pos, ctypes.c_uint32))
     return pos
+
+
+class BloomFilter:
+    """A bloom filter of ``num_bits`` bits and ``num_hash`` hash
+    positions a key (the reference's ``bloom_filter.h``): no false
+    negatives; ``query`` may say yes to a key never inserted."""
+
+    def __init__(self, num_bits: int = 1 << 20, num_hash: int = 2):
+        if not 0 < num_bits <= 1 << 32:
+            raise ValueError(f"a bloom filter holds 1 to 2^32 bits, not {num_bits}")
+        self.num_bits = int(num_bits)
+        self.num_hash = int(num_hash)
+        self.bits = np.zeros(self.num_bits, dtype=bool)
+
+    def insert(self, keys: np.ndarray) -> None:
+        self.bits[_positions(keys, self.num_hash, self.num_bits).reshape(-1)] = True
+
+    def query(self, keys: np.ndarray) -> np.ndarray:
+        """Whether each key may have been inserted."""
+        return self.bits[_positions(keys, self.num_hash, self.num_bits)].all(axis=0)
+
+    def __contains__(self, key: int) -> bool:
+        return bool(self.query(np.asarray([key]))[0])
 
 
 class CountMin:

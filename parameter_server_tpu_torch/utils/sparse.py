@@ -2,8 +2,8 @@
 
 Counterpart of ``parameter_server_tpu/utils/sparse.py``: the CSR
 minibatch the worker preps, its dense and column-major (CSC) views for
-block coordinate descent, plus the synthetic generator the benchmark
-and tests draw from. Same arrays, same random stream for a given seed.
+block coordinate descent, its padded COO form (:class:`PaddedBatch`),
+plus the synthetic generator the benchmark and tests draw from. Same arrays, same random stream for a given seed.
 """
 
 from __future__ import annotations
@@ -92,6 +92,33 @@ class SparseBatch:
             slot_ids=None if self.slot_ids is None else self.slot_ids[lo:hi],
         )
 
+    def pad_device(self, nnz_pad: int, rows_pad: Optional[int] = None,
+                   pad_col: Optional[int] = None) -> "PaddedBatch":
+        """COO arrays padded to ``nnz_pad`` entries and ``rows_pad`` rows
+        (host numpy; the JAX package's static-shape device encoding).
+        Padding entries sit in row 0 at the sentinel column ``pad_col``
+        (``cols`` by default, one column past the keys) with value 0, so
+        they add nothing to any row; ``row_mask`` marks the real rows."""
+        if rows_pad is None:
+            rows_pad = self.n
+        if self.nnz > nnz_pad:
+            raise ValueError(f"nnz {self.nnz} exceeds budget {nnz_pad}")
+        if self.n > rows_pad:
+            raise ValueError(f"rows {self.n} exceed budget {rows_pad}")
+        if pad_col is None:
+            pad_col = self.cols
+        rows = np.zeros(nnz_pad, dtype=np.int32)
+        cols = np.full(nnz_pad, pad_col, dtype=np.int32)
+        vals = np.zeros(nnz_pad, dtype=np.float32)
+        rows[: self.nnz] = self.row_ids()
+        cols[: self.nnz] = self.indices
+        vals[: self.nnz] = self.value_array()
+        y = np.zeros(rows_pad, dtype=np.float32)
+        y[: self.n] = self.y
+        mask = np.zeros(rows_pad, dtype=np.float32)
+        mask[: self.n] = 1.0
+        return PaddedBatch(y=y, rows=rows, cols=cols, vals=vals, row_mask=mask)
+
 
 @dataclasses.dataclass
 class SparseCols:
@@ -111,6 +138,25 @@ class SparseCols:
         lo, hi = self.colptr[j], self.colptr[j + 1]
         v = None if self.values is None else self.values[lo:hi]
         return self.row_ids[lo:hi], v
+
+
+@dataclasses.dataclass
+class PaddedBatch:
+    """A SparseBatch as static-shape COO arrays (:meth:`SparseBatch.pad_device`)."""
+
+    y: np.ndarray  # [rows_pad]
+    rows: np.ndarray  # [nnz_pad] int32
+    cols: np.ndarray  # [nnz_pad] int32; padding at the sentinel column
+    vals: np.ndarray  # [nnz_pad] float32; padding 0
+    row_mask: np.ndarray  # [rows_pad] float32, 1 for a real example
+
+    @property
+    def rows_pad(self) -> int:
+        return len(self.y)
+
+    @property
+    def nnz_pad(self) -> int:
+        return len(self.rows)
 
 
 def from_dense(x: np.ndarray, y: np.ndarray) -> SparseBatch:

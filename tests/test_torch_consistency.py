@@ -36,11 +36,21 @@ from parameter_server_tpu.utils import sparse as jsparse
 from parameter_server_tpu_torch.apps.linear import async_sgd as tsgd
 from parameter_server_tpu_torch.apps.linear import config as tcfg
 from parameter_server_tpu_torch.utils import sparse as tsparse
+from parameter_server_tpu_torch.system.postoffice import Postoffice as TPostoffice
 
 torch.set_num_threads(1)
 
 TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)
 MB, SLOTS, KEYS, LANES = 64, 1 << 9, 1 << 12, 6
+
+
+@pytest.fixture(autouse=True)
+def _release_port_workers():
+    """A port worker registers with the port's postoffice, whose manager
+    keeps it (and its executor's thread) alive: reset that postoffice
+    after each test, as the JAX tests reset theirs."""
+    yield
+    TPostoffice.reset()
 
 
 @pytest.fixture
@@ -182,7 +192,7 @@ class TestKKTFilter:
     def test_feedback_is_one_keep_vector_a_step(self):
         w = tsgd.AsyncSGDWorker(_conf(tcfg, 0, update="sparse", kkt_filter=True,
                                       kkt_drop_after=3, ingest_workers=1), device="cpu")
-        m = w.process_minibatch(_batches(tsparse, 1)[0])
+        m = w.wait(w.process_minibatch(_batches(tsparse, 1)[0]))
         assert m["kkt_keep"].dtype == torch.bool and m["kkt_keep"].shape == m["kkt_uslots"].shape
         assert float(m["kkt_slots"]) == float((m["kkt_uslots"] < SLOTS).sum())
 
@@ -327,7 +337,7 @@ class TestLiveTauAccounting:
         seen = []
         for i, tau in enumerate((4, 4, 4, 4, 4, 1, 1, 1, 0, 2, 2, 2, 2)):
             w.set_effective_tau(tau)
-            w.process_minibatch(_batches(tsparse, 1, seed0=i)[0])
+            w.wait(w.process_minibatch(_batches(tsparse, 1, seed0=i)[0]))
             seen.append((tau, w.last_staleness))
         assert all(s <= t for t, s in seen)
         assert [s for _, s in seen] == [0, 1, 2, 3, 0, 0, 0, 0, 0, 1, 0, 1, 0]

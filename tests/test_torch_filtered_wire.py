@@ -45,6 +45,7 @@ from parameter_server_tpu_torch.apps.linear.penalty import create_penalty
 from parameter_server_tpu_torch.apps.linear.updaters import FTRLUpdater
 from parameter_server_tpu_torch.ops import kv_ops
 from parameter_server_tpu_torch.ops import quantize as tqops
+from parameter_server_tpu_torch.system.postoffice import Postoffice as TPostoffice
 
 torch.set_num_threads(1)
 
@@ -52,6 +53,15 @@ TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)  # FMA contraction, fed back
 MB, KEYS, NNZ, SLOTS = 256, 1 << 14, 39, 1 << 12
 ALPHA = 0.1
 FF1 = [{"type": "fixing_float", "num_bytes": 1}]
+
+
+@pytest.fixture(autouse=True)
+def _release_port_workers():
+    """A port worker registers with the port's postoffice, whose manager
+    keeps it (and its executor's thread) alive: reset that postoffice
+    after each test, as the JAX tests reset theirs."""
+    yield
+    TPostoffice.reset()
 
 
 def make_batch(seed, n=MB):
@@ -269,7 +279,7 @@ def test_push_filtered_worker_step_from_a_trained_state(mesh, nb):
     start = tw.state_host()["state"]
     b = make_batch(7)
     jm = jw.executor.wait(jw.process_minibatch(b))
-    tm = tw.process_minibatch(b)
+    tm = tw.wait(tw.process_minibatch(b))
     # the forward pass and the pushed (pre-quantization) gradient are
     # the unfiltered step's
     np.testing.assert_allclose(float(tm["objective"]), float(jm["objective"]), rtol=1e-5)
@@ -295,7 +305,7 @@ def _shard_grad(state, batch):
         return orig(live, g, touched, seed=seed)
 
     scratch.updater.apply = spy
-    scratch.process_minibatch(batch)
+    scratch.wait(scratch.process_minibatch(batch))
     return cap["g"].numpy()
 
 
@@ -305,7 +315,7 @@ def test_pull_filtered_worker_step(mesh, gather):
     b = make_batch(8)
     w = tw.weights_dense()  # the weights this step pulls, before quantization
     jm = jw.executor.wait(jw.process_minibatch(b))
-    tm = tw.process_minibatch(b)
+    tm = tw.wait(tw.process_minibatch(b))
     # the forward pass ran on quantized weights: margins within what one
     # step per weight can move them (39 keys per row)
     step = (float(w.max()) - float(w.min())) / 255
@@ -316,8 +326,8 @@ def test_pull_narrow_and_wide_workers_are_bit_identical(mesh):
     _, wide = _workers(mesh, pull_filter=FF1, pull_gather="wide")
     _, narrow = _workers(mesh, pull_filter=FF1, pull_gather="narrow")
     for i in range(4):
-        wide.process_minibatch(make_batch(i))
-        narrow.process_minibatch(make_batch(i))
+        wide.wait(wide.process_minibatch(make_batch(i)))
+        narrow.wait(narrow.process_minibatch(make_batch(i)))
     for k in wide.state:
         assert torch.equal(wide.state[k], narrow.state[k])
 
@@ -338,8 +348,8 @@ def test_filtered_trajectory_within_the_quantized_wire_bar(mesh, name, sgd):
     for i in range(8):
         b = make_batch(i)
         jm = jw.executor.wait(jw.process_minibatch(b))
-        tm = tw.process_minibatch(b)
-        plain.process_minibatch(b)
+        tm = tw.wait(tw.process_minibatch(b))
+        plain.wait(plain.process_minibatch(b))
         tseen.append(tw.last_staleness)
         jl.append(float(jm["objective"]) / MB)
         tl.append(float(tm["objective"]) / MB)
@@ -373,7 +383,7 @@ def test_filters_off_bit_identical_to_the_unfiltered_step(dtype):
     ref = tsgd.AsyncSGDWorker(_conf(tcfg, ftrl_state_dtype=dtype), device="cpu")
     for i in range(4):
         b = make_batch(i)
-        m = tw.process_minibatch(b)
+        m = tw.wait(tw.process_minibatch(b))
         prepped = ref.upload(ref.prep(b, device_put=False))
         ref._seed_counter += 1
         xw = _plain_hashed_step(ref.updater, ref.loss, ref.num_slots, prepped, ref.state,
@@ -392,8 +402,8 @@ def test_no_op_filters_leave_the_step_bit_identical(filters):
     plain = tsgd.AsyncSGDWorker(_conf(tcfg), device="cpu")
     other = tsgd.AsyncSGDWorker(_conf(tcfg, push_filter=filters, pull_filter=filters), device="cpu")
     for i in range(3):
-        plain.process_minibatch(make_batch(i))
-        other.process_minibatch(make_batch(i))
+        plain.wait(plain.process_minibatch(make_batch(i)))
+        other.wait(other.process_minibatch(make_batch(i)))
     for k in plain.state:
         assert torch.equal(plain.state[k], other.state[k])
 
@@ -416,7 +426,7 @@ def test_tau4_trajectory_matches_jax(mesh, update, steps):
             tm = tw.submit_superbatch(group, with_aux=True)
         else:
             jm = jw.executor.wait(jw.process_minibatch(group[0]))
-            tm = tw.process_minibatch(group[0])
+            tm = tw.wait(tw.process_minibatch(group[0]))
         tseen.append(tw.last_staleness)
         np.testing.assert_allclose(float(tm["objective"]), float(jm["objective"]), rtol=1e-5)
         js, ts = jw.state_host()["state"], tw.state_host()["state"]
@@ -430,15 +440,15 @@ def test_tau4_trajectory_matches_jax(mesh, update, steps):
 
 def test_tau_snapshot_is_a_copy_and_tau0_reads_live():
     tw = tsgd.AsyncSGDWorker(_conf(tcfg, max_delay=2), device="cpu")
-    tw.process_minibatch(make_batch(0))
+    tw.wait(tw.process_minibatch(make_batch(0)))
     snap = tw._pull_state
     assert snap["z"].data_ptr() != tw.state["z"].data_ptr()
     before = snap["z"].clone()
-    tw.process_minibatch(make_batch(1))  # computes on the snapshot
+    tw.wait(tw.process_minibatch(make_batch(1)))  # computes on the snapshot
     assert tw._pull_state is snap and torch.equal(snap["z"], before)
     assert not torch.equal(tw.state["z"], before)
     t0 = tsgd.AsyncSGDWorker(_conf(tcfg), device="cpu")
-    t0.process_minibatch(make_batch(0))
+    t0.wait(t0.process_minibatch(make_batch(0)))
     assert t0._pull_state is t0.state
 
 

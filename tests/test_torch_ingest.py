@@ -51,6 +51,7 @@ from parameter_server_tpu_torch.learner import sgd as tlearner
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory
 from parameter_server_tpu_torch.utils import concurrent as tconc
 from parameter_server_tpu_torch.utils import sparse as tsparse
+from parameter_server_tpu_torch.system.postoffice import Postoffice as TPostoffice
 
 torch.set_num_threads(1)
 
@@ -58,6 +59,15 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "data", "ingest_parity.libsvm"
 TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)
 OBJ_RTOL = 1e-5
 IMPLS = {"port": tconc, "jax": jconc}
+
+
+@pytest.fixture(autouse=True)
+def _release_port_workers():
+    """A port worker registers with the port's postoffice, whose manager
+    keeps it (and its executor's thread) alive: reset that postoffice
+    after each test, as the JAX tests reset theirs."""
+    yield
+    TPostoffice.reset()
 
 
 @pytest.fixture(params=sorted(IMPLS))

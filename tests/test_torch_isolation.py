@@ -67,7 +67,8 @@ def test_port_imports_nothing_of_jax():
               "parameter.kv_layer", "models.convnet", "apps.nn.trainer", "apps.nn.main",
               "parameter.kv_store", "benchmarks.components", "ps", "apps.registry",
               "system.env", "filter.key_caching", "filter.compressing", "filter.sparse",
-              "filter.add_noise"):
+              "filter.add_noise", "utils.assign_op", "utils.ordered_match", "utils.bitmap",
+              "utils.sketch", "utils.file", "utils.subproc", "utils.device_lock"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -288,6 +289,16 @@ def test_port_sources_name_no_jax_import(where):
     assert not hits, hits
 
 
+def test_probe_child_source_names_no_jax():
+    """The subprocess probe initialises the card through torch; its
+    source (run as ``python -c``) names no JAX module."""
+    from parameter_server_tpu_torch.utils import subproc
+
+    src = subproc.PROBE_CHILD_SRC
+    assert not _FORBIDDEN.search(src) and "jax" not in src
+    assert "torch.cuda.init()" in src and "torch.cuda.device_count()" in src
+
+
 def _conf(**sgd):
     c = tcfg.Config()
     c.async_sgd = tcfg.SGDConfig(num_slots=1 << 12, minibatch=64, **sgd)
@@ -362,7 +373,7 @@ def test_ported_config_values_are_accepted(field, value, needs):
     jcfg.SGDConfig(**{field: value}, **needs)  # the JAX package's dataclass takes it
     w = tsgd.AsyncSGDWorker(_conf(**{field: value}, **needs), device="cpu")
     assert getattr(w.sgd, field) == value
-    m = w.process_minibatch(random_sparse(64, 1 << 14, 39, seed=0, binary=True))
+    m = w.wait(w.process_minibatch(random_sparse(64, 1 << 14, 39, seed=0, binary=True)))
     assert float(m["num_ex"]) == 64 and np.isfinite(float(m["objective"]))
 
 

@@ -752,7 +752,7 @@ def test_headline_steps_are_bit_identical_run_to_run(dev, update):
             w.submit_superbatch(batches, with_aux=False)
         else:
             for b in batches:
-                w.process_minibatch(b, with_aux=False)
+                w.wait(w.process_minibatch(b, with_aux=False))
         torch.cuda.synchronize()
         states.append({k: v.clone() for k, v in w.state.items()})
     for k in states[0]:
@@ -1095,7 +1095,7 @@ def _migrate_and_recover(device):
                                  num_replicas=1, replica_every=2)
     w = tsgd.AsyncSGDWorker(c, device=device)
     for i in range(3):  # the replica refreshes after ministeps 1 and 3
-        w.process_minibatch(random_sparse(256, 1 << 14, 39, seed=i, binary=True))
+        w.wait(w.process_minibatch(random_sparse(256, 1 << 14, 39, seed=i, binary=True)))
     state = {k: v.cpu() for k, v in w.state.items()}
     w.wipe_server_shard(0)
     assert not any(bool(torch.any(v)) for v in w.state.values())
@@ -1121,3 +1121,52 @@ def test_migration_and_recovery_on_the_card_equal_the_cpu(dev):
     for k in cpu_state:
         assert torch.allclose(card_state[k].float(), cpu_state[k].float(), rtol=1e-5,
                               atol=1e-6), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_resume_on_the_card_is_bit_identical(dev, dtype, tmp_path):
+    """Phase 8f(a) at a small size: 16 sparse ministeps (T 4) unbroken
+    against a run checkpointed after 8 and resumed in a fresh worker on
+    the card: z and √n bit-equal, the tail's ``ftrl_sparse`` and
+    ``segment_sum`` launches equal the unbroken tail's; the card's
+    checkpoint restores into a CPU worker to the card's ``state_host``
+    bit for bit."""
+    from parameter_server_tpu_torch.apps.linear import async_sgd as tsgd
+    from parameter_server_tpu_torch.apps.linear import config as tcfg
+    from parameter_server_tpu_torch.parameter.replica import CheckpointManager
+    from parameter_server_tpu_torch.utils.sparse import random_sparse
+
+    c = tcfg.Config()
+    c.penalty = tcfg.PenaltyConfig(type="l1", lambda_=[1.0])
+    c.learning_rate = tcfg.LearningRateConfig(type="decay", alpha=0.1, beta=1.0)
+    c.async_sgd = tcfg.SGDConfig(algo="ftrl", minibatch=256, num_slots=1 << 14, update="sparse",
+                                 ftrl_state_dtype=dtype, steps_per_launch=4)
+    batches = [random_sparse(256, 1 << 16, 39, seed=i, binary=True) for i in range(16)]
+    mgr = CheckpointManager(str(tmp_path))
+
+    def tail_launches(w):
+        before = (tsparse.ftrl_sparse_update.launches, tseg.segment_sum.launches)
+        w.train(batches[8:], pipelined=False)
+        torch.cuda.synchronize()
+        return (tsparse.ftrl_sparse_update.launches - before[0],
+                tseg.segment_sum.launches - before[1])
+
+    unbroken = tsgd.AsyncSGDWorker(c, device=dev)
+    unbroken.train(batches[:8], pipelined=False)
+    at_checkpoint = unbroken.state_host()
+    unbroken.checkpoint(mgr, step=8)
+    want = tail_launches(unbroken)
+    resumed = tsgd.AsyncSGDWorker(c, device=dev)
+    assert resumed.restore(mgr) == 8
+    assert tail_launches(resumed) == want == (8, 16)
+    for k in unbroken.state:
+        assert torch.equal(_bits(resumed.state[k]), _bits(unbroken.state[k])), k
+    cpu = tsgd.AsyncSGDWorker(c, device="cpu")
+    cpu.restore(mgr)
+    got = cpu.state_host()
+    assert int(got["seed_counter"]) == int(at_checkpoint["seed_counter"]) == 8
+    for k, v in at_checkpoint["state"].items():
+        mine = np.asarray(got["state"][k])
+        assert mine.dtype == v.dtype and mine.tobytes() == np.asarray(v).tobytes(), k
+    for w in (unbroken, resumed, cpu):
+        w.remove()

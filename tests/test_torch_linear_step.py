@@ -118,7 +118,7 @@ def _launch(jw, tw, group):
         tm = tw.submit_superbatch(group, with_aux=True)
     else:
         ts = jw.process_minibatch(group[0])
-        tm = tw.process_minibatch(group[0])
+        tm = tw.wait(tw.process_minibatch(group[0]))
     return jw.executor.wait(ts), tm
 
 

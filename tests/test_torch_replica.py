@@ -354,7 +354,7 @@ def test_load_state_host_drops_the_replica(mesh1):
     assert tw._replica_state is not None
     tw.load_state_host(jw.state_host())
     assert tw._replica_state is None and not tw.recover_server_shard(0)
-    tw.process_minibatch(make_batch(1))
+    tw.wait(tw.process_minibatch(make_batch(1)))
     assert tw.recover_server_shard(0)
 
 

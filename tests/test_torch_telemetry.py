@@ -383,7 +383,7 @@ def test_worker_key_heat_equals_the_jax_key_heat(pipelined):
     batches = [random_sparse(256, 1 << 20, 24, seed=s, binary=True) for s in range(7)]
     worker = AsyncSGDWorker(c, device="cpu", name="heat_probe")
     worker.train(batches[:6], pipelined=pipelined)
-    worker.process_minibatch(batches[6])
+    worker.wait(worker.process_minibatch(batches[6]))
     theirs = jlearn.KeyHeat(worker.num_slots, 1)
     jdir = JKeyDirectory(c.async_sgd.num_slots, hashed=True)
     for b in batches:

@@ -49,11 +49,21 @@ from parameter_server_tpu_torch.ops import wire_codec as twc
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory
 from parameter_server_tpu_torch.utils import bitpack as tbitpack
 from parameter_server_tpu_torch.utils import sparse as tsparse
+from parameter_server_tpu_torch.system.postoffice import Postoffice as TPostoffice
 
 torch.set_num_threads(1)
 
 TRAJ_TOL = dict(rtol=1e-5, atol=1e-6)
 PREPPED = [f.name for f in dataclasses.fields(tsgd.PreppedBatch)]
+
+
+@pytest.fixture(autouse=True)
+def _release_port_workers():
+    """A port worker registers with the port's postoffice, whose manager
+    keeps it (and its executor's thread) alive: reset that postoffice
+    after each test, as the JAX tests reset theirs."""
+    yield
+    TPostoffice.reset()
 
 
 @pytest.fixture
