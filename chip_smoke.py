@@ -307,6 +307,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    batches; (e) ``utils/subproc.run_graceful`` on the port's probe child
    (``torch.cuda.init()`` on a side thread) under ``utils/device_lock``,
    rc 0, its wall time;
+8g. the component suite (ROADMAP A13 slice 3, ``benchmarks/components.py``,
+   ``python -m parameter_server_tpu_torch.benchmarks``): every registered
+   benchmark in this process on the card, each from a reset process state
+   (the postoffice, the fault points), all at full size (``ftrl_chain`` at
+   2^24, 2^26 and 2^28 slots, ``attention`` at B·H 4 × S 4096 × D 64 with
+   chains of 16, ``ftrl_sparse_ab`` at P 2^22, U 2^16, the plane probes at
+   the JAX suite's full shapes); each line echoed as a
+   comment and parsed (metric, value, unit; a finite value > 0), every share
+   of a peak or of a bound in its lines and its record at most 1; the
+   launches of each benchmark counted from zero: ``ftrl_sparse`` once a call
+   of ``ftrl_sparse_ab``'s cuda arm (its record not a fallback), ``ftrl_dense``
+   8 a call of ``ftrl_chain``'s, ``flash_fwd`` ``chain`` a call of
+   ``attention``'s kernel arms, the ``roofline`` probes' kernels,
+   ``ftrl_sparse`` and ``segment_sum`` in ``consistency``'s workers,
+   ``flash_fwd`` in ``decode_batching``; the FTRL arms' final z and √n
+   bit-equal to the plain arms' (same start, same calls) in
+   ``ftrl_sparse_ab`` and at each ``ftrl_chain`` size; ``attention``'s first
+   kernel forward, float32 and bf16, within ``FLASH_TOL`` of the plain one;
 9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -327,6 +345,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -4659,6 +4678,160 @@ def checkpoint_plane(seed: int, smi: str, batches) -> dict:
     return out
 
 
+# -- phase 8g: the component benchmarks --
+
+#: a share of a peak or of a bound: its key in a record, its line's name
+SHARE_KEY = re.compile(r"frac_of|mfu")
+SHARE_LINE = re.compile(r"_frac_of_peak$|_pct$")
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launches since :func:`reset_counts`, by name."""
+    sparse, dense, quant, segment = counts()
+    return dict(ftrl_sparse=sparse, ftrl_dense=dense, quantize=quant, segment_sum=segment,
+                flash_fwd=fa.flash_attention.launches, flash_bwd_dq=fa.flash_bwd_dq.launches,
+                flash_bwd_dkv=fa.flash_bwd_dkv.launches)
+
+
+def record_shares(rec, path: str = ""):
+    """``(path, value)`` of every share of a peak or a bound in a record."""
+    items = rec.items() if isinstance(rec, dict) else enumerate(rec) if isinstance(
+        rec, list) else ()
+    for k, v in items:
+        where = f"{path}{k}"
+        if isinstance(v, (dict, list)):
+            yield from record_shares(v, where + "/")
+        elif (isinstance(v, (int, float)) and not isinstance(v, bool)
+              and SHARE_KEY.search(str(k))):
+            yield where, float(v)
+
+
+def run_component(name: str) -> dict:
+    """One registered benchmark at full size in this process on the card, its lines
+    echoed (as comments) and parsed, the kernels it launched counted from
+    zero, every share it reports at most 1."""
+    from parameter_server_tpu_torch.benchmarks import REGISTRY
+    from parameter_server_tpu_torch.benchmarks.__main__ import reset_process_state
+
+    reset_process_state()
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = REGISTRY[name](False, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    reset_process_state()
+    lines = []
+    for text in buf.getvalue().splitlines():
+        if not text.strip():
+            continue
+        print(f"# 8g {name}: {text}", flush=True)
+        m = json.loads(text)
+        check({"metric", "value", "unit"} <= set(m), f"8g {name}: line without its keys: {text}")
+        check(isinstance(m["value"], (int, float)) and math.isfinite(m["value"]) and m["value"] > 0,
+              f"8g {name}: value not finite and > 0: {text}")
+        limit = 100.0 if m["metric"].endswith("_pct") else 1.0
+        check(not SHARE_LINE.search(m["metric"]) or m["value"] <= limit,
+              f"8g {name}: a share above {limit}: {text}")
+        lines.append(m)
+    check(lines, f"8g {name}: no line")
+    shares = dict(record_shares(rec))
+    over = {k: v for k, v in shares.items() if v > (100.0 if k.endswith("_pct") else 1.0)}
+    check(not over, f"8g {name}: shares above 1 in its record: {over}")
+    return dict(record=rec, lines=lines, launches=launches, seconds=seconds, shares=shares)
+
+
+def component_plane(smi: str) -> dict:
+    """Phase 8g: every registered benchmark of the component suite
+    (``benchmarks/components.py``) on the card, in one process, each
+    from a reset process state; the kernels each launched; the FTRL arms'
+    final state bits, the flash arm's first forward against the plain
+    one."""
+    from parameter_server_tpu_torch.benchmarks import REGISTRY
+    from parameter_server_tpu_torch.benchmarks import components  # noqa: F401 (registers)
+
+    check(len(REGISTRY) == 22, f"8g: {len(REGISTRY)} registered benchmarks")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = {}
+    for name in sorted(REGISTRY):
+        runs[name] = r = run_component(name)
+        nonzero = {k: v for k, v in r["launches"].items() if v}
+        print(f"# 8g {name} ({smi}): {len(r['lines'])} lines in {r['seconds']:.1f} s; launches "
+              f"{nonzero}", flush=True)
+        torch.cuda.empty_cache()
+
+    sp = runs["ftrl_sparse_ab"]
+    rec = sp["record"]
+    check(sp["launches"]["ftrl_sparse"] == rec["cuda_calls"] > 0,
+          f"8g ftrl_sparse_ab: {sp['launches']['ftrl_sparse']} launches for {rec['cuda_calls']} "
+          "calls of the cuda arm")
+    check(rec["fused_is_fallback"] is False and rec["cuda_bit_equal_plain"],
+          f"8g ftrl_sparse_ab: fallback {rec['fused_is_fallback']}, bit-equal "
+          f"{rec['cuda_bit_equal_plain']}")
+    ch = runs["ftrl_chain"]
+    sizes = ch["record"]["sizes"]
+    chain_calls = sum(r["calls"].get("cuda", 0) for r in sizes.values())
+    check(ch["launches"]["ftrl_dense"] == 8 * chain_calls > 0,
+          f"8g ftrl_chain: {ch['launches']['ftrl_dense']} launches for {chain_calls} calls of 8")
+    unequal = [t for t, r in sizes.items() if not r.get("cuda_bit_equal_plain")]
+    check(not unequal, f"8g ftrl_chain: the arms' state differs at {unequal}")
+    at = runs["attention"]
+    arec = at["record"]
+    check(at["launches"]["flash_fwd"] == arec["cuda_forwards"]
+          == arec["chain"] * arec["cuda_chain_calls"] + 2,
+          f"8g attention: {at['launches']['flash_fwd']} launches, {arec['cuda_forwards']} kernel "
+          f"forwards, {arec['cuda_chain_calls']} chain calls of {arec['chain']}")
+    flash_first = {}
+    for dtype, (k_out, p_out) in arec.pop("_first_forward").items():
+        rtol, atol, _ = FLASH_TOL[getattr(torch, dtype)]
+        flash_first[dtype] = close(k_out, p_out, rtol, atol, f"8g attention first forward {dtype}")
+    check(set(flash_first) == {"float32", "bfloat16"}, f"8g attention: first forwards {flash_first}")
+    rl = runs["roofline"]
+    calls = rl["record"]["calls"]
+    check(rl["launches"]["ftrl_dense"] == 8 * calls["ftrl"] > 0
+          and rl["launches"]["flash_fwd"] == calls["flash"] > 0,
+          f"8g roofline: launches {rl['launches']} for {calls}")
+    fns = rl["record"]["functions"]
+    check(all("frac_of_hbm_peak" in f["roofline"] for f in fns.values())
+          and "mfu" in fns["roofline_flash_fwd"]["roofline"],
+          f"8g roofline: no share of the card's peaks: {fns}")
+    co = runs["consistency"]
+    check(co["launches"]["ftrl_sparse"] > 0 and co["launches"]["segment_sum"] > 0,
+          f"8g consistency: launches {co['launches']}")
+    check(runs["decode_batching"]["launches"]["flash_fwd"] > 0,
+          f"8g decode_batching: launches {runs['decode_batching']['launches']}")
+    cross = components.flash_cost_crosscheck(smoke=False, device="cuda")
+    check(0.5 < cross["hand_over_counted_ratio"] < 2.0 and cross["mfu_hand"] is not None
+          and 0 < cross["mfu_hand"] <= 1.0, f"8g flash_cost_crosscheck: {cross}")
+    print(f"# 8g flash_cost_crosscheck ({smi}): hand 4 bh s^2 d {cross['hand_flops']} FLOP, "
+          f"FlopCounterMode over the plain version {cross['counted_flops']} (ratio "
+          f"{cross['hand_over_counted_ratio']}); the plain forward at {cross['hand_tflops']} "
+          f"TFLOP/s, MFU {cross['mfu_hand']}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"# 8g component suite ({smi}): {len(runs)} benchmarks at full size, "
+          f"{sum(len(r['lines']) for r in runs.values())} lines, in {seconds:.1f} s; ftrl_sparse_ab cuda {rec['cuda_ms']:.4f} ms vs plain "
+          f"{rec['plain_ms']:.4f} ms (bound {rec['bound_ms']:.4f}), arms bit-equal; ftrl_chain "
+          + ", ".join(f"{t} cuda {r.get('cuda_ms', math.nan):.3f} / plain {r['plain_ms']:.3f} ms "
+                      f"a call of 8 (bound {r.get('bound_ms', math.nan):.3f})"
+                      for t, r in sizes.items())
+          + f", arms bit-equal; attention first forwards within FLASH_TOL "
+          f"{ {k: round(v['tolerance_used'], 4) for k, v in flash_first.items()} }", flush=True)
+    return dict(runs={n: dict(lines=r["lines"], launches=r["launches"], seconds=r["seconds"],
+                              shares=r["shares"],
+                              record=json.loads(json.dumps(r["record"], default=str)))
+                      for n, r in runs.items()},
+                flash_first_forward=flash_first, flash_cost_crosscheck=cross, seconds=seconds)
+
+
+def component_launches(comp: dict, kernel: str) -> dict:
+    """8g's launches of ``kernel``, by benchmark (those that launched it)."""
+    return {n: r["launches"][kernel] for n, r in comp["runs"].items() if r["launches"][kernel]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5088,6 +5261,7 @@ def main() -> int:
     ckpt = checkpoint_plane(args.seed, smi, batches)
     resume_launches = {name: ckpt[name]["tail_launches"]
                        for name in ("headline_float32", "headline_bfloat16", "ctr")}
+    comp = component_plane(smi)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -5126,6 +5300,7 @@ def main() -> int:
              a13_launches=dict(replicated_headline=rep13["launches"]["sparse"],
                                after_recovery=rep13["after_recovery_launches"]["sparse"]),
              resume_launches={k: v[0] for k, v in resume_launches.items() if k != "ctr"},
+             component_launches=component_launches(comp, "ftrl_sparse"),
              interior_keep_cases=[r["case"] for r in sparse_rows if "interior" in r["case"]],
              max_abs_err=max(r["max_abs_err"] for r in sparse_rows),
              ms=main_sparse["ms"], plain_ms=main_sparse["plain_ms"],
@@ -5141,6 +5316,7 @@ def main() -> int:
                                scheduler_cli=cli8e["ftrl_dense"]),
              resume_launches=dict(ctr=resume_launches["ctr"][1],
                                   submit_group_bits=ckpt["submit_group"]["launches"][1]),
+             component_launches=component_launches(comp, "ftrl_dense"),
              max_abs_err=max(r["max_abs_err"] for r in dense_rows),
              ms=main_dense["ms"], plain_ms=main_dense["plain_ms"],
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
@@ -5151,6 +5327,7 @@ def main() -> int:
              launches=ctr["quantize_launches"],
              a13_launches=dict(scheduler_cli=cli8e["quantize"]),
              resume_launches=dict(ctr=resume_launches["ctr"][2]),
+             component_launches=component_launches(comp, "quantize"),
              max_abs_err=max(r["max_abs_err"] for r in quant_rows),
              ms=main_quant["ms"], plain_ms=main_quant["plain_ms"],
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
@@ -5180,6 +5357,7 @@ def main() -> int:
                                codec_push=sysp["codec"]["segment_launches"]),
              resume_launches=dict(**{k: v[3] for k, v in resume_launches.items()},
                                   submit_group_bits=ckpt["submit_group"]["launches"][3]),
+             component_launches=component_launches(comp, "segment_sum"),
              max_abs_err=max(r["max_abs_err"] for r in seg_rows),
              ms=main_seg["ms"], plain_ms=main_seg["plain_ms"],
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
@@ -5197,6 +5375,7 @@ def main() -> int:
                                      moe_cli=fcli["moe"]["launches"][0],
                                      adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][0],
                                      lion_cli=fcli["optimizers"]["lion"]["launches"][0]),
+             component_launches=component_launches(comp, "flash_fwd"),
              max_abs_err=max(r["max_abs_err"] for r in flash_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in flash_rows},
              ms=flash_rows[0]["ms"], plain_ms=flash_rows[0]["plain_ms"],
@@ -5209,6 +5388,7 @@ def main() -> int:
              lm_family_launches=dict(moe_cli=fcli["moe"]["launches"][1],
                                      adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][1],
                                      lion_cli=fcli["optimizers"]["lion"]["launches"][1]),
+             component_launches=component_launches(comp, "flash_bwd_dq"),
              max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dq_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dq_bound_ms"],
@@ -5221,6 +5401,7 @@ def main() -> int:
              lm_family_launches=dict(moe_cli=fcli["moe"]["launches"][2],
                                      adafactor_cli=fcli["optimizers"]["adafactor"]["launches"][2],
                                      lion_cli=fcli["optimizers"]["lion"]["launches"][2]),
+             component_launches=component_launches(comp, "flash_bwd_dkv"),
              max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
              tolerance={r["dtype"]: r["tolerance"] for r in bwd_rows},
              ms=bwd_t["dkv_ms"], plain_ms=bwd_t["plain_ms"], bound_ms=bwd_t["dkv_bound_ms"],
@@ -5242,6 +5423,7 @@ def main() -> int:
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
+                  component_suite=comp,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -108,6 +108,7 @@ from ...utils.bitpack import (
     unpack_sign_bits,
 )
 from ...utils.concurrent import iter_on_thread
+from ...utils.localizer import Localizer
 from ...utils.sparse import SparseBatch
 from .config import Config, SGDConfig
 from .learning_rate import LearningRate
@@ -171,6 +172,42 @@ class HashedBatch:
     @property
     def num_examples(self) -> int:
         return int(self.mask.sum())
+
+
+def prep_batch(batch: SparseBatch, directory, num_shards: int, rows_pad: int,
+               nnz_pad: int, uniq_pad: int, num_slots: int) -> PreppedBatch:
+    """Host-side localize and pad, a :class:`Localizer` a data shard (the
+    reference's ``MinibatchReader::Read`` tail, sgd.h:117-135): each
+    shard's unique keys, its entries remapped to them, the keys mapped
+    to table slots."""
+    shards = []
+    per = -(-batch.n // num_shards)
+    for d in range(num_shards):
+        sub = batch.slice_rows(min(d * per, batch.n), min((d + 1) * per, batch.n))
+        loc = Localizer()
+        keys, _ = loc.count_uniq_index(sub)
+        local = loc.remap_index(keys)
+        if local.nnz > nnz_pad or len(keys) > uniq_pad or local.n > rows_pad:
+            raise ValueError(
+                f"batch exceeds padding: nnz {local.nnz}>{nnz_pad} or "
+                f"uniq {len(keys)}>{uniq_pad} or rows {local.n}>{rows_pad}"
+            )
+        y = np.zeros(rows_pad, np.float32)
+        y[: local.n] = local.y
+        mask = np.zeros(rows_pad, np.float32)
+        mask[: local.n] = 1.0
+        rows = np.zeros(nnz_pad, np.int32)
+        ucols = np.zeros(nnz_pad, np.int32)
+        vals = np.zeros(nnz_pad, np.float32)
+        rows[: local.nnz] = local.row_ids()
+        ucols[: local.nnz] = local.indices
+        vals[: local.nnz] = local.value_array()
+        uslots = np.full(uniq_pad, slot_sentinel(num_slots), np.int32)
+        umask = np.zeros(uniq_pad, np.float32)
+        uslots[: len(keys)] = directory.slots(keys)
+        umask[: len(keys)] = 1.0
+        shards.append((y, mask, rows, ucols, vals, uslots, umask))
+    return PreppedBatch(*(np.stack(x) for x in zip(*shards)))
 
 
 def prep_batch_shared(batch: SparseBatch, directory, num_shards: int,

@@ -1,0 +1,61 @@
+"""CLI: python -m parameter_server_tpu_torch.benchmarks [name ...] [--smoke] [--device cpu]"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from . import REGISTRY
+from . import components  # noqa: F401 — populates REGISTRY
+
+#: benchmarks of the JAX suite that need more than one card
+UNPORTED = {
+    "rebalance": "rebalance needs a table sharded over 8 devices; the port holds a table on one "
+                 "card (the sharded tables and live repartitioning across cards are ROADMAP A9)",
+}
+
+
+def reset_process_state() -> None:
+    """What one benchmark may leave behind that the next must not see:
+    the postoffice (its customers, registry, span sink, history store,
+    learning planes and device inventory) and the armed fault points."""
+    from ..system import faults
+    from ..system.postoffice import Postoffice
+
+    Postoffice.reset()
+    faults.reset()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument(
+        "names", nargs="*",
+        help=f"benchmarks to run (default all): {', '.join(sorted(REGISTRY))}",
+    )
+    ap.add_argument("--smoke", action="store_true", help="tiny quick run")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the card; 'cpu' runs the plain versions)")
+    args = ap.parse_args(argv)
+    names = args.names or sorted(REGISTRY)
+    for name in names:
+        if name in UNPORTED:
+            print(f"benchmark {name!r} is not ported: {UNPORTED[name]}", file=sys.stderr)
+            return 2
+        if name not in REGISTRY:
+            ap.error(f"unknown benchmark {name!r}; have {sorted(REGISTRY)}")
+    from ..device import resolve
+
+    try:
+        device = resolve(args.device)
+    except RuntimeError as e:
+        print(f"benchmarks: {e}", file=sys.stderr)
+        return 1
+    for name in names:
+        reset_process_state()
+        REGISTRY[name](args.smoke, device=device)
+    reset_process_state()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -94,6 +94,20 @@ def batch_nbytes(batch) -> int:
     return int(sum(getattr(batch, n).nbytes for n in array_fields(batch)))
 
 
+def tree_nbytes(tree) -> int:
+    """Host bytes of a (possibly encoded) batch, or of a list, tuple or
+    dict of them: what would cross the link uploaded as it is. A batch
+    counts its array fields (:func:`batch_nbytes`); a bare array its
+    bytes; anything else nothing."""
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(t) for t in tree.values())
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return batch_nbytes(tree)
+    return int(getattr(tree, "nbytes", 0))
+
+
 # -- the compact exact wire --
 
 

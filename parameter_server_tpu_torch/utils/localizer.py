@@ -1,21 +1,28 @@
 """Key localization for the tail filter (host, numpy).
 
-Counterpart of ``remap`` and ``Localizer.count_uniq_index`` /
-``remap_index`` in ``parameter_server_tpu/utils/localizer.py`` (with
-``match_positions`` of ``utils/ordered_match.py``): the sorted unique
-keys of a batch with their capped counts, then the batch rewritten to
-positions in a kept subset of those keys, entries of dropped keys
-removed.
+Counterpart of ``count_uniq_keys``, ``remap`` and
+``Localizer.count_uniq_index`` / ``remap_index`` in
+``parameter_server_tpu/utils/localizer.py`` (with ``match_positions`` of
+``utils/ordered_match.py``): the sorted unique keys of a batch with
+their capped counts, then the batch rewritten to positions in a kept
+subset of those keys, entries of dropped keys removed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .ordered_match import match_positions
 from .sparse import SparseBatch
+
+
+def count_uniq_keys(batch: SparseBatch, cap: int = 255) -> Tuple[np.ndarray, np.ndarray]:
+    """Sorted unique feature keys of ``batch`` and their appearance
+    counts, capped at ``cap`` (the reference's uint8 counters)."""
+    keys, counts = np.unique(batch.indices, return_counts=True)
+    return keys, np.minimum(counts, cap).astype(np.uint32)
 
 
 def remap(batch: SparseBatch, keep_keys: np.ndarray) -> SparseBatch:

@@ -68,7 +68,8 @@ def test_port_imports_nothing_of_jax():
               "parameter.kv_store", "benchmarks.components", "ps", "apps.registry",
               "system.env", "filter.key_caching", "filter.compressing", "filter.sparse",
               "filter.add_noise", "utils.assign_op", "utils.ordered_match", "utils.bitmap",
-              "utils.sketch", "utils.file", "utils.subproc", "utils.device_lock"):
+              "utils.sketch", "utils.file", "utils.subproc", "utils.device_lock",
+              "benchmarks", "benchmarks.__main__", "benchmarks.components"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -127,6 +128,29 @@ def test_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
     }
     assert "parameter_server_tpu_torch.apps.linear.async_sgd" in loaded  # main runs as __main__
     assert "parameter_server_tpu_torch.data.text_parser" in loaded
+    bad = sorted(m for m in loaded if m == "jax" or m.startswith("jax.")
+                 or m == "parameter_server_tpu" or m.startswith("parameter_server_tpu."))
+    assert not bad, bad
+
+
+def test_benchmarks_cli_run_as_a_module_imports_nothing_of_jax(tmp_path):
+    """``python -m parameter_server_tpu_torch.benchmarks executor --smoke
+    --device cpu``, every import traced: the suite's registry, CLI and
+    components load, and neither jax nor the JAX package does."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "parameter_server_tpu_torch.benchmarks",
+         "executor", "--smoke", "--device", "cpu"],
+        cwd=tmp_path, env=_clean_env(), capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert '"executor_dispatch_steps_per_sec"' in out.stdout
+    loaded = {
+        line.rsplit("|", 1)[1].strip()
+        for line in out.stderr.splitlines()
+        if line.startswith("import time:") and line.count("|") == 2
+    }
+    assert "parameter_server_tpu_torch.benchmarks.components" in loaded
+    assert "parameter_server_tpu_torch.system.executor" in loaded
     bad = sorted(m for m in loaded if m == "jax" or m.startswith("jax.")
                  or m == "parameter_server_tpu" or m.startswith("parameter_server_tpu."))
     assert not bad, bad
