@@ -325,8 +325,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal to the plain arms' (same start, same calls) in
    ``ftrl_sparse_ab`` and at each ``ftrl_chain`` size; ``attention``'s first
    kernel forward, float32 and bf16, within ``FLASH_TOL`` of the plain one;
-9. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. the linear trainer over a ``(data, server)`` mesh of ranks (ROADMAP A9
+   slice 1, ``parallel/``), every rank sharing the one card over gloo
+   (NCCL refuses two ranks on one card, so NCCL is not exercised; the
+   backend is printed): (a) the headline worker (2^22 slots, 16384-row
+   minibatches, T 8) on meshes 1x2, 2x1 and 2x2, sparse (2 launches) and
+   dense (4 minibatches), in one world of 4 ranks on the card
+   (``benchmarks/mesh.py``): 1x2 bit-equal to the one-card run on the same
+   batches, 2x1 and 2x2 within ``TRAJ_TOL`` of it, each mesh bit-identical
+   run to run and on every data row, and within ``TRAJ_TOL`` of the same
+   world on the CPU; the ex/s of each mesh and the collectives' share of
+   an instrumented run; ``ftrl_sparse`` / ``ftrl_dense`` and
+   ``segment_sum`` launched on every rank; (b) the CTR conf cut to 7
+   ministeps through the linear CLI inside a world of 4 ranks (a
+   launcher's ``PS_*``) at ``--num-servers 2 --num-workers 2``, the 1-byte
+   push filter's ``quantize`` on every rank: its model in ``_S0`` and
+   ``_S1``, its last loss within ``max(0.01, 0.02 * ll)`` of the one-card
+   CLI's; (c) ``network_psum_ms`` at the JAX suite's 1 MB;
+10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed before each path and read after it. Every
 time printed is measured on the card in this run. Full records go to
@@ -351,7 +368,6 @@ import sys
 import tempfile
 import threading
 import time
-import types
 
 import numpy as np
 import torch
@@ -398,6 +414,7 @@ from parameter_server_tpu_torch.apps.lm import optim  # noqa: E402
 from parameter_server_tpu_torch.apps.serve import main as serve_main  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import flash_ab, ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import mesh as mesh_bench  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
@@ -1393,26 +1410,6 @@ def host_times(rec: dict) -> dict:
                 step_streams={s.cuda_stream for s, _, _ in rec["steps"]})
 
 
-@contextlib.contextmanager
-def recorded_wire():
-    """Records, on the host, the codes, range and nonzero mask of every
-    quantization the step's wire makes (its module's ``qops.quantize``;
-    the kernel and its launch count are untouched). Yields the list it
-    fills."""
-    seen, qops = [], async_sgd.qops
-
-    def quantize_rec(x, seed, num_bytes=1):
-        q, lo, hi = qops.quantize(x, seed, num_bytes)
-        seen.append((q.cpu(), float(lo), float(hi), (x != 0).cpu()))
-        return q, lo, hi
-
-    async_sgd.qops = types.SimpleNamespace(quantize=quantize_rec, dequantize=qops.dequantize)
-    try:
-        yield seen
-    finally:
-        async_sgd.qops = qops
-
-
 def run_cli(conf_text: str, path: str, device: str, seed: int = 0) -> dict:
     """The port's CLI on a conf, as a user runs it (Python's ``random``,
     which orders the workload pool's files, seeded first); returns the
@@ -1543,38 +1540,53 @@ def criteo_path(tmp: str, seed: int) -> dict:
                     os.path.join(tmp, "criteo_native_S0")))
 
 
-def weights_within_push_bound(card, cpu, pushes_card, pushes_cpu, what: str) -> dict:
-    """The CTR conf's card run against its CPU run, from the pushes each
-    recorded (``recorded_wire``) and the two workers' weights: the first
-    τ pushes (the zero table) bit-equal, later codes at most one apart,
-    each weight within ``S (α + 2|w|) / β`` plus the last-bit tolerance
-    (:func:`ctr_agree_and_pull` derives it)."""
-    tau, levels = cpu.sgd.max_delay, fixing_float.levels_of(1)
-    check(len(pushes_card) == len(pushes_cpu), f"{what}: pushes {len(pushes_card)} / "
-          f"{len(pushes_cpu)}")
+def pushes_agree(card: list, cpu: list, tau: int, levels: int, what: str) -> "tuple[list, float]":
+    """A run's pushes on the card against the same run's on the CPU (each
+    as ``mesh.recorded_pushes`` records them: the nonzero entries'
+    positions, their codes, the range): the same positions; the first τ
+    (the zero table) codes and ranges bit-equal; later codes at most one
+    apart. Returns the codes apart a push and ``e`` summed over the
+    pushes (:func:`ctr_agree_and_pull` derives it)."""
+    check(len(card) == len(cpu), f"{what}: pushes {len(card)} / {len(cpu)}")
     codes_apart, e_sum = [], 0.0
-    for t, ((qc, loc, hic, nzc), (qh, loh, hih, nzh)) in enumerate(zip(pushes_card, pushes_cpu)):
-        check(torch.equal(nzc, nzh), f"{what} push {t}: the pushed support differs")
-        d = (qc.int() - qh.int()).abs()
-        apart = int(((d != 0) & nzh).sum())
+    for t, ((ic, qc, loc, hic), (ih, qh, loh, hih)) in enumerate(zip(card, cpu)):
+        check(np.array_equal(ic, ih), f"{what} push {t}: the pushed support differs")
+        d = np.abs(qc.astype(np.int32) - qh.astype(np.int32))
+        apart = int((d != 0).sum())
         codes_apart.append(apart)
         if t < tau:
-            check(torch.equal(qc, qh) and (loc, hic) == (loh, hih),
+            check(apart == 0 and (loc, hic) == (loh, hih),
                   f"{what} push {t} on the zero table: {apart} codes apart, range {(loc, hic)} "
                   f"vs {(loh, hih)}")
-        check(int(d.max()) <= 1, f"{what} push {t}: a code {int(d.max())} apart")
+        check(d.size == 0 or int(d.max()) <= 1, f"{what} push {t}: a code {int(d.max())} apart")
         step = max(hic - loc, hih - loh) / levels
         e_sum += step * (apart > 0) + 2 * abs(loc - loh) + abs(hic - hih)
-    alpha, beta = cpu.conf.learning_rate.alpha, cpu.conf.learning_rate.beta
-    wc, wh = card.weights_dense(), cpu.weights_dense()
+    return codes_apart, e_sum
+
+
+def weights_within_push_bound(card, cpu, pushes_card, pushes_cpu, what: str) -> dict:
+    """The CTR conf's card run against its CPU run, from the pushes each
+    recorded and the two workers' weights: :func:`pushes_agree`, then
+    each weight within :func:`weights_within`'s bound."""
+    codes_apart, e_sum = pushes_agree(pushes_card, pushes_cpu, cpu.sgd.max_delay,
+                                      fixing_float.levels_of(1), what)
+    lr = cpu.conf.learning_rate
+    held = weights_within(card.weights_dense(), cpu.weights_dense(), e_sum, lr.alpha, lr.beta,
+                          f"{what} weights card vs CPU (codes apart per ministep {codes_apart})")
+    return dict(codes_apart=codes_apart, decode_bound_sum=e_sum, **held)
+
+
+def weights_within(wc, wh, e_sum: float, alpha: float, beta: float, what: str) -> dict:
+    """Each weight of ``wc`` within ``e_sum (α + 2|w|) / β`` of ``wh``'s
+    plus the last-bit tolerance (:func:`ctr_agree_and_pull` derives it;
+    ``e_sum`` the decode differences' sum over the pushes)."""
     w_abs = np.maximum(np.abs(wc), np.abs(wh))
     allowed = e_sum * (alpha + 2 * w_abs) / beta * (1 + 1e-4) + TRAJ_TOL["rtol"] * w_abs + TRAJ_TOL["atol"]
     w_diff = np.abs(wc - wh)
     check(bool(np.all(w_diff <= allowed)),
-          f"{what} weights card vs CPU: max |diff| {float(w_diff.max())}, worst over its bound "
-          f"{float((w_diff / allowed).max())} (codes apart per ministep {codes_apart})")
-    return dict(codes_apart=codes_apart, decode_bound_sum=e_sum,
-                max_abs_weight_diff=float(w_diff.max()),
+          f"{what}: max |diff| {float(w_diff.max())}, worst over its bound "
+          f"{float((w_diff / allowed).max())}")
+    return dict(max_abs_weight_diff=float(w_diff.max()),
                 weight_diff_over_bound=float((w_diff / allowed).max()),
                 weights_bit_equal=bool(np.array_equal(wc, wh)))
 
@@ -1614,7 +1626,7 @@ def ctr_agree_and_pull(tmp: str, seed: int) -> dict:
     runs, pushes = {}, {}
     for dev in ("cuda", "cpu"):
         text = ctr_conf(data, os.path.join(tmp, f"agree_{dev}"), num_data_pass=1)
-        with recorded_wire() as pushes[dev]:
+        with mesh_bench.recorded_pushes() as pushes[dev]:
             runs[dev] = run_cli(text, os.path.join(tmp, f"agree_{dev}.conf"), dev)
     oc, oh = runs["cuda"]["objective"], runs["cpu"]["objective"]
     n = AGREE_ROWS // 10_000
@@ -4239,7 +4251,7 @@ def scheduler_cli(tmp: str, seed: int) -> dict:
         text = ctr_conf(data, os.path.join(tmp, f"sched_{dev}"), num_data_pass=1)
         reset_counts()
         buf = io.StringIO()
-        with recorded_wire() as pushes, contextlib.redirect_stdout(buf):
+        with mesh_bench.recorded_pushes() as pushes, contextlib.redirect_stdout(buf):
             rec = run_cli(text, os.path.join(tmp, f"sched_{dev}.conf"), dev, seed)
         runs[dev] = dict(rec=rec, out=buf.getvalue(), pushes=pushes, launches=counts())
         with open(os.path.join(tmp, f"sched_{dev}_S0"), "rb") as f:
@@ -4832,6 +4844,230 @@ def component_launches(comp: dict, kernel: str) -> dict:
     return {n: r["launches"][kernel] for n, r in comp["runs"].items() if r["launches"][kernel]}
 
 
+# -- phase 9: the linear trainer over a mesh of ranks sharing the card --
+
+MESH_SHAPES = [(1, 2), (2, 1), (2, 2)]  # (data, server), each a prefix of a 4-rank world
+MESH_SPARSE_LAUNCHES = 2  # launches of T headline minibatches a mesh, sparse
+MESH_DENSE_STEPS = 4  # headline minibatches a mesh, dense
+MESH_KERNELS = ("ftrl_sparse", "ftrl_dense", "quantize", "segment_sum")
+MESH_WORLD_S = 600  # a world's time limit: a rank that hangs fails the phase
+
+
+def mesh_whole(ranks: list, i: int, update: str) -> dict:
+    """Mesh ``i``'s whole state from its data row 0's server shards."""
+    rows = sorted((r[i][update]["coords"][1], r[i][update]["state"]) for r in ranks
+                  if r[i] is not None and "state" in r[i][update])
+    return {k: np.concatenate([st[k] for _, st in rows]) for k in rows[0][1]}
+
+
+def np_close(a: dict, b: dict, what: str) -> None:
+    for k in a:
+        check(np.allclose(a[k], b[k], **TRAJ_TOL),
+              f"{what}: {k} max |diff| {float(np.abs(a[k] - b[k]).max())}")
+
+
+def mesh_plane(seed: int, smi: str) -> dict:
+    """Phase 9: the headline worker on meshes 1x2, 2x1 and 2x2, sparse
+    and dense, in one world of 4 ranks on the card and one on the CPU;
+    the CTR conf through the linear CLI on a 2x2 mesh; the in-mesh psum."""
+    from parameter_server_tpu_torch.benchmarks.headline import conf as headline_conf
+    from parameter_server_tpu_torch.parallel import distributed, launch
+
+    backend = distributed.choose_backend(4, torch.device("cuda"))
+    print(f"# mesh: 4 ranks on {torch.cuda.device_count()} card(s) over {backend}: ranks that "
+          "share a card talk gloo through the host, so NCCL is not exercised here, and every "
+          f"mesh number below is of ranks sharing one card over gloo [{smi}]", flush=True)
+    # the one-card reference: phase 4's worker on the same batches
+    batches = [make_batch(seed + i) for i in range(max(MESH_SPARSE_LAUNCHES * T,
+                                                       MESH_DENSE_STEPS))]
+    single = {}
+    for update in ("sparse", "dense"):
+        w = AsyncSGDWorker(headline_conf(update), device="cuda")
+        group = batches[:MESH_SPARSE_LAUNCHES * T] if update == "sparse" else \
+            batches[:MESH_DENSE_STEPS]
+        for lo in range(0, len(group), T if update == "sparse" else 1):
+            run_launch(w, group[lo:lo + (T if update == "sparse" else 1)])
+        single[update] = w.state_host()["state"]
+        w.remove()
+    del batches
+    args = (MESH_SHAPES, seed, MESH_SPARSE_LAUNCHES, MESH_DENSE_STEPS)
+    t0 = time.perf_counter()
+    card = launch.run_world(mesh_bench.headline_meshes, 4, args=(*args, True),
+                            device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = launch.run_world(mesh_bench.headline_meshes, 4, args=(*args, False),
+                           device_type="cpu", timeout=MESH_WORLD_S, threads=2)
+    cpu_s = time.perf_counter() - t0
+    rows = []
+    for i, (d, s) in enumerate(MESH_SHAPES):
+        for update in ("sparse", "dense"):
+            what = f"mesh {d}x{s} {update}"
+            recs = [r[i][update] for r in card if r[i] is not None]
+            check(len(recs) == d * s, f"{what}: {len(recs)} ranks answered")
+            n = recs[0]["ministeps"]
+            want = dict(ftrl_sparse=n if update == "sparse" else 0,
+                        ftrl_dense=n if update == "dense" else 0, quantize=0, segment_sum=2 * n)
+            for r in recs:
+                check(r["digest0"] == r["digest1"], f"{what} rank {r['coords']}: two runs differ")
+                check(r["launches"] == want, f"{what} rank {r['coords']}: launches "
+                      f"{r['launches']}, want {want}")
+                check(r["update_path"] == f"cuda_{update}", f"{what}: {r['update_path']}")
+                twin = next(o for o in recs if o["coords"] == (0, r["coords"][1]))
+                check(r["digest0"] == twin["digest0"], f"{what}: data rows hold different bits")
+            whole = mesh_whole(card, i, update)
+            if (d, s) == (1, 2):
+                check(all(np.array_equal(whole[k].view(np.uint32), single[update][k].view(np.uint32))
+                          for k in whole), f"{what}: not bit-equal to the one-card run")
+            else:
+                np_close(whole, single[update], f"{what} vs the one-card run")
+            np_close(mesh_whole(cpu, i, update), whole, f"{what}: CPU world vs card world")
+            r0 = next(r for r in recs if r["coords"] == (0, 0))
+            rows.append(dict(mesh=f"{d}x{s}", update=update, ministeps=n,
+                             examples_per_s=r0["examples"] / r0["wall_s0"],
+                             step_ms_per_ministep=r0["wall_s0"] / n * 1e3,
+                             collective_share=r0["collective_s"] / r0["wall_s1"],
+                             collective_ms_per_ministep=r0["collective_s"] / n * 1e3,
+                             collectives_per_ministep=r0["collectives"] / n,
+                             launches={k: sum(r["launches"][k] for r in recs) for k in MESH_KERNELS},
+                             bit_equal_to_one_card=(d, s) == (1, 2)))
+            x = rows[-1]
+            print(f"# mesh {x['mesh']} {update} (ranks sharing one card over gloo, {smi}): "
+                  f"{n} ministeps of {MB} rows, {x['examples_per_s']:.0f} ex/s, "
+                  f"{x['step_ms_per_ministep']:.3f} ms a ministep with prep; collectives "
+                  f"{x['collective_ms_per_ministep']:.3f} ms a ministep ({x['collectives_per_ministep']:g} "
+                  f"calls), {x['collective_share']:.3f} of the instrumented run; launches "
+                  f"{x['launches']}; run to run bit-identical; "
+                  + ("bit-equal to the one-card state" if x["bit_equal_to_one_card"] else
+                     "within TRAJ_TOL of the one-card state") + "; CPU world within TRAJ_TOL",
+                  flush=True)
+    del card, cpu
+    with tempfile.TemporaryDirectory(prefix="mesh_smoke_") as tmp:
+        cli = mesh_cli(tmp, seed)
+    psum = launch.run_world(mesh_bench.psum_ms, 2, args=(1024 * 256, 20), device_type="cuda",
+                            timeout=MESH_WORLD_S)[0]
+    print(f"# network_psum_ms (2 ranks sharing one card over {psum['backend']}, {psum['bytes']} B, "
+          f"{smi}): {psum['ms']:.4f} ms", flush=True)
+    launches = {k: sum(r["launches"][k] for r in rows) + cli["launches"][k] for k in MESH_KERNELS}
+    for k in MESH_KERNELS:
+        check(launches[k] > 0, f"phase 9 launched no {k}")
+    return dict(backend=backend, rows=rows, cli=cli, psum=psum, launches=launches,
+                card_world_s=card_s, cpu_world_s=cpu_s)
+
+
+def model_file(path: str) -> dict:
+    """A model file's ``slot -> weight``."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0].startswith("#hashed\t"), f"{path}: no #hashed header")
+    return {int(k): float(v) for k, v in (line.split("\t") for line in lines[1:])}
+
+
+def mesh_cli(tmp: str, seed: int) -> dict:
+    """The CTR conf cut to one pass over 70000 rows (7 ministeps) through
+    the linear CLI with ``--num-servers 2 --num-workers 2``, in a world of
+    4 ranks on the card that a launcher started (``PS_*`` set), and the
+    same world on the CPU, each rank's pushes recorded. Each data rank
+    quantizes its own contribution (seed ``seed * 1000003 + d``) with the
+    same noise on both devices, so the card world is held to the CPU
+    world as :func:`ctr_agree_and_pull` holds the one-card run to its CPU
+    run: rank by rank (:func:`pushes_agree`), the pushes' support equal, the zero-table pushes'
+    codes and ranges bit-equal and later codes at most one apart; every
+    rank's objectives equal within a world, and within 1e-5 relative
+    across; each server shard's model file within what the pushes'
+    differences explain, summed over its data ranks. (The CPU world is
+    held to the JAX mesh and to a one-process emulation of the mesh's
+    push wire by ``tests/test_torch_parallel_linear.py``.) As a sanity
+    check, the run's loss an example within ``max(0.01, 0.02 * ll)`` of
+    the one-process CLI's on the card, whose one data rank draws other
+    noise."""
+    from parameter_server_tpu_torch.apps.linear.config import parse_conf
+    from parameter_server_tpu_torch.parallel import launch
+
+    write_ctr_shards(os.path.join(tmp, "data"), 1, AGREE_ROWS, seed)
+    data = os.path.join(tmp, "data", "part.*")
+    runs = {}
+    for name in ("cuda", "cpu", "one"):
+        model = os.path.join(tmp, name, "model")
+        path = os.path.join(tmp, f"{name}.conf")
+        text = ctr_conf(data, model, num_data_pass=1)
+        with open(path, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        if name != "one":
+            ranks = launch.run_world(mesh_bench.cli_rank, 4,
+                                     args=([path, "--num-servers", "2", "--num-workers", "2"], True),
+                                     device_type=name, timeout=MESH_WORLD_S,
+                                     threads=0 if name == "cuda" else 2)
+            check(all(r["rc"] == 0 for r in ranks), f"mesh CLI ({name}) exit codes "
+                  f"{[r['rc'] for r in ranks]}")
+            check([r["coords"] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+                  f"mesh CLI ({name}) coordinates {[r['coords'] for r in ranks]}")
+            check(all(r["objective"] == ranks[0]["objective"] for r in ranks),
+                  f"mesh CLI ({name}): the ranks' objectives differ")
+            out, launches = ranks[0]["out"], [r["launches"] for r in ranks]
+        else:
+            ranks = [mesh_bench.cli_rank([path, "--device", "cuda"], record=True)]
+            check(ranks[0]["rc"] == 0, "one-card CLI failed")
+            out, launches = ranks[0]["out"], None
+        wall = time.perf_counter() - t0
+        files = sorted(glob.glob(model + "_S*"))
+        check(len(progress_rows(out)) > 0, f"{name} CLI printed no progress")
+        # the run's loss an example (a progress line's covers its window)
+        runs[name] = dict(wall_s=wall, loss=sum(ranks[0]["objective"]) / AGREE_ROWS, ranks=ranks,
+                          files=[os.path.basename(f) for f in files],
+                          models=[model_file(f) for f in files],
+                          nonzeros=sum(model_nonzeros(f) for f in files), launches=launches)
+    m, h, o = runs["cuda"], runs["cpu"], runs["one"]
+    n = AGREE_ROWS // 10_000
+    for r in m["launches"]:
+        check(r == dict(ftrl_sparse=0, ftrl_dense=n, quantize=n, segment_sum=2 * n),
+              f"mesh CLI rank launches {r}, want 0/{n}/{n}/{2 * n}")
+    check(m["files"] == h["files"] == ["model_S0", "model_S1"] and o["files"] == ["model_S0"],
+          f"model files {m['files']} / {h['files']} / {o['files']}")
+    oc, oh = m["ranks"][0]["objective"], h["ranks"][0]["objective"]
+    check(len(oc) == len(oh) == n, f"mesh CLI objectives {len(oc)} / {len(oh)}, want {n}")
+    rel_gap = max(abs(a - b) / abs(b) for a, b in zip(oc, oh))
+    check(rel_gap <= 1e-5, f"mesh CLI objectives card {oc} vs CPU {oh}")
+    check(oc[-1] < oc[0], f"mesh CLI: the card world did not learn {oc}")
+    conf = parse_conf(ctr_conf(data, "model", num_data_pass=1))
+    tau, levels = conf.async_sgd.max_delay, fixing_float.levels_of(1)
+    lr = conf.learning_rate
+    codes_apart, shards = {}, []
+    for s in (0, 1):
+        e_sum = 0.0
+        for d in (0, 1):
+            pc = next(r["pushes"] for r in m["ranks"] if r["coords"] == (d, s))
+            ph = next(r["pushes"] for r in h["ranks"] if r["coords"] == (d, s))
+            check(len(pc) == n, f"mesh CLI rank {(d, s)}: {len(pc)} pushes, want {n}")
+            codes_apart[f"{d},{s}"], e = pushes_agree(pc, ph, tau, levels, f"mesh CLI rank {(d, s)}")
+            e_sum += e
+        wc, wh = m["models"][s], h["models"][s]
+        slots = sorted(set(wc) | set(wh))
+        held = weights_within(np.array([wc.get(k, 0.0) for k in slots]),
+                              np.array([wh.get(k, 0.0) for k in slots]), e_sum, lr.alpha, lr.beta,
+                              f"mesh CLI model_S{s} card vs CPU world")
+        shards.append(dict(decode_bound_sum=e_sum, slots=len(slots), **held))
+    check(abs(m["loss"] - o["loss"]) <= max(0.01, 0.02 * o["loss"]),
+          f"mesh CLI loss an example {m['loss']} vs one card {o['loss']}")
+    print(f"# CTR conf via CLI on a 2x2 mesh (ranks sharing one card over gloo): {n} ministeps; "
+          f"card world vs the CPU world: objectives within {rel_gap:.3g} relative, zero-table "
+          f"pushes bit-equal, codes apart a push by rank {codes_apart}, model_S0/_S1 max |diff| "
+          f"{[x['max_abs_weight_diff'] for x in shards]}, "
+          f"{[round(x['weight_diff_over_bound'], 4) for x in shards]} of the bound, bit-equal "
+          f"{[x['weights_bit_equal'] for x in shards]}; loss an example {m['loss']:.5f} (CPU world "
+          f"{h['loss']:.5f}, one card {o['loss']:.5f}); model nonzeros {m['nonzeros']} (CPU world "
+          f"{h['nonzeros']}, one card {o['nonzeros']}); wall {m['wall_s']:.1f} s (4 ranks started) "
+          f"vs {h['wall_s']:.1f} s on the CPU and {o['wall_s']:.1f} s one card; launches a rank "
+          f"{m['launches'][0]}", flush=True)
+    for r in runs.values():
+        r.pop("models")
+        r.pop("ranks")
+    return dict(mesh=m, cpu_world=h, one=o, ministeps=n, objective_rel_gap=rel_gap,
+                codes_apart=codes_apart, shards=shards,
+                launches={k: sum(r[k] for r in m["launches"]) for k in MESH_KERNELS})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5262,6 +5498,11 @@ def main() -> int:
     resume_launches = {name: ckpt[name]["tail_launches"]
                        for name in ("headline_float32", "headline_bfloat16", "ctr")}
     comp = component_plane(smi)
+    t_mesh = time.perf_counter()
+    mesh = mesh_plane(args.seed, smi)
+    print(f"# phase 9 (the mesh) took {time.perf_counter() - t_mesh:.1f} s: the card world "
+          f"{mesh['card_world_s']:.1f} s, the CPU world {mesh['cpu_world_s']:.1f} s; launches "
+          f"{mesh['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -5293,6 +5534,7 @@ def main() -> int:
     main_seg = seg_rows[3]
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
+             mesh_launches=mesh["launches"]["ftrl_sparse"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
              replaces="parameter_server_tpu/ops/ftrl_sparse.py:407",
              launches=head["sparse_launches"],
@@ -5307,6 +5549,7 @@ def main() -> int:
              bound_ms=main_sparse["bound_ms"], bound_by=main_sparse["bound_by"],
              library_ms=None),
         dict(name="ftrl_dense_kernel", route="cuda",
+             mesh_launches=mesh["launches"]["ftrl_dense"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_dense.cu",
              replaces="parameter_server_tpu/ops/ftrl.py:265",
              launches=ctr["dense_launches"],
@@ -5322,6 +5565,7 @@ def main() -> int:
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
              library_ms=None),
         dict(name="quantize_kernel", route="cuda",
+             mesh_launches=mesh["launches"]["quantize"],
              source="parameter_server_tpu_torch/kernels/csrc/quantize.cu",
              replaces="parameter_server_tpu/ops/quantize.py:68",
              launches=ctr["quantize_launches"],
@@ -5333,6 +5577,7 @@ def main() -> int:
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
              library_ms=None),
         dict(name="segment_sum", route="cuda", case=main_seg["case"],
+             mesh_launches=mesh["launches"]["segment_sum"],
              source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
              launches=ctr["segment_launches"],
@@ -5423,7 +5668,7 @@ def main() -> int:
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
-                  component_suite=comp,
+                  component_suite=comp, mesh=mesh,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -10,6 +10,25 @@ kernel over the batch's deduplicated slots, ``update="dense"`` through
 the whole-table kernel. With one data shard and one server shard every
 collective of the JAX step is the identity.
 
+**Over a mesh** (``AsyncSGDWorker(conf, mesh=...)``, or the started
+postoffice's mesh; ``parallel/mesh.py``): one rank a ``(data, server)``
+position, every rank running this same program on the same stream. Rank
+``(d, s)`` holds server shard ``s`` of the state and keeps data row
+``d`` of each prepped minibatch, and the JAX step's collectives run one
+for one: the pulled weights are assembled with ``psum`` over the server
+axis; the sparse update's per-unique-slot gradient, or the dense
+update's shard gradient (through the push wire, the FIXING_FLOAT filter
+quantizing each data rank's own contribution with seed ``seed * 1000003
++ d``), is summed with ``psum`` over the data axis. The metrics fold as
+the JAX step folds them (objective and counts over data; the pushed
+gradient's norm over server then data; the update's over server and the
+weights' over data on the dense route), the scalars of each axis packed
+into one tensor and one collective a launch, the per-example aux
+all-gathered over data. Over a mesh the exact raw wire (sparse update)
+and the hashed wire (dense update) run; the KKT filter, the encoded and
+ELL wires, adaptive τ and the neighbour replica raise
+``NotImplementedError`` naming ROADMAP A9 slice 2.
+
 The dense update carries the filtered wire of the reference's confs:
 a FIXING_FLOAT push filter quantizes the shard gradient to 1 or 2 bytes
 (``ops/quantize.py``, a CUDA kernel on the card) and hands the update an
@@ -59,8 +78,8 @@ shard's width is the identity, so the mirror is the whole state.
 replacement that starts empty) and
 :meth:`AsyncSGDWorker.recover_server_shard` restores them from the
 replica, at most ``replica_every`` ministeps stale; both run through the
-executor, in order with the steps. More server shards, and more cards,
-are ROADMAP A9.
+executor, in order with the steps. Over a mesh of more than one server shard the replica is ROADMAP A9
+slice 2.
 
 :class:`AsyncSGDScheduler` is the JAX package's scheduler: the workload
 pool and the monitor that prints the progress table. Attached to it
@@ -88,6 +107,9 @@ from ...learner import wire
 from ...learner.consistency import ConsistencyRuntime
 from ...learner.ingest import IngestPipeline
 from ...learner.sgd import ISGDCompNode, ISGDScheduler, SGDProgress
+from ...parallel import distributed as pdist
+from ...parallel import mesh as meshlib
+from ...parallel.mesh import DATA_AXIS, SERVER_AXIS, psum
 from ...ops import quantize as qops
 from ...ops import wire_codec as wc
 from ...ops.ftrl_sparse import resolve_update_path
@@ -544,7 +566,9 @@ def _gather_state(state, idx):
 
 def _progress_metrics(loss, y, xw, mask, with_aux: bool) -> Dict[str, torch.Tensor]:
     """SGDProgress scalars (padding rows masked out); the per-example
-    xw/y/mask aux feeds the host-side AUC."""
+    xw/y/mask aux feeds the host-side AUC. This rank's values: on a mesh
+    :func:`_fold_over_mesh` folds them by :data:`_FOLD_DENSE` /
+    :data:`_FOLD_SPARSE`."""
     metrics = {
         "objective": (loss.row_loss(y, xw) * mask).sum(),
         "num_ex": mask.sum(),
@@ -566,6 +590,47 @@ def _convergence_metrics(metrics, g_push, update, w_used):
     return metrics
 
 
+_AUX = ("xw", "y", "mask")
+_PROGRESS = {"objective": (DATA_AXIS,), "num_ex": (DATA_AXIS,), "correct": (DATA_AXIS,)}
+#: which mesh axes each metric sums over (the JAX step's psums): on the
+#: dense route the pushed gradient is ownership-masked, one server shard
+#: an entry (server, then data); the update is a shard vector replicated
+#: over data (server); the weights are server-assembled (data)
+_FOLD_DENSE = {**_PROGRESS, "grad_sq": (SERVER_AXIS, DATA_AXIS), "update_sq": (SERVER_AXIS,),
+               "weight_sq": (DATA_AXIS,)}
+#: the sparse route's update and weights are already global vectors
+_FOLD_SPARSE = {**_PROGRESS, "grad_sq": (DATA_AXIS,)}
+
+
+def _fold_over_mesh(per_step: List[Dict[str, torch.Tensor]], fold: Dict[str, tuple],
+                    mesh) -> List[Dict[str, torch.Tensor]]:
+    """The JAX step's metric psums for a launch's ministeps: each axis's
+    scalars, over every ministep, packed into one ``[T, n]`` tensor and
+    one ``psum`` (the elementwise sum gives the bits of one psum a
+    scalar), the server axis first; the per-example aux all-gathered
+    over data in one call (``[D, R]`` a ministep). The identity with no
+    mesh."""
+    if mesh is None:
+        return per_step
+    out = [dict(m) for m in per_step]
+    for axis in (SERVER_AXIS, DATA_AXIS):
+        names = [k for k in per_step[0] if axis in fold.get(k, ())]
+        if not names or mesh.shape[axis] == 1:
+            continue
+        packed = torch.stack([torch.stack([m[k] for k in names]) for m in out])
+        packed = psum(packed, axis, mesh)
+        for t, m in enumerate(out):
+            m.update(zip(names, packed[t]))
+    aux = [k for k in _AUX if k in per_step[0]]
+    if aux and mesh.shape[DATA_AXIS] > 1:
+        # [T, n_aux, R] from each data rank, gathered to [D, T, n_aux, R]
+        mine = torch.stack([torch.cat([m[k] for k in aux]) for m in out])
+        every = meshlib.all_gather(mine, DATA_AXIS, mesh, tiled=False)
+        for t, m in enumerate(out):
+            m.update((k, every[:, t, i]) for i, k in enumerate(aux))
+    return out
+
+
 def mix_seed(seed: int, mul: int, index: int = 0) -> int:
     """``seed * mul + index`` in wrapping 32-bit arithmetic: the JAX
     production wire's per-shard quantization seed (``mul`` 1000003 for
@@ -578,59 +643,90 @@ _PUSH_SEED_MUL, _PULL_SEED_MUL = 1000003, 999983
 _PUSH_NOISE_SALT, _PULL_NOISE_SALT = 0xA015E, 0xA015F
 
 
-def _make_perturb(noise, salt: int):
+def _coords(mesh) -> Tuple[int, int]:
+    """This rank's ``(data, server)`` coordinates, ``(0, 0)`` with no mesh."""
+    return (0, 0) if mesh is None else mesh.coords
+
+
+def _make_perturb(noise, salt: int, mesh=None):
     """ADD_NOISE wire op: N(mean, std) on nonzero entries, or None when
     disabled. A mean-only filter (std=0, mean!=0) still applies, adding
     the constant. The draws come from a ``torch.Generator`` seeded from
-    (salt, seed); its stream cannot match ``jax.random.normal``."""
+    (salt, seed, this rank's mesh position), each rank its own stream as
+    the JAX wire folds in both axis indices; it cannot match
+    ``jax.random.normal``."""
     if noise is None:
         return None
     mean, std = float(noise[0]), float(noise[1])
     if mean == 0.0 and std <= 0.0:
         return None
+    d, s = _coords(mesh)
+    position = 0 if mesh is None else d * mesh.shape[SERVER_AXIS] + s
 
     def perturb(g, seed):
         gen = torch.Generator(device=g.device)
-        gen.manual_seed((salt << 32) | (int(seed) & _M32))
+        gen.manual_seed(((salt << 32) | (int(seed) & _M32)) + (position << 52))
         n = mean + std * torch.randn(g.shape, generator=gen, device=g.device, dtype=g.dtype)
         return torch.where(g != 0, g + n, g)
 
     return perturb
 
 
-def make_push_reduce(push_quant: int, noise=None):
-    """The push wire, ``(g_shard, seed) -> g``: optionally ADD_NOISE,
-    then, with ``push_quant`` bytes, the FIXING_FLOAT push filter: the
-    shard gradient is stochastically rounded to fixed point with its own
-    [min, max] scale and decoded; entries that were zero stay exactly
-    zero (absent keys get no quantization noise). The cross-worker sum
-    of the JAX wire is the identity on one card."""
-    perturb = _make_perturb(noise, _PUSH_NOISE_SALT)
+def _make_push_filter(push_quant: int, noise=None, mesh=None):
+    """This data rank's contribution to the push, ``(g_shard, seed) ->
+    g``: optionally ADD_NOISE, then, with ``push_quant`` bytes, the
+    FIXING_FLOAT push filter: the shard gradient is stochastically
+    rounded to fixed point with its own [min, max] scale (seed ``seed *
+    1000003 + d``, ``d`` the data rank) and decoded; entries that were
+    zero stay exactly zero (absent keys get no quantization noise)."""
+    perturb = _make_perturb(noise, _PUSH_NOISE_SALT, mesh)
     if not push_quant:
         return (lambda g, seed: g) if perturb is None else perturb
+    d, _ = _coords(mesh)
 
-    def reduce(g, seed):
+    def encode(g, seed):
         if perturb is not None:
             g = perturb(g, seed)  # ADD_NOISE rides the wire before quantize
-        q, lo, hi = qops.quantize(g, mix_seed(seed, _PUSH_SEED_MUL), num_bytes=push_quant)
+        q, lo, hi = qops.quantize(g, mix_seed(seed, _PUSH_SEED_MUL, d), num_bytes=push_quant)
         return torch.where(g != 0, qops.dequantize(q, lo, hi, push_quant), 0.0)
 
-    return reduce
+    return encode
 
 
-def make_push_touched(push_quant: int, noise=None):
+def make_push_reduce(push_quant: int, noise=None, mesh=None):
+    """The push wire, ``(g_shard, seed) -> g``: each data rank's filtered
+    contribution (:func:`_make_push_filter`), summed over the data axis
+    (``psum``; the identity with one data rank)."""
+    encode = _make_push_filter(push_quant, noise, mesh)
+    if mesh is None:
+        return encode
+    return lambda g, seed: psum(encode(g, seed), DATA_AXIS, mesh)
+
+
+def make_push_touched(push_quant: int, noise=None, mesh=None):
     """``(g_shard, seed) -> (reduced g, touched)``. Without quantization
     the reduced gradient's support is membership (``touched=None``: the
     FTRL kernel derives it in place). Under a quantized push, rounding
     zeroes small gradients, so membership is taken before quantization
-    as an explicit mask."""
-    push_reduce = make_push_reduce(push_quant, noise=noise)
+    as an explicit mask; over the data axis it is the psum of the data
+    ranks' support masks, packed with the gradient into one collective
+    (two rows, each summed elementwise: the bits of two psums)."""
     if not push_quant:
+        push_reduce = make_push_reduce(push_quant, noise=noise, mesh=mesh)
         return lambda g_shard, seed: (push_reduce(g_shard, seed), None)
-    return lambda g_shard, seed: (push_reduce(g_shard, seed), g_shard != 0)
+    encode = _make_push_filter(push_quant, noise, mesh)
+    if mesh is None or mesh.shape[DATA_AXIS] == 1:
+        return lambda g_shard, seed: (encode(g_shard, seed), g_shard != 0)
+
+    def run(g_shard, seed):
+        both = torch.stack([encode(g_shard, seed), (g_shard != 0).to(torch.float32)])
+        both = psum(both, DATA_AXIS, mesh)
+        return both[0], both[1] > 0
+
+    return run
 
 
-def make_pull_lookup(updater, pull_quant: int, noise=None):
+def make_pull_lookup(updater, pull_quant: int, noise=None, mesh=None):
     """The pull wire, as ``(derive, lookup)``: ``derive(pulled, seed)``
     once per step gives the representation the step gathers from,
     ``lookup(rep, rel, ok)`` the flat f32 weights at ``rel``, zero where
@@ -644,8 +740,11 @@ def make_pull_lookup(updater, pull_quant: int, noise=None):
     zero), and the step gathers the dequantized weights: every
     ``pull_gather`` value takes this wide gather (the JAX package's
     narrow gather of codes is bit-equal to it). ADD_NOISE perturbs the
-    derived weights."""
-    perturb = _make_perturb(noise, _PULL_NOISE_SALT)
+    derived weights. On a mesh each server shard derives and rounds its
+    own weights (seed ``seed * 999983 + s``) and the lookup is this
+    shard's part; the caller assembles it over the server axis."""
+    perturb = _make_perturb(noise, _PULL_NOISE_SALT, mesh)
+    _, s_index = _coords(mesh)
     if not pull_quant and perturb is None:
         def lookup_rows(pulled, rel, ok):
             return torch.where(ok, updater.weights(_gather_state(pulled, rel)), 0.0)
@@ -662,7 +761,8 @@ def make_pull_lookup(updater, pull_quant: int, noise=None):
         w = updater.weights(pulled)
         if perturb is not None:
             w = perturb(w, seed)
-        q, lo, hi = qops.quantize(w, mix_seed(seed, _PULL_SEED_MUL), num_bytes=pull_quant)
+        q, lo, hi = qops.quantize(w, mix_seed(seed, _PULL_SEED_MUL, s_index),
+                                  num_bytes=pull_quant)
         return w, q, lo, hi
 
     def derive_wide(pulled, seed):
@@ -713,10 +813,16 @@ def sparse_update_min_slots() -> int:
     return 1 << 30
 
 
+def _mesh_or_none(mesh):
+    """The mesh a step runs its collectives over: None for no mesh or a
+    ``1 x 1`` one (every collective the identity)."""
+    return None if mesh is None or mesh.size == 1 else mesh
+
+
 def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str,
                           push_quant: int = 0, pull_quant: int = 0,
                           push_noise=None, pull_noise=None, pull_narrow=False,
-                          significance: Optional[SignificanceSpec] = None):
+                          significance: Optional[SignificanceSpec] = None, mesh=None):
     """One ministep over the exact (host-dedup) wire:
     ``(live, pulled, seed, y, mask, rows, ucols, vals, uslots, umask) ->
     metrics``, updating ``live`` in place. ``update="sparse"`` applies
@@ -730,7 +836,17 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
     the update off their rows, which stay bit-untouched; the metrics
     gain ``kkt_slots`` and ``kkt_suppressed``, and with feedback the
     per-slot ``kkt_keep`` and ``kkt_uslots``. None runs the unfiltered
-    step."""
+    step.
+
+    ``mesh``: ``shard`` is this rank's server shard; the weights are
+    assembled over the server axis and the gradient summed over the data
+    axis (the sparse update's unique-slot vector, which prep makes the
+    same on every data rank, or the dense update's shard vector through
+    the push wire). The metrics are this rank's (``mini_step.fold``)."""
+    mesh = _mesh_or_none(mesh)
+    if significance is not None and mesh is not None:
+        raise NotImplementedError(
+            "the KKT significance filter over a mesh is ROADMAP A9 slice 2")
     if significance is not None and update != "sparse":
         raise ValueError(
             "the KKT significance filter composes with update='sparse' "
@@ -751,12 +867,15 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
             )
     elif update != "dense":
         raise ValueError(f"unknown update mode {update!r}")
-    push_touched = make_push_touched(push_quant, noise=push_noise)
-    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise)
+    push_touched = make_push_touched(push_quant, noise=push_noise, mesh=mesh)
+    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise, mesh=mesh)
 
     def mini_step(live, pulled, seed, y, mask, rows, ucols, vals, uslots, umask):
-        rel, ok = localize(uslots, shard)
-        w_u = pull_lookup(pull_derive(pulled, seed), rel, ok) * umask
+        rel, ok = localize(uslots, shard, mesh)
+        w_u = pull_lookup(pull_derive(pulled, seed), rel, ok)
+        if mesh is not None:
+            w_u = psum(w_u, SERVER_AXIS, mesh)
+        w_u = w_u * umask
         # rows are in CSR order with the padding (row 0, value 0) at the
         # end: each row's nonzero entries lie in one run, so no sort
         xw = _segment_sum(vals * w_u.index_select(0, ucols), rows, y.shape[0], presorted=True)
@@ -766,6 +885,10 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
         metrics = _progress_metrics(loss, y, xw, mask, with_aux)
         if update == "sparse":
             g_pushed, ok_upd = g_u, ok
+            if mesh is not None:
+                # every data rank carries the same global uslots: the
+                # gradient merge is an elementwise psum of the U-vector
+                g_u = psum(g_u, DATA_AXIS, mesh)
             if significance is not None:
                 z_u = torch.where(ok, pulled["z"].index_select(0, rel), 0.0) * umask
                 keep, suppressed = kkt_mask(z_u, g_u, w_u, umask, seed, spec=significance)
@@ -791,6 +914,7 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
         updater.apply(live, g_shard, touched, seed=seed)
         return _convergence_metrics(metrics, g_push, g_shard, w_u)
 
+    mini_step.fold = _FOLD_SPARSE if update == "sparse" else _FOLD_DENSE
     return mini_step
 
 
@@ -804,26 +928,32 @@ def _fold_metrics(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Te
     }
 
 
-def _one_step(mini_step, decode):
+def _one_step(mini_step, decode, mesh=None):
     """``step(live, pulled, batch, seed) -> metrics`` over one minibatch:
     ``decode(batch, index)`` gives the ministep's arrays of data shard
-    ``index``."""
+    ``index`` (a rank of a mesh holds its own row only, at index 0); the
+    metrics folded over the mesh."""
+    mesh = _mesh_or_none(mesh)
 
     def step(live, pulled, batch, seed=0):
-        return mini_step(live, pulled, seed, *decode(batch, 0))
+        m = mini_step(live, pulled, seed, *decode(batch, 0))
+        return _fold_over_mesh([m], mini_step.fold, mesh)[0]
 
     return step
 
 
-def _scan_step(mini_step, decode):
+def _scan_step(mini_step, decode, mesh=None):
     """T ministeps of a superbatch in one submission, weights advancing
     every ministep (staleness 0; the pulled snapshot is not read);
-    ministep i uses seed + i."""
+    ministep i uses seed + i. The metrics fold over the mesh once a
+    launch."""
+    mesh = _mesh_or_none(mesh)
 
     def step(live, pulled, batch, seed=0):
         del pulled
-        return _fold_metrics([mini_step(live, live, (seed + i) & _M32, *decode(batch, (i, 0)))
-                              for i in range(batch.steps)])
+        per_step = [mini_step(live, live, (seed + i) & _M32, *decode(batch, (i, 0)))
+                    for i in range(batch.steps)]
+        return _fold_metrics(_fold_over_mesh(per_step, mini_step.fold, mesh))
 
     return step
 
@@ -835,26 +965,34 @@ def _raw_exact(batch, index):
     return tuple(getattr(batch, n)[index] for n in _EXACT)
 
 
+def _shard(num_slots: int, mesh) -> int:
+    """The slots of one server shard of a ``num_slots`` table."""
+    return num_slots // (1 if mesh is None else meshlib.num_servers(mesh))
+
+
 def make_train_step(updater, loss, num_slots: int, with_aux: bool = True,
-                    update: str = "dense", significance=None, **wire_kw):
+                    update: str = "dense", significance=None, mesh=None, **wire_kw):
     """Exact-wire step over one PreppedBatch:
     ``step(live, pulled, batch, seed) -> metrics``, ``live`` updated in
     place. ``wire_kw``: the filter settings of :func:`_make_exact_mini_step`
     (``push_quant``, ``pull_quant``, ``push_noise``, ``pull_noise``,
-    ``pull_narrow``)."""
-    return _one_step(_make_exact_mini_step(updater, loss, num_slots, with_aux, update,
-                                           significance=significance, **wire_kw), _raw_exact)
+    ``pull_narrow``). ``mesh``: ``live`` and ``pulled`` are this rank's
+    server shard and ``batch`` its data row."""
+    mini_step = _make_exact_mini_step(updater, loss, _shard(num_slots, mesh), with_aux, update,
+                                      significance=significance, mesh=mesh, **wire_kw)
+    return _one_step(mini_step, _raw_exact, mesh)
 
 
 def make_train_step_scan(updater, loss, num_slots: int, with_aux: bool = True,
-                         update: str = "dense", significance=None, **wire_kw):
+                         update: str = "dense", significance=None, mesh=None, **wire_kw):
     """T ministeps over a PreppedSuperBatch in one submission. The KKT
     filter keeps its mask and drops the per-slot feedback, which the
     fold would sum over ministeps."""
     if significance is not None:
         significance = significance.without_feedback()
-    return _scan_step(_make_exact_mini_step(updater, loss, num_slots, with_aux, update,
-                                            significance=significance, **wire_kw), _raw_exact)
+    mini_step = _make_exact_mini_step(updater, loss, _shard(num_slots, mesh), with_aux, update,
+                                      significance=significance, mesh=mesh, **wire_kw)
+    return _scan_step(mini_step, _raw_exact, mesh)
 
 
 def make_train_step_encoded(updater, loss, num_slots: int, with_aux: bool = True,
@@ -880,7 +1018,7 @@ def make_train_step_encoded_scan(updater, loss, num_slots: int, with_aux: bool =
 
 def _make_entry_mini_step(updater, loss, shard: int, num_slots: int, with_aux: bool,
                           push_quant: int = 0, pull_quant: int = 0, push_noise=None,
-                          pull_noise=None, pull_narrow=False):
+                          pull_noise=None, pull_narrow=False, mesh=None):
     """One dense-update ministep over per-entry slot ids, the body of
     the hashed COO step and of every ELL wire:
     ``(live, pulled, seed, y, mask, rows, slots, vals, valid) -> metrics``.
@@ -890,15 +1028,20 @@ def _make_entry_mini_step(updater, loss, shard: int, num_slots: int, with_aux: b
     through the pull wire, sum Xw by row, add the entries' gradients
     into a shard-sized vector (a stable sort by slot, then each slot's
     sum in entry order: the same bits run to run and on the CPU), pass
-    it through the push wire and sweep the whole shard."""
+    it through the push wire and sweep the whole shard. ``mesh``: the
+    weights are assembled over the server axis, the push wire sums over
+    the data axis."""
     del pull_narrow  # every pull gathers wide
-    push_touched = make_push_touched(push_quant, noise=push_noise)
-    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise)
+    mesh = _mesh_or_none(mesh)
+    push_touched = make_push_touched(push_quant, noise=push_noise, mesh=mesh)
+    pull_derive, pull_lookup = make_pull_lookup(updater, pull_quant, noise=pull_noise, mesh=mesh)
 
     def mini_step(live, pulled, seed, y, mask, rows, slots, vals, valid):
-        rel, ok = localize(slots, shard)
+        rel, ok = localize(slots, shard, mesh)
         # sentinel/padding slots are owned by no shard: weight 0
         w_e = pull_lookup(pull_derive(pulled, seed), rel, ok)
+        if mesh is not None:
+            w_e = psum(w_e, SERVER_AXIS, mesh)
         xw = _segment_sum(w_e if vals is None else vals * w_e, rows, y.shape[0], presorted=True)
         gr = loss.row_grad(y, xw) * mask
         g_e = gr.index_select(0, rows)
@@ -913,17 +1056,21 @@ def _make_entry_mini_step(updater, loss, shard: int, num_slots: int, with_aux: b
         metrics = _progress_metrics(loss, y, xw, mask, with_aux)
         return _convergence_metrics(metrics, g_push, g_shard, w_e * mask.index_select(0, rows))
 
+    mini_step.fold = _FOLD_DENSE
     return mini_step
 
 
-def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True, **wire_kw):
-    """Per-entry step (hashed prep, dense update) over a HashedBatch."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+def make_train_step_hashed(updater, loss, num_slots: int, with_aux: bool = True, mesh=None,
+                           **wire_kw):
+    """Per-entry step (hashed prep, dense update) over a HashedBatch
+    (``mesh``: as :func:`make_train_step`)."""
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
 
     def decode(b, i):
         return b.y[i], b.mask[i], b.rows[i], b.slots[i], b.vals[i], None
 
-    return _one_step(mini_step, decode)
+    return _one_step(mini_step, decode, mesh)
 
 
 def _lane_rows(rows: int, lanes: int, device) -> torch.Tensor:
@@ -1328,11 +1475,28 @@ class AsyncSGDWorker(ISGDCompNode):
     :meth:`checkpoint` / :meth:`checkpoint_async` save
     :meth:`state_host` (the state and the seed counter) and
     :meth:`restore` brings both back, so resumed training replays bit
-    for bit."""
+    for bit.
 
-    def __init__(self, conf: Config, device=None, name: str = "async_sgd_worker"):
+    ``mesh`` (default: the started postoffice's): on a mesh of several
+    ranks this worker is one rank of the JAX mesh worker (the module's
+    docstring). Every rank of the mesh makes the same calls in the same
+    order: the steps, and :meth:`weights_dense`, :meth:`pull`,
+    :meth:`predict`, :meth:`evaluate`, which assemble the table over the
+    server axis, and :meth:`save_model` (each rank of data row 0 writes
+    its own shard's file). The state (``state``, :meth:`state_host`, checkpoints) is
+    this rank's server shard; ``convert.shard_state`` and
+    ``convert.unshard_state`` move it to and from whole tables."""
+
+    mesh = None  # the mesh the steps' collectives run over (None: one card)
+
+    def __init__(self, conf: Config, device=None, name: str = "async_sgd_worker", mesh=None):
         super().__init__(name=name)
-        if device is None and self.po.started:
+        if mesh is None and self.po.started:
+            mesh = self.po.mesh
+        self.mesh = _mesh_or_none(mesh)
+        if self.mesh is not None:
+            device = self.mesh.device
+        elif device is None and self.po.started:
             device = self.po.device
         self.device = resolve(device)
         self.conf = conf
@@ -1377,8 +1541,13 @@ class AsyncSGDWorker(ISGDCompNode):
             pull_noise=_add_noise_params(sgd.pull_filter),
             pull_narrow=sgd.pull_gather == "narrow",  # "auto" is wide
         )
-        self.num_slots = pad_slots(sgd.num_slots, 1)
+        n_server = 1 if self.mesh is None else meshlib.num_servers(self.mesh)
+        self.num_slots = pad_slots(sgd.num_slots, n_server)
+        #: this rank's rows of the table: its server shard
+        self.shard_rows = self.num_slots // n_server
         self._update_mode = self._resolve_update_mode(sgd)
+        if self.mesh is not None:
+            self._refuse_on_mesh(sgd)
         # which FTRL update the steps run: a CUDA kernel or the plain version
         self.update_path = resolve_update_path(
             self._update_mode, on_cuda=self.device.type == "cuda"
@@ -1386,7 +1555,7 @@ class AsyncSGDWorker(ISGDCompNode):
         # the hash modulus is the CONFIGURED slot count, not the padded
         # table size (the JAX worker's rule)
         self.directory = KeyDirectory(sgd.num_slots, hashed=True)
-        self.state = self.updater.init(self.num_slots, self.device)
+        self.state = self.updater.init(self.shard_rows, self.device)
         self._steps: Dict[Tuple, object] = {}
         self._seed_counter = 0
         self._pads: Optional[Tuple[int, int, int]] = None
@@ -1441,14 +1610,30 @@ class AsyncSGDWorker(ISGDCompNode):
             from ...telemetry import learning as learning_mod
 
             self._learning = learning_mod.plane(
-                self.name, num_slots=self.num_slots, num_shards=1,
+                self.name, num_slots=self.num_slots, num_shards=n_server,
                 max_delay=max(0, sgd.max_delay),
             )
         self._heat_counter = 0  # feeder/trainer thread only
         self._heat_feed: Optional[KeyHeatFeed] = None  # set for a train or a minibatch
+        self._row_checked = self.mesh is None  # dispatch thread only
         self._snapshot_ts: Optional[int] = None  # submit thread only
         if sgd.tau_adaptive or sgd.kkt_filter:
             self._consistency = ConsistencyRuntime.from_config(self, sgd)
+
+    @staticmethod
+    def _refuse_on_mesh(sgd) -> None:
+        """The features not yet ported to a mesh of several ranks."""
+        unported = [name for name, on in (
+            ("the KKT filter (kkt_filter)", sgd.kkt_filter),
+            ("the encoded exact wire (wire_encode)", bool(sgd.wire_encode)),
+            ("the ELL wires (ell_lanes: i32, u24, bits, stream)", sgd.ell_lanes > 0),
+            ("adaptive τ (tau_adaptive)", sgd.tau_adaptive),
+            ("the neighbour replica (num_replicas)", sgd.num_replicas > 0),
+        ) if on]
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)} over a mesh of several ranks: ROADMAP A9 slice 2 "
+                "(the raw exact wire and the hashed wire run on a mesh)")
 
     def set_effective_tau(self, tau: int) -> int:
         """Move the live bounded delay τ between submissions (adaptive
@@ -1517,7 +1702,7 @@ class AsyncSGDWorker(ISGDCompNode):
             rows = int(getattr(prepped, "uniq_pad", 0)
                        or (uslots.shape[-1] if uslots is not None else 0))
         else:
-            rows = self.num_slots
+            rows = self.shard_rows
         tel["path"].labels(path=self.update_path).inc(n_steps)
         tel["rows"].inc(rows * n_steps)
 
@@ -1537,26 +1722,41 @@ class AsyncSGDWorker(ISGDCompNode):
             return sgd.update
         w = self._wire
         filtered = bool(w["push_quant"] or w["pull_quant"] or w["push_noise"] or w["pull_noise"])
-        if self.num_slots >= sparse_update_min_slots() and not filtered:
+        if self.shard_rows >= sparse_update_min_slots() and not filtered:
             return "sparse"
         return "dense"
 
+    @property
+    def num_data(self) -> int:
+        """Data rows a minibatch splits into: the mesh's data axis."""
+        return 1 if self.mesh is None else meshlib.num_workers(self.mesh)
+
     def _padding(self, batch: SparseBatch) -> Tuple[int, int, int]:
         """Static shapes, pinned from the first batch as the JAX worker
-        pins them: rows per shard, and nnz with 25% headroom rounded up
-        to 4096. A later batch that outgrows an auto-sized pad grows it
-        (the JAX worker raises there): eager PyTorch keeps no compiled
-        shape, and a tail-filtered stream keeps more keys in its later
-        minibatches than in its first. Padding entries change no result."""
-        rows = self.sgd.rows_pad or batch.n
-        nnz = self.sgd.nnz_pad or max(4096, -(-int(batch.nnz * 1.25) // 4096) * 4096)
+        pins them: rows per data shard, and a shard's nnz with 25%
+        headroom rounded up to 4096. A later batch that outgrows an
+        auto-sized pad grows it (the JAX worker raises there): eager
+        PyTorch keeps no compiled shape, and a tail-filtered stream keeps
+        more keys in its later minibatches than in its first. On a mesh
+        every rank sees the same stream, so every rank pads alike.
+        Padding entries change no result."""
+        d = self.num_data
+        per = -(-batch.n // d)
+        rows = self.sgd.rows_pad or per
+        shard_nnz = max(int(batch.indptr[min((i + 1) * per, batch.n)]
+                            - batch.indptr[min(i * per, batch.n)]) for i in range(d))
+        nnz = self.sgd.nnz_pad or max(4096, -(-int(-(-batch.nnz // d) * 1.25) // 4096) * 4096)
         if self._pads is None:
             self._pads = (rows, nnz, nnz)
         else:
             r, z, _ = self._pads
-            r = rows if batch.n > r and not self.sgd.rows_pad else r
-            z = nnz if batch.nnz > z and not self.sgd.nnz_pad else z
+            r = rows if per > r and not self.sgd.rows_pad else r
+            z = nnz if shard_nnz > z and not self.sgd.nnz_pad else z
             self._pads = (r, z, z)
+        if shard_nnz > self._pads[1] and not self.sgd.nnz_pad:
+            # a data row denser than the mean: its own size, with the headroom
+            z = max(4096, -(-int(shard_nnz * 1.25) // 4096) * 4096)
+            self._pads = (self._pads[0], z, z)
         return self._pads
 
     def prep(self, batch: SparseBatch, device_put: bool = True, pads=None):
@@ -1570,14 +1770,17 @@ class AsyncSGDWorker(ISGDCompNode):
         if self._consistency is not None:
             batch = self._consistency.filter_batch(batch, self.directory)
         rows_pad, nnz_pad, _ = pads or self._padding(batch)
+        d = self.num_data
         if self._update_mode == "sparse":
-            uniq = min(nnz_pad, self.num_slots)
+            uniq = min(nnz_pad * d, self.num_slots)
             uniq = -(-uniq // 1024) * 1024
             out = self._maybe_encode(prep_batch_shared(
-                batch, self.directory, 1, rows_pad, nnz_pad, uniq, self.num_slots
+                batch, self.directory, d, rows_pad, nnz_pad, uniq, self.num_slots
             ))
         else:
             out = self._prep_dense(batch, rows_pad, nnz_pad)
+        if self.mesh is not None:
+            out = pdist.local_from_global(self.mesh, out)  # this rank's data row
         return self.upload(out) if device_put else out
 
     def _prep_dense(self, batch: SparseBatch, rows_pad: int, nnz_pad: int):
@@ -1601,7 +1804,8 @@ class AsyncSGDWorker(ISGDCompNode):
                 out = prep_batch_ell(batch, self.directory, 1, rows_pad, lanes, self.num_slots,
                                      pack=kind == "u24" and self.num_slots < (1 << 24))
             return out
-        return prep_batch_hashed(batch, self.directory, 1, rows_pad, nnz_pad, self.num_slots)
+        return prep_batch_hashed(batch, self.directory, self.num_data, rows_pad, nnz_pad,
+                                 self.num_slots)
 
     def _maybe_encode(self, out):
         """The compact exact wire with ``wire_encode`` (stateless: runs
@@ -1653,7 +1857,8 @@ class AsyncSGDWorker(ISGDCompNode):
     def _get_step(self, prepped, with_aux: bool):
         """The step for a prepped batch's wire, built once a wire and
         static shape. The KKT filter rides the exact wires' steps."""
-        exact = dict(update=self._update_mode, significance=self._significance, **self._wire)
+        exact = dict(update=self._update_mode, significance=self._significance, mesh=self.mesh,
+                     **self._wire)
         lanes = self.sgd.ell_lanes
         if isinstance(prepped, wire.EncodedEllStreamSuperBatch):
             key, build = ("ell_stream_scan", with_aux), lambda: make_train_step_ell_stream_scan(
@@ -1683,7 +1888,7 @@ class AsyncSGDWorker(ISGDCompNode):
                 **self._wire)
         elif isinstance(prepped, HashedBatch):
             key, build = ("hashed", with_aux), lambda: make_train_step_hashed(
-                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
+                self.updater, self.loss, self.num_slots, with_aux, mesh=self.mesh, **self._wire)
         else:
             key, build = ("exact", with_aux), lambda: make_train_step(
                 self.updater, self.loss, self.num_slots, with_aux, **exact)
@@ -1735,6 +1940,14 @@ class AsyncSGDWorker(ISGDCompNode):
                 for name in wire.array_fields(prepped):
                     # allocated on the upload's stream, read on this one
                     getattr(prepped, name).record_stream(stream)
+            if not self._row_checked:
+                # the ranks of this data row fed the same batch, and every
+                # data row holds the same global unique slots of the sparse
+                # update (collectives: here, on the dispatch thread, in step
+                # order)
+                shared = prepped.uslots if self._update_mode == "sparse" else None
+                pdist.assert_row_agrees(self.mesh, prepped, shared=shared)
+                self._row_checked = True
             if do_snapshot:
                 self._pull_state = self._snapshot()
             metrics = step_fn(self.state, self._pull_state, prepped, seed, variant)
@@ -1944,6 +2157,7 @@ class AsyncSGDWorker(ISGDCompNode):
         False when no replica was taken. Submitted through the executor,
         in order with the steps in flight; the pull snapshot re-anchors
         on the restored state."""
+        self._one_server("recover_server_shard")
         if self._replica_state is None:
             return False
         rows = server_shard_rows(shard, self.num_slots)  # one server shard
@@ -1960,6 +2174,7 @@ class AsyncSGDWorker(ISGDCompNode):
     def wipe_server_shard(self, shard: int) -> None:
         """Zero a server shard's slot rows, as a replacement server that
         boots empty would hold them, through the executor."""
+        self._one_server("wipe_server_shard")
         rows = server_shard_rows(shard, self.num_slots)
 
         def do_wipe():
@@ -1970,20 +2185,32 @@ class AsyncSGDWorker(ISGDCompNode):
 
         self.executor.wait(self.executor.submit(do_wipe))
 
+    def _one_server(self, what: str) -> None:
+        if self.mesh is not None and meshlib.num_servers(self.mesh) > 1:
+            raise NotImplementedError(
+                f"{what} over {meshlib.num_servers(self.mesh)} server shards (the neighbour "
+                "replica on a mesh) is ROADMAP A9 slice 2")
+
     # -- serving the trained table --
 
+    def _whole(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole table from this rank's server shard (a collective over
+        the server axis on a mesh)."""
+        if self.mesh is None:
+            return shard
+        return meshlib.all_gather(shard, SERVER_AXIS, self.mesh)
+
     def weights_dense(self) -> np.ndarray:
-        """The whole weight vector, derived from the optimizer state."""
+        """The whole weight vector, derived from the optimizer state (on
+        a mesh, assembled over the server axis: every rank calls it)."""
         self._drain()
-        return self.updater.weights(self.state).cpu().numpy()
+        return self._whole(self.updater.weights(self.state)).cpu().numpy()
 
     def _slot_weights(self, slots: torch.Tensor) -> torch.Tensor:
         self._drain()
-        ok = slots < self.num_slots
-        w = self.updater.weights(
-            _gather_state(self.state, torch.clamp(slots, 0, self.num_slots - 1))
-        )
-        return torch.where(ok, w, 0.0)
+        rel, ok = localize(slots, self.shard_rows, self.mesh)
+        w = torch.where(ok, self.updater.weights(_gather_state(self.state, rel)), 0.0)
+        return w if self.mesh is None else psum(w, SERVER_AXIS, self.mesh)
 
     def pull(self, keys: np.ndarray) -> np.ndarray:
         """Weights of the given feature keys (a pull from the table)."""
@@ -2008,25 +2235,42 @@ class AsyncSGDWorker(ISGDCompNode):
         }
 
     def save_model(self, path: str) -> List[str]:
-        """Nonzero weights as ``slot\\tweight`` text in one file,
-        ``{path}_S0`` (the JAX worker writes one file per server shard;
-        here there is one shard). The directory is hashed, so the keys
-        are table slots, under a ``#hashed <num_slots>`` header that
-        tells a reader to route lookups through the same hash."""
+        """Nonzero weights as ``slot\\tweight`` text, one file a server
+        shard, ``{path}_S{s}`` (one, ``_S0``, with no mesh), as the JAX
+        worker writes them. The directory is hashed, so the keys are
+        table slots, under a ``#hashed <num_slots>`` header that tells a
+        reader to route lookups through the same hash. On a mesh every
+        rank calls it: the ranks of data row 0 each write their own
+        shard's file, and no rank returns before every file is whole."""
         self._drain()
-        # the nonzeros are found where the table lies, a chunk of slots at
-        # a time (the weights are elementwise): a 2^30-slot table sends
-        # only its nonzero weights to the host, with a chunk's temporaries
-        spath = f"{path}_S0"
+        if self.mesh is None:
+            return [self._write_shard(f"{path}_S0", 0)]
+        written = [f"{path}_S{s}" for s in range(meshlib.num_servers(self.mesh))]
+        if self.mesh.data_index == 0:
+            s = self.mesh.server_index
+            self._write_shard(written[s], s * self.shard_rows)
+        done = torch.zeros(1, device=self.device)
+        psum(psum(done, SERVER_AXIS, self.mesh), DATA_AXIS, self.mesh)
+        return written
+
+    def _write_shard(self, spath: str, first: int) -> str:
+        """This rank's shard's nonzero weights, its row ``i`` as slot
+        ``first + i``. The nonzeros are found where the table lies, a
+        chunk of slots at a time (the weights are elementwise): a
+        2^30-slot table sends only its nonzero weights to the host, with
+        a chunk's temporaries."""
+        rows = min(self.shard_rows, self.num_slots - first)
         with psfile.open_write(spath) as f:
             f.write(f"#hashed\t{self.directory.num_slots}\n")
-            for lo in range(0, self.num_slots, _SAVE_CHUNK):
-                w = self.updater.weights({k: (v[lo:lo + _SAVE_CHUNK] if v.dim() >= 1 else v)
+            for lo in range(0, rows, _SAVE_CHUNK):
+                hi = min(lo + _SAVE_CHUNK, rows)
+                w = self.updater.weights({k: (v[lo:hi] if v.dim() >= 1 else v)
                                           for k, v in self.state.items()})
                 nz = torch.nonzero(w).reshape(-1)
                 weights = w.index_select(0, nz).cpu().tolist()
-                f.writelines(f"{i}\t{v!r}\n" for i, v in zip((nz + lo).cpu().tolist(), weights))
-        return [spath]
+                slots = (nz + (first + lo)).cpu().tolist()
+                f.writelines(f"{i}\t{v!r}\n" for i, v in zip(slots, weights))
+        return spath
 
     # -- state snapshot / restore (the JAX worker's state_host format) --
 
@@ -2071,9 +2315,9 @@ class AsyncSGDWorker(ISGDCompNode):
         seed counter comes back. The steps in flight have drained."""
         for k, leaf in state.items():
             leaf = state[k] = leaf.to(self.state[k].dtype)
-            if leaf.dim() >= 1 and leaf.shape[0] != self.num_slots:
-                fitted = torch.zeros(self.num_slots, dtype=leaf.dtype, device=leaf.device)
-                m = min(self.num_slots, leaf.shape[0])
+            if leaf.dim() >= 1 and leaf.shape[0] != self.shard_rows:
+                fitted = torch.zeros(self.shard_rows, dtype=leaf.dtype, device=leaf.device)
+                m = min(self.shard_rows, leaf.shape[0])
                 fitted[:m] = leaf[:m]
                 state[k] = fitted
         self.state = state

@@ -1,10 +1,31 @@
 """Linear-method CLI: train the model a reference-style ``.conf`` selects.
 
     python -m parameter_server_tpu_torch.apps.linear.main <config.conf> [--device cpu]
+        [--num-servers S] [--num-workers D]
 
 Counterpart of ``parameter_server_tpu/apps/linear/main.py`` for the
 ``darlin`` and ``async_sgd`` apps and model evaluation, on one device
-(the CUDA device unless ``--device`` names another).
+(the CUDA device unless ``--device`` names another), or for
+``async_sgd`` on a ``(data, server)`` mesh of ``D x S`` ranks:
+
+- inside a world a launcher started (``PS_COORDINATOR_ADDRESS``,
+  ``PS_NUM_PROCESSES``, ``PS_PROCESS_ID`` set on every rank), each rank
+  joins it and builds its mesh with the JAX CLI's rules (``--num-workers``
+  0 spreads the data axis over the world);
+- otherwise, with ``D x S > 1`` (``--num-workers`` 0 meaning one), the
+  CLI starts the ``D x S`` ranks itself (``parallel/launch.py``, start
+  method ``spawn``), rank ``r`` on ``cuda:(r mod device_count)``, or on
+  the CPU with ``--device cpu``; ranks share a card over gloo, and NCCL
+  runs when each has one of its own. The chosen backend is printed.
+  With no card and no ``--device`` (or, in a launcher's world, no
+  ``PS_DEVICE``) it raises, as the one-process CLI does.
+
+Every rank runs the same program on the same stream (rank 0 draws the
+workload shuffle's seed and the others take it from the rendezvous
+store); rank 0 prints what the single-process CLI prints, and the ranks
+of data row 0 write the model, ``{model_output}_S{s}`` from the rank
+holding server shard ``s``. On a mesh the darlin app and model
+evaluation raise ``NotImplementedError`` naming ROADMAP A9.
 
 - ``darlin``: the training files are read and localized in one batch,
   divided into feature blocks and trained by block coordinate descent
@@ -29,13 +50,14 @@ back to the pool, ``--report-interval N`` prints the node dashboard
 every N seconds (and at the end; ``--verbose`` prints it at the end),
 ``--heartbeat-timeout`` sets when a silent node is declared dead, and
 ``--profile DIR`` captures a ``torch.profiler`` trace of the run
-(``utils/profiling.device_trace``). More than one server or worker
-raises ``NotImplementedError`` naming ROADMAP A9.
+(``utils/profiling.device_trace``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import random
 import sys
 
 from ...data.stream_reader import StreamReader
@@ -48,22 +70,47 @@ from .darlin import DarlinScheduler
 from .model_evaluation import ModelEvaluation
 
 
-def _unported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} needs the system layer, which is not ported to the "
-        f"PyTorch package yet (ROADMAP {item})"
-    )
-
-
 def _data_format(dc) -> str:
     return dc.text if dc.format == "text" else dc.format
+
+
+def _rank_main(argv, device) -> int:
+    """One rank of a world the CLI started: the CLI again, inside it."""
+    return main(argv, device=device)
+
+
+def _agree_on_random() -> None:
+    """Seed Python's ``random`` (the workload pool's shuffle) alike on
+    every rank of the world: rank 0 draws the seed, the others read it
+    from the rendezvous store."""
+    import torch.distributed as dist
+
+    from ...parallel import distributed
+
+    if not distributed.is_multiprocess():
+        return
+    if dist.get_rank() == 0:
+        seed = os.urandom(8)
+        distributed.post_bytes("linear_cli/random_seed", seed)
+    else:
+        seed = distributed.fetch_bytes("linear_cli/random_seed")
+    random.seed(int.from_bytes(seed, "little"))
+
+
+def _unported_on_mesh(conf) -> None:
+    if conf.darlin is not None or conf.async_sgd is None:
+        app = "darlin" if conf.darlin is not None else "model evaluation"
+        raise NotImplementedError(
+            f"the {app} app on a mesh of several ranks is ROADMAP A9 slice 2; run it with "
+            "one server and one worker")
 
 
 def main(argv=None, device=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("conf", help="path to a protobuf-text .conf file")
     ap.add_argument("--num-servers", type=int, default=1)
-    ap.add_argument("--num-workers", type=int, default=0, help="0 = one (the only one)")
+    ap.add_argument("--num-workers", type=int, default=0,
+                    help="data rows of the mesh (0: over the launcher's world, else one)")
     ap.add_argument("--verbose", action="store_true",
                     help="print progress per workload and the dashboard at the end")
     ap.add_argument("--report-interval", type=float, default=0.0,
@@ -75,11 +122,25 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if args.num_servers != 1 or args.num_workers not in (0, 1):
-        raise _unported("--num-servers/--num-workers other than 1", "A9")
     with open(args.conf) as f:
         conf = parse_conf(f.read())
-    po = Postoffice.instance().start(device=device if device is not None else args.device)
+    device = device if device is not None else args.device
+    world = max(1, args.num_workers) * args.num_servers
+    if not os.environ.get("PS_COORDINATOR_ADDRESS") and world > 1:
+        _unported_on_mesh(conf)  # before starting ranks that would each refuse
+        return _spawn(argv if argv is not None else sys.argv[1:], world, device)
+    po = Postoffice.instance().start(num_data=args.num_workers or None,
+                                     num_server=args.num_servers, device=device)
+    if po.mesh.size > 1:
+        try:
+            _unported_on_mesh(conf)
+        except NotImplementedError:
+            po.stop()
+            raise
+        if po.mesh.rank == 0:
+            print(f"mesh {po.mesh.shape['data']}x{po.mesh.shape['server']} (data x server) "
+                  f"over {po.mesh.backend}, rank 0 on {po.device}", flush=True)
+        _agree_on_random()
     # heartbeat -> dashboard -> recovery, running for every app
     aux = po.start_aux(heartbeat_timeout=args.heartbeat_timeout)
     aux.start(check_interval=max(0.2, args.heartbeat_timeout / 5),
@@ -94,6 +155,28 @@ def main(argv=None, device=None) -> int:
     finally:
         po.stop()
     return 0
+
+
+def _spawn(argv, world: int, device) -> int:
+    """Start the world's ranks, each running this CLI inside it; the
+    worst rank's exit code."""
+    import torch
+
+    from ...device import resolve
+    from ...parallel import distributed, launch
+
+    device_type = resolve(device).type  # the card unless --device names another
+    if device_type == "cuda":
+        # every rank loads the kernels the launching process built
+        from ...kernels import build_all
+
+        build_all()
+    backend = distributed.choose_backend(world, torch.device(device_type))
+    print(f"starting {world} ranks on {device_type} over {backend}", flush=True)
+    # no time limit on a training run; a rank that fails fails the world
+    codes = launch.run_world(_rank_main, world, args=(argv, None), timeout=None,
+                             device_type=device_type, threads=0, quiet=True)
+    return max(int(c or 0) for c in codes)
 
 
 def _run_darlin(conf, device, aux) -> int:

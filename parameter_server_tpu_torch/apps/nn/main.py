@@ -7,8 +7,8 @@ Counterpart of ``parameter_server_tpu/apps/nn/main.py``: the same flags
 and the same synthetic data from ``np.random.default_rng(0)`` (blobs for
 the MLP, noisy class-centre images for the conv net), the same progress
 rows. ``--device`` names the torch device (default: the CUDA device;
-without one the run raises); ``--num-servers`` above 1 raises naming
-ROADMAP A9.
+without one the run raises); ``--num-servers`` above 1 (a ``KVLayer``
+over several server shards) raises naming ROADMAP A9 slice 2.
 """
 
 from __future__ import annotations
@@ -35,6 +35,10 @@ def main(argv=None) -> int:
     from ...system.postoffice import Postoffice
     from .trainer import NNTrainer
 
+    if args.num_servers != 1:
+        raise NotImplementedError(
+            f"--num-servers {args.num_servers}: a KVLayer over several server shards is ROADMAP "
+            "A9 slice 2")
     po = Postoffice.instance().start(num_server=args.num_servers, device=args.device)
 
     rng = np.random.default_rng(0)

@@ -6,7 +6,8 @@ benchmarks that run on one card, registered under the same names, each
 caller names another; raises without one), printing the JAX
 benchmark's metric lines and returning its record (``chip_smoke.py``
 phase 8g reads the records). ``rebalance`` shards a table over 8
-devices and is ROADMAP A9's.
+devices and live-repartitions it: ROADMAP A9 slice 2. ``network``'s
+in-mesh ``psum`` starts a world of two ranks of its own.
 
 Names: the JAX package's arms ``xla``, ``pallas``, ``fused`` and
 ``flash`` are ``plain`` (the plain PyTorch version) and ``cuda`` (the
@@ -716,9 +717,15 @@ def network_perf(smoke: bool = False, device=None) -> dict:
     src/test/network_perf_ps.cc): the host → card copy of a pageable
     numpy array, as ``jax.device_put`` copies one. On the CPU the copy
     is into a new host tensor. Times are in microseconds (an 8 KB copy
-    rounds to 0.0 ms). The JAX benchmark's in-mesh ``psum`` needs more
-    than one device: the port runs one card, and its collectives are
-    ROADMAP A9's, so it reports no ``network_psum_ms``."""
+    rounds to 0.0 ms). Then ``network_psum_ms``, the in-mesh collective:
+    a ``psum`` of the JAX benchmark's size (1 MB; 64 KB at smoke) over
+    the data axis of a world of 2 ranks this benchmark starts
+    (``parallel/launch.py``) on the device's type. On one card the two
+    ranks share it over gloo (NCCL refuses two ranks on one card), so
+    the time is gloo's through the host, not NCCL's across cards."""
+    from ..parallel import launch
+    from . import mesh as mesh_bench
+
     dev = _start(device)
     line = _Lines()
     sizes_kb = [8, 64] if smoke else [8, 64, 1024, 8192]
@@ -735,7 +742,11 @@ def network_perf(smoke: bool = False, device=None) -> dict:
         sec = timeit(h2d, 3 if smoke else 10)
         line(f"network_h2d_{kb}kb_us", sec * 1e6, "us")
         line(f"network_h2d_{kb}kb_mb_per_sec", x.nbytes / sec / 1e6, "MB/s")
-    return {"metrics": line.values, "sizes_kb": sizes_kb}
+    world = launch.run_world(mesh_bench.psum_ms, 2,
+                             args=((64 if smoke else 1024) * 256, 5 if smoke else 20),
+                             device_type=dev.type, timeout=300)
+    line("network_psum_ms", world[0]["ms"], "ms")
+    return {"metrics": line.values, "sizes_kb": sizes_kb, "psum": world[0]}
 
 
 def _spmv(vals: torch.Tensor, ucols: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
@@ -2667,7 +2678,9 @@ def _consistency_divergence_drill(device, smoke: bool) -> dict:
     worker = AsyncSGDWorker(_consistency_conf(4, adaptive=True), device=device,
                             name="consistency_diverge")
     n_good = 8 if smoke else 12
-    bundles0 = len(blackbox.bundles())
+    # the bundles held before the drill, by identity: the store keeps the
+    # last four, so once it is full a new bundle leaves its length as it was
+    before = [id(b) for b in blackbox.bundles()]
     try:
         mgr.evaluate()
         batches = _consistency_batches(n_good + 4, worker.directory, worker.num_slots, seed0=300)
@@ -2693,8 +2706,9 @@ def _consistency_divergence_drill(device, smoke: bool) -> dict:
             post.append(_final_loss("consistency_diverge"))
         episodes = list(worker._consistency.controller.episodes)
         divergences = dict(learning_mod.get_plane("consistency_diverge").snapshot()["divergence"])
-        rollback_bundle = next((b for b in blackbox.bundles()[bundles0:]
-                                if b["trigger"]["kind"] == "consistency_rollback"), None)
+        rollback_bundle = next((b for b in blackbox.bundles()
+                                if id(b) not in before
+                                and b["trigger"]["kind"] == "consistency_rollback"), None)
     finally:
         worker.remove()
         blackbox.set_min_interval(prev_interval)

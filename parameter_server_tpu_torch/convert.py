@@ -3,7 +3,9 @@
 The JAX worker's ``state_host()["state"]`` is a dict of numpy arrays
 (``{"z", "sqrt_n"}`` for FTRL; a bf16 ``sqrt_n`` arrives as an
 ``ml_dtypes.bfloat16`` array). :func:`state_from_jax` turns it into the
-port's dict of tensors, :func:`state_to_numpy` goes back.
+port's dict of tensors, :func:`state_to_numpy` goes back. On a mesh,
+:func:`shard_state` cuts the JAX mesh worker's whole tables to one
+rank's server shard and :func:`unshard_state` joins the ranks' shards.
 :func:`lm_params_from_jax` and :func:`lm_params_to_numpy` do the same for
 the JAX ``init_lm`` parameter dict, checking names and shapes against
 the config, :func:`darlin_state_from_jax` and
@@ -64,6 +66,33 @@ def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         else:
             out[k] = t.numpy().copy()
     return out
+
+
+def shard_state(np_state: Dict[str, np.ndarray], num_server: int, index: int,
+                device=None) -> Dict[str, torch.Tensor]:
+    """A whole numpy state dict (the JAX mesh worker's ``state_host()
+    ["state"]``, rows ``[P]``) -> server shard ``index`` of ``num_server``
+    as tensors on ``device``: rows ``[index * P / num_server, (index + 1)
+    * P / num_server)`` of every array leaf; scalars whole."""
+    out = {}
+    for k, v in np_state.items():
+        v = np.asarray(v)
+        if v.ndim >= 1:
+            if v.shape[0] % num_server:
+                raise ValueError(f"{k}: {v.shape[0]} rows do not split over {num_server} "
+                                 "server shards")
+            rows = v.shape[0] // num_server
+            v = v[index * rows:(index + 1) * rows]
+        out[k] = v
+    return state_from_jax(out, device)
+
+
+def unshard_state(shards: "list[Dict[str, np.ndarray]]") -> Dict[str, np.ndarray]:
+    """Server shards' numpy states, in shard order (each rank's
+    ``state_host()["state"]``) -> the whole state, as the JAX mesh worker
+    holds it: array leaves concatenated, scalars from shard 0."""
+    return {k: (np.concatenate([np.asarray(sh[k]) for sh in shards])
+                if np.ndim(shards[0][k]) >= 1 else shards[0][k]) for k in shards[0]}
 
 
 def _lm_shapes(cfg) -> Dict[str, tuple]:

@@ -1,0 +1,6 @@
+"""The (data, server) mesh over ``torch.distributed``: one process a
+mesh position (``mesh.py``), the rendezvous and control-plane store
+(``distributed.py``), the declared layouts (``partition.py``) and the
+launcher of local worlds (``launch.py``)."""
+
+from .mesh import DATA_AXIS, SERVER_AXIS  # noqa: F401

@@ -1,0 +1,249 @@
+"""The ``(data, server)`` mesh, one process a mesh position.
+
+Counterpart of ``parameter_server_tpu/parallel/mesh.py``. The JAX
+package runs one SPMD program over a ``jax.sharding.Mesh`` whose devices
+are the mesh's positions; the port runs one process (rank) a position,
+``world = num_data * num_server``, every rank running the same program:
+
+- rank ``r`` sits at ``(d, s) = divmod(r, num_server)``;
+- ``server`` axis ≙ the reference's kServerGroup: rank ``(d, s)`` holds
+  server shard ``s`` of every table, a contiguous key range
+  (``Range<Key>::EvenDivide`` in manager.cc);
+- ``data`` axis ≙ kWorkerGroup: rank ``(d, s)`` feeds data row ``d`` of
+  every minibatch.
+
+The ranks of one data row form its *server group*, the ranks of one
+server column its *data group*. The JAX step's collectives map one for
+one onto these groups:
+
+- ``jax.lax.psum(x, SERVER_AXIS)`` → :func:`psum` ``(x, SERVER_AXIS,
+  mesh)``, an ``all_reduce`` over the server group;
+- ``jax.lax.psum(x, DATA_AXIS)`` → an ``all_reduce`` over the data group;
+- ``jax.lax.all_gather(x, DATA_AXIS, tiled=True)`` → :func:`all_gather`,
+  the data ranks' tensors concatenated in data order;
+- ``jax.lax.axis_index(axis)`` → :func:`axis_index`, the rank's
+  coordinate.
+
+On an axis of size 1 each collective is the identity and runs nothing,
+so a ``1 x 1`` mesh (no process group at all) is the one-card program.
+
+**Backends** (chosen once, in ``distributed.initialize``): NCCL when
+every rank has a card of its own, gloo when ranks share a card or run on
+the CPU. gloo reduces CUDA tensors itself (``all_reduce``, ``broadcast``)
+but gathers only host tensors, so :func:`all_gather` of a CUDA tensor
+under gloo copies it through pinned host memory, in
+:func:`_gather_through_host` and nowhere else.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+SERVER_AXIS = "server"
+AXES = (DATA_AXIS, SERVER_AXIS)
+
+
+def mesh_shape(n: int, num_data: Optional[int] = None, num_server: int = 1) -> Tuple[int, int]:
+    """``(num_data, num_server)`` over ``n`` positions, by the JAX
+    package's auto-shape rules: with ``num_data`` None, the server count
+    steps down to the largest divisor of ``n`` at or under the request
+    and the data axis takes the rest (no position idles); an explicit
+    shape may leave positions idle (a prefix is used) and raises
+    ``ValueError`` when it needs more than ``n``."""
+    log = logging.getLogger(__name__)
+    if num_data is None:
+        num_server = max(1, min(int(num_server), n))
+        if n % num_server != 0:
+            adjusted = next(d for d in range(num_server, 0, -1) if n % d == 0)
+            log.warning(
+                "auto-shape: %d server shards do not divide %d devices; using %d server "
+                "shards (largest divisor <= requested) so no chip idles",
+                num_server, n, adjusted,
+            )
+            num_server = adjusted
+        num_data = n // num_server
+        log.info("auto-shaped mesh %dx%d (data x server) over %d devices, 0 idle",
+                 num_data, num_server, n)
+    num_data, num_server = int(num_data), int(num_server)
+    need = num_data * num_server
+    if need > n:
+        raise ValueError(f"mesh {num_data}x{num_server} needs {need} > {n} devices")
+    if need < n:
+        log.warning("mesh %dx%d leaves %d of %d devices idle", num_data, num_server, n - need, n)
+    return num_data, num_server
+
+
+class Mesh:
+    """This rank's view of a ``(data, server)`` mesh: the shape, its
+    coordinates (None on a rank the mesh leaves idle), its device, and
+    the process groups of its data column and server row (None on an
+    axis of size 1, or with no world)."""
+
+    def __init__(self, num_data: int, num_server: int, device: torch.device,
+                 rank: int = 0, groups: Optional[Dict[str, object]] = None,
+                 backend: Optional[str] = None):
+        self.shape = {DATA_AXIS: int(num_data), SERVER_AXIS: int(num_server)}
+        self.size = self.shape[DATA_AXIS] * self.shape[SERVER_AXIS]
+        self.rank = int(rank)
+        self.coords = divmod(self.rank, num_server) if self.rank < self.size else None
+        self.device = torch.device(device)
+        self.groups = dict(groups or {})
+        self.backend = backend
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank holds a position of the mesh."""
+        return self.coords is not None
+
+    @property
+    def data_index(self) -> int:
+        return self.coords[0]
+
+    @property
+    def server_index(self) -> int:
+        return self.coords[1]
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape[DATA_AXIS]}x{self.shape[SERVER_AXIS]}, rank={self.rank}, "
+                f"coords={self.coords}, device={self.device}, backend={self.backend})")
+
+
+def _world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def make_mesh(num_data: Optional[int] = None, num_server: int = 1,
+              devices: Optional[Sequence] = None, device=None) -> Mesh:
+    """Build this rank's ``(data, server)`` mesh over the world's ranks.
+
+    ``devices``: one device a rank of the world (default: the world's
+    size, this rank on ``device``, else the one ``distributed`` chose).
+    The shape follows :func:`mesh_shape`. Every rank of the world must
+    call this, in the same order, with the same shape: the process groups
+    are made collectively (``new_subgroups_by_enumeration``), one a data
+    row and one a server column, in rank order; a rank past the shape's
+    prefix gets an idle mesh."""
+    world, rank = _world()
+    n = len(devices) if devices is not None else world
+    d, s = mesh_shape(n, num_data, num_server)
+    if d * s > world:
+        raise RuntimeError(
+            f"mesh {d}x{s} needs a world of {d * s} ranks; this process is in a world of "
+            f"{world} (join one with parallel.distributed.initialize or parallel.launch)")
+    if device is None:
+        if devices is not None:
+            device = devices[rank]
+        else:
+            from . import distributed
+
+            device = distributed.rank_device()
+    groups: Dict[str, object] = {}
+    backend = None
+    if world > 1:
+        backend = dist.get_backend()
+        rows = [[i * s + j for j in range(s)] for i in range(d)]
+        cols = [[i * s + j for i in range(d)] for j in range(s)]
+        if s > 1:
+            groups[SERVER_AXIS], _ = dist.new_subgroups_by_enumeration(rows)
+        if d > 1:
+            groups[DATA_AXIS], _ = dist.new_subgroups_by_enumeration(cols)
+    return Mesh(d, s, torch.device(device), rank=rank, groups=groups, backend=backend)
+
+
+# -- the collectives of the JAX step --
+
+
+def axis_index(axis: str, mesh: Mesh) -> int:
+    """``jax.lax.axis_index(axis)``: this rank's coordinate on ``axis``."""
+    return mesh.coords[AXES.index(axis)]
+
+
+def psum(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """``jax.lax.psum(x, axis)``: the elementwise sum of ``x`` over the
+    ranks of this rank's ``axis`` group, a new tensor (``x`` is left as it
+    was). Every rank of the group gets the same bits. The identity on an
+    axis of size 1."""
+    if mesh.shape[axis] == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=mesh.group(axis))
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, tiled=tiled)``: the group's tensors
+    in coordinate order, concatenated along dim 0 (``tiled``) or stacked
+    on a new leading dim. A CUDA tensor under gloo goes through
+    :func:`_gather_through_host`."""
+    if mesh.shape[axis] == 1:
+        return x if tiled else x[None]
+    x = x.contiguous()
+    if mesh.backend == "gloo" and x.is_cuda:
+        parts = _gather_through_host(x, mesh.group(axis), mesh.shape[axis])
+    else:
+        parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts) if tiled else torch.stack(parts)
+
+
+def _gather_through_host(x: torch.Tensor, group, n: int):
+    """gloo gathers host tensors only: copy ``x`` into pinned host memory,
+    gather there, and copy the parts back to ``x``'s card. The one place
+    a collective of the port stages through the host."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    parts = [torch.empty_like(host) for _ in range(n)]
+    dist.all_gather(parts, host, group=group)
+    return [p.to(x.device, non_blocking=True) for p in parts]
+
+
+def num_servers(mesh: Mesh) -> int:
+    return mesh.shape[SERVER_AXIS]
+
+
+def num_workers(mesh: Mesh) -> int:
+    return mesh.shape[DATA_AXIS]
+
+
+def table_sharding(mesh: Mesh):
+    """Parameter tables: rows by server key range, replicated over data
+    (the spec owned by ``partition.py``)."""
+    from . import partition
+
+    return partition.for_mesh(mesh).table_sharding()
+
+
+def batch_sharding(mesh: Mesh):
+    """Example batches: rows over the data axis, replicated over server."""
+    from . import partition
+
+    return partition.for_mesh(mesh).batch_sharding()
+
+
+def replicated(mesh: Mesh):
+    from . import partition
+
+    return partition.for_mesh(mesh).replicated()
+
+
+def init_sharded(init_fn, mesh: Mesh, num_rows: int, axis: str = SERVER_AXIS):
+    """This rank's shard of a row-sharded pytree, made on its own device
+    and never whole first: ``init_fn(rows, device)`` builds the leaves of
+    ``rows = num_rows // mesh.shape[axis]`` rows (the JAX package writes
+    its init straight into the sharded buffers; here each rank builds
+    only its own). The init must not depend on the row's position, as
+    no updater's does (they start from zeros)."""
+    n = mesh.shape[axis]
+    if num_rows % n:
+        raise ValueError(f"{num_rows} rows do not split over {n} shards of {axis!r}")
+    return init_fn(num_rows // n, mesh.device)

@@ -43,7 +43,15 @@ backup taken before a migration restores after it. A recovery install
 calls :meth:`note_external_restore` first; a migration whose snapshot
 predates it discards its image and snapshots again.
 
-One card: ``num_server`` must be 1 (more is ROADMAP A9).
+**On a mesh** (``mesh=``, or the started postoffice's): each rank holds
+its server shard of the ``pad_slots(num_slots, num_server)`` rows, and
+pushes and pulls go through ``ops/kv_ops.py`` with ``batch_sharded=False``
+(every rank of the mesh makes the same calls with the same keys, as the
+JAX package's replicated key sets; each data row holds a replica). A
+pull is assembled over the server axis; ``table(copy=True)`` and
+:meth:`snapshot` are this rank's shard; :meth:`write_to_file` gathers the
+whole table (a collective) and rank 0 writes it. Live migration and the
+replica hooks over more than one server shard are ROADMAP A9 slice 2.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import torch
 
 from ..device import resolve
 from ..ops import kv_ops
+from ..parallel import mesh as meshlib
 from ..system.message import Task
 from ..utils import file as psfile
 from .parameter import KeyDirectory, Parameter, pad_slots
@@ -81,14 +90,23 @@ class _Channel:
 class KVVector(Parameter):
     def __init__(self, k: int = 1, num_slots: int = 1 << 20, hashed: bool = True,
                  dtype: torch.dtype = torch.float32, buffer_value: bool = False,
-                 id: Optional[int] = None, name: str = "", device=None, num_server: int = 1):
+                 id: Optional[int] = None, name: str = "", device=None, num_server: int = 1,
+                 mesh: Optional[meshlib.Mesh] = None):
         super().__init__(id=id, name=name)
-        if num_server != 1:
-            raise NotImplementedError(
-                f"KVVector over {num_server} server shards: the port holds a table on one card "
-                "(the sharded tables are ROADMAP A9)"
-            )
-        if device is None and self.po.started:
+        if mesh is None and self.po.started:
+            mesh = self.po.mesh
+        if mesh is not None and mesh.size == 1:
+            mesh = None  # one card: every collective is the identity
+        if num_server != 1 and (mesh is None or num_server != meshlib.num_servers(mesh)):
+            raise ValueError(
+                f"KVVector over {num_server} server shards needs a mesh with that many "
+                f"(got {mesh!r}): start the postoffice on one, or pass mesh=")
+        #: the mesh the table is sharded over (None: one card, the whole table)
+        self.mesh = mesh
+        num_server = 1 if mesh is None else meshlib.num_servers(mesh)
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and self.po.started:
             device = self.po.device
         self.device = resolve(device)
         self.k = int(k)
@@ -98,6 +116,8 @@ class KVVector(Parameter):
         # padded capacity (so the miss sentinel lands outside the table)
         self.num_slots_config = int(num_slots)
         self.num_slots = pad_slots(num_slots, num_server)
+        #: the rows this rank holds: its server shard
+        self.shard_rows = self.num_slots // num_server
         self.hashed = hashed
         self._channels: Dict[int, _Channel] = {}  # guarded-by: _channels_lock (writes)
         # a channel is made at its first use, which may come from several
@@ -132,7 +152,18 @@ class KVVector(Parameter):
             self._channels.pop(ch, None)
 
     def _zeros(self) -> torch.Tensor:
-        return torch.zeros((self.num_slots, self.k), dtype=self.dtype, device=self.device)
+        return torch.zeros((self.shard_rows, self.k), dtype=self.dtype, device=self.device)
+
+    def _kv(self) -> dict:
+        """The mesh arguments of a kv_ops call: the replicated key sets of
+        a store (none with one card)."""
+        return {} if self.mesh is None else {"mesh": self.mesh, "batch_sharded": False}
+
+    def _one_shard(self, what: str) -> None:
+        if self.mesh is not None and meshlib.num_servers(self.mesh) > 1:
+            raise NotImplementedError(
+                f"KVVector.{what} over {meshlib.num_servers(self.mesh)} server shards is "
+                "ROADMAP A9 slice 2 (resizing and repartitioning)")
 
     def set_keys(self, ch: int, keys: np.ndarray) -> None:
         """Install an exact ordered key set for a channel (ref: the
@@ -172,7 +203,7 @@ class KVVector(Parameter):
             resolved = self._current(c, keys, pre)
 
             def step():
-                return kv_ops.pull(c.table, resolved)
+                return kv_ops.pull(c.table, resolved, **self._kv())
 
             return self.instrumented_submit("pull", ch, len(resolved), step, task, callback)
 
@@ -201,11 +232,11 @@ class KVVector(Parameter):
                     buf = c.buffers.get(task.time)
                     if buf is None:
                         buf = self._zeros()
-                    c.buffers[task.time] = kv_ops.push_donated(buf, resolved, vals)
+                    c.buffers[task.time] = kv_ops.push_donated(buf, resolved, vals, **self._kv())
                     return c.buffers[task.time]
             else:
                 def step():
-                    c.table = kv_ops.push_donated(c.table, resolved, vals)
+                    c.table = kv_ops.push_donated(c.table, resolved, vals, **self._kv())
                     return c.table
 
             ts = self.instrumented_submit("push", ch, len(resolved), step, task, callback)
@@ -237,7 +268,8 @@ class KVVector(Parameter):
             pull_slots = None if pull_keys is None else self._current(c, pull_keys, pre_pull)
 
             def step():
-                c.table, pulled = kv_ops.push_pull_donated(c.table, resolved, vals, pull_slots)
+                c.table, pulled = kv_ops.push_pull_donated(c.table, resolved, vals, pull_slots,
+                                                           **self._kv())
                 return pulled
 
             ts = self.instrumented_submit("push_pull", ch, len(resolved), step, task, callback)
@@ -364,6 +396,7 @@ class KVVector(Parameter):
         attempts."""
         from ..system import faults
 
+        self._one_shard("migrate")
         perm = np.asarray(perm, dtype=np.int64)
         n = self.num_slots
         bad = ValueError(f"perm must be a bijection over the padded slot capacity ({n})")
@@ -429,6 +462,7 @@ class KVVector(Parameter):
         """Host copies of every channel table in the base layout, once
         the in-flight steps are done (the caller stops submitting
         first)."""
+        self._one_shard("get_replica")
         self.executor.wait_all(pop=False)
         return {ch: self._to_base(c, c.table.cpu().numpy().copy())
                 for ch, c in self._channels.items()}
@@ -440,6 +474,7 @@ class KVVector(Parameter):
         snapshot step's timestamp (every push before it is in the
         snapshot, every later one is not). The migration lock keeps the
         copy and its translation to the base layout on one layout."""
+        self._one_shard("get_replica_consistent")
         with self._migration_lock:
             barrier = {ch: self.snapshot(ch) for ch in list(self._channels)}
             snap = {ch: self._to_base(self._channels[ch], self.executor.wait(ts).cpu().numpy())
@@ -449,6 +484,7 @@ class KVVector(Parameter):
     def set_replica(self, snapshot: dict) -> None:
         """Install base-layout channel tables (host arrays or tensors, as
         copies) in each channel's live layout."""
+        self._one_shard("set_replica")
         for ch, arr in snapshot.items():
             c = self.channel(ch)
             if isinstance(arr, torch.Tensor):
@@ -463,12 +499,20 @@ class KVVector(Parameter):
                 c.table = torch.empty_like(t).index_copy_(0, perm_dev, t)
 
     def write_to_file(self, path: str, ch: int = 0) -> None:
-        """Dump nonzero (key, value) pairs as text (ref WriteToFile)."""
+        """Dump nonzero (key, value) pairs as text (ref WriteToFile). On a
+        mesh every rank calls it: the shards are gathered over the server
+        axis and rank 0 writes."""
         self.executor.wait_all(pop=False)
         c = self.channel(ch)
-        # the base layout: an exact directory's key order lines up with
-        # the rows after a migration moved them
-        tbl = self._to_base(c, c.table.cpu().numpy())
+        if self.mesh is not None:
+            whole = meshlib.all_gather(c.table, meshlib.SERVER_AXIS, self.mesh).cpu().numpy()
+            if self.mesh.rank != 0:
+                return
+            tbl = whole
+        else:
+            # the base layout: an exact directory's key order lines up
+            # with the rows after a migration moved them
+            tbl = self._to_base(c, c.table.cpu().numpy())
         if c.directory.keys is not None:
             keys = c.directory.keys
             vals = tbl[: len(keys)]

@@ -19,10 +19,14 @@ task's spec run on every request and its reply), the receiver's
 ``process_request`` run under the request's trace context, and a reply
 (the receiver's own, or the system's acknowledgement) crossing back.
 
-The port runs on one card: the node table is H0, S0 and W0, and asking
-for more servers or workers raises ``NotImplementedError`` naming ROADMAP
-A9 (``Postoffice.start``). ``device`` picks the card as every entry
-point does (the CUDA device unless the caller names another).
+``start_system`` passes its counts to ``Postoffice.start``, which builds
+this rank's ``(data, server)`` mesh (one process a mesh position, in a
+world a launcher starts; one process alone is the ``1 x 1`` mesh of its
+card) and the node table H0, S0.., W0... ``run_system`` hosts every node
+of the table in this one process, so it takes one server and one worker:
+more, where every rank of a world would host every node, is ROADMAP A9
+slice 2. ``device`` picks the card as every entry point does (the CUDA
+device unless the caller names another).
 """
 
 from __future__ import annotations
@@ -84,7 +88,8 @@ def _set_current_node(node: Optional[Node]) -> None:
 
 def start_system(num_workers: Optional[int] = None, num_servers: int = 1,
                  key_space: Optional[Range] = None, device=None) -> Postoffice:
-    """Boot the postoffice: pick the card and build the node table."""
+    """Boot the postoffice: join the world (if a launcher named one), build
+    this rank's mesh, pick its card and build the node table."""
     return Postoffice.instance().start(num_data=num_workers, num_server=num_servers,
                                        key_space=key_space, device=device)
 
@@ -203,7 +208,13 @@ def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
     reference's ``App::Create``); each worker app's ``run()`` then runs on
     its own thread, and after them the other apps' ``run()``. A worker's
     exception fails the program. Returns the apps (scheduler, servers,
-    workers)."""
+    workers). One server and one worker: every rank of a world would host
+    every node of a larger table (ROADMAP A9 slice 2)."""
+    if num_servers != 1 or num_workers not in (None, 1):
+        raise NotImplementedError(
+            f"run_system with {num_servers} servers and {num_workers} workers: one process "
+            "hosts every node of the table here; the nodes over a mesh of ranks are ROADMAP "
+            "A9 slice 2")
     po = start_system(num_workers, num_servers, key_space, device)
     apps: List[App] = []
     try:

@@ -2,8 +2,8 @@
 
 Counterpart of ``parameter_server_tpu/system/env.py``: one dataclass
 resolved from the same ``PS_*`` environment variables, with the same
-defaults. The port runs one server and one worker on one card; a count
-above one is refused where the postoffice starts (ROADMAP A9).
+defaults. Server and worker counts above one take a mesh of ranks, one
+process a position (``Postoffice.start``, ``parallel/mesh.py``).
 """
 
 from __future__ import annotations

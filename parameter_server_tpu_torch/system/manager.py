@@ -5,9 +5,9 @@ reference's ``src/system/manager.{h,cc}``), whole: tracks customers by
 id, assigns fresh customer ids (ref ``NextCustomerID``), records node
 roles and key ranges, broadcasts node add/remove events to subscribers
 (ref ``AddNode``'s NodeChange broadcast / ``NodeDisconnected``), and
-coordinates orderly shutdown. The port runs one server and one worker
-node on one card; the elastic coordinator that drives add/remove events
-across cards is ROADMAP A9/A13.
+coordinates orderly shutdown. The node table follows the postoffice's
+mesh (its server and worker counts); the elastic coordinator that drives
+add/remove events across cards is ROADMAP A9 slice 2.
 """
 
 from __future__ import annotations

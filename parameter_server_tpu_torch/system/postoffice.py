@@ -3,12 +3,13 @@
 Counterpart of ``parameter_server_tpu/system/postoffice.py`` (the
 reference's ``src/system/postoffice.{h,cc}``): owns the manager (node
 and customer registry) and the van (transport). ``start`` boots the
-system: in the JAX package it builds the device mesh; here it picks the
-one card (``device``, resolved as every entry point resolves it) and
-records one scheduler, one server and one worker node.
-
-One process, one card: ``start(num_server > 1)`` (or ``num_data > 1``)
-raises naming ROADMAP A9, the collectives across cards. ``start_aux``
+system: it joins the world a launcher names (``van.init_distributed``),
+builds this rank's ``(data, server)`` mesh over it
+(``parallel/mesh.make_mesh``, the JAX package's auto-shape rules: one
+process alone is a ``1 x 1`` mesh on its card) and records the
+scheduler, the mesh's server nodes and its worker nodes. ``device`` is
+the rank's card (resolved as every entry point resolves it; in a world,
+``distributed.rank_device`` by default). ``start_aux``
 creates the heartbeat / metrics-plane / dashboard / recovery runtime
 (``system/aux_runtime.py``), and ``metrics`` is the process telemetry
 registry every layer records into.
@@ -26,7 +27,7 @@ from ..telemetry import registry as telemetry_registry
 from ..telemetry import spans as telemetry_spans
 from ..utils.range import Range
 from .manager import Manager
-from .van import Van
+from .van import Van, init_distributed
 
 
 class Postoffice:
@@ -37,6 +38,7 @@ class Postoffice:
         self.manager = Manager()
         self.device: Optional[torch.device] = None
         self.van: Optional[Van] = None
+        self.mesh = None  # this rank's parallel.mesh.Mesh once started
         self.aux = None  # AuxRuntime once start_aux() is called
         # the process telemetry spine: every layer's instruments register
         # here; reset() swaps in a fresh registry
@@ -75,15 +77,17 @@ class Postoffice:
               key_space: Optional[Range] = None, device=None) -> "Postoffice":
         if self._started:
             return self
-        if num_server != 1 or (num_data is not None and num_data != 1):
-            raise NotImplementedError(
-                f"Postoffice.start(num_data={num_data}, num_server={num_server}): the port runs "
-                "one server and one worker on one card; more shards need the collectives across "
-                "cards (ROADMAP A9)"
-            )
+        from ..parallel import distributed
+        from ..parallel import mesh as meshlib
+
+        if init_distributed() and device is None:
+            device = distributed.rank_device()
         self.device = resolve(device)
+        self.mesh = meshlib.make_mesh(num_data=num_data, num_server=num_server,
+                                      device=self.device)
         self.van = Van(self.device)
-        self.manager.init_nodes(num_servers=1, num_workers=1,
+        self.manager.init_nodes(num_servers=meshlib.num_servers(self.mesh),
+                                num_workers=meshlib.num_workers(self.mesh),
                                 key_space=key_space or Range.all())
         self._started = True
         return self

@@ -19,8 +19,8 @@ its server is the card's own memory, so the Van does two things:
 
 Each transfer stamps the sending thread's trace context on the task,
 runs inside a ``van.transfer`` span, feeds the nodes' heartbeat traffic
-counters and the ``van_*`` instruments. Not here: the multi-process
-rendezvous (:func:`init_distributed`, ROADMAP A9).
+counters and the ``van_*`` instruments. :func:`init_distributed` joins
+the multi-process world a launcher names (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -166,10 +166,11 @@ class Van:
             info.increase_out_bytes(out_bytes)
 
 
-def init_distributed() -> None:
+def init_distributed() -> bool:
     """Multi-process bootstrap (ref Van::Connect scheduler rendezvous):
-    the port runs one process on one card."""
-    raise NotImplementedError(
-        "a multi-process rendezvous (init_distributed) is not ported: the port runs one "
-        "process on one card; the collectives across cards are ROADMAP A9"
-    )
+    joins the world named by ``PS_COORDINATOR_ADDRESS`` /
+    ``PS_NUM_PROCESSES`` / ``PS_PROCESS_ID`` (a no-op, False, for a single
+    process). Full logic in ``parallel/distributed.py``."""
+    from ..parallel import distributed
+
+    return distributed.initialize()

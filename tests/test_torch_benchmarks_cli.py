@@ -25,6 +25,7 @@ import torch
 from parameter_server_tpu import benchmarks as jbench
 from parameter_server_tpu.benchmarks import components as jcomp  # noqa: F401 (registers)
 from parameter_server_tpu.system.postoffice import Postoffice as JPostoffice
+from parameter_server_tpu.telemetry import blackbox as jblackbox
 from parameter_server_tpu_torch import benchmarks as tbench
 from parameter_server_tpu_torch.benchmarks import __main__ as tmain
 from parameter_server_tpu_torch.benchmarks import components as tcomp  # noqa: F401
@@ -67,8 +68,6 @@ METRIC_MAP = {
     # microseconds: an 8 KB copy to the card takes ~0.01 ms, which
     # report()'s 2 decimals would flatten
     **{f"network_h2d_{kb}kb_ms": f"network_h2d_{kb}kb_us" for kb in (8, 64, 1024, 8192)},
-    "network_psum_ms": Absent("the in-mesh psum needs more than one device; the port runs one "
-                              "card and its collectives are ROADMAP A9's"),
     "roofline_ftrl_chain_gflops": Absent(
         "the probe declares FlopCounterMode's count, which finds no FLOP in the FTRL update "
         "(no matmul): it declares bytes only"),
@@ -136,10 +135,14 @@ def run_port(name: str, tmp_dir) -> tuple:
 
 
 def run_jax(name: str, tmp_dir) -> list:
-    """The JAX benchmark's lines at smoke on the CPU, once per process."""
+    """The JAX benchmark's lines at smoke on the CPU, once per process.
+    The JAX package's bundle store is emptied first: its consistency
+    drill finds its bundle by the store's length, which stops growing
+    once earlier work in the process has filled it (four bundles)."""
     if name not in _jax_cache:
         buf = io.StringIO()
         JPostoffice.reset()
+        jblackbox.reset()
         with _env(tmp_dir, "jax"), contextlib.redirect_stdout(buf):
             jbench.REGISTRY[name](True)
         JPostoffice.reset()

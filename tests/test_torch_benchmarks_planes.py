@@ -51,6 +51,27 @@ def test_divergence_drill_fires_with_bundle():
     assert out["bundle_trigger"]["detail"] == "loss_divergence"
 
 
+def test_consistency_drill_finds_its_bundle_with_the_store_full():
+    """The bundle store keeps its last four bundles; once earlier work in
+    the process has filled it, a new bundle leaves its length as it was.
+    The drill finds its rollback bundle by identity, so it is found."""
+    from parameter_server_tpu_torch.telemetry import blackbox
+
+    Postoffice.reset()
+    prev = blackbox.set_min_interval(0.0)
+    try:
+        for i in range(4):
+            blackbox.trigger_bundle("alert", detail=f"earlier {i}")
+        assert len(blackbox.bundles()) == 4
+        out = tcomp._consistency_divergence_drill("cpu", smoke=True)
+    finally:
+        blackbox.set_min_interval(prev)
+        blackbox.reset()
+        Postoffice.reset()
+    assert out["bundle_captured"] and out["bundle_trigger"]["kind"] == "consistency_rollback"
+    assert out["episodes"] and out["episodes"][0]["rolled_back"]
+
+
 def test_consistency_structural_contract_at_smoke(out_dir):
     """The contract consistency_perf asserts in every mode: bounded delay
     in each arm, the controller widened τ, the KKT accounting reconciled

@@ -250,8 +250,11 @@ def test_batch_conf_cli_matches_jax(path, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--num-servers", "2"], ["--num-workers", "2"]])
 def test_system_layer_flags_raise(flag, tmp_path):
+    """A mesh of several ranks runs the async_sgd app
+    (``tests/test_torch_parallel_linear.py``); the darlin app on one
+    raises naming A9, before any rank starts."""
     conf = tmp_path / "c.conf"
-    conf.write_text(open(ROOT / "configs" / "rcv1" / "online_l1lr.conf").read())
+    conf.write_text(open(ROOT / "configs" / "rcv1" / "batch_l1lr.conf").read())
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tmain.main([str(conf), *flag], device="cpu")
 

@@ -69,7 +69,9 @@ def test_port_imports_nothing_of_jax():
               "system.env", "filter.key_caching", "filter.compressing", "filter.sparse",
               "filter.add_noise", "utils.assign_op", "utils.ordered_match", "utils.bitmap",
               "utils.sketch", "utils.file", "utils.subproc", "utils.device_lock",
-              "benchmarks", "benchmarks.__main__", "benchmarks.components"):
+              "benchmarks", "benchmarks.__main__", "benchmarks.components",
+              "parallel", "parallel.mesh", "parallel.distributed", "parallel.partition",
+              "parallel.launch", "benchmarks.mesh"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -282,10 +284,13 @@ def test_serving_plane_limits_raise_naming_their_items():
     from parameter_server_tpu_torch.parameter.kv_vector import KVVector
     from parameter_server_tpu_torch.system.postoffice import Postoffice
 
+    from parameter_server_tpu_torch.parameter.kv_map import AddEntry, KVMap
+
     Postoffice.reset()
     try:
+        # a sharded KVMap is A9's second slice
         with pytest.raises(NotImplementedError, match="A9"):
-            Postoffice.instance().start(num_server=2, device="cpu")
+            KVMap(AddEntry(), num_slots=64, device="cpu", num_server=2)
         kv = KVVector(k=1, num_slots=64, device="cpu")
         # live migration (A13's first part) is ported: a seeded move runs
         assert kv.migrate(np.random.default_rng(0).permutation(64))["attempts"] == 1

@@ -283,17 +283,23 @@ class TestCustomerPostoffice:
         assert out.sender == "W0" and po.van.wire_recv_bytes == 2 * n
 
     def test_one_card_limits_raise_naming_their_items(self):
-        with pytest.raises(NotImplementedError, match="A9"):
-            Postoffice.instance().start(num_server=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
-            Postoffice.instance().start(num_data=4, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
-            init_distributed()
+        """One process outside a world is the 1 x 1 mesh of its card, by
+        the JAX package's rules on one device: an auto-shaped server
+        count steps down to 1, an explicit data axis of 4 needs 4 ranks
+        (the meshes themselves run in a world: tests/test_torch_parallel_*)."""
+        assert init_distributed() is False  # no launcher named a world
+        po = Postoffice.instance().start(num_server=2, device="cpu")
+        assert po.mesh.shape == {"data": 1, "server": 1} and po.mesh.coords == (0, 0)
         # the ps.h layer's node table is the card's: H0, S0, W0
-        with pytest.raises(NotImplementedError, match="A9"):
-            ps.start_system(num_servers=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
+        assert [n.id for n in po.manager.nodes] == ["H0", "S0", "W0"]
+        Postoffice.reset()
+        with pytest.raises(ValueError, match="needs 4 > 1"):
+            Postoffice.instance().start(num_data=4, device="cpu")
+        with pytest.raises(ValueError, match="needs 2 > 1"):
             ps.start_system(num_workers=2, device="cpu")
+        # run_system hosts every node of its table in this process
+        with pytest.raises(NotImplementedError, match="A9"):
+            ps.run_system(ps.App, num_servers=2, device="cpu")
 
     def test_manager_node_events(self):
         m = manager.Manager()
