@@ -309,8 +309,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    rc 0, its wall time;
 8g. the component suite (ROADMAP A13 slice 3, ``benchmarks/components.py``,
    ``python -m parameter_server_tpu_torch.benchmarks``): every registered
-   benchmark in this process on the card, each from a reset process state
-   (the postoffice, the fault points), all at full size (``ftrl_chain`` at
+   benchmark but ``rebalance`` (a world of 8 ranks: phase 9c runs it) in
+   this process on the card, each from a reset process state
+   (the postoffice, the fault points), all at full size but
+   ``decode_batching`` (at its smoke size: phase 8 D runs the batcher at
+   its full shapes) (``ftrl_chain`` at
    2^24, 2^26 and 2^28 slots, ``attention`` at B·H 4 × S 4096 × D 64 with
    chains of 16, ``ftrl_sparse_ab`` at P 2^22, U 2^16, the plane probes at
    the JAX suite's full shapes); each line echoed as a
@@ -329,8 +332,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    slice 1, ``parallel/``), every rank sharing the one card over gloo
    (NCCL refuses two ranks on one card, so NCCL is not exercised; the
    backend is printed): (a) the headline worker (2^22 slots, 16384-row
-   minibatches, T 8) on meshes 1x2, 2x1 and 2x2, sparse (2 launches) and
-   dense (4 minibatches), in one world of 4 ranks on the card
+   minibatches, T 8) on meshes 1x2, 2x1 and 2x2, sparse (1 launch) and
+   dense (2 minibatches), in one world of 4 ranks on the card
    (``benchmarks/mesh.py``): 1x2 bit-equal to the one-card run on the same
    batches, 2x1 and 2x2 within ``TRAJ_TOL`` of it, each mesh bit-identical
    run to run and on every data row, and within ``TRAJ_TOL`` of the same
@@ -342,6 +345,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    push filter's ``quantize`` on every rank: its model in ``_S0`` and
    ``_S1``, its last loss within ``max(0.01, 0.02 * ll)`` of the one-card
    CLI's; (c) ``network_psum_ms`` at the JAX suite's 1 MB;
+9c. resizing and repartitioning across ranks (ROADMAP A9 slice 2,
+   ``system/elastic.py``, ``parallel/partition.py``'s rebalance half), the
+   ranks sharing the card over gloo as in phase 9 (NCCL is not
+   exercised): (a) in a world of 4 ranks, the headline worker at full
+   width (2^22 slots, 16384 x 39, sparse, T 8, ``num_replicas 1``)
+   through ``ElasticCoordinator``: a launch at 2x1, ``add_server``, a
+   launch at 2x2, ``remove_worker``, a launch at 1x2, shard 1 wiped and
+   ``handle_server_death(1)`` recovering it from the neighbour replica,
+   4 more ministeps; the dense route with the 1-byte push filter
+   (``ftrl_dense``, ``quantize``) through one ``add_server``: each
+   resize's gathered state bit-equal across it, the recovered shard
+   bit-equal to the replica, the tail bit-equal to a world started on
+   the final mesh from the same snapshot, the final sparse state within
+   ``TRAJ_TOL`` of the same world on the CPU and the dense state
+   bit-equal to it after its first ministep, each resize's ``pause_s``
+   printed; (b) in a 1x4 world, a ``KVVector`` of 2^22 x 1 fed 16
+   headline batches by a thread while ``RebalanceController.execute(
+   force=True)`` migrates it (stalled 0.25 s): journaled and replayed
+   pushes, the migration's ms, the base-layout table bit-equal to an
+   undisturbed run and to the same pushes into a CPU store (the plain
+   segment sum); (c) ``python -m parameter_server_tpu_torch.benchmarks
+   rebalance`` (8 ranks on the card, 1x8, 280 batches): its lines parsed
+   and its record's contracts checked; ``ftrl_sparse``, ``ftrl_dense``,
+   ``quantize`` and ``segment_sum`` launches counted;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -4718,8 +4745,16 @@ def record_shares(rec, path: str = ""):
             yield where, float(v)
 
 
+#: 8g benchmarks run at their smoke size, to keep the script's time with
+#: phase 9c added: decode_batching's sequential arm took most of 8g's time
+#: at full size, and phase 8 D runs the batcher at those full shapes
+#: already
+COMPONENT_SMOKE = {"decode_batching"}
+
+
 def run_component(name: str) -> dict:
-    """One registered benchmark at full size in this process on the card, its lines
+    """One registered benchmark at full size (at smoke size if in
+    ``COMPONENT_SMOKE``) in this process on the card, its lines
     echoed (as comments) and parsed, the kernels it launched counted from
     zero, every share it reports at most 1."""
     from parameter_server_tpu_torch.benchmarks import REGISTRY
@@ -4731,7 +4766,7 @@ def run_component(name: str) -> dict:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rec = REGISTRY[name](False, device="cuda")
+        rec = REGISTRY[name](name in COMPONENT_SMOKE, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernel_counts()
@@ -4758,18 +4793,21 @@ def run_component(name: str) -> dict:
 
 def component_plane(smi: str) -> dict:
     """Phase 8g: every registered benchmark of the component suite
-    (``benchmarks/components.py``) on the card, in one process, each
+    (``benchmarks/components.py``) but ``rebalance`` (phase 9c) on the
+    card, in one process, each
     from a reset process state; the kernels each launched; the FTRL arms'
     final state bits, the flash arm's first forward against the plain
     one."""
     from parameter_server_tpu_torch.benchmarks import REGISTRY
     from parameter_server_tpu_torch.benchmarks import components  # noqa: F401 (registers)
 
-    check(len(REGISTRY) == 22, f"8g: {len(REGISTRY)} registered benchmarks")
+    check(len(REGISTRY) == 23, f"8g: {len(REGISTRY)} registered benchmarks")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     runs = {}
     for name in sorted(REGISTRY):
+        if name == "rebalance":
+            continue  # a world of 8 ranks: phase 9c runs it through the CLI
         runs[name] = r = run_component(name)
         nonzero = {k: v for k, v in r["launches"].items() if v}
         print(f"# 8g {name} ({smi}): {len(r['lines'])} lines in {r['seconds']:.1f} s; launches "
@@ -4824,7 +4862,8 @@ def component_plane(smi: str) -> dict:
           f"{cross['hand_over_counted_ratio']}); the plain forward at {cross['hand_tflops']} "
           f"TFLOP/s, MFU {cross['mfu_hand']}", flush=True)
     seconds = time.perf_counter() - t_phase
-    print(f"# 8g component suite ({smi}): {len(runs)} benchmarks at full size, "
+    print(f"# 8g component suite ({smi}): {len(runs)} benchmarks at full size "
+          f"(at smoke size: {sorted(COMPONENT_SMOKE)}), "
           f"{sum(len(r['lines']) for r in runs.values())} lines, in {seconds:.1f} s; ftrl_sparse_ab cuda {rec['cuda_ms']:.4f} ms vs plain "
           f"{rec['plain_ms']:.4f} ms (bound {rec['bound_ms']:.4f}), arms bit-equal; ftrl_chain "
           + ", ".join(f"{t} cuda {r.get('cuda_ms', math.nan):.3f} / plain {r['plain_ms']:.3f} ms "
@@ -4847,8 +4886,10 @@ def component_launches(comp: dict, kernel: str) -> dict:
 # -- phase 9: the linear trainer over a mesh of ranks sharing the card --
 
 MESH_SHAPES = [(1, 2), (2, 1), (2, 2)]  # (data, server), each a prefix of a 4-rank world
-MESH_SPARSE_LAUNCHES = 2  # launches of T headline minibatches a mesh, sparse
-MESH_DENSE_STEPS = 4  # headline minibatches a mesh, dense
+# cut from 2 launches and 4 ministeps to keep the script's time with
+# phase 9c added
+MESH_SPARSE_LAUNCHES = 1  # launches of T headline minibatches a mesh, sparse
+MESH_DENSE_STEPS = 2  # headline minibatches a mesh, dense
 MESH_KERNELS = ("ftrl_sparse", "ftrl_dense", "quantize", "segment_sum")
 MESH_WORLD_S = 600  # a world's time limit: a rank that hangs fails the phase
 
@@ -5066,6 +5107,190 @@ def mesh_cli(tmp: str, seed: int) -> dict:
     return dict(mesh=m, cpu_world=h, one=o, ministeps=n, objective_rel_gap=rel_gap,
                 codes_apart=codes_apart, shards=shards,
                 launches={k: sum(r[k] for r in m["launches"]) for k in MESH_KERNELS})
+
+
+# -- phase 9c: resizing and repartitioning across ranks sharing the card --
+
+ELASTIC_TAIL = 4  # ministeps after the recovery, and on the restarted final mesh
+ELASTIC_DENSE_STEPS = 2  # dense ministeps with the push filter on each side of its resize
+REBALANCE_PUSHES = 16  # headline batches pushed into the 1x4 store
+REBALANCE_AT = 4  # pushes acknowledged (and noted as heat) before the rebalance
+REBALANCE_STALL_S = 0.25  # rebalance.migrate stall: the journal's window
+DRILL_S = 900  # the rebalance drill's subprocess time limit
+
+
+def whole_close(a: dict, b: dict, what: str) -> float:
+    """Two whole states within TRAJ_TOL; returns the largest |diff|."""
+    worst = 0.0
+    for k in a:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        worst = max(worst, float(np.abs(x - y).max()))
+        check(np.allclose(x, y, **TRAJ_TOL), f"{what}: {k} max |diff| {float(np.abs(x - y).max())}")
+    return worst
+
+
+def elastic_plane(seed: int, smi: str) -> dict:
+    """Phase 9c: (a) the headline worker through live resizes and a server
+    death in a world of 4 ranks on the card, and the same world on the CPU;
+    (b) a live rebalance of a 2^22-slot store over a 1x4 mesh while a thread
+    pushes; (c) the ``rebalance`` drill through the benchmarks CLI in a
+    world of 8 ranks on the card. Ranks share the card over gloo: NCCL is
+    not exercised."""
+    from parameter_server_tpu_torch.parallel import launch
+    from parameter_server_tpu_torch.parameter.kv_vector import KVVector
+
+    t_phase = time.perf_counter()
+    print(f"# 9c: resizes and repartitioning, ranks sharing one card over gloo (NCCL not "
+          f"exercised) [{smi}]", flush=True)
+    # (a) elastic resizes, card and CPU worlds
+    args = (seed, ELASTIC_DENSE_STEPS, ELASTIC_TAIL)
+    t0 = time.perf_counter()
+    card = launch.run_world(mesh_bench.elastic_resizes, 4, args=args, device_type="cuda",
+                            timeout=MESH_WORLD_S, threads=0)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = launch.run_world(mesh_bench.elastic_resizes, 4, args=args, device_type="cpu",
+                           timeout=MESH_WORLD_S, threads=2)
+    cpu_s = time.perf_counter() - t0
+    r0 = card[0]
+    for r in card:
+        check([x["what"] for x in r["resizes"]] == ["add_server", "remove_worker",
+                                                   "dense add_server"],
+              f"9c rank {r['rank']}: resizes {[x['what'] for x in r['resizes']]}")
+        for x in r["resizes"]:
+            check(x["before"] == x["after"], f"9c rank {r['rank']} {x['what']} {x['old']} -> "
+                  f"{x['new']}: the state after the install differs from the state before")
+            check(x["before"] == r0["resizes"][r["resizes"].index(x)]["before"],
+                  f"9c rank {r['rank']}: ranks gathered different states")
+        check(r["death"] == "recovered", f"9c rank {r['rank']}: server death {r['death']}")
+        check(r["final"] == r["restarted"], f"9c rank {r['rank']}: the tail on the final mesh "
+              "from the snapshot is not bit-equal to the resized run's")
+    by_coords = {r["coords_1x2"]: r for r in card if r["coords_1x2"] is not None}
+    check(by_coords[(0, 1)]["state_after_recovery"] == by_coords[(0, 0)]["replica"]
+          == by_coords[(0, 1)]["state_before_wipe"],
+          "9c: recovered shard 1 is not the neighbour's replica of it")
+    check(by_coords[(0, 0)]["state_after_recovery"] == by_coords[(0, 0)]["state_before_wipe"],
+          "9c: the recovery changed shard 0")
+    sparse_diff = whole_close(cpu[0]["final_state"], r0["final_state"],
+                              "9c final state, CPU world vs card world")
+    # the dense route's push filter rounds each data rank's gradient with
+    # the same noise on both devices, but the card's exp parts from the
+    # CPU's in last bits and a code can flip (phase 9(b) reads one apart):
+    # its state is bit-equal after the first ministep (a zero table, where
+    # every input agrees) and its final state is read, not bounded here
+    check(all(np.array_equal(cpu[0]["dense_first"][k], r0["dense_first"][k])
+              for k in r0["dense_first"]),
+          "9c dense state after its first ministep: CPU world vs card world not bit-equal")
+    dense_diff = max(float(np.abs(np.asarray(cpu[0]["dense_state"][k], np.float64)
+                                  - np.asarray(r0["dense_state"][k], np.float64)).max())
+                     for k in r0["dense_state"])
+    launches_a = {k: sum(r["launches"][k] for r in card) for k in MESH_KERNELS}
+    pauses = [x["pause_s"] for x in r0["resizes"]]
+    print(f"# 9c (a) elastic (4 ranks sharing one card over gloo, {smi}): 2x1 -> 2x2 -> 1x2 "
+          f"(add_server, remove_worker) then handle_server_death(1) recovered from the "
+          f"neighbour replica, {ELASTIC_TAIL} more ministeps; the dense route with the push "
+          f"filter 2x1 -> 2x2: pause_s {pauses} (stop-the-world, snapshot to install); every "
+          f"resize's state bit-equal across it, the recovered shard bit-equal to the replica, "
+          f"the tail bit-equal to a world started on 1x2 from the snapshot; CPU world: the "
+          f"sparse state within TRAJ_TOL (max |diff| {sparse_diff:.3g}), the dense state "
+          f"bit-equal after its first ministep and {dense_diff:.3g} apart at its end; launches "
+          f"{launches_a}; card world {card_s:.1f} s, CPU world {cpu_s:.1f} s", flush=True)
+    for r in card + cpu:
+        for k in ("final_state", "dense_first", "dense_state"):
+            r.pop(k, None)
+
+    # (b) a live rebalance at the headline table over 1x4
+    t0 = time.perf_counter()
+    ranks = launch.run_world(mesh_bench.rebalance_at_size, 4,
+                             args=(seed, REBALANCE_PUSHES, REBALANCE_AT, REBALANCE_STALL_S),
+                             device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    reb_s = time.perf_counter() - t0
+    rb = ranks[0]
+    for r in ranks:
+        check(not r["errors"] and r["acked"] == REBALANCE_PUSHES,
+              f"9c (b) rank {r['coords']}: pushes {r['acked']}, errors {r['errors']}")
+        check(r["record"] is not None, f"9c (b) rank {r['coords']}: no rebalance happened")
+        check(r["bit_equal"], f"9c (b) rank {r['coords']}: the base-layout table differs from "
+              "the undisturbed run's")
+        check(r["digest"] == rb["digest"], "9c (b): the ranks gathered different tables")
+        rec = r["record"]
+        check(rec["journaled_pushes"] > 0 and rec["replayed_pushes"] > 0 and rec["attempts"] == 1,
+              f"9c (b) rank {r['coords']}: {rec}")
+    # segment_sum against its plain version on this path's inputs: the same
+    # pushes into a one-card store on the CPU (index_add_ in entry order)
+    rng = np.random.default_rng(seed + 9400)
+    plain = KVVector(k=1, num_slots=SLOTS, hashed=True, name="reb_plain", device="cpu")
+    for i in range(REBALANCE_PUSHES):
+        b = make_batch(seed + 9100 + i)
+        plain.push(plain.request(channel=0), keys=b.indices,
+                   values=rng.normal(size=(b.nnz, 1)).astype(np.float32))
+    plain.executor.wait_all(pop=False)
+    check(plain.get_replica()[0].tobytes() == rb["table"].tobytes(),
+          "9c (b): the card world's table is not bit-equal to the CPU store's")
+    plain.executor.stop()
+    del plain
+    rec = rb["record"]
+    seg_b = sum(r["segment_launches"] for r in ranks)
+    print(f"# 9c (b) rebalance at 2^22 x 1 over 1x4 (4 ranks sharing one card over gloo, {smi}): "
+          f"execute(force=True) after {REBALANCE_AT} of {REBALANCE_PUSHES} headline pushes, "
+          f"stalled {REBALANCE_STALL_S} s: {rec['moves']} moves, {rec['rows_moved']} rows, "
+          f"journaled {rec['journaled_pushes']}, replayed {rec['replayed_pushes']}, migration "
+          f"{rec['migration_seconds'] * 1e3:.1f} ms (rank 0; the ranks "
+          f"{[round(r['record']['migration_seconds'] * 1e3, 1) for r in ranks]}); base-layout "
+          f"table bit-equal to the undisturbed run and to the CPU store's; segment_sum launches "
+          f"{seg_b}; world {reb_s:.1f} s", flush=True)
+    rb.pop("table")
+
+    # (c) the drill through the benchmarks CLI
+    out_json = os.path.join(ROOT, "chiprun_out", "rebalance_drill.json")
+    os.makedirs(os.path.dirname(out_json), exist_ok=True)
+    env = dict(os.environ, PS_REBALANCE_OUT=out_json)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in [ROOT, env.get("PYTHONPATH", "")] if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "parameter_server_tpu_torch.benchmarks",
+                           "rebalance"], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRILL_S)
+    drill_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"9c (c) rebalance drill exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    for m in lines:
+        print(f"# 9c rebalance: {json.dumps(m)}", flush=True)
+    names = [m["metric"] for m in lines]
+    check(names == ["rebalance_imbalance_before", "rebalance_post_imbalance",
+                    "rebalance_rows_moved", "rebalance_migration_seconds",
+                    "rebalance_replayed_pushes", "rebalance_serve_ok"],
+          f"9c (c) drill lines {names}")
+    check(all(math.isfinite(m["value"]) and m["value"] > 0 for m in lines),
+          f"9c (c) drill values {lines}")
+    with open(out_json) as f:
+        drill = json.load(f)["rebalance_record"]
+    reb = drill["rebalance"]
+    check(reb["serve"]["failed"] == 0 and reb["serve"]["completed_ok"] > 0
+          and reb["trajectory_bit_identical"] and reb["sharded_vs_single_bit_identical"]
+          and reb["post_rebalance_imbalance"] < reb["alert"]["threshold"] < reb["imbalance_before"]
+          and reb["journaled_pushes"] > 0 and reb["replayed_pushes"] > 0
+          and drill["mesh"]["devices_idle"] == 0 and drill["device"]["backend"] == "gloo",
+          f"9c (c) drill record {drill}")
+    print(f"# 9c (c) rebalance drill (8 ranks sharing one card over gloo, 1x8, {smi}): alert "
+          f"{reb['alert']['transitions']}, imbalance {reb['imbalance_before']} -> post "
+          f"{reb['post_rebalance_imbalance']} (predicted {reb['predicted_imbalance']:.4f}), "
+          f"{reb['rows_moved']} rows moved in {reb['migration_seconds']} s, journaled "
+          f"{reb['journaled_pushes']} / replayed {reb['replayed_pushes']}, serve "
+          f"{reb['serve']['completed_ok']} ok / {reb['serve']['failed']} failed, table "
+          f"bit-identical {reb['trajectory_bit_identical']}; 4x2 vs 4x1 bit-identical "
+          f"{reb['sharded_vs_single_bit_identical']}; {drill_s:.1f} s", flush=True)
+    launches = dict(launches_a)
+    launches["segment_sum"] += seg_b
+    for k in MESH_KERNELS:
+        check(launches[k] > 0, f"phase 9c launched no {k}")
+    return dict(elastic=dict(card=card, cpu=cpu, pauses_s=pauses, card_world_s=card_s,
+                             cpu_world_s=cpu_s, cpu_max_abs_diff=dict(sparse=sparse_diff,
+                                                                      dense=dense_diff)),
+                rebalance=dict(ranks=ranks, world_s=reb_s), drill=dict(record=drill,
+                                                                      lines=lines,
+                                                                      seconds=drill_s),
+                launches=launches, seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -5503,6 +5728,9 @@ def main() -> int:
     print(f"# phase 9 (the mesh) took {time.perf_counter() - t_mesh:.1f} s: the card world "
           f"{mesh['card_world_s']:.1f} s, the CPU world {mesh['cpu_world_s']:.1f} s; launches "
           f"{mesh['launches']}", flush=True)
+    elastic = elastic_plane(args.seed, smi)
+    print(f"# phase 9c (resizes and repartitioning) took {elastic['seconds']:.1f} s; launches "
+          f"{elastic['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -5535,6 +5763,7 @@ def main() -> int:
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              mesh_launches=mesh["launches"]["ftrl_sparse"],
+             elastic_launches=elastic["launches"]["ftrl_sparse"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
              replaces="parameter_server_tpu/ops/ftrl_sparse.py:407",
              launches=head["sparse_launches"],
@@ -5550,6 +5779,7 @@ def main() -> int:
              library_ms=None),
         dict(name="ftrl_dense_kernel", route="cuda",
              mesh_launches=mesh["launches"]["ftrl_dense"],
+             elastic_launches=elastic["launches"]["ftrl_dense"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_dense.cu",
              replaces="parameter_server_tpu/ops/ftrl.py:265",
              launches=ctr["dense_launches"],
@@ -5566,6 +5796,7 @@ def main() -> int:
              library_ms=None),
         dict(name="quantize_kernel", route="cuda",
              mesh_launches=mesh["launches"]["quantize"],
+             elastic_launches=elastic["launches"]["quantize"],
              source="parameter_server_tpu_torch/kernels/csrc/quantize.cu",
              replaces="parameter_server_tpu/ops/quantize.py:68",
              launches=ctr["quantize_launches"],
@@ -5578,6 +5809,7 @@ def main() -> int:
              library_ms=None),
         dict(name="segment_sum", route="cuda", case=main_seg["case"],
              mesh_launches=mesh["launches"]["segment_sum"],
+             elastic_launches=elastic["launches"]["segment_sum"],
              source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
              launches=ctr["segment_launches"],
@@ -5668,7 +5900,7 @@ def main() -> int:
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
-                  component_suite=comp, mesh=mesh,
+                  component_suite=comp, mesh=mesh, elastic=elastic,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -25,8 +25,8 @@ gradient's norm over server then data; the update's over server and the
 weights' over data on the dense route), the scalars of each axis packed
 into one tensor and one collective a launch, the per-example aux
 all-gathered over data. Over a mesh the exact raw wire (sparse update)
-and the hashed wire (dense update) run; the KKT filter, the encoded and
-ELL wires, adaptive τ and the neighbour replica raise
+and the hashed wire (dense update) run, and so does the neighbour
+replica; the KKT filter, the encoded and ELL wires and adaptive τ raise
 ``NotImplementedError`` naming ROADMAP A9 slice 2.
 
 The dense update carries the filtered wire of the reference's confs:
@@ -72,14 +72,19 @@ The ongoing server replica (``num_replicas > 0``): every
 ``replica_every`` ministeps the step copies the state into a replica,
 on the executor after the update, on the step's stream (the FTRL
 kernels update ``z`` and √n in place, so the replica is a copy, never an
-alias). With one server shard the JAX worker's roll of the table by a
-shard's width is the identity, so the mirror is the whole state.
+alias). The JAX worker rolls the table by a shard's width, so server
+shard ``s``'s copy lives on shard ``s + 1``; on a mesh each rank sends
+its shard to its server neighbour (``parallel/mesh.py::shift``, a ring
+over the server group on the dispatch thread, in step order) and keeps
+the copy of shard ``s - 1``. With one server shard the roll is the
+identity, so the mirror is the whole state.
 :meth:`AsyncSGDWorker.wipe_server_shard` zeroes a shard's rows (a
 replacement that starts empty) and
 :meth:`AsyncSGDWorker.recover_server_shard` restores them from the
-replica, at most ``replica_every`` ministeps stale; both run through the
-executor, in order with the steps. Over a mesh of more than one server shard the replica is ROADMAP A9
-slice 2.
+replica, at most ``replica_every`` ministeps stale (on a mesh the
+neighbour sends its copy back, and the shard's ranks install it); both
+run through the executor, in order with the steps, and on a mesh every
+rank calls them.
 
 :class:`AsyncSGDScheduler` is the JAX package's scheduler: the workload
 pool and the monitor that prints the progress table. Attached to it
@@ -1628,7 +1633,6 @@ class AsyncSGDWorker(ISGDCompNode):
             ("the encoded exact wire (wire_encode)", bool(sgd.wire_encode)),
             ("the ELL wires (ell_lanes: i32, u24, bits, stream)", sgd.ell_lanes > 0),
             ("adaptive τ (tau_adaptive)", sgd.tau_adaptive),
-            ("the neighbour replica (num_replicas)", sgd.num_replicas > 0),
         ) if on]
         if unported:
             raise NotImplementedError(
@@ -2143,7 +2147,15 @@ class AsyncSGDWorker(ISGDCompNode):
 
     def _refresh_replica(self) -> None:
         """Copy the state into the replica (dispatch thread, after a
-        step, on its stream). The buffers are reused once they exist."""
+        step, on its stream). On a mesh of several server shards each
+        rank's shard goes to its server neighbour (a ring: the JAX
+        worker's roll by a shard's width); with one, the buffers are
+        reused once they exist."""
+        if self._server_shards() > 1:
+            self._replica_state = {
+                k: meshlib.shift(v, SERVER_AXIS, self.mesh, 1) if v.dim() >= 1 else v.clone()
+                for k, v in self.state.items()}
+            return
         rep = self._replica_state
         if rep is None:
             self._replica_state = {k: v.clone() for k, v in self.state.items()}
@@ -2151,20 +2163,30 @@ class AsyncSGDWorker(ISGDCompNode):
             for k, v in self.state.items():
                 rep[k].copy_(v)
 
+    def _server_shards(self) -> int:
+        return 1 if self.mesh is None else meshlib.num_servers(self.mesh)
+
     def recover_server_shard(self, shard: int) -> bool:
         """Rebuild a dead server shard's slot rows from the replica (ref
         Parameter::Recover), at most ``replica_every`` ministeps stale;
         False when no replica was taken. Submitted through the executor,
         in order with the steps in flight; the pull snapshot re-anchors
-        on the restored state."""
-        self._one_server("recover_server_shard")
+        on the restored state. On a mesh every rank calls it: the
+        neighbour holding the shard's copy sends it back over the server
+        ring, and the shard's ranks install it."""
         if self._replica_state is None:
             return False
         rows = server_shard_rows(shard, self.num_slots)  # one server shard
 
         def do_recover():
             for k, v in self.state.items():
-                if v.dim() >= 1:
+                if v.dim() < 1:
+                    continue
+                if self._server_shards() > 1:
+                    back = meshlib.shift(self._replica_state[k], SERVER_AXIS, self.mesh, -1)
+                    if self.mesh.server_index == shard:
+                        v.copy_(back)
+                else:
                     v[rows].copy_(self._replica_state[k][rows])
             self._pull_state = self._snapshot()
             return True
@@ -2173,23 +2195,26 @@ class AsyncSGDWorker(ISGDCompNode):
 
     def wipe_server_shard(self, shard: int) -> None:
         """Zero a server shard's slot rows, as a replacement server that
-        boots empty would hold them, through the executor."""
-        self._one_server("wipe_server_shard")
+        boots empty would hold them, through the executor (on a mesh, on
+        the shard's ranks; every rank calls it)."""
         rows = server_shard_rows(shard, self.num_slots)
 
         def do_wipe():
-            for v in self.state.values():
-                if v.dim() >= 1:
-                    v[rows].zero_()
+            sharded = self._server_shards() > 1
+            if not sharded or self.mesh.server_index == shard:
+                for v in self.state.values():
+                    if v.dim() >= 1:
+                        (v if sharded else v[rows]).zero_()
             self._pull_state = self._snapshot()
 
         self.executor.wait(self.executor.submit(do_wipe))
 
-    def _one_server(self, what: str) -> None:
-        if self.mesh is not None and meshlib.num_servers(self.mesh) > 1:
-            raise NotImplementedError(
-                f"{what} over {meshlib.num_servers(self.mesh)} server shards (the neighbour "
-                "replica on a mesh) is ROADMAP A9 slice 2")
+    def replica_host(self) -> Optional[dict]:
+        """This rank's replica as host arrays (the copy of server shard
+        ``s - 1`` on a mesh, of the whole state with one shard), or None
+        before the first refresh."""
+        self._drain()
+        return None if self._replica_state is None else state_to_numpy(self._replica_state)
 
     # -- serving the trained table --
 

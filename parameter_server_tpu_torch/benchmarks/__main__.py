@@ -8,13 +8,6 @@ import sys
 from . import REGISTRY
 from . import components  # noqa: F401 — populates REGISTRY
 
-#: benchmarks of the JAX suite that need more than one card
-UNPORTED = {
-    "rebalance": "rebalance needs a table sharded over 8 devices; the port holds a table on one "
-                 "card (the sharded tables and live repartitioning across cards are ROADMAP A9)",
-}
-
-
 def reset_process_state() -> None:
     """What one benchmark may leave behind that the next must not see:
     the postoffice (its customers, registry, span sink, history store,
@@ -38,9 +31,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     names = args.names or sorted(REGISTRY)
     for name in names:
-        if name in UNPORTED:
-            print(f"benchmark {name!r} is not ported: {UNPORTED[name]}", file=sys.stderr)
-            return 2
         if name not in REGISTRY:
             ap.error(f"unknown benchmark {name!r}; have {sorted(REGISTRY)}")
     from ..device import resolve

@@ -30,9 +30,20 @@ so a ``1 x 1`` mesh (no process group at all) is the one-card program.
 **Backends** (chosen once, in ``distributed.initialize``): NCCL when
 every rank has a card of its own, gloo when ranks share a card or run on
 the CPU. gloo reduces CUDA tensors itself (``all_reduce``, ``broadcast``)
-but gathers only host tensors, so :func:`all_gather` of a CUDA tensor
-under gloo copies it through pinned host memory, in
-:func:`_gather_through_host` and nowhere else.
+but gathers and sends only host tensors, so :func:`all_gather` and
+:func:`shift` of a CUDA tensor under gloo copy it through pinned host
+memory (:func:`_gather_through_host`, :func:`_host_copy`).
+
+**Two sets of groups.** A process group must see its collectives in
+the same order on every rank, and one thread that blocks in a
+collective of one group while its peer blocks in another's hangs both.
+The steps' collectives run on a store's or a worker's executor, one
+dispatch thread a rank, in timestamp order; a collective that a
+caller's own thread runs beside them (a live migration's gather, a
+consistent backup, while a serve stream pulls through the executor)
+goes over the mesh's *side* groups instead (:attr:`Mesh.side`: the
+same rows and columns, groups of their own), which only those callers
+use, each call made by every rank in the same order.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -86,7 +98,8 @@ class Mesh:
 
     def __init__(self, num_data: int, num_server: int, device: torch.device,
                  rank: int = 0, groups: Optional[Dict[str, object]] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 side_groups: Optional[Dict[str, object]] = None):
         self.shape = {DATA_AXIS: int(num_data), SERVER_AXIS: int(num_server)}
         self.size = self.shape[DATA_AXIS] * self.shape[SERVER_AXIS]
         self.rank = int(rank)
@@ -94,6 +107,18 @@ class Mesh:
         self.device = torch.device(device)
         self.groups = dict(groups or {})
         self.backend = backend
+        self._side_groups = dict(side_groups or {})
+
+    @property
+    def side(self) -> "Mesh":
+        """This mesh with its side groups: the same positions, groups that
+        the executors' steps never use (the module's docstring)."""
+        return Mesh(self.shape[DATA_AXIS], self.shape[SERVER_AXIS], self.device, self.rank,
+                    self._side_groups, self.backend)
+
+    def global_rank(self, data: int, server: int) -> int:
+        """The world rank at mesh position ``(data, server)``."""
+        return data * self.shape[SERVER_AXIS] + server
 
     @property
     def active(self) -> bool:
@@ -148,6 +173,7 @@ def make_mesh(num_data: Optional[int] = None, num_server: int = 1,
 
             device = distributed.rank_device()
     groups: Dict[str, object] = {}
+    side: Dict[str, object] = {}
     backend = None
     if world > 1:
         backend = dist.get_backend()
@@ -155,9 +181,11 @@ def make_mesh(num_data: Optional[int] = None, num_server: int = 1,
         cols = [[i * s + j for i in range(d)] for j in range(s)]
         if s > 1:
             groups[SERVER_AXIS], _ = dist.new_subgroups_by_enumeration(rows)
+            side[SERVER_AXIS], _ = dist.new_subgroups_by_enumeration(rows)
         if d > 1:
             groups[DATA_AXIS], _ = dist.new_subgroups_by_enumeration(cols)
-    return Mesh(d, s, torch.device(device), rank=rank, groups=groups, backend=backend)
+    return Mesh(d, s, torch.device(device), rank=rank, groups=groups, backend=backend,
+                side_groups=side)
 
 
 # -- the collectives of the JAX step --
@@ -198,13 +226,58 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, tiled: bool = True) -> to
 
 def _gather_through_host(x: torch.Tensor, group, n: int):
     """gloo gathers host tensors only: copy ``x`` into pinned host memory,
-    gather there, and copy the parts back to ``x``'s card. The one place
-    a collective of the port stages through the host."""
-    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    host.copy_(x)
+    gather there, and copy the parts back to ``x``'s card."""
+    host = _host_copy(x)
     parts = [torch.empty_like(host) for _ in range(n)]
     dist.all_gather(parts, host, group=group)
     return [p.to(x.device, non_blocking=True) for p in parts]
+
+
+def _host_copy(x: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x)
+
+
+def shift(x: torch.Tensor, axis: str, mesh: Mesh, offset: int = 1) -> torch.Tensor:
+    """``jnp.roll`` of a sharded array by ``offset`` shards along ``axis``:
+    this rank gets the tensor of the rank ``offset`` coordinates before it
+    on the axis (cyclically), and sends its own ``offset`` after. One
+    send and one receive a rank (a ring over the axis group); a CUDA
+    tensor under gloo goes through pinned host memory. A new tensor; on
+    an axis of size 1 (or a whole turn) a copy of ``x``."""
+    n = mesh.shape[axis]
+    if offset % n == 0:
+        return x.clone()
+    i = axis_index(axis, mesh)
+    d, s = mesh.coords
+
+    def peer(j: int) -> int:
+        j %= n
+        return mesh.global_rank(j, s) if axis == DATA_AXIS else mesh.global_rank(d, j)
+
+    staged = mesh.backend == "gloo" and x.is_cuda
+    src = _host_copy(x.contiguous()) if staged else x.contiguous()
+    out = torch.empty_like(src)
+    group = mesh.group(axis)
+    ops = [dist.P2POp(dist.isend, src, peer(i + offset), group),
+           dist.P2POp(dist.irecv, out, peer(i - offset), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(x.device, non_blocking=True) if staged else out
+
+
+def agree_max(values, axis: str, mesh: Mesh):
+    """The largest of ``values`` (an int, or a sequence of ints taken
+    elementwise) over this rank's ``axis`` group, in one ``all_reduce``:
+    the ranks' agreement on a count or a flag. ``values`` itself on an
+    axis of size 1."""
+    one = isinstance(values, (int, np.integer))
+    vals = [int(values)] if one else [int(v) for v in values]
+    if mesh.shape[axis] > 1:
+        t = torch.tensor(vals, dtype=torch.int64, device=mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+        vals = [int(v) for v in t.tolist()]
+    return vals[0] if one else vals
 
 
 def num_servers(mesh: Mesh) -> int:

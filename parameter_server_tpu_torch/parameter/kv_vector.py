@@ -48,15 +48,36 @@ its server shard of the ``pad_slots(num_slots, num_server)`` rows, and
 pushes and pulls go through ``ops/kv_ops.py`` with ``batch_sharded=False``
 (every rank of the mesh makes the same calls with the same keys, as the
 JAX package's replicated key sets; each data row holds a replica). A
-pull is assembled over the server axis; ``table(copy=True)`` and
-:meth:`snapshot` are this rank's shard; :meth:`write_to_file` gathers the
-whole table (a collective) and rank 0 writes it. Live migration and the
-replica hooks over more than one server shard are ROADMAP A9 slice 2.
+push adds the rank's own entries and runs no collective; a pull is
+assembled over the server axis (a collective on the executor's dispatch
+thread); ``table(copy=True)`` and :meth:`snapshot` are this rank's
+shard. :meth:`migrate`, :meth:`get_replica`,
+:meth:`get_replica_consistent` and :meth:`write_to_file` are
+collectives of the data row: every rank calls them, in the same order,
+with the same arguments. They run on the caller's thread over the
+mesh's *side* groups (``parallel/mesh.py``), never the groups the
+executor's pulls use, so a serve stream pulling through the executor
+and a migration on another thread cannot interleave their collectives
+differently on two ranks. The ranks of a row snapshot their shards at
+barriers of their own (each rank's push stream runs at its own pace);
+the row agrees on the latest barrier, counted in pushes (a push's
+sequence number on its channel: every rank submits the same pushes in
+the same order), and each rank brings its copy up to it from its
+journal, so the gathered table holds the same pushes on every shard.
+A pull assembles the row's shards, so the row flips its layout between
+the same two reads on every rank: a migration holds this rank's reads
+at the row's agreed count while it installs and flips
+(:meth:`_flip_in_step`). A recovery install has no such gate: a pull
+beside it may read some shards before it and others after (each key's
+row whole from one side). :meth:`set_replica` installs each rank's rows
+of a base-layout snapshot, whatever server count took it.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -81,9 +102,20 @@ class _Channel:
         # a migration's install + directory flip: it is wholly before the
         # flip (old slots, ts < install) or wholly after it
         self.remap_lock = threading.Lock()
-        #: the open push journal of a migration: (ts, slots, values), owned
-        #: copies; the entries past the snapshot replay onto the new image
-        self.journal: Optional[List[Tuple[int, torch.Tensor, torch.Tensor]]] = None  # guarded-by: remap_lock
+        #: the open push journal of a migration: (ts, seq, slots, values),
+        #: owned copies; the entries past the snapshot replay onto the new image
+        self.journal: Optional[List[Tuple[int, int, torch.Tensor, torch.Tensor]]] = None  # guarded-by: remap_lock
+        #: pushes submitted into the live table (push and push_pull): the
+        #: sequence number of the last one
+        self.pushes = 0  # guarded-by: remap_lock
+        #: reads submitted (pull and push_pull): on a mesh each is a
+        #: collective of the data row, so a flip must fall between the same
+        #: two reads on every rank of it
+        self.reads = 0  # guarded-by: remap_lock
+        #: while a mesh migration flips: the count of reads allowed before
+        #: the flip (None: reads flow)
+        self.read_gate: Optional[int] = None  # guarded-by: remap_lock
+        self.gate_moved = threading.Condition(self.remap_lock)
         self.migrations = 0  # guarded-by: remap_lock
 
 
@@ -159,12 +191,6 @@ class KVVector(Parameter):
         a store (none with one card)."""
         return {} if self.mesh is None else {"mesh": self.mesh, "batch_sharded": False}
 
-    def _one_shard(self, what: str) -> None:
-        if self.mesh is not None and meshlib.num_servers(self.mesh) > 1:
-            raise NotImplementedError(
-                f"KVVector.{what} over {meshlib.num_servers(self.mesh)} server shards is "
-                "ROADMAP A9 slice 2 (resizing and repartitioning)")
-
     def set_keys(self, ch: int, keys: np.ndarray) -> None:
         """Install an exact ordered key set for a channel (ref: the
         worker assigns ``model_[ch].key = key`` before pulling). The
@@ -200,6 +226,7 @@ class KVVector(Parameter):
             c.key = np.asarray(keys, dtype=np.int64)
         pre = self._resolve(c, keys, slots)
         with c.remap_lock:  # wholly before or after a migration's flip
+            self._read_slot(c)
             resolved = self._current(c, keys, pre)
 
             def step():
@@ -240,8 +267,8 @@ class KVVector(Parameter):
                     return c.table
 
             ts = self.instrumented_submit("push", ch, len(resolved), step, task, callback)
-            if c.journal is not None and not staged:
-                self._journal(c, ts, resolved, vals)
+            if not staged:
+                self._count_push(c, ts, resolved, vals)
             return ts
 
     def push_pull(self, task: Task, keys: Optional[np.ndarray] = None, values=None,
@@ -264,6 +291,7 @@ class KVVector(Parameter):
         pre_pull = None if pull_keys is None else self._resolve(c, pull_keys, None)
         vals = self._values(values)
         with c.remap_lock:  # as push: atomic against a flip, journaled
+            self._read_slot(c)
             resolved = self._current(c, keys, pre)
             pull_slots = None if pull_keys is None else self._current(c, pull_keys, pre_pull)
 
@@ -273,8 +301,7 @@ class KVVector(Parameter):
                 return pulled
 
             ts = self.instrumented_submit("push_pull", ch, len(resolved), step, task, callback)
-            if c.journal is not None:
-                self._journal(c, ts, resolved, vals)
+            self._count_push(c, ts, resolved, vals)
             return ts
 
     def _resolve(self, c: _Channel, keys: Optional[np.ndarray],
@@ -300,11 +327,23 @@ class KVVector(Parameter):
         return c.directory.slots_device(keys, self.device)
 
     @staticmethod
-    def _journal(c: _Channel, ts: int, slots: torch.Tensor, vals: torch.Tensor) -> None:  # holds-lock: c.remap_lock
-        """Journal a push as owned copies: callers and the pinned staging
-        ring reuse their buffers, and a CPU tensor may share a caller's
-        numpy array."""
-        c.journal.append((ts, torch.as_tensor(slots).clone(), vals.clone()))
+    def _read_slot(c: _Channel) -> None:  # holds-lock: c.remap_lock
+        """Count a read about to be submitted, first waiting while a mesh
+        migration's gate holds reads back (:meth:`_flip_in_step`)."""
+        while c.read_gate is not None and c.reads >= c.read_gate:
+            c.gate_moved.wait()
+        c.reads += 1
+        if c.read_gate is not None:  # a migration waits for this count
+            c.gate_moved.notify_all()
+
+    @staticmethod
+    def _count_push(c: _Channel, ts: int, slots: torch.Tensor, vals: torch.Tensor) -> None:  # holds-lock: c.remap_lock
+        """Number a table push and, while a journal is open, journal it as
+        owned copies: callers and the pinned staging ring reuse their
+        buffers, and a CPU tensor may share a caller's numpy array."""
+        c.pushes += 1
+        if c.journal is not None:
+            c.journal.append((ts, c.pushes, torch.as_tensor(slots).clone(), vals.clone()))
 
     def snapshot(self, ch: int = 0, callback=None) -> int:
         """Async copy of the channel table; returns the timestamp (the
@@ -369,10 +408,98 @@ class KVVector(Parameter):
         (``kv_ops.push_donated``: the same adds in the same order, so the
         same bits)."""
         def step():
-            c.table = kv_ops.push_donated(c.table, slots, vals)
+            c.table = kv_ops.push_donated(c.table, slots, vals, **self._kv())
             return c.table
 
         return self.instrumented_submit("push", ch, len(slots), step, self.request(channel=ch), None)
+
+    # -- the row's consistent snapshot (a collective on a mesh) --
+
+    def _side(self) -> Optional[meshlib.Mesh]:
+        """The mesh of this store's row collectives: its side groups
+        (None off a mesh or with one server shard, where they are local)."""
+        if self.mesh is None or meshlib.num_servers(self.mesh) == 1:
+            return None
+        return self.mesh.side
+
+    def _barrier(self, c: _Channel, ch: int) -> Tuple[int, int]:
+        """Submit a :meth:`snapshot` of channel ``ch``: its timestamp and
+        the sequence number of the last push before it."""
+        with c.remap_lock:
+            return self.snapshot(ch), c.pushes
+
+    def _align(self, c: _Channel, snap: torch.Tensor, seq: int, upto: int) -> int:
+        """Add to ``snap`` (this rank's shard, holding the pushes up to
+        ``seq``) the journaled pushes ``seq + 1 .. upto``, in order, through
+        the live push path, waiting for this rank's stream to submit them;
+        returns the timestamp of the last push added (0 for none). The
+        journal is open."""
+        if upto <= seq:
+            return 0
+        from ..parallel import distributed
+
+        deadline = time.monotonic() + distributed.TIMEOUT_S
+        while True:
+            with c.remap_lock:
+                if c.pushes >= upto:
+                    todo = [e for e in c.journal if seq < e[1] <= upto]
+                    break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"KVVector {self.name!r}: this rank's push stream did not reach push {upto} "
+                    f"(the row's barrier) in {distributed.TIMEOUT_S:.0f} s; every rank must "
+                    "submit the same pushes")
+            time.sleep(0.001)
+        for _, _, slots, vals in todo:
+            kv_ops.push_donated(snap, slots, vals, **self._kv())
+        return todo[-1][0]
+
+    def _whole(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole table from every server shard of the row (the side
+        groups' gather), or ``shard`` itself with one."""
+        side = self._side()
+        return shard if side is None else meshlib.all_gather(shard, meshlib.SERVER_AXIS, side)
+
+    def _agree(self, *values: int) -> Tuple[int, ...]:
+        """The largest of each value over the row (one ``all_reduce``)."""
+        side = self._side()
+        if side is None:
+            return tuple(int(v) for v in values)
+        return tuple(meshlib.agree_max(list(values), meshlib.SERVER_AXIS, side))
+
+    def _mine(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's server shard of a whole-table tensor."""
+        if self.mesh is None:
+            return whole
+        lo = meshlib.axis_index(meshlib.SERVER_AXIS, self.mesh) * self.shard_rows
+        return whole[lo:lo + self.shard_rows]
+
+    def _flip_in_step(self, c: _Channel) -> None:
+        """Hold this rank's reads of channel ``c`` at the row's agreed count
+        before a mesh migration flips it: every rank of the row flips
+        between the same two reads (a pull assembles the row's shards, so
+        a read on the new layout on one rank and on the old on another
+        would add a key's row twice or not at all). The gate closes, the
+        row agrees on the most reads any rank has submitted, and this rank
+        lets its reads through up to that count; the caller flips and
+        opens it."""
+        from ..parallel import distributed
+
+        with c.remap_lock:
+            c.read_gate = c.reads
+        (agreed,) = self._agree(c.reads)
+        deadline = time.monotonic() + distributed.TIMEOUT_S
+        with c.remap_lock:
+            c.read_gate = agreed
+            c.gate_moved.notify_all()
+            while c.reads < agreed:
+                if not c.gate_moved.wait(timeout=max(0.0, deadline - time.monotonic())):
+                    c.read_gate = None
+                    c.gate_moved.notify_all()
+                    raise RuntimeError(
+                        f"KVVector {self.name!r}: this rank's reads did not reach read {agreed} "
+                        f"(the row's flip point) in {distributed.TIMEOUT_S:.0f} s; every rank "
+                        "must submit the same reads")
 
     def migrate(self, perm: np.ndarray, ch: int = 0, max_attempts: int = 5) -> dict:
         """Move rows to the layout ``perm`` (row ``j`` to row ``perm[j]``)
@@ -380,23 +507,30 @@ class KVVector(Parameter):
 
         1. open the channel's push journal, then take a submitted
            :meth:`snapshot`: its timestamp is the barrier, every push
-           before it is in the copy;
-        2. permute the copy on the table's device (one index op); the
-           ``rebalance.migrate`` fault point fires before, and a stall
-           there widens the journal window;
-        3. under ``remap_lock``: submit the install of the image, replay
-           the journaled pushes past the barrier in timestamp order with
-           translated slots, and flip the directory's remap.
+           before it is in the copy; the ``rebalance.migrate`` fault
+           point fires next, and a stall there widens the journal window;
+        2. on a mesh the data row agrees on the latest barrier (in
+           pushes) and on whether a recovery landed, each rank brings its
+           copy up to that barrier from its journal, and the shards are
+           gathered over the side groups;
+        3. permute the copy on the table's device (one index op);
+        4. on a mesh hold the reads at the row's agreed count; under
+           ``remap_lock``: submit the install of this rank's rows of the
+           image, replay the journaled pushes past the barrier in order
+           with translated slots, and flip the directory's remap.
 
+        It returns once its install and replays have run, without waiting
+        for the pushes other threads submit after the flip.
         A recovery that lands meanwhile (:meth:`note_external_restore`)
-        makes the migration snapshot again, up to ``max_attempts`` times.
+        makes the migration snapshot again, up to ``max_attempts`` times;
+        on a mesh the row retries together when any of its ranks saw one.
         The table after it, in the base layout, is bit-identical to an
-        undisturbed run. Returns the barrier and install timestamps, the
-        journaled and replayed push counts, the rows moved and the
-        attempts."""
+        undisturbed run. On a mesh every rank of the data row calls it
+        with the same ``perm`` (checked). Returns the barrier and install
+        timestamps, the journaled and replayed push counts, the rows
+        moved and the attempts."""
         from ..system import faults
 
-        self._one_shard("migrate")
         perm = np.asarray(perm, dtype=np.int64)
         n = self.num_slots
         bad = ValueError(f"perm must be a bijection over the padded slot capacity ({n})")
@@ -408,8 +542,14 @@ class KVVector(Parameter):
         if n and not (bool(perm_dev.min() >= 0) and bool(perm_dev.max() < n)
                       and bool(torch.bincount(perm_dev, minlength=n).max() == 1)):
             raise bad
+        digest = int.from_bytes(hashlib.blake2b(perm.tobytes(), digest_size=8).digest(),
+                                "little") >> 1
+        hi, neg_lo = self._agree(digest, -digest)
+        if hi != -neg_lo:
+            raise ValueError("migrate: the ranks of the data row were given different perms")
         c = self.channel(ch)
         rows_moved = int(torch.count_nonzero(perm_dev != torch.arange(n, device=self.device)))
+        on_mesh = self._side() is not None
         with self._migration_lock:
             attempts = 0
             while True:
@@ -420,52 +560,74 @@ class KVVector(Parameter):
                 gen0 = self._generation()
                 with c.remap_lock:
                     c.journal = []
-                barrier_ts = self.snapshot(ch)
+                barrier_ts, seq = self._barrier(c, ch)
                 snap = self.executor.wait(barrier_ts)
                 # the drill stalls here to widen the window, or to land a
                 # recovery mid-migration
                 faults.inject("rebalance.migrate")
-                img = torch.empty_like(snap).index_copy_(0, perm_dev, snap)
-                del snap
-                with c.remap_lock:
-                    if self._generation() != gen0:
+                upto, stale = self._agree(seq, int(self._generation() != gen0))
+                if on_mesh and stale:
+                    with c.remap_lock:
                         c.journal = None
-                        continue  # a recovery landed first: the image is stale
-                    journal, c.journal = c.journal, None
+                    continue  # a recovery landed on a rank of the row: the image is stale
+                self._align(c, snap, seq, upto)
+                whole = self._whole(snap)
+                del snap
+                img = torch.empty_like(whole).index_copy_(0, perm_dev, whole)
+                del whole
+                if self.mesh is not None:
+                    img = self._mine(img).clone()
+                if on_mesh:
+                    self._flip_in_step(c)
+                try:
+                    with c.remap_lock:
+                        if not on_mesh and self._generation() != gen0:
+                            c.journal = None
+                            continue  # a recovery landed first: the image is stale
+                        journal, c.journal = c.journal, None
 
-                    def install(t=img):
-                        c.table = t
-                        return c.table
+                        def install(t=img):
+                            c.table = t
+                            return c.table
 
-                    install_ts = self.submit(install, self.request(channel=ch))
-                    replayed = 0
-                    for ts, slots, vals in journal:
-                        if ts <= barrier_ts:
-                            continue  # already in the snapshot
-                        s64 = slots.to(self.device, torch.int64)
-                        owned = (s64 >= 0) & (s64 < n)
-                        moved = perm_dev.index_select(0, torch.clamp(s64, 0, n - 1))
-                        new_slots = torch.where(owned, moved, s64).to(torch.int32)
-                        self._submit_push_locked(c, ch, new_slots, vals)
-                        replayed += 1
-                    # the directory composes the layout and owns it
-                    c.directory.set_remap(perm)
-                    c.migrations += 1
-                    break
-        self.executor.wait_all(pop=False)
+                        install_ts = self.submit(install, self.request(channel=ch))
+                        own = [install_ts]  # the migration's own steps
+                        for _, pseq, slots, vals in journal:
+                            if pseq <= upto:
+                                continue  # already in the image
+                            s64 = slots.to(self.device, torch.int64)
+                            owned = (s64 >= 0) & (s64 < n)
+                            moved = perm_dev.index_select(0, torch.clamp(s64, 0, n - 1))
+                            new_slots = torch.where(owned, moved, s64).to(torch.int32)
+                            own.append(self._submit_push_locked(c, ch, new_slots, vals))
+                        replayed = len(own) - 1
+                        # the directory composes the layout and owns it
+                        c.directory.set_remap(perm)
+                        c.migrations += 1
+                        break
+                finally:
+                    with c.remap_lock:
+                        c.read_gate = None
+                        c.gate_moved.notify_all()
+        # the install and the replays have run (in timestamp order); the
+        # pushes other threads submitted after the flip are not waited for
+        for ts in own:
+            self.executor.wait(ts)
         return {"barrier_ts": barrier_ts, "install_ts": install_ts, "journaled": len(journal),
                 "replayed": replayed, "rows_moved": rows_moved, "attempts": attempts}
 
     # -- replica hooks --
 
     def get_replica(self) -> dict:
-        """Host copies of every channel table in the base layout, once
-        the in-flight steps are done (the caller stops submitting
-        first)."""
-        self._one_shard("get_replica")
-        self.executor.wait_all(pop=False)
-        return {ch: self._to_base(c, c.table.cpu().numpy().copy())
-                for ch, c in self._channels.items()}
+        """Host copies of every channel table, whole and in the base
+        layout, once the in-flight steps are done (the caller stops
+        submitting first). On a mesh a collective of the data row: every
+        rank gets the whole tables."""
+        with self._migration_lock:
+            self.executor.wait_all(pop=False)
+            return {ch: self._to_base(self._channels[ch],
+                                      self._whole(self._channels[ch].table).cpu().numpy().copy())
+                    for ch in sorted(self._channels)}
 
     def get_replica_consistent(self) -> "tuple[dict, dict]":
         """A host snapshot through the executor: one submitted
@@ -473,46 +635,69 @@ class KVVector(Parameter):
         Returns ``(snapshot, barrier)``; barrier maps channel → the
         snapshot step's timestamp (every push before it is in the
         snapshot, every later one is not). The migration lock keeps the
-        copy and its translation to the base layout on one layout."""
-        self._one_shard("get_replica_consistent")
+        copy and its translation to the base layout on one layout. On a
+        mesh a collective of the data row, whose shards agree on one
+        barrier in pushes (the module's docstring); a rank's barrier is
+        then the timestamp of the last push its copy holds, if later than
+        its snapshot."""
+        snap, barrier = {}, {}
         with self._migration_lock:
-            barrier = {ch: self.snapshot(ch) for ch in list(self._channels)}
-            snap = {ch: self._to_base(self._channels[ch], self.executor.wait(ts).cpu().numpy())
-                    for ch, ts in barrier.items()}
+            for ch in sorted(self._channels):
+                c = self._channels[ch]
+                on_mesh = self._side() is not None
+                if on_mesh:
+                    with c.remap_lock:
+                        c.journal = []
+                try:
+                    ts, seq = self._barrier(c, ch)
+                    shard = self.executor.wait(ts)
+                    if on_mesh:
+                        (upto,) = self._agree(seq)
+                        ts = max(ts, self._align(c, shard, seq, upto))
+                finally:
+                    if on_mesh:
+                        with c.remap_lock:
+                            c.journal = None
+                barrier[ch] = ts
+                snap[ch] = self._to_base(c, self._whole(shard).cpu().numpy())
         return snap, barrier
 
     def set_replica(self, snapshot: dict) -> None:
         """Install base-layout channel tables (host arrays or tensors, as
-        copies) in each channel's live layout."""
-        self._one_shard("set_replica")
+        copies) in each channel's live layout. A table of another padded
+        size (taken at another server count) keeps its rows that fit and
+        zero-extends; on a mesh each rank installs its own shard's rows,
+        so a snapshot taken at one server count installs at another."""
         for ch, arr in snapshot.items():
             c = self.channel(ch)
             if isinstance(arr, torch.Tensor):
                 t = arr.to(device=self.device, dtype=self.dtype).clone()
             else:
                 t = torch.from_numpy(np.array(arr)).to(device=self.device, dtype=self.dtype)
+            t = t.reshape(-1, self.k)
+            if t.shape[0] != self.num_slots:
+                fitted = torch.zeros((self.num_slots, self.k), dtype=self.dtype,
+                                     device=self.device)
+                m = min(self.num_slots, t.shape[0])
+                fitted[:m] = t[:m]
+                t = fitted
             perm = c.directory.remap()
-            if perm is None:
-                c.table = t
-            else:
+            if perm is not None:
                 perm_dev = torch.tensor(perm, device=self.device)  # remap() is read-only
-                c.table = torch.empty_like(t).index_copy_(0, perm_dev, t)
+                t = torch.empty_like(t).index_copy_(0, perm_dev, t)
+            c.table = self._mine(t).clone() if self.mesh is not None else t
 
     def write_to_file(self, path: str, ch: int = 0) -> None:
-        """Dump nonzero (key, value) pairs as text (ref WriteToFile). On a
-        mesh every rank calls it: the shards are gathered over the server
-        axis and rank 0 writes."""
-        self.executor.wait_all(pop=False)
-        c = self.channel(ch)
-        if self.mesh is not None:
-            whole = meshlib.all_gather(c.table, meshlib.SERVER_AXIS, self.mesh).cpu().numpy()
-            if self.mesh.rank != 0:
-                return
-            tbl = whole
-        else:
-            # the base layout: an exact directory's key order lines up
-            # with the rows after a migration moved them
-            tbl = self._to_base(c, c.table.cpu().numpy())
+        """Dump nonzero (key, value) pairs as text (ref WriteToFile), in
+        the base layout (an exact directory's key order lines up with the
+        rows after a migration moved them). On a mesh every rank of the
+        data row calls it: the shards are gathered and rank 0 writes."""
+        with self._migration_lock:
+            self.executor.wait_all(pop=False)
+            c = self.channel(ch)
+            tbl = self._to_base(c, self._whole(c.table).cpu().numpy())
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         if c.directory.keys is not None:
             keys = c.directory.keys
             vals = tbl[: len(keys)]

@@ -6,8 +6,9 @@ id, assigns fresh customer ids (ref ``NextCustomerID``), records node
 roles and key ranges, broadcasts node add/remove events to subscribers
 (ref ``AddNode``'s NodeChange broadcast / ``NodeDisconnected``), and
 coordinates orderly shutdown. The node table follows the postoffice's
-mesh (its server and worker counts); the elastic coordinator that drives
-add/remove events across cards is ROADMAP A9 slice 2.
+mesh (its server and worker counts); ``system/elastic.py``'s coordinator
+rebuilds it at each resize and broadcasts the membership diff, on every
+rank of the world alike.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ builds this rank's ``(data, server)`` mesh over it
 process alone is a ``1 x 1`` mesh on its card) and records the
 scheduler, the mesh's server nodes and its worker nodes. ``device`` is
 the rank's card (resolved as every entry point resolves it; in a world,
-``distributed.rank_device`` by default). ``start_aux``
+``distributed.rank_device`` by default). In a world the postoffice can be
+stopped, reset and started again on another shape (an elastic resize,
+``system/elastic.py``): the world stays, and the new mesh's groups are
+made over a prefix of it by every rank. ``start_aux``
 creates the heartbeat / metrics-plane / dashboard / recovery runtime
 (``system/aux_runtime.py``), and ``metrics`` is the process telemetry
 registry every layer records into.

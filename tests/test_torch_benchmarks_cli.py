@@ -55,9 +55,10 @@ METRIC_MAP = {
     "ftrl_sparse_xla_rows_ms": "ftrl_sparse_plain_ms",
     "ftrl_sparse_fused_ms": "ftrl_sparse_cuda_ms",
     "ftrl_sparse_fused_speedup": "ftrl_sparse_cuda_speedup",
-    # GB/s of the card's bytes (benchmarks/ftrl_bytes.py), not of the
-    # JAX model's 512-byte TPU row granules
-    "ftrl_sparse_fused_hbm_gb_s": "ftrl_sparse_cuda_hbm_gb_s",
+    # MB/s of the card's bytes (benchmarks/ftrl_bytes.py), not of the
+    # JAX model's 512-byte TPU row granules; MB/s because the smoke's GB/s
+    # on a loaded CPU falls under report()'s 2 decimals (0.00)
+    "ftrl_sparse_fused_hbm_gb_s": "ftrl_sparse_cuda_hbm_mb_s",
     "ftrl_sparse_fused_frac_of_peak": "ftrl_sparse_cuda_frac_of_peak",
     # GB/s of the card's bytes: g read, z and sqrt_n read and written, 20
     # a slot an update (the JAX line counts 16, g left out)
@@ -68,13 +69,18 @@ METRIC_MAP = {
     # microseconds: an 8 KB copy to the card takes ~0.01 ms, which
     # report()'s 2 decimals would flatten
     **{f"network_h2d_{kb}kb_ms": f"network_h2d_{kb}kb_us" for kb in (8, 64, 1024, 8192)},
+    # MB/s: a probe moves a few MB a call, and its GB/s on a loaded CPU
+    # falls under report()'s 2 decimals (0.00, which no line may print)
+    "roofline_ftrl_chain_gb_s": "roofline_ftrl_chain_mb_s",
+    "roofline_flash_fwd_gb_s": "roofline_flash_fwd_mb_s",
     "roofline_ftrl_chain_gflops": Absent(
         "the probe declares FlopCounterMode's count, which finds no FLOP in the FTRL update "
         "(no matmul): it declares bytes only"),
 }
 
-#: JAX benchmarks the port does not register
-NOT_PORTED = {"rebalance": "shards a table over 8 devices: ROADMAP A9"}
+#: JAX benchmarks the port does not register (none: ``rebalance`` runs in
+#: a world of 8 ranks it starts)
+NOT_PORTED: dict = {}
 
 #: record fields of the JAX benchmarks that the port renames or drops
 RECORD_FIELDS = {
@@ -98,6 +104,11 @@ RECORD_FIELDS = {
         "xla_path": "counter",
     },
     "serve": {"compile_s": "first_call_s"},  # eager PyTorch compiles nothing
+    # XLA's count of programs compiled after warm-up: eager PyTorch
+    # compiles nothing, and the port invents no substitute
+    "rebalance": {"recompiles_post_warmup": None},
+    # the port's drill also records its live phase's timeline (the host
+    # clock: when the rebalance started and ended, when training did)
     "decode_batching": {"compile_s": "warmup_s", "onchip_target": None},
 }
 
@@ -195,7 +206,7 @@ def check_against_jax(name: str, tmp_dir, extra_port=()) -> tuple:
 
 def test_registry_is_the_jax_registry_less_the_a9_benchmark():
     assert set(tbench.REGISTRY) == set(jbench.REGISTRY) - set(NOT_PORTED)
-    assert len(tbench.REGISTRY) == 22
+    assert len(tbench.REGISTRY) == 23
     for name, fn in tbench.REGISTRY.items():
         assert fn.__module__ == tcomp.__name__, name
 
@@ -299,11 +310,70 @@ def test_cli_rejects_an_unknown_name():
     assert proc.stdout == ""
 
 
-def test_cli_refuses_rebalance_naming_a9():
-    proc = _cli("rebalance", "--smoke", "--device", "cpu")
-    assert proc.returncode != 0
-    assert "A9" in proc.stderr and "rebalance" in proc.stderr
-    assert proc.stdout == ""
+def _record_keys(rec, renames, prefix=""):
+    """The dotted field names of a nested record, each renamed or dropped
+    as ``renames`` (a field's leaf name -> new name or None) says."""
+    out = set()
+    for key, value in rec.items():
+        if key in renames:
+            if renames[key] is None:
+                continue
+            key = renames[key]
+        if isinstance(value, dict) and key not in ("chosen", "shape"):
+            out |= _record_keys(value, renames, f"{prefix}{key}.")
+        else:
+            out.add(prefix + key)
+    return out
+
+
+def test_cli_refuses_rebalance_naming_a9(tmp_path):
+    """``rebalance`` is ported: ``python -m parameter_server_tpu_torch.benchmarks
+    rebalance --smoke --device cpu`` starts a world of 8 CPU ranks and
+    exits 0, printing the JAX drill's metric lines (mapped through
+    :data:`METRIC_MAP`), and its record holds the JAX record's fields
+    less those :data:`RECORD_FIELDS` drops; no ``NotImplementedError``
+    names A9 for it."""
+    env = _env_clean()
+    env["PS_REBALANCE_OUT"] = str(tmp_path / "port.json")
+    proc = subprocess.run([sys.executable, "-m", "parameter_server_tpu_torch.benchmarks",
+                           "rebalance", "--smoke", "--device", "cpu"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "A9" not in proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    for m in lines:
+        assert set(m) == {"metric", "value", "unit"} and m["value"] > 0, m
+    old = os.environ.get("PS_REBALANCE_OUT")
+    os.environ["PS_REBALANCE_OUT"] = str(tmp_path / "jax.json")
+    try:
+        # the JAX drill is the reference here. Its own post-rebalance check
+        # fails when a loaded host lets its train stream end before its
+        # migration does (an empty post-rebalance window: ROADMAP lists it
+        # among the JAX package's load failures); such a reference run says
+        # nothing of the port, so it is run again, at most three times
+        for attempt in range(3):
+            try:
+                want = run_jax("rebalance", tmp_path)
+                break
+            except AssertionError as e:
+                if "post-rebalance imbalance" not in str(e) or attempt == 2:
+                    raise
+    finally:
+        if old is None:
+            os.environ.pop("PS_REBALANCE_OUT", None)
+        else:
+            os.environ["PS_REBALANCE_OUT"] = old
+    assert [m["metric"] for m in lines] == [port_name(m["metric"]) for m in want]
+    port_rec = json.loads((tmp_path / "port.json").read_text())["rebalance_record"]
+    jax_rec = json.loads((tmp_path / "jax.json").read_text())["rebalance_record"]
+    ours = {k for k in _record_keys(port_rec, {}) if not k.startswith("rebalance.timeline.")}
+    assert ours == _record_keys(jax_rec, RECORD_FIELDS["rebalance"])
+    reb = port_rec["rebalance"]
+    assert reb["serve"]["failed"] == 0 and reb["trajectory_bit_identical"]
+    assert reb["sharded_vs_single_bit_identical"] and reb["post_rebalance_imbalance"] < 4.0
+    assert port_rec["mesh"]["shape"] == jax_rec["mesh"]["shape"] == {"data": 1, "server": 8}
+    assert port_rec["mesh"]["auto_shape_demo"] == jax_rec["mesh"]["auto_shape_demo"]
+    assert reb["alert"]["transitions"][:2] == ["inactive->pending", "pending->firing"]
 
 
 def test_cli_without_a_card_or_a_device_exits_non_zero():

@@ -71,7 +71,8 @@ def test_port_imports_nothing_of_jax():
               "utils.sketch", "utils.file", "utils.subproc", "utils.device_lock",
               "benchmarks", "benchmarks.__main__", "benchmarks.components",
               "parallel", "parallel.mesh", "parallel.distributed", "parallel.partition",
-              "parallel.launch", "benchmarks.mesh"):
+              "parallel.launch", "benchmarks.mesh", "system.elastic", "system.autoscale",
+              "benchmarks.mesh_stages"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -218,17 +218,20 @@ def test_slot_cache_serves_repeated_key_sets(mesh1):
 
 def test_one_card_limits_raise_naming_their_items():
     """More server shards need a mesh of that many (the sharded store is
-    held to JAX in ``tests/test_torch_parallel_blocks.py``), and live
-    migration over them still raises naming A9; on one card live
-    migration and its hooks (A13's first part) are ported and run."""
+    held to JAX in ``tests/test_torch_parallel_blocks.py``); over them a
+    live migration is a collective of the data row
+    (``tests/test_torch_rebalance.py`` runs it in gloo worlds), whose
+    ``perm`` is checked on each rank before any collective; on one card
+    live migration and its hooks (A13's first part) run alone."""
     from parameter_server_tpu_torch.parallel.mesh import Mesh
 
     tkv = KVVector(k=1, num_slots=64, device="cpu")
     with pytest.raises(ValueError, match="needs a mesh"):
         KVVector(k=1, num_slots=64, device="cpu", num_server=2)
     two = KVVector(k=1, num_slots=64, mesh=Mesh(1, 2, "cpu"), num_server=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        two.migrate(np.arange(64))
+    assert two.table(0).shape == (32, 1)  # this rank's server shard
+    with pytest.raises(ValueError, match="bijection"):  # no world: refused before the row meets
+        two.migrate(np.zeros(64, dtype=np.int64))
     two.executor.stop()
     assert tkv.layout() is None
     tkv.note_external_restore()

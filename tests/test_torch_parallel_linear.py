@@ -362,7 +362,6 @@ def test_jax_mesh_state_continues_on_the_port_mesh(runs):
 
 @pytest.mark.parametrize("field,value", [
     ("kkt_filter", True), ("wire_encode", "exact"), ("ell_lanes", 39), ("tau_adaptive", True),
-    ("num_replicas", 1),
 ])
 def test_unported_features_on_a_mesh_raise_naming_a9(field, value):
     conf = ranks.linear_conf("sparse", "float32", 1)
@@ -379,26 +378,73 @@ def test_unported_features_on_a_mesh_raise_naming_a9(field, value):
 
 
 def test_replica_and_migration_on_two_servers_raise_naming_a9():
-    mesh = tmesh.Mesh(1, 2, "cpu")
-    Postoffice.reset()
+    """What a mesh of two server shards refused until ROADMAP A9 slice 2,
+    ported: no ``NotImplementedError`` is left there. On a 2x2 world: the
+    worker's neighbour replica (``num_replicas 1``) on rank ``(d, s)`` is
+    server shard ``s - 1``'s state at the last refresh, bit-equal to the
+    JAX worker's ``jnp.roll`` of its table by a shard's width cut to that
+    rank's rows up to ``TRAJ_TOL`` (the state's own tolerance); wiping
+    shard 1 zeroes only its ranks' rows and ``recover_server_shard(1)``
+    restores them bit for bit. The ``KVVector`` over the two shards
+    migrates, gathers, snapshots and installs: its base-layout table
+    bit-equal to the one-card store's on the same pushes."""
+    from tests import torch_elastic_ranks as eranks
+
+    batches = [make_batch(i) for i in range(3)]
+    conf = ranks.linear_conf("sparse", "float32", 1)
+    conf.async_sgd.num_replicas, conf.async_sgd.replica_every = 1, 1
+    rng = np.random.default_rng(3)
+    kv_batches = [(np.sort(rng.choice(997, 40, replace=False)).astype(np.int64),
+                   rng.normal(size=(40, 2)).astype(np.float32)) for _ in range(4)]
+    perm = np.random.default_rng(11).permutation(64)
+    recs = launch.run_world(eranks.replica_and_migration_2x2, 4,
+                            args=(conf, [_port_batch(b) for b in batches], kv_batches, perm),
+                            device_type="cpu", timeout=240)
+    JPostoffice.reset()
     try:
-        w = tsgd.AsyncSGDWorker(ranks.linear_conf("sparse", "float32", 1), mesh=mesh)
-        assert w.shard_rows == w.num_slots // 2 and w.state["z"].shape == (w.shard_rows,)
-        for call in (lambda: w.recover_server_shard(0), lambda: w.wipe_server_shard(1)):
-            with pytest.raises(NotImplementedError, match="A9 slice 2"):
-                call()
-        w.remove()
-        kv = KVVector(k=1, num_slots=64, mesh=mesh, num_server=2, name="kv2")
-        assert kv.table(0).shape == (32, 1)
-        for call in (lambda: kv.migrate(np.arange(64)), kv.get_replica,
-                     kv.get_replica_consistent, lambda: kv.set_replica({0: np.zeros((64, 1))})):
-            with pytest.raises(NotImplementedError, match="A9 slice 2"):
-                call()
-        kv.executor.stop()
-        with pytest.raises(ValueError, match="needs a mesh"):
-            KVVector(k=1, num_slots=64, device="cpu", num_server=2)
+        jconf = _jax_conf("sparse", "float32", 1, 0)
+        jconf.async_sgd.num_replicas, jconf.async_sgd.replica_every = 1, 1
+        mesh = jmesh.make_mesh(num_data=2, num_server=2, devices=jax.devices()[:4])
+        jw = jsgd.AsyncSGDWorker(jconf, mesh=mesh)
+        for b in batches:
+            jw.executor.wait(jw.process_minibatch(b))
+        jw.executor.wait_all(pop=False)
+        jrep = {k: np.asarray(v) for k, v in jw._replica_state.items()}
     finally:
+        JPostoffice.reset()
+    per = ranks.SLOTS // 2
+    for rec in recs:
+        d, s = rec["coords"]
+        assert rec["no_replica"] is False and rec["recovered"] is True
+        left = next(r for r in recs if r["coords"] == (d, 1 - s))
+        for k in rec["state"]:
+            # the copy of the left neighbour's shard (a roll by one shard)
+            assert np.array_equal(rec["replica"][k], left["state"][k]), k
+            np.testing.assert_allclose(rec["replica"][k], jrep[k][s * per:(s + 1) * per],
+                                       **TRAJ_TOL, err_msg=k)
+            assert np.array_equal(rec["after"][k], rec["state"][k]), k
+            if s == 1:
+                assert not rec["wiped"][k].any(), k
+            else:
+                assert np.array_equal(rec["wiped"][k], rec["state"][k]), k
+    Postoffice.reset()
+    one = KVVector(k=2, num_slots=64, hashed=True, device="cpu", name="one")
+    try:
+        for keys, vals in kv_batches:
+            one.push(one.request(channel=0), keys=keys, values=vals)
+        want = one.get_replica()[0]
+    finally:
+        one.executor.stop()
         Postoffice.reset()
+    for rec in recs:
+        assert rec["kv_migrate"]["rows_moved"] > 0 and rec["kv_migrate"]["attempts"] == 1
+        for key in ("kv_replica", "kv_consistent", "kv_back"):
+            assert rec[key].tobytes() == want.tobytes(), key
+        assert not rec["kv_zeroed"].any()
+        s = rec["coords"][1]
+        cur = np.empty_like(want)
+        cur[perm] = want
+        assert rec["kv_shard"].tobytes() == cur[s * 32:(s + 1) * 32].tobytes()
 
 
 # -- the CLI --
