@@ -63,7 +63,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    pointed at a temporary directory: 2^22 slots, 10000-row minibatches,
    the 1-byte FIXING_FLOAT push filter (the quantize kernel and the
    masked dense kernel once per ministep), bounded delay 4, the count-min
-   tail filter, the conf's 10 passes. Its first ministeps are held
+   tail filter, 5 of the conf's 10 passes (cut with phase 9d added). Its first ministeps are held
    against the same CLI run on the CPU (objectives, pushed codes and
    weights); then a few ministeps with a FIXING_FLOAT pull filter added
    (two quantize launches per ministep). Then ``configs/criteo/online_l1lr.conf``
@@ -91,12 +91,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ex/s, the stages' ms, peak device memory, a falling loss, the model
    written). Then the darlin app (block coordinate descent) through the
    CLI: ``configs/criteo/batch_l1lr.conf`` unchanged (λ 4, α 0.9, τ 2, up
-   to 50 passes, 39 blocks, one a slot) on 4 generated shards of 250,000
-   rows, and ``eval_batch.conf`` on its model over 100,000 held-out rows;
+   to 50 passes, 39 blocks, one a slot) on 4 generated shards of 125,000
+   rows (cut from 250,000 with phase 9d added), and ``eval_batch.conf`` on its model over 100,000 held-out rows;
    ``configs/ctr/batch_l1lr.conf`` (τ 0, feature block ratio 4: one group
    of ~31 keys a row in ~123 blocks) on the CTR cell's data and its
    ``eval_batch.conf``; the Criteo conf cut
-   to 50,000 rows twice on the card (w, the dual and every progress line
+   to 25,000 rows twice on the card (w, the dual and every progress line
    bit-identical) and once on the CPU (each pass's objective within
    ``DARLIN_OBJ_RTOL``, the counts within ``DARLIN_COUNT_TOL`` of the
    columns); three segment-sum launches a block step and no other
@@ -213,7 +213,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    inventory sampling every 8th call over the pipelined headline: the
    roofline gauges present, every ``ps_device_roofline_frac`` at most
    1.05, no new signature after warm-up, no dispatch fallback; (e) the
-   pipelined headline with telemetry on and off, three pairs in turns,
+   pipelined headline with telemetry on and off, two pairs in turns,
    each beside a run with telemetry on and the key heat never noted, the
    medians printed;
 8c. the rest of A10 on the card: (a) ``FMWorker`` and ``DeepCTRWorker``
@@ -313,7 +313,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    this process on the card, each from a reset process state
    (the postoffice, the fault points), all at full size but
    ``decode_batching`` (at its smoke size: phase 8 D runs the batcher at
-   its full shapes) (``ftrl_chain`` at
+   its full shapes) and the host-bound ``executor``, ``host_ingest``,
+   ``network``, ``consistency`` and ``serve`` (at their smoke sizes since
+   phase 9d was added) (``ftrl_chain`` at
    2^24, 2^26 and 2^28 slots, ``attention`` at B·H 4 × S 4096 × D 64 with
    chains of 16, ``ftrl_sparse_ab`` at P 2^22, U 2^16, the plane probes at
    the JAX suite's full shapes); each line echoed as a
@@ -336,8 +338,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    dense (2 minibatches), in one world of 4 ranks on the card
    (``benchmarks/mesh.py``): 1x2 bit-equal to the one-card run on the same
    batches, 2x1 and 2x2 within ``TRAJ_TOL`` of it, each mesh bit-identical
-   run to run and on every data row, and within ``TRAJ_TOL`` of the same
-   world on the CPU; the ex/s of each mesh and the collectives' share of
+   run to run and on every data row, and (2x2) within ``TRAJ_TOL`` of
+   the same world on the CPU; the ex/s of each mesh and the collectives' share of
    an instrumented run; ``ftrl_sparse`` / ``ftrl_dense`` and
    ``segment_sum`` launched on every rank; (b) the CTR conf cut to 7
    ministeps through the linear CLI inside a world of 4 ranks (a
@@ -366,9 +368,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    pushes, the migration's ms, the base-layout table bit-equal to an
    undisturbed run and to the same pushes into a CPU store (the plain
    segment sum); (c) ``python -m parameter_server_tpu_torch.benchmarks
-   rebalance`` (8 ranks on the card, 1x8, 280 batches): its lines parsed
+   rebalance --smoke`` (8 ranks on the card, 1x8, 160 batches): its lines parsed
    and its record's contracts checked; ``ftrl_sparse``, ``ftrl_dense``,
    ``quantize`` and ``segment_sum`` launches counted;
+9d. the ELL rows and the A10 stores over a mesh (ROADMAP A9 slice 2's
+   second part), the ranks sharing the card over gloo as in phase 9:
+   (a) ``configs/criteo/online_l1lr_bigtable.conf`` at full width (2^30
+   slots, bf16 √n, 16384-row minibatches of 39 lanes, τ 4, the tail
+   filter) through the linear CLI at ``--num-servers 2`` on one generated
+   Criteo file of 16 minibatches (a world of 2 ranks): below the sparse
+   flip each rank's 2^29 shard takes the dense update over an ELL wire
+   (``ftrl_dense`` on bf16 √n), held to the one-card CLI on the same
+   file with the sparse flip raised, so that it takes the dense update
+   too (in this process): the examples equal, the
+   loss, AUC and accuracy within 1e-3 relative, each shard's model
+   against the one card's slots, the ex/s, each rank's peak memory and
+   ``network_psum_ms`` at the pull's 16384 x 39 floats; (b) in a world of
+   4 ranks at 2x2, the headline conf's dense route on a 2^22 table over
+   the bits wire, the stream wire's scan (T 4) and the bits wire with the
+   1-byte push filter (``quantize``), each held to the same world on the
+   CPU (objectives within 1e-5 relative and each state leaf within
+   ``TRAJ_TOL`` of its largest magnitude: the card's FTRL update parts
+   from the plain one in the last bit, fed back over 4 ministeps;
+   with the push filter, objectives within 1e-3 and at most 1% of the
+   state outside ``TRAJ_TOL``: a last-bit FTRL difference can move a
+   code by one level), each psum of a launch timed; at 1x2 of the same
+   world, where the bits wire with bf16 √n first parts from the one-card
+   run (ministep and leaf); (c) ``FMWorker`` and ``DeepCTRWorker`` at 1x2
+   on phase 8c's shape (2^22 slots, k 8, hidden (64, 32)), 4 ministeps,
+   each rank's rows bit-equal to the one-card run's; (d) ``KVMap`` at
+   2^22, k 8, ``AddEntry`` and ``AssignEntry`` at 1x2: table and pulls
+   bit-equal to the one-card store's; (e) the NN CLI with
+   ``--num-servers 2``, ``mlp`` and ``convnet``, 5 steps inside a world of
+   2: the rows of phase 8c's one-card CLI within ``NN_LOSS_RTOL``;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -1490,11 +1522,14 @@ def touched_share(rec: dict, num_slots: int) -> float:
     return float(np.mean(shares))
 
 
+CTR_PASSES = 5  # of the conf's 10 (cut with phase 9d added): 45 ministeps
+
+
 def ctr_path(tmp: str, seed: int) -> dict:
     """The CTR conf through the CLI on the card, every ministep counted."""
     write_ctr_shards(os.path.join(tmp, "train"), CTR_SHARDS, CTR_ROWS, seed)
     model = os.path.join(tmp, "model", "ctr_online")
-    text = ctr_conf(os.path.join(tmp, "train", "part.*"), model)
+    text = ctr_conf(os.path.join(tmp, "train", "part.*"), model, num_data_pass=CTR_PASSES)
     reset_counts()
     rec = run_cli(text, os.path.join(tmp, "ctr.conf"), "cuda")
     sparse_n, dense_n, quant_n, seg_n = counts()
@@ -1812,9 +1847,11 @@ def eval_path(tmp: str, seed: int, model_globs: dict, nonzeros: dict) -> dict:
 
 # -- phase 5b: the darlin app (block coordinate descent) --
 
-DARLIN_SHARDS, DARLIN_ROWS = 4, 250_000  # the Criteo batch conf's data: 1M rows, 39M entries
+# the Criteo batch conf's data: 500,000 rows, 19.5M entries (cut from 1M with phase 9d added)
+DARLIN_SHARDS, DARLIN_ROWS = 4, 125_000
 DARLIN_EVAL_ROWS = 100_000
-DARLIN_AGREE_ROWS = 50_000  # the Criteo batch conf cut for card vs CPU and run to run
+# the Criteo batch conf cut for card vs CPU and run to run (50,000 until phase 9d was added)
+DARLIN_AGREE_ROWS = 25_000
 # card vs CPU: the segment sums add in the same order on both, but the
 # card's exp is not the CPU's, so the dual (and every pass's objective)
 # parts in the last bits; a KKT decision that sits on such a bit may
@@ -2005,8 +2042,8 @@ def darlin_eval(tmp: str, name: str, write, rows: int, seed: int, model: str) ->
 
 def darlin_path(tmp: str, seed: int, ns_per_add: float) -> dict:
     """The darlin app through the CLI on the card: the Criteo batch conf
-    on 1M generated rows and its eval, the CTR batch conf and its eval,
-    then the Criteo conf cut to 50,000 rows on the card twice (w and the
+    on 500,000 generated rows and its eval, the CTR batch conf and its eval,
+    then the Criteo conf cut to 25,000 rows on the card twice (w and the
     dual bit-identical) and on the CPU (the stated tolerances)."""
     out = {}
     crit_data = os.path.join(tmp, "criteo_batch")
@@ -3277,7 +3314,7 @@ TRACE_KERNELS = dict(ftrl_dense="ftrl_dense_kernel", quantize="quantize_kernel",
                      flash_bwd_dq="flash_bwd_dq_", flash_bwd_dkv="flash_bwd_dkv_")
 ROOFLINE_MAX = 1.05  # a share over this is a wrong count, not a fast kernel
 SAMPLE_EVERY = 8
-OVERHEAD_PAIRS = 3
+OVERHEAD_PAIRS = 2  # 3 until phase 9d was added
 LM_DEFAULT = ["--steps", "5", "--report-every", "1", "--seed", "3", "--device", "cuda"]
 
 
@@ -3500,8 +3537,8 @@ def telemetry_inventory(batches) -> dict:
 
 
 def telemetry_overhead(batches) -> dict:
-    """(e) the pipelined headline with telemetry on and off, three pairs
-    in turns (on/off, off/on, on/off), and beside each pair the same with
+    """(e) the pipelined headline with telemetry on and off, two pairs
+    in turns (on/off, off/on), and beside each pair the same with
     telemetry on but the learning plane's key heat never noted (its share
     of the cost): a warm-up launch, then the timed launches; each worker
     built after the switch, as every instrument decides at construction."""
@@ -4749,7 +4786,8 @@ def record_shares(rec, path: str = ""):
 #: phase 9c added: decode_batching's sequential arm took most of 8g's time
 #: at full size, and phase 8 D runs the batcher at those full shapes
 #: already
-COMPONENT_SMOKE = {"decode_batching"}
+# at their smoke sizes (cut with phase 9d added): the five slowest host-bound probes
+COMPONENT_SMOKE = {"decode_batching", "executor", "host_ingest", "network", "consistency", "serve"}
 
 
 def run_component(name: str) -> dict:
@@ -4886,6 +4924,7 @@ def component_launches(comp: dict, kernel: str) -> dict:
 # -- phase 9: the linear trainer over a mesh of ranks sharing the card --
 
 MESH_SHAPES = [(1, 2), (2, 1), (2, 2)]  # (data, server), each a prefix of a 4-rank world
+MESH_CPU_SHAPE = (2, 2)  # the CPU world's one mesh (cut from all three with phase 9d added)
 # cut from 2 launches and 4 ministeps to keep the script's time with
 # phase 9c added
 MESH_SPARSE_LAUNCHES = 1  # launches of T headline minibatches a mesh, sparse
@@ -4937,7 +4976,9 @@ def mesh_plane(seed: int, smi: str) -> dict:
                             device_type="cuda", timeout=MESH_WORLD_S, threads=0)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = launch.run_world(mesh_bench.headline_meshes, 4, args=(*args, False),
+    # the CPU world on the 2x2 mesh only (both axes): cut with phase 9d added
+    cpu = launch.run_world(mesh_bench.headline_meshes, 4, args=([MESH_CPU_SHAPE], *args[1:],
+                                                                 False),
                            device_type="cpu", timeout=MESH_WORLD_S, threads=2)
     cpu_s = time.perf_counter() - t0
     rows = []
@@ -4962,7 +5003,8 @@ def mesh_plane(seed: int, smi: str) -> dict:
                           for k in whole), f"{what}: not bit-equal to the one-card run")
             else:
                 np_close(whole, single[update], f"{what} vs the one-card run")
-            np_close(mesh_whole(cpu, i, update), whole, f"{what}: CPU world vs card world")
+            if (d, s) == MESH_CPU_SHAPE:
+                np_close(mesh_whole(cpu, 0, update), whole, f"{what}: CPU world vs card world")
             r0 = next(r for r in recs if r["coords"] == (0, 0))
             rows.append(dict(mesh=f"{d}x{s}", update=update, ministeps=n,
                              examples_per_s=r0["examples"] / r0["wall_s0"],
@@ -4980,7 +5022,8 @@ def mesh_plane(seed: int, smi: str) -> dict:
                   f"calls), {x['collective_share']:.3f} of the instrumented run; launches "
                   f"{x['launches']}; run to run bit-identical; "
                   + ("bit-equal to the one-card state" if x["bit_equal_to_one_card"] else
-                     "within TRAJ_TOL of the one-card state") + "; CPU world within TRAJ_TOL",
+                     "within TRAJ_TOL of the one-card state")
+                  + ("; CPU world within TRAJ_TOL" if (d, s) == MESH_CPU_SHAPE else ""),
                   flush=True)
     del card, cpu
     with tempfile.TemporaryDirectory(prefix="mesh_smoke_") as tmp:
@@ -5247,9 +5290,10 @@ def elastic_plane(seed: int, smi: str) -> dict:
     env = dict(os.environ, PS_REBALANCE_OUT=out_json)
     env["PYTHONPATH"] = os.pathsep.join(p for p in [ROOT, env.get("PYTHONPATH", "")] if p)
     t0 = time.perf_counter()
+    # at its smoke size (160 batches of 280): cut with phase 9d added
     proc = subprocess.run([sys.executable, "-m", "parameter_server_tpu_torch.benchmarks",
-                           "rebalance"], cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=DRILL_S)
+                           "rebalance", "--smoke"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=DRILL_S)
     drill_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"9c (c) rebalance drill exit {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
@@ -5293,7 +5337,261 @@ def elastic_plane(seed: int, smi: str) -> dict:
                 launches=launches, seconds=time.perf_counter() - t_phase)
 
 
+# -- phase 9d: the ELL rows and the A10 stores over a mesh sharing the card --
+
+MESH9D_BATCHES = 4  # headline minibatches a case: one launch of 4 on the stream wire
+MESH9D_CASES = [(2, 2, "bits", 1, 0), (2, 2, "stream", MESH9D_BATCHES, 0), (2, 2, "bits", 1, 1)]
+MESH9D_A10_STEPS = 4
+BIGTABLE_MESH_ROWS = 16 * 16384  # one Criteo file: 16 minibatches of the conf's 16384 rows
+MESH9D_KERNELS = ("ftrl_dense", "quantize", "segment_sum")
+ELL_KINDS = ("ELLBatch", "ELLPackedBatch", "ELLBitsBatch", "ELLBitsSuperBatch")
+
+
+def progress_line(out: str) -> list:
+    """The last progress row a linear CLI printed, split."""
+    rows = [ln.split() for ln in out.splitlines() if ln.strip()[:1].isdigit()]
+    check(rows, f"no progress row in {out[-400:]!r}")
+    return rows[-1]
+
+
+def bigtable_mesh(tmp: str, seed: int) -> dict:
+    """Phase 9d (a): the bigtable conf through the CLI at 1x2 against the
+    one-card CLI on the same file with the sparse flip raised (the dense
+    update, as the mesh's 2^29 shards take it)."""
+    from parameter_server_tpu_torch.parallel import launch
+
+    data = os.path.join(tmp, "criteo_mesh")
+    write_criteo_shards(data, 1, BIGTABLE_MESH_ROWS, seed)
+    with open(BIGTABLE_CONF) as f:
+        conf_text = f.read()
+    runs = {}
+    for name in ("one", "mesh"):
+        model = os.path.join(tmp, f"big_{name}")
+        path = os.path.join(tmp, f"big_{name}.conf")
+        with open(path, "w") as f:
+            f.write(ctr_conf(os.path.join(data, "part-*"), model, conf_text=conf_text))
+        t0 = time.perf_counter()
+        if name == "one":
+            # in this process, the sparse flip raised: the dense update, as the shards take it
+            Postoffice.reset()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # what earlier phases still hold
+            ranks = [mesh_bench.cli_rank_dense([path, "--device", "cuda"])]
+            ranks[0]["peak_bytes"] -= held
+            Postoffice.reset()
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            ranks = launch.run_world(mesh_bench.cli_rank, 2,
+                                     args=([path, "--num-servers", "2"], False, False, True),
+                                     device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+        wall = time.perf_counter() - t0
+        check(all(r["rc"] == 0 for r in ranks), f"bigtable {name}: exit codes {ranks}")
+        files = sorted(glob.glob(model + "_S*"))
+        runs[name] = dict(ranks=ranks, world_s=wall, files=[os.path.basename(f) for f in files],
+                          models=[model_file(f) for f in files])
+    one, mesh = runs["one"], runs["mesh"]
+    n = BIGTABLE_MESH_ROWS // 16384
+    for r in one["ranks"] + mesh["ranks"]:
+        check(r["update"] == "dense" and set(r["kinds"]) <= set(ELL_KINDS),
+              f"bigtable rank {r['coords']}: {r['update']} over {r['kinds']}")
+        check(r["launches"]["ftrl_dense"] == n and r["launches"]["segment_sum"] == 2 * n
+              and r["launches"]["quantize"] == 0 and r["launches"]["ftrl_sparse"] == 0,
+              f"bigtable rank {r['coords']}: launches {r['launches']}, want {n} ftrl_dense, "
+              f"{2 * n} segment_sum")
+    check(sorted(r["coords"] for r in mesh["ranks"]) == [(0, 0), (0, 1)],
+          f"bigtable mesh coordinates {[r['coords'] for r in mesh['ranks']]}")
+    want, got = progress_line(one["ranks"][0]["out"]), progress_line(mesh["ranks"][0]["out"])
+    check(got[1] == want[1], f"bigtable examples {got[1]} vs one card {want[1]}")
+    gaps = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got[2:], want[2:])]
+    check(max(gaps) <= 1e-3, f"bigtable mesh {got} vs one card {want}")
+    check(mesh["files"] == ["big_mesh_S0", "big_mesh_S1"], f"bigtable files {mesh['files']}")
+    whole = one["models"][0]
+    with open(os.path.join(tmp, "big_one_S0")) as f:
+        half = int(f.readline().split()[1]) // 2  # the header's configured slots
+    shards = []
+    for s, mine in enumerate(mesh["models"]):  # global slots, shard s's range
+        theirs = {k: v for k, v in whole.items() if s * half <= k < (s + 1) * half}
+        keys = set(mine) | set(theirs)
+        same = sum(mine.get(k) == theirs.get(k) for k in keys)
+        shards.append(dict(slots=len(keys), weights_equal=same / max(1, len(keys)),
+                           nonzeros=len(mine), one_card_nonzeros=len(theirs)))
+    r0 = next(r for r in mesh["ranks"] if r["coords"] == (0, 0))
+    ex = r0["examples"]
+    check(ex == one["ranks"][0]["examples"] == BIGTABLE_MESH_ROWS,
+          f"bigtable examples {ex} vs one card {one['ranks'][0]['examples']}")
+    return dict(ministeps=n, examples=ex, progress=got, one_card_progress=want, gaps=gaps,
+                examples_per_s=ex / r0["wall_s"], one_card_examples_per_s=ex / one["ranks"][0][
+                    "wall_s"], cli_wall_s=r0["wall_s"], world_s=mesh["world_s"],
+                peak_gib=[r["peak_bytes"] / 2**30 for r in mesh["ranks"]],
+                one_card_peak_gib=one["ranks"][0]["peak_bytes"] / 2**30, kinds=r0["kinds"],
+                shards=shards,
+                launches={k: sum(r["launches"][k] for r in mesh["ranks"]) for k in MESH9D_KERNELS})
+
+
+def ell_a10_mesh_plane(seed: int, smi: str, nn_one_card: dict) -> dict:
+    """Phase 9d, (a)-(e), printed as they finish; ``nn_one_card``: phase
+    8c's one-card NN CLI rows of each model."""
+    from parameter_server_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh9d_") as tmp:
+        big = bigtable_mesh(tmp, seed)
+    print(f"# 9d (a) bigtable conf via CLI at 1x2 (2 ranks sharing one card over gloo, {smi}): "
+          f"2^30 slots, bf16 √n, {big['ministeps']} ministeps of 16384 x 39 over {big['kinds']} "
+          f"on the dense route; {big['examples_per_s']:.0f} ex/s over the rank's CLI wall "
+          f"{big['cli_wall_s']:.1f} s (one card, dense, same file: "
+          f"{big['one_card_examples_per_s']:.0f} ex/s); peak {[round(g, 2) for g in big['peak_gib']]} "
+          f"GiB a rank (one card {big['one_card_peak_gib']:.2f}); progress {big['progress'][1:]} vs "
+          f"one card {big['one_card_progress'][1:]}, within {max(big['gaps']):.3g} relative; "
+          f"model shards' weights equal to the one card's "
+          f"{[round(x['weights_equal'], 4) for x in big['shards']]} of their slots; launches "
+          f"{big['launches']}", flush=True)
+    args = (MESH9D_CASES, seed, MESH9D_BATCHES)
+    t0 = time.perf_counter()
+    card = launch.run_world(mesh_bench.ell_and_a10_meshes, 4, args=(*args, MESH9D_A10_STEPS),
+                            device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = launch.run_world(mesh_bench.ell_and_a10_meshes, 4, args=(*args, 0),
+                           device_type="cpu", timeout=MESH_WORLD_S, threads=2)
+    cpu_s = time.perf_counter() - t0
+    rows = []
+    for i, (d, s, wire, steps, push) in enumerate(MESH9D_CASES):
+        what = f"9d (b) {d}x{s} {wire} T{steps}" + (" push 1 B" if push else "")
+        mine = [r["cases"][i] for r in card]
+        theirs = {r["cases"][i]["coords"]: r["cases"][i] for r in cpu}
+        n = MESH9D_BATCHES
+        for r in mine:
+            h = theirs[r["coords"]]
+            check(r["kind"] == h["kind"] and r["kind"].startswith(
+                {"bits": "ELLBits", "stream": "EncodedEllStream"}[wire]),
+                f"{what} rank {r['coords']}: wire {r['kind']} (CPU {h['kind']})")
+            want = dict(ftrl_sparse=0, ftrl_dense=n, quantize=n if push else 0,
+                        segment_sum=2 * n)
+            check(r["launches"] == want, f"{what} rank {r['coords']}: launches {r['launches']}, "
+                  f"want {want}")
+            gap = max(abs(a - b) / abs(b) for a, b in zip(r["objective"], h["objective"]))
+            outside = float(np.mean(~np.isclose(r["state"]["z"], h["state"]["z"], **TRAJ_TOL)))
+            if push:
+                check(gap <= 1e-3 and outside <= 0.01, f"{what} rank {r['coords']}: objectives "
+                      f"{gap:.3g} apart, {outside:.3g} of z outside TRAJ_TOL vs the CPU world")
+            else:
+                check(gap <= 1e-5, f"{what}: objectives {r['objective']} vs {h['objective']}")
+                for k in r["state"]:  # the FTRL last bit, fed back over the ministeps
+                    a, b = r["state"][k], h["state"][k]
+                    tol = TRAJ_TOL["rtol"] * float(np.abs(b).max()) + TRAJ_TOL["atol"]
+                    check(float(np.abs(a - b).max()) <= tol, f"{what} rank {r['coords']}: {k} "
+                          f"{float(np.abs(a - b).max())} apart from the CPU world's (tolerance "
+                          f"{tol})")
+            r["objective_gap"], r["outside_traj_tol"] = gap, outside
+        r0 = next(r for r in mine if r["coords"] == (0, 0))
+        pulls = [t for axis, _, t in r0["psums"] if axis == "server"]
+        pushes = [(f, t) for axis, f, t in r0["psums"] if axis == "data"]
+        rows.append(dict(case=what, kind=r0["kind"], ministeps=n,
+                         examples_per_s=r0["examples"] / r0["wall_s"],
+                         objective_gap=max(r["objective_gap"] for r in mine),
+                         outside_traj_tol=max(r["outside_traj_tol"] for r in mine),
+                         pull_psum_ms=1e3 * float(np.median(pulls)) if pulls else None,
+                         push_psum_ms=1e3 * float(np.median([t for _, t in pushes]))
+                         if pushes else None,
+                         push_psum_floats=max((f for f, _ in pushes), default=0),
+                         launches={k: sum(r["launches"][k] for r in mine)
+                                   for k in MESH9D_KERNELS}))
+        x = rows[-1]
+        print(f"# {what} (ranks sharing one card over gloo, {smi}): {x['kind']}, {n} ministeps "
+              f"of {MB} rows, {x['examples_per_s']:.0f} ex/s (rank (0, 0)'s host clock); "
+              f"data-axis push psum of {x['push_psum_floats']} floats {x['push_psum_ms']} ms, "
+              f"server-axis pull psum {x['pull_psum_ms']} ms (medians, each call synchronized); "
+              f"CPU world: objectives within {x['objective_gap']:.3g}, "
+              f"{x['outside_traj_tol']:.3g} of z outside TRAJ_TOL; launches {x['launches']}",
+              flush=True)
+    a10 = [r for r in card if "a10" in r]
+    check(sorted(r["coords"] for r in a10) == [(0, 0), (0, 1)], "9d: the 1x2 ranks answered")
+    first = {r["coords"][1]: r["first_part"] for r in a10}
+    print(f"# 9d the bits wire with bf16 √n at 1x2 first parts from the one-card run at: "
+          f"shard 0 {first[0]}, shard 1 {first[1]} (the dense dither hashes the shard-local "
+          "position, as the JAX mesh's does)", flush=True)
+    a10_rows = {}
+    for name in ("fm", "deep_ctr", "kv_map_AddEntry", "kv_map_AssignEntry"):
+        recs = [r["a10"][name] for r in a10]
+        check(all(x["bit_equal"] for x in recs), f"9d {name} at 1x2: not bit-equal to one card")
+        want = MESH9D_A10_STEPS * 2 if name in ("fm", "deep_ctr") else 2
+        check(all(x["launches"] == want for x in recs),
+              f"9d {name} at 1x2: segment_sum launches {[x['launches'] for x in recs]}, want {want}")
+        a10_rows[name] = dict(launches=sum(x["launches"] for x in recs),
+                              **{k: v for k, v in recs[0].items() if k != "launches"})
+    print(f"# 9d (c)/(d) at 1x2 ({smi}): FM, wide&deep ({MESH9D_A10_STEPS} ministeps of {MB} x "
+          f"{NNZ}, 2^22 slots, k 8) and KVMap (2^22 x 8, AddEntry and AssignEntry) bit-equal to "
+          f"the one-card runs on every rank; FM objective {a10_rows['fm']['objective']}, "
+          f"wide&deep {a10_rows['deep_ctr']['objective']}; segment_sum launches "
+          + ", ".join(f"{k} {v['launches']}" for k, v in a10_rows.items()), flush=True)
+    argvs = [["--model", m, "--steps", str(NN_AGREE_STEPS), "--report-every", "1",
+              "--num-servers", "2"] for m in ("mlp", "convnet")]
+    nn = launch.run_world(mesh_bench.nn_cli_and_psum, 2, args=(argvs, 16384 * NNZ, 20),
+                          device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    nn_rows = {}
+    for (model, argv), run in zip((("mlp", argvs[0]), ("convnet", argvs[1])), nn[0]["runs"]):
+        check(all(r["runs"][argvs.index(argv)]["rc"] == 0 for r in nn), f"9d NN CLI {model}")
+        lines = run["out"].splitlines()
+        got = [(int(a), float(b), float(c)) for a, b, c in (ln.split() for ln in lines[1:])]
+        ref = nn_one_card[model]
+        gaps = [abs(a[1] - b[1]) / (NN_LOSS_RTOL * abs(b[1]) + NN_PRINT_ATOL)
+                for a, b in zip(got, ref)]
+        check(len(got) == len(ref) == NN_AGREE_STEPS and max(gaps) <= 1.0,
+              f"9d NN CLI {model} at 1x2 {got} vs one card {ref}")
+        nn_rows[model] = dict(rows=got, one_card=ref, share_of_tolerance=max(gaps))
+    psum = nn[0]["psum"]
+    print(f"# 9d (e) NN CLI --num-servers 2 ({smi}): mlp losses {[x[1] for x in nn_rows['mlp']['rows']]}"
+          f" ({nn_rows['mlp']['share_of_tolerance']:.3g} of the tolerance vs one card), convnet "
+          f"{[x[1] for x in nn_rows['convnet']['rows']]} ({nn_rows['convnet']['share_of_tolerance']:.3g}); "
+          f"network_psum_ms (2 ranks sharing one card over {psum['backend']}, {psum['bytes']} B, "
+          f"{smi}): {psum['ms']:.4f} ms", flush=True)
+    launches = {k: big["launches"][k] + sum(x["launches"][k] for x in rows) for k in MESH9D_KERNELS}
+    launches["segment_sum"] += sum(x["launches"] for x in a10_rows.values())
+    for k in MESH9D_KERNELS:
+        check(launches[k] > 0, f"phase 9d launched no {k}")
+    for r in card + cpu:
+        for c in r["cases"]:
+            if c is not None:
+                c.pop("state")
+    return dict(bigtable=big, ell=rows, first_part=first, a10=a10_rows, nn_cli=nn_rows,
+                psum=psum, card_world_s=card_s, cpu_world_s=cpu_s, launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
+#: each phase function's wall seconds in this run (``timed_phases``)
+PHASE_SECONDS: dict = {}
+
+
+def timed_phases(names) -> None:
+    """Wrap each named module-level phase function so that its wall time
+    is printed and recorded in :data:`PHASE_SECONDS` as it returns."""
+    def wrap(fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) + (
+                time.perf_counter() - t0)
+            print(f"# phase function {fn.__name__} took {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            return out
+        return run
+
+    for name in names:
+        globals()[name] = wrap(globals()[name])
+
+
 def main() -> int:
+    timed_phases(("headline", "pipelined_headline", "side_path", "kkt_path", "encoded_path",
+                  "bits_paths", "ctr_path", "ctr_agree_and_pull", "criteo_path", "tau_path",
+                  "stream_path", "eval_path", "bigtable_path", "darlin_path", "lm_serving",
+                  "flash_bwd_times", "train_step_full", "train_agreement", "lm_cli",
+                  "lm_family", "serving_plane", "telemetry_plane", "a10_plane", "a13_plane",
+                  "system_plane", "checkpoint_plane", "component_plane", "mesh_plane",
+                  "elastic_plane", "ell_a10_mesh_plane"))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed-launches", type=int, default=4)
@@ -5731,6 +6029,10 @@ def main() -> int:
     elastic = elastic_plane(args.seed, smi)
     print(f"# phase 9c (resizes and repartitioning) took {elastic['seconds']:.1f} s; launches "
           f"{elastic['launches']}", flush=True)
+    mesh9d = ell_a10_mesh_plane(args.seed, smi, {m: r["card"] for m, r in a10["nn_cli"].items()})
+    print(f"# phase 9d (the ELL rows and the A10 stores on a mesh) took {mesh9d['seconds']:.1f} s:"
+          f" the card world {mesh9d['card_world_s']:.1f} s, the CPU world "
+          f"{mesh9d['cpu_world_s']:.1f} s; launches {mesh9d['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -5779,6 +6081,7 @@ def main() -> int:
              library_ms=None),
         dict(name="ftrl_dense_kernel", route="cuda",
              mesh_launches=mesh["launches"]["ftrl_dense"],
+             ell_a10_mesh_launches=mesh9d["launches"]["ftrl_dense"],
              elastic_launches=elastic["launches"]["ftrl_dense"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_dense.cu",
              replaces="parameter_server_tpu/ops/ftrl.py:265",
@@ -5796,6 +6099,7 @@ def main() -> int:
              library_ms=None),
         dict(name="quantize_kernel", route="cuda",
              mesh_launches=mesh["launches"]["quantize"],
+             ell_a10_mesh_launches=mesh9d["launches"]["quantize"],
              elastic_launches=elastic["launches"]["quantize"],
              source="parameter_server_tpu_torch/kernels/csrc/quantize.cu",
              replaces="parameter_server_tpu/ops/quantize.py:68",
@@ -5809,6 +6113,7 @@ def main() -> int:
              library_ms=None),
         dict(name="segment_sum", route="cuda", case=main_seg["case"],
              mesh_launches=mesh["launches"]["segment_sum"],
+             ell_a10_mesh_launches=mesh9d["launches"]["segment_sum"],
              elastic_launches=elastic["launches"]["segment_sum"],
              source="parameter_server_tpu_torch/kernels/csrc/segment_sum.cu",
              replaces="parameter_server_tpu/apps/linear/async_sgd.py:1556",
@@ -5900,7 +6205,8 @@ def main() -> int:
                   lm_train=train,
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
-                  component_suite=comp, mesh=mesh, elastic=elastic,
+                  component_suite=comp, mesh=mesh, elastic=elastic, ell_a10_mesh=mesh9d,
+                  phase_seconds=PHASE_SECONDS,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

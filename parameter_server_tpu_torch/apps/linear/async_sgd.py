@@ -24,9 +24,14 @@ the JAX step folds them (objective and counts over data; the pushed
 gradient's norm over server then data; the update's over server and the
 weights' over data on the dense route), the scalars of each axis packed
 into one tensor and one collective a launch, the per-example aux
-all-gathered over data. Over a mesh the exact raw wire (sparse update)
-and the hashed wire (dense update) run, and so does the neighbour
-replica; the KKT filter, the encoded and ELL wires and adaptive τ raise
+all-gathered over data. Over a mesh the exact raw wire (sparse update),
+the hashed wire and the ELL wires (i32, u24, bits and stream, one launch
+or a ``steps_per_launch`` scan; dense update) run, and so does the
+neighbour replica: every rank preps the global minibatch's data rows
+on the ELL wires as on the others and keeps its own, and the stream
+wire's lane split, derived from the first batch of the common stream,
+is checked to agree over the data axis on the first step. The KKT
+filter, the encoded exact wire and adaptive τ raise
 ``NotImplementedError`` naming ROADMAP A9 slice 2.
 
 The dense update carries the filtered wire of the reference's confs:
@@ -107,7 +112,7 @@ import numpy as np
 import torch
 
 from ...device import resolve
-from ...convert import state_from_jax, state_to_numpy
+from ...convert import shard_state, state_from_jax, state_to_numpy
 from ...learner import wire
 from ...learner.consistency import ConsistencyRuntime
 from ...learner.ingest import IngestPipeline
@@ -561,6 +566,17 @@ def prep_batch_ell_stream(batch: SparseBatch, directory, num_shards: int, rows_p
         tel["encode_seconds"].observe(time.perf_counter() - t0)
         tel["bytes"].labels(encoding="stream").inc(enc_b)
         tel["saved_bytes"].labels(reason="encoding").inc(max(0, bits_b - enc_b))
+    return out
+
+
+def _fit_rows(leaf: np.ndarray, rows: int) -> np.ndarray:
+    """A state leaf cut or zero-extended to ``rows`` rows (scalars whole):
+    a table saved at another padding."""
+    if leaf.ndim == 0 or leaf.shape[0] == rows:
+        return leaf
+    out = np.zeros((rows,) + leaf.shape[1:], leaf.dtype)
+    m = min(rows, leaf.shape[0])
+    out[:m] = leaf[:m]
     return out
 
 
@@ -1084,11 +1100,13 @@ def _lane_rows(rows: int, lanes: int, device) -> torch.Tensor:
 
 
 def make_train_step_ell(updater, loss, num_slots: int, binary: bool, with_aux: bool = True,
-                        packed: bool = False, **wire_kw):
+                        packed: bool = False, mesh=None, **wire_kw):
     """The step over an ELLBatch (``packed``: an ELLPackedBatch, its
     3-byte ids and uint8 mask decoded on the device): Xw by row over the
-    lanes, the entries' gradients into the shard."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
+    lanes, the entries' gradients into the shard (``mesh``: as
+    :func:`make_train_step`; every ELL step the same)."""
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
 
     def decode(b, i):
         slots = wc.decode_u24(b.slots_u24[i]) if packed else b.slots[i]
@@ -1099,7 +1117,7 @@ def make_train_step_ell(updater, loss, num_slots: int, binary: bool, with_aux: b
         valid = valid_slots(flat, num_slots) if binary else vals != 0
         return b.y[i], mask, _lane_rows(r, k, flat.device), flat, vals, valid
 
-    return _one_step(mini_step, decode)
+    return _one_step(mini_step, decode, mesh)
 
 
 def _uniform_ell(y, mask, slots):
@@ -1124,18 +1142,20 @@ def _bits_decode(num_slots: int, lanes: int):
 
 
 def make_train_step_ell_bits(updater, loss, num_slots: int, lanes: int,
-                             with_aux: bool = True, **wire_kw):
+                             with_aux: bool = True, mesh=None, **wire_kw):
     """The step over an ELLBitsBatch: slot ids, labels and the mask
     decoded on the device from the packed wire."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
-    return _one_step(mini_step, _bits_decode(num_slots, lanes))
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
+    return _one_step(mini_step, _bits_decode(num_slots, lanes), mesh)
 
 
 def make_train_step_ell_bits_scan(updater, loss, num_slots: int, lanes: int,
-                                  with_aux: bool = True, **wire_kw):
+                                  with_aux: bool = True, mesh=None, **wire_kw):
     """T bits-wire ministeps a submission."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
-    return _scan_step(mini_step, _bits_decode(num_slots, lanes))
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
+    return _scan_step(mini_step, _bits_decode(num_slots, lanes), mesh)
 
 
 def _stream_decoder():
@@ -1152,18 +1172,21 @@ def _stream_decoder():
     return decode
 
 
-def make_train_step_ell_stream(updater, loss, num_slots: int, with_aux: bool = True, **wire_kw):
+def make_train_step_ell_stream(updater, loss, num_slots: int, with_aux: bool = True, mesh=None,
+                               **wire_kw):
     """The step over an EncodedEllStreamBatch: dictionary lanes decode
     as table gathers, raw lanes from their bitstream, on the device."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
-    return _one_step(mini_step, _stream_decoder())
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
+    return _one_step(mini_step, _stream_decoder(), mesh)
 
 
 def make_train_step_ell_stream_scan(updater, loss, num_slots: int, with_aux: bool = True,
-                                    **wire_kw):
+                                    mesh=None, **wire_kw):
     """T stream-wire ministeps a submission."""
-    mini_step = _make_entry_mini_step(updater, loss, num_slots, num_slots, with_aux, **wire_kw)
-    return _scan_step(mini_step, _stream_decoder())
+    mini_step = _make_entry_mini_step(updater, loss, _shard(num_slots, mesh), num_slots,
+                                      with_aux, mesh=mesh, **wire_kw)
+    return _scan_step(mini_step, _stream_decoder(), mesh)
 
 
 _SUPERBATCHES = (PreppedSuperBatch, ELLBitsSuperBatch, wire.EncodedExactSuperBatch,
@@ -1631,13 +1654,12 @@ class AsyncSGDWorker(ISGDCompNode):
         unported = [name for name, on in (
             ("the KKT filter (kkt_filter)", sgd.kkt_filter),
             ("the encoded exact wire (wire_encode)", bool(sgd.wire_encode)),
-            ("the ELL wires (ell_lanes: i32, u24, bits, stream)", sgd.ell_lanes > 0),
             ("adaptive τ (tau_adaptive)", sgd.tau_adaptive),
         ) if on]
         if unported:
             raise NotImplementedError(
                 f"{', '.join(unported)} over a mesh of several ranks: ROADMAP A9 slice 2 "
-                "(the raw exact wire and the hashed wire run on a mesh)")
+                "(the raw exact wire, the hashed wire and the ELL wires run on a mesh)")
 
     def set_effective_tau(self, tau: int) -> int:
         """Move the live bounded delay τ between submissions (adaptive
@@ -1796,16 +1818,17 @@ class AsyncSGDWorker(ISGDCompNode):
         if lanes > 0 and batch.n and int(np.diff(batch.indptr).max()) <= lanes:
             kind = self.sgd.wire or ("u24" if self.sgd.wire_u24 else "i32")
             out = None
+            d = self.num_data  # every data row's shard; prep keeps this rank's
             if kind == "stream":
-                out = prep_batch_ell_stream(batch, self.directory, 1, rows_pad, lanes,
+                out = prep_batch_ell_stream(batch, self.directory, d, rows_pad, lanes,
                                             self.num_slots, self._get_stream_statics(batch))
                 kind = "bits" if out is None else kind
             if out is None and kind == "bits":
-                out = prep_batch_ell_bits(batch, self.directory, 1, rows_pad, lanes,
+                out = prep_batch_ell_bits(batch, self.directory, d, rows_pad, lanes,
                                           self.num_slots)
                 kind = "u24" if out is None else kind
             if out is None:
-                out = prep_batch_ell(batch, self.directory, 1, rows_pad, lanes, self.num_slots,
+                out = prep_batch_ell(batch, self.directory, d, rows_pad, lanes, self.num_slots,
                                      pack=kind == "u24" and self.num_slots < (1 << 24))
             return out
         return prep_batch_hashed(batch, self.directory, self.num_data, rows_pad, nnz_pad,
@@ -1866,10 +1889,10 @@ class AsyncSGDWorker(ISGDCompNode):
         lanes = self.sgd.ell_lanes
         if isinstance(prepped, wire.EncodedEllStreamSuperBatch):
             key, build = ("ell_stream_scan", with_aux), lambda: make_train_step_ell_stream_scan(
-                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
+                self.updater, self.loss, self.num_slots, with_aux, mesh=self.mesh, **self._wire)
         elif isinstance(prepped, wire.EncodedEllStreamBatch):
             key, build = ("ell_stream", with_aux), lambda: make_train_step_ell_stream(
-                self.updater, self.loss, self.num_slots, with_aux, **self._wire)
+                self.updater, self.loss, self.num_slots, with_aux, mesh=self.mesh, **self._wire)
         elif isinstance(prepped, wire.EncodedExactSuperBatch):
             key, build = ("exact_enc_scan", with_aux), lambda: make_train_step_encoded_scan(
                 self.updater, self.loss, self.num_slots, with_aux, **exact)
@@ -1881,15 +1904,17 @@ class AsyncSGDWorker(ISGDCompNode):
                 self.updater, self.loss, self.num_slots, with_aux, **exact)
         elif isinstance(prepped, ELLBitsSuperBatch):
             key, build = ("ell_bits_scan", with_aux), lambda: make_train_step_ell_bits_scan(
-                self.updater, self.loss, self.num_slots, lanes, with_aux, **self._wire)
+                self.updater, self.loss, self.num_slots, lanes, with_aux, mesh=self.mesh,
+                **self._wire)
         elif isinstance(prepped, ELLBitsBatch):
             key, build = ("ell_bits", with_aux), lambda: make_train_step_ell_bits(
-                self.updater, self.loss, self.num_slots, lanes, with_aux, **self._wire)
+                self.updater, self.loss, self.num_slots, lanes, with_aux, mesh=self.mesh,
+                **self._wire)
         elif isinstance(prepped, (ELLBatch, ELLPackedBatch)):
             packed, binary = isinstance(prepped, ELLPackedBatch), prepped.vals is None
             key, build = ("ell", packed, binary, with_aux), lambda: make_train_step_ell(
                 self.updater, self.loss, self.num_slots, binary, with_aux, packed=packed,
-                **self._wire)
+                mesh=self.mesh, **self._wire)
         elif isinstance(prepped, HashedBatch):
             key, build = ("hashed", with_aux), lambda: make_train_step_hashed(
                 self.updater, self.loss, self.num_slots, with_aux, mesh=self.mesh, **self._wire)
@@ -1950,6 +1975,11 @@ class AsyncSGDWorker(ISGDCompNode):
                 # update (collectives: here, on the dispatch thread, in step
                 # order)
                 shared = prepped.uslots if self._update_mode == "sparse" else None
+                if isinstance(prepped, wire.EncodedEllStreamBatch):
+                    # the stream wire's lanes: one split on every rank
+                    shared = np.asarray([prepped.rows, prepped.lanes, prepped.code_bits,
+                                         prepped.dict_pad, prepped.raw_bits,
+                                         *prepped.dict_lanes], np.int64)
                 pdist.assert_row_agrees(self.mesh, prepped, shared=shared)
                 self._row_checked = True
             if do_snapshot:
@@ -2314,8 +2344,34 @@ class AsyncSGDWorker(ISGDCompNode):
         self._drain()
         self._install(state_from_jax(snap["state"], self.device), snap["seed_counter"])
 
-    # checkpoint / checkpoint_async: inherited from Checkpointable
-    # (state_host drains and carries the seed counter)
+    # checkpoint_async: inherited from Checkpointable on one card (state_host
+    # drains and carries the seed counter)
+
+    def checkpoint(self, manager, step: int) -> str:
+        """Save step ``step``: :meth:`state_host` on one card; on a mesh
+        the whole state, as the JAX mesh worker checkpoints it (gathered
+        over the server axis, written by rank 0, every rank returning once
+        the file is whole), so that a mesh of another shape or the JAX
+        package restores it. Every rank of a mesh calls it."""
+        if self.mesh is None:
+            return super().checkpoint(manager, step)
+        self._drain()
+        whole = {k: meshlib.all_gather(v, SERVER_AXIS, self.mesh) if v.dim() >= 1 else v
+                 for k, v in self.state.items()}
+        path = manager._step_dir(step)
+        if self.mesh.rank == 0:
+            manager.save(step, {"state": state_to_numpy(whole),
+                                "seed_counter": np.int64(self._seed_counter)})
+        done = torch.ones((), device=self.device)
+        psum(psum(done, SERVER_AXIS, self.mesh), DATA_AXIS, self.mesh)
+        return path
+
+    def checkpoint_async(self, manager, step: int) -> str:
+        """As :meth:`checkpoint`, on a thread on one card; on a mesh, where
+        the save is a collective of every rank, synchronously."""
+        if self.mesh is None:
+            return super().checkpoint_async(manager, step)
+        return self.checkpoint(manager, step)
 
     def restore(self, manager, step: Optional[int] = None) -> int:
         """Restore the state and the seed counter from the latest (or
@@ -2324,14 +2380,25 @@ class AsyncSGDWorker(ISGDCompNode):
         package's npz format) and return its step. The leaves are fitted
         to this worker's padding and dtypes; training resumed from here
         replays bit for bit, its seed stream (the quantization noise)
-        included."""
+        included. On a mesh the checkpoint holds the whole state (taken
+        at any server count, or by the JAX package): every rank reads it
+        and installs its own shard."""
         if step is None:
             step = manager.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoint under {manager.directory}")
         self._drain()
-        tree = manager.restore(step, like={"state": self.state, "seed_counter": np.int64(0)})
-        self._install(tree["state"], tree["seed_counter"])
+        if self.mesh is None:
+            tree = manager.restore(step, like={"state": self.state,
+                                               "seed_counter": np.int64(0)})
+            self._install(tree["state"], tree["seed_counter"])
+            return step
+        like = {k: np.zeros((1,) * v.dim(), np.float32) for k, v in self.state.items()}
+        tree = manager.restore(step, like={"state": like, "seed_counter": np.int64(0)})
+        whole = {k: _fit_rows(np.asarray(v), self.num_slots) for k, v in tree["state"].items()}
+        shard = shard_state(whole, meshlib.num_servers(self.mesh), self.mesh.server_index,
+                            self.device)
+        self._install(shard, tree["seed_counter"])
         return step
 
     def _install(self, state: Dict[str, torch.Tensor], seed_counter) -> None:

@@ -1,4 +1,4 @@
-"""Wide & deep CTR model on one card.
+"""Wide & deep CTR model on one card, or over a (data, server) mesh.
 
 Counterpart of ``parameter_server_tpu/apps/linear/deep_ctr.py``: a wide
 linear term over hashed sparse features plus a deep ReLU MLP over the
@@ -18,6 +18,13 @@ on the wide table only) where ``touched = (g_w != 0) | (|g_v|.sum(1) !=
 them in XLA, outside any Pallas kernel), and its He init draws from
 ``np.random.default_rng(seed)`` as the JAX worker does, so both packages
 start from the same MLP bits.
+
+**Over a mesh** (``DeepCTRWorker(conf, mesh=...)``): the table as the FM
+worker's (``fm.py``: rank ``(d, s)`` holds server shard ``s`` and data
+row ``d`` of each batch; a pull sums the owned rows over the server
+axis), the MLP and the bias replicated on every rank, and the wide,
+deep, MLP and bias gradients summed over the data axis in one
+``psum``, as the JAX step's ``psum``s give them.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ import torch
 from ... import convert
 from ...ops.kv_ops import localize, scatter_sum, valid_slots
 from ...utils.sparse import SparseBatch
-from .async_sgd import _progress_metrics
+from .async_sgd import _PROGRESS, _fold_over_mesh, _mesh_or_none, _progress_metrics, _shard
 from .config import Config
-from .fm import ELLWorker, adagrad, fit_rows, pull_rows, update_table
+from .fm import ELLWorker, adagrad, fit_rows, pull_over_mesh, sum_over_data, update_table
 from .learning_rate import LearningRate
 
 
@@ -45,16 +52,20 @@ def _mlp_forward(h: torch.Tensor, mlp: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_deep_ctr_step(num_slots: int, k: int, lanes: int, loss, penalty, lr: LearningRate,
-                       with_aux: bool = True):
+                       with_aux: bool = True, mesh=None):
     """The wide&deep step over one ELL batch (binary): ``step(state, y,
-    mask, slots) -> (new_state, metrics)``."""
+    mask, slots) -> (new_state, metrics)`` (``mesh``: the module's
+    docstring)."""
+    mesh = _mesh_or_none(mesh)
+    shard = _shard(num_slots, mesh)
 
     def step(state, y, mask, slots):
         r = slots.shape[0]
-        rel, ok = localize(slots.reshape(-1), num_slots)
+        rel, ok = localize(slots.reshape(-1), shard, mesh)
         table = state["table"]
-        w_e = pull_rows(table["w"], rel, ok).reshape(r, lanes)
-        v_e = pull_rows(table["v"], rel, ok).reshape(r, lanes, k).requires_grad_()
+        w_e, v_e = pull_over_mesh(table, rel, ok, mesh)
+        w_e = w_e.reshape(r, lanes)
+        v_e = v_e.reshape(r, lanes, k).requires_grad_()
         live = valid_slots(slots, num_slots).to(torch.float32)
         mlp = [p.detach().requires_grad_() for p in state["mlp"]]
         with torch.enable_grad():
@@ -67,12 +78,13 @@ def make_deep_ctr_step(num_slots: int, k: int, lanes: int, loss, penalty, lr: Le
         xw = xw.detach()
 
         gw_flat = (gr[:, None].expand(r, lanes) * live).reshape(-1)
-        g_w = scatter_sum(num_slots, rel, torch.where(ok, gw_flat, 0.0)[:, None])[:, 0]
-        g_v = scatter_sum(num_slots, rel, torch.where(ok[:, None], g_ve.reshape(-1, k), 0.0))
+        g_w = scatter_sum(shard, rel, torch.where(ok, gw_flat, 0.0)[:, None])[:, 0]
+        g_v = scatter_sum(shard, rel, torch.where(ok[:, None], g_ve.reshape(-1, k), 0.0))
+        g_w, g_v, g_b, *g_mlp = sum_over_data(mesh, g_w, g_v, gr.sum(), *g_mlp)
         touched = (g_w != 0) | (g_v.abs().sum(1) != 0)
         mlp_new, mlp_ss = zip(*(adagrad(lr, p.detach(), s, g)
                                 for p, s, g in zip(mlp, state["mlp_ss"], g_mlp)))
-        b_new, b_ss = adagrad(lr, state["b"], state["b_ss"], gr.sum())
+        b_new, b_ss = adagrad(lr, state["b"], state["b_ss"], g_b)
         new_state = {
             "table": update_table(table, g_w, g_v, touched, lr, penalty),
             "mlp": list(mlp_new),
@@ -80,20 +92,23 @@ def make_deep_ctr_step(num_slots: int, k: int, lanes: int, loss, penalty, lr: Le
             "b": b_new,
             "b_ss": b_ss,
         }
-        return new_state, _progress_metrics(loss, y, xw, mask, with_aux)
+        metrics = _progress_metrics(loss, y, xw, mask, with_aux)
+        return new_state, _fold_over_mesh([metrics], _PROGRESS, mesh)[0]
 
     return step
 
 
 class DeepCTRWorker(ELLWorker):
-    """Async wide&deep trainer on one card, the FM worker's API
-    (``process_minibatch`` / ``collect`` / ``train`` / ``evaluate`` /
-    ``predict_margin`` / ``state_host`` / ``load_state_host``).
-    ``device=None`` is the card (raises without one)."""
+    """Async wide&deep trainer on one card, or over ``mesh`` (default: the
+    started postoffice's), the FM worker's API (``process_minibatch`` /
+    ``collect`` / ``train`` / ``evaluate`` / ``predict_margin`` /
+    ``state_host`` / ``load_state_host``). ``device=None`` is the card
+    (raises without one)."""
 
     def __init__(self, conf: Config, k: int = 8, hidden: Sequence[int] = (64, 32), device=None,
-                 v_init_std: float = 0.01, seed: int = 0, name: str = "deep_ctr_worker"):
-        super().__init__(conf, k, device, seed, v_init_std, name)
+                 v_init_std: float = 0.01, seed: int = 0, name: str = "deep_ctr_worker",
+                 mesh=None):
+        super().__init__(conf, k, device, seed, v_init_std, name, mesh=mesh)
         self.lanes = int(self.sgd.ell_lanes)
         self.hidden = tuple(int(h) for h in hidden)
         rng = np.random.default_rng(seed)
@@ -108,7 +123,7 @@ class DeepCTRWorker(ELLWorker):
                       "b": scalar, "b_ss": scalar.clone()}
         del self._table
         self._step = make_deep_ctr_step(self.num_slots, self.k, self.lanes, self.loss,
-                                        self.penalty, self.lr)
+                                        self.penalty, self.lr, mesh=self.mesh)
 
     def table(self):
         return self.state["table"]
@@ -120,7 +135,7 @@ class DeepCTRWorker(ELLWorker):
 
     def load_state_host(self, snap: dict) -> None:
         st = dict(snap["state"])
-        st["table"] = {name: fit_rows(leaf, self.num_slots) for name, leaf in st["table"].items()}
+        st["table"] = {name: fit_rows(leaf, self.shard_rows) for name, leaf in st["table"].items()}
         self.executor.wait_all(pop=False)
         self.state = convert.tree_from_numpy(st, self.device)
 

@@ -174,7 +174,9 @@ def _spawn(argv, world: int, device) -> int:
     backend = distributed.choose_backend(world, torch.device(device_type))
     print(f"starting {world} ranks on {device_type} over {backend}", flush=True)
     # no time limit on a training run; a rank that fails fails the world
-    codes = launch.run_world(_rank_main, world, args=(argv, None), timeout=None,
+    from . import main as cli  # by its import name: a rank cannot import a `-m` run's __main__
+
+    codes = launch.run_world(cli._rank_main, world, args=(argv, None), timeout=None,
                              device_type=device_type, threads=0, quiet=True)
     return max(int(c or 0) for c in codes)
 

@@ -19,6 +19,18 @@ formula too and the trainer's state has one structure from the start.
 On the card the convolutions run in float32 on cuDNN with TF32 off and
 its deterministic algorithms (the JAX package's float32 on the CPU is
 the reference).
+
+**Over a mesh** (``NNTrainer(..., mesh=...)``, or the started
+postoffice's mesh; ``parallel/mesh.py``): every rank builds the model
+from the same seed, takes its data row's slice of each batch
+(:meth:`shard_batch`), and the gradients are averaged over the data
+axis (one ``all_reduce`` of them all, then ``/ D``: the JAX step's
+``pmean``), so every rank applies the same update to the same
+replicated parameters; the loss and accuracy are averaged the same way.
+The KVLayer places each parameter by its rule over the server axis:
+its layers are views of the rank's block of each parameter, so a push
+to the store updates the model and a pull gathers the whole layer.
+Every rank of the mesh calls the same steps on the same global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 
 from ...device import resolve
 from ...models.convnet import cross_entropy
+from ...parallel import mesh as meshlib
 from ...parameter.kv_layer import KVLayer
 from ...parameter.replica import Checkpointable
 from ...system.message import Task
@@ -77,23 +90,33 @@ def _cudnn_f32():
 class NNTrainer(Checkpointable):
     """``model`` (a :class:`~...models.convnet.ConvNet` or ``MLP``, built
     here for ``input_shape`` from ``seed``) trained on ``device`` (the
-    started postoffice's, else the card; raises without one)."""
+    started postoffice's, else the card; raises without one), or over
+    ``mesh`` (default: the started postoffice's)."""
 
     def __init__(self, model, input_shape: Tuple[int, ...], optimizer: Optional[Callable] = None,
                  partition_thr: int = 100_000, loss_fn: Callable = cross_entropy, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         from ...system.postoffice import Postoffice
 
         po = Postoffice._instance
-        if device is None and po is not None and po.started:
+        if mesh is None and po is not None and po.started:
+            mesh = po.mesh
+        if mesh is not None and mesh.size == 1:
+            mesh = None  # one card: the pmean is the identity
+        #: the mesh the batch and the layers are placed over (None: one card)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and po is not None and po.started:
             device = po.device
         self.device = resolve(device)
         self.model = model.init(seed, tuple(input_shape), self.device)
         self.loss_fn = loss_fn
-        self.kv = KVLayer(partition_thr=partition_thr, name="nn_layers", device=self.device)
+        self.kv = KVLayer(partition_thr=partition_thr, name="nn_layers", device=self.device,
+                          mesh=mesh)
         self._params = dict(sorted(self.model.named_parameters()))
         for key, p in self._params.items():
-            self.kv.layers[key] = p.detach()
+            self.kv.place(key, p.detach())
         self.opt = (optimizer or default_optimizer)(list(self._params.values()))
         _zero_momentum(self.opt)
         self.steps_done = 0
@@ -104,10 +127,10 @@ class NNTrainer(Checkpointable):
         self.kv.executor.wait_all(pop=False)
         with torch.no_grad():
             for key, p in self._params.items():
-                layer = self.kv.layers[key]
-                if layer.data_ptr() != p.data_ptr():
-                    p.copy_(layer)
-                    self.kv.layers[key] = p.detach()
+                layer, mine = self.kv.layers[key], self.kv.block(key, p.detach())
+                if layer.data_ptr() != mine.data_ptr():
+                    mine.copy_(layer)
+                    self.kv.place(key, p.detach())
 
     def state_host(self) -> dict:
         """Host snapshot: ``params`` (name -> array), ``opt`` (name ->
@@ -129,9 +152,30 @@ class NNTrainer(Checkpointable):
         self.steps_done = int(snap["steps_done"])
 
     def shard_batch(self, x: np.ndarray, y: np.ndarray):
-        """The batch on the device (one data shard)."""
+        """This rank's data row of the batch on the device: the whole
+        batch on one card, else its ``n / D`` rows (``n`` must divide by
+        the data axis ``D``, as in the JAX trainer)."""
+        if self.mesh is not None:
+            d, n = meshlib.num_workers(self.mesh), len(y)
+            per = n // d
+            if per * d != n:
+                raise ValueError(f"batch {n} not divisible by {d} workers")
+            i = self.mesh.data_index
+            x, y = x[i * per:(i + 1) * per], y[i * per:(i + 1) * per]
         return (torch.as_tensor(np.asarray(x, np.float32)).to(self.device),
                 torch.as_tensor(np.asarray(y, np.int64)).to(self.device))
+
+    def _pmean(self, tensors) -> None:
+        """Average ``tensors`` in place over the data axis (one flat
+        ``all_reduce``, then ``/ D``); nothing on one data row."""
+        if self.mesh is None or meshlib.num_workers(self.mesh) == 1:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat = meshlib.psum(flat, meshlib.DATA_AXIS, self.mesh) / meshlib.num_workers(self.mesh)
+        lo = 0
+        for t in tensors:
+            t.copy_(flat[lo:lo + t.numel()].view_as(t))
+            lo += t.numel()
 
     def train_step(self, x: np.ndarray, y: np.ndarray) -> Dict[str, float]:
         xs, ys = self.shard_batch(x, y)
@@ -141,13 +185,19 @@ class NNTrainer(Checkpointable):
             loss = self.loss_fn(logits, ys)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+            params = list(self._params.values())
+            self._pmean([p.grad for p in params])
             self.opt.step()
         acc = torch.mean((torch.argmax(logits.detach(), -1) == ys).to(torch.float32))
+        metrics = torch.stack([loss.detach(), acc])
+        self._pmean([metrics])
         self.steps_done += 1
-        return {"loss": float(loss.detach()), "accuracy": float(acc)}
+        return {"loss": float(metrics[0]), "accuracy": float(metrics[1])}
 
     def evaluate(self, x: np.ndarray, y: np.ndarray) -> Dict[str, float]:
-        xs, ys = self.shard_batch(x, y)
+        """Loss and accuracy on the whole batch (every rank alike)."""
+        xs = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+        ys = torch.as_tensor(np.asarray(y, np.int64)).to(self.device)
         self._pack()
         with torch.no_grad(), _cudnn_f32():
             logits = self.model(xs)

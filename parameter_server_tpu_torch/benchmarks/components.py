@@ -2912,6 +2912,7 @@ def consistency_perf(smoke: bool = False, device=None) -> dict:
 
 REBALANCE_WORLD = 8  # 1x8: the max/mean imbalance can pass the shipped 4.0 at 8 shards, not at 4
 REBALANCE_WORLD_S = 900  # the drill's world's time limit: a rank that hangs fails the drill
+REBALANCE_TAIL = 2  # 1/REBALANCE_TAIL of the train stream runs after the rebalance
 
 
 def _rebalance_rank(smoke: bool) -> dict:
@@ -3060,8 +3061,18 @@ def _rebalance_rank(smoke: bool) -> dict:
                 return
             time.sleep(0.001)
 
+    # the train stream's last REBALANCE_TAIL of its batches wait until
+    # every rank of the row has the rebalance in its history: traffic
+    # flows after the move however the host paces the threads, and the
+    # re-measured imbalance has data to read
+    hold_at = n_batches - n_batches // REBALANCE_TAIL
+    held, release = threading.Event(), threading.Event()
+
     def trainer():
         for i, (ks, vs) in enumerate(batches):
+            if i == hold_at:
+                held.set()
+                release.wait()
             kv.push(kv.request(channel=0), keys=ks, values=vs)
             progress["acked"] += 1
             heat.note(kv.channel(0).directory.slots(ks))
@@ -3077,9 +3088,19 @@ def _rebalance_rank(smoke: bool) -> dict:
     serve_t.start()
     train_t.start()
     # the shipped rules evaluated on the LOGICAL clock (the batch index),
-    # so the for_s dwell is deterministic, not host-paced
+    # so the for_s dwell is deterministic, not host-paced. Once this
+    # rank's rebalance is done and its trainer held, the row agrees (a
+    # barrier over the side group, which the migration's own collectives
+    # on this thread have left) and the tail flows
     while train_t.is_alive():
+        was_held = held.is_set()
         mgr.evaluate(now=progress["t"])
+        if was_held and not release.is_set():
+            if ctl.history():
+                meshlib.agree_max(1, meshlib.SERVER_AXIS, kv.mesh.side)
+            # else the alert never fired by the hold: the tail goes on,
+            # and the checks below report it on every rank
+            release.set()
         time.sleep(0.004)
     train_t.join()
     timeline["train_end_s"] = time.perf_counter() - t_live
@@ -3088,18 +3109,27 @@ def _rebalance_rank(smoke: bool) -> dict:
     serve_t.join(timeout=REBALANCE_WORLD_S)
     kv.executor.wait_all(pop=False)
 
-    # -- 4. verify --
+    # -- 4. verify: every rank checks, then the row agrees before the
+    # next collective, so a failed check fails every rank alike --
     hist = ctl.history()
-    assert len(hist) == 1, f"expected exactly one alert-triggered rebalance, got {hist}"
-    rec = dict(hist[0])
-    assert kv.layout(0) is not None
-    assert rec["journaled_pushes"] > 0 and rec["replayed_pushes"] > 0, (
-        f"the move missed the live stream: nothing journaled or replayed ({rec})")
     post_imb = ctl.refresh_post_imbalance()
-    assert post_imb is not None and post_imb < ctl.threshold, (
-        f"post-rebalance imbalance {post_imb} still over {ctl.threshold} (timeline {timeline})")
-    assert serve_stats["failed"] == 0 and serve_stats["ok"] > 0, (
-        f"serve stream across the migration broke: {serve_stats}")
+    rec = dict(hist[0]) if hist else {}
+    failed = None
+    try:
+        assert len(hist) == 1, f"expected exactly one alert-triggered rebalance, got {hist}"
+        assert kv.layout(0) is not None
+        assert rec["journaled_pushes"] > 0 and rec["replayed_pushes"] > 0, (
+            f"the move missed the live stream: nothing journaled or replayed ({rec})")
+        assert post_imb is not None and post_imb < ctl.threshold, (
+            f"post-rebalance imbalance {post_imb} still over {ctl.threshold} "
+            f"(timeline {timeline})")
+        assert serve_stats["failed"] == 0 and serve_stats["ok"] > 0, (
+            f"serve stream across the migration broke: {serve_stats}")
+    except AssertionError as e:
+        failed = e
+    if meshlib.agree_max(int(failed is not None), meshlib.SERVER_AXIS, kv.mesh.side):
+        kv.executor.stop()
+        raise failed or AssertionError("another rank of the row failed the drill's checks")
     live_table = kv.get_replica()[0]
     bit_identical = live_table.tobytes() == ref_table.tobytes()
     assert bit_identical, "post-migration table diverged from the undisturbed run"

@@ -187,37 +187,72 @@ def recorded_pushes():
         async_sgd.qops = qops
 
 
-def cli_rank(argv: List[str], record: bool = False) -> dict:
+def cli_rank(argv: List[str], record: bool = False, state: bool = False,
+             detail: bool = False) -> dict:
     """The linear CLI inside the world: its exit code, what it printed
-    (rank 0 prints) and the kernel launches of this rank. With
-    ``record``, also this rank's coordinates, its pushes
-    (:func:`recorded_pushes`) and its worker's objective a submission."""
+    (rank 0 prints), the kernel launches of this rank and the CLI's wall
+    seconds on it. With ``record``, also this rank's coordinates, its
+    pushes (:func:`recorded_pushes`) and its worker's objective a
+    submission. With ``detail`` (or ``state``), also this rank's
+    coordinates, its worker's update route, the wires it submitted, the
+    examples it trained on, and its peak device memory (0 off the card);
+    with ``state``, also its server shard of the state at the end."""
     from ..apps.linear import main as linear_main
+    from ..convert import state_to_numpy
 
-    workers = []
+    workers, kinds = [], []
 
     class Kept(linear_main.AsyncSGDWorker):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             workers.append(self)
 
+        def _submit_prepped(self, prepped, with_aux=True):
+            kinds.append(type(prepped).__name__)
+            return super()._submit_prepped(prepped, with_aux)
+
     reset_launches()
     buf = io.StringIO()
     saved = linear_main.AsyncSGDWorker
     linear_main.AsyncSGDWorker = Kept
+    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf), \
                 (recorded_pushes() if record else contextlib.nullcontext([])) as pushes:
             rc = linear_main.main(argv)
     finally:
         linear_main.AsyncSGDWorker = saved
-    out = {"rc": rc, "out": buf.getvalue(), "launches": launches()}
+    out = {"rc": rc, "out": buf.getvalue(), "launches": launches(),
+           "wall_s": time.perf_counter() - t0}
+    if state or detail:
+        (worker,) = workers
+        dev = worker.device
+        out.update(coords=(0, 0) if worker.mesh is None else tuple(worker.mesh.coords),
+                   update=worker._update_mode, kinds=sorted(set(kinds)),
+                   submissions=len(kinds), examples=int(worker.progress.num_examples_processed),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    if state:
+        out["state"] = state_to_numpy(workers[0].state)
     if record:
         (worker,) = workers
         coords = (0, 0) if worker.mesh is None else tuple(worker.mesh.coords)
         out.update(coords=coords, pushes=pushes,
                    objective=list(worker.progress.objective))
     return out
+
+
+def cli_rank_dense(argv: List[str]) -> dict:
+    """:func:`cli_rank` (``detail``) with the ``update="auto"`` flip raised
+    past any table, so a one-card run of a 2^30 conf takes the dense
+    update that a mesh's shards below the flip take."""
+    from ..apps.linear import async_sgd
+
+    saved = async_sgd.sparse_update_min_slots
+    async_sgd.sparse_update_min_slots = lambda: 1 << 62
+    try:
+        return cli_rank(argv, detail=True)
+    finally:
+        async_sgd.sparse_update_min_slots = saved
 
 
 def psum_ms(nfloats: int, reps: int) -> dict:
@@ -432,3 +467,230 @@ def rebalance_at_size(seed: int, pushes: int, start_at: int, stall_s: float) -> 
     if mesh.rank == 0:
         out["table"] = got
     return out
+
+
+# -- the ELL wires and the A10 stores over a mesh (chip_smoke.py phase 9d) --
+
+
+def criteo_like_batch(seed: int, rows: int, lanes: int, small: int = 13,
+                      vocab: int = 40):
+    """A uniform binary batch of ``lanes`` keys a row and ±1 labels, its
+    first ``small`` lanes from vocabularies of ``vocab`` keys (the lanes
+    the stream wire's dictionary takes), the rest from 2^40; labels from
+    the small lanes' keys, so that the weights move."""
+    from ..utils.sparse import SparseBatch
+
+    rng = np.random.default_rng(seed)
+    few = rng.integers(0, vocab, (rows, small))
+    wide = rng.integers(0, 1 << 40, (rows, lanes - small))
+    keys = np.concatenate([few + (np.arange(small) << 50), wide], axis=1).astype(np.int64)
+    y = np.where(few.sum(1) % 3 == 0, 1.0, -1.0).astype(np.float32)
+    return SparseBatch(y=y, indptr=np.arange(0, rows * lanes + 1, lanes, dtype=np.int64),
+                       indices=keys.ravel())
+
+
+def _ell_batches(wire: str, seed: int, n: int) -> list:
+    from .headline import MB, NNZ, make_batch
+
+    if wire == "stream":
+        return [criteo_like_batch(seed + 500 + i, MB, NNZ) for i in range(n)]
+    return [make_batch(seed + i) for i in range(n)]
+
+
+def _ell_conf(wire: str, steps: int, push: int, dtype: str = "float32"):
+    from .headline import NNZ, conf
+
+    c = conf("dense", dtype, steps)
+    c.async_sgd.ell_lanes, c.async_sgd.wire = NNZ, wire
+    if push:
+        c.async_sgd.push_filter = [{"type": "fixing_float", "num_bytes": push}]
+    return c
+
+
+@contextlib.contextmanager
+def _timed_psums(device: torch.device, sink: list):
+    """Every ``psum`` of the linear step bracketed by synchronizations,
+    recorded into ``sink`` as ``(axis, floats, seconds)``."""
+    from ..apps.linear import async_sgd
+
+    saved = async_sgd.psum
+
+    def timed(x, axis, mesh):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = saved(x, axis, mesh)
+        _sync(device)
+        sink.append((axis, int(x.numel()), time.perf_counter() - t0))
+        return out
+
+    async_sgd.psum = timed
+    try:
+        yield
+    finally:
+        async_sgd.psum = saved
+
+
+def _objectives(worker, batches, steps: int) -> List[float]:
+    out = []
+    for lo in range(0, len(batches), steps):
+        group = batches[lo:lo + steps]
+        if len(group) > 1:
+            m = worker.submit_superbatch(group, with_aux=False)
+        else:
+            m = worker.wait(worker.process_minibatch(group[0], with_aux=False))
+        out.append(float(m["objective"].sum()))
+    return out
+
+
+def _first_part(seed: int, n: int, mesh) -> dict:
+    """Where the ``1 x 2`` bits wire with bf16 √n parts from the one-card
+    run on the same batches: this rank's shard compared with its rows of
+    the one-card state after every ministep; the first ministep and
+    leaf that differ (None where none does)."""
+    from ..apps.linear.async_sgd import AsyncSGDWorker
+    from ..convert import state_to_numpy
+
+    batches = _ell_batches("bits", seed, n)
+    runs = []
+    for m in (mesh, None):
+        w = AsyncSGDWorker(_ell_conf("bits", 1, 0, "bfloat16"), mesh=m, device=mesh.device)
+        snaps = []
+        for b in batches:
+            w.wait(w.process_minibatch(b, with_aux=False))
+            snaps.append(state_to_numpy(w.state))
+        w.remove()
+        runs.append(snaps)
+    rows = runs[0][0]["z"].shape[0]
+    lo = mesh.server_index * rows
+    for step, (mine, one) in enumerate(zip(*runs), 1):
+        for k in sorted(mine):
+            a, b = mine[k], one[k][lo:lo + rows]
+            if a.tobytes() != b.tobytes():
+                differ = int((a.view(np.uint16 if a.itemsize == 2 else np.uint32)
+                              != b.view(np.uint16 if b.itemsize == 2 else np.uint32)).sum())
+                return {"ministep": step, "leaf": k, "elements": differ}
+    return {"ministep": None, "leaf": None, "elements": 0}
+
+
+def _a10_one_by_two(seed: int, mesh, steps: int) -> dict:
+    """FM and wide&deep (the headline ELL conf, k 8, hidden (64, 32)) and
+    ``KVMap`` (2^22 slots, k 8, AddEntry and AssignEntry) on this rank of
+    a ``1 x 2`` mesh, each against the same run on one card on this
+    rank's device: this rank's rows bit-equal, the objectives, the
+    segment_sum launches of the mesh run."""
+    from ..apps.linear.deep_ctr import DeepCTRWorker
+    from ..apps.linear.fm import FMWorker
+    from ..parameter.kv_map import AddEntry, AssignEntry, KVMap
+    from .headline import SLOTS, ell_conf, make_batch
+
+    dev = mesh.device
+    s = mesh.server_index
+    batches = [make_batch(seed + 7000 + i) for i in range(steps)]
+    out = {}
+    for name, make in (("fm", lambda m: FMWorker(ell_conf(), k=8, seed=seed, mesh=m, device=dev)),
+                       ("deep_ctr", lambda m: DeepCTRWorker(ell_conf(), k=8, hidden=(64, 32),
+                                                            seed=seed, mesh=m, device=dev))):
+        res = []
+        for m in (mesh, None):
+            reset_launches()
+            w = make(m)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for b in batches:
+                w.collect(w.process_minibatch(b))
+            _sync(dev)
+            res.append(dict(state=w.state_host()["state"], objective=list(w.progress.objective),
+                            launches=launches()["segment_sum"], wall_s=time.perf_counter() - t0))
+            w.executor.stop()
+        mine, one = res
+        table = (lambda st: st["table"]) if name == "deep_ctr" else (lambda st: st)
+        rows = table(mine["state"])["w"].shape[0]
+        equal = all(np.array_equal(table(mine["state"])[k],
+                                   table(one["state"])[k][s * rows:(s + 1) * rows])
+                    for k in ("w", "w_ss", "v", "v_ss"))
+        if name == "deep_ctr":
+            equal = equal and all(np.array_equal(a, b) for a, b in
+                                  zip(mine["state"]["mlp"], one["state"]["mlp"]))
+        out[name] = dict(bit_equal=bool(equal), objective=mine["objective"],
+                         one_card_objective=one["objective"], launches=mine["launches"],
+                         wall_s=mine["wall_s"], one_card_wall_s=one["wall_s"])
+    rng = np.random.default_rng(17)
+    stream = [(b.indices, rng.normal(size=(b.nnz, 8)).astype(np.float32)) for b in batches[:2]]
+    probe = np.concatenate([batches[0].indices[:50_000], rng.integers(0, 1 << 40, 10_000)])
+    for entry in (AddEntry, AssignEntry):
+        res = []
+        for m in (mesh, None):
+            reset_launches()
+            kv = KVMap(entry(), k=8, num_slots=SLOTS, mesh=m, device=dev, name="kvmap")
+            for keys, vals in stream:
+                kv.wait(kv.push(kv.request(), keys, vals))
+            res.append(dict(table=kv.get_replica()["value"], values=kv.values(probe),
+                            launches=launches()["segment_sum"]))
+            kv.executor.stop()
+        mine, one = res
+        out[f"kv_map_{entry.__name__}"] = dict(
+            bit_equal=bool(mine["table"].tobytes() == one["table"].tobytes()
+                           and mine["values"].tobytes() == one["values"].tobytes()),
+            launches=mine["launches"], rows=int(mine["table"].shape[0]))
+    return out
+
+
+def ell_and_a10_meshes(cases: Sequence[tuple], seed: int, n_batches: int, a10_steps: int,
+                       state: bool = True) -> dict:
+    """Phase 9d's world of 4 ranks: each ELL case ``(num_data,
+    num_server, wire, ministeps a launch, push filter bytes)`` of the
+    headline conf on the dense route (a prefix of the world; the other
+    ranks idle): the wire it took, the objective a launch, the kernel
+    launches, the wall time, and (``state``) this rank's shard; then,
+    with ``a10_steps``, :func:`_first_part` and :func:`_a10_one_by_two`
+    on a ``1 x 2`` mesh."""
+    from ..apps.linear.async_sgd import AsyncSGDWorker
+    from ..convert import state_to_numpy
+
+    out = {"cases": []}
+    for d, s, wire, steps, push in cases:
+        mesh = meshlib.make_mesh(d, s)
+        if not mesh.active:
+            out["cases"].append(None)
+            continue
+        batches = _ell_batches(wire, seed, n_batches)
+        w = AsyncSGDWorker(_ell_conf(wire, steps, push), mesh=mesh)
+        kind = type(w.prep(batches[0], device_put=False)).__name__
+        reset_launches()
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        obj = _objectives(w, batches, steps)
+        _sync(mesh.device)
+        rec = dict(coords=mesh.coords, kind=kind, objective=obj, launches=launches(),
+                   wall_s=time.perf_counter() - t0, examples=sum(b.n for b in batches))
+        if state:
+            rec["state"] = state_to_numpy(w.state)
+        # one launch more with each psum of the step timed alone
+        calls = []
+        with _timed_psums(mesh.device, calls):
+            _objectives(w, batches[:steps], steps)
+        rec["psums"] = calls
+        w.remove()
+        out["cases"].append(rec)
+    if a10_steps:
+        mesh = meshlib.make_mesh(1, 2)
+        if mesh.active:
+            out["first_part"] = _first_part(seed, 4, mesh)
+            out["a10"] = _a10_one_by_two(seed, mesh, a10_steps)
+            out["coords"] = mesh.coords
+    return out
+
+
+def nn_cli_and_psum(argvs: List[List[str]], psum_floats: int, reps: int) -> dict:
+    """The NN CLI inside the world, once for each of ``argvs`` (each run's
+    exit code and the rows rank 0 printed), then :func:`psum_ms` of
+    ``psum_floats`` float32 over the world."""
+    from ..apps.nn import main as nn_main
+
+    runs = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = nn_main.main(argv)
+        runs.append({"rc": rc, "out": buf.getvalue()})
+    return {"runs": runs, "psum": psum_ms(psum_floats, reps)}

@@ -73,9 +73,12 @@ def shard_state(np_state: Dict[str, np.ndarray], num_server: int, index: int,
     """A whole numpy state dict (the JAX mesh worker's ``state_host()
     ["state"]``, rows ``[P]``) -> server shard ``index`` of ``num_server``
     as tensors on ``device``: rows ``[index * P / num_server, (index + 1)
-    * P / num_server)`` of every array leaf; scalars whole."""
-    out = {}
-    for k, v in np_state.items():
+    * P / num_server)`` of every array leaf; scalars whole. A state with
+    a ``"table"`` dict (the wide&deep worker's) cuts that table's leaves
+    only, the rest (the replicated MLP) whole; a nested state comes back
+    as :func:`tree_from_numpy` gives it."""
+
+    def cut(k, v):
         v = np.asarray(v)
         if v.ndim >= 1:
             if v.shape[0] % num_server:
@@ -83,14 +86,22 @@ def shard_state(np_state: Dict[str, np.ndarray], num_server: int, index: int,
                                  "server shards")
             rows = v.shape[0] // num_server
             v = v[index * rows:(index + 1) * rows]
-        out[k] = v
-    return state_from_jax(out, device)
+        return v
+
+    if isinstance(np_state.get("table"), dict):
+        out = dict(np_state, table={k: cut(k, v) for k, v in np_state["table"].items()})
+        return tree_from_numpy(out, device)
+    return state_from_jax({k: cut(k, v) for k, v in np_state.items()}, device)
 
 
 def unshard_state(shards: "list[Dict[str, np.ndarray]]") -> Dict[str, np.ndarray]:
     """Server shards' numpy states, in shard order (each rank's
     ``state_host()["state"]``) -> the whole state, as the JAX mesh worker
-    holds it: array leaves concatenated, scalars from shard 0."""
+    holds it: array leaves concatenated, scalars from shard 0 (of a
+    ``"table"`` state, the table's leaves concatenated and the rest from
+    shard 0)."""
+    if isinstance(shards[0].get("table"), dict):
+        return dict(shards[0], table=unshard_state([sh["table"] for sh in shards]))
     return {k: (np.concatenate([np.asarray(sh[k]) for sh in shards])
                 if np.ndim(shards[0][k]) >= 1 else shards[0][k]) for k in shards[0]}
 

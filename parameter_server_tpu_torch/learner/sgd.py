@@ -195,20 +195,24 @@ class ISGDCompNode(App, Checkpointable):
         return self.progress
 
     def _prep_ell(self, batch: SparseBatch):
-        """The ELL prep of the embedding-table workers on one data shard:
-        the row padding is fixed by ``SGDConfig.rows_pad`` or the first
-        batch, and a larger batch raises."""
+        """The ELL prep of the embedding-table workers: rows ceil-divided
+        over the data shards (``self.mesh``'s data axis, one without a
+        mesh), the row padding fixed by ``SGDConfig.rows_pad`` or the
+        first batch, and a larger batch raises."""
         from ..apps.linear.async_sgd import prep_batch_ell  # apps import this module
 
+        mesh = getattr(self, "mesh", None)
+        d = 1 if mesh is None else mesh.shape["data"]
+        per = -(-batch.n // d)
         if self._rows_pad is None:
-            self._rows_pad = self.sgd.rows_pad or batch.n
-        if batch.n > self._rows_pad:
+            self._rows_pad = self.sgd.rows_pad or per
+        if per > self._rows_pad:
             raise ValueError(
                 f"batch of {batch.n} rows exceeds the compiled padding "
-                f"({self._rows_pad} rows/shard x 1 shards); set "
+                f"({self._rows_pad} rows/shard x {d} shards); set "
                 "SGDConfig.rows_pad to the largest minibatch up front"
             )
-        return prep_batch_ell(batch, self.directory, 1, self._rows_pad, self.sgd.ell_lanes,
+        return prep_batch_ell(batch, self.directory, d, self._rows_pad, self.sgd.ell_lanes,
                               self.num_slots)
 
 

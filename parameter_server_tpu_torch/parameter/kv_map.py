@@ -16,8 +16,20 @@ adds the rows straight into its value, in entry order
 gives the JAX store's ``value + grad``. A pull gathers
 ``entry.get(state)`` at the keys' slots (zero for an unknown key of an
 exact directory). Pushes and pulls are steps of the store's executor, in
-timestamp order. One card holds one server shard: the whole table
-(``num_server`` > 1 is ROADMAP A9).
+timestamp order.
+
+**Over a mesh** (``KVMap(..., mesh=...)``, or the started postoffice's
+mesh; ``parallel/mesh.py``): each rank holds its server shard's rows,
+``num_slots / S`` of them, as the JAX store's ``shard_map`` body does. A
+push localizes the keys into the rank's shard and applies the entry
+there only (the keys and values are replicated: every data rank applies
+the same push, so the data rows hold the same shards); a pull gathers
+the owned rows and sums them over the server axis
+(``kv_ops.pull(..., batch_sharded=False)``). Every rank of the mesh
+makes the same pushes and pulls with the same keys, in the same order.
+``get_replica``, ``set_replica`` and ``write_to_file`` take and give the
+whole table, gathered over the server axis on the caller's thread (the
+mesh's side groups).
 
 The directory rule is the JAX store's: a hashed directory hashes with
 the CONFIGURED slot count (keys keep their slots when the table is
@@ -34,6 +46,7 @@ import torch
 
 from ..device import resolve
 from ..ops import kv_ops
+from ..parallel import mesh as meshlib
 from ..ops.kv_ops import localize, scatter_add_in_order, scatter_sum
 from ..system.message import Task
 from ..utils import file as psfile
@@ -95,13 +108,15 @@ def touched_slots(rel: torch.Tensor, ok: torch.Tensor, num_slots: int) -> torch.
     return mark[:num_slots]
 
 
-def make_push(entry: Entry, num_slots: int):
+def make_push(entry: Entry, num_slots: int, mesh=None):
     """``push(state, slots, vals [n, k]) -> state'``: the aggregated
     gradient, the touched mask, the entry's update where touched. An
-    entry with ``push_rows(state, rel, vals)`` takes the rows itself."""
+    entry with ``push_rows(state, rel, vals)`` takes the rows itself.
+    ``mesh``: ``num_slots`` is this rank's shard, and the ids are
+    localized into its key range."""
 
     def push(state, slots, vals):
-        rel, ok = localize(slots, num_slots)
+        rel, ok = localize(slots, num_slots, mesh)
         vals = torch.where(ok[:, None], vals, 0.0)
         touched = touched_slots(rel, ok, num_slots)
         if hasattr(entry, "push_rows"):
@@ -117,27 +132,40 @@ def make_push(entry: Entry, num_slots: int):
 
 class KVMap(Parameter):
     """``KVMap(entry, k, num_slots, hashed, keys)`` on ``device`` (the
-    started postoffice's, else the card; raises without one)."""
+    started postoffice's, else the card; raises without one), or over
+    ``mesh`` (default: the started postoffice's), one server shard a rank.
+    ``num_server``, if given, must be the mesh's server count."""
 
     def __init__(self, entry: Entry, k: int = 1, num_slots: int = 1 << 20, hashed: bool = True,
                  keys: Optional[np.ndarray] = None, id: Optional[int] = None, name: str = "",
-                 device=None, num_server: int = 1):
-        if num_server != 1:
-            raise NotImplementedError(
-                f"KVMap over {num_server} server shards: the port holds a table on one card "
-                "(the sharded tables are ROADMAP A9)")
+                 device=None, num_server: Optional[int] = None, mesh=None):
         super().__init__(id=id, name=name)
-        if device is None and self.po.started:
+        if mesh is None and self.po.started:
+            mesh = self.po.mesh
+        if mesh is not None and mesh.size == 1:
+            mesh = None  # one card: every collective is the identity
+        n_server = 1 if mesh is None else meshlib.num_servers(mesh)
+        if num_server is not None and num_server != n_server:
+            raise ValueError(
+                f"KVMap over {num_server} server shards needs a mesh with that many "
+                f"(got {mesh!r}): start the postoffice on one, or pass mesh=")
+        #: the mesh the table is sharded over (None: one card, the whole table)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and self.po.started:
             device = self.po.device
         self.device = resolve(device)
         self.k = int(k)
         self.entry = entry
-        self.num_slots = pad_slots(num_slots, num_server)
+        self.num_slots = pad_slots(num_slots, n_server)
+        #: this rank's rows of the table: its server shard
+        self.shard_rows = self.num_slots // n_server
         is_hashed = keys is None and hashed
         self.directory = KeyDirectory(int(num_slots) if is_hashed else self.num_slots,
                                       keys=keys, hashed=is_hashed)
-        self.state: Dict[str, torch.Tensor] = entry.init(self.num_slots, self.k, self.device)
-        self._push_fn = make_push(entry, self.num_slots)
+        self.state: Dict[str, torch.Tensor] = entry.init(self.shard_rows, self.k, self.device)
+        self._push_fn = make_push(entry, self.shard_rows, mesh)
 
     def slots(self, keys: np.ndarray) -> torch.Tensor:
         """The keys' slot ids on the card (cached per key set)."""
@@ -167,7 +195,8 @@ class KVMap(Parameter):
         slots = self.slots(keys)
 
         def step():
-            return kv_ops.pull(self.entry.get(self.state), slots)
+            return kv_ops.pull(self.entry.get(self.state), slots, mesh=self.mesh,
+                               batch_sharded=False)
 
         return self.instrumented_submit("pull", task.key_channel, len(slots), step, task,
                                         callback)
@@ -179,11 +208,25 @@ class KVMap(Parameter):
         """The current values at ``keys`` on the host (a pull, waited)."""
         return self.wait_pull(self.pull(self.request(), keys)).cpu().numpy()
 
+    def _whole(self) -> Dict[str, torch.Tensor]:
+        """The entry state's leaves, whole: on a mesh gathered over the
+        server axis (the side groups: a collective of the data row), once
+        the steps in flight are done."""
+        self.executor.wait_all(pop=False)
+        if self.mesh is None or meshlib.num_servers(self.mesh) == 1:
+            return self.state
+        side = self.mesh.side
+        return {name: meshlib.all_gather(leaf, meshlib.SERVER_AXIS, side)
+                for name, leaf in self.state.items()}
+
     def write_to_file(self, path: str) -> None:
         """Nonzero values as text, ``key\\tv_1\\t...\\tv_k`` (ref
-        KVMap::WriteToFile), once the steps in flight are done."""
-        self.executor.wait_all(pop=False)
-        vals = self.entry.get(self.state).cpu().numpy()
+        KVMap::WriteToFile), once the steps in flight are done. On a mesh
+        every rank calls it: the shards are gathered and rank 0 writes."""
+        state = self._whole()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
+        vals = self.entry.get(state).cpu().numpy()
         keys = (self.directory.keys if self.directory.keys is not None
                 else np.arange(self.num_slots))
         vals = vals[: len(keys)]
@@ -193,13 +236,15 @@ class KVMap(Parameter):
                 f.write(f"{key}\t" + "\t".join(repr(float(x)) for x in val) + "\n")
 
     def get_replica(self) -> dict:
-        """Host copies of the entry state once the steps in flight are
-        done."""
-        self.executor.wait_all(pop=False)
-        return {name: leaf.cpu().numpy().copy() for name, leaf in self.state.items()}
+        """Host copies of the whole entry state once the steps in flight
+        are done (on a mesh every rank calls it and gets the whole)."""
+        return {name: leaf.cpu().numpy().copy() for name, leaf in self._whole().items()}
 
     def set_replica(self, snapshot: dict) -> None:
-        """Install entry state (host arrays or tensors) as copies."""
+        """Install whole entry state (host arrays or tensors) as copies; on
+        a mesh each rank takes its server shard's rows."""
+        lo = 0 if self.mesh is None else self.mesh.server_index * self.shard_rows
         self.state = {name: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                                            else v).to(self.device).clone()
+                                            else v)[lo:lo + self.shard_rows].to(self.device)
+                      .clone()
                       for name, v in snapshot.items()}

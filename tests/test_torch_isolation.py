@@ -289,8 +289,8 @@ def test_serving_plane_limits_raise_naming_their_items():
 
     Postoffice.reset()
     try:
-        # a sharded KVMap is A9's second slice
-        with pytest.raises(NotImplementedError, match="A9"):
+        # a sharded KVMap (A9's second slice) needs a mesh of its servers
+        with pytest.raises(ValueError, match="needs a mesh"):
             KVMap(AddEntry(), num_slots=64, device="cpu", num_server=2)
         kv = KVVector(k=1, num_slots=64, device="cpu")
         # live migration (A13's first part) is ported: a seeded move runs

@@ -172,8 +172,16 @@ def test_scatter_sum_bit_equal_to_xla(num_rows, k, n):
 
 
 def test_kv_map_limits():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """Two server shards need a mesh of two (the sharded store runs in
+    ``tests/test_torch_parallel_stores.py``); on one, a rank holds its
+    shard's rows."""
+    from parameter_server_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="needs a mesh"):
         tmap.KVMap(tmap.AddEntry(), num_slots=64, device="cpu", num_server=2)
+    two = tmap.KVMap(tmap.AddEntry(), k=3, num_slots=64, mesh=Mesh(1, 2, "cpu"), num_server=2)
+    assert two.state["value"].shape == (32, 3) and two.num_slots == 64
+    two.executor.stop()
 
 
 def _layers(mesh, donate, lr=0.5):

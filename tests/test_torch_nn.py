@@ -169,12 +169,21 @@ def test_cli_rows_match_the_jax_cli(monkeypatch, name):
         assert gs[2] == ws[2]
 
 
-def test_cli_defaults_learn_and_refuse_more_servers():
+def test_cli_defaults_learn_and_refuse_more_servers(monkeypatch):
+    """The defaults learn; more servers are no longer refused: outside a
+    world, ``--num-servers S --num-workers D`` starts ``D * S`` ranks
+    (the spawn itself is recorded here; the worlds run in
+    ``tests/test_torch_parallel_stores.py``)."""
     rows = _cli_rows(tmain, Postoffice, ["--steps", "20", "--device", "cpu"])
     losses = [float(r.split()[1]) for r in rows[1:]]
     assert len(losses) == 2 and losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="A9"):
-        _cli_rows(tmain, Postoffice, ["--num-servers", "2", "--device", "cpu"])
+    seen = []
+    monkeypatch.setattr(tmain, "_spawn", lambda argv, world, device: seen.append(
+        (world, device, argv)) or 0)
+    for extra in (["--num-servers", "2"], ["--num-servers", "2", "--num-workers", "2"]):
+        assert _cli_rows(tmain, Postoffice, extra + ["--device", "cpu"]) == []
+    assert [w for w, _, _ in seen] == [2, 4] and {d for _, d, _ in seen} == {"cpu"}
+    assert seen[1][2] == ["--num-servers", "2", "--num-workers", "2", "--device", "cpu"]
 
 
 def test_mlp_learns_blobs():

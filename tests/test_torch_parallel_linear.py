@@ -364,15 +364,21 @@ def test_jax_mesh_state_continues_on_the_port_mesh(runs):
     ("kkt_filter", True), ("wire_encode", "exact"), ("ell_lanes", 39), ("tau_adaptive", True),
 ])
 def test_unported_features_on_a_mesh_raise_naming_a9(field, value):
+    """The ELL wires run on a mesh now (``tests/test_torch_parallel_ell.py``):
+    with ``ell_lanes`` the conf also asks for the encoded exact wire, still
+    unported, and the refusal names that and not the ELL wires."""
     conf = ranks.linear_conf("sparse", "float32", 1)
     setattr(conf.async_sgd, field, value)
     if field == "tau_adaptive":
         conf.async_sgd.max_delay = 2
+    if field == "ell_lanes":
+        conf.async_sgd.wire_encode = "exact"
     mesh = tmesh.Mesh(2, 2, "cpu")  # rank 0's view; nothing collective runs
     Postoffice.reset()
     try:
-        with pytest.raises(NotImplementedError, match="A9 slice 2"):
+        with pytest.raises(NotImplementedError, match="A9 slice 2") as e:
             tsgd.AsyncSGDWorker(conf, mesh=mesh)
+        assert "ell_lanes" not in str(e.value)
     finally:
         Postoffice.reset()
 

@@ -164,6 +164,11 @@ def test_serve_cli_exposes_metrics_while_it_runs(capsys, monkeypatch):
     ``expose_cluster`` returns scrapes itself once when the CLI closes it,
     after the load points and before it shuts, so no scrape can miss the
     run however loaded the host is."""
+    # both flight recorders start empty: a recorder another test left in
+    # either process (a benchmark's ``blackbox.arm()`` leaves one under
+    # the default node id) is dumped by an alert's capture in the run
+    tblackbox.reset()
+    jblackbox.reset()
     scraped = []
     real = texpo.expose_cluster
 
@@ -194,11 +199,13 @@ def test_serve_cli_exposes_metrics_while_it_runs(capsys, monkeypatch):
     assert "ok" in health and "dead_nodes" in health
     assert {"metrics", "cluster", "health", "learning", "history"} <= set(snap)
     # the SLO alerts fire or not with the host's load (a p99 burn fires
-    # a diagnostic capture, whose families then register): one capture
-    # in each process after its run (the rate limit reset: a capture, not
-    # a suppression), so both record the capture's families whatever the
-    # load did
+    # a diagnostic capture, whose families then register, and the ring
+    # totals' too where the node has a recorder): one capture of one
+    # recorder in each process after its run (the rate limit reset: a
+    # capture, not a suppression), so both record the capture's and the
+    # ring's families whatever the load did
     tblackbox.reset()
+    tblackbox.recorder("test")
     tblackbox.trigger_bundle("test")
     ours = set(treg.default_registry().snapshot())
     # the frontends' request counters against the CLI's own record
@@ -210,8 +217,11 @@ def test_serve_cli_exposes_metrics_while_it_runs(capsys, monkeypatch):
     assert jserve.main(argv) == 0
     capsys.readouterr()
     jblackbox.reset()
+    jblackbox.recorder("test")
     jblackbox.trigger_bundle("test")
     theirs = set(jreg.default_registry().snapshot())
+    tblackbox.reset()
+    jblackbox.reset()
     assert ours == theirs
 
 
