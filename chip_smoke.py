@@ -83,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the CPU, the model's weights the training run's nonzeros; model
    load, parse and key hash on the host clock, the device's work from
    CUDA events, examples/s end to end. Then the CTR conf with adaptive τ
-   (one pass over 300,000 rows, card and CPU: the same τ trajectory), the
+   (one pass over 200,000 rows, cut from 300,000 with phase 9e added,
+   card and CPU: the same τ trajectory), the
    Criteo data on the stream wire through the CLI (state bit-identical to
    the hashed path, a decoded batch equal to the raw one), and
    ``configs/criteo/online_l1lr_bigtable.conf`` through the CLI at its
@@ -91,8 +92,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ex/s, the stages' ms, peak device memory, a falling loss, the model
    written). Then the darlin app (block coordinate descent) through the
    CLI: ``configs/criteo/batch_l1lr.conf`` unchanged (λ 4, α 0.9, τ 2, up
-   to 50 passes, 39 blocks, one a slot) on 4 generated shards of 125,000
-   rows (cut from 250,000 with phase 9d added), and ``eval_batch.conf`` on its model over 100,000 held-out rows;
+   to 50 passes, 39 blocks, one a slot) on 4 generated shards of 62,500
+   rows (cut from 250,000 with phase 9d added, from 125,000 with phase 9e
+   added), and ``eval_batch.conf`` on its model over 100,000 held-out rows;
    ``configs/ctr/batch_l1lr.conf`` (τ 0, feature block ratio 4: one group
    of ~31 keys a row in ~123 blocks) on the CTR cell's data and its
    ``eval_batch.conf``; the Criteo conf cut
@@ -401,6 +403,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal to the one-card store's; (e) the NN CLI with
    ``--num-servers 2``, ``mlp`` and ``convnet``, 5 steps inside a world of
    2: the rows of phase 8c's one-card CLI within ``NN_LOSS_RTOL``;
+9e. the rest of the linear app and the ps.h layer over a mesh (ROADMAP
+   A9 slice 2's third part), the ranks sharing the card over gloo as in
+   phase 9 (``benchmarks/mesh_apps.py``): (a) in a world of 4 ranks, the
+   headline worker at full width under phase 4b's KKT filter (escape
+   1/64), one launch of T 8 at 1x2 (bit-equal to the one-card launch, the
+   same counts) and at 2x2 (held to the same world on the CPU as phase 4b
+   holds the card to the CPU: the candidates equal, the suppressed within
+   ``KKT_COUNT_TOL``, at most ``KKT_STATE_TOL`` of the slots outside
+   ``TRAJ_TOL``), then the host drop set at 2x2 (``kkt_drop_after`` 2,
+   ``ingest_workers`` 1, per-minibatch launches, pipelined, cut to 6 from
+   phase 4b's 10): the counts, the drop set's stamp and the state equal
+   on every rank; (b) the encoded exact wire at 2x2, pipelined with the
+   upload cache, two passes of T 8 in one ``train``: bit-equal to the raw
+   wire's run, the cache hitting on every rank, the bytes copied a
+   example; (c) the CTR conf under adaptive τ through the CLI at
+   ``--num-servers 2 --num-workers 2`` on phase 4b's τ rows: the τ
+   trajectory equal on the 4 ranks and to the CPU world's, ``ftrl_dense``
+   and ``quantize`` on every rank; (d) ``configs/criteo/batch_l1lr.conf``
+   through the CLI at ``--num-workers 2`` on phase 5b's rows: each pass's
+   objective within ``DARLIN_OBJ_RTOL`` of phase 5b's one-card run, 3
+   ``segment_sum`` launches a block step on each rank; then
+   ``eval_batch.conf`` on its model in a world of 2 prints the one
+   card's line; (e) phase 8e's ps.h program at 2 workers x 2 servers in
+   a world of 4 (a ``KVVector`` of 2^22 x 1, 16 headline batches split
+   over the workers, a pull and a control ``submit`` after each): the
+   table the same on every rank and within ``MESH9E_STORE_TOL`` of the
+   same pushes into a CPU store, the van's totals equal to the
+   ``RemoteNode`` counters; (f) ``checkpoint_async`` at 2x2 on the
+   headline worker: its return and write times, its npz members equal
+   to ``checkpoint``'s, every rank's restore resuming bit-equal. Each
+   part's kernels are held to their plain versions on the part's first
+   launch's inputs, on every rank;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -449,6 +483,7 @@ from parameter_server_tpu_torch.apps.nn import main as nn_main  # noqa: E402
 from parameter_server_tpu_torch.apps.nn.trainer import NNTrainer  # noqa: E402
 from parameter_server_tpu_torch.models.convnet import MLP, ConvNet  # noqa: E402
 from parameter_server_tpu_torch.parameter.kv_map import AddEntry, AssignEntry, KVMap  # noqa: E402
+from parameter_server_tpu_torch.parameter.kv_vector import KVVector  # noqa: E402
 from parameter_server_tpu_torch.parameter.parameter import KeyDirectory  # noqa: E402
 from parameter_server_tpu_torch.parameter.replica import CheckpointManager  # noqa: E402
 from parameter_server_tpu_torch.system.postoffice import Postoffice  # noqa: E402
@@ -1380,7 +1415,8 @@ def segment_case(name: str, data, ids, n: int, presorted: bool, ns_per_add: floa
 # -- phase 5: the CTR conf through the CLI --
 
 CTR_SHARDS, CTR_ROWS = 3, 30_000  # 9 minibatches of 10000 rows a pass
-TAU_ROWS = 300_000  # 30 minibatches: adaptive τ widens from 1 to the cap 4
+# 20 minibatches: adaptive τ widens from 1 to 3 (30 until phase 9e was added: to the cap 4)
+TAU_ROWS = 200_000
 CRITEO_SHARDS, CRITEO_ROWS = 4, 50_000  # 20 minibatches of 10000 rows, one pass
 AGREE_ROWS = 70_000  # 7 ministeps: the last 3 pull a learned snapshot (τ = 4)
 PULL_FILTER = "  pull_filter {\n    type: FIXING_FLOAT\n    num_bytes: 1\n  }\n"
@@ -1847,8 +1883,9 @@ def eval_path(tmp: str, seed: int, model_globs: dict, nonzeros: dict) -> dict:
 
 # -- phase 5b: the darlin app (block coordinate descent) --
 
-# the Criteo batch conf's data: 500,000 rows, 19.5M entries (cut from 1M with phase 9d added)
-DARLIN_SHARDS, DARLIN_ROWS = 4, 125_000
+# the Criteo batch conf's data: 250,000 rows (cut from 1M with phase 9d added, from 500,000
+# with phase 9e added: 9e(d) trains the same rows on a mesh)
+DARLIN_SHARDS, DARLIN_ROWS = 4, 62_500
 DARLIN_EVAL_ROWS = 100_000
 # the Criteo batch conf cut for card vs CPU and run to run (50,000 until phase 9d was added)
 DARLIN_AGREE_ROWS = 25_000
@@ -1856,7 +1893,10 @@ DARLIN_AGREE_ROWS = 25_000
 # card's exp is not the CPU's, so the dual (and every pass's objective)
 # parts in the last bits; a KKT decision that sits on such a bit may
 # flip, so nnz(w), the active set and the model's keys may lie this share
-# of the columns apart (the counts are printed)
+# of the columns apart (the counts are printed). Phase 9e holds a mesh of
+# two data ranks to one card with the same objective tolerance: there G and
+# U are two shards' sums added, which round apart from one sum in the
+# last bits in the same way
 DARLIN_OBJ_RTOL = 1e-5
 DARLIN_COUNT_TOL = 1e-3
 BATCH_CONF = {name: os.path.join(ROOT, "configs", name, "batch_l1lr.conf")
@@ -2042,7 +2082,7 @@ def darlin_eval(tmp: str, name: str, write, rows: int, seed: int, model: str) ->
 
 def darlin_path(tmp: str, seed: int, ns_per_add: float) -> dict:
     """The darlin app through the CLI on the card: the Criteo batch conf
-    on 500,000 generated rows and its eval, the CTR batch conf and its eval,
+    on 250,000 generated rows and its eval, the CTR batch conf and its eval,
     then the Criteo conf cut to 25,000 rows on the card twice (w and the
     dual bit-identical) and on the CPU (the stated tolerances)."""
     out = {}
@@ -2066,6 +2106,7 @@ def darlin_path(tmp: str, seed: int, ns_per_add: float) -> dict:
     crit.update(block_times(sched.solver, ns_per_add), progress=rec["progress"])
     crit["eval"] = darlin_eval(tmp, "criteo", write_criteo_shards, DARLIN_EVAL_ROWS, seed + 7,
                                rec["model"])
+    crit["seed"] = seed  # of its rows: phase 9e trains the same rows on a mesh
     out["criteo"] = crit
     del rec, sched
     torch.cuda.empty_cache()
@@ -5562,6 +5603,300 @@ def ell_a10_mesh_plane(seed: int, smi: str, nn_one_card: dict) -> dict:
                 seconds=time.perf_counter() - t_phase)
 
 
+# -- phase 9e: the rest of the linear app and the ps.h layer over a mesh sharing the card --
+
+MESH9E_DROP_STEPS = 6  # per-minibatch launches of the host drop set (phase 4b runs 10 on one card)
+MESH9E_PS_PUSHES = 16  # headline batches into the ps.h program's store, 8 a worker
+MESH9E_KERNELS = ("ftrl_sparse", "ftrl_dense", "quantize", "segment_sum")
+# the store's table against the same pushes into a CPU store: the card's
+# segment_sum and the CPU's index_add_ each add a slot's entries in entry
+# order, so the bits should agree; the check allows a slot's float32 sum
+# in another order
+MESH9E_STORE_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def objv(lines: list) -> list:
+    """The objectives of darlin's printed progress lines."""
+    return [float(re.search(r"objv (\S+)", ln).group(1)) for ln in lines if ln.startswith("iter ")]
+
+
+def slice_mesh_plane(seed: int, smi: str, dar: dict) -> dict:
+    """Phase 9e, (a)-(f), printed as they finish; ``dar``: phase 5b's
+    darlin record (the one-card Criteo batch run on the rows of its
+    ``seed``, which 9e(d) trains again on a mesh)."""
+    from parameter_server_tpu_torch.benchmarks import mesh_apps
+    from parameter_server_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    batches = [make_batch(seed + i) for i in range(T)]
+    # the one-card KKT launch 9e(a)'s 1x2 mesh is held to, bit for bit
+    w = AsyncSGDWorker(kkt_conf(kkt_filter=True, kkt_escape=KKT_ESCAPE), device="cuda")
+    w.train(iter(batches), pipelined=False)
+    one_kkt = w.state_host()["state"]
+    one_summary = w._consistency.tracker.summary()
+    w.remove()
+    # the ps.h program's pushes into a CPU store, in the workers' turns
+    rng = np.random.default_rng(seed + 8500)
+    stream = [((batches[i] if i < T else make_batch(seed + 9100 + i)).indices, None)
+              for i in range(MESH9E_PS_PUSHES)]
+    stream = [(k, rng.normal(size=(k.size, 1)).astype(np.float32)) for k, _ in stream]
+    Postoffice.reset()
+    ref = KVVector(k=1, num_slots=SLOTS, hashed=True, name="ps9e_ref", device="cpu")
+    for i in range(0, MESH9E_PS_PUSHES, 2):  # W0's, then W1's: the turns' order
+        for keys, vals in stream[i:i + 2]:
+            ref.wait(ref.push(ref.request(channel=0), keys=keys, values=vals))
+    ps_want = ref.get_replica()[0]
+    ref.executor.stop()
+    Postoffice.reset()
+    del batches, stream, ref
+    with tempfile.TemporaryDirectory(prefix="mesh9e_") as tmp:
+        # (c)'s CTR rows and conf, for the CLI inside both worlds
+        write_ctr_shards(os.path.join(tmp, "tau"), 1, TAU_ROWS, seed + 5)
+        tau_conf = os.path.join(tmp, "tau.conf")
+        with open(tau_conf, "w") as f:
+            f.write(ctr_conf(os.path.join(tmp, "tau", "part.*"), os.path.join(tmp, "tau_model"),
+                             num_data_pass=1))
+        tau_argv = [tau_conf, "--num-servers", "2", "--num-workers", "2"]
+        t0 = time.perf_counter()
+        card = launch.run_world(mesh_apps.slice_meshes, 4,
+                                args=(seed, [(1, 2), (2, 2)], MESH9E_DROP_STEPS,
+                                      MESH9E_PS_PUSHES, tmp, True,
+                                      ("kkt", "drop", "wire", "ps", "checkpoint", "tau"),
+                                      tau_argv),
+                                device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = launch.run_world(mesh_apps.slice_meshes, 4,
+                               args=(seed, [(2, 2)], 0, 0, tmp, False, ("kkt", "tau"), tau_argv),
+                               device_type="cpu", timeout=MESH_WORLD_S, threads=2)
+        cpu_s = time.perf_counter() - t0
+        out = dict(card_world_s=card_s, cpu_world_s=cpu_s)
+
+        # (a) the KKT filter
+        n = T
+        kkt_rows = {}
+        for shape in ("1x2", "2x2"):
+            recs = [r[f"kkt_{shape}"] for r in card if f"kkt_{shape}" in r]
+            check(len(recs) == (2 if shape == "1x2" else 4), f"9e (a) {shape}: {len(recs)} ranks")
+            for r in recs:
+                want = dict(ftrl_sparse=n, ftrl_dense=0, quantize=0, segment_sum=2 * n)
+                check(r["launches"] == want, f"9e (a) {shape} rank {r['coords']}: launches "
+                      f"{r['launches']}, want {want}")
+                check(r["held"].get("ftrl_sparse") == 0.0 and r["held"].get("segment_sum") == 0.0,
+                      f"9e (a) {shape}: kernels vs plain {r['held']}")
+                check(r["digest"] == recs[0]["digest"] and r["summary"] == recs[0]["summary"],
+                      f"9e (a) {shape}: the ranks' states or counts differ")
+            r0 = next(r for r in recs if r["coords"] == (0, 0))
+            s0 = r0["summary"]
+            check(0 < s0["suppressed"] < s0["candidates"] and s0["reconciled"],
+                  f"9e (a) {shape}: counts {s0}")
+            kkt_rows[shape] = dict(summary=s0, wall_s=r0["wall_s"],
+                                   examples_per_s=r0["examples"] / r0["wall_s"],
+                                   peak_gib=[r["peak_gib"] for r in recs],
+                                   launches={k: sum(r["launches"][k] for r in recs)
+                                             for k in MESH9E_KERNELS})
+        whole = next(r for r in card if "kkt_1x2" in r and r["kkt_1x2"]["coords"] == (0, 0))[
+            "kkt_1x2"]["state"]
+        for k in one_kkt:
+            check(np.array_equal(np.asarray(one_kkt[k]).view(np.uint8), whole[k].view(np.uint8)),
+                  f"9e (a) 1x2: {k} not bit-equal to the one-card KKT launch")
+        check(kkt_rows["1x2"]["summary"] == one_summary,
+              f"9e (a) 1x2 counts {kkt_rows['1x2']['summary']} vs one card {one_summary}")
+        card22 = next(r["kkt_2x2"] for r in card if r["kkt_2x2"]["coords"] == (0, 0))
+        cpu22 = next(r["kkt_2x2"] for r in cpu if r["kkt_2x2"]["coords"] == (0, 0))
+        apart = np.zeros(SLOTS, bool)
+        for k in card22["state"]:
+            apart |= ~np.isclose(card22["state"][k].astype(np.float32),
+                                 cpu22["state"][k].astype(np.float32), **TRAJ_TOL)
+        gap = abs(card22["summary"]["suppressed"] - cpu22["summary"]["suppressed"])
+        check(card22["summary"]["candidates"] == cpu22["summary"]["candidates"]
+              and gap <= KKT_COUNT_TOL * card22["summary"]["candidates"]
+              and int(apart.sum()) <= KKT_STATE_TOL * SLOTS,
+              f"9e (a) 2x2 vs the CPU world: counts {card22['summary']} vs {cpu22['summary']}, "
+              f"{int(apart.sum())} slots outside TRAJ_TOL")
+        drops = [r["drop_2x2"] for r in card]
+        d0 = drops[0]
+        check(all(d["summary"] == d0["summary"] and d["stamp"] == d0["stamp"]
+                  and d["digest"] == d0["digest"] for d in drops),
+              f"9e (a) drop set: the ranks differ {[d['stamp'] for d in drops]}")
+        check(d0["summary"]["dropped_slots"] > 0 and d0["summary"]["revisit_batches"] == 1,
+              f"9e (a) drop set {d0['summary']}")
+        out["kkt"] = dict(rows=kkt_rows, slots_apart_cpu=int(apart.sum()), suppressed_gap_cpu=gap,
+                          drop=d0["summary"], drop_stamp=d0["stamp"],
+                          drop_wall_s=d0["wall_s"], drop_launches={
+                              k: sum(d["launches"][k] for d in drops) for k in MESH9E_KERNELS})
+        print(f"# 9e (a) KKT at full width (4 ranks sharing one card over gloo, {smi}): one launch "
+              f"of T {n}; 1x2 bit-equal to the one-card launch, counts {kkt_rows['1x2']['summary']}"
+              f"; 2x2 {kkt_rows['2x2']['examples_per_s']:.0f} ex/s (rank (0, 0)), counts "
+              f"{card22['summary']['suppressed']} of {card22['summary']['candidates']} suppressed "
+              f"(CPU world {cpu22['summary']['suppressed']}), {int(apart.sum())} slots outside "
+              f"TRAJ_TOL of the CPU world (bound {KKT_STATE_TOL:g} of {SLOTS}); peak "
+              f"{[round(x, 2) for x in kkt_rows['2x2']['peak_gib']]} GiB a rank; ftrl_sparse and "
+              f"segment_sum held to their plain versions on a launch's inputs on every rank; host "
+              f"drop set at 2x2 over {MESH9E_DROP_STEPS} launches: {d0['summary']['dropped_slots']} "
+              f"slots, stamp {d0['stamp']} on every rank, {d0['wall_s']:.2f} s", flush=True)
+
+        # (b) the encoded exact wire
+        raw = {r["wire_raw"]["coords"]: r["wire_raw"] for r in card}
+        enc = {r["wire_encoded"]["coords"]: r["wire_encoded"] for r in card}
+        for c, e in enc.items():
+            check(e["digest"] == raw[c]["digest"], f"9e (b) rank {c}: encoded state differs "
+                  "from the raw wire's")
+            check(e["hits"][0] > 0, f"9e (b) rank {c}: the upload cache never hit {e['hits']}")
+            want = dict(ftrl_sparse=2 * n, ftrl_dense=0, quantize=0, segment_sum=4 * n)
+            check(e["launches"] == want, f"9e (b) rank {c}: launches {e['launches']}, want {want}")
+            check(all(v == 0.0 for v in e["held"].values()), f"9e (b): held {e['held']}")
+        e0, r0 = enc[(0, 0)], raw[(0, 0)]
+        out["wire"] = dict(raw_bytes_per_example=r0["copied_bytes_per_example"],
+                           encoded_bytes_per_example=e0["copied_bytes_per_example"],
+                           hits={str(c): e["hits"] for c, e in enc.items()},
+                           raw_examples_per_s=r0["examples"] / r0["wall_s"],
+                           encoded_examples_per_s=e0["examples"] / e0["wall_s"],
+                           launches={k: sum(e["launches"][k] for e in (*enc.values(),
+                                                                       *raw.values()))
+                                     for k in MESH9E_KERNELS})
+        print(f"# 9e (b) encoded exact wire at 2x2, pipelined, 2 passes of T {n} ({smi}): state "
+              f"bit-equal to the raw wire's on every rank; bytes copied a example "
+              f"{e0['copied_bytes_per_example']:.2f} (raw {r0['copied_bytes_per_example']:.2f}); "
+              f"the upload cache's (hits, misses) by rank {out['wire']['hits']}; "
+              f"{out['wire']['encoded_examples_per_s']:.0f} ex/s (raw "
+              f"{out['wire']['raw_examples_per_s']:.0f}, rank (0, 0))", flush=True)
+
+        # (e) ps.run_system
+        ps_recs = [r["ps"] for r in card]
+        for r in ps_recs:
+            check(r["nodes"] == ["H0", "S0", "S1", "W0", "W1"] and r["van"] == r["remote"]
+                  and r["van"][0] > 0, f"9e (e): nodes {r['nodes']}, van {r['van']} vs remote "
+                  f"{r['remote']}")
+            check(r["digest"] == ps_recs[0]["digest"], "9e (e): the ranks' tables differ")
+            check(r["launches"]["segment_sum"] == MESH9E_PS_PUSHES and r["held"].get(
+                "segment_sum") == 0.0, f"9e (e): launches {r['launches']}, held {r['held']}")
+        table = next(r["ps"]["table"] for r in card if "table" in r["ps"])
+        diff = float(np.abs(table - ps_want).max())
+        check(np.allclose(table, ps_want, **MESH9E_STORE_TOL),
+              f"9e (e): the table is {diff} from the same pushes into a CPU store")
+        out["ps"] = dict(max_abs_diff_cpu_store=diff, bit_equal_cpu_store=table.tobytes() ==
+                         ps_want.tobytes(), rtt_ms_median=ps_recs[0]["rtt_ms_median"],
+                         wall_s=ps_recs[0]["wall_s"], van=ps_recs[0]["van"],
+                         launches={k: sum(r["launches"][k] for r in ps_recs)
+                                   for k in MESH9E_KERNELS})
+        print(f"# 9e (e) ps.run_system at 2 workers x 2 servers in a world of 4 ({smi}): "
+              f"KVVector {SLOTS} x 1 over the server axis, {MESH9E_PS_PUSHES} headline pushes in "
+              f"turns, a pull and a control submit after each; the table {diff:g} from the same "
+              f"pushes into a CPU store (bit-equal {out['ps']['bit_equal_cpu_store']}), the same "
+              f"on every rank; van totals {ps_recs[0]['van']} equal the RemoteNode counters; "
+              f"submit + wait {ps_recs[0]['rtt_ms_median']:.3f} ms median; {ps_recs[0]['wall_s']:.2f}"
+              f" s", flush=True)
+
+        # (f) checkpoint_async
+        ck = [r["checkpoint"] for r in card]
+        check(all(c["resumed_bit_equal"] and c["step"] == 1 for c in ck),
+              "9e (f): a restore did not resume bit-equal")
+        c0 = next(c for c in ck if c["coords"] == (0, 0))
+        check(c0["members_equal"], "9e (f): checkpoint_async's file differs from checkpoint's")
+        out["checkpoint"] = dict(return_ms=c0["return_ms"], write_wait_ms=c0["write_wait_ms"],
+                                 sync_ms=c0["sync_ms"], bytes=c0["bytes"],
+                                 launches={k: sum(c["launches"][k] for c in ck)
+                                           for k in MESH9E_KERNELS})
+        print(f"# 9e (f) checkpoint_async at 2x2 on the headline worker ({smi}): returns in "
+              f"{c0['return_ms']:.1f} ms (the drain and the server-axis gather), rank 0's write "
+              f"then {c0['write_wait_ms']:.1f} ms more; checkpoint {c0['sync_ms']:.1f} ms; the npz "
+              f"members ({c0['bytes']} B) equal checkpoint's; every rank's restore resumes "
+              "bit-equal", flush=True)
+
+        # (c) adaptive τ through the CLI at 2x2
+        taus = {"cuda": [r["tau"] for r in card], "cpu": [r["tau"] for r in cpu]}
+        trace = taus["cuda"][0]["tau_trace"]
+        for r in taus["cuda"] + taus["cpu"]:
+            check(r["rc"] == 0 and r["tau_trace"] == trace, f"9e (c) rank {r['coords']}: τ "
+                  f"{r['tau_trace']} vs rank 0's {trace}")
+        check(max(trace) > 1, f"9e (c): τ never widened {trace}")
+        m = taus["cuda"][0]["ministeps"]
+        for r in taus["cuda"]:
+            want = dict(ftrl_sparse=0, ftrl_dense=m, quantize=m, segment_sum=2 * m)
+            check(r["launches"] == want, f"9e (c) rank {r['coords']}: launches {r['launches']}, "
+                  f"want {want}")
+            check(r["held"].get("ftrl_dense") == r["held"].get("quantize") == 0.0,
+                  f"9e (c): kernels vs plain {r['held']}")
+        t0 = taus["cuda"][0]
+        out["tau"] = dict(trace=trace, ministeps=m, examples_per_s=t0["examples"] / t0["wall_s"],
+                          wall_s=t0["wall_s"], peak_gib=[r["peak_bytes"] / 2**30
+                                                         for r in taus["cuda"]],
+                          launches={k: sum(r["launches"][k] for r in taus["cuda"])
+                                    for k in MESH9E_KERNELS})
+        print(f"# 9e (c) adaptive τ, CTR conf via CLI --num-servers 2 --num-workers 2 ({smi}): τ "
+              f"trajectory {trace} on all 4 ranks, equal to the CPU world's; {m} ministeps, "
+              f"{out['tau']['examples_per_s']:.0f} ex/s over rank 0's CLI wall; launches a rank "
+              f"ftrl_dense {m}, quantize {m}, segment_sum {2 * m}", flush=True)
+
+        # (d) darlin at --num-workers 2 on phase 5b's rows, then its model evaluated
+        data = os.path.join(tmp, "criteo_batch")
+        write_criteo_shards(data, DARLIN_SHARDS, DARLIN_ROWS, dar["criteo"]["seed"])
+        model = os.path.join(tmp, "model", "criteo_batch_mesh")
+        path = os.path.join(tmp, "darlin_mesh.conf")
+        with open(path, "w") as f:
+            f.write(ctr_conf(os.path.join(data, "part.*"), model,
+                             conf_text=open(BATCH_CONF["criteo"]).read()))
+        dranks = launch.run_world(mesh_apps.darlin_cli_rank, 2,
+                                  args=([path, "--num-workers", "2"],), device_type="cuda",
+                                  timeout=MESH_WORLD_S, threads=0)
+        one = objv(dar["criteo"]["progress"])
+        for r in dranks:
+            check(r["rc"] == 0, f"9e (d) rank {r['rank']} exited {r['rc']}")
+            check(r["launches"]["segment_sum"] == 3 * r["block_steps"] and
+                  r["launches"]["ftrl_sparse"] == r["launches"]["ftrl_dense"] == 0,
+                  f"9e (d) rank {r['rank']}: launches {r['launches']} for {r['block_steps']} "
+                  "block steps")
+        got = objv(dranks[0]["out"].splitlines())
+        check(objv(dranks[1]["out"].splitlines()) == got, "9e (d): the ranks' passes differ")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got, one)]
+        rel = max(gaps)
+        print(f"# 9e (d) each pass's objective, mesh {got}, one card {one}; relative gaps "
+              f"{[float(f'{g:.3g}') for g in gaps]}", flush=True)
+        check(len(got) == len(one) and rel <= DARLIN_OBJ_RTOL,
+              f"9e (d): {len(got)} passes vs one card's {len(one)}, objectives {rel:.3g} apart "
+              f"(bar {DARLIN_OBJ_RTOL})")
+        held_out = os.path.join(tmp, "criteo_batch_test")
+        write_criteo_shards(held_out, 1, DARLIN_EVAL_ROWS, dar["criteo"]["seed"] + 7)
+        epath = os.path.join(tmp, "eval_mesh.conf")
+        text = eval_conf(EVAL_BATCH_CONF["criteo"], os.path.join(held_out, "part.*"),
+                         model + "_S*")
+        reset_counts()
+        one_ev = run_eval(text, epath, "cuda")
+        eranks = launch.run_world(mesh_apps.eval_cli_rank, 2, args=([epath],), device_type="cuda",
+                                  timeout=MESH_WORLD_S, threads=0)
+        lines = [r["out"].strip().splitlines()[-1] if r["out"].strip() else "" for r in eranks]
+        check(eranks[0]["rc"] == eranks[1]["rc"] == 0 and lines[0] == one_ev["line"]
+              and "auc" not in lines[1], f"9e (d) eval in a world of 2: {lines} vs one card "
+              f"{one_ev['line']!r}")
+        d0 = dranks[0]
+        out["darlin"] = dict(passes=len(got), objective_rel_gap=rel, block_steps=d0["block_steps"],
+                             wall_s=d0["wall_s"], load_localize_s=d0.get("load_localize_s"),
+                             upload_s=d0.get("upload_s"), peak_gib=[r["peak_gib"] for r in dranks],
+                             eval_line=one_ev["line"],
+                             launches={k: sum(r["launches"][k] for r in dranks + eranks)
+                                       for k in MESH9E_KERNELS})
+        print(f"# 9e (d) darlin, configs/criteo/batch_l1lr.conf via CLI --num-workers 2 on phase "
+              f"5b's {DARLIN_SHARDS * DARLIN_ROWS} rows ({smi}): {len(got)} passes, each "
+              f"objective within {rel:.3g} of the one-card run's (bar {DARLIN_OBJ_RTOL}); "
+              f"{d0['block_steps']} block steps, 3 segment_sum launches each on each rank; rank 0 "
+              f"wall {d0['wall_s']:.1f} s (load + localize {d0.get('load_localize_s', 0):.1f}, "
+              f"upload {d0.get('upload_s', 0):.1f}); peak "
+              f"{[round(r['peak_gib'], 2) for r in dranks]} GiB; eval_batch.conf in a world of 2: "
+              f"{lines[0]!r}, the one card's line", flush=True)
+    parts = [kkt_rows["1x2"], kkt_rows["2x2"], {"launches": out["kkt"]["drop_launches"]},
+             out["wire"], out["ps"], out["checkpoint"], out["tau"], out["darlin"]]
+    launches = {k: sum(p["launches"][k] for p in parts) for k in MESH9E_KERNELS}
+    for k in MESH9E_KERNELS:
+        check(launches[k] > 0, f"phase 9e launched no {k}")
+    for r in card + cpu:
+        for key in ("kkt_1x2", "kkt_2x2"):
+            if key in r:
+                r[key].pop("state", None)
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    return out
+
+
 #: each phase function's wall seconds in this run (``timed_phases``)
 PHASE_SECONDS: dict = {}
 
@@ -5591,7 +5926,7 @@ def main() -> int:
                   "flash_bwd_times", "train_step_full", "train_agreement", "lm_cli",
                   "lm_family", "serving_plane", "telemetry_plane", "a10_plane", "a13_plane",
                   "system_plane", "checkpoint_plane", "component_plane", "mesh_plane",
-                  "elastic_plane", "ell_a10_mesh_plane"))
+                  "elastic_plane", "ell_a10_mesh_plane", "slice_mesh_plane"))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed-launches", type=int, default=4)
@@ -6033,6 +6368,11 @@ def main() -> int:
     print(f"# phase 9d (the ELL rows and the A10 stores on a mesh) took {mesh9d['seconds']:.1f} s:"
           f" the card world {mesh9d['card_world_s']:.1f} s, the CPU world "
           f"{mesh9d['cpu_world_s']:.1f} s; launches {mesh9d['launches']}", flush=True)
+    mesh9e = slice_mesh_plane(args.seed, smi, dar)
+    print(f"# phase 9e (the KKT filter, the encoded wire, adaptive τ, darlin, evaluation, "
+          f"run_system and checkpoint_async on a mesh) took {mesh9e['seconds']:.1f} s: the card "
+          f"world {mesh9e['card_world_s']:.1f} s, the CPU world {mesh9e['cpu_world_s']:.1f} s; "
+          f"launches {mesh9e['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -6064,6 +6404,7 @@ def main() -> int:
     main_seg = seg_rows[3]
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
+             slice_mesh_launches=mesh9e["launches"]["ftrl_sparse"],
              mesh_launches=mesh["launches"]["ftrl_sparse"],
              elastic_launches=elastic["launches"]["ftrl_sparse"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -6080,6 +6421,7 @@ def main() -> int:
              bound_ms=main_sparse["bound_ms"], bound_by=main_sparse["bound_by"],
              library_ms=None),
         dict(name="ftrl_dense_kernel", route="cuda",
+             slice_mesh_launches=mesh9e["launches"]["ftrl_dense"],
              mesh_launches=mesh["launches"]["ftrl_dense"],
              ell_a10_mesh_launches=mesh9d["launches"]["ftrl_dense"],
              elastic_launches=elastic["launches"]["ftrl_dense"],
@@ -6098,6 +6440,7 @@ def main() -> int:
              bound_ms=main_dense["bound_ms"], bound_by=main_dense["bound_by"],
              library_ms=None),
         dict(name="quantize_kernel", route="cuda",
+             slice_mesh_launches=mesh9e["launches"]["quantize"],
              mesh_launches=mesh["launches"]["quantize"],
              ell_a10_mesh_launches=mesh9d["launches"]["quantize"],
              elastic_launches=elastic["launches"]["quantize"],
@@ -6112,6 +6455,7 @@ def main() -> int:
              bound_ms=main_quant["bound_ms"], bound_by=main_quant["bound_by"],
              library_ms=None),
         dict(name="segment_sum", route="cuda", case=main_seg["case"],
+             slice_mesh_launches=mesh9e["launches"]["segment_sum"],
              mesh_launches=mesh["launches"]["segment_sum"],
              ell_a10_mesh_launches=mesh9d["launches"]["segment_sum"],
              elastic_launches=elastic["launches"]["segment_sum"],
@@ -6206,6 +6550,7 @@ def main() -> int:
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
                   component_suite=comp, mesh=mesh, elastic=elastic, ell_a10_mesh=mesh9d,
+                  slice_mesh=mesh9e,
                   phase_seconds=PHASE_SECONDS,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -24,15 +24,21 @@ the JAX step folds them (objective and counts over data; the pushed
 gradient's norm over server then data; the update's over server and the
 weights' over data on the dense route), the scalars of each axis packed
 into one tensor and one collective a launch, the per-example aux
-all-gathered over data. Over a mesh the exact raw wire (sparse update),
-the hashed wire and the ELL wires (i32, u24, bits and stream, one launch
-or a ``steps_per_launch`` scan; dense update) run, and so does the
-neighbour replica: every rank preps the global minibatch's data rows
-on the ELL wires as on the others and keeps its own, and the stream
-wire's lane split, derived from the first batch of the common stream,
-is checked to agree over the data axis on the first step. The KKT
-filter, the encoded exact wire and adaptive τ raise
-``NotImplementedError`` naming ROADMAP A9 slice 2.
+all-gathered over data. Every wire and feature runs over a mesh: the
+exact wire, raw or encoded (sparse update), the hashed wire and the ELL
+wires (i32, u24, bits and stream, one launch or a ``steps_per_launch``
+scan; dense update), the neighbour replica, the KKT filter (its z
+assembled over the server axis like the weights) and adaptive τ. Every
+rank preps the global minibatch, so it makes the encode decision on the
+global batch and keeps its own data row, and the stream wire's lane
+split, derived from the first batch of the common stream, is checked to
+agree over the data axis on the first step. With the host drop set,
+the encoded wire or adaptive τ, each launch's host decisions (the wire
+and its encoding, τ and the snapshot, the drop set's version and
+digest, a requested reaction) are agreed over the mesh on the dispatch
+thread, in step order (``parallel/distributed.agree_on``): a
+disagreement raises on every rank at that launch, and a launch whose
+decisions changed holds its batch to the row again.
 
 The dense update carries the filtered wire of the reference's confs:
 a FIXING_FLOAT push filter quantizes the shard gradient to 1 or 2 bytes
@@ -859,15 +865,14 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
     per-slot ``kkt_keep`` and ``kkt_uslots``. None runs the unfiltered
     step.
 
-    ``mesh``: ``shard`` is this rank's server shard; the weights are
-    assembled over the server axis and the gradient summed over the data
-    axis (the sparse update's unique-slot vector, which prep makes the
-    same on every data rank, or the dense update's shard vector through
-    the push wire). The metrics are this rank's (``mini_step.fold``)."""
+    ``mesh``: ``shard`` is this rank's server shard; the weights (and
+    the KKT filter's z) are assembled over the server axis and the
+    gradient summed over the data axis (the sparse update's unique-slot
+    vector, which prep makes the same on every data rank, or the dense
+    update's shard vector through the push wire). The metrics are this
+    rank's (``mini_step.fold``); the KKT filter's are global vectors,
+    the same on every rank after the psums, and fold over nothing."""
     mesh = _mesh_or_none(mesh)
-    if significance is not None and mesh is not None:
-        raise NotImplementedError(
-            "the KKT significance filter over a mesh is ROADMAP A9 slice 2")
     if significance is not None and update != "sparse":
         raise ValueError(
             "the KKT significance filter composes with update='sparse' "
@@ -911,7 +916,12 @@ def _make_exact_mini_step(updater, loss, shard: int, with_aux: bool, update: str
                 # gradient merge is an elementwise psum of the U-vector
                 g_u = psum(g_u, DATA_AXIS, mesh)
             if significance is not None:
-                z_u = torch.where(ok, pulled["z"].index_select(0, rel), 0.0) * umask
+                # the slot's z lives on one server shard: assembled as w_u
+                # was, one more server psum of a U-vector
+                z_u = torch.where(ok, pulled["z"].index_select(0, rel), 0.0)
+                if mesh is not None:
+                    z_u = psum(z_u, SERVER_AXIS, mesh)
+                z_u = z_u * umask
                 keep, suppressed = kkt_mask(z_u, g_u, w_u, umask, seed, spec=significance)
                 g_u = torch.where(keep, g_u, 0.0)
                 ok_upd = ok & keep
@@ -1017,24 +1027,26 @@ def make_train_step_scan(updater, loss, num_slots: int, with_aux: bool = True,
 
 
 def make_train_step_encoded(updater, loss, num_slots: int, with_aux: bool = True,
-                            update: str = "dense", significance=None, **wire_kw):
+                            update: str = "dense", significance=None, mesh=None, **wire_kw):
     """The exact step over an EncodedExactBatch: the encoded arrays are
     decoded on the step's device (``learner/wire.decode_exact_shard``),
     then the same ministep as :func:`make_train_step` runs, so the state
-    is bit-identical to the raw wire's."""
-    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update,
-                                      significance=significance, **wire_kw)
-    return _one_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i))
+    is bit-identical to the raw wire's (``mesh``: as
+    :func:`make_train_step`; the rank decodes its own data row)."""
+    mini_step = _make_exact_mini_step(updater, loss, _shard(num_slots, mesh), with_aux, update,
+                                      significance=significance, mesh=mesh, **wire_kw)
+    return _one_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i), mesh)
 
 
 def make_train_step_encoded_scan(updater, loss, num_slots: int, with_aux: bool = True,
-                                 update: str = "dense", significance=None, **wire_kw):
+                                 update: str = "dense", significance=None, mesh=None,
+                                 **wire_kw):
     """T encoded ministeps a submission, each decoded as it runs."""
     if significance is not None:
         significance = significance.without_feedback()
-    mini_step = _make_exact_mini_step(updater, loss, num_slots, with_aux, update,
-                                      significance=significance, **wire_kw)
-    return _scan_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i))
+    mini_step = _make_exact_mini_step(updater, loss, _shard(num_slots, mesh), with_aux, update,
+                                      significance=significance, mesh=mesh, **wire_kw)
+    return _scan_step(mini_step, lambda b, i: wire.decode_exact_shard(b, num_slots, i), mesh)
 
 
 def _make_entry_mini_step(updater, loss, shard: int, num_slots: int, with_aux: bool,
@@ -1421,6 +1433,38 @@ class KeyHeatFeed:
             raise self._errors[0]
 
 
+class _GroupGate:
+    """The pipelined train's turn for preps under the host drop set:
+    :meth:`wait_for` (the prep thread) returns once :meth:`advance` (the
+    submitting thread, after a group's submissions and collects) has
+    run ``g`` times; :meth:`abort` releases a waiter of a train that
+    ends first, which then raises. No clock: a condition."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self._cv = threading.Condition()
+        self._done = 0  # guarded by _cv
+        self._aborted = False  # guarded by _cv
+
+    def wait_for(self, g: int) -> None:
+        with self._cv:
+            while self._done < g and not self._aborted:
+                self._cv.wait()
+            if self._aborted:
+                raise RuntimeError("the train ended before this group's turn")
+
+    def advance(self) -> None:
+        with self._cv:
+            self._done += 1
+            self._cv.notify_all()
+
+    def abort(self) -> None:
+        with self._cv:
+            self._aborted = True
+            self._cv.notify_all()
+
+
 class DeviceUploader:
     """The double-buffered host → device stage of the pipelined train:
     ``upload_fn`` (the worker's upload on its side stream) runs for batch
@@ -1574,8 +1618,6 @@ class AsyncSGDWorker(ISGDCompNode):
         #: this rank's rows of the table: its server shard
         self.shard_rows = self.num_slots // n_server
         self._update_mode = self._resolve_update_mode(sgd)
-        if self.mesh is not None:
-            self._refuse_on_mesh(sgd)
         # which FTRL update the steps run: a CUDA kernel or the plain version
         self.update_path = resolve_update_path(
             self._update_mode, on_cuda=self.device.type == "cuda"
@@ -1647,19 +1689,37 @@ class AsyncSGDWorker(ISGDCompNode):
         self._snapshot_ts: Optional[int] = None  # submit thread only
         if sgd.tau_adaptive or sgd.kkt_filter:
             self._consistency = ConsistencyRuntime.from_config(self, sgd)
+        #: the host drop set's feedback is on (the KKT filter's tracker
+        #: keeps a drop set)
+        self._drop_feedback = bool(sgd.kkt_filter and sgd.kkt_drop_after > 0)
+        #: the drop set's stamp the next submission's batch was prepped
+        #: under (submit thread only)
+        self._prep_drop_stamp = (0, 0)
+        #: on a mesh, the host decisions a launch depends on (the drop
+        #: set, the encode decision, τ and a reaction) are agreed over the
+        #: mesh at every launch (:meth:`_launch_signature`)
+        self._agree_launches = self.mesh is not None and (
+            self._drop_feedback or bool(sgd.wire_encode) or sgd.tau_adaptive)
+        self._last_signature: Optional[tuple] = None  # dispatch thread only
+
+    def _drop_stamp(self) -> tuple:
+        """The drop set's ``(version, digest)`` now ((0, 0) without one)."""
+        if not self._drop_feedback:
+            return (0, 0)
+        return self._consistency.tracker.stamp()
 
     @staticmethod
-    def _refuse_on_mesh(sgd) -> None:
-        """The features not yet ported to a mesh of several ranks."""
-        unported = [name for name, on in (
-            ("the KKT filter (kkt_filter)", sgd.kkt_filter),
-            ("the encoded exact wire (wire_encode)", bool(sgd.wire_encode)),
-            ("adaptive τ (tau_adaptive)", sgd.tau_adaptive),
-        ) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} over a mesh of several ranks: ROADMAP A9 slice 2 "
-                "(the raw exact wire, the hashed wire and the ELL wires run on a mesh)")
+    def _launch_signature(prepped, tau: int, do_snapshot: bool, drop_stamp: tuple) -> tuple:
+        """What a launch's host side decided, as ints: the wire and its
+        encoding (an encoded batch's statics), the live τ and the snapshot
+        decision, the drop set's version and digest its batch was prepped
+        under."""
+        static = prepped.static_key() if hasattr(prepped, "static_key") else ()
+        kind = pdist.digest_ints(type(prepped).__name__, static)
+        return (kind, int(tau), int(do_snapshot), int(drop_stamp[0]), int(drop_stamp[1]))
+
+    _SIGNATURE_NAMES = ("the wire and its encoding", "τ", "the snapshot decision",
+                        "the drop set's version", "the drop set's digest")
 
     def set_effective_tau(self, tau: int) -> int:
         """Move the live bounded delay τ between submissions (adaptive
@@ -1961,6 +2021,9 @@ class AsyncSGDWorker(ISGDCompNode):
             variant = "snap_donate" if tau <= 0 and not self.sgd.tau_adaptive else "snap"
         self._steps_since_snapshot += n_steps
         ready = getattr(prepped, "ready", None)
+        signature = (self._launch_signature(prepped, tau, do_snapshot, self._prep_drop_stamp)
+                     if self._agree_launches else None)
+        runtime = self._consistency
 
         def run():
             if ready is not None:
@@ -1969,6 +2032,23 @@ class AsyncSGDWorker(ISGDCompNode):
                 for name in wire.array_fields(prepped):
                     # allocated on the upload's stream, read on this one
                     getattr(prepped, name).record_stream(stream)
+            react = False
+            if signature is not None:
+                # one decision for the whole mesh, in step order: the
+                # launch's host decisions agree on every rank (or every
+                # rank raises), and a reaction any rank asked for runs on
+                # every rank at this launch's collect
+                asked = (runtime.take_request()
+                         if runtime is not None and runtime.controller is not None else None)
+                react = pdist.agree_on(self.mesh, signature, self._SIGNATURE_NAMES,
+                                       flag=asked is not None)
+                if react:
+                    runtime.note_agreed(asked)
+                if signature != self._last_signature:
+                    # a new drop set, encoding or τ: hold the batch itself
+                    # to the row once more
+                    self._row_checked = False
+                self._last_signature = signature
             if not self._row_checked:
                 # the ranks of this data row fed the same batch, and every
                 # data row holds the same global unique slots of the sparse
@@ -1985,6 +2065,8 @@ class AsyncSGDWorker(ISGDCompNode):
             if do_snapshot:
                 self._pull_state = self._snapshot()
             metrics = step_fn(self.state, self._pull_state, prepped, seed, variant)
+            if react:
+                metrics["consistency_react"] = torch.ones((), device=self.device)
             if self.sgd.num_replicas > 0:
                 self._steps_since_replica += n_steps
                 if (self._replica_state is None
@@ -2020,6 +2102,7 @@ class AsyncSGDWorker(ISGDCompNode):
         del report
         with self._key_heat():
             self._note_heat(batch)
+            self._prep_drop_stamp = self._drop_stamp()
             return self._submit_prepped(self.prep(batch, device_put=False), with_aux=with_aux)
 
     def submit_superbatch(self, batches: List[SparseBatch], with_aux: bool = False):
@@ -2028,6 +2111,7 @@ class AsyncSGDWorker(ISGDCompNode):
         mode, where the superstep runs every ministep on the live state.
         A dense-mode exact group raises: it runs per minibatch. Waits for
         the launch and returns its metrics."""
+        self._prep_drop_stamp = self._drop_stamp()
         prepped = [self.prep(b, device_put=False) for b in batches]
         stacked = _stack(prepped, self._update_mode)
         if stacked is None:
@@ -2046,6 +2130,7 @@ class AsyncSGDWorker(ISGDCompNode):
         where the group stacks, else one step a minibatch. Returns
         ``[(timestamp, n_ministeps), ...]``, so a caller bounds the work
         in flight in ministeps."""
+        self._prep_drop_stamp = self._drop_stamp()
         parts = self._prep_group([(b, self._padding(b)) for b in batches])
         return [(self._submit_prepped(p, with_aux=with_aux), n) for p, n in parts]
 
@@ -2124,20 +2209,33 @@ class AsyncSGDWorker(ISGDCompNode):
 
         if pipelined:
             workers = self.ingest_workers()
+            # with the host drop set, group g is prepped once this thread
+            # has submitted group g - 1 and collected what the serial path
+            # collects after it: the drop set a prep sees is the serial
+            # path's, on every rank alike, whatever the threads' timing
+            gate = _GroupGate() if self._drop_feedback else None
 
             def padded_groups():
                 # the padding too is decided on the feeder, in stream order
-                for group in groups():
-                    yield [(b, self._padding(b)) for b in group]
+                for g, group in enumerate(groups()):
+                    yield g, [(b, self._padding(b)) for b in group]
+
+            def prep_group(item):
+                g, group = item
+                if gate is not None:
+                    gate.wait_for(g)
+                return self._prep_group(group)
 
             # each staged group holds T prepped batches: the window also
             # bounds the host memory
-            pipe = IngestPipeline(padded_groups(), prep_fn=self._prep_group, workers=workers,
+            pipe = IngestPipeline(padded_groups(), prep_fn=prep_group, workers=workers,
                                   capacity=2 * workers, name="train_ingest").start()
 
             def parts():
+                # each part with its ministeps and whether it ends its group
                 for group_parts in pipe:
-                    yield from group_parts
+                    for i, (p, n) in enumerate(group_parts):
+                        yield p, (n, i == len(group_parts) - 1)
 
             stream = self.upload_stream if self.device.type == "cuda" else None
 
@@ -2149,15 +2247,23 @@ class AsyncSGDWorker(ISGDCompNode):
                 upload_fn = self.upload_cache = wire.UploadCache(
                     upload_fn, max_bytes=self.sgd.wire_cache_mb << 20)
             uploader = DeviceUploader(parts(), upload_fn, depth=2)
+            self._prep_drop_stamp = self._drop_stamp()
             try:
-                for staged, n in uploader:
+                for staged, (n, last) in uploader:
                     # submitted under the batch's flow id, so the
                     # executor.step span correlates back through upload,
                     # prep and read in the timeline
                     with telemetry_spans.flow_scope(uploader.next_flow()):
                         pending.append((self._submit_prepped(staged, with_aux=True), n))
                     collect_over_bound()
+                    if last:
+                        # the next group is prepped under the drop set now
+                        self._prep_drop_stamp = self._drop_stamp()
+                        if gate is not None:
+                            gate.advance()
             finally:
+                if gate is not None:
+                    gate.abort()  # a prep waiting for a group that never comes
                 # the uploader first: no thread is left inside a copy
                 uploader.close()
                 pipe.close()
@@ -2347,6 +2453,20 @@ class AsyncSGDWorker(ISGDCompNode):
     # checkpoint_async: inherited from Checkpointable on one card (state_host
     # drains and carries the seed counter)
 
+    def _whole_host(self) -> dict:
+        """The whole state and the seed counter, as host arrays: the
+        state gathered over the server axis (a collective on the calling
+        thread, after a drain, so no step's collective runs beside it)."""
+        self._drain()
+        whole = {k: meshlib.all_gather(v, SERVER_AXIS, self.mesh) if v.dim() >= 1 else v
+                 for k, v in self.state.items()}
+        return {"state": state_to_numpy(whole), "seed_counter": np.int64(self._seed_counter)}
+
+    def _mesh_barrier(self) -> None:
+        """Every rank of the mesh past this point (a psum of each axis)."""
+        done = torch.ones((), device=self.device)
+        psum(psum(done, SERVER_AXIS, self.mesh), DATA_AXIS, self.mesh)
+
     def checkpoint(self, manager, step: int) -> str:
         """Save step ``step``: :meth:`state_host` on one card; on a mesh
         the whole state, as the JAX mesh worker checkpoints it (gathered
@@ -2355,23 +2475,29 @@ class AsyncSGDWorker(ISGDCompNode):
         package restores it. Every rank of a mesh calls it."""
         if self.mesh is None:
             return super().checkpoint(manager, step)
-        self._drain()
-        whole = {k: meshlib.all_gather(v, SERVER_AXIS, self.mesh) if v.dim() >= 1 else v
-                 for k, v in self.state.items()}
+        tree = self._whole_host()
         path = manager._step_dir(step)
         if self.mesh.rank == 0:
-            manager.save(step, {"state": state_to_numpy(whole),
-                                "seed_counter": np.int64(self._seed_counter)})
-        done = torch.ones((), device=self.device)
-        psum(psum(done, SERVER_AXIS, self.mesh), DATA_AXIS, self.mesh)
+            manager.save(step, tree)
+        self._mesh_barrier()
         return path
 
     def checkpoint_async(self, manager, step: int) -> str:
-        """As :meth:`checkpoint`, on a thread on one card; on a mesh, where
-        the save is a collective of every rank, synchronously."""
+        """As :meth:`checkpoint`, the disk write on a thread. On a mesh
+        the drain and the gather stay on the calling thread, in the
+        ranks' shared order of collectives; rank 0 takes owned host
+        copies and writes them on a thread (the same arrays as
+        :meth:`checkpoint`'s), and every rank returns without waiting for
+        the write. Rank 0's next ``checkpoint`` waits for it, and so does
+        every rank's :meth:`restore` (rank 0 finishes the write, then the
+        ranks meet)."""
         if self.mesh is None:
             return super().checkpoint_async(manager, step)
-        return self.checkpoint(manager, step)
+        tree = self._whole_host()
+        path = manager._step_dir(step)
+        if self.mesh.rank == 0:
+            manager.save_async(step, tree)
+        return path
 
     def restore(self, manager, step: Optional[int] = None) -> int:
         """Restore the state and the seed counter from the latest (or
@@ -2383,11 +2509,15 @@ class AsyncSGDWorker(ISGDCompNode):
         included. On a mesh the checkpoint holds the whole state (taken
         at any server count, or by the JAX package): every rank reads it
         and installs its own shard."""
+        self._drain()
+        if self.mesh is not None:
+            # a write in flight (rank 0's checkpoint_async) lands first
+            manager.wait()
+            self._mesh_barrier()
         if step is None:
             step = manager.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoint under {manager.directory}")
-        self._drain()
         if self.mesh is None:
             tree = manager.restore(step, like={"state": self.state,
                                                "seed_counter": np.int64(0)})

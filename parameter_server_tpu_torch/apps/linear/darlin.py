@@ -17,8 +17,23 @@ device. The same mathematics, in the same order:
   delay tau, KKT threshold annealing ``thr = violation / num_ex * ratio``
   and the reset-on-converge double check.
 
-On one device the JAX package's ``psum`` over the data axis is the
-identity: there is one shard of rows. The three sums of a block step
+**Over a mesh** (``mesh=``, or the started postoffice's; one process a
+position, ``parallel/mesh.py``): the examples are split over the data
+axis as the JAX solver splits them (rows ``[d * per, (d + 1) * per)`` to
+data rank ``d``, ``per = ceil(n / D)``), so each rank holds its rows'
+labels, mask and dual; the model (``w``, ``delta``, the active set) is
+replicated, every rank computing the same update. A block step sums G
+and U over the data axis (one ``psum`` of the two stacked: the bits of
+the JAX step's two). The ranks of a server column repeat its data row's
+work, as the JAX step's replicated server axis does. ``evaluate`` and
+``predict_margin`` gather every row's dual over the data axis (on the
+caller's thread, after the pass's steps have run), and ``save_model``
+writes one file a server shard, each from the rank of data row 0 that
+holds it. Every rank loads and localizes the whole training set (host
+work the JAX process does once), and runs the same program: the block
+order comes from the same seed, and the block steps' psums run on the
+executor's dispatch thread in submission order, the same on every rank.
+With one rank the ``psum`` is the identity. The three sums of a block step
 (G and U by column, ``X d`` by row) go through ``ops/segment_sum.py``: on
 the card the hand-written ``segment_sum`` kernel adds each segment in
 entry order, as XLA's CPU scatter does, so a run is bit-identical from
@@ -48,6 +63,8 @@ import torch
 from ...device import resolve, scalar_like
 from ...learner.bcd import BCDProgress, BCDScheduler, FeatureBlock
 from ...ops.segment_sum import segment_sum
+from ...parallel import mesh as meshlib
+from ...parallel.mesh import DATA_AXIS
 from ...system.executor import Executor, Task
 from ...utils import file as psfile
 from ...utils.sparse import SparseBatch
@@ -77,11 +94,13 @@ def _pow2_bucket(n: int, floor: int = 1024) -> int:
 
 
 def block_step(w, delta, active, dual, y, mask, blk: ColBlock, thr, lam: float, eta: float,
-               delta_max: float, reset: bool = False):
+               delta_max: float, reset: bool = False, mesh=None):
     """One block update: ``(new_w, new_delta, new_active, new_dual,
     violation)``, all on the block's device, the violation a 0-dim tensor.
     ``thr`` is a float32 value (the JAX step takes it as ``jnp.float32``).
-    The inputs are not written to."""
+    The inputs are not written to. ``mesh``: ``dual``, ``y``, ``mask``
+    and the block's rows are this rank's data row; G and U are summed
+    over the data axis (a collective)."""
     if reset:
         active = torch.ones_like(active)
     n_cols, n_rows = blk.num_cols, dual.numel()
@@ -92,6 +111,9 @@ def block_step(w, delta, active, dual, y, mask, blk: ColBlock, thr, lam: float, 
     g_col = segment_sum(-yr * tr * blk.vals, blk.cols, n_cols, presorted=True)
     curv = torch.clamp(tr * (1 - tr) * torch.exp(blk.vals.abs() * delta[blk.cols]), max=0.25)
     u_col = segment_sum(curv * blk.vals * blk.vals, blk.cols, n_cols, presorted=True)
+    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+        # the gradient push: both sums in one psum over the data axis
+        g_col, u_col = meshlib.psum(torch.stack([g_col, u_col]), DATA_AXIS, mesh)
 
     # the shrink step
     u = u_col / scalar_like(eta, u_col) + 1e-10
@@ -119,9 +141,13 @@ def block_step(w, delta, active, dual, y, mask, blk: ColBlock, thr, lam: float, 
 
 class DarlinSolver:
     """The worker and server of one darlin run, fused, on ``device`` (the
-    CUDA device unless the caller names another)."""
+    CUDA device unless the caller names another), or on this rank's
+    position of ``mesh`` (the module's docstring)."""
 
-    def __init__(self, conf: Config, device=None):
+    def __init__(self, conf: Config, device=None, mesh=None):
+        self.mesh = None if mesh is None or mesh.size == 1 else mesh
+        if self.mesh is not None:
+            device = self.mesh.device
         self.device = resolve(device)
         self.conf = conf
         self.bcd: BCDConfig = conf.darlin or BCDConfig()
@@ -140,18 +166,33 @@ class DarlinSolver:
         self.blocks: List[ColBlock] = []
         self.num_ex = 0
         self.num_cols = 0
+        self.rows_per_shard = 0
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _row_range(self, n: int):
+        """This rank's examples ``[lo, hi)`` and the rows a data shard
+        holds (padded): all ``n`` with no mesh."""
+        d = 1 if self.mesh is None else meshlib.num_workers(self.mesh)
+        per = -(-n // d) if n else 0
+        i = 0 if self.mesh is None else self.mesh.data_index
+        return min(i * per, n), min((i + 1) * per, n), per
+
     def init_data(self, data: SparseBatch, fea_blocks: List[FeatureBlock]) -> None:
-        """Upload the labels, the dual (all ones), each block's model state
-        and each block's entries, once."""
+        """Upload this rank's rows' labels and dual (all ones), each
+        block's model state and each block's entries in those rows, once."""
         n = data.n
         self.num_ex = n
-        self.y = self._put(np.asarray(data.y, np.float32))
-        self.row_mask = torch.ones(n, dtype=torch.float32, device=self.device)
-        self.dual = torch.ones(n, dtype=torch.float32, device=self.device)
+        lo_r, hi_r, per = self._row_range(n)
+        self.rows_per_shard = per
+        y = np.zeros(per, np.float32)
+        y[:hi_r - lo_r] = np.asarray(data.y, np.float32)[lo_r:hi_r]
+        mask = np.zeros(per, np.float32)
+        mask[:hi_r - lo_r] = 1.0
+        self.y = self._put(y)
+        self.row_mask = self._put(mask)
+        self.dual = torch.ones(per, dtype=torch.float32, device=self.device)
         self.num_cols = data.cols
         self.fea_blocks = list(fea_blocks)
         self.w_blk, self.delta_blk, self.active_blk = [], [], []
@@ -167,15 +208,23 @@ class DarlinSolver:
         for blk in fea_blocks:
             c0, c1 = blk.col_range.begin, blk.col_range.end
             lo, hi = int(csc.colptr[c0]), int(csc.colptr[c1])
-            k = hi - lo
+            rows_blk = np.asarray(csc.row_ids[lo:hi])
+            cols_blk = np.repeat(np.arange(c1 - c0, dtype=np.int32),
+                                 np.diff(csc.colptr[c0:c1 + 1]).astype(np.int64))
+            vals_blk = (np.ones(hi - lo, np.float32) if csc.values is None
+                        else np.asarray(csc.values[lo:hi], np.float32))
+            if self.mesh is not None:
+                # this rank's rows, in the block's column order
+                mine = (rows_blk >= lo_r) & (rows_blk < hi_r)
+                rows_blk, cols_blk, vals_blk = rows_blk[mine] - lo_r, cols_blk[mine], vals_blk[mine]
+            k = rows_blk.size
             nz_pad = _pow2_bucket(k if k else 1)
             rows = np.zeros(nz_pad, np.int32)
             cols = np.zeros(nz_pad, np.int32)
             vals = np.zeros(nz_pad, np.float32)
-            rows[:k] = csc.row_ids[lo:hi]
-            cols[:k] = np.repeat(np.arange(c1 - c0, dtype=np.int32),
-                                 np.diff(csc.colptr[c0:c1 + 1]).astype(np.int64))
-            vals[:k] = 1.0 if csc.values is None else csc.values[lo:hi]
+            rows[:k] = rows_blk
+            cols[:k] = cols_blk
+            vals[:k] = vals_blk
             by_row = np.argsort(rows, kind="stable")
             self.blocks.append(ColBlock(
                 rows=self._put(rows), cols=self._put(cols), vals=self._put(vals),
@@ -190,7 +239,7 @@ class DarlinSolver:
         new_w, new_delta, new_active, new_dual, violation = block_step(
             self.w_blk[blk_id], self.delta_blk[blk_id], self.active_blk[blk_id], self.dual,
             self.y, self.row_mask, self.blocks[blk_id], float(np.float32(thr)), self.lam, self.eta,
-            self.bcd.delta_max_value, reset)
+            self.bcd.delta_max_value, reset, mesh=self.mesh)
         self.w_blk[blk_id] = new_w
         self.delta_blk[blk_id] = new_delta
         self.active_blk[blk_id] = new_active
@@ -246,11 +295,19 @@ class DarlinSolver:
     def active(self) -> np.ndarray:
         return self._assemble(self.active_blk, True, bool)
 
+    def _every_row(self, t: torch.Tensor) -> np.ndarray:
+        """A per-row tensor of every data shard, in data order, on the host
+        (a gather over the data axis on a mesh: every rank calls it)."""
+        if self.mesh is not None:
+            t = meshlib.all_gather(t, DATA_AXIS, self.mesh)
+        return t.cpu().numpy()
+
     def evaluate(self) -> BCDProgress:
         """The objective ``sum log(1 + 1/dual) + lam |w|_1`` on the host, in
-        numpy, as the JAX package computes it."""
-        dual = self.dual.cpu().numpy()
-        mask = self.row_mask.cpu().numpy() > 0
+        numpy, as the JAX package computes it (every row's dual, in data
+        order)."""
+        dual = self._every_row(self.dual)
+        mask = self._every_row(self.row_mask) > 0
         logloss = float(np.log1p(1.0 / dual[mask]).sum())
         w = self.w
         return BCDProgress(objective=logloss + self.lam * float(np.abs(w).sum()),
@@ -258,17 +315,19 @@ class DarlinSolver:
 
     def predict_margin(self) -> np.ndarray:
         """Xw of the training examples, from the dual (``exp(y Xw)``)."""
-        dual = self.dual.cpu().numpy()
-        y = self.y.cpu().numpy()
-        mask = self.row_mask.cpu().numpy() > 0
+        dual = self._every_row(self.dual)
+        y = self._every_row(self.y)
+        mask = self._every_row(self.row_mask) > 0
         return (np.log(dual[mask]) / np.where(y[mask] != 0, y[mask], 1.0)).ravel()
 
 
 class DarlinScheduler(BCDScheduler):
     """The training loop (the reference's DarlinScheduler::Run)."""
 
-    def __init__(self, conf: Config, device=None, name: str = "darlin_scheduler"):
+    def __init__(self, conf: Config, device=None, name: str = "darlin_scheduler", mesh=None):
         super().__init__(conf.darlin or BCDConfig(), name=name)
+        if mesh is None and self.po.started:
+            mesh = self.po.mesh
         self.conf = conf
         # KEY_CACHING is subsumed: the blocks stay on the device across
         # passes, so keys are never sent again; any other filter would
@@ -279,7 +338,7 @@ class DarlinScheduler(BCDScheduler):
                 logging.getLogger(__name__).warning(
                     "darlin comm_filter %r is not applied (blocks are device-resident; only "
                     "key_caching/compressing semantics are subsumed)", ftype)
-        self.solver = DarlinSolver(conf, device=device)
+        self.solver = DarlinSolver(conf, device=device, mesh=mesh)
         self.seed = 0
         self._converged_once = False
         # max_dispatch_window: the most steps started and unfinished at a
@@ -367,12 +426,26 @@ class DarlinScheduler(BCDScheduler):
 
     def save_model(self, path: str) -> List[str]:
         """``key\\tweight`` lines of the nonzero weights in key-column
-        order, into ``{path}_S0`` (one server shard on one device; the
-        eval confs read ``model_S.*``)."""
+        order, one file a server shard, ``{path}_S{s}`` (the eval confs
+        read ``model_S.*``), shard ``s`` the ``s``-th of the contiguous
+        even division of the key columns, as the JAX scheduler writes
+        them. On a mesh the rank of data row 0 holding shard ``s`` writes
+        its file, and no rank returns before every file is whole."""
         keys = self.global_keys
         w = self.solver.w
-        spath = f"{path}_S0"
-        keep = np.flatnonzero((w != 0) & ~np.isnan(w))
-        with psfile.open_write(spath) as f:
-            f.write("".join(f"{keys[i]}\t{float(w[i])!r}\n" for i in keep))
-        return [spath]
+        mesh = self.solver.mesh
+        n_server = 1 if mesh is None else meshlib.num_servers(mesh)
+        bounds = [len(keys) * s // n_server for s in range(n_server + 1)]
+        written = [f"{path}_S{s}" for s in range(n_server)]
+        mine = range(n_server) if mesh is None else (
+            [mesh.server_index] if mesh.data_index == 0 else [])
+        for s in mine:
+            keep = bounds[s] + np.flatnonzero((w[bounds[s]:bounds[s + 1]] != 0)
+                                              & ~np.isnan(w[bounds[s]:bounds[s + 1]]))
+            with psfile.open_write(written[s]) as f:
+                f.write("".join(f"{keys[i]}\t{float(w[i])!r}\n" for i in keep))
+        if mesh is not None:
+            done = torch.zeros(1, device=self.solver.device)
+            for axis in (meshlib.SERVER_AXIS, DATA_AXIS):
+                done = meshlib.psum(done, axis, mesh)
+        return written

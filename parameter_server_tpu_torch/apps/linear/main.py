@@ -24,13 +24,17 @@ Every rank runs the same program on the same stream (rank 0 draws the
 workload shuffle's seed and the others take it from the rendezvous
 store); rank 0 prints what the single-process CLI prints, and the ranks
 of data row 0 write the model, ``{model_output}_S{s}`` from the rank
-holding server shard ``s``. On a mesh the darlin app and model
-evaluation raise ``NotImplementedError`` naming ROADMAP A9.
+holding server shard ``s``. Every app runs on a mesh: ``async_sgd`` and
+``darlin`` over its data and server axes, model evaluation once, on rank
+0 (the JAX CLI runs it once whatever the mesh), the other ranks leaving
+at once.
 
 - ``darlin``: the training files are read and localized in one batch,
   divided into feature blocks and trained by block coordinate descent
-  (``DarlinScheduler``), printing a progress line a pass; the model goes
-  to ``{model_output}_S0`` and the last progress line is printed again.
+  (``DarlinScheduler``, on a mesh the examples split over its data
+  axis), printing a progress line a pass; the model goes to
+  ``{model_output}_S{s}``, one file a server shard, and the last
+  progress line is printed again.
 - ``async_sgd``: driven as the JAX CLI drives it, through an
   ``AsyncSGDScheduler`` (each ``training_data`` file pattern one workload
   a pass, for ``num_data_pass`` passes) whose monitor the worker reports
@@ -97,14 +101,6 @@ def _agree_on_random() -> None:
     random.seed(int.from_bytes(seed, "little"))
 
 
-def _unported_on_mesh(conf) -> None:
-    if conf.darlin is not None or conf.async_sgd is None:
-        app = "darlin" if conf.darlin is not None else "model evaluation"
-        raise NotImplementedError(
-            f"the {app} app on a mesh of several ranks is ROADMAP A9 slice 2; run it with "
-            "one server and one worker")
-
-
 def main(argv=None, device=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("conf", help="path to a protobuf-text .conf file")
@@ -127,16 +123,10 @@ def main(argv=None, device=None) -> int:
     device = device if device is not None else args.device
     world = max(1, args.num_workers) * args.num_servers
     if not os.environ.get("PS_COORDINATOR_ADDRESS") and world > 1:
-        _unported_on_mesh(conf)  # before starting ranks that would each refuse
         return _spawn(argv if argv is not None else sys.argv[1:], world, device)
     po = Postoffice.instance().start(num_data=args.num_workers or None,
                                      num_server=args.num_servers, device=device)
     if po.mesh.size > 1:
-        try:
-            _unported_on_mesh(conf)
-        except NotImplementedError:
-            po.stop()
-            raise
         if po.mesh.rank == 0:
             print(f"mesh {po.mesh.shape['data']}x{po.mesh.shape['server']} (data x server) "
                   f"over {po.mesh.backend}, rank 0 on {po.device}", flush=True)
@@ -201,7 +191,9 @@ def _run_app(conf, device, aux, verbose: bool = False) -> int:
         return _run_darlin(conf, device, aux)
     if conf.async_sgd is None:
         if conf.validation_data is not None:
-            ModelEvaluation(conf, device=device).run()
+            mesh = Postoffice.instance().mesh
+            if mesh is None or mesh.rank == 0:
+                ModelEvaluation(conf, device=device).run()
             return 0
         print("config selects no app", file=sys.stderr)
         return 2

@@ -23,6 +23,9 @@ validation data and print its AUC, accuracy and log loss.
   grouped, so on the card that is one ``segment_sum.cu`` launch a
   minibatch.
 - Metrics, on the host, from y and Xw (``utils/evaluation.py``).
+- On a mesh of ranks: one evaluation, as the JAX CLI runs one whatever
+  its mesh; the linear CLI runs it on rank 0 (``main.py``), which prints
+  what one card prints.
 
 Each row's sum adds its entries in entry order from +0.0, as the JAX
 package's ``np.add.at`` into float32 zeros does, so Xw and the metrics

@@ -20,7 +20,21 @@ Counterpart of ``parameter_server_tpu/learner/consistency.py``:
 Threads: ``on_collect`` runs on the collect thread (the one that calls
 ``train``), ``filter_batch`` on the prep thread (serial:
 ``kkt_drop_after > 0`` needs ``ingest_workers=1``). The drop set is
-handed across under a lock.
+handed across under a lock, with a version (one more at each change)
+and an order-free digest of its slots (:meth:`SignificanceTracker.stamp`).
+Which version a prep sees is the worker's to fix: ``train`` preps each
+launch group with the drop set the collects before it left, on the
+pipelined path as on the serial one.
+
+**On a mesh** (the worker's ``mesh``): every rank runs a controller and
+a tracker of its own, fed the same folded metrics, so their τ moves and
+drop sets agree; the worker checks both at every launch
+(``parallel/distributed.agree_on``). The reaction to a non-finite
+collect runs on every rank at that collect. A :meth:`ConsistencyRuntime.react`
+from outside (an alert, on a rank's own clock) is only a request: the
+worker's dispatch thread takes it into the next launch's agreement, and
+every rank runs the reaction at that launch's collect, whichever ranks
+asked.
 
 The controller reads the signals the JAX controller reads: each
 collect's objective, example count and ``grad_sq``. Both record into the
@@ -125,6 +139,11 @@ class AdaptiveTauController:
         # and the episode log as they were (collect propagates it)
         faults.inject("consistency.rollback", detail=reason)
         worker = self.worker
+        drain = getattr(worker, "_drain", None)
+        if drain is not None:
+            # the steps in flight ran at the old rate, as the JAX worker's
+            # compiled steps do: they run out before the rate changes
+            drain()
         self._set_tau(0, "reset")
         self._stable = 0
         self._grad_window.clear()
@@ -181,6 +200,8 @@ class SignificanceTracker:
             )["push_keys"].labels(store=worker.name, channel=0)
         self._streaks: Dict[int, int] = {}  # collect thread only
         self._dropped: set = set()  # guarded by _lock
+        self._version = 0  # changes of the drop set; guarded by _lock
+        self._digest = 0  # sum of _mix(slot) over the drop set, mod 2^64; guarded by _lock
         self._lock = threading.Lock()
         self._preps = 0  # prep thread only
         self.candidates = 0
@@ -229,8 +250,21 @@ class SignificanceTracker:
         if newly or undropped:
             with self._lock:
                 # a kept sighting (a revisit, or an escape) re-earns the slot
-                self._dropped.difference_update(undropped)
-                self._dropped.update(newly)
+                gone = self._dropped.intersection(undropped)
+                self._dropped.difference_update(gone)
+                came = set(newly).difference(self._dropped)
+                self._dropped.update(came)
+                if gone or came:
+                    self._version += 1
+                    self._digest = (self._digest + sum(_mix(x) for x in came)
+                                    - sum(_mix(x) for x in gone)) & _M64
+
+    def stamp(self) -> tuple:
+        """``(version, digest)`` of the drop set now: the version counts
+        its changes, the digest (63 bits) sums a hash of each slot, so two
+        trackers with the same set give the same digest."""
+        with self._lock:
+            return self._version, self._digest >> 1
 
     def filter_batch(self, batch: SparseBatch, directory) -> SparseBatch:
         """Drop the dropped slots' entries from one batch (a CSR
@@ -285,6 +319,17 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
+_M64 = (1 << 64) - 1
+
+
+def _mix(x: int) -> int:
+    """splitmix64's finalizer: a slot id's 64-bit hash for the digest."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
 class ConsistencyRuntime:
     """One worker's controller and tracker, with the hooks the worker
     calls: :meth:`on_collect` from ``collect``, :meth:`filter_batch`
@@ -294,6 +339,12 @@ class ConsistencyRuntime:
         self.worker = worker
         self.controller: Optional[AdaptiveTauController] = controller
         self.tracker: Optional[SignificanceTracker] = tracker
+        #: on a mesh: reaction requests not yet taken into a launch
+        self._requests: List[str] = []  # guarded by _lock
+        #: each agreed reaction's local reason (None: a peer asked), in
+        #: launch order; the dispatch thread appends, the collect pops
+        self._agreed: collections.deque = collections.deque()
+        self._lock = threading.Lock()
 
     @classmethod
     def from_config(cls, worker, sgd, **kw) -> "ConsistencyRuntime":
@@ -313,6 +364,11 @@ class ConsistencyRuntime:
         return cls(worker, controller, tracker)
 
     def on_collect(self, metrics: Mapping[str, Any]) -> None:
+        if self.controller is not None and "consistency_react" in metrics:
+            # a reaction the mesh agreed on at this launch: every rank runs
+            # it here, at the collect of the same launch
+            reason = self._agreed.popleft() if self._agreed else None
+            self.controller.react(reason or "peer")
         if self.tracker is not None:
             self.tracker.note_metrics(metrics)
         if self.controller is not None:
@@ -332,9 +388,29 @@ class ConsistencyRuntime:
         return self.tracker.filter_batch(batch, directory)
 
     def react(self, reason: str = "alert") -> Optional[Dict[str, Any]]:
+        """The reaction now, and its episode; on a mesh a request that
+        the next launch's agreement takes (the module's docstring), and
+        None."""
         if self.controller is None:
             return None
+        if getattr(self.worker, "mesh", None) is not None:
+            with self._lock:
+                self._requests.append(reason)
+            return None
         return self.controller.react(reason)
+
+    def take_request(self) -> Optional[str]:
+        """The reason of the oldest reaction request not yet taken (all
+        of them are taken at once), or None. Dispatch thread."""
+        with self._lock:
+            reqs, self._requests = self._requests, []
+        return reqs[0] if reqs else None
+
+    def note_agreed(self, reason: Optional[str]) -> None:
+        """A launch's agreement called for a reaction: remember this
+        rank's reason (None if only a peer asked) for its collect.
+        Dispatch thread."""
+        self._agreed.append(reason)
 
     def snapshot(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {"worker": self.worker.name}

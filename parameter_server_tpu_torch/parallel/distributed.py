@@ -28,7 +28,9 @@ and keeps row ``d`` of each global minibatch. The check's intent stays:
 :func:`assert_row_agrees` compares a digest of the rows over the server
 group, and of the parts prepped alike for every row (the sparse update's
 global unique slots, whose gradients the data psum adds slot by slot)
-over the data group; the linear worker runs it on its first batch.
+over the data group; the linear worker runs it on its first batch, and
+on every batch whose host decisions changed (:func:`agree_on` holds
+those decisions alike on every rank at every launch).
 
 **Devices.** A rank runs on the card unless the launcher names another
 device type (``PS_DEVICE``); with no card it raises, as every entry
@@ -230,6 +232,40 @@ def batch_digest(tree) -> int:
 def _digests(mesh: "meshlib.Mesh", tree, axis: str) -> list:
     mine = torch.tensor([batch_digest(tree)], dtype=torch.int64, device=mesh.device)
     return meshlib.all_gather(mine, axis, mesh).cpu().tolist()
+
+
+def digest_ints(*parts) -> int:
+    """A 63-bit digest of a few values (their ``repr``s, in order): a
+    signature that :func:`agree_on` can compare over the mesh."""
+    h = hashlib.blake2b(repr(parts).encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def agree_on(mesh: "meshlib.Mesh", values, names, flag: bool = False,
+             axes=(meshlib.SERVER_AXIS, meshlib.DATA_AXIS)) -> bool:
+    """Raise unless every rank of the mesh (of this rank's groups of
+    ``axes``) holds the same ``values`` (ints of 63 bits, one a name of
+    ``names``), and return whether any rank raised ``flag``: one
+    ``all_reduce`` (MAX) over this rank's server group, then one over its
+    data group, of the values, their negations and the flag. Every rank
+    ends with the same maxima and minima, so a disagreement raises on
+    every rank at the same call and no rank is left waiting in a later
+    collective. A collective of each axis of more than one rank: every
+    rank calls it at the same point of the same thread's order of
+    collectives."""
+    vals = [int(v) for v in values]
+    packed = vals + [-v for v in vals] + [int(bool(flag))]
+    for axis in axes:
+        packed = meshlib.agree_max(packed, axis, mesh)
+    n = len(vals)
+    hi, lo = packed[:n], [-v for v in packed[n:2 * n]]
+    if hi != lo:
+        apart = [name for name, a, b in zip(names, hi, lo) if a != b]
+        raise ValueError(
+            f"the ranks of mesh {mesh.shape} disagree on {', '.join(apart)} (rank "
+            f"{mesh.rank} holds {dict(zip(names, vals))}): every rank must make the same "
+            "decisions from the same stream")
+    return bool(packed[-1])
 
 
 def assert_row_agrees(mesh: "meshlib.Mesh", tree, shared=None) -> None:

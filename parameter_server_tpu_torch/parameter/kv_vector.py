@@ -67,7 +67,11 @@ journal, so the gathered table holds the same pushes on every shard.
 A pull assembles the row's shards, so the row flips its layout between
 the same two reads on every rank: a migration holds this rank's reads
 at the row's agreed count while it installs and flips
-(:meth:`_flip_in_step`). A recovery install has no such gate: a pull
+(:meth:`_flip_in_step`). Threads of one process that push and pull
+(``ps.run_system``'s worker apps) take turns in one order that every
+rank shares (``parallel/turns.py``); while turns are active each
+submission folds into the store's order digest, and a pull agrees it
+over the server axis before its collective. A recovery install has no such gate: a pull
 beside it may read some shards before it and others after (each key's
 row whole from one side). :meth:`set_replica` installs each rank's rows
 of a base-layout snapshot, whatever server count took it.
@@ -86,6 +90,7 @@ import torch
 from ..device import resolve
 from ..ops import kv_ops
 from ..parallel import mesh as meshlib
+from ..parallel import turns
 from ..system.message import Task
 from ..utils import file as psfile
 from .parameter import KeyDirectory, Parameter, pad_slots
@@ -217,6 +222,7 @@ class KVVector(Parameter):
                             np.asarray(values))
         return v.to(self.dtype).reshape(-1, self.k).to(self.device)
 
+    @turns.in_turn("pull")
     def pull(self, task: Task, keys: Optional[np.ndarray] = None,
              slots: Optional[torch.Tensor] = None, callback=None) -> int:
         """Async pull; returns the timestamp. Result via ``wait_pull``."""
@@ -228,8 +234,11 @@ class KVVector(Parameter):
         with c.remap_lock:  # wholly before or after a migration's flip
             self._read_slot(c)
             resolved = self._current(c, keys, pre)
+            order = turns.note(self, "pull", len(resolved))
 
             def step():
+                if order is not None and self.mesh is not None:
+                    turns.check_order(self.mesh, order, self.name)
                 return kv_ops.pull(c.table, resolved, **self._kv())
 
             return self.instrumented_submit("pull", ch, len(resolved), step, task, callback)
@@ -239,6 +248,7 @@ class KVVector(Parameter):
         its device work is done."""
         return self.executor.wait(ts)
 
+    @turns.in_turn("push")
     def push(self, task: Task, keys: Optional[np.ndarray] = None, values=None,
              slots: Optional[torch.Tensor] = None, callback=None) -> int:
         """Async additive push; returns the timestamp."""
@@ -266,11 +276,13 @@ class KVVector(Parameter):
                     c.table = kv_ops.push_donated(c.table, resolved, vals, **self._kv())
                     return c.table
 
+            turns.note(self, "push", len(resolved))
             ts = self.instrumented_submit("push", ch, len(resolved), step, task, callback)
             if not staged:
                 self._count_push(c, ts, resolved, vals)
             return ts
 
+    @turns.in_turn("push_pull")
     def push_pull(self, task: Task, keys: Optional[np.ndarray] = None, values=None,
                   slots: Optional[torch.Tensor] = None, pull_keys: Optional[np.ndarray] = None,
                   callback=None) -> int:
@@ -294,8 +306,11 @@ class KVVector(Parameter):
             self._read_slot(c)
             resolved = self._current(c, keys, pre)
             pull_slots = None if pull_keys is None else self._current(c, pull_keys, pre_pull)
+            order = turns.note(self, "push_pull", len(resolved))
 
             def step():
+                if order is not None and self.mesh is not None:
+                    turns.check_order(self.mesh, order, self.name)
                 c.table, pulled = kv_ops.push_pull_donated(c.table, resolved, vals, pull_slots,
                                                            **self._kv())
                 return pulled
@@ -618,6 +633,7 @@ class KVVector(Parameter):
 
     # -- replica hooks --
 
+    @turns.in_turn("get_replica")
     def get_replica(self) -> dict:
         """Host copies of every channel table, whole and in the base
         layout, once the in-flight steps are done (the caller stops
@@ -687,6 +703,7 @@ class KVVector(Parameter):
                 t = torch.empty_like(t).index_copy_(0, perm_dev, t)
             c.table = self._mine(t).clone() if self.mesh is not None else t
 
+    @turns.in_turn("write_to_file")
     def write_to_file(self, path: str, ch: int = 0) -> None:
         """Dump nonzero (key, value) pairs as text (ref WriteToFile), in
         the base layout (an exact directory's key order lines up with the

@@ -23,14 +23,30 @@ task's spec run on every request and its reply), the receiver's
 this rank's ``(data, server)`` mesh (one process a mesh position, in a
 world a launcher starts; one process alone is the ``1 x 1`` mesh of its
 card) and the node table H0, S0.., W0... ``run_system`` hosts every node
-of the table in this one process, so it takes one server and one worker:
-more, where every rank of a world would host every node, is ROADMAP A9
-slice 2. ``device`` picks the card as every entry point does (the CUDA
-device unless the caller names another).
+of the table in each process, as the JAX package hosts them in its one
+process over its device mesh:
+
+- in a world a launcher started (``PS_COORDINATOR_ADDRESS`` et al.), of
+  ``num_workers x num_servers`` ranks, each rank builds that mesh and
+  hosts every node; a ``KVVector`` a server app builds is sharded over
+  its server axis, and every rank runs every app, so each data row holds
+  a replica of the store. The worker apps' threads submit to a store in
+  one order that every rank shares (``parallel/turns.py``: their pushes
+  and pulls take turns round robin, W0, W1, ...), each pull agrees the
+  order so far over the server axis before its collective, and the run
+  ends agreeing every store's order over the mesh: a disagreement raises
+  on every rank;
+- in one process, with no world, the nodes share its card (a ``1 x 1``
+  mesh under the node table of ``num_servers`` servers and
+  ``num_workers`` workers).
+
+``device`` picks the card as every entry point does (the CUDA device
+unless the caller names another).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import threading
@@ -198,6 +214,27 @@ def submit(app: App, task: Optional[Task] = None, recver: str = NodeGroups.SERVE
     return app.submit(step, task=task)
 
 
+def _start_nodes(num_workers: Optional[int], num_servers: int, key_space: Optional[Range],
+                 device) -> Postoffice:
+    """Start the system whose every node this process hosts: on a mesh of
+    ``num_workers x num_servers`` ranks in a launcher's world, else on
+    this process's card under a node table of that many nodes."""
+    from .parallel import distributed
+
+    if distributed.initialize():
+        po = start_system(num_workers, num_servers, key_space, device)
+        if not po.mesh.active:
+            po.stop()
+            raise ValueError(
+                f"rank {po.mesh.rank} is outside the {po.mesh.shape} mesh of run_system: "
+                "start a world of num_workers x num_servers ranks")
+        return po
+    po = start_system(1, 1, key_space, device)
+    po.manager.init_nodes(num_servers=num_servers, num_workers=num_workers or 1,
+                          key_space=key_space or Range.all())
+    return po
+
+
 def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
                num_servers: int = 1, key_space: Optional[Range] = None,
                device=None) -> List[App]:
@@ -208,15 +245,14 @@ def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
     reference's ``App::Create``); each worker app's ``run()`` then runs on
     its own thread, and after them the other apps' ``run()``. A worker's
     exception fails the program. Returns the apps (scheduler, servers,
-    workers). One server and one worker: every rank of a world would host
-    every node of a larger table (ROADMAP A9 slice 2)."""
-    if num_servers != 1 or num_workers not in (None, 1):
-        raise NotImplementedError(
-            f"run_system with {num_servers} servers and {num_workers} workers: one process "
-            "hosts every node of the table here; the nodes over a mesh of ranks are ROADMAP "
-            "A9 slice 2")
-    po = start_system(num_workers, num_servers, key_space, device)
+    workers). In a launcher's world every rank calls it and hosts every
+    node (the module's docstring)."""
+    from .parallel import turns as turnslib
+
+    po = _start_nodes(num_workers, num_servers, key_space, device)
+    on_mesh = po.mesh.size > 1
     apps: List[App] = []
+    order = None
     try:
         for node in po.manager.nodes:
             _set_current_node(node)
@@ -229,6 +265,10 @@ def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
             apps.append(app)
             _app_registry.append(app)
         workers = [a for a in apps if a.node.role == Node.WORKER]
+        if on_mesh:
+            # the worker threads' store submissions: one order on every rank
+            order = turnslib.Turns([a.node.id for a in workers])
+            turnslib.activate(order)
         threads = []
         errors: List[BaseException] = []
         errors_lock = threading.Lock()
@@ -237,7 +277,9 @@ def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
             def body(app: App = app) -> None:
                 _set_current_node(app.node)
                 try:
-                    app.run()
+                    with (order.member(app.node.id) if order is not None
+                          else contextlib.nullcontext()):
+                        app.run()
                 except BaseException as e:  # noqa: BLE001 — raised below
                     with errors_lock:
                         errors.append(e)
@@ -253,7 +295,12 @@ def run_system(create_app: Callable[[], App], num_workers: Optional[int] = None,
             if app.node.role != Node.WORKER:
                 _set_current_node(app.node)
                 app.run()
+        if order is not None:
+            # every store's submissions, and the turns, alike on every rank
+            order.check(po.mesh)
     finally:
+        if order is not None:
+            turnslib.activate(None)
         # drain every app's executor before the registry goes: a broadcast
         # still queued on a dispatch thread delivers first
         unwinding = sys.exc_info()[0] is not None

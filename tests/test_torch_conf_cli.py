@@ -4,7 +4,9 @@
   under ``configs/`` that selects ``async_sgd`` or ``darlin`` (exact), and
   the same defaults; a conf of a feature the port does not have (server
   replicas) raises ``NotImplementedError``; the model-evaluation confs
-  run (``tests/test_torch_model_evaluation.py``).
+  run (``tests/test_torch_model_evaluation.py``); the rcv1 darlin conf
+  runs under ``--num-servers 2`` and ``--num-workers 2`` as the JAX CLI
+  runs it on the same mesh shape.
 - Each ``batch_l1lr.conf`` (darlin) runs through both CLIs on ~2,000
   generated rows of its format, from a directory laid out as its paths
   expect: the same progress lines, each printed number within one unit
@@ -249,14 +251,51 @@ def test_batch_conf_cli_matches_jax(path, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--num-servers", "2"], ["--num-workers", "2"]])
-def test_system_layer_flags_raise(flag, tmp_path):
-    """A mesh of several ranks runs the async_sgd app
-    (``tests/test_torch_parallel_linear.py``); the darlin app on one
-    raises naming A9, before any rank starts."""
-    conf = tmp_path / "c.conf"
-    conf.write_text(open(ROOT / "configs" / "rcv1" / "batch_l1lr.conf").read())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tmain.main([str(conf), *flag], device="cpu")
+def test_system_layer_flags_raise(flag, tmp_path, monkeypatch, capfd):
+    """The system-layer flags on the darlin app, which raised naming A9
+    until ROADMAP A9 slice 2's third part: ``configs/rcv1/batch_l1lr.conf``
+    on 2,000 generated rows now runs on a mesh of 2 CPU ranks (1x2 or
+    2x1) through the port's CLI, and the JAX CLI runs it on the same
+    mesh shape: the same progress lines within ``test_batch_conf_cli_
+    matches_jax``'s printed tolerances, one model file a server shard, the
+    same keys, the weights within its model tolerance."""
+    from parameter_server_tpu.apps.linear import main as jmain
+
+    path = str(ROOT / "configs" / "rcv1" / "batch_l1lr.conf")
+    conf = tcfg.parse_conf(open(path).read())
+    (train_glob,) = conf.training_data.file
+    _write_batch_data("rcv1", str(tmp_path / os.path.dirname(train_glob)), 2000, seed=1)
+    monkeypatch.chdir(tmp_path)
+    Postoffice.reset()
+    try:
+        assert jmain.main([path, *flag]) == 0
+    finally:
+        Postoffice.reset()
+    want = _progress(capfd.readouterr().out)
+    shards = int(flag[1]) if flag[0] == "--num-servers" else 1
+    model = conf.model_output.file[0]
+    for s in range(shards):
+        os.rename(tmp_path / f"{model}_S{s}", tmp_path / f"{model}_jax_S{s}")
+    assert tmain.main([path, *flag], device="cpu") == 0
+    out = capfd.readouterr().out
+    assert "starting 2 ranks on cpu over gloo" in out
+    got = _progress(out)
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[3:5] == w[3:5], (g, w)
+        assert _printed_close(g[1], w[1], rtol=1e-6), (g, w)
+        assert _printed_close(g[2], w[2], atol=1e-6), (g, w)
+        assert _printed_close(g[5], w[5], rtol=1e-5), (g, w)
+    assert sorted(os.listdir(tmp_path / "model")) == sorted(
+        [f"rcv1_batch_S{s}" for s in range(shards)] + [f"rcv1_batch_jax_S{s}"
+                                                        for s in range(shards)])
+    for s in range(shards):
+        rows = [line.split("\t") for line in (tmp_path / f"{model}_S{s}").read_text().splitlines()]
+        jrows = [line.split("\t") for line in
+                 (tmp_path / f"{model}_jax_S{s}").read_text().splitlines()]
+        assert [k for k, _ in rows] == [k for k, _ in jrows]
+        np.testing.assert_allclose([float(v) for _, v in rows], [float(v) for _, v in jrows],
+                                   rtol=1e-4, atol=1e-5)
 
 
 # -- parsers --

@@ -1,6 +1,7 @@
 """PyTorch port: the linear worker's ELL wires (i32, u24, bits, stream)
 over a (data, server) mesh against the JAX mesh worker, the checkpoint
-restored across server counts, what a mesh still refuses, and the CLI
+restored across server counts, the features a mesh refused until A9
+slice 2's third part building there, and the CLI
 on ``configs/criteo/online_l1lr_bigtable.conf`` with ``--num-servers``.
 
 The port's side runs in one gloo world of 8 CPU ranks (rank functions
@@ -265,13 +266,19 @@ def test_checkpoint_restores_across_server_counts(runs):
         JPostoffice.reset()
 
 
-# -- what a mesh still refuses, and every ELL wire building a mesh step --
+# -- what a mesh refused until ROADMAP A9 slice 2, and every ELL wire building a mesh step --
 
 
 @pytest.mark.parametrize("field,value", [
     ("kkt_filter", True), ("wire_encode", "exact"), ("tau_adaptive", True),
 ])
 def test_features_left_unported_on_a_mesh_raise_naming_a9(field, value):
+    """Ported in A9 slice 2's third part: each conf that raised naming it
+    here builds on rank 0's view of a 2x2 mesh (nothing collective runs),
+    preps this data row's part of a batch of the ELL tests and builds its
+    mesh step: the KKT filter rides the raw exact wire's step, the
+    encoded wire's own, adaptive τ starts at 1. Their worlds are in
+    ``tests/test_torch_parallel_consistency.py``."""
     conf = ranks.linear_conf("sparse", "float32", 1)
     setattr(conf.async_sgd, field, value)
     if field == "tau_adaptive":
@@ -279,8 +286,17 @@ def test_features_left_unported_on_a_mesh_raise_naming_a9(field, value):
     mesh = tmesh.Mesh(2, 2, "cpu")  # rank 0's view; nothing collective runs
     Postoffice.reset()
     try:
-        with pytest.raises(NotImplementedError, match="A9 slice 2"):
-            tsgd.AsyncSGDWorker(conf, mesh=mesh)
+        w = tsgd.AsyncSGDWorker(conf, mesh=mesh)
+        batch = _batch_sets(tsparse)["i32"][0]
+        prepped = w.prep(batch, device_put=False)
+        want = "EncodedExactBatch" if field == "wire_encode" else "PreppedBatch"
+        assert type(prepped).__name__ == want
+        assert callable(w._get_step(prepped, True))
+        key = "exact_enc" if field == "wire_encode" else "exact"
+        assert (key, True) in w._steps
+        if field == "tau_adaptive":
+            assert w._consistency.controller.tau == 1
+        w.remove()
     finally:
         Postoffice.reset()
 

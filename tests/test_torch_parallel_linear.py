@@ -357,16 +357,20 @@ def test_jax_mesh_state_continues_on_the_port_mesh(runs):
     assert_state_close(final, _whole_state(port, i))
 
 
-# -- what a mesh still refuses --
+# -- what a mesh refused until ROADMAP A9 slice 2 --
 
 
 @pytest.mark.parametrize("field,value", [
     ("kkt_filter", True), ("wire_encode", "exact"), ("ell_lanes", 39), ("tau_adaptive", True),
 ])
 def test_unported_features_on_a_mesh_raise_naming_a9(field, value):
-    """The ELL wires run on a mesh now (``tests/test_torch_parallel_ell.py``):
-    with ``ell_lanes`` the conf also asks for the encoded exact wire, still
-    unported, and the refusal names that and not the ELL wires."""
+    """The confs that raised naming A9 slice 2 here until its third part
+    build on rank 0's view of a 2x2 mesh (nothing collective runs): the
+    worker preps this data row's part of the global batch (with
+    ``wire_encode``, encoded from the whole batch; ``ell_lanes`` rides
+    along with it, as before) and builds the mesh step of its wire, with
+    the KKT filter or adaptive τ; the launch agreement is on. They run in
+    worlds in ``tests/test_torch_parallel_consistency.py``."""
     conf = ranks.linear_conf("sparse", "float32", 1)
     setattr(conf.async_sgd, field, value)
     if field == "tau_adaptive":
@@ -376,9 +380,18 @@ def test_unported_features_on_a_mesh_raise_naming_a9(field, value):
     mesh = tmesh.Mesh(2, 2, "cpu")  # rank 0's view; nothing collective runs
     Postoffice.reset()
     try:
-        with pytest.raises(NotImplementedError, match="A9 slice 2") as e:
-            tsgd.AsyncSGDWorker(conf, mesh=mesh)
-        assert "ell_lanes" not in str(e.value)
+        w = tsgd.AsyncSGDWorker(conf, mesh=mesh)
+        prepped = w.prep(_port_batch(make_batch(0)), device_put=False)
+        encoded = field in ("wire_encode", "ell_lanes")
+        assert type(prepped).__name__ == ("EncodedExactBatch" if encoded else "PreppedBatch")
+        assert prepped.counts.shape[0] == 1 if encoded else prepped.y.shape[0] == 1
+        assert callable(w._get_step(prepped, True))
+        assert w._agree_launches is (field != "kkt_filter")
+        if field == "kkt_filter":
+            assert w._significance is not None and w._consistency.tracker is not None
+        if field == "tau_adaptive":
+            assert w._consistency.controller.tau == 1
+        w.remove()
     finally:
         Postoffice.reset()
 
@@ -468,14 +481,36 @@ def test_cli_mesh_without_a_card_raises_unless_told_the_device(tmp_path, monkeyp
         tmain.main([str(conf), "--num-servers", "2", "--num-workers", "2"])
 
 
-def test_darlin_in_a_launched_world_raises_on_the_mesh_it_builds():
+def test_darlin_in_a_launched_world_raises_on_the_mesh_it_builds(tmp_path, capfd):
     """In a launcher's world with the default flags the mesh auto-shapes
-    over the world (here 2 x 1): each rank refuses the darlin app on the
-    mesh it built, naming A9, instead of training it alone."""
-    conf = str(ROOT / "configs" / "rcv1" / "batch_l1lr.conf")
-    with pytest.raises(launch.WorldError, match="darlin app on a mesh") as e:
-        launch.run_world(ranks.linear_cli, 2, args=([conf],), device_type="cpu", timeout=120)
-    assert "A9 slice 2" in str(e.value) and "NotImplementedError" in str(e.value)
+    over the world (here 2 x 1), where until ROADMAP A9 slice 2's third
+    part each rank refused the darlin app naming A9: now every rank trains
+    ``configs/rcv1/batch_l1lr.conf``'s app on its half of the rows (2,000
+    generated), and the model of data row 0's rank holds the one-process
+    CLI's keys, its weights within ``tests/test_torch_parallel_darlin.py``'s
+    whole-run tolerance."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("synth_data", ROOT / "configs" / "synth_data.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    rng = np.random.default_rng(1)
+    w = (rng.normal(size=1 << 12) * (rng.random(1 << 12) < 0.1)).astype(np.float32)
+    synth.write_libsvm(str(tmp_path / "part-001"), rng, 2000, 1 << 12, 32, w)
+    text = open(ROOT / "configs" / "rcv1" / "batch_l1lr.conf").read()
+    text = text.replace("data/rcv1/train/part.*", str(tmp_path / "part-.*"))
+    for name in ("world", "one"):
+        (tmp_path / f"{name}.conf").write_text(
+            text.replace("model/rcv1_batch", str(tmp_path / name / "model")))
+    codes = launch.run_world(ranks.linear_cli, 2, args=([str(tmp_path / "world.conf")],),
+                             device_type="cpu", timeout=120)
+    assert codes == [0, 0]
+    assert "model written to" in capfd.readouterr().out
+    Postoffice.reset()
+    assert tmain.main([str(tmp_path / "one.conf")], device="cpu") == 0
+    a, b = _model(tmp_path / "world" / "model_S0"), _model(tmp_path / "one" / "model_S0")
+    assert a and sorted(a) == sorted(b)
+    np.testing.assert_allclose([a[k] for k in b], [b[k] for k in b], rtol=1e-5, atol=5e-6)
 
 
 def _model(path):

@@ -16,7 +16,8 @@ reaching its sender, a re-entrant submit. Beside them:
   ``parameter_server_tpu_torch.utils.range``) are each 6 bytes longer;
 - a reply carries its task's filter specs through both apps' per-peer
   chains: the keys cross once, then as their signature;
-- ``run_system`` with two servers or two workers raises naming A9.
+- ``run_system`` with two servers or two workers hosts them all in one
+  process: the same log as the JAX package's on that layout.
 """
 
 import threading
@@ -258,7 +259,23 @@ def test_filter_specs_ride_every_reply_through_the_peer_chains():
     assert reply_bytes[1] == reply_bytes[2] == reply_bytes[3]
 
 
-@pytest.mark.parametrize("layout", [dict(num_workers=2), dict(num_servers=2)])
+@pytest.mark.parametrize("layout", [dict(num_workers=2), dict(num_workers=1, num_servers=2)])
 def test_more_than_one_server_or_worker_raises_naming_a9(layout):
-    with pytest.raises(NotImplementedError, match="A9"):
-        ps.run_system(ps.App, device="cpu", **layout)
+    """Until ROADMAP A9 slice 2's third part, two servers or two workers
+    raised here naming A9. Now one process with no world hosts the whole
+    node table on its card (a world of ranks: ``tests/test_torch_parallel_ps.py``):
+    the hello program's log by node is the JAX package's on the same
+    layout (the JAX package's own data axis spreads over its 8 devices
+    unless told one worker), and the van's totals equal the ``RemoteNode``
+    counters."""
+    create_app, log = hello_program(ps, Task)
+    apps = ps.run_system(create_app, device="cpu", **layout)
+    ours = wire_totals(apps)
+    nodes = [a.node.id for a in apps]
+    jcreate, jlog = hello_program(jps, jmsg.Task)
+    japps = jps.run_system(jcreate, **layout)
+    assert nodes == [a.node.id for a in japps]
+    assert nodes == (["H0", "S0", "S1", "W0"] if "num_servers" in layout
+                     else ["H0", "S0", "W0", "W1"])
+    assert sorted(log) == sorted(jlog) and len(log) == len(jlog) > 7
+    assert ours[0] == ours[2] > 0 and ours[1] == ours[3] > 0
