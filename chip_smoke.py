@@ -435,6 +435,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    to ``checkpoint``'s, every rank's restore resuming bit-equal. Each
    part's kernels are held to their plain versions on the part's first
    launch's inputs, on every rank;
+9f. the serving plane over a mesh (ROADMAP A9 slice 2's rest), the ranks
+   sharing the card over gloo (``benchmarks/mesh_serve.py``): (a) in a
+   world of 6, a hashed ``KVVector`` of 2^22 x 1 at 2x2 with the serve
+   CLI's warm push, the JAX resize test's frontend (a full replica
+   refreshed every 0.01 s, 2 workers, a queue of 64, 3 clients of 16-key
+   requests) served for ``MESH9F_PHASE_S`` before and after
+   ``resize(num_server=3)``: zero wrong, zero errors, traffic completed
+   on both sides, the values after the resize bit-equal to those before,
+   the replica's refresh (a whole-table gather) timed at 2x2 and 2x3;
+   then the resized table with the replica off and hot, bit-equal to one
+   CPU store fed the same push, the ranks of each server column holding
+   the same shard; (b) in a world of 4, the serve CLI on every rank (its
+   4 x 1 mesh) with ``--replica full --train-while-serving``, then
+   ``--replica off``, rank 0's records beside phase A's one-card ones,
+   the table agreed on every rank; (c) in the same world, the component
+   suite's ``learning`` and ``consistency`` at 2x2 and ``kv_vector``,
+   ``kv_map``, ``kv_layer``, ``sparse_matrix``, ``serve`` and
+   ``decode_batching`` at 4 x 1, and ``recovery_drill``, which is not run
+   across ranks (rank 0 drills a table of its own, 1 x 1), each at the
+   size phase 8g runs it, rank 0's lines beside 8g's. Each part counts
+   every kernel, the flash kernels too, from zero, and holds each kernel
+   it launched to its plain version on its first launch's inputs, on
+   every rank;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -5897,6 +5920,173 @@ def slice_mesh_plane(seed: int, smi: str, dar: dict) -> dict:
     return out
 
 
+# -- phase 9f: the serving plane over a mesh sharing the card --
+
+MESH9F_PHASE_S = 2.0  # traffic on each side of 9f(a)'s resize
+MESH9F_REQUESTS = 256  # pool requests 9f(a) serves with the replica off and hot (the CLI's 512 cut)
+MESH9F_CLI = (["--replica", "full", "--train-while-serving"], ["--replica", "off"])
+MESH9F_SUITE = ("kv_vector", "kv_map", "kv_layer", "sparse_matrix", "serve", "decode_batching",
+                "learning", "recovery_drill", "consistency")
+MESH9F_TWO_SHARDS = ("learning", "consistency")  # the JAX _learning_mesh(): 2x2 in a world of 4
+MESH9F_RANK0_ALONE = ("recovery_drill",)  # drilled on rank 0's own table, 1 x 1
+MESH9F_KERNELS = ("ftrl_sparse", "ftrl_dense", "quantize", "segment_sum", "flash_fwd",
+                  "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def serve_mesh_plane(seed: int, smi: str, cli_one: dict, comp: dict) -> dict:
+    """Phase 9f, (a)-(c), printed as they finish; ``cli_one``: phase A's
+    one-card serve CLI runs, ``comp``: phase 8g's one-card component
+    records, each printed beside its mesh counterpart."""
+    from parameter_server_tpu_torch.benchmarks import mesh_serve
+    from parameter_server_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(MESH9F_KERNELS, 0)
+
+    def add(runs) -> None:
+        for r in runs:
+            for k in MESH9F_KERNELS:
+                launches[k] += r["launches"].get(k, 0)
+
+    def held(r, what: str) -> None:
+        for k, n in r["launches"].items():
+            if n:
+                check(r.get("held", {}).get(k) is not None,
+                      f"9f {what}: {k} launched {n} times and was not held to its plain version")
+
+    # (a) the frontend across a resize, 2x2 -> 2x3 in a world of 6
+    t0 = time.perf_counter()
+    ranks = launch.run_world(mesh_serve.frontend_resize, 6,
+                             args=(seed, SERVE_SLOTS, MESH9F_PHASE_S, MESH9F_REQUESTS, True),
+                             device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    a_s = time.perf_counter() - t0
+    r0 = ranks[0]["resize"]
+    check(not r0["errors"], f"9f (a): errors under traffic: {r0['errors'][:2]}")
+    ob, oa = r0["outcomes_before"], r0["outcomes_after"]
+    check(ob["wrong"] == oa["wrong"] == 0 and ob["ok"] > 0 and oa["ok"] > 0,
+          f"9f (a): outcomes before {ob}, after {oa}")
+    check(r0["values_equal"], "9f (a): the values after the resize differ from those before it")
+    check(r0["history"] == [((2, 2), (2, 3))], f"9f (a): resizes {r0['history']}")
+    for mode in ("off", "hot"):
+        part = ranks[0][f"serve_{mode}"]
+        check(part["bit_equal_one_process"] and part["degraded"] == 0,
+              f"9f (a) replica {mode}: values bit-equal to one process "
+              f"{part['bit_equal_one_process']}, degraded {part['degraded']}")
+    cols: dict = {}
+    for r in ranks:
+        if r.get("table_digest") is not None:
+            cols.setdefault(r["coords_after"][1], set()).add(r["table_digest"])
+    check(len(cols) == 3 and all(len(d) == 1 for d in cols.values()),
+          f"9f (a): the ranks of a server column hold different shards {cols}")
+    for r in ranks:
+        for name in ("resize", "serve_off", "serve_hot"):
+            held(r[name], f"(a) {name} rank {r['rank']}")
+        want = 1 if r["rank"] < 4 else 0  # the warm push on each rank of the 2x2 mesh
+        check(r["resize"]["launches"]["segment_sum"] == want,
+              f"9f (a) rank {r['rank']}: {r['resize']['launches']} (want {want} segment_sum)")
+    add(r[n] for r in ranks for n in ("resize", "serve_off", "serve_hot"))
+    off = ranks[0]["serve_off"]
+    a_rec = dict(r0, serve_off=off, serve_hot=ranks[0]["serve_hot"])
+    print(f"# 9f (a) the serve frontend across a resize ({smi}; a KVVector of 2^22 x 1, the CLI's "
+          f"warm push of {r0['keys']} keys, replica full refreshed every 0.01 s, 2 workers, "
+          f"queue 64, 3 clients of 16 keys, {MESH9F_PHASE_S} s each side): at 2x2 ok "
+          f"{ob['ok']} shed {ob['shed']} wrong {ob['wrong']}; resize to 2x3 pause "
+          f"{r0['pause_s']} s; at 2x3 ok {oa['ok']} shed {oa['shed']} wrong {oa['wrong']}; "
+          f"errors 0; refresh (a whole-table gather through gloo, host clock) 2x2 "
+          f"{[round(x, 1) for x in r0['refresh_ms']['2x2']]} ms, 2x3 "
+          f"{[round(x, 1) for x in r0['refresh_ms']['2x3']]} ms, replica {r0['replica_nbytes']} B; "
+          f"values after the resize bit-equal to before (head {r0['values_head']}); replica off "
+          f"({off['coalescer']['submits_per_request']} submits a request, {off['seconds']:.3f} s "
+          f"for {MESH9F_REQUESTS} requests) and hot bit-equal to one process; world "
+          f"{a_s:.1f} s", flush=True)
+
+    # (b) the serve CLI and (c) the suite's mesh probes, in a world of 4
+    argvs = [["--num-slots", str(SERVE_SLOTS), "--seed", str(seed), "--device", "cuda"] + extra
+             for extra in MESH9F_CLI]
+    t0 = time.perf_counter()
+    ranks = launch.run_world(mesh_serve.cli_and_suite, 4,
+                             args=(argvs, MESH9F_SUITE, sorted(COMPONENT_SMOKE), True),
+                             device_type="cuda", timeout=MESH_WORLD_S, threads=0)
+    bc_s = time.perf_counter() - t0
+    cli = []
+    for i, extra in enumerate(MESH9F_CLI):
+        runs = [r["cli"][i] for r in ranks]
+        check(all(r["code"] == 0 for r in runs), f"9f (b) {extra}: exit codes {[r['code'] for r in runs]}")
+        for r in runs:
+            held(r, f"(b) {extra} rank")
+        seg = {r["launches"]["segment_sum"] for r in runs}
+        check(len(seg) == 1 and min(seg) >= 1,
+              f"9f (b) {extra}: segment_sum launches by rank {[r['launches'] for r in runs]}")
+        add(runs)
+        recs = runs[0]["records"]
+        by = {}
+        for x in recs:
+            by.setdefault(x["metric"], []).append(x)
+        pts = by["serve_open_loop_point"]
+        check(len(pts) == 2 and all(p["n_errors"] == 0 and p["completed"] == p["accepted"]
+                                    for p in pts), f"9f (b) {extra}: points {pts}")
+        stats = by["serve_frontend_stats"][0]
+        check(stats.get("mesh") == {"data": 4, "server": 1} and stats.get("table_digest")
+              and stats["degraded_served"] == 0, f"9f (b) {extra}: stats {stats}")
+        name = extra[1]
+        one = cli_one[name]
+        cap = by["serve_closed_loop_capacity"][0]["value"]
+
+        def line(p):
+            return (f"{p['offered_rate']}/s offered: p50 {p['latency_ms']['p50_ms']} p99 "
+                    f"{p['latency_ms']['p99_ms']} p99.9 {p['latency_ms']['p999_ms']} ms, shed "
+                    f"{p['shed_frac']}, goodput {p['goodput_per_sec']}/s")
+
+        print(f"# 9f (b) serve CLI --replica {name}{' --train-while-serving' if len(extra) > 2 else ''}"
+              f" in a world of 4 (4 x 1, 2^22 slots; {smi}): capacity {cap} req/s (one card "
+              f"{one['capacity']}); " + "; ".join(f"mesh {line(p)} | one card {line(q)}"
+                                                  for p, q in zip(pts, one["points"]))
+              + f"; the table agreed on every rank (digest {stats['table_digest']}); "
+              f"segment_sum a rank {min(seg)}", flush=True)
+        cli.append(dict(argv=extra, capacity=cap, points=pts, stats=stats,
+                        one_card_capacity=one["capacity"], launches=runs[0]["launches"]))
+    suite = {}
+    for name in MESH9F_SUITE:
+        runs = [r["suite"][name] for r in ranks]
+        want = ({"data": 2, "server": 2} if name in MESH9F_TWO_SHARDS
+                else {"data": 1, "server": 1} if name in MESH9F_RANK0_ALONE
+                else {"data": 4, "server": 1})
+        for i, r in enumerate(runs):
+            if name in MESH9F_RANK0_ALONE and i > 0:
+                check(r["record"] == {"follower": True}, f"9f (c) {name} rank {i}: {r['record']}")
+            else:
+                check(r["record"]["mesh"] == want, f"9f (c) {name}: mesh {r['record']['mesh']}")
+            held(r, f"(c) {name} rank")
+        lines = runs[0]["lines"]
+        check(lines and all(math.isfinite(m["value"]) and m["value"] > 0 for m in lines)
+              and all(not r["lines"] for r in runs[1:]), f"9f (c) {name}: lines {lines}")
+        add(runs)
+        per = {k: [r["launches"][k] for r in runs] for k in MESH9F_KERNELS
+               if any(r["launches"][k] for r in runs)}
+        one = {m["metric"]: m["value"] for m in comp["runs"][name]["lines"]}
+        where = (f"rank 0 alone on its own table, {want['data']}x{want['server']}, in a world of 4 "
+                 f"(not run across ranks)" if name in MESH9F_RANK0_ALONE
+                 else f"{want['data']}x{want['server']}")
+        print(f"# 9f (c) {name} on {where} ({smi}; "
+              f"{'smoke' if name in COMPONENT_SMOKE else 'full'} size as 8g), rank 0: "
+              + ", ".join(f"{m['metric']} {m['value']} (8g one card {one.get(m['metric'])})"
+                          for m in lines)
+              + f"; launches by rank {per}; {runs[0]['wall_s']:.1f} s", flush=True)
+        suite[name] = dict(lines=lines, launches=per, wall_s=runs[0]["wall_s"],
+                           held={k: v for r in runs for k, v in r.get("held", {}).items()})
+    check(suite["learning"]["launches"].get("ftrl_dense") or suite["learning"]["launches"].get(
+        "ftrl_sparse"), f"9f (c) learning: launches {suite['learning']['launches']}")
+    check(suite["consistency"]["launches"].get("ftrl_sparse"),
+          f"9f (c) consistency: launches {suite['consistency']['launches']}")
+    check(suite["decode_batching"]["launches"].get("flash_fwd"),
+          f"9f (c) decode_batching: launches {suite['decode_batching']['launches']}")
+    for k in ("ftrl_sparse", "segment_sum", "flash_fwd"):
+        check(launches[k] > 0, f"phase 9f launched no {k}")
+    return dict(resize=a_rec, cli=cli, suite=suite,
+                launches=launches, a_world_s=a_s, bc_world_s=bc_s,
+                seconds=time.perf_counter() - t_phase)
+
+
 #: each phase function's wall seconds in this run (``timed_phases``)
 PHASE_SECONDS: dict = {}
 
@@ -5926,7 +6116,8 @@ def main() -> int:
                   "flash_bwd_times", "train_step_full", "train_agreement", "lm_cli",
                   "lm_family", "serving_plane", "telemetry_plane", "a10_plane", "a13_plane",
                   "system_plane", "checkpoint_plane", "component_plane", "mesh_plane",
-                  "elastic_plane", "ell_a10_mesh_plane", "slice_mesh_plane"))
+                  "elastic_plane", "ell_a10_mesh_plane", "slice_mesh_plane",
+                  "serve_mesh_plane"))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed-launches", type=int, default=4)
@@ -6373,6 +6564,11 @@ def main() -> int:
           f"run_system and checkpoint_async on a mesh) took {mesh9e['seconds']:.1f} s: the card "
           f"world {mesh9e['card_world_s']:.1f} s, the CPU world {mesh9e['cpu_world_s']:.1f} s; "
           f"launches {mesh9e['launches']}", flush=True)
+    mesh9f = serve_mesh_plane(args.seed, smi, serve["cli"], comp)
+    print(f"# phase 9f (the serving plane on a mesh: the frontend across a resize, the serve CLI "
+          f"in a world, the suite's mesh probes) took {mesh9f['seconds']:.1f} s: world (a) "
+          f"{mesh9f['a_world_s']:.1f} s, world (b, c) {mesh9f['bc_world_s']:.1f} s; launches "
+          f"{mesh9f['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -6405,6 +6601,7 @@ def main() -> int:
     kernel_line = {"kernels": [
         dict(name="ftrl_sparse_kernel", route="cuda",
              slice_mesh_launches=mesh9e["launches"]["ftrl_sparse"],
+             serve_mesh_launches=mesh9f["launches"]["ftrl_sparse"],
              mesh_launches=mesh["launches"]["ftrl_sparse"],
              elastic_launches=elastic["launches"]["ftrl_sparse"],
              source="parameter_server_tpu_torch/kernels/csrc/ftrl_sparse.cu",
@@ -6422,6 +6619,7 @@ def main() -> int:
              library_ms=None),
         dict(name="ftrl_dense_kernel", route="cuda",
              slice_mesh_launches=mesh9e["launches"]["ftrl_dense"],
+             serve_mesh_launches=mesh9f["launches"]["ftrl_dense"],
              mesh_launches=mesh["launches"]["ftrl_dense"],
              ell_a10_mesh_launches=mesh9d["launches"]["ftrl_dense"],
              elastic_launches=elastic["launches"]["ftrl_dense"],
@@ -6441,6 +6639,7 @@ def main() -> int:
              library_ms=None),
         dict(name="quantize_kernel", route="cuda",
              slice_mesh_launches=mesh9e["launches"]["quantize"],
+             serve_mesh_launches=mesh9f["launches"]["quantize"],
              mesh_launches=mesh["launches"]["quantize"],
              ell_a10_mesh_launches=mesh9d["launches"]["quantize"],
              elastic_launches=elastic["launches"]["quantize"],
@@ -6456,6 +6655,7 @@ def main() -> int:
              library_ms=None),
         dict(name="segment_sum", route="cuda", case=main_seg["case"],
              slice_mesh_launches=mesh9e["launches"]["segment_sum"],
+             serve_mesh_launches=mesh9f["launches"]["segment_sum"],
              mesh_launches=mesh["launches"]["segment_sum"],
              ell_a10_mesh_launches=mesh9d["launches"]["segment_sum"],
              elastic_launches=elastic["launches"]["segment_sum"],
@@ -6489,6 +6689,7 @@ def main() -> int:
              bound_ms=main_seg["bound_ms"], bound_by=main_seg["bound_by"],
              library_ms=main_seg["library_ms"]),
         dict(name="flash_fwd", route="cuda",
+             serve_mesh_launches=mesh9f["launches"]["flash_fwd"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:383",
              launches=lm["flash_launches"],
@@ -6508,6 +6709,7 @@ def main() -> int:
              bound_ms=flash_rows[0]["bound_ms"], bound_by=flash_rows[0]["bound_by"],
              library_ms=flash_rows[0]["library_ms"], f32=f32_record),
         dict(name="flash_bwd_dq", route="cuda",
+             serve_mesh_launches=mesh9f["launches"]["flash_bwd_dq"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dq_launches"],
@@ -6521,6 +6723,7 @@ def main() -> int:
              bound_by=bwd_t["dq_bound_by"], library_ms=bwd_t["sdpa_bwd_ms"],
              f32=bwd_f32_record("dq")),
         dict(name="flash_bwd_dkv", route="cuda",
+             serve_mesh_launches=mesh9f["launches"]["flash_bwd_dkv"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dkv_launches"],
@@ -6550,7 +6753,7 @@ def main() -> int:
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
                   component_suite=comp, mesh=mesh, elastic=elastic, ell_a10_mesh=mesh9d,
-                  slice_mesh=mesh9e,
+                  slice_mesh=mesh9e, serve_mesh=mesh9f,
                   phase_seconds=PHASE_SECONDS,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

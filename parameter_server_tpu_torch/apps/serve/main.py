@@ -10,7 +10,17 @@
 
 Counterpart of ``parameter_server_tpu/apps/serve/main.py`` on one card
 (the CUDA device unless ``--device`` names another): the same flags,
-defaults and JSON-line records. It fills a weight table (KVVector,
+defaults and JSON-line records. Inside a world a launcher started
+(``PS_COORDINATOR_ADDRESS``, ``PS_NUM_PROCESSES``, ``PS_PROCESS_ID`` and
+``PS_DEVICE`` on every rank, e.g. ``parallel/launch.run_world(main, N,
+args=(argv,))``), every rank runs the CLI: the table is built on the
+postoffice's auto-shaped mesh (``N x 1`` here, as the JAX CLI's over
+every device), every rank pushes the warm keys, rank 0 calibrates,
+serves, trains (``--train-while-serving`` pushes through the
+frontend's order, ``parallel/sequence.py``), decodes and exposes the
+metrics, and prints the records, while the other ranks follow its
+store calls; at the end the ranks agree a digest of the table (the
+last record carries it, with the mesh's shape). It fills a weight table (KVVector,
 hashed directory) with a warm push from ``--seed``, wraps it in a
 :class:`~parameter_server_tpu_torch.serving.ServeFrontend` (admission
 control → worker pool → read replica → request coalescing), calibrates
@@ -130,6 +140,19 @@ def hot_set(pool: np.ndarray, hot_fraction: float, key_space: int) -> np.ndarray
     return uniq[np.argsort(counts, kind="stable")[::-1][:n_hot]]
 
 
+def _agree_table(kv, mesh) -> str:
+    """Every rank's shard digest, agreed over each server column of the
+    mesh (raises on every rank where two replicas of a shard differ);
+    returns this rank's as hex."""
+    from ...parallel import distributed
+    from ...parallel import mesh as meshlib
+
+    kv.executor.wait_all(pop=False)
+    digest = distributed.batch_digest(kv.table(0))
+    distributed.agree_on(mesh, [digest], ["the served table"], axes=(meshlib.DATA_AXIS,))
+    return f"{digest:016x}"
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-slots", type=int, default=1 << 18)
@@ -175,14 +198,14 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    from ...serving import DecodeRequest, PullRequest, ServeConfig, ServeFrontend, open_loop_bench
+    from ...parallel import sequence
     from ...system.postoffice import Postoffice
 
     Postoffice.reset()
     po = Postoffice.instance().start(device=args.device)
     device = po.device
     exposition = None
-    if args.expose_port is not None:
+    if args.expose_port is not None and po.mesh.rank == 0:  # rank 0 serves in a world
         from ...telemetry.exposition import expose_cluster
 
         exposition = expose_cluster(po, port=args.expose_port, metrics_interval=1.0)
@@ -190,6 +213,34 @@ def main(argv=None) -> int:
               f"(/healthz, /debug/snapshot)", file=sys.stderr)
     kv, rng = warm_store(args.num_slots, args.key_space, args.seed, device)
     pool = request_pool(rng, args.keys_per_request, args.key_space)
+
+    # inside a world every rank builds one order of kv's calls here: rank 0
+    # serves, calibrates and trains through it, the other ranks follow it,
+    # and the ranks agree the table's digest at rank 0's last call
+    order = sequence.Order(kv, name="serve") if sequence.needed(kv) else None
+    if order is not None:
+        order.handle("agree_table", lambda: _agree_table(kv, po.mesh))
+        if not order.leader:
+            try:
+                order.follow()
+            finally:
+                kv.executor.stop()
+                kv.remove()
+            return 0
+    store = kv if order is None else order
+    try:
+        return _lead(args, po, kv, store, pool, rng, exposition)
+    finally:
+        if order is not None:  # also after a failure: the followers return
+            order.close()
+
+
+def _lead(args, po, kv, store, pool, rng, exposition) -> int:
+    """The CLI on one card, or on rank 0 of a world through ``store``,
+    the order of ``kv``'s calls."""
+    from ...serving import DecodeRequest, PullRequest, ServeConfig, ServeFrontend, open_loop_bench
+
+    device = po.device
 
     def make_request(i: int):
         return PullRequest(keys=pool[i % len(pool)])
@@ -209,7 +260,7 @@ def main(argv=None) -> int:
     def build(admission_rate: float) -> ServeFrontend:
         batched = args.decode and args.batch_slots > 0
         return ServeFrontend(
-            kv,
+            store,
             ServeConfig(
                 admission_rate=max(0.0, admission_rate),
                 admission_burst=max(1.0, admission_rate / 10),
@@ -220,7 +271,7 @@ def main(argv=None) -> int:
                 workers=args.workers,
             ),
             decode_fn=(_decode_lane(args.gamma, models)
-                       if args.decode and not batched else None),
+                       if models is not None and not batched else None),
             batcher=make_batcher() if batched else None,
         ).start()
 
@@ -251,8 +302,8 @@ def main(argv=None) -> int:
             try:
                 while not stop_training.is_set():
                     keys = np.unique(pool[i % len(pool)])
-                    kv.wait(kv.push(kv.request(channel=0), keys=keys,
-                                    values=np.ones((len(keys), 1), np.float32)))
+                    store.wait(store.push(store.request(channel=0), keys=keys,
+                                          values=np.ones((len(keys), 1), np.float32)))
                     i += 1
             except BaseException as e:  # re-raised on the main thread below
                 trainer_error.append(e)
@@ -330,8 +381,12 @@ def main(argv=None) -> int:
                 kv.remove()
             raise RuntimeError("--train-while-serving: the push stream "
                                + ("failed" if failed else "did not stop within 60 s")) from failed
-    emit({"metric": "serve_frontend_stats", "value": 1, "unit": "ok", **fe.stats()})
+    stats = fe.stats()
     fe.close()
+    mesh_rec = {}
+    if store is not kv:
+        mesh_rec = {"mesh": dict(po.mesh.shape), "table_digest": store.call("agree_table")}
+    emit({"metric": "serve_frontend_stats", "value": 1, "unit": "ok", **stats, **mesh_rec})
     if exposition is not None:
         ok, health = exposition.aux.health()
         emit({"metric": "serve_exposition", "value": 1, "unit": "ok",

@@ -40,6 +40,11 @@ def benchmark(name: str):
 
 
 def report(metric: str, value: float, unit: str) -> None:
+    """Print one metric line (on rank 0 alone inside a world)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        return
     print(json.dumps({"metric": metric, "value": round(value, 2), "unit": unit}), flush=True)
 
 

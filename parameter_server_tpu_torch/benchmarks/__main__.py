@@ -1,4 +1,11 @@
-"""CLI: python -m parameter_server_tpu_torch.benchmarks [name ...] [--smoke] [--device cpu]"""
+"""CLI: python -m parameter_server_tpu_torch.benchmarks [name ...] [--smoke] [--device cpu]
+
+Inside a launcher's world (``PS_COORDINATOR_ADDRESS``, ``PS_NUM_PROCESSES``,
+``PS_PROCESS_ID`` on every rank, e.g. ``parallel/launch.run_world(main, N,
+args=(argv,))``) every rank runs the same benchmarks: the stores' and the
+serving probes' on the world's ``N x 1`` mesh, ``learning`` and
+``consistency`` on ``(N/2) x 2`` (``components._start``), and rank 0
+prints the lines."""
 
 from __future__ import annotations
 

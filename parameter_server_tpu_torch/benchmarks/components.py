@@ -67,6 +67,15 @@ def drill_shape(smoke: bool) -> dict:
                 kill_at=n_batches // 6)
 
 
+def _own_table(device):
+    """A one-position mesh on ``device``: a store built on it holds this
+    rank's whole table and its calls need no order, in a world or not."""
+    from ..device import resolve
+    from ..parallel import mesh as meshlib
+
+    return meshlib.Mesh(1, 1, resolve(device))
+
+
 def _push_and_ack(kv, i: int) -> int:
     keys, vals = _drill_batch(DRILL_SEED, i, DRILL_KEY_SPACE, DRILL_KEYS_PER_BATCH, DRILL_K)
     ts = kv.push(kv.request(channel=0), keys=keys, values=vals)
@@ -83,7 +92,7 @@ def undisturbed_table(smoke: bool = False, device=None) -> np.ndarray:
 
     shape = drill_shape(smoke)
     kv = KVVector(k=DRILL_K, num_slots=shape["num_slots"], hashed=True, name="drill_ref",
-                  device=device)
+                  mesh=_own_table(device), device=device)
     for i in range(shape["n_batches"]):
         _push_and_ack(kv, i)
     table = kv.table(0, copy=True).cpu().numpy()
@@ -120,6 +129,14 @@ def recovery_drill(smoke: bool = False, device=None, on_live=None) -> dict:
     requests completed, degraded, shed and failed; the disarmed-overhead
     pair (fault points present but disarmed against stubbed out).
 
+    Inside a world the drill is not run across ranks: rank 0 drills a
+    table of its own on a one-position mesh (``_own_table``; the JAX
+    drill's table is on ``_mesh()``), its trainer, its reads, its
+    server's death and recovery all in its process, and the
+    ``recovery_drill`` benchmark's record carries that table's mesh,
+    ``1 x 1``. The other ranks return ``{"follower": True}`` at once (their drills would only load the
+    host the drill's heartbeat timing runs on).
+
     ``on_live``, if given, is called with ``"start"`` just before the
     drilled store is made and with ``"end"`` once its stream has drained
     and its table is read: between the two run only the drilled store's
@@ -142,6 +159,8 @@ def recovery_drill(smoke: bool = False, device=None, on_live=None) -> dict:
 
     Postoffice.reset()
     Postoffice.instance().start(device=device)
+    if _rank() != 0:
+        return {"follower": True}
     shape = drill_shape(smoke)
     num_slots, n_batches, kill_at = shape["num_slots"], shape["n_batches"], shape["kill_at"]
     k, n_per_batch, key_space, hb_timeout = (DRILL_K, DRILL_KEYS_PER_BATCH, DRILL_KEY_SPACE,
@@ -174,7 +193,8 @@ def recovery_drill(smoke: bool = False, device=None, on_live=None) -> dict:
         push_keys0 = push_tel.value(store="drill_live", channel=0)
     if on_live is not None:
         on_live("start")
-    kv = KVVector(k=k, num_slots=num_slots, hashed=True, name="drill_live", device=device)
+    kv = KVVector(k=k, num_slots=num_slots, hashed=True, name="drill_live",
+                  mesh=_own_table(device), device=device)
     rm = ReplicaManager()
     rm.backup_consistent(kv)  # a snapshot exists before any fault can land
     rm.start_periodic(kv, interval_s=DRILL_BACKUP_INTERVAL_S)
@@ -516,13 +536,41 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _start(device) -> torch.device:
-    """The JAX ``_mesh()``: a fresh postoffice started on ``device``
-    (one server shard on one card); returns its device."""
+def _start(device, learning: bool = False) -> torch.device:
+    """A fresh postoffice started on ``device``; returns its device.
+
+    ``learning=False`` is the JAX ``_mesh()``: the postoffice's
+    auto-shaped mesh, every rank of a launcher's world on the data axis
+    (``n x 1``), one card outside a world. ``learning=True`` is the JAX
+    ``_learning_mesh()``: ``(n // 2) x 2`` in a world of at least 2
+    ranks, else the same. A benchmark's stores and workers take the
+    started postoffice's mesh; inside a world every rank runs the same
+    benchmark, and rank 0 prints."""
+    from ..parallel import distributed
     from ..system.postoffice import Postoffice
 
     Postoffice.reset()
-    return Postoffice.instance().start(device=device).device
+    po = Postoffice.instance()
+    if learning and distributed.initialize():
+        import torch.distributed as dist
+
+        n = dist.get_world_size()
+        return po.start(num_data=n // 2, num_server=2, device=device).device
+    return po.start(device=device).device
+
+
+def _rank() -> int:
+    """This process's rank in its world (0 outside one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _mesh_shape() -> dict:
+    """The started postoffice's mesh shape, as a record carries it."""
+    from ..system.postoffice import Postoffice
+
+    return dict(Postoffice.instance().mesh.shape)
 
 
 def _arm_ms(fn, dev: torch.device, n: int, budget_s: float = 90.0) -> float:
@@ -628,7 +676,8 @@ def kv_vector_perf(smoke: bool = False, device=None) -> dict:
         line("kv_vector_push_copy_bytes_avoided_per_push", float(table_bytes), "bytes")
     finally:
         kv.executor.stop()
-    return {"metrics": line.values, "n_keys": n_keys, "k": k, "table_bytes": table_bytes}
+    return {"metrics": line.values, "n_keys": n_keys, "k": k, "table_bytes": table_bytes,
+            "mesh": _mesh_shape()}
 
 
 @benchmark("kv_map")
@@ -654,7 +703,7 @@ def kv_map_perf(smoke: bool = False, device=None) -> dict:
         line("kv_map_entry_updates_per_sec", n_keys / sec, "entries/sec")
     finally:
         m.executor.stop()
-    return {"metrics": line.values, "n_keys": n_keys}
+    return {"metrics": line.values, "n_keys": n_keys, "mesh": _mesh_shape()}
 
 
 @benchmark("kv_layer")
@@ -708,7 +757,7 @@ def kv_layer_perf(smoke: bool = False, device=None) -> dict:
     finally:
         layer.executor.stop()
         nodon.executor.stop()
-    return {"metrics": line.values, "shape": list(shape)}
+    return {"metrics": line.values, "shape": list(shape), "mesh": _mesh_shape()}
 
 
 @benchmark("network")
@@ -792,7 +841,8 @@ def sparse_matrix_perf(smoke: bool = False, device=None) -> dict:
     _sync(dev)
     ms = _arm_ms(lambda: _spmv(*args, n), dev, 5 if smoke else 20)
     line("sparse_spmv_mnnz_per_sec", batch.nnz / (ms / 1e3) / 1e6, "Mnnz/s")
-    return {"metrics": line.values, "rows": n, "nnz": int(batch.nnz), "spmv_ms": ms}
+    return {"metrics": line.values, "rows": n, "nnz": int(batch.nnz), "spmv_ms": ms,
+            "mesh": _mesh_shape()}
 
 
 # -- device benchmarks: attention, the step's phases --
@@ -1806,6 +1856,7 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
     bounds."""
     from ..models.speculative import speculative_generate
     from ..models.transformer import LMConfig, init_lm
+    from ..parallel import sequence
     from ..serving import DecodeRequest, PullRequest, ServeConfig, ServeFrontend, open_loop_bench
 
     num_slots = 1 << (12 if smoke else 16)
@@ -1813,11 +1864,21 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
     keys_per_req = 16
     kv, draw_keys = _serve_store(num_slots, key_space, device)
     dev = kv.device
+    # inside a world every rank builds the order of kv's calls here; rank 0
+    # serves through it and the other ranks follow its calls
+    order = sequence.Order(kv, name="serve") if sequence.needed(kv) else None
+    if order is not None and not order.leader:
+        try:
+            order.follow()
+        finally:
+            kv.executor.stop()
+        return {"follower": True, "mesh": _mesh_shape()}
+    store = kv if order is None else order
 
     fe = None
     try:
-        fe = ServeFrontend(kv, ServeConfig(replica="full", workers=2,
-                                           max_queue_depth=4096)).start()
+        fe = ServeFrontend(store, ServeConfig(replica="full", workers=2,
+                                              max_queue_depth=4096)).start()
         n_cal = 60 if smoke else 300
         for i in range(10):
             fe.submit(PullRequest(keys=draw_keys(i, keys_per_req))).result(30)
@@ -1832,7 +1893,7 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
         max_depth = 32 if smoke else 64
         duration = 1.0 if smoke else 2.5
         fe.close()
-        fe = ServeFrontend(kv, ServeConfig(
+        fe = ServeFrontend(store, ServeConfig(
             replica="full", workers=2, admission_rate=admit_rate,
             admission_burst=admit_rate / 10, max_queue_depth=max_depth)).start()
         points = []
@@ -1844,7 +1905,8 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
             ) | {"offered_multiple_of_capacity": mult, "admission": "on"})
         fe.close()
 
-        fe = ServeFrontend(kv, ServeConfig(replica="full", workers=2, max_queue_depth=0)).start()
+        fe = ServeFrontend(store, ServeConfig(replica="full", workers=2,
+                                              max_queue_depth=0)).start()
         no_adm = open_loop_bench(
             fe, lambda i: PullRequest(keys=draw_keys(i, keys_per_req)),
             rate=3.0 * closed_loop_rate, duration_s=duration, seed=30, collectors=2,
@@ -1852,15 +1914,16 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
         ) | {"offered_multiple_of_capacity": 3.0, "admission": "off"}
         fe.close()
 
-        fe = ServeFrontend(kv, ServeConfig(replica="off", workers=8, coalesce_window_s=0.002,
-                                           max_queue_depth=4096)).start()
+        fe = ServeFrontend(store, ServeConfig(replica="off", workers=8,
+                                              coalesce_window_s=0.002,
+                                              max_queue_depth=4096)).start()
         n_co = 200 if smoke else 600
         tickets = [fe.submit(PullRequest(keys=draw_keys(i, keys_per_req))) for i in range(n_co)]
         for t in tickets:
             t.result(60)
         co_stats = fe.stats()["coalescer"]
         probe = np.unique(draw_keys(3, keys_per_req))
-        direct = kv.values(0, probe)
+        direct = store.values(0, probe)
         served = fe.submit(PullRequest(keys=probe)).result(30)
         assert np.allclose(served, direct), "coalesced pull diverged"
         fe.close()
@@ -1883,7 +1946,7 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
             last_stats["accepted_frac"] = round(float(st["accepted_frac"]), 3)
             return out
 
-        fe = ServeFrontend(kv, ServeConfig(replica="full", workers=1, max_queue_depth=64),
+        fe = ServeFrontend(store, ServeConfig(replica="full", workers=1, max_queue_depth=64),
                            decode_fn=decode_fn).start()
         rng = np.random.default_rng(11)
 
@@ -1929,10 +1992,13 @@ def serve_ab(smoke: bool = False, device=None) -> dict:
                                "max_ms": round(float(np.max(lat)) * 1e3, 1)},
                 **last_stats,
             },
+            "mesh": _mesh_shape(),
         }
     finally:
         if fe is not None:
             fe.close()
+        if order is not None:
+            order.close()
         kv.executor.stop()
 
 
@@ -1941,6 +2007,8 @@ def serve_perf(smoke: bool = False, device=None) -> dict:
     """The request-path serving SLO probe (:func:`serve_ab`)."""
     line = _Lines()
     out = serve_ab(smoke, device)
+    if out.get("follower"):
+        return out
     low, over = out["points"]
     line("serve_closed_loop_capacity", out["closed_loop_capacity_per_sec"], "requests/sec")
     line("serve_p99_low_load", low["latency_ms"]["p99_ms"], "ms")
@@ -1977,6 +2045,7 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
     fewer tokens a round commits the more a batch amortizes each read."""
     from ..models.speculative import speculative_generate
     from ..models.transformer import LMConfig, init_lm
+    from ..parallel import sequence
     from ..parameter.kv_vector import KVVector
     from ..serving import (
         BatcherConfig,
@@ -1988,6 +2057,7 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
     )
 
     dev = _start(device)
+    lead = _rank() == 0  # inside a world the LM runs on rank 0 alone
     if smoke:
         tcfg = LMConfig(vocab=256, d_model=256, n_heads=4, n_layers=2, d_ff=512)
         dcfg = LMConfig(vocab=256, d_model=64, n_heads=2, n_layers=1, d_ff=128)
@@ -1999,8 +2069,9 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
     gamma = 2
     prompt_len = 8
     max_new = max(steps_mix)
-    tparams = init_lm(0, tcfg, dev)
-    dparams = init_lm(1, dcfg, dev)
+    if lead:
+        tparams = init_lm(0, tcfg, dev)
+        dparams = init_lm(1, dcfg, dev)
 
     def mk_reqs(n: int, seed0: int = 0):
         rng = np.random.default_rng(seed0)
@@ -2032,7 +2103,7 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
 
     arm_records = []
     with torch.no_grad():
-        for slots in arms:
+        for slots in arms if lead else ():
             b = ContinuousBatcher(tparams, tcfg, dparams, dcfg, BatcherConfig(
                 slots=slots, max_prompt=prompt_len, max_new=max_new, gamma=gamma, max_block=16))
             t0 = time.perf_counter()
@@ -2079,22 +2150,35 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
     kv.wait(kv.push(kv.request(channel=0), keys=keys, values=vals))
     table_bytes = int(kv.table(0).numel() * kv.table(0).element_size())
     budget = table_bytes // 2  # the host replica mode refuses this table
-    fe = ServeFrontend(kv, ServeConfig(
-        replica="full", replica_device=True, replica_host_budget_bytes=budget,
-        replica_refresh_s=0.02, workers=2, max_queue_depth=256)).start()
+    # inside a world every rank builds the order of kv's calls here; rank 0
+    # serves through it and the other ranks follow its calls
+    order = sequence.Order(kv, name="serve_dev") if sequence.needed(kv) else None
+    if order is not None and not order.leader:
+        try:
+            order.follow()
+        finally:
+            kv.executor.stop()
+        return {"follower": True, "mesh": _mesh_shape()}
+    fe = None
     try:
+        fe = ServeFrontend(kv if order is None else order, ServeConfig(
+            replica="full", replica_device=True, replica_host_budget_bytes=budget,
+            replica_refresh_s=0.02, workers=2, max_queue_depth=256)).start()
         stop = time.perf_counter() + (0.3 if smoke else 0.8)
         served = 0
         while time.perf_counter() < stop:
             # pushes change the table while reads ride the device snapshot
-            kv.push(kv.request(channel=0), keys=keys[:64],
-                    values=rng.normal(size=(64, 8)).astype(np.float32))
+            fe.store.push(kv.request(channel=0), keys=keys[:64],
+                          values=rng.normal(size=(64, 8)).astype(np.float32))
             fe.submit(PullRequest(keys=keys[rng.integers(0, len(keys), 16)])).result(30)
             served += 1
         degraded = fe.degraded_served
         device_mode = bool(fe.stats()["replica"]["device"])
     finally:
-        fe.close()
+        if fe is not None:
+            fe.close()
+        if order is not None:
+            order.close()
         kv.executor.stop()
 
     by8 = next((a for a in arm_records if a["slots"] == 8), arm_records[-1])
@@ -2118,6 +2202,7 @@ def decode_batching_ab(smoke: bool = False, device=None) -> dict:
             "degraded_served": int(degraded),
             "device": device_mode,
         },
+        "mesh": _mesh_shape(),
     }
 
 
@@ -2128,6 +2213,8 @@ def decode_batching_perf(smoke: bool = False, device=None) -> dict:
     device replica over its host budget with no degraded answer."""
     line = _Lines()
     out = decode_batching_ab(smoke, device)
+    if out.get("follower"):
+        return out
     by8 = next((a for a in out["arms"] if a["slots"] == 8), out["arms"][-1])
     line("decode_batched_speedup_at_8", out["speedup_at_8"], "x")
     line("decode_batched_tokens_per_sec", by8["batched_tokens_per_sec"], "tokens/sec")
@@ -2462,14 +2549,15 @@ def learning_truth(smoke: bool = False, device=None) -> dict:
     shard's key-heat share with the imbalance and the hot-slot table,
     the loss and gradient trajectory from the step's side outputs, and
     the count-min heat against exact slot counts of the same stream.
-    Then :func:`_divergence_drill`. One server shard on one card
-    (``num_shards`` 1)."""
+    Then :func:`_divergence_drill`. On the JAX ``_learning_mesh()``
+    (:func:`_start`): two server shards over the ranks of a world, one
+    shard on one card outside a world."""
     from ..apps.linear.async_sgd import AsyncSGDWorker
     from ..apps.linear.config import Config, LearningRateConfig, PenaltyConfig, SGDConfig
     from ..telemetry import learning as learning_mod
     from ..utils.sparse import random_sparse
 
-    dev = _start(device)  # one server shard: the shard balance is over it
+    dev = _start(device, learning=True)
     tau = 3
     minibatch = 128
     n_batches = 24 if smoke else 48
@@ -2508,7 +2596,8 @@ def learning_truth(smoke: bool = False, device=None) -> dict:
         worker.remove()
     return {
         "config": {"max_delay": tau, "n_batches": n_batches, "minibatch": minibatch,
-                   "num_slots": worker.num_slots, "num_shards": 1},
+                   "num_slots": worker.num_slots, "num_shards": _mesh_shape()["server"]},
+        "mesh": _mesh_shape(),
         "staleness": snap["staleness"],
         "shards": snap["shards"],
         "hot_slots": snap["hot_slots"][:8],
@@ -2552,7 +2641,10 @@ def recovery_drill_perf(smoke: bool = False, device=None) -> dict:
     around and recovered with no acknowledged update lost, the table bit
     for bit the undisturbed run's."""
     line = _Lines()
-    out = recovery_drill(smoke, _device(device))
+    device = _device(device)
+    out = recovery_drill(smoke, device)
+    if out.get("follower"):
+        return out
     assert out["trajectory_bit_identical"], (
         "post-recovery trajectory diverged from the undisturbed run: acknowledged updates "
         "were lost")
@@ -2576,7 +2668,7 @@ def recovery_drill_perf(smoke: bool = False, device=None) -> dict:
     line("recovery_disarmed_check_ns", out["disarmed_overhead"]["check_ns_per_call"], "ns/call")
     line("recovery_bit_identical", 1.0, "bool")
     line("recovery_bundle_ring_nodes", len(bb.get("nodes", {})), "nodes")
-    return {"metrics": line.values, **out}
+    return {"metrics": line.values, **out, "mesh": dict(_own_table(device).shape)}
 
 
 def _consistency_conf(tau, *, adaptive=False, kkt=False, drop_after=0):
@@ -2748,7 +2840,7 @@ def consistency_ab(smoke: bool = False, device=None) -> dict:
     from ..telemetry import registry as telemetry_registry
     from ..telemetry.instruments import parameter_instruments
 
-    dev = _start(device)
+    dev = _start(device, learning=True)
     tau_max = 8
     n_batches = 24 if smoke else 64
     n_warm = 4
@@ -2846,7 +2938,7 @@ def consistency_ab(smoke: bool = False, device=None) -> dict:
             "warmup_batches": n_warm,
             "minibatch": 128,
             "num_slots": probe.num_slots,
-            "num_shards": 1,
+            "num_shards": _mesh_shape()["server"],
             "tau_max": tau_max,
             "reps": reps,
             "emulated_pull_rtt_ms": rtt_s * 1000.0,
@@ -2855,6 +2947,7 @@ def consistency_ab(smoke: bool = False, device=None) -> dict:
                        "throughput includes the emulated pull round trip on refresh "
                        "submissions (_attach_pull_rtt), losses are measured",
         },
+        "mesh": _mesh_shape(),
         "tau_arms": arms,
         "frontier": frontier,
         "significance_filter": kkt,
@@ -2903,8 +2996,9 @@ def consistency_perf(smoke: bool = False, device=None) -> dict:
     line("consistency_drill_rollbacks", len(drill["episodes"]), "episodes")
     out_path = os.environ.get("PS_CONSISTENCY_OUT") or os.path.join(tempfile.gettempdir(),
                                                                     "ps_consistency.json")
-    with open(out_path, "w") as f:
-        json.dump({"consistency_record": out}, f, indent=2, default=str)
+    if _rank() == 0:  # inside a world, rank 0 writes the record
+        with open(out_path, "w") as f:
+            json.dump({"consistency_record": out}, f, indent=2, default=str)
     return {"metrics": line.values, **out}
 
 

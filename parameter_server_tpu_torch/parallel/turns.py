@@ -27,6 +27,12 @@ whole mesh at the end, so ranks whose submissions differ fail loudly
 A member that waits for another member's next submission would wait
 for ever: the members must not depend on one another between turns, as
 the programs of ``tests/test_ps_api.py`` do not.
+
+Threads that are no fixed members (a serving frontend's request workers,
+its coalescer and refresher, a trainer) get their order from rank 0
+instead (``parallel/sequence.py``): a call made there runs inside
+:func:`sequenced`, and :func:`note` folds the call's sequence number as
+its origin, the same on every rank whatever thread made the call.
 """
 
 from __future__ import annotations
@@ -140,20 +146,38 @@ def in_turn(what: str):
     return deco
 
 
+@contextlib.contextmanager
+def sequenced(number: int):
+    """Run the body as call ``number`` of a sequenced order
+    (``parallel/sequence.py``): the submissions it makes fold that
+    number as their origin (:func:`note`)."""
+    _tls.sequenced = number
+    try:
+        yield
+    finally:
+        _tls.sequenced = None
+
+
 def note(store, what: str, num_keys: int) -> Optional[int]:
     """Fold one submission to ``store`` into its order digest (call it
     where the submission gets its executor timestamp, under the store's
-    lock) and return the digest; None while no :class:`Turns` is
-    active."""
+    lock) and return the digest; None while no :class:`Turns` is active
+    and the call is no sequenced one."""
     turns = _active
-    if turns is None:
+    number = getattr(_tls, "sequenced", None)
+    if turns is None and number is None:
         return None
     member = getattr(_tls, "member", None)
-    origin = (turns.names[member[1]] if member is not None and member[0] is turns
-              else threading.current_thread().name)
+    if number is not None:
+        origin = ("sequenced", number)
+    elif member is not None and member[0] is turns:
+        origin = turns.names[member[1]]
+    else:
+        origin = threading.current_thread().name
     store._order_digest = distributed.digest_ints(getattr(store, "_order_digest", 0), origin,
                                                   what, int(num_keys))
-    turns._stores.add(store)
+    if turns is not None:
+        turns._stores.add(store)
     return store._order_digest
 
 

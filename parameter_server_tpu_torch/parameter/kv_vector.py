@@ -50,8 +50,12 @@ pushes and pulls go through ``ops/kv_ops.py`` with ``batch_sharded=False``
 JAX package's replicated key sets; each data row holds a replica). A
 push adds the rank's own entries and runs no collective; a pull is
 assembled over the server axis (a collective on the executor's dispatch
-thread); ``table(copy=True)`` and :meth:`snapshot` are this rank's
-shard. :meth:`migrate`, :meth:`get_replica`,
+thread); :meth:`snapshot` and ``table(copy=True)`` are the whole channel
+table, as the JAX calls' global arrays are: a submitted step gathers the
+row's shards over the server axis on the dispatch thread, between two
+pushes in timestamp order (every rank of the row submits it at the same
+point of its order, as a pull); the default ``table()`` stays this rank's
+live shard. :meth:`migrate`, :meth:`get_replica`,
 :meth:`get_replica_consistent` and :meth:`write_to_file` are
 collectives of the data row: every rank calls them, in the same order,
 with the same arguments. They run on the caller's thread over the
@@ -71,7 +75,11 @@ at the row's agreed count while it installs and flips
 (``ps.run_system``'s worker apps) take turns in one order that every
 rank shares (``parallel/turns.py``); while turns are active each
 submission folds into the store's order digest, and a pull agrees it
-over the server axis before its collective. A recovery install has no such gate: a pull
+over the server axis before its collective. Threads that come and go (a
+serving frontend's workers, its coalescer and refresher, a trainer) take
+no turns: rank 0 orders their calls and the other ranks replay them
+(``parallel/sequence.py``), each call's place in that order folding into
+the same digest. A recovery install has no such gate: a pull
 beside it may read some shards before it and others after (each key's
 row whole from one side). :meth:`set_replica` installs each rank's rows
 of a base-layout snapshot, whatever server count took it.
@@ -361,10 +369,32 @@ class KVVector(Parameter):
             c.journal.append((ts, c.pushes, torch.as_tensor(slots).clone(), vals.clone()))
 
     def snapshot(self, ch: int = 0, callback=None) -> int:
-        """Async copy of the channel table; returns the timestamp (the
-        copy via ``executor.wait``). A submitted step, so it lands
+        """Async copy of the whole channel table; returns the timestamp
+        (the copy via ``executor.wait``). A submitted step, so it lands
         between two pushes in timestamp order and no later push touches
-        the copy: the read replica's refresh."""
+        the copy: the read replica's refresh. On a mesh of several server
+        shards the step gathers the row's shards over the server axis (a
+        collective of the data row, as a pull: every rank of the row
+        submits it at the same point of its order, and it counts as a
+        read against a migration's flip), so every rank of the row gets
+        the whole table."""
+        if self._side() is None:
+            return self._shard_snapshot(ch, callback)
+        c = self.channel(ch)
+        with c.remap_lock:
+            self._read_slot(c)
+            order = turns.note(self, "snapshot", 0)
+
+            def step():
+                if order is not None:
+                    turns.check_order(self.mesh, order, self.name)
+                return meshlib.all_gather(c.table, meshlib.SERVER_AXIS, self.mesh)
+
+            return self.submit(step, self.request(channel=ch), callback)
+
+    def _shard_snapshot(self, ch: int = 0, callback=None) -> int:
+        """Async copy of this rank's shard of the channel table (the whole
+        table off a mesh); returns the timestamp."""
         c = self.channel(ch)
         return self.submit(lambda: c.table.clone(), self.request(channel=ch), callback)
 
@@ -382,8 +412,13 @@ class KVVector(Parameter):
         return self.wait_pull(ts).cpu().numpy()
 
     def table(self, ch: int = 0, copy: bool = False) -> torch.Tensor:
-        """The channel table: the live tensor, which the next push
-        changes in place, or with ``copy=True`` a private copy."""
+        """The channel table: the live tensor (this rank's shard on a
+        mesh), which the next push changes in place, or with ``copy=True``
+        a private copy of the whole table (on a mesh of several server
+        shards a :meth:`snapshot`, waited for: a collective of the data
+        row)."""
+        if copy and self._side() is not None:
+            return self.executor.wait(self.snapshot(ch))
         t = self.channel(ch).table
         return t.clone() if copy else t
 
@@ -441,7 +476,7 @@ class KVVector(Parameter):
         """Submit a :meth:`snapshot` of channel ``ch``: its timestamp and
         the sequence number of the last push before it."""
         with c.remap_lock:
-            return self.snapshot(ch), c.pushes
+            return self._shard_snapshot(ch), c.pushes
 
     def _align(self, c: _Channel, snap: torch.Tensor, seq: int, upto: int) -> int:
         """Add to ``snap`` (this rank's shard, holding the pushes up to

@@ -33,6 +33,11 @@ Threading: clients call :meth:`pull` from any thread; ONE flusher
 thread owns store submission order. The pulled union is copied to the
 host on the flusher thread, after the store's executor reports the
 pull step's device work done. ``close()`` drains and joins.
+
+On a mesh the store is rank 0's ``parallel/sequence.Order`` (the
+frontend's, or one the caller built on every rank): the flush's pull
+takes its place in the order every rank follows, and a pull that
+raises on rank 0 is never published. A bare store on a mesh is refused.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..parallel import sequence
 from ..telemetry import spans as telemetry_spans
 from ..utils.retry import DeadlineExceeded
 
@@ -130,6 +136,7 @@ class PullCoalescer:
         max_keys: int = 1 << 16,
         max_requests: int = 256,
     ):
+        sequence.require(store, "PullCoalescer")
         self.store = store
         self.channel = int(channel)
         self.window_s = float(window_s)

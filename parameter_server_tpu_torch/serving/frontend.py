@@ -29,6 +29,23 @@ queueing; the admission depth gate sheds past the bound — never an
 error), :meth:`quiesce` waits out in-flight executions, and
 :meth:`rebind` points the frontend at another store.
 
+**On a mesh** (a store sharded over a world's ranks) the frontend runs
+on rank 0 over a ``parallel/sequence.Order`` of the store that every
+rank built at the same point of its program: rank 0 admits, queues and
+executes, and its every store call (a worker's or the coalescer's pull,
+the refresher's snapshot or hot pull, a trainer's push through
+:attr:`store`, a resize) goes through the order, while every other rank
+follows it (``Order.follow``: a rank the mesh leaves idle holds no store
+and only counts the calls). The caller owns the order: one order may
+serve every frontend rank 0 builds in turn, and rank 0 closes it once
+(also when a frontend's build raised), which ends the followers.
+:meth:`quiesce` also waits out the followers' calls, and a fault or a
+deadline that fails a live pull on rank 0 does so before the pull is
+published or after it ran on every rank, so no follower is left in a
+collective. The replica is rank 0's: a full snapshot gathered whole onto
+rank 0 (the data row's shards over the server axis), refreshed through
+the order. A bare store on a mesh is refused.
+
 Counterpart of ``parameter_server_tpu/serving/frontend.py``, with its
 request spans and flow ids (``serve.submit`` / ``serve.execute`` or
 ``serve.decode`` / ``serve.reply`` while a span sink is installed), its
@@ -52,6 +69,7 @@ import torch
 from .admission import AdmissionController, RejectedError  # noqa: F401  (re-export: the door's exception belongs to the frontend API)
 from .coalescer import PullCoalescer
 from .replica import ReadReplica
+from ..parallel import sequence
 from ..system import faults
 from ..telemetry import spans as telemetry_spans
 from ..utils.retry import DeadlineExceeded
@@ -208,6 +226,13 @@ class ServeFrontend:
         batcher=None,
     ):
         self.cfg = config or ServeConfig()
+        sequence.require(store, "ServeFrontend")
+        if isinstance(store, sequence.Order) and not store.leader:
+            raise ValueError("a follower rank follows its order (Order.follow); the "
+                             "frontend over an order runs on rank 0")
+        #: the order of rank 0's store calls on a mesh (None on one card)
+        self.order: Optional[sequence.Order] = (
+            store if isinstance(store, sequence.Order) else None)
         self.store = store
         self.channel = int(channel)
         if decode_fn is not None and batcher is not None:
@@ -319,7 +344,8 @@ class ServeFrontend:
 
     def close(self) -> None:
         """Drain queued work (closing un-pauses), then join every
-        thread the frontend started."""
+        thread the frontend started (an order stays open: its caller
+        closes it)."""
         with self._cv:
             self._closed = True
             self._paused = False  # workers must drain, not strand
@@ -353,6 +379,8 @@ class ServeFrontend:
                 if left <= 0:
                     raise TimeoutError("serve workers did not quiesce")
                 self._cv.wait(left)
+        if self.order is not None:
+            self.order.sync()  # the followers' calls in flight, too
 
     def resume(self) -> None:
         with self._cv:
@@ -364,8 +392,14 @@ class ServeFrontend:
         post-resize store of an elastic resize; key→slot hashing is
         stable, so requests queued across the pause stay valid). Call
         between :meth:`pause`/:meth:`quiesce`
-        and :meth:`resume`."""
+        and :meth:`resume`. On a mesh the frontend's order serves
+        ``store`` from here on (a resize's handler has pointed every
+        follower at its own new store already)."""
         old = self.coalescer
+        if self.order is not None:
+            if store is not self.order:
+                self.order.rebind(store)
+            store = self.order
         self.store = store
         self.coalescer = PullCoalescer(
             store,

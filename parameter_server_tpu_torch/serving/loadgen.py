@@ -18,6 +18,10 @@ vs completed rates (goodput), shed counts by reason, and
 p50/p90/p99/p99.9/max completion latency. Determinism: arrivals come
 from ``np.random.default_rng(seed)``; wall-clock scheduling is the only
 nondeterminism left (disclosed via ``achieved_offered_rate``).
+
+On a mesh the bench drives rank 0's frontend alone (its arrivals follow
+rank 0's clock; a follower's frontend admits nothing), and rank 0 writes
+the record.
 """
 
 from __future__ import annotations

@@ -34,6 +34,16 @@ Two homes for the copy:
 
 The refresh latency and the per-key hits and misses count in the
 telemetry registry (``ps_serve_replica_*``).
+
+**On a mesh** the store is rank 0's ``parallel/sequence.Order``: a
+refresh takes its place in the order every rank follows, and the copy
+is the whole table (``KVVector.snapshot`` gathers the data row's shards
+over the server axis), held on rank 0, in host memory or on rank 0's
+card. The device replica is gathered whole rather than kept sharded: a
+read is then one local gather with no collective and no sequenced call
+a request, for the whole table's bytes on rank 0's card (16 MiB at
+2^22 x 1 float32, 4 GiB at 2^30) where a shard would hold 1/S of them.
+A bare store on a mesh is refused.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import sequence
 from ..system import faults
 
 
@@ -73,6 +84,7 @@ class ReadReplica:
 
     def __init__(self, store, channel: int = 0, hot_keys: Optional[np.ndarray] = None,
                  device: bool = False, host_budget_bytes: Optional[int] = None):
+        sequence.require(store, "ReadReplica")
         self.store = store
         self.channel = int(channel)
         self.hot_keys = (None if hot_keys is None

@@ -37,6 +37,14 @@ too); each rank of the new mesh fits it to the new padding and installs
 its shard (``convert.shard_state``). The install is the gathered bytes,
 so the state after a resize is bit-equal to the state before it.
 
+**With a live serving frontend** (:meth:`ElasticCoordinator.serve_in`,
+every rank, with the order the frontend serves through): a resize asked for on rank 0
+takes its place in the frontend's order (``parallel/sequence.py``), so
+every rank enters it after the last call served before it (the state
+gather is itself a collective of the world), the idle ranks too; each
+rank then serves its new worker's store from the same point of the
+order, and rank 0 rebinds its frontend to its own.
+
 The Manager records every membership change and broadcasts add/remove
 events to subscribers (ref manager.cc NodeChange), the same events the
 JAX coordinator emits.
@@ -137,6 +145,7 @@ class ElasticCoordinator:
         # measured stop-the-world pauses, newest last: the old and new
         # mesh shapes and the pause in seconds (reported, not assumed away)
         self.resize_history = []
+        self._order = None  # a serving order the resizes take their place in
 
     # -- lifecycle --
 
@@ -168,10 +177,37 @@ class ElasticCoordinator:
         for cb in self._listeners:
             po.manager.subscribe_nodes(cb)
 
+    def serve_in(self, order) -> None:
+        """Put this coordinator's resizes in a serving ``order`` (a
+        ``parallel/sequence.Order`` of the worker's ``kv``; every rank of
+        the world calls this): from here on a :meth:`resize` is asked for
+        on rank 0 and runs on every rank at its place in the order, after
+        which the order serves the new worker's ``kv`` (None on an idle
+        rank)."""
+        self._order = order
+
+        def run(**kw):
+            worker = self._resize(**kw)
+            order.rebind(None if worker is None else worker.kv)
+
+        order.handle("elastic.resize", run)
+
     # -- membership changes (ref manager.cc AddNode / NodeDisconnected) --
 
     def resize(self, num_data: Optional[int] = None, num_server: Optional[int] = None,
                notify: bool = True):
+        """See :meth:`_resize`. Inside a serving order that is still open
+        (:meth:`serve_in`) rank 0 asks for it and every rank runs it at
+        its place in the order."""
+        order = self._order
+        if order is not None and order.active and order.group is not None:
+            order.call("elastic.resize", num_data=num_data, num_server=num_server,
+                       notify=notify)
+            return self.worker
+        return self._resize(num_data, num_server, notify)
+
+    def _resize(self, num_data: Optional[int] = None, num_server: Optional[int] = None,
+                notify: bool = True):
         """Live migration to a new data x server split: no files, no
         training-state loss; key ranges re-divide over the new server set
         while every key keeps its hash slot. Every rank of the world calls
@@ -289,7 +325,7 @@ class ElasticCoordinator:
         po.manager.remove_node(f"S{rank}")
         new_server = max(1, self.num_server - 1)
         rebuilt = new_server == self.num_server  # the last server: its slot is reborn
-        self.resize(num_server=new_server, notify=False)
+        self._resize(num_server=new_server, notify=False)  # every rank is here already
         if rebuilt:
             # a 1-server cluster cannot shrink: the slot is rebuilt (empty),
             # and subscribers must see the replacement join or their view

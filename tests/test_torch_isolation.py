@@ -72,7 +72,8 @@ def test_port_imports_nothing_of_jax():
               "benchmarks", "benchmarks.__main__", "benchmarks.components",
               "parallel", "parallel.mesh", "parallel.distributed", "parallel.partition",
               "parallel.launch", "benchmarks.mesh", "system.elastic", "system.autoscale",
-              "benchmarks.mesh_stages", "parallel.turns", "benchmarks.mesh_apps"):
+              "benchmarks.mesh_stages", "parallel.turns", "benchmarks.mesh_apps",
+              "parallel.sequence", "benchmarks.mesh_serve"):
         assert f"parameter_server_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

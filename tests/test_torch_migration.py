@@ -431,16 +431,16 @@ def test_restore_landing_mid_migration_forces_resnapshot(mesh1):
 def test_migrate_gives_up_after_max_attempts():
     kv = _store(name="giveup")
     _push_all(kv, list(_colliding(1)))
-    orig = kv.snapshot
+    orig = kv._shard_snapshot  # the barrier of a migration
 
     def poisoned(ch=0, callback=None):
         kv.note_external_restore()  # every snapshot is born stale
         return orig(ch, callback)
 
-    kv.snapshot = poisoned
+    kv._shard_snapshot = poisoned
     with pytest.raises(RuntimeError, match="could not complete"):
         kv.migrate(_perm(kv.num_slots), max_attempts=2)
-    kv.snapshot = orig
+    kv._shard_snapshot = orig
     kv.executor.wait_all(pop=False)
     assert kv.layout(0) is None
     assert kv.channel(0).journal is None  # the journal closed with the last attempt

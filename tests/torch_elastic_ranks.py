@@ -94,7 +94,7 @@ def rebalance_cases(batches, batches48, perms, layouts):
                 kv.push(kv.request(channel=0), keys=keys, values=vals)
             kv.executor.wait_all(pop=False)
             tables[at] = kv.get_replica()[0]
-            tables[f"shard{at}"] = kv.table(0, copy=True).numpy()
+            tables[f"shard{at}"] = kv.table(0).clone().numpy()
             tables[f"mig{at}"] = mig
             _done(kv)
         out[f"parity_{d}x{s}"] = tables or None
@@ -107,7 +107,7 @@ def rebalance_cases(batches, batches48, perms, layouts):
     after = _pull(kv, keys40)
     base = kv.get_replica()[0]
     out["exact"] = dict(before=before, after=after, attempts=mig["attempts"],
-                        layout=kv.layout(0), base=base, shard=kv.table(0, copy=True).numpy(),
+                        layout=kv.layout(0), base=base, shard=kv.table(0).clone().numpy(),
                         coords=kv.mesh.coords)
     _done(kv)
 
@@ -238,19 +238,19 @@ def _giveup_case(batches, perm):
     _hermetic()
     kv = _store(4, 2, name="giveup")
     _push_all(kv, batches)
-    orig = kv.snapshot
+    orig = kv._shard_snapshot  # the barrier of a migration
 
     def poisoned(ch=0, callback=None):
         kv.note_external_restore()  # every snapshot is born stale
         return orig(ch, callback)
 
-    kv.snapshot = poisoned
+    kv._shard_snapshot = poisoned
     try:
         kv.migrate(perm, max_attempts=2)
         err = None
     except RuntimeError as e:
         err = str(e)
-    kv.snapshot = orig
+    kv._shard_snapshot = orig
     kv.executor.wait_all(pop=False)
     layout = kv.layout(0)
     _done(kv)
@@ -703,7 +703,7 @@ def replica_and_migration_2x2(conf, batches, kv_batches, perm):
     rec["kv_zeroed"] = kv.get_replica()[0]
     kv.set_replica(snap)
     rec["kv_back"] = kv.get_replica()[0]
-    rec["kv_shard"] = kv.table(0, copy=True).numpy()
+    rec["kv_shard"] = kv.table(0).clone().numpy()
     _done(kv)
     _hermetic()
     return rec

@@ -129,7 +129,7 @@ def kv_cases(layouts, table, idx, vals, kv_keys, kv_vals):
         try:
             for keys, values in zip(kv_keys, kv_vals):
                 kv.wait(kv.push(kv.request(channel=0), keys=keys, values=values))
-            res["kv_table"] = kv.table(0, copy=True).numpy()
+            res["kv_table"] = kv.table(0).clone().numpy()
             res["kv_values"] = kv.values(0, kv_keys[0])
             ts = kv.push_pull(kv.request(channel=0), keys=kv_keys[1], values=kv_vals[1])
             res["kv_push_pull"] = kv.wait_pull(ts).numpy()
