@@ -63,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    pointed at a temporary directory: 2^22 slots, 10000-row minibatches,
    the 1-byte FIXING_FLOAT push filter (the quantize kernel and the
    masked dense kernel once per ministep), bounded delay 4, the count-min
-   tail filter, 5 of the conf's 10 passes (cut with phase 9d added). Its first ministeps are held
+   tail filter, 3 of the conf's 10 passes (cut to 5 with phase 9d added, to 3 with phase 9g).
+   Its first ministeps are held
    against the same CLI run on the CPU (objectives, pushed codes and
    weights); then a few ministeps with a FIXING_FLOAT pull filter added
    (two quantize launches per ministep). Then ``configs/criteo/online_l1lr.conf``
@@ -316,8 +317,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the postoffice, the fault points), all at full size but
    ``decode_batching`` (at its smoke size: phase 8 D runs the batcher at
    its full shapes) and the host-bound ``executor``, ``host_ingest``,
-   ``network``, ``consistency`` and ``serve`` (at their smoke sizes since
-   phase 9d was added) (``ftrl_chain`` at
+   ``consistency`` and ``serve`` (at their smoke sizes since phase 9d was
+   added; ``network`` at full size since phase 9g: its ``network_psum_ms``
+   at the JAX suite's 1 MB is the one phase 9 prints) (``ftrl_chain`` at
    2^24, 2^26 and 2^28 slots, ``attention`` at B·H 4 × S 4096 × D 64 with
    chains of 16, ``ftrl_sparse_ab`` at P 2^22, U 2^16, the plane probes at
    the JAX suite's full shapes); each line echoed as a
@@ -458,6 +460,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    every kernel, the flash kernels too, from zero, and holds each kernel
    it launched to its plain version on its first launch's inputs, on
    every rank;
+9g. the LM trained with its sequence across ranks (ROADMAP A9 slice 3's
+   first part), the ranks sharing the card over gloo
+   (``benchmarks/mesh_lm.py``): (a) in a world of 4, ``ring_attention``
+   ``xla`` / ``flash`` / ``zigzag`` (causal, and a window of 1024) at B·H 4
+   x S 8192 x D 64 and ``ulysses_attention`` ``xla`` / ``flash`` at 1 x 8192
+   x 512 (8 heads), bf16 and f32, each rank on its sequence shard: the
+   output and the q, k, v gradients put together against one card's dense
+   attention on the whole sequence (f32 within the tests' 2e-5 / 2e-4 of
+   the scale, bf16 within 3x the reference's own bf16-vs-f32 gap); (b) in
+   the same world, ``moe_ffn`` (d 512, d_ff 2048, 8 experts, 2 a rank) on
+   4 x 8192 tokens against ``moe_ffn_dense(..., 4)`` and ``pipeline_apply``
+   (8 stages of 512 in 4 groups) against ``sequential_apply``, outputs
+   and gradients; (c) the LM CLI at ``CLI_FULL``'s widths (d_model 512, 8
+   layers, seq 8192, batch 4, bf16, remat), ``--attention ring_flash``, 5
+   steps in the same world: its losses within 3x one card's bf16-vs-f32 gap
+   of one card's run of the same flags and seed, tokens/s, ms a step,
+   each rank's peak memory; (d) at full width with 2 layers in a world of
+   2: ``ring_zigzag``, ``a2a``, ``--moe-every 2`` (held to one card with
+   the layer's reference ``moe_ffn_dense(..., 2)``) and a float32 run
+   (within ``CLI_LOSS_TOL`` of one card), 3 steps each. Each part counts the flash
+   kernels from zero and holds each rank's first launch of each at nonzero
+   offsets (the ring's hops, the fully masked ones included) to its plain
+   version on that launch's own inputs;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -532,6 +557,7 @@ from parameter_server_tpu_torch.apps.serve import main as serve_main  # noqa: E4
 from parameter_server_tpu_torch.benchmarks import flash_ab, ftrl_bytes, lm_serve, lm_train  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import segment_bytes  # noqa: E402
 from parameter_server_tpu_torch.benchmarks import mesh as mesh_bench  # noqa: E402
+from parameter_server_tpu_torch.benchmarks import mesh_lm  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.segment_ab import segment_inputs  # noqa: E402
 from parameter_server_tpu_torch.benchmarks.timing import median_ms  # noqa: E402
 from parameter_server_tpu_torch.filter import fixing_float  # noqa: E402
@@ -1581,7 +1607,7 @@ def touched_share(rec: dict, num_slots: int) -> float:
     return float(np.mean(shares))
 
 
-CTR_PASSES = 5  # of the conf's 10 (cut with phase 9d added): 45 ministeps
+CTR_PASSES = 3  # of the conf's 10 (cut to 5 with phase 9d added, to 3 with 9g): 27 ministeps
 
 
 def ctr_path(tmp: str, seed: int) -> dict:
@@ -4850,8 +4876,9 @@ def record_shares(rec, path: str = ""):
 #: phase 9c added: decode_batching's sequential arm took most of 8g's time
 #: at full size, and phase 8 D runs the batcher at those full shapes
 #: already
-# at their smoke sizes (cut with phase 9d added): the five slowest host-bound probes
-COMPONENT_SMOKE = {"decode_batching", "executor", "host_ingest", "network", "consistency", "serve"}
+# at their smoke sizes (cut with phase 9d added): the slowest host-bound probes (network
+# at full size since phase 9g added: phase 9 prints its 1 MB psum)
+COMPONENT_SMOKE = {"decode_batching", "executor", "host_ingest", "consistency", "serve"}
 
 
 def run_component(name: str) -> dict:
@@ -5010,10 +5037,12 @@ def np_close(a: dict, b: dict, what: str) -> None:
               f"{what}: {k} max |diff| {float(np.abs(a[k] - b[k]).max())}")
 
 
-def mesh_plane(seed: int, smi: str) -> dict:
+def mesh_plane(seed: int, smi: str, comp: dict) -> dict:
     """Phase 9: the headline worker on meshes 1x2, 2x1 and 2x2, sparse
     and dense, in one world of 4 ranks on the card and one on the CPU;
-    the CTR conf through the linear CLI on a 2x2 mesh; the in-mesh psum."""
+    the CTR conf through the linear CLI on a 2x2 mesh; the in-mesh psum
+    (``comp``: phase 8g's records, whose ``network`` measured it in a
+    world of 2 at 1 MB)."""
     from parameter_server_tpu_torch.benchmarks.headline import conf as headline_conf
     from parameter_server_tpu_torch.parallel import distributed, launch
 
@@ -5092,8 +5121,7 @@ def mesh_plane(seed: int, smi: str) -> dict:
     del card, cpu
     with tempfile.TemporaryDirectory(prefix="mesh_smoke_") as tmp:
         cli = mesh_cli(tmp, seed)
-    psum = launch.run_world(mesh_bench.psum_ms, 2, args=(1024 * 256, 20), device_type="cuda",
-                            timeout=MESH_WORLD_S)[0]
+    psum = comp["runs"]["network"]["record"]["psum"]
     print(f"# network_psum_ms (2 ranks sharing one card over {psum['backend']}, {psum['bytes']} B, "
           f"{smi}): {psum['ms']:.4f} ms", flush=True)
     launches = {k: sum(r["launches"][k] for r in rows) + cli["launches"][k] for k in MESH_KERNELS}
@@ -6091,6 +6119,368 @@ def serve_mesh_plane(seed: int, smi: str, cli_one: dict, comp: dict) -> dict:
 PHASE_SECONDS: dict = {}
 
 
+# -- phase 9g: the LM with its sequence across ranks sharing the card --
+
+MESH9G_RANKS = 4  # (a)-(c): a world of 4, its 4 x 1 mesh; (d): a world of 2
+MESH9G_WINDOW = 1024
+# (a): the LM CLI's attention at its sequence and head width: B·H 4 x S 8192 x
+# D 64 for the rings (the CLI's B·H 32 cut: (c) runs it whole); B 1 x S 8192 x
+# 512 (8 heads of 64) for Ulysses
+MESH9G_RING_SHAPE = (4, 8192, 64)
+MESH9G_ULYSSES_SHAPE = (1, 8192, 512)
+MESH9G_HEADS = 8
+# (a), float32: the tests' tolerances against dense attention
+# (tests/test_nn_parallel.py; tests/test_torch_parallel_attention.py), values
+# 2e-5 and gradients 2e-4, as shares of the reference's largest |value| once
+# that passes 1; bfloat16: 3x the reference's own bf16-vs-f32 gap (the same
+# dense code in bf16 against float32 on the same bf16 inputs), output by
+# output, the repo's convention for bf16
+MESH9G_F32_TOL = (2e-5, 2e-4)
+MESH9G_NOISE_MULTIPLE = 3.0
+# (b): the MoE layer of the LM CLI's --moe-every at full width (d 512,
+# d_ff 2048, 8 experts, the LM's capacity factor 2) on a batch of 4 x 8192
+# tokens; a stack of 8 tanh(x @ w + b) stages of 512 in 4 groups, 8
+# microbatches of 64 rows. float32, sums of up to 2048 terms in another
+# order: outputs within 1e-5 and gradients within 1e-4 of the reference's
+# largest |value| (at least 1)
+MESH9G_MOE = dict(inputs=dict(seed=91, d=512, d_ff=2048, n_experts=8, shape=(4, 8192, 512)),
+                  capacity_factor=2.0)
+MESH9G_PIPE = dict(seed=92, n_stages=8, d=512, shape=(8, 64, 512))
+MESH9G_LAYER_TOL = (1e-5, 1e-4)
+# (c), (d): CLI_FULL's widths and remat, every loss logged; 5 steps in (c), 3
+# in (d)
+MESH9G_STEPS = 5
+MESH9G_MODE_STEPS = 3
+MESH9G_CLI = ["--d-model", "512", "--n-heads", "8", "--d-ff", "2048", "--remat", "--seq-len",
+              "8192", "--batch", "4", "--steps", str(MESH9G_STEPS), "--report-every", "1"]
+MESH9G_WORLD_S = 600  # a world's time limit: a rank that hangs fails the phase
+MESH9G_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def mesh9g_cases() -> list:
+    """(a)'s cases: ``(name, fn, kwargs, shape, dtype)``."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        ring = MESH9G_RING_SHAPE
+        cases += [
+            (f"ring xla {tag}", "ring", dict(impl="xla", causal=True), ring, dtype),
+            (f"ring flash {tag}", "ring", dict(impl="flash", causal=True), ring, dtype),
+            (f"ring flash window {tag}", "ring",
+             dict(impl="flash", causal=True, window=MESH9G_WINDOW), ring, dtype),
+            (f"ring zigzag {tag}", "ring", dict(impl="zigzag", causal=True), ring, dtype),
+            (f"ring zigzag window {tag}", "ring",
+             dict(impl="zigzag", causal=True, window=MESH9G_WINDOW), ring, dtype),
+            (f"ulysses xla {tag}", "ulysses", dict(impl="xla", causal=True, n_heads=MESH9G_HEADS),
+             MESH9G_ULYSSES_SHAPE, dtype),
+            (f"ulysses flash {tag}", "ulysses",
+             dict(impl="flash", causal=True, n_heads=MESH9G_HEADS), MESH9G_ULYSSES_SHAPE, dtype),
+        ]
+    return cases
+
+
+def dense_reference(fn: str, kw: dict, q, k, v, dy, dtype) -> list:
+    """One card's dense attention on the whole sequence (causal, and the
+    window), computed in ``dtype`` from these inputs: the output and the
+    q, k, v gradients of ``sum(out * dy)``, in float32."""
+    xs = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    if fn == "ulysses":
+        b, s, h = q.shape
+        nh = kw["n_heads"]
+        split = [t.reshape(b, s, nh, h // nh).transpose(1, 2).reshape(b * nh, s, h // nh)
+                 for t in xs]
+    else:
+        split = xs
+    qq, kk, vv = split
+    scores = torch.einsum("bqd,bkd->bqk", qq, kk) / math.sqrt(qq.shape[-1])
+    pos = torch.arange(qq.shape[1], device=q.device)
+    keep = pos[:, None] >= pos[None, :]
+    if kw.get("window") is not None:
+        keep &= (pos[:, None] - pos[None, :]) < kw["window"]
+    out = torch.einsum("bqk,bkd->bqd", torch.softmax(torch.where(keep[None], scores, -torch.inf),
+                                                     dim=-1), vv)
+    if fn == "ulysses":
+        out = out.reshape(b, nh, s, h // nh).transpose(1, 2).reshape(b, s, h)
+    grads = torch.autograd.grad(out, xs, dy.to(dtype))
+    return [t.detach().float() for t in (out, *grads)]
+
+
+def within_scaled(got, want, tol: float, what: str) -> float:
+    """max |got - want| <= tol * max(1, max |want|); returns the share of
+    that bound used."""
+    bound = tol * max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= bound, f"{what}: max |diff| {err} past {bound}")
+    return err / bound
+
+
+def mesh9g_attention(seed: int, ranks: list) -> dict:
+    """(a): each case's shards put together (the zigzag layout put back in
+    natural order) against one card's dense attention on the whole
+    sequence: the output and the q, k, v gradients."""
+    from parameter_server_tpu_torch.models.attention import zigzag_permutation
+
+    out = {}
+    for name, fn, kw, shape, dtype in mesh9g_cases():
+        q, k, v, dy = mesh_lm.attention_inputs(seed, shape, dtype, "cuda")
+        parts = [torch.cat([r["cases"][name]["out"] for r in ranks], dim=1)]
+        parts += [torch.cat([r["cases"][name]["grads"][i] for r in ranks], dim=1)
+                  for i in range(3)]
+        parts = [t.cuda() for t in parts]
+        if kw.get("impl") == "zigzag":
+            inv = torch.as_tensor(np.argsort(zigzag_permutation(shape[1], len(ranks))),
+                                  device="cuda")
+            parts = [t[:, inv] for t in parts]
+        want = dense_reference(fn, kw, q.float(), k.float(), v.float(), dy.float(),
+                               torch.float32)
+        rec = dict(dtype=str(dtype).split(".")[-1],
+                   launches=[r["cases"][name]["launches"] for r in ranks],
+                   wall_s=max(r["cases"][name]["wall_s"] for r in ranks),
+                   max_abs_err=[float((g.float() - w).abs().max()) for g, w in zip(parts, want)])
+        if dtype == torch.float32:
+            tols = (MESH9G_F32_TOL[0],) + (MESH9G_F32_TOL[1],) * 3
+            rec["used"] = [within_scaled(g, w, t, f"9g(a) {name} [{i}]")
+                           for i, (g, w, t) in enumerate(zip(parts, want, tols))]
+        else:
+            noisy = dense_reference(fn, kw, q, k, v, dy, torch.bfloat16)
+            rec["gap"] = [float((b16 - w).abs().max()) for b16, w in zip(noisy, want)]
+            rec["used"] = [e / (MESH9G_NOISE_MULTIPLE * gap)
+                           for e, gap in zip(rec["max_abs_err"], rec["gap"])]
+            check(max(rec["used"]) <= 1.0, f"9g(a) {name}: max |diff| {rec['max_abs_err']} past "
+                  f"{MESH9G_NOISE_MULTIPLE} x the reference's bf16 gaps {rec['gap']}")
+            del noisy
+        del parts, want, q, k, v, dy
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def mesh9g_layers(ranks: list) -> dict:
+    """(b): ``moe_ffn`` over the ranks against ``moe_ffn_dense(..., n)`` on
+    one card, and ``pipeline_apply`` over the ranks' stage groups against
+    ``sequential_apply``: outputs and gradients (the tables' summed over
+    the ranks)."""
+    from parameter_server_tpu_torch.models import moe as moe_mod
+    from parameter_server_tpu_torch.models import pipeline as pipe_mod
+
+    n = len(ranks)
+    out_tol, grad_tol = MESH9G_LAYER_TOL
+    params, x, dy = mesh_lm.moe_inputs(**MESH9G_MOE["inputs"], device="cuda")
+    leaves = {k: t.requires_grad_() for k, t in params.items()}
+    xl = x.requires_grad_()
+    y = moe_mod.moe_ffn_dense(leaves, xl, n, MESH9G_MOE["capacity_factor"])
+    grads = torch.autograd.grad(y, [*leaves.values(), xl], dy)
+    moe = dict(wall_s=max(r["moe"]["wall_s"] for r in ranks), used={})
+    got_y = torch.cat([r["moe"]["out"] for r in ranks], dim=1).cuda()
+    got_dx = torch.cat([r["moe"]["dx"] for r in ranks], dim=1).cuda()
+    moe["used"]["out"] = within_scaled(got_y, y.detach(), out_tol, "9g(b) moe out")
+    moe["used"]["dx"] = within_scaled(got_dx, grads[-1], grad_tol, "9g(b) moe dx")
+    for key, g in zip(leaves, grads):
+        moe["used"][key] = max(within_scaled(r["moe"]["grads"][key].cuda(), g, grad_tol,
+                                             f"9g(b) moe d{key} (rank {r['rank']})")
+                               for r in ranks)
+    del params, leaves, x, xl, dy, y, grads, got_y, got_dx
+    params, x = mesh_lm.pipeline_inputs(**MESH9G_PIPE, device="cuda")
+    leaves = {k: t.requires_grad_() for k, t in params.items()}
+    y = pipe_mod.sequential_apply(mesh_lm.stage_fn, leaves, x)
+    grads = torch.autograd.grad((y ** 2).sum(), list(leaves.values()))
+    pipe = dict(wall_s=max(r["pipeline"]["wall_s"] for r in ranks), used={})
+    pipe["used"]["out"] = max(within_scaled(r["pipeline"]["out"].cuda(), y.detach(), out_tol,
+                                            f"9g(b) pipeline out (rank {r['rank']})")
+                              for r in ranks)
+    for key, g in zip(leaves, grads):
+        pipe["used"][key] = max(within_scaled(r["pipeline"]["grads"][key].cuda(), g, grad_tol,
+                                              f"9g(b) pipeline d{key} (rank {r['rank']})")
+                                for r in ranks)
+    torch.cuda.empty_cache()
+    return dict(moe=moe, pipeline=pipe)
+
+
+@contextlib.contextmanager
+def dense_moe_layer(n_shards: int):
+    """The LM's MoE layer replaced by its one-card reference
+    ``moe_ffn_dense(..., n_shards)`` inside the block: the math of the
+    layer over ``n_shards`` ranks (each shard routed with its own
+    capacity), on one card."""
+    from parameter_server_tpu_torch.models import moe as moe_mod
+
+    real = transformer.moe_ffn
+    transformer.moe_ffn = lambda params, x, mesh=None, axis="data", capacity_factor=1.25: \
+        moe_mod.moe_ffn_dense(params, x, n_shards, capacity_factor)
+    try:
+        yield
+    finally:
+        transformer.moe_ffn = real
+
+
+def mesh9g_cli_one(argv) -> dict:
+    """The LM CLI on one card with ``argv`` (its logged losses, the
+    median ms a step after the first)."""
+    _, recs = run_lm_cli_records(argv)
+    return dict(losses=[r["loss"] for r in recs], ms=step_ms(recs, argv))
+
+
+def step_ms(recs: list, argv) -> float:
+    """The median ms a step over the logged steps after the first (each
+    record's window is one step at ``--report-every 1``)."""
+    tokens = int(argv[argv.index("--batch") + 1]) * int(argv[argv.index("--seq-len") + 1])
+    return float(np.median([1e3 * tokens / r["tokens_per_sec"] for r in recs[1:]]))
+
+
+def mesh9g_cli_logs(argvs, tmp: str, tag: str) -> "tuple[list, list]":
+    """``argvs`` each with a ``--log-file`` of its own under ``tmp``; the
+    paths."""
+    logs = [os.path.join(tmp, f"{tag}_{i}.jsonl") for i in range(len(argvs))]
+    return [list(a) + ["--log-file", log] for a, log in zip(argvs, logs)], logs
+
+
+def mesh9g_cli_held(argvs, logs, ranks) -> list:
+    """Every rank's CLI runs checked (exit code, launches, holds); each
+    run's rank-0 log records."""
+    recs = []
+    for i, log in enumerate(logs):
+        with open(log) as f:
+            recs.append([json.loads(line) for line in f])
+        # a2a runs Ulysses' default impl, "xla" (as the JAX layer calls it):
+        # no flash kernel
+        flash = "a2a" not in argvs[i]
+        for r in ranks:
+            run = r[i]
+            check(run["code"] == 0, f"9g: {argvs[i]} exited {run['code']} on a rank")
+            for k in MESH9G_KERNELS:
+                check((run["launches"][k] > 0) == flash,
+                      f"9g: {argvs[i]} launched {k} {run['launches'][k]} times on a rank")
+            check(set(run["held"]) == ({"flash_fwd", "flash_bwd"} if flash else set()),
+                  f"9g: {argvs[i]}: a rank held {sorted(run['held'])}")
+    return recs
+
+
+def seq_mesh_plane(seed: int, smi: str) -> dict:
+    """Phase 9g, (a)-(d), printed as they finish."""
+    from parameter_server_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(MESH9G_KERNELS, 0)
+
+    def add(counts) -> None:
+        for k in MESH9G_KERNELS:
+            launches[k] += counts[k]
+
+    with tempfile.TemporaryDirectory(prefix="seq_mesh_") as tmp:
+        # (c)'s one-card runs, bf16 and f32, before the world of 4 runs (a),
+        # (b) and (c)
+        full = MESH9G_CLI + ["--n-layers", "8", "--attention", "ring_flash", "--seed", str(seed)]
+        one_bf16 = mesh9g_cli_one(full + ["--bf16"])
+        one_f32 = mesh9g_cli_one(full)
+        gap = max(abs(a - b) for a, b in zip(one_bf16["losses"], one_f32["losses"]))
+        argvs, logs = mesh9g_cli_logs([full + ["--bf16"]], tmp, "world4")
+        t0 = time.perf_counter()
+        world = launch.run_world(mesh_lm.schedules_and_cli, MESH9G_RANKS,
+                                 args=(seed, mesh9g_cases(), MESH9G_MOE, MESH9G_PIPE, argvs,
+                                       FLASH_TOL, FLASH_BWD_TOL),
+                                 device_type="cuda", timeout=MESH9G_WORLD_S, threads=0)
+        abc_world_s = time.perf_counter() - t0
+        ranks = [r["schedules"] for r in world]
+        c_ranks = [r["cli"] for r in world]
+        del world
+        for r in ranks:
+            add(r["launches"])
+            check(set(r["held"]) == {"flash_fwd", "flash_bwd"},
+                  f"9g(a): rank {r['rank']} held {sorted(r['held'])}")
+        att = mesh9g_attention(seed, ranks)
+        for name, rec in att.items():
+            print(f"# 9g(a) {name} at {MESH9G_RANKS} x 1 vs one card's dense attention: max "
+                  f"|diff| out / dq / dk / dv {['%.3g' % e for e in rec['max_abs_err']]}, share "
+                  f"of the tolerance {max(rec['used']):.3g}"
+                  + (f" (3 x the bf16 gaps {['%.3g' % g for g in rec['gap']]})" if "gap" in rec
+                     else "")
+                  + f"; {rec['wall_s'] * 1e3:.1f} ms forward + backward [{smi}]", flush=True)
+        layers = mesh9g_layers(ranks)
+        print(f"# 9g(b) moe_ffn (d 512, d_ff 2048, 8 experts, 2 a rank) at {MESH9G_RANKS} x 1 vs "
+              f"moe_ffn_dense(..., {MESH9G_RANKS}): shares of the tolerance "
+              f"{layers['moe']['used']}; pipeline_apply (8 stages of 512 in {MESH9G_RANKS} "
+              f"groups, 8 microbatches) vs sequential_apply: {layers['pipeline']['used']}",
+              flush=True)
+        held_ab = [r["held"] for r in ranks]
+        print(f"# 9g(a, b) held at nonzero offsets on each rank: {held_ab}", flush=True)
+        del ranks
+
+        # (c) the full-width CLI at 4 ranks against one card
+        recs = mesh9g_cli_held(argvs, logs, c_ranks)
+        losses = [r["loss"] for r in recs[0]]
+        c_gap = max(abs(a - b) for a, b in zip(losses, one_bf16["losses"]))
+        check(len(losses) == MESH9G_STEPS and c_gap <= MESH9G_NOISE_MULTIPLE * gap,
+              f"9g(c): the CLI at {MESH9G_RANKS} ranks {losses} vs one card {one_bf16['losses']}: "
+              f"{c_gap} apart, past {MESH9G_NOISE_MULTIPLE} x the bf16-vs-f32 gap {gap}")
+        for r in c_ranks:
+            add(r[0]["launches"])
+        tok_s = float(np.median([r["tokens_per_sec"] for r in recs[0][1:]]))
+        c_ms = step_ms(recs[0], full)
+        peaks = [r[0].get("peak_gib", 0.0) for r in c_ranks]
+        print(f"# 9g(c) LM CLI, d_model 512, 8 heads, 8 layers, d_ff 2048, bf16, remat, seq 8192, "
+              f"batch 4, ring_flash, {MESH9G_STEPS} Adam steps, {MESH9G_RANKS} ranks sharing the "
+              f"card over gloo: losses {losses} vs one card {one_bf16['losses']} ({c_gap:.3g} "
+              f"apart, tolerance {MESH9G_NOISE_MULTIPLE} x the one-card bf16-vs-f32 gap "
+              f"{gap:.3g}); {tok_s:.0f} tokens/s, {c_ms:.1f} ms a step (one card "
+              f"{one_bf16['ms']:.1f}); peak memory a rank {['%.2f' % p for p in peaks]} GiB; "
+              f"launches a rank {[r[0]['launches'] for r in c_ranks]}; held "
+              f"{[r[0]['held'] for r in c_ranks]} [{smi}]", flush=True)
+
+        # (d) the other modes at 2 ranks, full width, 2 layers
+        two = MESH9G_CLI + ["--n-layers", "2", "--seed", str(seed), "--steps",
+                            str(MESH9G_MODE_STEPS)]
+        modes = {"ring_zigzag": two + ["--bf16", "--attention", "ring_zigzag"],
+                 "a2a": two + ["--bf16", "--attention", "a2a"],
+                 "moe_every 2": two + ["--bf16", "--moe-every", "2"],
+                 "float32": two}
+        ref2 = {"bf16": mesh9g_cli_one(two + ["--bf16"]), "float32": mesh9g_cli_one(two)}
+        # the MoE layer routes each rank's tokens with the per-shard capacity:
+        # on one card its reference is moe_ffn_dense(..., 2), the same math;
+        # its bf16 noise includes the routing decisions that bf16 flips
+        with dense_moe_layer(2):
+            ref2["moe_every 2"] = mesh9g_cli_one(modes["moe_every 2"])
+            moe_f32 = mesh9g_cli_one(two + ["--moe-every", "2"])
+        gap2 = max(abs(a - b) for a, b in zip(ref2["bf16"]["losses"], ref2["float32"]["losses"]))
+        gap_moe = max(abs(a - b) for a, b in zip(ref2["moe_every 2"]["losses"],
+                                                 moe_f32["losses"]))
+        argvs2, logs2 = mesh9g_cli_logs(list(modes.values()), tmp, "world2")
+        t0 = time.perf_counter()
+        d_ranks = launch.run_world(mesh_lm.cli_runs, 2, args=(argvs2, FLASH_TOL, FLASH_BWD_TOL),
+                                   device_type="cuda", timeout=MESH9G_WORLD_S, threads=0)
+        d_wall = time.perf_counter() - t0
+        recs2 = mesh9g_cli_held(argvs2, logs2, d_ranks)
+        d = {}
+        for i, (mode, argv) in enumerate(modes.items()):
+            got = [r["loss"] for r in recs2[i]]
+            ref = ref2[mode if mode in ref2 else "bf16"]["losses"]
+            tol = CLI_LOSS_TOL if mode == "float32" else MESH9G_NOISE_MULTIPLE * (
+                gap_moe if mode == "moe_every 2" else gap2)
+            apart = max(abs(a - b) for a, b in zip(got, ref))
+            check(len(got) == MESH9G_MODE_STEPS and apart <= tol,
+                  f"9g(d) {mode}: 2 ranks {got} vs one card {ref}: {apart} apart, past {tol}")
+            for r in d_ranks:
+                add(r[i]["launches"])
+            d[mode] = dict(losses=got, one_card=ref, apart=apart, tolerance=tol,
+                           ms=step_ms(recs2[i], argv),
+                           peak_gib=[r[i].get("peak_gib", 0.0) for r in d_ranks],
+                           launches=[r[i]["launches"] for r in d_ranks],
+                           held=[r[i]["held"] for r in d_ranks])
+            print(f"# 9g(d) LM CLI, full width, 2 layers, {mode}, 2 ranks: losses {got} vs one "
+                  f"card {ref} ({apart:.3g} apart, tolerance {tol:.3g}); {d[mode]['ms']:.1f} ms a "
+                  f"step; peak a rank {['%.2f' % p for p in d[mode]['peak_gib']]} GiB; launches "
+                  f"{d[mode]['launches']} [{smi}]", flush=True)
+    for k in MESH9G_KERNELS:
+        check(launches[k] > 0, f"9g launched no {k}")
+    return dict(attention=att, layers=layers, held_ab=held_ab, abc_world_s=abc_world_s,
+                cli=dict(losses=losses, one_card_bf16=one_bf16, one_card_f32=one_f32,
+                         bf16_gap=gap, apart=c_gap, tokens_per_s=tok_s, ms=c_ms,
+                         peak_gib=peaks, launches=[r[0]["launches"] for r in c_ranks],
+                         held=[r[0]["held"] for r in c_ranks]),
+                modes=d, modes_bf16_gap=gap2, moe_bf16_gap=gap_moe, modes_world_s=d_wall,
+                launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
 def timed_phases(names) -> None:
     """Wrap each named module-level phase function so that its wall time
     is printed and recorded in :data:`PHASE_SECONDS` as it returns."""
@@ -6117,7 +6507,7 @@ def main() -> int:
                   "lm_family", "serving_plane", "telemetry_plane", "a10_plane", "a13_plane",
                   "system_plane", "checkpoint_plane", "component_plane", "mesh_plane",
                   "elastic_plane", "ell_a10_mesh_plane", "slice_mesh_plane",
-                  "serve_mesh_plane"))
+                  "serve_mesh_plane", "seq_mesh_plane"))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed-launches", type=int, default=4)
@@ -6548,7 +6938,7 @@ def main() -> int:
                        for name in ("headline_float32", "headline_bfloat16", "ctr")}
     comp = component_plane(smi)
     t_mesh = time.perf_counter()
-    mesh = mesh_plane(args.seed, smi)
+    mesh = mesh_plane(args.seed, smi, comp)
     print(f"# phase 9 (the mesh) took {time.perf_counter() - t_mesh:.1f} s: the card world "
           f"{mesh['card_world_s']:.1f} s, the CPU world {mesh['cpu_world_s']:.1f} s; launches "
           f"{mesh['launches']}", flush=True)
@@ -6569,6 +6959,12 @@ def main() -> int:
           f"in a world, the suite's mesh probes) took {mesh9f['seconds']:.1f} s: world (a) "
           f"{mesh9f['a_world_s']:.1f} s, world (b, c) {mesh9f['bc_world_s']:.1f} s; launches "
           f"{mesh9f['launches']}", flush=True)
+    mesh9g = seq_mesh_plane(args.seed, smi)
+    print(f"# phase 9g (the LM with its sequence across ranks: ring, zigzag and Ulysses "
+          f"attention, MoE and pipeline over the ranks, the LM CLI in worlds of 4 and 2) took "
+          f"{mesh9g['seconds']:.1f} s: world (a, b, c) {mesh9g['abc_world_s']:.1f} s, world (d) "
+          f"{mesh9g['modes_world_s']:.1f} s; "
+          f"launches {mesh9g['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -6690,6 +7086,7 @@ def main() -> int:
              library_ms=main_seg["library_ms"]),
         dict(name="flash_fwd", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_fwd"],
+             seq_mesh_launches=mesh9g["launches"]["flash_fwd"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:383",
              launches=lm["flash_launches"],
@@ -6710,6 +7107,7 @@ def main() -> int:
              library_ms=flash_rows[0]["library_ms"], f32=f32_record),
         dict(name="flash_bwd_dq", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_bwd_dq"],
+             seq_mesh_launches=mesh9g["launches"]["flash_bwd_dq"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dq_launches"],
@@ -6724,6 +7122,7 @@ def main() -> int:
              f32=bwd_f32_record("dq")),
         dict(name="flash_bwd_dkv", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_bwd_dkv"],
+             seq_mesh_launches=mesh9g["launches"]["flash_bwd_dkv"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dkv_launches"],
@@ -6753,7 +7152,7 @@ def main() -> int:
                   lm_train_agreement=agree_train, lm_cli=cli, lm_family=fam, serving=serve,
                   telemetry=tel, a10=a10, a13=a13, system=sysp, checkpoint=ckpt,
                   component_suite=comp, mesh=mesh, elastic=elastic, ell_a10_mesh=mesh9d,
-                  slice_mesh=mesh9e, serve_mesh=mesh9f,
+                  slice_mesh=mesh9e, serve_mesh=mesh9f, seq_mesh=mesh9g,
                   phase_seconds=PHASE_SECONDS,
                   wall_s=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -3,14 +3,14 @@ synthetic corpus), then generate from it:
 
     python -m parameter_server_tpu_torch.apps.lm.main \\
         [--data FILE] [--steps N] [--seq-len S] [--batch B] \\
-        [--attention ring|ring_flash] [--window W] [--remat] [--bf16] \\
+        [--attention ring|ring_flash|ring_zigzag|a2a] [--window W] [--remat] [--bf16] \\
         [--moe-every K] [--optimizer adam|adafactor|lion] \\
         [--ckpt-dir DIR] [--save-every N] [--resume] \\
         [--prompt "text"] [--gen-tokens N] [--temperature T] [--top-k K] \\
         [--top-p P] [--beam W] [--n-kv-heads G] [--device cpu]
 
-Counterpart of ``parameter_server_tpu/apps/lm/main.py`` on one device
-(the CUDA device unless ``--device`` names another): the same flags,
+Counterpart of ``parameter_server_tpu/apps/lm/main.py`` (the CUDA
+device unless ``--device`` names another): the same flags,
 defaults, validation and error texts, the same corpus and batches for a
 seed, the same report lines, ``--log-file`` JSON lines and held-out
 ``--eval-every`` losses. Tokens are raw bytes (vocab 256). The optimizer
@@ -25,9 +25,25 @@ and trains the remaining steps, the schedule and accumulation counters
 going on from the optimizer state. As in the JAX CLI, a resumed run's
 batch stream starts over from the seed.
 
+**Inside a world.** Run by every rank of a world a launcher started
+(``PS_COORDINATOR_ADDRESS``, ``PS_NUM_PROCESSES``, ``PS_PROCESS_ID`` and
+``PS_DEVICE`` on every rank, e.g. ``parallel/launch.run_world(main, N,
+args=(argv,))``), the CLI trains on a ``world x 1`` mesh, as the JAX CLI
+on its ``data x server`` mesh over every device: every rank samples the
+same global batch and keeps its shard of the sequence
+(``models/transformer.shard_tokens``; ``--seq-len`` must divide by the
+world, by twice it under ``ring_zigzag``), attention runs as the
+schedule ``--attention`` names across the ranks (``a2a`` needs
+``--n-heads`` divisible by the world), MoE layers shard their experts
+over them, and the optimizer steps on the gradients summed over the
+ranks (so ``--clip-norm`` sees the global norm); the parameters stay the
+same on every rank. Held-out batches are sharded alike. Rank 0 alone
+prints, logs, profiles, writes the checkpoints and generates; every rank
+restores a ``--resume``.
+
 Flags the port cannot serve yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``--zero1``, ``--fsdp``, ``--num-servers > 1``,
-``--attention ring_zigzag|a2a`` (A9, multi-GPU).
+their ROADMAP item: ``--zero1``, ``--fsdp``, ``--num-servers > 1`` (A9
+slice 3, second part: the parameters and optimizer state sharded).
 
 ``--profile DIR`` runs the training loop under a ``torch.profiler``
 capture (``utils/profiling.device_trace``), a Chrome trace written under
@@ -78,7 +94,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--d-ff", type=int, default=128)
     ap.add_argument("--attention", default="ring_flash",
                     choices=("ring", "ring_flash", "ring_zigzag", "a2a"),
-                    help="attention schedule (ring_zigzag and a2a need several cards)")
+                    help="attention schedule across the ranks of a world")
     ap.add_argument("--window", type=int, default=None, help="sliding-window span (flash modes)")
     ap.add_argument("--rope", action="store_true", help="rotary position embeddings")
     ap.add_argument("--rope-theta", type=float, default=10000.0)
@@ -133,7 +149,7 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def train_step_cost(params, opt_state, tokens) -> dict:
+def train_step_cost(params, opt_state, tokens, *targets_and_weights) -> dict:
     """The least work of one training step, for the device inventory's
     roofline gauges: 6 FLOP a token for every weight of a dense matrix
     product (forward, then the two products of the backward), counting
@@ -158,15 +174,21 @@ def _unported(flag: str, item: str) -> NotImplementedError:
 
 def _check_unported(args) -> None:
     if args.zero1 or args.fsdp or args.num_servers > 1:
-        raise _unported("--zero1/--fsdp/--num-servers > 1 (sharded training)", "A9")
-    if args.attention in ("ring_zigzag", "a2a"):
-        raise _unported(f"--attention {args.attention} (a sequence layout across cards)", "A9")
+        raise _unported("--zero1/--fsdp/--num-servers > 1 (parameters or optimizer state "
+                        "sharded)", "A9 slice 3, second part")
 
 
-def _validate(ap, args) -> None:
-    """The JAX CLI's flag checks that do not need the corpus, in its order."""
+def _validate(ap, args, n: int) -> None:
+    """The JAX CLI's flag checks that do not need the corpus, in its
+    order; ``n``: the ranks of the world (the data axis)."""
     if args.num_servers < 1:
-        ap.error(f"--num-servers {args.num_servers} must divide the device count (1)")
+        ap.error(f"--num-servers {args.num_servers} must divide the device count ({n})")
+    zig = args.attention == "ring_zigzag"
+    if args.seq_len % (2 * n if zig else n):
+        ap.error(f"--seq-len must divide by {2 * n if zig else n}")
+    if args.attention == "a2a" and args.n_heads % n:
+        ap.error(f"--attention a2a needs --n-heads divisible by the {n}-device data axis "
+                 f"(got {args.n_heads})")
     if args.temperature < 0:
         ap.error(f"--temperature must be >= 0, got {args.temperature}")
     if args.top_k is not None:
@@ -196,10 +218,17 @@ def main(argv=None) -> int:
 
     from ...device import resolve
     from ...models.transformer import (LMConfig, init_lm, lm_beam_search, lm_generate, lm_loss,
-                                       value_and_grad)
+                                       lm_loss_with_targets, shard_tokens, value_and_grad,
+                                       zigzag_lm_arrays)
+    from ...parallel import distributed
+    from ...parallel import mesh as meshlib
     from ...parameter.replica import CheckpointManager
     from ...telemetry import device as device_tel
     from ...utils.profiling import device_trace
+
+    # inside a launcher's world every rank runs this CLI: a world x 1 mesh
+    in_world = distributed.initialize()
+    n = torch.distributed.get_world_size() if in_world else 1
 
     try:
         cfg = LMConfig(
@@ -213,8 +242,9 @@ def main(argv=None) -> int:
         # LMConfig rejects invalid combinations (e.g. --window with
         # --attention ring); surface them as flag errors, not tracebacks
         ap.error(str(e))
-    _validate(ap, args)
+    _validate(ap, args, n)
     spl = args.steps_per_launch
+    zig = args.attention == "ring_zigzag"
 
     rng = np.random.default_rng(args.seed)
     corpus = _load_corpus(args.data, rng)
@@ -245,7 +275,11 @@ def main(argv=None) -> int:
             ap.error(f"--eval-frac {args.eval_frac} leaves a split too small for --seq-len "
                      f"{args.seq_len} (train {corpus.size} / eval {eval_corpus.size} bytes)")
 
-    device = resolve(args.device)
+    device = distributed.rank_device() if in_world and args.device is None else resolve(
+        args.device)
+    mesh = meshlib.make_mesh(num_data=n, num_server=1, device=device)
+    lead = mesh.rank == 0  # rank 0 alone prints, logs, profiles, saves and generates
+    say = print if lead else (lambda *a, **k: None)
     params = init_lm(args.seed, cfg, device)
     tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum,
                      args.optimizer)
@@ -262,7 +296,7 @@ def main(argv=None) -> int:
                 tree = mgr.restore(latest, like={"params": params, "opt": opt})
                 params, opt = tree["params"], tree["opt"]
                 start_step = latest
-                print(f"resumed from step {latest}", flush=True)
+                say(f"resumed from step {latest}", flush=True)
     elif args.save_every or args.resume:
         ap.error("--save-every/--resume need --ckpt-dir")
 
@@ -274,9 +308,21 @@ def main(argv=None) -> int:
         ap.error(f"resumed at step {start_step}: the remaining {args.steps - start_step} steps "
                  f"must divide by --steps-per-launch {spl}")
 
-    def one(p, opt_state, tokens):
-        """One optimizer step: loss and gradients, then the chain."""
-        loss, grads = value_and_grad(lambda leaves: lm_loss(leaves, tokens, cfg), p)
+    def shards(tokens):
+        """This rank's shards of a global batch: its tokens, and under
+        the zigzag layout the targets and weights carried along."""
+        arrays = zigzag_lm_arrays(tokens, n) if zig else (tokens,)
+        return tuple(shard_tokens(a, mesh) for a in arrays)
+
+    def loss_of(p, *data):
+        if zig:
+            return lm_loss_with_targets(p, *data, cfg, mesh=mesh)
+        return lm_loss(p, *data, cfg, mesh=mesh)
+
+    def one(p, opt_state, *data):
+        """One optimizer step: loss and the gradients summed over the
+        ranks, then the chain."""
+        loss, grads = value_and_grad(lambda leaves: loss_of(leaves, *data), p, mesh=mesh)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, p)
             return optim.apply_updates(p, updates), opt_state, loss
@@ -291,32 +337,32 @@ def main(argv=None) -> int:
         fixed_eval = []
         for _ in range(4):
             starts = erng.integers(0, eval_corpus.size - args.seq_len - 1, args.batch)
-            fixed_eval.append(torch.as_tensor(np.stack(
-                [eval_corpus[s:s + args.seq_len] for s in starts]).astype(np.int32), device=device))
+            fixed_eval.append(shards(np.stack(
+                [eval_corpus[s:s + args.seq_len] for s in starts]).astype(np.int32)))
 
         def eval_fn(p):
             with torch.no_grad():
-                return float(np.mean([float(lm_loss(p, t, cfg)) for t in fixed_eval]))
+                return float(np.mean([float(loss_of(p, *data)) for data in fixed_eval]))
 
-    print(f"devices=1 ({device}) attention={cfg.attention} corpus={corpus.size} bytes"
-          + (f" (+{eval_corpus.size} held out)" if eval_corpus is not None else ""))
-    print(f"{'step':>5} {'loss':>9} {'bits/byte':>10}")
-    log_f = open(args.log_file, "a") if args.log_file else None
+    say(f"devices={n} ({device}) attention={cfg.attention} corpus={corpus.size} bytes"
+        + (f" (+{eval_corpus.size} held out)" if eval_corpus is not None else ""))
+    say(f"{'step':>5} {'loss':>9} {'bits/byte':>10}")
+    log_f = open(args.log_file, "a") if args.log_file and lead else None
     t_start = time.perf_counter()
     last_t, last_i = t_start, start_step
     loop_raised = False
-    with device_trace(args.profile):
+    with device_trace(args.profile if lead else None):
         try:
             for i in range(start_step + spl, args.steps + 1, spl):
                 # a launch: spl sequential steps, each on its own batch
-                batches = [torch.as_tensor(sample_tokens(), device=device) for _ in range(spl)]
-                for tokens in batches:
-                    params, opt, loss = one(params, opt, tokens)
+                batches = [shards(sample_tokens()) for _ in range(spl)]
+                for data in batches:
+                    params, opt, loss = one(params, opt, *data)
                 report = i % args.report_every < spl or i == args.steps
                 ev = rec = None
                 if report:
                     ll = float(loss)
-                    print(f"{i:>5} {ll:>9.4f} {ll / np.log(2):>10.4f}", flush=True)
+                    say(f"{i:>5} {ll:>9.4f} {ll / np.log(2):>10.4f}", flush=True)
                     # the throughput window closes BEFORE any eval below, so
                     # held-out evaluation never pollutes tokens_per_sec
                     now = time.perf_counter()
@@ -330,7 +376,7 @@ def main(argv=None) -> int:
                     ev = eval_fn(params)
                     # shift the open window past the eval's wall time
                     last_t += time.perf_counter() - ev_t0
-                    print(f" eval@{i:<4} {ev:>8.4f} {ev / np.log(2):>10.4f}", flush=True)
+                    say(f" eval@{i:<4} {ev:>8.4f} {ev / np.log(2):>10.4f}", flush=True)
                 # a line per report interval, plus one for any eval measured off
                 # the report grid
                 if log_f is not None and (rec is not None or ev is not None):
@@ -340,7 +386,7 @@ def main(argv=None) -> int:
                         rec["eval_loss"] = round(float(ev), 6)
                     log_f.write(json.dumps(rec) + "\n")
                     log_f.flush()
-                if mgr is not None and (i == args.steps
+                if lead and mgr is not None and (i == args.steps
                                         or (args.save_every and i % args.save_every == 0)):
                     # the final step is always saved, so a later --resume finds
                     # it; the host snapshot is taken here, the write overlaps
@@ -355,7 +401,7 @@ def main(argv=None) -> int:
         finally:
             if log_f is not None:
                 log_f.close()
-            if mgr is not None:
+            if lead and mgr is not None:
                 # drain even when the loop raised: a completed save beats a
                 # discarded one
                 try:
@@ -367,7 +413,7 @@ def main(argv=None) -> int:
                         raise
                     print(f"async checkpoint failure during shutdown: {e}", file=sys.stderr)
 
-    if args.prompt is not None:
+    if args.prompt is not None and lead:
         prompt = np.frombuffer(args.prompt.encode("utf-8", "replace") or b"\n",
                                np.uint8).astype(np.int64)[None, :]
         if args.beam:

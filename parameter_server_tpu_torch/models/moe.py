@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN with top-1 (switch) routing, on one card.
+"""Mixture-of-experts FFN with top-1 (switch) routing and expert parallelism.
 
 Counterpart of ``parameter_server_tpu/models/moe.py``: :func:`init_moe`,
 :func:`_route`, :func:`_expert_ffn`, :func:`moe_ffn_dense` and
@@ -26,10 +26,17 @@ their expert outputs are never read. Gradients reach the router only
 through the gate, as in JAX: the argmax, the positions and the drop
 mask carry none.
 
-:func:`moe_ffn` is the expert-parallel layer on a mesh axis of size 1,
-where each ``all_to_all`` is the identity: it equals
-``moe_ffn_dense(n_shards=1)``. Experts sharded across cards are ROADMAP
-A9 (multi-GPU).
+:func:`moe_ffn` is the expert-parallel layer: the experts are sharded
+over an axis of the mesh (E % n == 0), each rank routes its own sequence
+shard's tokens with the per-shard capacity into ``[E, C, d]`` buffers,
+one all-to-all sends each expert's buffer to the rank that holds the
+expert (``[E/n, n*C, d]`` there), the rank's ``E/n`` experts run, and
+the inverse all-to-all brings the outputs back for the combine. As in
+the JAX layer the tables arrive whole (replicated) and each rank takes
+its slice, so a rank's gradient of a table is nonzero in its slice
+alone and the data axis's sum of the ranks' gradients is the JAX
+layer's (``models/transformer.value_and_grad`` makes that sum). On an
+axis of size 1 (or with no mesh) it is ``moe_ffn_dense(n_shards=1)``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh as meshlib
 
 Params = Dict[str, torch.Tensor]
 
@@ -75,9 +84,10 @@ def _expert_ffn(w_in, w_out, h):
     return torch.bmm(torch.relu(torch.bmm(h, w_in)), w_out)
 
 
-def _moe_tokens(params: Params, xt, capacity: int):
+def _moe_tokens(params: Params, xt, capacity: int, experts=None):
     """One shard's tokens ``xt`` [T, d] through routing, the experts and
-    the combine."""
+    the combine. ``experts(h)`` maps the ``[E, C, d]`` buffers to the
+    experts' outputs (default: every expert of ``params``, here)."""
     t, d = xt.shape
     n_experts = params["router"].shape[1]
     slot, gate = _route(xt, params["router"], n_experts, capacity)
@@ -88,7 +98,11 @@ def _moe_tokens(params: Params, xt, capacity: int):
     src.scatter_(0, slot, torch.arange(t, device=xt.device))
     padded = torch.cat([xt, xt.new_zeros(1, d)])
     h = padded[src[:n_slots]].reshape(n_experts, capacity, d)
-    out_e = _expert_ffn(params["w_in"], params["w_out"], h).reshape(n_slots, d)
+    if experts is None:
+        out_e = _expert_ffn(params["w_in"], params["w_out"], h)
+    else:
+        out_e = experts(h)
+    out_e = out_e.reshape(n_slots, d)
     # a dropped token reads the zero row past the buffers
     out = torch.cat([out_e, out_e.new_zeros(1, d)])[slot]
     return out * gate[:, None]
@@ -110,13 +124,29 @@ def moe_ffn_dense(params: Params, x, n_shards: int, capacity_factor: float = 1.2
     return torch.cat(outs, dim=1)
 
 
-def moe_ffn(params: Params, x, *, capacity_factor: float = 1.25):
-    """The expert-parallel MoE FFN on one card (the mesh axis of size 1:
-    ``moe_ffn_dense(params, x, 1, capacity_factor)``). Raises
-    ``NotImplementedError`` while a ``torch.distributed`` group of more
-    than one process is up (experts across cards: ROADMAP A9)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("moe_ffn shards experts across cards, which the PyTorch "
-                                  "package does not do yet (ROADMAP A9, multi-GPU)")
-    return moe_ffn_dense(params, x, 1, capacity_factor)
+def moe_ffn(params: Params, x, *, mesh=None, axis: str = "data",
+            capacity_factor: float = 1.25):
+    """The expert-parallel MoE FFN: ``x`` is this rank's ``[B, S/n, d]``
+    sequence shard, the tables whole; returns this rank's shard of the
+    output. The experts split over ``axis`` (``ValueError`` unless E %
+    n == 0); with no mesh or an axis of size 1,
+    ``moe_ffn_dense(params, x, 1, capacity_factor)``."""
+    n, r = meshlib.axis_extent(mesh, axis)
+    n_experts = params["router"].shape[1]
+    if n_experts % n:
+        raise ValueError(f"experts {n_experts} must divide mesh axis {n}")
+    if n == 1:
+        return moe_ffn_dense(params, x, 1, capacity_factor)
+    b, s_loc, d = x.shape
+    xt = x.reshape(-1, d)
+    capacity = max(1, int(capacity_factor * xt.shape[0] / n_experts))
+    per = n_experts // n
+    lo = r * per
+    w_in, w_out = params["w_in"][lo:lo + per], params["w_out"][lo:lo + per]
+
+    def experts(h):  # [E, C, d] -> this rank's experts over every shard's buffer -> [E, C, d]
+        h = meshlib.all_to_all(h, axis, mesh, split_axis=0, concat_axis=1)
+        return meshlib.all_to_all(_expert_ffn(w_in, w_out, h), axis, mesh, split_axis=1,
+                                  concat_axis=0)
+
+    return _moe_tokens(params, xt, capacity, experts).reshape(b, s_loc, d)

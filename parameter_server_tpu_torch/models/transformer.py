@@ -46,9 +46,18 @@ Differences from the JAX package, none of which changes a result:
   query-head group before attention, as JAX does (the grouped kernel
   call of serving would give the same gradient, summed in another order).
 
-Not here yet: the attention layouts across cards (``attention=
-"ring_zigzag"`` and ``"a2a"`` raise ``NotImplementedError``, ROADMAP A9),
-so also ``zigzag_lm_arrays``, and experts sharded across cards (A9).
+The training functions take the JAX signatures' ``mesh`` / ``axis`` as
+keyword arguments: with a mesh whose ``axis`` has n > 1 ranks, ``tokens``
+(and ``targets`` / ``weights``) are this rank's ``[B, S/n]`` sequence
+shard (:func:`shard_tokens`), attention runs as the schedule across
+ranks that ``attention`` names (``ring``, ``ring_flash``,
+``ring_zigzag`` on :func:`zigzag_lm_arrays`' layout, or ``a2a``), MoE
+layers shard their experts over the axis, RoPE takes global positions,
+the loss's shift takes the next rank's first token and the loss is the
+global weighted mean on every rank; :func:`value_and_grad` sums the
+replicated parameters' gradients over the axis in one ``all_reduce``.
+Every rank calls them alike, with the same parameters. With no mesh (or
+an axis of size 1) they are the one-card program.
 """
 
 from __future__ import annotations
@@ -64,7 +73,8 @@ import torch.utils.checkpoint
 
 from ..device import resolve, scalar_like
 from ..ops.flash_attention import flash_mha
-from .attention import ring_attention
+from ..parallel import mesh as meshlib
+from .attention import ring_attention, ulysses_attention, zigzag_permutation
 from .moe import init_moe, moe_ffn
 
 Params = Dict[str, torch.Tensor]
@@ -75,9 +85,7 @@ _NEG = -1e30  # finite mask value, as in the JAX package
 class LMConfig:
     """The JAX package's ``LMConfig``, field for field and with its
     validation. ``attention`` and ``remat`` shape training only; serving
-    reads them for validation. The attention modes that lay the sequence
-    out across cards (``"ring_zigzag"``, ``"a2a"``) are accepted here, as
-    serving does not read them, and raise in :func:`lm_forward`."""
+    reads them for validation."""
 
     vocab: int = 256
     d_model: int = 64
@@ -275,13 +283,25 @@ def _ffn(w, cfg: LMConfig, i: int, x):
 
 # -- training --
 
-_RING_IMPL = {"ring": "xla", "ring_flash": "flash"}
+_RING_IMPL = {"ring": "xla", "ring_flash": "flash", "ring_zigzag": "zigzag"}
 
 
-def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
-    """One decoder layer of :func:`lm_forward`: the weights cast to the
-    compute dtype inside the layer (so ``remat`` recomputes the cast, as
-    under ``jax.checkpoint``), attention through the ring schedule."""
+def _rope_position_ids(cfg: LMConfig, s_loc: int, mesh, axis: str, device):
+    """This rank's global position ids: ``r·S/n + arange(S/n)``, or its
+    slice of the zigzag permutation when the sequence is laid out zigzag
+    (the token at layout index j sits at global position perm[j])."""
+    n, r = meshlib.axis_extent(mesh, axis)
+    if cfg.attention == "ring_zigzag":
+        perm = zigzag_permutation(s_loc * n, n)[r * s_loc:(r + 1) * s_loc]
+        return torch.as_tensor(perm, dtype=torch.int64, device=device)
+    return r * s_loc + torch.arange(s_loc, device=device)
+
+
+def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs, mesh=None, axis: str = "data"):
+    """One decoder layer of :func:`lm_forward` on this rank's sequence
+    shard: the weights cast to the compute dtype inside the layer (so
+    ``remat`` recomputes the cast, as under ``jax.checkpoint``),
+    attention through the schedule ``cfg.attention`` names."""
     b, s, d = x.shape
     nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     w = {f"l{i}/{n}": params[f"l{i}/{n}"].to(cfg.dtype) for n in _layer_weights(cfg, i)}
@@ -297,12 +317,17 @@ def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
 
         k, v = expand(k), expand(v)
 
-    def heads(t):  # [B, S, d] -> [B*nh, S, hd]
-        return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
+    if cfg.attention == "a2a":
+        # Ulysses: q/k/v stay [B, S/n, d]; the schedule splits heads itself
+        att = ulysses_attention(q, k, v, mesh=mesh, axis=axis, n_heads=nh, causal=True)
+    else:
 
-    att = ring_attention(heads(q), heads(k), heads(v), causal=True,
-                         impl=_RING_IMPL[cfg.attention], window=cfg.window)
-    att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
+        def heads(t):  # [B, S, d] -> [B*nh, S, hd]
+            return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
+
+        att = ring_attention(heads(q), heads(k), heads(v), mesh=mesh, axis=axis, causal=True,
+                             impl=_RING_IMPL[cfg.attention], window=cfg.window)
+        att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
     x = x + att.to(cfg.dtype) @ w[f"l{i}/wo"]
     h2 = _ln(x, w[f"l{i}/ln2"])
     if not _is_moe_layer(cfg, i):
@@ -311,37 +336,36 @@ def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs):
     # expert choice
     moe_p = {"router": params[f"l{i}/moe_router"], "w_in": params[f"l{i}/moe_w_in"],
              "w_out": params[f"l{i}/moe_w_out"]}
-    return x + moe_ffn(moe_p, h2.to(torch.float32),
+    return x + moe_ffn(moe_p, h2.to(torch.float32), mesh=mesh, axis=axis,
                        capacity_factor=cfg.capacity_factor).to(cfg.dtype)
 
 
-def lm_forward(params: Params, tokens, cfg: LMConfig):
-    """Logits [B, S, vocab] (always float32) of tokens [B, S]; decoder
-    activations run in ``cfg.compute_dtype``, each layer rematerialized in
-    the backward when ``cfg.remat``. The JAX ``mesh``/``axis`` arguments
-    are gone: one card holds the whole sequence (ROADMAP A9)."""
-    if cfg.attention not in _RING_IMPL:
-        raise NotImplementedError(
-            f"LMConfig.attention={cfg.attention!r} lays the sequence out across cards, which the "
-            "PyTorch package does not do yet (ROADMAP A9, multi-GPU); use 'ring' or 'ring_flash'")
+def lm_forward(params: Params, tokens, cfg: LMConfig, *, mesh=None, axis: str = "data"):
+    """Logits [B, S/n, vocab] (always float32) of this rank's tokens [B,
+    S/n] (the whole [B, S] with no mesh); decoder activations run in
+    ``cfg.compute_dtype``, each layer rematerialized in the backward when
+    ``cfg.remat``."""
     tokens = torch.as_tensor(tokens, device=params["emb"].device).to(torch.int64)
     s = tokens.shape[1]
-    # RoPE tables once per call, on positions arange(S), shared by every
-    # layer (under remat they enter each checkpoint as inputs)
-    rope_cs = _rope_tables(torch.arange(s, device=tokens.device)[None, :, None], cfg.head_dim,
-                           cfg.rope_theta) if cfg.rope else None
+    # RoPE tables once per call, on this rank's global positions, shared
+    # by every layer (under remat they enter each checkpoint as inputs)
+    rope_cs = _rope_tables(_rope_position_ids(cfg, s, mesh, axis, tokens.device)[None, :, None],
+                           cfg.head_dim, cfg.rope_theta) if cfg.rope else None
     x = _embed(params, cfg, tokens)
     for i in range(cfg.n_layers):
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(_train_layer, params, cfg, i, x, rope_cs,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(_train_layer, params, cfg, i, x, rope_cs, mesh,
+                                                  axis, use_reentrant=False)
         else:
-            x = _train_layer(params, cfg, i, x, rope_cs)
+            x = _train_layer(params, cfg, i, x, rope_cs, mesh, axis)
     return _logits(params, x)
 
 
-def lm_loss(params: Params, tokens, cfg: LMConfig):
-    """Mean next-token cross entropy over positions 0 .. S-2."""
+def lm_loss(params: Params, tokens, cfg: LMConfig, *, mesh=None, axis: str = "data"):
+    """Mean next-token cross entropy over the global positions 0 .. S-2:
+    the [:, 1:] shift crosses shard boundaries (this rank's last target
+    is the next rank's first token; only the global last position has
+    weight 0)."""
     if cfg.attention == "ring_zigzag":
         raise ValueError(
             "lm_loss's [:, 1:] shift assumes NATURAL token order; the "
@@ -349,40 +373,57 @@ def lm_loss(params: Params, tokens, cfg: LMConfig):
             "zigzag_lm_arrays + lm_loss_with_targets instead"
         )
     tokens = torch.as_tensor(tokens, device=params["emb"].device).to(torch.int64)
-    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    n, r = meshlib.axis_extent(mesh, axis)
+    nxt = meshlib.shift(tokens[:, :1], axis, mesh, -1) if n > 1 else torch.zeros_like(
+        tokens[:, :1])
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
     weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-    weights[:, -1] = 0.0
-    return lm_loss_with_targets(params, tokens, targets, weights, cfg)
+    if r == n - 1:
+        weights[:, -1] = 0.0
+    return lm_loss_with_targets(params, tokens, targets, weights, cfg, mesh=mesh, axis=axis)
 
 
-def lm_loss_with_targets(params: Params, tokens, targets, weights, cfg: LMConfig):
+def lm_loss_with_targets(params: Params, tokens, targets, weights, cfg: LMConfig, *, mesh=None,
+                         axis: str = "data"):
     """Weighted next-token cross entropy with explicit per-position
-    targets: ``sum(nll * w) / max(sum(w), 1e-9)``."""
+    targets, ``sum(nll * w) / max(sum(w), 1e-9)`` over the global batch:
+    on a mesh the ranks' sums are added (the loss the same on every
+    rank; each rank's gradient is its own positions' share)."""
     dev = params["emb"].device
-    logits = lm_forward(params, tokens, cfg)
+    logits = lm_forward(params, tokens, cfg, mesh=mesh, axis=axis)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     targets = torch.as_tensor(targets, device=dev).to(torch.int64)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     w = torch.as_tensor(weights, device=dev).to(torch.float32)
     # eps only guards all-zero weights (loss 0); fractional weight sums
     # must divide through unscaled
-    return (nll * w).sum() / torch.clamp_min(w.sum(), 1e-9)
+    if meshlib.axis_extent(mesh, axis)[0] == 1:
+        return (nll * w).sum() / torch.clamp_min(w.sum(), 1e-9)
+    total = meshlib.psum(w.sum(), axis, mesh)
+    return meshlib.psum_invariant((nll * w).sum(), axis, mesh) / torch.clamp_min(total, 1e-9)
 
 
-def value_and_grad(loss_fn, params: Params):
+def value_and_grad(loss_fn, params: Params, *, mesh=None, axis: str = "data"):
     """``(loss, grads)`` of ``loss_fn(params)``, as ``jax.value_and_grad``
     gives them: the loss detached, a gradient for every parameter. The
-    caller's tensors are not marked as requiring gradients."""
+    caller's tensors are not marked as requiring gradients. On a mesh
+    whose ``axis`` has several ranks, the one place where the replicated
+    parameters' gradients are summed over it (one ``all_reduce`` a dtype,
+    ``parallel/mesh.psum_tree``): every rank gets the gradient of the
+    global loss."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss = loss_fn(leaves)
-    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    if mesh is not None:
+        grads = meshlib.psum_tree(grads, axis, mesh)
+    return loss.detach(), grads
 
 
-def _sgd(params: Params, loss_fn, lr: float, donate: bool):
+def _sgd(params: Params, loss_fn, lr: float, donate: bool, mesh=None, axis: str = "data"):
     """loss and gradients of ``loss_fn(params)``, then ``p - lr * g``:
     in place on the caller's tensors with ``donate``, else into new
     tensors (the caller's are left as they were)."""
-    loss, grads = value_and_grad(loss_fn, params)
+    loss, grads = value_and_grad(loss_fn, params, mesh=mesh, axis=axis)
     with torch.no_grad():
         if donate:
             new = {k: v.detach().sub_(lr * grads[k]) for k, v in params.items()}
@@ -392,8 +433,9 @@ def _sgd(params: Params, loss_fn, lr: float, donate: bool):
 
 
 def make_lm_train_step(cfg: LMConfig, lr: float = 0.3, donate: bool = False,
-                       steps_per_launch: int = 1):
-    """SGD train step ``step(params, tokens) -> (params, loss)``.
+                       steps_per_launch: int = 1, *, mesh=None, axis: str = "data"):
+    """SGD train step ``step(params, tokens) -> (params, loss)``; on a
+    mesh ``tokens`` is this rank's sequence shard (:func:`shard_tokens`).
 
     ``donate=True`` lets the step update the caller's parameter tensors
     in place (the JAX package donates their buffers); without it they are
@@ -410,7 +452,8 @@ def make_lm_train_step(cfg: LMConfig, lr: float = 0.3, donate: bool = False,
         raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
 
     def one(params, tokens, donate_now):
-        return _sgd(params, lambda p: lm_loss(p, tokens, cfg), lr, donate_now)
+        return _sgd(params, lambda p: lm_loss(p, tokens, cfg, mesh=mesh, axis=axis), lr,
+                    donate_now, mesh, axis)
 
     if steps_per_launch == 1:
         return lambda params, tokens: one(params, tokens, donate)
@@ -426,15 +469,46 @@ def make_lm_train_step(cfg: LMConfig, lr: float = 0.3, donate: bool = False,
     return step
 
 
-def make_lm_train_step_with_targets(cfg: LMConfig, lr: float = 0.3, donate: bool = False):
+def make_lm_train_step_with_targets(cfg: LMConfig, lr: float = 0.3, donate: bool = False, *,
+                                    mesh=None, axis: str = "data"):
     """SGD train step on ``(params, tokens, targets, weights)``, the
-    layout-agnostic factory; ``donate`` as in :func:`make_lm_train_step`."""
+    layout-agnostic factory (the one for ``ring_zigzag``, fed
+    :func:`zigzag_lm_arrays`' shards); ``donate`` as in
+    :func:`make_lm_train_step`."""
 
     def step(params, tokens, targets, weights):
-        return _sgd(params, lambda p: lm_loss_with_targets(p, tokens, targets, weights, cfg), lr,
-                    donate)
+        return _sgd(params, lambda p: lm_loss_with_targets(p, tokens, targets, weights, cfg,
+                                                           mesh=mesh, axis=axis),
+                    lr, donate, mesh, axis)
 
     return step
+
+
+def zigzag_lm_arrays(tokens: np.ndarray, n: int):
+    """Host-side prep for the zigzag LM layout: NATURAL-order tokens
+    permuted into the zigzag sharding, each position's next-token target
+    carried along (the last natural position gets weight 0). Feed their
+    shards to :func:`lm_loss_with_targets` with
+    ``LMConfig(attention="ring_zigzag")``."""
+    b, s = tokens.shape
+    perm = zigzag_permutation(s, n)
+    tgt = np.concatenate([tokens[:, 1:], np.zeros((b, 1), tokens.dtype)], axis=1)
+    weights = np.ones((b, s), np.float32)
+    weights[:, -1] = 0.0
+    return tokens[:, perm], tgt[:, perm], weights[:, perm]
+
+
+def shard_tokens(tokens, mesh, axis: str = "data") -> torch.Tensor:
+    """This rank's slice of the sequence (the last dim) of ``[B, S]``
+    tokens, or of a stacked ``[T, B, S]`` superbatch, on the mesh's
+    device: the placement JAX's ``shard_tokens`` gives the rank's device.
+    Every rank keeps its own slice of the same global batch."""
+    t = torch.as_tensor(np.asarray(tokens))
+    n, r = meshlib.axis_extent(mesh, axis)
+    if t.shape[-1] % n:
+        raise ValueError(f"sequence {t.shape[-1]} does not split over {n} ranks of {axis!r}")
+    s_loc = t.shape[-1] // n
+    return t[..., r * s_loc:(r + 1) * s_loc].contiguous().to(mesh.device)
 
 
 # -- the KV cache: (data, scale); scale None = the compute dtype, else

@@ -22,10 +22,24 @@ one onto these groups:
 - ``jax.lax.all_gather(x, DATA_AXIS, tiled=True)`` → :func:`all_gather`,
   the data ranks' tensors concatenated in data order;
 - ``jax.lax.axis_index(axis)`` → :func:`axis_index`, the rank's
-  coordinate.
+  coordinate;
+- ``jax.lax.ppermute`` around the ring → :func:`shift` (:func:`shift_all`
+  for several tensors in one exchange), ``jax.lax.all_to_all`` →
+  :func:`all_to_all`.
 
 On an axis of size 1 each collective is the identity and runs nothing,
 so a ``1 x 1`` mesh (no process group at all) is the one-card program.
+
+**Gradients.** JAX differentiates through its collectives by transposing
+them; ``torch.distributed``'s have no gradient. :func:`psum`,
+:func:`shift` and :func:`all_to_all` are ``torch.autograd.Function``\\ s
+whose backwards are JAX's transposes under ``shard_map(check_vma=False)``:
+the cotangents' ``psum``, the shift the other way, the inverse
+all-to-all. A result that
+every rank then uses alike (a loss, a replicated output) is
+:func:`psum_invariant`, whose backward passes each rank's cotangent
+through once. Each rank's autograd runs the backward's collectives, so
+every rank must build the same graph and run the same backward.
 
 **Backends** (chosen once, in ``distributed.initialize``): NCCL when
 every rank has a card of its own, gloo when ranks share a card or run on
@@ -196,15 +210,88 @@ def axis_index(axis: str, mesh: Mesh) -> int:
     return mesh.coords[AXES.index(axis)]
 
 
+def axis_extent(mesh: Optional[Mesh], axis: str) -> Tuple[int, int]:
+    """``(size, this rank's coordinate)`` on ``axis``; ``(1, 0)`` with no
+    mesh or an axis of size 1 (the one-card program)."""
+    if mesh is None or mesh.shape[axis] == 1:
+        return 1, 0
+    return mesh.shape[axis], axis_index(axis, mesh)
+
+
+def _psum_raw(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=mesh.group(axis))
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` under autograd: its backward is the cotangent's ``psum``,
+    what JAX transposes ``psum`` to inside ``shard_map(check_vma=False)``
+    when the result stays sharded (each rank's cotangent its own)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.args = (axis, mesh)
+        return _psum_raw(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _psum_raw(ct, *ctx.args), None, None
+
+
+class _PSumInvariant(torch.autograd.Function):
+    """A ``psum`` whose result every rank then uses alike (JAX's
+    ``out_specs=P()``): its backward passes each rank's cotangent through,
+    as JAX divides the replicated cotangent by the axis size before the
+    transposed ``psum`` (the same on every rank, so it adds up to one
+    cotangent, never to ``n`` of them)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return _psum_raw(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
 def psum(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     """``jax.lax.psum(x, axis)``: the elementwise sum of ``x`` over the
     ranks of this rank's ``axis`` group, a new tensor (``x`` is left as it
     was). Every rank of the group gets the same bits. The identity on an
-    axis of size 1."""
+    axis of size 1. Differentiable: the gradient is the cotangents'
+    ``psum`` (:class:`_PSum`)."""
     if mesh.shape[axis] == 1:
         return x
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=mesh.group(axis))
+    return _PSum.apply(x, axis, mesh)
+
+
+def psum_invariant(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """:func:`psum` of a result that every rank of the group then uses
+    alike (a loss, a replicated output): its gradient is each rank's own
+    cotangent (:class:`_PSumInvariant`), so that a loss every rank
+    differentiates counts once."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _PSumInvariant.apply(x, axis, mesh)
+
+
+def psum_tree(tree: Dict[str, torch.Tensor], axis: str, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The :func:`psum` of every tensor of a flat dict, in one
+    ``all_reduce`` a dtype (the tensors flattened into one buffer): how a
+    step sums its gradients over the data axis. New tensors; ``tree``
+    itself on an axis of size 1."""
+    if mesh.shape[axis] == 1:
+        return tree
+    out: Dict[str, torch.Tensor] = {}
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k, v in tree.items():
+        by_dtype.setdefault(v.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = torch.cat([tree[k].detach().reshape(-1) for k in keys])
+        dist.all_reduce(flat, group=mesh.group(axis))
+        for k, part in zip(keys, flat.split([tree[k].numel() for k in keys])):
+            out[k] = part.view(tree[k].shape)
     return out
 
 
@@ -238,32 +325,119 @@ def _host_copy(x: torch.Tensor) -> torch.Tensor:
     return host.copy_(x)
 
 
-def shift(x: torch.Tensor, axis: str, mesh: Mesh, offset: int = 1) -> torch.Tensor:
-    """``jnp.roll`` of a sharded array by ``offset`` shards along ``axis``:
-    this rank gets the tensor of the rank ``offset`` coordinates before it
-    on the axis (cyclically), and sends its own ``offset`` after. One
-    send and one receive a rank (a ring over the axis group); a CUDA
-    tensor under gloo goes through pinned host memory. A new tensor; on
-    an axis of size 1 (or a whole turn) a copy of ``x``."""
+def _peer(axis: str, mesh: Mesh, j: int) -> int:
+    """The world rank of coordinate ``j`` (cyclic) on ``axis`` in this
+    rank's group."""
+    d, s = mesh.coords
+    j %= mesh.shape[axis]
+    return mesh.global_rank(j, s) if axis == DATA_AXIS else mesh.global_rank(d, j)
+
+
+def _shift_raw(xs, axis: str, mesh: Mesh, offset: int):
+    """Each of ``xs`` shifted by ``offset`` coordinates on ``axis``, all in
+    one ``batch_isend_irecv`` (one send and one receive a tensor, tagged by
+    its place in ``xs``)."""
     n = mesh.shape[axis]
     if offset % n == 0:
-        return x.clone()
+        return [x.clone() for x in xs]
     i = axis_index(axis, mesh)
-    d, s = mesh.coords
-
-    def peer(j: int) -> int:
-        j %= n
-        return mesh.global_rank(j, s) if axis == DATA_AXIS else mesh.global_rank(d, j)
-
-    staged = mesh.backend == "gloo" and x.is_cuda
-    src = _host_copy(x.contiguous()) if staged else x.contiguous()
-    out = torch.empty_like(src)
     group = mesh.group(axis)
-    ops = [dist.P2POp(dist.isend, src, peer(i + offset), group),
-           dist.P2POp(dist.irecv, out, peer(i - offset), group)]
+    ops, outs, staged = [], [], []
+    for tag, x in enumerate(xs):
+        host = mesh.backend == "gloo" and x.is_cuda
+        src = _host_copy(x.contiguous()) if host else x.contiguous()
+        out = torch.empty_like(src)
+        ops += [dist.P2POp(dist.isend, src, _peer(axis, mesh, i + offset), group, tag),
+                dist.P2POp(dist.irecv, out, _peer(axis, mesh, i - offset), group, tag)]
+        outs.append(out)
+        staged.append(host)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return out.to(x.device, non_blocking=True) if staged else out
+    return [o.to(x.device, non_blocking=True) if host else o
+            for o, x, host in zip(outs, xs, staged)]
+
+
+class _Shift(torch.autograd.Function):
+    """:func:`shift_all` under autograd: the backward shifts the
+    cotangents the other way (JAX's transpose of a ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, axis, mesh, offset, *xs):
+        ctx.args = (axis, mesh, offset)
+        return tuple(_shift_raw(xs, axis, mesh, offset))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        axis, mesh, offset = ctx.args
+        return (None, None, None, *_shift_raw(cts, axis, mesh, -offset))
+
+
+def shift_all(xs, axis: str, mesh: Mesh, offset: int = 1) -> tuple:
+    """:func:`shift` of several tensors in one exchange (ring attention's
+    K/V chunk pair). Differentiable (:class:`_Shift`): every rank of the
+    group must make the same calls, forward and backward alike."""
+    return _Shift.apply(axis, mesh, offset, *xs)
+
+
+def shift(x: torch.Tensor, axis: str, mesh: Mesh, offset: int = 1) -> torch.Tensor:
+    """``jnp.roll`` of a sharded array by ``offset`` shards along ``axis``
+    (a ``ppermute`` over the ring): this rank gets the tensor of the rank
+    ``offset`` coordinates before it on the axis (cyclically), and sends
+    its own ``offset`` after. One send and one receive a rank; a CUDA
+    tensor under gloo goes through pinned host memory. A new tensor; on
+    an axis of size 1 (or a whole turn) a copy of ``x``. Differentiable:
+    the gradient comes back the other way."""
+    return shift_all((x,), axis, mesh, offset)[0]
+
+
+def _all_to_all_raw(x: torch.Tensor, axis: str, mesh: Mesh, split_axis: int,
+                    concat_axis: int, tiled: bool) -> torch.Tensor:
+    n = mesh.shape[axis]
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not split "
+                             f"over {n} ranks of {axis!r}")
+        parts = x.chunk(n, split_axis)
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all(tiled=False): dim {split_axis} of {tuple(x.shape)} must "
+                             f"be the axis size {n}")
+        parts = x.unbind(split_axis)
+    send = torch.stack(parts).contiguous()
+    if n > 1:
+        host = mesh.backend == "gloo" and x.is_cuda
+        src = _host_copy(send) if host else send
+        recv = torch.empty_like(src)
+        dist.all_to_all_single(recv, src, group=mesh.group(axis))
+        send = recv.to(x.device, non_blocking=True) if host else recv
+    parts = send.unbind(0)
+    return torch.cat(parts, concat_axis) if tiled else torch.stack(parts, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` under autograd: the backward is the inverse
+    all-to-all (the split and concat axes swapped), JAX's transpose."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_axis, concat_axis, tiled):
+        ctx.args = (axis, mesh, concat_axis, split_axis, tiled)
+        return _all_to_all_raw(x, axis, mesh, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_to_all_raw(ct, *ctx.args), None, None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh, split_axis: int, concat_axis: int,
+               tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled)``:
+    ``x`` cut into the group's size of chunks along ``split_axis`` (with
+    ``tiled=False`` that dim is the group's size, and goes), chunk ``j``
+    sent to coordinate ``j``, the chunks received concatenated along
+    ``concat_axis`` in coordinate order (``tiled=False``: stacked there on
+    a new dim). One ``all_to_all_single``; a CUDA tensor under gloo goes
+    through pinned host memory. Differentiable (:class:`_AllToAll`)."""
+    return _AllToAll.apply(x, axis, mesh, split_axis % x.dim(), concat_axis % x.dim(), tiled)
 
 
 def agree_max(values, axis: str, mesh: Mesh):

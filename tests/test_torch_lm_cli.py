@@ -13,7 +13,8 @@ global norm).
 The CLI itself runs on ``--device cpu``: it trains, writes its report and
 log lines, evaluates held-out batches and generates. Its flag mistakes
 fail as the JAX CLI's do (argparse's ``SystemExit``), and each flag it
-cannot serve yet raises ``NotImplementedError`` naming its ROADMAP item.
+cannot serve yet raises ``NotImplementedError`` naming its ROADMAP item
+(the parameters and optimizer state sharded, A9 slice 3's second part).
 """
 
 import json
@@ -173,11 +174,9 @@ def test_cli_tiny_corpus_rejected(tmp_path):
 
 
 UNPORTED = [
-    (["--zero1"], "A9"),
-    (["--fsdp"], "A9"),
-    (["--num-servers", "2"], "A9"),
-    (["--attention", "ring_zigzag"], "A9"),
-    (["--attention", "a2a"], "A9"),
+    (["--zero1"], "A9 slice 3, second part"),
+    (["--fsdp"], "A9 slice 3, second part"),
+    (["--num-servers", "2"], "A9 slice 3, second part"),
 ]
 
 
@@ -185,6 +184,21 @@ UNPORTED = [
 def test_unported_flags_raise_naming_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         lm_main.main(["--steps", "2", *argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("attention", ["ring_zigzag", "a2a"])
+def test_layout_modes_train_on_one_device(capsys, attention):
+    """The layouts across ranks on one device (a world of one): the zigzag
+    layout of one rank is the natural order and the all-to-alls are the
+    identity, so the losses are ``ring_flash``'s (the same exact
+    attention, float32 sums in another order: within 1e-4, the printed
+    precision). ``tests/test_torch_lm_world.py`` runs them in a world of
+    4."""
+    argv = ("--steps", "4", "--report-every", "2", "--lr", "1e-2")
+    rc, _, losses = _run(capsys, *argv, "--attention", attention)
+    rc0, _, want = _run(capsys, *argv)
+    assert rc == rc0 == 0 and len(losses) == len(want) == 2
+    np.testing.assert_allclose(losses, want, rtol=0, atol=1.01e-4)
 
 
 def test_cli_without_a_card_raises(monkeypatch):

@@ -452,17 +452,23 @@ def test_sequential_and_one_card_pipeline_match_jax():
     assert np.array_equal(got_seq, got_pipe)
 
 
-def test_pipeline_across_stage_groups_is_a9_and_counts_are_checked():
+def test_pipeline_stage_count_is_checked_and_tuples_work():
+    """The stage count against the axis (JAX's ``MULTIPLE`` check, before
+    any collective) and a tuple of leaves; a mesh of one stage group is
+    the one-card pipeline. ``tests/test_torch_parallel_moe_pipeline.py``
+    holds the schedule across 4 ranks."""
+    from parameter_server_tpu_torch.parallel.mesh import Mesh
+
     params, x = _stage_inputs(n_stages=4)
     tparams = {k: torch.tensor(v) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.pipeline_apply(_torch_stage_fn, tparams, torch.tensor(x), n_groups=2)
     with pytest.raises(ValueError, match="MULTIPLE"):
-        tpipe.pipeline_apply(_torch_stage_fn, tparams, torch.tensor(x), n_groups=3)
+        tpipe.pipeline_apply(_torch_stage_fn, tparams, torch.tensor(x), mesh=Mesh(3, 1, "cpu"))
+    one = tpipe.pipeline_apply(_torch_stage_fn, tparams, torch.tensor(x), mesh=Mesh(1, 1, "cpu"))
     # a tuple of leaves works as a dict does
     tup = (tparams["w"], tparams["b"])
     got = tpipe.pipeline_apply(lambda p, v: torch.tanh(v @ p[0] + p[1]), tup, torch.tensor(x))
-    assert torch.equal(got, tpipe.sequential_apply(_torch_stage_fn, tparams, torch.tensor(x)))
+    want = tpipe.sequential_apply(_torch_stage_fn, tparams, torch.tensor(x))
+    assert torch.equal(got, want) and torch.equal(one, want)
 
 
 def test_continue_state_dataclass_matches_jax_fields():

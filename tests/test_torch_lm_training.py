@@ -196,12 +196,29 @@ def test_train_step_with_targets_equals_the_shifted_loss():
 
 
 @pytest.mark.parametrize("attention", ["ring_zigzag", "a2a"])
-def test_layouts_across_cards_raise(attention):
+def test_layouts_across_cards_on_one_card_match_jax(attention):
+    """The layouts across ranks on one card (no mesh: the zigzag layout of
+    one rank is the natural order, the all-to-alls the identity): the
+    loss and gradients against JAX on its one-device mesh, within the
+    float32 tolerances above. ``tests/test_torch_parallel_lm.py`` holds
+    them across 4 ranks."""
     _, tc = _cfgs("ring")
-    params = convert.lm_params_from_jax(_jax_params("ring"), tc, "cpu")
     cfg = dataclasses.replace(tc, attention=attention)
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.lm_forward(params, torch.tensor(_tokens()), cfg)
+    jc = dataclasses.replace(_cfgs("ring")[0], attention=attention)
+    params = convert.lm_params_from_jax(_jax_params("ring"), cfg, "cpu")
+    toks = _tokens()
+    tgt, w = np.concatenate([toks[:, 1:], 0 * toks[:, :1]], 1), np.ones(toks.shape, np.float32)
+    w[:, -1] = 0
+    jp = {k: jnp.asarray(v) for k, v in _jax_params("ring").items()}
+    jl, jg = jax.value_and_grad(lambda p: J.lm_loss_with_targets(
+        p, jnp.asarray(toks), jnp.asarray(tgt), jnp.asarray(w), jc, _mesh()))(jp)
+    tl, tg = T.value_and_grad(lambda p: T.lm_loss_with_targets(
+        p, torch.tensor(toks), torch.tensor(tgt), torch.tensor(w), cfg), params)
+    assert abs(float(tl) - float(jl)) <= 1e-6 * abs(float(jl))
+    for k in jg:
+        scale = float(np.abs(np.asarray(jg[k])).max())
+        np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), rtol=0, atol=1e-5 * scale,
+                                   err_msg=k)
 
 
 def test_validation_matches_jax():
@@ -265,7 +282,18 @@ def test_ring_attention_validation_and_multi_card_schedules():
         tatt.ring_attention(q, q, q, impl="bogus")
     with pytest.raises(ValueError, match="flash kernels"):
         tatt.ring_attention(q, q, q, causal=True, impl="xla", window=4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tatt.ring_attention(q, q, q, causal=True, impl="zigzag")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tatt.ulysses_attention(q, q, q, n_heads=2)
+    with pytest.raises(ValueError, match="even per-device"):
+        tatt.ring_attention(q[:, :7], q[:, :7], q[:, :7], causal=True, impl="zigzag")
+    with pytest.raises(ValueError, match="'xla' or 'flash'"):
+        tatt.ulysses_attention(q, q, q, n_heads=2, impl="bogus")
+    with pytest.raises(ValueError, match="flash kernel"):
+        tatt.ulysses_attention(q, q, q, n_heads=2, causal=True, window=3)
+    # the schedules across ranks on one card: zigzag (one rank's layout is
+    # the natural order) and Ulysses equal the dense references
+    rng = np.random.default_rng(9)
+    x = [torch.tensor(rng.normal(size=(2, 12, 16)).astype(np.float32)) for _ in range(3)]
+    torch.testing.assert_close(tatt.ring_attention(*x, causal=True, impl="zigzag"),
+                               tatt.dense_attention(*x, causal=True), rtol=0, atol=2e-6)
+    for impl in ("xla", "flash"):
+        torch.testing.assert_close(tatt.ulysses_attention(*x, n_heads=4, causal=True, impl=impl),
+                                   tatt.dense_mha(*x, 4, causal=True), rtol=0, atol=2e-6)
