@@ -63,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    pointed at a temporary directory: 2^22 slots, 10000-row minibatches,
    the 1-byte FIXING_FLOAT push filter (the quantize kernel and the
    masked dense kernel once per ministep), bounded delay 4, the count-min
-   tail filter, 3 of the conf's 10 passes (cut to 5 with phase 9d added, to 3 with phase 9g).
+   tail filter, 2 of the conf's 10 passes (cut to 5 with phase 9d added, to 3 with phase 9g,
+   to 2 with phase 9h).
    Its first ministeps are held
    against the same CLI run on the CPU (objectives, pushed codes and
    weights); then a few ministeps with a FIXING_FLOAT pull filter added
@@ -380,7 +381,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a) ``configs/criteo/online_l1lr_bigtable.conf`` at full width (2^30
    slots, bf16 √n, 16384-row minibatches of 39 lanes, τ 4, the tail
    filter) through the linear CLI at ``--num-servers 2`` on one generated
-   Criteo file of 16 minibatches (a world of 2 ranks): below the sparse
+   Criteo file of 8 minibatches (a world of 2 ranks; 16 until phase 9h): below the sparse
    flip each rank's 2^29 shard takes the dense update over an ELL wire
    (``ftrl_dense`` on bf16 √n), held to the one-card CLI on the same
    file with the sparse flip raised, so that it takes the dense update
@@ -483,6 +484,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels from zero and holds each rank's first launch of each at nonzero
    offsets (the ring's hops, the fully masked ones included) to its plain
    version on that launch's own inputs;
+9h. the LM's parameters and optimizer state placed across the ranks
+   (ROADMAP A9 slice 3's second part), inside 9g's two worlds (no world of
+   its own; ``benchmarks/mesh_lm.py``): (a) in the world of 4, 9g(c)'s
+   flags at 2 x 2 (``--num-servers 2``: Megatron over ``server``) with
+   ``--zero1``, then with ``--fsdp --zero1``, 5 steps each: losses within
+   3x one card's bf16-vs-f32 gap of 9g(c)'s one-card run (no new one-card
+   run), ms a step, tokens/s, peak memory and bytes of parameters and of
+   optimizer state a rank beside 9g(c)'s replicated run's (ZeRO-1's state
+   at about 1/2 of it or less); (b) in the world of 2, full width, 2
+   layers, float32, 3 steps: ``--zero1`` under Adam and under Lion, each
+   checkpoint bit-equal to its replicated run's (9g(d)'s float32 run is
+   Adam's); ``--num-servers 2`` at 1 x 2 within ``CLI_LOSS_TOL`` of one
+   card; ``--fsdp`` within JAX's FSDP bar (1e-5) of the world's replicated
+   run; Adafactor under ``--zero1 --fsdp`` within it of Adafactor
+   replicated; the Megatron checkpoint resumed under ``--fsdp``; then
+   greedy, beam and speculative decoding on that checkpoint's 1 x 2
+   Megatron weights, token for token one card's. Each rank's first launch
+   of each flash kernel at its own heads is held to its plain version;
 10. a ``{"kernels": [...]}`` line: each kernel's launches, parity and times;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -1607,7 +1626,7 @@ def touched_share(rec: dict, num_slots: int) -> float:
     return float(np.mean(shares))
 
 
-CTR_PASSES = 3  # of the conf's 10 (cut to 5 with phase 9d added, to 3 with 9g): 27 ministeps
+CTR_PASSES = 2  # of the conf's 10 (cut to 5 with 9d added, 3 with 9g, 2 with 9h): 18 ministeps
 
 
 def ctr_path(tmp: str, seed: int) -> dict:
@@ -5246,7 +5265,7 @@ def mesh_cli(tmp: str, seed: int) -> dict:
 
 # -- phase 9c: resizing and repartitioning across ranks sharing the card --
 
-ELASTIC_TAIL = 4  # ministeps after the recovery, and on the restarted final mesh
+ELASTIC_TAIL = 2  # ministeps after the recovery, and on the restarted final mesh (4 until 9h)
 ELASTIC_DENSE_STEPS = 2  # dense ministeps with the push filter on each side of its resize
 REBALANCE_PUSHES = 16  # headline batches pushed into the 1x4 store
 REBALANCE_AT = 4  # pushes acknowledged (and noted as heat) before the rebalance
@@ -5434,7 +5453,8 @@ def elastic_plane(seed: int, smi: str) -> dict:
 MESH9D_BATCHES = 4  # headline minibatches a case: one launch of 4 on the stream wire
 MESH9D_CASES = [(2, 2, "bits", 1, 0), (2, 2, "stream", MESH9D_BATCHES, 0), (2, 2, "bits", 1, 1)]
 MESH9D_A10_STEPS = 4
-BIGTABLE_MESH_ROWS = 16 * 16384  # one Criteo file: 16 minibatches of the conf's 16384 rows
+# one Criteo file: 8 minibatches of the conf's 16384 rows (16 until phase 9h was added)
+BIGTABLE_MESH_ROWS = 8 * 16384
 MESH9D_KERNELS = ("ftrl_dense", "quantize", "segment_sum")
 ELL_KINDS = ("ELLBatch", "ELLPackedBatch", "ELLBitsBatch", "ELLBitsSuperBatch")
 
@@ -5950,7 +5970,7 @@ def slice_mesh_plane(seed: int, smi: str, dar: dict) -> dict:
 
 # -- phase 9f: the serving plane over a mesh sharing the card --
 
-MESH9F_PHASE_S = 2.0  # traffic on each side of 9f(a)'s resize
+MESH9F_PHASE_S = 1.0  # traffic on each side of 9f(a)'s resize (2.0 until phase 9h)
 MESH9F_REQUESTS = 256  # pool requests 9f(a) serves with the replica off and hot (the CLI's 512 cut)
 MESH9F_CLI = (["--replica", "full", "--train-while-serving"], ["--replica", "off"])
 MESH9F_SUITE = ("kv_vector", "kv_map", "kv_layer", "sparse_matrix", "serve", "decode_batching",
@@ -6334,7 +6354,7 @@ def mesh9g_cli_logs(argvs, tmp: str, tag: str) -> "tuple[list, list]":
     return [list(a) + ["--log-file", log] for a, log in zip(argvs, logs)], logs
 
 
-def mesh9g_cli_held(argvs, logs, ranks) -> list:
+def mesh9g_cli_held(argvs, logs, ranks, tag: str = "9g") -> list:
     """Every rank's CLI runs checked (exit code, launches, holds); each
     run's rank-0 log records."""
     recs = []
@@ -6346,25 +6366,142 @@ def mesh9g_cli_held(argvs, logs, ranks) -> list:
         flash = "a2a" not in argvs[i]
         for r in ranks:
             run = r[i]
-            check(run["code"] == 0, f"9g: {argvs[i]} exited {run['code']} on a rank")
+            check(run["code"] == 0, f"{tag}: {argvs[i]} exited {run['code']} on a rank")
             for k in MESH9G_KERNELS:
                 check((run["launches"][k] > 0) == flash,
-                      f"9g: {argvs[i]} launched {k} {run['launches'][k]} times on a rank")
+                      f"{tag}: {argvs[i]} launched {k} {run['launches'][k]} times on a rank")
             check(set(run["held"]) == ({"flash_fwd", "flash_bwd"} if flash else set()),
-                  f"9g: {argvs[i]}: a rank held {sorted(run['held'])}")
+                  f"{tag}: {argvs[i]}: a rank held {sorted(run['held'])}")
     return recs
 
 
+# -- phase 9h: the LM's parameters and optimizer state placed across the
+# ranks of 9g's worlds --
+
+# (a): 9g(c)'s flags at 2 x 2 in its world of 4, Megatron over the server
+# axis, ZeRO-1, then FSDP with it
+MESH9H_FULL = {"zero1": ["--num-servers", "2", "--zero1"],
+               "fsdp zero1": ["--num-servers", "2", "--fsdp", "--zero1"]}
+# (b): JAX's FSDP bar (tests/test_fsdp.py): losses within 1e-5 of the
+# replicated run's
+MESH9H_FSDP_TOL = 1e-5
+MESH9H_RESUME_STEPS = 5
+# (b): decoding on the 1 x 2 Megatron weights of the --num-servers 2 run's
+# checkpoint: 2 prompts of 256 bytes, 32 greedy tokens, beam 4 over 16,
+# speculative with a whole draft of 128 wide (1 layer) proposing 4
+MESH9H_DECODE = dict(steps=32, beam_steps=16, beam_width=4, gamma=4,
+                     draft=dict(vocab=256, d_model=128, n_heads=2, n_layers=1, d_ff=256))
+
+
+def mesh9h_modes(two: list, tmp: str) -> dict:
+    """(b)'s runs in 9g's world of 2 (full width, 2 layers, float32):
+    ZeRO-1 of Adam and of Lion (each beside its replicated run, a
+    checkpoint each), Megatron at 1 x 2, FSDP, Adafactor with and without
+    ZeRO-1 and FSDP, and the Megatron run's checkpoint resumed under
+    FSDP."""
+    def ck(name):
+        return ["--ckpt-dir", os.path.join(tmp, name)]
+
+    return {"zero1": two + ["--zero1"] + ck("zero1"),
+            "lion": two + ["--optimizer", "lion"] + ck("lion"),
+            "lion zero1": two + ["--optimizer", "lion", "--zero1"] + ck("lion_zero1"),
+            "num-servers 2": two + ["--num-servers", "2"] + ck("tp"),
+            "fsdp": two + ["--fsdp"],
+            "adafactor": two + ["--optimizer", "adafactor"],
+            "adafactor zero1 fsdp": two + ["--optimizer", "adafactor", "--zero1", "--fsdp"],
+            "fsdp resume": two + ["--steps", str(MESH9H_RESUME_STEPS), "--fsdp", "--resume"]
+            + ck("tp")}
+
+
+def checkpoints_bit_equal(a: str, b: str, step: int) -> int:
+    """The two CLI checkpoints' arrays at ``step``, leaf for leaf the same
+    bits (parameters and optimizer state); their count."""
+    name = f"step_{step:010d}"
+    with np.load(os.path.join(a, name, "arrays.npz")) as x, \
+            np.load(os.path.join(b, name, "arrays.npz")) as y:
+        check(x.files == y.files, f"9h: {a} and {b} hold other leaves")
+        for k in x.files:
+            check(np.array_equal(x[k], y[k]), f"9h: leaf {k} of {a} and {b} differ")
+        return len(x.files) - 1
+
+
+def mesh9h_full(argvs, logs, ranks, one: dict, gap: float, replicated: dict) -> dict:
+    """(a): each placed full-width run against one card's losses, with its
+    step time, tokens/s, peak memory and bytes a rank beside the
+    replicated run's."""
+    out = {}
+    recs = mesh9g_cli_held(argvs, logs, ranks, "9h(a)")
+    for i, name in enumerate(MESH9H_FULL):
+        losses = [r["loss"] for r in recs[i]]
+        apart = max(abs(a - b) for a, b in zip(losses, one["losses"]))
+        check(len(losses) == MESH9G_STEPS and apart <= MESH9G_NOISE_MULTIPLE * gap,
+              f"9h(a) {name}: {losses} vs one card {one['losses']}: {apart} apart, past "
+              f"{MESH9G_NOISE_MULTIPLE} x the bf16-vs-f32 gap {gap}")
+        nbytes = [r[i]["bytes"] for r in ranks]
+        opt_share = max(b["opt"] for b in nbytes) / replicated["bytes"]["opt"]
+        check(opt_share <= 1 / 2 + 0.01, f"9h(a) {name}: optimizer state a rank {opt_share} of "
+              "the replicated run's, not about 1/2 (ZeRO-1 over a data axis of 2) or less")
+        out[name] = dict(losses=losses, apart=apart, ms=step_ms(recs[i], argvs[i]),
+                         tokens_per_s=float(np.median([r["tokens_per_sec"] for r in recs[i][1:]])),
+                         peak_gib=[r[i].get("peak_gib", 0.0) for r in ranks], bytes=nbytes,
+                         opt_share=opt_share,
+                         params_share=max(b["params"] for b in nbytes)
+                         / replicated["bytes"]["params"],
+                         launches=[r[i]["launches"] for r in ranks],
+                         held=[r[i]["held"] for r in ranks])
+    return out
+
+
+def mesh9h_modes_check(names, argvs, logs, ranks, ref: dict, f32_world: list, tmp: str) -> dict:
+    """(b): each run's losses against its reference (ZeRO-1 bit-equal
+    through the checkpoints, Megatron within ``CLI_LOSS_TOL`` of one card,
+    FSDP within JAX's FSDP bar of the world's replicated run), the resume
+    under FSDP, and the bytes a rank."""
+    recs = mesh9g_cli_held(argvs, logs, ranks, "9h(b)")
+    losses = {n: [r["loss"] for r in recs[i]] for i, n in enumerate(names)}
+    out = {n: dict(losses=losses[n], ms=step_ms(recs[i], argvs[i]),
+                   peak_gib=[r[i].get("peak_gib", 0.0) for r in ranks],
+                   launches=[r[i]["launches"] for r in ranks], held=[r[i]["held"] for r in ranks],
+                   bytes=[r[i].get("bytes") for r in ranks]) for i, n in enumerate(names)}
+    step = MESH9G_MODE_STEPS
+    out["zero1"]["bit_equal_leaves"] = checkpoints_bit_equal(
+        os.path.join(tmp, "f32"), os.path.join(tmp, "zero1"), step)
+    out["lion zero1"]["bit_equal_leaves"] = checkpoints_bit_equal(
+        os.path.join(tmp, "lion"), os.path.join(tmp, "lion_zero1"), step)
+    check(losses["zero1"] == f32_world and losses["lion zero1"] == losses["lion"],
+          f"9h(b): ZeRO-1's losses {losses['zero1']}, {losses['lion zero1']} not those of the "
+          f"replicated state {f32_world}, {losses['lion']}")
+    for name, want, tol in (("num-servers 2", ref["float32"]["losses"], CLI_LOSS_TOL),
+                            ("fsdp", f32_world, MESH9H_FSDP_TOL),
+                            ("adafactor zero1 fsdp", losses["adafactor"], MESH9H_FSDP_TOL)):
+        apart = max(abs(a - b) for a, b in zip(losses[name], want))
+        check(len(losses[name]) == step and apart <= tol,
+              f"9h(b) {name}: {losses[name]} vs {want}: {apart} apart, past {tol}")
+        out[name].update(reference=want, apart=apart, tolerance=tol)
+    i = names.index("fsdp resume")
+    check("resumed from step 3" in ranks[0][i]["text"]
+          and [r["step"] for r in recs[i]] == list(range(step + 1, MESH9H_RESUME_STEPS + 1))
+          and all(np.isfinite(losses["fsdp resume"])),
+          f"9h(b): the Megatron checkpoint resumed under FSDP logged {recs[i]}")
+    return out
+
+
 def seq_mesh_plane(seed: int, smi: str) -> dict:
-    """Phase 9g, (a)-(d), printed as they finish."""
+    """Phases 9g, (a)-(d), and 9h, (a)-(b), in 9g's two worlds, printed as
+    they finish."""
     from parameter_server_tpu_torch.parallel import launch
 
     t_phase = time.perf_counter()
     launches = dict.fromkeys(MESH9G_KERNELS, 0)
+    launches9h = dict.fromkeys(MESH9G_KERNELS, 0)
 
     def add(counts) -> None:
         for k in MESH9G_KERNELS:
             launches[k] += counts[k]
+
+    def add9h(counts) -> None:
+        for k in MESH9G_KERNELS:
+            launches9h[k] += counts[k]
 
     with tempfile.TemporaryDirectory(prefix="seq_mesh_") as tmp:
         # (c)'s one-card runs, bf16 and f32, before the world of 4 runs (a),
@@ -6373,11 +6510,15 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
         one_bf16 = mesh9g_cli_one(full + ["--bf16"])
         one_f32 = mesh9g_cli_one(full)
         gap = max(abs(a - b) for a, b in zip(one_bf16["losses"], one_f32["losses"]))
-        argvs, logs = mesh9g_cli_logs([full + ["--bf16"]], tmp, "world4")
+        argvs, logs = mesh9g_cli_logs([full + ["--bf16"]]
+                                      + [full + ["--bf16"] + f for f in MESH9H_FULL.values()],
+                                      tmp, "world4")
+        n9h = len(MESH9H_FULL)
         t0 = time.perf_counter()
         world = launch.run_world(mesh_lm.schedules_and_cli, MESH9G_RANKS,
                                  args=(seed, mesh9g_cases(), MESH9G_MOE, MESH9G_PIPE, argvs,
-                                       FLASH_TOL, FLASH_BWD_TOL),
+                                       FLASH_TOL, FLASH_BWD_TOL, [False] + [True] * n9h,
+                                       [True] * (1 + n9h)),
                                  device_type="cuda", timeout=MESH9G_WORLD_S, threads=0)
         abc_world_s = time.perf_counter() - t0
         ranks = [r["schedules"] for r in world]
@@ -6406,7 +6547,7 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
         del ranks
 
         # (c) the full-width CLI at 4 ranks against one card
-        recs = mesh9g_cli_held(argvs, logs, c_ranks)
+        recs = mesh9g_cli_held(argvs[:1], logs[:1], c_ranks)
         losses = [r["loss"] for r in recs[0]]
         c_gap = max(abs(a - b) for a, b in zip(losses, one_bf16["losses"]))
         check(len(losses) == MESH9G_STEPS and c_gap <= MESH9G_NOISE_MULTIPLE * gap,
@@ -6425,6 +6566,24 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
               f"{one_bf16['ms']:.1f}); peak memory a rank {['%.2f' % p for p in peaks]} GiB; "
               f"launches a rank {[r[0]['launches'] for r in c_ranks]}; held "
               f"{[r[0]['held'] for r in c_ranks]} [{smi}]", flush=True)
+        replicated = dict(bytes=c_ranks[0][0]["bytes"])
+        placed_a = mesh9h_full(argvs[1:], logs[1:], [r[1:] for r in c_ranks], one_bf16, gap,
+                               replicated)
+        for name, rec in placed_a.items():
+            for r in rec["launches"]:
+                add9h(r)
+            print(f"# 9h(a) LM CLI at 2 x 2 (Megatron over server, {name}), CLI_FULL's flags, "
+                  f"ring_flash, {MESH9G_STEPS} Adam steps, {MESH9G_RANKS} ranks sharing the card "
+                  f"over gloo: losses {rec['losses']} vs one card {one_bf16['losses']} "
+                  f"({rec['apart']:.3g} apart, tolerance {MESH9G_NOISE_MULTIPLE} x {gap:.3g}); "
+                  f"{rec['tokens_per_s']:.0f} tokens/s, {rec['ms']:.1f} ms a step (9g(c) 4 x 1 "
+                  f"{c_ms:.1f}); peak a rank {['%.2f' % p for p in rec['peak_gib']]} GiB (9g(c) "
+                  f"{['%.2f' % p for p in peaks]}); bytes a rank: parameters "
+                  f"{[b['params'] for b in rec['bytes']]}, optimizer state "
+                  f"{[b['opt'] for b in rec['bytes']]} (9g(c) replicated "
+                  f"{replicated['bytes']['params']}, {replicated['bytes']['opt']}: shares "
+                  f"{rec['params_share']:.3f}, {rec['opt_share']:.3f}); launches a rank "
+                  f"{rec['launches']}; held {rec['held']} [{smi}]", flush=True)
 
         # (d) the other modes at 2 ranks, full width, 2 layers
         two = MESH9G_CLI + ["--n-layers", "2", "--seed", str(seed), "--steps",
@@ -6432,7 +6591,9 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
         modes = {"ring_zigzag": two + ["--bf16", "--attention", "ring_zigzag"],
                  "a2a": two + ["--bf16", "--attention", "a2a"],
                  "moe_every 2": two + ["--bf16", "--moe-every", "2"],
-                 "float32": two}
+                 # its checkpoint is 9h(b)'s replicated state for ZeRO-1
+                 "float32": two + ["--ckpt-dir", os.path.join(tmp, "f32")]}
+        modes9h = mesh9h_modes(two, tmp)
         ref2 = {"bf16": mesh9g_cli_one(two + ["--bf16"]), "float32": mesh9g_cli_one(two)}
         # the MoE layer routes each rank's tokens with the per-shard capacity:
         # on one card its reference is moe_ffn_dense(..., 2), the same math;
@@ -6443,12 +6604,22 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
         gap2 = max(abs(a - b) for a, b in zip(ref2["bf16"]["losses"], ref2["float32"]["losses"]))
         gap_moe = max(abs(a - b) for a, b in zip(ref2["moe_every 2"]["losses"],
                                                  moe_f32["losses"]))
-        argvs2, logs2 = mesh9g_cli_logs(list(modes.values()), tmp, "world2")
+        argvs2, logs2 = mesh9g_cli_logs(list(modes.values()) + list(modes9h.values()), tmp,
+                                        "world2")
+        n9g = len(modes)
+        sized = ("float32", "zero1", "num-servers 2", "fsdp", "adafactor zero1 fsdp")
+        decode = dict(MESH9H_DECODE, argv=modes9h["num-servers 2"],
+                      ckpt_dir=os.path.join(tmp, "tp"), step=MESH9G_MODE_STEPS, draft_seed=seed + 1,
+                      prompt=np.random.default_rng(seed).integers(0, 256, (2, 256)))
         t0 = time.perf_counter()
-        d_ranks = launch.run_world(mesh_lm.cli_runs, 2, args=(argvs2, FLASH_TOL, FLASH_BWD_TOL),
-                                   device_type="cuda", timeout=MESH9G_WORLD_S, threads=0)
+        d_world = launch.run_world(
+            mesh_lm.cli_and_decode, 2,
+            args=(argvs2, FLASH_TOL, FLASH_BWD_TOL, [False] * n9g + [True] * len(modes9h),
+                  [n in sized for n in list(modes) + list(modes9h)], decode),
+            device_type="cuda", timeout=MESH9G_WORLD_S, threads=0)
         d_wall = time.perf_counter() - t0
-        recs2 = mesh9g_cli_held(argvs2, logs2, d_ranks)
+        d_ranks = [r["cli"][:n9g] for r in d_world]
+        recs2 = mesh9g_cli_held(argvs2[:n9g], logs2[:n9g], d_ranks)
         d = {}
         for i, (mode, argv) in enumerate(modes.items()):
             got = [r["loss"] for r in recs2[i]]
@@ -6469,9 +6640,57 @@ def seq_mesh_plane(seed: int, smi: str) -> dict:
                   f"card {ref} ({apart:.3g} apart, tolerance {tol:.3g}); {d[mode]['ms']:.1f} ms a "
                   f"step; peak a rank {['%.2f' % p for p in d[mode]['peak_gib']]} GiB; launches "
                   f"{d[mode]['launches']} [{smi}]", flush=True)
+
+        # 9h(b) in the same world: ZeRO-1 bit-equal, Megatron at 1 x 2, FSDP,
+        # Adafactor, a resume across placements, decoding on Megatron's weights
+        placed_b = mesh9h_modes_check(list(modes9h), argvs2[n9g:], logs2[n9g:],
+                                      [r["cli"][n9g:] for r in d_world], ref2,
+                                      d["float32"]["losses"], tmp)
+        f32_bytes = d_world[0]["cli"][list(modes).index("float32")]["bytes"]
+        for name, rec in placed_b.items():
+            for r in rec["launches"]:
+                add9h(r)
+            print(f"# 9h(b) LM CLI, full width, 2 layers, float32, {name}, 2 ranks: losses "
+                  f"{rec['losses']}"
+                  + (f" vs {rec['reference']} ({rec['apart']:.3g} apart, tolerance "
+                     f"{rec['tolerance']:.3g})" if "reference" in rec else "")
+                  + (f"; checkpoint bit-equal to the replicated state's, "
+                     f"{rec['bit_equal_leaves']} leaves" if "bit_equal_leaves" in rec else "")
+                  + (f"; bytes a rank {rec['bytes']} (replicated {f32_bytes})"
+                     if rec["bytes"][0] else "")
+                  + f"; {rec['ms']:.1f} ms a step; peak a rank "
+                  f"{['%.2f' % p for p in rec['peak_gib']]} GiB; launches {rec['launches']} "
+                  f"[{smi}]", flush=True)
+        dec = [r["decode"] for r in d_world]
+        with torch.no_grad():
+            one_dec = mesh_lm.decode_calls(
+                mesh_lm.restore_params(decode["argv"], decode["ckpt_dir"], decode["step"],
+                                       "cuda"),
+                lm_main.config(lm_main._parser().parse_args(decode["argv"])), decode)
+        for name, want in one_dec["tokens"].items():
+            for r in dec:
+                check(torch.equal(r["tokens"][name], want),
+                      f"9h(b) {name} on the 1 x 2 Megatron weights (rank {r['rank']}) is not "
+                      f"one card's: {r['tokens'][name][:, -8:]} vs {want[:, -8:]}")
+        for r in dec:
+            check(set(r["held"]) == {"flash_fwd"}, f"9h(b) decode: rank {r['rank']} held "
+                  f"{sorted(r['held'])}")
+            for counts in r["launches"].values():
+                add9h(counts)
+        placed_b["decode"] = dict(launches=[r["launches"] for r in dec],
+                                  held=[r["held"] for r in dec],
+                                  shapes={k: list(v.shape) for k, v in one_dec["tokens"].items()})
+        print(f"# 9h(b) greedy ({MESH9H_DECODE['steps']} tokens), beam "
+              f"{MESH9H_DECODE['beam_width']} ({MESH9H_DECODE['beam_steps']}) and speculative "
+              f"(gamma {MESH9H_DECODE['gamma']}) decoding of 2 x 256-byte prompts on the 1 x 2 "
+              f"Megatron weights of the --num-servers 2 checkpoint: token for token one card's "
+              f"on both ranks; launches a rank {placed_b['decode']['launches']}; held "
+              f"{placed_b['decode']['held']} [{smi}]", flush=True)
     for k in MESH9G_KERNELS:
         check(launches[k] > 0, f"9g launched no {k}")
-    return dict(attention=att, layers=layers, held_ab=held_ab, abc_world_s=abc_world_s,
+        check(launches9h[k] > 0, f"9h launched no {k}")
+    return dict(placed=dict(full=placed_a, modes=placed_b, launches=launches9h),
+                attention=att, layers=layers, held_ab=held_ab, abc_world_s=abc_world_s,
                 cli=dict(losses=losses, one_card_bf16=one_bf16, one_card_f32=one_f32,
                          bf16_gap=gap, apart=c_gap, tokens_per_s=tok_s, ms=c_ms,
                          peak_gib=peaks, launches=[r[0]["launches"] for r in c_ranks],
@@ -6963,8 +7182,11 @@ def main() -> int:
     print(f"# phase 9g (the LM with its sequence across ranks: ring, zigzag and Ulysses "
           f"attention, MoE and pipeline over the ranks, the LM CLI in worlds of 4 and 2) took "
           f"{mesh9g['seconds']:.1f} s: world (a, b, c) {mesh9g['abc_world_s']:.1f} s, world (d) "
-          f"{mesh9g['modes_world_s']:.1f} s; "
+          f"{mesh9g['modes_world_s']:.1f} s (both with 9h's runs); "
           f"launches {mesh9g['launches']}", flush=True)
+    print(f"# phase 9h (the LM's parameters and optimizer state placed across 9g's worlds: "
+          f"Megatron over server, ZeRO-1, FSDP, decoding on Megatron's weights) launched "
+          f"{mesh9g['placed']['launches']}", flush=True)
     f32_rows = [r for r in flash_rows if r["dtype"] == "float32"]
     print(f"# flash_fwd float32, {len(f32_rows)} cases: largest tolerance_used out "
           f"{max(r['readings']['tolerance_used'] for r in f32_rows):.4g}, lse "
@@ -7087,6 +7309,7 @@ def main() -> int:
         dict(name="flash_fwd", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_fwd"],
              seq_mesh_launches=mesh9g["launches"]["flash_fwd"],
+             placed_mesh_launches=mesh9g["placed"]["launches"]["flash_fwd"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_fwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:383",
              launches=lm["flash_launches"],
@@ -7108,6 +7331,7 @@ def main() -> int:
         dict(name="flash_bwd_dq", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_bwd_dq"],
              seq_mesh_launches=mesh9g["launches"]["flash_bwd_dq"],
+             placed_mesh_launches=mesh9g["placed"]["launches"]["flash_bwd_dq"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dq_launches"],
@@ -7123,6 +7347,7 @@ def main() -> int:
         dict(name="flash_bwd_dkv", route="cuda",
              serve_mesh_launches=mesh9f["launches"]["flash_bwd_dkv"],
              seq_mesh_launches=mesh9g["launches"]["flash_bwd_dkv"],
+             placed_mesh_launches=mesh9g["placed"]["launches"]["flash_bwd_dkv"],
              source="parameter_server_tpu_torch/kernels/csrc/flash_bwd.cu",
              replaces="parameter_server_tpu/ops/flash_attention.py:430",
              launches=train["flash_bwd_dkv_launches"],

@@ -5,7 +5,7 @@ synthetic corpus), then generate from it:
         [--data FILE] [--steps N] [--seq-len S] [--batch B] \\
         [--attention ring|ring_flash|ring_zigzag|a2a] [--window W] [--remat] [--bf16] \\
         [--moe-every K] [--optimizer adam|adafactor|lion] \\
-        [--ckpt-dir DIR] [--save-every N] [--resume] \\
+        [--num-servers S] [--zero1] [--fsdp] [--ckpt-dir DIR] [--save-every N] [--resume] \\
         [--prompt "text"] [--gen-tokens N] [--temperature T] [--top-k K] \\
         [--top-p P] [--beam W] [--n-kv-heads G] [--device cpu]
 
@@ -28,22 +28,29 @@ batch stream starts over from the seed.
 **Inside a world.** Run by every rank of a world a launcher started
 (``PS_COORDINATOR_ADDRESS``, ``PS_NUM_PROCESSES``, ``PS_PROCESS_ID`` and
 ``PS_DEVICE`` on every rank, e.g. ``parallel/launch.run_world(main, N,
-args=(argv,))``), the CLI trains on a ``world x 1`` mesh, as the JAX CLI
-on its ``data x server`` mesh over every device: every rank samples the
-same global batch and keeps its shard of the sequence
+args=(argv,))``), the CLI trains on a ``data x server`` mesh of ``(world
+/ S) x S`` ranks (``--num-servers S``, which must divide the world), as
+the JAX CLI on its mesh over every device: every rank samples the same
+global batch and keeps its shard of the sequence over ``data``
 (``models/transformer.shard_tokens``; ``--seq-len`` must divide by the
-world, by twice it under ``ring_zigzag``), attention runs as the
-schedule ``--attention`` names across the ranks (``a2a`` needs
-``--n-heads`` divisible by the world), MoE layers shard their experts
-over them, and the optimizer steps on the gradients summed over the
-ranks (so ``--clip-norm`` sees the global norm); the parameters stay the
-same on every rank. Held-out batches are sharded alike. Rank 0 alone
-prints, logs, profiles, writes the checkpoints and generates; every rank
-restores a ``--resume``.
+data axis, by twice it under ``ring_zigzag``), attention runs as the
+schedule ``--attention`` names across the data ranks (``a2a`` needs
+``--n-heads`` divisible by the data axis), MoE layers shard their
+experts over them, and the optimizer steps on the gradients summed over
+them (so ``--clip-norm`` sees the global norm). Held-out batches are
+sharded alike.
 
-Flags the port cannot serve yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``--zero1``, ``--fsdp``, ``--num-servers > 1`` (A9
-slice 3, second part: the parameters and optimizer state sharded).
+The parameters and optimizer state are placed in the JAX CLI's order:
+Megatron tensor parallelism over ``server`` when S > 1
+(``shard_lm_params``), FSDP over ``data`` under ``--fsdp``
+(``fsdp_shard_lm_params``), the optimizer's state from the placed
+parameters, then ZeRO-1 over ``data`` under ``--zero1``
+(``zero1_shard_opt_state``). Checkpoints hold whole leaves (every rank
+gathers, rank 0 writes), so a run resumes under any placement, the JAX
+CLI's too. Rank 0 alone prints, logs and profiles; every rank restores
+a ``--resume``; generation runs on the server row of data row 0, every
+rank of which decodes alike (the FSDP leaves first gathered over
+``data`` by every rank).
 
 ``--profile DIR`` runs the training loop under a ``torch.profiler``
 capture (``utils/profiling.device_trace``), a Chrome trace written under
@@ -168,21 +175,9 @@ def train_step_cost(params, opt_state, tokens, *targets_and_weights) -> dict:
     return {"flops": 6.0 * n_mat * n_tok, "bytes_accessed": float(n_bytes)}
 
 
-def _unported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (ROADMAP {item})")
-
-
-def _check_unported(args) -> None:
-    if args.zero1 or args.fsdp or args.num_servers > 1:
-        raise _unported("--zero1/--fsdp/--num-servers > 1 (parameters or optimizer state "
-                        "sharded)", "A9 slice 3, second part")
-
-
 def _validate(ap, args, n: int) -> None:
     """The JAX CLI's flag checks that do not need the corpus, in its
-    order; ``n``: the ranks of the world (the data axis)."""
-    if args.num_servers < 1:
-        ap.error(f"--num-servers {args.num_servers} must divide the device count ({n})")
+    order; ``n``: the ranks of the data axis."""
     zig = args.attention == "ring_zigzag"
     if args.seq_len % (2 * n if zig else n):
         ap.error(f"--seq-len must divide by {2 * n if zig else n}")
@@ -211,33 +206,63 @@ def _validate(ap, args, n: int) -> None:
                  "(checkpoints land on launch boundaries)")
 
 
+def config(args):
+    """The ``LMConfig`` of the parsed flags (raises ``ValueError`` for an
+    invalid combination)."""
+    from ...models.transformer import LMConfig
+
+    return LMConfig(
+        vocab=256, d_model=args.d_model, n_heads=args.n_heads, n_layers=args.n_layers,
+        d_ff=args.d_ff, attention=args.attention, window=args.window, remat=args.remat,
+        compute_dtype="bfloat16" if args.bf16 else "float32", moe_every=args.moe_every,
+        n_kv_heads=args.n_kv_heads, rope=args.rope, rope_theta=args.rope_theta,
+        kv_cache_dtype=None if args.kv_cache == "auto" else args.kv_cache,
+    )
+
+
+def place(args, params, tx, mesh):
+    """The parameters and the optimizer's state placed as the JAX CLI
+    places them, in its order: Megatron over ``server`` (``--num-servers``
+    > 1), FSDP over ``data`` (``--fsdp``), ``tx.init`` of the placed
+    parameters, ZeRO-1 over ``data`` (``--zero1``). Without a placement
+    the whole trees, as on one card."""
+    from ...models.transformer import (fsdp_shard_lm_params, shard_lm_params,
+                                       zero1_shard_opt_state)
+
+    if args.num_servers > 1:
+        params = shard_lm_params(params, mesh, "server")
+    if args.fsdp:
+        params = fsdp_shard_lm_params(params, mesh, "data")
+    opt = tx.init(params)
+    if args.zero1:
+        opt = zero1_shard_opt_state(opt, mesh, "data")
+    return params, opt
+
+
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    _check_unported(args)
 
     from ...device import resolve
-    from ...models.transformer import (LMConfig, init_lm, lm_beam_search, lm_generate, lm_loss,
+    from ...models.transformer import (init_lm, lm_beam_search, lm_generate, lm_loss,
                                        lm_loss_with_targets, shard_tokens, value_and_grad,
                                        zigzag_lm_arrays)
-    from ...parallel import distributed
+    from ...parallel import distributed, placement
     from ...parallel import mesh as meshlib
     from ...parameter.replica import CheckpointManager
     from ...telemetry import device as device_tel
     from ...utils.profiling import device_trace
 
-    # inside a launcher's world every rank runs this CLI: a world x 1 mesh
+    # inside a launcher's world every rank runs this CLI on a data x server
+    # mesh of its ranks
     in_world = distributed.initialize()
-    n = torch.distributed.get_world_size() if in_world else 1
+    n_dev = torch.distributed.get_world_size() if in_world else 1
+    if args.num_servers < 1 or n_dev % args.num_servers:
+        ap.error(f"--num-servers {args.num_servers} must divide the device count ({n_dev})")
+    n = n_dev // args.num_servers  # the data axis
 
     try:
-        cfg = LMConfig(
-            vocab=256, d_model=args.d_model, n_heads=args.n_heads, n_layers=args.n_layers,
-            d_ff=args.d_ff, attention=args.attention, window=args.window, remat=args.remat,
-            compute_dtype="bfloat16" if args.bf16 else "float32", moe_every=args.moe_every,
-            n_kv_heads=args.n_kv_heads, rope=args.rope, rope_theta=args.rope_theta,
-            kv_cache_dtype=None if args.kv_cache == "auto" else args.kv_cache,
-        )
+        cfg = config(args)
     except ValueError as e:
         # LMConfig rejects invalid combinations (e.g. --window with
         # --attention ring); surface them as flag errors, not tracebacks
@@ -277,13 +302,12 @@ def main(argv=None) -> int:
 
     device = distributed.rank_device() if in_world and args.device is None else resolve(
         args.device)
-    mesh = meshlib.make_mesh(num_data=n, num_server=1, device=device)
-    lead = mesh.rank == 0  # rank 0 alone prints, logs, profiles, saves and generates
+    mesh = meshlib.make_mesh(num_data=n, num_server=args.num_servers, device=device)
+    lead = mesh.rank == 0  # rank 0 alone prints, logs, profiles and writes the checkpoints
     say = print if lead else (lambda *a, **k: None)
-    params = init_lm(args.seed, cfg, device)
     tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum,
                      args.optimizer)
-    opt = tx.init(params)
+    params, opt = place(args, init_lm(args.seed, cfg, device), tx, mesh)
 
     mgr = None
     start_step = 0
@@ -292,9 +316,12 @@ def main(argv=None) -> int:
         if args.resume:
             latest = mgr.latest_step()
             if latest is not None:
-                # the schedule and accumulation counters are in opt
-                tree = mgr.restore(latest, like={"params": params, "opt": opt})
-                params, opt = tree["params"], tree["opt"]
+                # the schedule and accumulation counters are in opt; the
+                # leaves are whole, each rank keeps its blocks
+                tree = mgr.restore(latest, like={"params": placement.template(params),
+                                                 "opt": placement.template(opt)})
+                params = placement.place_like(tree["params"], params)
+                opt = placement.place_like(tree["opt"], opt)
                 start_step = latest
                 say(f"resumed from step {latest}", flush=True)
     elif args.save_every or args.resume:
@@ -344,8 +371,10 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 return float(np.mean([float(loss_of(p, *data)) for data in fixed_eval]))
 
-    say(f"devices={n} ({device}) attention={cfg.attention} corpus={corpus.size} bytes"
-        + (f" (+{eval_corpus.size} held out)" if eval_corpus is not None else ""))
+    say(f"devices={n_dev} (data={n} x server={args.num_servers}) attention={cfg.attention} "
+        f"corpus={corpus.size} bytes"
+        + (f" (+{eval_corpus.size} held out)" if eval_corpus is not None else "")
+        + f" on {device}")
     say(f"{'step':>5} {'loss':>9} {'bits/byte':>10}")
     log_f = open(args.log_file, "a") if args.log_file and lead else None
     t_start = time.perf_counter()
@@ -386,12 +415,15 @@ def main(argv=None) -> int:
                         rec["eval_loss"] = round(float(ev), 6)
                     log_f.write(json.dumps(rec) + "\n")
                     log_f.flush()
-                if lead and mgr is not None and (i == args.steps
+                if mgr is not None and (i == args.steps
                                         or (args.save_every and i % args.save_every == 0)):
                     # the final step is always saved, so a later --resume finds
-                    # it; the host snapshot is taken here, the write overlaps
-                    # the next steps
-                    mgr.save_async(i, {"params": params, "opt": opt})
+                    # it; every rank gathers the whole leaves (collectives, here
+                    # on the training thread), rank 0 takes the host snapshot,
+                    # and the write overlaps the next steps
+                    whole = {"params": placement.gather(params), "opt": placement.gather(opt)}
+                    if lead:
+                        mgr.save_async(i, whole)
         except BaseException:
             # a flag, not sys.exc_info(): inside the drain's handler below that
             # reports the exception being handled, and would hide a failed
@@ -413,19 +445,23 @@ def main(argv=None) -> int:
                         raise
                     print(f"async checkpoint failure during shutdown: {e}", file=sys.stderr)
 
-    if args.prompt is not None and lead:
+    if args.prompt is not None:
+        # FSDP's leaves whole over data (every rank), Megatron's blocks kept:
+        # the server row of data row 0 decodes, each of its ranks alike
+        params = placement.gather_axis(params, "data")
+    if args.prompt is not None and mesh.data_index == 0:
         prompt = np.frombuffer(args.prompt.encode("utf-8", "replace") or b"\n",
                                np.uint8).astype(np.int64)[None, :]
         if args.beam:
             beams, scores = lm_beam_search(params, prompt, cfg, steps=args.gen_tokens,
-                                           beam_width=args.beam, eos_id=args.eos_byte)
+                                           beam_width=args.beam, eos_id=args.eos_byte, mesh=mesh)
             out = beams[0, 0].cpu().numpy()
             note = f"beam {args.beam}, logprob {float(scores[0, 0]):.2f}"
         else:
             gen = torch.Generator(device=device).manual_seed(args.seed + 1)
             out = lm_generate(params, prompt, cfg, steps=args.gen_tokens,
                               temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-                              eos_id=args.eos_byte, generator=gen)[0].cpu().numpy()
+                              eos_id=args.eos_byte, generator=gen, mesh=mesh)[0].cpu().numpy()
             note = "greedy" if not args.temperature else "sampled"
         if args.eos_byte is not None:
             # "eos then pads": truncate at the first stop byte inside the
@@ -435,8 +471,8 @@ def main(argv=None) -> int:
             if hits.size:
                 out = out[:gen_start + hits[0] + 1]
         text = bytes(out.astype(np.uint8)).decode("utf-8", "replace")
-        print(f"--- generation ({args.gen_tokens} tokens, {note}) ---")
-        print(text)
+        say(f"--- generation ({args.gen_tokens} tokens, {note}) ---")
+        say(text)
     return 0
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ...device import scalar_like
+from ...parallel import placement
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -69,6 +70,59 @@ def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int,
     return schedule
 
 
+class _Where:
+    """Where the leaves of one step lie: the parameters' placement (a
+    :class:`...parallel.placement.Placed` tree's specs, keyed ``(name,)``)
+    and the state's (keyed by path below ``prefix``), on ``mesh``. With
+    neither placed every move is the identity."""
+
+    def __init__(self, mesh, pspecs, sspecs, prefix=()):
+        self.mesh, self.pspecs, self.sspecs, self.prefix = mesh, pspecs, sspecs, prefix
+
+    @classmethod
+    def of(cls, *trees) -> "_Where":
+        grads, state, params = trees
+        mesh = next((t.mesh for t in (state, params, grads)
+                     if isinstance(t, placement.Placed) and t.mesh is not None), None)
+        pspecs = getattr(params, "specs", None) or getattr(grads, "specs", None) or {}
+        return cls(mesh, pspecs, getattr(state, "specs", None) or {})
+
+    def sub(self, key: str) -> "_Where":
+        return _Where(self.mesh, self.pspecs, self.sspecs, self.prefix + (key,))
+
+    def pspec(self, k: str, t: torch.Tensor):
+        return self.pspecs.get((k,), (None,) * t.dim())
+
+    def sspec(self, path, t: torch.Tensor):
+        return self.sspecs.get(self.prefix + path, (None,) * t.dim())
+
+    def to_state(self, x, k: str, path, leaf):
+        """``x``, placed as parameter ``k``, as the state leaf at ``path``
+        (``leaf``) is placed: ZeRO-1's slice of a whole gradient."""
+        return placement.reshard(x, self.pspec(k, x), self.sspec(path, leaf), self.mesh)
+
+    def to_param(self, x, path, k: str):
+        """``x``, placed as the state leaf at ``path``, as parameter ``k``:
+        ZeRO-1's update slices gathered over ``data``."""
+        return placement.reshard(x, self.sspec(path, x), self.pspec(k, x), self.mesh)
+
+
+def _restate(state, new: dict):
+    """``new`` with the placement of the state it replaces."""
+    return placement.like(state, new)
+
+
+def _init_placed(tx, params) -> dict:
+    """``tx``'s state for ``params``, a :class:`...parallel.placement.Placed`
+    tree when they are (each leaf placed as its parameter's, or as a
+    reduction of it)."""
+    specs: dict = {}
+    state = tx._init_tree(params, _Where.of(None, None, params), specs, ())
+    if isinstance(params, placement.Placed):
+        return placement.Placed(state, specs, params.mesh)
+    return state
+
+
 class _Chain:
     """Optional global-norm clipping, then the optimizer's own step, at a
     constant or scheduled learning rate read from the update count."""
@@ -76,9 +130,14 @@ class _Chain:
     def __init__(self, lr, clip_norm: Optional[float] = None):
         self.lr, self.clip_norm = lr, clip_norm
 
-    def _clip(self, grads: Tensors) -> Tensors:
-        # summed over the parameters in sorted order, as jax.tree.leaves
-        norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in sorted(grads)))
+    def _clip(self, grads: Tensors, where: Optional[_Where] = None) -> Tensors:
+        # summed over the parameters in sorted order, as jax.tree.leaves; a
+        # split leaf's square sum added over the ranks that hold its pieces
+        where = where if where is not None else _Where(None, {}, {})
+        keys = sorted(grads)
+        sq = placement.sum_all([grads[k] * grads[k] for k in keys],
+                               [where.pspec(k, grads[k]) for k in keys], where.mesh)
+        norm = torch.sqrt(sum(sq))
         if bool(norm < self.clip_norm):
             return grads
         return {k: (g / norm) * self.clip_norm for k, g in grads.items()}
@@ -88,16 +147,36 @@ class _Chain:
         return self.lr(count) if callable(self.lr) else scalar_like(self.lr, count)
 
     def init(self, params: Tensors) -> dict:
+        """The state of ``params``; placed as they are when they are placed
+        (ZeRO-1 then splits it: ``models/transformer.zero1_shard_opt_state``)."""
+        return _init_placed(self, params)
+
+    def _init_tree(self, params, where: _Where, specs: dict, prefix) -> dict:
         like = next(iter(params.values()))
         return dict(count=torch.zeros((), dtype=torch.int32, device=like.device),
-                    **self._init(params))
+                    **self._init(params, where, specs, prefix))
 
-    def update(self, grads: Tensors, state: dict, params: Optional[Tensors] = None):
+    @staticmethod
+    def _inherit(params, where: _Where, specs: dict, prefix, name: str) -> Tensors:
+        """``zeros_like`` of every parameter, each placed as it is."""
+        for k, v in params.items():
+            s = where.pspec(k, v)
+            if any(s):
+                specs[prefix + (name, k)] = s
+        return {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def update(self, grads: Tensors, state: dict, params: Optional[Tensors] = None,
+               where: Optional[_Where] = None):
         """(updates, new state) from the gradients (and, for Adafactor
-        and Lion, the parameters), as optax's chain."""
+        and Lion, the parameters), as optax's chain. Placed trees step on
+        this rank's blocks: each state leaf's slice from the gradient's,
+        the update gathered back to the parameter's placement, a split
+        leaf's reductions summed over the ranks that hold it."""
+        where = where if where is not None else _Where.of(grads, state, params)
         if self.clip_norm is not None:
-            grads = self._clip(grads)
-        return self._step(grads, state, params)
+            grads = self._clip(grads, where)
+        updates, new = self._step(grads, state, params, where)
+        return updates, _restate(state, new)
 
 
 class Adam(_Chain):
@@ -108,19 +187,23 @@ class Adam(_Chain):
         super().__init__(lr, clip_norm)
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def _init(self, params: Tensors) -> dict:
-        return dict(mu={k: torch.zeros_like(v) for k, v in params.items()},
-                    nu={k: torch.zeros_like(v) for k, v in params.items()})
+    def _init(self, params: Tensors, where, specs, prefix) -> dict:
+        return dict(mu=self._inherit(params, where, specs, prefix, "mu"),
+                    nu=self._inherit(params, where, specs, prefix, "nu"))
 
-    def _step(self, grads: Tensors, state: dict, params):
+    def _step(self, grads: Tensors, state: dict, params, where: _Where):
         count = state["count"]
         t = count + 1
-        mu = {k: (1 - self.b1) * g + self.b1 * state["mu"][k] for k, g in grads.items()}
-        nu = {k: (1 - self.b2) * (g * g) + self.b2 * state["nu"][k] for k, g in grads.items()}
         bc1 = 1 - scalar_like(self.b1, count) ** t
         bc2 = 1 - scalar_like(self.b2, count) ** t
         step = -1 * self._rate(count)
-        updates = {k: step * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)) for k in mu}
+        mu, nu, updates = {}, {}, {}
+        for k, g in grads.items():
+            g = where.to_state(g, k, ("mu", k), state["mu"][k])
+            mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
+            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
+            u = step * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps))
+            updates[k] = where.to_param(u, ("mu", k), k)
         return updates, dict(count=t, mu=mu, nu=nu)
 
 
@@ -150,7 +233,12 @@ class Adafactor(_Chain):
     moment otherwise), decay ``1 - (t + 1) ** -decay_rate``, ``eps``
     1e-30 added to the squared gradient; then each tensor's update
     clipped to an RMS of ``clipping_threshold``, scaled by the rate and
-    by the RMS of its parameter (at least 1e-3), and negated."""
+    by the RMS of its parameter (at least 1e-3), and negated.
+
+    On a placed parameter the factored dimensions are chosen from its
+    whole shape; a row or column mean over a split dimension, each RMS
+    and the row factor's mean are summed over the ranks that hold the
+    pieces."""
 
     def __init__(self, lr, clip_norm: Optional[float] = None, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, clipping_threshold: float = 1.0, eps: float = 1e-30):
@@ -158,49 +246,72 @@ class Adafactor(_Chain):
         self.min_dim, self.decay_rate = min_dim_size_to_factor, decay_rate
         self.clipping_threshold, self.eps = clipping_threshold, eps
 
-    def _init(self, params: Tensors) -> dict:
+    def _dims(self, p, s, mesh):
+        shape = placement.whole_shape(p, s, mesh) if mesh is not None else tuple(p.shape)
+        return _factored_dims(shape, self.min_dim)
+
+    def _init(self, params: Tensors, where, specs, prefix) -> dict:
         state = dict(v_row={}, v_col={}, v={})
         for k, p in params.items():
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            s = where.pspec(k, p)
+            dims = self._dims(p, s, where.mesh)
             one = torch.zeros(1, dtype=p.dtype, device=p.device)
             if dims is None:
                 state["v_row"][k], state["v_col"][k] = one, one.clone()
                 state["v"][k] = torch.zeros_like(p)
+                if any(s):
+                    specs[prefix + ("v", k)] = s
             else:
                 d1, d0 = dims
                 state["v_row"][k] = torch.zeros(np.delete(p.shape, d0).tolist(), dtype=p.dtype,
                                                 device=p.device)
                 state["v_col"][k] = torch.zeros(np.delete(p.shape, d1).tolist(), dtype=p.dtype,
                                                 device=p.device)
+                for name, d in (("v_row", d0), ("v_col", d1)):
+                    if any(placement.drop_dim(s, d)):
+                        specs[prefix + (name, k)] = placement.drop_dim(s, d)
                 state["v"][k] = one
         return state
 
-    def _step(self, grads: Tensors, state: dict, params):
+    def _step(self, grads: Tensors, state: dict, params, where: _Where):
         _needs_params(params)
+        mesh = where.mesh
         count = state["count"]
         decay = 1.0 - (count + 1).to(torch.float32) ** -self.decay_rate
         rate = self._rate(count)
         updates, new = {}, dict(count=count + 1, v_row={}, v_col={}, v={})
         for k, g in grads.items():
             p = params[k]
+            s = where.pspec(k, p)
             grad_sqr = g * g + self.eps
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            dims = self._dims(p, s, mesh)
             if dims is None:
-                v = decay * state["v"][k] + (1.0 - decay) * grad_sqr
+                v = decay * state["v"][k] + (1.0 - decay) * where.to_state(grad_sqr, k, ("v", k),
+                                                                           state["v"][k])
                 new["v"][k] = v
                 new["v_row"][k], new["v_col"][k] = state["v_row"][k], state["v_col"][k]
-                u = g * v ** -0.5
+                u = where.to_param(where.to_state(g, k, ("v", k), v) * v ** -0.5, ("v", k), k)
             else:
                 d1, d0 = dims
-                v_row = decay * state["v_row"][k] + (1.0 - decay) * grad_sqr.mean(d0)
-                v_col = decay * state["v_col"][k] + (1.0 - decay) * grad_sqr.mean(d1)
+                s_row, s_col = placement.drop_dim(s, d0), placement.drop_dim(s, d1)
+                r0, c0 = state["v_row"][k], state["v_col"][k]
+                v_row = decay * r0 + (1.0 - decay) * placement.reshard(
+                    placement.mean_dim(grad_sqr, s, d0, mesh), s_row,
+                    where.sspec(("v_row", k), r0), mesh)
+                v_col = decay * c0 + (1.0 - decay) * placement.reshard(
+                    placement.mean_dim(grad_sqr, s, d1, mesh), s_col,
+                    where.sspec(("v_col", k), c0), mesh)
                 new["v_row"][k], new["v_col"][k], new["v"][k] = v_row, v_col, state["v"][k]
+                v_row = placement.reshard(v_row, where.sspec(("v_row", k), v_row), s_row, mesh)
+                v_col = placement.reshard(v_col, where.sspec(("v_col", k), v_col), s_col, mesh)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)) ** -0.5
+                row_factor = (v_row / placement.mean_dim(v_row, s_row, reduced_d1, mesh,
+                                                         keepdim=True)) ** -0.5
                 u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, 1.0)
+            u = u / torch.clamp_min(torch.sqrt(placement.mean_all(u * u, s, mesh))
+                                    / self.clipping_threshold, 1.0)
             u = rate * u
-            rms = torch.sqrt(torch.mean(p * p))
+            rms = torch.sqrt(placement.mean_all(p * p, s, mesh))
             u = u * torch.where(rms <= 1e-3, scalar_like(1e-3, rms), rms)
             updates[k] = -1 * u
         return updates, new
@@ -216,18 +327,20 @@ class Lion(_Chain):
         super().__init__(lr, clip_norm)
         self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
 
-    def _init(self, params: Tensors) -> dict:
-        return dict(mu={k: torch.zeros_like(v) for k, v in params.items()})
+    def _init(self, params: Tensors, where, specs, prefix) -> dict:
+        return dict(mu=self._inherit(params, where, specs, prefix, "mu"))
 
-    def _step(self, grads: Tensors, state: dict, params):
+    def _step(self, grads: Tensors, state: dict, params, where: _Where):
         _needs_params(params)
         count = state["count"]
         step = -1 * self._rate(count)
         updates, mu = {}, {}
         for k, g in grads.items():
             m = state["mu"][k]
-            u = torch.sign((1.0 - self.b1) * g + self.b1 * m) + self.weight_decay * params[k]
-            updates[k] = step * u
+            g = where.to_state(g, k, ("mu", k), m)
+            p = where.to_state(params[k], k, ("mu", k), m)
+            u = torch.sign((1.0 - self.b1) * g + self.b1 * m) + self.weight_decay * p
+            updates[k] = where.to_param(step * u, ("mu", k), k)
             mu[k] = (1 - self.b2) * g + self.b2 * m
         return updates, dict(count=count + 1, mu=mu)
 
@@ -241,18 +354,25 @@ class MultiSteps:
         self.inner, self.k = inner, every_k
 
     def init(self, params: Tensors) -> dict:
-        return dict(mini_step=0, acc={k: torch.zeros_like(v) for k, v in params.items()},
-                    inner=self.inner.init(params))
+        return _init_placed(self, params)
 
-    def update(self, grads: Tensors, state: dict, params: Optional[Tensors] = None):
+    def _init_tree(self, params, where: _Where, specs: dict, prefix) -> dict:
+        return dict(mini_step=0, acc=_Chain._inherit(params, where, specs, prefix, "acc"),
+                    inner=self.inner._init_tree(params, where, specs, prefix + ("inner",)))
+
+    def update(self, grads: Tensors, state: dict, params: Optional[Tensors] = None,
+               where: Optional[_Where] = None):
+        where = where if where is not None else _Where.of(grads, state, params)
         n = state["mini_step"]
-        acc = {k: a + (grads[k] - a) / scalar_like(n + 1, a) for k, a in state["acc"].items()}
+        acc = {k: a + (where.to_state(grads[k], k, ("acc", k), a) - a) / scalar_like(n + 1, a)
+               for k, a in state["acc"].items()}
         if n + 1 < self.k:
             zeros = {k: torch.zeros_like(g) for k, g in grads.items()}
-            return zeros, dict(mini_step=n + 1, acc=acc, inner=state["inner"])
-        updates, inner = self.inner.update(acc, state["inner"], params)
-        return updates, dict(mini_step=0, acc={k: torch.zeros_like(a) for k, a in acc.items()},
-                             inner=inner)
+            return zeros, _restate(state, dict(mini_step=n + 1, acc=acc, inner=state["inner"]))
+        mean = {k: where.to_param(a, ("acc", k), k) for k, a in acc.items()}
+        updates, inner = self.inner.update(mean, state["inner"], params, where.sub("inner"))
+        return updates, _restate(state, dict(
+            mini_step=0, acc={k: torch.zeros_like(a) for k, a in acc.items()}, inner=inner))
 
 
 OPTIMIZERS = {"adam": Adam, "adafactor": Adafactor, "lion": Lion}
@@ -269,5 +389,6 @@ def build(lr: float, steps: int, warmup: int = 0, clip_norm: Optional[float] = N
 
 
 def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
-    """``optax.apply_updates``: ``p + u`` in the parameters' dtype."""
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+    """``optax.apply_updates``: ``p + u`` in the parameters' dtype (a
+    placed tree keeps its placement)."""
+    return placement.like(params, {k: (p + updates[k]).to(p.dtype) for k, p in params.items()})

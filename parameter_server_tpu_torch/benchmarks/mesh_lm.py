@@ -1,8 +1,9 @@
-"""The LM trained with its sequence across ranks, measured.
+"""The LM trained with its sequence across ranks, and with its
+parameters and optimizer state placed across them, measured.
 
 Rank functions for ``parallel/launch.run_world`` (``chip_smoke.py``'s
-phase 9g): every rank of a world runs one, on a ``world x 1`` mesh, and
-the caller holds the results against one card. On one card the ranks
+phases 9g and 9h): every rank of a world runs one, and the caller holds
+the results against one card. On one card the ranks
 share it and talk gloo, so each number here is of ranks sharing one card
 over gloo (every shift and all-to-all of a CUDA tensor staged through
 pinned host memory), not of NCCL across cards.
@@ -18,6 +19,12 @@ pinned host memory), not of NCCL across cards.
   every rank of a launcher's world runs it; rank 0's output, each rank's
   peak memory.
 - :func:`schedules_and_cli`: both in one world (one start of its ranks).
+- :func:`placed_bytes`: this rank's bytes of parameters and optimizer
+  state as the CLI places them for an argv (Megatron, FSDP, ZeRO-1).
+- :func:`tp_decode`: greedy decoding, beam search and speculative
+  decoding on a checkpoint's weights placed by ``shard_lm_params`` over
+  the world's server row.
+- :func:`cli_and_decode`: :func:`cli_runs`, then :func:`tp_decode`.
 
 Each part counts the three flash kernels' launches from zero and returns
 the counts (``launches``), with its losses or outputs and its wall
@@ -64,22 +71,23 @@ def _launches() -> Dict[str, int]:
 
 
 @contextlib.contextmanager
-def first_offset_calls():
+def first_offset_calls(any_offset: bool = False):
     """Records this process's first ``flash_fwd`` launch and first call of
     the backward pair (``fa._backward``) at nonzero offsets inside the
-    block (tensors cloned). Neither route counts launches on itself, so
-    the counts are untouched."""
+    block (tensors cloned), or at any offsets with ``any_offset`` (a rank's
+    first launch at its heads, whatever its hop). Neither route counts
+    launches on itself, so the counts are untouched."""
     seen: dict = {}
     fwd, bwd = fa.launch_kernel, fa._backward
 
     def launch(q, k, v, q_offset=0, k_offset=0, **kw):
-        if "fwd" not in seen and (int(q_offset) or int(k_offset)):
+        if "fwd" not in seen and (any_offset or int(q_offset) or int(k_offset)):
             seen["fwd"] = ([t.detach().clone() for t in (q, k, v)], int(q_offset),
                            int(k_offset), dict(kw))
         return fwd(q, k, v, q_offset, k_offset, **kw)
 
     def backward(q, k, v, do, lse, c, q_offset, k_offset, causal, window, group):
-        if "bwd" not in seen and (int(q_offset) or int(k_offset)) and q.is_cuda:
+        if "bwd" not in seen and (any_offset or int(q_offset) or int(k_offset)) and q.is_cuda:
             seen["bwd"] = ([t.detach().clone() for t in (q, k, v, do, lse, c)], int(q_offset),
                            int(k_offset), dict(causal=causal, window=window, group=group))
         return bwd(q, k, v, do, lse, c, q_offset, k_offset, causal, window, group)
@@ -266,26 +274,52 @@ def schedules(seed: int, cases: Sequence, moe: dict, pipe: dict, fwd_tol: dict,
 # -- (c), (d) the LM CLI in a world --
 
 
+def placed_bytes(argv: Sequence[str], device) -> Dict[str, int]:
+    """This rank's bytes of the parameters and of the optimizer state the
+    LM CLI places for ``argv`` (``apps/lm/main.place``: its widths, seed,
+    optimizer, ``--num-servers``, ``--fsdp``, ``--zero1``) in this world.
+    Every rank of the world calls it (the mesh's groups are collective)."""
+    from ..apps.lm import main as lm_main
+    from ..apps.lm import optim
+    from ..models.transformer import init_lm
+    from ..parallel import placement
+
+    args = lm_main._parser().parse_args(list(argv))
+    world = torch.distributed.get_world_size()
+    mesh = meshlib.make_mesh(num_data=world // args.num_servers, num_server=args.num_servers,
+                             device=device)
+    tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum,
+                     args.optimizer)
+    params, opt = lm_main.place(args, init_lm(args.seed, lm_main.config(args), device), tx, mesh)
+    out = {"params": placement.nbytes(params), "opt": placement.nbytes(opt)}
+    del params, opt
+    return out
+
+
 def cli_runs(argvs: Sequence[List[str]], fwd_tol: dict, bwd_tol: dict,
-             hold: bool = True) -> List[dict]:
-    """Phase 9g (c) / (d) on this rank: the LM CLI once an argv, as a
-    launcher's world runs it. Each run's exit code, rank 0's output, the
+             hold: bool = True, any_offset: Sequence[bool] = (),
+             sizes: Sequence[bool] = ()) -> List[dict]:
+    """Phases 9g (c) / (d) and 9h on this rank: the LM CLI once an argv, as
+    a launcher's world runs it. Each run's exit code, rank 0's output, the
     run's flash launches (from zero), wall, this rank's peak device
     memory and, on the card, the holds of its first launches at nonzero
-    offsets."""
+    offsets (at any offsets where ``any_offset[i]``); where ``sizes[i]``,
+    this rank's bytes of parameters and optimizer state
+    (:func:`placed_bytes`)."""
     from ..apps.lm import main as lm_main
     from ..parallel import distributed
 
     device = distributed.rank_device()
     out = []
-    for argv in argvs:
+    for i, argv in enumerate(argvs):
         _reset()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         buf = io.StringIO()
         _sync(device)
         t0 = time.perf_counter()
-        with first_offset_calls() if hold and device.type == "cuda" else \
+        anywhere = i < len(any_offset) and any_offset[i]
+        with first_offset_calls(anywhere) if hold and device.type == "cuda" else \
                 contextlib.nullcontext({}) as seen:
             with contextlib.redirect_stdout(buf):
                 code = lm_main.main(list(argv))
@@ -295,12 +329,96 @@ def cli_runs(argvs: Sequence[List[str]], fwd_tol: dict, bwd_tol: dict,
         if device.type == "cuda":
             run["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         run["held"] = hold_to_plain(seen, fwd_tol, bwd_tol) if seen else {}
+        if i < len(sizes) and sizes[i]:
+            run["bytes"] = placed_bytes(argv, device)
         out.append(run)
     return out
 
 
 def schedules_and_cli(seed: int, cases: Sequence, moe: dict, pipe: dict,
-                      argvs: Sequence[List[str]], fwd_tol: dict, bwd_tol: dict) -> dict:
+                      argvs: Sequence[List[str]], fwd_tol: dict, bwd_tol: dict,
+                      any_offset: Sequence[bool] = (), sizes: Sequence[bool] = ()) -> dict:
     """:func:`schedules`, then :func:`cli_runs`, in one world."""
     return {"schedules": schedules(seed, cases, moe, pipe, fwd_tol, bwd_tol),
-            "cli": cli_runs(argvs, fwd_tol, bwd_tol)}
+            "cli": cli_runs(argvs, fwd_tol, bwd_tol, any_offset=any_offset, sizes=sizes)}
+
+
+# -- decoding on Megatron's placement --
+
+
+def restore_params(argv: Sequence[str], ckpt_dir: str, step: int, device):
+    """The whole parameters of the LM CLI's checkpoint at ``step`` (its
+    run's ``argv`` gives the template: widths, seed, optimizer)."""
+    from ..apps.lm import main as lm_main
+    from ..apps.lm import optim
+    from ..models.transformer import init_lm
+    from ..parameter.replica import CheckpointManager
+
+    args = lm_main._parser().parse_args(list(argv))
+    params = init_lm(args.seed, lm_main.config(args), device)
+    tx = optim.build(args.lr, args.steps, args.warmup, args.clip_norm, args.grad_accum,
+                     args.optimizer)
+    return CheckpointManager(ckpt_dir).restore(step, like={"params": params,
+                                                           "opt": tx.init(params)})["params"]
+
+
+def decode_calls(params, cfg, spec: dict, mesh=None) -> dict:
+    """Greedy ``lm_generate``, ``lm_beam_search`` and
+    ``speculative_generate`` (a whole draft of ``spec["draft"]``'s widths
+    from ``spec["draft_seed"]``) on ``params`` (placed on ``mesh``, or
+    whole) for ``spec["prompt"]``: their tokens on the CPU, and the flash
+    launches (from zero) of each."""
+    from ..models import transformer as tr
+    from ..models.speculative import speculative_generate
+
+    dev = params["emb"].device
+    prompt = torch.as_tensor(spec["prompt"], device=dev)
+    draft_cfg = tr.LMConfig(**spec["draft"])
+    draft = tr.init_lm(spec["draft_seed"], draft_cfg, dev)
+    out, launches = {}, {}
+    with torch.no_grad():
+        for name in ("greedy", "beam", "speculative"):
+            _reset()
+            if name == "greedy":
+                toks = tr.lm_generate(params, prompt, cfg, steps=spec["steps"], mesh=mesh)
+            elif name == "beam":
+                toks = tr.lm_beam_search(params, prompt, cfg, steps=spec["beam_steps"],
+                                         beam_width=spec["beam_width"], mesh=mesh)[0]
+            else:
+                toks = speculative_generate(params, cfg, draft, draft_cfg, prompt,
+                                            steps=spec["steps"], gamma=spec["gamma"], mesh=mesh)
+            out[name] = toks.cpu()
+            launches[name] = _launches()
+    return dict(tokens=out, launches=launches)
+
+
+def tp_decode(spec: dict, fwd_tol: dict, hold: bool = True) -> dict:
+    """On this rank of a world of S ranks: the LM CLI's checkpoint
+    (``spec["argv"]``, ``spec["ckpt_dir"]``, ``spec["step"]``) placed by
+    ``shard_lm_params`` over a ``1 x S`` mesh, then :func:`decode_calls`;
+    every rank decodes alike. On the card each rank's first ``flash_fwd``
+    launch (a prefill at this rank's heads) is held to its plain version."""
+    from ..apps.lm import main as lm_main
+    from ..models.transformer import shard_lm_params
+    from ..parallel import distributed
+
+    device = distributed.rank_device()
+    world = torch.distributed.get_world_size()
+    mesh = meshlib.make_mesh(num_data=1, num_server=world, device=device)
+    cfg = lm_main.config(lm_main._parser().parse_args(list(spec["argv"])))
+    tp = shard_lm_params(restore_params(spec["argv"], spec["ckpt_dir"], spec["step"], device),
+                         mesh)
+    with first_offset_calls(True) if hold and device.type == "cuda" else \
+            contextlib.nullcontext({}) as seen:
+        rec = decode_calls(tp, cfg, spec, mesh)
+    rec["held"] = hold_to_plain({k: v for k, v in seen.items() if k == "fwd"}, fwd_tol, {}) \
+        if seen else {}
+    rec["rank"] = mesh.rank
+    return rec
+
+
+def cli_and_decode(argvs: Sequence[List[str]], fwd_tol: dict, bwd_tol: dict,
+                   any_offset: Sequence[bool], sizes: Sequence[bool], decode: dict) -> dict:
+    """:func:`cli_runs`, then :func:`tp_decode` of ``decode``, in one world."""
+    return {"cli": cli_runs(argvs, fwd_tol, bwd_tol, any_offset=any_offset, sizes=sizes),
+            "decode": tp_decode(decode, fwd_tol)}

@@ -44,6 +44,7 @@ from .transformer import (
     _alloc_kv_caches,
     _categorical,
     _chunk_decode,
+    _heads,
     _prefill,
     _validate_prompt_lengths,
     _weights,
@@ -80,7 +81,8 @@ def _accept_and_correct(generator, d, p_d, p_t):
 def speculative_generate(target_params, target_cfg: LMConfig, draft_params, draft_cfg: LMConfig,
                          prompt, steps: int, *, gamma: int = 4, prompt_lengths=None,
                          eos_id: "int | None" = None, temperature=None,
-                         generator: "torch.Generator | None" = None, return_stats: bool = False):
+                         generator: "torch.Generator | None" = None, return_stats: bool = False,
+                         mesh=None):
     """Speculative decoding that provably matches decoding the target
     directly: returns the tokens [B, P + steps] (int64), and with
     ``return_stats`` also ``{"rounds", "target_passes",
@@ -91,7 +93,10 @@ def speculative_generate(target_params, target_cfg: LMConfig, draft_params, draf
     greedy ``lm_generate``. ``temperature > 0`` samples (the draft
     samples its proposals, :func:`_accept_and_correct` keeps the
     target's distribution) and needs ``generator``. ``prompt_lengths``
-    and ``eos_id`` as in ``lm_generate``."""
+    and ``eos_id`` as in ``lm_generate``. A target placed by
+    ``shard_lm_params`` runs on ``mesh`` (default: its own) with
+    Megatron's blocks, every rank of the server row calling this alike;
+    the draft stays whole on each."""
     if target_cfg.vocab != draft_cfg.vocab:
         raise ValueError(f"vocab mismatch: target {target_cfg.vocab} vs draft {draft_cfg.vocab}")
     if gamma < 1:
@@ -112,7 +117,7 @@ def speculative_generate(target_params, target_cfg: LMConfig, draft_params, draf
         lengths = torch.full((prompt.shape[0],), prompt.shape[1], dtype=torch.int64, device=device)
     else:
         lengths = _validate_prompt_lengths(prompt_lengths, prompt)
-    out, stats = _speculate(_weights(target_params, target_cfg), target_cfg,
+    out, stats = _speculate(_weights(target_params, target_cfg, mesh), target_cfg,
                             _weights(draft_params, draft_cfg), draft_cfg, prompt, lengths, steps,
                             gamma, None if greedy else float(temperature), eos_id, generator)
     return (out, stats) if return_stats else out
@@ -126,7 +131,7 @@ def _speculate(tw, tcfg, dw, dcfg, prompt, lengths, steps, gamma, temperature, e
     dev = prompt.device
     limit = lengths + steps  # [B] per-row budget
     total = p_len + steps + gamma + 1  # a round overshoots by gamma + 1 trash slot
-    tk, tv = _alloc_kv_caches(tcfg, b, total, dev)
+    tk, tv = _alloc_kv_caches(tcfg, b, total, dev, _heads(tw, tcfg).kv_heads)
     dk, dv = _alloc_kv_caches(dcfg, b, total, dev)
     t_logits = _prefill(tw, tcfg, prompt, tk, tv)
     _prefill(dw, dcfg, prompt, dk, dv)

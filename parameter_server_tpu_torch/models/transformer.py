@@ -74,6 +74,7 @@ import torch.utils.checkpoint
 from ..device import resolve, scalar_like
 from ..ops.flash_attention import flash_mha
 from ..parallel import mesh as meshlib
+from ..parallel import placement
 from .attention import ring_attention, ulysses_attention, zigzag_permutation
 from .moe import init_moe, moe_ffn
 
@@ -195,15 +196,102 @@ def _moe_layer_params(params, i: int):
     return {name: params[f"l{i}/{name}"] for name in ("moe_router", "moe_w_in", "moe_w_out")}
 
 
-def _weights(params: Params, cfg: LMConfig) -> Params:
+def _weights(params: Params, cfg: LMConfig, mesh=None) -> Params:
     """The layer weights cast to the compute dtype, once per call (a
     no-op for float32); ``emb``, ``ln_f`` and the MoE weights stay
-    float32."""
-    w = dict(params)
+    float32. A :class:`..parallel.placement.Placed` tree comes back whole
+    over every axis but ``server`` (an FSDP leaf gathered over ``data``: a
+    collective of the data column), its Megatron blocks kept, on ``mesh``
+    (default: the tree's own)."""
+    mesh = mesh if mesh is not None else getattr(params, "mesh", None)
+    w = {k: _unsplit(params, k, mesh, raw=True) for k in params}
     for i in range(cfg.n_layers):
         for name in _layer_weights(cfg, i):
-            w[f"l{i}/{name}"] = params[f"l{i}/{name}"].to(cfg.dtype)
-    return w
+            w[f"l{i}/{name}"] = w[f"l{i}/{name}"].to(cfg.dtype)
+    if not isinstance(params, placement.Placed):
+        return w
+    specs = {p: tuple(a if a == meshlib.SERVER_AXIS else None for a in s)
+             for p, s in params.specs.items()}
+    return placement.Placed(w, specs, mesh)
+
+
+def _unsplit(params, key: str, mesh, raw: bool = False):
+    """Leaf ``key`` whole over every axis but ``server`` (an FSDP leaf
+    gathered over ``data``; a Megatron block stays this rank's). Under
+    autograd the gather's gradient is the reduce-scatter of the
+    cotangents; ``raw`` gathers without one."""
+    t = params[key]
+    s = placement.spec(params, key, t.dim())
+    for dim, a in enumerate(s):
+        if a is None or a == meshlib.SERVER_AXIS:
+            continue
+        if mesh is None:
+            raise ValueError(f"{key} is split over {a!r}: pass the mesh it lies on")
+        t = (meshlib._gather_dim_raw(t, a, mesh, dim) if raw
+             else meshlib.all_gather_dim(t, a, mesh, dim))
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """How this rank holds each layer's heads: ``mesh`` None for whole
+    weights; under Megatron tensor parallelism ``heads`` / ``kv_heads``
+    of them on this rank (its column blocks of ``wq`` / ``wk`` / ``wv``),
+    or, where they do not divide over ``server``, every head
+    (``gathered``: the projections' blocks gathered over the server row,
+    attention run whole on each of its ranks)."""
+
+    heads: int
+    kv_heads: int
+    mesh: object = None
+    gathered: bool = False
+
+
+def _heads(params, cfg: LMConfig, mesh=None, a2a_ranks: int = 1) -> _Heads:
+    """The :class:`_Heads` of ``params`` on ``mesh`` (default: the tree's
+    own): Megatron's when ``l0/wq`` is split over ``server`` and the row
+    has several ranks. ``a2a_ranks``: Ulysses' data ranks, which this
+    rank's heads must divide by too."""
+    mesh = mesh if mesh is not None else getattr(params, "mesh", None)
+    split = meshlib.SERVER_AXIS in placement.spec(params, "l0/wq", 2)
+    s = meshlib.axis_extent(mesh, meshlib.SERVER_AXIS)[0]
+    if split and s == 1 and mesh is None:
+        raise ValueError("the weights are split over 'server': pass the mesh they lie on")
+    nh, kvh = cfg.n_heads, cfg.kv_heads
+    if not split or s == 1:
+        return _Heads(nh, kvh)
+    if nh % s or kvh % s or (nh // s) % a2a_ranks:
+        return _Heads(nh, kvh, mesh, gathered=True)
+    return _Heads(nh // s, kvh // s, mesh)
+
+
+def _project_in(h, w, names, mesh=None, gather: bool = False):
+    """``h @ w[name]`` for each of ``names`` (column-split projections):
+    under Megatron (``mesh``) ``h``, alike on the server row, enters
+    through :func:`..parallel.mesh.pvary` (its gradient the row's sum of
+    the blocks' partial ones), and each output holds this rank's columns,
+    or with ``gather`` all of them, gathered over the row (heads that do
+    not divide)."""
+    if mesh is None:
+        return [h @ w[n] for n in names]
+    h = meshlib.pvary(h, meshlib.SERVER_AXIS, mesh)
+    outs = [h @ w[n] for n in names]
+    if gather:
+        outs = [meshlib.all_gather_invariant(o, meshlib.SERVER_AXIS, mesh, -1) for o in outs]
+    return outs
+
+
+def _project_out(a, wo, mesh=None, split: bool = False):
+    """``a @ wo`` (a row-split projection): under Megatron (``mesh``) this
+    rank's columns of ``a`` (with ``split``, its block of the gathered
+    whole) times its rows of ``wo``, summed over the server row
+    (:func:`..parallel.mesh.psum_invariant`: every rank uses the sum
+    alike)."""
+    if mesh is None:
+        return a @ wo
+    if split:
+        a = meshlib.split(a, meshlib.SERVER_AXIS, mesh, -1)
+    return meshlib.psum_invariant(a @ wo, meshlib.SERVER_AXIS, mesh)
 
 
 def _ln(x, scale):
@@ -268,17 +356,34 @@ def _moe_ffn_dropless(lp, h2, n_experts: int):
     return (out * gate[:, None]).reshape(shape)
 
 
-def _mlp(w, i: int, h2):
-    return F.gelu(h2 @ w[f"l{i}/w1"], approximate="tanh") @ w[f"l{i}/w2"]
+def _qkv(h, w, i: int, tp: _Heads):
+    """Layer ``i``'s q, k and v projections of ``h`` [..., d] on this
+    rank's heads (:class:`_Heads`): [..., heads·hd], and [..., kv_heads·hd]
+    twice. Training and every decode path project through it."""
+    return _project_in(h, w, (f"l{i}/wq", f"l{i}/wk", f"l{i}/wv"), tp.mesh, tp.gathered)
 
 
-def _ffn(w, cfg: LMConfig, i: int, x):
-    """Layer ``i``'s residual FFN block in serving: the GELU MLP, or the
-    dropless MoE FFN on a MoE layer."""
+def _attn_out(a, w, i: int, tp: _Heads):
+    """Attention's output ``a`` [..., heads·hd] through layer ``i``'s
+    ``wo``, summed over the server row under Megatron."""
+    return _project_out(a, w[f"l{i}/wo"], tp.mesh, tp.gathered)
+
+
+def _mlp(w, i: int, h2, mesh=None):
+    """The GELU MLP; under Megatron (``mesh``) on this rank's columns of
+    ``w1`` and rows of ``w2``, summed over the server row."""
+    (h,) = _project_in(h2, w, (f"l{i}/w1",), mesh)
+    return _project_out(F.gelu(h, approximate="tanh"), w[f"l{i}/w2"], mesh)
+
+
+def _ffn(w, cfg: LMConfig, i: int, x, mesh=None):
+    """Layer ``i``'s residual FFN block in serving: the GELU MLP (under
+    Megatron on ``mesh``), or the dropless MoE FFN on a MoE layer (whole on
+    every rank)."""
     h2 = _ln(x, w[f"l{i}/ln2"])
     if _is_moe_layer(cfg, i):
         return x + _moe_ffn_dropless(_moe_layer_params(w, i), h2, cfg.n_experts).to(cfg.dtype)
-    return x + _mlp(w, i, h2)
+    return x + _mlp(w, i, h2, mesh)
 
 
 # -- training --
@@ -299,43 +404,51 @@ def _rope_position_ids(cfg: LMConfig, s_loc: int, mesh, axis: str, device):
 
 def _train_layer(params, cfg: LMConfig, i: int, x, rope_cs, mesh=None, axis: str = "data"):
     """One decoder layer of :func:`lm_forward` on this rank's sequence
-    shard: the weights cast to the compute dtype inside the layer (so
-    ``remat`` recomputes the cast, as under ``jax.checkpoint``),
-    attention through the schedule ``cfg.attention`` names."""
-    b, s, d = x.shape
-    nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    w = {f"l{i}/{n}": params[f"l{i}/{n}"].to(cfg.dtype) for n in _layer_weights(cfg, i)}
+    shard: the weights gathered over ``data`` where FSDP split them and
+    cast to the compute dtype inside the layer (so ``remat`` gathers and
+    casts again, as under ``jax.checkpoint``), attention through the
+    schedule ``cfg.attention`` names on this rank's heads (Megatron's
+    blocks when the weights are split over ``server``)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    tp = _heads(params, cfg, mesh,
+                meshlib.axis_extent(mesh, axis)[0] if cfg.attention == "a2a" else 1)
+    nh, kvh = tp.heads, tp.kv_heads
+    w = {f"l{i}/{n}": _unsplit(params, f"l{i}/{n}", mesh).to(cfg.dtype)
+         for n in _layer_weights(cfg, i)}
     h = _ln(x, w[f"l{i}/ln1"])
-    q, k, v = h @ w[f"l{i}/wq"], h @ w[f"l{i}/wk"], h @ w[f"l{i}/wv"]
+    q, k, v = _qkv(h, w, i, tp)
     if cfg.rope:  # rotate BEFORE the GQA broadcast: k is still narrow
-        q = _rotate(q.reshape(b, s, nh, hd), *rope_cs).reshape(b, s, d)
+        q = _rotate(q.reshape(b, s, nh, hd), *rope_cs).reshape(b, s, nh * hd)
         k = _rotate(k.reshape(b, s, kvh, hd), *rope_cs).reshape(b, s, kvh * hd)
     if kvh != nh:  # GQA: each K/V head broadcast over its query-head group
 
         def expand(t):
-            return t.reshape(b, s, kvh, 1, hd).expand(b, s, kvh, nh // kvh, hd).reshape(b, s, d)
+            return t.reshape(b, s, kvh, 1, hd).expand(b, s, kvh, nh // kvh, hd).reshape(
+                b, s, nh * hd)
 
         k, v = expand(k), expand(v)
 
     if cfg.attention == "a2a":
-        # Ulysses: q/k/v stay [B, S/n, d]; the schedule splits heads itself
+        # Ulysses: q/k/v stay [B, S/n, heads·hd]; the schedule splits heads
         att = ulysses_attention(q, k, v, mesh=mesh, axis=axis, n_heads=nh, causal=True)
     else:
 
-        def heads(t):  # [B, S, d] -> [B*nh, S, hd]
+        def heads(t):  # [B, S, nh·hd] -> [B*nh, S, hd]
             return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
 
         att = ring_attention(heads(q), heads(k), heads(v), mesh=mesh, axis=axis, causal=True,
                              impl=_RING_IMPL[cfg.attention], window=cfg.window)
-        att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
-    x = x + att.to(cfg.dtype) @ w[f"l{i}/wo"]
+        att = att.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, nh * hd)
+    x = x + _attn_out(att.to(cfg.dtype), w, i, tp)
     h2 = _ln(x, w[f"l{i}/ln2"])
     if not _is_moe_layer(cfg, i):
-        return x + _mlp(w, i, h2)
+        return x + _mlp(w, i, h2, tp.mesh)
     # routing and the capacity bookkeeping in float32, for a stable
-    # expert choice
-    moe_p = {"router": params[f"l{i}/moe_router"], "w_in": params[f"l{i}/moe_w_in"],
-             "w_out": params[f"l{i}/moe_w_out"]}
+    # expert choice; the tables whole over the server row
+    moe_p = {"router": _unsplit(params, f"l{i}/moe_router", mesh),
+             "w_in": _unsplit(params, f"l{i}/moe_w_in", mesh),
+             "w_out": _unsplit(params, f"l{i}/moe_w_out", mesh)}
     return x + moe_ffn(moe_p, h2.to(torch.float32), mesh=mesh, axis=axis,
                        capacity_factor=cfg.capacity_factor).to(cfg.dtype)
 
@@ -344,21 +457,24 @@ def lm_forward(params: Params, tokens, cfg: LMConfig, *, mesh=None, axis: str = 
     """Logits [B, S/n, vocab] (always float32) of this rank's tokens [B,
     S/n] (the whole [B, S] with no mesh); decoder activations run in
     ``cfg.compute_dtype``, each layer rematerialized in the backward when
-    ``cfg.remat``."""
+    ``cfg.remat``. ``params`` may be a
+    :class:`..parallel.placement.Placed` tree on ``mesh``
+    (:func:`shard_lm_params`, :func:`fsdp_shard_lm_params`)."""
     tokens = torch.as_tensor(tokens, device=params["emb"].device).to(torch.int64)
     s = tokens.shape[1]
     # RoPE tables once per call, on this rank's global positions, shared
     # by every layer (under remat they enter each checkpoint as inputs)
     rope_cs = _rope_tables(_rope_position_ids(cfg, s, mesh, axis, tokens.device)[None, :, None],
                            cfg.head_dim, cfg.rope_theta) if cfg.rope else None
-    x = _embed(params, cfg, tokens)
+    top = {k: _unsplit(params, k, mesh) for k in ("emb", "ln_f")}  # one gather a call
+    x = _embed(top, cfg, tokens)
     for i in range(cfg.n_layers):
         if cfg.remat:
             x = torch.utils.checkpoint.checkpoint(_train_layer, params, cfg, i, x, rope_cs, mesh,
                                                   axis, use_reentrant=False)
         else:
             x = _train_layer(params, cfg, i, x, rope_cs, mesh, axis)
-    return _logits(params, x)
+    return _logits(top, x)
 
 
 def lm_loss(params: Params, tokens, cfg: LMConfig, *, mesh=None, axis: str = "data"):
@@ -405,31 +521,39 @@ def lm_loss_with_targets(params: Params, tokens, targets, weights, cfg: LMConfig
 
 def value_and_grad(loss_fn, params: Params, *, mesh=None, axis: str = "data"):
     """``(loss, grads)`` of ``loss_fn(params)``, as ``jax.value_and_grad``
-    gives them: the loss detached, a gradient for every parameter. The
-    caller's tensors are not marked as requiring gradients. On a mesh
-    whose ``axis`` has several ranks, the one place where the replicated
-    parameters' gradients are summed over it (one ``all_reduce`` a dtype,
-    ``parallel/mesh.psum_tree``): every rank gets the gradient of the
-    global loss."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    gives them: the loss detached, a gradient for every parameter (a
+    :class:`..parallel.placement.Placed` tree keeps its placement, each
+    gradient this rank's block). The caller's tensors are not marked as
+    requiring gradients. On a mesh whose ``axis`` has several ranks, the
+    one place where the gradients of the leaves not split over it are
+    summed over it (one ``all_reduce`` a dtype,
+    ``parallel/mesh.psum_tree``); a leaf split over ``axis`` (FSDP) got
+    its sum from its gather's reduce-scatter. Every rank gets the gradient
+    of the global loss."""
+    leaves = placement.like(params, {k: v.detach().requires_grad_(True)
+                                     for k, v in params.items()})
     loss = loss_fn(leaves)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     if mesh is not None:
-        grads = meshlib.psum_tree(grads, axis, mesh)
-    return loss.detach(), grads
+        split = {k for k, g in grads.items() if axis in placement.spec(params, k, g.dim())}
+        summed = meshlib.psum_tree({k: g for k, g in grads.items() if k not in split}, axis,
+                                   mesh)
+        grads = {k: grads[k] if k in split else summed[k] for k in grads}
+    return loss.detach(), placement.like(params, grads)
 
 
 def _sgd(params: Params, loss_fn, lr: float, donate: bool, mesh=None, axis: str = "data"):
     """loss and gradients of ``loss_fn(params)``, then ``p - lr * g``:
     in place on the caller's tensors with ``donate``, else into new
-    tensors (the caller's are left as they were)."""
+    tensors (the caller's are left as they were); a placed tree keeps
+    its placement."""
     loss, grads = value_and_grad(loss_fn, params, mesh=mesh, axis=axis)
     with torch.no_grad():
         if donate:
             new = {k: v.detach().sub_(lr * grads[k]) for k, v in params.items()}
         else:
             new = {k: v.detach() - lr * grads[k] for k, v in params.items()}
-    return new, loss
+    return placement.like(params, new), loss
 
 
 def make_lm_train_step(cfg: LMConfig, lr: float = 0.3, donate: bool = False,
@@ -511,6 +635,55 @@ def shard_tokens(tokens, mesh, axis: str = "data") -> torch.Tensor:
     return t[..., r * s_loc:(r + 1) * s_loc].contiguous().to(mesh.device)
 
 
+# -- placements: Megatron over server, ZeRO-1 and FSDP over data --
+
+_COLUMN_SPLIT = ("/wq", "/wk", "/wv", "/w1")
+_ROW_SPLIT = ("/wo", "/w2")
+
+
+def shard_lm_params(params: Params, mesh, axis: str = meshlib.SERVER_AXIS) -> placement.Placed:
+    """Tensor parallelism (Megatron-style) as the JAX ``shard_lm_params``
+    places it: this rank's column blocks of ``wq`` / ``wk`` / ``wv`` /
+    ``w1`` and row blocks of ``wo`` / ``w2`` over ``axis``, every other
+    leaf (embedding, norms, the MoE tables) whole, as a
+    :class:`..parallel.placement.Placed` tree recording each placement.
+    ``params`` whole (a placed tree is gathered first, as ``device_put``
+    re-places). The layers read the placement and run the collectives
+    GSPMD would insert: ``pvary`` before the column splits, the row's
+    ``psum`` after the row splits."""
+    whole = placement.gather(params)
+    specs = {}
+    for k, v in whole.items():
+        if k.endswith(_COLUMN_SPLIT):
+            specs[(k,)] = (None, axis)
+        elif k.endswith(_ROW_SPLIT):
+            specs[(k,)] = (axis, None)
+    return placement.place(whole, specs, mesh)
+
+
+def zero1_shard_opt_state(opt_state, mesh, axis: str = meshlib.DATA_AXIS) -> placement.Placed:
+    """ZeRO-1 (Rajbhandari et al. 2020), as the JAX
+    ``zero1_shard_opt_state`` places it: every optimizer-state leaf split
+    over ``axis`` on its largest free dimension that divides by the axis
+    size (``placement.shard_tree_over_axis``); a leaf Megatron split over
+    ``server`` gains ``axis`` on another dimension, scalars and
+    indivisible leaves stay whole. ``apps/lm/optim.py``'s steps update
+    each rank's slices and gather the parameters' update over ``axis``."""
+    return placement.shard_tree_over_axis(opt_state, mesh, axis)
+
+
+def fsdp_shard_lm_params(params: Params, mesh, axis: str = meshlib.DATA_AXIS) -> placement.Placed:
+    """FSDP / ZeRO-3, as the JAX ``fsdp_shard_lm_params`` places it: every
+    parameter leaf split over ``axis`` by the rule of
+    :func:`zero1_shard_opt_state`, composing with :func:`shard_lm_params`.
+    Each layer gathers its weights over ``axis`` inside itself (again in
+    a remat recompute), the gather's gradient is the cotangents'
+    reduce-scatter, and an optimizer initialized from these parameters
+    holds its moments split alike: parameters, gradients and moments all
+    split over ``axis``."""
+    return placement.shard_tree_over_axis(params, mesh, axis)
+
+
 # -- the KV cache: (data, scale); scale None = the compute dtype, else
 # int8 data with one float32 scale per [layer, batch, kv-head, position] --
 
@@ -545,11 +718,12 @@ def _cache_layer(cache, i: int):
     return full
 
 
-def _alloc_kv_caches(cfg: LMConfig, b: int, total: int, device):
+def _alloc_kv_caches(cfg: LMConfig, b: int, total: int, device, kv_heads: "int | None" = None):
     """(kcache, vcache) for ``total`` slots, zeroed: [layers, B, kv
     heads, total, head_dim] in the compute dtype, or int8 plus float32
-    scales under ``kv_cache_dtype="int8"``."""
-    shape = (cfg.n_layers, b, cfg.kv_heads, total, cfg.head_dim)
+    scales under ``kv_cache_dtype="int8"``. ``kv_heads``: this rank's K/V
+    heads under Megatron (default: all of them)."""
+    shape = (cfg.n_layers, b, kv_heads or cfg.kv_heads, total, cfg.head_dim)
 
     def one():
         if cfg.kv_cache_dtype == "int8":
@@ -590,8 +764,9 @@ def _chunk_decode(w, cfg: LMConfig, toks, kcache, vcache, pos):
     them, once per call of :func:`lm_generate` or of speculative decoding;
     the same for :func:`_decode_step` and :func:`_prefill`."""
     b, c = toks.shape
-    kvh, hd = cfg.kv_heads, cfg.head_dim
-    g = cfg.n_heads // kvh
+    tp = _heads(w, cfg)
+    kvh, hd = tp.kv_heads, cfg.head_dim
+    g = cfg.n_heads // cfg.kv_heads
     t_max = kcache[0].shape[3]
     x = _embed(w, cfg, toks)
     qpos = pos[:, None] + torch.arange(c, device=toks.device)  # [B, C]
@@ -603,17 +778,16 @@ def _chunk_decode(w, cfg: LMConfig, toks, kcache, vcache, pos):
     cos, sin = _rope_tables(qpos, hd, cfg.rope_theta) if cfg.rope else (None, None)
     for i in range(cfg.n_layers):
         h = _ln(x, w[f"l{i}/ln1"])
-        q = (h @ w[f"l{i}/wq"]).reshape(b, c, kvh, g, hd)
-        k = (h @ w[f"l{i}/wk"]).reshape(b, c, kvh, hd)
-        v = (h @ w[f"l{i}/wv"]).reshape(b, c, kvh, hd)
+        q, k, v = _qkv(h, w, i, tp)
+        q, k, v = q.reshape(b, c, kvh, g, hd), k.reshape(b, c, kvh, hd), v.reshape(b, c, kvh, hd)
         if cfg.rope:  # the cache stores ROTATED k
             q = _rotate(q, cos[:, :, None, None, :], sin[:, :, None, None, :])
             k = _rotate(k, cos[:, :, None, :], sin[:, :, None, :])
         _cache_write_rows(kcache, i, qpos, k)
         _cache_write_rows(vcache, i, qpos, v)
         att = _attend_cache(q.to(torch.float32), kcache, vcache, i, keep, hd, "bckgd")
-        x = x + att.reshape(b, c, cfg.d_model).to(cfg.dtype) @ w[f"l{i}/wo"]
-        x = _ffn(w, cfg, i, x)
+        x = x + _attn_out(att.reshape(b, c, kvh * g * hd).to(cfg.dtype), w, i, tp)
+        x = _ffn(w, cfg, i, x, tp.mesh)
     return _logits(w, x)
 
 
@@ -623,8 +797,9 @@ def _decode_step(w, cfg: LMConfig, tok, kcache, vcache, pos: int):
     on the device): tok [B] -> logits [B, vocab]. The fast path of
     :func:`_chunk_decode` with C = 1 and equal to it (tested)."""
     b = tok.shape[0]
-    kvh, hd = cfg.kv_heads, cfg.head_dim
-    g = cfg.n_heads // kvh
+    tp = _heads(w, cfg)
+    kvh, hd = tp.kv_heads, cfg.head_dim
+    g = cfg.n_heads // cfg.kv_heads
     t_max = kcache[0].shape[3]
     x = _embed(w, cfg, tok)
     t_range = torch.arange(t_max, device=tok.device)
@@ -635,9 +810,8 @@ def _decode_step(w, cfg: LMConfig, tok, kcache, vcache, pos: int):
         cos, sin = _rope_tables(t_range[pos], hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         h = _ln(x, w[f"l{i}/ln1"])
-        q = (h @ w[f"l{i}/wq"]).reshape(b, kvh, g, hd)
-        k = (h @ w[f"l{i}/wk"]).reshape(b, kvh, hd)
-        v = (h @ w[f"l{i}/wv"]).reshape(b, kvh, hd)
+        q, k, v = _qkv(h, w, i, tp)
+        q, k, v = q.reshape(b, kvh, g, hd), k.reshape(b, kvh, hd), v.reshape(b, kvh, hd)
         if cfg.rope:
             q = _rotate(q, cos, sin)
             k = _rotate(k, cos, sin)
@@ -645,8 +819,8 @@ def _decode_step(w, cfg: LMConfig, tok, kcache, vcache, pos: int):
         _cache_write(kcache, idx, k)
         _cache_write(vcache, idx, v)
         att = _attend_cache(q.to(torch.float32), kcache, vcache, i, keep, hd, "bkgd")
-        x = x + att.reshape(b, cfg.d_model).to(cfg.dtype) @ w[f"l{i}/wo"]
-        x = _ffn(w, cfg, i, x)
+        x = x + _attn_out(att.reshape(b, kvh * g * hd).to(cfg.dtype), w, i, tp)
+        x = _ffn(w, cfg, i, x, tp.mesh)
     return _logits(w, x)
 
 
@@ -666,16 +840,17 @@ def _prefill(w, cfg: LMConfig, prompt, kcache, vcache):
     cache slots [0, P) of every layer and returns every prompt
     position's logits [B, P, vocab]."""
     b, p_len = prompt.shape
-    nh, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    tp = _heads(w, cfg)
+    nh, kvh, hd = tp.heads, tp.kv_heads, cfg.head_dim
     x = _embed(w, cfg, prompt)
     if cfg.rope:
         cos, sin = _rope_tables(torch.arange(p_len, device=prompt.device)[None, :, None], hd,
                                 cfg.rope_theta)
     for i in range(cfg.n_layers):
         h = _ln(x, w[f"l{i}/ln1"])
-        q = (h @ w[f"l{i}/wq"]).reshape(b, p_len, nh, hd)
-        k = (h @ w[f"l{i}/wk"]).reshape(b, p_len, kvh, hd)
-        v = (h @ w[f"l{i}/wv"]).reshape(b, p_len, kvh, hd)
+        q, k, v = _qkv(h, w, i, tp)
+        q = q.reshape(b, p_len, nh, hd)
+        k, v = k.reshape(b, p_len, kvh, hd), v.reshape(b, p_len, kvh, hd)
         if cfg.rope:
             q = _rotate(q, cos, sin)
             k = _rotate(k, cos, sin)
@@ -683,8 +858,8 @@ def _prefill(w, cfg: LMConfig, prompt, kcache, vcache):
         _cache_write(kcache, idx, k.transpose(1, 2))
         _cache_write(vcache, idx, v.transpose(1, 2))
         att = _prefill_attention(q, k, v, cfg.window).to(cfg.dtype)
-        x = x + att @ w[f"l{i}/wo"]
-        x = _ffn(w, cfg, i, x)
+        x = x + _attn_out(att, w, i, tp)
+        x = _ffn(w, cfg, i, x, tp.mesh)
     return _logits(w, x)
 
 
@@ -782,7 +957,7 @@ def lm_generate(params: Params, prompt, cfg: LMConfig, steps: int, *,
                 return_logits: bool = False, return_state: bool = False,
                 max_len: "int | None" = None, prompt_lengths=None, eos_id: "int | None" = None,
                 temperature=None, top_k: "int | None" = None, top_p: "float | None" = None,
-                generator: "torch.Generator | None" = None):
+                generator: "torch.Generator | None" = None, mesh=None):
     """KV-cached decoding: ONE batched causal forward ingests the prompt
     [B, P] and fills the caches, then ``steps`` tokens are decoded one
     at a time. Returns the tokens [B, P + steps] (int64), on the
@@ -797,7 +972,14 @@ def lm_generate(params: Params, prompt, cfg: LMConfig, steps: int, *,
     row b continues at ``len_b``; tokens only). ``return_logits``
     appends the [B, P + steps - 1, vocab] logits (row t predicts token
     t + 1); ``return_state`` appends a :class:`GenState`; ``max_len``
-    sizes its caches."""
+    sizes its caches.
+
+    Parameters placed by :func:`shard_lm_params` decode on ``mesh``
+    (default: the tree's own) with Megatron's blocks: every rank of the
+    server row calls this alike (each projection's sum is a collective of
+    the row), the caches hold this rank's K/V heads, and every rank gets
+    the same logits' bits and so the same tokens (a sampled run's
+    ``generator`` seeded alike on each)."""
     greedy, temp, top_p_val = _sampling_args(cfg, temperature, top_k, top_p, generator)
     device = params["emb"].device
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
@@ -816,7 +998,7 @@ def lm_generate(params: Params, prompt, cfg: LMConfig, steps: int, *,
         return _pick_token(logits, generator, temp, top_p_val, greedy=greedy, top_k=top_k,
                            has_top_p=top_p is not None)
 
-    w = _weights(params, cfg)
+    w = _weights(params, cfg, mesh)
     if prompt_lengths is not None:
         if return_logits or return_state:
             raise ValueError("prompt_lengths (ragged batches) does not compose with "
@@ -834,7 +1016,7 @@ def lm_generate(params: Params, prompt, cfg: LMConfig, steps: int, *,
 def _generate_dense(w, cfg, prompt, steps, capacity, pick, eos_id, return_logits, return_state):
     b, p_len = prompt.shape
     total = p_len + steps
-    kcache, vcache = _alloc_kv_caches(cfg, b, capacity, prompt.device)
+    kcache, vcache = _alloc_kv_caches(cfg, b, capacity, prompt.device, _heads(w, cfg).kv_heads)
     toks = torch.zeros((b, total), dtype=torch.int64, device=prompt.device)
     toks[:, :p_len] = prompt
     prefill_logits = _prefill(w, cfg, prompt, kcache, vcache)
@@ -869,7 +1051,7 @@ def _generate_ragged(w, cfg, prompt, lengths, steps, capacity, pick, eos_id):
     row's position admits it."""
     b, p_len = prompt.shape
     dev = prompt.device
-    kcache, vcache = _alloc_kv_caches(cfg, b, capacity, dev)
+    kcache, vcache = _alloc_kv_caches(cfg, b, capacity, dev, _heads(w, cfg).kv_heads)
     rows = torch.arange(b, device=dev)
     out = torch.zeros((b, p_len + steps), dtype=torch.int64, device=dev)
     col = torch.arange(p_len, device=dev)
@@ -896,7 +1078,7 @@ def _generate_ragged(w, cfg, prompt, lengths, steps, capacity, pick, eos_id):
 def lm_generate_continue(params: Params, state: GenState, cfg: LMConfig, steps: int, *,
                          new_tokens=None, temperature=None, top_k: "int | None" = None,
                          top_p: "float | None" = None,
-                         generator: "torch.Generator | None" = None):
+                         generator: "torch.Generator | None" = None, mesh=None):
     """Extend a :class:`GenState` by ``steps`` tokens without re-reading
     the history: ``new_tokens`` [B, M] (the next turn) goes through the
     caches in ONE :func:`_chunk_decode` pass, then ``steps`` tokens are
@@ -912,7 +1094,8 @@ def lm_generate_continue(params: Params, state: GenState, cfg: LMConfig, steps: 
 
     The caches are extended IN PLACE (JAX returns new ones). A state
     handed in earlier stays usable: the slots it has not written are
-    rewritten before they are read."""
+    rewritten before they are read. Under Megatron's placement (``mesh``,
+    as :func:`lm_generate`) the state holds this rank's K/V heads."""
     greedy, temp, top_p_val = _sampling_args(cfg, temperature, top_k, top_p, generator)
     b = state.last_tok.shape[0]
     dev = state.last_tok.device
@@ -926,7 +1109,7 @@ def lm_generate_continue(params: Params, state: GenState, cfg: LMConfig, steps: 
                          "or more")
     new_tokens = (torch.zeros((b, 0), dtype=torch.int64, device=dev) if new_tokens is None
                   else torch.as_tensor(new_tokens, device=dev).to(torch.int64))
-    w = _weights(params, cfg)
+    w = _weights(params, cfg, mesh)
     kc, vc = state.kcache, state.vcache
 
     def at(pos):
@@ -969,7 +1152,8 @@ def _top(x, k: int):
 
 
 def lm_beam_search(params: Params, prompt, cfg: LMConfig, steps: int, *, beam_width: int = 4,
-                   eos_id: "int | None" = None, length_penalty: float = 0.0, prompt_lengths=None):
+                   eos_id: "int | None" = None, length_penalty: float = 0.0, prompt_lengths=None,
+                   mesh=None):
     """Beam search over the KV-cached decode path: the ``beam_width``
     highest-log-probability continuations of each prompt, as ``(tokens
     [B, W, P + steps], scores [B, W])`` best first.
@@ -987,7 +1171,9 @@ def lm_beam_search(params: Params, prompt, cfg: LMConfig, steps: int, *, beam_wi
     ``jnp.argsort``. ``prompt_lengths`` [B] makes the batch ragged, as in
     :func:`lm_generate`: row b's beams continue at ``len_b``, zeros past
     ``len_b + steps``, each prompt's beams those of a single-prompt call.
-    Deterministic."""
+    Deterministic; under Megatron's placement (``mesh``, as
+    :func:`lm_generate`) every rank of the server row keeps the same
+    beams."""
     if beam_width < 1:
         raise ValueError(f"beam_width must be >= 1, got {beam_width}")
     if steps < 1:
@@ -1002,8 +1188,8 @@ def lm_beam_search(params: Params, prompt, cfg: LMConfig, steps: int, *, beam_wi
     ragged = prompt_lengths is not None
     lengths = (_validate_prompt_lengths(prompt_lengths, prompt) if ragged else
                torch.full((prompt.shape[0],), prompt.shape[1], dtype=torch.int64, device=dev))
-    toks, scores, gen_len = _beam(_weights(params, cfg), cfg, prompt, lengths, eos_id, steps,
-                                  beam_width, ragged)
+    toks, scores, gen_len = _beam(_weights(params, cfg, mesh), cfg, prompt, lengths, eos_id,
+                                  steps, beam_width, ragged)
     ranked = scores
     if length_penalty:
         six = scalar_like(6.0, scores)
@@ -1017,7 +1203,7 @@ def _beam(w, cfg: LMConfig, prompt, lengths, eos_id, steps: int, width: int, rag
     b, p_len = prompt.shape
     dev, vocab = prompt.device, cfg.vocab
     total = p_len + steps
-    kc, vc = _alloc_kv_caches(cfg, b, total, dev)
+    kc, vc = _alloc_kv_caches(cfg, b, total, dev, _heads(w, cfg).kv_heads)
     prefill_logits = _prefill(w, cfg, prompt, kc, vc)
     rows = torch.arange(b, device=dev)
     # each prompt's first expansion reads ITS last real position

@@ -23,6 +23,13 @@ one onto these groups:
   the data ranks' tensors concatenated in data order;
 - ``jax.lax.axis_index(axis)`` → :func:`axis_index`, the rank's
   coordinate;
+- tensor and data parallelism's own (what GSPMD inserts for a placed
+  weight): :func:`pvary` (identity forward, ``psum`` backward: Megatron's
+  ``f`` before a column-split projection), :func:`all_gather_dim` (along
+  any dim, backward :func:`psum_scatter`: an FSDP weight's gather),
+  :func:`psum_scatter` (reduce-scatter, under gloo too), and the pair
+  :func:`all_gather_invariant` / :func:`split` for a tensor that every rank
+  then holds alike;
 - ``jax.lax.ppermute`` around the ring → :func:`shift` (:func:`shift_all`
   for several tensors in one exchange), ``jax.lax.all_to_all`` →
   :func:`all_to_all`.
@@ -309,6 +316,159 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, tiled: bool = True) -> to
         parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, x, group=mesh.group(axis))
     return torch.cat(parts) if tiled else torch.stack(parts)
+
+
+def _block(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``: the ``axis`` coordinate's
+    one of ``mesh.shape[axis]`` equal parts."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks of "
+                         f"{axis!r}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(axis, mesh) * size, size)
+
+
+def _gather_dim_raw(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
+    return all_gather(x.movedim(dim, 0).contiguous(), axis, mesh).movedim(0, dim)
+
+
+def _psum_scatter_raw(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The sum over the group, this rank's block of it along ``dim``. NCCL
+    reduce-scatters; gloo has no reduce-scatter, so it all-reduces the
+    whole and keeps the block (every rank's block summed in the same order
+    as the rest)."""
+    if mesh.backend == "nccl":
+        moved = x.movedim(dim, 0).contiguous()
+        out = moved.new_empty((moved.shape[0] // mesh.shape[axis],) + moved.shape[1:])
+        dist.reduce_scatter_tensor(out, moved, group=mesh.group(axis))
+        return out.movedim(0, dim)
+    return _block(_psum_raw(x, axis, mesh), axis, mesh, dim).contiguous()
+
+
+class _PVary(torch.autograd.Function):
+    """Identity forward, the cotangents' ``psum`` backward (Megatron's
+    ``f``; ``jax.lax.pvary``, whose transpose is the ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.args = (axis, mesh)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _psum_raw(ct, *ctx.args), None, None
+
+
+def pvary(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``axis``: how a tensor that
+    every rank of the group holds alike enters a computation that each
+    rank does on its own slice of a weight (a column-split projection), so
+    that the partial input gradients add up. The identity on an axis of
+    size 1."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _PVary.apply(x, axis, mesh)
+
+
+class _GatherDim(torch.autograd.Function):
+    """``all_gather`` along ``dim`` whose backward is the cotangent's
+    reduce-scatter along it (JAX's transpose of a tiled ``all_gather``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = (axis, mesh, dim)
+        return _gather_dim_raw(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _psum_scatter_raw(ct, *ctx.args), None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    """``psum_scatter`` along ``dim`` whose backward gathers the
+    cotangents along it."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = (axis, mesh, dim)
+        return _psum_scatter_raw(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather_dim_raw(ct, *ctx.args), None, None, None
+
+
+class _GatherInvariant(torch.autograd.Function):
+    """``all_gather`` along ``dim`` of a result that every rank then uses
+    alike: its backward keeps this rank's block of the cotangent (which
+    every rank holds alike), so that it counts once."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = (axis, mesh, dim)
+        return _gather_dim_raw(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _block(ct, *ctx.args).contiguous(), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every rank holds alike;
+    the backward gathers the blocks' cotangents, the whole one on every
+    rank (Megatron's split: the transpose of :class:`_GatherInvariant`)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = (axis, mesh, dim)
+        return _block(x, axis, mesh, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather_dim_raw(ct, *ctx.args), None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the group's
+    blocks concatenated along ``dim`` in coordinate order, differentiable:
+    the gradient is the cotangents' :func:`psum_scatter` along ``dim``
+    (each rank's block of the sum), as when each rank uses the gathered
+    tensor on data of its own (an FSDP weight). A CUDA tensor under gloo
+    goes through pinned host memory. ``x`` itself on an axis of size 1."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherDim.apply(x, axis, mesh, dim % x.dim())
+
+
+def psum_scatter(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
+    tiled=True)``: the sum of ``x`` over the group, this rank's block of
+    it along ``dim``. One ``reduce_scatter_tensor`` under NCCL; under gloo,
+    which has none, an ``all_reduce`` and the block. Differentiable: the
+    gradient gathers the cotangents along ``dim``."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _PSumScatter.apply(x, axis, mesh, dim % x.dim())
+
+
+def all_gather_invariant(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather_dim` of a result every rank of the group then uses
+    alike (a projection's heads gathered to run attention whole on every
+    rank): the gradient is this rank's block of the cotangent, not the
+    sum of the ranks' alike cotangents."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherInvariant.apply(x, axis, mesh, dim % x.dim())
+
+
+def split(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor every rank of the group
+    holds alike; the gradient gathers the blocks' cotangents, so that
+    every rank gets the whole. ``x`` itself on an axis of size 1."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _Split.apply(x, axis, mesh, dim % x.dim())
 
 
 def _gather_through_host(x: torch.Tensor, group, n: int):

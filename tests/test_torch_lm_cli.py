@@ -12,9 +12,10 @@ global norm).
 
 The CLI itself runs on ``--device cpu``: it trains, writes its report and
 log lines, evaluates held-out batches and generates. Its flag mistakes
-fail as the JAX CLI's do (argparse's ``SystemExit``), and each flag it
-cannot serve yet raises ``NotImplementedError`` naming its ROADMAP item
-(the parameters and optimizer state sharded, A9 slice 3's second part).
+fail as the JAX CLI's do (argparse's ``SystemExit``). ``--num-servers``,
+``--zero1`` and ``--fsdp`` place the parameters and optimizer state
+across the ranks of a world: ``tests/test_torch_lm_world.py`` runs them
+in a world of 8.
 """
 
 import json
@@ -171,19 +172,6 @@ def test_cli_tiny_corpus_rejected(tmp_path):
     f.write_bytes(b"x" * 32)
     with pytest.raises(SystemExit):
         lm_main.main(["--steps", "2", "--seq-len", "64", "--data", str(f), "--device", "cpu"])
-
-
-UNPORTED = [
-    (["--zero1"], "A9 slice 3, second part"),
-    (["--fsdp"], "A9 slice 3, second part"),
-    (["--num-servers", "2"], "A9 slice 3, second part"),
-]
-
-
-@pytest.mark.parametrize("argv,item", UNPORTED, ids=[" ".join(a) for a, _ in UNPORTED])
-def test_unported_flags_raise_naming_their_roadmap_item(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        lm_main.main(["--steps", "2", *argv, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("attention", ["ring_zigzag", "a2a"])
